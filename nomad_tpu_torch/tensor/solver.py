@@ -1,0 +1,445 @@
+"""Batched bulk-solve service: one device launch for many evals
+(reference ``nomad_tpu/tensor/solver.py:95-965``, single device).
+
+Racing scheduler workers enqueue solve requests here and block on a
+future while ONE service thread batches them (up to ``G_PAD`` per launch,
+demand-driven: whatever queued while the previous launch ran forms the
+next batch) into a single :func:`kernels.solve_bulk_multi` call whose
+usage carry stays on the device between launches.
+
+The carry is an optimistic overlay: the store usage at the last resync
+plus every solve since. Drift is repaired, not tolerated:
+
+- every solve opens a LEDGER entry (per-node counts + ask);
+- the plan's post-apply hook calls :meth:`confirm`: a committed solve
+  closes its entry, rejected nodes queue NEGATIVE corrections that the
+  next launch scatter-adds into the carry;
+- a resync (every ``RESYNC_SOLVES`` solves, on a node-set change, or when
+  the correction queue overflows) rebuilds the carry as committed store
+  usage plus the still-open ledger entries, uploaded once.
+
+On CUDA every launch runs on the service's own stream and records an
+event. Launches chain through the carry in stream order. The fetch waits
+on the launch's event and makes one ``.cpu()`` copy of the (G, N) int16
+counts, the launch's only host sync. Double buffer: launch i is fetched
+only after launch i+1 is queued, so i's workers commit while the device
+solves i+1.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve
+from .kernels import solve_bulk_multi
+
+_STOP = object()
+
+
+class _Request:
+    __slots__ = ("static", "feas_base", "aff", "ask", "k", "tg_count",
+                 "seed", "used_fn", "future", "token")
+
+    def __init__(self, static, feas_base, aff, ask, k, tg_count, seed,
+                 used_fn):
+        self.static = static
+        self.feas_base = feas_base
+        self.aff = aff
+        self.ask = ask
+        self.k = k
+        self.tg_count = tg_count
+        self.seed = seed
+        # called at RESYNC time for a fresh committed-usage base: a base
+        # captured at enqueue time goes stale under queue depth
+        self.used_fn = used_fn
+        self.future = Future()
+        self.token = 0
+
+
+class _LedgerEntry:
+    """One in-flight solve: where its placements went, awaiting the plan
+    outcome."""
+
+    __slots__ = ("static", "idx", "counts", "ask", "born")
+
+    def __init__(self, static, idx, counts, ask, born):
+        self.static = static
+        self.idx = idx        # (M,) node rows with placements
+        self.counts = counts  # (M,) placement counts per row
+        self.ask = ask        # (D,) per-placement usage
+        self.born = born
+
+
+class _Inflight:
+    """One dispatched-but-unfetched launch."""
+
+    __slots__ = ("rs", "static", "counts", "event", "g", "t0",
+                 "t_dispatched")
+
+    def __init__(self, rs, static, counts, event, g, t0, t_dispatched):
+        self.rs = rs
+        self.static = static
+        self.counts = counts            # (G_pad, N) int16 on the device
+        self.event = event              # CUDA event after the launch
+        self.g = g
+        self.t0 = t0
+        self.t_dispatched = t_dispatched
+
+
+class BulkSolverService:
+    G_PAD = 16          # evals per launch (padded; k=0 rows are no-ops)
+    MAX_K = 32767       # int16 counts ceiling per eval
+    RESYNC_SOLVES = 64  # overlay refresh cadence
+    CORRECTIONS = 64    # sparse correction slots per launch
+    LEDGER_TTL = 60.0   # s before an unconfirmed solve is presumed dead
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve(device)
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        # (static, used carry on the device, solves since the resync)
+        self._state = None
+        self._token = 0
+        self._ledger: Dict[int, _LedgerEntry] = {}
+        self._corrections: List[tuple] = []  # (node_row, delta_vec)
+        self._stream = None
+        self.stats = {"launches": 0, "solves": 0, "resyncs": 0,
+                      "launch_s": 0.0, "corrections": 0, "pipelined": 0,
+                      "overlap_s": 0.0, "busy_s": 0.0}
+        # the one dispatched-but-unfetched launch (service thread only)
+        self._inflight: Optional[_Inflight] = None
+
+    # -- caller side (scheduler worker threads) --
+
+    def solve(self, *, static, feas_base, aff, ask, k, tg_count, seed,
+              used_fn):
+        """Blocking solve of one fresh-placement bulk eval ->
+        ((N_pad,) int64 per-node counts in canonical order, token). The
+        caller arranges for confirm(token, rejected_node_ids) to run
+        once the plan holding these placements is applied."""
+        if not 0 <= int(k) <= self.MAX_K:
+            raise ValueError(f"k={k} outside [0, {self.MAX_K}]")
+        req = _Request(static, feas_base, aff,
+                       np.asarray(ask, dtype=np.float32), int(k),
+                       float(tg_count), int(np.uint32(seed)), used_fn)
+        # put BEFORE ensure: the service thread clears its slot before
+        # the final stop-drain, so a request racing stop() is either
+        # drained (failed, answered) or starts a fresh thread
+        self._q.put(req)
+        self._ensure_thread()
+        result = req.future.result()
+        return result, req.token
+
+    def confirm(self, token: int, rejected_node_ids) -> None:
+        """Plan outcome for one solve: close its ledger entry and queue
+        negative corrections for the placements on rejected nodes."""
+        with self._lock:
+            entry = self._ledger.pop(token, None)
+            if entry is None or not rejected_node_ids:
+                return
+            rows = {entry.static.node_index.get(nid)
+                    for nid in rejected_node_ids}
+            for i, row in enumerate(entry.idx):
+                if row in rows:
+                    self._corrections.append(
+                        (row, -float(entry.counts[i]) * entry.ask))
+                    self.stats["corrections"] += 1
+
+    def _ensure_thread(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, name="bulk-solver", daemon=True)
+                self._thread.start()
+
+    def stop(self) -> None:
+        t = self._thread
+        if t is not None and t.is_alive():
+            self._q.put(_STOP)
+            t.join(timeout=10.0)
+
+    # -- service thread --
+
+    def _retire(self) -> None:
+        with self._lock:
+            self._thread = None
+
+    def _run(self) -> None:
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                # every worker that could feed the next batch may be
+                # blocked on the in-flight launch: fetch it before parking
+                self._fetch_inflight()
+                req = self._q.get()
+            if req is _STOP:
+                self._fetch_inflight()
+                self._retire()
+                self._drain_failed()
+                return
+            batch = [req]
+            while len(batch) < self.G_PAD:
+                try:
+                    nxt = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is _STOP:
+                    self._retire()
+                    self._flush(batch)
+                    self._fetch_inflight()
+                    self._drain_failed()
+                    return
+                batch.append(nxt)
+            self._flush(batch)
+
+    def _drain_failed(self) -> None:
+        """Fail any request that raced the stop sentinel into the queue."""
+        while True:
+            try:
+                nxt = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if nxt is not _STOP and not nxt.future.done():
+                nxt.future.set_exception(
+                    RuntimeError("bulk solver service stopped"))
+
+    def _flush(self, batch: List[_Request]) -> None:
+        # one launch per distinct static (mixed statics happen only
+        # across a node-set version change)
+        groups: Dict[int, List[_Request]] = {}
+        for r in batch:
+            groups.setdefault(id(r.static), []).append(r)
+        for rs in groups.values():
+            try:
+                inflight = self._dispatch_group(rs)
+            except Exception as e:  # propagate to every blocked worker
+                # the carry may be half-updated: resync on the next solve
+                self._state = None
+                self._fetch_inflight()
+                for r in rs:
+                    if not r.future.done():
+                        r.future.set_exception(e)
+                continue
+            # double buffer: fetch launch i only once i+1 is queued
+            self._fetch_inflight(pipelined=True)
+            self._inflight = inflight
+
+    def _fetch_inflight(self, pipelined: bool = False) -> None:
+        """Drain the one unfetched launch, if any. Must run before
+        anything that rebuilds the carry from the ledger: an unfetched
+        launch has no ledger entries yet."""
+        inf = self._inflight
+        if inf is None:
+            return
+        self._inflight = None
+        try:
+            self._fetch(inf, pipelined=pipelined)
+        except Exception as e:
+            self._state = None
+            for r in inf.rs:
+                if not r.future.done():
+                    r.future.set_exception(e)
+
+    def _stream_ctx(self):
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return torch.cuda.stream(self._stream)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array -> a fresh tensor on the service's device. On CUDA
+        the copy is staged through pinned memory and queued without a
+        host sync on the current (service) stream."""
+        t = torch.from_numpy(np.array(arr))  # a private, writable copy
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _resync_base(self, r: _Request, ledger_entries) -> torch.Tensor:
+        """Fresh carry: committed usage + open ledger entries, folded on
+        the host and uploaded once."""
+        base = np.asarray(r.used_fn(), dtype=np.float32).copy()
+        for idx, counts, ask in ledger_entries:
+            base[idx] += counts[:, None].astype(np.float32) * ask[None, :]
+        return self._upload(base)
+
+    def _resident(self, static, feas_base, aff):
+        """Device copies of (capacity, mask, affinity) for one static,
+        uploaded once and cached in static.device_arrays, masks and
+        boosts keyed by host-array identity (the static's caches hold
+        the strong refs, so ids are not recycled)."""
+        da = static.device_arrays
+        tag = str(self.device)
+        avail = da.get(("avail", tag))
+        if avail is None:
+            avail = da[("avail", tag)] = self._upload(
+                static.available.astype(np.float32))
+        m = da.get(("m", tag, id(feas_base)))
+        if m is None:
+            m = da[("m", tag, id(feas_base))] = self._upload(feas_base)
+        a = da.get(("a", tag, id(aff)))
+        if a is None:
+            a = da[("a", tag, id(aff))] = self._upload(
+                aff.astype(np.float32))
+        return avail, m, a
+
+    def _device_arrays(self, static, rs: List[_Request]):
+        """Resident capacity + stacked (G_pad, N) mask/affinity rows; the
+        stacks of uniform batches (every row the same mask/aff, the
+        common shape) are cached by the underlying host-array ids."""
+        rows_m, rows_a = [], []
+        avail = None
+        for r in rs:
+            avail, m, a = self._resident(static, r.feas_base, r.aff)
+            rows_m.append((id(r.feas_base), m))
+            rows_a.append((id(r.aff), a))
+        g_pad = 1 if len(rs) == 1 else self.G_PAD
+        while len(rows_m) < g_pad:
+            rows_m.append(rows_m[0])
+            rows_a.append(rows_a[0])
+        uniform = (all(i == rows_m[0][0] for i, _ in rows_m)
+                   and all(i == rows_a[0][0] for i, _ in rows_a))
+        skey = ("stack", str(self.device), g_pad, rows_m[0][0], rows_a[0][0])
+        da = static.device_arrays
+        stacked = da.get(skey) if uniform else None
+        if stacked is None:
+            stacked = (torch.stack([m for _, m in rows_m]),
+                       torch.stack([a for _, a in rows_a]))
+            if uniform:
+                da[skey] = stacked
+        return avail, stacked[0], stacked[1], g_pad
+
+    def _dispatch_group(self, rs: List[_Request]) -> _Inflight:
+        """Build the launch inputs, ship them and queue the solve,
+        returning the device handles without a host sync."""
+        t0 = time.perf_counter()
+        static = rs[0].static
+        d = static.available.shape[1]
+        state = self._state
+        used_dev, since = None, 0
+        if state is not None and state[0] is static:
+            used_dev, since = state[1], state[2]
+
+        with self._lock:
+            need_resync = (used_dev is None
+                           or since >= self.RESYNC_SOLVES
+                           or len(self._corrections) > self.CORRECTIONS)
+        if need_resync:
+            # the base is committed usage + OPEN ledger entries; an
+            # unfetched launch has no entries yet, so drain it first
+            self._fetch_inflight()
+
+        now = time.time()
+        with self._lock:
+            # unconfirmed solves past the TTL belong to evals that died
+            # between solve and submit: stop re-applying them at resync
+            for t in [t for t, e in self._ledger.items()
+                      if now - e.born > self.LEDGER_TTL]:
+                del self._ledger[t]
+            if need_resync:
+                # the rebuild has no phantoms, so queued corrections go
+                self._corrections.clear()
+                ledger_entries = [(e.idx, e.counts, e.ask)
+                                  for e in self._ledger.values()
+                                  if e.static is static]
+                corrections = []
+            else:
+                # at most one launch's worth; leftovers trip the overflow
+                # check on the next dispatch
+                corrections = self._corrections[:self.CORRECTIONS]
+                self._corrections = self._corrections[self.CORRECTIONS:]
+
+        cidx = np.zeros(self.CORRECTIONS, dtype=np.int32)
+        cdelta = np.zeros((self.CORRECTIONS, d), dtype=np.float32)
+        for i, (row, delta) in enumerate(corrections):
+            cidx[i] = row
+            cdelta[i] = delta
+
+        with self._stream_ctx():
+            if need_resync:
+                used_dev = self._resync_base(rs[0], ledger_entries)
+                since = 0
+                with self._lock:
+                    self.stats["resyncs"] += 1
+            avail, feas, aff, g_pad = self._device_arrays(static, rs)
+            g = len(rs)
+            ask = np.zeros((g_pad, d), dtype=np.float32)
+            k = np.zeros(g_pad, dtype=np.int32)
+            tgc = np.ones(g_pad, dtype=np.float32)
+            seeds = np.zeros(g_pad, dtype=np.int64)
+            for i, r in enumerate(rs):
+                ask[i] = r.ask
+                k[i] = r.k
+                tgc[i] = r.tg_count
+                seeds[i] = r.seed
+            used_dev, counts = solve_bulk_multi(
+                used_dev, avail, feas, aff, self._upload(ask),
+                self._upload(k), self._upload(tgc), self._upload(seeds),
+                self._upload(cidx), self._upload(cdelta), g=g_pad)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        self._state = (static, used_dev, since + g)
+        return _Inflight(rs=rs, static=static, counts=counts, event=event,
+                         g=g, t0=t0, t_dispatched=time.perf_counter())
+
+    def _fetch(self, inf: _Inflight, pipelined: bool = False) -> None:
+        """The launch's ONLY host sync: wait for its event, copy the
+        counts back once, register ledger entries, resolve the futures."""
+        t_f0 = time.perf_counter()
+        if inf.event is not None:
+            inf.event.synchronize()
+        counts_np = inf.counts.cpu().numpy()
+        t_f1 = time.perf_counter()
+        born = time.time()
+        with self._lock:
+            self.stats["launches"] += 1
+            self.stats["solves"] += inf.g
+            # host cost only: dispatch + fetch
+            self.stats["launch_s"] += ((inf.t_dispatched - inf.t0)
+                                       + (t_f1 - t_f0))
+            self.stats["overlap_s"] += max(0.0, t_f0 - inf.t_dispatched)
+            self.stats["busy_s"] += max(0.0, t_f1 - inf.t_dispatched)
+            if pipelined:
+                self.stats["pipelined"] += 1
+            for i, r in enumerate(inf.rs):
+                row = counts_np[i]
+                idx = np.nonzero(row)[0]
+                self._token += 1
+                r.token = self._token
+                self._ledger[r.token] = _LedgerEntry(
+                    inf.static, idx, row[idx].astype(np.int64), r.ask, born)
+        for i, r in enumerate(inf.rs):
+            r.future.set_result(counts_np[i].astype(np.int64))
+
+
+_services: Dict[str, BulkSolverService] = {}
+_service_lock = threading.Lock()
+
+
+def get_service(device: DeviceLike = None) -> BulkSolverService:
+    """The process's solver service for ``device`` (created on first
+    use)."""
+    dev = resolve(device)
+    key = str(dev)
+    svc = _services.get(key)
+    if svc is None:
+        with _service_lock:
+            svc = _services.get(key)
+            if svc is None:
+                svc = _services[key] = BulkSolverService(dev)
+    return svc
