@@ -9,8 +9,9 @@ and an unchanged one is reused. Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
 code into an exception.
 
-No fast math: the capacity ``floor(free / ask)`` needs correctly rounded
-division and the fit formula the same ``powf`` that torch runs on CUDA.
+No fast math: the capacity ``floor(free / ask)`` and the per-eval score
+need correctly rounded division and the fit formula the same ``powf``
+that torch runs on CUDA.
 ``--fmad=false`` keeps the compiler from contracting a multiply and an
 add into one differently rounded instruction.
 
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "nt_jitter": ("jitter", [_P, _P, _I, _I, ctypes.c_float, _P]),
     "nt_scatter_add": ("scatter", [_P, _P, _P, _I, _I, _I, _P]),
     "nt_bulk_fill": ("bulk_fill", [_P] * 8 + [_I, _I, _P]),
+    "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
+    "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 7 + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -78,7 +81,8 @@ class LaunchCounts:
                     "plain_on_cuda": dict(self.plain_on_cuda)}
 
 
-COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill"))
+COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
+                       "solve_task_group"))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

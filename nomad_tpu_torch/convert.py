@@ -3,15 +3,15 @@ of loading weights. A node or job table exported from another
 implementation as plain dicts (and numpy values) becomes the port's
 ``Node`` and ``Job`` objects with the same ids, so both stores hold the
 same cluster in the same registration order. Only plain data is read;
-fields this slice does not model must be empty, or the conversion
-raises rather than drop them."""
+fields the port does not model must be empty, or the conversion raises
+rather than drop them."""
 
 from __future__ import annotations
 
 from typing import Iterable, List, Mapping
 
 from .structs import (Affinity, Constraint, Job, Node, NodeResources,
-                      Resources, Task, TaskGroup)
+                      Resources, Spread, SpreadTarget, Task, TaskGroup)
 from .structs.job import EphemeralDisk, UpdateStrategy
 from .structs.resources import NodeReservedResources
 
@@ -20,7 +20,7 @@ def _require_empty(record: Mapping, keys, what: str) -> None:
     for key in keys:
         if record.get(key):
             raise NotImplementedError(
-                f"{what} field {key!r} is not modelled by the bulk slice")
+                f"{what} field {key!r} is not modelled by the port")
 
 
 def node_from_record(rec: Mapping) -> Node:
@@ -74,13 +74,21 @@ def _affinities(rows) -> List[Affinity]:
             for l, r, op, w in rows or ()]
 
 
+def _spreads(rows) -> List[Spread]:
+    return [Spread(attribute=str(a), weight=int(w),
+                   targets=[SpreadTarget(value=str(v), percent=int(p))
+                            for v, p in targets or ()])
+            for a, w, targets in rows or ()]
+
+
 def job_from_record(rec: Mapping) -> Job:
     """A job record -> the port's Job. Constraints are (ltarget, rtarget,
-    operand) rows, affinities (ltarget, rtarget, operand, weight)."""
-    _require_empty(rec, ("spreads",), "job")
+    operand) rows (distinct_hosts and distinct_property among them),
+    affinities (ltarget, rtarget, operand, weight) and spreads
+    (attribute, weight, ((value, percent), ...))."""
     groups = []
     for g in rec["task_groups"]:
-        _require_empty(g, ("spreads", "networks", "volumes"), "task group")
+        _require_empty(g, ("networks", "volumes"), "task group")
         tasks = []
         for t in g["tasks"]:
             r = t["resources"]
@@ -99,8 +107,13 @@ def job_from_record(rec: Mapping) -> Job:
             name=str(g["name"]), count=int(g["count"]), tasks=tasks,
             constraints=_constraints(g.get("constraints")),
             affinities=_affinities(g.get("affinities")),
+            spreads=_spreads(g.get("spreads")),
             update=(None if update is None else UpdateStrategy(
                 max_parallel=int(update.get("max_parallel", 1)),
+                progress_deadline_s=float(
+                    update.get("progress_deadline_s", 600.0)),
+                auto_revert=bool(update.get("auto_revert", False)),
+                auto_promote=bool(update.get("auto_promote", False)),
                 canary=int(update.get("canary", 0)))),
             ephemeral_disk=EphemeralDisk(
                 size_mb=int(g.get("ephemeral_disk_mb", 300)))))
@@ -112,4 +125,5 @@ def job_from_record(rec: Mapping) -> Job:
         node_pool=str(rec.get("node_pool", "default")),
         constraints=_constraints(rec.get("constraints")),
         affinities=_affinities(rec.get("affinities")),
+        spreads=_spreads(rec.get("spreads")),
         task_groups=groups)

@@ -1,14 +1,15 @@
-"""Fixtures (reference ``nomad_tpu/mock.py:27-130``) plus a copy of the
+"""Fixtures (reference ``nomad_tpu/mock.py:27-155``) plus a copy of the
 benchmark's seeded cluster (reference ``bench.py:72-85`` ``build_nodes``)
-and job shape (``bench.py`` ``service_job``)."""
+and job shape (``bench.py:88-105`` ``service_job``)."""
 
 from __future__ import annotations
 
 import itertools
 import random
 
-from .structs import (Constraint, Evaluation, Job, Node, NodeResources,
-                      Resources, Task, TaskGroup, enums)
+from .structs import (Allocation, Constraint, Evaluation, Job, Node,
+                      NodeResources, Resources, Task, TaskGroup, alloc_name,
+                      enums)
 from .structs.job import ReschedulePolicy, UpdateStrategy
 from .utils.ids import generate_uuid
 
@@ -118,14 +119,50 @@ def build_nodes(store, n_nodes: int, seed: int = 0) -> None:
         store.upsert_node(n)
 
 
+def alloc(j: Job = None, n: Node = None, index: int = 0,
+          **overrides) -> Allocation:
+    """A placed, running alloc of the job's first group on the node."""
+    if j is None:
+        j = job()
+    if n is None:
+        n = node()
+    tg = j.task_groups[0]
+    a = Allocation(
+        id=generate_uuid(),
+        eval_id=generate_uuid(),
+        name=alloc_name(j.id, tg.name, index),
+        namespace=j.namespace,
+        node_id=n.id,
+        node_name=n.name,
+        job_id=j.id,
+        job=j,
+        job_version=j.version,
+        task_group=tg.name,
+        allocated_vec=tg.combined_resources().vec(),
+        desired_status=enums.ALLOC_DESIRED_RUN,
+        client_status=enums.ALLOC_CLIENT_RUNNING,
+    )
+    for k, v in overrides.items():
+        setattr(a, k, v)
+    return a
+
+
 def service_job(count: int, cpu: int = 100, mem: int = 64, *,
+                spreads=None, constraints=None, affinities=None,
                 batch: bool = False, priority: int = 50) -> Job:
     """The benchmark's one-group job shape (reference ``bench.py``
-    ``service_job``)."""
+    ``service_job``): spreads, constraints and affinities replace the
+    group's own."""
     j = batch_job() if batch else job()
     j.priority = priority
     tg = j.task_groups[0]
     tg.count = count
     tg.tasks[0].resources.cpu = cpu
     tg.tasks[0].resources.memory_mb = mem
+    if spreads:
+        tg.spreads = list(spreads)
+    if constraints:
+        tg.constraints = list(constraints)
+    if affinities:
+        tg.affinities = list(affinities)
     return j

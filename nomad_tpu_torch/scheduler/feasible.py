@@ -1,9 +1,10 @@
-"""Feasibility masks, trimmed to the bulk path (reference
+"""Feasibility, trimmed to the bulk and per-eval paths (reference
 ``nomad_tpu/scheduler/feasible.py``): node-attribute constraints and
 drivers, evaluated once per unique attribute value into a boolean mask
-over the node list. Version and semver operators, device asks, network
-modes and host volumes belong to the per-eval path that a later slice
-ports (ROADMAP queue A, slice 4) and raise here."""
+over the node list, and the distinct_hosts / distinct_property masks of
+the host oracle. Version and semver operators, device asks, network
+modes and host volumes are the rest of ROADMAP queue A5 and raise
+here."""
 
 from __future__ import annotations
 
@@ -14,7 +15,16 @@ import numpy as np
 
 from ..structs import Constraint, Job, Node, TaskGroup, enums
 
-_PER_EVAL = "ROADMAP queue A, slice 4 (the per-eval general path)"
+# what the per-eval path does not model yet, named in every such raise
+UNPORTED_A5 = ("ROADMAP queue A5 (ports, devices/NUMA columns, "
+               "version/semver constraints)")
+
+
+def is_class_escaped(target: str) -> bool:
+    """Whether a constraint target defeats computed-class memoization
+    (anything node-unique)."""
+    return ("${node.unique." in target or "${attr.unique." in target
+            or "${meta.unique." in target)
 
 
 def resolve_target(target: str, node: Node) -> Tuple[str, bool]:
@@ -67,7 +77,7 @@ def check_constraint(operand: str, lval: str, rval: str, lfound: bool,
     bulk path meets."""
     if operand in (enums.CONSTRAINT_DISTINCT_HOSTS,
                    enums.CONSTRAINT_DISTINCT_PROPERTY):
-        return True  # handled by the bulk-shape gate
+        return True  # handled by the dedicated masks below
     if operand in ("=", "==", "is"):
         return lfound and rfound and lval == rval
     if operand in ("!=", "not"):
@@ -103,8 +113,16 @@ def check_constraint(operand: str, lval: str, rval: str, lfound: bool,
                 and any(w in _split_set(lval) for w in _split_set(rval)))
     if operand in (enums.CONSTRAINT_VERSION, enums.CONSTRAINT_SEMVER):
         raise NotImplementedError(
-            f"constraint operand {operand!r}: {_PER_EVAL}")
+            f"constraint operand {operand!r}: {UNPORTED_A5}")
     return False
+
+
+def node_meets_constraint(c: Constraint, node: Node,
+                          regex_cache: Optional[dict] = None) -> bool:
+    lval, lfound = resolve_target(c.ltarget, node)
+    rval, rfound = resolve_target(c.rtarget, node)
+    return check_constraint(c.operand, lval, rval, lfound, rfound,
+                            regex_cache)
 
 
 def constraint_mask(c: Constraint, nodes: Sequence[Node],
@@ -158,11 +176,11 @@ def feasible_mask_static(job: Job, tg: TaskGroup, nodes: Sequence[Node],
     """The node-attribute-only feasibility mask: drivers + constraints.
     Cacheable per (task-group signature, node-set version)."""
     if any(t.resources.devices for t in tg.tasks):
-        raise NotImplementedError(f"device asks: {_PER_EVAL}")
+        raise NotImplementedError(f"device asks: {UNPORTED_A5}")
     if _network_modes(tg):
-        raise NotImplementedError(f"network modes: {_PER_EVAL}")
+        raise NotImplementedError(f"network modes: {UNPORTED_A5}")
     if tg.volumes:
-        raise NotImplementedError(f"volumes: {_PER_EVAL}")
+        raise NotImplementedError(f"volumes: {UNPORTED_A5}")
     mask = driver_mask(tg, nodes)
     for c in job_constraints(job, tg):
         if not mask.any():
@@ -193,6 +211,58 @@ def distinct_hosts_flags(job: Job, tg: TaskGroup) -> Tuple[bool, bool]:
     return job_level, tg_level
 
 
-def has_distinct_property(job: Job, tg: TaskGroup) -> bool:
-    return any(c.operand == enums.CONSTRAINT_DISTINCT_PROPERTY
-               for c in list(job.constraints) + list(tg.constraints))
+def distinct_property_constraints(job: Job, tg: TaskGroup) -> List[Constraint]:
+    return [c for c in list(job.constraints) + list(tg.constraints)
+            if c.operand == enums.CONSTRAINT_DISTINCT_PROPERTY]
+
+
+def distinct_hosts_mask(job: Job, tg: TaskGroup, nodes: Sequence[Node],
+                        proposed_by_node) -> np.ndarray:
+    """Mask out nodes already carrying an alloc of this job (job-level)
+    or of this task group (group-level)."""
+    job_level, tg_level = distinct_hosts_flags(job, tg)
+    out = np.ones(len(nodes), dtype=bool)
+    if not job_level and not tg_level:
+        return out
+    for i, node in enumerate(nodes):
+        for alloc in proposed_by_node(node.id):
+            if alloc.job_id != job.id or alloc.namespace != job.namespace:
+                continue
+            if job_level or (tg_level and alloc.task_group == tg.name):
+                out[i] = False
+                break
+    return out
+
+
+def distinct_property_limit(c: Constraint) -> int:
+    """The allocs allowed per property value: rtarget, default 1."""
+    try:
+        return int(c.rtarget) if c.rtarget else 1
+    except ValueError:
+        return 1
+
+
+def distinct_property_mask(job: Job, tg: TaskGroup, nodes: Sequence[Node],
+                           all_job_allocs, node_by_id) -> np.ndarray:
+    """Limit allocs per distinct value of a node property: a node is out
+    when it lacks the property or its value is at the limit."""
+    constraints = distinct_property_constraints(job, tg)
+    out = np.ones(len(nodes), dtype=bool)
+    if not constraints:
+        return out
+    live = [a for a in all_job_allocs if not a.terminal_status()]
+    for c in constraints:
+        limit = distinct_property_limit(c)
+        counts: Dict[str, int] = {}
+        for alloc in live:
+            anode = node_by_id(alloc.node_id)
+            if anode is None:
+                continue
+            val, found = resolve_target(c.ltarget, anode)
+            if found:
+                counts[val] = counts.get(val, 0) + 1
+        for i, node in enumerate(nodes):
+            val, found = resolve_target(c.ltarget, node)
+            if not found or counts.get(val, 0) >= limit:
+                out[i] = False
+    return out

@@ -1,10 +1,12 @@
-"""Service + batch scheduler, the fresh bulk-placement subset (reference
+"""Service + batch scheduler, the fresh-placement subset (reference
 ``nomad_tpu/scheduler/generic_sched.py:31-488``).
 
-Retry loop: reconcile -> place -> submit plan -> on a partial commit
-retry against the fresher snapshot (zero-progress attempts are capped at
-5 for service jobs, 2 for batch). Unplaced allocations produce a blocked
-evaluation.
+Retry loop: reconcile -> open a deployment for a fresh job version ->
+place -> submit plan -> on a partial commit retry against the fresher
+snapshot (zero-progress attempts are capped at 5 for service jobs, 2 for
+batch). Unplaced allocations produce a blocked evaluation. Placements
+commit per request (``commit(req, option)``) or, on the bulk path, as
+one AllocBlock per group (``commit.commit_block``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import time
 from typing import Optional
 
 from ..structs import enums
-from ..structs.alloc import AllocBlock
+from ..structs.alloc import AllocBlock, Allocation
+from ..structs.deployment import Deployment, DeploymentState
 from ..structs.evaluation import Evaluation
 from ..utils.ids import generate_uuid
 from .context import EvalContext
@@ -48,6 +51,7 @@ class GenericScheduler:
 
         self.eval: Optional[Evaluation] = None
         self.plan = None
+        self.deployment = None
         self.failed_tg_allocs = {}
         self.queued_allocs = {}
         self.blocked: Optional[Evaluation] = None
@@ -81,12 +85,19 @@ class GenericScheduler:
         job = self.state.job_by_id(ev.job_id, ev.namespace)
         self.plan = ev.make_plan(job)
         ctx = EvalContext(self.state, self.plan, eval_id=ev.id)
+        if job is not None:
+            ctx.eligibility.set_job(job)
 
         all_allocs = self.state.allocs_by_job(ev.job_id, ev.namespace)
         results = AllocReconciler(job, ev.job_id, all_allocs, self.state,
                                   batch=self.batch).compute()
-        requests = [g.bulk_place for g in results.groups.values()
-                    if g.bulk_place is not None]
+        self._open_deployment(job, results)
+
+        requests = []
+        for g in results.groups.values():
+            requests.extend(g.place)
+            if g.bulk_place is not None:
+                requests.append(g.bulk_place)
         if requests and job is not None:
             self._compute_placements(ctx, job, requests, attempt)
 
@@ -100,7 +111,8 @@ class GenericScheduler:
         result, new_state = self.planner.submit_plan(self.plan)
         self._progress = bool(result.node_allocation or result.node_update
                               or result.node_preemptions
-                              or result.alloc_blocks)
+                              or result.alloc_blocks
+                              or result.deployment is not None)
         if new_state is not None:
             self.state = new_state
             full, _expected, _actual = result.full_commit(self.plan)
@@ -108,6 +120,48 @@ class GenericScheduler:
                 return False
         self._finish_success()
         return True
+
+    def _open_deployment(self, job, results) -> None:
+        """A new job version with an update stanza and placements opens a
+        deployment (reference generic_sched.go:120-175). As there, only a
+        group with per-request placements gets a DeploymentState: a group
+        placed through ``bulk_place`` alone has an empty ``place`` and no
+        state, and a deployment without states is not opened."""
+        self.deployment = None
+        if self.batch or job is None or job.stopped():
+            return
+        ev = self.eval
+        latest = self.state.latest_deployment_by_job(ev.job_id, ev.namespace)
+        has_update = any(tg.update is not None for tg in job.task_groups)
+        changes = results.total_places() > 0
+        if has_update and changes and (
+                latest is None or latest.job_version != job.version):
+            dep = Deployment(id=generate_uuid(), namespace=job.namespace,
+                             job_id=job.id, job_version=job.version,
+                             eval_priority=ev.priority)
+            now0 = time.time()
+            for tg in job.task_groups:
+                if tg.update is None:
+                    continue
+                tgr = results.groups.get(tg.name)
+                if tgr is None or not tgr.place:
+                    continue
+                wants_canaries = any(p.canary for p in tgr.place)
+                dep.task_groups[tg.name] = DeploymentState(
+                    auto_revert=tg.update.auto_revert,
+                    auto_promote=tg.update.auto_promote,
+                    desired_canaries=(tg.update.canary if wants_canaries
+                                      else 0),
+                    desired_total=tg.count,
+                    progress_deadline_s=tg.update.progress_deadline_s,
+                    require_progress_by=(now0
+                                         + tg.update.progress_deadline_s))
+            if dep.task_groups:
+                self.deployment = dep
+                self.plan.deployment = dep
+        elif (latest is not None and latest.active()
+              and latest.job_version == job.version):
+            self.deployment = latest
 
     def _compute_placements(self, ctx: EvalContext, job, requests,
                             attempt: int) -> None:
@@ -127,6 +181,50 @@ class GenericScheduler:
                               if effective is not None else False)
         now = time.time()
 
+        def dep_id(tg) -> str:
+            return (self.deployment.id if self.deployment is not None
+                    and tg.update is not None else "")
+
+        def commit(req, option):
+            """Per-request commit: a failure coalesces per task group, a
+            success appends one Allocation to the plan."""
+            tg = req.task_group
+            if option is None:
+                m = ctx.metrics
+                prev = self.failed_tg_allocs.get(tg.name)
+                if prev is None:
+                    self.failed_tg_allocs[tg.name] = m
+                else:
+                    prev.coalesced_failures += 1
+                self.queued_allocs[tg.name] = self.queued_allocs.get(
+                    tg.name, 0)
+                return
+            if req.canary or req.reschedule or req.previous_alloc is not None:
+                raise NotImplementedError(
+                    "canary and replacement placements: ROADMAP queue A1")
+            if option.preempted_allocs:
+                raise NotImplementedError("preemption: ROADMAP queue A4")
+            self.plan.append_alloc(Allocation(
+                id=generate_uuid(),
+                eval_id=ev.id,
+                deployment_id=dep_id(tg),
+                name=req.name,
+                namespace=job.namespace,
+                node_id=option.node.id,
+                node_name=option.node.name,
+                job_id=job.id,
+                job=job,
+                job_version=job.version,
+                task_group=tg.name,
+                allocated_vec=ctx.tg_vec(tg),
+                desired_status=enums.ALLOC_DESIRED_RUN,
+                client_status=enums.ALLOC_CLIENT_PENDING,
+                metrics=ctx.metrics,
+                allocated_at=now,
+            ))
+            self.queued_allocs[tg.name] = self.queued_allocs.get(
+                tg.name, 0) + 1
+
         def commit_block(tg, node_ids, node_names, counts, name_indices,
                          mean_score):
             """Columnar bulk commit: ONE AllocBlock rides the plan for K
@@ -139,6 +237,7 @@ class GenericScheduler:
                 job=job,
                 job_version=job.version,
                 task_group=tg.name,
+                deployment_id=dep_id(tg),
                 name_indices=name_indices,
                 node_ids=list(node_ids),
                 node_names=list(node_names),
@@ -168,7 +267,9 @@ class GenericScheduler:
                 prev.coalesced_failures += n
             self.queued_allocs.setdefault(tg.name, 0)
 
-        placer.place(ctx, job, requests, nodes, commit_block, fail_bulk,
+        commit.commit_block = commit_block
+        commit.fail_bulk = fail_bulk
+        placer.place(ctx, job, requests, nodes, commit, batch=self.batch,
                      preemption_enabled=preemption_enabled, attempt=attempt)
 
     def _finish_success(self) -> None:

@@ -2,11 +2,11 @@
 ``nomad_tpu/scheduler/reconcile.py`` and the name index of
 ``scheduler/util.py``).
 
-The bulk slice places the missing allocations of a group as ONE
-columnar request once at least ``BULK_PLACE_MIN`` are missing. Stops,
-updates, deployments, reschedules, lost or migrating allocs and small
-remainders belong to later slices and raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+A group missing at least ``BULK_PLACE_MIN`` allocations gets ONE
+columnar request; a smaller remainder gets one ``PlacementRequest`` per
+missing alloc. Stops, scale-down, canaries, replacements, reschedules,
+lost or migrating allocs belong to later slices and raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -16,13 +16,26 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..structs import Allocation, Job, TaskGroup, enums
+from ..structs import Allocation, Job, TaskGroup, alloc_name, enums
 
 BULK_PLACE_MIN = 256  # below this, per-request objects are cheap enough
 
-_SERVER_SLICE = ("ROADMAP queue A: the Server/Worker/plan-applier slice "
-                 "(stops, updates, deployments, reschedules)")
-_PER_EVAL = "ROADMAP queue A, slice 4 (the per-eval general path)"
+_SERVER_SLICE = ("ROADMAP queue A1: the Server/Worker/plan-applier slice "
+                 "(stops, canaries, replacements, reschedules)")
+
+
+@dataclass
+class PlacementRequest:
+    """One allocation that must be placed. The port's reconciler makes
+    only fresh ones; a replacement (``previous_alloc``, ``reschedule``)
+    or a canary raises where it is committed."""
+
+    name: str
+    task_group: TaskGroup
+    previous_alloc: Optional[Allocation] = None
+    reschedule: bool = False
+    canary: bool = False
+    ignore_node: str = ""  # node of a failed previous alloc (penalty)
 
 
 @dataclass
@@ -38,9 +51,18 @@ class BulkPlacementRequest:
     def count(self) -> int:
         return len(self.name_indices)
 
+    def expand(self) -> List[PlacementRequest]:
+        """The per-alloc requests of this batch, for groups whose
+        features rule out the count-based bulk solve."""
+        tg = self.task_group
+        return [PlacementRequest(
+            name=alloc_name(self.job_id, tg.name, int(i)), task_group=tg)
+            for i in self.name_indices]
+
 
 @dataclass
 class GroupResult:
+    place: List[PlacementRequest] = field(default_factory=list)
     bulk_place: Optional[BulkPlacementRequest] = None
     ignore: int = 0
 
@@ -50,16 +72,29 @@ class ReconcileResults:
     groups: Dict[str, GroupResult] = field(default_factory=dict)
 
     def total_places(self) -> int:
-        return sum(g.bulk_place.count for g in self.groups.values()
-                   if g.bulk_place is not None)
+        return sum(len(g.place)
+                   + (g.bulk_place.count if g.bulk_place is not None else 0)
+                   for g in self.groups.values())
 
 
 class AllocNameIndex:
     """In-use alloc name indexes of a task group, so new placements take
     the lowest free "<job>.<group>[i]" names."""
 
-    def __init__(self, allocs: List[Allocation]):
+    def __init__(self, job_id: str, group: str, allocs: List[Allocation]):
+        self.job_id = job_id
+        self.group = group
         self.used = {i for i in (a.index() for a in allocs) if i >= 0}
+
+    def next_batch(self, n: int) -> List[str]:
+        out = []
+        i = 0
+        while len(out) < n:
+            if i not in self.used:
+                self.used.add(i)
+                out.append(alloc_name(self.job_id, self.group, i))
+            i += 1
+        return out
 
     def next_batch_indices(self, n: int) -> np.ndarray:
         if not self.used:
@@ -107,10 +142,12 @@ class AllocReconciler:
     def _compute_group(self, tg: TaskGroup,
                        allocs: List[Allocation]) -> GroupResult:
         g = GroupResult()
-        if tg.update is not None:
+        if tg.update is not None and tg.update.canary:
             raise NotImplementedError(
-                f"group {tg.name!r} has an update stanza (deployments): "
-                f"{_SERVER_SLICE}")
+                f"group {tg.name!r} asks for canaries: {_SERVER_SLICE}")
+        if tg.volumes:
+            raise NotImplementedError(
+                f"group {tg.name!r} claims volumes: ROADMAP queue A5")
         live: List[Allocation] = []
         batch_done = 0
         for a in allocs:
@@ -133,14 +170,14 @@ class AllocReconciler:
         if have > tg.count:
             raise NotImplementedError(f"scaling a group down: {_SERVER_SLICE}")
         missing = tg.count - have
-        if missing == 0:
+        name_index = AllocNameIndex(
+            self.job_id, tg.name,
+            [a for a in allocs if not a.terminal_status()])
+        if missing >= BULK_PLACE_MIN:
+            g.bulk_place = BulkPlacementRequest(
+                task_group=tg, job_id=self.job_id,
+                name_indices=name_index.next_batch_indices(missing))
             return g
-        if missing < BULK_PLACE_MIN:
-            raise NotImplementedError(
-                f"{missing} placements (< {BULK_PLACE_MIN}): {_PER_EVAL}")
-        g.bulk_place = BulkPlacementRequest(
-            task_group=tg, job_id=self.job_id,
-            name_indices=AllocNameIndex(
-                [a for a in allocs if not a.terminal_status()]
-            ).next_batch_indices(missing))
+        for name in name_index.next_batch(missing):
+            g.place.append(PlacementRequest(name=name, task_group=tg))
         return g

@@ -1,7 +1,8 @@
-"""The state store, trimmed to the bulk placement path (reference
-``nomad_tpu/state/store.py``): nodes, node pools, jobs, evals and alloc
-blocks (the only form placements take on this path) in MVCC tables, one
-serialized writer and any number of concurrent snapshot readers.
+"""The state store, trimmed to the placement paths (reference
+``nomad_tpu/state/store.py``): nodes, node pools, jobs, evals,
+deployments, alloc blocks (the bulk path's placements) and single
+allocations (the per-eval path's) in MVCC tables, one serialized writer
+and any number of concurrent snapshot readers.
 
 Write protocol: ``_begin()`` allocates the next generation privately,
 mutations land in version chains at that generation, ``_commit()``
@@ -21,6 +22,7 @@ import numpy as np
 
 from ..structs import enums
 from ..structs.alloc import AllocBlock, Allocation
+from ..structs.deployment import Deployment
 from ..structs.evaluation import Evaluation
 from ..structs.job import Job
 from ..structs.node import Node
@@ -30,7 +32,8 @@ from .mvcc import SnapshotTracker, VersionedTable, cons, cons_iter
 
 class BlockRef:
     """Secondary-index entry pointing into an AllocBlock: ``row`` is a
-    node row of the block, or -1 for all rows (job index)."""
+    node row of the block, or -1 for all rows (job index). The other
+    entries of the alloc indexes are tuples of single-alloc ids."""
 
     __slots__ = ("block_id", "row")
 
@@ -119,6 +122,29 @@ class StateSnapshot:
     def eval_by_id(self, eval_id: str) -> Optional[Evaluation]:
         return self._store._evals.get(eval_id, self.index)
 
+    # --- deployments ---
+
+    def deployment_by_id(self, dep_id: str) -> Optional[Deployment]:
+        return self._store._deployments.get(dep_id, self.index)
+
+    def deployments_by_job(self, job_id: str,
+                           namespace: str = "default") -> List[Deployment]:
+        out = []
+        for dep_id in cons_iter(self._store._deployments_by_job.get(
+                (namespace, job_id), self.index)):
+            dep = self._store._deployments.get(dep_id, self.index)
+            if dep is not None:
+                out.append(dep)
+        return out
+
+    def latest_deployment_by_job(self, job_id: str, namespace: str = "default"
+                                 ) -> Optional[Deployment]:
+        best = None
+        for dep in self.deployments_by_job(job_id, namespace):
+            if best is None or dep.create_index > best.create_index:
+                best = dep
+        return best
+
     # --- allocs ---
 
     def alloc_blocks(self) -> Iterator[AllocBlock]:
@@ -127,12 +153,24 @@ class StateSnapshot:
     def allocs(self) -> Iterator[Allocation]:
         for block in self.alloc_blocks():
             yield from block.iter_allocs()
+        for _, a in self._store._allocs.iterate(self.index):
+            yield a
+
+    def alloc_by_id(self, alloc_id: str) -> Optional[Allocation]:
+        return self._store._allocs.get(alloc_id, self.index)
 
     def _allocs_from_index(self, table: VersionedTable,
                            key) -> List[Allocation]:
         out: List[Allocation] = []
+        store = self._store
         for ref in cons_iter(table.get(key, self.index)):
-            block = self._store._alloc_blocks.get(ref.block_id, self.index)
+            if isinstance(ref, tuple):
+                for aid in ref:
+                    a = store._allocs.get(aid, self.index)
+                    if a is not None:
+                        out.append(a)
+                continue
+            block = store._alloc_blocks.get(ref.block_id, self.index)
             if block is None:
                 continue
             rows = block.live_rows() if ref.row < 0 else (ref.row,)
@@ -170,6 +208,9 @@ class StateStore:
         self._jobs = VersionedTable("jobs")
         self._evals = VersionedTable("evals")
         self._alloc_blocks = VersionedTable("alloc_blocks")
+        self._allocs = VersionedTable("allocs")
+        self._deployments = VersionedTable("deployments")
+        self._deployments_by_job = VersionedTable("deployments_by_job")
         self._allocs_by_node = VersionedTable("allocs_by_node")
         self._allocs_by_job = VersionedTable("allocs_by_job")
         # per-node summed allocated_vec of non-terminal allocs
@@ -301,21 +342,90 @@ class StateStore:
                              gen, live)
         self._usage_mat[self._usage_row(node_id)] += delta
 
-    # --- the plan-apply mutation ---
+    # --- deployments ---
 
-    def upsert_plan_results(self, alloc_blocks: List[AllocBlock] = (),
-                            evals: List[Evaluation] = ()) -> int:
-        """Commit a plan's columnar placements (and eval updates) in one
-        generation: per block one block row, one BlockRef per touched
-        node, one vectorized usage add per node."""
+    def _put_deployment(self, dep: Deployment, gen: int, live: int) -> None:
+        prev = self._deployments.get_latest(dep.id)
+        dep.create_index = prev.create_index if prev is not None else gen
+        dep.modify_index = gen
+        self._deployments.put(dep.id, dep, gen, live)
+        if prev is None:
+            key = (dep.namespace, dep.job_id)
+            cell = self._deployments_by_job.get_latest(key)
+            self._deployments_by_job.put(key, cons(dep.id, cell), gen, live)
+
+    def upsert_deployment(self, dep: Deployment) -> int:
         with self._write_lock:
             gen, live = self._begin()
+            self._put_deployment(dep, gen, live)
+            self._commit(gen)
+            return gen
+
+    # --- the plan-apply mutation ---
+
+    def upsert_allocs(self, allocs: List[Allocation]) -> int:
+        """Insert or replace single allocations in one generation."""
+        with self._write_lock:
+            gen, live = self._begin()
+            self._put_allocs(allocs, gen, live)
+            self._commit(gen)
+            return gen
+
+    def upsert_plan_results(self, allocs: List[Allocation] = (),
+                            alloc_blocks: List[AllocBlock] = (),
+                            deployment: Optional[Deployment] = None,
+                            evals: List[Evaluation] = ()) -> int:
+        """Commit a plan in one generation: its single allocations, its
+        columnar placements (per block one block row, one BlockRef per
+        touched node, one vectorized usage add per node), the deployment
+        it opens and its eval updates."""
+        with self._write_lock:
+            gen, live = self._begin()
+            self._put_allocs(allocs, gen, live)
             for block in alloc_blocks:
                 self._put_alloc_block(block, gen, live)
+            if deployment is not None:
+                self._put_deployment(deployment, gen, live)
             for ev in evals:
                 self._put_eval(ev, gen, live)
             self._commit(gen)
             return gen
+
+    def _put_allocs(self, allocs: List[Allocation], gen: int,
+                    live: int) -> None:
+        """Single allocations: a new id gets one index entry per node and
+        job key (one chunk cell per key per generation); a replaced row
+        moves the node's usage by the difference."""
+        by_node: Dict[str, list] = {}
+        by_job: Dict[tuple, list] = {}
+        # per (node, vec identity) counts: placements of one group share
+        # one allocated_vec, so the adds collapse to one multiply a node
+        usage: Dict[tuple, list] = {}
+
+        def count(node_id, vec, sign):
+            e = usage.setdefault((node_id, id(vec), sign), [vec, 0])
+            e[1] += 1
+
+        for a in allocs:
+            prev = self._allocs.get_latest(a.id)
+            a.create_index = prev.create_index if prev is not None else gen
+            a.modify_index = gen
+            self._allocs.put(a.id, a, gen, live)
+            if prev is None:
+                by_node.setdefault(a.node_id, []).append(a.id)
+                by_job.setdefault((a.namespace, a.job_id), []).append(a.id)
+            elif prev.should_count_for_usage():
+                count(prev.node_id, prev.allocated_vec, -1.0)
+            if a.should_count_for_usage():
+                count(a.node_id, a.allocated_vec, 1.0)
+        for (node_id, _, sign), (vec, n) in usage.items():
+            self._usage_add(node_id, vec * (sign * n) if n != 1 or sign < 0
+                            else vec, gen, live)
+        for table, groups in ((self._allocs_by_node, by_node),
+                              (self._allocs_by_job, by_job)):
+            for key, ids in groups.items():
+                table.put(key, cons(tuple(ids), table.get_latest(key)),
+                          gen, live)
 
     def _put_alloc_block(self, block: AllocBlock, gen: int, live: int) -> None:
         block.create_index = gen

@@ -23,6 +23,7 @@ class AllocMetric:
     nodes_exhausted: int = 0
     dimension_exhausted: Dict[str, int] = field(default_factory=dict)
     scores: Dict[str, float] = field(default_factory=dict)
+    allocation_time_s: float = 0.0
     coalesced_failures: int = 0
 
     def exhaust_node(self, dimension: str) -> None:
@@ -30,6 +31,12 @@ class AllocMetric:
         if dimension:
             self.dimension_exhausted[dimension] = (
                 self.dimension_exhausted.get(dimension, 0) + 1)
+
+    def filter_node(self, reason: str) -> None:
+        self.nodes_filtered += 1
+        if reason:
+            self.constraint_filtered[reason] = (
+                self.constraint_filtered.get(reason, 0) + 1)
 
 
 @dataclass(slots=True)
@@ -39,6 +46,7 @@ class Allocation:
 
     id: str = ""
     eval_id: str = ""
+    deployment_id: str = ""
     name: str = ""
     namespace: str = "default"
     node_id: str = ""
@@ -66,6 +74,10 @@ class Allocation:
 
     def terminal_status(self) -> bool:
         return self.server_terminal() or self.client_terminal()
+
+    def should_count_for_usage(self) -> bool:
+        """Client-terminal allocs are free in fit math."""
+        return not self.client_terminal()
 
     def index(self) -> int:
         """The bracketed index of the alloc name "<job>.<group>[i]"."""
@@ -101,6 +113,7 @@ class AllocBlock:
     job: object = None
     job_version: int = 0
     task_group: str = ""
+    deployment_id: str = ""
     name_indices: np.ndarray = field(
         default_factory=lambda: np.zeros(0, np.int64))
     node_ids: List[str] = field(default_factory=list)
@@ -153,6 +166,7 @@ class AllocBlock:
             a = self._mat[p] = Allocation(
                 id=f"{self.id}{BLOCK_SEP}{p}",
                 eval_id=self.eval_id,
+                deployment_id=self.deployment_id,
                 name=alloc_name(self.job_id, self.task_group,
                                 int(self.name_indices[p])),
                 namespace=self.namespace,

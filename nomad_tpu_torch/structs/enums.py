@@ -36,6 +36,12 @@ EVAL_STATUS_COMPLETE = "complete"
 EVAL_STATUS_FAILED = "failed"
 EVAL_STATUS_CANCELLED = "canceled"
 
+DEPLOYMENT_STATUS_RUNNING = "running"
+DEPLOYMENT_STATUS_PAUSED = "paused"
+DEPLOYMENT_STATUS_FAILED = "failed"
+DEPLOYMENT_STATUS_SUCCESSFUL = "successful"
+DEPLOYMENT_STATUS_CANCELLED = "cancelled"
+
 TRIGGER_JOB_REGISTER = "job-register"
 TRIGGER_MAX_PLANS = "max-plan-attempts"
 TRIGGER_QUEUED_ALLOCS = "queued-allocs"

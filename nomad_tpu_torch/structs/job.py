@@ -23,10 +23,14 @@ class ReschedulePolicy:
 
 @dataclass(slots=True)
 class UpdateStrategy:
-    """Rolling-update / deployment strategy; a group carrying one needs
-    the deployment machinery, which this port does not have yet."""
+    """Rolling-update / deployment strategy. A fresh job version whose
+    groups carry one opens a Deployment; canaries are not modelled yet
+    and raise in the reconciler."""
 
     max_parallel: int = 1
+    progress_deadline_s: float = 600.0
+    auto_revert: bool = False
+    auto_promote: bool = False
     canary: int = 0
 
 

@@ -21,13 +21,20 @@ class Plan:
     # applies this plan; the bulk solver service confirms or corrects
     # its usage overlay through them (tensor/solver.py ledger)
     post_apply_hooks: List[object] = field(default_factory=list)
+    # a Deployment this plan opens (a fresh job version with an update
+    # stanza and per-request placements)
+    deployment: object = None
+
+    def append_alloc(self, alloc) -> None:
+        self.node_allocation.setdefault(alloc.node_id, []).append(alloc)
 
     def append_block(self, block) -> None:
         self.alloc_blocks.append(block)
 
     def is_no_op(self) -> bool:
         return (not self.node_update and not self.node_allocation
-                and not self.node_preemptions and not self.alloc_blocks)
+                and not self.node_preemptions and not self.alloc_blocks
+                and self.deployment is None)
 
 
 @dataclass(slots=True)
@@ -38,6 +45,7 @@ class PlanResult:
     node_allocation: Dict[str, list] = field(default_factory=dict)
     node_preemptions: Dict[str, list] = field(default_factory=dict)
     alloc_blocks: List[object] = field(default_factory=list)
+    deployment: object = None
     refresh_index: int = 0
     alloc_index: int = 0
     rejected_nodes: List[str] = field(default_factory=list)

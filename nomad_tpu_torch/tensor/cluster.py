@@ -1,13 +1,15 @@
-"""Tensorization for the bulk path: snapshot + in-progress plan -> dense
-arrays (reference ``nomad_tpu/tensor/cluster.py:40-350, 423-457,
-746-829``).
+"""Tensorization: snapshot + in-progress plan -> dense arrays (reference
+``nomad_tpu/tensor/cluster.py:40-350, 423-457, 499-609, 696-829``).
 
 ``ClusterStatic`` holds what depends only on the node set (capacity,
-index maps, feasibility masks, affinity vectors, device-resident
-copies), cached per store node-set version and shared by every eval and
-worker. ``ClusterTensors`` adds one eval's usage view. Spread, device
-and distinct-property tables are not built here: the bulk shape has
-none, and a group that asks for them raises for the per-eval slice.
+index maps, feasibility masks, affinity vectors, interned attribute
+values, device-resident copies), cached per store node-set version and
+shared by every eval and worker. ``ClusterTensors`` adds one eval's
+usage view, with racing evals' in-flight placements folded in
+(``overlay.py``). ``build_task_group_tensors`` lowers one task group:
+feasibility, affinity, anti-affinity counts, spread tables and
+distinct_property tables. Device and core columns and port asks are the
+rest of ROADMAP queue A5 and raise.
 """
 
 from __future__ import annotations
@@ -19,13 +21,16 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from ..scheduler.context import EvalContext
-from ..scheduler.feasible import (check_constraint, distinct_hosts_flags,
-                                  feasible_mask_static, has_distinct_property,
-                                  resolve_target, tg_mask_signature)
+from ..scheduler.feasible import (UNPORTED_A5, check_constraint,
+                                  distinct_hosts_flags,
+                                  distinct_property_constraints,
+                                  distinct_property_limit,
+                                  feasible_mask_static, resolve_target,
+                                  tg_mask_signature)
+from ..scheduler.spread import IMPLICIT_TARGET, SpreadInfo, combined_spreads
 from ..structs import Job, Node, TaskGroup, enums
 from ..structs.resources import RESOURCE_DIMS
-
-_PER_EVAL = "ROADMAP queue A, slice 4 (the per-eval general path)"
+from .overlay import INFLIGHT
 
 
 def _pad_pow2(n: int, floor: int = 8) -> int:
@@ -38,11 +43,12 @@ def _pad_pow2(n: int, floor: int = 8) -> int:
 class ClusterStatic:
     """Canonical per-(node-set version, node list) arrays shared across
     evals and workers: capacity, the node index map, feasibility masks,
-    affinity vectors, and ``device_arrays``, the per-device copies the
-    solver service uploads once."""
+    affinity vectors, interned attribute values, and ``device_arrays``,
+    the per-device copies the solver service uploads once."""
 
     __slots__ = ("nodes", "n_pad", "available", "node_index", "usage_rows",
-                 "version", "mask_cache", "aff_cache", "device_arrays")
+                 "version", "mask_cache", "aff_cache", "intern_cache",
+                 "device_arrays")
 
     def __init__(self, nodes: Sequence[Node], store=None, version=None):
         n = len(nodes)
@@ -58,6 +64,7 @@ class ClusterStatic:
                            if store is not None and n else None)
         self.mask_cache: Dict[tuple, np.ndarray] = {}
         self.aff_cache: Dict[tuple, np.ndarray] = {}
+        self.intern_cache: Dict[tuple, tuple] = {}
         self.device_arrays: Dict = {}
 
 
@@ -119,8 +126,18 @@ class ClusterTensors:
         """Proposed usage (state - evictions + placements). The base is
         one gather from the store's dense LATEST usage matrix when the
         static has its rows, else per-node snapshot rows; nodes the
-        in-progress plan touches are recomputed from ctx.proposed_allocs."""
+        in-progress plan touches are recomputed from ctx.proposed_allocs;
+        racing evals' in-flight placements are added last.
+
+        The in-flight entries are read BEFORE the store: an entry closes
+        only after its plan is in the store, so every racing solve is
+        then counted at least once. Read after the store, a plan that
+        commits and closes its entry in between would be counted nowhere
+        and its nodes filled twice (the harness commits without
+        re-checking fit)."""
         n = len(self.nodes)
+        pending = np.zeros((n, RESOURCE_DIMS))
+        INFLIGHT.fold(pending, self.node_index, exclude_plan=ctx.plan)
         used = self.used = np.zeros((self.n_pad, RESOURCE_DIMS))
         rows = self.static.usage_rows if self.static is not None else None
         if rows is not None and self._store is not None:
@@ -131,18 +148,18 @@ class ClusterTensors:
                 if u is not None:
                     used[i] = u
         plan = ctx.plan
-        if plan is None:
-            return
-        touched = (set(plan.node_update) | set(plan.node_preemptions)
-                   | set(plan.node_allocation))
-        for node_id in touched:
-            i = self.node_index.get(node_id)
-            if i is None:
-                continue
-            used[i] = 0.0
-            for a in ctx.proposed_allocs(node_id):
-                if not a.client_terminal():
-                    used[i] += a.allocated_vec
+        if plan is not None:
+            touched = (set(plan.node_update) | set(plan.node_preemptions)
+                       | set(plan.node_allocation))
+            for node_id in touched:
+                i = self.node_index.get(node_id)
+                if i is None:
+                    continue
+                used[i] = 0.0
+                for a in ctx.proposed_allocs(node_id):
+                    if a.should_count_for_usage():
+                        used[i] += a.allocated_vec
+        used[:n] += pending
 
     def latest_usage(self) -> np.ndarray:
         """Freshly gathered LATEST committed usage, (n_pad, D) float32.
@@ -151,8 +168,13 @@ class ClusterTensors:
         rows = self.static.usage_rows if self.static is not None else None
         if rows is not None and self._store is not None:
             mat = self._store._usage_mat
+            # per-eval in-flight placements are neither in the store nor
+            # in the service's ledger yet; read before the store, as in
+            # refresh_usage
+            pending = np.zeros((len(self.nodes), RESOURCE_DIMS))
+            INFLIGHT.fold(pending, self.node_index)
             out = np.zeros((self.n_pad, RESOURCE_DIMS), dtype=np.float32)
-            out[: len(self.nodes)] = mat[rows]
+            out[: len(self.nodes)] = mat[rows] + pending
             return out
         return self.used.astype(np.float32)
 
@@ -197,22 +219,30 @@ class ClusterTensors:
 
 @dataclass
 class TaskGroupTensors:
-    """What the bulk solve needs for one task group. The spread, device
-    and distinct-property tables of the reference are zero-width for the
-    bulk shape and kept as such."""
+    """Everything the solve of one task group needs. The spread and
+    distinct_property tables are zero-width when the group has none."""
 
     ask: np.ndarray                 # (D,)
     feasible: np.ndarray            # (Np,) bool
     affinity_boost: np.ndarray      # (Np,)
     placed_tg: np.ndarray           # (Np,) int32
     placed_job: np.ndarray          # (Np,) int32
-    spread_val_id: np.ndarray       # (0, Np) int32
+    spread_val_id: np.ndarray       # (S, Np) int32
+    spread_val_ok: np.ndarray       # (S, Np) bool
+    spread_counts: np.ndarray       # (S, V) int32
+    spread_desired: np.ndarray      # (S, V) float (NaN = no target)
+    spread_has_targets: np.ndarray  # (S,) bool
+    spread_weight: np.ndarray       # (S,)
     tg_count: float
     dh_job: bool
     dh_tg: bool
     spread_alg: bool
-    extra_ask: np.ndarray           # (0,)
-    dp_val_id: np.ndarray           # (0, Np) int32
+    extra_ask: np.ndarray           # (0,): device/core columns raise
+    dev_affinity: np.ndarray        # (Np,) zeros: no device asks
+    dp_val_id: np.ndarray           # (P, Np) int32
+    dp_val_ok: np.ndarray           # (P, Np) bool
+    dp_counts: np.ndarray           # (P, Vd) int32
+    dp_limit: np.ndarray            # (P,)
     # the SHARED cached mask when `feasible` is exactly the static mask:
     # its identity keys the device-resident copy
     feas_base: np.ndarray = None
@@ -248,18 +278,153 @@ def _affinity_vector(ctx: EvalContext, job: Job, tg: TaskGroup,
     return out
 
 
+def _interned_attr(cluster: ClusterTensors, attribute: str):
+    """-> (vocab, val_id (Np,), val_ok (Np,)) for one node attribute,
+    cached on the ClusterStatic. The vocab only grows (values of off-pool
+    nodes are interned by callers), so cached val_id rows stay valid."""
+    static = cluster.static
+    key = ("attr", attribute)
+    hit = static.intern_cache.get(key)
+    if hit is not None:
+        return hit
+    vocab: Dict[str, int] = {}
+    val_id = np.zeros(cluster.n_pad, dtype=np.int32)
+    val_ok = np.zeros(cluster.n_pad, dtype=bool)
+    for i, node in enumerate(cluster.nodes):
+        v, ok = resolve_target(attribute, node)
+        if ok:
+            val_id[i] = vocab.setdefault(v, len(vocab))
+            val_ok[i] = True
+    out = static.intern_cache[key] = (vocab, val_id, val_ok)
+    return out
+
+
+_intern_lock = threading.Lock()
+
+
+def _intern(vocab: Dict[str, int], v: str) -> int:
+    """Append-only interning, safe under workers sharing a cached vocab."""
+    vid = vocab.get(v)
+    if vid is None:
+        with _intern_lock:
+            vid = vocab.get(v)
+            if vid is None:
+                vid = vocab[v] = len(vocab)
+    return vid
+
+
+def _spread_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
+                    cluster: ClusterTensors):
+    """Interned spread-attribute values, existing counts per value (the
+    group's live allocs in the snapshot), desired counts and weights."""
+    n_pad = cluster.n_pad
+    spreads = combined_spreads(job, tg)
+    s = len(spreads)
+    if s == 0:
+        return (np.zeros((0, n_pad), dtype=np.int32),
+                np.zeros((0, n_pad), dtype=bool),
+                np.zeros((0, 1), dtype=np.int32), np.full((0, 1), np.nan),
+                np.zeros(0, dtype=bool), np.zeros(0))
+    sum_weights = sum(abs(sp.weight) for sp in spreads) or 1.0
+    existing = [a for a in ctx.snapshot.allocs_by_job(job.id, job.namespace)
+                if not a.terminal_status() and a.task_group == tg.name]
+    vocabs: List[Dict[str, int]] = []
+    val_ids = np.zeros((s, n_pad), dtype=np.int32)
+    val_ok = np.zeros((s, n_pad), dtype=bool)
+    counts_list: List[Dict[int, int]] = []
+    for si, sp in enumerate(spreads):
+        vocab, vid_row, vok_row = _interned_attr(cluster, sp.attribute)
+        val_ids[si] = vid_row
+        val_ok[si] = vok_row
+        counts: Dict[int, int] = {}
+        for a in existing:
+            anode = ctx.snapshot.node_by_id(a.node_id)
+            if anode is None:
+                continue
+            v, ok = resolve_target(sp.attribute, anode)
+            if ok:
+                vid = _intern(vocab, v)
+                counts[vid] = counts.get(vid, 0) + 1
+        vocabs.append(vocab)
+        counts_list.append(counts)
+    # one stable copy of the (shared, growing) vocabs bounds v_pad
+    vocab_items = [list(v.items()) for v in vocabs]
+    v_pad = _pad_pow2(max(max(len(v) for v in vocab_items), 1), floor=1)
+    spread_counts = np.zeros((s, v_pad), dtype=np.int32)
+    spread_desired = np.full((s, v_pad), np.nan)
+    has_targets = np.zeros(s, dtype=bool)
+    weights = np.zeros(s)
+    for si, sp in enumerate(spreads):
+        weights[si] = sp.weight / sum_weights
+        for vid, c in counts_list[si].items():
+            spread_counts[si, vid] = c
+        if not sp.targets:
+            continue
+        has_targets[si] = True
+        desired = SpreadInfo(sp, tg.count).desired_counts
+        implicit = desired.get(IMPLICIT_TARGET)
+        for val, vid in vocab_items[si]:
+            if val in desired:
+                spread_desired[si, vid] = desired[val]
+            elif implicit is not None:
+                spread_desired[si, vid] = implicit
+    return val_ids, val_ok, spread_counts, spread_desired, has_targets, weights
+
+
+def _distinct_property_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
+                               cluster: ClusterTensors):
+    """Interned distinct_property values, proposed counts per value (the
+    job's live allocs as the in-progress plan would leave them) and
+    limits."""
+    from ..scheduler.rank import _plan_aware_job_allocs
+
+    n_pad = cluster.n_pad
+    constraints = distinct_property_constraints(job, tg)
+    p = len(constraints)
+    if p == 0:
+        return (np.zeros((0, n_pad), dtype=np.int32),
+                np.zeros((0, n_pad), dtype=bool),
+                np.zeros((0, 1), dtype=np.int32), np.zeros(0))
+    live = [a for a in _plan_aware_job_allocs(ctx, job)
+            if not a.terminal_status()]
+    val_ids = np.zeros((p, n_pad), dtype=np.int32)
+    val_ok = np.zeros((p, n_pad), dtype=bool)
+    limits = np.zeros(p)
+    counts_list = []
+    vocabs = []
+    for pi, c in enumerate(constraints):
+        limits[pi] = distinct_property_limit(c)
+        vocab, vid_row, vok_row = _interned_attr(cluster, c.ltarget)
+        val_ids[pi] = vid_row
+        val_ok[pi] = vok_row
+        counts: Dict[int, int] = {}
+        for a in live:
+            anode = ctx.snapshot.node_by_id(a.node_id)
+            if anode is None:
+                continue
+            v, ok = resolve_target(c.ltarget, anode)
+            if ok and v in vocab:
+                counts[vocab[v]] = counts.get(vocab[v], 0) + 1
+        vocabs.append(vocab)
+        counts_list.append(counts)
+    v_pad = _pad_pow2(max(max(len(v) for v in vocabs), 1), floor=1)
+    dp_counts = np.zeros((p, v_pad), dtype=np.int32)
+    for pi, counts in enumerate(counts_list):
+        for vid, cnt in counts.items():
+            dp_counts[pi, vid] = cnt
+    return val_ids, val_ok, dp_counts, limits
+
+
 def build_task_group_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
                              cluster: ClusterTensors, *,
                              algorithm: str = enums.SCHED_ALG_BINPACK
                              ) -> TaskGroupTensors:
     nodes, n_pad = cluster.nodes, cluster.n_pad
     res = ctx.tg_resources(tg)
-    if job.spreads or tg.spreads:
-        raise NotImplementedError(f"spread tables: {_PER_EVAL}")
     if res.devices or res.cores:
-        raise NotImplementedError(f"device/core columns: {_PER_EVAL}")
-    if has_distinct_property(job, tg):
-        raise NotImplementedError(f"distinct_property tables: {_PER_EVAL}")
+        raise NotImplementedError(f"device/core columns: {UNPORTED_A5}")
+    if res.reserved_port_asks() or res.dynamic_port_count():
+        raise NotImplementedError(f"port asks: {UNPORTED_A5}")
     static = cluster.static
     sig = tg_mask_signature(job, tg)
     base = static.mask_cache.get(sig)
@@ -270,19 +435,32 @@ def build_task_group_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
         base.setflags(write=False)
         static.mask_cache[sig] = base
     placed_tg, placed_job = cluster.placement_counts(job, tg, ctx)
+    (val_id, val_ok, counts, desired,
+     has_targets, weights) = _spread_tensors(ctx, job, tg, cluster)
     dh_job, dh_tg = distinct_hosts_flags(job, tg)
+    dp_val_id, dp_val_ok, dp_counts, dp_limit = _distinct_property_tensors(
+        ctx, job, tg, cluster)
     return TaskGroupTensors(
         ask=ctx.tg_vec(tg),
         feasible=base,
         affinity_boost=_affinity_vector(ctx, job, tg, cluster),
         placed_tg=placed_tg,
         placed_job=placed_job,
-        spread_val_id=np.zeros((0, n_pad), dtype=np.int32),
+        spread_val_id=val_id,
+        spread_val_ok=val_ok,
+        spread_counts=counts,
+        spread_desired=desired,
+        spread_has_targets=has_targets,
+        spread_weight=weights,
         tg_count=float(max(tg.count, 1)),
         dh_job=dh_job,
         dh_tg=dh_tg,
         spread_alg=(algorithm == enums.SCHED_ALG_SPREAD),
         extra_ask=np.zeros(0),
-        dp_val_id=np.zeros((0, n_pad), dtype=np.int32),
+        dev_affinity=np.zeros(n_pad),
+        dp_val_id=dp_val_id,
+        dp_val_ok=dp_val_ok,
+        dp_counts=dp_counts,
+        dp_limit=dp_limit,
         feas_base=base,
     )

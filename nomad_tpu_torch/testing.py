@@ -1,8 +1,8 @@
 """In-process scheduler harness (reference ``nomad_tpu/testing.py:20-130``,
 itself the port of Nomad's scheduler/testing.go): a real state store and
-a planner that applies plans straight to it, driving the same scheduler
--> placer -> solver service -> kernels -> plan -> store path the
-Server's workers drive."""
+a planner that applies plans straight to it (allocations, alloc blocks
+and the deployment a plan opens), driving the same scheduler -> placer
+-> kernels -> plan -> store path the Server's workers drive."""
 
 from __future__ import annotations
 
@@ -43,9 +43,14 @@ class Harness:
                                     rejected_nodes=sorted(nodes))
                 self._run_hooks(plan, result)
                 return result, self.store.snapshot()
+            placements = []
+            for allocs in plan.node_allocation.values():
+                placements.extend(allocs)
             index = self.store.upsert_plan_results(
-                alloc_blocks=list(plan.alloc_blocks))
-            result = PlanResult(alloc_blocks=list(plan.alloc_blocks),
+                allocs=placements, alloc_blocks=list(plan.alloc_blocks),
+                deployment=plan.deployment)
+            result = PlanResult(node_allocation=plan.node_allocation,
+                                alloc_blocks=list(plan.alloc_blocks),
                                 alloc_index=index)
             self._run_hooks(plan, result)
             return result, None

@@ -35,6 +35,10 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch, nomad_tpu_torch.testing\n"
         "import nomad_tpu_torch.tensor.solver, nomad_tpu_torch.tensor.placer\n"
         "import nomad_tpu_torch.convert, chip_smoke\n"
+        "import nomad_tpu_torch.scheduler.rank, nomad_tpu_torch.scheduler.spread\n"
+        "import nomad_tpu_torch.scheduler.generic_sched\n"
+        "import nomad_tpu_torch.tensor.overlay, nomad_tpu_torch.tensor.kernels\n"
+        "import nomad_tpu_torch.structs.deployment, nomad_tpu_torch.structs.funcs\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

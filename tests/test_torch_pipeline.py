@@ -15,7 +15,9 @@ from nomad_tpu.tensor import solver as ref_solver
 from nomad_tpu.testing import Harness
 from nomad_tpu_torch import convert
 from nomad_tpu_torch import mock as port_mock
+from nomad_tpu_torch.structs import Constraint
 from nomad_tpu_torch.structs import operator as port_operator
+from nomad_tpu_torch.structs.resources import NetworkResource, RequestedDevice
 from nomad_tpu_torch.tensor import solver as port_solver
 from nomad_tpu_torch.tensor.placer import TorchPlacer
 from nomad_tpu_torch.testing import Harness as PortHarness
@@ -178,16 +180,27 @@ def _port_cluster(n=256):
 def test_unported_shapes_raise_not_implemented(port_service):
     h = _port_cluster()
     cfg = port_operator.SchedulerConfiguration(scheduler_algorithm=ALG)
-    # a service job with an update stanza needs deployments
-    svc_job = port_mock.service_job(300)
-    h.store.upsert_job(svc_job)
+    # dynamic ports (bulk-sized and host-oracle-sized groups)
+    for count in (300, 10):
+        ports = port_mock.service_job(count)
+        ports.task_groups[0].tasks[0].resources.networks = [
+            NetworkResource(dynamic_ports=["http"])]
+        h.store.upsert_job(ports)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            h.process(port_mock.eval_for(ports), sched_config=cfg)
+    # a device ask
+    gpu = port_mock.service_job(40)
+    gpu.task_groups[0].tasks[0].resources.devices = [
+        RequestedDevice(name="nvidia/gpu")]
+    h.store.upsert_job(gpu)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.process(port_mock.eval_for(svc_job), sched_config=cfg)
-    # fewer than 256 fresh placements take the per-eval path
-    small = port_mock.service_job(10, batch=True)
-    h.store.upsert_job(small)
+        h.process(port_mock.eval_for(gpu), sched_config=cfg)
+    # a version constraint
+    versioned = port_mock.service_job(40, constraints=[Constraint(
+        "${attr.kernel.version}", ">= 4.19", "version")])
+    h.store.upsert_job(versioned)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.process(port_mock.eval_for(small), sched_config=cfg)
+        h.process(port_mock.eval_for(versioned), sched_config=cfg)
     # the host placer is not ported
     big = port_mock.service_job(300, batch=True)
     h.store.upsert_job(big)
