@@ -35,9 +35,27 @@ Phases (any failure raises and exits non-zero):
               placed once, no node over capacity, B9 launched once per job,
               no plain version on CUDA; prints allocs/s and the per-job
               rack-count spread.
-10. parity -- two pinned 256-node workloads (the bulk jobs, and the spread
-              / distinct_hosts / distinct_property / host-oracle jobs) on the
-              card and on the CPU plain versions: the same placements.
+10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
+              version at G=16 x N_pad=16,384 for each of the 5 restarts:
+              bitwise.
+11. B5/B6  -- the auction (5 restarts, one launch) and the pick vs their
+              plain versions, then solve_batch vs solve_batch_ref, at the
+              C2M width (build_nodes capacities of 10,240 nodes padded to
+              16,384, G=16, k=800, bench asks, contested near-full nodes) on
+              five variants (main, evict, overshooting corrections, k=0 /
+              sparse / infeasible rows, a 3-round cap): take, used, rounds,
+              counts and info exact.
+12. solve  -- the "tpu-solve" path at bench.py cfg_solve_ab's c2m_mini shape:
+              2,560 nodes, 50 batch jobs x 800 allocs cycling its asks, in
+              worker batches of 8 (one thread per member inside
+              batch_member) through Harness.process("tpu-solve"). Every
+              alloc placed once, no node over capacity, joint launches >= 1,
+              joint score >= greedy score, B5/B6/B1 launched once per joint
+              launch, no plain version on CUDA.
+13. parity -- the pinned 256-node bulk workload under "tpu-binpack" and under
+              "tpu-solve", and the spread / distinct_hosts /
+              distinct_property / host-oracle workload, on the card and on
+              the CPU plain versions: the same placements.
 
 Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound, and the
@@ -74,6 +92,15 @@ CFG3_K = 500
 CFG3_JOBS = 100
 CFG3_THREADS = 2
 SCORE_TOL = 1e-6
+# the joint solve ("tpu-solve"): bench.py cfg_solve_ab's asks (:678-679)
+# and its c2m_mini shape (:689-695), batches of 8 as Worker.process_batch
+# runs them at eval_batch_size=8
+SOLVE_ASKS = ((60, 48), (240, 96), (100, 192), (180, 64), (80, 160),
+              (220, 48), (140, 128), (60, 224), (200, 80), (120, 112))
+SOLVE_K = 800
+MINI_NODES = 2560
+MINI_JOBS = 50
+MINI_BATCH = 8
 
 
 def card_line() -> str:
@@ -253,6 +280,247 @@ def phase_fill(torch, dev, card, rng):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def phase_jitter_fold(torch, dev, card, rng):
+    """B3': the restarts' fold_in draws, 16 x 16,384 for each of the five
+    PORTFOLIO entries, bitwise."""
+    from nomad_tpu_torch.tensor.batch_solver import PORTFOLIO
+    from nomad_tpu_torch.tensor.kernels import TIE_JITTER
+    from nomad_tpu_torch.tensor.prng import jitter_fold, jitter_fold_ref
+
+    seeds = torch.tensor(
+        np.concatenate([[0, 1, 2 ** 31, 2 ** 32 - 1],
+                        rng.integers(0, 2 ** 32, G - 4)]).astype(np.int64),
+        device=dev)
+    for t, (jscale, _) in enumerate(PORTFOLIO):
+        hi = TIE_JITTER * jscale
+        got = jitter_fold(seeds, t, N_PAD, hi)
+        want = jitter_fold_ref(seeds, t, N_PAD, hi)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"B3' jitter_fold differs from its plain "
+                                 f"version at t={t}")
+    ms = cuda_time_ms(torch, lambda _: jitter_fold(seeds, 1, N_PAD,
+                                                   TIE_JITTER * 8.0))
+    plain = cuda_time_ms(torch, lambda _: jitter_fold_ref(
+        seeds, 1, N_PAD, TIE_JITTER * 8.0))
+    # two threefry2x32 (fold_in, then the draw) of ~120 ops each and the
+    # float build per element; seeds in, floats out
+    b_ms, b_by = bound(G * 8 + G * N_PAD * 4, G * N_PAD * 250)
+    print(f"B3' fold    [{card}] bitwise equal for {len(PORTFOLIO)} restarts; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by})")
+    return {"name": "jitter_fold", "source": "nomad_tpu_torch/csrc/jitter.cu",
+            "replaces": "nomad_tpu/tensor/batch_solver.py:319",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+_CAPACITY = {}
+
+
+def c2m_capacity() -> np.ndarray:
+    """(N_NODES, 4) capacities of build_nodes(..., N_NODES, seed 0)."""
+    if "c2m" not in _CAPACITY:
+        from nomad_tpu_torch import mock
+        from nomad_tpu_torch.state import StateStore
+
+        store = StateStore()
+        mock.build_nodes(store, N_NODES, seed=0)
+        _CAPACITY["c2m"] = np.stack(
+            [n.available_vec() for n in store.snapshot().nodes()])
+    return _CAPACITY["c2m"]
+
+
+def solve_inputs(torch, dev, rng, variant: str):
+    """B5/B6 inputs at the C2M width: N_pad 16,384 with the build_nodes
+    capacities of 10,240 nodes and zero padded rows, G = 16 evals of
+    SOLVE_K allocs cycling the bench asks, and usage pre-filled so that
+    ~5% of the nodes hold all the free capacity (a few dozen allocs each)
+    and the demand is ~75% of the free cpu: the evals contest the same
+    near-full nodes round after round. Variants: "main"; "evict" (victim
+    budgets and net priorities, twice the demand, so only evicting bids
+    can place it all); "correction" (negative
+    corrections that overshoot, so the clamp matters); "sparse" (k = 0
+    rows, a row with 5 feasible nodes, an all-infeasible row); "cap"
+    (rounds = 3)."""
+    from nomad_tpu_torch import mock
+
+    avail = np.zeros((N_PAD, 4), np.float32)
+    avail[:N_NODES] = c2m_capacity()
+    ask = np.stack([mock.service_job(1, cpu=c, mem=m).task_groups[0]
+                    .combined_resources().vec()
+                    for c, m in (SOLVE_ASKS[i % len(SOLVE_ASKS)]
+                                 for i in range(G))]).astype(np.float32)
+    k = np.full(G, SOLVE_K, np.int32)
+    demand = float((k * ask[:, 0]).sum())
+    open_nodes = rng.random(N_NODES) < 0.05
+    share = demand / 0.75 / float(avail[:N_NODES, 0][open_nodes].sum())
+    fill = np.where(open_nodes, 1.0 - share * rng.uniform(0.5, 1.5, N_NODES),
+                    1.0)
+    used = np.zeros((N_PAD, 4), np.float32)
+    used[:N_NODES, :3] = np.floor(avail[:N_NODES, :3] * fill[:, None])
+    feas = np.zeros((G, N_PAD), bool)
+    feas[:, :N_NODES] = rng.random((G, N_NODES)) < 0.95
+    aff = np.zeros((G, N_PAD), np.float32)
+    aff[5, :N_NODES] = rng.choice([0.0, 0.0, 0.5, -0.5], N_NODES)
+    seeds = rng.integers(0, 2 ** 32, G).astype(np.int64)
+    cidx = np.zeros(64, np.int32)
+    cdelta = np.zeros((64, 4), np.float32)
+    evict = net_prio = None
+    rounds = 64
+    if variant == "evict":
+        k[:] = 2 * SOLVE_K          # past the free capacity: evictions pay
+        evict = np.zeros((N_PAD, 4), np.float32)
+        victims = rng.random(N_NODES) < 0.4
+        evict[:N_NODES, 0] = victims * 2000.0
+        evict[:N_NODES, 1] = victims * 4096.0
+        net_prio = np.zeros(N_PAD, np.float32)
+        net_prio[:N_NODES] = rng.uniform(0.0, 4000.0, N_NODES)
+    elif variant == "correction":
+        rows = rng.integers(0, N_NODES, 48)
+        cidx[:48] = rows
+        cdelta[:48, :3] = -used[rows, :3] - 1000.0   # overshoots: clamp
+    elif variant == "sparse":
+        k[[11, 15]] = 0
+        feas[3] = False
+        feas[3, rng.choice(N_NODES, 5, replace=False)] = True
+        feas[8] = False
+    elif variant == "cap":
+        rounds = 3
+    t = {name: torch.tensor(v, device=dev) for name, v in (
+        ("used", used), ("avail", avail), ("feas", feas), ("aff", aff),
+        ("ask", ask), ("k", k), ("seeds", seeds), ("cidx", cidx),
+        ("cdelta", cdelta))}
+    t["tgc"] = t["k"].float()
+    t["evict"] = None if evict is None else torch.tensor(evict, device=dev)
+    t["net_prio"] = (None if net_prio is None
+                     else torch.tensor(net_prio, device=dev))
+    t["rounds"] = rounds
+    t["free_share"] = demand / float(np.maximum(
+        avail[:N_NODES, 0] - used[:N_NODES, 0], 0.0).sum())
+    return t
+
+
+def auction_bound(torch, t, jits, price_eps):
+    """Least time of one B5 launch on these inputs: the inputs read once
+    and the outputs written once; and the operations of the rounds each
+    restart ran, counted from the plain version's trace of this run: per
+    (eval with demand, node) ~6 for the mask and fit test, per fitting
+    pair ~60 more (fitness with two powf counted 20 each, score, jitter,
+    price, the top-R test), per round ~30 per surfaced entry (winner,
+    cap, fill, price)."""
+    from nomad_tpu_torch.tensor.batch_solver import (TOP_R, auction_ref,
+                                                     preempt_score_ref)
+
+    start = torch.clamp_min(t["used"], 0.0)
+    pscore = (None if t["net_prio"] is None
+              else preempt_score_ref(t["net_prio"]))
+    ops = 0
+    rounds = []
+    for r, eps in enumerate(price_eps):
+        trace = []
+        auction_ref(start, t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
+                    jits[r], rounds=t["rounds"], price_eps=eps,
+                    evict=t["evict"], pscore=pscore, trace=trace)
+        rounds.append(len(trace))
+        ops += sum(live * N_PAD * 6 + fit * 60 + G * TOP_R * 30
+                   for live, fit in trace)
+    n_t = len(price_eps)
+    n_bytes = (N_PAD * 16 * 2 + G * N_PAD * 5 + G * 24 + n_t * G * N_PAD * 4
+               + n_t * (N_PAD * 16 + G * N_PAD * 4 + 4))
+    if t["evict"] is not None:
+        n_bytes += N_PAD * 20
+    return bound(n_bytes, ops), rounds
+
+
+def phase_solve(torch, dev, card, rng):
+    """B5 and B6 at the C2M width on five variants, each exact against its
+    plain version on the card: the auction alone (used, take, rounds),
+    the pick alone (used, counts, info) and the whole solve_batch (the
+    fold and clamp, both arms, the pick)."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor.kernels import TIE_JITTER, bulk_fill
+    from nomad_tpu_torch.tensor.prng import jitter
+
+    eps = bs._price_eps()
+    notes = []
+    main = None
+    for variant in ("main", "evict", "correction", "sparse", "cap"):
+        t = solve_inputs(torch, dev, rng, variant)
+        jits = bs._restart_jitter(t["seeds"], N_PAD, bs.jitter_fold)
+        a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"], jits)
+        a_kw = dict(price_eps=eps, rounds=t["rounds"], evict=t["evict"],
+                    net_prio=t["net_prio"])
+        got = bs.auction(t["used"], *a_args, **a_kw)
+        want = bs.auction_restarts_ref(t["used"], *a_args, **a_kw)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("used", "take", "rounds"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"B5 {variant}: {name} differs from the "
+                                     f"plain version")
+        used_g = torch.clamp_min(t["used"], 0.0)
+        counts_g = bulk_fill(used_g, t["avail"], t["feas"], t["aff"],
+                             t["ask"], t["k"],
+                             jitter(t["seeds"], N_PAD, TIE_JITTER))
+        p_args = (t["avail"], *got, used_g, counts_g)
+        p_got = bs.batch_pick(*p_args)
+        p_want = bs.batch_pick_ref(*p_args)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("used", "counts", "info"), p_got, p_want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"B6 pick {variant}: {name} differs from "
+                                     f"the plain version")
+        s_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
+                  t["tgc"], t["seeds"], t["cidx"], t["cdelta"], t["evict"],
+                  t["net_prio"])
+        s_got = bs.solve_batch(t["used"].clone(), *s_args, g=G,
+                               rounds=t["rounds"])
+        s_want = bs.solve_batch_ref(t["used"].clone(), *s_args, g=G,
+                                    rounds=t["rounds"])
+        torch.cuda.synchronize()
+        for name, x, y in zip(("used", "counts", "info"), s_got, s_want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"B6 solve_batch {variant}: {name} "
+                                     f"differs from the plain version")
+        info = s_got[2].cpu().numpy()
+        notes.append(f"{variant}: rounds {got[2].tolist()}, placed auction "
+                     f"{int(info[2])} / greedy {int(info[3])}, auction won "
+                     f"{int(info[5])}")
+        if variant == "main":
+            main = (t, jits, a_args, a_kw, p_args)
+    t, jits, a_args, a_kw, p_args = main
+    ms_a = cuda_time_ms(torch, lambda _: bs.auction(t["used"], *a_args,
+                                                    **a_kw), reps=5)
+    plain_a = cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
+        t["used"], *a_args, **a_kw), reps=2, warmup=1)
+    (b_a, by_a), rounds = auction_bound(torch, t, jits, eps)
+    ms_p = cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args))
+    plain_p = cuda_time_ms(torch, lambda _: bs.batch_pick_ref(*p_args),
+                           reps=5)
+    n_t = len(eps)
+    b_p, by_p = bound(
+        n_t * (G * N_PAD * 4 + N_PAD * 16) + G * N_PAD * 2 + N_PAD * 16 * 3
+        + G * N_PAD * 2 + 24,
+        (n_t + 1) * N_PAD * (G + 60))
+    print(f"B5/B6 solve [{card}] 5 variants exact (take, used, rounds, "
+          f"counts, info); demand {t['free_share']:.2f} of the free cpu; "
+          + "; ".join(notes))
+    print(f"B5 auction  [{card}] kernel {ms_a:.4f} ms ({n_t} restarts, rounds "
+          f"{rounds}), plain {plain_a:.4f} ms, bound {b_a:.6f} ms ({by_a})")
+    print(f"B6 pick     [{card}] kernel {ms_p:.4f} ms, plain {plain_p:.4f} "
+          f"ms, bound {b_p:.6f} ms ({by_p})")
+    return [{"name": "auction",
+             "source": "nomad_tpu_torch/csrc/batch_solve.cu",
+             "replaces": "nomad_tpu/tensor/batch_solver.py:137",
+             "max_abs_err": 0.0, "ms": ms_a, "plain_ms": plain_a,
+             "bound_ms": b_a, "bound_by": by_a, "library_ms": None},
+            {"name": "batch_pick",
+             "source": "nomad_tpu_torch/csrc/batch_solve.cu",
+             "replaces": "nomad_tpu/tensor/batch_solver.py:256",
+             "max_abs_err": 0.0, "ms": ms_p, "plain_ms": plain_p,
+             "bound_ms": b_p, "bound_by": by_p, "library_ms": None}]
+
+
 def phase_path(torch, card, device="cuda"):
     """The C2M bulk path; returns the launch counts of its run."""
     from nomad_tpu_torch import _ext, mock
@@ -321,6 +589,104 @@ def phase_path(torch, card, device="cuda"):
     return counts["launches"]
 
 
+def phase_solve_path(torch, card, device="cuda"):
+    """The "tpu-solve" path at bench.py cfg_solve_ab's c2m_mini shape:
+    2,560 nodes, 50 batch jobs x 800 allocs cycling the bench asks, evals
+    in worker batches of 8, each member on its own thread inside
+    batch_member(ctx) calling Harness.process. Returns the launch counts
+    of its run."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor.solver import (batch_member, get_service,
+                                               open_batch)
+    from nomad_tpu_torch.testing import Harness
+
+    h = Harness(device=device)
+    t0 = time.perf_counter()
+    mock.build_nodes(h.store, MINI_NODES, seed=0)
+    jobs = []
+    for i in range(MINI_JOBS):
+        cpu, mem = SOLVE_ASKS[i % len(SOLVE_ASKS)]
+        j = mock.service_job(SOLVE_K, cpu=cpu, mem=mem, batch=True)
+        h.store.upsert_job(j)
+        jobs.append(j)
+    evals = [mock.eval_for(j) for j in jobs]
+    cfg = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_SOLVE)
+    print(f"solve path  setup {time.perf_counter() - t0:.2f} s "
+          f"({MINI_NODES} nodes, {MINI_JOBS} jobs x {SOLVE_K} allocs)")
+
+    def member(ctx, ev):
+        with batch_member(ctx):
+            h.process(ev, cfg)
+
+    svc = get_service(device)
+    base = dict(svc.stats)
+    _ext.COUNTS.reset()
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(MINI_BATCH) as pool:
+        for b in range(0, len(evals), MINI_BATCH):
+            batch = evals[b:b + MINI_BATCH]
+            ctx = open_batch(len(batch))
+            for f in [pool.submit(member, ctx, ev) for ev in batch]:
+                f.result()
+    wall = time.perf_counter() - t1
+    counts = _ext.COUNTS.snapshot()
+    stats = {k: svc.stats[k] - base[k] for k in base}
+    svc.stop()
+
+    snap = h.store.snapshot()
+    want = MINI_JOBS * SOLVE_K
+    total = sum(len(snap.allocs_by_job(j.id)) for j in jobs)
+    ids = [a.id for a in snap.allocs()]
+    if total != want or len(ids) != want or len(set(ids)) != want:
+        raise AssertionError(f"placed {total} / {len(ids)} allocs "
+                             f"({len(set(ids))} unique ids), want {want}")
+    nodes = list(snap.nodes())
+    row = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.stack([n.available_vec() for n in nodes])
+    usage = np.zeros_like(cap)
+    for block in snap.alloc_blocks():
+        for m, nid in enumerate(block.node_ids):
+            usage[row[nid]] += block.allocated_vec * float(block.counts[m])
+    over = int((usage > cap).any(axis=1).sum())
+    if over:
+        raise AssertionError(f"{over} nodes over capacity")
+    bad = [e for e in h.evals if e.status != enums.EVAL_STATUS_COMPLETE
+           or e.failed_tg_allocs]
+    if bad:
+        raise AssertionError(f"{len(bad)} evals not cleanly complete")
+    joint = stats["joint_launches"]
+    launched = counts["launches"]
+    if joint < 1:
+        raise AssertionError("no joint launch on the tpu-solve path")
+    if stats["joint_score"] < stats["greedy_score"]:
+        raise AssertionError(f"joint score {stats['joint_score']} below the "
+                             f"greedy score {stats['greedy_score']}")
+    for name in ("auction", "batch_pick", "bulk_fill"):
+        if launched[name] != joint:
+            raise AssertionError(f"{name} launched {launched[name]} times "
+                                 f"for {joint} joint launches")
+    if launched["jitter_fold"] != 5 * joint:
+        raise AssertionError(f"jitter_fold launched {launched['jitter_fold']}"
+                             f" times for {joint} joint launches")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    delta = (100.0 * (stats["joint_score"] - stats["greedy_score"])
+             / max(stats["greedy_score"], 1e-9))
+    print(f"solve path  [{card}] {total} allocs in {wall:.3f} s = "
+          f"{total / wall:.1f} allocs/s; joint launches {joint}, solves/"
+          f"launch {stats['joint_solves'] / joint:.2f}, auction won "
+          f"{stats['auction_won']}, rounds/launch "
+          f"{stats['auction_rounds'] / joint:.2f}, joint score "
+          f"{stats['joint_score']:.4f} vs greedy {stats['greedy_score']:.4f} "
+          f"(score_delta_pct {delta:.4f}); kernel launches {launched}; plain "
+          f"on CUDA {counts['plain_on_cuda']}")
+    return launched
+
+
 def fingerprint(h, jobs):
     snap = h.store.snapshot()
     ordinal = {n.id: i for i, n in enumerate(snap.nodes())}
@@ -335,16 +701,14 @@ def fingerprint(h, jobs):
     return out
 
 
-def phase_parity():
+def phase_parity(algorithm):
     """The same pinned small workload on the card and on the CPU."""
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.structs import enums
     from nomad_tpu_torch.structs.operator import SchedulerConfiguration
     from nomad_tpu_torch.tensor.solver import get_service
     from nomad_tpu_torch.testing import Harness
 
-    cfg = SchedulerConfiguration(
-        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+    cfg = SchedulerConfiguration(scheduler_algorithm=algorithm)
     prints = []
     for device in ("cuda", "cpu"):
         h = Harness(device=device)
@@ -362,7 +726,7 @@ def phase_parity():
     if prints[0] != prints[1]:
         raise AssertionError("card and CPU placements differ on the "
                              "pinned 256-node workload")
-    print(f"parity      card == CPU on 3 pinned jobs "
+    print(f"parity      card == CPU on 3 pinned jobs under {algorithm} "
           f"({sum(v[0] for v in prints[0].values())} allocs)")
 
 
@@ -686,6 +1050,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from nomad_tpu_torch import _ext
+    from nomad_tpu_torch.structs import enums
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -709,19 +1074,25 @@ def main() -> int:
             phase_fill(torch, dev, card, rng)]
     per_eval = [phase_score_once(torch, dev, card, rng),
                 phase_scan(torch, dev, card, rng)]
+    joint = [phase_jitter_fold(torch, dev, card, rng),
+             *phase_solve(torch, dev, card, rng)]
     launches = phase_path(torch, card)
     for k in bulk:
         k["launches"] = launches[k["name"]]
     launches = phase_spread(torch, card)
     for k in per_eval:
         k["launches"] = launches[k["name"]]
-    phase_parity()
+    launches = phase_solve_path(torch, card)
+    for k in joint:
+        k["launches"] = launches[k["name"]]
+    phase_parity(enums.SCHED_ALG_TPU_BINPACK)
+    phase_parity(enums.SCHED_ALG_TPU_SOLVE)
     phase_spread_parity()
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    kernels = bulk + per_eval
+    kernels = bulk + per_eval + joint
     for k in kernels:
         k["route"] = "cuda"
     print(json.dumps({"kernels": [{key: k[key] for key in order}

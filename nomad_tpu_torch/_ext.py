@@ -41,13 +41,17 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> (library, argtypes)
 _SIGNATURES = {
-    "nt_jitter": ("jitter", [_P, _P, _I, _I, ctypes.c_float, _P]),
+    "nt_jitter": ("jitter", [_P, _P, _I, _I, _F, _P]),
+    "nt_jitter_fold": ("jitter", [_P, ctypes.c_uint, _P, _I, _I, _F, _P]),
     "nt_scatter_add": ("scatter", [_P, _P, _P, _I, _I, _I, _P]),
     "nt_bulk_fill": ("bulk_fill", [_P] * 8 + [_I, _I, _P]),
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
     "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 7 + [_P]),
+    "nt_auction": ("batch_solve", [_P] * 14 + [_I] * 4 + [_P]),
+    "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -82,7 +86,8 @@ class LaunchCounts:
 
 
 COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
-                       "solve_task_group"))
+                       "solve_task_group", "jitter_fold", "auction",
+                       "batch_pick"))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -18,6 +18,16 @@
 // floored at lo (lo = 0 here). Multiplication is explicitly rounded
 // (__fmul_rn), so no contraction can change a bit; the result is held
 // bit-for-bit against tensor/prng.py:jitter_ref.
+//
+// B3' (nt_jitter_fold): the joint solve's restart draws,
+// `jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(s), t), (n,),
+// f32, 0, TIE_JITTER * jscale)` in nomad_tpu/tensor/batch_solver.py:319-323.
+// fold_in is one more threefry: the key pair is (out0, out1) of the counter
+// (0, t) under the seed's key (0, seed), both words kept (no xor). Each
+// thread recomputes that pair for its row (20 rounds, a few hundred integer
+// operations per element in all, still far under a microsecond at G=16 x
+// 16,384) and then draws exactly as above; one launch per restart t. Held
+// bit-for-bit against tensor/prng.py:jitter_fold_ref.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,8 +38,8 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t x0, uint32_t x1) {
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   x0 += ks[0];
@@ -44,7 +54,18 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
     x0 += ks[(i + 1) % 3];
     x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
   }
+}
+
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t x0, uint32_t x1) {
+  threefry2x32(k0, k1, x0, x1);
   return x0 ^ x1;
+}
+
+// jax.random._uniform's float: bits -> [1, 2) - 1, times span, floored at 0
+__device__ __forceinline__ float bits_to_unit(uint32_t bits, float span) {
+  const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  return fmaxf(0.0f, __fadd_rn(__fmul_rn(f, span), 0.0f));
 }
 
 __global__ void jitter_kernel(const uint32_t* __restrict__ seeds,
@@ -55,10 +76,27 @@ __global__ void jitter_kernel(const uint32_t* __restrict__ seeds,
        t < total; t += (long long)gridDim.x * blockDim.x) {
     const int row = (int)(t / n);
     const uint32_t node = (uint32_t)(t - (long long)row * n);
-    const uint32_t bits = threefry_bits(0u, seeds[row], 0u, node);
-    const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-    out[t] = fmaxf(0.0f, __fadd_rn(__fmul_rn(f, span), 0.0f));
+    out[t] = bits_to_unit(threefry_bits(0u, seeds[row], 0u, node), span);
   }
+}
+
+__global__ void jitter_fold_kernel(const uint32_t* __restrict__ seeds,
+                                   uint32_t fold, float* __restrict__ out,
+                                   int g, int n, float span) {
+  const long long total = (long long)g * n;
+  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       t < total; t += (long long)gridDim.x * blockDim.x) {
+    const int row = (int)(t / n);
+    const uint32_t node = (uint32_t)(t - (long long)row * n);
+    uint32_t k0 = 0u, k1 = fold;  // fold_in(PRNGKey(seed), fold)
+    threefry2x32(0u, seeds[row], k0, k1);
+    out[t] = bits_to_unit(threefry_bits(k0, k1, 0u, node), span);
+  }
+}
+
+int grid_for(long long total, int threads) {
+  long long blocks = (total + threads - 1) / threads;
+  return (int)(blocks > 65535 ? 65535 : blocks);
 }
 
 }  // namespace
@@ -67,10 +105,18 @@ extern "C" int nt_jitter(const void* seeds, void* out, int g, int n,
                          float span, void* stream) {
   const long long total = (long long)g * n;
   if (total <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;
-  jitter_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  jitter_kernel<<<grid_for(total, 256), 256, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)seeds, (float*)out, g, n, span);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nt_jitter_fold(const void* seeds, unsigned int fold,
+                              void* out, int g, int n, float span,
+                              void* stream) {
+  const long long total = (long long)g * n;
+  if (total <= 0) return 0;
+  jitter_fold_kernel<<<grid_for(total, 256), 256, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)seeds, (uint32_t)fold, (float*)out, g, n, span);
   return (int)cudaGetLastError();
 }

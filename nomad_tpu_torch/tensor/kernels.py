@@ -129,10 +129,13 @@ def bulk_fill_ref(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
     return counts
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check_cuda(what: str, name: str, t: torch.Tensor, dtype, shape,
+                device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` ``shape`` tensor on
+    ``device``: what the kernel ``what`` takes."""
     if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
             or not t.is_contiguous()):
-        raise ValueError(f"bulk_fill: {name} must be a contiguous {dtype} "
+        raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
                          f"{shape} tensor on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
 
@@ -153,13 +156,15 @@ def bulk_fill(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
             f"of two up to {MAX_FILL_NODES} in shared memory (ROADMAP "
             f"'make B1 fast': multi-CTA selection)")
     dev = used.device
-    _check_cuda("used", used, torch.float32, (n, 4), dev)
-    _check_cuda("available", available, torch.float32, (n, 4), dev)
-    _check_cuda("feas", feas, torch.bool, (g, n), dev)
-    _check_cuda("aff", aff, torch.float32, (g, n), dev)
-    _check_cuda("ask", ask, torch.float32, (g, 4), dev)
-    _check_cuda("k", k, torch.int32, (g,), dev)
-    _check_cuda("jit", jit, torch.float32, (g, n), dev)
+    for name, t, dtype, shape in (
+            ("used", used, torch.float32, (n, 4)),
+            ("available", available, torch.float32, (n, 4)),
+            ("feas", feas, torch.bool, (g, n)),
+            ("aff", aff, torch.float32, (g, n)),
+            ("ask", ask, torch.float32, (g, 4)),
+            ("k", k, torch.int32, (g,)),
+            ("jit", jit, torch.float32, (g, n))):
+        _check_cuda("bulk_fill", name, t, dtype, shape, dev)
     counts = torch.empty((g, n), dtype=torch.int16, device=dev)
     fn = _ext.entry("nt_bulk_fill")
     _ext.check(fn(used.data_ptr(), available.data_ptr(), feas.data_ptr(),

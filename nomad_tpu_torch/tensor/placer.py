@@ -1,14 +1,17 @@
 """TorchPlacer: the placement backend behind
-SchedulerAlgorithm="tpu-binpack" (reference ``nomad_tpu/tensor/placer.py``
-``TPUPlacer``: ``place()`` :229-505, ``_bulk_shape_ok`` and the service
-branch of ``_solve_bulk_counts`` :538-635, ``_place_bulk_columnar``
-:637-689, ``_bulk_trajectory_mean`` :950-975, ``_host_one`` :1046-1056).
+SchedulerAlgorithm="tpu-binpack" and "tpu-solve" (reference
+``nomad_tpu/tensor/placer.py`` ``TPUPlacer``: ``place()`` :229-505,
+``_bulk_shape_ok`` and the service branch of ``_solve_bulk_counts``
+:538-635, ``_place_bulk_columnar`` :637-689, ``_bulk_trajectory_mean``
+:950-975, ``_host_algorithm`` / ``_host_one`` :1040-1056).
 
 Per eval: one ClusterTensors build and one tie-break permutation; then
 per task group, one of three routes:
 
 - bulk: a columnar request whose group has the bulk shape goes to the
-  solver service; its per-node counts become ONE AllocBlock;
+  solver service (under "tpu-solve" as a joint request, solved by the
+  batch auction with the rest of its launch); its per-node counts
+  become ONE AllocBlock;
 - host: at most ``HOST_CUTOVER`` requests go to the host oracle
   (``scheduler/rank.select_best_node``), one commit each;
 - per-eval kernel: everything else (spread, distinct_hosts,
@@ -57,7 +60,8 @@ class TorchPlacer:
 
     def __init__(self, algorithm: str = enums.SCHED_ALG_BINPACK,
                  device: DeviceLike = None):
-        # fit formula of the solve; "tpu-binpack" keeps BestFit
+        # fit formula of the solve ("tpu-binpack" and "tpu-solve" keep
+        # BestFit); "tpu-solve" also routes bulk solves to the joint tier
         self.algorithm = algorithm
         self.device = resolve(device)
 
@@ -191,13 +195,20 @@ class TorchPlacer:
             self._attribute_failure(metrics, len(nodes), n_feasible)
             commit(req, None)
 
+    def _host_algorithm(self) -> str:
+        """The host oracle scores the device tiers as "binpack"."""
+        return (enums.SCHED_ALG_BINPACK
+                if self.algorithm in (enums.SCHED_ALG_TPU_BINPACK,
+                                      enums.SCHED_ALG_TPU_SOLVE)
+                else self.algorithm)
+
     def _host_one(self, ctx, job, tg, nodes, req, batch: bool,
                   preemption_enabled: bool, attempt: int):
         """The host oracle for one request of a small group."""
         penalty = (frozenset({req.ignore_node}) if req.ignore_node
                    else frozenset())
         return select_best_node(ctx, job, tg, nodes, batch=batch,
-                                algorithm=self.algorithm,
+                                algorithm=self._host_algorithm(),
                                 preemption_enabled=preemption_enabled,
                                 penalty_nodes=penalty, attempt=attempt)
 
@@ -238,7 +249,8 @@ class TorchPlacer:
         counts, token = service.solve(
             static=static, feas_base=tgt.feas_base, aff=tgt.affinity_boost,
             ask=tgt.ask, k=k, tg_count=tgt.tg_count, seed=seed,
-            used_fn=cluster.latest_usage)
+            used_fn=cluster.latest_usage,
+            joint=(self.algorithm == enums.SCHED_ALG_TPU_SOLVE))
         if ctx.plan is not None:
             ctx.plan.post_apply_hooks.append(
                 lambda result, _t=token: service.confirm(

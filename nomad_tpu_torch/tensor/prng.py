@@ -1,17 +1,22 @@
-"""threefry2x32 in torch, bit-exact with ``jax.random`` at the call site
-the bulk path uses (reference ``nomad_tpu/tensor/kernels.py:720-723``):
-``jax.random.uniform(jax.random.PRNGKey(seed), (n,), float32, 0.0, hi)``.
+"""threefry2x32 in torch, bit-exact with ``jax.random`` at the two call
+sites the port runs: the bulk path's
+``jax.random.uniform(jax.random.PRNGKey(seed), (n,), float32, 0.0, hi)``
+(reference ``nomad_tpu/tensor/kernels.py:720-723``) and the joint
+solve's restarts, which draw from ``fold_in(PRNGKey(seed), t)``
+(``nomad_tpu/tensor/batch_solver.py:319-323``).
 
 JAX's default threefry mode is partitionable: element ``i`` of a 1-D draw
 hashes the 64-bit counter ``(hi=0, lo=i)`` under the key ``(seed >> 32,
-seed & 0xFFFFFFFF)`` and keeps ``out0 ^ out1``. The bits become a float as
+seed & 0xFFFFFFFF)`` and keeps ``out0 ^ out1``. ``fold_in(key, t)`` is
+the key pair ``(out0, out1)`` of one threefry of the counter ``(0, t)``
+under ``key``. The bits become a float as
 ``bitcast((bits >> 9) | 0x3F800000) - 1``, scaled by ``hi - lo``, shifted
 by ``lo`` and floored at ``lo``.
 
 torch's uint32 support is thin, so the 32-bit words ride in int64 and
-every add and shift is masked back to 32 bits. The jitter kernel
-(``csrc/jitter.cu``) computes the same function on the card and is held
-bit-for-bit against :func:`jitter_ref`.
+every add and shift is masked back to 32 bits. The jitter kernels
+(``csrc/jitter.cu``) compute the same functions on the card and are held
+bit-for-bit against :func:`jitter_ref` and :func:`jitter_fold_ref`.
 """
 
 from __future__ import annotations
@@ -45,16 +50,37 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def random_bits(seeds: torch.Tensor, n: int) -> torch.Tensor:
-    """(G,) seeds (any integer dtype, values in [0, 2**32)) -> (G, n)
-    int64 tensor of the uint32 words ``jax.random.bits`` would draw from
-    ``PRNGKey(seed)`` for shape (n,)."""
-    s = seeds.to(torch.int64).reshape(-1, 1)
-    k0 = (s >> 32) & MASK32
-    k1 = s & MASK32
-    lo = torch.arange(n, dtype=torch.int64, device=seeds.device).reshape(1, -1)
-    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+def seed_keys(seeds: torch.Tensor) -> torch.Tensor:
+    """(G,) seeds (any integer dtype, values in [0, 2**32)) -> (G, 2)
+    int64 key pairs ``PRNGKey(seed)``: ``(seed >> 32, seed & mask)``."""
+    s = seeds.to(torch.int64)
+    return torch.stack([(s >> 32) & MASK32, s & MASK32], dim=1)
+
+
+def fold_in(seeds: torch.Tensor, t: int) -> torch.Tensor:
+    """(G,) seeds -> (G, 2) int64 key pairs
+    ``jax.random.fold_in(PRNGKey(seed), t)``: the two output words of one
+    threefry of the counter ``(0, t)`` under the seed's key."""
+    keys = seed_keys(seeds)
+    zero = torch.zeros_like(keys[:, 0])
+    o0, o1 = threefry2x32(keys[:, 0], keys[:, 1], zero,
+                          torch.full_like(zero, int(t) & MASK32))
+    return torch.stack([o0, o1], dim=1)
+
+
+def random_bits_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(G, 2) key pairs (int64 holding uint32 words) -> (G, n) int64
+    tensor of the uint32 words ``jax.random.bits(key, (n,), uint32)``."""
+    k = keys.to(torch.int64)
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(1, -1)
+    o0, o1 = threefry2x32(k[:, 0:1], k[:, 1:2], torch.zeros_like(lo), lo)
     return o0 ^ o1
+
+
+def random_bits(seeds: torch.Tensor, n: int) -> torch.Tensor:
+    """(G,) seeds -> (G, n) int64 tensor of the uint32 words
+    ``jax.random.bits`` would draw from ``PRNGKey(seed)`` for shape (n,)."""
+    return random_bits_keys(seed_keys(seeds), n)
 
 
 def bits_to_uniform(bits: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -74,6 +100,64 @@ def jitter_ref(seeds: torch.Tensor, n: int, hi: float) -> torch.Tensor:
     return bits_to_uniform(random_bits(seeds, n), 0.0, hi)
 
 
+def jitter_keys_ref(keys: torch.Tensor, n: int, hi: float) -> torch.Tensor:
+    """(G, 2) key pairs -> (G, n) float32 draws of U[0, hi), one row per
+    key: ``jax.random.uniform(key, (n,), float32, 0.0, hi)``."""
+    return bits_to_uniform(random_bits_keys(keys, n), 0.0, hi)
+
+
+def jitter_fold_ref(seeds: torch.Tensor, t: int, n: int,
+                    hi: float) -> torch.Tensor:
+    """Plain version of the keyed jitter kernel: (G,) seeds -> (G, n)
+    float32 draws of U[0, hi) from ``fold_in(PRNGKey(seed), t)``."""
+    _ext.COUNTS.plain("jitter_fold", seeds)
+    return jitter_keys_ref(fold_in(seeds, t), n, hi)
+
+
+def _seeds_u32(seeds: torch.Tensor, what: str) -> torch.Tensor:
+    """The uint32 seed words, reinterpreted as int32 for a kernel."""
+    if seeds.dim() != 1 or seeds.dtype != torch.int64:
+        raise ValueError(f"{what}: seeds must be a 1-D int64 tensor")
+    return torch.where(seeds >= 2 ** 31, seeds - 2 ** 32, seeds).to(
+        torch.int32).contiguous()
+
+
+def _span(hi: float) -> float:
+    """``hi - lo`` in float32, as jax.random.uniform computes it."""
+    return float(torch.tensor(hi, dtype=torch.float32)
+                 - torch.tensor(0.0, dtype=torch.float32))
+
+
+def jitter_fold(seeds: torch.Tensor, t: int, n: int, hi: float,
+                out: torch.Tensor = None) -> torch.Tensor:
+    """(G,) int64 seeds in [0, 2**32) -> (G, n) float32 U[0, hi) from
+    ``fold_in(PRNGKey(seed), t)``: the CUDA kernel (csrc/jitter.cu
+    ``nt_jitter_fold``) for a CUDA tensor, :func:`jitter_fold_ref` for a
+    CPU tensor. ``out``, if given, is a contiguous (G, n) float32 tensor
+    the draw is written into."""
+    if seeds.device.type == "cpu":
+        got = jitter_fold_ref(seeds, t, n, hi)
+        if out is None:
+            return got
+        return out.copy_(got)
+    if not seeds.is_cuda:
+        raise ValueError(f"jitter_fold: unsupported device {seeds.device}")
+    s32 = _seeds_u32(seeds, "jitter_fold")
+    g = s32.shape[0]
+    if out is None:
+        out = torch.empty((g, n), dtype=torch.float32, device=seeds.device)
+    elif (out.shape != (g, n) or out.dtype != torch.float32
+          or out.device != seeds.device or not out.is_contiguous()):
+        raise ValueError("jitter_fold: out must be a contiguous (G, n) "
+                         "float32 tensor on the seeds' device")
+    fn = _ext.entry("nt_jitter_fold")
+    _ext.check(fn(s32.data_ptr(), int(t) & MASK32, out.data_ptr(), g, n,
+                  _span(hi), _ext.stream_handle(seeds.device)),
+               "jitter_fold launch")
+    _ext.COUNTS.launched("jitter_fold")
+    return out
+
+
 def jitter(seeds: torch.Tensor, n: int, hi: float) -> torch.Tensor:
     """(G,) int64 seeds in [0, 2**32) -> (G, n) float32 U[0, hi): the
     CUDA kernel (csrc/jitter.cu) for a CUDA tensor, :func:`jitter_ref`
@@ -82,17 +166,11 @@ def jitter(seeds: torch.Tensor, n: int, hi: float) -> torch.Tensor:
         return jitter_ref(seeds, n, hi)
     if not seeds.is_cuda:
         raise ValueError(f"jitter: unsupported device {seeds.device}")
-    if seeds.dim() != 1 or seeds.dtype != torch.int64:
-        raise ValueError("jitter: seeds must be a 1-D int64 tensor")
-    # the uint32 words, reinterpreted as int32 for the kernel's pointer
-    s32 = torch.where(seeds >= 2 ** 31, seeds - 2 ** 32, seeds).to(
-        torch.int32).contiguous()
+    s32 = _seeds_u32(seeds, "jitter")
     g = s32.shape[0]
     out = torch.empty((g, n), dtype=torch.float32, device=seeds.device)
-    span = float(torch.tensor(hi, dtype=torch.float32)
-                 - torch.tensor(0.0, dtype=torch.float32))
     fn = _ext.entry("nt_jitter")
-    _ext.check(fn(s32.data_ptr(), out.data_ptr(), g, n, span,
+    _ext.check(fn(s32.data_ptr(), out.data_ptr(), g, n, _span(hi),
                   _ext.stream_handle(seeds.device)), "jitter launch")
     _ext.COUNTS.launched("jitter")
     return out

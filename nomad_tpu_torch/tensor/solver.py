@@ -4,8 +4,16 @@
 Racing scheduler workers enqueue solve requests here and block on a
 future while ONE service thread batches them (up to ``G_PAD`` per launch,
 demand-driven: whatever queued while the previous launch ran forms the
-next batch) into a single :func:`kernels.solve_bulk_multi` call whose
-usage carry stays on the device between launches.
+next batch) into a single call whose usage carry stays on the device
+between launches: :func:`kernels.solve_bulk_multi` for "tpu-binpack"
+requests, :func:`batch_solver.solve_batch` (the joint auction) for
+"tpu-solve" ones. The two tiers never share a launch.
+
+"tpu-solve" workers that process a dequeued batch of evals together
+open a :class:`BatchContext` sized to it and run each member inside
+:class:`batch_member`; the service then holds a launch, at most
+``JOINT_WAIT_S``, while members that may still submit have not, so the
+whole batch lands in one joint launch.
 
 The carry is an optimistic overlay: the store usage at the last resync
 plus every solve since. Drift is repaired, not tolerated:
@@ -39,17 +47,82 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from .batch_solver import solve_batch
 from .kernels import solve_bulk_multi
 
 _STOP = object()
 
 
+class BatchContext:
+    """Rendezvous for one worker batch under "tpu-solve": a member is
+    settled once it submitted its first joint solve (it is in the queue)
+    or its run returned without one; the service holds a joint launch
+    only while some member of a request's context is unsettled."""
+
+    __slots__ = ("_lock", "_pending")
+
+    def __init__(self, expected: int):
+        self._lock = threading.Lock()
+        self._pending = expected
+
+    def settle(self) -> None:
+        with self._lock:
+            self._pending -= 1
+
+    def pending(self) -> int:
+        with self._lock:
+            return self._pending
+
+
+_batch_tls = threading.local()
+
+
+def current_batch() -> Optional[BatchContext]:
+    return getattr(_batch_tls, "ctx", None)
+
+
+def open_batch(expected: int) -> BatchContext:
+    return BatchContext(expected)
+
+
+class batch_member:
+    """Run by each member eval's thread: binds the BatchContext to the
+    thread, so the placer's solve call finds it, and settles the member
+    on exit if it never submitted a joint solve."""
+
+    def __init__(self, ctx: Optional[BatchContext]):
+        self._ctx = ctx
+
+    def __enter__(self):
+        if self._ctx is not None:
+            _batch_tls.ctx = self._ctx
+            _batch_tls.settled = False
+        return self
+
+    def __exit__(self, *exc):
+        if self._ctx is not None:
+            if not getattr(_batch_tls, "settled", True):
+                self._ctx.settle()
+            _batch_tls.ctx = None
+            _batch_tls.settled = True
+        return False
+
+
+def _settle_current_member() -> None:
+    """Mark the calling thread's member settled: its first joint solve is
+    in the queue."""
+    ctx = current_batch()
+    if ctx is not None and not getattr(_batch_tls, "settled", True):
+        _batch_tls.settled = True
+        ctx.settle()
+
+
 class _Request:
     __slots__ = ("static", "feas_base", "aff", "ask", "k", "tg_count",
-                 "seed", "used_fn", "future", "token")
+                 "seed", "used_fn", "future", "token", "joint", "batch_ctx")
 
     def __init__(self, static, feas_base, aff, ask, k, tg_count, seed,
-                 used_fn):
+                 used_fn, joint=False, batch_ctx=None):
         self.static = static
         self.feas_base = feas_base
         self.aff = aff
@@ -62,6 +135,8 @@ class _Request:
         self.used_fn = used_fn
         self.future = Future()
         self.token = 0
+        self.joint = joint          # solve through the joint auction tier
+        self.batch_ctx = batch_ctx  # the worker batch's rendezvous, or None
 
 
 class _LedgerEntry:
@@ -87,7 +162,9 @@ class _Inflight:
     def __init__(self, rs, static, counts, event, g, t0, t_dispatched):
         self.rs = rs
         self.static = static
-        self.counts = counts            # (G_pad, N) int16 on the device
+        # (G_pad, N) int16 on the device; a joint launch's (6,) f32 info
+        # row follows it as 12 int16 words, so one copy reads both back
+        self.counts = counts
         self.event = event              # CUDA event after the launch
         self.g = g
         self.t0 = t0
@@ -100,6 +177,7 @@ class BulkSolverService:
     RESYNC_SOLVES = 64  # overlay refresh cadence
     CORRECTIONS = 64    # sparse correction slots per launch
     LEDGER_TTL = 60.0   # s before an unconfirmed solve is presumed dead
+    JOINT_WAIT_S = 0.25  # max hold for worker-batch rendezvous members
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve(device)
@@ -114,28 +192,40 @@ class BulkSolverService:
         self._stream = None
         self.stats = {"launches": 0, "solves": 0, "resyncs": 0,
                       "launch_s": 0.0, "corrections": 0, "pipelined": 0,
-                      "overlap_s": 0.0, "busy_s": 0.0}
+                      "overlap_s": 0.0, "busy_s": 0.0,
+                      "joint_launches": 0, "joint_solves": 0,
+                      "auction_won": 0, "auction_rounds": 0,
+                      "joint_score": 0.0, "greedy_score": 0.0}
         # the one dispatched-but-unfetched launch (service thread only)
         self._inflight: Optional[_Inflight] = None
 
     # -- caller side (scheduler worker threads) --
 
     def solve(self, *, static, feas_base, aff, ask, k, tg_count, seed,
-              used_fn):
+              used_fn, joint: bool = False):
         """Blocking solve of one fresh-placement bulk eval ->
         ((N_pad,) int64 per-node counts in canonical order, token). The
         caller arranges for confirm(token, rejected_node_ids) to run
-        once the plan holding these placements is applied."""
+        once the plan holding these placements is applied. With
+        ``joint`` ("tpu-solve") the request goes through the joint
+        auction with every joint request of its launch, and the calling
+        thread's BatchContext, if any, rides along."""
         if not 0 <= int(k) <= self.MAX_K:
             raise ValueError(f"k={k} outside [0, {self.MAX_K}]")
         req = _Request(static, feas_base, aff,
                        np.asarray(ask, dtype=np.float32), int(k),
-                       float(tg_count), int(np.uint32(seed)), used_fn)
+                       float(tg_count), int(np.uint32(seed)), used_fn,
+                       joint=joint,
+                       batch_ctx=current_batch() if joint else None)
         # put BEFORE ensure: the service thread clears its slot before
         # the final stop-drain, so a request racing stop() is either
         # drained (failed, answered) or starts a fresh thread
         self._q.put(req)
         self._ensure_thread()
+        if req.batch_ctx is not None:
+            # settle AFTER the put: the service may launch without a
+            # member whose request it has, never the reverse
+            _settle_current_member()
         result = req.future.result()
         return result, req.token
 
@@ -190,11 +280,29 @@ class BulkSolverService:
                 self._drain_failed()
                 return
             batch = [req]
+            deadline = None
             while len(batch) < self.G_PAD:
                 try:
                     nxt = self._q.get_nowait()
                 except queue.Empty:
-                    break
+                    # rendezvous: members of an open BatchContext that
+                    # have not settled may still submit; hold the launch
+                    # (bounded) so the whole worker batch solves jointly
+                    if not any(r.batch_ctx is not None
+                               and r.batch_ctx.pending() > 0
+                               for r in batch):
+                        break
+                    # meanwhile the in-flight launch's workers commit
+                    self._fetch_inflight()
+                    if deadline is None:
+                        deadline = time.monotonic() + self.JOINT_WAIT_S
+                    remain = deadline - time.monotonic()
+                    if remain <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=min(remain, 0.01))
+                    except queue.Empty:
+                        continue
                 if nxt is _STOP:
                     self._retire()
                     self._flush(batch)
@@ -216,11 +324,12 @@ class BulkSolverService:
                     RuntimeError("bulk solver service stopped"))
 
     def _flush(self, batch: List[_Request]) -> None:
-        # one launch per distinct static (mixed statics happen only
-        # across a node-set version change)
-        groups: Dict[int, List[_Request]] = {}
+        # one launch per distinct (static, tier): mixed statics happen
+        # only across a node-set version change, and a greedy request
+        # never goes through the auction
+        groups: Dict[tuple, List[_Request]] = {}
         for r in batch:
-            groups.setdefault(id(r.static), []).append(r)
+            groups.setdefault((id(r.static), r.joint), []).append(r)
         for rs in groups.values():
             try:
                 inflight = self._dispatch_group(rs)
@@ -306,7 +415,10 @@ class BulkSolverService:
             avail, m, a = self._resident(static, r.feas_base, r.aff)
             rows_m.append((id(r.feas_base), m))
             rows_a.append((id(r.aff), a))
-        g_pad = 1 if len(rs) == 1 else self.G_PAD
+        # joint launches always take the full padded width (k=0 rows
+        # are no-ops), so every joint launch has one shape
+        g_pad = (self.G_PAD if rs[0].joint
+                 else 1 if len(rs) == 1 else self.G_PAD)
         while len(rows_m) < g_pad:
             rows_m.append(rows_m[0])
             rows_a.append(rows_a[0])
@@ -385,10 +497,15 @@ class BulkSolverService:
                 k[i] = r.k
                 tgc[i] = r.tg_count
                 seeds[i] = r.seed
-            used_dev, counts = solve_bulk_multi(
-                used_dev, avail, feas, aff, self._upload(ask),
-                self._upload(k), self._upload(tgc), self._upload(seeds),
-                self._upload(cidx), self._upload(cdelta), g=g_pad)
+            solve = solve_batch if rs[0].joint else solve_bulk_multi
+            out = solve(used_dev, avail, feas, aff, self._upload(ask),
+                        self._upload(k), self._upload(tgc),
+                        self._upload(seeds), self._upload(cidx),
+                        self._upload(cdelta), g=g_pad)
+            used_dev, counts = out[0], out[1]
+            if rs[0].joint:
+                counts = torch.cat([counts.reshape(-1),
+                                    out[2].view(torch.int16)])
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
@@ -399,11 +516,16 @@ class BulkSolverService:
 
     def _fetch(self, inf: _Inflight, pipelined: bool = False) -> None:
         """The launch's ONLY host sync: wait for its event, copy the
-        counts back once, register ledger entries, resolve the futures."""
+        counts (and a joint launch's info row) back once, register ledger
+        entries, resolve the futures."""
         t_f0 = time.perf_counter()
         if inf.event is not None:
             inf.event.synchronize()
         counts_np = inf.counts.cpu().numpy()
+        info_np = None
+        if inf.rs[0].joint:
+            info_np = counts_np[-12:].view(np.float32)
+            counts_np = counts_np[:-12].reshape(-1, inf.static.n_pad)
         t_f1 = time.perf_counter()
         born = time.time()
         with self._lock:
@@ -416,6 +538,15 @@ class BulkSolverService:
             self.stats["busy_s"] += max(0.0, t_f1 - inf.t_dispatched)
             if pipelined:
                 self.stats["pipelined"] += 1
+            if info_np is not None:
+                won = info_np[5] > 0.5
+                self.stats["joint_launches"] += 1
+                self.stats["joint_solves"] += inf.g
+                self.stats["auction_won"] += int(won)
+                self.stats["auction_rounds"] += int(info_np[4])
+                self.stats["joint_score"] += float(
+                    info_np[0] if won else info_np[1])
+                self.stats["greedy_score"] += float(info_np[1])
             for i, r in enumerate(inf.rs):
                 row = counts_np[i]
                 idx = np.nonzero(row)[0]

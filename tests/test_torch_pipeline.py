@@ -1,9 +1,12 @@
 """The slice as a whole: the pinned C2M workload of
 tests/test_c2m_sharded.py::_run_pipeline (256 nodes, three batch jobs,
-pinned job and eval ids, "tpu-binpack") through the JAX package's Harness
-and through the port's Harness(device="cpu") must give the same per-job
-fingerprint. The port's nodes and jobs are carried across from the
-reference's as plain records (nomad_tpu_torch.convert)."""
+pinned job and eval ids) under "tpu-binpack" and under "tpu-solve"
+through the JAX package's Harness and through the port's
+Harness(device="cpu") must give the same per-job fingerprint. The port's
+nodes and jobs are carried across from the reference's as plain records
+(nomad_tpu_torch.convert)."""
+
+import random
 
 import numpy as np
 import pytest
@@ -109,31 +112,34 @@ def port_service(monkeypatch):
     svc.stop()
 
 
-def _run_reference(monkeypatch):
+def _run_reference(monkeypatch, alg):
     monkeypatch.setenv("NOMAD_TPU_MESH_DEVICES", "1")
     svc = ref_solver.BulkSolverService()
     monkeypatch.setattr(ref_solver, "_service", svc)
     try:
         h = Harness()
         bench.build_nodes(h.store, 256)
-        cfg = SchedulerConfiguration(scheduler_algorithm=ALG)
+        cfg = SchedulerConfiguration(scheduler_algorithm=alg)
         jobs = []
         for i, (count, cpu, mem) in enumerate(JOBS):
             j = bench.service_job(count, cpu=cpu, mem=mem, batch=True)
-            j.id = f"parity-{ALG}-{i}"
+            j.id = f"parity-{alg}-{i}"
             jobs.append(j)
         records = [job_record(j) for j in jobs]
         for i, j in enumerate(jobs):
             h.store.upsert_job(j)
-            h.process(mock.eval_for(j, id=f"parity-ev-{ALG}-{i}"),
+            h.process(mock.eval_for(j, id=f"parity-ev-{alg}-{i}"),
                       sched_config=cfg)
-        return h, jobs, records
+        return h, jobs, records, dict(svc.stats)
     finally:
         svc.stop()
 
 
-def test_pipeline_fingerprint_equals_reference(monkeypatch, port_service):
-    ref_h, ref_jobs, job_records = _run_reference(monkeypatch)
+@pytest.mark.parametrize("alg", [ALG, "tpu-solve"])
+def test_pipeline_fingerprint_equals_reference(monkeypatch, port_service,
+                                               alg):
+    ref_h, ref_jobs, job_records, ref_stats = _run_reference(monkeypatch,
+                                                             alg)
     want = fingerprint(ref_h.store, ref_jobs)
     assert sum(fp[0] for fp in want.values()) == 700 + 900 + 500
 
@@ -141,11 +147,11 @@ def test_pipeline_fingerprint_equals_reference(monkeypatch, port_service):
     for n in convert.nodes_from_records(
             [node_record(n) for n in ref_h.store.snapshot().nodes()]):
         h.store.upsert_node(n)
-    cfg = port_operator.SchedulerConfiguration(scheduler_algorithm=ALG)
+    cfg = port_operator.SchedulerConfiguration(scheduler_algorithm=alg)
     jobs = [convert.job_from_record(r) for r in job_records]
     for i, j in enumerate(jobs):
         h.store.upsert_job(j)
-        h.process(port_mock.eval_for(j, id=f"parity-ev-{ALG}-{i}"),
+        h.process(port_mock.eval_for(j, id=f"parity-ev-{alg}-{i}"),
                   sched_config=cfg)
     got = fingerprint(h.store, jobs)
     assert set(got) == set(want)
@@ -156,6 +162,17 @@ def test_pipeline_fingerprint_equals_reference(monkeypatch, port_service):
         assert len(scores_g) == len(scores_w), jid
         assert np.allclose(scores_g, scores_w, rtol=0, atol=1e-12), jid
     assert port_service.stats["launches"] >= 3
+    joint = port_service.stats["joint_launches"]
+    if alg == "tpu-solve":
+        # one joint launch per eval, as in the reference, with the same
+        # pick and the same auction rounds
+        assert joint >= 1 and joint == ref_stats["joint_launches"]
+        for key in ("auction_won", "auction_rounds", "joint_solves"):
+            assert port_service.stats[key] == ref_stats[key], key
+        assert port_service.stats["joint_score"] == pytest.approx(
+            ref_stats["joint_score"], rel=1e-6)
+    else:
+        assert joint == 0
 
     snap = h.store.snapshot()
     ids = [a.id for a in snap.allocs()]
@@ -208,6 +225,35 @@ def test_unported_shapes_raise_not_implemented(port_service):
         h.process(port_mock.eval_for(big),
                   sched_config=port_operator.SchedulerConfiguration())
     assert port_service.stats["launches"] == 0
+
+
+def test_tpu_solve_matches_greedy_placement_count(port_service):
+    """The reference's test of the same name (tests/test_batch_solver.py)
+    through the port's Harness: on 24 nodes, three jobs of 256 allocs,
+    "tpu-solve" places every alloc that "tpu-binpack" places."""
+    def run(algorithm):
+        h = PortHarness(device="cpu")
+        rng = random.Random(9)
+        jobs = [port_mock.service_job(256, cpu=rng.choice([60, 100, 140]),
+                                      mem=rng.choice([48, 64, 128]),
+                                      batch=True) for _ in range(3)]
+        for i in range(24):
+            n = port_mock.node(id=f"pc-{algorithm}-{i:03d}")
+            n.resources.cpu = 16000
+            n.resources.memory_mb = 32768
+            n.compute_class()
+            h.store.upsert_node(n)
+        cfg = port_operator.SchedulerConfiguration(
+            scheduler_algorithm=algorithm)
+        for j in jobs:
+            h.store.upsert_job(j)
+            h.process(port_mock.eval_for(j), sched_config=cfg)
+        snap = h.store.snapshot()
+        return sum(len(snap.allocs_by_job(j.id)) for j in jobs)
+
+    assert run("tpu-solve") == run(ALG) == 3 * 256
+    assert port_service.stats["joint_launches"] == 3
+    assert port_service.stats["joint_solves"] == 3
 
 
 def test_node_pool_override_and_injected_placer(port_service):

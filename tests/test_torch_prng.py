@@ -1,6 +1,7 @@
 """The port's threefry2x32 jitter (nomad_tpu_torch/tensor/prng.py) against
 jax.random, bit for bit, at the call the bulk kernel makes
-(nomad_tpu/tensor/kernels.py:720-723)."""
+(nomad_tpu/tensor/kernels.py:720-723) and at the joint solve's restart
+draws from fold_in (nomad_tpu/tensor/batch_solver.py:319-323)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from nomad_tpu.tensor.batch_solver import PORTFOLIO as REF_PORTFOLIO
 from nomad_tpu.tensor.kernels import TIE_JITTER as REF_TIE_JITTER
 from nomad_tpu_torch.tensor import prng
 from nomad_tpu_torch.tensor.kernels import TIE_JITTER
@@ -51,3 +53,47 @@ def test_jitter_wrapper_rejects_unsupported_device():
     with pytest.raises(ValueError):
         prng.jitter(torch.zeros(2, dtype=torch.int64, device="meta"), 4,
                     TIE_JITTER)
+
+
+def test_fold_in_keys_equal_jax():
+    assert prng.fold_in(torch.tensor([7]), 3).tolist() == [
+        [276534068, 1641862660]]
+    for t in range(5):
+        got = prng.fold_in(torch.tensor(SEEDS, dtype=torch.int64), t).numpy()
+        for i, s in enumerate(SEEDS):
+            want = np.asarray(jax.random.fold_in(jax.random.PRNGKey(s), t))
+            assert np.array_equal(got[i], want.astype(np.int64)), (s, t)
+
+
+@pytest.mark.parametrize("t,jscale", [(t, js) for t, (js, _) in
+                                      enumerate(REF_PORTFOLIO)])
+@pytest.mark.parametrize("n", [7, 4096])
+def test_jitter_fold_bits_equal_jax(t, jscale, n):
+    """The restart draws as the reference vmaps them over (G,) uint32
+    seeds, for every PORTFOLIO entry's jitter scale."""
+    seeds = np.array(SEEDS, dtype=np.uint32)
+    want = np.asarray(jax.vmap(lambda s: jax.random.uniform(
+        jax.random.fold_in(jax.random.PRNGKey(s), t), (n,), jnp.float32,
+        0.0, REF_TIE_JITTER * jscale))(seeds))
+    got = prng.jitter_fold(torch.from_numpy(seeds.astype(np.int64)), t, n,
+                           TIE_JITTER * jscale).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    out = torch.empty((len(SEEDS), n))
+    prng.jitter_fold(torch.from_numpy(seeds.astype(np.int64)), t, n,
+                     TIE_JITTER * jscale, out=out)
+    assert np.array_equal(out.numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_keyed_bits_equal_jax_bits():
+    keys = prng.fold_in(torch.tensor(SEEDS, dtype=torch.int64), 2)
+    got = prng.random_bits_keys(keys, 300).numpy()
+    for i, s in enumerate(SEEDS):
+        key = jax.random.fold_in(jax.random.PRNGKey(s), 2)
+        want = np.asarray(jax.random.bits(key, (300,), jnp.uint32))
+        assert np.array_equal(got[i], want.astype(np.int64)), s
+
+
+def test_jitter_fold_rejects_unsupported_device():
+    with pytest.raises(ValueError):
+        prng.jitter_fold(torch.zeros(2, dtype=torch.int64, device="meta"),
+                         0, 4, TIE_JITTER)

@@ -1,6 +1,7 @@
 """The port's BulkSolverService (nomad_tpu_torch/tensor/solver.py) on the
 CPU: the reference's service cases (tests/test_c2m_sharded.py at mesh=1)
-plus the ledger's correction and TTL paths."""
+plus the ledger's correction and TTL paths, and the joint tier's
+worker-batch rendezvous (BatchContext / batch_member)."""
 
 import threading
 import time
@@ -11,7 +12,8 @@ import torch
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.structs.resources import RESOURCE_DIMS
 from nomad_tpu_torch.tensor.cluster import ClusterStatic
-from nomad_tpu_torch.tensor.solver import BulkSolverService
+from nomad_tpu_torch.tensor.solver import (BulkSolverService, batch_member,
+                                           current_batch, open_batch)
 
 
 def _cluster(n, cpu, prefix):
@@ -180,4 +182,146 @@ def test_service_device_is_explicit():
     assert svc.device == torch.device("cpu")
     assert svc.MAX_K == 32767 and svc.G_PAD == 16
     assert svc.RESYNC_SOLVES == 64 and svc.CORRECTIONS == 64
-    assert svc.LEDGER_TTL == 60.0
+    assert svc.LEDGER_TTL == 60.0 and svc.JOINT_WAIT_S == 0.25
+
+
+def _members(svc, static, feas, aff, ctx, n_submit, n_idle=0, wedge=None):
+    """n_submit member threads that each submit one joint solve inside
+    batch_member(ctx), n_idle that return without one, and, with a
+    ``wedge`` event, one more that holds its membership until it is
+    set. Returns (threads, results, errors)."""
+    zeros = np.zeros((static.n_pad, RESOURCE_DIMS), dtype=np.float32)
+    results, errors = [], []
+    start = threading.Barrier(n_submit + n_idle + (wedge is not None))
+
+    def submit(i):
+        try:
+            with batch_member(ctx):
+                start.wait()
+                counts, token = svc.solve(
+                    static=static, feas_base=feas, aff=aff,
+                    ask=_ask(100.0, 64.0), k=3, tg_count=1.0, seed=i,
+                    used_fn=lambda: zeros, joint=True)
+                results.append((counts, token))
+        except Exception as e:  # pragma: no cover - surfaced by callers
+            errors.append(e)
+
+    def idle():
+        with batch_member(ctx):
+            assert current_batch() is ctx
+            start.wait()
+        assert current_batch() is None
+
+    def wedged():
+        with batch_member(ctx):
+            start.wait()
+            wedge.wait(10)
+
+    threads = ([threading.Thread(target=submit, args=(i,))
+                for i in range(n_submit)]
+               + [threading.Thread(target=idle) for _ in range(n_idle)]
+               + ([threading.Thread(target=wedged)] if wedge else []))
+    for th in threads:
+        th.start()
+    return threads, results, errors
+
+
+def _join(threads):
+    for th in threads:
+        th.join(timeout=30)
+        assert not th.is_alive()
+
+
+def test_batch_members_land_in_one_joint_launch():
+    """Four members of one worker batch on four threads: the service
+    holds the launch until every member submitted, so all four solve in
+    ONE joint launch (the reference's rendezvous, solver.py:449-502)."""
+    _, static, feas, aff = _cluster(16, 4000, "jb-n")
+    svc = BulkSolverService(device="cpu")
+    svc.JOINT_WAIT_S = 10.0     # only the rendezvous may end the hold
+    try:
+        ctx = open_batch(4)
+        threads, results, errors = _members(svc, static, feas, aff, ctx, 4)
+        _join(threads)
+        assert not errors, errors
+        assert ctx.pending() == 0
+        assert svc.stats["joint_launches"] == 1 == svc.stats["launches"]
+        assert svc.stats["joint_solves"] == 4
+        assert sum(int(c.sum()) for c, _ in results) == 12
+        assert svc.stats["joint_score"] >= svc.stats["greedy_score"] > 0
+    finally:
+        svc.stop()
+
+
+def test_member_without_a_solve_is_settled_on_exit():
+    """A member whose run returns without a joint solve settles on exit,
+    so the launch fires as soon as the others have submitted."""
+    _, static, feas, aff = _cluster(16, 4000, "js-n")
+    svc = BulkSolverService(device="cpu")
+    svc.JOINT_WAIT_S = 10.0
+    try:
+        ctx = open_batch(3)
+        t0 = time.monotonic()
+        threads, results, errors = _members(svc, static, feas, aff, ctx, 2,
+                                            n_idle=1)
+        _join(threads)
+        assert time.monotonic() - t0 < 5.0
+        assert not errors, errors
+        assert ctx.pending() == 0
+        assert svc.stats["joint_launches"] == 1
+        assert svc.stats["joint_solves"] == 2
+    finally:
+        svc.stop()
+
+
+def test_wedged_member_costs_at_most_the_joint_wait():
+    """A member that never submits nor returns holds the launch for at
+    most JOINT_WAIT_S; the others' solve then fires without it."""
+    _, static, feas, aff = _cluster(16, 4000, "jw-n")
+    svc = BulkSolverService(device="cpu")
+    svc.JOINT_WAIT_S = 0.2
+    wedge = threading.Event()
+    try:
+        ctx = open_batch(2)
+        t0 = time.monotonic()
+        threads, results, errors = _members(svc, static, feas, aff, ctx, 1,
+                                            wedge=wedge)
+        threads[0].join(timeout=30)
+        waited = time.monotonic() - t0
+        assert not threads[0].is_alive() and not errors, errors
+        assert 0.15 <= waited < 5.0
+        assert ctx.pending() == 1
+        assert svc.stats["joint_launches"] == 1
+        assert svc.stats["joint_solves"] == 1
+    finally:
+        wedge.set()
+        _join(threads)
+        svc.stop()
+
+
+def test_greedy_requests_never_share_a_joint_launch():
+    """A "tpu-binpack" request and a joint one queued together are two
+    launches: the greedy tier never goes through the auction."""
+    _, static, feas, aff = _cluster(16, 4000, "jg-n")
+    svc = BulkSolverService(device="cpu")
+    zeros = np.zeros((static.n_pad, RESOURCE_DIMS), dtype=np.float32)
+    out = []
+    try:
+        barrier = threading.Barrier(2)
+
+        def run(joint):
+            barrier.wait()
+            out.append(svc.solve(static=static, feas_base=feas, aff=aff,
+                                 ask=_ask(100.0, 64.0), k=3, tg_count=1.0,
+                                 seed=7, used_fn=lambda: zeros, joint=joint))
+
+        threads = [threading.Thread(target=run, args=(j,))
+                   for j in (False, True)]
+        for th in threads:
+            th.start()
+        _join(threads)
+        assert len(out) == 2
+        assert svc.stats["launches"] == 2
+        assert svc.stats["joint_launches"] == 1 == svc.stats["joint_solves"]
+    finally:
+        svc.stop()
