@@ -36,22 +36,31 @@ Phases (any failure raises and exits non-zero):
               no plain version on CUDA; prints allocs/s and the per-job
               rack-count spread.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
-              version at G=16 x N_pad=16,384 for each of the 5 restarts:
+              version: 5 restarts x G=16 x N_pad=16,384 in one launch,
               bitwise.
 11. B5/B6  -- the auction (5 restarts, one launch) and the pick vs their
               plain versions, then solve_batch vs solve_batch_ref, at the
               C2M width (build_nodes capacities of 10,240 nodes padded to
-              16,384, G=16, k=800, bench asks, contested near-full nodes) on
-              five variants (main, evict, overshooting corrections, k=0 /
-              sparse / infeasible rows, a 3-round cap): take, used, rounds,
-              counts and info exact.
+              16,384, G=16, k=800, bench asks) on six variants (main:
+              contested near-full nodes; evict; overshooting corrections;
+              k=0 / sparse / infeasible rows; a 3-round cap; wide: free
+              capacity on every node, long auctions): take, used, rounds,
+              counts and info exact. B5 timed on main and wide, with its
+              time per round.
 12. solve  -- the "tpu-solve" path at bench.py cfg_solve_ab's c2m_mini shape:
               2,560 nodes, 50 batch jobs x 800 allocs cycling its asks, in
               worker batches of 8 (one thread per member inside
               batch_member) through Harness.process("tpu-solve"). Every
               alloc placed once, no node over capacity, joint launches >= 1,
-              joint score >= greedy score, B5/B6/B1 launched once per joint
-              launch, no plain version on CUDA.
+              joint score >= greedy score, B3'/B5/B6/B1 launched once per
+              joint launch, no plain version on CUDA. Each joint launch's
+              inputs are copied as it is dispatched.
+    runs   -- those joint launches replayed at the path's shape (N_pad
+              4,096, G 16): solve_batch, B3', B5 and the pick exact against
+              their plain versions on each; B3', B5, the pick, B1 and the
+              whole launch timed on each, and the launches' device time
+              set against the path's wall. The kernel records of B3', B5
+              and the pick are these means.
 13. parity -- the pinned 256-node bulk workload under "tpu-binpack" and under
               "tpu-solve", and the spread / distinct_hosts /
               distinct_property / host-oracle workload, on the card and on
@@ -69,6 +78,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -280,39 +290,39 @@ def phase_fill(torch, dev, card, rng):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def fold_bound(n_t: int, g: int, n: int):
+    """Least time of one B3' launch: seeds in, (T, G, n) floats out; one
+    threefry (~120 32-bit ops with the float build) per element and one
+    fold_in per (t, eval) row."""
+    return bound(g * 8 + n_t * g * n * 4, n_t * g * (n + 1) * 120)
+
+
 def phase_jitter_fold(torch, dev, card, rng):
-    """B3': the restarts' fold_in draws, 16 x 16,384 for each of the five
-    PORTFOLIO entries, bitwise."""
-    from nomad_tpu_torch.tensor.batch_solver import PORTFOLIO
-    from nomad_tpu_torch.tensor.kernels import TIE_JITTER
+    """B3': the restarts' fold_in draws for all five PORTFOLIO entries,
+    16 x 16,384 each, in one launch, bitwise."""
+    from nomad_tpu_torch.tensor.batch_solver import _jitter_his
     from nomad_tpu_torch.tensor.prng import jitter_fold, jitter_fold_ref
 
     seeds = torch.tensor(
         np.concatenate([[0, 1, 2 ** 31, 2 ** 32 - 1],
                         rng.integers(0, 2 ** 32, G - 4)]).astype(np.int64),
         device=dev)
-    for t, (jscale, _) in enumerate(PORTFOLIO):
-        hi = TIE_JITTER * jscale
-        got = jitter_fold(seeds, t, N_PAD, hi)
-        want = jitter_fold_ref(seeds, t, N_PAD, hi)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"B3' jitter_fold differs from its plain "
-                                 f"version at t={t}")
-    ms = cuda_time_ms(torch, lambda _: jitter_fold(seeds, 1, N_PAD,
-                                                   TIE_JITTER * 8.0))
-    plain = cuda_time_ms(torch, lambda _: jitter_fold_ref(
-        seeds, 1, N_PAD, TIE_JITTER * 8.0))
-    # two threefry2x32 (fold_in, then the draw) of ~120 ops each and the
-    # float build per element; seeds in, floats out
-    b_ms, b_by = bound(G * 8 + G * N_PAD * 4, G * N_PAD * 250)
-    print(f"B3' fold    [{card}] bitwise equal for {len(PORTFOLIO)} restarts; "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by})")
-    return {"name": "jitter_fold", "source": "nomad_tpu_torch/csrc/jitter.cu",
-            "replaces": "nomad_tpu/tensor/batch_solver.py:319",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    his = _jitter_his()
+    got = jitter_fold(seeds, N_PAD, his)
+    want = jitter_fold_ref(seeds, N_PAD, his)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = [t for t in range(len(his))
+               if not torch.equal(got[t].view(torch.int32),
+                                  want[t].view(torch.int32))]
+        raise AssertionError(f"B3' jitter_fold differs from its plain "
+                             f"version at restarts {bad}")
+    ms = cuda_time_ms(torch, lambda _: jitter_fold(seeds, N_PAD, his))
+    plain = cuda_time_ms(torch, lambda _: jitter_fold_ref(seeds, N_PAD, his))
+    b_ms, b_by = fold_bound(len(his), G, N_PAD)
+    print(f"B3' fold    [{card}] bitwise equal, {len(his)} restarts x {G} x "
+          f"{N_PAD} in one launch; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by})")
 
 
 _CAPACITY = {}
@@ -342,7 +352,9 @@ def solve_inputs(torch, dev, rng, variant: str):
     can place it all); "correction" (negative
     corrections that overshoot, so the clamp matters); "sparse" (k = 0
     rows, a row with 5 feasible nodes, an all-infeasible row); "cap"
-    (rounds = 3)."""
+    (rounds = 3); "wide" (the same demand, but the free capacity spread
+    over every node, a few allocs' worth each: no auction converges
+    within the round cap)."""
     from nomad_tpu_torch import mock
 
     avail = np.zeros((N_PAD, 4), np.float32)
@@ -353,7 +365,7 @@ def solve_inputs(torch, dev, rng, variant: str):
                                  for i in range(G))]).astype(np.float32)
     k = np.full(G, SOLVE_K, np.int32)
     demand = float((k * ask[:, 0]).sum())
-    open_nodes = rng.random(N_NODES) < 0.05
+    open_nodes = rng.random(N_NODES) < (1.0 if variant == "wide" else 0.05)
     share = demand / 0.75 / float(avail[:N_NODES, 0][open_nodes].sum())
     fill = np.where(open_nodes, 1.0 - share * rng.uniform(0.5, 1.5, N_NODES),
                     1.0)
@@ -401,53 +413,63 @@ def solve_inputs(torch, dev, rng, variant: str):
     return t
 
 
-def auction_bound(torch, t, jits, price_eps):
+def auction_bound(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
+                  rounds=64, evict=None, net_prio=None):
     """Least time of one B5 launch on these inputs: the inputs read once
     and the outputs written once; and the operations of the rounds each
     restart ran, counted from the plain version's trace of this run: per
     (eval with demand, node) ~6 for the mask and fit test, per fitting
     pair ~60 more (fitness with two powf counted 20 each, score, jitter,
     price, the top-R test), per round ~30 per surfaced entry (winner,
-    cap, fill, price)."""
+    cap, fill, price). Returns ((ms, by), rounds per restart)."""
     from nomad_tpu_torch.tensor.batch_solver import (TOP_R, auction_ref,
                                                      preempt_score_ref)
 
-    start = torch.clamp_min(t["used"], 0.0)
-    pscore = (None if t["net_prio"] is None
-              else preempt_score_ref(t["net_prio"]))
+    n, g = avail.shape[0], feas.shape[0]
+    start = torch.clamp_min(used0, 0.0)
+    pscore = None if net_prio is None else preempt_score_ref(net_prio)
     ops = 0
-    rounds = []
+    run = []
     for r, eps in enumerate(price_eps):
         trace = []
-        auction_ref(start, t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
-                    jits[r], rounds=t["rounds"], price_eps=eps,
-                    evict=t["evict"], pscore=pscore, trace=trace)
-        rounds.append(len(trace))
-        ops += sum(live * N_PAD * 6 + fit * 60 + G * TOP_R * 30
+        auction_ref(start, avail, feas, aff, ask, k, jits[r], rounds=rounds,
+                    price_eps=eps, evict=evict, pscore=pscore, trace=trace)
+        run.append(len(trace))
+        ops += sum(live * n * 6 + fit * 60 + g * TOP_R * 30
                    for live, fit in trace)
     n_t = len(price_eps)
-    n_bytes = (N_PAD * 16 * 2 + G * N_PAD * 5 + G * 24 + n_t * G * N_PAD * 4
-               + n_t * (N_PAD * 16 + G * N_PAD * 4 + 4))
-    if t["evict"] is not None:
-        n_bytes += N_PAD * 20
-    return bound(n_bytes, ops), rounds
+    n_bytes = (n * 16 * 2 + g * n * 5 + g * 24 + n_t * g * n * 4
+               + n_t * (n * 16 + g * n * 4 + 4))
+    if evict is not None:
+        n_bytes += n * 20
+    return bound(n_bytes, ops), run
+
+
+def pick_bound(n_t: int, g: int, n: int):
+    """Least time of one pick launch: the T restarts' carries and takes,
+    the greedy arm's carry and counts and the capacity read once, the
+    chosen carry, counts and info row written once; ~60 operations per
+    node for its fitness and ~G for its placed count, per arm."""
+    return bound(n_t * (g * n * 4 + n * 16) + g * n * 2 + n * 16 * 3
+                 + g * n * 2 + 24, (n_t + 1) * n * (g + 60))
 
 
 def phase_solve(torch, dev, card, rng):
-    """B5 and B6 at the C2M width on five variants, each exact against its
+    """B5 and B6 at the C2M width on six variants, each exact against its
     plain version on the card: the auction alone (used, take, rounds),
     the pick alone (used, counts, info) and the whole solve_batch (the
-    fold and clamp, both arms, the pick)."""
+    fold and clamp, both arms, the pick). Times B5 on "main" and "wide"
+    and the pick on "main"."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor.kernels import TIE_JITTER, bulk_fill
     from nomad_tpu_torch.tensor.prng import jitter
 
     eps = bs._price_eps()
     notes = []
-    main = None
-    for variant in ("main", "evict", "correction", "sparse", "cap"):
+    timed = {}
+    for variant in ("main", "evict", "correction", "sparse", "cap", "wide"):
         t = solve_inputs(torch, dev, rng, variant)
-        jits = bs._restart_jitter(t["seeds"], N_PAD, bs.jitter_fold)
+        jits = bs.jitter_fold(t["seeds"], N_PAD, bs._jitter_his())
         a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"], jits)
         a_kw = dict(price_eps=eps, rounds=t["rounds"], evict=t["evict"],
                     net_prio=t["net_prio"])
@@ -486,39 +508,30 @@ def phase_solve(torch, dev, card, rng):
         notes.append(f"{variant}: rounds {got[2].tolist()}, placed auction "
                      f"{int(info[2])} / greedy {int(info[3])}, auction won "
                      f"{int(info[5])}")
-        if variant == "main":
-            main = (t, jits, a_args, a_kw, p_args)
-    t, jits, a_args, a_kw, p_args = main
-    ms_a = cuda_time_ms(torch, lambda _: bs.auction(t["used"], *a_args,
-                                                    **a_kw), reps=5)
-    plain_a = cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
-        t["used"], *a_args, **a_kw), reps=2, warmup=1)
-    (b_a, by_a), rounds = auction_bound(torch, t, jits, eps)
+        if variant in ("main", "wide"):
+            timed[variant] = (t, a_args, a_kw, p_args)
+    print(f"B5/B6 solve [{card}] 6 variants exact (take, used, rounds, "
+          f"counts, info) at N_pad {N_PAD}, G {G}; " + "; ".join(notes))
+    for variant, (t, a_args, a_kw, p_args) in timed.items():
+        ms_a = cuda_time_ms(torch, lambda _: bs.auction(t["used"], *a_args,
+                                                        **a_kw), reps=5)
+        plain_a = cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
+            t["used"], *a_args, **a_kw), reps=2, warmup=1)
+        (b_a, by_a), rounds = auction_bound(
+            torch, t["used"], *a_args, eps, rounds=t["rounds"],
+            evict=t["evict"], net_prio=t["net_prio"])
+        print(f"B5 auction  [{card}] {variant} (demand {t['free_share']:.2f} "
+              f"of the free cpu): kernel {ms_a:.4f} ms ({len(eps)} restarts "
+              f"side by side, rounds {rounds}: {ms_a / max(rounds):.4f} ms a "
+              f"round of the longest restart), plain {plain_a:.4f} ms, bound "
+              f"{b_a:.6f} ms ({by_a})")
+    p_args = timed["main"][3]
     ms_p = cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args))
     plain_p = cuda_time_ms(torch, lambda _: bs.batch_pick_ref(*p_args),
                            reps=5)
-    n_t = len(eps)
-    b_p, by_p = bound(
-        n_t * (G * N_PAD * 4 + N_PAD * 16) + G * N_PAD * 2 + N_PAD * 16 * 3
-        + G * N_PAD * 2 + 24,
-        (n_t + 1) * N_PAD * (G + 60))
-    print(f"B5/B6 solve [{card}] 5 variants exact (take, used, rounds, "
-          f"counts, info); demand {t['free_share']:.2f} of the free cpu; "
-          + "; ".join(notes))
-    print(f"B5 auction  [{card}] kernel {ms_a:.4f} ms ({n_t} restarts, rounds "
-          f"{rounds}), plain {plain_a:.4f} ms, bound {b_a:.6f} ms ({by_a})")
-    print(f"B6 pick     [{card}] kernel {ms_p:.4f} ms, plain {plain_p:.4f} "
-          f"ms, bound {b_p:.6f} ms ({by_p})")
-    return [{"name": "auction",
-             "source": "nomad_tpu_torch/csrc/batch_solve.cu",
-             "replaces": "nomad_tpu/tensor/batch_solver.py:137",
-             "max_abs_err": 0.0, "ms": ms_a, "plain_ms": plain_a,
-             "bound_ms": b_a, "bound_by": by_a, "library_ms": None},
-            {"name": "batch_pick",
-             "source": "nomad_tpu_torch/csrc/batch_solve.cu",
-             "replaces": "nomad_tpu/tensor/batch_solver.py:256",
-             "max_abs_err": 0.0, "ms": ms_p, "plain_ms": plain_p,
-             "bound_ms": b_p, "bound_by": by_p, "library_ms": None}]
+    b_p, by_p = pick_bound(len(eps), G, N_PAD)
+    print(f"B6 pick     [{card}] main: kernel {ms_p:.4f} ms, plain "
+          f"{plain_p:.4f} ms, bound {b_p:.6f} ms ({by_p})")
 
 
 def phase_path(torch, card, device="cuda"):
@@ -593,9 +606,12 @@ def phase_solve_path(torch, card, device="cuda"):
     """The "tpu-solve" path at bench.py cfg_solve_ab's c2m_mini shape:
     2,560 nodes, 50 batch jobs x 800 allocs cycling the bench asks, evals
     in worker batches of 8, each member on its own thread inside
-    batch_member(ctx) calling Harness.process. Returns the launch counts
-    of its run."""
+    batch_member(ctx) calling Harness.process. Each joint launch's inputs
+    are copied on the service's stream as it dispatches them (ten small
+    device copies a launch), for phase_solve_launches to replay. Returns
+    (the launch counts of its run, its wall in s, the copied inputs)."""
     from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.tensor import solver
     from nomad_tpu_torch.structs import enums
     from nomad_tpu_torch.structs.operator import SchedulerConfiguration
     from nomad_tpu_torch.tensor.solver import (batch_member, get_service,
@@ -621,18 +637,30 @@ def phase_solve_path(torch, card, device="cuda"):
         with batch_member(ctx):
             h.process(ev, cfg)
 
+    captured = []
+    real_solve = solver.solve_batch
+
+    def capture(*args, **kw):
+        captured.append(([a.clone() if torch.is_tensor(a) else a
+                          for a in args], dict(kw)))
+        return real_solve(*args, **kw)
+
     svc = get_service(device)
     base = dict(svc.stats)
-    _ext.COUNTS.reset()
-    t1 = time.perf_counter()
-    with ThreadPoolExecutor(MINI_BATCH) as pool:
-        for b in range(0, len(evals), MINI_BATCH):
-            batch = evals[b:b + MINI_BATCH]
-            ctx = open_batch(len(batch))
-            for f in [pool.submit(member, ctx, ev) for ev in batch]:
-                f.result()
-    wall = time.perf_counter() - t1
-    counts = _ext.COUNTS.snapshot()
+    solver.solve_batch = capture
+    try:
+        _ext.COUNTS.reset()
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(MINI_BATCH) as pool:
+            for b in range(0, len(evals), MINI_BATCH):
+                batch = evals[b:b + MINI_BATCH]
+                ctx = open_batch(len(batch))
+                for f in [pool.submit(member, ctx, ev) for ev in batch]:
+                    f.result()
+        wall = time.perf_counter() - t1
+        counts = _ext.COUNTS.snapshot()
+    finally:
+        solver.solve_batch = real_solve
     stats = {k: svc.stats[k] - base[k] for k in base}
     svc.stop()
 
@@ -664,13 +692,13 @@ def phase_solve_path(torch, card, device="cuda"):
     if stats["joint_score"] < stats["greedy_score"]:
         raise AssertionError(f"joint score {stats['joint_score']} below the "
                              f"greedy score {stats['greedy_score']}")
-    for name in ("auction", "batch_pick", "bulk_fill"):
+    for name in ("jitter_fold", "auction", "batch_pick", "bulk_fill"):
         if launched[name] != joint:
             raise AssertionError(f"{name} launched {launched[name]} times "
                                  f"for {joint} joint launches")
-    if launched["jitter_fold"] != 5 * joint:
-        raise AssertionError(f"jitter_fold launched {launched['jitter_fold']}"
-                             f" times for {joint} joint launches")
+    if len(captured) != joint:
+        raise AssertionError(f"{len(captured)} joint launches copied, "
+                             f"{joint} counted")
     if any(counts["plain_on_cuda"].values()):
         raise AssertionError(f"plain versions ran on CUDA: "
                              f"{counts['plain_on_cuda']}")
@@ -684,7 +712,119 @@ def phase_solve_path(torch, card, device="cuda"):
           f"{stats['joint_score']:.4f} vs greedy {stats['greedy_score']:.4f} "
           f"(score_delta_pct {delta:.4f}); kernel launches {launched}; plain "
           f"on CUDA {counts['plain_on_cuda']}")
-    return launched
+    return launched, wall, captured
+
+
+def phase_solve_launches(torch, card, wall, captured):
+    """The tpu-solve path's own joint launches, replayed from their copied
+    inputs at the shape the path gave them (N_pad 4,096, G 16): the whole
+    solve_batch and each of its new kernels (B3', B5, the pick) exact
+    against the plain versions; the kernels, B1 and the whole launch
+    timed on each. Returns the kernel records of B3', B5 and the pick:
+    times and bounds are means over the path's launches."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor.kernels import (TIE_JITTER, bulk_fill,
+                                                bulk_fill_ref)
+    from nomad_tpu_torch.tensor.prng import (jitter, jitter_fold,
+                                             jitter_fold_ref)
+    from nomad_tpu_torch.tensor.scatter import scatter_add_ref
+
+    torch.cuda.synchronize()
+    his, eps = bs._jitter_his(), bs._price_eps()
+    rows = {name: [] for name in ("jitter_fold", "auction", "batch_pick")}
+    b1_ms, b1_plain, whole_ms, rounds = [], [], [], []
+    for i, (args, kw) in enumerate(captured):
+        used0, avail, feas, aff, ask, k, tgc, seeds, cidx, cdelta = args[:10]
+        rest = args[1:]
+        n, g = used0.shape[0], feas.shape[0]
+        s_got = bs.solve_batch(used0.clone(), *rest, **kw)
+        s_want = bs.solve_batch_ref(used0.clone(), *rest, **kw)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("used", "counts", "info"), s_got, s_want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"path launch {i}: solve_batch {name} "
+                                     f"differs from the plain version")
+        folded = scatter_add_ref(used0.clone(), cidx, cdelta)
+        jits = jitter_fold(seeds, n, his)
+        if not torch.equal(jits.view(torch.int32),
+                           jitter_fold_ref(seeds, n, his).view(torch.int32)):
+            raise AssertionError(f"path launch {i}: B3' differs from the "
+                                 f"plain version")
+        a_args = (avail, feas, aff, ask, k, jits)
+        got = bs.auction(folded, *a_args, price_eps=eps)
+        want = bs.auction_restarts_ref(folded, *a_args, price_eps=eps)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("used", "take", "rounds"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"path launch {i}: B5 {name} differs "
+                                     f"from the plain version")
+        fill_args = (avail, feas, aff, ask, k, jitter(seeds, n, TIE_JITTER))
+        used_g = folded.clone()
+        counts_g = bulk_fill(used_g, *fill_args)
+        p_args = (avail, *got, used_g, counts_g)
+        p_got = bs.batch_pick(*p_args)
+        p_want = bs.batch_pick_ref(*p_args)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("used", "counts", "info"), p_got, p_want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"path launch {i}: pick {name} differs "
+                                     f"from the plain version")
+        rows["jitter_fold"].append((
+            cuda_time_ms(torch, lambda _: jitter_fold(seeds, n, his)),
+            cuda_time_ms(torch, lambda _: jitter_fold_ref(seeds, n, his),
+                         reps=5),
+            fold_bound(len(his), g, n)))
+        b_a, run = auction_bound(torch, folded, *a_args, eps)
+        rows["auction"].append((
+            cuda_time_ms(torch, lambda _: bs.auction(folded, *a_args,
+                                                     price_eps=eps), reps=5),
+            cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
+                folded, *a_args, price_eps=eps), reps=2, warmup=1),
+            b_a))
+        rows["batch_pick"].append((
+            cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args)),
+            cuda_time_ms(torch, lambda _: bs.batch_pick_ref(*p_args),
+                         reps=5),
+            pick_bound(len(eps), g, n)))
+        b1_ms.append(cuda_time_ms(torch, lambda u: bulk_fill(u, *fill_args),
+                                  setup=folded.clone))
+        b1_plain.append(cuda_time_ms(
+            torch, lambda u: bulk_fill_ref(u, *fill_args),
+            setup=folded.clone, reps=5, warmup=1))
+        whole_ms.append(cuda_time_ms(
+            torch, lambda u: bs.solve_batch(u, *rest, **kw),
+            setup=used0.clone, reps=5))
+        rounds.append(run)
+    n_l = len(captured)
+    mean = statistics.fmean
+    print(f"solve runs  [{card}] the path's {n_l} joint launches replayed at "
+          f"N_pad {n}, G {g}: solve_batch, B3', B5 and the pick exact on "
+          f"each; rounds per restart {rounds}")
+    print(f"solve runs  [{card}] per launch (mean): solve_batch "
+          f"{mean(whole_ms):.4f} ms, of it B1 {mean(b1_ms):.4f} ms (plain "
+          f"{mean(b1_plain):.4f} ms), "
+          + ", ".join(f"{name} {mean(r[0] for r in v):.4f} ms"
+                      for name, v in rows.items())
+          + f"; {n_l} launches {sum(whole_ms):.4f} ms of device time = "
+          f"{100.0 * sum(whole_ms) / 1e3 / wall:.2f}% of the path's "
+          f"{wall:.3f} s wall")
+    out = []
+    for name, v in rows.items():
+        by = Counter(r[2][1] for r in v).most_common(1)[0][0]
+        rec = {"name": name, "source": ("nomad_tpu_torch/csrc/jitter.cu"
+                                        if name == "jitter_fold" else
+                                        "nomad_tpu_torch/csrc/batch_solve.cu"),
+               "replaces": {"jitter_fold":
+                            "nomad_tpu/tensor/batch_solver.py:319",
+                            "auction": "nomad_tpu/tensor/batch_solver.py:137",
+                            "batch_pick":
+                            "nomad_tpu/tensor/batch_solver.py:256"}[name],
+               "max_abs_err": 0.0, "ms": mean(r[0] for r in v),
+               "plain_ms": mean(r[1] for r in v),
+               "bound_ms": mean(r[2][0] for r in v), "bound_by": by,
+               "library_ms": None}
+        out.append(rec)
+    return out
 
 
 def fingerprint(h, jobs):
@@ -1074,15 +1214,16 @@ def main() -> int:
             phase_fill(torch, dev, card, rng)]
     per_eval = [phase_score_once(torch, dev, card, rng),
                 phase_scan(torch, dev, card, rng)]
-    joint = [phase_jitter_fold(torch, dev, card, rng),
-             *phase_solve(torch, dev, card, rng)]
+    phase_jitter_fold(torch, dev, card, rng)
+    phase_solve(torch, dev, card, rng)
     launches = phase_path(torch, card)
     for k in bulk:
         k["launches"] = launches[k["name"]]
     launches = phase_spread(torch, card)
     for k in per_eval:
         k["launches"] = launches[k["name"]]
-    launches = phase_solve_path(torch, card)
+    launches, wall, captured = phase_solve_path(torch, card)
+    joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
         k["launches"] = launches[k["name"]]
     phase_parity(enums.SCHED_ALG_TPU_BINPACK)

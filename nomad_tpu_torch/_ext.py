@@ -45,7 +45,8 @@ _F = ctypes.c_float
 # C entry point -> (library, argtypes)
 _SIGNATURES = {
     "nt_jitter": ("jitter", [_P, _P, _I, _I, _F, _P]),
-    "nt_jitter_fold": ("jitter", [_P, ctypes.c_uint, _P, _I, _I, _F, _P]),
+    "nt_jitter_fold": ("jitter", [_P, ctypes.POINTER(_F), _I, _P, _I, _I,
+                                  _P]),
     "nt_scatter_add": ("scatter", [_P, _P, _P, _I, _I, _I, _P]),
     "nt_bulk_fill": ("bulk_fill", [_P] * 8 + [_I, _I, _P]),
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),

@@ -21,12 +21,13 @@
 //
 // B3' (nt_jitter_fold): the joint solve's restart draws,
 // `jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(s), t), (n,),
-// f32, 0, TIE_JITTER * jscale)` in nomad_tpu/tensor/batch_solver.py:319-323.
+// f32, 0, TIE_JITTER * jscale_t)` in nomad_tpu/tensor/batch_solver.py:319-323,
+// for every restart t of the portfolio in one launch: (T, G, n) out.
 // fold_in is one more threefry: the key pair is (out0, out1) of the counter
-// (0, t) under the seed's key (0, seed), both words kept (no xor). Each
-// thread recomputes that pair for its row (20 rounds, a few hundred integer
-// operations per element in all, still far under a microsecond at G=16 x
-// 16,384) and then draws exactly as above; one launch per restart t. Held
+// (0, t) under the seed's key (0, seed), both words kept (no xor). Grid
+// row y is one (t, eval) pair, spread over a few CTAs of ~2,048 nodes each:
+// a CTA's first thread folds the key once into shared memory, then every
+// thread draws its nodes exactly as above under that key. Held
 // bit-for-bit against tensor/prng.py:jitter_fold_ref.
 
 #include <cuda_runtime.h>
@@ -80,18 +81,32 @@ __global__ void jitter_kernel(const uint32_t* __restrict__ seeds,
   }
 }
 
+// the restarts' draw widths (hi - lo in f32), passed by value
+constexpr int kMaxFolds = 8;
+struct FoldSpans {
+  float v[kMaxFolds];
+};
+
 __global__ void jitter_fold_kernel(const uint32_t* __restrict__ seeds,
-                                   uint32_t fold, float* __restrict__ out,
-                                   int g, int n, float span) {
-  const long long total = (long long)g * n;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int row = (int)(t / n);
-    const uint32_t node = (uint32_t)(t - (long long)row * n);
-    uint32_t k0 = 0u, k1 = fold;  // fold_in(PRNGKey(seed), fold)
+                                   FoldSpans spans, float* __restrict__ out,
+                                   int g, int n) {
+  const int tg = blockIdx.y;  // t * g + row
+  const int t = tg / g;
+  const int row = tg - t * g;
+  __shared__ uint32_t key[2];
+  if (threadIdx.x == 0) {
+    uint32_t k0 = 0u, k1 = (uint32_t)t;  // fold_in(PRNGKey(seed), t)
     threefry2x32(0u, seeds[row], k0, k1);
-    out[t] = bits_to_unit(threefry_bits(k0, k1, 0u, node), span);
+    key[0] = k0;
+    key[1] = k1;
   }
+  __syncthreads();
+  const uint32_t k0 = key[0], k1 = key[1];
+  const float span = spans.v[t];
+  float* dst = out + (long long)tg * n;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    dst[i] = bits_to_unit(threefry_bits(k0, k1, 0u, (uint32_t)i), span);
 }
 
 int grid_for(long long total, int threads) {
@@ -110,13 +125,18 @@ extern "C" int nt_jitter(const void* seeds, void* out, int g, int n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int nt_jitter_fold(const void* seeds, unsigned int fold,
-                              void* out, int g, int n, float span,
-                              void* stream) {
-  const long long total = (long long)g * n;
-  if (total <= 0) return 0;
-  jitter_fold_kernel<<<grid_for(total, 256), 256, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, (uint32_t)fold, (float*)out, g, n, span);
+// spans: T host floats, one per restart t = 0..T-1; out: (T, g, n)
+extern "C" int nt_jitter_fold(const void* seeds, const float* spans, int t,
+                              void* out, int g, int n, void* stream) {
+  if (t < 1 || t > kMaxFolds || g < 1 || (long long)t * g > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  FoldSpans s{};
+  for (int i = 0; i < t; ++i) s.v[i] = spans[i];
+  const int threads = 256;
+  int blocks_x = (n + threads * 8 - 1) / (threads * 8);  // ~8 nodes a thread
+  jitter_fold_kernel<<<dim3(blocks_x, t * g), threads, 0,
+                       (cudaStream_t)stream>>>((const uint32_t*)seeds, s,
+                                               (float*)out, g, n);
   return (int)cudaGetLastError();
 }

@@ -257,14 +257,10 @@ def batch_pick_ref(available, used_t, take_t, rounds_t, used_g, counts_g):
     return used, counts, info
 
 
-def _restart_jitter(seeds, n: int, draw) -> torch.Tensor:
-    """(T, G, n) restart jitter: ``draw(seeds, t, n, TIE_JITTER *
-    jitter_scale, out)`` for each PORTFOLIO entry t."""
-    jits = torch.empty((RESTARTS, seeds.shape[0], n), dtype=torch.float32,
-                       device=seeds.device)
-    for t, (jscale, _) in enumerate(PORTFOLIO):
-        draw(seeds, t, n, TIE_JITTER * jscale, jits[t])
-    return jits
+def _jitter_his() -> tuple:
+    """Each restart's jitter bound ``TIE_JITTER * jscale``, in Python
+    floats as the reference computes it."""
+    return tuple(TIE_JITTER * jscale for jscale, _ in PORTFOLIO)
 
 
 def _price_eps() -> tuple:
@@ -281,9 +277,7 @@ def solve_batch_ref(used, available, feas, aff, ask, k, tg_count, seeds,
     used_g = used.clone()
     counts_g = bulk_fill_ref(used_g, available, feas, aff, ask, k,
                              jitter_ref(seeds, n, TIE_JITTER))
-    jits = _restart_jitter(
-        seeds, n, lambda s, t, n_, hi, out: out.copy_(
-            jitter_fold_ref(s, t, n_, hi)))
+    jits = jitter_fold_ref(seeds, n, _jitter_his())
     used_t, take_t, rounds_t = auction_restarts_ref(
         used, available, feas, aff, ask, k, jits, price_eps=_price_eps(),
         rounds=rounds, evict=evict, net_prio=net_prio)
@@ -426,7 +420,7 @@ def solve_batch(used, available, feas, aff, ask, k, tg_count, seeds, cidx,
     used_g = used.clone()
     counts_g = bulk_fill(used_g, available, feas, aff, ask, k,
                          jitter(seeds, n, TIE_JITTER))
-    jits = _restart_jitter(seeds, n, jitter_fold)
+    jits = jitter_fold(seeds, n, _jitter_his())
     used_t, take_t, rounds_t = auction(
         used, available, feas, aff, ask, k, jits, price_eps=_price_eps(),
         rounds=rounds, evict=evict, net_prio=net_prio)

@@ -21,6 +21,9 @@ bit-for-bit against :func:`jitter_ref` and :func:`jitter_fold_ref`.
 
 from __future__ import annotations
 
+import ctypes
+from typing import Sequence
+
 import torch
 
 from .. import _ext
@@ -28,6 +31,7 @@ from .. import _ext
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+MAX_FOLDS = 8        # restarts one keyed jitter launch draws (jitter.cu)
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -106,12 +110,14 @@ def jitter_keys_ref(keys: torch.Tensor, n: int, hi: float) -> torch.Tensor:
     return bits_to_uniform(random_bits_keys(keys, n), 0.0, hi)
 
 
-def jitter_fold_ref(seeds: torch.Tensor, t: int, n: int,
-                    hi: float) -> torch.Tensor:
-    """Plain version of the keyed jitter kernel: (G,) seeds -> (G, n)
-    float32 draws of U[0, hi) from ``fold_in(PRNGKey(seed), t)``."""
+def jitter_fold_ref(seeds: torch.Tensor, n: int,
+                    his: Sequence[float]) -> torch.Tensor:
+    """Plain version of the keyed jitter kernel: (G,) seeds -> (T, G, n)
+    float32, row t the draws of U[0, his[t]) from
+    ``fold_in(PRNGKey(seed), t)``."""
     _ext.COUNTS.plain("jitter_fold", seeds)
-    return jitter_keys_ref(fold_in(seeds, t), n, hi)
+    return torch.stack([jitter_keys_ref(fold_in(seeds, t), n, hi)
+                        for t, hi in enumerate(his)])
 
 
 def _seeds_u32(seeds: torch.Tensor, what: str) -> torch.Tensor:
@@ -128,32 +134,27 @@ def _span(hi: float) -> float:
                  - torch.tensor(0.0, dtype=torch.float32))
 
 
-def jitter_fold(seeds: torch.Tensor, t: int, n: int, hi: float,
-                out: torch.Tensor = None) -> torch.Tensor:
-    """(G,) int64 seeds in [0, 2**32) -> (G, n) float32 U[0, hi) from
-    ``fold_in(PRNGKey(seed), t)``: the CUDA kernel (csrc/jitter.cu
-    ``nt_jitter_fold``) for a CUDA tensor, :func:`jitter_fold_ref` for a
-    CPU tensor. ``out``, if given, is a contiguous (G, n) float32 tensor
-    the draw is written into."""
+def jitter_fold(seeds: torch.Tensor, n: int,
+                his: Sequence[float]) -> torch.Tensor:
+    """(G,) int64 seeds in [0, 2**32) -> (T, G, n) float32, row t the
+    draws of U[0, his[t]) from ``fold_in(PRNGKey(seed), t)``: the CUDA
+    kernel (csrc/jitter.cu ``nt_jitter_fold``, one launch for all T) for
+    a CUDA tensor, :func:`jitter_fold_ref` for a CPU tensor."""
     if seeds.device.type == "cpu":
-        got = jitter_fold_ref(seeds, t, n, hi)
-        if out is None:
-            return got
-        return out.copy_(got)
+        return jitter_fold_ref(seeds, n, his)
     if not seeds.is_cuda:
         raise ValueError(f"jitter_fold: unsupported device {seeds.device}")
     s32 = _seeds_u32(seeds, "jitter_fold")
-    g = s32.shape[0]
-    if out is None:
-        out = torch.empty((g, n), dtype=torch.float32, device=seeds.device)
-    elif (out.shape != (g, n) or out.dtype != torch.float32
-          or out.device != seeds.device or not out.is_contiguous()):
-        raise ValueError("jitter_fold: out must be a contiguous (G, n) "
-                         "float32 tensor on the seeds' device")
+    g, n_t = s32.shape[0], len(his)
+    if not 1 <= n_t <= MAX_FOLDS or n_t * g > 65535:
+        raise ValueError(f"jitter_fold: the kernel draws 1-{MAX_FOLDS} "
+                         f"restarts of at most 65,535 rows in all, got "
+                         f"{n_t} x {g}")
+    out = torch.empty((n_t, g, n), dtype=torch.float32, device=seeds.device)
+    spans = (ctypes.c_float * n_t)(*(_span(hi) for hi in his))
     fn = _ext.entry("nt_jitter_fold")
-    _ext.check(fn(s32.data_ptr(), int(t) & MASK32, out.data_ptr(), g, n,
-                  _span(hi), _ext.stream_handle(seeds.device)),
-               "jitter_fold launch")
+    _ext.check(fn(s32.data_ptr(), spans, n_t, out.data_ptr(), g, n,
+                  _ext.stream_handle(seeds.device)), "jitter_fold launch")
     _ext.COUNTS.launched("jitter_fold")
     return out
 

@@ -289,8 +289,8 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     avail, used0, feas, aff, ask, k, seeds = _random_problem(0, n=16, g=3)
     t = torch.from_numpy
     before = _ext.COUNTS.snapshot()
-    jits = torch.stack([prng.jitter_fold(t(seeds.astype(np.int64)), i, 16,
-                                         TIE_JITTER) for i in range(2)])
+    jits = prng.jitter_fold(t(seeds.astype(np.int64)), 16,
+                            (TIE_JITTER, TIE_JITTER))
     used_t, take_t, rnd_t = bs.auction(
         t(used0), t(avail), t(feas), t(aff), t(ask), t(k), jits,
         price_eps=(bs.PRICE_EPS, bs.PRICE_EPS / 4))

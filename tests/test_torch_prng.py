@@ -75,13 +75,16 @@ def test_jitter_fold_bits_equal_jax(t, jscale, n):
     want = np.asarray(jax.vmap(lambda s: jax.random.uniform(
         jax.random.fold_in(jax.random.PRNGKey(s), t), (n,), jnp.float32,
         0.0, REF_TIE_JITTER * jscale))(seeds))
-    got = prng.jitter_fold(torch.from_numpy(seeds.astype(np.int64)), t, n,
-                           TIE_JITTER * jscale).numpy()
-    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
-    out = torch.empty((len(SEEDS), n))
-    prng.jitter_fold(torch.from_numpy(seeds.astype(np.int64)), t, n,
-                     TIE_JITTER * jscale, out=out)
-    assert np.array_equal(out.numpy().view(np.uint32), want.view(np.uint32))
+    his = [TIE_JITTER * js for js, _ in REF_PORTFOLIO]
+    assert his[t] == TIE_JITTER * jscale
+    s = torch.from_numpy(seeds.astype(np.int64))
+    got = prng.jitter_fold(s, n, his)
+    assert got.shape == (len(his), len(SEEDS), n)
+    assert np.array_equal(got[t].numpy().view(np.uint32),
+                          want.view(np.uint32))
+    # a shorter list of bounds draws the same leading rows
+    prefix = prng.jitter_fold(s, n, his[:t + 1])[t].numpy()
+    assert np.array_equal(prefix.view(np.uint32), want.view(np.uint32))
 
 
 def test_keyed_bits_equal_jax_bits():
@@ -96,4 +99,4 @@ def test_keyed_bits_equal_jax_bits():
 def test_jitter_fold_rejects_unsupported_device():
     with pytest.raises(ValueError):
         prng.jitter_fold(torch.zeros(2, dtype=torch.int64, device="meta"),
-                         0, 4, TIE_JITTER)
+                         4, (TIE_JITTER,))
