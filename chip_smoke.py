@@ -61,10 +61,34 @@ Phases (any failure raises and exits non-zero):
               whole launch timed on each, and the launches' device time
               set against the path's wall. The kernel records of B3', B5
               and the pick are these means.
-13. parity -- the pinned 256-node bulk workload under "tpu-binpack" and under
-              "tpu-solve", and the spread / distinct_hosts /
-              distinct_property / host-oracle workload, on the card and on
-              the CPU plain versions: the same placements.
+13. B7/B12 -- preempt_solve and preempt_pick vs their plain versions at the
+              C2M width (build_nodes capacities of 10,240 nodes padded to
+              16,384, K 512, V 8, cpu and memory used at 95-105%) on seven
+              variants (main, ties, inactive, infeasible, wide: one node
+              with 512 victims, flagged, fits): B7 picks, victims, flags
+              and scores exact, B12 picks exact. Both timed on main beside
+              their plain versions and numpy mirrors.
+14. cfg4   -- BASELINE config 4 (bench.py cfg4_system_preemption): 1,024
+              nodes, a warm job deleted, a priority-20 filler, then the
+              priority-80 service of 512 allocs (one preempt_solve launch
+              at N_pad 1,024, K_pad 512, V_pad 512) and the system job
+              through Harness.process("tpu-binpack", preemption on). Gates:
+              512 + 1,024 placed, no node over capacity, no alloc evicted
+              twice, every victim 10 or more priorities below its evictor,
+              kernel_preempted 512 / host_preempted 0 /
+              victim_parity_checked 512, preempt_solve launched, no plain
+              version on CUDA. Each launch's inputs are copied as it is
+              dispatched.
+    runs   -- that launch replayed: exact against the plain version and the
+              numpy mirror; kernel, plain, mirror and the inputs' copy to
+              the card timed.
+15. cutover -- the numpy mirror against the kernel with its copies at
+              (N_pad, K_pad) = (256, 64), (1,024, 128), (1,024, 512),
+              (4,096, 512), V 8: the H100's side of PREEMPT_DEVICE_MIN.
+16. parity -- the pinned 256-node bulk workload under "tpu-binpack" and under
+              "tpu-solve", the spread / distinct_hosts / distinct_property /
+              host-oracle workload, and cfg4, on the card and on the CPU
+              plain versions: the same placements (and victims).
 
 Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound, and the
@@ -1177,6 +1201,452 @@ def phase_spread_parity():
           f"({sum(v[0] for v in prints[0].values())} allocs)")
 
 
+# ---------------------------------------------------------------------------
+# preemption: B7 and B12, BASELINE config 4, the cutover
+# ---------------------------------------------------------------------------
+
+PREEMPT_K = 512
+PREEMPT_V = 8
+PREEMPT_VARIANTS = ("main", "ties", "inactive", "infeasible", "wide",
+                    "flagged", "fits")
+# BASELINE config 4 (bench.py:698-818 cfg4_system_preemption)
+CFG4_NODES = 1024
+# (N_pad, K_pad) of the cutover sweep, V 8
+CUTOVER_SHAPES = ((256, 64), (1024, 128), (1024, 512), (4096, 512))
+
+
+def preempt_inputs(rng, variant: str, n_pad=N_PAD, n_real=N_NODES,
+                   k=PREEMPT_K, v=PREEMPT_V):
+    """B7 inputs as numpy arrays, in preempt_solve's order. By default at
+    the C2M width: the build_nodes capacities of 10,240 nodes padded to
+    16,384, cpu and memory used at 95-105% so most rows evict, K 512
+    requests of (2,500 MHz, 2,048 MB, 300 MB), up to V 8 victims a node,
+    sorted by priority. Variants: "ties" (every real node identical),
+    "inactive" (no active row), "infeasible" (no feasible node), "wide"
+    (one feasible node with 512 small victims), "flagged" (every first
+    victim flagged), "fits" (a tenth of the nodes have room)."""
+    d = 4
+    if variant == "wide":
+        v = 512
+    avail = np.zeros((n_pad, d), np.float32)
+    if n_real == N_NODES:
+        avail[:n_real] = c2m_capacity()
+    else:
+        avail[:n_real] = (rng.choice([8000, 16000, 32000], n_real)[:, None]
+                          * np.array([1.0, 2.048, 6.4, 0.75]))
+    used = np.zeros((n_pad, d), np.float32)
+    used[:n_real, :2] = np.floor(avail[:n_real, :2]
+                                 * rng.uniform(0.95, 1.05, (n_real, 2)))
+    used[:n_real, 2] = np.floor(avail[:n_real, 2] * 0.5)
+    ask = np.array([2500, 2048, 300, 0], np.float32)
+    feasible = np.zeros(n_pad, bool)
+    feasible[:n_real] = rng.random(n_real) < 0.95
+    active = np.ones(k, bool)
+    v_prio = np.zeros((n_pad, v), np.float32)
+    v_vec = np.zeros((n_pad, v, d), np.float32)
+    v_elig = np.zeros((n_pad, v), bool)
+    counts = rng.integers(0, min(v, 8) + 1, n_real)
+    for i in np.flatnonzero(counts):
+        c = int(counts[i])
+        v_prio[i, :c] = np.sort(rng.integers(1, 60, c))
+        v_vec[i, :c, 0] = rng.integers(200, 2500, c)
+        v_vec[i, :c, 1] = rng.integers(200, 4000, c)
+        v_vec[i, :c, 2] = 300
+        v_elig[i, :c] = True
+    v_flag = np.zeros((n_pad, v), bool)
+    if variant == "ties":
+        src = int(np.argmax(counts))        # a node with the most victims
+        for a in (avail, used, v_prio, v_vec, v_elig):
+            a[:n_real] = a[src]
+        feasible[:n_real] = True
+    elif variant == "inactive":
+        active[:] = False
+    elif variant == "infeasible":
+        feasible[:] = False
+    elif variant == "wide":
+        feasible[:] = False
+        feasible[77] = True
+        v_prio[77] = np.repeat(np.arange(1, 65), 8)
+        v_vec[77] = (20, 20, 1, 0)
+        v_elig[77] = True
+    elif variant == "flagged":
+        v_flag[:, 0] = v_elig[:, 0]
+    elif variant == "fits":
+        room = rng.random(n_real) < 0.1
+        used[:n_real][room] = np.floor(avail[:n_real][room] * 0.5)
+    max_p = v_prio.max(axis=1)
+    net_prio = np.where(max_p > 0,
+                        max_p + v_prio.sum(axis=1) / np.maximum(max_p, 1.0),
+                        0.0).astype(np.float32)
+    return (avail, used, ask, feasible, net_prio, active, v_prio, v_vec,
+            v_elig, v_flag)
+
+
+def preempt_bound(args, picks, victims):
+    """Least time of one B7 launch on these inputs: every input it reads
+    once (v_prio is not read: the columns come sorted) and the outputs
+    written once; per active step ~(6 D + 66) operations a node to score
+    it (the fitness's two powf counted 20 each), per evicting step ~(3 D
+    + 4) per victim column of the chosen node, and the evictable sums."""
+    avail, _, _, _, _, active, _, v_vec, _, _ = args
+    n, d = avail.shape
+    v, k = v_vec.shape[1], active.shape[0]
+    n_bytes = (n * d * 8 + d * 4 + n + n * 4 + k + n * v * d * 4
+               + n * v * 2 + k * 4 + k * v + k + k * 4)
+    evicting = int((victims.any(axis=1)).sum())
+    ops = (int(active.sum()) * n * (6 * d + 66) + evicting * v * (3 * d + 4)
+           + n * v * d + n * 20)
+    return bound(n_bytes, ops)
+
+
+def pick_preempt_bound(args):
+    """Least time of one B12 launch: capacity, usage and evictable (N, D)
+    and the per-node and per-request inputs read once, the picks written
+    once; ~(6 D + 66) operations a node per active step."""
+    avail, _, _, _, _, active, _, _, _, _ = args
+    n, d = avail.shape
+    k = active.shape[0]
+    return bound(n * d * 12 + d * 4 + n * 5 + k + k * 4,
+                 int(active.sum()) * n * (6 * d + 66) + n * 20)
+
+
+def _pick_from(args):
+    avail, used, ask, feasible, net_prio, active, _, v_vec, v_elig, _ = args
+    evictable = (v_vec * v_elig[:, :, None]).sum(axis=1).astype(np.float32)
+    return (avail, used, evictable, ask, feasible, net_prio, active)
+
+
+def _host_ms(fn, reps=3) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_preempt(torch, got, want, what):
+    """B7 outputs exact against the plain version's."""
+    torch.cuda.synchronize()
+    for name, x, y in zip(("picks", "victims", "flagged", "scores"), got,
+                          want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"B7 {what}: {name} differ from the plain "
+                                 f"version")
+    return float((got[3] - want[3]).abs().max())
+
+
+def phase_preempt_kernels(torch, dev, card, rng):
+    """B7 and B12 at the C2M width on seven variants, exact against their
+    plain versions; both timed on "main" beside the plain versions and
+    the numpy mirrors. Returns the B12 record (B7's comes from the cfg4
+    path's own launch)."""
+    from nomad_tpu_torch.tensor.kernels import (preempt_pick,
+                                                preempt_pick_ref,
+                                                preempt_solve,
+                                                preempt_solve_ref)
+    from nomad_tpu_torch.tensor.placer import (_preempt_pick_host,
+                                               _preempt_solve_host)
+
+    err = 0.0
+    notes = []
+    main = None
+    for variant in PREEMPT_VARIANTS:
+        host = preempt_inputs(rng, variant)
+        args = [torch.tensor(a, device=dev) for a in host]
+        got = preempt_solve(*args)
+        err = max(err, check_preempt(torch, got, preempt_solve_ref(*args),
+                                     variant))
+        pick_args = [torch.tensor(a, device=dev) for a in _pick_from(host)]
+        if not torch.equal(preempt_pick(*pick_args),
+                           preempt_pick_ref(*pick_args)):
+            raise AssertionError(f"B12 {variant}: picks differ from the "
+                                 f"plain version")
+        notes.append(f"{variant} {int((got[0] >= 0).sum())} placed "
+                     f"{int(got[1].sum())} victims")
+        if variant == "main":
+            main = (host, args, pick_args, got)
+    host, args, pick_args, got = main
+    ms = cuda_time_ms(torch, lambda _: preempt_solve(*args), reps=5)
+    plain = cuda_time_ms(torch, lambda _: preempt_solve_ref(*args), reps=2,
+                         warmup=1)
+    f64 = [a.astype(np.float64) if a.dtype == np.float32 else a
+           for a in host]
+    mirror = _host_ms(lambda: _preempt_solve_host(*f64), reps=1)
+    b_ms, b_by = preempt_bound(host, got[0].cpu().numpy(),
+                               got[1].cpu().numpy())
+    p_ms = cuda_time_ms(torch, lambda _: preempt_pick(*pick_args), reps=5)
+    p_plain = cuda_time_ms(torch, lambda _: preempt_pick_ref(*pick_args),
+                           reps=2, warmup=1)
+    p64 = [a.astype(np.float64) if a.dtype == np.float32 else a
+           for a in _pick_from(host)]
+    p_mirror = _host_ms(lambda: _preempt_pick_host(
+        *[a.copy() for a in p64]), reps=1)
+    pb_ms, pb_by = pick_preempt_bound(host)
+    print(f"B7/B12      [{card}] {len(PREEMPT_VARIANTS)} variants at N_pad "
+          f"{N_PAD}, K {PREEMPT_K}, V {PREEMPT_V} (wide: 512): B7 picks, "
+          f"victims, flags and scores exact (max_abs_err {err}), B12 picks "
+          f"exact; {'; '.join(notes)}")
+    print(f"B7/B12      [{card}] main: B7 kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, numpy mirror {mirror:.4f} ms, bound {b_ms:.6f} "
+          f"ms ({b_by}); B12 kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, "
+          f"numpy mirror {p_mirror:.4f} ms, bound {pb_ms:.6f} ms ({pb_by})")
+    return {"name": "preempt_pick", "source":
+            "nomad_tpu_torch/csrc/preempt.cu",
+            "replaces": "nomad_tpu/tensor/kernels.py:766",
+            "max_abs_err": 0.0, "ms": p_ms, "plain_ms": p_plain,
+            "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None}
+
+
+def cfg4_run(device, captured=None):
+    """BASELINE config 4 (bench.py:720-788) through Harness(device): 1,024
+    nodes; the warm job and the filler (set-up), then the priority-80
+    service and the system job, each timed. Ids are minted from a seeded
+    generator, so two runs give the same ids. With ``captured`` (a list)
+    each preempt_solve launch's inputs are copied as it is dispatched.
+    Returns a dict of the run's results."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs.operator import (PreemptionConfig,
+                                                  SchedulerConfiguration)
+    from nomad_tpu_torch.tensor import placer
+    from nomad_tpu_torch.tensor.solver import get_service
+    from nomad_tpu_torch.testing import Harness
+    from nomad_tpu_torch.utils import ids
+
+    ids._rng.seed(4)
+    h = Harness(device=device)
+    for i in range(CFG4_NODES):
+        n = mock.node(id=f"bench4-node-{i:04d}", name=f"bench4-node-{i:04d}")
+        n.attributes["rack"] = f"r{i % 20}"
+        n.resources.cpu = 16000
+        n.resources.memory_mb = 32768
+        n.compute_class()
+        h.store.upsert_node(n)
+    cfg = SchedulerConfiguration(
+        scheduler_algorithm="tpu-binpack",
+        preemption_config=PreemptionConfig(system_scheduler_enabled=True,
+                                           service_scheduler_enabled=True))
+    warm = mock.service_job(512, cpu=1, mem=1, priority=20)
+    warm.id = warm.name = "bench4-warm"
+    h.store.upsert_job(warm)
+    h.process(mock.eval_for(warm, id="bench4-ev-warm"), cfg)
+    h.store.delete_job(warm.id)
+    filler = mock.service_job(2 * CFG4_NODES, cpu=7900, mem=14000,
+                              priority=20)
+    filler.id = filler.name = "bench4-filler"
+    h.store.upsert_job(filler)
+    h.process(mock.eval_for(filler, id="bench4-ev-fill"), cfg)
+    hi = mock.service_job(512, cpu=2500, mem=2048, priority=80)
+    hi.id = hi.name = "bench4-hi"
+    sysj = mock.system_job(id="bench4-sys", name="bench4-sys")
+    sysj.task_groups[0].tasks[0].resources.cpu = 400
+    sysj.task_groups[0].tasks[0].resources.memory_mb = 128
+    for j in (hi, sysj):
+        h.store.upsert_job(j)
+    plans0 = len(h.plans)
+
+    real = placer.preempt_solve
+
+    def capture(*args):
+        captured.append([a.clone() for a in args])
+        return real(*args)
+
+    if captured is not None:
+        placer.preempt_solve = capture
+    try:
+        _ext.COUNTS.reset()
+        s0 = placer.preempt_stats()
+        t0 = time.perf_counter()
+        h.process(mock.eval_for(hi, id="bench4-ev-hi"), cfg)
+        t1 = time.perf_counter()
+        s1 = placer.preempt_stats()
+        h.process(mock.eval_for(sysj, id="bench4-ev-sys"), cfg)
+        t2 = time.perf_counter()
+        counts = _ext.COUNTS.snapshot()
+    finally:
+        placer.preempt_solve = real
+    get_service(device).stop()
+
+    snap = h.store.snapshot()
+    by_id = {a.id: a for a in snap.allocs()}
+    live = [a for a in by_id.values() if not a.terminal_status()]
+    evictions = [a for p in h.plans[plans0:]
+                 for allocs in p.node_preemptions.values() for a in allocs]
+    nodes = {n.id: n for n in snap.nodes()}
+    usage = {nid: np.zeros(4) for nid in nodes}
+    for a in live:
+        usage[a.node_id] += a.allocated_vec
+    over = sum(int((usage[nid] > nodes[nid].available_vec()).any())
+               for nid in nodes)
+    evicted = sorted(
+        (a.id, a.job_id, by_id[a.preempted_by_allocation].job_id,
+         by_id[a.preempted_by_allocation].name,
+         by_id[a.preempted_by_allocation].node_id)
+        for a in by_id.values() if a.desired_status == "evict")
+    gap = [a.id for a in evictions
+           if by_id[a.preempted_by_allocation].job.priority
+           - a.job.priority < 10]
+    return {
+        "hi_s": t1 - t0, "sys_s": t2 - t1, "counts": counts,
+        "stats": {k: s1[k] - s0[k] for k in s1},
+        "hi": sorted((a.name, a.node_id) for a in live
+                     if a.job_id == hi.id),
+        "sys": sorted(a.node_id for a in live if a.job_id == sysj.id),
+        "evicted": evicted, "evictions": len(evictions),
+        "evicted_once": len({a.id for a in evictions}) == len(evictions),
+        "by_job": dict(Counter(e[1] for e in evicted)),
+        "over": over, "gap": gap,
+        "evals_ok": all(e.status == "complete" for e in h.evals),
+    }
+
+
+def phase_cfg4(torch, card):
+    """The cfg4 path on the card, with its gates. Returns (the launch
+    counts of its timed region, the copied preempt_solve inputs, the
+    run's results)."""
+    captured = []
+    r = cfg4_run("cuda", captured)
+    launched = r["counts"]["launches"]
+    fails = []
+    if len(r["hi"]) != 512:
+        fails.append(f"hi placed {len(r['hi'])}, want 512")
+    if len(r["sys"]) != CFG4_NODES:
+        fails.append(f"system job placed {len(r['sys'])}, want {CFG4_NODES}")
+    if r["over"]:
+        fails.append(f"{r['over']} nodes over capacity")
+    if not r["evicted_once"]:
+        fails.append("an alloc was evicted twice")
+    if r["gap"]:
+        fails.append(f"{len(r['gap'])} victims within 10 priorities of "
+                     f"their evictor")
+    if r["stats"] != {"kernel_preempted": 512, "host_preempted": 0,
+                      "victim_parity_checked": 512}:
+        fails.append(f"preempt stats {r['stats']}")
+    if launched["preempt_solve"] < 1 or len(captured) != launched[
+            "preempt_solve"]:
+        fails.append(f"preempt_solve launched {launched['preempt_solve']} "
+                     f"times, {len(captured)} copied")
+    if any(r["counts"]["plain_on_cuda"].values()):
+        fails.append(f"plain versions ran on CUDA: "
+                     f"{r['counts']['plain_on_cuda']}")
+    if not r["evals_ok"]:
+        fails.append("an eval did not complete")
+    if fails:
+        raise AssertionError("cfg4 path: " + "; ".join(fails))
+    print(f"cfg4 path   [{card}] hi eval {r['hi_s']:.3f} s: {len(r['hi'])} "
+          f"placed, stats {r['stats']}; system eval {r['sys_s']:.3f} s: "
+          f"{len(r['sys'])} placed; evicted in all {r['by_job']} "
+          f"({r['evictions']} evictions, none twice), 0 nodes over "
+          f"capacity; kernel launches {launched}; plain on CUDA "
+          f"{r['counts']['plain_on_cuda']}")
+    return launched, captured, r
+
+
+def phase_cfg4_replay(torch, card, captured):
+    """The cfg4 path's own preempt_solve launches replayed from their
+    copied inputs: the kernel exact against the plain version and, on
+    picks, victims and flags, the numpy mirror; the kernel, the plain
+    version, the mirror and the inputs' host-to-device copy timed.
+    Returns B7's record (means over the launches)."""
+    from nomad_tpu_torch.tensor.kernels import (preempt_solve,
+                                                preempt_solve_ref)
+    from nomad_tpu_torch.tensor.placer import _preempt_solve_host
+
+    rows = []
+    for i, args in enumerate(captured):
+        got = preempt_solve(*args)
+        check_preempt(torch, got, preempt_solve_ref(*args),
+                      f"path launch {i}")
+        host = [a.cpu().numpy() for a in args]
+        f64 = [a.astype(np.float64) if a.dtype == np.float32 else a
+               for a in host]
+        mirror = _preempt_solve_host(*f64)
+        for name, x, y in zip(("picks", "victims", "flagged"), got, mirror):
+            if not np.array_equal(x.cpu().numpy(), y):
+                raise AssertionError(f"B7 path launch {i}: {name} differ "
+                                     f"from the numpy mirror")
+
+        def h2d():
+            out = [torch.tensor(a, device=args[0].device) for a in host]
+            torch.cuda.synchronize()
+            return out
+
+        rows.append((
+            cuda_time_ms(torch, lambda _: preempt_solve(*args), reps=5),
+            cuda_time_ms(torch, lambda _: preempt_solve_ref(*args), reps=2,
+                         warmup=1),
+            _host_ms(lambda: _preempt_solve_host(*f64), reps=1),
+            _host_ms(h2d, reps=5),
+            preempt_bound(host, got[0].cpu().numpy(),
+                          got[1].cpu().numpy()),
+            tuple(args[0].shape) + (args[5].shape[0], args[7].shape[1]),
+            int(sum(a.nbytes for a in host))))
+    mean = statistics.fmean
+    print(f"cfg4 runs   [{card}] the path's {len(rows)} preempt_solve "
+          f"launches replayed at (N_pad, D, K_pad, V_pad) "
+          f"{sorted({r[5] for r in rows})}: exact against the plain "
+          f"version and the numpy mirror; kernel "
+          f"{mean(r[0] for r in rows):.4f} ms, plain "
+          f"{mean(r[1] for r in rows):.4f} ms, mirror "
+          f"{mean(r[2] for r in rows):.4f} ms, inputs "
+          f"{mean(r[6] for r in rows) / 1e6:.2f} MB copied to the card in "
+          f"{mean(r[3] for r in rows):.4f} ms, bound "
+          f"{mean(r[4][0] for r in rows):.6f} ms ({rows[0][4][1]})")
+    return {"name": "preempt_solve",
+            "source": "nomad_tpu_torch/csrc/preempt.cu",
+            "replaces": "nomad_tpu/tensor/kernels.py:823",
+            "max_abs_err": 0.0, "ms": mean(r[0] for r in rows),
+            "plain_ms": mean(r[1] for r in rows),
+            "bound_ms": mean(r[4][0] for r in rows),
+            "bound_by": rows[0][4][1], "library_ms": None}
+
+
+def phase_cfg4_parity(card, card_run):
+    """The cfg4 path with device="cpu" gives the card's placements and
+    victims."""
+    cpu = cfg4_run("cpu")
+    for key in ("hi", "sys", "evicted", "stats"):
+        if cpu[key] != card_run[key]:
+            raise AssertionError(f"cfg4: card and CPU differ in {key}")
+    print(f"parity      card == CPU on cfg4 ({len(cpu['hi'])} + "
+          f"{len(cpu['sys'])} placed, {len(cpu['evicted'])} evicted)")
+
+
+def phase_cutover(torch, dev, card, rng):
+    """The preemption solve's two routes on the card's host: the numpy
+    mirror against the kernel with its copies (inputs to the card,
+    outputs back) at four (N_pad, K_pad) shapes, V 8. The kernel is held
+    exact against its plain version; the float64 mirror may order two
+    nodes whose f32 scores tie differently, so its agreement in picks is
+    reported, not required (the path's own launch holds it exactly)."""
+    from nomad_tpu_torch.tensor.kernels import (preempt_solve,
+                                                preempt_solve_ref)
+    from nomad_tpu_torch.tensor.placer import _preempt_solve_host
+
+    out = []
+    for n_pad, k_pad in CUTOVER_SHAPES:
+        host = preempt_inputs(rng, "main", n_pad=n_pad,
+                              n_real=n_pad - n_pad // 8, k=k_pad)
+        f64 = [a.astype(np.float64) if a.dtype == np.float32 else a
+               for a in host]
+
+        def kernel():
+            res = preempt_solve(*(torch.tensor(a, device=dev) for a in host))
+            return [t.cpu().numpy() for t in res]
+
+        args = [torch.tensor(a, device=dev) for a in host]
+        check_preempt(torch, preempt_solve(*args), preempt_solve_ref(*args),
+                      f"cutover ({n_pad}, {k_pad})")
+        same = int((kernel()[0] == _preempt_solve_host(*f64)[0]).sum())
+        k_ms = _host_ms(kernel, reps=5)
+        m_ms = _host_ms(lambda: _preempt_solve_host(*f64), reps=3)
+        out.append(f"({n_pad}, {k_pad}) = {n_pad * k_pad}: mirror "
+                   f"{m_ms:.3f} ms, kernel with copies {k_ms:.3f} ms, "
+                   f"picks agree {same}/{k_pad}")
+    print(f"cutover     [{card}] PREEMPT_DEVICE_MIN = 262144 cells; "
+          + "; ".join(out))
+
+
 def main() -> int:
     if not (REPO / "nomad_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: nomad_tpu_torch/ not found beside the script; "
@@ -1226,14 +1696,21 @@ def main() -> int:
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
         k["launches"] = launches[k["name"]]
+    pick = phase_preempt_kernels(torch, dev, card, rng)
+    launches, captured, cfg4 = phase_cfg4(torch, card)
+    preempt = [phase_cfg4_replay(torch, card, captured), pick]
+    for k in preempt:
+        k["launches"] = launches[k["name"]]
+    phase_cutover(torch, dev, card, rng)
     phase_parity(enums.SCHED_ALG_TPU_BINPACK)
     phase_parity(enums.SCHED_ALG_TPU_SOLVE)
     phase_spread_parity()
+    phase_cfg4_parity(card, cfg4)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    kernels = bulk + per_eval + joint
+    kernels = bulk + per_eval + joint + preempt
     for k in kernels:
         k["route"] = "cuda"
     print(json.dumps({"kernels": [{key: k[key] for key in order}

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 7 + [_P]),
     "nt_auction": ("batch_solve", [_P] * 14 + [_I] * 4 + [_P]),
     "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
+    "nt_preempt_solve": ("preempt", [_P] * 15 + [_I] * 4 + [_P]),
+    "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -88,7 +90,7 @@ class LaunchCounts:
 
 COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
                        "solve_task_group", "jitter_fold", "auction",
-                       "batch_pick"))
+                       "batch_pick", "preempt_solve", "preempt_pick"))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

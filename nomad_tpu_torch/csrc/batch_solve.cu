@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fit.cuh"
+
 namespace {
 
 constexpr int kDims = 4;
@@ -62,33 +64,9 @@ constexpr int kTopR = 16;
 constexpr int kMaxG = kThreads / kTopR;  // one thread per surfaced entry
 constexpr int kMaxPad = 16384;           // pairwise tree in shared memory
 constexpr float kNeg = -1.0e30f;
-constexpr float kMaxFit = 18.0f;
-
-// B2, as in bulk_fill.cu: free = 1 - used/avail, -inf when avail == 0 <
-// used, 0 when both are 0; BestFit clip(20 - (10^f0 + 10^f1), 0, 18) / 18
-__device__ __forceinline__ float free_fraction(float avail, float used) {
-  float ratio;
-  if (avail > 0.0f) {
-    ratio = __fdiv_rn(used, avail);
-  } else {
-    ratio = used > 0.0f ? INFINITY : 0.0f;
-  }
-  return __fsub_rn(1.0f, ratio);
-}
-
-__device__ __forceinline__ float fit_score(const float* avail,
-                                           const float* used) {
-  const float total = __fadd_rn(powf(10.0f, free_fraction(avail[0], used[0])),
-                                powf(10.0f, free_fraction(avail[1], used[1])));
-  const float binpack = fminf(fmaxf(__fsub_rn(20.0f, total), 0.0f), kMaxFit);
-  return __fdiv_rn(binpack, kMaxFit);
-}
-
-// 1 / (1 + exp(0.0048 * (net_prio - 2048))), the preemption score
-__device__ __forceinline__ float preempt_score(float net_prio) {
-  const float e = expf(__fmul_rn(0.0048f, __fsub_rn(net_prio, 2048.0f)));
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, e));
-}
+// B2 and the preemption score: fit.cuh
+using nt_fit::fit_score;
+using nt_fit::preempt_score;
 
 // top_k's order as one unique uint64: the bid's total-order image (-0.0
 // below +0.0) above the complement of the node index (lower index first).

@@ -2,9 +2,9 @@
 // usage carry.
 //
 // Replaces: _solve_bulk_multi_impl / solve_bulk_multi after its correction
-// fold and jitter draw (nomad_tpu/tensor/kernels.py:712-756), and the fit
+// fold and jitter draw (nomad_tpu/tensor/kernels.py:712-756), with the fit
 // formula _free_fractions_xp / _fit_scores_xp (kernels.py:40-79) as the
-// __device__ function fit_score below. The fold is the scatter kernel
+// __device__ function fit_score of fit.cuh. The fold is the scatter kernel
 // (scatter.cu) and the jitter is jitter.cu; both run before this launch on
 // the same stream.
 //
@@ -44,33 +44,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fit.cuh"
+
 namespace {
 
 constexpr int kDims = 4;
 constexpr int kThreads = 1024;
 constexpr float kNeg = -1.0e30f;
-constexpr float kMaxFit = 18.0f;
-
-// B2: BestFit-v3 fitness of one node after a placement (reference
-// funcs.go:236 ScoreFitBinPack): free = 1 - used/avail per dim, -inf free
-// when avail == 0 < used, 0 when both are 0.
-__device__ __forceinline__ float free_fraction(float avail, float used) {
-  float ratio;
-  if (avail > 0.0f) {
-    ratio = __fdiv_rn(used, avail);
-  } else {
-    ratio = used > 0.0f ? INFINITY : 0.0f;
-  }
-  return __fsub_rn(1.0f, ratio);
-}
-
-__device__ __forceinline__ float fit_score(const float* avail,
-                                           const float* used) {
-  const float total = __fadd_rn(powf(10.0f, free_fraction(avail[0], used[0])),
-                                powf(10.0f, free_fraction(avail[1], used[1])));
-  const float binpack = fminf(fmaxf(__fsub_rn(20.0f, total), 0.0f), kMaxFit);
-  return __fdiv_rn(binpack, kMaxFit);
-}
+// B2: fit.cuh
+using nt_fit::fit_score;
 
 // order-preserving map of a float onto uint32, inverted so that an
 // ascending sort of the image is a descending sort of the float

@@ -88,6 +88,19 @@ def batch_job(**overrides) -> Job:
     return j
 
 
+def system_job(**overrides) -> Job:
+    """A system job: one alloc of each group on every node, priority
+    100 (reference ``mock.py:97-106``)."""
+    j = job(**overrides)
+    j.type = enums.JOB_TYPE_SYSTEM
+    j.priority = 100
+    for tg in j.task_groups:
+        tg.count = 1
+        tg.update = None
+        tg.reschedule_policy = None
+    return j
+
+
 def eval_for(j: Job, **overrides) -> Evaluation:
     ev = Evaluation(
         id=generate_uuid(),

@@ -5,8 +5,9 @@ Retry loop: reconcile -> open a deployment for a fresh job version ->
 place -> submit plan -> on a partial commit retry against the fresher
 snapshot (zero-progress attempts are capped at 5 for service jobs, 2 for
 batch). Unplaced allocations produce a blocked evaluation. Placements
-commit per request (``commit(req, option)``) or, on the bulk path, as
-one AllocBlock per group (``commit.commit_block``).
+commit per request (``commit(req, option)``, with the victims the
+option evicts) or, on the bulk path, as one AllocBlock per group
+(``commit.commit_block``).
 """
 
 from __future__ import annotations
@@ -187,7 +188,8 @@ class GenericScheduler:
 
         def commit(req, option):
             """Per-request commit: a failure coalesces per task group, a
-            success appends one Allocation to the plan."""
+            success appends one Allocation to the plan, after the
+            evictions it needs (reference generic_sched.py:340-342)."""
             tg = req.task_group
             if option is None:
                 m = ctx.metrics
@@ -202,9 +204,7 @@ class GenericScheduler:
             if req.canary or req.reschedule or req.previous_alloc is not None:
                 raise NotImplementedError(
                     "canary and replacement placements: ROADMAP queue A1")
-            if option.preempted_allocs:
-                raise NotImplementedError("preemption: ROADMAP queue A4")
-            self.plan.append_alloc(Allocation(
+            alloc = Allocation(
                 id=generate_uuid(),
                 eval_id=ev.id,
                 deployment_id=dep_id(tg),
@@ -221,7 +221,10 @@ class GenericScheduler:
                 client_status=enums.ALLOC_CLIENT_PENDING,
                 metrics=ctx.metrics,
                 allocated_at=now,
-            ))
+            )
+            for victim in option.preempted_allocs or ():
+                self.plan.append_preempted_alloc(victim, alloc.id)
+            self.plan.append_alloc(alloc)
             self.queued_allocs[tg.name] = self.queued_allocs.get(
                 tg.name, 0) + 1
 

@@ -6,11 +6,13 @@ shuffled nodes -> class-memoized feasibility -> distinct hosts/property
 affinity -> spread -> mean of the sub-scores present -> limit(log2 n,
 skip <= 3 at or below 0.0) -> max score.
 
-The placer runs it for groups of at most ``HOST_CUTOVER`` placements,
-and the tests hold the score kernel against it. Preemption, ports,
-device instances and cores are not modelled here: a group that asks for
-them is refused upstream, and a node that does not fit while preemption
-is enabled raises (ROADMAP queue A4).
+The placer runs it for groups of at most ``HOST_CUTOVER`` placements
+and for the preemption rows the kernel leaves to the exact scanner; the
+system scheduler ranks every node with it, and the tests hold the score
+kernel against it. A node that does not fit while preemption is enabled
+takes the preemption arm: victims from ``preemption.preempt_for_task_group``,
+then a "preemption" sub-score. Ports, device instances and cores are not
+modelled here: a group that asks for them is refused upstream.
 """
 
 from __future__ import annotations
@@ -53,6 +55,23 @@ class RankedNode:
         self.score_meta["normalized-score"] = self.final_score
 
 
+def net_priority(allocs: Sequence[Allocation]) -> float:
+    """The victims' max priority plus sum / max (rank.go:864
+    netPriority)."""
+    total, mx = 0, 0.0
+    for a in allocs:
+        p = a.job.priority if a.job is not None else 50
+        mx = max(mx, float(p))
+        total += p
+    return mx + (total / mx) if mx else 0.0
+
+
+def preemption_score(net_prio: float) -> float:
+    """Logistic with its inflection at 2048 (rank.go:894)."""
+    rate, origin = 0.0048, 2048.0
+    return 1.0 / (1.0 + math.exp(rate * (net_prio - origin)))
+
+
 class NodeScorer:
     """Scores one candidate node for one task-group placement, holding
     the per-(job, tg) state of one evaluation: merged affinities, spread
@@ -60,12 +79,15 @@ class NodeScorer:
 
     def __init__(self, ctx: EvalContext, job: Job, tg: TaskGroup, *,
                  algorithm: str = enums.SCHED_ALG_BINPACK,
-                 preemption_enabled: bool = False):
+                 preemption_enabled: bool = False,
+                 current_priority: int = 0):
         self.ctx = ctx
         self.job = job
         self.tg = tg
         self.algorithm = algorithm
         self.preemption_enabled = preemption_enabled
+        self.current_priority = current_priority or job.priority
+        self._ppc_cache = None
         self.ask_vec = tg.combined_resources().vec()
         self.affinities = (list(job.affinities) + list(tg.affinities)
                            + [a for t in tg.tasks for a in t.affinities])
@@ -76,18 +98,47 @@ class NodeScorer:
     def has_affinities_or_spreads(self) -> bool:
         return bool(self.affinities) or self.spread.has_spreads()
 
+    def _plan_preempted_counts(self) -> dict:
+        """Evictions already in the in-progress plan per (namespace, job,
+        task group), cached against the plan's total eviction count
+        (reference rank.py:124-146)."""
+        plan = self.ctx.plan
+        if plan is None:
+            return {}
+        total = sum(len(v) for v in plan.node_preemptions.values())
+        cached = self._ppc_cache
+        if cached is not None and cached[0] == total:
+            return cached[1]
+        counts: dict = {}
+        for allocs in plan.node_preemptions.values():
+            for a in allocs:
+                k = (a.namespace, a.job_id, a.task_group)
+                counts[k] = counts.get(k, 0) + 1
+        self._ppc_cache = (total, counts)
+        return counts
+
     def rank(self, node: Node) -> Optional[RankedNode]:
-        """A scored RankedNode, or None if the node is exhausted."""
+        """A scored RankedNode, or None if the node is exhausted (it does
+        not fit and preemption cannot free room)."""
         option = RankedNode(node=node)
         proposed = self.ctx.proposed_allocs(node.id)
         placement = Allocation(
             id="_candidate", allocated_vec=self.ask_vec, job_id=self.job.id,
             task_group=self.tg.name, client_status=enums.ALLOC_CLIENT_PENDING)
         fit, dim, used = allocs_fit(node, proposed + [placement])
+        if not fit and self.preemption_enabled:
+            # the preemption arm (reference rank.py:171-195)
+            from .preemption import preempt_for_task_group
+
+            victims = preempt_for_task_group(
+                node, proposed, self.ask_vec, self.current_priority,
+                preempted_counts=self._plan_preempted_counts())
+            if victims:
+                option.preempted_allocs = victims
+                victim_ids = {v.id for v in victims}
+                remaining = [a for a in proposed if a.id not in victim_ids]
+                fit, dim, used = allocs_fit(node, remaining + [placement])
         if not fit:
-            if self.preemption_enabled:
-                raise NotImplementedError(
-                    "preemption on the host oracle: ROADMAP queue A4")
             if self.ctx.metrics is not None:
                 self.ctx.metrics.exhaust_node(dim)
             return None
@@ -123,6 +174,10 @@ class NodeScorer:
         sboost = self.spread.score(node)
         if sboost is not None:
             option.add_score("allocation-spread", sboost)
+
+        if option.preempted_allocs:
+            option.add_score("preemption", preemption_score(
+                net_priority(option.preempted_allocs)))
 
         option.normalize()
         return option

@@ -79,6 +79,11 @@ class VersionedTable:
                 del chain.gens[:i]
                 del chain.vals[:i]
 
+    def delete(self, key: Any, gen: int, min_live_gen: int) -> None:
+        """From ``gen`` on the key reads as absent: its value is None."""
+        if key in self._rows:
+            self.put(key, None, gen, min_live_gen)
+
     @staticmethod
     def _visible(row: Any, gen: int) -> Tuple[bool, Any]:
         if type(row) is tuple:
@@ -110,7 +115,7 @@ class VersionedTable:
             if row is None:
                 continue
             ok, v = self._visible(row, gen)
-            if ok:
+            if ok and v is not None:
                 yield key, v
 
 

@@ -21,13 +21,32 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..structs import enums
-from ..structs.alloc import AllocBlock, Allocation
+from ..structs.alloc import BLOCK_SEP, AllocBlock, Allocation
 from ..structs.deployment import Deployment
 from ..structs.evaluation import Evaluation
 from ..structs.job import Job
 from ..structs.node import Node
 from ..structs.resources import RESOURCE_DIMS
 from .mvcc import SnapshotTracker, VersionedTable, cons, cons_iter
+
+
+def _block_alloc(alloc_id: str, lookup) -> Optional[Allocation]:
+    """The virtual row of a block position id ``"<block id>.<p>"`` through
+    ``lookup(block_id)``, or None (reference ``_block_alloc_fallback``,
+    store.py:43-60)."""
+    sep = alloc_id.rfind(BLOCK_SEP)
+    if sep < 0:
+        return None
+    block = lookup(alloc_id[:sep])
+    if block is None:
+        return None
+    try:
+        p = int(alloc_id[sep + 1:])
+    except ValueError:
+        return None
+    if not 0 <= p < block.size:
+        return None
+    return block.alloc_at(p)
 
 
 class BlockRef:
@@ -151,13 +170,21 @@ class StateSnapshot:
         return (b for _, b in self._store._alloc_blocks.iterate(self.index))
 
     def allocs(self) -> Iterator[Allocation]:
+        allocs_tbl = self._store._allocs
         for block in self.alloc_blocks():
-            yield from block.iter_allocs()
-        for _, a in self._store._allocs.iterate(self.index):
+            for a in block.iter_allocs():
+                # a promoted position comes out of the allocs table below
+                if allocs_tbl.get(a.id, self.index) is None:
+                    yield a
+        for _, a in allocs_tbl.iterate(self.index):
             yield a
 
     def alloc_by_id(self, alloc_id: str) -> Optional[Allocation]:
-        return self._store._allocs.get(alloc_id, self.index)
+        a = self._store._allocs.get(alloc_id, self.index)
+        if a is not None:
+            return a
+        return _block_alloc(alloc_id, lambda bid: self._store._alloc_blocks.get(
+            bid, self.index))
 
     def _allocs_from_index(self, table: VersionedTable,
                            key) -> List[Allocation]:
@@ -175,7 +202,10 @@ class StateSnapshot:
                 continue
             rows = block.live_rows() if ref.row < 0 else (ref.row,)
             for m in rows:
-                out.extend(block.allocs_for_row(m))
+                for a in block.allocs_for_row(m):
+                    # a written block position shadows the virtual row
+                    promoted = store._allocs.get(a.id, self.index)
+                    out.append(promoted if promoted is not None else a)
         return out
 
     def allocs_by_node(self, node_id: str) -> List[Allocation]:
@@ -295,6 +325,15 @@ class StateStore:
             self._commit(gen)
             return gen
 
+    def delete_job(self, job_id: str, namespace: str = "default") -> int:
+        """Purge the job row; its allocations stay as they are
+        (reference ``delete_job``, store.py:766)."""
+        with self._write_lock:
+            gen, live = self._begin()
+            self._jobs.delete((namespace, job_id), gen, live)
+            self._commit(gen)
+            return gen
+
     def upsert_evals(self, evals: List[Evaluation]) -> int:
         with self._write_lock:
             gen, live = self._begin()
@@ -374,13 +413,18 @@ class StateStore:
     def upsert_plan_results(self, allocs: List[Allocation] = (),
                             alloc_blocks: List[AllocBlock] = (),
                             deployment: Optional[Deployment] = None,
-                            evals: List[Evaluation] = ()) -> int:
-        """Commit a plan in one generation: its single allocations, its
-        columnar placements (per block one block row, one BlockRef per
-        touched node, one vectorized usage add per node), the deployment
-        it opens and its eval updates."""
+                            evals: List[Evaluation] = (),
+                            stopped_allocs: List[Allocation] = (),
+                            preempted_allocs: List[Allocation] = ()) -> int:
+        """Commit a plan in one generation, in the reference's order
+        (store.py:1173-1190): its stops, its evictions, its single
+        allocations, its columnar placements (per block one block row,
+        one BlockRef per touched node, one vectorized usage add per
+        node), the deployment it opens and its eval updates."""
         with self._write_lock:
             gen, live = self._begin()
+            self._put_allocs(stopped_allocs, gen, live)
+            self._put_allocs(preempted_allocs, gen, live)
             self._put_allocs(allocs, gen, live)
             for block in alloc_blocks:
                 self._put_alloc_block(block, gen, live)
@@ -395,7 +439,11 @@ class StateStore:
                     live: int) -> None:
         """Single allocations: a new id gets one index entry per node and
         job key (one chunk cell per key per generation); a replaced row
-        moves the node's usage by the difference."""
+        moves the node's usage by the difference. A write to a block
+        position promotes it: the real row shadows the block's virtual
+        row in every index (no entry of its own) and replaces its usage.
+        Usage counts the allocs that are not terminal, as the
+        scheduler's proposed view does (reference ``_usage_apply``)."""
         by_node: Dict[str, list] = {}
         by_job: Dict[tuple, list] = {}
         # per (node, vec identity) counts: placements of one group share
@@ -407,16 +455,16 @@ class StateStore:
             e[1] += 1
 
         for a in allocs:
-            prev = self._allocs.get_latest(a.id)
+            prev = self._latest_alloc(a.id)
             a.create_index = prev.create_index if prev is not None else gen
             a.modify_index = gen
             self._allocs.put(a.id, a, gen, live)
             if prev is None:
                 by_node.setdefault(a.node_id, []).append(a.id)
                 by_job.setdefault((a.namespace, a.job_id), []).append(a.id)
-            elif prev.should_count_for_usage():
+            elif not prev.terminal_status():
                 count(prev.node_id, prev.allocated_vec, -1.0)
-            if a.should_count_for_usage():
+            if not a.terminal_status():
                 count(a.node_id, a.allocated_vec, 1.0)
         for (node_id, _, sign), (vec, n) in usage.items():
             self._usage_add(node_id, vec * (sign * n) if n != 1 or sign < 0
@@ -426,6 +474,14 @@ class StateStore:
             for key, ids in groups.items():
                 table.put(key, cons(tuple(ids), table.get_latest(key)),
                           gen, live)
+
+    def _latest_alloc(self, alloc_id: str) -> Optional[Allocation]:
+        """The latest row of an alloc id, else its block position's
+        virtual row (reference ``_latest_alloc``, store.py:944-951)."""
+        a = self._allocs.get_latest(alloc_id)
+        if a is not None:
+            return a
+        return _block_alloc(alloc_id, self._alloc_blocks.get_latest)
 
     def _put_alloc_block(self, block: AllocBlock, gen: int, live: int) -> None:
         block.create_index = gen

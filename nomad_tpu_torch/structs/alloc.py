@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -57,11 +58,18 @@ class Allocation:
     task_group: str = ""
     allocated_vec: np.ndarray = field(default_factory=lambda: comparable())
     desired_status: str = enums.ALLOC_DESIRED_RUN
+    desired_description: str = ""
     client_status: str = enums.ALLOC_CLIENT_PENDING
     metrics: Optional[AllocMetric] = None
     allocated_at: float = 0.0
+    preempted_by_allocation: str = ""
     create_index: int = 0
     modify_index: int = 0
+
+    def copy_for_update(self) -> "Allocation":
+        """A shallow copy to rewrite as the alloc's next row (store rows
+        are immutable by convention)."""
+        return copy.copy(self)
 
     def server_terminal(self) -> bool:
         return self.desired_status in (enums.ALLOC_DESIRED_STOP,

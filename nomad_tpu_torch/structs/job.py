@@ -35,6 +35,16 @@ class UpdateStrategy:
 
 
 @dataclass(slots=True)
+class MigrateStrategy:
+    """Drain migration strategy; preemption reads its ``max_parallel``."""
+
+    max_parallel: int = 1
+    health_check: str = "checks"
+    min_healthy_time_s: float = 10.0
+    healthy_deadline_s: float = 300.0
+
+
+@dataclass(slots=True)
 class EphemeralDisk:
     size_mb: int = 300
 
@@ -61,6 +71,7 @@ class TaskGroup:
     spreads: List[Spread] = field(default_factory=list)
     reschedule_policy: Optional[ReschedulePolicy] = None
     update: Optional[UpdateStrategy] = None
+    migrate: Optional[MigrateStrategy] = None
     ephemeral_disk: EphemeralDisk = field(default_factory=EphemeralDisk)
     networks: List[NetworkResource] = field(default_factory=list)
     volumes: Dict[str, object] = field(default_factory=dict)

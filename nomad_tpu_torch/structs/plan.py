@@ -28,6 +28,18 @@ class Plan:
     def append_alloc(self, alloc) -> None:
         self.node_allocation.setdefault(alloc.node_id, []).append(alloc)
 
+    def append_preempted_alloc(self, alloc, preempting_alloc_id: str) -> None:
+        """Evict ``alloc`` for the placement ``preempting_alloc_id``
+        (reference ``structs/plan.py:68-75``)."""
+        from . import enums
+
+        updated = alloc.copy_for_update()
+        updated.desired_status = enums.ALLOC_DESIRED_EVICT
+        updated.desired_description = (
+            f"Preempted by alloc ID {preempting_alloc_id}")
+        updated.preempted_by_allocation = preempting_alloc_id
+        self.node_preemptions.setdefault(alloc.node_id, []).append(updated)
+
     def append_block(self, block) -> None:
         self.alloc_blocks.append(block)
 

@@ -43,7 +43,7 @@ import torch
 from .. import _ext
 from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda,
                       bulk_fill, bulk_fill_ref, fit_scores, fit_scores_np,
-                      pairwise_sum_ref)
+                      pairwise_sum_ref, preempt_score_ref)
 from .prng import jitter, jitter_fold, jitter_fold_ref, jitter_ref
 from .scatter import scatter_add, scatter_add_ref
 
@@ -107,15 +107,6 @@ def topr_ref(bid: torch.Tensor, r: int):
     key = _order_key(bid) * (1 << 32) + (0xFFFFFFFF - idx)
     idxs = torch.topk(key, r, dim=-1).indices
     return torch.gather(bid, -1, idxs), idxs
-
-
-def preempt_score_ref(net_prio: torch.Tensor) -> torch.Tensor:
-    """``1 / (1 + exp(0.0048 * (net_prio - 2048)))`` in float32, each
-    constant a tensor on ``net_prio``'s device (so no operation is
-    rewritten around a Python scalar)."""
-    c = net_prio.new_tensor
-    one = c(1.0)
-    return one / (one + torch.exp(c(0.0048) * (net_prio - c(2048.0))))
 
 
 def auction_ref(used0, available, feas, aff, ask, k, jits, *,

@@ -1,5 +1,5 @@
 """Tensorization: snapshot + in-progress plan -> dense arrays (reference
-``nomad_tpu/tensor/cluster.py:40-350, 423-457, 499-609, 696-829``).
+``nomad_tpu/tensor/cluster.py:40-457, 499-609, 696-829``).
 
 ``ClusterStatic`` holds what depends only on the node set (capacity,
 index maps, feasibility masks, affinity vectors, interned attribute
@@ -8,8 +8,10 @@ shared by every eval and worker. ``ClusterTensors`` adds one eval's
 usage view, with racing evals' in-flight placements folded in
 (``overlay.py``). ``build_task_group_tensors`` lowers one task group:
 feasibility, affinity, anti-affinity counts, spread tables and
-distinct_property tables. Device and core columns and port asks are the
-rest of ROADMAP queue A5 and raise.
+distinct_property tables. ``build_victim_tensors`` lowers every node's
+preemptible allocs into the victim columns of the preemption solve.
+Device and core columns and port asks are the rest of ROADMAP queue A5
+and raise.
 """
 
 from __future__ import annotations
@@ -215,6 +217,69 @@ class ClusterTensors:
                     if a.task_group == tg.name:
                         ptg[i] += 1
         return ptg, pjob
+
+
+@dataclass
+class VictimTensors:
+    """Per-node victim columns of the preemption solve (reference
+    ``tensor/cluster.py:350-419``): every preemptible alloc of a node is
+    one column slot with its priority, resource vector, eligibility and
+    an exact-resource flag, in ``victim_candidates``' canonical order
+    (priority asc, alloc id asc), the prefix order the kernel consumes;
+    ``refs[i][v]`` is the Allocation of column v of node i. Built per
+    (eval, priority): eligibility depends on the in-progress plan."""
+
+    v_pad: int
+    prio: np.ndarray       # (Np, V) f32, 0 on empty slots
+    vec: np.ndarray        # (Np, V, D) f32 allocated resource vectors
+    elig: np.ndarray       # (Np, V) bool
+    flagged: np.ndarray    # (Np, V) bool port/device holders
+    refs: List[List]       # per real node, column order
+    evictable: np.ndarray  # (Np, D) f32 sum of eligible victim vectors
+    net_prio: np.ndarray   # (Np,) f32 aggregate max + sum/max
+
+
+def build_victim_tensors(ctx: EvalContext, cluster: ClusterTensors,
+                         current_priority: int,
+                         v_floor: int = 8) -> VictimTensors:
+    """Lower every node's preemptible set into padded victim columns
+    plus the per-node aggregates the node score reads: evictable
+    capacity and the approximate netPriority, max + sum / max. V_pad is
+    a power of two of at least ``v_floor``."""
+    from ..scheduler.preemption import (victim_candidates,
+                                        victim_holds_exact_resources)
+
+    nodes = cluster.nodes
+    n_pad = cluster.n_pad
+    d = cluster.available.shape[1]
+    per_node = [victim_candidates(ctx.proposed_allocs(node.id),
+                                  current_priority) for node in nodes]
+    v_max = max((len(c) for c in per_node), default=0)
+    v_pad = _pad_pow2(max(v_max, 1), floor=v_floor)
+
+    prio = np.zeros((n_pad, v_pad), dtype=np.float32)
+    vec = np.zeros((n_pad, v_pad, d), dtype=np.float32)
+    elig = np.zeros((n_pad, v_pad), dtype=bool)
+    flagged = np.zeros((n_pad, v_pad), dtype=bool)
+    max_p = np.zeros(n_pad, dtype=np.float32)
+    sum_p = np.zeros(n_pad, dtype=np.float32)
+    for i, cands in enumerate(per_node):
+        for v, a in enumerate(cands):
+            p = float(a.job.priority)
+            prio[i, v] = p
+            vec[i, v] = np.asarray(a.allocated_vec[:d], dtype=np.float32)
+            elig[i, v] = True
+            flagged[i, v] = victim_holds_exact_resources(a)
+            sum_p[i] += p
+            if p > max_p[i]:
+                max_p[i] = p
+    evictable = (vec * elig[:, :, None]).sum(axis=1)
+    net_prio = np.where(max_p > 0,
+                        max_p + sum_p / np.maximum(max_p, 1.0),
+                        0.0).astype(np.float32)
+    return VictimTensors(v_pad=v_pad, prio=prio, vec=vec, elig=elig,
+                         flagged=flagged, refs=per_node,
+                         evictable=evictable, net_prio=net_prio)
 
 
 @dataclass

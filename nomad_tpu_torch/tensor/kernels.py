@@ -18,6 +18,11 @@ counts and the lowest explicit spread boost. ``score_nodes_packed`` is
 B8 alone (B10). Both take the packed f32 layout of ``pack_solve_args``;
 ``score_nodes_once`` packs the reference's arguments for B10.
 
+Preemption (``:766-910``): ``preempt_solve`` (B7) picks the node of each
+of K requests after eviction and its victims, a priority-ascending
+prefix of the node's victim columns, in one launch; ``preempt_pick``
+(B12) is the same node choice without victims.
+
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/``); on a CPU tensor it runs its plain torch version (``*_ref``),
 and on nothing else.
@@ -621,3 +626,204 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
                   _ext.stream_handle(dev)), "solve_task_group launch")
     _ext.COUNTS.launched("solve_task_group")
     return out
+
+
+# ---------------------------------------------------------------------------
+# preemption: B7 preempt_solve, B12 preempt_pick
+# ---------------------------------------------------------------------------
+
+# the one-CTA preemption kernels keep a node's resource columns in
+# registers
+MAX_PREEMPT_DIMS = 8
+
+
+def preempt_score_ref(net_prio: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(0.0048 * (net_prio - 2048)))`` in float32, each
+    constant a tensor on ``net_prio``'s device (so no operation is
+    rewritten around a Python scalar): the logistic preemption score
+    (reference rank.go:894, kernels.py:793)."""
+    c = net_prio.new_tensor
+    one = c(1.0)
+    return one / (one + torch.exp(c(0.0048) * (net_prio - c(2048.0))))
+
+
+def _preempt_scores(available, used, ask, feasible, ev, pscore):
+    """One step's node scores of B7 and B12: the fit at
+    ``min(used + ask, available)``, plus the preemption score where the
+    node must evict, averaged; NEG where the deficit exceeds what the
+    node can evict. Returns (score, deficit, needs_evict)."""
+    new_used = used + ask[None, :]
+    deficit = torch.clamp_min(new_used - available, 0.0)
+    can = feasible & torch.all(deficit <= ev, dim=1)
+    needs = torch.any(deficit > 0.0, dim=1)
+    fitness = fit_scores(available, torch.minimum(new_used, available))
+    divisor = 1.0 + needs.to(available.dtype)
+    score = (fitness + torch.where(needs, pscore, 0.0)) / divisor
+    return torch.where(can, score, NEG), deficit, needs
+
+
+def preempt_solve_ref(available, used0, ask, feasible, net_prio, active,
+                      v_prio, v_vec, v_elig, v_flag):
+    """B7 in plain torch, step for step the reference's ``preempt_solve``
+    (kernels.py:823-910); ``used0`` is left alone and no step syncs with
+    the host. ``v_prio`` is not read: the columns come sorted. Returns
+    (picks (K,) int32, victims (K, V) bool, flagged (K,) bool, scores
+    (K,) f32)."""
+    _ext.COUNTS.plain("preempt_solve", available)
+    f = available.dtype
+    pscore = preempt_score_ref(net_prio)
+    ev = torch.sum(v_vec * v_elig[:, :, None].to(f), dim=1)
+    taken = torch.zeros_like(v_elig)
+    used = used0.clone()
+    neg = available.new_tensor(NEG)
+    picks, victims, flagged, scores = [], [], [], []
+    for i in range(active.shape[0]):
+        score, deficit, needs = _preempt_scores(available, used, ask,
+                                                feasible, ev, pscore)
+        best = torch.argmax(score)
+        found = (score[best] > NEG) & active[i]
+        # the unclaimed eligible prefix of the best node's column that
+        # covers its deficit (cumsum-before is the prefix sum: the
+        # columns are priority-sorted)
+        row = v_elig[best] & ~taken[best]
+        vecs = v_vec[best] * row[:, None].to(f)
+        cum_before = torch.cumsum(vecs, dim=0) - vecs
+        def_b = deficit[best]
+        sel = (row & needs[best]
+               & torch.any((def_b[None, :] > 0.0)
+                           & (cum_before < def_b[None, :]), dim=1))
+        sel = sel & found
+        evicted = torch.sum(v_vec[best] * sel[:, None].to(f), dim=0)
+        used[best] = torch.where(
+            found, torch.clamp_min(used[best] + ask - evicted, 0.0),
+            used[best])
+        ev[best] = torch.where(found, torch.clamp_min(ev[best] - evicted, 0.0),
+                               ev[best])
+        taken[best] = taken[best] | sel
+        picks.append(torch.where(found, best, -1))
+        victims.append(sel)
+        flagged.append(torch.any(sel & v_flag[best]))
+        scores.append(torch.where(found, score[best], neg))
+    return (torch.stack(picks).to(torch.int32), torch.stack(victims),
+            torch.stack(flagged), torch.stack(scores))
+
+
+def preempt_pick_ref(available, used0, evictable0, ask, feasible, net_prio,
+                     active) -> torch.Tensor:
+    """B12 in plain torch, step for step the reference's ``preempt_pick``
+    (kernels.py:766-820): the node choice of B7 with the carry (used,
+    evictable) and no victims. Returns (K,) int32 picks, -1 where no node
+    can take the request."""
+    _ext.COUNTS.plain("preempt_pick", available)
+    pscore = preempt_score_ref(net_prio)
+    used = used0.clone()
+    ev = evictable0.clone()
+    picks = []
+    for i in range(active.shape[0]):
+        score, deficit, _ = _preempt_scores(available, used, ask, feasible,
+                                            ev, pscore)
+        best = torch.argmax(score)
+        found = (score[best] > NEG) & active[i]
+        used[best] = torch.where(
+            found, torch.minimum(used[best] + ask, available[best]),
+            used[best])
+        ev[best] = torch.where(
+            found, torch.clamp_min(ev[best] - deficit[best], 0.0), ev[best])
+        picks.append(torch.where(found, best, -1))
+    return torch.stack(picks).to(torch.int32)
+
+
+def _preempt_dims(what: str, available) -> tuple:
+    n, d = available.shape
+    if not 2 <= d <= MAX_PREEMPT_DIMS:
+        raise NotImplementedError(
+            f"{what}: {d} resource columns; the kernel takes 2 to "
+            f"{MAX_PREEMPT_DIMS}")
+    return n, d
+
+
+def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
+                  v_vec, v_elig, v_flag):
+    """B7: K preemption placements in one launch -> (picks (K,) int32,
+    victims (K, V) bool, flagged (K,) bool, scores (K,) f32), as the
+    reference's ``preempt_solve``. Inputs: available, used0 (N, D) f32;
+    ask (D,) f32; feasible (N,) bool; net_prio (N,) f32; active (K,)
+    bool; v_prio (N, V) f32; v_vec (N, V, D) f32, integral values below
+    2^24; v_elig, v_flag (N, V) bool. The CUDA kernel
+    ``nt_preempt_solve`` (csrc/preempt.cu) for CUDA tensors,
+    :func:`preempt_solve_ref` for CPU tensors."""
+    if available.device.type == "cpu":
+        return preempt_solve_ref(available, used0, ask, feasible, net_prio,
+                                 active, v_prio, v_vec, v_elig, v_flag)
+    if not available.is_cuda:
+        raise ValueError(f"preempt_solve: unsupported device "
+                         f"{available.device}")
+    n, d = _preempt_dims("preempt_solve", available)
+    v = v_elig.shape[1]
+    k = active.shape[0]
+    dev = available.device
+    f32, b8 = torch.float32, torch.bool
+    for name, t, dtype, shape in (
+            ("available", available, f32, (n, d)),
+            ("used0", used0, f32, (n, d)), ("ask", ask, f32, (d,)),
+            ("feasible", feasible, b8, (n,)),
+            ("net_prio", net_prio, f32, (n,)), ("active", active, b8, (k,)),
+            ("v_prio", v_prio, f32, (n, v)),
+            ("v_vec", v_vec, f32, (n, v, d)),
+            ("v_elig", v_elig, b8, (n, v)), ("v_flag", v_flag, b8, (n, v))):
+        _check_cuda("preempt_solve", name, t, dtype, shape, dev)
+    # the carry: used and evictable (N, D) and the preemption score (N,);
+    # the claimed-victim bits (N, V)
+    scratch = torch.empty(n * (2 * d + 1), dtype=f32, device=dev)
+    taken = torch.empty((n, v), dtype=torch.uint8, device=dev)
+    picks = torch.empty(k, dtype=torch.int32, device=dev)
+    victims = torch.empty((k, v), dtype=b8, device=dev)
+    flagged = torch.empty(k, dtype=b8, device=dev)
+    scores = torch.empty(k, dtype=f32, device=dev)
+    fn = _ext.entry("nt_preempt_solve")
+    _ext.check(fn(available.data_ptr(), used0.data_ptr(), ask.data_ptr(),
+                  feasible.data_ptr(), net_prio.data_ptr(), active.data_ptr(),
+                  v_vec.data_ptr(), v_elig.data_ptr(), v_flag.data_ptr(),
+                  scratch.data_ptr(), taken.data_ptr(), picks.data_ptr(),
+                  victims.data_ptr(), flagged.data_ptr(), scores.data_ptr(),
+                  n, v, k, d, _ext.stream_handle(dev)),
+               "preempt_solve launch")
+    _ext.COUNTS.launched("preempt_solve")
+    return picks, victims, flagged, scores
+
+
+def preempt_pick(available, used0, evictable0, ask, feasible, net_prio,
+                 active) -> torch.Tensor:
+    """B12: the node choice of K preemption placements -> (K,) int32
+    picks, as the reference's ``preempt_pick``. Inputs as
+    :func:`preempt_solve`'s, with evictable0 (N, D) f32 in place of the
+    victim columns. The CUDA kernel ``nt_preempt_pick``
+    (csrc/preempt.cu) for CUDA tensors, :func:`preempt_pick_ref` for CPU
+    tensors. No placement path calls it, as in the reference."""
+    if available.device.type == "cpu":
+        return preempt_pick_ref(available, used0, evictable0, ask, feasible,
+                                net_prio, active)
+    if not available.is_cuda:
+        raise ValueError(f"preempt_pick: unsupported device "
+                         f"{available.device}")
+    n, d = _preempt_dims("preempt_pick", available)
+    k = active.shape[0]
+    dev = available.device
+    f32, b8 = torch.float32, torch.bool
+    for name, t, dtype, shape in (
+            ("available", available, f32, (n, d)),
+            ("used0", used0, f32, (n, d)),
+            ("evictable0", evictable0, f32, (n, d)), ("ask", ask, f32, (d,)),
+            ("feasible", feasible, b8, (n,)),
+            ("net_prio", net_prio, f32, (n,)), ("active", active, b8, (k,))):
+        _check_cuda("preempt_pick", name, t, dtype, shape, dev)
+    scratch = torch.empty(n * (2 * d + 1), dtype=f32, device=dev)
+    picks = torch.empty(k, dtype=torch.int32, device=dev)
+    fn = _ext.entry("nt_preempt_pick")
+    _ext.check(fn(available.data_ptr(), used0.data_ptr(),
+                  evictable0.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
+                  net_prio.data_ptr(), active.data_ptr(), scratch.data_ptr(),
+                  picks.data_ptr(), n, k, d, _ext.stream_handle(dev)),
+               "preempt_pick launch")
+    _ext.COUNTS.launched("preempt_pick")
+    return picks

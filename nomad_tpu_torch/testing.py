@@ -1,7 +1,7 @@
 """In-process scheduler harness (reference ``nomad_tpu/testing.py:20-130``,
 itself the port of Nomad's scheduler/testing.go): a real state store and
-a planner that applies plans straight to it (allocations, alloc blocks
-and the deployment a plan opens), driving the same scheduler -> placer
+a planner that applies plans straight to it (stops, evictions,
+allocations, alloc blocks and the deployment a plan opens), driving the same scheduler -> placer
 -> kernels -> plan -> store path the Server's workers drive."""
 
 from __future__ import annotations
@@ -43,13 +43,20 @@ class Harness:
                                     rejected_nodes=sorted(nodes))
                 self._run_hooks(plan, result)
                 return result, self.store.snapshot()
-            placements = []
+            placements, stops, preemptions = [], [], []
             for allocs in plan.node_allocation.values():
                 placements.extend(allocs)
+            for allocs in plan.node_update.values():
+                stops.extend(allocs)
+            for allocs in plan.node_preemptions.values():
+                preemptions.extend(allocs)
             index = self.store.upsert_plan_results(
                 allocs=placements, alloc_blocks=list(plan.alloc_blocks),
-                deployment=plan.deployment)
+                deployment=plan.deployment, stopped_allocs=stops,
+                preempted_allocs=preemptions)
             result = PlanResult(node_allocation=plan.node_allocation,
+                                node_update=plan.node_update,
+                                node_preemptions=plan.node_preemptions,
                                 alloc_blocks=list(plan.alloc_blocks),
                                 alloc_index=index)
             self._run_hooks(plan, result)

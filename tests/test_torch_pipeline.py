@@ -224,6 +224,20 @@ def test_unported_shapes_raise_not_implemented(port_service):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         h.process(port_mock.eval_for(big),
                   sched_config=port_operator.SchedulerConfiguration())
+    # a sysbatch job
+    sysbatch = port_mock.system_job()
+    sysbatch.type = "sysbatch"
+    h.store.upsert_job(sysbatch)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A1"):
+        h.process(port_mock.eval_for(sysbatch), sched_config=cfg)
+    # a system job update: its allocs of the old version must be replaced
+    system = port_mock.system_job()
+    h.store.upsert_job(system)
+    h.process(port_mock.eval_for(system), sched_config=cfg)
+    assert len(h.store.snapshot().allocs_by_job(system.id)) == 256
+    h.store.upsert_job(system)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A1"):
+        h.process(port_mock.eval_for(system), sched_config=cfg)
     assert port_service.stats["launches"] == 0
 
 
