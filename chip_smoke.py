@@ -1283,31 +1283,63 @@ def preempt_inputs(rng, variant: str, n_pad=N_PAD, n_real=N_NODES,
 
 
 def preempt_bound(args, picks, victims):
-    """Least time of one B7 launch on these inputs: every input it reads
-    once (v_prio is not read: the columns come sorted) and the outputs
-    written once; per active step ~(6 D + 66) operations a node to score
-    it (the fitness's two powf counted 20 each), per evicting step ~(3 D
-    + 4) per victim column of the chosen node, and the evictable sums."""
-    avail, _, _, _, _, active, _, v_vec, _, _ = args
+    """Least time of one B7 launch on these inputs, counting what the
+    function needs on this data. Bytes: the per-node and per-request
+    inputs and v_elig read once, v_vec only at its eligible columns and
+    v_flag only at the selected ones (v_prio is not read: the columns
+    come sorted), and the outputs written once. Operations: only the
+    chosen node's carry changes in a step, so each feasible node is
+    scored once (~(6 D + 66), the fitness's two powf counted 20 each)
+    with its preemption score (~20) and its evictable sum (D per eligible
+    column); then per placed step the chosen node re-scored, a log2 N
+    argmax update (~2 a level), and, where it evicts, a scan of its
+    unclaimed eligible columns (~(3 D + 4) each)."""
+    avail, _, _, feasible, _, active, _, v_vec, v_elig, _ = args
     n, d = avail.shape
     v, k = v_vec.shape[1], active.shape[0]
-    n_bytes = (n * d * 8 + d * 4 + n + n * 4 + k + n * v * d * 4
-               + n * v * 2 + k * 4 + k * v + k + k * 4)
-    evicting = int((victims.any(axis=1)).sum())
-    ops = (int(active.sum()) * n * (6 * d + 66) + evicting * v * (3 * d + 4)
-           + n * v * d + n * 20)
+    elig = int(v_elig.sum())
+    n_bytes = (n * d * 8 + d * 4 + n + n * 4 + k + n * v + elig * d * 4
+               + int(victims.sum()) + k * 4 + k * v + k + k * 4)
+    taken = np.zeros_like(v_elig)
+    scanned = 0
+    for step in np.flatnonzero(victims.any(axis=1)):
+        b = int(picks[step])
+        scanned += int((v_elig[b] & ~taken[b]).sum())
+        taken[b] |= victims[step]
+    placed = int((picks >= 0).sum())
+    n_feas = int(feasible.sum())
+    ops = (n_feas * (6 * d + 66 + 20) + elig * d
+           + placed * (6 * d + 66 + 2 * int(np.ceil(np.log2(n))))
+           + scanned * (3 * d + 4))
     return bound(n_bytes, ops)
 
 
-def pick_preempt_bound(args):
+def pick_preempt_bound(args, picks):
     """Least time of one B12 launch: capacity, usage and evictable (N, D)
     and the per-node and per-request inputs read once, the picks written
-    once; ~(6 D + 66) operations a node per active step."""
-    avail, _, _, _, _, active, _, _, _, _ = args
+    once; each feasible node scored once (~(6 D + 66) and ~20 for its
+    preemption score), then per placed step the chosen node re-scored
+    with a log2 N argmax update."""
+    avail, _, _, feasible, _, active, _, _, _, _ = args
     n, d = avail.shape
     k = active.shape[0]
-    return bound(n * d * 12 + d * 4 + n * 5 + k + k * 4,
-                 int(active.sum()) * n * (6 * d + 66) + n * 20)
+    ops = (int(feasible.sum()) * (6 * d + 66 + 20)
+           + int((picks >= 0).sum()) * (6 * d + 66
+                                        + 2 * int(np.ceil(np.log2(n)))))
+    return bound(n * d * 12 + d * 4 + n * 5 + k + k * 4, ops)
+
+
+def on_card(torch, host, dev):
+    """B7's inputs copied to the card as the placer copies them: v_prio
+    (never read) stays on the host, as None."""
+    return [None if i == 6 else torch.tensor(a, device=dev)
+            for i, a in enumerate(host)]
+
+
+def as_f64(host):
+    """B7's inputs as the float64 numpy mirror takes them."""
+    return [a.astype(np.float64) if a is not None and a.dtype == np.float32
+            else a for a in host]
 
 
 def _pick_from(args):
@@ -1348,45 +1380,45 @@ def phase_preempt_kernels(torch, dev, card, rng):
     from nomad_tpu_torch.tensor.placer import (_preempt_pick_host,
                                                _preempt_solve_host)
 
-    err = 0.0
+    err = p_err = 0.0
     notes = []
     main = None
     for variant in PREEMPT_VARIANTS:
         host = preempt_inputs(rng, variant)
-        args = [torch.tensor(a, device=dev) for a in host]
+        args = on_card(torch, host, dev)
         got = preempt_solve(*args)
         err = max(err, check_preempt(torch, got, preempt_solve_ref(*args),
                                      variant))
         pick_args = [torch.tensor(a, device=dev) for a in _pick_from(host)]
-        if not torch.equal(preempt_pick(*pick_args),
-                           preempt_pick_ref(*pick_args)):
+        picked = preempt_pick(*pick_args)
+        want = preempt_pick_ref(*pick_args)
+        if not torch.equal(picked, want):
             raise AssertionError(f"B12 {variant}: picks differ from the "
                                  f"plain version")
+        p_err = max(p_err, float((picked - want).abs().max()))
         notes.append(f"{variant} {int((got[0] >= 0).sum())} placed "
                      f"{int(got[1].sum())} victims")
         if variant == "main":
-            main = (host, args, pick_args, got)
-    host, args, pick_args, got = main
+            main = (host, args, pick_args, got, picked)
+    host, args, pick_args, got, picked = main
     ms = cuda_time_ms(torch, lambda _: preempt_solve(*args), reps=5)
     plain = cuda_time_ms(torch, lambda _: preempt_solve_ref(*args), reps=2,
                          warmup=1)
-    f64 = [a.astype(np.float64) if a.dtype == np.float32 else a
-           for a in host]
+    f64 = as_f64(host)
     mirror = _host_ms(lambda: _preempt_solve_host(*f64), reps=1)
     b_ms, b_by = preempt_bound(host, got[0].cpu().numpy(),
                                got[1].cpu().numpy())
     p_ms = cuda_time_ms(torch, lambda _: preempt_pick(*pick_args), reps=5)
     p_plain = cuda_time_ms(torch, lambda _: preempt_pick_ref(*pick_args),
                            reps=2, warmup=1)
-    p64 = [a.astype(np.float64) if a.dtype == np.float32 else a
-           for a in _pick_from(host)]
+    p64 = as_f64(_pick_from(host))
     p_mirror = _host_ms(lambda: _preempt_pick_host(
         *[a.copy() for a in p64]), reps=1)
-    pb_ms, pb_by = pick_preempt_bound(host)
+    pb_ms, pb_by = pick_preempt_bound(host, picked.cpu().numpy())
     print(f"B7/B12      [{card}] {len(PREEMPT_VARIANTS)} variants at N_pad "
           f"{N_PAD}, K {PREEMPT_K}, V {PREEMPT_V} (wide: 512): B7 picks, "
           f"victims, flags and scores exact (max_abs_err {err}), B12 picks "
-          f"exact; {'; '.join(notes)}")
+          f"exact (max_abs_err {p_err}); {'; '.join(notes)}")
     print(f"B7/B12      [{card}] main: B7 kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, numpy mirror {mirror:.4f} ms, bound {b_ms:.6f} "
           f"ms ({b_by}); B12 kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, "
@@ -1394,7 +1426,7 @@ def phase_preempt_kernels(torch, dev, card, rng):
     return {"name": "preempt_pick", "source":
             "nomad_tpu_torch/csrc/preempt.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:766",
-            "max_abs_err": 0.0, "ms": p_ms, "plain_ms": p_plain,
+            "max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain,
             "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None}
 
 
@@ -1448,7 +1480,7 @@ def cfg4_run(device, captured=None):
     real = placer.preempt_solve
 
     def capture(*args):
-        captured.append([a.clone() for a in args])
+        captured.append([None if a is None else a.clone() for a in args])
         return real(*args)
 
     if captured is not None:
@@ -1553,13 +1585,13 @@ def phase_cfg4_replay(torch, card, captured):
     from nomad_tpu_torch.tensor.placer import _preempt_solve_host
 
     rows = []
+    err = 0.0
     for i, args in enumerate(captured):
         got = preempt_solve(*args)
-        check_preempt(torch, got, preempt_solve_ref(*args),
-                      f"path launch {i}")
-        host = [a.cpu().numpy() for a in args]
-        f64 = [a.astype(np.float64) if a.dtype == np.float32 else a
-               for a in host]
+        err = max(err, check_preempt(torch, got, preempt_solve_ref(*args),
+                                     f"path launch {i}"))
+        host = [None if a is None else a.cpu().numpy() for a in args]
+        f64 = as_f64(host)
         mirror = _preempt_solve_host(*f64)
         for name, x, y in zip(("picks", "victims", "flagged"), got, mirror):
             if not np.array_equal(x.cpu().numpy(), y):
@@ -1567,7 +1599,7 @@ def phase_cfg4_replay(torch, card, captured):
                                      f"from the numpy mirror")
 
         def h2d():
-            out = [torch.tensor(a, device=args[0].device) for a in host]
+            out = on_card(torch, host, args[0].device)
             torch.cuda.synchronize()
             return out
 
@@ -1580,7 +1612,7 @@ def phase_cfg4_replay(torch, card, captured):
             preempt_bound(host, got[0].cpu().numpy(),
                           got[1].cpu().numpy()),
             tuple(args[0].shape) + (args[5].shape[0], args[7].shape[1]),
-            int(sum(a.nbytes for a in host))))
+            int(sum(a.nbytes for a in host if a is not None))))
     mean = statistics.fmean
     print(f"cfg4 runs   [{card}] the path's {len(rows)} preempt_solve "
           f"launches replayed at (N_pad, D, K_pad, V_pad) "
@@ -1595,7 +1627,7 @@ def phase_cfg4_replay(torch, card, captured):
     return {"name": "preempt_solve",
             "source": "nomad_tpu_torch/csrc/preempt.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:823",
-            "max_abs_err": 0.0, "ms": mean(r[0] for r in rows),
+            "max_abs_err": err, "ms": mean(r[0] for r in rows),
             "plain_ms": mean(r[1] for r in rows),
             "bound_ms": mean(r[4][0] for r in rows),
             "bound_by": rows[0][4][1], "library_ms": None}
@@ -1627,14 +1659,13 @@ def phase_cutover(torch, dev, card, rng):
     for n_pad, k_pad in CUTOVER_SHAPES:
         host = preempt_inputs(rng, "main", n_pad=n_pad,
                               n_real=n_pad - n_pad // 8, k=k_pad)
-        f64 = [a.astype(np.float64) if a.dtype == np.float32 else a
-               for a in host]
+        f64 = as_f64(host)
 
         def kernel():
-            res = preempt_solve(*(torch.tensor(a, device=dev) for a in host))
+            res = preempt_solve(*on_card(torch, host, dev))
             return [t.cpu().numpy() for t in res]
 
-        args = [torch.tensor(a, device=dev) for a in host]
+        args = on_card(torch, host, dev)
         check_preempt(torch, preempt_solve(*args), preempt_solve_ref(*args),
                       f"cutover ({n_pad}, {k_pad})")
         same = int((kernel()[0] == _preempt_solve_host(*f64)[0]).sum())

@@ -24,10 +24,13 @@
 // deficit, 0); it writes picks only.
 //
 // Bound on the H100: neither bytes nor operations. At BASELINE config 4
-// (N_pad 1,024, K_pad 512, V_pad 512, D 4) the inputs are ~9 MB, mostly
-// v_vec, read once; the K steps run one after another because each reads
-// the carry the previous one wrote, and each step scores every node, so
-// the time is K block-wide argmaxes and prefix scans on one SM.
+// (N_pad 1,024, K_pad 512, V_pad 512, D 4) the function needs ~0.87 MB
+// (v_elig, v_vec at the ~2.6k eligible columns, the outputs) and, since
+// only the chosen node's carry changes in a step, about one rescore a
+// step. This kernel reads v_elig whole and rescores every node on each
+// of the K steps, which run one after another because each reads the
+// carry the previous one wrote, so the time is K block-wide argmaxes and
+// prefix scans on one SM.
 //
 // Design: one CTA of 1,024 threads runs all K steps, so the chain needs only
 // __syncthreads. The carry (used, ev, the preemption score per node and the

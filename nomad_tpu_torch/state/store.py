@@ -170,13 +170,16 @@ class StateSnapshot:
         return (b for _, b in self._store._alloc_blocks.iterate(self.index))
 
     def allocs(self) -> Iterator[Allocation]:
-        allocs_tbl = self._store._allocs
+        store = self._store
         for block in self.alloc_blocks():
+            if not store._promoted.get(block.id, self.index):
+                yield from block.iter_allocs()
+                continue
             for a in block.iter_allocs():
                 # a promoted position comes out of the allocs table below
-                if allocs_tbl.get(a.id, self.index) is None:
+                if store._allocs.get(a.id, self.index) is None:
                     yield a
-        for _, a in allocs_tbl.iterate(self.index):
+        for _, a in store._allocs.iterate(self.index):
             yield a
 
     def alloc_by_id(self, alloc_id: str) -> Optional[Allocation]:
@@ -201,7 +204,11 @@ class StateSnapshot:
             if block is None:
                 continue
             rows = block.live_rows() if ref.row < 0 else (ref.row,)
+            shadowed = store._promoted.get(block.id, self.index)
             for m in rows:
+                if not shadowed:
+                    out.extend(block.allocs_for_row(m))
+                    continue
                 for a in block.allocs_for_row(m):
                     # a written block position shadows the virtual row
                     promoted = store._allocs.get(a.id, self.index)
@@ -239,6 +246,9 @@ class StateStore:
         self._evals = VersionedTable("evals")
         self._alloc_blocks = VersionedTable("alloc_blocks")
         self._allocs = VersionedTable("allocs")
+        # per block id, how many of its positions a real row shadows; a
+        # block with none is read without a lookup per position
+        self._promoted = VersionedTable("promoted")
         self._deployments = VersionedTable("deployments")
         self._deployments_by_job = VersionedTable("deployments_by_job")
         self._allocs_by_node = VersionedTable("allocs_by_node")
@@ -454,8 +464,16 @@ class StateStore:
             e = usage.setdefault((node_id, id(vec), sign), [vec, 0])
             e[1] += 1
 
+        promoted: Dict[str, int] = {}
         for a in allocs:
-            prev = self._latest_alloc(a.id)
+            prev = self._allocs.get_latest(a.id)
+            if prev is None:
+                # the block position's virtual row (reference
+                # ``_latest_alloc``, store.py:944-951)
+                prev = _block_alloc(a.id, self._alloc_blocks.get_latest)
+                if prev is not None:
+                    bid = a.id[:a.id.rfind(BLOCK_SEP)]
+                    promoted[bid] = promoted.get(bid, 0) + 1
             a.create_index = prev.create_index if prev is not None else gen
             a.modify_index = gen
             self._allocs.put(a.id, a, gen, live)
@@ -469,19 +487,14 @@ class StateStore:
         for (node_id, _, sign), (vec, n) in usage.items():
             self._usage_add(node_id, vec * (sign * n) if n != 1 or sign < 0
                             else vec, gen, live)
+        for bid, c in promoted.items():
+            self._promoted.put(bid, (self._promoted.get_latest(bid) or 0) + c,
+                               gen, live)
         for table, groups in ((self._allocs_by_node, by_node),
                               (self._allocs_by_job, by_job)):
             for key, ids in groups.items():
                 table.put(key, cons(tuple(ids), table.get_latest(key)),
                           gen, live)
-
-    def _latest_alloc(self, alloc_id: str) -> Optional[Allocation]:
-        """The latest row of an alloc id, else its block position's
-        virtual row (reference ``_latest_alloc``, store.py:944-951)."""
-        a = self._allocs.get_latest(alloc_id)
-        if a is not None:
-            return a
-        return _block_alloc(alloc_id, self._alloc_blocks.get_latest)
 
     def _put_alloc_block(self, block: AllocBlock, gen: int, live: int) -> None:
         block.create_index = gen

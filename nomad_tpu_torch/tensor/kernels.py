@@ -748,8 +748,10 @@ def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
     victims (K, V) bool, flagged (K,) bool, scores (K,) f32), as the
     reference's ``preempt_solve``. Inputs: available, used0 (N, D) f32;
     ask (D,) f32; feasible (N,) bool; net_prio (N,) f32; active (K,)
-    bool; v_prio (N, V) f32; v_vec (N, V, D) f32, integral values below
-    2^24; v_elig, v_flag (N, V) bool. The CUDA kernel
+    bool; v_prio (N, V) f32 or None, kept for the reference's signature
+    and never read (the columns come sorted), so a caller need not copy
+    it to the card; v_vec (N, V, D) f32, integral values below 2^24;
+    v_elig, v_flag (N, V) bool. The CUDA kernel
     ``nt_preempt_solve`` (csrc/preempt.cu) for CUDA tensors,
     :func:`preempt_solve_ref` for CPU tensors."""
     if available.device.type == "cpu":
@@ -768,7 +770,6 @@ def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
             ("used0", used0, f32, (n, d)), ("ask", ask, f32, (d,)),
             ("feasible", feasible, b8, (n,)),
             ("net_prio", net_prio, f32, (n,)), ("active", active, b8, (k,)),
-            ("v_prio", v_prio, f32, (n, v)),
             ("v_vec", v_vec, f32, (n, v, d)),
             ("v_elig", v_elig, b8, (n, v)), ("v_flag", v_flag, b8, (n, v))):
         _check_cuda("preempt_solve", name, t, dtype, shape, dev)

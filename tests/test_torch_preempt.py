@@ -52,6 +52,7 @@ from nomad_tpu_torch.scheduler.preemption import (
     MAX_PARALLEL_PENALTY, PRIORITY_DELTA, is_preemptible,
     preempt_for_task_group, victim_candidates)
 from nomad_tpu_torch.state import StateStore
+from nomad_tpu_torch.state.mvcc import VersionedTable
 from nomad_tpu_torch.structs import AllocBlock, enums
 from nomad_tpu_torch.structs import operator as port_operator
 from nomad_tpu_torch.structs.job import MigrateStrategy
@@ -520,6 +521,62 @@ def test_store_evicting_a_block_alloc_promotes_it():
     store.upsert_plan_results(preempted_allocs=[again])
     np.testing.assert_array_equal(store.snapshot().node_usage(node.id),
                                   usage0 - victim.allocated_vec)
+
+
+def test_store_reads_an_unpromoted_block_without_lookups(monkeypatch):
+    """Until one of its positions is written, a block's allocs are read
+    without a lookup per position in the allocs table; afterwards the
+    block counts its promoted positions once each."""
+    store = StateStore()
+    node = port_mock.node(id="blk-node")
+    store.upsert_node(node)
+    job = port_mock.service_job(4, cpu=1000, mem=1000, priority=20)
+    job.id = "blk-job"
+    store.upsert_job(job)
+    store.upsert_plan_results(alloc_blocks=[AllocBlock(
+        id="blk", job_id=job.id, job=job, task_group="web",
+        name_indices=np.arange(4), node_ids=[node.id],
+        node_names=[node.name], counts=np.array([4]),
+        allocated_vec=job.task_groups[0].combined_resources().vec())])
+    lookups = []
+    get = VersionedTable.get
+
+    def counted(table, key, gen):
+        if table is store._allocs:
+            lookups.append(key)
+        return get(table, key, gen)
+
+    monkeypatch.setattr(VersionedTable, "get", counted)
+
+    def reads(snap):
+        return (snap.allocs_by_job(job.id), snap.allocs_by_node(node.id),
+                list(snap.allocs()))
+
+    before = store.snapshot()
+    assert [len(r) for r in reads(before)] == [4, 4, 4]
+    assert lookups == []
+    victim = before.allocs_by_job(job.id)[2].copy_for_update()
+    victim.desired_status = enums.ALLOC_DESIRED_EVICT
+    store.upsert_plan_results(preempted_allocs=[victim])
+    again = store.snapshot().alloc_by_id(victim.id).copy_for_update()
+    store.upsert_plan_results(preempted_allocs=[again])
+    assert store._promoted.get_latest("blk") == 1
+    for read in reads(store.snapshot()):
+        assert [a.desired_status for a in read].count("evict") == 1
+    assert len(lookups) > 0
+    del lookups[:]
+    assert all(a.desired_status == "run" for r in reads(before) for a in r)
+    assert lookups == []
+
+
+def test_preempt_solve_wrapper_needs_no_victim_priorities():
+    """The solve never reads v_prio, so the wrapper takes None for it."""
+    args = [torch.from_numpy(np.asarray(a))
+            for a in random_victim_problem(5)]
+    want = port_kernels.preempt_solve(*args)
+    got = port_kernels.preempt_solve(*args[:6], None, *args[7:])
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def test_delete_job_keeps_its_allocs():
