@@ -85,7 +85,32 @@ Phases (any failure raises and exits non-zero):
 15. cutover -- the numpy mirror against the kernel with its copies at
               (N_pad, K_pad) = (256, 64), (1,024, 128), (1,024, 512),
               (4,096, 512), V 8: the H100's side of PREEMPT_DEVICE_MIN.
-16. parity -- the pinned 256-node bulk workload under "tpu-binpack" and under
+16. B11'    -- the fused bulk scan's tie-break permutation (nt_tie_perm) vs
+              permutation_ref at n 1,024 (one round) and 16,384 (two
+              rounds), eight seeds including 0 and 2^32 - 1: bitwise.
+17. B11    -- the bulk scan vs its plain version at the C2M width (N_pad
+              16,384, D 4, k 40,000) on seven variants: fused main, fused
+              with a remainder, fused with an all-zero ask, generic with
+              WorstFit, with distinct_hosts, with two spread tables, and
+              fused on identical nodes: counts exact.
+18. large  -- the bulk fallback's path ("C2M large groups"): 10,240 nodes,
+              8 batch jobs of one group of 40,000 allocs (cpu 50, mem 32),
+              one after another from one thread through
+              Harness.process("tpu-binpack"); each group is above the
+              service's MAX_K, so each eval is one solve_bulk_fused call.
+              Gates: 320,000 placed, no node over capacity, 8 B11 and 8
+              B11' launches, no service launch, no plain version on CUDA;
+              prints the eval walls and B11's share of them on the card.
+    runs   -- those calls replayed: exact against the plain version; the
+              scan and the permutation timed alone beside their plain
+              versions. The B11 and B11' records are their means.
+19. parity -- job 0 of that path through Harness(device="cpu"): the card's
+              per-node counts. Then the reference's bulk-preemption
+              scenario (16 nodes, BULK_MIN 16, both groups through
+              _place_bulk) on the mirror route and with PREEMPT_DEVICE_MIN
+              0 on the kernel, on the card and on the CPU: 32 placed,
+              victims unique, capacity holds, card == CPU.
+20. parity -- the pinned 256-node bulk workload under "tpu-binpack" and under
               "tpu-solve", the spread / distinct_hosts / distinct_property /
               host-oracle workload, and cfg4, on the card and on the CPU
               plain versions: the same placements (and victims).
@@ -1678,6 +1703,488 @@ def phase_cutover(torch, dev, card, rng):
           + "; ".join(out))
 
 
+# the bulk fallbacks (B11, B11'): groups above the service's MAX_K
+LARGE_K = 40_000
+LARGE_JOBS = 8
+B11_VARIANTS = ("main", "over", "zero_ask", "spread_alg", "dh_tg",
+                "spreads", "identical")
+
+
+def b11_inputs(rng, variant: str):
+    """One bulk scan at the C2M width (10,240 build_nodes capacities
+    padded to 16,384, D 4, usage at 0-99 allocs of (50, 32, 300) a node)
+    as (form, args, kwargs): "main" fused with k 40,000; "over" fused with
+    an ask that leaves a remainder; "zero_ask" fused with an all-zero ask
+    (infinite caps clamped to the budget); "spread_alg", "dh_tg" and
+    "spreads" (two tables: explicit targets, and even spread over 32
+    values) through the generic form with its own permutation;
+    "identical" fused on identical empty nodes, where the permutation
+    decides every step."""
+    f = np.float32
+    avail = np.zeros((N_PAD, 4), f)
+    avail[:N_NODES] = c2m_capacity()
+    used = np.zeros((N_PAD, 4), f)
+    fill = rng.integers(0, 100, N_NODES).astype(f)
+    used[:N_NODES, :3] = fill[:, None] * np.array([50, 32, 300], f)
+    feas = np.zeros(N_PAD, bool)
+    feas[:N_NODES] = rng.random(N_NODES) < 0.95
+    aff = np.zeros(N_PAD, f)
+    aff[:N_NODES] = rng.choice([0.0, 0.0, 0.0, 0.5, -0.5], N_NODES)
+    ptg = np.zeros(N_PAD, np.int32)
+    ptg[:N_NODES] = rng.integers(0, 3, N_NODES)
+    ask = np.array([50, 32, 300, 0], f)
+    k = LARGE_K
+    if variant == "identical":
+        avail[:N_NODES] = avail[0]
+        used[:] = 0.0
+        aff[:] = 0.0
+        ptg[:] = 0
+        feas[:N_NODES] = True
+    if variant == "over":
+        ask = np.array([4000, 8192, 300, 0], f)
+    if variant == "zero_ask":
+        ask[:] = 0.0
+    seed = int(rng.integers(0, 2 ** 32))
+    if variant in ("main", "over", "zero_ask", "identical"):
+        dyn = np.concatenate([used, ptg[:, None], ptg[:, None]],
+                             axis=1).astype(f)
+        return "fused", [avail, feas, aff, dyn, ask], (k, float(k), seed)
+    s, v = (2, 32) if variant == "spreads" else (0, 1)
+    svid = rng.integers(0, v, (s, N_PAD)).astype(np.int32)
+    sok = rng.random((s, N_PAD)) < 0.9
+    scnt = rng.integers(0, 50, (s, v)).astype(np.int32)
+    desired = np.full((s, v), np.nan, f)
+    if s:
+        desired[0] = rng.integers(0, 400, v)
+        desired[0, 3] = 0.0
+    has_targets = np.arange(s) == 0
+    weight = np.full(s, 0.5, f)
+    perm = rng.permutation(N_PAD).astype(np.int32)
+    args = [avail, used, ask, feas, ptg, ptg.copy(), aff, np.zeros(N_PAD, f),
+            svid, sok, scnt, desired, has_targets, weight, perm]
+    return "generic", args, (k, float(k), variant == "dh_job",
+                             variant == "dh_tg", variant == "spread_alg")
+
+
+def b11_steps(k: int):
+    k_pad = 256
+    while k_pad < k:
+        k_pad *= 2
+    return k_pad // 256
+
+
+def b11_call(torch, dev, form, host, scalars, plain=False):
+    """Run one b11_inputs case on ``dev`` through the wrapper or its plain
+    version -> (N,) int32 counts."""
+    from nomad_tpu_torch.tensor import kernels
+
+    t = [torch.tensor(a, device=dev) for a in host]
+    k = scalars[0]
+    kw = {"batch": 256, "n_steps": b11_steps(k)}
+    if form == "fused":
+        fn = kernels.solve_bulk_fused_ref if plain else kernels.solve_bulk_fused
+        return fn(*t, *scalars, **kw)
+    fn = kernels.solve_bulk_ref if plain else kernels.solve_bulk
+    return fn(*t[:14], *scalars, t[14], **kw)
+
+
+def b11_bound(n_pad: int, d: int, n_feas: int, counts, s: int = 0):
+    """Least time of one bulk scan on these inputs, counting what the
+    function needs on this data. Bytes: the per-node columns (capacity,
+    usage and the two placement counts, mask, affinity, permutation) read
+    once and the (N,) counts written once. Operations: each feasible node
+    scored once (~(6 D + 66) for B8, ~12 a spread, ~3 D for its cap);
+    then, per active step, the nodes that took placements rescored and put
+    back in order (a log2 N update, ~2 a level). A node takes its whole
+    cap in one step unless the step's budget runs out inside it, so the
+    (node, step) pairs that placed number at most the placed nodes plus
+    the active steps."""
+    placed = int(counts.sum())
+    nnz = int((counts > 0).sum())
+    steps = -(-placed // 256)
+    per_node = 6 * d + 66 + 12 * s + 3 * d
+    ops = (n_feas * per_node
+           + (nnz + steps) * (per_node + 2 * int(np.ceil(np.log2(n_pad)))))
+    n_bytes = n_pad * (d * 4 + (d + 2) * 4 + 1 + 4 + 4) + n_pad * 4
+    return bound(n_bytes, ops)
+
+
+def tie_perm_bound(n: int):
+    """Least time of one permutation draw: the (n,) int32 result written
+    once; per round, one threefry (~120 32-bit ops) a position and a
+    comparison sort of n 64-bit keys (n log2 n comparisons, 2 ops each)."""
+    from nomad_tpu_torch.tensor.prng import permutation_rounds
+
+    r = permutation_rounds(n)
+    ops = r * (n * 120 + 2 * n * int(np.ceil(np.log2(max(n, 2)))))
+    return bound(n * 4, ops)
+
+
+def phase_tie_perm(torch, dev, card, rng):
+    """B11' bitwise against permutation_ref at n 1,024 (one round) and
+    16,384 (two rounds), seeds 0, 7, 2^31, 2^32 - 1 and four random."""
+    from nomad_tpu_torch.tensor.prng import (permutation, permutation_ref,
+                                             permutation_rounds)
+
+    seeds = [0, 7, 2 ** 31, 2 ** 32 - 1] + [
+        int(x) for x in rng.integers(0, 2 ** 32, 4)]
+    for n in (1024, N_PAD):
+        for seed in seeds:
+            got = permutation(seed, n, dev)
+            want = permutation_ref(seed, n, dev)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"B11' permutation differs from "
+                                     f"permutation_ref at n={n}, "
+                                     f"seed={seed}")
+    print(f"B11' perm   [{card}] bitwise equal at n 1,024 "
+          f"({permutation_rounds(1024)} round) and 16,384 "
+          f"({permutation_rounds(N_PAD)} rounds), {len(seeds)} seeds each")
+
+
+def phase_b11(torch, dev, card, rng):
+    """B11 exact against its plain version on every variant at N_pad
+    16,384."""
+    notes = []
+    for variant in B11_VARIANTS:
+        form, host, scalars = b11_inputs(rng, variant)
+        got = b11_call(torch, dev, form, host, scalars)
+        want = b11_call(torch, dev, form, host, scalars, plain=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            diff = int((got != want).sum())
+            raise AssertionError(f"B11 {variant}: counts differ from the "
+                                 f"plain version on {diff} nodes")
+        placed = int(got.sum())
+        if variant == "over" and not 0 < placed < scalars[0]:
+            raise AssertionError(f"B11 over: placed {placed}, want a "
+                                 f"remainder")
+        if variant in ("spread_alg", "dh_tg") and int(got.max()) > (
+                b11_steps(scalars[0]) if variant == "spread_alg" else 1):
+            raise AssertionError(f"B11 {variant}: a node took "
+                                 f"{int(got.max())}")
+        notes.append(f"{variant} ({form}) {placed} on "
+                     f"{int((got > 0).sum())} nodes")
+    print(f"B11 scan    [{card}] {len(B11_VARIANTS)} variants at N_pad "
+          f"{N_PAD}, k {LARGE_K}, exact: {'; '.join(notes)}")
+
+
+def phase_large_groups(torch, card, device="cuda"):
+    """The bulk fallback's main path: Harness(device) under
+    "tpu-binpack" on the 10,240 build_nodes nodes, 8 batch jobs of one
+    group of 40,000 allocs (cpu 50, mem 32), ids pinned, processed one
+    after another from one thread on a Harness of their own. Each group
+    is above the service's MAX_K, so each eval is one solve_bulk_fused
+    call (B11' then B11, N_pad 16,384, k_pad 65,536, 256 steps at most).
+    The fused scan reads the store and neither reads nor feeds the solver
+    service's carry (ROADMAP C), so the jobs run alone here and the
+    capacity gate measures this slice. Each call's inputs are copied and
+    its device time taken by CUDA events around it. Returns (the launch
+    counts of the run, per-eval walls in s, the copied calls, the device
+    ms of each call, the job 0 fingerprint)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import placer
+    from nomad_tpu_torch.tensor.solver import get_service
+    from nomad_tpu_torch.testing import Harness
+
+    h = Harness(device=device)
+    mock.build_nodes(h.store, N_NODES, seed=0)
+    jobs = []
+    for i in range(LARGE_JOBS):
+        j = mock.service_job(LARGE_K, cpu=50, mem=32, batch=True)
+        j.id = j.name = f"large-{i}"
+        h.store.upsert_job(j)
+        jobs.append(j)
+    cfg = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+    real = placer.solve_bulk_fused
+    captured, events = [], []
+
+    def capture(*args, **kw):
+        captured.append(([a.clone() for a in args[:5]], args[5:], kw))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    svc = get_service(device)
+    base = dict(svc.stats)
+    placer.solve_bulk_fused = capture
+    walls = []
+    try:
+        _ext.COUNTS.reset()
+        for i, j in enumerate(jobs):
+            t0 = time.perf_counter()
+            h.process(mock.eval_for(j, id=f"large-ev-{i}"), cfg)
+            walls.append(time.perf_counter() - t0)
+        counts = _ext.COUNTS.snapshot()
+    finally:
+        placer.solve_bulk_fused = real
+    torch.cuda.synchronize()
+    device_ms = [s.elapsed_time(e) for s, e in events]
+    stats = {k: svc.stats[k] - base[k] for k in base}
+    svc.stop()
+
+    snap = h.store.snapshot()
+    total = sum(len(snap.allocs_by_job(j.id)) for j in jobs)
+    nodes = list(snap.nodes())
+    row = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.stack([n.available_vec() for n in nodes])
+    usage = np.zeros_like(cap)
+    for block in snap.alloc_blocks():
+        for m, nid in enumerate(block.node_ids):
+            usage[row[nid]] += block.allocated_vec * float(block.counts[m])
+    over = int((usage > cap).any(axis=1).sum())
+    launched = counts["launches"]
+    fails = []
+    if total != LARGE_JOBS * LARGE_K:
+        fails.append(f"placed {total}, want {LARGE_JOBS * LARGE_K}")
+    if over:
+        fails.append(f"{over} nodes over capacity")
+    for name in ("bulk_scan", "tie_perm"):
+        if launched[name] != LARGE_JOBS:
+            fails.append(f"{name} launched {launched[name]} times, want "
+                         f"{LARGE_JOBS}")
+    if stats["launches"] or launched["bulk_fill"]:
+        fails.append(f"the service launched {stats['launches']} times")
+    if any(counts["plain_on_cuda"].values()):
+        fails.append(f"plain versions ran on CUDA: {counts['plain_on_cuda']}")
+    if any(e.status != enums.EVAL_STATUS_COMPLETE or e.failed_tg_allocs
+           for e in h.evals):
+        fails.append("an eval did not complete cleanly")
+    if fails:
+        raise AssertionError("large groups path: " + "; ".join(fails))
+    wall = sum(walls)
+    print(f"large path  [{card}] {total} allocs in {LARGE_JOBS} evals of "
+          f"{LARGE_K}: {wall:.3f} s = {total / wall:.1f} allocs/s; eval "
+          f"walls {', '.join(f'{w:.3f}' for w in walls)} s; solve_bulk_fused "
+          f"on the card {', '.join(f'{m:.2f}' for m in device_ms)} ms = "
+          f"{100 * sum(device_ms) / 1e3 / wall:.1f}% of the wall; 0 nodes "
+          f"over capacity; kernel launches {launched}; plain on CUDA "
+          f"{counts['plain_on_cuda']}")
+    first = sorted((row[nid], int(c)) for b in snap.alloc_blocks()
+                   if b.job_id == jobs[0].id
+                   for nid, c in zip(b.node_ids, b.counts))
+    return launched, walls, captured, device_ms, first
+
+
+def phase_large_replay(torch, card, captured):
+    """The path's own solve_bulk_fused calls replayed from their copies:
+    the wrapper (B11' + B11) exact against solve_bulk_fused_ref; then the
+    permutation kernel and the scan kernel each timed alone beside its
+    plain version (the scan on the permutation of its call). Returns the
+    B11 and B11' records (means over the calls)."""
+    from nomad_tpu_torch.tensor import kernels
+    from nomad_tpu_torch.tensor.prng import permutation, permutation_ref
+
+    rows = []
+    for i, (t, scalars, kw) in enumerate(captured):
+        avail, feas, aff, dyn, ask = t
+        k, tgc, seed = scalars
+        got = kernels.solve_bulk_fused(*t, *scalars, **kw)
+        want = kernels.solve_bulk_fused_ref(*t, *scalars, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B11 path call {i}: counts differ from "
+                                 f"the plain version")
+        n, d = avail.shape
+        dev = avail.device
+        perm = permutation(seed, n, dev)
+        none = torch.empty(0, device=dev)
+        scal = kernels._scalars(ask, tgc, False, False, False)
+
+        def scan(_):
+            return kernels._launch_bulk_scan(
+                avail, dyn, feas, aff, None, perm, none, none, none, scal, k,
+                s=0, v=1, **kw)
+
+        def scan_ref(_):
+            return kernels._bulk_scan_ref(
+                avail, dyn[:, :d], ask, feas, dyn[:, d].to(torch.int32),
+                dyn[:, d + 1].to(torch.int32), aff,
+                torch.zeros(n, device=dev),
+                torch.zeros((0, n), dtype=torch.int32, device=dev),
+                torch.zeros((0, n), dtype=torch.bool, device=dev),
+                torch.zeros((0, 1), dtype=torch.int32, device=dev),
+                torch.zeros((0, 1), device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, device=dev), k, tgc, False, False, False,
+                perm, **kw)
+
+        if not torch.equal(scan(None), got):
+            raise AssertionError(f"B11 path call {i}: the scan alone "
+                                 f"differs from the wrapper")
+        counts = got.cpu().numpy()
+        rows.append((
+            cuda_time_ms(torch, scan, reps=5),
+            cuda_time_ms(torch, scan_ref, reps=2, warmup=1),
+            b11_bound(n, d, int(feas.sum()), counts),
+            cuda_time_ms(torch, lambda _: permutation(seed, n, dev), reps=10),
+            cuda_time_ms(torch, lambda _: permutation_ref(seed, n, dev),
+                         reps=5),
+            int(counts.sum()), int((counts > 0).sum()), n))
+    mean = statistics.fmean
+    steps = mean(-(-r[5] // 256) for r in rows)
+    t_ms, t_by = tie_perm_bound(rows[0][7])
+    print(f"large runs  [{card}] the path's {len(rows)} solve_bulk_fused "
+          f"calls replayed at N_pad {rows[0][7]}: exact against the plain "
+          f"version; {mean(r[5] for r in rows):.0f} placed on "
+          f"{mean(r[6] for r in rows):.0f} nodes in {steps:.0f} active "
+          f"steps a call; B11 scan {mean(r[0] for r in rows):.4f} ms "
+          f"({mean(r[0] for r in rows) / steps * 1e3:.1f} us a step), plain "
+          f"{mean(r[1] for r in rows):.4f} ms, bound "
+          f"{mean(r[2][0] for r in rows):.6f} ms ({rows[0][2][1]}); B11' "
+          f"permutation {mean(r[3] for r in rows):.4f} ms, plain "
+          f"{mean(r[4] for r in rows):.4f} ms, bound {t_ms:.6f} ms ({t_by})")
+    return [{"name": "bulk_scan", "source": "nomad_tpu_torch/csrc/bulk_scan.cu",
+             "replaces": "nomad_tpu/tensor/kernels.py:597",
+             "max_abs_err": 0.0, "ms": mean(r[0] for r in rows),
+             "plain_ms": mean(r[1] for r in rows),
+             "bound_ms": mean(r[2][0] for r in rows),
+             "bound_by": rows[0][2][1], "library_ms": None},
+            {"name": "tie_perm", "source": "nomad_tpu_torch/csrc/bulk_scan.cu",
+             "replaces": "nomad_tpu/tensor/kernels.py:618",
+             "max_abs_err": 0.0, "ms": mean(r[3] for r in rows),
+             "plain_ms": mean(r[4] for r in rows), "bound_ms": t_ms,
+             "bound_by": t_by, "library_ms": None}]
+
+
+def phase_large_parity(card, card_first):
+    """Job 0 of the large-group path (40,000 allocs, pinned ids) through
+    Harness(device="cpu") on the same nodes: the card's per-node counts."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.testing import Harness
+
+    h = Harness(device="cpu")
+    mock.build_nodes(h.store, N_NODES, seed=0)
+    j = mock.service_job(LARGE_K, cpu=50, mem=32, batch=True)
+    j.id = j.name = "large-0"
+    h.store.upsert_job(j)
+    t0 = time.perf_counter()
+    h.process(mock.eval_for(j, id="large-ev-0"), SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK))
+    wall = time.perf_counter() - t0
+    snap = h.store.snapshot()
+    row = {n.id: i for i, n in enumerate(snap.nodes())}
+    cpu = sorted((row[nid], int(c)) for b in snap.alloc_blocks()
+                 for nid, c in zip(b.node_ids, b.counts))
+    if cpu != card_first:
+        raise AssertionError("large groups: card and CPU per-node counts "
+                             "differ on job 0")
+    print(f"parity      card == CPU on one {LARGE_K}-alloc group "
+          f"({len(cpu)} nodes; the CPU's plain scan took {wall:.3f} s)")
+
+
+def preempt_scenario_run(device, route):
+    """The reference's _run_preempt_scenario (tests/test_preempt_solve.py:
+    290-376) with its BULK_MIN 16 through Harness(device): 16 nodes of
+    (4,000 MHz, 8,192 MB), a priority-20 batch job of 32 x (1,900, 3,800),
+    then a priority-80 batch job of 32 x (1,000, 2,000), both through
+    _place_bulk; the second's remainder goes to one preemption solve, the
+    numpy mirror ("mirror") or, with PREEMPT_DEVICE_MIN 0, B7 ("kernel").
+    Ids are minted from a seeded generator."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.operator import (PreemptionConfig,
+                                                  SchedulerConfiguration)
+    from nomad_tpu_torch.tensor import placer
+    from nomad_tpu_torch.tensor.solver import get_service
+    from nomad_tpu_torch.testing import Harness
+    from nomad_tpu_torch.utils import ids
+
+    ids._rng.seed(5)
+    cls = placer.TorchPlacer
+    old = cls.BULK_MIN, cls.PREEMPT_DEVICE_MIN
+    cls.BULK_MIN = 16
+    if route == "kernel":
+        cls.PREEMPT_DEVICE_MIN = 0
+    try:
+        h = Harness(device=device)
+        for i in range(16):
+            n = mock.node(id=f"ps-node-{i:02d}", name=f"ps-node-{i:02d}")
+            n.resources.cpu = 4000
+            n.resources.memory_mb = 8192
+            n.compute_class()
+            h.store.upsert_node(n)
+        cfg = SchedulerConfiguration(
+            scheduler_algorithm="tpu-binpack",
+            preemption_config=PreemptionConfig(batch_scheduler_enabled=True))
+        s0 = placer.preempt_stats()
+        for jid, cpu, mem, prio in (("ps-filler", 1900, 3800, 20),
+                                    ("ps-hi", 1000, 2000, 80)):
+            j = mock.service_job(32, cpu=cpu, mem=mem, batch=True,
+                                 priority=prio)
+            j.id = j.name = jid
+            h.store.upsert_job(j)
+            h.process(mock.eval_for(j, id=f"{jid}-ev"), cfg)
+        s1 = placer.preempt_stats()
+    finally:
+        cls.BULK_MIN, cls.PREEMPT_DEVICE_MIN = old
+    get_service(device).stop()
+    snap = h.store.snapshot()
+    by_id = {a.id: a for a in snap.allocs()}
+    live = [a for a in by_id.values() if not a.terminal_status()]
+    nodes = {n.id: n for n in snap.nodes()}
+    usage = {nid: np.zeros(4) for nid in nodes}
+    for a in live:
+        usage[a.node_id] += a.allocated_vec
+    evicted = sorted((a.id, a.name, a.node_id,
+                      by_id[a.preempted_by_allocation].name)
+                     for a in by_id.values() if a.desired_status == "evict")
+    return {"hi": sorted((a.name, a.node_id) for a in live
+                         if a.job_id == "ps-hi"),
+            "evicted": evicted,
+            "over": sum(int((usage[nid] > nodes[nid].available_vec()).any())
+                        for nid in nodes),
+            "stats": {k: s1[k] - s0[k] for k in s1}}
+
+
+def phase_bulk_preempt(torch, card):
+    """The bulk-preemption scenario on both routes, on the card and on the
+    CPU: 32 placed, victims unique, capacity holds, card == CPU."""
+    from nomad_tpu_torch import _ext
+
+    notes = []
+    for route in ("mirror", "kernel"):
+        _ext.COUNTS.reset()
+        card_run = preempt_scenario_run("cuda", route)
+        counts = _ext.COUNTS.snapshot()
+        cpu_run = preempt_scenario_run("cpu", route)
+        fails = []
+        if len(card_run["hi"]) != 32:
+            fails.append(f"hi placed {len(card_run['hi'])}, want 32")
+        if not card_run["evicted"] or len(
+                {e[0] for e in card_run["evicted"]}) != len(
+                card_run["evicted"]):
+            fails.append("victims missing or not unique")
+        if card_run["over"]:
+            fails.append(f"{card_run['over']} nodes over capacity")
+        if card_run["stats"]["host_preempted"]:
+            fails.append(f"preempt stats {card_run['stats']}")
+        want_b7 = 1 if route == "kernel" else 0
+        if counts["launches"]["preempt_solve"] != want_b7:
+            fails.append(f"preempt_solve launched "
+                         f"{counts['launches']['preempt_solve']} times")
+        if any(counts["plain_on_cuda"].values()):
+            fails.append(f"plain versions ran on CUDA: "
+                         f"{counts['plain_on_cuda']}")
+        if card_run != cpu_run:
+            fails.append("card and CPU differ")
+        if fails:
+            raise AssertionError(f"bulk preemption ({route}): "
+                                 + "; ".join(fails))
+        notes.append(f"{route}: 32 placed, {len(card_run['evicted'])} "
+                     f"victims, stats {card_run['stats']}")
+    print(f"bulk preempt [{card}] card == CPU, 0 nodes over capacity, "
+          f"victims unique; {'; '.join(notes)}")
+
+
 def main() -> int:
     if not (REPO / "nomad_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: nomad_tpu_torch/ not found beside the script; "
@@ -1733,6 +2240,14 @@ def main() -> int:
     for k in preempt:
         k["launches"] = launches[k["name"]]
     phase_cutover(torch, dev, card, rng)
+    phase_tie_perm(torch, dev, card, rng)
+    phase_b11(torch, dev, card, rng)
+    launches, _, captured, _, first = phase_large_groups(torch, card)
+    large = phase_large_replay(torch, card, captured)
+    for k in large:
+        k["launches"] = launches[k["name"]]
+    phase_large_parity(card, first)
+    phase_bulk_preempt(torch, card)
     phase_parity(enums.SCHED_ALG_TPU_BINPACK)
     phase_parity(enums.SCHED_ALG_TPU_SOLVE)
     phase_spread_parity()
@@ -1741,7 +2256,7 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    kernels = bulk + per_eval + joint + preempt
+    kernels = bulk + per_eval + joint + preempt + large
     for k in kernels:
         k["route"] = "cuda"
     print(json.dumps({"kernels": [{key: k[key] for key in order}

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
     "nt_preempt_solve": ("preempt", [_P] * 15 + [_I] * 4 + [_P]),
     "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
+    "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 7 + [_P]),
+    "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -90,7 +92,8 @@ class LaunchCounts:
 
 COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
                        "solve_task_group", "jitter_fold", "auction",
-                       "batch_pick", "preempt_solve", "preempt_pick"))
+                       "batch_pick", "preempt_solve", "preempt_pick",
+                       "bulk_scan", "tie_perm"))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -6,8 +6,9 @@ place -> submit plan -> on a partial commit retry against the fresher
 snapshot (zero-progress attempts are capped at 5 for service jobs, 2 for
 batch). Unplaced allocations produce a blocked evaluation. Placements
 commit per request (``commit(req, option)``, with the victims the
-option evicts) or, on the bulk path, as one AllocBlock per group
-(``commit.commit_block``).
+option evicts), on the per-request bulk path per node
+(``commit.commit_many``) or, on the columnar bulk path, as one
+AllocBlock per group (``commit.commit_block``).
 """
 
 from __future__ import annotations
@@ -228,6 +229,41 @@ class GenericScheduler:
             self.queued_allocs[tg.name] = self.queued_allocs.get(
                 tg.name, 0) + 1
 
+        def commit_many(tg, node, reqs, mean_score):
+            """Bulk per-request commit (reference generic_sched.py:
+            346-382): the success arm of ``commit`` for fresh placements
+            (no canary, no previous alloc, no ports, devices or cores: the
+            placer's bulk eligibility) of ``reqs`` on one node, with the
+            per-request constants hoisted out of the loop."""
+            bucket = self.plan.node_allocation.setdefault(node.id, [])
+            deployment_id = dep_id(tg)
+            vec = ctx.tg_vec(tg)
+            metrics = ctx.metrics
+            if metrics is not None:
+                metrics.scores.setdefault("bulk.normalized-score",
+                                          mean_score)
+            for req in reqs:
+                bucket.append(Allocation(
+                    id=generate_uuid(),
+                    eval_id=ev.id,
+                    deployment_id=deployment_id,
+                    name=req.name,
+                    namespace=job.namespace,
+                    node_id=node.id,
+                    node_name=node.name,
+                    job_id=job.id,
+                    job=job,
+                    job_version=job.version,
+                    task_group=tg.name,
+                    allocated_vec=vec,
+                    desired_status=enums.ALLOC_DESIRED_RUN,
+                    client_status=enums.ALLOC_CLIENT_PENDING,
+                    metrics=metrics,
+                    allocated_at=now,
+                ))
+            self.queued_allocs[tg.name] = (
+                self.queued_allocs.get(tg.name, 0) + len(reqs))
+
         def commit_block(tg, node_ids, node_names, counts, name_indices,
                          mean_score):
             """Columnar bulk commit: ONE AllocBlock rides the plan for K
@@ -270,6 +306,7 @@ class GenericScheduler:
                 prev.coalesced_failures += n
             self.queued_allocs.setdefault(tg.name, 0)
 
+        commit.commit_many = commit_many
         commit.commit_block = commit_block
         commit.fail_bulk = fail_bulk
         placer.place(ctx, job, requests, nodes, commit, batch=self.batch,

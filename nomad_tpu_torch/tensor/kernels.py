@@ -18,6 +18,14 @@ counts and the lowest explicit spread boost. ``score_nodes_packed`` is
 B8 alone (B10). Both take the packed f32 layout of ``pack_solve_args``;
 ``score_nodes_once`` packs the reference's arguments for B10.
 
+Bulk fallbacks (``:494-629``): ``solve_bulk`` (B11) places K identical
+requests of one task group as per-node counts, up to 256 a step, each
+step rescoring every node with B8 and filling in score order;
+``solve_bulk_fused`` is the same scan on device-resident capacity, mask
+and affinity with one (N, D+2) matrix per eval and the tie-break
+permutation drawn on the device (B11', ``prng.permutation``). Counts are
+int32: this is the route for groups above the service's int16 ``MAX_K``.
+
 Preemption (``:766-910``): ``preempt_solve`` (B7) picks the node of each
 of K requests after eviction and its victims, a priority-ascending
 prefix of the node's victim columns, in one launch; ``preempt_pick``
@@ -37,7 +45,7 @@ import torch
 
 from .. import _ext
 from ..device import resolve
-from .prng import jitter, jitter_ref
+from .prng import jitter, jitter_ref, permutation, permutation_ref
 from .scatter import scatter_add, scatter_add_ref
 
 NEG = -1.0e30  # "infeasible" score sentinel
@@ -626,6 +634,298 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
                   _ext.stream_handle(dev)), "solve_task_group launch")
     _ext.COUNTS.launched("solve_task_group")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the bulk fallbacks: B11 solve_bulk / solve_bulk_fused, B11' tie_perm
+# ---------------------------------------------------------------------------
+
+# placements one bulk-scan step assigns at most (the cap field of the
+# kernel's sort key is 16 bits)
+MAX_BULK_BATCH = 65535
+# the kernel's value tables share the block's 227 KB of shared memory with
+# the 128 KB of sort keys at N_pad 16,384
+_MAX_SMEM = 232448
+
+
+def _bulk_scan_ref(available, used0, ask, feasible, placed_tg0, placed_job0,
+                   affinity_boost, dev_affinity, spread_val_id, spread_val_ok,
+                   spread_counts0, spread_desired, spread_has_targets,
+                   spread_weight, k_total, tg_count, dh_job, dh_tg, spread_alg,
+                   tie_perm, *, batch: int, n_steps: int) -> torch.Tensor:
+    """B11 in plain torch, step for step the reference's ``_bulk_scan``
+    (kernels.py:494-594): every per-node array gathered into tie-permuted
+    space (``_permute_node_axis``), then up to ``n_steps`` steps that
+    score every node (:func:`score_nodes_ref`), cap each node's fill,
+    order the nodes by score descending (stable: ties by permuted
+    position) and fill the step's budget in that order, carrying usage,
+    placement counts and spread value counts; the counts map back through
+    ``tie_perm`` at the end. Stops early once a step places nothing (the
+    carry then stays put, so no later step could) or ``k_total`` is
+    placed. Scalars are Python values. Returns (N,) int32."""
+    n = available.shape[0]
+    s = spread_val_id.shape[0]
+    dev = available.device
+    f = available.dtype
+    perm = tie_perm.to(torch.int64)
+    available, used, ptg, pjob = (available[perm], used0[perm],
+                                  placed_tg0[perm], placed_job0[perm])
+    feasible, affinity_boost, dev_affinity = (
+        feasible[perm], affinity_boost[perm], dev_affinity[perm])
+    svid = spread_val_id[:, perm].to(torch.int64)
+    sok = spread_val_ok[:, perm]
+    c = available.new_tensor
+    flags = {name: torch.tensor(bool(v), device=dev) for name, v in (
+        ("dh_job", dh_job), ("dh_tg", dh_tg), ("spread_alg", spread_alg))}
+    single = bool(dh_job or dh_tg or spread_alg)
+    ask_pos = ask > 0
+    ask_safe = torch.where(ask_pos, ask, 1.0)
+    empty = dict(dp_val_id=torch.zeros((0, n), dtype=torch.int64, device=dev),
+                 dp_val_ok=torch.zeros((0, n), dtype=torch.bool, device=dev),
+                 dp_counts=torch.zeros((0, 1), dtype=torch.int32, device=dev),
+                 dp_limit=torch.zeros(0, dtype=f, device=dev))
+    rows = torch.arange(s, device=dev)[:, None].expand(s, n)
+    scnt = spread_counts0.clone()
+    taken = torch.zeros(n, dtype=torch.int32, device=dev)
+    remaining = int(k_total)
+    for _ in range(n_steps):
+        if remaining <= 0:
+            break
+        score, _, _ = score_nodes_ref(
+            available=available, used=used, ask=ask, feasible=feasible,
+            placed_tg=ptg, placed_job=pjob, affinity_boost=affinity_boost,
+            dev_affinity=dev_affinity,
+            penalty_idx=torch.tensor(-1, device=dev), spread_val_id=svid,
+            spread_val_ok=sok, spread_counts=scnt,
+            spread_desired=spread_desired,
+            spread_has_targets=spread_has_targets,
+            spread_weight=spread_weight, lowest_boost=c(-1.0),
+            tg_count=c(float(tg_count)), **flags, **empty)
+        budget = min(remaining, batch)
+        # a zero ask in every dimension is an infinite per-node capacity,
+        # clamped to the budget before the int cast
+        per_dim = torch.where(ask_pos[None, :],
+                              torch.floor((available - used)
+                                          / ask_safe[None, :]), math.inf)
+        cap = torch.clamp_min(per_dim.amin(dim=1), 0.0)
+        cap = torch.where(score > NEG, cap, 0.0)
+        if single:
+            cap = torch.clamp_max(cap, 1.0)
+        cap = torch.clamp_max(cap, float(budget)).to(torch.int32)
+        # XLA's sort comparator puts -0.0 with +0.0
+        key = -score
+        key = torch.where(key == 0.0, 0.0, key)
+        order = torch.argsort(key, stable=True)
+        cap_sorted = cap[order]
+        cum = torch.cumsum(cap_sorted, 0)
+        take_sorted = torch.minimum(
+            torch.clamp_min(budget - (cum - cap_sorted), 0), cap_sorted)
+        take = torch.zeros(n, dtype=torch.int32, device=dev)
+        take[order] = take_sorted.to(torch.int32)
+        used = used + ask[None, :] * take[:, None].to(f)
+        ptg = ptg + take
+        pjob = pjob + take
+        if s:
+            scnt = scnt.index_put((rows, svid),
+                                  torch.where(sok, take[None, :], 0),
+                                  accumulate=True)
+        placed = int(take.sum())
+        taken += take
+        remaining -= placed
+        if placed == 0:
+            break
+    out = torch.zeros(n, dtype=torch.int32, device=dev)
+    out[perm] = taken
+    return out
+
+
+def solve_bulk_ref(*args, batch: int, n_steps: int) -> torch.Tensor:
+    """Plain version of :func:`solve_bulk`."""
+    _ext.COUNTS.plain("bulk_scan", args[0])
+    return _bulk_scan_ref(*args, batch=batch, n_steps=n_steps)
+
+
+def solve_bulk_fused_ref(available, feasible, aff, dyn, ask, k_total,
+                         tg_count, seed, *, batch: int,
+                         n_steps: int) -> torch.Tensor:
+    """Plain version of :func:`solve_bulk_fused`: the permutation from
+    :func:`prng.permutation_ref`, ``dyn`` unpacked, no spread tables,
+    distinct_hosts or WorstFit (reference kernels.py:597-629)."""
+    _ext.COUNTS.plain("bulk_scan", available)
+    n, d = available.shape
+    dev = available.device
+    f = available.dtype
+    tie_perm = permutation_ref(seed, n, dev)
+    return _bulk_scan_ref(
+        available, dyn[:, :d].to(f), ask.to(f), feasible,
+        dyn[:, d].to(torch.int32), dyn[:, d + 1].to(torch.int32),
+        aff.to(f), torch.zeros(n, dtype=f, device=dev),
+        torch.zeros((0, n), dtype=torch.int32, device=dev),
+        torch.zeros((0, n), dtype=torch.bool, device=dev),
+        torch.zeros((0, 1), dtype=torch.int32, device=dev),
+        torch.zeros((0, 1), dtype=f, device=dev),
+        torch.zeros(0, dtype=torch.bool, device=dev),
+        torch.zeros(0, dtype=f, device=dev),
+        k_total, tg_count, False, False, False, tie_perm,
+        batch=batch, n_steps=n_steps)
+
+
+def _bulk_dims(what: str, available, batch: int, s: int = 0,
+               v: int = 1) -> tuple:
+    """Checks what the one-CTA scan takes -> (n, d)."""
+    n, d = available.shape
+    if n > MAX_FILL_NODES:
+        raise NotImplementedError(
+            f"{what}: {n} padded nodes; the one-CTA scan sorts at most "
+            f"{MAX_FILL_NODES} in shared memory (ROADMAP A11: multi-CTA "
+            f"selection)")
+    if not 2 <= d <= MAX_DIMS or s > MAX_SPREADS:
+        raise NotImplementedError(
+            f"{what}: {d} resource columns and {s} spreads; the kernel "
+            f"takes 2 to {MAX_DIMS} and at most {MAX_SPREADS}")
+    p2 = 1
+    while p2 < n:
+        p2 *= 2
+    if p2 * 8 + 8 * s * v + 20 * s > _MAX_SMEM:
+        raise NotImplementedError(
+            f"{what}: {s} spreads of {v} values do not fit in shared "
+            f"memory beside {p2} sort keys")
+    if not 1 <= batch <= MAX_BULK_BATCH:
+        raise ValueError(f"{what}: batch {batch} outside [1, "
+                         f"{MAX_BULK_BATCH}]")
+    return n, d
+
+
+def _launch_bulk_scan(available, dyn, feasible, aff, dev_affinity, tie_perm,
+                      spread_node, spread_tab, spread_meta, scalars, k_total,
+                      *, s: int, v: int, batch: int, n_steps: int):
+    n, d = available.shape
+    dev = available.device
+    scratch = torch.empty(n * (2 * d + 7 + 2 * s), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = _ext.entry("nt_bulk_scan")
+    _ext.check(fn(available.data_ptr(), dyn.data_ptr(), feasible.data_ptr(),
+                  aff.data_ptr(),
+                  None if dev_affinity is None else dev_affinity.data_ptr(),
+                  tie_perm.data_ptr(), spread_node.data_ptr(),
+                  spread_tab.data_ptr(), spread_meta.data_ptr(),
+                  scalars.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                  n, d, s, v, int(k_total), batch, n_steps,
+                  _ext.stream_handle(dev)), "bulk_scan launch")
+    _ext.COUNTS.launched("bulk_scan")
+    return out
+
+
+def _scalars(ask, tg_count, dh_job, dh_tg, spread_alg) -> torch.Tensor:
+    """The scan's (5 + D,) f32 scalars in pack_solve_args' layout:
+    lowest_boost (-1) | tg_count | dh_job | dh_tg | spread_alg | ask."""
+    head = torch.tensor([-1.0, float(tg_count), float(bool(dh_job)),
+                         float(bool(dh_tg)), float(bool(spread_alg))],
+                        dtype=torch.float32)
+    return torch.cat([head.to(ask.device), ask])
+
+
+def solve_bulk(available, used0, ask, feasible, placed_tg0, placed_job0,
+               affinity_boost, dev_affinity, spread_val_id, spread_val_ok,
+               spread_counts0, spread_desired, spread_has_targets,
+               spread_weight, k_total, tg_count, dh_job, dh_tg, spread_alg,
+               tie_perm, *, batch: int, n_steps: int) -> torch.Tensor:
+    """B11, the generic bulk scan (reference ``solve_bulk`` =
+    ``_bulk_scan``, kernels.py:494-594, same arguments): ``k_total``
+    identical placements of one task group as (N,) int32 per-node counts
+    in canonical order, at most ``batch`` a step over at most ``n_steps``
+    steps, ties broken by the permutation ``tie_perm``.
+
+    available, used0 (N, D) f32; ask (D,) f32; feasible (N,) bool;
+    placed_tg0, placed_job0 (N,) int32; affinity_boost, dev_affinity (N,)
+    f32; spread_val_id (S, N) int32; spread_val_ok (S, N) bool;
+    spread_counts0 (S, V) int32; spread_desired (S, V) f32 (NaN = no
+    target); spread_has_targets (S,) bool; spread_weight (S,) f32;
+    tie_perm (N,) int32; k_total, tg_count, dh_job, dh_tg, spread_alg
+    Python values. The CUDA kernel ``nt_bulk_scan`` (csrc/bulk_scan.cu,
+    N <= 16,384) for CUDA tensors, :func:`solve_bulk_ref` for CPU
+    tensors."""
+    args = (available, used0, ask, feasible, placed_tg0, placed_job0,
+            affinity_boost, dev_affinity, spread_val_id, spread_val_ok,
+            spread_counts0, spread_desired, spread_has_targets,
+            spread_weight, k_total, tg_count, dh_job, dh_tg, spread_alg,
+            tie_perm)
+    if available.device.type == "cpu":
+        return solve_bulk_ref(*args, batch=batch, n_steps=n_steps)
+    if not available.is_cuda:
+        raise ValueError(f"solve_bulk: unsupported device "
+                         f"{available.device}")
+    s, v = spread_counts0.shape
+    n, d = _bulk_dims("solve_bulk", available, batch, s, v)
+    dev = available.device
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    for name, t, dtype, shape in (
+            ("available", available, f32, (n, d)),
+            ("used0", used0, f32, (n, d)), ("ask", ask, f32, (d,)),
+            ("feasible", feasible, b8, (n,)),
+            ("placed_tg0", placed_tg0, i32, (n,)),
+            ("placed_job0", placed_job0, i32, (n,)),
+            ("affinity_boost", affinity_boost, f32, (n,)),
+            ("dev_affinity", dev_affinity, f32, (n,)),
+            ("spread_val_id", spread_val_id, i32, (s, n)),
+            ("spread_val_ok", spread_val_ok, b8, (s, n)),
+            ("spread_counts0", spread_counts0, i32, (s, v)),
+            ("spread_desired", spread_desired, f32, (s, v)),
+            ("spread_has_targets", spread_has_targets, b8, (s,)),
+            ("spread_weight", spread_weight, f32, (s,)),
+            ("tie_perm", tie_perm, i32, (n,))):
+        _check_cuda("solve_bulk", name, t, dtype, shape, dev)
+    # pack_solve_args' f32 layout; the counts are exact in f32 below 2^24
+    dyn = torch.cat([used0, placed_tg0.to(f32)[:, None],
+                     placed_job0.to(f32)[:, None]], dim=1)
+    spread_node = torch.cat([spread_val_id.to(f32), spread_val_ok.to(f32)])
+    spread_tab = torch.cat([spread_counts0.to(f32), spread_desired])
+    spread_meta = torch.stack([spread_has_targets.to(f32), spread_weight],
+                              dim=1)
+    return _launch_bulk_scan(
+        available, dyn, feasible, affinity_boost, dev_affinity, tie_perm,
+        spread_node, spread_tab, spread_meta,
+        _scalars(ask, tg_count, dh_job, dh_tg, spread_alg), k_total, s=s,
+        v=v, batch=batch, n_steps=n_steps)
+
+
+def solve_bulk_fused(available, feasible, aff, dyn, ask, k_total, tg_count,
+                     seed, *, batch: int, n_steps: int) -> torch.Tensor:
+    """B11 with B11': the transfer-minimal bulk scan (reference
+    ``solve_bulk_fused``, kernels.py:597-629). ``available`` (N, D) f32,
+    ``feasible`` (N,) bool and ``aff`` (N,) f32 stay resident on the
+    device across evals; each eval brings ``dyn`` (N, D+2) f32 = used |
+    placed_tg | placed_job, ``ask`` (D,) f32, and the Python values
+    ``k_total``, ``tg_count`` and ``seed`` (uint32), from which the
+    tie-break permutation is drawn on the device (:func:`prng.permutation`).
+    No spread tables, distinct_hosts or WorstFit (the placer's bulk
+    shape). Returns (N,) int32 per-node counts in canonical order: the
+    kernels ``nt_tie_perm`` and ``nt_bulk_scan`` (csrc/bulk_scan.cu, N <=
+    16,384) for CUDA tensors, :func:`solve_bulk_fused_ref` for CPU
+    tensors."""
+    if available.device.type == "cpu":
+        return solve_bulk_fused_ref(available, feasible, aff, dyn, ask,
+                                    k_total, tg_count, seed, batch=batch,
+                                    n_steps=n_steps)
+    if not available.is_cuda:
+        raise ValueError(f"solve_bulk_fused: unsupported device "
+                         f"{available.device}")
+    n, d = _bulk_dims("solve_bulk_fused", available, batch)
+    dev = available.device
+    f32 = torch.float32
+    for name, t, dtype, shape in (
+            ("available", available, f32, (n, d)),
+            ("feasible", feasible, torch.bool, (n,)),
+            ("aff", aff, f32, (n,)), ("dyn", dyn, f32, (n, d + 2)),
+            ("ask", ask, f32, (d,))):
+        _check_cuda("solve_bulk_fused", name, t, dtype, shape, dev)
+    tie_perm = permutation(seed, n, dev)
+    none = torch.empty(0, dtype=f32, device=dev)
+    return _launch_bulk_scan(
+        available, dyn, feasible, aff, None, tie_perm, none, none, none,
+        _scalars(ask, tg_count, False, False, False), k_total, s=0, v=1,
+        batch=batch, n_steps=n_steps)
 
 
 # ---------------------------------------------------------------------------

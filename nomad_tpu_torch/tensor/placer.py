@@ -1,32 +1,43 @@
 """TorchPlacer: the placement backend behind
 SchedulerAlgorithm="tpu-binpack" and "tpu-solve" (reference
 ``nomad_tpu/tensor/placer.py`` ``TPUPlacer``: ``place()`` :229-505,
-``_bulk_shape_ok`` and the service branch of ``_solve_bulk_counts``
-:538-635, ``_place_bulk_columnar`` :637-689, the preemption machinery
-:49-185 and :749-948, ``_bulk_trajectory_mean`` :950-975,
-``_host_algorithm`` / ``_host_one`` :1040-1056).
+``_bulk_eligible`` / ``_bulk_shape_ok`` / ``_solve_bulk_counts`` :517-635,
+``_place_bulk_columnar`` :637-689, ``_place_bulk`` :692-747, the
+preemption machinery :49-185 and :749-948, ``_bulk_trajectory_mean``
+:950-975, ``_host_algorithm`` / ``_host_one`` :1040-1056).
 
 Per eval: one ClusterTensors build and one tie-break permutation; then
-per task group, one of three routes:
+per task group, one of four routes:
 
-- bulk: a columnar request whose group has the bulk shape goes to the
-  solver service (under "tpu-solve" as a joint request, solved by the
-  batch auction with the rest of its launch); its per-node counts
-  become ONE AllocBlock;
+- bulk, columnar: a columnar request whose group has the bulk shape is
+  solved as per-node counts that become ONE AllocBlock;
+- bulk, per request: ``BULK_MIN`` or more fresh requests of the bulk
+  shape are solved the same way and committed per node through
+  ``commit.commit_many``;
 - host: at most ``HOST_CUTOVER`` requests go to the host oracle
   (``scheduler/rank.select_best_node``), one commit each;
 - per-eval kernel: everything else (spread, distinct_hosts,
-  distinct_property, groups of 17-255, expanded bulk requests) packs
+  distinct_property, smaller groups, expanded bulk requests) packs
   into one ``solve_task_group_fused`` launch (B9) placing all of the
   group's requests, then commits per request.
 
+A bulk solve (``_solve_bulk_counts``) takes one of three backends, as in
+the reference: the solver service (B1, under "tpu-solve" the joint
+auction) for at most ``BulkSolverService.MAX_K`` placements; above that
+``solve_bulk_fused`` (B11 with the permutation B11' drawn on the
+device) on the static's device-resident capacity, mask and affinity
+with one (N, D+2) matrix per eval; and without a shared mask the generic
+``solve_bulk`` (B11) with the eval's host permutation. The fused and
+generic solves read the eval's usage view (store plus in-flight
+overlay) and neither read nor feed the service's carry.
+
 With preemption enabled, the requests that found no room (the per-eval
-kernel's unfound rows, the bulk solve's remainder expanded) go to ONE
-preemption solve (B7, ``preempt_solve``) that picks each request's node
-and its victims; the host revalidates each row with ``allocs_fit`` and
-commits it with its evictions. Rows the kernel cannot settle (a flagged
-victim, a request with a node penalty, a revalidation miss) take the
-exact host scanner (``rank.NodeScorer`` -> ``preemption.py``). Below
+kernel's unfound rows, a bulk solve's remainder) go to ONE preemption
+solve (B7, ``preempt_solve``) that picks each request's node and its
+victims; the host revalidates each row with ``allocs_fit`` and commits
+it with its evictions. Rows the kernel cannot settle (a flagged victim,
+a request with a node penalty, a revalidation miss) take the exact host
+scanner (``rank.NodeScorer`` -> ``preemption.py``). Below
 ``PREEMPT_DEVICE_MIN`` (n_pad * k_pad) the solve runs as its numpy
 mirror, the reference's shape rule.
 
@@ -53,9 +64,9 @@ from ..structs.funcs import allocs_fit
 from .cluster import (ClusterTensors, _pad_pow2, build_task_group_tensors,
                       build_victim_tensors)
 from .kernels import (fit_scores_np, pack_solve_args, preempt_solve,
-                      solve_task_group_fused)
+                      solve_bulk, solve_bulk_fused, solve_task_group_fused)
 from .overlay import INFLIGHT
-from .solver import BulkSolverService, get_service
+from .solver import BulkSolverService, ensure_resident, get_service, upload
 
 # One per-eval solve at a time across racing evals: the usage gather ->
 # solve -> in-flight registration is one critical section, so each solve
@@ -177,6 +188,7 @@ class TorchPlacer:
     per task group, on ``device``."""
 
     BULK_MIN = 256     # below this the per-placement scan is fine
+    BULK_STEP = 256    # placements a bulk-scan step assigns at most
     HOST_CUTOVER = 16  # at or below this the host oracle places the group
     # the preemption solve runs as the kernel at or above this many
     # (n_pad * k_pad) cells and as its numpy mirror below (the
@@ -242,9 +254,11 @@ class TorchPlacer:
                    else build_task_group_tensors(ctx, job, tg, cluster,
                                                  algorithm=self.algorithm))
             if self._bulk_eligible(ctx, tg, reqs, tgt):
-                raise NotImplementedError(
-                    f"{len(reqs)} per-request placements of the bulk shape: "
-                    f"ROADMAP queue A6 (bulk fallbacks, B11)")
+                self._place_bulk(ctx, job, tg, reqs, cluster, tgt, commit,
+                                 tie_perm, seed, batch=batch,
+                                 preemption_enabled=preemption_enabled,
+                                 attempt=attempt)
+                continue
             self._place_per_eval(ctx, job, tg, reqs, cluster, tgt, commit,
                                  tie_perm, batch=batch,
                                  preemption_enabled=preemption_enabled,
@@ -348,7 +362,7 @@ class TorchPlacer:
 
     def _bulk_eligible(self, ctx, tg, reqs, tgt) -> bool:
         """K large, every request fresh and the group of the bulk shape:
-        the count-based solve (B11) would place them."""
+        the count-based bulk solve places them (``_place_bulk``)."""
         if len(reqs) < self.BULK_MIN or not self._bulk_shape_ok(ctx, tg, tgt):
             return False
         return all(req.previous_alloc is None and not req.ignore_node
@@ -367,29 +381,60 @@ class TorchPlacer:
         return not (ask_res.reserved_port_asks()
                     or ask_res.dynamic_port_count())
 
-    def _solve_bulk_counts(self, ctx, cluster, tgt, k: int,
-                           seed) -> np.ndarray:
-        """(N_pad,) int64 per-node counts from the solver service."""
+    def _solve_bulk_counts(self, ctx, cluster, tgt, k: int, seed,
+                           tie_perm) -> np.ndarray:
+        """(N_pad,) int64 per-node counts of ``k`` fresh placements from
+        whichever backend fits: the solver service (its device-resident
+        carry) for k <= ``MAX_K``, else the fused scan on resident
+        arrays, and without a shared mask the generic scan with
+        ``tie_perm`` (reference placer.py:558-635)."""
         static = cluster.static
-        if static is None or tgt.feas_base is None:
-            raise NotImplementedError(
-                "bulk solve without a cached ClusterStatic: ROADMAP queue "
-                "A6 (bulk fallbacks, B11)")
-        if k > BulkSolverService.MAX_K:
-            raise NotImplementedError(
-                f"k={k} > {BulkSolverService.MAX_K} placements in one "
-                f"solve: ROADMAP queue A6 (bulk fallbacks, B11)")
-        service = get_service(self.device)
-        counts, token = service.solve(
-            static=static, feas_base=tgt.feas_base, aff=tgt.affinity_boost,
-            ask=tgt.ask, k=k, tg_count=tgt.tg_count, seed=seed,
-            used_fn=cluster.latest_usage,
-            joint=(self.algorithm == enums.SCHED_ALG_TPU_SOLVE))
-        if ctx.plan is not None:
-            ctx.plan.post_apply_hooks.append(
-                lambda result, _t=token: service.confirm(
-                    _t, getattr(result, "rejected_nodes", None) or ()))
-        return counts
+        if (static is not None and tgt.feas_base is not None
+                and k <= BulkSolverService.MAX_K):
+            service = get_service(self.device)
+            counts, token = service.solve(
+                static=static, feas_base=tgt.feas_base,
+                aff=tgt.affinity_boost, ask=tgt.ask, k=k,
+                tg_count=tgt.tg_count, seed=seed,
+                used_fn=cluster.latest_usage,
+                joint=(self.algorithm == enums.SCHED_ALG_TPU_SOLVE))
+            if ctx.plan is not None:
+                ctx.plan.post_apply_hooks.append(
+                    lambda result, _t=token: service.confirm(
+                        _t, getattr(result, "rejected_nodes", None) or ()))
+            return counts
+        f32, i32 = np.float32, np.int32
+        dev = self.device
+        k_pad = _pad_pow2(k, floor=self.BULK_STEP)
+        n_steps = k_pad // self.BULK_STEP
+        if static is not None and tgt.feas_base is not None:
+            # capacity, mask and affinity stay on the device; the eval
+            # ships one (N, D+2) matrix, its ask and three scalars, and
+            # the permutation is drawn on the device from the seed
+            avail, feas, aff = ensure_resident(
+                static, tgt.feas_base, tgt.affinity_boost, dev)
+            dyn = np.concatenate(
+                [cluster.used, tgt.placed_tg[:, None],
+                 tgt.placed_job[:, None]], axis=1).astype(f32)
+            out = solve_bulk_fused(
+                avail, feas, aff, upload(dyn, dev),
+                upload(np.asarray(tgt.ask, dtype=f32), dev), k,
+                tgt.tg_count, seed, batch=self.BULK_STEP, n_steps=n_steps)
+            return out.cpu().numpy().astype(np.int64)
+        n = cluster.n_pad
+        host = ((cluster.available, f32), (cluster.used, f32),
+                (tgt.ask, f32), (tgt.feasible, bool), (tgt.placed_tg, i32),
+                (tgt.placed_job, i32), (tgt.affinity_boost, f32),
+                (np.zeros(n), f32), (tgt.spread_val_id, i32),
+                (tgt.spread_val_ok, bool), (tgt.spread_counts, i32),
+                (tgt.spread_desired, f32), (tgt.spread_has_targets, bool),
+                (tgt.spread_weight, f32))
+        args = [upload(np.asarray(a, dtype=t), dev) for a, t in host]
+        out = solve_bulk(*args, k, tgt.tg_count, tgt.dh_job, tgt.dh_tg,
+                         tgt.spread_alg,
+                         upload(np.asarray(tie_perm, dtype=i32), dev),
+                         batch=self.BULK_STEP, n_steps=n_steps)
+        return out.cpu().numpy().astype(np.int64)
 
     def _place_bulk_columnar(self, ctx, job, tg, bulk, cluster, tgt, commit,
                              seed, *, batch: bool, preemption_enabled: bool,
@@ -398,7 +443,12 @@ class TorchPlacer:
         is O(touched nodes), not O(K). With preemption enabled the
         remainder is expanded for one preemption solve."""
         k = bulk.count
-        counts = self._solve_bulk_counts(ctx, cluster, tgt, k, seed)
+        tie_perm = None  # only the generic scan reads it
+        if cluster.static is None or tgt.feas_base is None:
+            tie_perm = np.random.default_rng(seed).permutation(
+                cluster.n_pad).astype(np.int32)
+        counts = self._solve_bulk_counts(ctx, cluster, tgt, k, seed,
+                                         tie_perm)
         mean_score = self._bulk_trajectory_mean(counts, cluster, tgt)
 
         metrics = ctx.new_metrics()
@@ -430,6 +480,46 @@ class TorchPlacer:
             return
         self._attribute_failure(metrics, len(nodes), n_feasible)
         commit.fail_bulk(tg, n_unplaced)
+
+    def _place_bulk(self, ctx, job, tg, reqs, cluster, tgt, commit, tie_perm,
+                    seed, *, batch: bool, preemption_enabled: bool,
+                    attempt: int) -> None:
+        """K fresh requests of the bulk shape as per-node counts from one
+        bulk solve, committed per node through ``commit.commit_many``; the
+        requests left over go to one preemption solve or fail (reference
+        placer.py:692-747)."""
+        k = len(reqs)
+        counts = self._solve_bulk_counts(ctx, cluster, tgt, k, seed,
+                                         tie_perm)
+        mean_score = self._bulk_trajectory_mean(counts, cluster, tgt)
+
+        # one metrics object for the whole group
+        metrics = ctx.new_metrics()
+        metrics.nodes_in_pool = len(cluster.nodes)
+        metrics.nodes_evaluated = len(cluster.nodes)
+        metrics.scores["bulk.normalized-score"] = mean_score
+
+        pos = 0
+        for ni in np.nonzero(counts)[0]:
+            c = int(counts[ni])
+            commit.commit_many(tg, cluster.nodes[ni], reqs[pos:pos + c],
+                               mean_score)
+            pos += c
+        unplaced = reqs[pos:]
+        if not unplaced:
+            return
+        n_feasible = int(tgt.feasible[: len(cluster.nodes)].sum())
+        if preemption_enabled:
+            self._preempt_batch(ctx, job, tg, unplaced, cluster, tgt, commit,
+                                batch=batch, attempt=attempt,
+                                n_feasible=n_feasible)
+            return
+        for req in unplaced:
+            metrics = ctx.new_metrics()
+            metrics.nodes_in_pool = len(cluster.nodes)
+            metrics.nodes_evaluated = len(cluster.nodes)
+            self._attribute_failure(metrics, len(cluster.nodes), n_feasible)
+            commit(req, None)
 
     # -- batched preemption: kernel node and victim choice, host commit --
 

@@ -1,22 +1,30 @@
-"""threefry2x32 in torch, bit-exact with ``jax.random`` at the two call
+"""threefry2x32 in torch, bit-exact with ``jax.random`` at the three call
 sites the port runs: the bulk path's
 ``jax.random.uniform(jax.random.PRNGKey(seed), (n,), float32, 0.0, hi)``
-(reference ``nomad_tpu/tensor/kernels.py:720-723``) and the joint
+(reference ``nomad_tpu/tensor/kernels.py:720-723``), the joint
 solve's restarts, which draw from ``fold_in(PRNGKey(seed), t)``
-(``nomad_tpu/tensor/batch_solver.py:319-323``).
+(``nomad_tpu/tensor/batch_solver.py:319-323``), and the fused bulk
+scan's tie-break permutation ``jax.random.permutation(PRNGKey(seed), n)``
+(``nomad_tpu/tensor/kernels.py:618-619``).
 
 JAX's default threefry mode is partitionable: element ``i`` of a 1-D draw
 hashes the 64-bit counter ``(hi=0, lo=i)`` under the key ``(seed >> 32,
 seed & 0xFFFFFFFF)`` and keeps ``out0 ^ out1``. ``fold_in(key, t)`` is
 the key pair ``(out0, out1)`` of one threefry of the counter ``(0, t)``
-under ``key``. The bits become a float as
+under ``key``; ``split(key)`` is the two key pairs of the counters
+``(0, 0)`` and ``(0, 1)``. The bits become a float as
 ``bitcast((bits >> 9) | 0x3F800000) - 1``, scaled by ``hi - lo``, shifted
-by ``lo`` and floored at ``lo``.
+by ``lo`` and floored at ``lo``. ``permutation`` is ``_shuffle``: 1
+round for n <= 1,625, 2 up to ~2.6M, each a split, a 32-bit draw for
+every position from the subkey, and a STABLE sort of the positions by
+those bits (in round 2 equal bits keep the round-1 order).
 
 torch's uint32 support is thin, so the 32-bit words ride in int64 and
 every add and shift is masked back to 32 bits. The jitter kernels
-(``csrc/jitter.cu``) compute the same functions on the card and are held
-bit-for-bit against :func:`jitter_ref` and :func:`jitter_fold_ref`.
+(``csrc/jitter.cu``) and the permutation kernel (``csrc/bulk_scan.cu``
+``nt_tie_perm``) compute the same functions on the card and are held
+bit-for-bit against :func:`jitter_ref`, :func:`jitter_fold_ref` and
+:func:`permutation_ref`.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .. import _ext
@@ -32,6 +41,8 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 MAX_FOLDS = 8        # restarts one keyed jitter launch draws (jitter.cu)
+# longest permutation the one-CTA kernel sorts in shared memory (bulk_scan.cu)
+MAX_PERM = 16384
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -70,6 +81,17 @@ def fold_in(seeds: torch.Tensor, t: int) -> torch.Tensor:
     o0, o1 = threefry2x32(keys[:, 0], keys[:, 1], zero,
                           torch.full_like(zero, int(t) & MASK32))
     return torch.stack([o0, o1], dim=1)
+
+
+def split_ref(keys: torch.Tensor):
+    """(G, 2) key pairs -> (key, subkey), each (G, 2):
+    ``jax.random.split(key)`` in partitionable mode, the output words of
+    threefry of the counters ``(0, 0)`` and ``(0, 1)`` under the key."""
+    k = keys.to(torch.int64)
+    zero = torch.zeros_like(k[:, 0])
+    a0, a1 = threefry2x32(k[:, 0], k[:, 1], zero, zero)
+    b0, b1 = threefry2x32(k[:, 0], k[:, 1], zero, torch.ones_like(zero))
+    return torch.stack([a0, a1], dim=1), torch.stack([b0, b1], dim=1)
 
 
 def random_bits_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -118,6 +140,54 @@ def jitter_fold_ref(seeds: torch.Tensor, n: int,
     _ext.COUNTS.plain("jitter_fold", seeds)
     return torch.stack([jitter_keys_ref(fold_in(seeds, t), n, hi)
                         for t, hi in enumerate(his)])
+
+
+def permutation_rounds(n: int) -> int:
+    """``jax.random._shuffle``'s number of sort rounds for n elements:
+    ceil(3 ln n / ln(2**32 - 1)), in float64 as JAX computes it."""
+    return int(np.ceil(3 * np.log(max(1, n))
+                       / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation_ref(seed: int, n: int, device=None) -> torch.Tensor:
+    """Plain version of the permutation kernel: (n,) int32
+    ``jax.random.permutation(jax.random.PRNGKey(seed), n)`` for a seed in
+    [0, 2**32), on ``device`` (default the CPU)."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    key = seed_keys(torch.tensor([int(seed)], dtype=torch.int64,
+                                 device=dev))
+    x = torch.arange(n, device=dev)
+    for _ in range(permutation_rounds(n)):
+        key, sub = split_ref(key)
+        bits = random_bits_keys(sub, n)[0]
+        x = x[torch.sort(bits, stable=True).indices]
+    out = x.to(torch.int32)
+    _ext.COUNTS.plain("tie_perm", out)
+    return out
+
+
+def permutation(seed: int, n: int, device) -> torch.Tensor:
+    """(n,) int32 ``jax.random.permutation(PRNGKey(seed), n)`` for a seed
+    in [0, 2**32): the CUDA kernel (csrc/bulk_scan.cu ``nt_tie_perm``, one
+    CTA, n <= 16,384) on a CUDA device, :func:`permutation_ref` on the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return permutation_ref(seed, n, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"permutation: unsupported device {dev}")
+    if not 0 <= int(seed) < 2 ** 32:
+        raise ValueError(f"permutation: seed {seed} outside [0, 2**32)")
+    if not 1 <= n <= MAX_PERM:
+        raise NotImplementedError(
+            f"permutation: n={n}; the one-CTA kernel sorts 1 to {MAX_PERM} "
+            f"keys in shared memory (ROADMAP A11: multi-CTA selection)")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = _ext.entry("nt_tie_perm")
+    _ext.check(fn(int(seed), n, permutation_rounds(n), out.data_ptr(),
+                  _ext.stream_handle(dev)), "tie_perm launch")
+    _ext.COUNTS.launched("tie_perm")
+    return out
 
 
 def _seeds_u32(seeds: torch.Tensor, what: str) -> torch.Tensor:

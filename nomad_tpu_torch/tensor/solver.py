@@ -53,6 +53,53 @@ from .kernels import solve_bulk_multi
 _STOP = object()
 
 
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> a fresh tensor on ``device``. On CUDA the copy is
+    staged through pinned memory and queued on the current stream without
+    a host sync."""
+    t = torch.from_numpy(np.array(arr))  # a private, writable copy
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def ensure_resident(static, feas_base, aff, device: torch.device):
+    """Device copies of (capacity, mask, affinity) for one static,
+    uploaded once and cached in ``static.device_arrays``, masks and boosts
+    keyed by host-array identity (the static's caches hold the strong
+    refs, so ids are not recycled); reference solver.py:170-205. The ONE
+    place the cache-key protocol lives: the service's launches and the
+    placer's fused bulk solve both read through it.
+
+    On CUDA an upload is queued on the uploading thread's current stream
+    and records an event; every caller's current stream waits on the
+    events of the copies it gets (and the copies record that stream for
+    the allocator), so the service's stream and a worker's stream share
+    the copies without a host sync and without reading one in flight."""
+    da = static.device_arrays
+    tag = str(device)
+    out = []
+    for key, host in ((("avail", tag), lambda: static.available.astype(
+                           np.float32)),
+                      (("m", tag, id(feas_base)), lambda: feas_base),
+                      (("a", tag, id(aff)), lambda: aff.astype(np.float32))):
+        hit = da.get(key)
+        if hit is None:
+            t = upload(host(), device)
+            ready = None
+            if device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(device))
+            hit = da[key] = (t, ready)
+        t, ready = hit
+        if ready is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(ready)
+            t.record_stream(stream)
+        out.append(t)
+    return tuple(out)
+
+
 class BatchContext:
     """Rendezvous for one worker batch under "tpu-solve": a member is
     settled once it submitted its first joint solve (it is in the queue)
@@ -368,42 +415,13 @@ class BulkSolverService:
             self._stream = torch.cuda.Stream(device=self.device)
         return torch.cuda.stream(self._stream)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> a fresh tensor on the service's device. On CUDA
-        the copy is staged through pinned memory and queued without a
-        host sync on the current (service) stream."""
-        t = torch.from_numpy(np.array(arr))  # a private, writable copy
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def _resync_base(self, r: _Request, ledger_entries) -> torch.Tensor:
         """Fresh carry: committed usage + open ledger entries, folded on
         the host and uploaded once."""
         base = np.asarray(r.used_fn(), dtype=np.float32).copy()
         for idx, counts, ask in ledger_entries:
             base[idx] += counts[:, None].astype(np.float32) * ask[None, :]
-        return self._upload(base)
-
-    def _resident(self, static, feas_base, aff):
-        """Device copies of (capacity, mask, affinity) for one static,
-        uploaded once and cached in static.device_arrays, masks and
-        boosts keyed by host-array identity (the static's caches hold
-        the strong refs, so ids are not recycled)."""
-        da = static.device_arrays
-        tag = str(self.device)
-        avail = da.get(("avail", tag))
-        if avail is None:
-            avail = da[("avail", tag)] = self._upload(
-                static.available.astype(np.float32))
-        m = da.get(("m", tag, id(feas_base)))
-        if m is None:
-            m = da[("m", tag, id(feas_base))] = self._upload(feas_base)
-        a = da.get(("a", tag, id(aff)))
-        if a is None:
-            a = da[("a", tag, id(aff))] = self._upload(
-                aff.astype(np.float32))
-        return avail, m, a
+        return upload(base, self.device)
 
     def _device_arrays(self, static, rs: List[_Request]):
         """Resident capacity + stacked (G_pad, N) mask/affinity rows; the
@@ -412,7 +430,8 @@ class BulkSolverService:
         rows_m, rows_a = [], []
         avail = None
         for r in rs:
-            avail, m, a = self._resident(static, r.feas_base, r.aff)
+            avail, m, a = ensure_resident(static, r.feas_base, r.aff,
+                                           self.device)
             rows_m.append((id(r.feas_base), m))
             rows_a.append((id(r.aff), a))
         # joint launches always take the full padded width (k=0 rows
@@ -498,10 +517,10 @@ class BulkSolverService:
                 tgc[i] = r.tg_count
                 seeds[i] = r.seed
             solve = solve_batch if rs[0].joint else solve_bulk_multi
-            out = solve(used_dev, avail, feas, aff, self._upload(ask),
-                        self._upload(k), self._upload(tgc),
-                        self._upload(seeds), self._upload(cidx),
-                        self._upload(cdelta), g=g_pad)
+            out = solve(used_dev, avail, feas, aff,
+                        *(upload(a, self.device)
+                          for a in (ask, k, tgc, seeds, cidx, cdelta)),
+                        g=g_pad)
             used_dev, counts = out[0], out[1]
             if rs[0].joint:
                 counts = torch.cat([counts.reshape(-1),

@@ -702,7 +702,7 @@ def test_preempt_scenario_equals_reference(route, monkeypatch, pinned_ids,
     8 requests ("host") the host oracle places each one through the
     scanner's preemption arm. (The reference's own test sets
     ``BULK_MIN = 16``, which routes the groups of 32 through
-    ``_place_bulk``, B11, not ported: ROADMAP A6.)"""
+    ``_place_bulk``: tests/test_torch_bulk_scan.py runs that shape.)"""
     hi_count = 8 if route == "host" else 32
     if route == "kernel":
         monkeypatch.setattr(ref_placer.TPUPlacer, "PREEMPT_DEVICE_MIN", 0)
