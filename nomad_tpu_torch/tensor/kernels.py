@@ -45,7 +45,8 @@ import torch
 
 from .. import _ext
 from ..device import resolve
-from .prng import jitter, jitter_ref, permutation, permutation_ref
+from .prng import (MAX_FILL_NODES, jitter, jitter_ref, permutation,
+                   permutation_ref)
 from .scatter import scatter_add, scatter_add_ref
 
 NEG = -1.0e30  # "infeasible" score sentinel
@@ -53,8 +54,6 @@ NEG = -1.0e30  # "infeasible" score sentinel
 # score gap, far above the f32 ulp at the top of the score range
 TIE_JITTER = 3.0e-5
 BINPACK_MAX_FIT_SCORE = 18.0  # reference scheduler/rank.go:18
-# largest padded node count the one-CTA fill kernel sorts in shared memory
-MAX_FILL_NODES = 16384
 
 
 def _free_fractions(available: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
@@ -640,14 +639,6 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
 # the bulk fallbacks: B11 solve_bulk / solve_bulk_fused, B11' tie_perm
 # ---------------------------------------------------------------------------
 
-# placements one bulk-scan step assigns at most (the cap field of the
-# kernel's sort key is 16 bits)
-MAX_BULK_BATCH = 65535
-# the kernel's value tables share the block's 227 KB of shared memory with
-# the 128 KB of sort keys at N_pad 16,384
-_MAX_SMEM = 232448
-
-
 def _bulk_scan_ref(available, used0, ask, feasible, placed_tg0, placed_job0,
                    affinity_boost, dev_affinity, spread_val_id, spread_val_ok,
                    spread_counts0, spread_desired, spread_has_targets,
@@ -770,29 +761,16 @@ def solve_bulk_fused_ref(available, feasible, aff, dyn, ask, k_total,
         batch=batch, n_steps=n_steps)
 
 
-def _bulk_dims(what: str, available, batch: int, s: int = 0,
-               v: int = 1) -> tuple:
-    """Checks what the one-CTA scan takes -> (n, d)."""
+def _bulk_dims(what: str, available) -> tuple:
+    """(n, d) of a bulk scan's node matrix; a node count above what the
+    one-CTA kernels sort raises here. The kernel's entry refuses the
+    other shapes it cannot take (columns, spreads, shared memory, batch)."""
     n, d = available.shape
     if n > MAX_FILL_NODES:
         raise NotImplementedError(
             f"{what}: {n} padded nodes; the one-CTA scan sorts at most "
             f"{MAX_FILL_NODES} in shared memory (ROADMAP A11: multi-CTA "
             f"selection)")
-    if not 2 <= d <= MAX_DIMS or s > MAX_SPREADS:
-        raise NotImplementedError(
-            f"{what}: {d} resource columns and {s} spreads; the kernel "
-            f"takes 2 to {MAX_DIMS} and at most {MAX_SPREADS}")
-    p2 = 1
-    while p2 < n:
-        p2 *= 2
-    if p2 * 8 + 8 * s * v + 20 * s > _MAX_SMEM:
-        raise NotImplementedError(
-            f"{what}: {s} spreads of {v} values do not fit in shared "
-            f"memory beside {p2} sort keys")
-    if not 1 <= batch <= MAX_BULK_BATCH:
-        raise ValueError(f"{what}: batch {batch} outside [1, "
-                         f"{MAX_BULK_BATCH}]")
     return n, d
 
 
@@ -857,7 +835,7 @@ def solve_bulk(available, used0, ask, feasible, placed_tg0, placed_job0,
         raise ValueError(f"solve_bulk: unsupported device "
                          f"{available.device}")
     s, v = spread_counts0.shape
-    n, d = _bulk_dims("solve_bulk", available, batch, s, v)
+    n, d = _bulk_dims("solve_bulk", available)
     dev = available.device
     f32, b8, i32 = torch.float32, torch.bool, torch.int32
     for name, t, dtype, shape in (
@@ -911,7 +889,7 @@ def solve_bulk_fused(available, feasible, aff, dyn, ask, k_total, tg_count,
     if not available.is_cuda:
         raise ValueError(f"solve_bulk_fused: unsupported device "
                          f"{available.device}")
-    n, d = _bulk_dims("solve_bulk_fused", available, batch)
+    n, d = _bulk_dims("solve_bulk_fused", available)
     dev = available.device
     f32 = torch.float32
     for name, t, dtype, shape in (

@@ -41,8 +41,9 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 MAX_FOLDS = 8        # restarts one keyed jitter launch draws (jitter.cu)
-# longest permutation the one-CTA kernel sorts in shared memory (bulk_scan.cu)
-MAX_PERM = 16384
+# largest node count the one-CTA kernels (the fill, the bulk scan and its
+# tie permutation) sort in shared memory
+MAX_FILL_NODES = 16384
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -178,10 +179,11 @@ def permutation(seed: int, n: int, device) -> torch.Tensor:
         raise ValueError(f"permutation: unsupported device {dev}")
     if not 0 <= int(seed) < 2 ** 32:
         raise ValueError(f"permutation: seed {seed} outside [0, 2**32)")
-    if not 1 <= n <= MAX_PERM:
+    if not 1 <= n <= MAX_FILL_NODES:
         raise NotImplementedError(
-            f"permutation: n={n}; the one-CTA kernel sorts 1 to {MAX_PERM} "
-            f"keys in shared memory (ROADMAP A11: multi-CTA selection)")
+            f"permutation: n={n}; the one-CTA kernel sorts 1 to "
+            f"{MAX_FILL_NODES} keys in shared memory (ROADMAP A11: "
+            f"multi-CTA selection)")
     out = torch.empty(n, dtype=torch.int32, device=dev)
     fn = _ext.entry("nt_tie_perm")
     _ext.check(fn(int(seed), n, permutation_rounds(n), out.data_ptr(),
