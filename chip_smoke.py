@@ -114,6 +114,40 @@ Phases (any failure raises and exits non-zero):
               "tpu-solve", the spread / distinct_hosts / distinct_property /
               host-oracle workload, and cfg4, on the card and on the CPU
               plain versions: the same placements (and victims).
+21. shards -- the node-sharded kernels on one process's mesh (shards on the
+              card's devices in turn; with one card every shard on cuda:0,
+              each with its own parts and launches): every shard's B3 / B3'
+              jitter slice bitwise equal to the full draw; B15
+              (nt_scatter_shard) exact against its plain version and B4 at
+              S 2, 4, 8; B13 (the sharded greedy
+              fill) at bench.py cfg7_sharded_5k's shape (10,240 nodes, G 16,
+              k 512) and at the C2M width with the B1 hazards (N_pad 16,384,
+              k 4,000) at S 2, 4, 8, and a top_r 8 many-round variant:
+              counts, carry and rounds exact against the plain version,
+              counts and carry against single-device B1; B14 (the sharded
+              joint solve) on the six B5/B6 variants at S 2, 4, 8: used,
+              counts, info and gathers exact against the plain version,
+              counts, used and info[2:] against single-device solve_batch,
+              scores within 1e-6.
+22. shard path -- the C2M path (10,240 nodes, 64 x 4,000, 16 threads)
+              through a service with a 4-shard mesh: the path gates,
+              sharded == launches, all-gathers == the launches' rounds,
+              B15/B13 launched, no plain version on CUDA; each launch's
+              inputs copied as it is dispatched.
+23. shard solve -- the tpu-solve c2m_mini path (2,560 nodes, 50 x 800,
+              batches of 8) through a 4-shard mesh service: the same gates,
+              joint score >= greedy score, the B14 kernels launched.
+    runs   -- both paths' launches replayed: exact against the plain sharded
+              versions and the single-device kernels; B13, B14 and B15 timed
+              beside B1, solve_batch and index_add_ at the same inputs. The
+              kernel records of B13, B14 and B15 are these means.
+24. parity -- a pinned one-thread workload at 10,240 nodes (8 x 4,000
+              tpu-binpack, 8 x 800 tpu-solve) on a service with no mesh and
+              with 2, 4 and 8 shards: the same fingerprint at every S.
+
+cfg4's two evals print the time the interpreter's garbage collector
+took inside them (gc.callbacks): their walls are host-bound, and a full
+collection can land in either.
 
 Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound, and the
@@ -122,6 +156,8 @@ card's name and power limit; the last line is the device summary.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -185,6 +221,38 @@ def cuda_time_ms(torch, fn, setup=None, reps=15, warmup=2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+class GcClock:
+    """Wall time the interpreter's garbage collector takes while the
+    clock is open, by generation (``gc.callbacks``): host-bound walls
+    move with where a full collection lands."""
+
+    def __init__(self):
+        self.ms = [0.0, 0.0, 0.0]
+        self.n = [0, 0, 0]
+        self._t0 = None
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            g = info["generation"]
+            self.ms[g] += (time.perf_counter() - self._t0) * 1e3
+            self.n[g] += 1
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._tick)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._tick)
+        return False
+
+    def __str__(self) -> str:
+        return (f"gc {sum(self.ms):.1f} ms in {sum(self.n)} collections "
+                f"(full: {self.n[2]}, {self.ms[2]:.1f} ms)")
 
 
 def bound(bytes_moved: float, ops: float):
@@ -462,15 +530,14 @@ def solve_inputs(torch, dev, rng, variant: str):
     return t
 
 
-def auction_bound(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
-                  rounds=64, evict=None, net_prio=None):
-    """Least time of one B5 launch on these inputs: the inputs read once
-    and the outputs written once; and the operations of the rounds each
-    restart ran, counted from the plain version's trace of this run: per
-    (eval with demand, node) ~6 for the mask and fit test, per fitting
-    pair ~60 more (fitness with two powf counted 20 each, score, jitter,
-    price, the top-R test), per round ~30 per surfaced entry (winner,
-    cap, fill, price). Returns ((ms, by), rounds per restart)."""
+def auction_ops(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
+                rounds=64, evict=None, net_prio=None):
+    """The operations of the rounds each B5 restart ran on these inputs,
+    counted from the plain version's trace of this run: per (eval with
+    demand, node) ~6 for the mask and fit test, per fitting pair ~60 more
+    (fitness with two powf counted 20 each, score, jitter, price, the
+    top-R test), per round ~30 per surfaced entry (winner, cap, fill,
+    price). Returns (operations, rounds per restart)."""
     from nomad_tpu_torch.tensor.batch_solver import (TOP_R, auction_ref,
                                                      preempt_score_ref)
 
@@ -486,6 +553,17 @@ def auction_bound(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
         run.append(len(trace))
         ops += sum(live * n * 6 + fit * 60 + g * TOP_R * 30
                    for live, fit in trace)
+    return ops, run
+
+
+def auction_bound(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
+                  rounds=64, evict=None, net_prio=None):
+    """Least time of one B5 launch on these inputs: the inputs read once
+    and the outputs written once; and :func:`auction_ops`. Returns
+    ((ms, by), rounds per restart)."""
+    n, g = avail.shape[0], feas.shape[0]
+    ops, run = auction_ops(torch, used0, avail, feas, aff, ask, k, jits,
+                           price_eps, rounds, evict, net_prio)
     n_t = len(price_eps)
     n_bytes = (n * 16 * 2 + g * n * 5 + g * 24 + n_t * g * n * 4
                + n_t * (n * 16 + g * n * 4 + 4))
@@ -616,26 +694,8 @@ def phase_path(torch, card, device="cuda"):
     stats = {k: svc.stats[k] - base[k] for k in base}
     svc.stop()
 
-    snap = h.store.snapshot()
-    total = sum(len(snap.allocs_by_job(j.id)) for j in jobs)
-    ids = [a.id for a in snap.allocs()]
-    if total != JOBS * K or len(ids) != JOBS * K or len(set(ids)) != len(ids):
-        raise AssertionError(f"placed {total} / {len(ids)} allocs "
-                             f"({len(set(ids))} unique ids), want {JOBS * K}")
-    nodes = list(snap.nodes())
-    row = {n.id: i for i, n in enumerate(nodes)}
-    cap = np.stack([n.available_vec() for n in nodes])
-    usage = np.zeros_like(cap)
-    for block in snap.alloc_blocks():
-        for m, nid in enumerate(block.node_ids):
-            usage[row[nid]] += block.allocated_vec * float(block.counts[m])
-    over = int((usage > cap).any(axis=1).sum())
-    if over:
-        raise AssertionError(f"{over} nodes over capacity")
-    bad = [e for e in h.evals if e.status != enums.EVAL_STATUS_COMPLETE
-           or e.failed_tg_allocs]
-    if bad:
-        raise AssertionError(f"{len(bad)} evals not cleanly complete")
+    total = JOBS * K
+    path_gates(h, jobs, total, "C2M path")
     for name in ("jitter", "scatter_add", "bulk_fill"):
         if counts["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
@@ -713,27 +773,8 @@ def phase_solve_path(torch, card, device="cuda"):
     stats = {k: svc.stats[k] - base[k] for k in base}
     svc.stop()
 
-    snap = h.store.snapshot()
-    want = MINI_JOBS * SOLVE_K
-    total = sum(len(snap.allocs_by_job(j.id)) for j in jobs)
-    ids = [a.id for a in snap.allocs()]
-    if total != want or len(ids) != want or len(set(ids)) != want:
-        raise AssertionError(f"placed {total} / {len(ids)} allocs "
-                             f"({len(set(ids))} unique ids), want {want}")
-    nodes = list(snap.nodes())
-    row = {n.id: i for i, n in enumerate(nodes)}
-    cap = np.stack([n.available_vec() for n in nodes])
-    usage = np.zeros_like(cap)
-    for block in snap.alloc_blocks():
-        for m, nid in enumerate(block.node_ids):
-            usage[row[nid]] += block.allocated_vec * float(block.counts[m])
-    over = int((usage > cap).any(axis=1).sum())
-    if over:
-        raise AssertionError(f"{over} nodes over capacity")
-    bad = [e for e in h.evals if e.status != enums.EVAL_STATUS_COMPLETE
-           or e.failed_tg_allocs]
-    if bad:
-        raise AssertionError(f"{len(bad)} evals not cleanly complete")
+    total = MINI_JOBS * SOLVE_K
+    path_gates(h, jobs, total, "tpu-solve path")
     joint = stats["joint_launches"]
     launched = counts["launches"]
     if joint < 1:
@@ -1514,10 +1555,12 @@ def cfg4_run(device, captured=None):
         _ext.COUNTS.reset()
         s0 = placer.preempt_stats()
         t0 = time.perf_counter()
-        h.process(mock.eval_for(hi, id="bench4-ev-hi"), cfg)
+        with GcClock() as gc_hi:
+            h.process(mock.eval_for(hi, id="bench4-ev-hi"), cfg)
         t1 = time.perf_counter()
         s1 = placer.preempt_stats()
-        h.process(mock.eval_for(sysj, id="bench4-ev-sys"), cfg)
+        with GcClock() as gc_sys:
+            h.process(mock.eval_for(sysj, id="bench4-ev-sys"), cfg)
         t2 = time.perf_counter()
         counts = _ext.COUNTS.snapshot()
     finally:
@@ -1545,6 +1588,7 @@ def cfg4_run(device, captured=None):
            - a.job.priority < 10]
     return {
         "hi_s": t1 - t0, "sys_s": t2 - t1, "counts": counts,
+        "hi_gc": str(gc_hi), "sys_gc": str(gc_sys),
         "stats": {k: s1[k] - s0[k] for k in s1},
         "hi": sorted((a.name, a.node_id) for a in live
                      if a.job_id == hi.id),
@@ -1590,9 +1634,10 @@ def phase_cfg4(torch, card):
         fails.append("an eval did not complete")
     if fails:
         raise AssertionError("cfg4 path: " + "; ".join(fails))
-    print(f"cfg4 path   [{card}] hi eval {r['hi_s']:.3f} s: {len(r['hi'])} "
-          f"placed, stats {r['stats']}; system eval {r['sys_s']:.3f} s: "
-          f"{len(r['sys'])} placed; evicted in all {r['by_job']} "
+    print(f"cfg4 path   [{card}] hi eval {r['hi_s']:.3f} s ({r['hi_gc']}): "
+          f"{len(r['hi'])} placed, stats {r['stats']}; system eval "
+          f"{r['sys_s']:.3f} s ({r['sys_gc']}): {len(r['sys'])} placed; "
+          f"evicted in all {r['by_job']} "
           f"({r['evictions']} evictions, none twice), 0 nodes over "
           f"capacity; kernel launches {launched}; plain on CUDA "
           f"{r['counts']['plain_on_cuda']}")
@@ -2226,6 +2271,678 @@ def phase_bulk_preempt(torch, card):
           f"victims unique; {'; '.join(notes)}")
 
 
+# the node-sharded solve (B13-B15): shard counts of the kernel phases, the
+# path's mesh, bench.py cfg7_sharded_5k's shape (:986-1002)
+SHARDS = (2, 4, 8)
+PATH_SHARDS = 4
+CFG7_NODES = 10240
+CFG7_K = 512
+PARITY_JOBS = 8
+
+
+def mesh_of(torch, shards: int):
+    """S shards on the card's devices, in turn; with one card the list
+    repeats cuda:0."""
+    from nomad_tpu_torch.tensor.sharding import NodeMesh
+
+    n = torch.cuda.device_count()
+    return NodeMesh([torch.device("cuda", i % n) for i in range(shards)])
+
+
+@contextlib.contextmanager
+def mesh_service(torch, shards: int):
+    """A fresh service on the card, with a mesh of ``shards`` (none for
+    1), in the place of get_service's for the run; stopped after."""
+    from nomad_tpu_torch.tensor import solver
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    svc = solver.BulkSolverService(
+        dev, mesh=mesh_of(torch, shards) if shards > 1 else None)
+    key = str(dev)
+    old = solver._services.get(key)
+    solver._services[key] = svc
+    try:
+        yield svc
+    finally:
+        svc.stop()
+        if old is None:
+            solver._services.pop(key, None)
+        else:
+            solver._services[key] = old
+
+
+def shard_args(mesh, t):
+    """The (used, avail, feas, aff) parts of full tensors (a fresh used),
+    and a joint variant's evict / net_prio parts."""
+    from nomad_tpu_torch.tensor import sharding as sh
+
+    args = [sh.shard_rows(mesh, t["used"].clone()),
+            sh.shard_rows(mesh, t["avail"]), sh.shard_cols(mesh, t["feas"]),
+            sh.shard_cols(mesh, t["aff"])]
+    kw = {}
+    if t.get("evict") is not None:
+        kw = dict(evict=sh.shard_rows(mesh, t["evict"]),
+                  net_prio=sh.shard_rows(mesh, t["net_prio"]))
+    return args, kw
+
+
+def clone_parts(args):
+    return [[p.clone() for p in a] if isinstance(a, list) else a
+            for a in args]
+
+
+def cfg7_inputs(torch, dev, tight=False):
+    """bench.py cfg7_sharded_5k: 10,240 nodes, G 16, k 512, asks (50, 32),
+    its RandomState(0) capacities and masks. ``tight``: cpu capacity of
+    one alloc of 500 a node and k 256, so every eval takes many rounds."""
+    rng = np.random.RandomState(0)
+    n, g = CFG7_NODES, G
+    avail = np.stack([rng.choice([8000, 16000, 32000], n),
+                      rng.choice([16384, 32768, 65536], n),
+                      np.full(n, 100 * 1024), np.full(n, 12001)],
+                     axis=1).astype(np.float32)
+    feas = rng.rand(g, n) > 0.1
+    ask = np.tile(np.array([50.0, 32.0, 0.0, 0.0], np.float32), (g, 1))
+    k = np.full(g, CFG7_K, np.int32)
+    if tight:
+        avail[:, 0] = rng.choice([600, 700], n)
+        ask[:, 0] = 500.0
+        k[:] = 256
+    t = {name: torch.tensor(v, device=dev) for name, v in (
+        ("used", np.zeros((n, 4), np.float32)), ("avail", avail),
+        ("feas", feas), ("aff", np.zeros((g, n), np.float32)),
+        ("ask", ask), ("k", k), ("seeds", np.arange(g).astype(np.int64)),
+        ("cidx", np.zeros(64, np.int32)),
+        ("cdelta", np.zeros((64, 4), np.float32)))}
+    t["tgc"] = torch.ones(g, device=dev)
+    return t
+
+
+def padded(torch, t, n_pad):
+    """Full tensors padded to n_pad nodes with empty, infeasible rows."""
+    n = t["used"].shape[0]
+    out = dict(t)
+    for name in ("used", "avail"):
+        out[name] = torch.cat([t[name], t[name].new_zeros((n_pad - n, 4))])
+    for name in ("feas", "aff"):
+        out[name] = torch.cat([t[name], t[name].new_zeros(
+            (t[name].shape[0], n_pad - n))], dim=1)
+    return out
+
+
+def check_b13(torch, mesh, t, top_r, what):
+    """B13 on full tensors ``t``: kernel == plain (counts, carry, rounds),
+    counts and carry == single-device B1. Returns the rounds."""
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.kernels import solve_bulk_multi
+
+    g = t["feas"].shape[0]
+    rep = (t["ask"], t["k"], t["seeds"], t["cidx"], t["cdelta"])
+    args, _ = shard_args(mesh, t)
+    got = sh.solve_bulk_multi_sharded(mesh, *args, *rep, g=g, top_r=top_r)
+    args, _ = shard_args(mesh, t)
+    want = sh.solve_bulk_multi_sharded_ref(mesh, *args, *rep, g=g,
+                                           top_r=top_r)
+    n = t["used"].shape[0]
+    n_pad = 1 << (n - 1).bit_length()
+    tp = padded(torch, t, n_pad)
+    u1, c1 = solve_bulk_multi(tp["used"].clone(), tp["avail"], tp["feas"],
+                              tp["aff"], t["ask"], t["k"], t["tgc"],
+                              t["seeds"], t["cidx"], t["cdelta"], g=g)
+    torch.cuda.synchronize()
+    gu, gc = sh.gather_rows(got[0]), sh.gather_rows(got[1], dim=1)
+    wu, wc = sh.gather_rows(want[0]), sh.gather_rows(want[1], dim=1)
+    for name, x, y in (("used", gu, wu), ("counts", gc, wc),
+                       ("rounds", got[2], want[2])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"B13 {what}: {name} differs from the "
+                                 f"plain version")
+    if not (torch.equal(gc, c1[:, :n]) and torch.equal(gu, u1[:n])):
+        raise AssertionError(f"B13 {what}: counts or carry differ from "
+                             f"single-device B1")
+    return got[2].tolist()
+
+
+def phase_sharded_kernels(torch, dev, card):
+    """B15, B13 and B14 against their plain versions and the single-device
+    kernels at S = 2, 4, 8 on one card."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.scatter import scatter_add
+
+    from nomad_tpu_torch.tensor.prng import jitter, jitter_fold
+
+    rng = np.random.default_rng(6)
+    # each shard's jitter slice (B3 and B3' with a node offset) is the
+    # full draw's columns, bit for bit
+    seeds = torch.tensor(np.concatenate([[0, 2 ** 32 - 1], rng.integers(
+        0, 2 ** 32, G - 2)]).astype(np.int64), device=dev)
+    full = jitter(seeds, N_PAD, bs.TIE_JITTER).view(torch.int32)
+    full_t = jitter_fold(seeds, N_PAD, bs._jitter_his()).view(torch.int32)
+    for s_n in SHARDS:
+        m = N_PAD // s_n
+        for s in range(s_n):
+            lo = s * m
+            part = jitter(seeds, m, bs.TIE_JITTER, offset=lo)
+            part_t = jitter_fold(seeds, m, bs._jitter_his(), offset=lo)
+            if not (torch.equal(part.view(torch.int32), full[:, lo:lo + m])
+                    and torch.equal(part_t.view(torch.int32),
+                                    full_t[..., lo:lo + m])):
+                raise AssertionError(f"jitter slice {s} of {s_n} differs "
+                                     f"from the full draw")
+    print(f"B3/B3' shard [{card}] every shard's slice bitwise equal to the "
+          f"full draw's columns at S {SHARDS}, G {G}, N_pad {N_PAD}")
+    # B15: 1,024 rows with duplicates and (0, 0) padding at N_pad 16,384
+    used0 = torch.tensor(rng.integers(0, 5000, (N_PAD, 4)).astype(
+        np.float32), device=dev)
+    b = 1024
+    idx_np = rng.integers(0, N_NODES, b).astype(np.int32)
+    idx_np[100:200] = idx_np[0]
+    idx_np[-64:] = 0
+    delta_np = rng.integers(-300, 300, (b, 4)).astype(np.float32)
+    delta_np[-64:] = 0.0
+    idx, delta = torch.tensor(idx_np, device=dev), torch.tensor(delta_np,
+                                                               device=dev)
+    single = scatter_add(used0.clone(), idx, delta)
+    for s_n in SHARDS:
+        mesh = mesh_of(torch, s_n)
+        got = sh.state_scatter_sharded(mesh, sh.shard_rows(
+            mesh, used0.clone()), idx, delta)
+        want = sh.state_scatter_sharded_ref(mesh, sh.shard_rows(
+            mesh, used0.clone()), idx, delta)
+        torch.cuda.synchronize()
+        got = sh.gather_rows(got)
+        if not (torch.equal(got, sh.gather_rows(want))
+                and torch.equal(got, single)):
+            raise AssertionError(f"B15 S={s_n}: differs from the plain "
+                                 f"version or B4")
+    print(f"B15 shard   [{card}] exact against the plain version and B4 at "
+          f"S {SHARDS} ({b} rows, duplicates, padding, N_pad {N_PAD})")
+
+    notes = []
+    t7 = cfg7_inputs(torch, dev)
+    c2m = b1_inputs(torch, dev, np.random.default_rng(7))
+    for s_n in SHARDS:
+        mesh = mesh_of(torch, s_n)
+        r7 = check_b13(torch, mesh, t7, 64, f"cfg7 S={s_n}")
+        rc = check_b13(torch, mesh, c2m, 64, f"C2M S={s_n}")
+        notes.append(f"S {s_n}: rounds cfg7 {sum(r7)}, C2M {sum(rc)}")
+    tight = cfg7_inputs(torch, dev, tight=True)
+    rt = check_b13(torch, mesh_of(torch, 4), tight, 8, "top_r 8")
+    if max(rt) <= 3:
+        raise AssertionError(f"B13 top_r 8: rounds {rt}, want many")
+    print(f"B13 shard   [{card}] counts, carry and rounds exact against the "
+          f"plain version, counts and carry against single-device B1, at "
+          f"cfg7 ({CFG7_NODES} nodes, G {G}, k {CFG7_K}) and C2M (N_pad "
+          f"{N_PAD}, k {K}, hazards) widths: " + "; ".join(notes)
+          + f"; top_r 8 at S 4 (one alloc a node, k 256): rounds {rt}")
+
+    notes = []
+    srng = np.random.default_rng(8)
+    for variant in ("main", "evict", "correction", "sparse", "cap", "wide"):
+        t = solve_inputs(torch, dev, srng, variant)
+        rep = (t["ask"], t["k"], t["seeds"], t["cidx"], t["cdelta"])
+        one = bs.solve_batch(t["used"].clone(), t["avail"], t["feas"],
+                             t["aff"], t["ask"], t["k"], t["tgc"],
+                             t["seeds"], t["cidx"], t["cdelta"], t["evict"],
+                             t["net_prio"], g=G, rounds=t["rounds"])
+        gathers = []
+        for s_n in SHARDS:
+            mesh = mesh_of(torch, s_n)
+            args, kw = shard_args(mesh, t)
+            got = sh.solve_batch_sharded(mesh, *args, *rep, g=G,
+                                         rounds=t["rounds"], **kw)
+            args, kw = shard_args(mesh, t)
+            want = sh.solve_batch_sharded_ref(mesh, *args, *rep, g=G,
+                                              rounds=t["rounds"], **kw)
+            torch.cuda.synchronize()
+            gu, gc = sh.gather_rows(got[0]), sh.gather_rows(got[1], dim=1)
+            for name, x, y in (
+                    ("used", gu, sh.gather_rows(want[0])),
+                    ("counts", gc, sh.gather_rows(want[1], dim=1)),
+                    ("info", got[2], want[2]), ("gathers", got[3], want[3])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"B14 {variant} S={s_n}: {name} "
+                                         f"differs from the plain version")
+            if not (torch.equal(gc, one[1]) and torch.equal(gu, one[0])
+                    and torch.equal(got[2][2:], one[2][2:])):
+                raise AssertionError(f"B14 {variant} S={s_n}: differs from "
+                                     f"single-device solve_batch")
+            rel = float(((got[2][:2] - one[2][:2]).abs()
+                         / one[2][:2].abs().clamp_min(1e-30)).max())
+            if rel > SCORE_TOL:
+                raise AssertionError(f"B14 {variant} S={s_n}: scores "
+                                     f"{rel:.3g} from solve_batch")
+            gathers.append(int(got[3]))
+        notes.append(f"{variant}: gathers {gathers}")
+    print(f"B14 shard   [{card}] used, counts, info and gathers exact "
+          f"against the plain version, counts, used and info[2:] against "
+          f"single-device solve_batch (scores within {SCORE_TOL}), 6 "
+          f"variants at N_pad {N_PAD}, G {G}, S {SHARDS}; "
+          + "; ".join(notes))
+
+
+def path_gates(h, jobs, want: int, what: str) -> None:
+    """Every alloc placed once, no node over capacity (from the store),
+    every eval cleanly complete."""
+    from nomad_tpu_torch.structs import enums
+
+    snap = h.store.snapshot()
+    total = sum(len(snap.allocs_by_job(j.id)) for j in jobs)
+    ids = [a.id for a in snap.allocs()]
+    if total != want or len(ids) != want or len(set(ids)) != want:
+        raise AssertionError(f"{what}: placed {total} / {len(ids)} allocs "
+                             f"({len(set(ids))} unique ids), want {want}")
+    nodes = list(snap.nodes())
+    row = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.stack([n.available_vec() for n in nodes])
+    usage = np.zeros_like(cap)
+    for block in snap.alloc_blocks():
+        for m, nid in enumerate(block.node_ids):
+            usage[row[nid]] += block.allocated_vec * float(block.counts[m])
+    over = int((usage > cap).any(axis=1).sum())
+    if over:
+        raise AssertionError(f"{what}: {over} nodes over capacity")
+    bad = [e for e in h.evals if e.status != enums.EVAL_STATUS_COMPLETE
+           or e.failed_tg_allocs]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} evals not cleanly "
+                             f"complete")
+
+
+def capture_into(torch, captured, real):
+    """A stand-in for a sharded solve that copies each launch's inputs
+    (on the service's stream) and keeps its outputs."""
+    def capture(mesh, *args, **kw):
+        snap = [[p.clone() for p in a] if isinstance(a, list)
+                else a.clone() if torch.is_tensor(a) else a for a in args]
+        out = real(mesh, *args, **kw)
+        captured.append((mesh, snap, dict(kw), out))
+        return out
+    return capture
+
+
+def phase_sharded_path(torch, card):
+    """The C2M bulk path (10,240 nodes, 64 batch jobs x 4,000 allocs, 16
+    threads) with a 4-shard mesh service. Returns (the launch counts of
+    its run, its wall, the copied launches)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor import solver
+    from nomad_tpu_torch.testing import Harness
+
+    h = Harness(device="cuda")
+    mock.build_nodes(h.store, N_NODES, seed=0)
+    jobs = []
+    for _ in range(JOBS):
+        j = mock.service_job(K, cpu=50, mem=32, batch=True)
+        h.store.upsert_job(j)
+        jobs.append(j)
+    evals = [mock.eval_for(j) for j in jobs]
+    cfg = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+    captured = []
+    real = solver.solve_bulk_multi_sharded
+    reads0 = sh.READS["bulk_shard"]
+    with mesh_service(torch, PATH_SHARDS) as svc:
+        print(f"shards      path mesh {svc._mesh!r}: {svc._mesh.size} "
+              f"shards, {svc._mesh.cards} distinct card(s)")
+        solver.solve_bulk_multi_sharded = capture_into(torch, captured, real)
+        try:
+            _ext.COUNTS.reset()
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(THREADS) as pool:
+                for f in [pool.submit(h.process, ev, cfg) for ev in evals]:
+                    f.result()
+            wall = time.perf_counter() - t1
+            counts = _ext.COUNTS.snapshot()
+        finally:
+            solver.solve_bulk_multi_sharded = real
+        stats = dict(svc.stats)
+    path_gates(h, jobs, JOBS * K, "sharded C2M path")
+    for name in ("jitter", "scatter_shard", "bulk_shard_pool",
+                 "bulk_shard_merge"):
+        if counts["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"sharded path")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    rounds = sum(int(c[3][2].sum()) for c in captured)
+    if not (stats["sharded"] == stats["launches"] == len(captured) >= 1
+            and stats["allgathers"] == rounds):
+        raise AssertionError(f"sharded path: launches {stats['launches']}, "
+                             f"sharded {stats['sharded']}, copied "
+                             f"{len(captured)}, allgathers "
+                             f"{stats['allgathers']} vs rounds {rounds}")
+    reads = sh.READS["bulk_shard"] - reads0
+    print(f"shard path  [{card}] {JOBS * K} allocs in {wall:.3f} s = "
+          f"{JOBS * K / wall:.1f} allocs/s on {PATH_SHARDS} shards "
+          f"launches "
+          f"{stats['launches']} (all sharded), evals/launch "
+          f"{stats['solves'] / stats['launches']:.2f}, all-gathers "
+          f"{stats['allgathers']}, host flag reads {reads} "
+          f"({reads / stats['launches']:.2f} a launch); kernel launches "
+          f"{counts['launches']}")
+    return counts["launches"], wall, captured
+
+
+def phase_sharded_solve_path(torch, card):
+    """The tpu-solve c2m_mini path (2,560 nodes, 50 x 800, worker batches
+    of 8) with a 4-shard mesh service."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor import solver
+    from nomad_tpu_torch.tensor.solver import batch_member, open_batch
+    from nomad_tpu_torch.testing import Harness
+
+    h = Harness(device="cuda")
+    mock.build_nodes(h.store, MINI_NODES, seed=0)
+    jobs = []
+    for i in range(MINI_JOBS):
+        cpu, mem = SOLVE_ASKS[i % len(SOLVE_ASKS)]
+        j = mock.service_job(SOLVE_K, cpu=cpu, mem=mem, batch=True)
+        h.store.upsert_job(j)
+        jobs.append(j)
+    evals = [mock.eval_for(j) for j in jobs]
+    cfg = SchedulerConfiguration(scheduler_algorithm=enums.SCHED_ALG_TPU_SOLVE)
+
+    def member(ctx, ev):
+        with batch_member(ctx):
+            h.process(ev, cfg)
+
+    captured = []
+    real = solver.solve_batch_sharded
+    reads0 = sh.READS["joint_shard"] + sh.READS["bulk_shard"]
+    with mesh_service(torch, PATH_SHARDS) as svc:
+        solver.solve_batch_sharded = capture_into(torch, captured, real)
+        try:
+            _ext.COUNTS.reset()
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(MINI_BATCH) as pool:
+                for b in range(0, len(evals), MINI_BATCH):
+                    batch = evals[b:b + MINI_BATCH]
+                    ctx = open_batch(len(batch))
+                    for f in [pool.submit(member, ctx, ev) for ev in batch]:
+                        f.result()
+            wall = time.perf_counter() - t1
+            counts = _ext.COUNTS.snapshot()
+        finally:
+            solver.solve_batch_sharded = real
+        stats = dict(svc.stats)
+    path_gates(h, jobs, MINI_JOBS * SOLVE_K, "sharded tpu-solve path")
+    joint = stats["joint_launches"]
+    for name in ("jitter", "jitter_fold", "scatter_shard", "bulk_shard_pool",
+                 "bulk_shard_merge", "joint_shard_bids", "joint_shard_merge",
+                 "joint_shard_contrib", "joint_shard_pick"):
+        if counts["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"sharded tpu-solve path")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    gathers = sum(int(c[3][3]) for c in captured)
+    if not (joint >= 1 and stats["sharded"] == stats["launches"] == joint
+            == len(captured) and stats["allgathers"] == gathers):
+        raise AssertionError(f"sharded tpu-solve path: stats {stats}, "
+                             f"copied {len(captured)}, gathers {gathers}")
+    if stats["joint_score"] < stats["greedy_score"]:
+        raise AssertionError(f"joint score {stats['joint_score']} below the "
+                             f"greedy score {stats['greedy_score']}")
+    reads = sh.READS["joint_shard"] + sh.READS["bulk_shard"] - reads0
+    print(f"shard solve [{card}] {MINI_JOBS * SOLVE_K} allocs in {wall:.3f} s "
+          f"on {PATH_SHARDS} shards; joint launches {joint} (all sharded), "
+          f"auction won {stats['auction_won']}, all-gathers "
+          f"{stats['allgathers']}, host flag reads {reads} "
+          f"({reads / joint:.2f} a launch), joint score "
+          f"{stats['joint_score']:.4f} vs greedy {stats['greedy_score']:.4f}; "
+          f"kernel launches {counts['launches']}")
+    return counts["launches"], wall, captured
+
+
+def pool_bytes(s_n: int, rounds: int, entries: int) -> int:
+    """A round's gathered pools: each shard writes its f32 triplets once
+    and every shard reads all of them."""
+    return rounds * s_n * entries * 3 * 4 * (1 + s_n)
+
+
+def b13_work(n: int, g: int, c: int, s_n: int, rounds: int, r: int):
+    """Bytes and operations one B13 launch needs, each input read once
+    and each output written once: the carry in and out and the capacity,
+    the (G, N) mask and boosts in and int16 counts out, the asks, budgets
+    and seeds, the C corrections, and the gathered pools of its rounds;
+    ~74 operations per (eval, node) as B1's bound counts them, plus one
+    threefry draw (~120) for the node's jitter."""
+    return (n * 16 * 3 + g * n * (1 + 4 + 2) + g * 28 + c * 20
+            + pool_bytes(s_n, rounds, r), g * n * (74 + 120))
+
+
+def max_diff(pairs) -> float:
+    """The largest absolute difference over (got, want) tensor pairs."""
+    return max(float((x.double() - y.double()).abs().max()) if x.numel()
+               else 0.0 for x, y in pairs)
+
+
+def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
+    """The two sharded paths' launches replayed: exact against the plain
+    sharded versions and the single-device kernels; B13, B14, B15, B1 and
+    solve_batch timed on each. Returns the B13, B14 and B15 records."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.kernels import solve_bulk_multi
+    from nomad_tpu_torch.tensor.prng import jitter_fold
+    from nomad_tpu_torch.tensor.scatter import scatter_add_ref
+
+    torch.cuda.synchronize()
+    mean = statistics.fmean
+    rec = {"bulk": [], "joint": [], "scatter": []}
+    err = {"bulk": 0.0, "joint": 0.0, "scatter": 0.0}
+    for i, (mesh, args, kw, _) in enumerate(bulk):
+        g = kw["g"]
+        got = sh.solve_bulk_multi_sharded(mesh, *clone_parts(args), **kw)
+        want = sh.solve_bulk_multi_sharded_ref(mesh, *clone_parts(args),
+                                               **kw)
+        full = [sh.gather_rows(a, dim=0 if j < 2 else 1)
+                for j, a in enumerate(args[:4])]
+        ask, k, seeds, cidx, cdelta = args[4:]
+        one = solve_bulk_multi(full[0].clone(), *full[1:], ask, k,
+                               torch.ones(g, device=ask.device), seeds, cidx,
+                               cdelta, g=g)
+        s_got = sh.state_scatter_sharded(mesh, clone_parts([args[0]])[0],
+                                         cidx, cdelta)
+        s_want = sh.state_scatter_sharded_ref(
+            mesh, clone_parts([args[0]])[0], cidx, cdelta)
+        torch.cuda.synchronize()
+        gu, gc = sh.gather_rows(got[0]), sh.gather_rows(got[1], dim=1)
+        e = max_diff([(gu, sh.gather_rows(want[0])),
+                      (gc, sh.gather_rows(want[1], dim=1)),
+                      (got[2], want[2])])
+        if e:
+            raise AssertionError(f"sharded path launch {i}: B13 differs "
+                                 f"from the plain version by {e}")
+        err["bulk"] = max(err["bulk"], e)
+        if not (torch.equal(gc, one[1]) and torch.equal(gu, one[0])):
+            raise AssertionError(f"sharded path launch {i}: B13 differs "
+                                 f"from single-device B1")
+        e = max_diff([(sh.gather_rows(s_got), sh.gather_rows(s_want))])
+        if e:
+            raise AssertionError(f"sharded path launch {i}: B15 differs "
+                                 f"from the plain version by {e}")
+        err["scatter"] = max(err["scatter"], e)
+        n = full[0].shape[0]
+        rounds = int(got[2].sum())
+        ms = cuda_time_ms(torch, lambda a: sh.solve_bulk_multi_sharded(
+            mesh, *a, **kw), setup=lambda: clone_parts(args), reps=5)
+        plain = cuda_time_ms(torch, lambda a: sh.solve_bulk_multi_sharded_ref(
+            mesh, *a, **kw), setup=lambda: clone_parts(args), reps=2,
+            warmup=1)
+        b1 = cuda_time_ms(torch, lambda u: solve_bulk_multi(
+            u, *full[1:], ask, k, torch.ones(g, device=ask.device), seeds,
+            cidx, cdelta, g=g), setup=full[0].clone, reps=5)
+        rec["bulk"].append((ms, plain, bound(*b13_work(
+            n, g, cidx.shape[0], mesh.size, rounds,
+            min(kw.get("top_r", 64), n // mesh.size))), b1, rounds))
+        # B15 alone on the launch's corrections, beside B4's library call
+        b = cidx.shape[0]
+        rows = len(set(cidx.tolist()))
+        s_ms = cuda_time_ms(torch, lambda u: sh.state_scatter_sharded(
+            mesh, u, cidx, cdelta), setup=lambda: clone_parts([args[0]])[0])
+        s_plain = cuda_time_ms(torch, lambda u: sh.state_scatter_sharded_ref(
+            mesh, u, cidx, cdelta), setup=lambda: clone_parts([args[0]])[0],
+            reps=5)
+        idx64 = cidx.to(torch.int64)
+        s_lib = cuda_time_ms(torch, lambda u: u.index_add_(0, idx64, cdelta),
+                             setup=full[0].clone)
+        rec["scatter"].append((s_ms, s_plain,
+                               bound(b * 4 + b * 16 + 2 * rows * 16, b * 4),
+                               s_lib))
+    his, eps = bs._jitter_his(), bs._price_eps()
+    for i, (mesh, args, kw, _) in enumerate(joint):
+        g = kw["g"]
+        got = sh.solve_batch_sharded(mesh, *clone_parts(args), **kw)
+        want = sh.solve_batch_sharded_ref(mesh, *clone_parts(args), **kw)
+        full = [sh.gather_rows(a, dim=0 if j < 2 else 1)
+                for j, a in enumerate(args[:4])]
+        ask, k, seeds, cidx, cdelta = args[4:]
+        tgc = k.float()
+        one = bs.solve_batch(full[0].clone(), *full[1:], ask, k, tgc, seeds,
+                             cidx, cdelta, g=g)
+        torch.cuda.synchronize()
+        gu, gc = sh.gather_rows(got[0]), sh.gather_rows(got[1], dim=1)
+        e = max_diff([(gu, sh.gather_rows(want[0])),
+                      (gc, sh.gather_rows(want[1], dim=1)),
+                      (got[2], want[2]), (got[3], want[3])])
+        if e:
+            raise AssertionError(f"sharded solve launch {i}: B14 differs "
+                                 f"from the plain version by {e}")
+        err["joint"] = max(err["joint"], e)
+        if not (torch.equal(gc, one[1]) and torch.equal(gu, one[0])
+                and torch.equal(got[2][2:], one[2][2:])):
+            raise AssertionError(f"sharded solve launch {i}: B14 differs "
+                                 f"from single-device solve_batch")
+        n = full[0].shape[0]
+        ms = cuda_time_ms(torch, lambda a: sh.solve_batch_sharded(
+            mesh, *a, **kw), setup=lambda: clone_parts(args), reps=5)
+        plain = cuda_time_ms(torch, lambda a: sh.solve_batch_sharded_ref(
+            mesh, *a, **kw), setup=lambda: clone_parts(args), reps=1,
+            warmup=1)
+        one_ms = cuda_time_ms(torch, lambda u: bs.solve_batch(
+            u, *full[1:], ask, k, tgc, seeds, cidx, cdelta, g=g),
+            setup=full[0].clone, reps=5)
+        # the whole launch's work, each input read and each output written
+        # once: the greedy arm's (B13's work, its pools among it), the
+        # restarts' rounds and gathered pools, their fold_in draws, the
+        # arm scores and the pick, the info row and the gather count
+        folded = scatter_add_ref(full[0].clone(), cidx, cdelta).clamp_min(0.0)
+        ev_kw = {key: sh.gather_rows(kw[key]) for key in ("evict", "net_prio")
+                 if kw.get(key) is not None}
+        a_ops, run = auction_ops(torch, folded, full[1], full[2], full[3],
+                                 ask, k, jitter_fold(seeds, n, his), eps,
+                                 kw.get("rounds", 64), **ev_kw)
+        greedy_rounds = int(got[3]) - sum(run) - len(run) - 1
+        n_bytes, ops = b13_work(n, g, cidx.shape[0], mesh.size,
+                                greedy_rounds,
+                                min(kw.get("top_r", 64), n // mesh.size))
+        n_bytes += (pool_bytes(mesh.size, sum(run),
+                               g * min(16, n // mesh.size)) + 28
+                    + (n * 20 if ev_kw else 0))
+        ops += (a_ops + len(his) * g * (n + 1) * 120
+                + (len(eps) + 1) * n * (g + 60))
+        rec["joint"].append((ms, plain, bound(n_bytes, ops), one_ms,
+                             int(got[3])))
+    n_b, n_j = len(bulk), len(joint)
+    print(f"shard runs  [{card}] the sharded C2M path's {n_b} launches: B13 "
+          f"exact against the plain version and single-device B1 on each; "
+          f"per launch (mean) B13 {mean(r[0] for r in rec['bulk']):.4f} ms, "
+          f"B1 at the same inputs {mean(r[3] for r in rec['bulk']):.4f} ms, "
+          f"plain {mean(r[1] for r in rec['bulk']):.4f} ms, all-gathers "
+          f"{[r[4] for r in rec['bulk']]}; B15 on the launches' corrections "
+          f"{mean(r[0] for r in rec['scatter']):.4f} ms, index_add_ "
+          f"{mean(r[3] for r in rec['scatter']):.4f} ms; {n_b} launches "
+          f"{sum(r[0] for r in rec['bulk']):.4f} ms of device time = "
+          f"{100.0 * sum(r[0] for r in rec['bulk']) / 1e3 / wall_bulk:.2f}% "
+          f"of the path's {wall_bulk:.3f} s wall")
+    print(f"shard runs  [{card}] the sharded tpu-solve path's {n_j} launches: "
+          f"B14 exact against the plain version and single-device "
+          f"solve_batch on each; per launch (mean) B14 "
+          f"{mean(r[0] for r in rec['joint']):.4f} ms, solve_batch at the "
+          f"same inputs {mean(r[3] for r in rec['joint']):.4f} ms, plain "
+          f"{mean(r[1] for r in rec['joint']):.4f} ms, gathers "
+          f"{[r[4] for r in rec['joint']]}; {n_j} launches "
+          f"{sum(r[0] for r in rec['joint']):.4f} ms = "
+          f"{100.0 * sum(r[0] for r in rec['joint']) / 1e3 / wall_joint:.2f}% "
+          f"of the path's {wall_joint:.3f} s wall")
+    out = []
+    for name, key, src, repl in (
+            ("bulk_shard", "bulk", "nomad_tpu_torch/csrc/sharded.cu",
+             "nomad_tpu/tensor/sharding.py:198"),
+            ("joint_shard", "joint", "nomad_tpu_torch/csrc/sharded.cu",
+             "nomad_tpu/tensor/sharding.py:368"),
+            ("scatter_shard", "scatter", "nomad_tpu_torch/csrc/sharded.cu",
+             "nomad_tpu/tensor/sharding.py:144")):
+        v = rec[key]
+        by = Counter(r[2][1] for r in v).most_common(1)[0][0]
+        out.append({"name": name, "source": src, "replaces": repl,
+                    "max_abs_err": err[key], "ms": mean(r[0] for r in v),
+                    "plain_ms": mean(r[1] for r in v),
+                    "bound_ms": mean(r[2][0] for r in v), "bound_by": by,
+                    "library_ms": (mean(r[3] for r in v)
+                                   if key == "scatter" else None)})
+    return out
+
+
+def phase_sharded_parity(torch, card):
+    """A pinned one-thread workload at 10,240 nodes, 8 jobs x 4,000
+    (tpu-binpack) and 8 joint evals of 800 cycling the solve asks
+    (tpu-solve), on a fresh service with no mesh and with 2, 4 and 8
+    shards: the same fingerprint at every S."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.testing import Harness
+
+    prints, notes = {}, []
+    for s_n in (1,) + SHARDS:
+        h = Harness(device="cuda")
+        mock.build_nodes(h.store, N_NODES, seed=0)
+        jobs = []
+        with mesh_service(torch, s_n) as svc:
+            for i in range(2 * PARITY_JOBS):
+                joint = i >= PARITY_JOBS
+                cpu, mem = SOLVE_ASKS[i % len(SOLVE_ASKS)] if joint else (50,
+                                                                          32)
+                j = mock.service_job(SOLVE_K if joint else K, cpu=cpu,
+                                     mem=mem, batch=True)
+                j.id = j.name = f"shard-parity-{i}"
+                h.store.upsert_job(j)
+                jobs.append(j)
+                h.process(mock.eval_for(j, id=f"shard-parity-ev-{i}"),
+                          SchedulerConfiguration(scheduler_algorithm=(
+                              enums.SCHED_ALG_TPU_SOLVE if joint
+                              else enums.SCHED_ALG_TPU_BINPACK)))
+            stats = dict(svc.stats)
+        want = PARITY_JOBS * (K + SOLVE_K)
+        path_gates(h, jobs, want, f"parity S={s_n}")
+        if stats["sharded"] != (stats["launches"] if s_n > 1 else 0):
+            raise AssertionError(f"parity S={s_n}: stats {stats}")
+        prints[s_n] = fingerprint(h, jobs)
+        notes.append(f"S {s_n}: {stats['launches']} launches, all-gathers "
+                     f"{stats['allgathers']}")
+    for s_n in SHARDS:
+        if prints[s_n] != prints[1]:
+            bad = [j for j in prints[1] if prints[s_n][j] != prints[1][j]]
+            raise AssertionError(f"parity: S={s_n} differs from no mesh on "
+                                 f"{bad}")
+    print(f"parity      [{card}] the same fingerprint (per-job counts, "
+          f"per-node multisets, scores) at S 1, 2, 4, 8 on {N_NODES} nodes, "
+          f"{PARITY_JOBS} x {K} tpu-binpack + {PARITY_JOBS} x {SOLVE_K} "
+          f"tpu-solve, one thread; " + "; ".join(notes))
+
+
 def main() -> int:
     if not (REPO / "nomad_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: nomad_tpu_torch/ not found beside the script; "
@@ -2293,11 +3010,20 @@ def main() -> int:
     phase_parity(enums.SCHED_ALG_TPU_SOLVE)
     phase_spread_parity()
     phase_cfg4_parity(card, cfg4)
+    phase_sharded_kernels(torch, dev, card)
+    launches_b, wall_b, bulk_runs = phase_sharded_path(torch, card)
+    launches_j, wall_j, joint_runs = phase_sharded_solve_path(torch, card)
+    sharded = phase_sharded_replay(torch, card, bulk_runs, joint_runs,
+                                   wall_b, wall_j)
+    sharded[0]["launches"] = launches_b["bulk_shard_pool"]
+    sharded[1]["launches"] = launches_j["joint_shard_bids"]
+    sharded[2]["launches"] = launches_b["scatter_shard"]
+    phase_sharded_parity(torch, card)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    kernels = bulk + per_eval + joint + preempt + large
+    kernels = bulk + per_eval + joint + preempt + large + sharded
     for k in kernels:
         k["route"] = "cuda"
     print(json.dumps({"kernels": [{key: k[key] for key in order}

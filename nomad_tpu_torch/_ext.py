@@ -44,9 +44,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> (library, argtypes)
 _SIGNATURES = {
-    "nt_jitter": ("jitter", [_P, _P, _I, _I, _F, _P]),
+    "nt_jitter": ("jitter", [_P, _P, _I, _I, _F, _I, _P]),
     "nt_jitter_fold": ("jitter", [_P, ctypes.POINTER(_F), _I, _P, _I, _I,
-                                  _P]),
+                                  _I, _P]),
     "nt_scatter_add": ("scatter", [_P, _P, _P, _I, _I, _I, _P]),
     "nt_bulk_fill": ("bulk_fill", [_P] * 8 + [_I, _I, _P]),
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
@@ -57,6 +57,13 @@ _SIGNATURES = {
     "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
     "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 7 + [_P]),
     "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P]),
+    "nt_scatter_shard": ("sharded", [_P] * 3 + [_I] * 4 + [_P]),
+    "nt_bulk_shard_pool": ("sharded", [_P] * 10 + [_I] * 6 + [_P]),
+    "nt_bulk_shard_merge": ("sharded", [_P] * 7 + [_I] * 7 + [_P]),
+    "nt_joint_shard_bids": ("sharded", [_P] * 14 + [_I] * 7 + [_P]),
+    "nt_joint_shard_merge": ("sharded", [_P] * 7 + [_I] * 8 + [_P]),
+    "nt_joint_shard_contrib": ("sharded", [_P] * 7 + [_I] * 4 + [_P]),
+    "nt_joint_shard_pick": ("sharded", [_P] * 12 + [_I] * 5 + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -93,7 +100,10 @@ class LaunchCounts:
 COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
                        "solve_task_group", "jitter_fold", "auction",
                        "batch_pick", "preempt_solve", "preempt_pick",
-                       "bulk_scan", "tie_perm"))
+                       "bulk_scan", "tie_perm", "scatter_shard",
+                       "bulk_shard_pool", "bulk_shard_merge",
+                       "joint_shard_bids", "joint_shard_merge",
+                       "joint_shard_contrib", "joint_shard_pick"))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

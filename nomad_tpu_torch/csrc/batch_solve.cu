@@ -54,72 +54,29 @@
 #include <stdint.h>
 
 #include "fit.cuh"
+#include "sort.cuh"
+#include "topr.cuh"
 
 namespace {
 
 constexpr int kDims = 4;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTopR = 16;
-constexpr int kMaxG = kThreads / kTopR;  // one thread per surfaced entry
+constexpr int kMaxG = kThreads / nt_topr::kTopR;  // one thread per surfaced entry
 constexpr int kMaxPad = 16384;           // pairwise tree in shared memory
 constexpr float kNeg = -1.0e30f;
 // B2 and the preemption score: fit.cuh
 using nt_fit::fit_score;
 using nt_fit::preempt_score;
-
-// top_k's order as one unique uint64: the bid's total-order image (-0.0
-// below +0.0) above the complement of the node index (lower index first).
-// 0 is below every real key and marks an empty slot.
-__device__ __forceinline__ uint64_t bid_key(float v, int idx) {
-  const uint32_t u = __float_as_uint(v);
-  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((uint64_t)ord << 32) | (uint64_t)(~(uint32_t)idx);
-}
-
-__device__ __forceinline__ float key_val(uint64_t key) {
-  const uint32_t ord = (uint32_t)(key >> 32);
-  return __uint_as_float((ord & 0x80000000u) ? (ord & 0x7FFFFFFFu) : ~ord);
-}
-
-__device__ __forceinline__ int key_idx(uint64_t key) {
-  return (int)(~(uint32_t)key);
-}
-
-// keep the kTopR largest keys, descending, in registers
-__device__ __forceinline__ void topr_insert(uint64_t (&lst)[kTopR],
-                                            uint64_t key) {
-  if (key <= lst[kTopR - 1]) return;
-  lst[kTopR - 1] = key;
-#pragma unroll
-  for (int i = kTopR - 1; i > 0; --i) {
-    const uint64_t a = lst[i - 1];
-    const uint64_t b = lst[i];
-    const bool up = b > a;
-    lst[i - 1] = up ? b : a;
-    lst[i] = up ? a : b;
-  }
-}
-
-// the warp's kTopR largest keys over its 32 lane lists, into out[]
-__device__ __forceinline__ void warp_topr(uint64_t (&lst)[kTopR],
-                                          uint64_t* out) {
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < kTopR; ++j) {
-    uint64_t best = lst[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const uint64_t o = __shfl_xor_sync(0xffffffffu, best, off);
-      best = o > best ? o : best;
-    }
-    if (lane == 0) out[j] = best;
-    if (best != 0 && lst[0] == best) {  // keys are unique: one owner pops
-#pragma unroll
-      for (int i = 0; i < kTopR - 1; ++i) lst[i] = lst[i + 1];
-      lst[kTopR - 1] = 0;
-    }
-  }
-}
+// top_k's order and the per-lane / per-warp top-R lists: topr.cuh
+using nt_topr::bid_key;
+using nt_topr::key_idx;
+using nt_topr::key_val;
+using nt_topr::kTopR;
+using nt_topr::topr_insert;
+using nt_topr::warp_topr;
+// the reference's fixed pairwise tree: sort.cuh
+using nt_sort::block_pairwise_sum;
 
 __global__ void __launch_bounds__(kThreads)
 auction_kernel(const float* __restrict__ used0,
@@ -376,22 +333,9 @@ __device__ void packing_score(float* tree, int* s_placed,
   if ((tid & 31) == 0) atomicAdd(s_placed, local);
   __syncthreads();
   // v[i] = v[2i] + v[2i+1] until one is left (kernels._pairwise_sum_xp)
-  for (int half = p >> 1; half >= 1; half >>= 1) {
-    float v[kMaxPad / 2 / kThreads];
-#pragma unroll
-    for (int j = 0; j < kMaxPad / 2 / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < half) v[j] = __fadd_rn(tree[2 * i], tree[2 * i + 1]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMaxPad / 2 / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < half) tree[i] = v[j];
-    }
-    __syncthreads();
-  }
-  *score = tree[0];
+  const float total =
+      block_pairwise_sum<kThreads, kMaxPad / 2 / kThreads>(tree, p);
+  *score = total;
   *placed = *s_placed;
   __syncthreads();  // tree and s_placed are reused by the next arm
 }

@@ -29,6 +29,11 @@
 // a CTA's first thread folds the key once into shared memory, then every
 // thread draws its nodes exactly as above under that key. Held
 // bit-for-bit against tensor/prng.py:jitter_fold_ref.
+//
+// Both kernels take a node offset: column i of the output is node
+// offset + i. A draw element depends on (key, node index) alone, so a
+// node shard draws exactly its slice [offset, offset + n) of the full
+// draw (the row slices of nomad_tpu/tensor/sharding.py:246-249, 566-570).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,12 +53,12 @@ __device__ __forceinline__ float bits_to_unit(uint32_t bits, float span) {
 
 __global__ void jitter_kernel(const uint32_t* __restrict__ seeds,
                               float* __restrict__ out, int g, int n,
-                              float span) {
+                              float span, int offset) {
   const long long total = (long long)g * n;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        t < total; t += (long long)gridDim.x * blockDim.x) {
     const int row = (int)(t / n);
-    const uint32_t node = (uint32_t)(t - (long long)row * n);
+    const uint32_t node = (uint32_t)(t - (long long)row * n + offset);
     out[t] = bits_to_unit(threefry_bits(0u, seeds[row], 0u, node), span);
   }
 }
@@ -66,7 +71,7 @@ struct FoldSpans {
 
 __global__ void jitter_fold_kernel(const uint32_t* __restrict__ seeds,
                                    FoldSpans spans, float* __restrict__ out,
-                                   int g, int n) {
+                                   int g, int n, int offset) {
   const int tg = blockIdx.y;  // t * g + row
   const int t = tg / g;
   const int row = tg - t * g;
@@ -83,7 +88,8 @@ __global__ void jitter_fold_kernel(const uint32_t* __restrict__ seeds,
   float* dst = out + (long long)tg * n;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x)
-    dst[i] = bits_to_unit(threefry_bits(k0, k1, 0u, (uint32_t)i), span);
+    dst[i] = bits_to_unit(
+        threefry_bits(k0, k1, 0u, (uint32_t)(i + offset)), span);
 }
 
 int grid_for(long long total, int threads) {
@@ -94,17 +100,18 @@ int grid_for(long long total, int threads) {
 }  // namespace
 
 extern "C" int nt_jitter(const void* seeds, void* out, int g, int n,
-                         float span, void* stream) {
+                         float span, int offset, void* stream) {
   const long long total = (long long)g * n;
   if (total <= 0) return 0;
   jitter_kernel<<<grid_for(total, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, (float*)out, g, n, span);
+      (const uint32_t*)seeds, (float*)out, g, n, span, offset);
   return (int)cudaGetLastError();
 }
 
 // spans: T host floats, one per restart t = 0..T-1; out: (T, g, n)
 extern "C" int nt_jitter_fold(const void* seeds, const float* spans, int t,
-                              void* out, int g, int n, void* stream) {
+                              void* out, int g, int n, int offset,
+                              void* stream) {
   if (t < 1 || t > kMaxFolds || g < 1 || (long long)t * g > 65535)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
@@ -114,6 +121,6 @@ extern "C" int nt_jitter_fold(const void* seeds, const float* spans, int t,
   int blocks_x = (n + threads * 8 - 1) / (threads * 8);  // ~8 nodes a thread
   jitter_fold_kernel<<<dim3(blocks_x, t * g), threads, 0,
                        (cudaStream_t)stream>>>((const uint32_t*)seeds, s,
-                                               (float*)out, g, n);
+                                               (float*)out, g, n, offset);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// The packed-key sort and the block-wide scan shared by bulk_fill.cu (B1)
-// and bulk_scan.cu (B11, B11').
+// The packed-key sort, the block-wide scan and the pairwise tree shared by
+// bulk_fill.cu (B1), bulk_scan.cu (B11, B11'), batch_solve.cu (B6's pick)
+// and sharded.cu (B13, B14).
 //
 // desc_key maps a float onto a uint32 whose ascending order is the float's
 // descending order, with -0.0 folded onto +0.0 as XLA's sort comparator
@@ -7,7 +8,9 @@
 // words the stable (key desc, index asc) order of the reference's
 // argsort(-key). bitonic_sort sorts a power-of-two count of words in
 // shared memory with the whole block; block_exclusive_scan is a prefix sum
-// of one int per thread across the block.
+// of one int per thread across the block; block_pairwise_sum is the
+// reference's fixed-tree sum (kernels._pairwise_sum_xp) over a power-of-two
+// count of floats in shared memory.
 
 #pragma once
 
@@ -72,6 +75,32 @@ __device__ inline int block_exclusive_scan(int v, int* warp_tot) {
   const int out = base + incl - v;
   __syncthreads();  // warp_tot is reused by the next call
   return out;
+}
+
+// v[i] = v[2i] + v[2i+1] over p (a power of two, at most 2 x kBlock x
+// kPer) floats until one is left, by a block of kBlock threads; every level
+// reads all its pairs before any write. Returns the sum to every thread;
+// tree is clobbered.
+template <int kBlock, int kPer>
+__device__ inline float block_pairwise_sum(float* tree, int p) {
+  for (int half = p >> 1; half >= 1; half >>= 1) {
+    float v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kBlock;
+      if (i < half) v[j] = __fadd_rn(tree[2 * i], tree[2 * i + 1]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kBlock;
+      if (i < half) tree[i] = v[j];
+    }
+    __syncthreads();
+  }
+  const float total = tree[0];
+  __syncthreads();
+  return total;
 }
 
 }  // namespace nt_sort

@@ -109,6 +109,72 @@ def topr_ref(bid: torch.Tensor, r: int):
     return torch.gather(bid, -1, idxs), idxs
 
 
+def bid_scores(used, available, avail_cap, feas, aff, ask, remaining,
+               pscore=None):
+    """Each (eval, node) pair's auction score and whether it may bid:
+    feasible, fitting within ``avail_cap`` (capacity plus victim
+    budgets) and with demand left (reference ``_auction``,
+    batch_solver.py:172-196). With ``pscore`` (the victims' logistic
+    preemption scores) fitness is taken at min(used + ask, capacity) and
+    an over-capacity bid adds pscore and divides by one more."""
+    f = available.dtype
+    aff_present = aff != 0.0
+    aff_term = torch.where(aff_present, aff, 0.0)
+    divisor = 1.0 + aff_present.to(f)
+    new_used = used[None, :, :] + ask[:, None, :]                    # (G,N,D)
+    ok = feas & torch.all(new_used <= avail_cap[None, :, :], dim=2)
+    ok = ok & (remaining > 0)[:, None]
+    if pscore is None:
+        fitness = fit_scores(available[None, :, :], new_used)
+        return ok, (fitness + aff_term) / divisor
+    fitness = fit_scores(available[None, :, :],
+                         torch.minimum(new_used, available[None]))
+    over = torch.any(new_used > available[None, :, :], dim=2)
+    return ok, (fitness + aff_term + torch.where(over, pscore[None, :], 0.0)
+                ) / (divisor + over.to(f))
+
+
+def resolve_round(vals, idxs, caps, remaining, n: int):
+    """One auction round after each eval surfaced its best bids (``vals``
+    / ``idxs`` (G, R) in top_k order, ``caps`` (G, R) the capacity of
+    each surfaced node against the usage before the round): each node
+    goes to its best active bid, ties to the lowest eval; each winner
+    spends its remaining demand over its won nodes in score order.
+    Returns (amounts (G, R) int32, (n,) bool of the nodes whose price
+    rises: contested and drained). Reference batch_solver.py:205-248."""
+    g, r = vals.shape
+    f = vals.dtype
+    dev = vals.device
+    neg = vals.new_tensor(NEG)
+    g_idx = torch.arange(g, dtype=torch.int64, device=dev)
+    active = vals > NEG / 2
+    flat_idx = idxs.reshape(-1)
+    flat_val = torch.where(active, vals, neg).reshape(-1)
+    flat_g = g_idx[:, None].expand(g, r).reshape(-1)
+    node_best = torch.full((n,), NEG, dtype=f, device=dev).scatter_reduce(
+        0, flat_idx, flat_val, reduce="amax")
+    is_best = (flat_val > NEG / 2) & (flat_val >= node_best[flat_idx])
+    node_winner = torch.full((n,), g, dtype=torch.int64,
+                             device=dev).scatter_reduce(
+        0, flat_idx, torch.where(is_best, flat_g, g), reduce="amin")
+    won = active & (vals >= node_best[idxs]) & (
+        node_winner[idxs] == g_idx[:, None])
+    cap = torch.where(won, caps, 0.0)
+    # an all-zero ask makes cap inf and its prefix inf - inf = NaN, which
+    # converts to 0 as XLA's float -> int32 conversion does
+    prefix = torch.cumsum(cap, dim=1) - cap
+    amt_f = torch.minimum(torch.clamp_min(
+        remaining.to(f)[:, None] - prefix, 0.0), cap)
+    amt = torch.where(torch.isnan(amt_f), 0.0, amt_f).to(torch.int32)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    bids_per_node = zeros.index_add(
+        0, flat_idx, active.reshape(-1).to(torch.int32))
+    filled = won & (cap > 0) & (amt.to(f) >= cap)
+    node_filled = zeros.index_add(
+        0, flat_idx, filled.reshape(-1).to(torch.int32)) > 0
+    return amt, node_filled & (bids_per_node > 1)
+
+
 def auction_ref(used0, available, feas, aff, ask, k, jits, *,
                 rounds: int = MAX_ROUNDS, price_eps: float = PRICE_EPS,
                 evict=None, pscore=None, trace: list = None):
@@ -127,9 +193,6 @@ def auction_ref(used0, available, feas, aff, ask, k, jits, *,
     avail_cap = available if evict is None else available + evict
     g_idx = torch.arange(g, dtype=torch.int64, device=dev)
     ask_pos = ask > 0
-    aff_present = aff != 0.0
-    aff_term = torch.where(aff_present, aff, 0.0)
-    divisor = 1.0 + aff_present.to(f)
     ask_safe = torch.where(ask_pos, ask, 1.0)
 
     used = used0.clone()
@@ -138,63 +201,26 @@ def auction_ref(used0, available, feas, aff, ask, k, jits, *,
     price = torch.zeros(n, dtype=f, device=dev)
     rnd, progressed = 0, True
     while rnd < rounds and progressed and bool((remaining > 0).any()):
-        new_used = used[None, :, :] + ask[:, None, :]                # (G,N,D)
-        ok = feas & torch.all(new_used <= avail_cap[None, :, :], dim=2)
-        ok = ok & (remaining > 0)[:, None]
-        if evict is None:
-            fitness = fit_scores(available[None, :, :], new_used)
-            score = (fitness + aff_term) / divisor
-        else:
-            fitness = fit_scores(available[None, :, :],
-                                 torch.minimum(new_used, available[None]))
-            over = torch.any(new_used > available[None, :, :], dim=2)
-            score = (fitness + aff_term
-                     + torch.where(over, pscore[None, :], 0.0)) / (
-                         divisor + over.to(f))
+        ok, score = bid_scores(used, available, avail_cap, feas, aff, ask,
+                               remaining, None if evict is None else pscore)
         bid = torch.where(ok, score + jits - price[None, :], neg)
         if trace is not None:
             trace.append((int((remaining > 0).sum()), int(ok.sum())))
         vals, idxs = topr_ref(bid, r)                                # (G,R)
-        active = vals > NEG / 2
-        flat_idx = idxs.reshape(-1)
-        flat_val = torch.where(active, vals, neg).reshape(-1)
-        flat_g = g_idx[:, None].expand(g, r).reshape(-1)
-        # each node's best bid; residual ties to the lowest eval index
-        node_best = torch.full((n,), NEG, dtype=f, device=dev).scatter_reduce(
-            0, flat_idx, flat_val, reduce="amax")
-        is_best = (flat_val > NEG / 2) & (flat_val >= node_best[flat_idx])
-        node_winner = torch.full((n,), g, dtype=torch.int64,
-                                 device=dev).scatter_reduce(
-            0, flat_idx, torch.where(is_best, flat_g, g), reduce="amin")
-        won = active & (vals >= node_best[idxs]) & (
-            node_winner[idxs] == g_idx[:, None])
-        # capacity of each won node against the usage before this round
+        # capacity of each surfaced node against the usage before this
+        # round
         free = avail_cap[idxs] - used[idxs]                          # (G,R,D)
         per_dim = torch.where(ask_pos[:, None, :],
                               torch.floor(free / ask_safe[:, None, :]),
                               math.inf)
         cap = torch.clamp_min(per_dim.amin(dim=2), 0.0)
-        cap = torch.where(won, cap, 0.0)
-        # spend the remaining demand across the won nodes in score order;
-        # an all-zero ask makes cap inf and its prefix inf - inf = NaN,
-        # which converts to 0 as XLA's float -> int32 conversion does
-        prefix = torch.cumsum(cap, dim=1) - cap
-        amt_f = torch.minimum(torch.clamp_min(
-            remaining.to(f)[:, None] - prefix, 0.0), cap)
-        amt = torch.where(torch.isnan(amt_f), 0.0, amt_f).to(torch.int32)
+        amt, bump = resolve_round(vals, idxs, cap, remaining, n)
         delta = ask[:, None, :] * amt[..., None].to(f)             # (G,R,D)
-        used = used.index_add(0, flat_idx, delta.reshape(-1, d))
+        used = used.index_add(0, idxs.reshape(-1), delta.reshape(-1, d))
         take = take.index_put((g_idx[:, None].expand(g, r), idxs), amt,
                               accumulate=True)
         remaining = remaining - amt.sum(dim=1, dtype=torch.int32)
-        # a price only where the round both contested and drained a node
-        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
-        bids_per_node = zeros.index_add(
-            0, flat_idx, active.reshape(-1).to(torch.int32))
-        filled = won & (cap > 0) & (amt.to(f) >= cap)
-        node_filled = zeros.index_add(
-            0, flat_idx, filled.reshape(-1).to(torch.int32)) > 0
-        price = price + eps * (node_filled & (bids_per_node > 1)).to(f)
+        price = price + eps * bump.to(f)
         rnd += 1
         progressed = bool((amt > 0).any())
     return used, take, rnd

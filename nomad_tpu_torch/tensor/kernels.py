@@ -99,6 +99,30 @@ def fit_scores_np(available, used) -> np.ndarray:
             / BINPACK_MAX_FIT_SCORE)
 
 
+def fill_score_cap(used, available, feas_g, aff_g, ask_g, budget):
+    """One eval's fill score (NEG where the ask does not fit) and
+    capacity per node, ``min(k, floor(free / ask))`` over the asked
+    dims, 0 where the score is NEG, as float32 (reference
+    ``_solve_bulk_multi_impl``, kernels.py:724-745, and the sharded
+    body, sharding.py:223-242)."""
+    ask_pos = ask_g > 0
+    new_used = used + ask_g[None, :]
+    ok = feas_g & torch.all(new_used <= available, dim=1)
+    fitness = fit_scores(available, new_used)
+    aff_present = aff_g != 0.0
+    divisor = 1.0 + aff_present.to(torch.float32)
+    score = (fitness + torch.where(aff_present, aff_g, 0.0)) / divisor
+    score = torch.where(ok, score, NEG)
+    free = available - used
+    per_dim = torch.where(
+        ask_pos[None, :],
+        torch.floor(free / torch.where(ask_pos, ask_g, 1.0)[None, :]),
+        math.inf)
+    cap = torch.clamp_min(torch.min(per_dim, dim=1).values, 0.0)
+    cap = torch.where(score > NEG, cap, 0.0)
+    return score, torch.minimum(cap, budget.to(torch.float32))
+
+
 def bulk_fill_ref(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
     """Plain version of the fill kernel (B1 after the fold and the
     jitter draw): clamps the carry at 0, then fills G evals in order,
@@ -109,25 +133,10 @@ def bulk_fill_ref(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
     counts = torch.zeros((g, n), dtype=torch.int16, device=used.device)
     for gi in range(g):
         ask_g = ask[gi]
-        ask_pos = ask_g > 0
-        new_used = used + ask_g[None, :]
-        ok = feas[gi] & torch.all(new_used <= available, dim=1)
-        fitness = fit_scores(available, new_used)
-        aff_g = aff[gi]
-        aff_present = aff_g != 0.0
-        divisor = 1.0 + aff_present.to(torch.float32)
-        score = (fitness + torch.where(aff_present, aff_g, 0.0)) / divisor
-        score = torch.where(ok, score, NEG)
-
-        free = available - used
-        per_dim = torch.where(
-            ask_pos[None, :],
-            torch.floor(free / torch.where(ask_pos, ask_g, 1.0)[None, :]),
-            math.inf)
-        cap = torch.clamp_min(torch.min(per_dim, dim=1).values, 0.0)
-        cap = torch.where(score > NEG, cap, 0.0)
         budget = k[gi].to(torch.int64)
-        cap = torch.minimum(cap, budget.to(torch.float32)).to(torch.int64)
+        score, cap = fill_score_cap(used, available, feas[gi], aff[gi],
+                                    ask_g, budget)
+        cap = cap.to(torch.int64)
         key = score + jit[gi]
         order = torch.argsort(-key, stable=True)   # residual ties: index
         cap_sorted = cap[order]

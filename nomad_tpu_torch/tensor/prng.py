@@ -95,19 +95,24 @@ def split_ref(keys: torch.Tensor):
     return torch.stack([a0, a1], dim=1), torch.stack([b0, b1], dim=1)
 
 
-def random_bits_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
+def random_bits_keys(keys: torch.Tensor, n: int,
+                     offset: int = 0) -> torch.Tensor:
     """(G, 2) key pairs (int64 holding uint32 words) -> (G, n) int64
-    tensor of the uint32 words ``jax.random.bits(key, (n,), uint32)``."""
+    tensor of the uint32 words ``jax.random.bits(key, (offset + n,),
+    uint32)[:, offset:]``: element i hashes the counter of node offset + i
+    alone, so a node shard draws its own slice."""
     k = keys.to(torch.int64)
-    lo = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(1, -1)
+    lo = torch.arange(offset, offset + n, dtype=torch.int64,
+                      device=keys.device).reshape(1, -1)
     o0, o1 = threefry2x32(k[:, 0:1], k[:, 1:2], torch.zeros_like(lo), lo)
     return o0 ^ o1
 
 
-def random_bits(seeds: torch.Tensor, n: int) -> torch.Tensor:
+def random_bits(seeds: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
     """(G,) seeds -> (G, n) int64 tensor of the uint32 words
-    ``jax.random.bits`` would draw from ``PRNGKey(seed)`` for shape (n,)."""
-    return random_bits_keys(seed_keys(seeds), n)
+    ``jax.random.bits`` would draw from ``PRNGKey(seed)`` for nodes
+    [offset, offset + n)."""
+    return random_bits_keys(seed_keys(seeds), n, offset)
 
 
 def bits_to_uniform(bits: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -120,26 +125,29 @@ def bits_to_uniform(bits: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.maximum(lo_t, f * span + lo_t)
 
 
-def jitter_ref(seeds: torch.Tensor, n: int, hi: float) -> torch.Tensor:
+def jitter_ref(seeds: torch.Tensor, n: int, hi: float,
+               offset: int = 0) -> torch.Tensor:
     """Plain version of the jitter kernel: (G,) seeds -> (G, n) float32
-    draws of U[0, hi), one row per seed."""
+    draws of U[0, hi) for nodes [offset, offset + n), one row per seed."""
     _ext.COUNTS.plain("jitter", seeds)
-    return bits_to_uniform(random_bits(seeds, n), 0.0, hi)
+    return bits_to_uniform(random_bits(seeds, n, offset), 0.0, hi)
 
 
-def jitter_keys_ref(keys: torch.Tensor, n: int, hi: float) -> torch.Tensor:
+def jitter_keys_ref(keys: torch.Tensor, n: int, hi: float,
+                    offset: int = 0) -> torch.Tensor:
     """(G, 2) key pairs -> (G, n) float32 draws of U[0, hi), one row per
-    key: ``jax.random.uniform(key, (n,), float32, 0.0, hi)``."""
-    return bits_to_uniform(random_bits_keys(keys, n), 0.0, hi)
+    key: ``jax.random.uniform(key, (offset + n,), float32, 0.0,
+    hi)[offset:]``."""
+    return bits_to_uniform(random_bits_keys(keys, n, offset), 0.0, hi)
 
 
-def jitter_fold_ref(seeds: torch.Tensor, n: int,
-                    his: Sequence[float]) -> torch.Tensor:
+def jitter_fold_ref(seeds: torch.Tensor, n: int, his: Sequence[float],
+                    offset: int = 0) -> torch.Tensor:
     """Plain version of the keyed jitter kernel: (G,) seeds -> (T, G, n)
     float32, row t the draws of U[0, his[t]) from
-    ``fold_in(PRNGKey(seed), t)``."""
+    ``fold_in(PRNGKey(seed), t)`` for nodes [offset, offset + n)."""
     _ext.COUNTS.plain("jitter_fold", seeds)
-    return torch.stack([jitter_keys_ref(fold_in(seeds, t), n, hi)
+    return torch.stack([jitter_keys_ref(fold_in(seeds, t), n, hi, offset)
                         for t, hi in enumerate(his)])
 
 
@@ -206,14 +214,15 @@ def _span(hi: float) -> float:
                  - torch.tensor(0.0, dtype=torch.float32))
 
 
-def jitter_fold(seeds: torch.Tensor, n: int,
-                his: Sequence[float]) -> torch.Tensor:
+def jitter_fold(seeds: torch.Tensor, n: int, his: Sequence[float],
+                offset: int = 0) -> torch.Tensor:
     """(G,) int64 seeds in [0, 2**32) -> (T, G, n) float32, row t the
-    draws of U[0, his[t]) from ``fold_in(PRNGKey(seed), t)``: the CUDA
-    kernel (csrc/jitter.cu ``nt_jitter_fold``, one launch for all T) for
-    a CUDA tensor, :func:`jitter_fold_ref` for a CPU tensor."""
+    draws of U[0, his[t]) from ``fold_in(PRNGKey(seed), t)`` for nodes
+    [offset, offset + n): the CUDA kernel (csrc/jitter.cu
+    ``nt_jitter_fold``, one launch for all T) for a CUDA tensor,
+    :func:`jitter_fold_ref` for a CPU tensor."""
     if seeds.device.type == "cpu":
-        return jitter_fold_ref(seeds, n, his)
+        return jitter_fold_ref(seeds, n, his, offset)
     if not seeds.is_cuda:
         raise ValueError(f"jitter_fold: unsupported device {seeds.device}")
     s32 = _seeds_u32(seeds, "jitter_fold")
@@ -226,17 +235,19 @@ def jitter_fold(seeds: torch.Tensor, n: int,
     spans = (ctypes.c_float * n_t)(*(_span(hi) for hi in his))
     fn = _ext.entry("nt_jitter_fold")
     _ext.check(fn(s32.data_ptr(), spans, n_t, out.data_ptr(), g, n,
-                  _ext.stream_handle(seeds.device)), "jitter_fold launch")
+                  int(offset), _ext.stream_handle(seeds.device)),
+               "jitter_fold launch")
     _ext.COUNTS.launched("jitter_fold")
     return out
 
 
-def jitter(seeds: torch.Tensor, n: int, hi: float) -> torch.Tensor:
-    """(G,) int64 seeds in [0, 2**32) -> (G, n) float32 U[0, hi): the
-    CUDA kernel (csrc/jitter.cu) for a CUDA tensor, :func:`jitter_ref`
-    for a CPU tensor."""
+def jitter(seeds: torch.Tensor, n: int, hi: float,
+           offset: int = 0) -> torch.Tensor:
+    """(G,) int64 seeds in [0, 2**32) -> (G, n) float32 U[0, hi) for
+    nodes [offset, offset + n): the CUDA kernel (csrc/jitter.cu) for a
+    CUDA tensor, :func:`jitter_ref` for a CPU tensor."""
     if seeds.device.type == "cpu":
-        return jitter_ref(seeds, n, hi)
+        return jitter_ref(seeds, n, hi, offset)
     if not seeds.is_cuda:
         raise ValueError(f"jitter: unsupported device {seeds.device}")
     s32 = _seeds_u32(seeds, "jitter")
@@ -244,6 +255,7 @@ def jitter(seeds: torch.Tensor, n: int, hi: float) -> torch.Tensor:
     out = torch.empty((g, n), dtype=torch.float32, device=seeds.device)
     fn = _ext.entry("nt_jitter")
     _ext.check(fn(s32.data_ptr(), out.data_ptr(), g, n, _span(hi),
-                  _ext.stream_handle(seeds.device)), "jitter launch")
+                  int(offset), _ext.stream_handle(seeds.device)),
+               "jitter launch")
     _ext.COUNTS.launched("jitter")
     return out

@@ -1,0 +1,786 @@
+"""The node-sharded solve (reference ``nomad_tpu/tensor/sharding.py``).
+
+The long axis of the workload is nodes. A :class:`NodeMesh` is one
+controller process and an ordered list of S devices; shard s owns the
+global node rows ``[s * n_loc, (s + 1) * n_loc)``, ``n_loc = N / S``,
+and holds them on ``devices[s]``. A sharded array is a list of S
+per-shard *parts*: rows ``(n_loc, ...)`` of an (N, ...) array, or
+columns ``(..., n_loc)`` of a (G, N) array. The list may repeat a
+device: that is how one card holds S shards, as the reference's tests
+hold them on virtual CPU devices; each shard keeps its own parts and
+launches all the same, so one card runs the layout of S cards.
+
+Three programs run on a mesh, each a per-shard body plus the one
+collective, :func:`all_gather`:
+
+- B15 :func:`state_scatter_sharded` (``:144-179``): ``used[idx] +=
+  delta`` with each shard adding only the rows it owns;
+- B13 :func:`solve_bulk_multi_sharded` (``:198-365``): the greedy bulk
+  fill. Per eval, rounds of a distributed top-R: each shard surfaces its
+  R best (key, cap, global id) candidates, the pools are all-gathered
+  and merged by (key desc, global id asc), and every candidate above the
+  best-covered shard's worst entry is consumed in that order until the
+  budget is spent;
+- B14 :func:`solve_batch_sharded` (``:368-629``): the joint auction
+  portfolio against that greedy arm. Per auction round each shard bids
+  over its own nodes and surfaces each eval's top 16, one all-gather
+  merges them to each eval's exact global top 16, and winners, fills and
+  price bumps follow as in the single-device auction; each shard applies
+  its own rows. The arm scores sum the per-node contributions in the
+  global node order by the fixed pairwise tree, so every layout picks
+  alike.
+
+Each has a plain torch version (``*_ref``) that follows the reference's
+per-shard body step by step with explicit gathers; the replicated math
+after a gather is computed once, since every shard would compute the
+same. On CUDA the wrappers launch ``csrc/sharded.cu``, one launch a
+shard, the gather between launches. The round loops keep their
+conditions on the device, but the host reads them once per solve, plus
+once per resume when a chunk of rounds did not finish an eval
+(:data:`READS`): a sharded solve blocks its caller until its rounds
+have run.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import List, Sequence
+
+import torch
+
+from .. import _ext
+from ..device import resolve
+from .batch_solver import (MAX_ROUNDS, PORTFOLIO, TOP_R, _eps_tensor,
+                           _jitter_his, _price_eps, bid_scores,
+                           resolve_round, topr_ref)
+from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda,
+                      fill_score_cap, fit_scores, pairwise_sum_ref,
+                      preempt_score_ref)
+from .prng import jitter, jitter_fold, jitter_fold_ref, jitter_ref
+
+# rounds a B13 eval gets before the host looks at its flags; a stalled
+# eval resumes with CHUNK_RESUME rounds, doubling
+CHUNK_GREEDY = 2
+CHUNK_AUCTION = 8
+CHUNK_RESUME = 8
+MAX_SHARDS = 64
+MAX_MERGE = 2048     # gathered B13 pool entries one merge CTA sorts
+MAX_PICK_NODES = 32768  # nodes the B14 pick's pairwise tree holds
+
+
+class NodeMesh:
+    """S node shards over an ordered device list (repeats allowed)."""
+
+    def __init__(self, devices: Sequence):
+        if not devices:
+            raise ValueError("NodeMesh: no devices")
+        self.devices = tuple(resolve(d) for d in devices)
+        self.size = len(self.devices)
+        if self.size > MAX_SHARDS:
+            raise ValueError(f"NodeMesh: at most {MAX_SHARDS} shards")
+
+    @property
+    def cards(self) -> int:
+        """Distinct devices."""
+        return len(set(self.devices))
+
+    def n_loc(self, n: int) -> int:
+        if n % self.size:
+            raise ValueError(f"{n} nodes do not divide over {self.size} "
+                             f"shards")
+        return n // self.size
+
+    def __repr__(self) -> str:
+        return f"NodeMesh({', '.join(map(str, self.devices))})"
+
+
+def node_mesh(devices: Sequence) -> NodeMesh:
+    return NodeMesh(devices)
+
+
+def shard_rows(mesh: NodeMesh, x: torch.Tensor) -> List[torch.Tensor]:
+    """(N, ...) rows -> the shards' parts, each on its device."""
+    n_loc = mesh.n_loc(x.shape[0])
+    return [x[s * n_loc:(s + 1) * n_loc].to(dev, non_blocking=True)
+            .contiguous() for s, dev in enumerate(mesh.devices)]
+
+
+def shard_cols(mesh: NodeMesh, x: torch.Tensor) -> List[torch.Tensor]:
+    """(..., N) columns -> the shards' parts, each on its device."""
+    n_loc = mesh.n_loc(x.shape[-1])
+    return [x[..., s * n_loc:(s + 1) * n_loc].to(dev, non_blocking=True)
+            .contiguous() for s, dev in enumerate(mesh.devices)]
+
+
+def shard_bulk_state(mesh: NodeMesh, used0, available):
+    """The bulk carry and capacity as float32 row parts."""
+    return (shard_rows(mesh, torch.as_tensor(used0, dtype=torch.float32)),
+            shard_rows(mesh, torch.as_tensor(available,
+                                             dtype=torch.float32)))
+
+
+def replicate(mesh: NodeMesh, x: torch.Tensor) -> List[torch.Tensor]:
+    """One copy of ``x`` for each shard, on its device (no copy where
+    ``x`` already lies)."""
+    return [x.to(dev, non_blocking=True) for dev in mesh.devices]
+
+
+def gather_rows(parts: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The parts put together along ``dim`` on the first part's device."""
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
+def all_gather(mesh: NodeMesh, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The one collective. ``bufs`` holds one (S, ...) buffer per shard,
+    on its device, and shard s has written row s of its own. Every
+    buffer gets the other rows copied in, each copy queued on the
+    destination's current stream; where the source lies on another
+    device, that stream first waits on an event of the source's."""
+    ready = {}
+    for dev in set(mesh.devices):
+        if dev.type == "cuda":
+            ready[dev] = torch.cuda.Event()
+            ready[dev].record(torch.cuda.current_stream(dev))
+    for d, (dev, dst) in enumerate(zip(mesh.devices, bufs)):
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            for src_dev, ev in ready.items():
+                if src_dev != dev:
+                    stream.wait_event(ev)
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            for q, src in enumerate(bufs):
+                if q != d:
+                    dst[q].copy_(src[q], non_blocking=True)
+    return bufs
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def state_scatter_sharded_ref(mesh: NodeMesh, used: List[torch.Tensor],
+                              idx: torch.Tensor, delta: torch.Tensor, *,
+                              clamp: bool = False) -> List[torch.Tensor]:
+    """Plain version of B15 (``make_state_scatter_sharded``), in place:
+    each shard masks off-shard rows to a zero delta and clips the index
+    local; with ``clamp`` (the B13/B14 correction fold) the shard's rows
+    are then clamped at 0."""
+    _ext.COUNTS.plain("scatter_shard", used[0])
+    for s, rows in enumerate(used):
+        n_loc = rows.shape[0]
+        dev = rows.device
+        local = idx.to(dev, torch.int64) - s * n_loc
+        own = (local >= 0) & (local < n_loc)
+        safe = local.clamp(0, n_loc - 1)
+        rows.index_add_(0, safe, torch.where(own[:, None], delta.to(dev),
+                                             0.0))
+        if clamp:
+            rows.clamp_min_(0.0)
+    return used
+
+
+def _lexsort_desc(keys: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    """Order of the last axis by key descending, global id ascending on
+    equal keys, -0.0 equal to +0.0: ``jnp.lexsort((gids, -keys))`` and
+    the two-key ``lax.sort`` of the reference."""
+    o1 = torch.argsort(gids, dim=-1, stable=True)
+    k1 = torch.gather(keys, -1, o1)
+    o2 = torch.argsort(-k1 + 0.0, dim=-1, stable=True)
+    return torch.gather(o1, -1, o2)
+
+
+def _bulk_body_ref(mesh, used, avail, feas, aff, ask, k, seeds, *, g, top_r):
+    """B13's per-shard body after the fold (sharding.py:222-315) on the
+    row parts ``used`` (updated in place). Returns (counts parts (G, *)
+    int16, rounds (G,) int32)."""
+    s_n = mesh.size
+    dev0 = used[0].device
+    n_loc = used[0].shape[0]
+    r = min(top_r, n_loc)
+    jits = [jitter_ref(seeds.to(dev), n_loc, TIE_JITTER, offset=s * n_loc)
+            for s, dev in enumerate(mesh.devices)]
+    counts = [torch.zeros((g, n_loc), dtype=torch.int16, device=dev)
+              for dev in mesh.devices]
+    rounds = torch.zeros(g, dtype=torch.int32, device=dev0)
+    pools = [torch.zeros((s_n, 3, r), dtype=torch.float32, device=dev)
+             for dev in mesh.devices]
+    for e in range(g):
+        budget = int(k[e])
+        keys, caps, takes = [], [], []
+        for s, dev in enumerate(mesh.devices):
+            # the eval's start (sharding.py:223-249)
+            score, cap = fill_score_cap(used[s], avail[s], feas[s][e],
+                                        aff[s][e], ask[e].to(dev),
+                                        k[e].to(dev))
+            keys.append(score + jits[s][e])
+            caps.append(cap.to(torch.int32))
+            takes.append(torch.zeros(n_loc, dtype=torch.int32, device=dev))
+        rnd, go = 0, budget > 0
+        while go:
+            for s in range(s_n):
+                masked = torch.where(caps[s] > 0, keys[s], NEG)
+                vals, loc = topr_ref(masked, r)
+                pools[s][s] = torch.stack([
+                    vals, caps[s][loc].to(torch.float32),
+                    (loc + s * n_loc).to(torch.float32)])
+            all_gather(mesh, pools)
+            p = pools[0]
+            keys_all = p[:, 0, :].reshape(-1)
+            caps_all = p[:, 1, :].reshape(-1).to(torch.int32)
+            gidx_all = p[:, 2, :].reshape(-1).to(torch.int64)
+            thresh = p[:, 0, r - 1].max()
+            order = _lexsort_desc(keys_all, gidx_all)
+            keys_s = keys_all[order]
+            caps_s = caps_all[order]
+            eligible = keys_s > thresh
+            eligible[0] = keys_s[0] > NEG
+            caps_e = torch.where(eligible, caps_s, 0)
+            cum = torch.cumsum(caps_e, 0, dtype=torch.int32)
+            take_s = torch.minimum(torch.clamp_min(
+                budget - (cum - caps_e), 0), caps_e)
+            consumed = int(take_s.sum())
+            take_c = torch.zeros_like(caps_all)
+            take_c[order] = take_s
+            elig_c = torch.zeros_like(eligible)
+            elig_c[order] = eligible
+            for s in range(s_n):
+                dev = takes[s].device
+                pos = gidx_all.to(dev) - s * n_loc
+                mine = (pos >= 0) & (pos < n_loc)
+                takes[s].index_add_(0, pos[mine], take_c.to(dev)[mine])
+                caps[s][pos[mine & elig_c.to(dev)]] = 0
+            budget -= consumed
+            rnd += 1
+            go = budget > 0 and bool(keys_s[0] > NEG) and consumed > 0
+        for s, rows in enumerate(used):
+            rows += ask[e].to(rows.device)[None, :] * takes[s][:, None].to(
+                torch.float32)
+            counts[s][e] = takes[s].to(torch.int16)
+        rounds[e] = rnd
+    return counts, rounds
+
+
+def solve_bulk_multi_sharded_ref(mesh, used, avail, feas, aff, ask, k, seeds,
+                                 cidx, cdelta, *, g: int, top_r: int = 64):
+    """Plain version of :func:`solve_bulk_multi_sharded`, step by step
+    the reference's ``_bulk_shard_body``. Updates the ``used`` parts in
+    place."""
+    _ext.COUNTS.plain("bulk_shard_pool", used[0])
+    state_scatter_sharded_ref(mesh, used, cidx, cdelta, clamp=True)
+    counts, rounds = _bulk_body_ref(mesh, used, avail, feas, aff, ask, k,
+                                    seeds, g=g, top_r=top_r)
+    return used, counts, rounds
+
+
+def _det_score_ref(mesh, avail, used, take):
+    """``det_score`` of an arm's carry and (G, N) take parts: per-node
+    placed x fitness, gathered in global node order and summed by the
+    pairwise tree; placed is an integer psum."""
+    contrib, placed = [], 0
+    for t, a, u in zip(take, avail, used):
+        node = t.to(torch.int32).sum(dim=0, dtype=torch.int32)
+        placed += int(node.sum())
+        contrib.append((node.to(torch.float32) * fit_scores(a, u)).to(
+            mesh.devices[0]))
+    return pairwise_sum_ref(torch.cat(contrib)), placed
+
+
+def _auction_sharded_ref(mesh, used0, avail, avail_cap, feas, aff, ask, k,
+                         jits, pscore, *, g, rounds, price_eps):
+    """One portfolio restart of ``_joint_body`` (sharding.py:452-541).
+    ``used0`` is left alone. Returns (used parts, take parts (G, *)
+    int32, rounds run)."""
+    s_n = mesh.size
+    n_loc = used0[0].shape[0]
+    n = n_loc * s_n
+    dev0 = used0[0].device
+    r_loc = min(TOP_R, n_loc)
+    r_glob = min(TOP_R, n)
+    f = torch.float32
+    used = [u.clone() for u in used0]
+    take = [torch.zeros((g, u.shape[0]), dtype=torch.int32, device=u.device)
+            for u in used0]
+    price = torch.zeros(n, dtype=f, device=dev0)
+    remaining = k.to(dev0, torch.int32).clone()
+    g_idx = torch.arange(g, device=dev0)
+    pools = [torch.zeros((s_n, 3, g, r_loc), dtype=f, device=dev)
+             for dev in mesh.devices]
+    rnd, progressed = 0, True
+    while rnd < rounds and progressed and bool((remaining > 0).any()):
+        for s, (u, dev) in enumerate(zip(used, mesh.devices)):
+            cap_s = avail_cap[s]
+            a_s = ask.to(dev)
+            ok, score = bid_scores(
+                u, avail[s], cap_s, feas[s], aff[s], a_s, remaining.to(dev),
+                None if pscore is None else pscore[s])
+            price_loc = price[s * n_loc:(s + 1) * n_loc].to(dev)
+            bid = torch.where(ok, score + jits[s] - price_loc[None, :], NEG)
+            lvals, lidx = topr_ref(bid, r_loc)                       # (G, RL)
+            free = cap_s[lidx] - u[lidx]                             # (G,RL,D)
+            ask_pos = a_s > 0
+            per_dim = torch.where(
+                ask_pos[:, None, :],
+                torch.floor(free / torch.where(ask_pos, a_s, 1.0)[:, None, :]),
+                float("inf"))
+            lcap = torch.clamp_min(per_dim.amin(dim=2), 0.0)
+            pools[s][s] = torch.stack([lvals, lcap,
+                                        (lidx + s * n_loc).to(f)])
+        all_gather(mesh, pools)
+        # each eval's exact global top r_glob (value desc, id asc), then
+        # the round resolved over the replicated boards
+        p = pools[0]
+        vals_m = p[:, 0].permute(1, 0, 2).reshape(g, -1)
+        caps_m = p[:, 1].permute(1, 0, 2).reshape(g, -1)
+        gids_m = p[:, 2].permute(1, 0, 2).reshape(g, -1).to(torch.int64)
+        order = _lexsort_desc(vals_m, gids_m)
+        vals = torch.gather(vals_m, 1, order)[:, :r_glob]
+        gids = torch.gather(gids_m, 1, order)[:, :r_glob]
+        caps = torch.gather(caps_m, 1, order)[:, :r_glob]
+        amt, bump = resolve_round(vals, gids, caps, remaining, n)
+        for s, (u, dev) in enumerate(zip(used, mesh.devices)):
+            pos = gids.to(dev) - s * n_loc
+            mine = (pos >= 0) & (pos < n_loc)
+            posc = pos.clamp(0, n_loc - 1)
+            amt_mine = torch.where(mine, amt.to(dev), 0)
+            u.index_add_(0, posc.reshape(-1), (
+                ask.to(dev)[:, None, :] * amt_mine[..., None].to(f)
+            ).reshape(-1, u.shape[1]))
+            take[s].index_put_((g_idx.to(dev)[:, None].expand(g, r_glob), posc),
+                          amt_mine, accumulate=True)
+        remaining = remaining - amt.sum(dim=1, dtype=torch.int32)
+        price = price + price_eps * bump.to(f)
+        rnd += 1
+        progressed = bool((amt > 0).any())
+    return used, take, rnd
+
+
+def solve_batch_sharded_ref(mesh, used, avail, feas, aff, ask, k, seeds,
+                            cidx, cdelta, evict=None, net_prio=None, *,
+                            g: int, rounds: int = MAX_ROUNDS,
+                            top_r: int = 64):
+    """Plain version of :func:`solve_batch_sharded`, step by step the
+    reference's ``_joint_body``. The ``used`` parts take the correction
+    fold in place; the returned carry parts are new tensors. Returns
+    (used parts, counts parts (G, *) int16, info (6,), gathers)."""
+    _ext.COUNTS.plain("joint_shard_bids", used[0])
+    dev0 = used[0].device
+    state_scatter_sharded_ref(mesh, used, cidx, cdelta, clamp=True)
+    used_g = [u.clone() for u in used]
+    counts_g, rounds_g = _bulk_body_ref(mesh, used_g, avail, feas, aff, ask,
+                                        k, seeds, g=g, top_r=top_r)
+    gathers = int(rounds_g.sum())
+    avail_cap = (avail if evict is None
+                 else [a + e for a, e in zip(avail, evict)])
+    pscore = (None if net_prio is None
+              else [preempt_score_ref(p) for p in net_prio])
+    n_loc = used[0].shape[0]
+    jits_all = [jitter_fold_ref(seeds.to(dev), n_loc, _jitter_his(),
+                                offset=s * n_loc)
+                for s, dev in enumerate(mesh.devices)]
+    best = None
+    for t, eps in enumerate(_price_eps()):
+        used_t, take_t, rnd_t = _auction_sharded_ref(
+            mesh, used, avail, avail_cap, feas, aff, ask, k,
+            [j[t] for j in jits_all], pscore, g=g, rounds=rounds,
+            price_eps=eps)
+        gathers += rnd_t + 1
+        score_t, placed_t = _det_score_ref(mesh, avail, used_t, take_t)
+        if best is None or placed_t > best[3] or (
+                placed_t == best[3] and bool(score_t > best[2])):
+            best = (used_t, take_t, score_t, placed_t, rnd_t)
+    used_a, take, score_a, placed_a, rnd = best
+    score_g, placed_g = _det_score_ref(mesh, avail, used_g, counts_g)
+    gathers += 1
+    pick_a = placed_a > placed_g or (placed_a == placed_g
+                                     and bool(score_a > score_g))
+    if pick_a:
+        out_used, out_counts = used_a, [t.to(torch.int16) for t in take]
+    else:
+        out_used, out_counts = used_g, counts_g
+    info = torch.tensor([float(score_a), float(score_g), float(placed_a),
+                         float(placed_g), float(rnd), float(pick_a)],
+                        dtype=torch.float32).to(dev0)
+    return (out_used, out_counts, info,
+            torch.tensor(gathers, dtype=torch.int32, device=dev0))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+# host reads of the round-loop flags, per solve kind (one per solve, plus
+# one per resume)
+READS = {"bulk_shard": 0, "joint_shard": 0}
+_reads_lock = threading.Lock()
+
+
+def _count_read(kind: str) -> None:
+    with _reads_lock:
+        READS[kind] += 1
+
+
+def _is_cpu(mesh: NodeMesh) -> bool:
+    if all(d.type == "cpu" for d in mesh.devices):
+        return True
+    if any(d.type != "cuda" for d in mesh.devices):
+        raise ValueError(f"unsupported mesh {mesh}")
+    return False
+
+
+def _check_parts(what, mesh, name, parts, dtype, shape):
+    if len(parts) != mesh.size:
+        raise ValueError(f"{what}: {name} has {len(parts)} parts for "
+                         f"{mesh.size} shards")
+    for p, dev in zip(parts, mesh.devices):
+        _check_cuda(what, name, p, dtype, shape, dev)
+
+
+def _stream(dev) -> int:
+    return _ext.stream_handle(dev)
+
+
+def _scatter_launch(mesh, used, idx, delta, clamp: bool) -> None:
+    n_loc = used[0].shape[0]
+    b = idx.shape[0]
+    fn = _ext.entry("nt_scatter_shard")
+    for s, (p, dev) in enumerate(zip(used, mesh.devices)):
+        i = idx.to(dev, torch.int32, non_blocking=True).contiguous()
+        dlt = delta.to(dev, torch.float32, non_blocking=True).contiguous()
+        _ext.check(fn(p.data_ptr(), i.data_ptr(), dlt.data_ptr(), b, n_loc,
+                      s, int(clamp), _stream(dev)), "scatter_shard launch")
+        _ext.COUNTS.launched("scatter_shard")
+
+
+def state_scatter_sharded(mesh: NodeMesh, used: List[torch.Tensor],
+                          idx: torch.Tensor,
+                          delta: torch.Tensor) -> List[torch.Tensor]:
+    """B15: ``used[idx] += delta`` on the row parts of a (N, 4) carry,
+    in place, each shard adding the rows it owns. ``idx`` (B,) int32
+    global rows and ``delta`` (B, 4) f32 are replicated. The CUDA kernel
+    (csrc/sharded.cu ``nt_scatter_shard``) on a CUDA mesh, the plain
+    version on a CPU mesh."""
+    if _is_cpu(mesh):
+        return state_scatter_sharded_ref(mesh, used, idx, delta)
+    n_loc = mesh.n_loc(sum(p.shape[0] for p in used))
+    _check_parts("state_scatter_sharded", mesh, "used", used, torch.float32,
+                 (n_loc, 4))
+    _scatter_launch(mesh, used, idx, delta, clamp=False)
+    return used
+
+
+class _BulkRun:
+    """The device state of one B13 chain on a mesh: per shard the (key,
+    cap, take) scratch of its rows, the replicated flags (the stall word,
+    then budget, go and rounds per eval), the gathered pools, the counts
+    and the rounds."""
+
+    def __init__(self, mesh, used, avail, feas, aff, ask, k, seeds, g,
+                 top_r):
+        self.mesh, self.g = mesh, g
+        self.used, self.avail, self.feas, self.aff = used, avail, feas, aff
+        self.n_loc = n_loc = used[0].shape[0]
+        self.r = min(top_r, n_loc)
+        self.ask = replicate(mesh, ask.to(torch.float32).contiguous())
+        self.k = replicate(mesh, k.to(torch.int32).contiguous())
+        self.jit, self.scratch, self.state, self.pools = [], [], [], []
+        self.counts, self.rounds = [], []
+        for s, dev in enumerate(mesh.devices):
+            self.jit.append(jitter(seeds.to(dev), n_loc, TIE_JITTER,
+                                   offset=s * n_loc))
+            self.scratch.append(torch.empty((3, n_loc), dtype=torch.int32,
+                                            device=dev))
+            self.state.append(torch.zeros(1 + 3 * g, dtype=torch.int32,
+                                          device=dev))
+            self.pools.append(torch.empty((mesh.size, 3, self.r),
+                                          dtype=torch.float32, device=dev))
+            self.counts.append(torch.zeros((g, n_loc), dtype=torch.int16,
+                                           device=dev))
+            self.rounds.append(torch.zeros(g, dtype=torch.int32, device=dev))
+
+    def round(self, e: int, first: bool, last: bool) -> None:
+        mesh, pool_fn = self.mesh, _ext.entry("nt_bulk_shard_pool")
+        for s, dev in enumerate(mesh.devices):
+            _ext.check(pool_fn(
+                self.used[s].data_ptr(), self.avail[s].data_ptr(),
+                self.feas[s].data_ptr(), self.aff[s].data_ptr(),
+                self.ask[s].data_ptr(), self.k[s].data_ptr(),
+                self.jit[s].data_ptr(), self.scratch[s].data_ptr(),
+                self.state[s].data_ptr(), self.pools[s].data_ptr(), e,
+                self.g, self.n_loc, s, self.r, int(first), _stream(dev)),
+                "bulk_shard_pool launch")
+            _ext.COUNTS.launched("bulk_shard_pool")
+        all_gather(mesh, self.pools)
+        merge_fn = _ext.entry("nt_bulk_shard_merge")
+        for s, dev in enumerate(mesh.devices):
+            _ext.check(merge_fn(
+                self.used[s].data_ptr(), self.ask[s].data_ptr(),
+                self.scratch[s].data_ptr(), self.state[s].data_ptr(),
+                self.pools[s].data_ptr(), self.counts[s].data_ptr(),
+                self.rounds[s].data_ptr(), e, self.g, self.n_loc,
+                mesh.size, s, self.r, int(last), _stream(dev)),
+                "bulk_shard_merge launch")
+            _ext.COUNTS.launched("bulk_shard_merge")
+
+    def queue(self, e: int, count: int, first: bool) -> None:
+        """Queue ``count`` rounds of eval ``e`` (``first``: the eval
+        starts with them). An eval still going after its last queued
+        round sets the stall word, and every later launch of the chain
+        returns at once, until the host clears it."""
+        for i in range(count):
+            self.round(e, first=first and i == 0, last=i == count - 1)
+
+    def chain(self, start: int, chunk: int) -> None:
+        for e in range(start, self.g):
+            self.queue(e, chunk, first=True)
+
+    def stall_flag(self) -> torch.Tensor:
+        return self.state[0][:1]
+
+    def resume(self, word: int, chunk: int) -> None:
+        """Go on from a stall: eval ``word - 1`` keeps its state and gets
+        more rounds, doubling while it stalls again; later evals start
+        anew, and the next eval to stall starts again at CHUNK_RESUME, so
+        an eval is queued at most about twice the rounds it runs."""
+        more, stalled = CHUNK_RESUME, word
+        while word:
+            if word != stalled:
+                more, stalled = CHUNK_RESUME, word
+            for st in self.state:
+                st[:1].zero_()
+            self.queue(word - 1, more, first=False)
+            self.chain(word, chunk)
+            _count_read("bulk_shard")
+            word = int(self.stall_flag().cpu())
+            more *= 2
+
+    def run(self, chunk: int = CHUNK_GREEDY) -> None:
+        self.chain(0, chunk)
+        _count_read("bulk_shard")
+        self.resume(int(self.stall_flag().cpu()), chunk)
+
+
+def _bulk_checks(what, mesh, used, avail, feas, aff, g, top_r):
+    n = sum(p.shape[0] for p in used)
+    n_loc = mesh.n_loc(n)
+    if not 1 <= n_loc <= MAX_FILL_NODES:
+        raise NotImplementedError(
+            f"{what}: {n_loc} nodes a shard; the one-CTA shard pool sorts "
+            f"1 to {MAX_FILL_NODES} keys in shared memory")
+    if mesh.size * min(top_r, n_loc) > MAX_MERGE:
+        raise NotImplementedError(
+            f"{what}: {mesh.size} shards x top_r {top_r}; the one-CTA merge "
+            f"sorts at most {MAX_MERGE} gathered entries")
+    _check_parts(what, mesh, "used", used, torch.float32, (n_loc, 4))
+    _check_parts(what, mesh, "avail", avail, torch.float32, (n_loc, 4))
+    _check_parts(what, mesh, "feas", feas, torch.bool, (g, n_loc))
+    _check_parts(what, mesh, "aff", aff, torch.float32, (g, n_loc))
+    return n_loc
+
+
+def solve_bulk_multi_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
+                             seeds, cidx, cdelta, *, g: int,
+                             top_r: int = 64):
+    """B13: G chained greedy bulk fills on a node-sharded carry ->
+    (used parts, counts parts (G, *) int16, rounds (G,) int32 on the
+    first shard's device).
+
+    ``used`` / ``avail``: (N, 4) f32 row parts, ``used`` updated IN
+    PLACE; ``feas`` (G, N) bool and ``aff`` (G, N) f32 column parts;
+    ``ask`` (G, 4) f32, ``k`` (G,) int32 (at most 32,767), ``seeds`` (G,)
+    int64, ``cidx`` (C,) int32 and ``cdelta`` (C, 4) f32 replicated.
+    Counts equal :func:`kernels.solve_bulk_multi`'s; ``rounds`` (the
+    all-gathers of each eval) depends on the layout. On a CUDA mesh the
+    kernels of csrc/sharded.cu run, on a CPU mesh the plain version."""
+    if feas[0].shape[0] != g or ask.shape[0] != g:
+        raise ValueError(f"solve_bulk_multi_sharded: g={g} but feas/ask "
+                         f"carry {feas[0].shape[0]}/{ask.shape[0]} rows")
+    if _is_cpu(mesh):
+        return solve_bulk_multi_sharded_ref(mesh, used, avail, feas, aff,
+                                            ask, k, seeds, cidx, cdelta, g=g,
+                                            top_r=top_r)
+    _bulk_checks("solve_bulk_multi_sharded", mesh, used, avail, feas, aff, g,
+                 top_r)
+    _scatter_launch(mesh, used, cidx, cdelta, clamp=True)
+    run = _BulkRun(mesh, used, avail, feas, aff, ask, k, seeds, g, top_r)
+    run.run()
+    return used, run.counts, run.rounds[0]
+
+
+def solve_batch_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
+                        seeds, cidx, cdelta, evict=None, net_prio=None, *,
+                        g: int, rounds: int = MAX_ROUNDS, top_r: int = 64):
+    """B14: the joint auction portfolio against the B13 greedy arm on a
+    node-sharded carry -> (used parts, counts parts (G, *) int16, info
+    (6,) f32, gathers (0-dim int32)), as
+    :func:`batch_solver.solve_batch` computes them on one device.
+
+    Arguments as :func:`solve_bulk_multi_sharded`'s; ``evict`` (N, 4)
+    row parts and ``net_prio`` (N,) parts come together or not at all.
+    The ``used`` parts take the correction fold in place; the returned
+    carry parts are new tensors. ``gathers`` is the reference's count of
+    all-gathers: the greedy arm's rounds, each restart's rounds plus one,
+    and one. On a CUDA mesh the kernels of csrc/sharded.cu run, on a CPU
+    mesh the plain version."""
+    if (evict is None) != (net_prio is None):
+        raise ValueError("solve_batch_sharded: evict and net_prio come "
+                         "together")
+    if feas[0].shape[0] != g or ask.shape[0] != g:
+        raise ValueError(f"solve_batch_sharded: g={g} but feas/ask carry "
+                         f"{feas[0].shape[0]}/{ask.shape[0]} rows")
+    if _is_cpu(mesh):
+        return solve_batch_sharded_ref(mesh, used, avail, feas, aff, ask, k,
+                                       seeds, cidx, cdelta, evict, net_prio,
+                                       g=g, rounds=rounds, top_r=top_r)
+    n_loc = _bulk_checks("solve_batch_sharded", mesh, used, avail, feas, aff,
+                         g, top_r)
+    if not 1 <= g <= 64:
+        raise ValueError(f"solve_batch_sharded: 1-64 evals, got {g}")
+    if n_loc * mesh.size > MAX_PICK_NODES:
+        raise NotImplementedError(
+            f"solve_batch_sharded: {n_loc * mesh.size} nodes; the pick sums "
+            f"at most {MAX_PICK_NODES} in one CTA's shared memory")
+    if evict is not None:
+        _check_parts("solve_batch_sharded", mesh, "evict", evict,
+                     torch.float32, (n_loc, 4))
+        _check_parts("solve_batch_sharded", mesh, "net_prio", net_prio,
+                     torch.float32, (n_loc,))
+    _scatter_launch(mesh, used, cidx, cdelta, clamp=True)
+    used_g = [u.clone() for u in used]
+    greedy = _BulkRun(mesh, used_g, avail, feas, aff, ask, k, seeds, g, top_r)
+    greedy.chain(0, CHUNK_GREEDY)
+    joint = _JointRun(mesh, used, avail, feas, aff, greedy.ask, greedy.k,
+                      seeds, evict, net_prio, g, rounds)
+    done = min(CHUNK_AUCTION, rounds)
+    joint.rounds_chunk(0, done)
+    # one host read for both arms, then whatever either still needs
+    _count_read("joint_shard")
+    flags = torch.cat([greedy.stall_flag(), joint.go_flags()]).cpu()
+    greedy.resume(int(flags[0]), CHUNK_GREEDY)
+    going = bool(flags[1:].any())
+    while going and done < rounds:
+        more = min(done, rounds - done)
+        joint.rounds_chunk(done, more)
+        done += more
+        _count_read("joint_shard")
+        going = bool(joint.go_flags().any().cpu())
+    return joint.pick(greedy)
+
+
+class _JointRun:
+    """The device state of the auction restarts of one B14 launch: per
+    shard the restarts' carries, takes and price slices, the replicated
+    flags (per restart: rounds, go, remaining demand per eval), the
+    gathered pools."""
+
+    def __init__(self, mesh, used0, avail, feas, aff, ask, k, seeds, evict,
+                 net_prio, g, rounds):
+        self.mesh, self.g, self.rounds_cap = mesh, g, rounds
+        self.used0, self.avail, self.feas, self.aff = used0, avail, feas, aff
+        self.ask, self.k = ask, k
+        self.evict, self.net_prio = evict, net_prio
+        self.n_loc = n_loc = used0[0].shape[0]
+        self.rl = min(TOP_R, n_loc)
+        self.rg = min(TOP_R, n_loc * mesh.size)
+        self.n_t = len(PORTFOLIO)
+        self.eps = [_eps_tensor(_price_eps(), dev) for dev in mesh.devices]
+        self.jits, self.used, self.take, self.price = [], [], [], []
+        self.state, self.pools = [], []
+        for s, dev in enumerate(mesh.devices):
+            self.jits.append(jitter_fold(seeds.to(dev), n_loc, _jitter_his(),
+                                         offset=s * n_loc))
+            self.used.append(torch.empty((self.n_t, n_loc, 4),
+                                         dtype=torch.float32, device=dev))
+            self.take.append(torch.empty((self.n_t, g, n_loc),
+                                         dtype=torch.int32, device=dev))
+            self.price.append(torch.empty((self.n_t, n_loc),
+                                          dtype=torch.float32, device=dev))
+            self.state.append(torch.zeros((self.n_t, 2 + g),
+                                          dtype=torch.int32, device=dev))
+            self.pools.append(torch.empty(
+                (mesh.size, self.n_t, 3, g, self.rl), dtype=torch.float32,
+                device=dev))
+
+    def rounds_chunk(self, start: int, count: int) -> None:
+        mesh = self.mesh
+        bids_fn = _ext.entry("nt_joint_shard_bids")
+        merge_fn = _ext.entry("nt_joint_shard_merge")
+        for i in range(count):
+            first = int(start == 0 and i == 0)
+            for s, dev in enumerate(mesh.devices):
+                ev = self.evict[s] if self.evict is not None else None
+                npr = self.net_prio[s] if self.net_prio is not None else None
+                _ext.check(bids_fn(
+                    self.used0[s].data_ptr(), self.avail[s].data_ptr(),
+                    self.feas[s].data_ptr(), self.aff[s].data_ptr(),
+                    self.ask[s].data_ptr(), self.k[s].data_ptr(),
+                    self.jits[s].data_ptr(),
+                    None if ev is None else ev.data_ptr(),
+                    None if npr is None else npr.data_ptr(),
+                    self.used[s].data_ptr(), self.take[s].data_ptr(),
+                    self.price[s].data_ptr(), self.state[s].data_ptr(),
+                    self.pools[s].data_ptr(), self.n_t, self.g, self.n_loc,
+                    s, self.rl, self.rounds_cap, first, _stream(dev)),
+                    "joint_shard_bids launch")
+                _ext.COUNTS.launched("joint_shard_bids")
+            all_gather(mesh, self.pools)
+            for s, dev in enumerate(mesh.devices):
+                _ext.check(merge_fn(
+                    self.ask[s].data_ptr(), self.eps[s].data_ptr(),
+                    self.used[s].data_ptr(), self.take[s].data_ptr(),
+                    self.price[s].data_ptr(), self.state[s].data_ptr(),
+                    self.pools[s].data_ptr(), self.n_t, self.g, self.n_loc,
+                    mesh.size, s, self.rl, self.rg, self.rounds_cap,
+                    _stream(dev)), "joint_shard_merge launch")
+                _ext.COUNTS.launched("joint_shard_merge")
+
+    def go_flags(self) -> torch.Tensor:
+        """Each restart's go flag (shard 0's replicated copy)."""
+        return self.state[0][:, 1]
+
+    def pick(self, greedy: _BulkRun):
+        """The arm scores and the pick (sharding.py:550-606): each shard
+        writes its contributions, one gather, then every shard picks the
+        same arm and copies its own rows of it."""
+        mesh, n_t, g, n_loc = self.mesh, self.n_t, self.g, self.n_loc
+        contrib_fn = _ext.entry("nt_joint_shard_contrib")
+        pick_fn = _ext.entry("nt_joint_shard_pick")
+        n = n_loc * mesh.size
+        contrib, placed = [], []
+        for s, dev in enumerate(mesh.devices):
+            c = torch.empty((mesh.size, n_t + 1, n_loc), dtype=torch.float32,
+                            device=dev)
+            p = torch.empty((mesh.size, n_t + 1), dtype=torch.int32,
+                            device=dev)
+            _ext.check(contrib_fn(
+                self.avail[s].data_ptr(), self.used[s].data_ptr(),
+                self.take[s].data_ptr(), greedy.used[s].data_ptr(),
+                greedy.counts[s].data_ptr(), c.data_ptr(), p.data_ptr(),
+                n_t, g, n_loc, s, _stream(dev)), "joint_shard_contrib launch")
+            _ext.COUNTS.launched("joint_shard_contrib")
+            contrib.append(c)
+            placed.append(p)
+        all_gather(mesh, contrib)
+        all_gather(mesh, placed)
+        used_out, counts_out, infos, gathers = [], [], [], []
+        for s, dev in enumerate(mesh.devices):
+            u = torch.empty((n_loc, 4), dtype=torch.float32, device=dev)
+            cnt = torch.empty((g, n_loc), dtype=torch.int16, device=dev)
+            info = torch.empty(6, dtype=torch.float32, device=dev)
+            gat = torch.empty((), dtype=torch.int32, device=dev)
+            _ext.check(pick_fn(
+                contrib[s].data_ptr(), placed[s].data_ptr(),
+                self.state[s].data_ptr(), greedy.rounds[s].data_ptr(),
+                self.used[s].data_ptr(), self.take[s].data_ptr(),
+                greedy.used[s].data_ptr(), greedy.counts[s].data_ptr(),
+                u.data_ptr(), cnt.data_ptr(), info.data_ptr(),
+                gat.data_ptr(), n_t, g, n, n_loc, mesh.size, _stream(dev)),
+                "joint_shard_pick launch")
+            _ext.COUNTS.launched("joint_shard_pick")
+            used_out.append(u)
+            counts_out.append(cnt)
+            infos.append(info)
+            gathers.append(gat)
+        return used_out, counts_out, infos[0], gathers[0]

@@ -1,5 +1,5 @@
 """Batched bulk-solve service: one device launch for many evals
-(reference ``nomad_tpu/tensor/solver.py:95-965``, single device).
+(reference ``nomad_tpu/tensor/solver.py:95-965``).
 
 Racing scheduler workers enqueue solve requests here and block on a
 future while ONE service thread batches them (up to ``G_PAD`` per launch,
@@ -29,14 +29,29 @@ plus every solve since. Drift is repaired, not tolerated:
 On CUDA every launch runs on the service's own stream and records an
 event. Launches chain through the carry in stream order. The fetch waits
 on the launch's event and makes one ``.cpu()`` copy of the (G, N) int16
-counts, the launch's only host sync. Double buffer: launch i is fetched
-only after launch i+1 is queued, so i's workers commit while the device
-solves i+1.
+counts, the launch's only host sync off a mesh. Double buffer: launch i
+is fetched only after launch i+1 is queued, so i's workers commit while
+the device solves i+1.
+
+Node mesh (reference ``solver.py:332-363, 837-850``): when the process
+sees more than one CUDA device, the service shards the carry, capacity,
+masks and boosts over a power-of-two :class:`sharding.NodeMesh` of them
+(capped by ``NOMAD_TPU_MESH_DEVICES``), and every launch goes through
+:func:`sharding.solve_bulk_multi_sharded` ("tpu-binpack") or
+:func:`sharding.solve_batch_sharded` ("tpu-solve"). With one card it
+resolves to no mesh. An explicit ``mesh`` overrides the resolution; its
+device list may repeat one device, S shards on one card. A sharded
+launch reads its round-loop flags on the host at dispatch (once, plus
+once per resumed chunk: ``sharding.READS``), so its dispatch returns
+only when its rounds have run on the device: launch i+1 has finished
+before launch i is fetched, and the double buffer overlaps nothing on a
+mesh. Its fetch puts the shards' counts together in the one copy back.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import threading
 import time
@@ -49,6 +64,8 @@ import torch
 from ..device import DeviceLike, resolve
 from .batch_solver import solve_batch
 from .kernels import solve_bulk_multi
+from .sharding import (NodeMesh, gather_rows, solve_batch_sharded,
+                       solve_bulk_multi_sharded)
 
 _STOP = object()
 
@@ -63,13 +80,39 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def ensure_resident(static, feas_base, aff, device: torch.device):
+def _resident(device: torch.device, hit):
+    """A cached (tensor, upload event): the caller's current stream waits
+    on the event, and the tensor records that stream for the allocator."""
+    t, ready = hit
+    if ready is not None:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(ready)
+        t.record_stream(stream)
+    return t
+
+
+def _upload_cached(da, key, host, device: torch.device):
+    hit = da.get(key)
+    if hit is None:
+        t = upload(host, device)
+        ready = None
+        if device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        hit = da[key] = (t, ready)
+    return _resident(device, hit)
+
+
+def ensure_resident(static, feas_base, aff, device: torch.device,
+                    mesh: Optional[NodeMesh] = None):
     """Device copies of (capacity, mask, affinity) for one static,
     uploaded once and cached in ``static.device_arrays``, masks and boosts
     keyed by host-array identity (the static's caches hold the strong
     refs, so ids are not recycled); reference solver.py:170-205. The ONE
     place the cache-key protocol lives: the service's launches and the
-    placer's fused bulk solve both read through it.
+    placer's fused bulk solve both read through it. With a ``mesh`` each
+    is a list of the shards' node-row parts, under a cache tag of the
+    mesh's layout.
 
     On CUDA an upload is queued on the uploading thread's current stream
     and records an event; every caller's current stream waits on the
@@ -77,26 +120,25 @@ def ensure_resident(static, feas_base, aff, device: torch.device):
     the allocator), so the service's stream and a worker's stream share
     the copies without a host sync and without reading one in flight."""
     da = static.device_arrays
-    tag = str(device)
+    arrays = ((("avail",), lambda: static.available.astype(np.float32)),
+              (("m", id(feas_base)), lambda: feas_base),
+              (("a", id(aff)), lambda: aff.astype(np.float32)))
+    if mesh is None:
+        tag = str(device)
+        return tuple(_upload_cached(da, key + (tag,), host(), device)
+                     for key, host in arrays)
+    n_loc = mesh.n_loc(static.n_pad)
     out = []
-    for key, host in ((("avail", tag), lambda: static.available.astype(
-                           np.float32)),
-                      (("m", tag, id(feas_base)), lambda: feas_base),
-                      (("a", tag, id(aff)), lambda: aff.astype(np.float32))):
-        hit = da.get(key)
-        if hit is None:
-            t = upload(host(), device)
-            ready = None
-            if device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(device))
-            hit = da[key] = (t, ready)
-        t, ready = hit
-        if ready is not None:
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(ready)
-            t.record_stream(stream)
-        out.append(t)
+    for key, host in arrays:
+        full = None
+        parts = []
+        for s, dev in enumerate(mesh.devices):
+            pkey = key + ("mesh", repr(mesh), s)
+            if pkey not in da and full is None:
+                full = host()
+            rows = None if full is None else full[s * n_loc:(s + 1) * n_loc]
+            parts.append(_upload_cached(da, pkey, rows, dev))
+        out.append(parts)
     return tuple(out)
 
 
@@ -203,17 +245,22 @@ class _LedgerEntry:
 class _Inflight:
     """One dispatched-but-unfetched launch."""
 
-    __slots__ = ("rs", "static", "counts", "event", "g", "t0",
-                 "t_dispatched")
+    __slots__ = ("rs", "static", "counts", "event", "g", "g_pad", "sharded",
+                 "t0", "t_dispatched")
 
-    def __init__(self, rs, static, counts, event, g, t0, t_dispatched):
+    def __init__(self, rs, static, counts, event, g, g_pad, sharded, t0,
+                 t_dispatched):
         self.rs = rs
         self.static = static
-        # (G_pad, N) int16 on the device; a joint launch's (6,) f32 info
-        # row follows it as 12 int16 words, so one copy reads both back
+        # (G_pad, N) int16 on the device, followed by a joint launch's
+        # (6,) f32 info row (12 int16 words) and, on a mesh, the launch's
+        # all-gathers (a joint launch's int32 count, a greedy launch's
+        # (G_pad,) int32 rounds), so one copy reads them all back
         self.counts = counts
         self.event = event              # CUDA event after the launch
         self.g = g
+        self.g_pad = g_pad
+        self.sharded = sharded
         self.t0 = t0
         self.t_dispatched = t_dispatched
 
@@ -226,8 +273,12 @@ class BulkSolverService:
     LEDGER_TTL = 60.0   # s before an unconfirmed solve is presumed dead
     JOINT_WAIT_S = 0.25  # max hold for worker-batch rendezvous members
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None,
+                 mesh: Optional[NodeMesh] = None):
         self.device = resolve(device)
+        # the node mesh: explicit, or resolved at the first dispatch
+        self._mesh = mesh
+        self._mesh_resolved = mesh is not None
         self._q: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
@@ -242,9 +293,36 @@ class BulkSolverService:
                       "overlap_s": 0.0, "busy_s": 0.0,
                       "joint_launches": 0, "joint_solves": 0,
                       "auction_won": 0, "auction_rounds": 0,
-                      "joint_score": 0.0, "greedy_score": 0.0}
+                      "joint_score": 0.0, "greedy_score": 0.0,
+                      "sharded": 0, "allgathers": 0,
+                      "mesh_devices": 0 if mesh is None else mesh.size}
         # the one dispatched-but-unfetched launch (service thread only)
         self._inflight: Optional[_Inflight] = None
+
+    def _resolve_mesh(self, n_pad: int) -> Optional[NodeMesh]:
+        """The mesh for a static of ``n_pad`` rows, or None: an explicit
+        mesh as given; else, once, the largest power of two of the
+        visible CUDA devices, capped by NOMAD_TPU_MESH_DEVICES (1 forces
+        one device), and no mesh below two. A mesh is used only when its
+        size divides ``n_pad``."""
+        if not self._mesh_resolved:
+            self._mesh_resolved = True
+            n = 0
+            if self.device.type == "cuda":
+                n = torch.cuda.device_count()
+                cap = int(os.environ.get("NOMAD_TPU_MESH_DEVICES", "0") or 0)
+                if cap > 0:
+                    n = min(n, cap)
+            if n > 1:
+                n = 1 << (n.bit_length() - 1)
+                self._mesh = NodeMesh([torch.device("cuda", i)
+                                       for i in range(n)])
+                with self._lock:
+                    self.stats["mesh_devices"] = n
+        mesh = self._mesh
+        if mesh is None or n_pad % mesh.size:
+            return None
+        return mesh
 
     # -- caller side (scheduler worker threads) --
 
@@ -415,23 +493,31 @@ class BulkSolverService:
             self._stream = torch.cuda.Stream(device=self.device)
         return torch.cuda.stream(self._stream)
 
-    def _resync_base(self, r: _Request, ledger_entries) -> torch.Tensor:
+    def _resync_base(self, r: _Request, ledger_entries,
+                     mesh: Optional[NodeMesh] = None):
         """Fresh carry: committed usage + open ledger entries, folded on
-        the host and uploaded once."""
+        the host and uploaded once (on a mesh, each shard's rows to its
+        device)."""
         base = np.asarray(r.used_fn(), dtype=np.float32).copy()
         for idx, counts, ask in ledger_entries:
             base[idx] += counts[:, None].astype(np.float32) * ask[None, :]
-        return upload(base, self.device)
+        if mesh is None:
+            return upload(base, self.device)
+        n_loc = mesh.n_loc(base.shape[0])
+        return [upload(base[s * n_loc:(s + 1) * n_loc], dev)
+                for s, dev in enumerate(mesh.devices)]
 
-    def _device_arrays(self, static, rs: List[_Request]):
-        """Resident capacity + stacked (G_pad, N) mask/affinity rows; the
-        stacks of uniform batches (every row the same mask/aff, the
-        common shape) are cached by the underlying host-array ids."""
+    def _device_arrays(self, static, rs: List[_Request],
+                       mesh: Optional[NodeMesh] = None):
+        """Resident capacity + stacked (G_pad, N) mask/affinity rows (on a
+        mesh, lists of the shards' parts); the stacks of uniform batches
+        (every row the same mask/aff, the common shape) are cached by the
+        underlying host-array ids."""
         rows_m, rows_a = [], []
         avail = None
         for r in rs:
             avail, m, a = ensure_resident(static, r.feas_base, r.aff,
-                                           self.device)
+                                           self.device, mesh)
             rows_m.append((id(r.feas_base), m))
             rows_a.append((id(r.aff), a))
         # joint launches always take the full padded width (k=0 rows
@@ -443,22 +529,32 @@ class BulkSolverService:
             rows_a.append(rows_a[0])
         uniform = (all(i == rows_m[0][0] for i, _ in rows_m)
                    and all(i == rows_a[0][0] for i, _ in rows_a))
-        skey = ("stack", str(self.device), g_pad, rows_m[0][0], rows_a[0][0])
+        tag = str(self.device) if mesh is None else repr(mesh)
+        skey = ("stack", tag, g_pad, rows_m[0][0], rows_a[0][0])
         da = static.device_arrays
         stacked = da.get(skey) if uniform else None
         if stacked is None:
-            stacked = (torch.stack([m for _, m in rows_m]),
-                       torch.stack([a for _, a in rows_a]))
+            if mesh is None:
+                stacked = (torch.stack([m for _, m in rows_m]),
+                           torch.stack([a for _, a in rows_a]))
+            else:
+                stacked = tuple(
+                    [torch.stack([row[s] for _, row in rows])
+                     for s in range(mesh.size)]
+                    for rows in (rows_m, rows_a))
             if uniform:
                 da[skey] = stacked
         return avail, stacked[0], stacked[1], g_pad
 
     def _dispatch_group(self, rs: List[_Request]) -> _Inflight:
         """Build the launch inputs, ship them and queue the solve,
-        returning the device handles without a host sync."""
+        returning the device handles: without a host sync off a mesh; on
+        a mesh after the sharded solve's flag reads, which wait for its
+        rounds."""
         t0 = time.perf_counter()
         static = rs[0].static
         d = static.available.shape[1]
+        mesh = self._resolve_mesh(static.n_pad)
         state = self._state
         used_dev, since = None, 0
         if state is not None and state[0] is static:
@@ -501,11 +597,11 @@ class BulkSolverService:
 
         with self._stream_ctx():
             if need_resync:
-                used_dev = self._resync_base(rs[0], ledger_entries)
+                used_dev = self._resync_base(rs[0], ledger_entries, mesh)
                 since = 0
                 with self._lock:
                     self.stats["resyncs"] += 1
-            avail, feas, aff, g_pad = self._device_arrays(static, rs)
+            avail, feas, aff, g_pad = self._device_arrays(static, rs, mesh)
             g = len(rs)
             ask = np.zeros((g_pad, d), dtype=np.float32)
             k = np.zeros(g_pad, dtype=np.int32)
@@ -516,22 +612,36 @@ class BulkSolverService:
                 k[i] = r.k
                 tgc[i] = r.tg_count
                 seeds[i] = r.seed
-            solve = solve_batch if rs[0].joint else solve_bulk_multi
-            out = solve(used_dev, avail, feas, aff,
-                        *(upload(a, self.device)
-                          for a in (ask, k, tgc, seeds, cidx, cdelta)),
-                        g=g_pad)
-            used_dev, counts = out[0], out[1]
-            if rs[0].joint:
-                counts = torch.cat([counts.reshape(-1),
-                                    out[2].view(torch.int16)])
+            joint = rs[0].joint
+            if mesh is None:
+                solve = solve_batch if joint else solve_bulk_multi
+                out = solve(used_dev, avail, feas, aff,
+                            *(upload(a, self.device)
+                              for a in (ask, k, tgc, seeds, cidx, cdelta)),
+                            g=g_pad)
+                tail = [out[2]] if joint else []
+            else:
+                solve = (solve_batch_sharded if joint
+                         else solve_bulk_multi_sharded)
+                dev0 = mesh.devices[0]
+                out = solve(mesh, used_dev, avail, feas, aff,
+                            *(upload(a, dev0)
+                              for a in (ask, k, seeds, cidx, cdelta)),
+                            g=g_pad)
+                tail = list(out[2:]) if joint else [out[2]]
+            used_dev = out[0]
+            counts = (out[1] if mesh is None
+                      else gather_rows(out[1], dim=1))
+            counts = torch.cat([counts.reshape(-1)] + [
+                x.reshape(-1).view(torch.int16) for x in tail])
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
-                event.record(self._stream)
+                event.record(torch.cuda.current_stream(self.device))
         self._state = (static, used_dev, since + g)
         return _Inflight(rs=rs, static=static, counts=counts, event=event,
-                         g=g, t0=t0, t_dispatched=time.perf_counter())
+                         g=g, g_pad=g_pad, sharded=mesh is not None, t0=t0,
+                         t_dispatched=time.perf_counter())
 
     def _fetch(self, inf: _Inflight, pipelined: bool = False) -> None:
         """The launch's ONLY host sync: wait for its event, copy the
@@ -540,11 +650,18 @@ class BulkSolverService:
         t_f0 = time.perf_counter()
         if inf.event is not None:
             inf.event.synchronize()
-        counts_np = inf.counts.cpu().numpy()
+        words = inf.counts.cpu().numpy()
+        n_counts = inf.g_pad * inf.static.n_pad
+        counts_np = words[:n_counts].reshape(inf.g_pad, inf.static.n_pad)
+        tail = words[n_counts:]
         info_np = None
+        allg = 0
         if inf.rs[0].joint:
-            info_np = counts_np[-12:].view(np.float32)
-            counts_np = counts_np[:-12].reshape(-1, inf.static.n_pad)
+            info_np = tail[:12].view(np.float32)
+            if inf.sharded:
+                allg = int(tail[12:14].view(np.int32)[0])
+        elif inf.sharded:
+            allg = int(tail.view(np.int32)[:inf.g].sum())
         t_f1 = time.perf_counter()
         born = time.time()
         with self._lock:
@@ -557,6 +674,9 @@ class BulkSolverService:
             self.stats["busy_s"] += max(0.0, t_f1 - inf.t_dispatched)
             if pipelined:
                 self.stats["pipelined"] += 1
+            if inf.sharded:
+                self.stats["sharded"] += 1
+                self.stats["allgathers"] += allg
             if info_np is not None:
                 won = info_np[5] > 0.5
                 self.stats["joint_launches"] += 1

@@ -7,11 +7,13 @@ import threading
 import time
 
 import numpy as np
+import pytest
 import torch
 
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.structs.resources import RESOURCE_DIMS
 from nomad_tpu_torch.tensor.cluster import ClusterStatic
+from nomad_tpu_torch.tensor.sharding import NodeMesh
 from nomad_tpu_torch.tensor.solver import (BulkSolverService, batch_member,
                                            current_batch, open_batch)
 
@@ -72,12 +74,16 @@ def _race(svc, static, feas, aff, ask, k, solves, sleep_s, seed_base):
     return placed, tokens
 
 
-def test_double_buffer_exact_fill_under_slow_apply():
+@pytest.mark.parametrize("shards", [0, 2, 4],
+                         ids=["no_mesh", "mesh2", "mesh4"])
+def test_double_buffer_exact_fill_under_slow_apply(shards):
     """An exactly-filling workload (80 asks, 80 slots) with commits
     deferred to the end and RESYNC_SOLVES=3: a solve against a stale
-    carry, or a resync that dropped the unfetched launch, overplaces."""
+    carry, or a resync that dropped the unfetched launch, overplaces.
+    On a 2- or 4-shard mesh every launch is the sharded fill."""
     _, static, feas, aff = _cluster(8, 1000, "db-n")
-    svc = BulkSolverService(device="cpu")
+    mesh = NodeMesh(["cpu"] * shards) if shards else None
+    svc = BulkSolverService(device="cpu", mesh=mesh)
     svc.RESYNC_SOLVES = 3
     placed, tokens = _race(svc, static, feas, aff, _ask(100.0, 64.0), 4, 5,
                            0.02, 100)
@@ -92,6 +98,7 @@ def test_double_buffer_exact_fill_under_slow_apply():
     assert svc.stats["pipelined"] >= 1, svc.stats
     assert svc.stats["overlap_s"] > 0.0, svc.stats
     assert svc.stats["busy_s"] >= svc.stats["overlap_s"]
+    assert svc.stats["sharded"] == (svc.stats["launches"] if shards else 0)
 
 
 def test_inflight_drained_before_resync():
