@@ -144,10 +144,31 @@ Phases (any failure raises and exits non-zero):
 24. parity -- a pinned one-thread workload at 10,240 nodes (8 x 4,000
               tpu-binpack, 8 x 800 tpu-solve) on a service with no mesh and
               with 2, 4 and 8 shards: the same fingerprint at every S.
+25. B16    -- the sharded per-eval scan (nt_task_group_shard) at S 2, 4, 8
+              on the five cfg3 variants of B9 (5,120 nodes padded to 8,192,
+              K 512) and at the C2M width (10,240 build_nodes capacities
+              padded to 16,384, K 512, S 8): choices, founds and score bits
+              equal to single-device B9 (solve_task_group); against its
+              plain version (cfg3 at S 4, the others at S 2) choices and
+              founds exact, scores within 1e-6. Timed at cfg3, S 4, beside
+              B9 on the same inputs.
+26. entry  -- the port's entry points on the card: graft_entry.entry()'s
+              solve, then dryrun_multichip(2), (4) and (8) (B16 against a
+              one-shard mesh, B13 against B1); prints each mesh's shards
+              and distinct cards. Gates: B16, B9, B13 and B1 launched, no
+              plain version on CUDA. Its B16 launches are the record's.
+              After the counts are read, B16 at the dryruns' own shapes
+              (32, 32, 64 nodes at S 2, 4, 8, K 8): against its plain version
+              choices and founds exact, scores within 1e-6 (into the
+              record's max_abs_err), score bits equal to B9.
 
 cfg4's two evals print the time the interpreter's garbage collector
 took inside them (gc.callbacks): their walls are host-bound, and a full
 collection can land in either.
+
+``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
+and 26 alone: with several visible cards, every mesh puts its
+shards on the cards in turn, so the gathers cross cards.
 
 Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound, and the
@@ -960,17 +981,15 @@ def phase_parity(algorithm):
           f"({sum(v[0] for v in prints[0].values())} allocs)")
 
 
-def cfg3_packed(rng, variant: str):
-    """One task group's packed solve (pack_solve_args) at the cfg3 width,
-    with a hazard variant: "cfg3" is the path's own shape (one even rack
-    spread, 500 of 512 steps active, tie_perm); "targets" adds explicit
-    targets with a zero and a missing desired count and penalty steps;
-    "distinct" has distinct_hosts and a distinct_property cap and runs
-    out of feasible nodes; "worstfit" has three spreads (the padded
-    pairwise tree), WorstFit and near-full nodes; "infeasible" finds no
-    node at all."""
-    from nomad_tpu_torch.tensor.kernels import pack_solve_args
-
+def cfg3_args(rng, variant: str):
+    """One task group's solve at the cfg3 width, as the 26 positional
+    arguments of the reference's solve_task_group, with a hazard variant:
+    "cfg3" is the path's own shape (one even rack spread, 500 of 512
+    steps active, tie_perm); "targets" adds explicit targets with a zero
+    and a missing desired count and penalty steps; "distinct" has
+    distinct_hosts and a distinct_property cap and runs out of feasible
+    nodes; "worstfit" has three spreads (the padded pairwise tree),
+    WorstFit and near-full nodes; "infeasible" finds no node at all."""
     n, real, k_pad = CFG3_PAD, CFG3_NODES, 512
     avail = np.zeros((n, 4))
     avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
@@ -1033,10 +1052,23 @@ def cfg3_packed(rng, variant: str):
     elif variant == "infeasible":
         feas[:] = False
     tie_perm = rng.permutation(n)
-    return pack_solve_args(
-        avail, used, ptg, pjob, np.array([100.0, 64.0, 300.0, 0.0]), feas,
-        aff, pen, active, svid, sok, scnt, sdes, has_t, weight, -1.0,
-        float(CFG3_K), False, dh_tg, spread_alg, tie_perm=tie_perm, **dp)
+    dp = dp or dict(dp_val_id=np.zeros((0, n)),
+                    dp_val_ok=np.zeros((0, n), bool),
+                    dp_counts0=np.zeros((0, 1)), dp_limit=np.zeros(0))
+    return (avail, used, ptg, pjob, np.array([100.0, 64.0, 300.0, 0.0]),
+            feas, aff, np.zeros(n), pen, active, svid, sok, scnt, sdes,
+            has_t, weight, dp["dp_val_id"], dp["dp_val_ok"],
+            dp["dp_counts0"], dp["dp_limit"], -1.0, float(CFG3_K), False,
+            dh_tg, spread_alg, tie_perm)
+
+
+def cfg3_packed(rng, variant: str):
+    """cfg3_args' solve in the kernels' packed layout, on the CPU
+    (pack_solve_tensors)."""
+    from nomad_tpu_torch.tensor.kernels import pack_solve_tensors
+
+    args = cfg3_args(rng, variant)
+    return pack_solve_tensors(*args[:25], node_col=args[25])
 
 
 def score_err(got, want, what: str) -> float:
@@ -1084,8 +1116,7 @@ def phase_score_once(torch, dev, card, rng):
     packed_main = None
     for variant, pen in (("cfg3", -1), ("targets", 17), ("distinct", -1),
                          ("worstfit", 4000)):
-        packed = [torch.tensor(a, device=dev)
-                  for a in cfg3_packed(rng, variant)]
+        packed = [a.to(dev) for a in cfg3_packed(rng, variant)]
         packed = [packed[0]] + packed[2:]    # no step_mat
         got = score_nodes_packed(*packed, pen)
         want = score_nodes_packed_ref(*packed, pen)
@@ -1116,8 +1147,7 @@ def phase_scan(torch, dev, card, rng):
     main = None
     notes = []
     for variant in ("cfg3", "targets", "distinct", "worstfit", "infeasible"):
-        packed = [torch.tensor(a, device=dev)
-                  for a in cfg3_packed(rng, variant)]
+        packed = [a.to(dev) for a in cfg3_packed(rng, variant)]
         got = solve_task_group_fused(*packed)
         want = solve_task_group_fused_ref(*packed)
         torch.cuda.synchronize()
@@ -2280,13 +2310,12 @@ CFG7_K = 512
 PARITY_JOBS = 8
 
 
-def mesh_of(torch, shards: int):
+def mesh_of(shards: int):
     """S shards on the card's devices, in turn; with one card the list
-    repeats cuda:0."""
-    from nomad_tpu_torch.tensor.sharding import NodeMesh
+    repeats cuda:0 (sharding.shard_mesh, as dryrun_multichip's)."""
+    from nomad_tpu_torch.tensor.sharding import shard_mesh
 
-    n = torch.cuda.device_count()
-    return NodeMesh([torch.device("cuda", i % n) for i in range(shards)])
+    return shard_mesh(shards, "cuda")
 
 
 @contextlib.contextmanager
@@ -2297,7 +2326,7 @@ def mesh_service(torch, shards: int):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     svc = solver.BulkSolverService(
-        dev, mesh=mesh_of(torch, shards) if shards > 1 else None)
+        dev, mesh=mesh_of(shards) if shards > 1 else None)
     key = str(dev)
     old = solver._services.get(key)
     solver._services[key] = svc
@@ -2445,7 +2474,7 @@ def phase_sharded_kernels(torch, dev, card):
                                                                device=dev)
     single = scatter_add(used0.clone(), idx, delta)
     for s_n in SHARDS:
-        mesh = mesh_of(torch, s_n)
+        mesh = mesh_of(s_n)
         got = sh.state_scatter_sharded(mesh, sh.shard_rows(
             mesh, used0.clone()), idx, delta)
         want = sh.state_scatter_sharded_ref(mesh, sh.shard_rows(
@@ -2463,12 +2492,12 @@ def phase_sharded_kernels(torch, dev, card):
     t7 = cfg7_inputs(torch, dev)
     c2m = b1_inputs(torch, dev, np.random.default_rng(7))
     for s_n in SHARDS:
-        mesh = mesh_of(torch, s_n)
+        mesh = mesh_of(s_n)
         r7 = check_b13(torch, mesh, t7, 64, f"cfg7 S={s_n}")
         rc = check_b13(torch, mesh, c2m, 64, f"C2M S={s_n}")
         notes.append(f"S {s_n}: rounds cfg7 {sum(r7)}, C2M {sum(rc)}")
     tight = cfg7_inputs(torch, dev, tight=True)
-    rt = check_b13(torch, mesh_of(torch, 4), tight, 8, "top_r 8")
+    rt = check_b13(torch, mesh_of(4), tight, 8, "top_r 8")
     if max(rt) <= 3:
         raise AssertionError(f"B13 top_r 8: rounds {rt}, want many")
     print(f"B13 shard   [{card}] counts, carry and rounds exact against the "
@@ -2488,7 +2517,7 @@ def phase_sharded_kernels(torch, dev, card):
                              t["net_prio"], g=G, rounds=t["rounds"])
         gathers = []
         for s_n in SHARDS:
-            mesh = mesh_of(torch, s_n)
+            mesh = mesh_of(s_n)
             args, kw = shard_args(mesh, t)
             got = sh.solve_batch_sharded(mesh, *args, *rep, g=G,
                                          rounds=t["rounds"], **kw)
@@ -2943,6 +2972,198 @@ def phase_sharded_parity(torch, card):
           f"tpu-solve, one thread; " + "; ".join(notes))
 
 
+B16_VARIANTS = ("cfg3", "targets", "distinct", "worstfit", "infeasible")
+
+
+def c2m_task_group_args(rng):
+    """The per-eval solve at the C2M width: build_nodes capacities of
+    10,240 nodes padded to 16,384, usage filled 0-60%, K 512 of (cpu 50,
+    mem 32) with a rack spread over 20 values, and a tie_perm."""
+    n, real, k = N_PAD, N_NODES, 512
+    avail = np.zeros((n, 4))
+    avail[:real] = c2m_capacity()
+    used = np.zeros((n, 4))
+    used[:real, :2] = np.floor(avail[:real, :2] * rng.uniform(
+        0, 0.6, (real, 1)))
+    feas = np.arange(n) < real
+    svid = (np.arange(n) % 20)[None, :]
+    sok = feas[None, :].copy()
+    return (avail, used, np.zeros(n), np.zeros(n),
+            np.array([50.0, 32.0, 0.0, 0.0]), feas, np.zeros(n),
+            np.zeros(n), np.full(k, -1), np.ones(k, bool), svid, sok,
+            np.zeros((1, 32)), np.full((1, 32), np.nan), np.zeros(1, bool),
+            np.ones(1), np.zeros((0, n)), np.zeros((0, n), bool),
+            np.zeros((0, 1)), np.zeros(0), -1.0, float(k), False, False,
+            False, rng.permutation(n))
+
+
+def same_bits(torch, got, want) -> bool:
+    """Choices, founds and score bits equal."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2].view(torch.int32),
+                            want[2].view(torch.int32)))
+
+
+def phase_task_group_shard(torch, dev, card, rng):
+    """B16 against single-device B9 (bit for bit) at S = 2, 4, 8 on the
+    five cfg3 variants and at the C2M width, and against its plain
+    version; timed at cfg3, S 4, beside B9."""
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.kernels import (pack_solve_tensors,
+                                                solve_task_group)
+
+    err, notes, main, plain_ms = 0.0, [], None, None
+    for variant in B16_VARIANTS:
+        args = tuple(torch.as_tensor(a).to(dev)
+                     for a in cfg3_args(rng, variant))
+        want = solve_task_group(*args)
+        for s_n in SHARDS:
+            got = sh.solve_task_group_sharded(mesh_of(s_n), args)
+            if not same_bits(torch, got, want):
+                diff = int((got[0] != want[0]).sum())
+                raise AssertionError(f"B16 {variant} S={s_n}: differs from "
+                                     f"B9 ({diff} choices)")
+        s_plain = PATH_SHARDS if variant == "cfg3" else 2
+        mesh = mesh_of(s_plain)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = sh.solve_task_group_sharded_ref(
+            mesh, sh.shard_solve_args(mesh, args))
+        end.record()
+        end.synchronize()
+        if variant == "cfg3":
+            main, plain_ms = args, start.elapsed_time(end)
+        got = sh.solve_task_group_sharded(mesh, args)
+        if not (torch.equal(got[0], plain[0])
+                and torch.equal(got[1], plain[1])):
+            raise AssertionError(f"B16 {variant} S={s_plain}: choices or "
+                                 f"founds differ from the plain version")
+        err = max(err, score_err(got[2], plain[2], f"B16 {variant}"))
+        notes.append(f"{variant} {int(want[1].sum())}/{CFG3_K}")
+    args = tuple(torch.as_tensor(a).to(dev) for a in c2m_task_group_args(rng))
+    want = solve_task_group(*args)
+    if not same_bits(torch, sh.solve_task_group_sharded(mesh_of(8), args),
+                     want):
+        raise AssertionError("B16 at the C2M width, S 8: differs from B9")
+    mesh = mesh_of(PATH_SHARDS)
+    ms = cuda_time_ms(torch, lambda _: sh.solve_task_group_sharded(mesh,
+                                                                   main),
+                      reps=5, warmup=1)
+    b9_ms = cuda_time_ms(torch, lambda _: solve_task_group(*main), reps=5,
+                         warmup=1)
+    b_ms, b_by = scan_bound(pack_solve_tensors(*main[:25],
+                                               node_col=main[25]))
+    print(f"B16 shard   [{card}] bit-equal to B9 at S {SHARDS} on "
+          f"{len(B16_VARIANTS)} cfg3 variants (found "
+          f"{', '.join(notes)}) and at the C2M width ({N_PAD} nodes, S 8, "
+          f"{int(want[1].sum())}/512 found); against the plain version "
+          f"choices and founds exact, scores within {SCORE_TOL} (max "
+          f"{err:.3g}); at cfg3, S {PATH_SHARDS}: kernel {ms:.4f} ms a "
+          f"solve ({(main[8].shape[0] + 1) * PATH_SHARDS} launches), B9 "
+          f"{b9_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by})")
+    return {"name": "solve_task_group_sharded", "source":
+            "nomad_tpu_torch/csrc/task_group_shard.cu",
+            "replaces": "nomad_tpu/tensor/sharding.py:107",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_entry(torch, card):
+    """The port's entry points on the card: entry()'s solve, then
+    dryrun_multichip at 2, 4 and 8 shards; after the run, B16 at the
+    dryruns' own shapes against its plain version and B9. Returns the
+    launch counts of the run and B16's largest score difference."""
+    from nomad_tpu_torch import _ext
+    from nomad_tpu_torch.graft_entry import (_example_solve_args,
+                                             dryrun_multichip, entry)
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.kernels import solve_task_group
+
+    _ext.COUNTS.reset()
+    t0 = time.perf_counter()
+    fn, args = entry()
+    choices, founds, scores = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k = args[8].shape[0]
+    if ([tuple(o.shape) for o in (choices, founds, scores)] != [(k,)] * 3
+            or not choices.is_cuda or not bool(founds.all())):
+        raise AssertionError(f"entry: {choices}, {founds}, {scores}")
+    notes = [f"entry {wall:.3f} s, {int(founds.sum())}/{k} found"]
+    for s_n in SHARDS:
+        mesh = mesh_of(s_n)
+        t0 = time.perf_counter()
+        dryrun_multichip(s_n)
+        torch.cuda.synchronize()
+        notes.append(f"{s_n} shards on {mesh.cards} card(s) "
+                     f"{time.perf_counter() - t0:.3f} s")
+    counts = _ext.COUNTS.snapshot()
+    for name in ("solve_task_group", "task_group_shard", "bulk_shard_pool",
+                 "bulk_fill"):
+        if not counts["launches"][name]:
+            raise AssertionError(f"entry: {name} never launched: "
+                                 f"{counts['launches']}")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    # B16 at the path's own shapes (32, 32 and 64 nodes at S 2, 4, 8, K 8:
+    # most of a CTA's warps idle), after the snapshot: against its plain version
+    # and bit for bit against B9
+    err = 0.0
+    for s_n in SHARDS:
+        mesh = mesh_of(s_n)
+        small = _example_solve_args(n_nodes=max(8 * s_n, 32), k=8)
+        got = sh.solve_task_group_sharded(mesh, small)
+        plain = sh.solve_task_group_sharded_ref(
+            mesh, sh.shard_solve_args(mesh, small))
+        if not (torch.equal(got[0], plain[0])
+                and torch.equal(got[1], plain[1])):
+            raise AssertionError(f"B16 entry shape S={s_n}: choices or "
+                                 f"founds differ from the plain version")
+        err = max(err, score_err(got[2], plain[2], f"B16 entry S={s_n}"))
+        if not same_bits(torch, got, solve_task_group(*small,
+                                                      device="cuda")):
+            raise AssertionError(f"B16 entry shape S={s_n}: differs from "
+                                 f"B9")
+    notes.append(f"B16 at the dryruns' shapes, S {SHARDS}: bit-equal to "
+                 f"B9, against the plain version choices and founds "
+                 f"exact, scores within {SCORE_TOL} (max {err:.3g})")
+    # one B16 solve at dryrun_multichip(8)'s own shape, from host arrays
+    mesh, small = mesh_of(8), _example_solve_args(n_nodes=64, k=8)
+    small_ms = cuda_time_ms(
+        torch, lambda _: sh.solve_task_group_sharded(mesh, small), reps=5,
+        warmup=1)
+    notes.append(f"one B16 solve at dryrun_multichip(8)'s shape (64 "
+                 f"nodes, K 8, S 8) {small_ms:.4f} ms")
+    print(f"entry       [{card}] {'; '.join(notes)}; B16 launches "
+          f"{counts['launches']['task_group_shard']}, B9 "
+          f"{counts['launches']['solve_task_group']}, B13 pool "
+          f"{counts['launches']['bulk_shard_pool']}, B1 "
+          f"{counts['launches']['bulk_fill']}; no plain version on CUDA")
+    return counts["launches"], err
+
+
+def sharded_only(torch, dev, card, rng) -> int:
+    """``--sharded``: phases 21 (the sharded kernels), 25 and 26 alone, on
+    meshes over every visible card; prints B16's record and the
+    summary."""
+    print(f"cards       {torch.cuda.device_count()}: meshes "
+          f"{', '.join(repr(mesh_of(s_n)) for s_n in SHARDS)}")
+    phase_sharded_kernels(torch, dev, card)
+    b16 = phase_task_group_shard(torch, dev, card, rng)
+    launches, err = phase_entry(torch, card)
+    b16.update(route="cuda", launches=launches["task_group_shard"],
+               max_abs_err=max(b16["max_abs_err"], err))
+    print(json.dumps({"kernels": [b16]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not (REPO / "nomad_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: nomad_tpu_torch/ not found beside the script; "
@@ -2975,6 +3196,8 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
+    if sys.argv[1:] == ["--sharded"]:
+        return sharded_only(torch, dev, card, rng)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -3019,6 +3242,11 @@ def main() -> int:
     sharded[1]["launches"] = launches_j["joint_shard_bids"]
     sharded[2]["launches"] = launches_b["scatter_shard"]
     phase_sharded_parity(torch, card)
+    b16 = phase_task_group_shard(torch, dev, card, rng)
+    launches, err = phase_entry(torch, card)
+    b16["launches"] = launches["task_group_shard"]
+    b16["max_abs_err"] = max(b16["max_abs_err"], err)
+    sharded.append(b16)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "nt_joint_shard_merge": ("sharded", [_P] * 7 + [_I] * 8 + [_P]),
     "nt_joint_shard_contrib": ("sharded", [_P] * 7 + [_I] * 4 + [_P]),
     "nt_joint_shard_pick": ("sharded", [_P] * 12 + [_I] * 5 + [_P]),
+    "nt_task_group_shard": ("task_group_shard", [_P] * 12 + [_I] * 10 + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -103,7 +104,8 @@ COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
                        "bulk_scan", "tie_perm", "scatter_shard",
                        "bulk_shard_pool", "bulk_shard_merge",
                        "joint_shard_bids", "joint_shard_merge",
-                       "joint_shard_contrib", "joint_shard_pick"))
+                       "joint_shard_contrib", "joint_shard_pick",
+                       "task_group_shard"))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -191,3 +193,16 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(what: str, device, fn, *args) -> None:
+    """Call the entry point ``fn`` with ``args`` and the handle of
+    ``device``'s current stream, with ``device`` made current for the
+    call (a stream, and a kernel's shared-memory attribute, belong to the
+    current device; a mesh's shards launch on cards that are not); raise
+    on a CUDA error and count the launch under ``what``."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(fn(*args, stream_handle(device)), f"{what} launch")
+    COUNTS.launched(what)

@@ -365,15 +365,15 @@ def auction(used0, available, feas, aff, ask, k, jits, *,
     rounds_run = torch.empty(n_t, dtype=torch.int32, device=dev)
     price = torch.empty((n_t, n), dtype=torch.float32, device=dev)
     fn = _ext.entry("nt_auction")
-    _ext.check(fn(used0.data_ptr(), available.data_ptr(), feas.data_ptr(),
-                  aff.data_ptr(), ask.data_ptr(), k.data_ptr(),
-                  jits.data_ptr(), _eps_tensor(price_eps, dev).data_ptr(),
-                  None if evict is None else evict.data_ptr(),
-                  None if net_prio is None else net_prio.data_ptr(),
-                  used.data_ptr(), take.data_ptr(), rounds_run.data_ptr(),
-                  price.data_ptr(), n_t, g, n, int(rounds),
-                  _ext.stream_handle(dev)), "auction launch")
-    _ext.COUNTS.launched("auction")
+    _ext.launch(
+        "auction", dev, fn,
+        used0.data_ptr(), available.data_ptr(), feas.data_ptr(),
+        aff.data_ptr(), ask.data_ptr(), k.data_ptr(),
+        jits.data_ptr(), _eps_tensor(price_eps, dev).data_ptr(),
+        None if evict is None else evict.data_ptr(),
+        None if net_prio is None else net_prio.data_ptr(),
+        used.data_ptr(), take.data_ptr(), rounds_run.data_ptr(),
+        price.data_ptr(), n_t, g, n, int(rounds))
     return used, take, rounds_run
 
 
@@ -405,11 +405,12 @@ def batch_pick(available, used_t, take_t, rounds_t, used_g, counts_g):
     counts = torch.empty((g, n), dtype=torch.int16, device=dev)
     info = torch.empty(6, dtype=torch.float32, device=dev)
     fn = _ext.entry("nt_batch_pick")
-    _ext.check(fn(available.data_ptr(), used_t.data_ptr(), take_t.data_ptr(),
-                  rounds_t.data_ptr(), used_g.data_ptr(), counts_g.data_ptr(),
-                  used.data_ptr(), counts.data_ptr(), info.data_ptr(), n_t, g,
-                  n, _ext.stream_handle(dev)), "batch_pick launch")
-    _ext.COUNTS.launched("batch_pick")
+    _ext.launch(
+        "batch_pick", dev, fn,
+        available.data_ptr(), used_t.data_ptr(), take_t.data_ptr(),
+        rounds_t.data_ptr(), used_g.data_ptr(), counts_g.data_ptr(),
+        used.data_ptr(), counts.data_ptr(), info.data_ptr(), n_t, g,
+        n)
     return used, counts, info
 
 

@@ -15,8 +15,9 @@ launch (B9): a K-step scan in tie-permuted node space whose every step
 scores all nodes (B8, ``score_nodes``), takes the first maximal one and
 carries usage, placement counts, spread and distinct_property value
 counts and the lowest explicit spread boost. ``score_nodes_packed`` is
-B8 alone (B10). Both take the packed f32 layout of ``pack_solve_args``;
-``score_nodes_once`` packs the reference's arguments for B10.
+B8 alone (B10). Both take the packed f32 layout of ``pack_solve_tensors``;
+``score_nodes_once`` packs the reference's arguments for B10, and
+``solve_task_group`` (the reference's positional entry) for B9.
 
 Bulk fallbacks (``:494-629``): ``solve_bulk`` (B11) places K identical
 requests of one task group as per-node counts, up to 256 a step, each
@@ -188,11 +189,11 @@ def bulk_fill(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
         _check_cuda("bulk_fill", name, t, dtype, shape, dev)
     counts = torch.empty((g, n), dtype=torch.int16, device=dev)
     fn = _ext.entry("nt_bulk_fill")
-    _ext.check(fn(used.data_ptr(), available.data_ptr(), feas.data_ptr(),
-                  aff.data_ptr(), ask.data_ptr(), k.data_ptr(),
-                  jit.data_ptr(), counts.data_ptr(), g, n,
-                  _ext.stream_handle(dev)), "bulk_fill launch")
-    _ext.COUNTS.launched("bulk_fill")
+    _ext.launch(
+        "bulk_fill", dev, fn,
+        used.data_ptr(), available.data_ptr(), feas.data_ptr(),
+        aff.data_ptr(), ask.data_ptr(), k.data_ptr(),
+        jit.data_ptr(), counts.data_ptr(), g, n)
     return counts
 
 
@@ -331,7 +332,7 @@ def score_nodes_ref(*, available, used, ask, feasible, placed_tg, placed_job,
 
 def _unpack(node_mat, spread_node, spread_tab, spread_meta, dp_node, dp_tab,
             scalars) -> dict:
-    """The packed f32 layout of :func:`pack_solve_args` -> the keyword
+    """The packed f32 layout of :func:`pack_solve_tensors` -> the keyword
     arguments of :func:`score_nodes_ref` (less penalty_idx and the
     lowest boost), plus ``tie_perm``; as the reference's fused entry
     unpacks it (kernels.py:452-470)."""
@@ -462,56 +463,23 @@ def pack_solve_args(available, used0, placed_tg0, placed_job0, ask, feasible,
                     tg_count, dh_job, dh_tg, spread_alg,
                     dev_affinity=None, dp_val_id=None, dp_val_ok=None,
                     dp_counts0=None, dp_limit=None, tie_perm=None):
-    """Host-side (numpy) packing of one task group's solve into the eight
-    f32 arrays of the kernels' layout (reference kernels.py:402-445):
-
-    node_mat (N, 2D+6): avail[D] | used[D] | placed_tg | placed_job |
-                        feasible | affinity | dev_affinity | tie_perm
-    step_mat (K, 2): penalty_idx | active
-    spread_node (2S, N): val_id rows, then val_ok rows
-    spread_tab (2S, V): counts rows, then desired rows
-    spread_meta (S, 2): has_targets | weight
-    dp_node (2P, N): val_id rows, then val_ok rows
-    dp_tab (P, Vd+1): counts columns | limit column
-    scalars (5+D,): lowest_boost | tg_count | dh_job | dh_tg | spread_alg
-                    | ask[D]
-    """
-    f = np.float32
+    """The reference's host-side packer (kernels.py:402-445), same
+    arguments, numpy in and numpy out: :func:`pack_solve_tensors` on the
+    CPU, with no dev_affinity taken as zeros and no distinct_property as
+    none."""
     n = np.asarray(available).shape[0]
     if dev_affinity is None:
-        dev_affinity = np.zeros(n, f)
-    if tie_perm is None:
-        tie_perm = np.arange(n)
-    node_mat = np.concatenate([
-        np.asarray(available, f), np.asarray(used0, f),
-        np.asarray(placed_tg0, f)[:, None],
-        np.asarray(placed_job0, f)[:, None],
-        np.asarray(feasible, f)[:, None],
-        np.asarray(affinity_boost, f)[:, None],
-        np.asarray(dev_affinity, f)[:, None],
-        np.asarray(tie_perm, f)[:, None]], axis=1)
-    step_mat = np.stack([np.asarray(penalty_idx, f),
-                         np.asarray(active, f)], axis=1)
-    spread_node = np.concatenate([np.asarray(spread_val_id, f),
-                                  np.asarray(spread_val_ok, f)], axis=0)
-    spread_tab = np.concatenate([np.asarray(spread_counts0, f),
-                                 np.asarray(spread_desired, f)], axis=0)
-    spread_meta = (np.stack([np.asarray(spread_has_targets, f),
-                             np.asarray(spread_weight, f)], axis=1)
-                   if len(spread_weight) else np.zeros((0, 2), f))
+        dev_affinity = np.zeros(n)
     if dp_val_id is None or not len(dp_val_id):
-        dp_node = np.zeros((0, n), f)
-        dp_tab = np.zeros((0, 2), f)
-    else:
-        dp_node = np.concatenate([np.asarray(dp_val_id, f),
-                                  np.asarray(dp_val_ok, f)], axis=0)
-        dp_tab = np.concatenate([np.asarray(dp_counts0, f),
-                                 np.asarray(dp_limit, f)[:, None]], axis=1)
-    scalars = np.concatenate([
-        np.array([lowest_boost0, tg_count, dh_job, dh_tg, spread_alg], f),
-        np.asarray(ask, f)])
-    return (node_mat, step_mat, spread_node, spread_tab, spread_meta,
-            dp_node, dp_tab, scalars)
+        dp_val_id = dp_val_ok = np.zeros((0, n))
+        dp_counts0, dp_limit = np.zeros((0, 1)), np.zeros(0)
+    return tuple(t.numpy() for t in pack_solve_tensors(
+        available, used0, placed_tg0, placed_job0, ask, feasible,
+        affinity_boost, dev_affinity, penalty_idx, active, spread_val_id,
+        spread_val_ok, spread_counts0, spread_desired, spread_has_targets,
+        spread_weight, dp_val_id, dp_val_ok, dp_counts0, dp_limit,
+        lowest_boost0, tg_count, dh_job, dh_tg, spread_alg,
+        node_col=tie_perm))
 
 
 def score_nodes_packed_ref(node_mat, spread_node, spread_tab, spread_meta,
@@ -574,10 +542,10 @@ def score_nodes_packed(node_mat, spread_node, spread_tab, spread_meta,
     n, d, s, v, p, vd = _layout(*packed, what="score_nodes_packed")
     out = torch.empty(n, dtype=torch.float32, device=node_mat.device)
     fn = _ext.entry("nt_score_nodes")
-    _ext.check(fn(*(t.data_ptr() for t in packed), out.data_ptr(),
-                  int(penalty_idx), n, d, s, v, p, vd,
-                  _ext.stream_handle(node_mat.device)), "score_nodes launch")
-    _ext.COUNTS.launched("score_nodes")
+    _ext.launch(
+        "score_nodes", node_mat.device, fn,
+        *(t.data_ptr() for t in packed), out.data_ptr(),
+        int(penalty_idx), n, d, s, v, p, vd)
     return out
 
 
@@ -607,7 +575,7 @@ def score_nodes_once(available, used, ask, feasible, placed_tg, placed_job,
 def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
                            spread_meta, dp_node, dp_tab, scalars):
     """B9: place K requests of one task group in one launch from the
-    packed layout of :func:`pack_solve_args` -> (3, K) f32 rows of
+    packed layout of :func:`pack_solve_tensors` -> (3, K) f32 rows of
     [choice (mapped back through tie_perm), found, score] (reference
     kernels.py:448-473). The CUDA kernel ``nt_solve_task_group``
     (csrc/task_group.cu) for CUDA tensors, :func:`solve_task_group_fused_ref`
@@ -634,14 +602,87 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
                           dtype=torch.float32, device=dev)
     out = torch.empty((3, k), dtype=torch.float32, device=dev)
     fn = _ext.entry("nt_solve_task_group")
-    _ext.check(fn(node_mat.data_ptr(), step_mat.data_ptr(),
-                  spread_node.data_ptr(), spread_tab.data_ptr(),
-                  spread_meta.data_ptr(), dp_node.data_ptr(),
-                  dp_tab.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
-                  out.data_ptr(), n, d, k, s, v, p, vd,
-                  _ext.stream_handle(dev)), "solve_task_group launch")
-    _ext.COUNTS.launched("solve_task_group")
+    _ext.launch(
+        "solve_task_group", dev, fn,
+        node_mat.data_ptr(), step_mat.data_ptr(),
+        spread_node.data_ptr(), spread_tab.data_ptr(),
+        spread_meta.data_ptr(), dp_node.data_ptr(),
+        dp_tab.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), n, d, k, s, v, p, vd)
     return out
+
+
+def pack_solve_tensors(available, used0, placed_tg0, placed_job0, ask,
+                       feasible, affinity_boost, dev_affinity, penalty_idx,
+                       active, spread_val_id, spread_val_ok, spread_counts0,
+                       spread_desired, spread_has_targets, spread_weight,
+                       dp_val_id, dp_val_ok, dp_counts0, dp_limit,
+                       lowest_boost0, tg_count, dh_job, dh_tg, spread_alg,
+                       node_col=None):
+    """The one packer of the kernels' f32 layout. Takes the reference's
+    first 25 positional arguments of ``solve_task_group``, as arrays or
+    tensors, and returns eight contiguous f32 tensors. They lie on the
+    device of a tensor ``available``, else on the CPU:
+
+    node_mat (N, 2D+6): avail[D] | used[D] | placed_tg | placed_job |
+                        feasible | affinity | dev_affinity | node_col
+    step_mat (K, 2): penalty_idx | active
+    spread_node (2S, N): val_id rows, then val_ok rows
+    spread_tab (2S, V): counts rows, then desired rows
+    spread_meta (S, 2): has_targets | weight
+    dp_node (2P, N): val_id rows, then val_ok rows
+    dp_tab (P, Vd+1): counts columns | limit column
+    scalars (5+D,): lowest_boost | tg_count | dh_job | dh_tg | spread_alg
+                    | ask[D]
+
+    ``node_col`` is ``tie_perm`` for B9 (default the identity), each
+    row's tie-break position for B16."""
+    dev = (available.device if isinstance(available, torch.Tensor)
+           else torch.device("cpu"))
+
+    def f(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev, torch.float32)
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    n = available.shape[0]
+    if node_col is None:
+        node_col = torch.arange(n, device=dev)
+    node_mat = torch.cat([f(available), f(used0)] + [
+        f(c)[:, None] for c in (placed_tg0, placed_job0, feasible,
+                                affinity_boost, dev_affinity, node_col)],
+        dim=1)
+    dp_node = torch.cat([f(dp_val_id), f(dp_val_ok)])
+    dp_tab = (torch.cat([f(dp_counts0), f(dp_limit)[:, None]], dim=1)
+              if len(dp_limit) else torch.zeros((0, 2), device=dev))
+    scalars = torch.cat([torch.stack([f(x).reshape(()) for x in (
+        lowest_boost0, tg_count, dh_job, dh_tg, spread_alg)]), f(ask)])
+    return [t.contiguous() for t in (
+        node_mat, torch.stack([f(penalty_idx), f(active)], dim=1),
+        torch.cat([f(spread_val_id), f(spread_val_ok)]),
+        torch.cat([f(spread_counts0), f(spread_desired)]),
+        torch.stack([f(spread_has_targets), f(spread_weight)], dim=1),
+        dp_node, dp_tab, scalars)]
+
+
+def solve_task_group(*args, device=None):
+    """B9 with the reference's positional signature (kernels.py:267-378):
+    the 25 or 26 arguments of ``solve_task_group`` (tie_perm last, may be
+    None), as arrays or tensors -> (choices (K,) int32, founds (K,) bool,
+    scores (K,) f32). Packed on ``device`` by :func:`pack_solve_tensors`
+    and run by :func:`solve_task_group_fused`: the kernel on the card,
+    the plain version on the CPU. ``device`` defaults to that of a tensor
+    ``available``, else the card."""
+    if len(args) not in (25, 26):
+        raise TypeError(f"solve_task_group: 25 or 26 arguments, got "
+                        f"{len(args)}")
+    if device is None and isinstance(args[0], torch.Tensor):
+        device = args[0].device
+    dev = resolve(device)
+    t = [None if a is None else torch.as_tensor(a).to(dev) for a in args]
+    out = solve_task_group_fused(*pack_solve_tensors(
+        *t[:25], node_col=t[25] if len(t) > 25 else None))
+    return out[0].to(torch.int32), out[1] > 0.5, out[2]
 
 
 # ---------------------------------------------------------------------------
@@ -792,20 +833,20 @@ def _launch_bulk_scan(available, dyn, feasible, aff, dev_affinity, tie_perm,
                           device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     fn = _ext.entry("nt_bulk_scan")
-    _ext.check(fn(available.data_ptr(), dyn.data_ptr(), feasible.data_ptr(),
-                  aff.data_ptr(),
-                  None if dev_affinity is None else dev_affinity.data_ptr(),
-                  tie_perm.data_ptr(), spread_node.data_ptr(),
-                  spread_tab.data_ptr(), spread_meta.data_ptr(),
-                  scalars.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                  n, d, s, v, int(k_total), batch, n_steps,
-                  _ext.stream_handle(dev)), "bulk_scan launch")
-    _ext.COUNTS.launched("bulk_scan")
+    _ext.launch(
+        "bulk_scan", dev, fn,
+        available.data_ptr(), dyn.data_ptr(), feasible.data_ptr(),
+        aff.data_ptr(),
+        None if dev_affinity is None else dev_affinity.data_ptr(),
+        tie_perm.data_ptr(), spread_node.data_ptr(),
+        spread_tab.data_ptr(), spread_meta.data_ptr(),
+        scalars.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        n, d, s, v, int(k_total), batch, n_steps)
     return out
 
 
 def _scalars(ask, tg_count, dh_job, dh_tg, spread_alg) -> torch.Tensor:
-    """The scan's (5 + D,) f32 scalars in pack_solve_args' layout:
+    """The scan's (5 + D,) f32 scalars in pack_solve_tensors' layout:
     lowest_boost (-1) | tg_count | dh_job | dh_tg | spread_alg | ask."""
     head = torch.tensor([-1.0, float(tg_count), float(bool(dh_job)),
                          float(bool(dh_tg)), float(bool(spread_alg))],
@@ -863,7 +904,7 @@ def solve_bulk(available, used0, ask, feasible, placed_tg0, placed_job0,
             ("spread_weight", spread_weight, f32, (s,)),
             ("tie_perm", tie_perm, i32, (n,))):
         _check_cuda("solve_bulk", name, t, dtype, shape, dev)
-    # pack_solve_args' f32 layout; the counts are exact in f32 below 2^24
+    # pack_solve_tensors' f32 layout; the counts are exact in f32 below 2^24
     dyn = torch.cat([used0, placed_tg0.to(f32)[:, None],
                      placed_job0.to(f32)[:, None]], dim=1)
     spread_node = torch.cat([spread_val_id.to(f32), spread_val_ok.to(f32)])
@@ -1069,14 +1110,14 @@ def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
     flagged = torch.empty(k, dtype=b8, device=dev)
     scores = torch.empty(k, dtype=f32, device=dev)
     fn = _ext.entry("nt_preempt_solve")
-    _ext.check(fn(available.data_ptr(), used0.data_ptr(), ask.data_ptr(),
-                  feasible.data_ptr(), net_prio.data_ptr(), active.data_ptr(),
-                  v_vec.data_ptr(), v_elig.data_ptr(), v_flag.data_ptr(),
-                  scratch.data_ptr(), taken.data_ptr(), picks.data_ptr(),
-                  victims.data_ptr(), flagged.data_ptr(), scores.data_ptr(),
-                  n, v, k, d, _ext.stream_handle(dev)),
-               "preempt_solve launch")
-    _ext.COUNTS.launched("preempt_solve")
+    _ext.launch(
+        "preempt_solve", dev, fn,
+        available.data_ptr(), used0.data_ptr(), ask.data_ptr(),
+        feasible.data_ptr(), net_prio.data_ptr(), active.data_ptr(),
+        v_vec.data_ptr(), v_elig.data_ptr(), v_flag.data_ptr(),
+        scratch.data_ptr(), taken.data_ptr(), picks.data_ptr(),
+        victims.data_ptr(), flagged.data_ptr(), scores.data_ptr(),
+        n, v, k, d)
     return picks, victims, flagged, scores
 
 
@@ -1108,10 +1149,10 @@ def preempt_pick(available, used0, evictable0, ask, feasible, net_prio,
     scratch = torch.empty(n * (2 * d + 1), dtype=f32, device=dev)
     picks = torch.empty(k, dtype=torch.int32, device=dev)
     fn = _ext.entry("nt_preempt_pick")
-    _ext.check(fn(available.data_ptr(), used0.data_ptr(),
-                  evictable0.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
-                  net_prio.data_ptr(), active.data_ptr(), scratch.data_ptr(),
-                  picks.data_ptr(), n, k, d, _ext.stream_handle(dev)),
-               "preempt_pick launch")
-    _ext.COUNTS.launched("preempt_pick")
+    _ext.launch(
+        "preempt_pick", dev, fn,
+        available.data_ptr(), used0.data_ptr(),
+        evictable0.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
+        net_prio.data_ptr(), active.data_ptr(), scratch.data_ptr(),
+        picks.data_ptr(), n, k, d)
     return picks

@@ -194,9 +194,9 @@ def permutation(seed: int, n: int, device) -> torch.Tensor:
             f"multi-CTA selection)")
     out = torch.empty(n, dtype=torch.int32, device=dev)
     fn = _ext.entry("nt_tie_perm")
-    _ext.check(fn(int(seed), n, permutation_rounds(n), out.data_ptr(),
-                  _ext.stream_handle(dev)), "tie_perm launch")
-    _ext.COUNTS.launched("tie_perm")
+    _ext.launch(
+        "tie_perm", dev, fn,
+        int(seed), n, permutation_rounds(n), out.data_ptr())
     return out
 
 
@@ -234,10 +234,10 @@ def jitter_fold(seeds: torch.Tensor, n: int, his: Sequence[float],
     out = torch.empty((n_t, g, n), dtype=torch.float32, device=seeds.device)
     spans = (ctypes.c_float * n_t)(*(_span(hi) for hi in his))
     fn = _ext.entry("nt_jitter_fold")
-    _ext.check(fn(s32.data_ptr(), spans, n_t, out.data_ptr(), g, n,
-                  int(offset), _ext.stream_handle(seeds.device)),
-               "jitter_fold launch")
-    _ext.COUNTS.launched("jitter_fold")
+    _ext.launch(
+        "jitter_fold", seeds.device, fn,
+        s32.data_ptr(), spans, n_t, out.data_ptr(), g, n,
+        int(offset))
     return out
 
 
@@ -254,8 +254,8 @@ def jitter(seeds: torch.Tensor, n: int, hi: float,
     g = s32.shape[0]
     out = torch.empty((g, n), dtype=torch.float32, device=seeds.device)
     fn = _ext.entry("nt_jitter")
-    _ext.check(fn(s32.data_ptr(), out.data_ptr(), g, n, _span(hi),
-                  int(offset), _ext.stream_handle(seeds.device)),
-               "jitter launch")
-    _ext.COUNTS.launched("jitter")
+    _ext.launch(
+        "jitter", seeds.device, fn,
+        s32.data_ptr(), out.data_ptr(), g, n, _span(hi),
+        int(offset))
     return out

@@ -38,7 +38,7 @@ def scatter_add(used: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"scatter_add: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {used.device}")
     fn = _ext.entry("nt_scatter_add")
-    _ext.check(fn(used.data_ptr(), idx.data_ptr(), delta.data_ptr(), b, d, n,
-                  _ext.stream_handle(used.device)), "scatter_add launch")
-    _ext.COUNTS.launched("scatter_add")
+    _ext.launch(
+        "scatter_add", used.device, fn,
+        used.data_ptr(), idx.data_ptr(), delta.data_ptr(), b, d, n)
     return used

@@ -10,7 +10,7 @@ device: that is how one card holds S shards, as the reference's tests
 hold them on virtual CPU devices; each shard keeps its own parts and
 launches all the same, so one card runs the layout of S cards.
 
-Three programs run on a mesh, each a per-shard body plus the one
+Four programs run on a mesh, each a per-shard body plus the one
 collective, :func:`all_gather`:
 
 - B15 :func:`state_scatter_sharded` (``:144-179``): ``used[idx] +=
@@ -28,35 +28,42 @@ collective, :func:`all_gather`:
   price bumps follow as in the single-device auction; each shard applies
   its own rows. The arm scores sum the per-node contributions in the
   global node order by the fixed pairwise tree, so every layout picks
-  alike.
+  alike;
+- B16 :func:`solve_task_group_sharded` (``:107-122``): the per-eval scan
+  B9 with its rows sharded. Per placement each shard scores its rows and
+  surfaces its best (score desc, tie-break position asc) with the value
+  ids and flags the commit needs, one all-gather, and every shard takes
+  the same global best: its owner commits the usage, every shard the
+  replicated value counts. Choices, founds and scores equal B9's.
 
 Each has a plain torch version (``*_ref``) that follows the reference's
 per-shard body step by step with explicit gathers; the replicated math
 after a gather is computed once, since every shard would compute the
-same. On CUDA the wrappers launch ``csrc/sharded.cu``, one launch a
-shard, the gather between launches. The round loops keep their
-conditions on the device, but the host reads them once per solve, plus
-once per resume when a chunk of rounds did not finish an eval
-(:data:`READS`): a sharded solve blocks its caller until its rounds
-have run.
+same. On CUDA the wrappers launch ``csrc/sharded.cu`` (B16
+``csrc/task_group_shard.cu``), one launch a shard, the gather between
+launches. The round loops of B13 and B14 keep their conditions on the
+device, but the host reads them once per solve, plus once per resume
+when a chunk of rounds did not finish an eval (:data:`READS`): a
+sharded solve blocks its caller until its rounds have run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import List, Sequence
 
 import torch
 
 from .. import _ext
-from ..device import resolve
+from ..device import DeviceLike, resolve
 from .batch_solver import (MAX_ROUNDS, PORTFOLIO, TOP_R, _eps_tensor,
                            _jitter_his, _price_eps, bid_scores,
                            resolve_round, topr_ref)
-from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda,
-                      fill_score_cap, fit_scores, pairwise_sum_ref,
-                      preempt_score_ref)
+from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda, _layout,
+                      fill_score_cap, fit_scores, pack_solve_tensors,
+                      pairwise_sum_ref, preempt_score_ref, score_nodes_ref)
 from .prng import jitter, jitter_fold, jitter_fold_ref, jitter_ref
 
 # rounds a B13 eval gets before the host looks at its flags; a stalled
@@ -95,8 +102,15 @@ class NodeMesh:
         return f"NodeMesh({', '.join(map(str, self.devices))})"
 
 
-def node_mesh(devices: Sequence) -> NodeMesh:
-    return NodeMesh(devices)
+def shard_mesh(n_shards: int, device: DeviceLike = None) -> NodeMesh:
+    """n shards on the CPU, or on the visible cards in turn (one card
+    holds them all)."""
+    dev = resolve(device)
+    if dev.type == "cpu":
+        return NodeMesh([dev] * n_shards)
+    cards = torch.cuda.device_count()
+    return NodeMesh([torch.device("cuda", i % cards)
+                     for i in range(n_shards)])
 
 
 def shard_rows(mesh: NodeMesh, x: torch.Tensor) -> List[torch.Tensor]:
@@ -135,26 +149,39 @@ def gather_rows(parts: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
 def all_gather(mesh: NodeMesh, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
     """The one collective. ``bufs`` holds one (S, ...) buffer per shard,
     on its device, and shard s has written row s of its own. Every
-    buffer gets the other rows copied in, each copy queued on the
-    destination's current stream; where the source lies on another
-    device, that stream first waits on an event of the source's."""
-    ready = {}
-    for dev in set(mesh.devices):
-        if dev.type == "cuda":
-            ready[dev] = torch.cuda.Event()
-            ready[dev].record(torch.cuda.current_stream(dev))
+    buffer gets the other rows copied in. Where the shards lie on more
+    than one card, every card's stream waits on every other's before the
+    copies (no row is read before it is written) and after them (no
+    shard's next launch overwrites its row before the others have copied
+    it, and none reads its buffer before the copies into it are done);
+    torch's peer copies order some of this on their own, the barriers
+    do not rely on it. On one card every launch and copy shares a
+    stream."""
+    cards = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
+    if len(cards) > 1:
+        _barrier(cards)
     for d, (dev, dst) in enumerate(zip(mesh.devices, bufs)):
-        if dev.type == "cuda":
-            stream = torch.cuda.current_stream(dev)
-            for src_dev, ev in ready.items():
-                if src_dev != dev:
-                    stream.wait_event(ev)
         with (torch.cuda.device(dev) if dev.type == "cuda"
               else contextlib.nullcontext()):
             for q, src in enumerate(bufs):
                 if q != d:
                     dst[q].copy_(src[q], non_blocking=True)
+    if len(cards) > 1:
+        _barrier(cards)
     return bufs
+
+
+def _barrier(cards) -> None:
+    """Each card's current stream waits on every other card's."""
+    done = {}
+    for dev in cards:
+        done[dev] = torch.cuda.Event()
+        done[dev].record(torch.cuda.current_stream(dev))
+    for dev in cards:
+        stream = torch.cuda.current_stream(dev)
+        for src, ev in done.items():
+            if src != dev:
+                stream.wait_event(ev)
 
 
 # ---------------------------------------------------------------------------
@@ -438,10 +465,6 @@ def _check_parts(what, mesh, name, parts, dtype, shape):
         _check_cuda(what, name, p, dtype, shape, dev)
 
 
-def _stream(dev) -> int:
-    return _ext.stream_handle(dev)
-
-
 def _scatter_launch(mesh, used, idx, delta, clamp: bool) -> None:
     n_loc = used[0].shape[0]
     b = idx.shape[0]
@@ -449,9 +472,8 @@ def _scatter_launch(mesh, used, idx, delta, clamp: bool) -> None:
     for s, (p, dev) in enumerate(zip(used, mesh.devices)):
         i = idx.to(dev, torch.int32, non_blocking=True).contiguous()
         dlt = delta.to(dev, torch.float32, non_blocking=True).contiguous()
-        _ext.check(fn(p.data_ptr(), i.data_ptr(), dlt.data_ptr(), b, n_loc,
-                      s, int(clamp), _stream(dev)), "scatter_shard launch")
-        _ext.COUNTS.launched("scatter_shard")
+        _ext.launch("scatter_shard", dev, fn, p.data_ptr(), i.data_ptr(),
+                    dlt.data_ptr(), b, n_loc, s, int(clamp))
 
 
 def state_scatter_sharded(mesh: NodeMesh, used: List[torch.Tensor],
@@ -503,26 +525,24 @@ class _BulkRun:
     def round(self, e: int, first: bool, last: bool) -> None:
         mesh, pool_fn = self.mesh, _ext.entry("nt_bulk_shard_pool")
         for s, dev in enumerate(mesh.devices):
-            _ext.check(pool_fn(
+            _ext.launch(
+                "bulk_shard_pool", dev, pool_fn,
                 self.used[s].data_ptr(), self.avail[s].data_ptr(),
                 self.feas[s].data_ptr(), self.aff[s].data_ptr(),
                 self.ask[s].data_ptr(), self.k[s].data_ptr(),
                 self.jit[s].data_ptr(), self.scratch[s].data_ptr(),
                 self.state[s].data_ptr(), self.pools[s].data_ptr(), e,
-                self.g, self.n_loc, s, self.r, int(first), _stream(dev)),
-                "bulk_shard_pool launch")
-            _ext.COUNTS.launched("bulk_shard_pool")
+                self.g, self.n_loc, s, self.r, int(first))
         all_gather(mesh, self.pools)
         merge_fn = _ext.entry("nt_bulk_shard_merge")
         for s, dev in enumerate(mesh.devices):
-            _ext.check(merge_fn(
+            _ext.launch(
+                "bulk_shard_merge", dev, merge_fn,
                 self.used[s].data_ptr(), self.ask[s].data_ptr(),
                 self.scratch[s].data_ptr(), self.state[s].data_ptr(),
                 self.pools[s].data_ptr(), self.counts[s].data_ptr(),
                 self.rounds[s].data_ptr(), e, self.g, self.n_loc,
-                mesh.size, s, self.r, int(last), _stream(dev)),
-                "bulk_shard_merge launch")
-            _ext.COUNTS.launched("bulk_shard_merge")
+                mesh.size, s, self.r, int(last))
 
     def queue(self, e: int, count: int, first: bool) -> None:
         """Queue ``count`` rounds of eval ``e`` (``first``: the eval
@@ -712,7 +732,8 @@ class _JointRun:
             for s, dev in enumerate(mesh.devices):
                 ev = self.evict[s] if self.evict is not None else None
                 npr = self.net_prio[s] if self.net_prio is not None else None
-                _ext.check(bids_fn(
+                _ext.launch(
+                    "joint_shard_bids", dev, bids_fn,
                     self.used0[s].data_ptr(), self.avail[s].data_ptr(),
                     self.feas[s].data_ptr(), self.aff[s].data_ptr(),
                     self.ask[s].data_ptr(), self.k[s].data_ptr(),
@@ -722,19 +743,16 @@ class _JointRun:
                     self.used[s].data_ptr(), self.take[s].data_ptr(),
                     self.price[s].data_ptr(), self.state[s].data_ptr(),
                     self.pools[s].data_ptr(), self.n_t, self.g, self.n_loc,
-                    s, self.rl, self.rounds_cap, first, _stream(dev)),
-                    "joint_shard_bids launch")
-                _ext.COUNTS.launched("joint_shard_bids")
+                    s, self.rl, self.rounds_cap, first)
             all_gather(mesh, self.pools)
             for s, dev in enumerate(mesh.devices):
-                _ext.check(merge_fn(
+                _ext.launch(
+                    "joint_shard_merge", dev, merge_fn,
                     self.ask[s].data_ptr(), self.eps[s].data_ptr(),
                     self.used[s].data_ptr(), self.take[s].data_ptr(),
                     self.price[s].data_ptr(), self.state[s].data_ptr(),
                     self.pools[s].data_ptr(), self.n_t, self.g, self.n_loc,
-                    mesh.size, s, self.rl, self.rg, self.rounds_cap,
-                    _stream(dev)), "joint_shard_merge launch")
-                _ext.COUNTS.launched("joint_shard_merge")
+                    mesh.size, s, self.rl, self.rg, self.rounds_cap)
 
     def go_flags(self) -> torch.Tensor:
         """Each restart's go flag (shard 0's replicated copy)."""
@@ -754,12 +772,12 @@ class _JointRun:
                             device=dev)
             p = torch.empty((mesh.size, n_t + 1), dtype=torch.int32,
                             device=dev)
-            _ext.check(contrib_fn(
+            _ext.launch(
+                "joint_shard_contrib", dev, contrib_fn,
                 self.avail[s].data_ptr(), self.used[s].data_ptr(),
                 self.take[s].data_ptr(), greedy.used[s].data_ptr(),
                 greedy.counts[s].data_ptr(), c.data_ptr(), p.data_ptr(),
-                n_t, g, n_loc, s, _stream(dev)), "joint_shard_contrib launch")
-            _ext.COUNTS.launched("joint_shard_contrib")
+                n_t, g, n_loc, s)
             contrib.append(c)
             placed.append(p)
         all_gather(mesh, contrib)
@@ -770,17 +788,240 @@ class _JointRun:
             cnt = torch.empty((g, n_loc), dtype=torch.int16, device=dev)
             info = torch.empty(6, dtype=torch.float32, device=dev)
             gat = torch.empty((), dtype=torch.int32, device=dev)
-            _ext.check(pick_fn(
+            _ext.launch(
+                "joint_shard_pick", dev, pick_fn,
                 contrib[s].data_ptr(), placed[s].data_ptr(),
                 self.state[s].data_ptr(), greedy.rounds[s].data_ptr(),
                 self.used[s].data_ptr(), self.take[s].data_ptr(),
                 greedy.used[s].data_ptr(), greedy.counts[s].data_ptr(),
                 u.data_ptr(), cnt.data_ptr(), info.data_ptr(),
-                gat.data_ptr(), n_t, g, n, n_loc, mesh.size, _stream(dev)),
-                "joint_shard_pick launch")
-            _ext.COUNTS.launched("joint_shard_pick")
+                gat.data_ptr(), n_t, g, n, n_loc, mesh.size)
             used_out.append(u)
             counts_out.append(cnt)
             infos.append(info)
             gathers.append(gat)
         return used_out, counts_out, infos[0], gathers[0]
+
+
+# ---------------------------------------------------------------------------
+# B16: the per-eval scan with its node rows sharded
+# ---------------------------------------------------------------------------
+
+# solve_task_group's node-axis arguments (reference sharding.py:82-99):
+# (N, ...) rows and (., N) columns; the rest is replicated
+SOLVE_ROWS = (0, 1, 2, 3, 5, 6, 7)
+SOLVE_COLS = (10, 11, 16, 17)
+
+
+def pad_node_axis(args: tuple, multiple: int) -> tuple:
+    """Pad the node axis of solve_task_group's arguments up to a multiple
+    of ``multiple`` with dummy rows (reference ``:37-70``): zero capacity
+    and usage, infeasible, no attribute value; tie_perm gets them at the
+    lowest priority. The argmax never picks them, so choices stay rows
+    of the real nodes. Returns the arguments as tensors."""
+    args = [None if a is None else torch.as_tensor(a) for a in args]
+    n = args[0].shape[0]
+    pad = (-n) % multiple
+    if pad == 0:
+        return tuple(args)
+
+    def _pad(x, dim):
+        shape = list(x.shape)
+        shape[dim] = pad
+        return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+    for i in SOLVE_ROWS:
+        args[i] = _pad(args[i], 0)
+    for i in SOLVE_COLS:
+        args[i] = _pad(args[i], 1)
+    if len(args) > 25 and args[25] is not None:
+        tp = args[25]
+        args[25] = torch.cat([tp, torch.arange(n, n + pad, dtype=tp.dtype,
+                                               device=tp.device)])
+    return tuple(args)
+
+
+def shard_solve_args(mesh: NodeMesh, args: tuple) -> tuple:
+    """solve_task_group's arguments, padded to the mesh (pad_node_axis),
+    as parts: the node rows and columns through shard_rows / shard_cols,
+    the rest (tie_perm too) one copy a shard through replicate
+    (reference ``:73-104``). A missing tie_perm stays None."""
+    args = pad_node_axis(args, mesh.size)
+    return tuple(None if a is None
+                 else shard_rows(mesh, a) if i in SOLVE_ROWS
+                 else shard_cols(mesh, a) if i in SOLVE_COLS
+                 else replicate(mesh, a) for i, a in enumerate(args))
+
+
+def _positions(sharded, mesh: NodeMesh) -> List[torch.Tensor]:
+    """Each shard's rows' places in the tie-break order: the inverse of
+    tie_perm (the identity without one), cut into the shards' rows."""
+    n_loc = sharded[0][0].shape[0]
+    n = n_loc * mesh.size
+    dev = mesh.devices[0]
+    pos = torch.arange(n, device=dev)
+    if len(sharded) > 25 and sharded[25] is not None:
+        inv = torch.empty_like(pos)
+        inv[sharded[25][0].to(dev, torch.int64)] = pos
+        pos = inv
+    return [pos[s * n_loc:(s + 1) * n_loc].to(d)
+            for s, d in enumerate(mesh.devices)]
+
+
+def _first_best(score: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Index of the highest score, the lowest position among equals; a
+    NaN above every number, as argmax takes it."""
+    best = score.max()
+    tie = (score == best) | (torch.isnan(score) & torch.isnan(best))
+    return torch.where(tie, pos, torch.iinfo(torch.int64).max).argmin()
+
+
+def solve_task_group_sharded_ref(mesh: NodeMesh, sharded: tuple):
+    """Plain version of B16 on the parts of :func:`shard_solve_args`,
+    step for step B9 (``kernels.solve_task_group_ref``) with the rows
+    sharded. Per step each shard scores its rows (``score_nodes_ref``)
+    and writes its best (score desc, tie-break position asc) to its row
+    of a gather buffer: score, position, global row, and the row's
+    spread and distinct_property value ids and ok flags and explicit
+    spread boosts; one all_gather; then the global best and its commit:
+    usage and placement counts on the owning shard only, the value counts
+    and the lowest boost replicated (computed once). Returns (choices
+    int32, founds bool, scores f32), each (K,), on the first shard's
+    device."""
+    (avail, used, ptg, pjob, ask, feas, aff, dev_aff, pen, active, svid,
+     sok, scnt, sdes, has_t, weight, dvid, dok, dcnt, dlim, lowest,
+     tg_count, dh_job, dh_tg, spread_alg) = sharded[:25]
+    _ext.COUNTS.plain("task_group_shard", avail[0])
+    n_loc = avail[0].shape[0]
+    s_sp, p = svid[0].shape[0], dvid[0].shape[0]
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    pos = _positions(sharded, mesh)
+    used = [u.to(f32, copy=True) for u in used]
+    ptg = [x.to(i32, copy=True) for x in ptg]
+    pjob = [x.to(i32, copy=True) for x in pjob]
+    scnt, dcnt = scnt[0].to(i32, copy=True), dcnt[0].to(i32, copy=True)
+    low = lowest[0].to(f32)
+    rows_s = torch.arange(s_sp, device=scnt.device)
+    rows_p = torch.arange(p, device=dcnt.device)
+    inf = torch.full((1,), math.inf, device=low.device)
+    width = 3 + 3 * s_sp + 2 * p
+    bufs = [torch.empty((mesh.size, width), dtype=torch.float64, device=d)
+            for d in mesh.devices]
+    arange = [torch.arange(n_loc, device=d) for d in mesh.devices]
+    choices, founds, scores = [], [], []
+    for t in range(pen[0].shape[0]):
+        for s, d in enumerate(mesh.devices):
+            lo = s * n_loc
+            pen_t = pen[s][t].to(i64)
+            own = (pen_t >= lo) & (pen_t < lo + n_loc)
+            score, _, boost = score_nodes_ref(
+                available=avail[s].to(f32), used=used[s],
+                ask=ask[s].to(f32), feasible=feas[s].bool(),
+                placed_tg=ptg[s], placed_job=pjob[s],
+                affinity_boost=aff[s].to(f32),
+                dev_affinity=dev_aff[s].to(f32),
+                penalty_idx=torch.where(own, pen_t - lo, -1),
+                spread_val_id=svid[s].to(i64), spread_val_ok=sok[s].bool(),
+                spread_counts=scnt.to(d), spread_desired=sdes[s].to(f32),
+                spread_has_targets=has_t[s].bool(),
+                spread_weight=weight[s].to(f32), dp_val_id=dvid[s].to(i64),
+                dp_val_ok=dok[s].bool(), dp_counts=dcnt.to(d),
+                dp_limit=dlim[s].to(f32), lowest_boost=low.to(d),
+                tg_count=tg_count[s].to(f32), dh_job=dh_job[s].bool(),
+                dh_tg=dh_tg[s].bool(), spread_alg=spread_alg[s].bool())
+            j = _first_best(score, pos[s])
+            bufs[s][s] = torch.cat([
+                torch.stack([score[j].double(), pos[s][j].double(),
+                             (j + lo).double()]),
+                svid[s][:, j].double(), sok[s][:, j].double(),
+                dvid[s][:, j].double(), dok[s][:, j].double(),
+                boost[:, j].double()])
+        all_gather(mesh, bufs)
+        cand = bufs[0]
+        win = cand[_first_best(cand[:, 0], cand[:, 1].to(i64))]
+        best = win[0].to(f32)
+        row = win[2].to(i64)
+        found = active[0][t].bool() & (best > NEG)
+        sel_ok = (win[3 + s_sp:3 + 2 * s_sp] > 0.5) & found
+        scnt = scnt.index_put((rows_s, win[3:3 + s_sp].to(i64)),
+                              sel_ok.to(i32), accumulate=True)
+        if p:
+            at = 3 + 2 * s_sp
+            dsel_ok = (win[at + p:at + 2 * p] > 0.5) & found
+            dcnt = dcnt.index_put((rows_p, win[at:at + p].to(i64)),
+                                  dsel_ok.to(i32), accumulate=True)
+        chosen = torch.where(has_t[0].bool() & sel_ok,
+                             win[3 + 2 * s_sp + 2 * p:].to(f32), math.inf)
+        low = torch.minimum(low, torch.cat([chosen, inf]).amin())
+        for s, d in enumerate(mesh.devices):
+            onehot = (arange[s] == (row - s * n_loc).to(d)) & found.to(d)
+            used[s] = used[s] + ask[s].to(f32)[None, :] * onehot[:, None]
+            ptg[s] = ptg[s] + onehot.to(i32)
+            pjob[s] = pjob[s] + onehot.to(i32)
+        choices.append(row)
+        founds.append(found)
+        scores.append(best)
+    dev0 = mesh.devices[0]
+    if not choices:
+        return (torch.zeros(0, dtype=i32, device=dev0),
+                torch.zeros(0, dtype=torch.bool, device=dev0),
+                torch.zeros(0, dtype=f32, device=dev0))
+    return (torch.stack(choices).to(i32), torch.stack(founds),
+            torch.stack(scores))
+
+
+def solve_task_group_sharded(mesh: NodeMesh, args: tuple):
+    """B16: place K allocations of one task group as B9 does, with the
+    node rows sharded over ``mesh`` (reference ``:107-122``). ``args``:
+    the 25 or 26 positional arguments of ``solve_task_group``, as arrays
+    or tensors; they are padded and sharded by :func:`shard_solve_args`.
+    -> (choices (K,) int32 rows of the real nodes, founds (K,) bool,
+    scores (K,) f32) on the first shard's device, equal to B9's. The
+    kernel of csrc/task_group_shard.cu on a CUDA mesh, the plain version
+    on a CPU mesh."""
+    sharded = shard_solve_args(mesh, args)
+    if _is_cpu(mesh):
+        return solve_task_group_sharded_ref(mesh, sharded)
+    return _task_group_shard_launches(mesh, sharded)
+
+
+def _task_group_shard_launches(mesh: NodeMesh, sharded: tuple):
+    """B16 on a CUDA mesh: each shard's parts packed in B9's layout (with
+    node_mat's last column the rows' tie-break positions), then for t = 0
+    .. K one launch a shard, each committing step t - 1's global best and
+    scoring step t, with an all_gather of the shards' candidates between
+    steps."""
+    pos = _positions(sharded, mesh)
+    packs = [pack_solve_tensors(*(a[s] for a in sharded[:25]),
+                                node_col=pos[s])
+             for s in range(mesh.size)]
+    for pk, dev in zip(packs, mesh.devices):
+        n, d, s_sp, v, p, vd = _layout(pk[0], *pk[2:],
+                                       what="solve_task_group_sharded")
+        if pk[0].device != dev:
+            raise ValueError(f"solve_task_group_sharded: a part lies on "
+                             f"{pk[0].device}, its shard on {dev}")
+    k = packs[0][1].shape[0]
+    dev0 = mesh.devices[0]
+    out = torch.empty((3, k), dtype=torch.float32, device=dev0)
+    width = 3 + 2 * s_sp + 2 * p
+    scratch, carry, gbufs = [], [], []
+    for dev in mesh.devices:
+        scratch.append(torch.empty(n * (2 * d + 7 + 2 * s_sp + 2 * p),
+                                   dtype=torch.float32, device=dev))
+        carry.append(torch.empty(s_sp * v + p * vd + 1, dtype=torch.int32,
+                                 device=dev))
+        gbufs.append(torch.empty((mesh.size, width), dtype=torch.int32,
+                                 device=dev))
+    fn = _ext.entry("nt_task_group_shard")
+    for t in range(k + 1 if k else 0):
+        for s, dev in enumerate(mesh.devices):
+            _ext.launch("task_group_shard", dev, fn,
+                        *(x.data_ptr() for x in packs[s]),
+                        scratch[s].data_ptr(), carry[s].data_ptr(),
+                        gbufs[s].data_ptr(),
+                        out.data_ptr() if s == 0 else None, t, k, n, d, s,
+                        mesh.size, s_sp, v, p, vd)
+        if t < k:
+            all_gather(mesh, gbufs)
+    return out[0].to(torch.int32), out[1] > 0.5, out[2]

@@ -64,8 +64,8 @@ import torch
 from ..device import DeviceLike, resolve
 from .batch_solver import solve_batch
 from .kernels import solve_bulk_multi
-from .sharding import (NodeMesh, gather_rows, solve_batch_sharded,
-                       solve_bulk_multi_sharded)
+from .sharding import (NodeMesh, gather_rows, shard_mesh,
+                       solve_batch_sharded, solve_bulk_multi_sharded)
 
 _STOP = object()
 
@@ -315,8 +315,7 @@ class BulkSolverService:
                     n = min(n, cap)
             if n > 1:
                 n = 1 << (n.bit_length() - 1)
-                self._mesh = NodeMesh([torch.device("cuda", i)
-                                       for i in range(n)])
+                self._mesh = shard_mesh(n, self.device)
                 with self._lock:
                     self.stats["mesh_devices"] = n
         mesh = self._mesh

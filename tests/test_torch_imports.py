@@ -42,6 +42,7 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.tensor.batch_solver\n"
         "import nomad_tpu_torch.scheduler.preemption\n"
         "import nomad_tpu_torch.scheduler.system_sched\n"
+        "import nomad_tpu_torch.tensor.sharding, nomad_tpu_torch.graft_entry\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
