@@ -10,7 +10,13 @@ Phases (any failure raises and exits non-zero):
               per source, in parallel) into build/nomad_tpu_torch/.
 3. B3      -- jitter kernel vs jitter_ref at G=16 x N_pad=16,384: bitwise.
 4. B4      -- scatter kernel vs scatter_add_ref on (16,384, 4) with 1,024
-              rows including duplicates and (0, 0) padding: exact.
+              rows including duplicates and (0, 0) padding: exact. Timed
+              beside index_add_ twice: host issue (cuda_time_ms, the
+              event window around one call, as every record) and
+              device-only (device_only_ms: a sleep kernel holds the stream
+              while the host queues 100 calls). The wrapper must raise
+              ValueError on a wrong dtype, shape or device and launch
+              nothing, and launch nothing for no rows.
 5. B1      -- solve_bulk_multi (scatter + jitter + fill kernels) vs
               solve_bulk_multi_ref at the C2M width (10,240 nodes padded to
               16,384, G=16, k=4,000) with the hazard rows mixed in: counts
@@ -118,8 +124,13 @@ Phases (any failure raises and exits non-zero):
               card's devices in turn; with one card every shard on cuda:0,
               each with its own parts and launches): every shard's B3 / B3'
               jitter slice bitwise equal to the full draw; B15
-              (nt_scatter_shard) exact against its plain version and B4 at
-              S 2, 4, 8; B13 (the sharded greedy
+              (nt_scatter_shards, one host call for the S launches) exact
+              against its plain version and B4 at S 2, 4, 8 on 1,024 and
+              4,096 rows, and with the clamp of the correction fold
+              against its plain version; its wrapper raises ValueError on
+              a wrong dtype, shape or device and launches nothing for no
+              rows; timed at S 4 beside
+              index_add_ (host issue); B13 (the sharded greedy
               fill) at bench.py cfg7_sharded_5k's shape (10,240 nodes, G 16,
               k 512) and at the C2M width with the B1 hazards (N_pad 16,384,
               k 4,000) at S 2, 4, 8, and a top_r 8 many-round variant:
@@ -138,9 +149,14 @@ Phases (any failure raises and exits non-zero):
               batches of 8) through a 4-shard mesh service: the same gates,
               joint score >= greedy score, the B14 kernels launched.
     runs   -- both paths' launches replayed: exact against the plain sharded
-              versions and the single-device kernels; B13, B14 and B15 timed
-              beside B1, solve_batch and index_add_ at the same inputs. The
-              kernel records of B13, B14 and B15 are these means.
+              versions and the single-device kernels; B13 and B14 timed
+              beside B1 and solve_batch at the same inputs. Then B15 on
+              the C2M path's corrections: the launch the path makes (the
+              correction fold: adds, then the clamp of every row) and
+              state_scatter_sharded (the adds alone), each exact against
+              its plain version and timed host issue and device-only,
+              the adds beside index_add_ (both readings). The kernel
+              records of B13, B14 and B15 are these means.
 24. parity -- a pinned one-thread workload at 10,240 nodes (8 x 4,000
               tpu-binpack, 8 x 800 tpu-solve) on a service with no mesh and
               with 2, 4 and 8 shards: the same fingerprint at every S.
@@ -169,10 +185,19 @@ collection can land in either.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards.
+``python3 chip_smoke.py --launch-split`` runs the build and only the
+split of a launch's host time: B4, B15 (S 4 on the card) and
+index_add_, and each piece of a launch alone (_ext.entry, a device
+switch and read, the stream handle, the bare ctypes call, ...),
+perf_counter_ns over 2,000 calls; then the three calls' device-only
+times.
 
 Before the last line it prints one JSON line with every kernel's launches
-on its path, error against its plain version, times and bound, and the
-card's name and power limit; the last line is the device summary.
+on its path, error against its plain version, times and bound (B4's
+record adds ``device_ms`` and ``library_device_ms``, the device-only
+readings; B15's, the launch its path makes, adds ``device_ms`` and
+``without_clamp``, the adds alone beside index_add_), and the card's
+name and power limit; the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -336,15 +361,188 @@ def phase_scatter(torch, dev, card, rng):
     idx64 = idx.to(torch.int64)
     lib = cuda_time_ms(torch, lambda u: u.index_add_(0, idx64, delta),
                        setup=used0.clone)
+    u = used0.clone()
+    dev_ms = device_only_ms(torch, lambda: scatter_add(u, idx, delta))
+    lib_dev = device_only_ms(torch, lambda: u.index_add_(0, idx64, delta))
+    refusals(torch, "B4", scatter_add, (used0.clone(), idx, delta))
     rows = len(np.unique(idx_np))
     b_ms, b_by = bound(b * 4 + b * 16 + 2 * rows * 16, b * 4)
     print(f"B4 scatter  [{card}] exact; kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, index_add_ {lib:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by})")
+          f"({b_by}); device-only: kernel {dev_ms:.4f} ms, index_add_ "
+          f"{lib_dev:.4f} ms; ValueError on a wrong dtype, shape and device")
     return {"name": "scatter_add", "source": "nomad_tpu_torch/csrc/scatter.cu",
             "replaces": "nomad_tpu/tensor/incremental.py:101",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "device_ms": dev_ms, "library_device_ms": lib_dev}
+
+
+def refusals(torch, what, call, args):
+    """``call(used, idx, delta)`` raises ValueError and launches nothing
+    when idx is int64, delta (B, 3), idx or delta on the CPU, or the
+    carry float64; for a mesh's parts (a list), also when the second
+    part lies on the CPU. (A CPU carry alone takes the plain version.)
+    With no rows it launches nothing."""
+    from nomad_tpu_torch import _ext
+
+    used, idx, delta = args
+    mesh = isinstance(used, list)
+    cases = {
+        "int64 idx": (used, idx.to(torch.int64), delta),
+        "(B, 3) delta": (used, idx, delta[:, :3].contiguous()),
+        "idx on the CPU": (used, idx.cpu(), delta),
+        "delta on the CPU": (used, idx, delta.cpu()),
+        "float64 carry": ([p.double() for p in used] if mesh
+                          else used.double(), idx, delta),
+    }
+    if mesh:
+        cases["a part on the CPU"] = (
+            [p.cpu() if s == 1 else p for s, p in enumerate(used)], idx,
+            delta)
+    before = _ext.COUNTS.snapshot()["launches"]
+    for name, bad in cases.items():
+        try:
+            call(*bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"{what}: no ValueError for {name}")
+    call(used, idx[:0], delta[:0])
+    torch.cuda.synchronize()
+    if _ext.COUNTS.snapshot()["launches"] != before:
+        raise AssertionError(f"{what}: a refused call, or one with no "
+                             f"rows, launched")
+
+
+SPLIT_CALLS = 2000
+SLEEP_CYCLES = 20_000_000
+
+
+def host_us(torch, fn, calls=SPLIT_CALLS) -> float:
+    """Mean host time of one ``fn()`` in us over ``calls`` back-to-back
+    calls (perf_counter_ns), after a warm-up, the card idle before."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
+def device_only_ms(torch, fn, reps=100) -> float:
+    """The card's own time of one ``fn()``: a sleep kernel queued ahead
+    holds the stream while the host issues ``reps`` calls back to back,
+    then the event window of the calls over ``reps``. The sleep doubles
+    until it outlasts the host's issue, so no host time is in the
+    window."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(6):
+        before, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        before.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if before.elapsed_time(start) > issue_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise AssertionError("device_only_ms: the host's issue outlasted every "
+                         "sleep")
+
+
+def phase_launch_split(torch, dev, card):
+    """The host's time to issue B4 and B15 (S 4 on this card) and
+    index_add_ on phase 4's inputs, split into the pieces of a launch,
+    each timed alone over SPLIT_CALLS calls; then the three calls'
+    device-only times. ``--launch-split`` alone; not in the full run."""
+    from nomad_tpu_torch import _ext
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.scatter import scatter_add
+
+    rng = np.random.default_rng(4)
+    used = torch.tensor(rng.integers(0, 5000, (N_PAD, 4)).astype(np.float32),
+                        device=dev)
+    b = 1024
+    idx = torch.tensor(rng.integers(0, N_NODES, b).astype(np.int32),
+                       device=dev)
+    delta = torch.tensor(rng.integers(-300, 300, (b, 4)).astype(np.float32),
+                         device=dev)
+    idx64 = idx.to(torch.int64)
+    mesh = mesh_of(4)
+    parts = sh.shard_rows(mesh, used.clone())
+    fn = _ext.entry("nt_scatter_add")
+    ptrs = (used.data_ptr(), idx.data_ptr(), delta.data_ptr())
+    handle = torch.cuda.current_stream(dev).cuda_stream
+    i = dev.index
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = (
+        ("B4 call (scatter_add)", lambda: scatter_add(used, idx, delta)),
+        ("B15 call, S 4 (state_scatter_sharded)",
+         lambda: sh.state_scatter_sharded(mesh, parts, idx, delta)),
+        ("index_add_", lambda: used.index_add_(0, idx64, delta)),
+        ("_ext.launch of B4", lambda: _ext.launch(
+            "scatter_add", dev, fn, *ptrs, b, 4, N_PAD)),
+        ("_ext.entry", lambda: _ext.entry("nt_scatter_add")),
+        ("device switch (torch.cuda.device)", switch),
+        ("device read (torch.cuda.current_device)",
+         torch.cuda.current_device),
+        ("device read (torch._C._cuda_getDevice)", torch._C._cuda_getDevice),
+        ("stream handle (current_stream().cuda_stream)",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("stream handle (_cuda_getCurrentRawStream)",
+         lambda: torch._C._cuda_getCurrentRawStream(i)),
+        ("ctypes call returning at once (b 0)",
+         lambda: fn(*ptrs, 0, 4, N_PAD, handle)),
+        ("ctypes call with its launch (b 1,024)",
+         lambda: fn(*ptrs, b, 4, N_PAD, handle)),
+        ("data_ptr x 3", lambda: (used.data_ptr(), idx.data_ptr(),
+                                  delta.data_ptr())),
+        ("a shard's idx/delta .to() x 2", lambda: (
+            idx.to(dev, torch.int32, non_blocking=True).contiguous(),
+            delta.to(dev, torch.float32, non_blocking=True).contiguous())),
+        ("COUNTS bump", lambda: _ext.COUNTS.launched("scatter_add")),
+        ("one launch through torch's runtime (torch.cuda._sleep(0))",
+         lambda: torch.cuda._sleep(0)),
+    )
+    b15 = _ext.entry("nt_scatter_shards")
+    # the copies b15_args point into are held while the pieces run
+    b15_args, b15_copies = sh._scatter_args(mesh, parts, idx, delta)
+    pieces += (
+        ("B15's checks and arguments (sharding._scatter_args)",
+         lambda: sh._scatter_args(mesh, parts, idx, delta)),
+        ("B15's _ext.launch, S 4, arguments built",
+         lambda: _ext.launch("scatter_shard", mesh.devices, b15, *b15_args,
+                             0)),
+    )
+    us = {label: host_us(torch, f) for label, f in pieces}
+    us["B4's Python around its ctypes call (by difference)"] = (
+        us["B4 call (scatter_add)"]
+        - us["ctypes call with its launch (b 1,024)"])
+    for label, v in us.items():
+        print(f"split       [{card}] {label}: {v:.3f} us a call")
+    dev_ms = {
+        "B4": device_only_ms(torch, lambda: scatter_add(used, idx, delta)),
+        "B15 S 4": device_only_ms(torch, lambda: sh.state_scatter_sharded(
+            mesh, parts, idx, delta)),
+        "index_add_": device_only_ms(
+            torch, lambda: used.index_add_(0, idx64, delta)),
+    }
+    print(f"split       [{card}] device-only, {b} rows on ({N_PAD}, 4): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items()))
 
 
 def b1_inputs(torch, dev, rng):
@@ -2472,21 +2670,49 @@ def phase_sharded_kernels(torch, dev, card):
     delta_np[-64:] = 0.0
     idx, delta = torch.tensor(idx_np, device=dev), torch.tensor(delta_np,
                                                                device=dev)
-    single = scatter_add(used0.clone(), idx, delta)
-    for s_n in SHARDS:
-        mesh = mesh_of(s_n)
-        got = sh.state_scatter_sharded(mesh, sh.shard_rows(
-            mesh, used0.clone()), idx, delta)
-        want = sh.state_scatter_sharded_ref(mesh, sh.shard_rows(
-            mesh, used0.clone()), idx, delta)
-        torch.cuda.synchronize()
-        got = sh.gather_rows(got)
-        if not (torch.equal(got, sh.gather_rows(want))
-                and torch.equal(got, single)):
-            raise AssertionError(f"B15 S={s_n}: differs from the plain "
-                                 f"version or B4")
+    # a twin flush's size: 4,096 rows, negative sums for the clamp
+    flush_idx = torch.tensor(rng.integers(0, N_NODES, 4096).astype(np.int32),
+                             device=dev)
+    flush_delta = torch.tensor(rng.integers(-6000, 300, (4096, 4)).astype(
+        np.float32), device=dev)
+    for rows, (i_t, d_t) in ((b, (idx, delta)),
+                             (4096, (flush_idx, flush_delta))):
+        single = scatter_add(used0.clone(), i_t, d_t)
+        for s_n in SHARDS:
+            mesh = mesh_of(s_n)
+            got = sh.state_scatter_sharded(mesh, sh.shard_rows(
+                mesh, used0.clone()), i_t, d_t)
+            want = sh.state_scatter_sharded_ref(mesh, sh.shard_rows(
+                mesh, used0.clone()), i_t, d_t)
+            # the B13/B14 correction fold: the adds, then max(., 0)
+            got_c = sh.shard_rows(mesh, used0.clone())
+            sh._scatter_launch(mesh, got_c, i_t, d_t, clamp=True)
+            want_c = sh.state_scatter_sharded_ref(mesh, sh.shard_rows(
+                mesh, used0.clone()), i_t, d_t, clamp=True)
+            torch.cuda.synchronize()
+            got = sh.gather_rows(got)
+            if not (torch.equal(got, sh.gather_rows(want))
+                    and torch.equal(got, single)):
+                raise AssertionError(f"B15 S={s_n}, {rows} rows: differs "
+                                     f"from the plain version or B4")
+            if not torch.equal(sh.gather_rows(got_c),
+                               sh.gather_rows(want_c)):
+                raise AssertionError(f"B15 S={s_n}, {rows} rows, clamp: "
+                                     f"differs from the plain version")
+    mesh = mesh_of(PATH_SHARDS)
+    refusals(torch, "B15", lambda u, i, d: sh.state_scatter_sharded(
+        mesh, u, i, d), (sh.shard_rows(mesh, used0.clone()), idx, delta))
+    ms = cuda_time_ms(torch, lambda u: sh.state_scatter_sharded(
+        mesh, u, idx, delta), setup=lambda: sh.shard_rows(mesh, used0.clone()))
+    idx64 = idx.to(torch.int64)
+    lib = cuda_time_ms(torch, lambda u: u.index_add_(0, idx64, delta),
+                       setup=used0.clone)
     print(f"B15 shard   [{card}] exact against the plain version and B4 at "
-          f"S {SHARDS} ({b} rows, duplicates, padding, N_pad {N_PAD})")
+          f"S {SHARDS} ({b} rows, duplicates, padding; and 4,096 rows), "
+          f"with the clamp against the plain version, N_pad {N_PAD}; "
+          f"ValueError on a wrong dtype, shape and device; at S "
+          f"{PATH_SHARDS} on {mesh.cards} card(s), {b} rows: kernel "
+          f"{ms:.4f} ms, index_add_ on one card {lib:.4f} ms (host issue)")
 
     notes = []
     t7 = cfg7_inputs(torch, dev)
@@ -2646,6 +2872,11 @@ def phase_sharded_path(torch, card):
                              f"sharded {stats['sharded']}, copied "
                              f"{len(captured)}, allgathers "
                              f"{stats['allgathers']} vs rounds {rounds}")
+    if counts["launches"]["scatter_shard"] != PATH_SHARDS * stats["launches"]:
+        raise AssertionError(f"sharded path: B15 launched "
+                             f"{counts['launches']['scatter_shard']} times, "
+                             f"not one a shard for each of "
+                             f"{stats['launches']} solves")
     reads = sh.READS["bulk_shard"] - reads0
     print(f"shard path  [{card}] {JOBS * K} allocs in {wall:.3f} s = "
           f"{JOBS * K / wall:.1f} allocs/s on {PATH_SHARDS} shards "
@@ -2758,8 +2989,8 @@ def max_diff(pairs) -> float:
 
 def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
     """The two sharded paths' launches replayed: exact against the plain
-    sharded versions and the single-device kernels; B13, B14, B15, B1 and
-    solve_batch timed on each. Returns the B13, B14 and B15 records."""
+    sharded versions and the single-device kernels; B13, B14, B1 and
+    solve_batch timed on each. Returns the B13 and B14 records."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor import sharding as sh
     from nomad_tpu_torch.tensor.kernels import solve_bulk_multi
@@ -2768,8 +2999,8 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
 
     torch.cuda.synchronize()
     mean = statistics.fmean
-    rec = {"bulk": [], "joint": [], "scatter": []}
-    err = {"bulk": 0.0, "joint": 0.0, "scatter": 0.0}
+    rec = {"bulk": [], "joint": []}
+    err = {"bulk": 0.0, "joint": 0.0}
     for i, (mesh, args, kw, _) in enumerate(bulk):
         g = kw["g"]
         got = sh.solve_bulk_multi_sharded(mesh, *clone_parts(args), **kw)
@@ -2781,10 +3012,6 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
         one = solve_bulk_multi(full[0].clone(), *full[1:], ask, k,
                                torch.ones(g, device=ask.device), seeds, cidx,
                                cdelta, g=g)
-        s_got = sh.state_scatter_sharded(mesh, clone_parts([args[0]])[0],
-                                         cidx, cdelta)
-        s_want = sh.state_scatter_sharded_ref(
-            mesh, clone_parts([args[0]])[0], cidx, cdelta)
         torch.cuda.synchronize()
         gu, gc = sh.gather_rows(got[0]), sh.gather_rows(got[1], dim=1)
         e = max_diff([(gu, sh.gather_rows(want[0])),
@@ -2797,11 +3024,6 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
         if not (torch.equal(gc, one[1]) and torch.equal(gu, one[0])):
             raise AssertionError(f"sharded path launch {i}: B13 differs "
                                  f"from single-device B1")
-        e = max_diff([(sh.gather_rows(s_got), sh.gather_rows(s_want))])
-        if e:
-            raise AssertionError(f"sharded path launch {i}: B15 differs "
-                                 f"from the plain version by {e}")
-        err["scatter"] = max(err["scatter"], e)
         n = full[0].shape[0]
         rounds = int(got[2].sum())
         ms = cuda_time_ms(torch, lambda a: sh.solve_bulk_multi_sharded(
@@ -2815,20 +3037,6 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
         rec["bulk"].append((ms, plain, bound(*b13_work(
             n, g, cidx.shape[0], mesh.size, rounds,
             min(kw.get("top_r", 64), n // mesh.size))), b1, rounds))
-        # B15 alone on the launch's corrections, beside B4's library call
-        b = cidx.shape[0]
-        rows = len(set(cidx.tolist()))
-        s_ms = cuda_time_ms(torch, lambda u: sh.state_scatter_sharded(
-            mesh, u, cidx, cdelta), setup=lambda: clone_parts([args[0]])[0])
-        s_plain = cuda_time_ms(torch, lambda u: sh.state_scatter_sharded_ref(
-            mesh, u, cidx, cdelta), setup=lambda: clone_parts([args[0]])[0],
-            reps=5)
-        idx64 = cidx.to(torch.int64)
-        s_lib = cuda_time_ms(torch, lambda u: u.index_add_(0, idx64, cdelta),
-                             setup=full[0].clone)
-        rec["scatter"].append((s_ms, s_plain,
-                               bound(b * 4 + b * 16 + 2 * rows * 16, b * 4),
-                               s_lib))
     his, eps = bs._jitter_his(), bs._price_eps()
     for i, (mesh, args, kw, _) in enumerate(joint):
         g = kw["g"]
@@ -2889,9 +3097,7 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
           f"per launch (mean) B13 {mean(r[0] for r in rec['bulk']):.4f} ms, "
           f"B1 at the same inputs {mean(r[3] for r in rec['bulk']):.4f} ms, "
           f"plain {mean(r[1] for r in rec['bulk']):.4f} ms, all-gathers "
-          f"{[r[4] for r in rec['bulk']]}; B15 on the launches' corrections "
-          f"{mean(r[0] for r in rec['scatter']):.4f} ms, index_add_ "
-          f"{mean(r[3] for r in rec['scatter']):.4f} ms; {n_b} launches "
+          f"{[r[4] for r in rec['bulk']]}; {n_b} launches "
           f"{sum(r[0] for r in rec['bulk']):.4f} ms of device time = "
           f"{100.0 * sum(r[0] for r in rec['bulk']) / 1e3 / wall_bulk:.2f}% "
           f"of the path's {wall_bulk:.3f} s wall")
@@ -2910,18 +3116,114 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
             ("bulk_shard", "bulk", "nomad_tpu_torch/csrc/sharded.cu",
              "nomad_tpu/tensor/sharding.py:198"),
             ("joint_shard", "joint", "nomad_tpu_torch/csrc/sharded.cu",
-             "nomad_tpu/tensor/sharding.py:368"),
-            ("scatter_shard", "scatter", "nomad_tpu_torch/csrc/sharded.cu",
-             "nomad_tpu/tensor/sharding.py:144")):
+             "nomad_tpu/tensor/sharding.py:368")):
         v = rec[key]
         by = Counter(r[2][1] for r in v).most_common(1)[0][0]
         out.append({"name": name, "source": src, "replaces": repl,
                     "max_abs_err": err[key], "ms": mean(r[0] for r in v),
                     "plain_ms": mean(r[1] for r in v),
                     "bound_ms": mean(r[2][0] for r in v), "bound_by": by,
-                    "library_ms": (mean(r[3] for r in v)
-                                   if key == "scatter" else None)})
+                    "library_ms": None})
     return out
+
+
+def phase_b15_replay(torch, card, bulk):
+    """B15 on each of the sharded C2M path's launches, replayed at its
+    corrections: the launch the path makes (the correction fold,
+    ``_scatter_launch(clamp=True)``: the adds, then max(., 0) over every
+    row of the shard) exact against its plain version and timed, host
+    issue and device-only; then ``state_scatter_sharded`` (the adds
+    alone, the many-CTA kernel) exact and timed beside ``index_add_`` on
+    the full carry, both readings. Returns B15's record: the fold's
+    numbers, with the adds' under ``without_clamp``."""
+    from nomad_tpu_torch.tensor import sharding as sh
+
+    torch.cuda.synchronize()
+    mean = statistics.fmean
+    rows, err = [], 0.0
+    for i, (mesh, args, _, _) in enumerate(bulk):
+        cidx, cdelta = args[7:9]
+        full = sh.gather_rows(args[0])
+        b, n = cidx.shape[0], full.shape[0]
+
+        def parts():
+            return clone_parts([args[0]])[0]
+
+        def fold(u):
+            sh._scatter_launch(mesh, u, cidx, cdelta, clamp=True)
+
+        def fold_ref(u):
+            sh.state_scatter_sharded_ref(mesh, u, cidx, cdelta, clamp=True)
+
+        def add(u):
+            sh.state_scatter_sharded(mesh, u, cidx, cdelta)
+
+        def add_ref(u):
+            sh.state_scatter_sharded_ref(mesh, u, cidx, cdelta)
+
+        got, want, got_a, want_a = parts(), parts(), parts(), parts()
+        fold(got)
+        fold_ref(want)
+        add(got_a)
+        add_ref(want_a)
+        torch.cuda.synchronize()
+        e = max_diff([(sh.gather_rows(got), sh.gather_rows(want)),
+                      (sh.gather_rows(got_a), sh.gather_rows(want_a))])
+        if e:
+            raise AssertionError(f"sharded path launch {i}: B15 differs "
+                                 f"from the plain version by {e}")
+        err = max(err, e)
+        idx64 = cidx.to(torch.int64)
+        touched = len(set(cidx.tolist()))
+        u_fold, u_add, u_lib = parts(), parts(), full.clone()
+        rows.append({
+            "ms": cuda_time_ms(torch, fold, setup=parts),
+            "device_ms": device_only_ms(torch, lambda: fold(u_fold)),
+            "plain_ms": cuda_time_ms(torch, fold_ref, setup=parts, reps=5),
+            # each input read once (idx, delta, the carry) and the carry
+            # written once: the clamp reads and writes every row
+            "bound": bound(b * 4 + b * 16 + 2 * n * 16, b * 4 + n * 4),
+            "add_ms": cuda_time_ms(torch, add, setup=parts),
+            "add_device_ms": device_only_ms(torch, lambda: add(u_add)),
+            "add_plain_ms": cuda_time_ms(torch, add_ref, setup=parts,
+                                         reps=5),
+            "add_bound": bound(b * 4 + b * 16 + 2 * touched * 16, b * 4),
+            "lib_ms": cuda_time_ms(torch, lambda u: u.index_add_(
+                0, idx64, cdelta), setup=full.clone),
+            "lib_device_ms": device_only_ms(
+                torch, lambda: u_lib.index_add_(0, idx64, cdelta)),
+        })
+
+    def avg(key):
+        return mean(r[key] for r in rows)
+
+    def most(key):
+        return Counter(r[key][1] for r in rows).most_common(1)[0][0]
+
+    mesh, args = bulk[0][:2]
+    print(f"B15 path    [{card}] the sharded C2M path's {len(rows)} "
+          f"launches' corrections ({args[7].shape[0]} slots, S {mesh.size} "
+          f"on {mesh.cards} card(s)), exact against the plain version; per "
+          f"launch (mean): the path's fold (adds, then clamp) "
+          f"{avg('ms'):.4f} ms host issue, {avg('device_ms'):.4f} ms "
+          f"device-only, plain {avg('plain_ms'):.4f} ms; the adds alone "
+          f"(state_scatter_sharded) {avg('add_ms'):.4f} / "
+          f"{avg('add_device_ms'):.4f} ms, index_add_ on the full carry "
+          f"{avg('lib_ms'):.4f} / {avg('lib_device_ms'):.4f} ms")
+    return {"name": "scatter_shard",
+            "source": "nomad_tpu_torch/csrc/sharded.cu",
+            "replaces": "nomad_tpu/tensor/sharding.py:213",
+            "max_abs_err": err, "ms": avg("ms"), "plain_ms": avg("plain_ms"),
+            "bound_ms": mean(r["bound"][0] for r in rows),
+            "bound_by": most("bound"), "library_ms": None,
+            "device_ms": avg("device_ms"),
+            "without_clamp": {
+                "replaces": "nomad_tpu/tensor/sharding.py:144",
+                "ms": avg("add_ms"), "device_ms": avg("add_device_ms"),
+                "plain_ms": avg("add_plain_ms"),
+                "bound_ms": mean(r["add_bound"][0] for r in rows),
+                "bound_by": most("add_bound"), "library_ms": avg("lib_ms"),
+                "library_device_ms": avg("lib_device_ms")}}
 
 
 def phase_sharded_parity(torch, card):
@@ -3198,6 +3500,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if sys.argv[1:] == ["--sharded"]:
         return sharded_only(torch, dev, card, rng)
+    if sys.argv[1:] == ["--launch-split"]:
+        phase_launch_split(torch, dev, card)
+        print(card)
+        return 0
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -3238,6 +3544,7 @@ def main() -> int:
     launches_j, wall_j, joint_runs = phase_sharded_solve_path(torch, card)
     sharded = phase_sharded_replay(torch, card, bulk_runs, joint_runs,
                                    wall_b, wall_j)
+    sharded.append(phase_b15_replay(torch, card, bulk_runs))
     sharded[0]["launches"] = launches_b["bulk_shard_pool"]
     sharded[1]["launches"] = launches_j["joint_shard_bids"]
     sharded[2]["launches"] = launches_b["scatter_shard"]
@@ -3254,8 +3561,9 @@ def main() -> int:
     kernels = bulk + per_eval + joint + preempt + large + sharded
     for k in kernels:
         k["route"] = "cuda"
-    print(json.dumps({"kernels": [{key: k[key] for key in order}
-                                  for k in kernels]}))
+    extra = ("device_ms", "library_device_ms", "without_clamp")
+    print(json.dumps({"kernels": [{key: k[key] for key in order + extra
+                                   if key in k} for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

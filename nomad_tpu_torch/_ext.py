@@ -6,7 +6,7 @@ interface under ``build/nomad_tpu_torch/`` at the repository root, and
 loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers and the flags, so an edited source is rebuilt
 and an unchanged one is reused. Every C entry point returns
-``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
+``cudaGetLastError()`` after its launch; :func:`launch` turns a non-zero
 code into an exception.
 
 No fast math: the capacity ``floor(free / ask)`` and the per-eval score
@@ -15,9 +15,10 @@ that torch runs on CUDA.
 ``--fmad=false`` keeps the compiler from contracting a multiply and an
 add into one differently rounded instruction.
 
-:data:`COUNTS` holds a plain launch count per kernel, bumped by the
-wrappers where they launch, and a count of plain-version runs on CUDA
-tensors, so a run can show that its main path went through the kernels.
+:data:`COUNTS` holds a plain launch count per kernel, bumped by
+:func:`launch` (one a kernel launched), and a count of plain-version
+runs on CUDA tensors, so a run can show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ _SIGNATURES = {
     "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
     "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 7 + [_P]),
     "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P]),
-    "nt_scatter_shard": ("sharded", [_P] * 3 + [_I] * 4 + [_P]),
+    "nt_scatter_shards": ("sharded", [_P] * 4 + [_I] * 4 + [_P]),
     "nt_bulk_shard_pool": ("sharded", [_P] * 10 + [_I] * 6 + [_P]),
     "nt_bulk_shard_merge": ("sharded", [_P] * 7 + [_I] * 7 + [_P]),
     "nt_joint_shard_bids": ("sharded", [_P] * 14 + [_I] * 7 + [_P]),
@@ -77,9 +78,9 @@ class LaunchCounts:
         self.launches: Dict[str, int] = dict.fromkeys(names, 0)
         self.plain_on_cuda: Dict[str, int] = dict.fromkeys(names, 0)
 
-    def launched(self, name: str) -> None:
+    def launched(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self.launches[name] += 1
+            self.launches[name] += n
 
     def plain(self, name: str, tensor) -> None:
         if tensor.is_cuda:
@@ -109,6 +110,8 @@ COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, object] = {}  # entry point -> its typed ctypes function
+_cuda_fns = None
 
 
 def _nvcc() -> str:
@@ -164,45 +167,74 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def entry(fn_name: str):
-    """The ctypes function ``fn_name``, building and loading its library
-    on first use."""
-    lib_name, argtypes = _SIGNATURES[fn_name]
-    lib = _libs.get(lib_name)
-    if lib is None:
-        with _lock:
-            lib = _libs.get(lib_name)
-            if lib is None:
-                missing = [n for n in LIBRARIES if n not in _libs]
-                built = build(missing)
-                for n in missing:
-                    _libs[n] = ctypes.CDLL(built[n]["path"])
-                lib = _libs[lib_name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    """The typed ctypes function ``fn_name``: one dict lookup once its
+    library is loaded."""
+    fn = _fns.get(fn_name)
+    return fn if fn is not None else _load(fn_name)
 
 
-def check(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code}")
+def _load(fn_name: str):
+    """Build and load the missing libraries, and type every entry point
+    of the loaded ones once (under the lock: worker threads reach
+    :func:`entry` together)."""
+    with _lock:
+        if _SIGNATURES[fn_name][0] not in _libs:
+            missing = [n for n in LIBRARIES if n not in _libs]
+            built = build(missing)
+            for n in missing:
+                _libs[n] = ctypes.CDLL(built[n]["path"])
+        for name, (lib_name, argtypes) in _SIGNATURES.items():
+            if name not in _fns and lib_name in _libs:
+                fn = getattr(_libs[lib_name], name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
+        return _fns[fn_name]
 
 
-def stream_handle(device) -> int:
-    """The raw handle of the current CUDA stream on ``device``."""
-    import torch
+def _cuda():
+    """torch's current-device getter and setter and its reader of a
+    card's current stream handle (no ``torch.cuda.Stream`` built), bound
+    on first use: they exist only in CUDA builds of torch."""
+    global _cuda_fns
+    if _cuda_fns is None:
+        import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+        _cuda_fns = (torch._C._cuda_getDevice, torch._C._cuda_setDevice,
+                     torch._C._cuda_getCurrentRawStream)
+    return _cuda_fns
 
 
 def launch(what: str, device, fn, *args) -> None:
-    """Call the entry point ``fn`` with ``args`` and the handle of
-    ``device``'s current stream, with ``device`` made current for the
-    call (a stream, and a kernel's shared-memory attribute, belong to the
-    current device; a mesh's shards launch on cards that are not); raise
-    on a CUDA error and count the launch under ``what``."""
-    import torch
+    """Call the entry point ``fn`` with ``args`` and the handle of the
+    current stream of ``device``, raise on a CUDA error, and count the
+    launch under ``what``.
 
-    with torch.cuda.device(device):
-        check(fn(*args, stream_handle(device)), f"{what} launch")
-    COUNTS.launched(what)
+    ``device`` is one device, made current for the call only when it is
+    not (a stream, and a kernel's shared-memory attribute, belong to the
+    current device; a mesh's shards launch on cards that are not); a
+    device with no index is the current card. Or it is a mesh's device
+    tuple (each with its index), for an entry point that launches once
+    on each of its devices: the last argument is then the array of their
+    stream handles, the entry point makes each device current for its
+    launch, and the count goes up by one a device."""
+    get_device, set_device, raw_stream = _cuda_fns or _cuda()
+    if type(device) is tuple:
+        streams = (ctypes.c_void_p * len(device))(
+            *[raw_stream(d.index) for d in device])
+        code = fn(*args, streams)
+        n = len(device)
+    else:
+        index, prev = device.index, get_device()
+        if index is None or index == prev:
+            code = fn(*args, raw_stream(prev))
+        else:
+            set_device(index)
+            try:
+                code = fn(*args, raw_stream(index))
+            finally:
+                set_device(prev)
+        n = 1
+    if code:
+        raise RuntimeError(f"{what} launch: CUDA error {code}")
+    COUNTS.launched(what, n)

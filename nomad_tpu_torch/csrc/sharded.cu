@@ -1,7 +1,7 @@
 // B13, B14 and B15: the node-sharded solve of nomad_tpu/tensor/sharding.py.
 //
 // Replaces:
-//   B15 nt_scatter_shard   make_state_scatter_sharded (sharding.py:144-179)
+//   B15 nt_scatter_shards  make_state_scatter_sharded (sharding.py:144-179)
 //                          and the correction fold of B13/B14 (:213-220,
 //                          :427-432, with their max(., 0) clamp)
 //   B13 nt_bulk_shard_pool _bulk_shard_body (:198-315) under
@@ -13,7 +13,8 @@
 //
 // Layout. Shard s of S owns the global node rows [s * n_loc, (s+1) * n_loc)
 // and its own arrays on its device: (n_loc, 4) rows, (G, n_loc) columns.
-// Every launch covers one shard (B14's: one CTA per restart or arm). The
+// Every launch covers one shard (B14's: one CTA per restart or arm). B15
+// issues its S launches from one host call (nt_scatter_shards). The
 // replicated state (the reference's replicated while-loop carry) is kept
 // once per shard. The all-gather runs between launches: each shard writes
 // its pool into its slice of an (S, ...) buffer on its device, and the host
@@ -83,21 +84,43 @@ __device__ __forceinline__ uint32_t topk_desc(float v) {
 // ---------------------------------------------------------------------------
 // B15: used[idx] += delta on the shard's own rows, then (clamp) max(., 0)
 // ---------------------------------------------------------------------------
+//
+// Without the clamp, one thread per (row, dim) over as many CTAs as the
+// rows need, as B4: a twin flush of thousands of rows fills the card. With
+// it (the B13/B14 correction fold), one CTA a shard: every add has landed
+// (__syncthreads) before the clamp of all the shard's rows, 16 bytes a
+// thread.
 
 __global__ void scatter_shard_kernel(float* __restrict__ used,
                                      const int* __restrict__ idx,
                                      const float* __restrict__ delta, int b,
-                                     int n_loc, int s, int clamp) {
+                                     int n_loc, int s) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= b * kDims) return;
+  const int row = idx[t / kDims] - s * n_loc;
+  if (row < 0 || row >= n_loc) return;  // another shard's row
+  atomicAdd(&used[(long long)row * kDims + t % kDims], delta[t]);
+}
+
+__global__ void scatter_clamp_shard_kernel(float* __restrict__ used,
+                                           const int* __restrict__ idx,
+                                           const float* __restrict__ delta,
+                                           int b, int n_loc, int s) {
   const int lo = s * n_loc;
   for (int t = threadIdx.x; t < b * kDims; t += blockDim.x) {
     const int row = idx[t / kDims] - lo;
-    if (row < 0 || row >= n_loc) continue;  // another shard's row
+    if (row < 0 || row >= n_loc) continue;
     atomicAdd(&used[(long long)row * kDims + t % kDims], delta[t]);
   }
-  if (!clamp) return;
   __syncthreads();
-  for (int t = threadIdx.x; t < n_loc * kDims; t += blockDim.x) {
-    used[t] = fmaxf(used[t], 0.0f);
+  float4* rows = reinterpret_cast<float4*>(used);
+  for (int r = threadIdx.x; r < n_loc; r += blockDim.x) {
+    float4 v = rows[r];
+    v.x = fmaxf(v.x, 0.0f);
+    v.y = fmaxf(v.y, 0.0f);
+    v.z = fmaxf(v.z, 0.0f);
+    v.w = fmaxf(v.w, 0.0f);
+    rows[r] = v;
   }
 }
 
@@ -725,14 +748,44 @@ int pow2_at_least(int n) {
 
 }  // namespace
 
-extern "C" int nt_scatter_shard(void* used, const void* idx,
-                                const void* delta, int b, int n_loc, int s,
-                                int clamp, void* stream) {
-  if (s < 0 || n_loc < 1 || b < 0) return (int)cudaErrorInvalidValue;
-  scatter_shard_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(
-      (float*)used, (const int*)idx, (const float*)delta, b, n_loc, s,
-      clamp);
-  return (int)cudaGetLastError();
+// B15 for all S shards from one host call: shard s's launch on card
+// ordinals[s] and streams[s], that card made current only when it is not,
+// the caller's device current again at the end. Returns the first error.
+extern "C" int nt_scatter_shards(void* const* used, const void* const* idx,
+                                 const void* const* delta,
+                                 const int* ordinals, int shards, int b,
+                                 int n_loc, int clamp,
+                                 void* const* streams) {
+  if (shards < 1 || n_loc < 1 || b < 0) return (int)cudaErrorInvalidValue;
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  int cur = caller;
+  for (int s = 0; s < shards && err == cudaSuccess; ++s) {
+    if (ordinals[s] != cur) {
+      err = cudaSetDevice(ordinals[s]);
+      if (err != cudaSuccess) break;
+      cur = ordinals[s];
+    }
+    const cudaStream_t stream = (cudaStream_t)streams[s];
+    if (clamp) {
+      scatter_clamp_shard_kernel<<<1, threads, 0, stream>>>(
+          (float*)used[s], (const int*)idx[s], (const float*)delta[s], b,
+          n_loc, s);
+    } else if (b > 0) {
+      scatter_shard_kernel<<<(b * kDims + threads - 1) / threads, threads, 0,
+                             stream>>>(
+          (float*)used[s], (const int*)idx[s], (const float*)delta[s], b,
+          n_loc, s);
+    }
+    err = cudaGetLastError();
+  }
+  if (cur != caller) {
+    const cudaError_t back = cudaSetDevice(caller);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 extern "C" int nt_bulk_shard_pool(const void* used, const void* avail,

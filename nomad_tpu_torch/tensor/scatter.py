@@ -24,21 +24,26 @@ def scatter_add(used: torch.Tensor, idx: torch.Tensor,
                 delta: torch.Tensor) -> torch.Tensor:
     """``used[idx] += delta`` in place: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    if used.device.type == "cpu":
-        return scatter_add_ref(used, idx, delta)
     if not used.is_cuda:
+        if used.device.type == "cpu":
+            return scatter_add_ref(used, idx, delta)
         raise ValueError(f"scatter_add: unsupported device {used.device}")
     n, d = used.shape
     b = idx.shape[0]
-    for name, t, dtype, shape in (("used", used, torch.float32, (n, d)),
-                                  ("idx", idx, torch.int32, (b,)),
-                                  ("delta", delta, torch.float32, (b, d))):
-        if (t.device != used.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"scatter_add: {name} must be a contiguous "
-                             f"{dtype} {shape} tensor on {used.device}")
-    fn = _ext.entry("nt_scatter_add")
-    _ext.launch(
-        "scatter_add", used.device, fn,
-        used.data_ptr(), idx.data_ptr(), delta.data_ptr(), b, d, n)
+    card = used.get_device()
+    if not (used.dtype is torch.float32 and used.is_contiguous()
+            and idx.get_device() == card and idx.dtype is torch.int32
+            and idx.dim() == 1 and idx.is_contiguous()
+            and delta.get_device() == card and delta.dtype is torch.float32
+            and delta.shape == (b, d) and delta.is_contiguous()):
+        raise ValueError(
+            f"scatter_add: used must be a contiguous float32 (N, D) tensor, "
+            f"idx int32 (B,) and delta float32 (B, D) on its card, got "
+            f"{used.dtype} {tuple(used.shape)} on {used.device}, "
+            f"{idx.dtype} {tuple(idx.shape)} on {idx.device}, "
+            f"{delta.dtype} {tuple(delta.shape)} on {delta.device}")
+    if b:  # no rows, no launch
+        _ext.launch("scatter_add", used.device, _ext.entry("nt_scatter_add"),
+                    used.data_ptr(), idx.data_ptr(), delta.data_ptr(), b, d,
+                    n)
     return used

@@ -50,6 +50,7 @@ sharded solve blocks its caller until its rounds have run.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 import threading
 from typing import List, Sequence
@@ -86,11 +87,13 @@ class NodeMesh:
         self.size = len(self.devices)
         if self.size > MAX_SHARDS:
             raise ValueError(f"NodeMesh: at most {MAX_SHARDS} shards")
-
-    @property
-    def cards(self) -> int:
-        """Distinct devices."""
-        return len(set(self.devices))
+        self.distinct = tuple(dict.fromkeys(self.devices))
+        self.cards = len(self.distinct)
+        # the shards' card ordinals (-1 on the CPU), and as the C array
+        # B15's host call takes
+        self.indices = tuple(-1 if d.index is None else d.index
+                             for d in self.devices)
+        self.ordinals = (ctypes.c_int * self.size)(*self.indices)
 
     def n_loc(self, n: int) -> int:
         if n % self.size:
@@ -157,7 +160,7 @@ def all_gather(mesh: NodeMesh, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
     torch's peer copies order some of this on their own, the barriers
     do not rely on it. On one card every launch and copy shares a
     stream."""
-    cards = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
+    cards = [d for d in mesh.distinct if d.type == "cuda"]
     if len(cards) > 1:
         _barrier(cards)
     for d, (dev, dst) in enumerate(zip(mesh.devices, bufs)):
@@ -466,14 +469,57 @@ def _check_parts(what, mesh, name, parts, dtype, shape):
 
 
 def _scatter_launch(mesh, used, idx, delta, clamp: bool) -> None:
+    """B15 from one host call: ``nt_scatter_shards`` launches every
+    shard's kernel on its card's current stream (without the clamp and
+    with no rows, nothing)."""
+    args, copies = _scatter_args(mesh, used, idx, delta)
+    if clamp or idx.shape[0]:
+        _ext.launch("scatter_shard", mesh.devices,
+                    _ext.entry("nt_scatter_shards"), *args, int(clamp))
+    del copies  # held until the launch is queued
+
+
+def _scatter_args(mesh, used, idx, delta):
+    """B15's checks -> (its arguments up to the clamp flag: the shards'
+    carry, idx and delta pointers and card ordinals, S, B and n_loc; the
+    copies those pointers point into). ``idx`` and ``delta`` are copied
+    once to each card of the mesh they do not lie on; the caller holds
+    the copies until the launch is queued (freed earlier, another
+    thread's allocation could take their memory first)."""
+    what = "state_scatter_sharded"
     n_loc = used[0].shape[0]
     b = idx.shape[0]
-    fn = _ext.entry("nt_scatter_shard")
-    for s, (p, dev) in enumerate(zip(used, mesh.devices)):
-        i = idx.to(dev, torch.int32, non_blocking=True).contiguous()
-        dlt = delta.to(dev, torch.float32, non_blocking=True).contiguous()
-        _ext.launch("scatter_shard", dev, fn, p.data_ptr(), i.data_ptr(),
-                    dlt.data_ptr(), b, n_loc, s, int(clamp))
+    here = idx.get_device()
+    if not (here >= 0 and idx.dtype is torch.int32 and idx.dim() == 1
+            and idx.is_contiguous()):
+        raise ValueError(f"{what}: idx must be a contiguous int32 (B,) "
+                         f"tensor on a card, got {idx.dtype} "
+                         f"{tuple(idx.shape)} on {idx.device}")
+    if not (delta.get_device() == here and delta.dtype is torch.float32
+            and delta.shape == (b, 4) and delta.is_contiguous()):
+        raise ValueError(f"{what}: delta must be a contiguous float32 "
+                         f"({b}, 4) tensor on idx's card, got {delta.dtype} "
+                         f"{tuple(delta.shape)} on {delta.device}")
+    if len(used) != mesh.size:
+        raise ValueError(f"{what}: used has {len(used)} parts for "
+                         f"{mesh.size} shards")
+    shape = (n_loc, 4)
+    for p, i in zip(used, mesh.indices):
+        if not (p.get_device() == i and p.dtype is torch.float32
+                and p.shape == shape and p.is_contiguous()
+                and p.data_ptr() % 16 == 0):
+            raise ValueError(f"{what}: every used part must be a contiguous, "
+                             f"16-byte aligned float32 {shape} tensor on its "
+                             f"shard's card, got {p.dtype} {tuple(p.shape)} "
+                             f"on {p.device}")
+    reps = {dev.index: (idx, delta) if dev.index == here else
+            (idx.to(dev, non_blocking=True), delta.to(dev, non_blocking=True))
+            for dev in mesh.distinct}
+    arr = ctypes.c_void_p * mesh.size
+    return (arr(*[p.data_ptr() for p in used]),
+            arr(*[reps[i][0].data_ptr() for i in mesh.indices]),
+            arr(*[reps[i][1].data_ptr() for i in mesh.indices]),
+            mesh.ordinals, mesh.size, b, n_loc), reps
 
 
 def state_scatter_sharded(mesh: NodeMesh, used: List[torch.Tensor],
@@ -481,14 +527,12 @@ def state_scatter_sharded(mesh: NodeMesh, used: List[torch.Tensor],
                           delta: torch.Tensor) -> List[torch.Tensor]:
     """B15: ``used[idx] += delta`` on the row parts of a (N, 4) carry,
     in place, each shard adding the rows it owns. ``idx`` (B,) int32
-    global rows and ``delta`` (B, 4) f32 are replicated. The CUDA kernel
-    (csrc/sharded.cu ``nt_scatter_shard``) on a CUDA mesh, the plain
-    version on a CPU mesh."""
+    global rows and ``delta`` (B, 4) f32 are replicated (on a CUDA mesh:
+    on one of its cards, and copied to the others). The CUDA kernel
+    (csrc/sharded.cu ``nt_scatter_shards``, one launch a shard from one
+    host call) on a CUDA mesh, the plain version on a CPU mesh."""
     if _is_cpu(mesh):
         return state_scatter_sharded_ref(mesh, used, idx, delta)
-    n_loc = mesh.n_loc(sum(p.shape[0] for p in used))
-    _check_parts("state_scatter_sharded", mesh, "used", used, torch.float32,
-                 (n_loc, 4))
     _scatter_launch(mesh, used, idx, delta, clamp=False)
     return used
 

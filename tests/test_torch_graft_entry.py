@@ -259,5 +259,6 @@ def test_every_launch_makes_its_device_current():
     handle."""
     root = Path(graft_entry.__file__).parent
     readers = sorted(str(p.relative_to(root)) for p in root.rglob("*.py")
-                     if "stream_handle(" in p.read_text())
+                     if "_cuda_getCurrentRawStream" in p.read_text()
+                     or ".cuda_stream" in p.read_text())
     assert readers == ["_ext.py"]

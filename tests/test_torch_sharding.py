@@ -194,6 +194,29 @@ def test_state_scatter_sharded_equals_reference(s):
     np.testing.assert_array_equal(sh.gather_rows(got).numpy(), single)
 
 
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_state_scatter_sharded_twin_flush_equals_reference(s):
+    """B15 at a twin flush's size: 4,096 delta rows, every node touched
+    about four times, duplicates and padding, exact at S = 1, 2, 4, 8."""
+    rng = np.random.default_rng(11)
+    n, b = 1024, 4096
+    used0 = rng.integers(0, 50_000, (n, 4)).astype(np.float32)
+    idx = rng.integers(0, n, b).astype(np.int32)
+    idx[:64] = n - 1                       # a hot row on the last shard
+    idx[-128:] = 0                         # padding slots
+    delta = rng.integers(-500, 500, (b, 4)).astype(np.float32)
+    delta[-128:] = 0.0
+    mesh_j = ref.node_mesh(jax.devices()[:s])
+    fn = ref.make_state_scatter_sharded(mesh_j, donate=False)
+    want = np.asarray(fn(jax.device_put(
+        used0, NamedSharding(mesh_j, P("nodes", None))), idx, delta))
+    mesh = _mesh(s)
+    got = sh.state_scatter_sharded(
+        mesh, sh.shard_rows(mesh, torch.from_numpy(used0.copy())),
+        torch.from_numpy(idx), torch.from_numpy(delta))
+    np.testing.assert_array_equal(sh.gather_rows(got).numpy(), want)
+
+
 def _joint_problem(evict):
     """tests/test_batch_solver.py::test_solve_batch_sharded_parity's
     problem, or with victim budgets tests/test_preempt_solve.py::
@@ -300,6 +323,8 @@ def test_mesh_parts_and_gather():
     the device repeats; the gather fills every shard's buffer."""
     mesh = sh.NodeMesh(["cpu"] * 4)
     assert mesh.size == 4 and mesh.cards == 1
+    assert mesh.distinct == (torch.device("cpu"),)
+    assert mesh.indices == (-1,) * 4 and list(mesh.ordinals) == [-1] * 4
     x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
     parts = sh.shard_rows(mesh, x)
     assert len(parts) == 4 and torch.equal(parts[2], x[4:6])
