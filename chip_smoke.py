@@ -27,8 +27,13 @@ Phases (any failure raises and exits non-zero):
               within 1e-6.
 7. B9      -- solve_task_group_fused vs its plain version at the cfg3
               width (5,120 nodes padded to 8,192, K=500 padded to 512, one
-              rack spread over 20 values padded to 32, tie_perm) and four
-              hazard variants: choices and founds exact, scores within 1e-6.
+              rack spread over 20 values padded to 32, tie_perm), six
+              hazard variants (two with value tables beyond warp 0's
+              256 entries) and a second size (10,240 nodes padded to
+              16,384, three spreads, a distinct_property, penalty steps):
+              choices and founds exact, scores within 1e-6 (the max
+              printed); timed at cfg3 and at 16,384, with the ms of an
+              active step beside each launch time.
 8. path    -- the C2M bulk path: 10,240 nodes, 64 batch jobs x 4,000 allocs
               (cpu 50, mem 32) through Harness.process("tpu-binpack") from
               16 threads. Every alloc placed once, no node over capacity
@@ -98,7 +103,9 @@ Phases (any failure raises and exits non-zero):
               16,384, D 4, k 40,000) on seven variants: fused main, fused
               with a remainder, fused with an all-zero ask, generic with
               WorstFit, with distinct_hosts, with two spread tables, and
-              fused on identical nodes: counts exact.
+              fused on identical nodes: counts exact. The cap <= 1
+              variants (WorstFit, distinct_hosts) and the spread tables
+              timed, with their time an active step.
 18. large  -- the bulk fallback's path ("C2M large groups"): 10,240 nodes,
               8 batch jobs of one group of 40,000 allocs (cpu 50, mem 32),
               one after another from one thread through
@@ -185,6 +192,11 @@ collection can land in either.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards.
+``python3 chip_smoke.py --kernel-times`` runs the build and times B9 at
+cfg3, B11 on its seven variants and B16 at cfg3, S 4 (each checked
+against its plain version, B16 against B9) through wrappers an older
+checkout has too: copied into another checkout, it times that one's
+kernels in the same call.
 ``python3 chip_smoke.py --launch-split`` runs the build and only the
 split of a launch's host time: B4, B15 (S 4 on the card) and
 index_add_, and each piece of a launch alone (_ext.entry, a device
@@ -1187,8 +1199,15 @@ def cfg3_args(rng, variant: str):
     and a missing desired count and penalty steps; "distinct" has
     distinct_hosts and a distinct_property cap and runs out of feasible
     nodes; "worstfit" has three spreads (the padded pairwise tree),
-    WorstFit and near-full nodes; "infeasible" finds no node at all."""
+    WorstFit and near-full nodes; "infeasible" finds no node at all;
+    "wide" is the second size, N_pad 16,384 (10,240 nodes), with three
+    spreads (racks, zones with targets, a missing attribute), a
+    distinct_property cap and penalty steps; "many" (a spread over 600
+    racks) and "many_dp" (a distinct_property over 300 values) have value
+    tables above the 256 entries warp 0 rebuilds alone."""
     n, real, k_pad = CFG3_PAD, CFG3_NODES, 512
+    if variant == "wide":
+        n, real = N_PAD, N_NODES
     avail = np.zeros((n, 4))
     avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
     avail[:real, 1] = rng.choice([16384, 32768, 65536], real)
@@ -1249,6 +1268,34 @@ def cfg3_args(rng, variant: str):
         used[:real, 0] = avail[:real, 0] - 100 * rng.integers(0, 5, real)
     elif variant == "infeasible":
         feas[:] = False
+    elif variant == "many":                  # 600 racks: the block's tables
+        v = 1024
+        svid[0, :real] = np.arange(real) % 600
+        scnt = np.zeros((s, v))
+        scnt[0, :600] = rng.integers(0, 3, 600)
+        sdes = np.full((s, v), np.nan)
+    elif variant == "many_dp":               # 300 property values, the same
+        dp = dict(dp_val_id=(np.arange(n) % 300)[None, :].astype(float),
+                  dp_val_ok=(np.arange(n) < real - 7)[None, :],
+                  dp_counts0=rng.integers(0, 2, (1, 300)),
+                  dp_limit=np.array([3.0]))
+    elif variant == "wide":
+        s = 3
+        svid = np.stack([np.arange(n) % 20, np.arange(n) % 4,
+                         np.arange(n) % 7]).astype(float)
+        sok = np.tile(np.arange(n) < real, (s, 1))
+        sok[2, ::13] = False                 # a missing attribute
+        scnt = rng.integers(0, 30, (s, v)) * (np.arange(v) < 20)
+        sdes = np.full((s, v), np.nan)
+        sdes[1, :4] = [900.0, 600.0, 300.0, 0.0]
+        has_t = np.array([False, True, False])
+        weight = np.array([0.5, 0.3, 0.2])
+        pen[rng.integers(0, CFG3_K, 60)] = rng.integers(0, real, 60)
+        aff[:real] = rng.choice([0.0, 0.0, 0.25, -0.25], real)
+        dp = dict(dp_val_id=(np.arange(n) % 9)[None, :].astype(float),
+                  dp_val_ok=(np.arange(n) < real - 5)[None, :],
+                  dp_counts0=rng.integers(0, 20, (1, 9)),
+                  dp_limit=np.array([70.0]))
     tie_perm = rng.permutation(n)
     dp = dp or dict(dp_val_id=np.zeros((0, n)),
                     dp_val_ok=np.zeros((0, n), bool),
@@ -1337,17 +1384,25 @@ def phase_score_once(torch, dev, card, rng):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+B9_VARIANTS = ("cfg3", "targets", "distinct", "worstfit", "infeasible",
+               "many", "many_dp", "wide")
+
+
+def active_steps(packed) -> int:
+    return int((packed[1][:, 1] > 0.5).sum())
+
+
 def phase_scan(torch, dev, card, rng):
-    from nomad_tpu_torch.tensor.kernels import (solve_task_group_fused,
-                                                solve_task_group_fused_ref)
+    """B9 against its plain version on the seven cfg3 variants and the
+    N_pad 16,384 one; timed at cfg3 and at 16,384."""
+    from nomad_tpu_torch.tensor import kernels
 
     err = 0.0
-    main = None
-    notes = []
-    for variant in ("cfg3", "targets", "distinct", "worstfit", "infeasible"):
+    packed_of, notes = {}, []
+    for variant in B9_VARIANTS:
         packed = [a.to(dev) for a in cfg3_packed(rng, variant)]
-        got = solve_task_group_fused(*packed)
-        want = solve_task_group_fused_ref(*packed)
+        got = kernels.solve_task_group_fused(*packed)
+        want = kernels.solve_task_group_fused_ref(*packed)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                              want[1])):
@@ -1355,21 +1410,31 @@ def phase_scan(torch, dev, card, rng):
             raise AssertionError(f"B9 {variant}: choices/founds differ from "
                                  f"the plain version at {diff} steps")
         err = max(err, score_err(got[2], want[2], f"B9 {variant}"))
-        notes.append(f"{variant} {int(got[1].sum())}/{CFG3_K}")
-        if variant == "cfg3":
-            main = packed
-    ms = cuda_time_ms(torch, lambda _: solve_task_group_fused(*main), reps=10)
-    plain = cuda_time_ms(torch, lambda _: solve_task_group_fused_ref(*main),
-                         reps=2, warmup=1)
+        notes.append(f"{variant} {int(got[1].sum())}/{active_steps(packed)}")
+        packed_of[variant] = packed
+    main, wide = packed_of["cfg3"], packed_of["wide"]
+    ms = cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused(*main), reps=10)
+    wide_ms = cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused(*wide), reps=5)
+    plain = cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused_ref(*main), reps=2,
+        warmup=1)
     b_ms, b_by = scan_bound(main)
+    steps = active_steps(main)
     print(f"B9 scan     [{card}] choices and founds exact, scores within "
           f"{SCORE_TOL} (max {err:.3g}); found {', '.join(notes)}; kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+          f"{ms:.4f} ms ({ms / steps * 1e3:.2f} us an active step of "
+          f"{steps}), plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
+          f"N_pad {N_PAD} "
+          f"(3 spreads, a distinct_property, penalty steps) {wide_ms:.4f} ms "
+          f"({wide_ms / active_steps(wide) * 1e3:.2f} us an active step)")
     return {"name": "solve_task_group", "source":
             "nomad_tpu_torch/csrc/task_group.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:448",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_per_step": ms / steps}
 
 
 def phase_spread(torch, card, device="cuda"):
@@ -2046,19 +2111,24 @@ def b11_steps(k: int):
     return k_pad // 256
 
 
-def b11_call(torch, dev, form, host, scalars, plain=False):
-    """Run one b11_inputs case on ``dev`` through the wrapper or its plain
-    version -> (N,) int32 counts."""
+def b11_runner(torch, dev, form, host, scalars, plain=False):
+    """One b11_inputs case's inputs on ``dev``, and a function that runs
+    it through the wrapper or its plain version -> (N,) int32 counts."""
     from nomad_tpu_torch.tensor import kernels
 
     t = [torch.tensor(a, device=dev) for a in host]
-    k = scalars[0]
-    kw = {"batch": 256, "n_steps": b11_steps(k)}
+    kw = {"batch": 256, "n_steps": b11_steps(scalars[0])}
     if form == "fused":
         fn = kernels.solve_bulk_fused_ref if plain else kernels.solve_bulk_fused
-        return fn(*t, *scalars, **kw)
+        return lambda: fn(*t, *scalars, **kw)
     fn = kernels.solve_bulk_ref if plain else kernels.solve_bulk
-    return fn(*t[:14], *scalars, t[14], **kw)
+    return lambda: fn(*t[:14], *scalars, t[14], **kw)
+
+
+def b11_call(torch, dev, form, host, scalars, plain=False):
+    """Run one b11_inputs case on ``dev`` through the wrapper or its plain
+    version -> (N,) int32 counts."""
+    return b11_runner(torch, dev, form, host, scalars, plain)()
 
 
 def b11_bound(n_pad: int, d: int, n_feas: int, counts, s: int = 0):
@@ -2118,8 +2188,9 @@ def phase_tie_perm(torch, dev, card, rng):
 
 def phase_b11(torch, dev, card, rng):
     """B11 exact against its plain version on every variant at N_pad
-    16,384."""
-    notes = []
+    16,384; the cap <= 1 variants (a prefix of 256 positions each step)
+    timed, with their time an active step."""
+    notes, timed = [], []
     for variant in B11_VARIANTS:
         form, host, scalars = b11_inputs(rng, variant)
         got = b11_call(torch, dev, form, host, scalars)
@@ -2139,17 +2210,24 @@ def phase_b11(torch, dev, card, rng):
                                  f"{int(got.max())}")
         notes.append(f"{variant} ({form}) {placed} on "
                      f"{int((got > 0).sum())} nodes")
+        if variant in ("spread_alg", "dh_tg", "spreads"):
+            run = b11_runner(torch, dev, form, host, scalars)
+            ms = cuda_time_ms(torch, lambda _: run(), reps=5)
+            steps = -(-placed // 256)
+            timed.append(f"{variant} {ms:.4f} ms ({ms / steps * 1e3:.1f} us "
+                         f"an active step of {steps})")
     refused = b11_refusals(torch, dev)
     print(f"B11 scan    [{card}] {len(B11_VARIANTS)} variants at N_pad "
-          f"{N_PAD}, k {LARGE_K}, exact: {'; '.join(notes)}; the kernel's "
-          f"entry refuses {refused}")
+          f"{N_PAD}, k {LARGE_K}, exact: {'; '.join(notes)}; kernel "
+          f"{'; '.join(timed)}; the kernel's entry refuses {refused}")
 
 
 def b11_refusals(torch, dev):
     """The shapes the scan kernel's own entry refuses, which the wrappers
     leave to it: a batch above the 16-bit cap field, more than MAX_DIMS
-    resource columns, and spread tables that do not fit in shared memory
-    beside the 16,384 sort keys. Each must raise before anything runs."""
+    resource columns, and spread count tables that do not fit in shared
+    memory (the cached terms move to the scratch first). Each must raise
+    before anything runs."""
     from nomad_tpu_torch.tensor import kernels
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -2159,7 +2237,7 @@ def b11_refusals(torch, dev):
 
     cases = {"batch 65,536": (4, 0, 1, 65536),
              f"D {kernels.MAX_DIMS + 1}": (kernels.MAX_DIMS + 1, 0, 1, 256),
-             "8 spreads of 2,048 values": (4, 8, 2048, 256)}
+             "8 spreads of 4,096 values": (4, 8, 4096, 256)}
     for name, (d, s, v, batch) in cases.items():
         args = (z(N_PAD, d), z(N_PAD, d), z(d), z(N_PAD, dtype=b8),
                 z(N_PAD, dtype=i32), z(N_PAD, dtype=i32), z(N_PAD), z(N_PAD),
@@ -2360,7 +2438,8 @@ def phase_large_replay(torch, card, captured):
              "max_abs_err": err, "ms": mean(r[0] for r in rows),
              "plain_ms": mean(r[1] for r in rows),
              "bound_ms": mean(r[2][0] for r in rows),
-             "bound_by": rows[0][2][1], "library_ms": None},
+             "bound_by": rows[0][2][1], "library_ms": None,
+             "ms_per_step": mean(r[0] for r in rows) / steps},
             {"name": "tie_perm", "source": "nomad_tpu_torch/csrc/bulk_scan.cu",
              "replaces": "nomad_tpu/tensor/kernels.py:618",
              "max_abs_err": perm_err, "ms": mean(r[3] for r in rows),
@@ -3466,6 +3545,53 @@ def sharded_only(torch, dev, card, rng) -> int:
     return 0
 
 
+def kernel_times(torch, dev, card, rng) -> int:
+    """``--kernel-times``: B9 at cfg3, B11 on its seven variants at N_pad
+    16,384 and B16 at cfg3, S 4, each exact against its plain version
+    (B16 bit-equal to B9) and timed, through wrappers that this tree and
+    its parent (c85f06f) both have, so this script copied into another
+    checkout times that checkout's kernels. Prints one JSON line of ms."""
+    from nomad_tpu_torch.tensor import kernels
+    from nomad_tpu_torch.tensor import sharding as sh
+
+    times = {}
+    main = [a.to(dev) for a in cfg3_packed(rng, "cfg3")]
+    got = kernels.solve_task_group_fused(*main)
+    want = kernels.solve_task_group_fused_ref(*main)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[:2], want[:2])):
+        raise AssertionError("B9 cfg3: differs from the plain version")
+    score_err(got[2], want[2], "B9 cfg3")
+    times["b9_cfg3"] = cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused(*main), reps=10)
+    for variant in B11_VARIANTS:
+        form, host, scalars = b11_inputs(rng, variant)
+        run = b11_runner(torch, dev, form, host, scalars)
+        got = run()
+        want = b11_runner(torch, dev, form, host, scalars, plain=True)()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B11 {variant}: differs from the plain "
+                                 f"version")
+        times[f"b11_{variant}"] = cuda_time_ms(torch, lambda _: run(),
+                                               reps=5)
+        times[f"b11_{variant}_steps"] = -(-int(got.sum()) // 256)
+    args = tuple(torch.as_tensor(a).to(dev) for a in cfg3_args(rng, "cfg3"))
+    mesh = mesh_of(PATH_SHARDS)
+    if not same_bits(torch, sh.solve_task_group_sharded(mesh, args),
+                     kernels.solve_task_group(*args)):
+        raise AssertionError("B16 cfg3: differs from B9")
+    times["b16_cfg3_s4"] = cuda_time_ms(
+        torch, lambda _: sh.solve_task_group_sharded(mesh, args), reps=5,
+        warmup=1)
+    print(f"kernel times [{card}] " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in times.items()))
+    print(json.dumps(times))
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not (REPO / "nomad_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: nomad_tpu_torch/ not found beside the script; "
@@ -3504,6 +3630,8 @@ def main() -> int:
         phase_launch_split(torch, dev, card)
         print(card)
         return 0
+    if sys.argv[1:] == ["--kernel-times"]:
+        return kernel_times(torch, dev, card, rng)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -3561,7 +3689,8 @@ def main() -> int:
     kernels = bulk + per_eval + joint + preempt + large + sharded
     for k in kernels:
         k["route"] = "cuda"
-    extra = ("device_ms", "library_device_ms", "without_clamp")
+    extra = ("device_ms", "library_device_ms", "without_clamp",
+             "ms_per_step")
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))
     print(card)

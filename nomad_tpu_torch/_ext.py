@@ -24,6 +24,7 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,12 +52,12 @@ _SIGNATURES = {
     "nt_scatter_add": ("scatter", [_P, _P, _P, _I, _I, _I, _P]),
     "nt_bulk_fill": ("bulk_fill", [_P] * 8 + [_I, _I, _P]),
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
-    "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 7 + [_P]),
+    "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 8 + [_P]),
     "nt_auction": ("batch_solve", [_P] * 14 + [_I] * 4 + [_P]),
     "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
     "nt_preempt_solve": ("preempt", [_P] * 15 + [_I] * 4 + [_P]),
     "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
-    "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 7 + [_P]),
+    "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 8 + [_P]),
     "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P]),
     "nt_scatter_shards": ("sharded", [_P] * 4 + [_I] * 4 + [_P]),
     "nt_bulk_shard_pool": ("sharded", [_P] * 10 + [_I] * 6 + [_P]),
@@ -66,6 +67,12 @@ _SIGNATURES = {
     "nt_joint_shard_contrib": ("sharded", [_P] * 7 + [_I] * 4 + [_P]),
     "nt_joint_shard_pick": ("sharded", [_P] * 12 + [_I] * 5 + [_P]),
     "nt_task_group_shard": ("task_group_shard", [_P] * 12 + [_I] * 10 + [_P]),
+}
+# C size query -> (library, argtypes): the f32 words of a kernel's
+# scratch at the sizes given, as a long long (no launch, no card)
+_QUERIES = {
+    "nt_solve_task_group_scratch_words": ("task_group", [_I] * 6),
+    "nt_bulk_scan_scratch_words": ("bulk_scan", [_I] * 4),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -175,21 +182,32 @@ def entry(fn_name: str):
 
 def _load(fn_name: str):
     """Build and load the missing libraries, and type every entry point
-    of the loaded ones once (under the lock: worker threads reach
-    :func:`entry` together)."""
+    and size query of the loaded ones once (under the lock: worker
+    threads reach :func:`entry` together)."""
     with _lock:
-        if _SIGNATURES[fn_name][0] not in _libs:
+        lib_of = _SIGNATURES.get(fn_name) or _QUERIES[fn_name]
+        if lib_of[0] not in _libs:
             missing = [n for n in LIBRARIES if n not in _libs]
             built = build(missing)
             for n in missing:
                 _libs[n] = ctypes.CDLL(built[n]["path"])
-        for name, (lib_name, argtypes) in _SIGNATURES.items():
-            if name not in _fns and lib_name in _libs:
-                fn = getattr(_libs[lib_name], name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _fns[name] = fn
+        for table, restype in ((_SIGNATURES, ctypes.c_int),
+                               (_QUERIES, ctypes.c_longlong)):
+            for name, (lib_name, argtypes) in table.items():
+                if name not in _fns and lib_name in _libs:
+                    fn = getattr(_libs[lib_name], name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                    _fns[name] = fn
         return _fns[fn_name]
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_words(query: str, *sizes: int) -> int:
+    """The f32 words of a kernel's scratch at ``sizes``, from the size
+    query ``query`` of its library (which owns the layout): one call a
+    shape."""
+    return int(entry(query)(*sizes))
 
 
 def _cuda():

@@ -40,23 +40,30 @@
 // node and writes 4 (under 1 MB at N_pad 16,384, a fraction of a
 // microsecond of HBM time); the work it needs is one score per node plus,
 // per active step, a rescore and an ordering update of the few nodes that
-// took placements. The time goes to what this simple design does instead:
-// every active step rescores all N_pad nodes and bitonic-sorts N_pad keys
-// on one SM, one step after another. B11' is ~2 x 20 threefry rounds and a
-// sort of n keys; its time is the one-CTA sort.
+// took placements. The time goes to the steps running one after another
+// on one SM, each a few block-wide reductions behind barriers. B11' is
+// ~2 x 20 threefry rounds and a sort of n keys; its time is the one-CTA
+// sort.
 //
-// Design: one CTA of 1024 threads runs the whole scan, so the carry chain
-// needs only __syncthreads. The CTA gathers every per-node column into
+// Design (B11): one CTA of 1024 threads runs the whole scan, so the carry
+// chain needs only __syncthreads. The CTA gathers every per-node column into
 // permuted order in a global scratch buffer (score.cuh's ScratchNodes
 // layout, column-major, L2-resident), which also holds the usage and
 // placement-count carry and the taken counts; the spread value tables live
-// in shared memory beside the sort keys and take their updates by integer
-// atomics. Each step packs, per position, desc_key(score) (sort.cuh), the
-// position (16 bits) and its cap (16 bits) into one uint64; a bitonic sort
-// of the N_pad words in dynamic shared memory (128 KB at 16,384) gives
-// the stable order, a block-wide exclusive scan of the caps in that order
-// gives each position's take, and the owner of a sorted slot updates its
-// node's carry. B11' sorts (draw << 32) | position, which is stable by
+// in shared memory and take their updates by integer atomics. Thread t owns
+// the positions t x chunk .. t x chunk + chunk - 1 (chunk = N / 1024 rounded
+// up, at most 16) and keeps each one's order key, desc_key(score)
+// (sort.cuh), and its cap uncapped by the budget (16 bits, two to a word) in
+// registers from step to step. A step clips the caps to the budget, finds
+// the fill's level with select.cuh (threshold_select: a few block-wide
+// reductions, no sort), takes the fill there (threshold_base and take_at:
+// one block scan), and the owner of each position that took updates its
+// node's carry and rescores it (score.cuh's node_terms). With no spread (S
+// == 0, the fused form) nothing else's score moves. With spreads every score
+// moves through the value counts: the owner keeps the node's cached terms
+// (in shared memory, or in the scratch where they do not fit, kShared false)
+// and each step rebuilds the value tables and recomputes every key with
+// cached_score. B11' sorts (draw << 32) | position, which is stable by
 // construction, and carries the values beside the keys (192 KB at 16,384).
 // Neither kernel calls a library sort or scan.
 //
@@ -71,23 +78,31 @@
 #include <stdint.h>
 
 #include "score.cuh"
+#include "select.cuh"
 #include "sort.cuh"
 #include "threefry.cuh"
 
 namespace {
 
 using namespace nt_score;
+using nt_select::may_take;
+using nt_select::Positions;
+using nt_select::single_taker;
+using nt_select::Summary;
+using nt_select::summarize;
+using nt_select::take_at;
+using nt_select::Threshold;
+using nt_select::threshold_base;
+using nt_select::threshold_select;
 using nt_sort::bitonic_sort;
-using nt_sort::block_exclusive_scan;
 using nt_sort::desc_key;
 using nt_threefry::threefry2x32;
 using nt_threefry::threefry_bits;
 
 constexpr int kThreads = 1024;
-constexpr int kMaxNodes = 16384;     // position field and shared memory
+constexpr int kMaxNodes = 16384;     // the fallbacks' ceiling (ROADMAP A11b)
 constexpr int kMaxBatch = 65535;     // cap field
-constexpr uint64_t kPadKey = 0xFFFFFFFFFFFF0000ull;  // sorts last, cap 0
-constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory
 
 int pow2_at_least(int n) {
   int p = 1;
@@ -95,6 +110,100 @@ int pow2_at_least(int n) {
   return p;
 }
 
+// The scan's threads: 32 a warp, one a position up to 1,024 positions,
+// else 1,024 with `chunk` positions each; and the slots of its position
+// arrays (see select.cuh's Positions)
+__host__ __device__ inline int scan_threads(int n) {
+  return n >= kThreads ? kThreads : (n + 31) / 32 * 32;
+}
+__host__ __device__ inline int scan_slots(int n) {
+  return n <= kThreads ? n : (n + kThreads - 1) / kThreads * kThreads;
+}
+
+// Bytes of the scan's shared work arrays after the count tables: the
+// reductions' words (10 a warp), block_exclusive_scan's (1 a warp), the
+// keys (u32) and caps (u16, rounded up to a word) of every slot
+__host__ __device__ inline size_t scan_work_bytes(int n) {
+  const int nw = scan_threads(n) / 32;
+  return 4 * (size_t)(11 * nw) + 4 * (size_t)scan_slots(n) +
+         4 * (((size_t)scan_slots(n) + 1) / 2);
+}
+
+// Bytes of the cached terms of every slot and the boost table (S > 0):
+// boost[S x V] f32 | head[slots] f32 | meta[slots], sv[S x slots] u16
+__host__ __device__ inline size_t scan_cache_bytes(const Dims& dm, int n) {
+  const size_t slots = scan_slots(n);
+  return 4 * (size_t)dm.s * dm.v + 4 * slots + 2 * slots * (1 + dm.s);
+}
+
+// A position's cap, uncapped by the budget (clipped at the 16-bit field:
+// a budget never exceeds it)
+template <class Nodes>
+__device__ __forceinline__ uint32_t node_cap(const Nodes& nd, int j,
+                                             const Dims& dm,
+                                             const Scalars& sc, bool ok,
+                                             bool single) {
+  float per = INFINITY;
+#pragma unroll
+  for (int k = 0; k < kMaxDims; ++k) {
+    if (k < dm.d && sc.ask[k] > 0.0f) {
+      const float free_k = __fsub_rn(nd.avail(j, k), nd.used(j, k));
+      per = fminf(per, floorf(__fdiv_rn(free_k, sc.ask[k])));
+    }
+  }
+  float cap_f = fmaxf(per, 0.0f);
+  if (!ok) cap_f = 0.0f;
+  if (single) cap_f = fminf(cap_f, 1.0f);
+  return (uint32_t)fminf(cap_f, (float)kMaxBatch);
+}
+
+// Rescore a node from its columns into slot `slot`: its cap, and its key
+// (S == 0) or its cached terms (S > 0: keyed each step by cached_score).
+template <class Nodes>
+__device__ __forceinline__ void rescore(const Nodes& nd, int j,
+                                        const Positions& ps, int slot,
+                                        const Dims& dm, const Scalars& sc,
+                                        bool single, const NodeCache& cache) {
+  const NodeTerms t = node_terms(nd, j, dm, sc);
+  const bool ok = (t.meta & kOkLocal) != 0;
+  ps.cap[slot] = (uint16_t)node_cap(nd, j, dm, sc, ok, single);
+  if (dm.s > 0) {
+    cache.head[slot] = t.head;
+    cache.meta[slot] = t.meta;
+  } else {
+    ps.key[slot] = desc_key(ok ? finish_score(t.head, t.meta, 0.0f) : kNeg);
+  }
+}
+
+// Place `take` at position j: usage, placement counts, taken, spread
+// value counts, from one read of its columns; then rescore it.
+__device__ inline void commit(const ScratchNodes& nd, int j,
+                              const Positions& ps, int slot, int take,
+                              const Dims& dm, const Scalars& sc, bool single,
+                              const Tables& tb, int* taken,
+                              const NodeCache& cache) {
+  NodeRow row = load_row(nd, j, dm.d);
+  const int before = taken[j];
+  const float tf = (float)take;
+#pragma unroll
+  for (int k = 0; k < kMaxDims; ++k) {
+    if (k < dm.d) {
+      row.us[k] = __fadd_rn(row.us[k], __fmul_rn(sc.ask[k], tf));
+      nd.f[nd.at(dm.d + k, j)] = row.us[k];
+    }
+  }
+  row.ptg_ += take;
+  row.pjob_ += take;
+  nd.i32[nd.at(2 * dm.d, j)] = row.ptg_;
+  nd.i32[nd.at(2 * dm.d + 1, j)] = row.pjob_;
+  taken[j] = before + take;
+  for (int k = 0; k < dm.s; ++k) {
+    if (nd.sok(j, k)) atomicAdd(&tb.scnt[k * dm.v + nd.svid(j, k)], take);
+  }
+  rescore(row, 0, ps, slot, dm, sc, single, cache);
+}
+
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 bulk_scan_kernel(const float* __restrict__ avail,
                  const float* __restrict__ dyn,
@@ -107,18 +216,29 @@ bulk_scan_kernel(const float* __restrict__ avail,
                  const float* __restrict__ spread_meta,
                  const float* __restrict__ scalars,
                  float* __restrict__ scratch, int* __restrict__ out, Dims dm,
-                 int n_pow2, int k_total, int batch, int n_steps) {
-  extern __shared__ uint64_t keys[];  // n_pow2 words, then the tables
-  __shared__ int warp_tot[32];
-  __shared__ int remaining_sh;
-  __shared__ int total_sh;
+                 int k_total, int batch, int n_steps) {
+  extern __shared__ __align__(16) char smem[];
 
   const int n = dm.n, d = dm.d, s = dm.s;
-  const Tables tb = carve_tables(reinterpret_cast<char*>(keys + n_pow2), dm);
+  const int nw = blockDim.x >> 5;
+  const Tables tb = carve_tables(smem, dm);
+  uint32_t* red = reinterpret_cast<uint32_t*>(smem + table_bytes(dm));
+  int* warp_tot = reinterpret_cast<int*>(red + 10 * nw);
+  const int slots = scan_slots(n);
+  const Positions ps{reinterpret_cast<uint32_t*>(warp_tot + nw),
+                     reinterpret_cast<uint16_t*>(
+                         reinterpret_cast<uint32_t*>(warp_tot + nw) + slots),
+                     n <= kThreads ? 1 : slots / kThreads, n};
   load_tables(tb, dm, spread_tab, spread_meta, nullptr);
   const Scalars sc = load_scalars(scalars, d);
   const ScratchNodes nd{scratch, reinterpret_cast<int*>(scratch), n, d, s, 0};
   int* taken = nd.i32 + (long long)(2 * d + 6 + 2 * s) * n;
+  char* base = kShared ? smem + table_bytes(dm) + scan_work_bytes(n)
+                       : reinterpret_cast<char*>(taken + n);
+  float* boost = reinterpret_cast<float*>(base);
+  float* head = boost + s * dm.v;
+  uint16_t* meta = reinterpret_cast<uint16_t*>(head + slots);
+  const NodeCache cache{head, meta, meta + slots, nullptr, slots};
 
   // gather every per-node column into permuted (tie_perm) order
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
@@ -141,82 +261,77 @@ bulk_scan_kernel(const float* __restrict__ avail,
     }
     taken[j] = 0;
   }
-  if (threadIdx.x == 0) remaining_sh = k_total;
   __syncthreads();
 
+  // each thread scores its own positions (their columns are in the
+  // scratch now)
   const bool single = sc.dh_job || sc.dh_tg || sc.spread_alg;
-  const int chunk = n_pow2 >= kThreads ? n_pow2 / kThreads : 1;
-  const int lo = threadIdx.x * chunk;
-  const bool owns = lo < n_pow2;
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int remaining = remaining_sh;
-    if (remaining <= 0) break;  // the same value in every thread
-    const int budget = remaining < batch ? remaining : batch;
-    const float budget_f = (float)budget;
-    spread_stats(tb, dm);
-    __syncthreads();
-
-    for (int j = threadIdx.x; j < n_pow2; j += blockDim.x) {
-      if (j >= n) {
-        keys[j] = kPadKey;
-        continue;
-      }
-      const float score = score_node(nd, j, dm, sc, tb, -1, -1.0f);
-      float per = INFINITY;
-      for (int k = 0; k < d; ++k) {
-        if (sc.ask[k] > 0.0f) {
-          const float free_k = __fsub_rn(nd.avail(j, k), nd.used(j, k));
-          per = fminf(per, floorf(__fdiv_rn(free_k, sc.ask[k])));
-        }
-      }
-      float cap_f = fmaxf(per, 0.0f);
-      if (!(score > kNeg)) cap_f = 0.0f;
-      if (single) cap_f = fminf(cap_f, 1.0f);
-      const int cap = (int)fminf(cap_f, budget_f);
-      keys[j] = ((uint64_t)desc_key(score) << 32) | ((uint64_t)j << 16) |
-                (uint64_t)cap;
+  const int first = (int)threadIdx.x * ps.chunk;
+  const int mine = ps.count();
+  for (int q = 0; q < mine; ++q) {
+    const int j = first + q;
+    const int slot = ps.slot(q);
+    for (int k = 0; k < s; ++k) {
+      cache.sv[k * slots + slot] =
+          nd.sok(j, k) ? (uint16_t)nd.svid(j, k) : kNoValue;
     }
-    __syncthreads();
-    bitonic_sort(keys, n_pow2);
-
-    int local = 0;
-    if (owns) {
-      for (int q = lo; q < lo + chunk; ++q) local += (int)(keys[q] & 0xFFFF);
-    }
-    int excl = block_exclusive_scan(local, warp_tot);
-    if (threadIdx.x == blockDim.x - 1) total_sh = excl + local;
-    if (owns) {
-      for (int q = lo; q < lo + chunk; ++q) {
-        const uint64_t w = keys[q];
-        const int cap = (int)(w & 0xFFFF);
-        int take = budget - excl;
-        take = take < 0 ? 0 : (take > cap ? cap : take);
-        excl += cap;
-        if (take > 0) {
-          const int j = (int)((w >> 16) & 0xFFFF);
-          const float tf = (float)take;
-          for (int k = 0; k < d; ++k) {
-            scratch[nd.at(d + k, j)] =
-                __fadd_rn(nd.used(j, k), __fmul_rn(sc.ask[k], tf));
-          }
-          nd.i32[nd.at(2 * d, j)] += take;
-          nd.i32[nd.at(2 * d + 1, j)] += take;
-          taken[j] += take;
-          for (int k = 0; k < s; ++k) {
-            if (nd.sok(j, k)) atomicAdd(&tb.scnt[k * dm.v + nd.svid(j, k)], take);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int placed = total_sh < budget ? total_sh : budget;
-      // nothing placed: the carry did not move, so no later step places
-      remaining_sh = placed > 0 ? remaining - placed : 0;
-    }
-    __syncthreads();
+    rescore(nd, j, ps, slot, dm, sc, single, cache);
   }
+
+  int parity = 0;
+  int remaining = k_total;
+  int summed_for = -1;  // the budget of the summary
+  Summary sm{};
+  for (int step = 0; step < n_steps && remaining > 0; ++step) {
+    const int budget = remaining < batch ? remaining : batch;
+    if (s > 0) {
+      __syncthreads();  // the last step's atomics and cached terms
+      value_tables(tb, dm, -1.0f, boost, nullptr, nullptr);
+      __syncthreads();
+      for (int q = 0; q < mine; ++q) {
+        ps.key[ps.slot(q)] =
+            desc_key(cached_score(cache, ps.slot(q), dm, boost, nullptr));
+      }
+      summed_for = -1;
+    }
+    if (budget != summed_for) {
+      sm = summarize(ps, (uint32_t)budget);
+      summed_for = budget;
+    }
+    const Threshold th =
+        threshold_select(ps, sm, (uint32_t)budget, red, parity);
+    long long excl =
+        threshold_base(ps, sm, th, (uint32_t)budget, warp_tot);
+    const int one = single_taker(sm, th);
+    if (one >= 0) {
+      // the level's only position, and nothing of this thread below it
+      const int slot = ps.slot(one);
+      const uint32_t take = take_at(ps.key[slot], ps.cap[slot], th,
+                                    (uint32_t)budget, excl);
+      if (take) {
+        commit(nd, first + one, ps, slot, (int)take, dm, sc, single, tb,
+               taken, cache);
+        sm = summarize(ps, (uint32_t)budget);
+      }
+    } else if (may_take(sm, th)) {
+      bool moved = false;
+      for (int q = 0; q < mine; ++q) {
+        const int slot = ps.slot(q);
+        const uint32_t take = take_at(ps.key[slot], ps.cap[slot], th,
+                                      (uint32_t)budget, excl);
+        if (take) {
+          commit(nd, first + q, ps, slot, (int)take, dm, sc, single, tb,
+                 taken, cache);
+          moved = true;
+        }
+      }
+      if (moved) sm = summarize(ps, (uint32_t)budget);
+    }
+    const int placed = th.all ? (int)th.total : budget;
+    // nothing placed: the carry did not move, so no later step places
+    remaining = placed > 0 ? remaining - placed : 0;
+  }
+  __syncthreads();
 
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     out[nd.orig(j)] = taken[j];
@@ -260,37 +375,50 @@ tie_perm_kernel(uint32_t seed, int n, int n_pow2, int rounds,
 
 }  // namespace
 
+// f32 words of nt_bulk_scan's scratch: n * (2d + 7 + 2s), then, with
+// spreads, the cached terms' room
+extern "C" long long nt_bulk_scan_scratch_words(int n, int d, int s, int v) {
+  const Dims dm{n, d, s, v, 0, 1};
+  const size_t cache = s > 0 ? scan_cache_bytes(dm, n) : 0;
+  return (long long)n * (2 * d + 7 + 2 * s) + (long long)(cache / 4);
+}
+
 // avail (n, d) f32; dyn (n, d + 2) f32: used | placed_tg | placed_job;
 // feas (n,) bool; aff (n,) f32; dev (n,) f32 or null (zeros); tie_perm (n,)
 // int32; spread_node (2s, n), spread_tab (2s, v), spread_meta (s, 2) f32
 // in pack_solve_args' layout (unread when s == 0); scalars (5 + d) f32:
 // lowest_boost | tg_count | dh_job | dh_tg | spread_alg | ask[d]; scratch
-// n * (2d + 7 + 2s) words; out (n,) int32.
+// nt_bulk_scan_scratch_words(n, d, s, v) f32 words, scratch_words their
+// count (a smaller buffer is refused); out (n,) int32.
 extern "C" int nt_bulk_scan(const void* avail, const void* dyn,
                             const void* feas, const void* aff, const void* dev,
                             const void* tie_perm, const void* spread_node,
                             const void* spread_tab, const void* spread_meta,
                             const void* scalars, void* scratch, void* out,
                             int n, int d, int s, int v, int k_total, int batch,
-                            int n_steps, void* stream) {
+                            int n_steps, int scratch_words, void* stream) {
   const Dims dm{n, d, s, v, 0, 1};
   if (n < 1 || n > kMaxNodes || d < 2 || d > kMaxDims || s < 0 ||
       s > kMaxSpreads || v < 1 || batch < 1 || batch > kMaxBatch ||
       n_steps < 0)
     return (int)cudaErrorInvalidValue;
-  const int n_pow2 = pow2_at_least(n);
-  const size_t smem = (size_t)n_pow2 * sizeof(uint64_t) + table_bytes(dm);
+  if (nt_bulk_scan_scratch_words(n, d, s, v) > (long long)scratch_words)
+    return (int)cudaErrorInvalidValue;
+  const size_t cache = s > 0 ? scan_cache_bytes(dm, n) : 0;
+  const size_t work = table_bytes(dm) + scan_work_bytes(n);
+  const bool in_smem = work + cache <= kMaxSmem;
+  const size_t smem = work + (in_smem ? cache : 0);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = in_smem ? bulk_scan_kernel<true> : bulk_scan_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bulk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bulk_scan_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<1, scan_threads(n), smem, (cudaStream_t)stream>>>(
       (const float*)avail, (const float*)dyn, (const uint8_t*)feas,
       (const float*)aff, (const float*)dev, (const int*)tie_perm,
       (const float*)spread_node, (const float*)spread_tab,
       (const float*)spread_meta, (const float*)scalars, (float*)scratch,
-      (int*)out, dm, n_pow2, k_total, batch, n_steps);
+      (int*)out, dm, k_total, batch, n_steps);
   return (int)cudaGetLastError();
 }
 

@@ -14,17 +14,20 @@ Per eval (the general path, ``:91-473`` and ``:630-663``):
 launch (B9): a K-step scan in tie-permuted node space whose every step
 scores all nodes (B8, ``score_nodes``), takes the first maximal one and
 carries usage, placement counts, spread and distinct_property value
-counts and the lowest explicit spread boost. ``score_nodes_packed`` is
-B8 alone (B10). Both take the packed f32 layout of ``pack_solve_tensors``;
-``score_nodes_once`` packs the reference's arguments for B10, and
-``solve_task_group`` (the reference's positional entry) for B9.
+counts and the lowest explicit spread boost. The kernels score from
+cached node terms and per-value spread tables (csrc/score.cuh states
+the identity). ``score_nodes_packed`` is B8 alone (B10). Both take the
+packed f32 layout of ``pack_solve_tensors``; ``score_nodes_once``
+packs the reference's arguments for B10, and ``solve_task_group`` (the
+reference's positional entry) for B9.
 
 Bulk fallbacks (``:494-629``): ``solve_bulk`` (B11) places K identical
 requests of one task group as per-node counts, up to 256 a step, each
 step rescoring every node with B8 and filling in score order;
 ``solve_bulk_fused`` is the same scan on device-resident capacity, mask
 and affinity with one (N, D+2) matrix per eval and the tie-break
-permutation drawn on the device (B11', ``prng.permutation``). Counts are
+permutation drawn on the device (B11', ``prng.permutation``). The kernel
+selects each step's fill without sorting (csrc/select.cuh). Counts are
 int32: this is the route for groups above the service's int16 ``MAX_K``.
 
 Preemption (``:766-910``): ``preempt_solve`` (B7) picks the node of each
@@ -577,9 +580,10 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
     """B9: place K requests of one task group in one launch from the
     packed layout of :func:`pack_solve_tensors` -> (3, K) f32 rows of
     [choice (mapped back through tie_perm), found, score] (reference
-    kernels.py:448-473). The CUDA kernel ``nt_solve_task_group``
-    (csrc/task_group.cu) for CUDA tensors, :func:`solve_task_group_fused_ref`
-    for CPU tensors."""
+    kernels.py:448-473; the tie_perm column a permutation, as the
+    reference's is). The CUDA kernel ``nt_solve_task_group``
+    (csrc/task_group.cu) for CUDA tensors,
+    :func:`solve_task_group_fused_ref` for CPU tensors."""
     if node_mat.device.type == "cpu":
         return solve_task_group_fused_ref(node_mat, step_mat, spread_node,
                                           spread_tab, spread_meta, dp_node,
@@ -597,9 +601,11 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
             or not step_mat.is_contiguous()):
         raise ValueError("solve_task_group_fused: step_mat must be a "
                          "contiguous f32 (K, 2) tensor on the card")
-    # the permuted-space copy of the per-node columns and the carry
-    scratch = torch.empty(n * (2 * d + 6 + 2 * s + 2 * p),
-                          dtype=torch.float32, device=dev)
+    # the permuted columns and carry, the cached terms where they do not
+    # fit in shared memory
+    words = _ext.scratch_words("nt_solve_task_group_scratch_words",
+                               n, d, s, v, p, vd)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev)
     out = torch.empty((3, k), dtype=torch.float32, device=dev)
     fn = _ext.entry("nt_solve_task_group")
     _ext.launch(
@@ -608,7 +614,7 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
         spread_node.data_ptr(), spread_tab.data_ptr(),
         spread_meta.data_ptr(), dp_node.data_ptr(),
         dp_tab.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), n, d, k, s, v, p, vd)
+        out.data_ptr(), n, d, k, s, v, p, vd, words)
     return out
 
 
@@ -689,6 +695,23 @@ def solve_task_group(*args, device=None):
 # the bulk fallbacks: B11 solve_bulk / solve_bulk_fused, B11' tie_perm
 # ---------------------------------------------------------------------------
 
+def _fill_takes(score, cap, budget: int) -> torch.Tensor:
+    """One bulk-scan step's takes, as the reference computes them
+    (kernels.py:562-574): the stable order by score descending (-0.0 with
+    +0.0, as XLA's sort comparator puts them), then each position takes
+    ``clip(budget - cap before it, 0, cap)``. (N,) int32."""
+    key = -score
+    key = torch.where(key == 0.0, 0.0, key)
+    order = torch.argsort(key, stable=True)
+    cap_sorted = cap[order]
+    cum = torch.cumsum(cap_sorted, 0)
+    take_sorted = torch.minimum(
+        torch.clamp_min(budget - (cum - cap_sorted), 0), cap_sorted)
+    take = torch.zeros(score.shape[0], dtype=torch.int32, device=score.device)
+    take[order] = take_sorted.to(torch.int32)
+    return take
+
+
 def _bulk_scan_ref(available, used0, ask, feasible, placed_tg0, placed_job0,
                    affinity_boost, dev_affinity, spread_val_id, spread_val_ok,
                    spread_counts0, spread_desired, spread_has_targets,
@@ -753,16 +776,7 @@ def _bulk_scan_ref(available, used0, ask, feasible, placed_tg0, placed_job0,
         if single:
             cap = torch.clamp_max(cap, 1.0)
         cap = torch.clamp_max(cap, float(budget)).to(torch.int32)
-        # XLA's sort comparator puts -0.0 with +0.0
-        key = -score
-        key = torch.where(key == 0.0, 0.0, key)
-        order = torch.argsort(key, stable=True)
-        cap_sorted = cap[order]
-        cum = torch.cumsum(cap_sorted, 0)
-        take_sorted = torch.minimum(
-            torch.clamp_min(budget - (cum - cap_sorted), 0), cap_sorted)
-        take = torch.zeros(n, dtype=torch.int32, device=dev)
-        take[order] = take_sorted.to(torch.int32)
+        take = _fill_takes(score, cap, budget)
         used = used + ask[None, :] * take[:, None].to(f)
         ptg = ptg + take
         pjob = pjob + take
@@ -829,8 +843,8 @@ def _launch_bulk_scan(available, dyn, feasible, aff, dev_affinity, tie_perm,
                       *, s: int, v: int, batch: int, n_steps: int):
     n, d = available.shape
     dev = available.device
-    scratch = torch.empty(n * (2 * d + 7 + 2 * s), dtype=torch.float32,
-                          device=dev)
+    words = _ext.scratch_words("nt_bulk_scan_scratch_words", n, d, s, v)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     fn = _ext.entry("nt_bulk_scan")
     _ext.launch(
@@ -841,7 +855,7 @@ def _launch_bulk_scan(available, dyn, feasible, aff, dev_affinity, tie_perm,
         tie_perm.data_ptr(), spread_node.data_ptr(),
         spread_tab.data_ptr(), spread_meta.data_ptr(),
         scalars.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        n, d, s, v, int(k_total), batch, n_steps)
+        n, d, s, v, int(k_total), batch, n_steps, words)
     return out
 
 

@@ -588,3 +588,166 @@ def test_fused_route_and_service_carry_miss_each_other(services):
     assert want and over_capacity(port_run[0].store) == want
     assert services[1].stats["solves"] == 2
     assert services[1].stats["resyncs"] == 1
+
+
+# --------------------------------------------------------------------------
+# the redesigned B11's selection (csrc/select.cuh) against the full sort
+# --------------------------------------------------------------------------
+
+# levels csrc/select.cuh walks before it bisects (kLevels)
+SELECT_LEVELS = 4
+
+
+def desc_key_ref(score: torch.Tensor) -> torch.Tensor:
+    """csrc/sort.cuh ``desc_key`` as int64 values in [0, 2^32): ascending
+    key is descending f32 score, -0.0 folded onto +0.0."""
+    b = score.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(b == 0x80000000, 0, b)
+    ordered = torch.where((b & 0x80000000) != 0, ~b & 0xFFFFFFFF,
+                          b | 0x80000000)
+    return ~ordered & 0xFFFFFFFF
+
+
+def threshold_takes_ref(key: torch.Tensor, w: torch.Tensor,
+                        budget: int) -> torch.Tensor:
+    """csrc/select.cuh's fill in plain torch, step for step: the level T
+    at which the weight of the keys <= T reaches ``budget`` (the
+    distinct levels walked from the best for ``SELECT_LEVELS``, then a
+    bisection of the keys up to the worst), every key below T taking its
+    whole weight w, the keys at T sharing what is left in position order.
+    ``key`` from :func:`desc_key_ref`, ``w`` the caps clipped to the
+    budget. Equals :func:`kernels._fill_takes` on the same step. (N,)
+    int64."""
+    w = w.to(torch.int64)
+    live = w > 0
+    total = int(w.sum())
+    if total <= budget:
+        return w.clone()
+    level, above = int(key[live].min()), 0
+    for it in range(1, SELECT_LEVELS + 1):
+        at = int(w[live & (key == level)].sum())
+        if above + at >= budget:
+            break
+        above += at
+        if it < SELECT_LEVELS:
+            level = int(key[live & (key > level)].min())
+    else:
+        lo, hi = level + 1, int(key[live].max())
+        while lo < hi:
+            mid = lo + (hi - lo) // 2
+            at = int(w[live & (key <= mid)].sum())
+            if at >= budget:
+                hi = mid
+            else:
+                lo, above = mid + 1, at
+        level = lo
+    bucket = torch.where(key == level, w, 0)
+    excl = above + torch.cumsum(bucket, 0) - bucket
+    shared = torch.minimum(torch.clamp_min(budget - excl, 0), w)
+    return torch.where(key < level, w, torch.where(key == level, shared, 0))
+
+
+def takes_hook(monkeypatch):
+    """Wrap kernels._fill_takes (the reference's full stable sort and
+    scan) so that every step of a plain bulk scan also runs the kernel's
+    selection (threshold_takes_ref on desc_key_ref) and asserts the same
+    takes. Returns the list of (budget, levels above the fill's level)
+    of the steps, where levels counts the distinct keys with cap > 0
+    before the level the selection stops at."""
+    real = kernels._fill_takes
+    steps = []
+
+    def hook(score, cap, budget):
+        want = real(score, cap, budget)
+        key = desc_key_ref(score)
+        got = threshold_takes_ref(key, cap, budget)
+        assert torch.equal(got.to(torch.int32), want)
+        taken = key[want > 0]
+        levels = int(torch.unique(key[(cap > 0) & (key < taken.max())])
+                     .numel()) if len(taken) else 0
+        steps.append((budget, levels))
+        return want
+
+    monkeypatch.setattr(kernels, "_fill_takes", hook)
+    return steps
+
+
+@pytest.mark.parametrize("name", BULK_FIXTURES)
+def test_selection_equals_the_full_sort_at_every_step(name, monkeypatch):
+    """At every step of the generic plain scan, the kernel's selection
+    (the weighted level of the budget, whole caps below it, the level's
+    positions in order) takes what the full stable sort and scan takes:
+    equal scores ("identical"), cap <= 1 ("spread_alg", "dh_job",
+    "dh_tg", where 256 of ~800 live nodes make the selection bisect), a
+    last step whose budget is below the batch (600 = 256 + 256 + 88),
+    infeasible nodes ("infeasible"), and the spread tables (the cached
+    identity held at each step too), at 1,024 nodes."""
+    from test_torch_task_group import identity_hook
+
+    args = bulk_fixture(name, n=1024)
+    steps = takes_hook(monkeypatch)
+    identity_hook(monkeypatch)
+    got = _port_bulk(args)
+    assert steps and got.sum() > 0
+    if got.sum() == args[14] and args[14] % STEP:
+        assert steps[-1][0] == args[14] % STEP
+    if name in ("spread_alg", "dh_tg"):
+        # a prefix of many cap-1 positions: the selection bisects
+        assert max(lv for _, lv in steps) > SELECT_LEVELS
+
+
+def _crafted_step(case, seed):
+    """One step's (score, cap, budget) with a hazard of the selection."""
+    rng = np.random.default_rng(seed)
+    n = 512
+    score = rng.choice(np.linspace(0.1, 0.9, 40), n).astype(F32)
+    cap = rng.integers(0, 6, n).astype(np.int32)
+    budget = 256
+    if case == "zeros":            # +0.0 and -0.0 tie, in position order
+        score[::3] = 0.0
+        score[1::3] = -0.0
+    elif case == "cap0_interleaved":
+        cap[rng.random(n) < 0.4] = 0
+        score[:40] = 0.95          # best scores, many of them with cap 0
+    elif case == "equal":
+        score[:] = 0.5
+    elif case == "cap1":
+        score = rng.random(n).astype(F32)
+        cap = (rng.random(n) < 0.8).astype(np.int32)
+    elif case == "short":          # the last step: budget below the batch
+        budget = 37
+    elif case == "all":            # the caps sum below the budget
+        cap[:] = 0
+        cap[::50] = 3
+    elif case == "neg":            # NEG scores with caps of 0
+        score[::2] = kernels.NEG
+        cap[::2] = 0
+    cap = np.minimum(cap, budget)
+    return torch.from_numpy(score), torch.from_numpy(cap), budget
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", ["zeros", "cap0_interleaved", "equal",
+                                  "cap1", "short", "all", "neg"])
+def test_selection_hazards_equal_the_full_sort(case, seed):
+    score, cap, budget = _crafted_step(case, seed)
+    want = kernels._fill_takes(score, cap, budget)
+    got = threshold_takes_ref(desc_key_ref(score), cap,
+                                      budget)
+    assert torch.equal(got.to(torch.int32), want)
+    assert int(want.sum()) == min(budget, int(cap.sum()))
+
+
+@pytest.mark.parametrize("n,k,seed,full", [
+    (64, 600, 3, False), (512, 33_000, 2 ** 32 - 1, False),
+    (512, 200_000, 0, False)])
+def test_fused_selection_equals_the_full_sort(n, k, seed, full,
+                                              monkeypatch):
+    """The fused form (no spread) at every step of its plain scan."""
+    avail, feas, aff, dyn, ask, k, tgc, seed = fused_fixture(n, k, seed,
+                                                              full)
+    steps = takes_hook(monkeypatch)
+    kernels.solve_bulk_fused_ref(
+        *(torch.from_numpy(a) for a in (avail, feas, aff, dyn, ask)), k,
+        tgc, seed, batch=STEP, n_steps=n_steps_for(k))
+    assert steps

@@ -2,7 +2,8 @@
 
 Every ``extern "C" int nt_*`` of ``nomad_tpu_torch/csrc/*.cu`` is parsed
 and held against ``_ext._SIGNATURES``: its library, and its parameters'
-count and kinds against the ctypes argtypes. A wrong argtypes list makes
+count and kinds against the ctypes argtypes; every ``extern "C" long
+long nt_*`` size query likewise against ``_ext._QUERIES``. A wrong argtypes list makes
 ctypes pass a pointer as a 32-bit int, or shift every argument after it:
 memory corruption on the card, which nothing here would show. Then
 ``entry`` and ``launch`` run on stub libraries and stub device
@@ -19,13 +20,16 @@ import torch
 from nomad_tpu_torch import _ext
 
 _DEF = re.compile(r'extern\s+"C"\s+int\s+(nt_\w+)\s*\(([^)]*)\)', re.S)
+_QUERY = re.compile(r'extern\s+"C"\s+long\s+long\s+(nt_\w+)\s*\(([^)]*)\)',
+                    re.S)
 
 
-def c_entry_points():
-    """{name: (library, [parameter kinds])} of every C entry point."""
+def c_entry_points(pattern=_DEF):
+    """{name: (library, [parameter kinds])} of every C entry point (or,
+    with ``_QUERY``, every size query)."""
     out = {}
     for path in sorted(_ext.CSRC.glob("*.cu")):
-        for name, params in _DEF.findall(path.read_text()):
+        for name, params in pattern.findall(path.read_text()):
             decls = [" ".join(p.split()) for p in params.split(",")]
             out[name] = (path.stem, [_c_kind(d, last=i == len(decls) - 1)
                                      for i, d in enumerate(decls)])
@@ -59,6 +63,7 @@ def argtype_kinds(argtypes):
 
 
 C_ENTRY_POINTS = c_entry_points()
+C_QUERIES = c_entry_points(_QUERY)
 
 
 def test_csrc_has_entry_points():
@@ -81,6 +86,22 @@ def test_every_c_entry_point_has_a_signature():
     assert sorted(C_ENTRY_POINTS) == sorted(_ext._SIGNATURES)
     assert _ext.LIBRARIES == tuple(sorted(
         {lib for lib, _ in C_ENTRY_POINTS.values()}))
+
+
+def test_every_c_size_query_has_a_signature():
+    assert sorted(C_QUERIES) == sorted(_ext._QUERIES)
+    assert not set(C_QUERIES) & set(C_ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("name", sorted(_ext._QUERIES))
+def test_size_query_matches_its_c_definition(name):
+    """Each size query lives in the library of the kernel it sizes and
+    takes ints only, as many as its argtypes say."""
+    lib, argtypes = _ext._QUERIES[name]
+    c_lib, c_kinds = C_QUERIES[name]
+    assert lib == c_lib
+    assert argtype_kinds(argtypes) == c_kinds == ["int"] * len(c_kinds)
+    assert name.replace("_scratch_words", "") in C_ENTRY_POINTS
 
 
 @pytest.mark.parametrize("mutation", ["drop", "int_for_pointer",
@@ -157,6 +178,31 @@ def test_entry_types_each_function_once(stub_libs):
         assert fn is stub_libs[lib].fns[name]
         assert fn.sets == 1
         assert fn.argtypes == argtypes and fn.restype is ctypes.c_int
+
+
+def test_entry_types_each_size_query_once(stub_libs):
+    for name, (lib, argtypes) in _ext._QUERIES.items():
+        fn = _ext.entry(name)
+        assert _ext.entry(name) is fn
+        assert fn is stub_libs[lib].fns[name]
+        assert fn.sets == 1
+        assert fn.argtypes == argtypes and fn.restype is ctypes.c_longlong
+
+
+def test_scratch_words_asks_once_a_shape(stub_libs):
+    """The wrapper's scratch size comes from its library's query, one
+    crossing a shape."""
+    _ext.scratch_words.cache_clear()
+    try:
+        fn = _ext.entry("nt_bulk_scan_scratch_words")
+        fn.code = 123
+        for _ in range(3):
+            assert _ext.scratch_words("nt_bulk_scan_scratch_words",
+                                      64, 4, 0, 1) == 123
+        _ext.scratch_words("nt_bulk_scan_scratch_words", 128, 4, 0, 1)
+        assert fn.calls == [(64, 4, 0, 1), (128, 4, 0, 1)]
+    finally:
+        _ext.scratch_words.cache_clear()
 
 
 class _Cards:

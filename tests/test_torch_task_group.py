@@ -485,3 +485,230 @@ def test_scan_plain_is_deterministic_and_leaves_inputs_alone():
     np.testing.assert_array_equal(a, b)
     for x, y in zip(packed, before):
         np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the cached identity under the redesigned B9 and B11 (csrc/score.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
+    """A cfg3-like scan at a small width: "even" one even spread over 20
+    racks; "targets" explicit targets with a zero and a missing target,
+    affinities, placed allocs and penalty steps; "worstfit" three spreads
+    (the padded tree) under WorstFit on near-full nodes; "distinct"
+    distinct_hosts with a distinct_property cap, more steps than nodes
+    left; "penalty" the even spread with a penalty node at most steps."""
+    rng = np.random.default_rng(seed)
+    avail = np.zeros((n, 4))
+    avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
+    avail[:real, 1] = rng.choice([16384, 32768, 65536], real)
+    avail[:real, 2:] = [102400, 12001]
+    used = np.zeros((n, 4))
+    fill = rng.integers(0, 30, real)
+    used[:real, :3] = fill[:, None] * [100, 64, 300]
+    ptg, pjob, aff = np.zeros(n), np.zeros(n), np.zeros(n)
+    feas = np.arange(n) < real
+    pen = np.full(k, -1)
+    active = np.arange(k) < k - 2
+    s, v = 1, 32
+    svid = (np.arange(n) % 20)[None, :].astype(float)
+    sok = feas[None, :].copy()
+    scnt = np.zeros((s, v))
+    sdes = np.full((s, v), np.nan)
+    has_t, weight = np.zeros(s, bool), np.ones(s)
+    dh_tg = spread_alg = False
+    dp = dict(dp_val_id=np.zeros((0, n)), dp_val_ok=np.zeros((0, n), bool),
+              dp_counts0=np.zeros((0, 1)), dp_limit=np.zeros(0))
+    if variant == "targets":
+        has_t[0] = True
+        sdes[0, :18] = 4.0
+        sdes[0, 3] = 0.0                      # a zero target
+        scnt[0, :20] = rng.integers(0, 5, 20)  # values 18, 19: no target
+        pen[rng.integers(0, k, 8)] = rng.integers(0, real, 8)
+        ptg[:real] = rng.integers(0, 3, real) * (rng.random(real) < 0.2)
+        aff[:real] = rng.choice([0.0, 0.0, 0.5, -0.5], real)
+    elif variant == "worstfit":
+        spread_alg, s = True, 3
+        svid = np.stack([np.arange(n) % 20, np.arange(n) % 4,
+                         np.arange(n) % 3]).astype(float)
+        sok = np.tile(feas, (s, 1))
+        sok[2, ::11] = False                  # a missing attribute
+        scnt = rng.integers(0, 6, (s, v)) * (np.arange(v) < 20)
+        sdes = np.full((s, v), np.nan)
+        sdes[1, :4] = [20.0, 15.0, 10.0, 0.0]
+        has_t = np.array([False, True, False])
+        weight = np.array([0.2, 0.5, 0.3])
+        used[:real, 0] = avail[:real, 0] - 100 * rng.integers(0, 5, real)
+    elif variant == "distinct":
+        dh_tg = True
+        feas = feas & (rng.random(n) < 0.1)   # ~24 nodes for 30 steps
+        ptg[:real] = rng.random(real) < 0.02
+        dp = dict(dp_val_id=(np.arange(n) % 7)[None, :].astype(float),
+                  dp_val_ok=(np.arange(n) < real - 3)[None, :],
+                  dp_counts0=rng.integers(0, 3, (1, 8)),
+                  dp_limit=np.array([4.0]))
+    elif variant == "penalty":
+        pen[::2] = rng.integers(0, real, k // 2)
+        pjob[:real] = rng.random(real) < 0.1
+    return kernels.pack_solve_args(
+        avail, used, ptg, pjob, np.array([100.0, 64.0, 300.0, 0.0]), feas,
+        aff, pen, active, svid, sok, scnt, sdes, has_t, weight, -1.0,
+        float(k), False, dh_tg, spread_alg, dp_val_id=dp["dp_val_id"],
+        dp_val_ok=dp["dp_val_ok"], dp_counts0=dp["dp_counts0"],
+        dp_limit=dp["dp_limit"], tie_perm=rng.permutation(n))
+
+
+# the cached identity of csrc/score.cuh in plain torch: the twins of the
+# kernels' internal steps, held here against the full score
+
+def node_terms_ref(*, available, used, ask, feasible, placed_tg, placed_job,
+                   affinity_boost, dev_affinity, tg_count, dh_job, dh_tg,
+                   spread_alg):
+    """The cached part of B8 (csrc/score.cuh ``node_terms``), in plain
+    torch: what a node's score owes to its own columns. Returns (head,
+    div_base, ok_local): head is :func:`kernels.score_nodes_ref`'s add
+    chain up to the spread term with the reschedule term absent (its ``+ 0.0``
+    included), div_base its divisor without the spread term, ok_local its
+    mask without distinct_property. B9 and B11 keep these per node and
+    recompute them only where a step changed the node."""
+    f = available.dtype
+    new_used = used + ask[None, :]
+    ok = feasible & torch.all(new_used <= available, dim=1)
+    ok = ok & (~dh_job | (placed_job == 0))
+    ok = ok & (~dh_tg | (placed_tg == 0))
+    fitness = kernels.fit_scores(available, new_used, spread_alg)
+    anti_present = placed_tg > 0
+    anti = -(placed_tg.to(f) + 1.0) / torch.clamp_min(tg_count, 1.0)
+    aff_present = affinity_boost != 0.0
+    dev_present = dev_affinity != 0.0
+    head = (fitness + torch.where(anti_present, anti, 0.0)
+            + torch.zeros_like(fitness)
+            + torch.where(aff_present, affinity_boost, 0.0)
+            + torch.where(dev_present, dev_affinity, 0.0))
+    div_base = (1.0 + anti_present.to(f) + aff_present.to(f)
+                + dev_present.to(f))
+    return head, div_base, ok
+
+
+def value_tables_ref(*, spread_counts, spread_desired, spread_has_targets,
+                     spread_weight, dp_counts, dp_limit, lowest_boost):
+    """The per-step value tables of the cached score (csrc/score.cuh
+    ``value_tables``), in plain torch: boost (S, V), the boost
+    :func:`kernels.score_nodes_ref` gives a node holding value t of
+    spread k, at these counts; dp_ok (P, Vd), whether value t of
+    distinct_property k is below its limit."""
+    f = spread_desired.dtype
+    cur = spread_counts.to(f)
+    des = spread_desired
+    explicit = torch.where(
+        torch.isnan(des), -1.0,
+        torch.where(des == 0.0, lowest_boost,
+                    (des - (cur + 1.0))
+                    / torch.where(des == 0.0, 1.0, des)
+                    * spread_weight[:, None]))
+    present_v = spread_counts > 0
+    any_present = torch.any(present_v, dim=1)
+    minc = torch.where(present_v, spread_counts,
+                       kernels._INT32_MAX).amin(dim=1).to(f)
+    maxc = torch.where(present_v, spread_counts, 0).amax(dim=1).to(f)
+    minc_b = minc[:, None]
+    maxc_b = maxc[:, None]
+    safe_min = torch.where(minc_b == 0.0, 1.0, minc_b)
+    even = torch.where(
+        cur != minc_b,
+        torch.where(minc_b == 0.0, -1.0, (minc_b - cur) / safe_min),
+        torch.where(minc_b == maxc_b, -1.0,
+                    torch.where(minc_b == 0.0, 1.0,
+                                (maxc_b - minc_b) / safe_min)))
+    even = torch.where(any_present[:, None], even, 0.0)
+    boost = torch.where(spread_has_targets[:, None], explicit, even)
+    return boost, dp_counts < dp_limit[:, None]
+
+
+def cached_scores_ref(head, div_base, ok_local, boost, dp_ok, *,
+                      spread_val_id, spread_val_ok, dp_val_id, dp_val_ok):
+    """B8 from the cached terms and the value tables (csrc/score.cuh
+    ``cached_score``), in plain torch: each node's table entries (-1
+    where it lacks the spread value), the fixed pairwise tree, one add,
+    one division, the mask. Equals :func:`kernels.score_nodes_ref` bit
+    for bit at every node but the step's penalty node."""
+    f = head.dtype
+    b = torch.where(spread_val_ok, torch.gather(boost, 1, spread_val_id),
+                    -1.0)
+    spread_total = kernels.pairwise_sum_ref(b)
+    present = spread_total != 0.0
+    total = head + torch.where(present, spread_total, 0.0)
+    score = total / (div_base + present.to(f))
+    ok = ok_local
+    if dp_val_id.shape[0]:
+        ok = ok & torch.all(dp_val_ok & torch.gather(dp_ok, 1, dp_val_id),
+                            dim=0)
+    return torch.where(ok, score, kernels.NEG)
+
+
+def identity_hook(monkeypatch):
+    """Wrap kernels.score_nodes_ref so that every call (every step of a
+    plain scan, at that step's carry) also computes the cached identity
+    (node_terms_ref, value_tables_ref, cached_scores_ref) and asserts it
+    equals the full score bit for bit at every node but the step's
+    penalty node, which the kernels score in full, and that each node's
+    boost-table entry is the boost the full score used. Returns the list
+    of the penalty indices seen, one a call."""
+    real = kernels.score_nodes_ref
+    seen = []
+
+    def hook(**kw):
+        score, fitness, boost = real(**kw)
+        head, div_base, ok = node_terms_ref(**{
+            name: kw[name] for name in (
+                "available", "used", "ask", "feasible", "placed_tg",
+                "placed_job", "affinity_boost", "dev_affinity", "tg_count",
+                "dh_job", "dh_tg", "spread_alg")})
+        table, dp_ok = value_tables_ref(
+            spread_counts=kw["spread_counts"],
+            spread_desired=kw["spread_desired"],
+            spread_has_targets=kw["spread_has_targets"],
+            spread_weight=kw["spread_weight"], dp_counts=kw["dp_counts"],
+            dp_limit=kw["dp_limit"], lowest_boost=kw["lowest_boost"])
+        cached = cached_scores_ref(
+            head, div_base, ok, table, dp_ok,
+            spread_val_id=kw["spread_val_id"],
+            spread_val_ok=kw["spread_val_ok"], dp_val_id=kw["dp_val_id"],
+            dp_val_ok=kw["dp_val_ok"])
+        pen = int(kw["penalty_idx"])
+        rest = torch.ones(score.shape[0], dtype=torch.bool)
+        if pen >= 0:
+            rest[pen] = False
+        assert torch.equal(cached[rest].view(torch.int32),
+                           score[rest].view(torch.int32))
+        per_node = torch.where(kw["spread_val_ok"],
+                               torch.gather(table, 1, kw["spread_val_id"]),
+                               -1.0)
+        assert torch.equal(per_node.view(torch.int32),
+                           boost.view(torch.int32))
+        seen.append(pen)
+        return score, fitness, boost
+
+    monkeypatch.setattr(kernels, "score_nodes_ref", hook)
+    return seen
+
+
+@pytest.mark.parametrize("variant", ["even", "targets", "worstfit",
+                                     "distinct", "penalty"])
+def test_cached_identity_equals_the_full_score_at_every_step(variant,
+                                                             monkeypatch):
+    """B9's and B11's cached terms + value-table lookups + tree + division
+    give score_nodes_ref's scores bit for bit at every step of the plain
+    scan's carry (csrc/score.cuh states why), on five cfg3-like
+    fixtures at 256 nodes and K 32."""
+    packed = [torch.from_numpy(a) for a in _identity_fixture(variant)]
+    seen = identity_hook(monkeypatch)
+    got = kernels.solve_task_group_fused(*packed)
+    k = packed[1].shape[0]
+    assert len(seen) == k
+    assert got[1].sum() > 0
+    if variant in ("targets", "penalty"):
+        assert any(p >= 0 for p in seen)
+    if variant == "distinct":
+        assert 0 < got[1].sum() < k - 2   # the group ran out of nodes
