@@ -127,9 +127,14 @@ Phases (any failure raises and exits non-zero):
               "tpu-solve", the spread / distinct_hosts / distinct_property /
               host-oracle workload, and cfg4, on the card and on the CPU
               plain versions: the same placements (and victims).
-21. shards -- the node-sharded kernels on one process's mesh (shards on the
+21. barrier -- csrc/mesh.cuh's barrier alone (sharding.barrier_probe):
+              2,000 rounds of 48 CTAs, no stale read of a double-buffered
+              slot, timed a round; then a barrier missing one of its
+              participants, in a process of its own: the launch must raise
+              (the bounded spin traps) after the bound, not hang.
+    shards -- the node-sharded kernels on one process's mesh (shards on the
               card's devices in turn; with one card every shard on cuda:0,
-              each with its own parts and launches): every shard's B3 / B3'
+              each with its own parts): every shard's B3 / B3'
               jitter slice bitwise equal to the full draw; B15
               (nt_scatter_shards, one host call for the S launches) exact
               against its plain version and B4 at S 2, 4, 8 on 1,024 and
@@ -146,15 +151,25 @@ Phases (any failure raises and exits non-zero):
               joint solve) on the six B5/B6 variants at S 2, 4, 8: used,
               counts, info and gathers exact against the plain version,
               counts, used and info[2:] against single-device solve_batch,
-              scores within 1e-6.
+              scores within 1e-6; B14 also at S 32 on the "cap" variant
+              against the plain version (on one card more CTAs than it
+              holds at once: each CTA takes two shards). Each B13 and B14
+              solve launches its
+              kernel once a card (nt_bulk_shard_solve, nt_joint_shard_solve:
+              every round on the device) and B15's fold, nothing else. Then
+              one B13 and one B14 solve at S 4 timed on the phase's mesh
+              and, where that spans cards, on one card.
 22. shard path -- the C2M path (10,240 nodes, 64 x 4,000, 16 threads)
               through a service with a 4-shard mesh: the path gates,
               sharded == launches, all-gathers == the launches' rounds,
-              B15/B13 launched, no plain version on CUDA; each launch's
+              B13 launched once a card a solve and B15 once a shard, no
+              plain version on CUDA; prints the host calls a solve (from
+              the launch counts: 2, the fold and the solve); each launch's
               inputs copied as it is dispatched.
 23. shard solve -- the tpu-solve c2m_mini path (2,560 nodes, 50 x 800,
               batches of 8) through a 4-shard mesh service: the same gates,
-              joint score >= greedy score, the B14 kernels launched.
+              joint score >= greedy score, B14 launched once a card a
+              solve (its greedy arm inside: no B13 launch).
     runs   -- both paths' launches replayed: exact against the plain sharded
               versions and the single-device kernels; B13 and B14 timed
               beside B1 and solve_batch at the same inputs. Then B15 on
@@ -191,7 +206,13 @@ collection can land in either.
 
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
 and 26 alone: with several visible cards, every mesh puts its
-shards on the cards in turn, so the gathers cross cards.
+shards on the cards in turn, so the gathers cross cards (B13's and
+B14's pushes and barriers through peer access).
+``python3 chip_smoke.py --shard-times`` runs the build and phases 22
+and 23's paths, replays their launches exact against the plain
+versions and times B13, B14, B1 and solve_batch on them, through
+wrappers that its parent has too: copied into another checkout, it
+times that one's B13 and B14 in the same call.
 ``python3 chip_smoke.py --kernel-times`` runs the build and times B9 at
 cfg3, B11 on its seven variants and B16 at cfg3, S 4 (each checked
 against its plain version, B16 against B9) through wrappers an older
@@ -2582,6 +2603,7 @@ def phase_bulk_preempt(torch, card):
 # path's mesh, bench.py cfg7_sharded_5k's shape (:986-1002)
 SHARDS = (2, 4, 8)
 PATH_SHARDS = 4
+MANY_SHARDS = 32   # more of B14's CTAs than one card holds at once
 CFG7_NODES = 10240
 CFG7_K = 512
 PARITY_JOBS = 8
@@ -2676,6 +2698,21 @@ def padded(torch, t, n_pad):
     return out
 
 
+def one_launch_a_card(mesh, name: str, what: str, solve):
+    """``solve()``, which must launch the kernel ``name`` once on each
+    card of ``mesh`` and no other kernel but B15's fold."""
+    from nomad_tpu_torch import _ext
+
+    before = _ext.COUNTS.snapshot()["launches"]
+    out = solve()
+    after = _ext.COUNTS.snapshot()["launches"]
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved != {name: mesh.cards, "scatter_shard": mesh.size}:
+        raise AssertionError(f"{what}: launches {moved}, want {name} once on "
+                             f"each of {mesh.cards} card(s) and the fold")
+    return out
+
+
 def check_b13(torch, mesh, t, top_r, what):
     """B13 on full tensors ``t``: kernel == plain (counts, carry, rounds),
     counts and carry == single-device B1. Returns the rounds."""
@@ -2685,7 +2722,8 @@ def check_b13(torch, mesh, t, top_r, what):
     g = t["feas"].shape[0]
     rep = (t["ask"], t["k"], t["seeds"], t["cidx"], t["cdelta"])
     args, _ = shard_args(mesh, t)
-    got = sh.solve_bulk_multi_sharded(mesh, *args, *rep, g=g, top_r=top_r)
+    got = one_launch_a_card(mesh, "bulk_shard", what, lambda: (
+        sh.solve_bulk_multi_sharded(mesh, *args, *rep, g=g, top_r=top_r)))
     args, _ = shard_args(mesh, t)
     want = sh.solve_bulk_multi_sharded_ref(mesh, *args, *rep, g=g,
                                            top_r=top_r)
@@ -2824,8 +2862,10 @@ def phase_sharded_kernels(torch, dev, card):
         for s_n in SHARDS:
             mesh = mesh_of(s_n)
             args, kw = shard_args(mesh, t)
-            got = sh.solve_batch_sharded(mesh, *args, *rep, g=G,
-                                         rounds=t["rounds"], **kw)
+            got = one_launch_a_card(
+                mesh, "joint_shard", f"B14 {variant} S={s_n}",
+                lambda: sh.solve_batch_sharded(mesh, *args, *rep, g=G,
+                                               rounds=t["rounds"], **kw))
             args, kw = shard_args(mesh, t)
             want = sh.solve_batch_sharded_ref(mesh, *args, *rep, g=G,
                                               rounds=t["rounds"], **kw)
@@ -2849,11 +2889,107 @@ def phase_sharded_kernels(torch, dev, card):
                                      f"{rel:.3g} from solve_batch")
             gathers.append(int(got[3]))
         notes.append(f"{variant}: gathers {gathers}")
+    # S 32: on one card B14's 6 x 32 CTAs exceed its 132 SMs, so each CTA
+    # takes two shards of its group in turn
+    t = solve_inputs(torch, dev, srng, "cap")
+    rep = (t["ask"], t["k"], t["seeds"], t["cidx"], t["cdelta"])
+    mesh = mesh_of(MANY_SHARDS)
+    args, kw = shard_args(mesh, t)
+    got = one_launch_a_card(mesh, "joint_shard", f"B14 S={MANY_SHARDS}",
+                            lambda: sh.solve_batch_sharded(
+                                mesh, *args, *rep, g=G, rounds=t["rounds"],
+                                **kw))
+    args, kw = shard_args(mesh, t)
+    want = sh.solve_batch_sharded_ref(mesh, *args, *rep, g=G,
+                                      rounds=t["rounds"], **kw)
+    torch.cuda.synchronize()
+    for name, x, y in (
+            ("used", sh.gather_rows(got[0]), sh.gather_rows(want[0])),
+            ("counts", sh.gather_rows(got[1], dim=1),
+             sh.gather_rows(want[1], dim=1)),
+            ("info", got[2], want[2]), ("gathers", got[3], want[3])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"B14 S={MANY_SHARDS}: {name} differs from "
+                                 f"the plain version")
+    notes.append(f"cap at S {MANY_SHARDS} on {mesh.cards} card(s): gathers "
+                 f"{int(got[3])}")
     print(f"B14 shard   [{card}] used, counts, info and gathers exact "
           f"against the plain version, counts, used and info[2:] against "
           f"single-device solve_batch (scores within {SCORE_TOL}), 6 "
-          f"variants at N_pad {N_PAD}, G {G}, S {SHARDS}; "
+          f"variants at N_pad {N_PAD}, G {G}, S {SHARDS}, and against the "
+          f"plain version at S {MANY_SHARDS}, one launch a card a solve; "
           + "; ".join(notes))
+    mesh_times(torch, dev, card, t7, solve_inputs(torch, dev, srng, "main"))
+
+
+def mesh_times(torch, dev, card, t7, tj):
+    """B13 at cfg7 and B14 on the "main" variant at S 4, one solve's
+    device time (the window on the first card): on phase 21's mesh
+    (over every visible card) and, where that spans cards, on one."""
+    from nomad_tpu_torch.tensor import sharding as sh
+
+    meshes = [mesh_of(PATH_SHARDS)]
+    if meshes[0].cards > 1:
+        meshes.append(sh.NodeMesh([dev] * PATH_SHARDS))
+    notes = []
+    for mesh in meshes:
+        rep7 = (t7["ask"], t7["k"], t7["seeds"], t7["cidx"], t7["cdelta"])
+        repj = (tj["ask"], tj["k"], tj["seeds"], tj["cidx"], tj["cdelta"])
+        b13 = cuda_time_ms(torch, lambda a: sh.solve_bulk_multi_sharded(
+            mesh, *a, *rep7, g=G), setup=lambda: shard_args(mesh, t7)[0],
+            reps=5)
+        b14 = cuda_time_ms(torch, lambda a: sh.solve_batch_sharded(
+            mesh, *a, *repj, g=G, rounds=tj["rounds"]),
+            setup=lambda: shard_args(mesh, tj)[0], reps=5)
+        notes.append(f"{mesh.cards} card(s): B13 {b13:.4f} ms, B14 "
+                     f"{b14:.4f} ms")
+    print(f"mesh times  [{card}] S {PATH_SHARDS}, a solve (B13 at cfg7, B14 "
+          f"main at N_pad {N_PAD}): " + "; ".join(notes))
+
+
+def phase_barrier(torch, dev, card):
+    """csrc/mesh.cuh's barrier alone (sharding.barrier_probe): 2,000
+    rounds of 48 CTAs on one card, no stale read, timed a barrier; then
+    a barrier missing a participant, in a process of its own (the trap
+    leaves that process's CUDA context unusable), which must raise, not
+    hang."""
+    from nomad_tpu_torch.tensor import sharding as sh
+
+    ctas, rounds = 48, 2000
+    out = sh.barrier_probe(dev, ctas, ctas, rounds)
+    torch.cuda.synchronize()
+    if int(out[-1]) or not bool((out[ctas:2 * ctas] == rounds).all()):
+        raise AssertionError(f"barrier probe: {int(out[-1])} stale reads, "
+                             f"last slots {out[ctas:2 * ctas].tolist()}")
+    us = cuda_time_ms(torch, lambda _: sh.barrier_probe(
+        dev, ctas, ctas, rounds), reps=5) * 1e3 / rounds
+    timeout_ms = 1000
+    code = (
+        "import sys, time, torch\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from nomad_tpu_torch.tensor import sharding as sh\n"
+        "t0 = time.perf_counter()\n"
+        "try:\n"
+        f"    sh.barrier_probe('cuda:0', 4, 5, 1, timeout_ms={timeout_ms})\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print(f'{time.perf_counter() - t0:.3f} s: '\n"
+        "          f'{str(e).strip().splitlines()[0]}')\n"
+        "    sys.exit(3)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=180)
+    wall = time.perf_counter() - t0
+    waited = (float(proc.stdout.split()[0]) if proc.returncode == 3
+              else -1.0)
+    if not timeout_ms / 1e3 <= waited < 60.0:
+        raise AssertionError(f"barrier missing a participant: exit "
+                             f"{proc.returncode}, {proc.stdout} {proc.stderr}")
+    print(f"barrier     [{card}] {rounds} rounds of {ctas} CTAs, no stale "
+          f"read, {us:.3f} us a round; a barrier missing one of 5 "
+          f"participants raised in its process after "
+          f"{proc.stdout.strip()} (bound {timeout_ms} ms; {wall:.1f} s with "
+          f"the process's start)")
 
 
 def path_gates(h, jobs, want: int, what: str) -> None:
@@ -2896,14 +3032,14 @@ def capture_into(torch, captured, real):
     return capture
 
 
-def phase_sharded_path(torch, card):
+def run_sharded_path(torch, card):
     """The C2M bulk path (10,240 nodes, 64 batch jobs x 4,000 allocs, 16
-    threads) with a 4-shard mesh service. Returns (the launch counts of
-    its run, its wall, the copied launches)."""
+    threads) with a 4-shard mesh service, each launch's inputs copied.
+    Returns (the launch counts of its run, its wall, the copied launches,
+    the service's stats, its mesh)."""
     from nomad_tpu_torch import _ext, mock
     from nomad_tpu_torch.structs import enums
     from nomad_tpu_torch.structs.operator import SchedulerConfiguration
-    from nomad_tpu_torch.tensor import sharding as sh
     from nomad_tpu_torch.tensor import solver
     from nomad_tpu_torch.testing import Harness
 
@@ -2919,7 +3055,6 @@ def phase_sharded_path(torch, card):
         scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
     captured = []
     real = solver.solve_bulk_multi_sharded
-    reads0 = sh.READS["bulk_shard"]
     with mesh_service(torch, PATH_SHARDS) as svc:
         print(f"shards      path mesh {svc._mesh!r}: {svc._mesh.size} "
               f"shards, {svc._mesh.cards} distinct card(s)")
@@ -2936,8 +3071,25 @@ def phase_sharded_path(torch, card):
             solver.solve_bulk_multi_sharded = real
         stats = dict(svc.stats)
     path_gates(h, jobs, JOBS * K, "sharded C2M path")
-    for name in ("jitter", "scatter_shard", "bulk_shard_pool",
-                 "bulk_shard_merge"):
+    return counts, wall, captured, stats, svc._mesh
+
+
+def host_calls(counts, stats, mesh, solve: str) -> float:
+    """Host calls a solve from the launch counts: B15's fold is one call
+    for its S launches, the solve one call for its launch a card; every
+    other kernel launch is a call of its own."""
+    n = counts["launches"]
+    calls = n["scatter_shard"] / mesh.size + n[solve] / mesh.cards + sum(
+        v for name, v in n.items() if name not in ("scatter_shard", solve))
+    return calls / stats["launches"]
+
+
+def phase_sharded_path(torch, card):
+    """The C2M bulk path with a 4-shard mesh service and its gates: one
+    B13 launch a card a solve, B15's fold one a shard. Returns (the
+    launch counts of its run, its wall, the copied launches)."""
+    counts, wall, captured, stats, mesh = run_sharded_path(torch, card)
+    for name in ("scatter_shard", "bulk_shard"):
         if counts["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"sharded path")
@@ -2956,25 +3108,30 @@ def phase_sharded_path(torch, card):
                              f"{counts['launches']['scatter_shard']} times, "
                              f"not one a shard for each of "
                              f"{stats['launches']} solves")
-    reads = sh.READS["bulk_shard"] - reads0
+    if counts["launches"]["bulk_shard"] != mesh.cards * stats["launches"]:
+        raise AssertionError(f"sharded path: B13 launched "
+                             f"{counts['launches']['bulk_shard']} times, not "
+                             f"one a card for each of {stats['launches']} "
+                             f"solves")
+    calls = host_calls(counts, stats, mesh, "bulk_shard")
     print(f"shard path  [{card}] {JOBS * K} allocs in {wall:.3f} s = "
           f"{JOBS * K / wall:.1f} allocs/s on {PATH_SHARDS} shards "
           f"launches "
           f"{stats['launches']} (all sharded), evals/launch "
           f"{stats['solves'] / stats['launches']:.2f}, all-gathers "
-          f"{stats['allgathers']}, host flag reads {reads} "
-          f"({reads / stats['launches']:.2f} a launch); kernel launches "
-          f"{counts['launches']}")
+          f"{stats['allgathers']}, host calls a solve {calls:.2f}; kernel "
+          f"launches {counts['launches']}")
     return counts["launches"], wall, captured
 
 
-def phase_sharded_solve_path(torch, card):
+def run_sharded_solve_path(torch, card):
     """The tpu-solve c2m_mini path (2,560 nodes, 50 x 800, worker batches
-    of 8) with a 4-shard mesh service."""
+    of 8) with a 4-shard mesh service, each launch's inputs copied.
+    Returns (the launch counts of its run, its wall, the copied launches,
+    the service's stats, its mesh)."""
     from nomad_tpu_torch import _ext, mock
     from nomad_tpu_torch.structs import enums
     from nomad_tpu_torch.structs.operator import SchedulerConfiguration
-    from nomad_tpu_torch.tensor import sharding as sh
     from nomad_tpu_torch.tensor import solver
     from nomad_tpu_torch.tensor.solver import batch_member, open_batch
     from nomad_tpu_torch.testing import Harness
@@ -2996,7 +3153,6 @@ def phase_sharded_solve_path(torch, card):
 
     captured = []
     real = solver.solve_batch_sharded
-    reads0 = sh.READS["joint_shard"] + sh.READS["bulk_shard"]
     with mesh_service(torch, PATH_SHARDS) as svc:
         solver.solve_batch_sharded = capture_into(torch, captured, real)
         try:
@@ -3014,10 +3170,16 @@ def phase_sharded_solve_path(torch, card):
             solver.solve_batch_sharded = real
         stats = dict(svc.stats)
     path_gates(h, jobs, MINI_JOBS * SOLVE_K, "sharded tpu-solve path")
+    return counts, wall, captured, stats, svc._mesh
+
+
+def phase_sharded_solve_path(torch, card):
+    """The tpu-solve path with a 4-shard mesh service and its gates: one
+    B14 launch a card a joint solve (its greedy arm inside), B15's fold
+    one a shard, joint score >= greedy score."""
+    counts, wall, captured, stats, mesh = run_sharded_solve_path(torch, card)
     joint = stats["joint_launches"]
-    for name in ("jitter", "jitter_fold", "scatter_shard", "bulk_shard_pool",
-                 "bulk_shard_merge", "joint_shard_bids", "joint_shard_merge",
-                 "joint_shard_contrib", "joint_shard_pick"):
+    for name in ("scatter_shard", "joint_shard"):
         if counts["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"sharded tpu-solve path")
@@ -3032,12 +3194,18 @@ def phase_sharded_solve_path(torch, card):
     if stats["joint_score"] < stats["greedy_score"]:
         raise AssertionError(f"joint score {stats['joint_score']} below the "
                              f"greedy score {stats['greedy_score']}")
-    reads = sh.READS["joint_shard"] + sh.READS["bulk_shard"] - reads0
+    if (counts["launches"]["joint_shard"] != mesh.cards * joint
+            or counts["launches"]["bulk_shard"]):
+        raise AssertionError(f"sharded tpu-solve path: B14 launched "
+                             f"{counts['launches']['joint_shard']} times for "
+                             f"{joint} solves on {mesh.cards} card(s), B13 "
+                             f"{counts['launches']['bulk_shard']}")
+    calls = host_calls(counts, stats, mesh, "joint_shard")
     print(f"shard solve [{card}] {MINI_JOBS * SOLVE_K} allocs in {wall:.3f} s "
           f"on {PATH_SHARDS} shards; joint launches {joint} (all sharded), "
           f"auction won {stats['auction_won']}, all-gathers "
-          f"{stats['allgathers']}, host flag reads {reads} "
-          f"({reads / joint:.2f} a launch), joint score "
+          f"{stats['allgathers']}, host calls a solve {calls:.2f}, joint "
+          f"score "
           f"{stats['joint_score']:.4f} vs greedy {stats['greedy_score']:.4f}; "
           f"kernel launches {counts['launches']}")
     return counts["launches"], wall, captured
@@ -3066,10 +3234,13 @@ def max_diff(pairs) -> float:
                else 0.0 for x, y in pairs)
 
 
-def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
+def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint,
+                         plain_too=True):
     """The two sharded paths' launches replayed: exact against the plain
     sharded versions and the single-device kernels; B13, B14, B1 and
-    solve_batch timed on each. Returns the B13 and B14 records."""
+    solve_batch (and, with ``plain_too``, the plain versions) timed on
+    each. Returns the B13 and B14 records, the single-device kernel's
+    mean under ``single_ms``."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor import sharding as sh
     from nomad_tpu_torch.tensor.kernels import solve_bulk_multi
@@ -3109,7 +3280,7 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
             mesh, *a, **kw), setup=lambda: clone_parts(args), reps=5)
         plain = cuda_time_ms(torch, lambda a: sh.solve_bulk_multi_sharded_ref(
             mesh, *a, **kw), setup=lambda: clone_parts(args), reps=2,
-            warmup=1)
+            warmup=1) if plain_too else None
         b1 = cuda_time_ms(torch, lambda u: solve_bulk_multi(
             u, *full[1:], ask, k, torch.ones(g, device=ask.device), seeds,
             cidx, cdelta, g=g), setup=full[0].clone, reps=5)
@@ -3145,7 +3316,7 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
             mesh, *a, **kw), setup=lambda: clone_parts(args), reps=5)
         plain = cuda_time_ms(torch, lambda a: sh.solve_batch_sharded_ref(
             mesh, *a, **kw), setup=lambda: clone_parts(args), reps=1,
-            warmup=1)
+            warmup=1) if plain_too else None
         one_ms = cuda_time_ms(torch, lambda u: bs.solve_batch(
             u, *full[1:], ask, k, tgc, seeds, cidx, cdelta, g=g),
             setup=full[0].clone, reps=5)
@@ -3171,11 +3342,16 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
         rec["joint"].append((ms, plain, bound(n_bytes, ops), one_ms,
                              int(got[3])))
     n_b, n_j = len(bulk), len(joint)
+
+    def plain_mean(key):
+        return (mean(r[1] for r in rec[key]) if plain_too
+                else float("nan"))
+
     print(f"shard runs  [{card}] the sharded C2M path's {n_b} launches: B13 "
           f"exact against the plain version and single-device B1 on each; "
           f"per launch (mean) B13 {mean(r[0] for r in rec['bulk']):.4f} ms, "
           f"B1 at the same inputs {mean(r[3] for r in rec['bulk']):.4f} ms, "
-          f"plain {mean(r[1] for r in rec['bulk']):.4f} ms, all-gathers "
+          f"plain {plain_mean('bulk'):.4f} ms, all-gathers "
           f"{[r[4] for r in rec['bulk']]}; {n_b} launches "
           f"{sum(r[0] for r in rec['bulk']):.4f} ms of device time = "
           f"{100.0 * sum(r[0] for r in rec['bulk']) / 1e3 / wall_bulk:.2f}% "
@@ -3185,7 +3361,7 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
           f"solve_batch on each; per launch (mean) B14 "
           f"{mean(r[0] for r in rec['joint']):.4f} ms, solve_batch at the "
           f"same inputs {mean(r[3] for r in rec['joint']):.4f} ms, plain "
-          f"{mean(r[1] for r in rec['joint']):.4f} ms, gathers "
+          f"{plain_mean('joint'):.4f} ms, gathers "
           f"{[r[4] for r in rec['joint']]}; {n_j} launches "
           f"{sum(r[0] for r in rec['joint']):.4f} ms = "
           f"{100.0 * sum(r[0] for r in rec['joint']) / 1e3 / wall_joint:.2f}% "
@@ -3200,9 +3376,10 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint):
         by = Counter(r[2][1] for r in v).most_common(1)[0][0]
         out.append({"name": name, "source": src, "replaces": repl,
                     "max_abs_err": err[key], "ms": mean(r[0] for r in v),
-                    "plain_ms": mean(r[1] for r in v),
+                    "plain_ms": plain_mean(key),
                     "bound_ms": mean(r[2][0] for r in v), "bound_by": by,
-                    "library_ms": None})
+                    "library_ms": None,
+                    "single_ms": mean(r[3] for r in v)})
     return out
 
 
@@ -3481,7 +3658,7 @@ def phase_entry(torch, card):
         notes.append(f"{s_n} shards on {mesh.cards} card(s) "
                      f"{time.perf_counter() - t0:.3f} s")
     counts = _ext.COUNTS.snapshot()
-    for name in ("solve_task_group", "task_group_shard", "bulk_shard_pool",
+    for name in ("solve_task_group", "task_group_shard", "bulk_shard",
                  "bulk_fill"):
         if not counts["launches"][name]:
             raise AssertionError(f"entry: {name} never launched: "
@@ -3520,8 +3697,8 @@ def phase_entry(torch, card):
                  f"nodes, K 8, S 8) {small_ms:.4f} ms")
     print(f"entry       [{card}] {'; '.join(notes)}; B16 launches "
           f"{counts['launches']['task_group_shard']}, B9 "
-          f"{counts['launches']['solve_task_group']}, B13 pool "
-          f"{counts['launches']['bulk_shard_pool']}, B1 "
+          f"{counts['launches']['solve_task_group']}, B13 "
+          f"{counts['launches']['bulk_shard']}, B1 "
           f"{counts['launches']['bulk_fill']}; no plain version on CUDA")
     return counts["launches"], err
 
@@ -3532,6 +3709,7 @@ def sharded_only(torch, dev, card, rng) -> int:
     summary."""
     print(f"cards       {torch.cuda.device_count()}: meshes "
           f"{', '.join(repr(mesh_of(s_n)) for s_n in SHARDS)}")
+    phase_barrier(torch, dev, card)
     phase_sharded_kernels(torch, dev, card)
     b16 = phase_task_group_shard(torch, dev, card, rng)
     launches, err = phase_entry(torch, card)
@@ -3542,6 +3720,25 @@ def sharded_only(torch, dev, card, rng) -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def shard_times(torch, card) -> int:
+    """``--shard-times``: the sharded C2M and tpu-solve paths through a
+    4-shard mesh service, their launches replayed exact against the
+    plain versions and single-device B1 / solve_batch, and B13, B14, B1
+    and solve_batch timed on them, through wrappers that this tree and
+    its parent (53e33be) both have: this script copied into another
+    checkout times that checkout's B13 and B14 in the same call. Prints
+    one JSON line of ms (walls in s)."""
+    _, wall_b, bulk, _, _ = run_sharded_path(torch, card)
+    _, wall_j, joint, _, _ = run_sharded_solve_path(torch, card)
+    b13, b14 = phase_sharded_replay(torch, card, bulk, joint, wall_b, wall_j,
+                                    plain_too=False)
+    print(json.dumps({"b13": b13["ms"], "b1": b13["single_ms"],
+                      "b14": b14["ms"], "solve_batch": b14["single_ms"],
+                      "wall_c2m": wall_b, "wall_solve": wall_j}))
+    print(card)
     return 0
 
 
@@ -3632,6 +3829,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--kernel-times"]:
         return kernel_times(torch, dev, card, rng)
+    if sys.argv[1:] == ["--shard-times"]:
+        return shard_times(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -3667,14 +3866,15 @@ def main() -> int:
     phase_parity(enums.SCHED_ALG_TPU_SOLVE)
     phase_spread_parity()
     phase_cfg4_parity(card, cfg4)
+    phase_barrier(torch, dev, card)
     phase_sharded_kernels(torch, dev, card)
     launches_b, wall_b, bulk_runs = phase_sharded_path(torch, card)
     launches_j, wall_j, joint_runs = phase_sharded_solve_path(torch, card)
     sharded = phase_sharded_replay(torch, card, bulk_runs, joint_runs,
                                    wall_b, wall_j)
     sharded.append(phase_b15_replay(torch, card, bulk_runs))
-    sharded[0]["launches"] = launches_b["bulk_shard_pool"]
-    sharded[1]["launches"] = launches_j["joint_shard_bids"]
+    sharded[0]["launches"] = launches_b["bulk_shard"]
+    sharded[1]["launches"] = launches_j["joint_shard"]
     sharded[2]["launches"] = launches_b["scatter_shard"]
     phase_sharded_parity(torch, card)
     b16 = phase_task_group_shard(torch, dev, card, rng)

@@ -60,12 +60,9 @@ _SIGNATURES = {
     "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 8 + [_P]),
     "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P]),
     "nt_scatter_shards": ("sharded", [_P] * 4 + [_I] * 4 + [_P]),
-    "nt_bulk_shard_pool": ("sharded", [_P] * 10 + [_I] * 6 + [_P]),
-    "nt_bulk_shard_merge": ("sharded", [_P] * 7 + [_I] * 7 + [_P]),
-    "nt_joint_shard_bids": ("sharded", [_P] * 14 + [_I] * 7 + [_P]),
-    "nt_joint_shard_merge": ("sharded", [_P] * 7 + [_I] * 8 + [_P]),
-    "nt_joint_shard_contrib": ("sharded", [_P] * 7 + [_I] * 4 + [_P]),
-    "nt_joint_shard_pick": ("sharded", [_P] * 12 + [_I] * 5 + [_P]),
+    "nt_bulk_shard_solve": ("sharded", [_P] * 13 + [_I] * 5 + [_F, _P]),
+    "nt_joint_shard_solve": ("sharded", [_P] * 18 + [_I] * 9 + [_P]),
+    "nt_mesh_barrier_probe": ("sharded", [_P] * 2 + [_I] * 4 + [_P]),
     "nt_task_group_shard": ("task_group_shard", [_P] * 12 + [_I] * 10 + [_P]),
 }
 # C size query -> (library, argtypes): the f32 words of a kernel's
@@ -73,6 +70,8 @@ _SIGNATURES = {
 _QUERIES = {
     "nt_solve_task_group_scratch_words": ("task_group", [_I] * 6),
     "nt_bulk_scan_scratch_words": ("bulk_scan", [_I] * 4),
+    "nt_bulk_shard_solve_scratch_words": ("sharded", [_I] * 4),
+    "nt_joint_shard_solve_scratch_words": ("sharded", [_I] * 6),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 
@@ -110,9 +109,7 @@ COUNTS = LaunchCounts(("jitter", "scatter_add", "bulk_fill", "score_nodes",
                        "solve_task_group", "jitter_fold", "auction",
                        "batch_pick", "preempt_solve", "preempt_pick",
                        "bulk_scan", "tie_perm", "scatter_shard",
-                       "bulk_shard_pool", "bulk_shard_merge",
-                       "joint_shard_bids", "joint_shard_merge",
-                       "joint_shard_contrib", "joint_shard_pick",
+                       "bulk_shard", "joint_shard", "mesh_barrier",
                        "task_group_shard"))
 
 _lock = threading.Lock()

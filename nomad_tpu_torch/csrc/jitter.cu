@@ -42,14 +42,9 @@
 
 namespace {
 
+using nt_threefry::bits_to_unit;
 using nt_threefry::threefry2x32;
 using nt_threefry::threefry_bits;
-
-// jax.random._uniform's float: bits -> [1, 2) - 1, times span, floored at 0
-__device__ __forceinline__ float bits_to_unit(uint32_t bits, float span) {
-  const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  return fmaxf(0.0f, __fadd_rn(__fmul_rn(f, span), 0.0f));
-}
 
 __global__ void jitter_kernel(const uint32_t* __restrict__ seeds,
                               float* __restrict__ out, int g, int n,

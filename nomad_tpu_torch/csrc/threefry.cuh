@@ -1,5 +1,6 @@
-// threefry2x32, the generator of jax.random, shared by jitter.cu (B3, B3')
-// and bulk_scan.cu (B11', the tie-break permutation).
+// threefry2x32, the generator of jax.random, shared by jitter.cu (B3, B3'),
+// bulk_scan.cu (B11', the tie-break permutation) and sharded.cu (B13's and
+// B14's jitter, drawn inside their loops).
 //
 // 20 rounds of 32-bit adds, rotates and xors under the key pair (k0, k1),
 // with the key schedule injected every four rounds, exactly as
@@ -42,6 +43,12 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
                                                   uint32_t x0, uint32_t x1) {
   threefry2x32(k0, k1, x0, x1);
   return x0 ^ x1;
+}
+
+// jax.random._uniform's float: bits -> [1, 2) - 1, times span, floored at 0
+__device__ __forceinline__ float bits_to_unit(uint32_t bits, float span) {
+  const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  return fmaxf(0.0f, __fadd_rn(__fmul_rn(f, span), 0.0f));
 }
 
 }  // namespace nt_threefry

@@ -210,8 +210,7 @@ def _seeds_u32(seeds: torch.Tensor, what: str) -> torch.Tensor:
 
 def _span(hi: float) -> float:
     """``hi - lo`` in float32, as jax.random.uniform computes it."""
-    return float(torch.tensor(hi, dtype=torch.float32)
-                 - torch.tensor(0.0, dtype=torch.float32))
+    return float(np.float32(hi) - np.float32(0.0))
 
 
 def jitter_fold(seeds: torch.Tensor, n: int, his: Sequence[float],

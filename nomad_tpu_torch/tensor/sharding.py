@@ -40,11 +40,14 @@ Each has a plain torch version (``*_ref``) that follows the reference's
 per-shard body step by step with explicit gathers; the replicated math
 after a gather is computed once, since every shard would compute the
 same. On CUDA the wrappers launch ``csrc/sharded.cu`` (B16
-``csrc/task_group_shard.cu``), one launch a shard, the gather between
-launches. The round loops of B13 and B14 keep their conditions on the
-device, but the host reads them once per solve, plus once per resume
-when a chunk of rounds did not finish an eval (:data:`READS`): a
-sharded solve blocks its caller until its rounds have run.
+``csrc/task_group_shard.cu``). B15 is one host call that launches once a
+shard. B13 and B14 are one host call each (after B15's correction fold),
+which makes one cooperative launch a card: every round of every eval
+runs inside it, each shard's CTA stores its pool row straight into every
+shard's buffer and waits on the device-side barrier of ``csrc/mesh.cuh``,
+and the host reads no round flag, so a solve returns as soon as it is
+queued. B16 launches once a shard a step, :func:`all_gather` between
+steps.
 """
 
 from __future__ import annotations
@@ -53,26 +56,25 @@ import contextlib
 import ctypes
 import math
 import threading
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
 from .. import _ext
 from ..device import DeviceLike, resolve
-from .batch_solver import (MAX_ROUNDS, PORTFOLIO, TOP_R, _eps_tensor,
-                           _jitter_his, _price_eps, bid_scores,
-                           resolve_round, topr_ref)
+from .batch_solver import (MAX_ROUNDS, PORTFOLIO, TOP_R, _jitter_his,
+                           _price_eps, bid_scores, resolve_round, topr_ref)
 from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda, _layout,
                       fill_score_cap, fit_scores, pack_solve_tensors,
                       pairwise_sum_ref, preempt_score_ref, score_nodes_ref)
-from .prng import jitter, jitter_fold, jitter_fold_ref, jitter_ref
+from .prng import _span, jitter_fold_ref, jitter_ref
 
-# rounds a B13 eval gets before the host looks at its flags; a stalled
-# eval resumes with CHUNK_RESUME rounds, doubling
-CHUNK_GREEDY = 2
-CHUNK_AUCTION = 8
-CHUNK_RESUME = 8
 MAX_SHARDS = 64
+# the barrier words of B13's and B14's launches (csrc/mesh.cuh): one group
+# a line of GROUP_WORDS int32: B13's one group, or B14's all-CTA join,
+# greedy arm and one a restart
+GROUP_WORDS = 32
+MESH_GROUPS = 2 + len(PORTFOLIO)
 MAX_MERGE = 2048     # gathered B13 pool entries one merge CTA sorts
 MAX_PICK_NODES = 32768  # nodes the B14 pick's pairwise tree holds
 
@@ -94,6 +96,36 @@ class NodeMesh:
         self.indices = tuple(-1 if d.index is None else d.index
                              for d in self.devices)
         self.ordinals = (ctypes.c_int * self.size)(*self.indices)
+        # each shard's place in ``distinct`` and the distinct cards'
+        # ordinals, as the C arrays B13's and B14's host calls take
+        self.card_of = (ctypes.c_int * self.size)(
+            *[self.distinct.index(d) for d in self.devices])
+        self.card_ordinals = (ctypes.c_int * self.cards)(
+            *[-1 if d.index is None else d.index for d in self.distinct])
+        self._words: Dict[tuple, torch.Tensor] = {}
+        self._words_lock = threading.Lock()
+
+    def barrier_words(self, device: torch.device) -> torch.Tensor:
+        """The barrier words of B13's and B14's launches on this mesh from
+        the cards' current streams, on ``device`` (shard 0's): zeroed
+        once, when first asked for, and kept. Every barrier leaves them as
+        it found them (csrc/mesh.cuh), so launches in stream order share
+        them with no reset; launches from other streams get words of
+        their own."""
+        raw_stream = _ext._cuda()[2]
+        key = tuple(raw_stream(d.index) for d in self.distinct)
+        words = self._words.get(key)
+        if words is None:
+            with self._words_lock:
+                words = self._words.get(key)
+                if words is None:
+                    words = torch.zeros(MESH_GROUPS * GROUP_WORDS,
+                                        dtype=torch.int32, device=device)
+                    if self.cards > 1 and device.type == "cuda":
+                        # the other cards' launches read them at once
+                        torch.cuda.synchronize(device)
+                    self._words[key] = words
+        return words
 
     def n_loc(self, n: int) -> int:
         if n % self.size:
@@ -298,7 +330,7 @@ def solve_bulk_multi_sharded_ref(mesh, used, avail, feas, aff, ask, k, seeds,
     """Plain version of :func:`solve_bulk_multi_sharded`, step by step
     the reference's ``_bulk_shard_body``. Updates the ``used`` parts in
     place."""
-    _ext.COUNTS.plain("bulk_shard_pool", used[0])
+    _ext.COUNTS.plain("bulk_shard", used[0])
     state_scatter_sharded_ref(mesh, used, cidx, cdelta, clamp=True)
     counts, rounds = _bulk_body_ref(mesh, used, avail, feas, aff, ask, k,
                                     seeds, g=g, top_r=top_r)
@@ -395,7 +427,7 @@ def solve_batch_sharded_ref(mesh, used, avail, feas, aff, ask, k, seeds,
     reference's ``_joint_body``. The ``used`` parts take the correction
     fold in place; the returned carry parts are new tensors. Returns
     (used parts, counts parts (G, *) int16, info (6,), gathers)."""
-    _ext.COUNTS.plain("joint_shard_bids", used[0])
+    _ext.COUNTS.plain("joint_shard", used[0])
     dev0 = used[0].device
     state_scatter_sharded_ref(mesh, used, cidx, cdelta, clamp=True)
     used_g = [u.clone() for u in used]
@@ -440,17 +472,6 @@ def solve_batch_sharded_ref(mesh, used, avail, feas, aff, ask, k, seeds,
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-
-# host reads of the round-loop flags, per solve kind (one per solve, plus
-# one per resume)
-READS = {"bulk_shard": 0, "joint_shard": 0}
-_reads_lock = threading.Lock()
-
-
-def _count_read(kind: str) -> None:
-    with _reads_lock:
-        READS[kind] += 1
-
 
 def _is_cpu(mesh: NodeMesh) -> bool:
     if all(d.type == "cpu" for d in mesh.devices):
@@ -537,93 +558,43 @@ def state_scatter_sharded(mesh: NodeMesh, used: List[torch.Tensor],
     return used
 
 
-class _BulkRun:
-    """The device state of one B13 chain on a mesh: per shard the (key,
-    cap, take) scratch of its rows, the replicated flags (the stall word,
-    then budget, go and rounds per eval), the gathered pools, the counts
-    and the rounds."""
+def barrier_probe(device: DeviceLike, ctas: int, participants: int,
+                  rounds: int, timeout_ms: int = 4000) -> torch.Tensor:
+    """The barrier of csrc/mesh.cuh on its own, on one card: ``ctas``
+    CTAs in one cooperative launch pass ``rounds`` barriers of
+    ``participants``. Each round every CTA writes the round into its slot
+    of a buffer double-buffered by parity and, after the barrier, reads
+    every CTA's slot. Returns the (2 x ctas + 1) int32 words, the last
+    the count of stale reads (0 when the barrier holds). With more
+    participants than CTAs no barrier completes: the launch traps after
+    ``timeout_ms`` and the next synchronisation raises."""
+    dev = resolve(device)
+    if dev.type != "cuda":
+        raise ValueError(f"barrier_probe: runs on a card, not {dev}")
+    words = torch.zeros(GROUP_WORDS, dtype=torch.int32, device=dev)
+    out = torch.zeros(2 * ctas + 1, dtype=torch.int32, device=dev)
+    _ext.launch("mesh_barrier", dev, _ext.entry("nt_mesh_barrier_probe"),
+                words.data_ptr(), out.data_ptr(), ctas, participants, rounds,
+                timeout_ms)
+    return out
 
-    def __init__(self, mesh, used, avail, feas, aff, ask, k, seeds, g,
-                 top_r):
-        self.mesh, self.g = mesh, g
-        self.used, self.avail, self.feas, self.aff = used, avail, feas, aff
-        self.n_loc = n_loc = used[0].shape[0]
-        self.r = min(top_r, n_loc)
-        self.ask = replicate(mesh, ask.to(torch.float32).contiguous())
-        self.k = replicate(mesh, k.to(torch.int32).contiguous())
-        self.jit, self.scratch, self.state, self.pools = [], [], [], []
-        self.counts, self.rounds = [], []
-        for s, dev in enumerate(mesh.devices):
-            self.jit.append(jitter(seeds.to(dev), n_loc, TIE_JITTER,
-                                   offset=s * n_loc))
-            self.scratch.append(torch.empty((3, n_loc), dtype=torch.int32,
-                                            device=dev))
-            self.state.append(torch.zeros(1 + 3 * g, dtype=torch.int32,
-                                          device=dev))
-            self.pools.append(torch.empty((mesh.size, 3, self.r),
-                                          dtype=torch.float32, device=dev))
-            self.counts.append(torch.zeros((g, n_loc), dtype=torch.int16,
-                                           device=dev))
-            self.rounds.append(torch.zeros(g, dtype=torch.int32, device=dev))
 
-    def round(self, e: int, first: bool, last: bool) -> None:
-        mesh, pool_fn = self.mesh, _ext.entry("nt_bulk_shard_pool")
-        for s, dev in enumerate(mesh.devices):
-            _ext.launch(
-                "bulk_shard_pool", dev, pool_fn,
-                self.used[s].data_ptr(), self.avail[s].data_ptr(),
-                self.feas[s].data_ptr(), self.aff[s].data_ptr(),
-                self.ask[s].data_ptr(), self.k[s].data_ptr(),
-                self.jit[s].data_ptr(), self.scratch[s].data_ptr(),
-                self.state[s].data_ptr(), self.pools[s].data_ptr(), e,
-                self.g, self.n_loc, s, self.r, int(first))
-        all_gather(mesh, self.pools)
-        merge_fn = _ext.entry("nt_bulk_shard_merge")
-        for s, dev in enumerate(mesh.devices):
-            _ext.launch(
-                "bulk_shard_merge", dev, merge_fn,
-                self.used[s].data_ptr(), self.ask[s].data_ptr(),
-                self.scratch[s].data_ptr(), self.state[s].data_ptr(),
-                self.pools[s].data_ptr(), self.counts[s].data_ptr(),
-                self.rounds[s].data_ptr(), e, self.g, self.n_loc,
-                mesh.size, s, self.r, int(last))
+def _ptrs(parts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
 
-    def queue(self, e: int, count: int, first: bool) -> None:
-        """Queue ``count`` rounds of eval ``e`` (``first``: the eval
-        starts with them). An eval still going after its last queued
-        round sets the stall word, and every later launch of the chain
-        returns at once, until the host clears it."""
-        for i in range(count):
-            self.round(e, first=first and i == 0, last=i == count - 1)
 
-    def chain(self, start: int, chunk: int) -> None:
-        for e in range(start, self.g):
-            self.queue(e, chunk, first=True)
-
-    def stall_flag(self) -> torch.Tensor:
-        return self.state[0][:1]
-
-    def resume(self, word: int, chunk: int) -> None:
-        """Go on from a stall: eval ``word - 1`` keeps its state and gets
-        more rounds, doubling while it stalls again; later evals start
-        anew, and the next eval to stall starts again at CHUNK_RESUME, so
-        an eval is queued at most about twice the rounds it runs."""
-        more, stalled = CHUNK_RESUME, word
-        while word:
-            if word != stalled:
-                more, stalled = CHUNK_RESUME, word
-            for st in self.state:
-                st[:1].zero_()
-            self.queue(word - 1, more, first=False)
-            self.chain(word, chunk)
-            _count_read("bulk_shard")
-            word = int(self.stall_flag().cpu())
-            more *= 2
-
-    def run(self, chunk: int = CHUNK_GREEDY) -> None:
-        self.chain(0, chunk)
-        _count_read("bulk_shard")
-        self.resume(int(self.stall_flag().cpu()), chunk)
+def _card_inputs(mesh: NodeMesh, used, ask, k, seeds):
+    """Each card's copy of the replicated ask (G, 4) f32, k (G,) int32 and
+    seeds (G,) int64, where the card's first shard's parts lie, and the C
+    arrays of their pointers (one a card). The caller holds the copies
+    until the launch is queued."""
+    if seeds.dim() != 1 or seeds.dtype != torch.int64:
+        raise ValueError("the mesh solves take (G,) int64 seeds")
+    first = [mesh.card_of[:].index(c) for c in range(mesh.cards)]
+    reps = [tuple(x.to(used[s].device, non_blocking=True) for x in (
+        ask.to(torch.float32).contiguous(), k.to(torch.int32).contiguous(),
+        seeds.contiguous())) for s in first]
+    return [_ptrs([r[i] for r in reps]) for i in range(3)], reps
 
 
 def _bulk_checks(what, mesh, used, avail, feas, aff, g, top_r):
@@ -656,8 +627,10 @@ def solve_bulk_multi_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
     ``ask`` (G, 4) f32, ``k`` (G,) int32 (at most 32,767), ``seeds`` (G,)
     int64, ``cidx`` (C,) int32 and ``cdelta`` (C, 4) f32 replicated.
     Counts equal :func:`kernels.solve_bulk_multi`'s; ``rounds`` (the
-    all-gathers of each eval) depends on the layout. On a CUDA mesh the
-    kernels of csrc/sharded.cu run, on a CPU mesh the plain version."""
+    all-gathers of each eval) depends on the layout. On a CUDA mesh two
+    host calls, neither of which waits for the card: the correction fold
+    (B15) and the solve (one launch a card, csrc/sharded.cu); on a CPU
+    mesh the plain version."""
     if feas[0].shape[0] != g or ask.shape[0] != g:
         raise ValueError(f"solve_bulk_multi_sharded: g={g} but feas/ask "
                          f"carry {feas[0].shape[0]}/{ask.shape[0]} rows")
@@ -668,9 +641,36 @@ def solve_bulk_multi_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
     _bulk_checks("solve_bulk_multi_sharded", mesh, used, avail, feas, aff, g,
                  top_r)
     _scatter_launch(mesh, used, cidx, cdelta, clamp=True)
-    run = _BulkRun(mesh, used, avail, feas, aff, ask, k, seeds, g, top_r)
-    run.run()
-    return used, run.counts, run.rounds[0]
+    # one cooperative launch a card runs every eval and round of the chain
+    # (csrc/sharded.cu); every allocation lies where its shard's parts lie
+    n_loc = used[0].shape[0]
+    r = min(top_r, n_loc)
+    words = _ext.scratch_words("nt_bulk_shard_solve_scratch_words", g,
+                               n_loc, mesh.size, r)
+    scratch = [torch.empty(words, dtype=torch.int32, device=u.device)
+               for u in used]
+    counts = [torch.empty((g, n_loc), dtype=torch.int16, device=u.device)
+              for u in used]
+    rounds = torch.empty(g, dtype=torch.int32, device=used[0].device)
+    (ask_p, k_p, seeds_p), copies = _card_inputs(mesh, used, ask, k, seeds)
+    _ext.launch(
+        "bulk_shard", mesh.distinct, _ext.entry("nt_bulk_shard_solve"),
+        _ptrs(used), _ptrs(avail), _ptrs(feas), _ptrs(aff), _ptrs(counts),
+        _ptrs(scratch), ask_p, k_p, seeds_p, rounds.data_ptr(),
+        mesh.barrier_words(used[0].device).data_ptr(), mesh.card_of,
+        mesh.card_ordinals, mesh.cards, mesh.size, g, n_loc, r,
+        _span(TIE_JITTER))
+    del copies, scratch  # held until the launch is queued
+    return used, counts, rounds
+
+
+def _joint_consts() -> ctypes.Array:
+    """The greedy arm's jitter width, the restarts' widths, then their
+    price temperatures, as float32 (as the kernels B3, B3' and B5 take
+    them)."""
+    his, eps = _jitter_his(), _price_eps()
+    vals = [_span(TIE_JITTER)] + [_span(hi) for hi in his] + list(eps)
+    return (ctypes.c_float * len(vals))(*vals)
 
 
 def solve_batch_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
@@ -686,8 +686,9 @@ def solve_batch_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
     The ``used`` parts take the correction fold in place; the returned
     carry parts are new tensors. ``gathers`` is the reference's count of
     all-gathers: the greedy arm's rounds, each restart's rounds plus one,
-    and one. On a CUDA mesh the kernels of csrc/sharded.cu run, on a CPU
-    mesh the plain version."""
+    and one. On a CUDA mesh two host calls, neither of which waits for
+    the card: the fold (B15) and the solve (one launch a card, csrc/
+    sharded.cu); on a CPU mesh the plain version."""
     if (evict is None) != (net_prio is None):
         raise ValueError("solve_batch_sharded: evict and net_prio come "
                          "together")
@@ -712,139 +713,34 @@ def solve_batch_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
         _check_parts("solve_batch_sharded", mesh, "net_prio", net_prio,
                      torch.float32, (n_loc,))
     _scatter_launch(mesh, used, cidx, cdelta, clamp=True)
-    used_g = [u.clone() for u in used]
-    greedy = _BulkRun(mesh, used_g, avail, feas, aff, ask, k, seeds, g, top_r)
-    greedy.chain(0, CHUNK_GREEDY)
-    joint = _JointRun(mesh, used, avail, feas, aff, greedy.ask, greedy.k,
-                      seeds, evict, net_prio, g, rounds)
-    done = min(CHUNK_AUCTION, rounds)
-    joint.rounds_chunk(0, done)
-    # one host read for both arms, then whatever either still needs
-    _count_read("joint_shard")
-    flags = torch.cat([greedy.stall_flag(), joint.go_flags()]).cpu()
-    greedy.resume(int(flags[0]), CHUNK_GREEDY)
-    going = bool(flags[1:].any())
-    while going and done < rounds:
-        more = min(done, rounds - done)
-        joint.rounds_chunk(done, more)
-        done += more
-        _count_read("joint_shard")
-        going = bool(joint.go_flags().any().cpu())
-    return joint.pick(greedy)
-
-
-class _JointRun:
-    """The device state of the auction restarts of one B14 launch: per
-    shard the restarts' carries, takes and price slices, the replicated
-    flags (per restart: rounds, go, remaining demand per eval), the
-    gathered pools."""
-
-    def __init__(self, mesh, used0, avail, feas, aff, ask, k, seeds, evict,
-                 net_prio, g, rounds):
-        self.mesh, self.g, self.rounds_cap = mesh, g, rounds
-        self.used0, self.avail, self.feas, self.aff = used0, avail, feas, aff
-        self.ask, self.k = ask, k
-        self.evict, self.net_prio = evict, net_prio
-        self.n_loc = n_loc = used0[0].shape[0]
-        self.rl = min(TOP_R, n_loc)
-        self.rg = min(TOP_R, n_loc * mesh.size)
-        self.n_t = len(PORTFOLIO)
-        self.eps = [_eps_tensor(_price_eps(), dev) for dev in mesh.devices]
-        self.jits, self.used, self.take, self.price = [], [], [], []
-        self.state, self.pools = [], []
-        for s, dev in enumerate(mesh.devices):
-            self.jits.append(jitter_fold(seeds.to(dev), n_loc, _jitter_his(),
-                                         offset=s * n_loc))
-            self.used.append(torch.empty((self.n_t, n_loc, 4),
-                                         dtype=torch.float32, device=dev))
-            self.take.append(torch.empty((self.n_t, g, n_loc),
-                                         dtype=torch.int32, device=dev))
-            self.price.append(torch.empty((self.n_t, n_loc),
-                                          dtype=torch.float32, device=dev))
-            self.state.append(torch.zeros((self.n_t, 2 + g),
-                                          dtype=torch.int32, device=dev))
-            self.pools.append(torch.empty(
-                (mesh.size, self.n_t, 3, g, self.rl), dtype=torch.float32,
-                device=dev))
-
-    def rounds_chunk(self, start: int, count: int) -> None:
-        mesh = self.mesh
-        bids_fn = _ext.entry("nt_joint_shard_bids")
-        merge_fn = _ext.entry("nt_joint_shard_merge")
-        for i in range(count):
-            first = int(start == 0 and i == 0)
-            for s, dev in enumerate(mesh.devices):
-                ev = self.evict[s] if self.evict is not None else None
-                npr = self.net_prio[s] if self.net_prio is not None else None
-                _ext.launch(
-                    "joint_shard_bids", dev, bids_fn,
-                    self.used0[s].data_ptr(), self.avail[s].data_ptr(),
-                    self.feas[s].data_ptr(), self.aff[s].data_ptr(),
-                    self.ask[s].data_ptr(), self.k[s].data_ptr(),
-                    self.jits[s].data_ptr(),
-                    None if ev is None else ev.data_ptr(),
-                    None if npr is None else npr.data_ptr(),
-                    self.used[s].data_ptr(), self.take[s].data_ptr(),
-                    self.price[s].data_ptr(), self.state[s].data_ptr(),
-                    self.pools[s].data_ptr(), self.n_t, self.g, self.n_loc,
-                    s, self.rl, self.rounds_cap, first)
-            all_gather(mesh, self.pools)
-            for s, dev in enumerate(mesh.devices):
-                _ext.launch(
-                    "joint_shard_merge", dev, merge_fn,
-                    self.ask[s].data_ptr(), self.eps[s].data_ptr(),
-                    self.used[s].data_ptr(), self.take[s].data_ptr(),
-                    self.price[s].data_ptr(), self.state[s].data_ptr(),
-                    self.pools[s].data_ptr(), self.n_t, self.g, self.n_loc,
-                    mesh.size, s, self.rl, self.rg, self.rounds_cap)
-
-    def go_flags(self) -> torch.Tensor:
-        """Each restart's go flag (shard 0's replicated copy)."""
-        return self.state[0][:, 1]
-
-    def pick(self, greedy: _BulkRun):
-        """The arm scores and the pick (sharding.py:550-606): each shard
-        writes its contributions, one gather, then every shard picks the
-        same arm and copies its own rows of it."""
-        mesh, n_t, g, n_loc = self.mesh, self.n_t, self.g, self.n_loc
-        contrib_fn = _ext.entry("nt_joint_shard_contrib")
-        pick_fn = _ext.entry("nt_joint_shard_pick")
-        n = n_loc * mesh.size
-        contrib, placed = [], []
-        for s, dev in enumerate(mesh.devices):
-            c = torch.empty((mesh.size, n_t + 1, n_loc), dtype=torch.float32,
-                            device=dev)
-            p = torch.empty((mesh.size, n_t + 1), dtype=torch.int32,
-                            device=dev)
-            _ext.launch(
-                "joint_shard_contrib", dev, contrib_fn,
-                self.avail[s].data_ptr(), self.used[s].data_ptr(),
-                self.take[s].data_ptr(), greedy.used[s].data_ptr(),
-                greedy.counts[s].data_ptr(), c.data_ptr(), p.data_ptr(),
-                n_t, g, n_loc, s)
-            contrib.append(c)
-            placed.append(p)
-        all_gather(mesh, contrib)
-        all_gather(mesh, placed)
-        used_out, counts_out, infos, gathers = [], [], [], []
-        for s, dev in enumerate(mesh.devices):
-            u = torch.empty((n_loc, 4), dtype=torch.float32, device=dev)
-            cnt = torch.empty((g, n_loc), dtype=torch.int16, device=dev)
-            info = torch.empty(6, dtype=torch.float32, device=dev)
-            gat = torch.empty((), dtype=torch.int32, device=dev)
-            _ext.launch(
-                "joint_shard_pick", dev, pick_fn,
-                contrib[s].data_ptr(), placed[s].data_ptr(),
-                self.state[s].data_ptr(), greedy.rounds[s].data_ptr(),
-                self.used[s].data_ptr(), self.take[s].data_ptr(),
-                greedy.used[s].data_ptr(), greedy.counts[s].data_ptr(),
-                u.data_ptr(), cnt.data_ptr(), info.data_ptr(),
-                gat.data_ptr(), n_t, g, n, n_loc, mesh.size)
-            used_out.append(u)
-            counts_out.append(cnt)
-            infos.append(info)
-            gathers.append(gat)
-        return used_out, counts_out, infos[0], gathers[0]
+    # one cooperative launch a card: the greedy arm and the T restarts at
+    # once, then the arm scores and the pick (csrc/sharded.cu)
+    n_t = len(PORTFOLIO)
+    r, rl = min(top_r, n_loc), min(TOP_R, n_loc)
+    rg = min(TOP_R, n_loc * mesh.size)
+    words = _ext.scratch_words("nt_joint_shard_solve_scratch_words", g,
+                               n_loc, mesh.size, r, rl, n_t)
+    scratch = [torch.empty(words, dtype=torch.int32, device=u.device)
+               for u in used]
+    used_out = [torch.empty((n_loc, 4), dtype=torch.float32, device=u.device)
+                for u in used]
+    counts = [torch.empty((g, n_loc), dtype=torch.int16, device=u.device)
+              for u in used]
+    dev0 = used[0].device
+    info = torch.empty(6, dtype=torch.float32, device=dev0)
+    gathers = torch.empty((), dtype=torch.int32, device=dev0)
+    (ask_p, k_p, seeds_p), copies = _card_inputs(mesh, used, ask, k, seeds)
+    _ext.launch(
+        "joint_shard", mesh.distinct, _ext.entry("nt_joint_shard_solve"),
+        _ptrs(used), _ptrs(avail), _ptrs(feas), _ptrs(aff),
+        None if evict is None else _ptrs(evict),
+        None if net_prio is None else _ptrs(net_prio), _ptrs(used_out),
+        _ptrs(counts), _ptrs(scratch), ask_p, k_p, seeds_p, info.data_ptr(),
+        gathers.data_ptr(), mesh.barrier_words(dev0).data_ptr(),
+        mesh.card_of, mesh.card_ordinals, _joint_consts(), mesh.cards,
+        mesh.size, g, n_loc, r, rl, rg, n_t, rounds)
+    del copies, scratch  # held until the launch is queued
+    return used_out, counts, info, gathers
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ plus every solve since. Drift is repaired, not tolerated:
 On CUDA every launch runs on the service's own stream and records an
 event. Launches chain through the carry in stream order. The fetch waits
 on the launch's event and makes one ``.cpu()`` copy of the (G, N) int16
-counts, the launch's only host sync off a mesh. Double buffer: launch i
+counts, the launch's only host sync. Double buffer: launch i
 is fetched only after launch i+1 is queued, so i's workers commit while
 the device solves i+1.
 
@@ -41,11 +41,10 @@ masks and boosts over a power-of-two :class:`sharding.NodeMesh` of them
 :func:`sharding.solve_batch_sharded` ("tpu-solve"). With one card it
 resolves to no mesh. An explicit ``mesh`` overrides the resolution; its
 device list may repeat one device, S shards on one card. A sharded
-launch reads its round-loop flags on the host at dispatch (once, plus
-once per resumed chunk: ``sharding.READS``), so its dispatch returns
-only when its rounds have run on the device: launch i+1 has finished
-before launch i is fetched, and the double buffer overlaps nothing on a
-mesh. Its fetch puts the shards' counts together in the one copy back.
+launch is two host calls (the correction fold, then one cooperative
+launch a card that runs every round on the device) and reads nothing
+back at dispatch, so the double buffer overlaps on a mesh as off one.
+Its fetch puts the shards' counts together in the one copy back.
 """
 
 from __future__ import annotations
@@ -547,9 +546,7 @@ class BulkSolverService:
 
     def _dispatch_group(self, rs: List[_Request]) -> _Inflight:
         """Build the launch inputs, ship them and queue the solve,
-        returning the device handles: without a host sync off a mesh; on
-        a mesh after the sharded solve's flag reads, which wait for its
-        rounds."""
+        returning the device handles, without a host sync."""
         t0 = time.perf_counter()
         static = rs[0].static
         d = static.available.shape[1]
