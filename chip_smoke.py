@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero):
 1. device  -- require a CUDA card; print its name and power limit.
 2. build   -- compile the CUDA kernels from nomad_tpu_torch/csrc (one nvcc
               per source, in parallel) into build/nomad_tpu_torch/.
-3. B3      -- jitter kernel vs jitter_ref at G=16 x N_pad=16,384: bitwise.
+3. B3      -- jitter kernel vs jitter_ref at G=16 x N_pad=16,384: bitwise
+              (the kernel is on no path: B1 draws the same jitter in its
+              launch).
 4. B4      -- scatter kernel vs scatter_add_ref on (16,384, 4) with 1,024
               rows including duplicates and (0, 0) padding: exact. Timed
               beside index_add_ twice: host issue (cuda_time_ms, the
@@ -17,10 +19,12 @@ Phases (any failure raises and exits non-zero):
               while the host queues 100 calls). The wrapper must raise
               ValueError on a wrong dtype, shape or device and launch
               nothing, and launch nothing for no rows.
-5. B1      -- solve_bulk_multi (scatter + jitter + fill kernels) vs
-              solve_bulk_multi_ref at the C2M width (10,240 nodes padded to
-              16,384, G=16, k=4,000) with the hazard rows mixed in: counts
-              and carry exact.
+5. B1      -- solve_bulk_multi (one launch: the correction fold, the
+              jitter and the fill) vs solve_bulk_multi_ref at the C2M width
+              (10,240 nodes padded to 16,384, G=16, k=4,000) with the
+              hazard rows mixed in: counts and carry exact. Then at N_pad
+              32,768 (keys in shared memory) and 65,536 (in the global
+              scratch): exact, one launch a call, timed.
 6. B10     -- score_nodes_packed (B8 alone) vs its plain version at
               N_pad=8,192 with spread (explicit and even), distinct_hosts,
               distinct_property and penalty rows: NEG mask exact, scores
@@ -37,8 +41,8 @@ Phases (any failure raises and exits non-zero):
 8. path    -- the C2M bulk path: 10,240 nodes, 64 batch jobs x 4,000 allocs
               (cpu 50, mem 32) through Harness.process("tpu-binpack") from
               16 threads. Every alloc placed once, no node over capacity
-              (recomputed from the store), B1/B3/B4 launched, no plain
-              version on CUDA.
+              (recomputed from the store), B1 launched once a
+              solve_bulk_multi and B3/B4 never, no plain version on CUDA.
 9. spread  -- the per-eval path at cfg3 (bench.py cfg3_spread_50k): 5,120
               nodes, 100 service jobs x 500 allocs (cpu 100, mem 64) with
               spread on ${attr.rack} weight 50, through
@@ -64,8 +68,9 @@ Phases (any failure raises and exits non-zero):
               batch_member) through Harness.process("tpu-solve"). Every
               alloc placed once, no node over capacity, joint launches >= 1,
               joint score >= greedy score, B3'/B5/B6/B1 launched once per
-              joint launch, no plain version on CUDA. Each joint launch's
-              inputs are copied as it is dispatched.
+              joint launch (B4's fold before them where there are
+              corrections), B3 never, no plain version on CUDA. Each joint
+              launch's inputs are copied as it is dispatched.
     runs   -- those joint launches replayed at the path's shape (N_pad
               4,096, G 16): solve_batch, B3', B5 and the pick exact against
               their plain versions on each; B3', B5, the pick, B1 and the
@@ -182,19 +187,23 @@ Phases (any failure raises and exits non-zero):
 24. parity -- a pinned one-thread workload at 10,240 nodes (8 x 4,000
               tpu-binpack, 8 x 800 tpu-solve) on a service with no mesh and
               with 2, 4 and 8 shards: the same fingerprint at every S.
-25. B16    -- the sharded per-eval scan (nt_task_group_shard) at S 2, 4, 8
-              on the five cfg3 variants of B9 (5,120 nodes padded to 8,192,
-              K 512) and at the C2M width (10,240 build_nodes capacities
-              padded to 16,384, K 512, S 8): choices, founds and score bits
-              equal to single-device B9 (solve_task_group); against its
-              plain version (cfg3 at S 4, the others at S 2) choices and
-              founds exact, scores within 1e-6. Timed at cfg3, S 4, beside
-              B9 on the same inputs.
+25. B16    -- the sharded per-eval scan (nt_task_group_shard_solve: one
+              host call, one cooperative launch a card a solve, every step
+              inside it) at S 2, 4, 8 on the five cfg3 variants of B9 (5,120
+              nodes padded to 8,192, K 512) and at the C2M width (10,240
+              build_nodes capacities padded to 16,384, K 512, S 8):
+              choices, founds and score bits equal to single-device B9
+              (solve_task_group), one launch a card a solve and nothing
+              else; against its plain
+              version (cfg3 at S 4, the others at S 2) choices and founds
+              exact, scores within 1e-6. Timed at cfg3, S 4, beside B9 on
+              the same inputs.
 26. entry  -- the port's entry points on the card: graft_entry.entry()'s
               solve, then dryrun_multichip(2), (4) and (8) (B16 against a
               one-shard mesh, B13 against B1); prints each mesh's shards
-              and distinct cards. Gates: B16, B9, B13 and B1 launched, no
-              plain version on CUDA. Its B16 launches are the record's.
+              and distinct cards. Gates: B16, B9, B13 and B1 launched, B16
+              once a card a solve (6 solves), no plain version on CUDA.
+              Its B16 launches are the record's.
               After the counts are read, B16 at the dryruns' own shapes
               (32, 32, 64 nodes at S 2, 4, 8, K 8): against its plain version
               choices and founds exact, scores within 1e-6 (into the
@@ -206,18 +215,19 @@ collection can land in either.
 
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
 and 26 alone: with several visible cards, every mesh puts its
-shards on the cards in turn, so the gathers cross cards (B13's and
-B14's pushes and barriers through peer access).
+shards on the cards in turn, so the gathers cross cards (B13's, B14's
+and B16's pushes and barriers through peer access).
 ``python3 chip_smoke.py --shard-times`` runs the build and phases 22
 and 23's paths, replays their launches exact against the plain
 versions and times B13, B14, B1 and solve_batch on them, through
 wrappers that its parent has too: copied into another checkout, it
 times that one's B13 and B14 in the same call.
 ``python3 chip_smoke.py --kernel-times`` runs the build and times B9 at
-cfg3, B11 on its seven variants and B16 at cfg3, S 4 (each checked
-against its plain version, B16 against B9) through wrappers an older
-checkout has too: copied into another checkout, it times that one's
-kernels in the same call.
+cfg3, B11 on its seven variants, B16 at cfg3, S 4 beside B9 on the same
+inputs, and B1 (solve_bulk_multi) beside B13 at S 4 on phase 5's inputs
+(each checked against its plain version, B16 against B9, B13 against
+B1's counts) through wrappers an older checkout has too: copied into
+another checkout, it times that one's kernels in the same call.
 ``python3 chip_smoke.py --launch-split`` runs the build and only the
 split of a launch's host time: B4, B15 (S 4 on the card) and
 index_add_, and each piece of a launch alone (_ext.entry, a device
@@ -617,12 +627,26 @@ def b1_inputs(torch, dev, rng):
     return t
 
 
+def fill_bound(t, counts):
+    """Least time of one B1 launch on these inputs: the carry in and out,
+    capacity, the (G, N) mask and affinity rows and the slots in, the
+    (G, N) int16 counts out; and the 32-bit operations this data needs:
+    the slots' adds and the clamp of every row, then per eval every
+    feasible node's fit, score and cap (~60, two powf counted as 20 each)
+    and, where its cap is above 0, its threefry draw and key (~125), and
+    the fill's level over those keys (~10 a node)."""
+    n = t["used"].shape[0]
+    g, c = t["feas"].shape[0], t["cidx"].shape[0]
+    n_bytes = (n * 16 * 3 + g * n * (1 + 4 + 2) + g * 24 + c * 20)
+    feasible = int(t["feas"].sum())
+    live = int((counts > 0).sum())  # at least the nodes that took
+    return bound(n_bytes, c * 4 + n * 4 + feasible * 60 + live * 135)
+
+
 def phase_fill(torch, dev, card, rng):
-    from nomad_tpu_torch.tensor.kernels import (TIE_JITTER, bulk_fill,
-                                                bulk_fill_ref,
+    from nomad_tpu_torch.tensor.kernels import (bulk_fill, bulk_fill_ref,
                                                 solve_bulk_multi,
                                                 solve_bulk_multi_ref)
-    from nomad_tpu_torch.tensor.prng import jitter_ref
 
     t = b1_inputs(torch, dev, rng)
     args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"], t["tgc"],
@@ -637,26 +661,98 @@ def phase_fill(torch, dev, card, rng):
     err = max(float((got.int() - want.int()).abs().max()),
               float((got_used - want_used).abs().max()))
     placed = int(got.sum())
-    jit = jitter_ref(t["seeds"], N_PAD, TIE_JITTER)
-    fill_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"], jit)
+    fill_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
+                 t["seeds"], t["cidx"], t["cdelta"])
     ms = cuda_time_ms(torch, lambda u: bulk_fill(u, *fill_args),
                       setup=t["used"].clone, reps=10)
     plain = cuda_time_ms(torch, lambda u: bulk_fill_ref(u, *fill_args),
                          setup=t["used"].clone, reps=5, warmup=1)
-    # bytes: carry in and out, capacity, the (G, N) mask/affinity/jitter
-    # rows in, the (G, N) int16 counts out. ops: ~60 flops per node and
-    # eval for fit, score and cap (two powf counted as 20 each) plus an
-    # N log2 N comparison order per eval
-    n_bytes = (N_PAD * 16 * 3 + G * N_PAD * (1 + 4 + 4 + 2) + G * 20)
-    n_ops = G * (N_PAD * 60 + N_PAD * 14)
-    b_ms, b_by = bound(n_bytes, n_ops)
+    b_ms, b_by = fill_bound(t, got)
     print(f"B1 fill     [{card}] counts and carry exact ({placed} placed "
-          f"over {G} rows); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by})")
+          f"over {G} rows, the fold and the jitter in the launch); kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return {"name": "bulk_fill", "source": "nomad_tpu_torch/csrc/bulk_fill.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:666",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def wide_fill_inputs(torch, dev, rng, n_pad: int):
+    """b1_inputs' hazards at N_pad ``n_pad`` (5/8 of it real nodes, the
+    C2M ratio): duplicate correction rows past the clamp, an
+    all-infeasible row, k 0 rows, and an eval whose budget the best node
+    takes alone (k 1)."""
+    real = n_pad * 5 // 8
+    avail = np.zeros((n_pad, 4), np.float32)
+    avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
+    avail[:real, 1] = rng.choice([16384, 32768, 65536], real)
+    avail[:real, 2] = 102400
+    avail[:real, 3] = 12001
+    used = np.zeros((n_pad, 4), np.float32)
+    fill = rng.integers(0, 120, real).astype(np.float32)
+    used[:real, :3] = fill[:, None] * np.array([50, 32, 300], np.float32)
+    feas = np.zeros((G, n_pad), bool)
+    feas[:, :real] = rng.random((G, real)) < 0.95
+    feas[3] = False
+    aff = np.zeros((G, n_pad), np.float32)
+    aff[5, :real] = rng.choice([0.0, 0.5, -0.5, 1.0], real)
+    ask = np.tile(np.array([50, 32, 300, 0], np.float32), (G, 1))
+    ask[7] = [100, 0, 300, 0]
+    ask[9] = [4000, 8192, 300, 0]
+    k = np.full(G, K, np.int32)
+    k[11] = 0
+    k[13] = 1                                # the best node alone
+    seeds = rng.integers(0, 2 ** 32, G).astype(np.int64)
+    c = 64
+    cidx = np.zeros(c, np.int32)
+    cdelta = np.zeros((c, 4), np.float32)
+    rows = rng.integers(0, real, 40)
+    cidx[:40] = rows
+    cidx[40:48] = rows[0]
+    cdelta[:48, :3] = -used[cidx[:48], :3] - 1000.0
+    t = {name: torch.tensor(v, device=dev) for name, v in (
+        ("used", used), ("avail", avail), ("feas", feas), ("aff", aff),
+        ("ask", ask), ("k", k), ("seeds", seeds), ("cidx", cidx),
+        ("cdelta", cdelta))}
+    t["tgc"] = torch.ones(G, device=dev)
+    return t
+
+
+def phase_fill_wide(torch, dev, card, rng):
+    """B1 above the old 16,384-node ceiling: N_pad 32,768 (keys and caps
+    in shared memory) and 65,536 (in the global scratch), exact against
+    solve_bulk_multi_ref, each timed."""
+    from nomad_tpu_torch import _ext
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+
+    notes = []
+    for n_pad in (32768, 65536):
+        t = wide_fill_inputs(torch, dev, rng, n_pad)
+        args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
+                t["tgc"], t["seeds"], t["cidx"], t["cdelta"])
+        before = _ext.COUNTS.snapshot()["launches"]
+        got_used, got = solve_bulk_multi(t["used"].clone(), *args, g=G)
+        after = _ext.COUNTS.snapshot()["launches"]
+        want_used, want = solve_bulk_multi_ref(t["used"].clone(), *args,
+                                               g=G)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got_used, want_used)):
+            raise AssertionError(f"B1 at N_pad {n_pad}: differs from "
+                                 f"solve_bulk_multi_ref "
+                                 f"({int((got != want).sum())} count cells)")
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if launched != {"bulk_fill": 1}:
+            raise AssertionError(f"B1 at N_pad {n_pad}: launched {launched}")
+        ms = cuda_time_ms(torch, lambda u: solve_bulk_multi(u, *args, g=G),
+                          setup=t["used"].clone, reps=5)
+        b_ms, _ = fill_bound(t, got)
+        notes.append(f"N_pad {n_pad}: {int(got.sum())} placed (eval 13, "
+                     f"k 1: node {int(got[13].argmax())}), {ms:.4f} ms "
+                     f"(bound {b_ms:.6f})")
+    print(f"B1 wide     [{card}] counts and carry exact, one launch a call: "
+          + "; ".join(notes))
 
 
 def fold_bound(n_t: int, g: int, n: int):
@@ -840,8 +936,7 @@ def phase_solve(torch, dev, card, rng):
     fold and clamp, both arms, the pick). Times B5 on "main" and "wide"
     and the pick on "main"."""
     from nomad_tpu_torch.tensor import batch_solver as bs
-    from nomad_tpu_torch.tensor.kernels import TIE_JITTER, bulk_fill
-    from nomad_tpu_torch.tensor.prng import jitter
+    from nomad_tpu_torch.tensor.kernels import bulk_fill
 
     eps = bs._price_eps()
     notes = []
@@ -861,8 +956,7 @@ def phase_solve(torch, dev, card, rng):
                                      f"plain version")
         used_g = torch.clamp_min(t["used"], 0.0)
         counts_g = bulk_fill(used_g, t["avail"], t["feas"], t["aff"],
-                             t["ask"], t["k"],
-                             jitter(t["seeds"], N_PAD, TIE_JITTER))
+                             t["ask"], t["k"], t["seeds"])
         p_args = (t["avail"], *got, used_g, counts_g)
         p_got = bs.batch_pick(*p_args)
         p_want = bs.batch_pick_ref(*p_args)
@@ -948,9 +1042,13 @@ def phase_path(torch, card, device="cuda"):
 
     total = JOBS * K
     path_gates(h, jobs, total, "C2M path")
-    for name in ("jitter", "scatter_add", "bulk_fill"):
-        if counts["launches"][name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the path")
+    launched = counts["launches"]
+    if not 0 < launched["bulk_fill"] == stats["launches"]:
+        raise AssertionError(f"B1 launched {launched['bulk_fill']} times for "
+                             f"{stats['launches']} solve_bulk_multi calls")
+    if launched["jitter"] or launched["scatter_add"]:
+        raise AssertionError(f"B3 or B4 launched on the C2M path: "
+                             f"{launched}")
     if any(counts["plain_on_cuda"].values()):
         raise AssertionError(f"plain versions ran on CUDA: "
                              f"{counts['plain_on_cuda']}")
@@ -1038,6 +1136,9 @@ def phase_solve_path(torch, card, device="cuda"):
         if launched[name] != joint:
             raise AssertionError(f"{name} launched {launched[name]} times "
                                  f"for {joint} joint launches")
+    if launched["jitter"]:
+        raise AssertionError(f"B3 launched on the tpu-solve path (B1 draws "
+                             f"the jitter): {launched}")
     if len(captured) != joint:
         raise AssertionError(f"{len(captured)} joint launches copied, "
                              f"{joint} counted")
@@ -1065,10 +1166,8 @@ def phase_solve_launches(torch, card, wall, captured):
     timed on each. Returns the kernel records of B3', B5 and the pick:
     times and bounds are means over the path's launches."""
     from nomad_tpu_torch.tensor import batch_solver as bs
-    from nomad_tpu_torch.tensor.kernels import (TIE_JITTER, bulk_fill,
-                                                bulk_fill_ref)
-    from nomad_tpu_torch.tensor.prng import (jitter, jitter_fold,
-                                             jitter_fold_ref)
+    from nomad_tpu_torch.tensor.kernels import bulk_fill, bulk_fill_ref
+    from nomad_tpu_torch.tensor.prng import jitter_fold, jitter_fold_ref
     from nomad_tpu_torch.tensor.scatter import scatter_add_ref
 
     torch.cuda.synchronize()
@@ -1100,7 +1199,7 @@ def phase_solve_launches(torch, card, wall, captured):
             if not torch.equal(x, y):
                 raise AssertionError(f"path launch {i}: B5 {name} differs "
                                      f"from the plain version")
-        fill_args = (avail, feas, aff, ask, k, jitter(seeds, n, TIE_JITTER))
+        fill_args = (avail, feas, aff, ask, k, seeds)
         used_g = folded.clone()
         counts_g = bulk_fill(used_g, *fill_args)
         p_args = (avail, *got, used_g, counts_g)
@@ -3562,10 +3661,26 @@ def same_bits(torch, got, want) -> bool:
                             want[2].view(torch.int32)))
 
 
+def b16_solve(sh, mesh, args):
+    """One B16 solve, gated: one host call, one launch a card of the
+    mesh and no other launch."""
+    from nomad_tpu_torch import _ext
+
+    before = _ext.COUNTS.snapshot()["launches"]
+    out = sh.solve_task_group_sharded(mesh, args)
+    after = _ext.COUNTS.snapshot()["launches"]
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    if launched != {"task_group_shard": mesh.cards}:
+        raise AssertionError(f"B16 on {mesh}: launched {launched}, not one "
+                             f"launch a card")
+    return out
+
+
 def phase_task_group_shard(torch, dev, card, rng):
     """B16 against single-device B9 (bit for bit) at S = 2, 4, 8 on the
-    five cfg3 variants and at the C2M width, and against its plain
-    version; timed at cfg3, S 4, beside B9."""
+    five cfg3 variants and at the C2M width, one launch a card a solve,
+    and against its plain version; timed at cfg3, S 4, beside B9."""
     from nomad_tpu_torch.tensor import sharding as sh
     from nomad_tpu_torch.tensor.kernels import (pack_solve_tensors,
                                                 solve_task_group)
@@ -3576,7 +3691,7 @@ def phase_task_group_shard(torch, dev, card, rng):
                      for a in cfg3_args(rng, variant))
         want = solve_task_group(*args)
         for s_n in SHARDS:
-            got = sh.solve_task_group_sharded(mesh_of(s_n), args)
+            got = b16_solve(sh, mesh_of(s_n), args)
             if not same_bits(torch, got, want):
                 diff = int((got[0] != want[0]).sum())
                 raise AssertionError(f"B16 {variant} S={s_n}: differs from "
@@ -3592,7 +3707,7 @@ def phase_task_group_shard(torch, dev, card, rng):
         end.synchronize()
         if variant == "cfg3":
             main, plain_ms = args, start.elapsed_time(end)
-        got = sh.solve_task_group_sharded(mesh, args)
+        got = b16_solve(sh, mesh, args)
         if not (torch.equal(got[0], plain[0])
                 and torch.equal(got[1], plain[1])):
             raise AssertionError(f"B16 {variant} S={s_plain}: choices or "
@@ -3601,8 +3716,7 @@ def phase_task_group_shard(torch, dev, card, rng):
         notes.append(f"{variant} {int(want[1].sum())}/{CFG3_K}")
     args = tuple(torch.as_tensor(a).to(dev) for a in c2m_task_group_args(rng))
     want = solve_task_group(*args)
-    if not same_bits(torch, sh.solve_task_group_sharded(mesh_of(8), args),
-                     want):
+    if not same_bits(torch, b16_solve(sh, mesh_of(8), args), want):
         raise AssertionError("B16 at the C2M width, S 8: differs from B9")
     mesh = mesh_of(PATH_SHARDS)
     ms = cuda_time_ms(torch, lambda _: sh.solve_task_group_sharded(mesh,
@@ -3614,13 +3728,14 @@ def phase_task_group_shard(torch, dev, card, rng):
                                                node_col=main[25]))
     print(f"B16 shard   [{card}] bit-equal to B9 at S {SHARDS} on "
           f"{len(B16_VARIANTS)} cfg3 variants (found "
-          f"{', '.join(notes)}) and at the C2M width ({N_PAD} nodes, S 8, "
-          f"{int(want[1].sum())}/512 found); against the plain version "
+          f"{', '.join(notes)}) and at the "
+          f"C2M width ({N_PAD} nodes, S 8, {int(want[1].sum())}/512 "
+          f"found), one launch a card a solve; against the plain version "
           f"choices and founds exact, scores within {SCORE_TOL} (max "
           f"{err:.3g}); at cfg3, S {PATH_SHARDS}: kernel {ms:.4f} ms a "
-          f"solve ({(main[8].shape[0] + 1) * PATH_SHARDS} launches), B9 "
-          f"{b9_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by})")
+          f"solve ({mesh.cards} launch(es)), B9 {b9_ms:.4f} ms "
+          f"({ms / b9_ms:.2f}x), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})")
     return {"name": "solve_task_group_sharded", "source":
             "nomad_tpu_torch/csrc/task_group_shard.cu",
             "replaces": "nomad_tpu/tensor/sharding.py:107",
@@ -3650,8 +3765,10 @@ def phase_entry(torch, card):
             or not choices.is_cuda or not bool(founds.all())):
         raise AssertionError(f"entry: {choices}, {founds}, {scores}")
     notes = [f"entry {wall:.3f} s, {int(founds.sum())}/{k} found"]
+    b16_calls = 0  # each dryrun solves on its mesh and on one shard
     for s_n in SHARDS:
         mesh = mesh_of(s_n)
+        b16_calls += mesh.cards + 1
         t0 = time.perf_counter()
         dryrun_multichip(s_n)
         torch.cuda.synchronize()
@@ -3666,6 +3783,10 @@ def phase_entry(torch, card):
     if any(counts["plain_on_cuda"].values()):
         raise AssertionError(f"plain versions ran on CUDA: "
                              f"{counts['plain_on_cuda']}")
+    if counts["launches"]["task_group_shard"] != b16_calls:
+        raise AssertionError(f"entry: B16 launched "
+                             f"{counts['launches']['task_group_shard']} "
+                             f"times, one a card a solve is {b16_calls}")
     # B16 at the path's own shapes (32, 32 and 64 nodes at S 2, 4, 8, K 8:
     # most of a CTA's warps idle), after the snapshot: against its plain version
     # and bit for bit against B9
@@ -3744,10 +3865,12 @@ def shard_times(torch, card) -> int:
 
 def kernel_times(torch, dev, card, rng) -> int:
     """``--kernel-times``: B9 at cfg3, B11 on its seven variants at N_pad
-    16,384 and B16 at cfg3, S 4, each exact against its plain version
-    (B16 bit-equal to B9) and timed, through wrappers that this tree and
-    its parent (c85f06f) both have, so this script copied into another
-    checkout times that checkout's kernels. Prints one JSON line of ms."""
+    16,384, B16 at cfg3, S 4 beside B9 on the same inputs, and B1
+    (solve_bulk_multi) beside B13 at S 4 on phase 5's inputs, each exact
+    against its plain version (B16 bit-equal to B9, B13 to B1's counts)
+    and timed, through wrappers that this tree and its parent (9b1f71f)
+    both have, so this script copied into another checkout times that
+    checkout's kernels. Prints one JSON line of ms."""
     from nomad_tpu_torch.tensor import kernels
     from nomad_tpu_torch.tensor import sharding as sh
 
@@ -3781,6 +3904,30 @@ def kernel_times(torch, dev, card, rng) -> int:
     times["b16_cfg3_s4"] = cuda_time_ms(
         torch, lambda _: sh.solve_task_group_sharded(mesh, args), reps=5,
         warmup=1)
+    times["b9_cfg3_args"] = cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group(*args), reps=5, warmup=1)
+    # B1 (one solve_bulk_multi: the fold, the jitter and the fill) and B13
+    # at S 4 on one card, on phase 5's C2M-width inputs
+    t = b1_inputs(torch, dev, rng)
+    rest = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"], t["tgc"],
+            t["seeds"], t["cidx"], t["cdelta"])
+    got = kernels.solve_bulk_multi(t["used"].clone(), *rest, g=G)
+    want = kernels.solve_bulk_multi_ref(t["used"].clone(), *rest, g=G)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("B1: differs from the plain version")
+    times["b1_c2m"] = cuda_time_ms(
+        torch, lambda u: kernels.solve_bulk_multi(u, *rest, g=G),
+        setup=t["used"].clone, reps=10)
+    parts, _ = shard_args(mesh, t)
+    tail = (t["ask"], t["k"], t["seeds"], t["cidx"], t["cdelta"])
+    got13 = sh.solve_bulk_multi_sharded(mesh, *clone_parts(parts), *tail,
+                                        g=G)
+    if not torch.equal(sh.gather_rows(got13[1], dim=1), want[1]):
+        raise AssertionError("B13: differs from B1's plain version")
+    times["b13_c2m_s4"] = cuda_time_ms(
+        torch, lambda p: sh.solve_bulk_multi_sharded(mesh, *p, *tail, g=G),
+        setup=lambda: clone_parts(parts), reps=10)
     print(f"kernel times [{card}] " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in times.items()))
@@ -3834,6 +3981,7 @@ def main() -> int:
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
+    phase_fill_wide(torch, dev, card, rng)
     per_eval = [phase_score_once(torch, dev, card, rng),
                 phase_scan(torch, dev, card, rng)]
     phase_jitter_fold(torch, dev, card, rng)
@@ -3848,6 +3996,9 @@ def main() -> int:
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
         k["launches"] = launches[k["name"]]
+    # B4 is off the C2M path (B1 folds the corrections): its launches are
+    # solve_batch's folds on the tpu-solve path
+    bulk[1]["launches"] += launches["scatter_add"]
     pick = phase_preempt_kernels(torch, dev, card, rng)
     launches, captured, cfg4 = phase_cfg4(torch, card)
     preempt = [phase_cfg4_replay(torch, card, captured), pick]

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "nt_jitter_fold": ("jitter", [_P, ctypes.POINTER(_F), _I, _P, _I, _I,
                                   _I, _P]),
     "nt_scatter_add": ("scatter", [_P, _P, _P, _I, _I, _I, _P]),
-    "nt_bulk_fill": ("bulk_fill", [_P] * 8 + [_I, _I, _P]),
+    "nt_bulk_fill": ("bulk_fill", [_P] * 11 + [_I] * 4 + [_F, _P]),
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
     "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 8 + [_P]),
     "nt_auction": ("batch_solve", [_P] * 14 + [_I] * 4 + [_P]),
@@ -63,15 +63,18 @@ _SIGNATURES = {
     "nt_bulk_shard_solve": ("sharded", [_P] * 13 + [_I] * 5 + [_F, _P]),
     "nt_joint_shard_solve": ("sharded", [_P] * 18 + [_I] * 9 + [_P]),
     "nt_mesh_barrier_probe": ("sharded", [_P] * 2 + [_I] * 4 + [_P]),
-    "nt_task_group_shard": ("task_group_shard", [_P] * 12 + [_I] * 10 + [_P]),
+    "nt_task_group_shard_solve": ("task_group_shard",
+                                  [_P] * 13 + [_I] * 10 + [_P]),
 }
 # C size query -> (library, argtypes): the f32 words of a kernel's
 # scratch at the sizes given, as a long long (no launch, no card)
 _QUERIES = {
+    "nt_bulk_fill_scratch_words": ("bulk_fill", [_I]),
     "nt_solve_task_group_scratch_words": ("task_group", [_I] * 6),
     "nt_bulk_scan_scratch_words": ("bulk_scan", [_I] * 4),
     "nt_bulk_shard_solve_scratch_words": ("sharded", [_I] * 4),
     "nt_joint_shard_solve_scratch_words": ("sharded", [_I] * 6),
+    "nt_task_group_shard_solve_scratch_words": ("task_group_shard", [_I] * 7),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in _SIGNATURES.values()}))
 

@@ -1,5 +1,6 @@
 // The node mesh's device-side barrier, shared by sharded.cu (B13, B14 and
-// the barrier probe) and meant for B16's loop too.
+// the barrier probe) and task_group_shard.cu (B16), and the host's peer
+// access set-up of a mesh that spans cards.
 //
 // A group barrier over P participant CTAs, which may lie on several cards.
 // Its two words (an arrival count, then a generation) live in device
@@ -39,6 +40,8 @@ namespace nt_mesh {
 constexpr long long kBarrierTimeoutNs = 4000000000LL;
 // the words of one group, a 128-byte line of their own
 constexpr int kGroupWords = 32;
+// card ordinals a mesh may name
+constexpr int kMaxCards = 64;
 
 __device__ __forceinline__ long long global_ns() {
   long long t;
@@ -92,6 +95,33 @@ __device__ __forceinline__ void group_sync(unsigned* words, int participants,
     }
   }
   __syncthreads();
+}
+
+// peer access from every card of the mesh to every other (host side),
+// enabled once per ordered pair; a pair without peer access refuses the
+// launch
+inline cudaError_t enable_peers(const int* ordinals, int cards) {
+  static unsigned char done[kMaxCards][kMaxCards];
+  for (int i = 0; i < cards; ++i) {
+    for (int j = 0; j < cards; ++j) {
+      const int a = ordinals[i], b = ordinals[j];
+      if (a == b || done[a][b]) continue;
+      cudaError_t err = cudaSetDevice(a);
+      if (err != cudaSuccess) return err;
+      int ok = 0;
+      err = cudaDeviceCanAccessPeer(&ok, a, b);
+      if (err != cudaSuccess) return err;
+      if (!ok) return cudaErrorPeerAccessUnsupported;
+      err = cudaDeviceEnablePeerAccess(b, 0);
+      if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // torch's copies may have enabled it
+      } else if (err != cudaSuccess) {
+        return err;
+      }
+      done[a][b] = 1;
+    }
+  }
+  return cudaSuccess;
 }
 
 // a load of data another CTA (or card) wrote before a barrier

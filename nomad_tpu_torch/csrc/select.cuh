@@ -1,6 +1,5 @@
 // The cap-weighted prefix of an order, found without sorting it: the
-// selection of B11 (bulk_scan.cu), written for the other greedy fills
-// (B1's bulk_fill.cu, B13's sharded.cu) to take up.
+// selection of B11 (bulk_scan.cu) and B1 (bulk_fill.cu).
 //
 // The fill: positions in (key asc, position asc) order, key a 32-bit
 // order key (sort.cuh's desc_key of a score: ascending key is descending
@@ -26,9 +25,12 @@
 // positions ends here).
 //
 // The block: every thread owns `chunk` consecutive positions (thread t's
-// come after thread t - 1's), their keys and caps in shared memory, and a
-// Summary of them in registers; a reduction reads a thread's positions
-// only where the level or the midpoint falls inside its key range.
+// come after thread t - 1's), their keys and caps in shared (or global)
+// memory, and a Summary of them in registers; a reduction reads a thread's
+// positions only where the level or the midpoint falls inside its key
+// range. Where the positions lie is the caller's: the functions take any
+// layout with Positions' members (key, cap, count(), slot(q), and kMaxQ,
+// the most positions a thread holds).
 
 #pragma once
 
@@ -53,6 +55,7 @@ struct Threshold {
 // q x blockDim + t of key and cap, in shared memory, so a warp's reads are
 // conflict-free.
 struct Positions {
+  static constexpr int kMaxQ = 16;  // positions a thread holds at most
   uint32_t* key;  // desc_key of the score
   uint16_t* cap;  // the cap, uncapped by the budget
   int chunk, n;
@@ -72,18 +75,17 @@ struct Summary {
   int lo_q;
 };
 
-constexpr int kMaxChunk = 16;  // positions a thread holds at most
-
 // A position's weight: its cap clipped to the budget
 __device__ __forceinline__ uint32_t weight(uint32_t cap, uint32_t budget) {
   return cap < budget ? cap : budget;
 }
 
-__device__ inline Summary summarize(const Positions& ps, uint32_t budget) {
+template <class Ps>
+__device__ inline Summary summarize(const Ps& ps, uint32_t budget) {
   Summary sm{0xffffffffu, 0u, 0u, 0u, 0u, 0};
   const int m = ps.count();
 #pragma unroll
-  for (int q = 0; q < kMaxChunk; ++q) {
+  for (int q = 0; q < Ps::kMaxQ; ++q) {
     if (q < m) {
       const uint32_t cap = ps.cap[ps.slot(q)];
       const uint32_t key = ps.key[ps.slot(q)];
@@ -176,14 +178,15 @@ __device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* red,
 }
 
 // This thread's lowest level above `level`
-__device__ inline Level level_above(const Positions& ps, const Summary& sm,
+template <class Ps>
+__device__ inline Level level_above(const Ps& ps, const Summary& sm,
                                     uint32_t level, uint32_t budget) {
   if (!sm.weight || sm.hi <= level) return {0xffffffffu, 0u, 0u};
   if (sm.lo > level) return {sm.lo, sm.lo_weight, sm.lo_count};
   Level x{0xffffffffu, 0u, 0u};
   const int m = ps.count();
 #pragma unroll
-  for (int q = 0; q < kMaxChunk; ++q) {
+  for (int q = 0; q < Ps::kMaxQ; ++q) {
     if (q < m) {
       const uint32_t cap = ps.cap[ps.slot(q)];
       const uint32_t key = ps.key[ps.slot(q)];
@@ -196,7 +199,8 @@ __device__ inline Level level_above(const Positions& ps, const Summary& sm,
 // The level T of the fill of `budget` (> 0) over the block's positions,
 // sm each thread's Summary at this budget. The sum of all weights must fit
 // in 32 bits.
-__device__ inline Threshold threshold_select(const Positions& ps,
+template <class Ps>
+__device__ inline Threshold threshold_select(const Ps& ps,
                                              const Summary& sm,
                                              uint32_t budget, uint32_t* red,
                                              int& parity) {
@@ -230,7 +234,7 @@ __device__ inline Threshold threshold_select(const Positions& ps,
       below = sm.weight;
     } else if (sm.weight && sm.lo <= mid) {
 #pragma unroll
-      for (int q = 0; q < kMaxChunk; ++q) {
+      for (int q = 0; q < Ps::kMaxQ; ++q) {
         if (q < m && ps.key[ps.slot(q)] <= mid) {
           below += weight(ps.cap[ps.slot(q)], budget);
         }
@@ -249,11 +253,112 @@ __device__ inline Threshold threshold_select(const Positions& ps,
   return th;
 }
 
+// threshold_select's level found by digits (B1's form), for orders whose
+// fill reaches deep: where the best level does not cover the budget, T lies
+// in (that level, the worst key], whose keys share their bits above the
+// highest bit where those two differ. A most-significant-digit-first radix
+// search then fixes T 8 bits a pass: a histogram of the weights of the
+// positions whose key holds the prefix found so far, by their next 8 bits
+// (shared-memory atomics; integer sums, exact in any order), and one warp's
+// scan of it for the first digit at which the weight reaches the budget.
+// Three or four passes of two __syncthreads each, where the bisection takes
+// one block sum a bit. hist: kRadixWords words, the first 512 (a weight
+// and a count a digit) zero on entry and on return (the scanning warp
+// clears what it read); the last pass also counts the positions at each
+// digit, for `single`.
+constexpr int kRadixWords = 2 * 256 + 4;
+
+template <class Ps>
+__device__ inline Threshold threshold_radix(const Ps& ps, const Summary& sm,
+                                            uint32_t budget, uint32_t* hist,
+                                            uint32_t* red, int& parity) {
+  uint32_t mx = sm.hi, tot = sm.weight;
+  const Level at = block_level({sm.lo, sm.lo_weight, sm.lo_count}, mx, tot,
+                               red, parity);
+  Threshold th{0u, 0u, tot, tot <= budget, false};
+  if (th.all) return th;
+  if (at.weight >= budget) {
+    th.level = at.key;
+    th.single = at.count == 1u;
+    return th;
+  }
+  uint32_t* cnt = hist + 256;
+  uint32_t* out = hist + 512;  // the digit, the weight below it, single
+  int shift = 32 - __clz(at.key ^ mx);  // the bits below the common prefix
+  uint32_t prefix = (uint32_t)((uint64_t)mx >> shift);
+  uint32_t above = 0u;  // the weight of the keys below the prefix's range
+  const int m = ps.count();
+  while (shift > 0) {
+    const int bits = shift < 8 ? shift : 8;
+    shift -= bits;
+    const bool last = shift == 0;
+    const uint32_t lo = (uint32_t)((uint64_t)prefix << (shift + bits));
+    const uint32_t hi = lo | (uint32_t)(((uint64_t)1 << (shift + bits)) - 1);
+    if (sm.weight && sm.lo <= hi && sm.hi >= lo) {
+#pragma unroll
+      for (int q = 0; q < Ps::kMaxQ; ++q) {
+        if (q < m) {
+          const uint32_t cap = ps.cap[ps.slot(q)];
+          const uint32_t key = ps.key[ps.slot(q)];
+          if (cap && key >= lo && key <= hi) {
+            const uint32_t dgt = (key >> shift) & ((1u << bits) - 1u);
+            atomicAdd(&hist[dgt], weight(cap, budget));
+            if (last) atomicAdd(&cnt[dgt], 1u);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      // lane l scans digits 8l .. 8l + 7
+      const int lane = threadIdx.x;
+      uint32_t w8[8];
+      uint32_t sum = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        w8[j] = hist[8 * lane + j];
+        hist[8 * lane + j] = 0u;
+        sum += w8[j];
+      }
+      uint32_t incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint32_t y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      const uint32_t before = above + incl - sum;  // below lane's digits
+      const bool reach = before + sum >= budget;
+      const unsigned first = __ballot_sync(0xffffffffu, reach);
+      if (lane == __ffs(first) - 1) {
+        uint32_t b = before;
+        int j = 0;
+        while (b + w8[j] < budget) b += w8[j++];
+        out[0] = (uint32_t)(8 * lane + j);
+        out[1] = b;
+        if (last) out[2] = cnt[8 * lane + j] == 1u ? 1u : 0u;
+      }
+      if (last) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cnt[8 * lane + j] = 0u;
+      }
+    }
+    __syncthreads();
+    // (the next pass writes `out` after its own first barrier)
+    prefix = (prefix << bits) | out[0];
+    above = out[1];
+    if (last) th.single = out[2] != 0u;
+  }
+  th.level = prefix;
+  th.above = above;
+  return th;
+}
+
 // The weight before this thread's first position at the level: the
 // level's weight in earlier threads, after `above` (one block scan unless
 // a single position holds the level; warp_tot is block_exclusive_scan's
 // words, one a warp). Every thread calls it.
-__device__ inline long long threshold_base(const Positions& ps,
+template <class Ps>
+__device__ inline long long threshold_base(const Ps& ps,
                                            const Summary& sm,
                                            const Threshold& th,
                                            uint32_t budget, int* warp_tot) {
@@ -262,7 +367,7 @@ __device__ inline long long threshold_base(const Positions& ps,
   if (sm.weight && sm.lo <= th.level && th.level <= sm.hi) {
     const int m = ps.count();
 #pragma unroll
-    for (int q = 0; q < kMaxChunk; ++q) {
+    for (int q = 0; q < Ps::kMaxQ; ++q) {
       if (q < m && ps.key[ps.slot(q)] == th.level) {
         local += (int)weight(ps.cap[ps.slot(q)], budget);
       }

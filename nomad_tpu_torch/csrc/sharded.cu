@@ -1169,32 +1169,6 @@ __global__ void scatter_clamp_shard_kernel(float* __restrict__ used,
 // host side of the mesh launches
 // ---------------------------------------------------------------------------
 
-// peer access from every card of the mesh to every other, enabled once per
-// ordered pair; a pair without peer access refuses the launch
-cudaError_t enable_peers(const int* ordinals, int cards) {
-  static unsigned char done[kMaxCards][kMaxCards];
-  for (int i = 0; i < cards; ++i) {
-    for (int j = 0; j < cards; ++j) {
-      const int a = ordinals[i], b = ordinals[j];
-      if (a == b || done[a][b]) continue;
-      cudaError_t err = cudaSetDevice(a);
-      if (err != cudaSuccess) return err;
-      int ok = 0;
-      err = cudaDeviceCanAccessPeer(&ok, a, b);
-      if (err != cudaSuccess) return err;
-      if (!ok) return cudaErrorPeerAccessUnsupported;
-      err = cudaDeviceEnablePeerAccess(b, 0);
-      if (err == cudaErrorPeerAccessAlreadyEnabled) {
-        cudaGetLastError();  // torch's copies may have enabled it
-      } else if (err != cudaSuccess) {
-        return err;
-      }
-      done[a][b] = 1;
-    }
-  }
-  return cudaSuccess;
-}
-
 // One cooperative launch of ``kernel`` on each card: grid arms x (the
 // card's CTAs of one group), each CTA per_cta of the card's shards, per_cta
 // the least that lets every card hold its grid at once. ``args`` holds the
@@ -1225,7 +1199,7 @@ cudaError_t launch_mesh(Kernel kernel, ShardArgs& args, int arms,
   int caller = 0;
   cudaError_t err = cudaGetDevice(&caller);
   if (err != cudaSuccess) return err;
-  if (cards > 1) err = enable_peers(ordinals, cards);
+  if (cards > 1) err = nt_mesh::enable_peers(ordinals, cards);
   long long capacity[kMaxCards];
   for (int c = 0; c < cards && err == cudaSuccess; ++c) {
     err = cudaSetDevice(ordinals[c]);

@@ -7,7 +7,8 @@ assignment problem, in one call with the signature of
 
 - fold the queued usage corrections into the carry (B4) and clamp it at
   0; both arms start from that state;
-- the greedy arm: the exact "tpu-binpack" chain (B3 jitter, B1 fill);
+- the greedy arm: the exact "tpu-binpack" chain (B1, which draws B3's
+  jitter in its launch);
 - the auction arm (B5): one auction per ``PORTFOLIO`` entry, each with
   its own ``fold_in(PRNGKey(seed), t)`` jitter (B3') scaled by the
   entry's jitter scale and its own price temperature. Per round every
@@ -44,7 +45,7 @@ from .. import _ext
 from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda,
                       bulk_fill, bulk_fill_ref, fit_scores, fit_scores_np,
                       pairwise_sum_ref, preempt_score_ref)
-from .prng import jitter, jitter_fold, jitter_fold_ref, jitter_ref
+from .prng import jitter_fold, jitter_fold_ref
 from .scatter import scatter_add, scatter_add_ref
 
 MAX_ROUNDS = 64      # auction rounds per restart
@@ -292,8 +293,7 @@ def solve_batch_ref(used, available, feas, aff, ask, k, tg_count, seeds,
     scatter_add_ref(used, cidx, cdelta)
     n = used.shape[0]
     used_g = used.clone()
-    counts_g = bulk_fill_ref(used_g, available, feas, aff, ask, k,
-                             jitter_ref(seeds, n, TIE_JITTER))
+    counts_g = bulk_fill_ref(used_g, available, feas, aff, ask, k, seeds)
     jits = jitter_fold_ref(seeds, n, _jitter_his())
     used_t, take_t, rounds_t = auction_restarts_ref(
         used, available, feas, aff, ask, k, jits, price_eps=_price_eps(),
@@ -434,10 +434,10 @@ def solve_batch(used, available, feas, aff, ask, k, tg_count, seeds, cidx,
                          f"{feas.shape[0]}/{ask.shape[0]} rows")
     scatter_add(used, cidx, cdelta)
     n = used.shape[0]
-    # each arm updates its own copy; both clamp the folded carry at 0
+    # each arm updates its own copy of the folded carry and clamps it at
+    # 0; the greedy arm is B1 with no correction slots (the fold is done)
     used_g = used.clone()
-    counts_g = bulk_fill(used_g, available, feas, aff, ask, k,
-                         jitter(seeds, n, TIE_JITTER))
+    counts_g = bulk_fill(used_g, available, feas, aff, ask, k, seeds)
     jits = jitter_fold(seeds, n, _jitter_his())
     used_t, take_t, rounds_t = auction(
         used, available, feas, aff, ask, k, jits, price_eps=_price_eps(),

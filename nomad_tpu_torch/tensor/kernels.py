@@ -3,11 +3,12 @@
 
 Bulk (the C2M path, ``:27-90`` and ``:666-763``): ``solve_bulk_multi``
 chains G fresh-placement evals over one usage carry in one call: it
-folds the queued usage corrections into the carry (B4,
-``tensor/scatter.py``), draws the per-(eval, node) tie-break jitter
-(B3, ``tensor/prng.py``), and runs the greedy BestFit fill (B1, with
-the fit formula B2 inside). torch has no buffer donation: the carry
-passed in is updated in place and returned.
+folds the queued usage corrections into the carry (B4's adds), draws
+the per-(eval, node) tie-break jitter (B3's draw) and runs the greedy
+BestFit fill (B1, with the fit formula B2 inside), all three in one
+launch of ``csrc/bulk_fill.cu``, which finds each eval's cap-weighted
+prefix without sorting (csrc/select.cuh). torch has no buffer
+donation: the carry passed in is updated in place and returned.
 
 Per eval (the general path, ``:91-473`` and ``:630-663``):
 ``solve_task_group_fused`` places K requests of one task group in one
@@ -49,15 +50,18 @@ import torch
 
 from .. import _ext
 from ..device import resolve
-from .prng import (MAX_FILL_NODES, jitter, jitter_ref, permutation,
+from .prng import (MAX_FILL_NODES, _span, jitter_ref, permutation,
                    permutation_ref)
-from .scatter import scatter_add, scatter_add_ref
+from .scatter import scatter_add_ref
 
 NEG = -1.0e30  # "infeasible" score sentinel
 # additive tie-break jitter of the bulk sort key: far below any meaningful
 # score gap, far above the f32 ulp at the top of the score range
 TIE_JITTER = 3.0e-5
 BINPACK_MAX_FIT_SCORE = 18.0  # reference scheduler/rank.go:18
+# B1's node ceiling: one CTA holds the fill's keys and caps, in shared
+# memory up to 32,768 nodes and in a global scratch above
+MAX_BULK_FILL_NODES = 65536
 
 
 def _free_fractions(available: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
@@ -127,11 +131,10 @@ def fill_score_cap(used, available, feas_g, aff_g, ask_g, budget):
     return score, torch.minimum(cap, budget.to(torch.float32))
 
 
-def bulk_fill_ref(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
-    """Plain version of the fill kernel (B1 after the fold and the
-    jitter draw): clamps the carry at 0, then fills G evals in order,
-    updating ``used`` in place. Returns (G, N) int16 counts."""
-    _ext.COUNTS.plain("bulk_fill", used)
+def _fill_ref(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
+    """The fill of B1 after the fold and the jitter draw: clamps the
+    carry at 0, then fills G evals in order, updating ``used`` in place.
+    Returns (G, N) int16 counts."""
     g, n = feas.shape
     used.clamp_min_(0.0)
     counts = torch.zeros((g, n), dtype=torch.int16, device=used.device)
@@ -154,6 +157,20 @@ def bulk_fill_ref(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
     return counts
 
 
+def bulk_fill_ref(used, available, feas, aff, ask, k, seeds, cidx=None,
+                  cdelta=None) -> torch.Tensor:
+    """Plain version of the fill kernel (B1): the correction slots
+    ``cidx`` / ``cdelta`` (where given) added into the carry (B4's
+    ``scatter_add_ref``), the jitter of ``seeds`` drawn (B3's
+    ``jitter_ref``), then the fill, updating ``used`` in place. Returns
+    (G, N) int16 counts."""
+    _ext.COUNTS.plain("bulk_fill", used)
+    if cidx is not None:
+        scatter_add_ref(used, cidx, cdelta)
+    jit = jitter_ref(seeds, used.shape[0], TIE_JITTER)
+    return _fill_ref(used, available, feas, aff, ask, k, jit)
+
+
 def _check_cuda(what: str, name: str, t: torch.Tensor, dtype, shape,
                 device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` ``shape`` tensor on
@@ -165,38 +182,55 @@ def _check_cuda(what: str, name: str, t: torch.Tensor, dtype, shape,
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def bulk_fill(used, available, feas, aff, ask, k, jit) -> torch.Tensor:
-    """The fill step of B1: the CUDA kernel (csrc/bulk_fill.cu) for a
-    CUDA tensor, :func:`bulk_fill_ref` for a CPU tensor. ``k`` values
-    must not exceed 32767 (the int16 counts)."""
-    if used.device.type == "cpu":
-        return bulk_fill_ref(used, available, feas, aff, ask, k, jit)
+def bulk_fill(used, available, feas, aff, ask, k, seeds, cidx=None,
+              cdelta=None) -> torch.Tensor:
+    """B1 in one launch: the CUDA kernel (csrc/bulk_fill.cu: the fold of
+    the correction slots ``cidx`` / ``cdelta`` where given, the jitter of
+    ``seeds`` drawn in the kernel, the fill) for a CUDA tensor,
+    :func:`bulk_fill_ref` for a CPU tensor. ``k`` values must not exceed
+    32767 (the int16 counts); ``seeds`` (G,) int64."""
     if not used.is_cuda:
+        if used.device.type == "cpu":
+            return bulk_fill_ref(used, available, feas, aff, ask, k, seeds,
+                                 cidx, cdelta)
         raise ValueError(f"bulk_fill: unsupported device {used.device}")
-    n, d = used.shape
+    n = used.shape[0]
     g = feas.shape[0]
-    if n & (n - 1) or not 8 <= n <= MAX_FILL_NODES:
+    if not 1 <= n <= MAX_BULK_FILL_NODES:
         raise NotImplementedError(
-            f"bulk_fill: {n} padded nodes; the one-CTA fill sorts a power "
-            f"of two up to {MAX_FILL_NODES} in shared memory (ROADMAP "
-            f"'make B1 fast': multi-CTA selection)")
+            f"bulk_fill: {n} padded nodes; the one-CTA fill holds 1 to "
+            f"{MAX_BULK_FILL_NODES} (ROADMAP A11b: the node ceilings)")
     dev = used.device
-    for name, t, dtype, shape in (
-            ("used", used, torch.float32, (n, 4)),
-            ("available", available, torch.float32, (n, 4)),
-            ("feas", feas, torch.bool, (g, n)),
-            ("aff", aff, torch.float32, (g, n)),
-            ("ask", ask, torch.float32, (g, 4)),
-            ("k", k, torch.int32, (g,)),
-            ("jit", jit, torch.float32, (g, n))):
+    c = 0 if cidx is None else cidx.shape[0]
+    checks = [("used", used, torch.float32, (n, 4)),
+              ("available", available, torch.float32, (n, 4)),
+              ("feas", feas, torch.bool, (g, n)),
+              ("aff", aff, torch.float32, (g, n)),
+              ("ask", ask, torch.float32, (g, 4)),
+              ("k", k, torch.int32, (g,)),
+              ("seeds", seeds, torch.int64, (g,))]
+    if cidx is not None:
+        checks += [("cidx", cidx, torch.int32, (c,)),
+                   ("cdelta", cdelta, torch.float32, (c, 4))]
+    for name, t, dtype, shape in checks:
         _check_cuda("bulk_fill", name, t, dtype, shape, dev)
+    for name, t in (("used", used), ("available", available), ("ask", ask)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"bulk_fill: {name} must be 16-byte aligned "
+                             f"(the kernel reads its rows as float4)")
+    words = _ext.scratch_words("nt_bulk_fill_scratch_words", n)
+    scratch = (torch.empty(words, dtype=torch.int32, device=dev)
+               if words else None)
     counts = torch.empty((g, n), dtype=torch.int16, device=dev)
-    fn = _ext.entry("nt_bulk_fill")
     _ext.launch(
-        "bulk_fill", dev, fn,
+        "bulk_fill", dev, _ext.entry("nt_bulk_fill"),
         used.data_ptr(), available.data_ptr(), feas.data_ptr(),
-        aff.data_ptr(), ask.data_ptr(), k.data_ptr(),
-        jit.data_ptr(), counts.data_ptr(), g, n)
+        aff.data_ptr(), ask.data_ptr(), k.data_ptr(), seeds.data_ptr(),
+        None if cidx is None else cidx.data_ptr(),
+        None if cdelta is None else cdelta.data_ptr(), counts.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), g, n, c, words,
+        _span(TIE_JITTER))
+    del scratch  # held until the launch is queued
     return counts
 
 
@@ -204,10 +238,8 @@ def solve_bulk_multi_ref(used, available, feas, aff, ask, k, tg_count, seeds,
                          cidx, cdelta, *, g: int):
     """Plain torch version of :func:`solve_bulk_multi`, step by step the
     reference's ``_solve_bulk_multi_impl``. Updates ``used`` in place."""
-    scatter_add_ref(used, cidx, cdelta)
-    jit = jitter_ref(seeds, used.shape[0], TIE_JITTER)
     return used, bulk_fill_ref(used, available, feas[:g], aff[:g], ask[:g],
-                               k[:g], jit)
+                               k[:g], seeds, cidx, cdelta)
 
 
 def solve_bulk_multi(used, available, feas, aff, ask, k, tg_count, seeds,
@@ -219,13 +251,13 @@ def solve_bulk_multi(used, available, feas, aff, ask, k, tg_count, seeds,
     available (N, 4) f32; feas (G, N) bool; aff (G, N) f32; ask (G, 4)
     f32; k (G,) int32, each at most 32767; tg_count (G,) f32, kept for
     signature parity; seeds (G,) int64 holding uint32 values; cidx (C,)
-    int32 correction rows (0 = no-op slot); cdelta (C, 4) f32."""
+    int32 correction rows (0 = no-op slot); cdelta (C, 4) f32. On the
+    card one launch of B1 folds, draws the jitter and fills."""
     if feas.shape[0] != g or ask.shape[0] != g:
         raise ValueError(f"solve_bulk_multi: g={g} but feas/ask carry "
                          f"{feas.shape[0]}/{ask.shape[0]} rows")
-    scatter_add(used, cidx, cdelta)
-    jit = jitter(seeds, used.shape[0], TIE_JITTER)
-    return used, bulk_fill(used, available, feas, aff, ask, k, jit)
+    return used, bulk_fill(used, available, feas, aff, ask, k, seeds, cidx,
+                           cdelta)
 
 
 # ---------------------------------------------------------------------------

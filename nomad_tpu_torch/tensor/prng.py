@@ -41,8 +41,9 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 MAX_FOLDS = 8        # restarts one keyed jitter launch draws (jitter.cu)
-# largest node count the one-CTA kernels (the fill, the bulk scan and its
-# tie permutation) sort in shared memory
+# largest node count the one-CTA kernels (the bulk scan, its tie
+# permutation, the joint solve's pick and the mesh kernels' shards) hold in
+# shared memory; B1 has its own (kernels.MAX_BULK_FILL_NODES)
 MAX_FILL_NODES = 16384
 
 

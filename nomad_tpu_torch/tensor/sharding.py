@@ -41,13 +41,13 @@ per-shard body step by step with explicit gathers; the replicated math
 after a gather is computed once, since every shard would compute the
 same. On CUDA the wrappers launch ``csrc/sharded.cu`` (B16
 ``csrc/task_group_shard.cu``). B15 is one host call that launches once a
-shard. B13 and B14 are one host call each (after B15's correction fold),
-which makes one cooperative launch a card: every round of every eval
-runs inside it, each shard's CTA stores its pool row straight into every
-shard's buffer and waits on the device-side barrier of ``csrc/mesh.cuh``,
-and the host reads no round flag, so a solve returns as soon as it is
-queued. B16 launches once a shard a step, :func:`all_gather` between
-steps.
+shard. B13 and B14 (after B15's correction fold) and B16 are one host
+call each, which makes one cooperative launch a card: every round (B16:
+every step) runs inside it, each shard's CTA stores its pool row (B16:
+its candidate) straight into every shard's buffer and waits on the
+device-side barrier of ``csrc/mesh.cuh``, and the host reads no flag, so
+a solve returns as soon as it is queued. :func:`all_gather` serves the
+plain versions.
 """
 
 from __future__ import annotations
@@ -77,6 +77,10 @@ GROUP_WORDS = 32
 MESH_GROUPS = 2 + len(PORTFOLIO)
 MAX_MERGE = 2048     # gathered B13 pool entries one merge CTA sorts
 MAX_PICK_NODES = 32768  # nodes the B14 pick's pairwise tree holds
+# one host thread at a time issues the cooperative launches of a mesh
+# that spans cards (B13, B14, B16): two solves whose launches reached two
+# cards in opposite orders would each wait on the other's barrier
+_MESH_LAUNCH_LOCK = threading.Lock()
 
 
 class NodeMesh:
@@ -579,6 +583,12 @@ def barrier_probe(device: DeviceLike, ctas: int, participants: int,
     return out
 
 
+def _issue(mesh: NodeMesh):
+    """The lock a mesh's cooperative launches are issued under: the
+    module's where the mesh spans cards, none on one card."""
+    return _MESH_LAUNCH_LOCK if mesh.cards > 1 else contextlib.nullcontext()
+
+
 def _ptrs(parts) -> ctypes.Array:
     return (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
 
@@ -653,13 +663,14 @@ def solve_bulk_multi_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
               for u in used]
     rounds = torch.empty(g, dtype=torch.int32, device=used[0].device)
     (ask_p, k_p, seeds_p), copies = _card_inputs(mesh, used, ask, k, seeds)
-    _ext.launch(
-        "bulk_shard", mesh.distinct, _ext.entry("nt_bulk_shard_solve"),
-        _ptrs(used), _ptrs(avail), _ptrs(feas), _ptrs(aff), _ptrs(counts),
-        _ptrs(scratch), ask_p, k_p, seeds_p, rounds.data_ptr(),
-        mesh.barrier_words(used[0].device).data_ptr(), mesh.card_of,
-        mesh.card_ordinals, mesh.cards, mesh.size, g, n_loc, r,
-        _span(TIE_JITTER))
+    with _issue(mesh):
+        _ext.launch(
+            "bulk_shard", mesh.distinct, _ext.entry("nt_bulk_shard_solve"),
+            _ptrs(used), _ptrs(avail), _ptrs(feas), _ptrs(aff),
+            _ptrs(counts), _ptrs(scratch), ask_p, k_p, seeds_p,
+            rounds.data_ptr(), mesh.barrier_words(used[0].device).data_ptr(),
+            mesh.card_of, mesh.card_ordinals, mesh.cards, mesh.size, g,
+            n_loc, r, _span(TIE_JITTER))
     del copies, scratch  # held until the launch is queued
     return used, counts, rounds
 
@@ -730,15 +741,17 @@ def solve_batch_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
     info = torch.empty(6, dtype=torch.float32, device=dev0)
     gathers = torch.empty((), dtype=torch.int32, device=dev0)
     (ask_p, k_p, seeds_p), copies = _card_inputs(mesh, used, ask, k, seeds)
-    _ext.launch(
-        "joint_shard", mesh.distinct, _ext.entry("nt_joint_shard_solve"),
-        _ptrs(used), _ptrs(avail), _ptrs(feas), _ptrs(aff),
-        None if evict is None else _ptrs(evict),
-        None if net_prio is None else _ptrs(net_prio), _ptrs(used_out),
-        _ptrs(counts), _ptrs(scratch), ask_p, k_p, seeds_p, info.data_ptr(),
-        gathers.data_ptr(), mesh.barrier_words(dev0).data_ptr(),
-        mesh.card_of, mesh.card_ordinals, _joint_consts(), mesh.cards,
-        mesh.size, g, n_loc, r, rl, rg, n_t, rounds)
+    with _issue(mesh):
+        _ext.launch(
+            "joint_shard", mesh.distinct, _ext.entry("nt_joint_shard_solve"),
+            _ptrs(used), _ptrs(avail), _ptrs(feas), _ptrs(aff),
+            None if evict is None else _ptrs(evict),
+            None if net_prio is None else _ptrs(net_prio), _ptrs(used_out),
+            _ptrs(counts), _ptrs(scratch), ask_p, k_p, seeds_p,
+            info.data_ptr(), gathers.data_ptr(),
+            mesh.barrier_words(dev0).data_ptr(), mesh.card_of,
+            mesh.card_ordinals, _joint_consts(), mesh.cards, mesh.size, g,
+            n_loc, r, rl, rg, n_t, rounds)
     del copies, scratch  # held until the launch is queued
     return used_out, counts, info, gathers
 
@@ -793,19 +806,15 @@ def shard_solve_args(mesh: NodeMesh, args: tuple) -> tuple:
                  else replicate(mesh, a) for i, a in enumerate(args))
 
 
-def _positions(sharded, mesh: NodeMesh) -> List[torch.Tensor]:
-    """Each shard's rows' places in the tie-break order: the inverse of
-    tie_perm (the identity without one), cut into the shards' rows."""
-    n_loc = sharded[0][0].shape[0]
-    n = n_loc * mesh.size
-    dev = mesh.devices[0]
+def _positions(n: int, tie_perm, dev) -> torch.Tensor:
+    """The n rows' places in the tie-break order, on ``dev``: the inverse
+    of tie_perm (the identity where it is None)."""
     pos = torch.arange(n, device=dev)
-    if len(sharded) > 25 and sharded[25] is not None:
+    if tie_perm is not None:
         inv = torch.empty_like(pos)
-        inv[sharded[25][0].to(dev, torch.int64)] = pos
+        inv[tie_perm.to(dev, torch.int64)] = pos
         pos = inv
-    return [pos[s * n_loc:(s + 1) * n_loc].to(d)
-            for s, d in enumerate(mesh.devices)]
+    return pos
 
 
 def _first_best(score: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -835,7 +844,11 @@ def solve_task_group_sharded_ref(mesh: NodeMesh, sharded: tuple):
     n_loc = avail[0].shape[0]
     s_sp, p = svid[0].shape[0], dvid[0].shape[0]
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
-    pos = _positions(sharded, mesh)
+    tie_perm = sharded[25] if len(sharded) > 25 else None
+    tie_perm = None if tie_perm is None else tie_perm[0]
+    pos = _positions(n_loc * mesh.size, tie_perm, mesh.devices[0])
+    pos = [pos[s * n_loc:(s + 1) * n_loc].to(d)
+           for s, d in enumerate(mesh.devices)]
     used = [u.to(f32, copy=True) for u in used]
     ptg = [x.to(i32, copy=True) for x in ptg]
     pjob = [x.to(i32, copy=True) for x in pjob]
@@ -914,54 +927,67 @@ def solve_task_group_sharded(mesh: NodeMesh, args: tuple):
     """B16: place K allocations of one task group as B9 does, with the
     node rows sharded over ``mesh`` (reference ``:107-122``). ``args``:
     the 25 or 26 positional arguments of ``solve_task_group``, as arrays
-    or tensors; they are padded and sharded by :func:`shard_solve_args`.
+    or tensors, padded to the mesh (:func:`pad_node_axis`).
     -> (choices (K,) int32 rows of the real nodes, founds (K,) bool,
-    scores (K,) f32) on the first shard's device, equal to B9's. The
-    kernel of csrc/task_group_shard.cu on a CUDA mesh, the plain version
-    on a CPU mesh."""
-    sharded = shard_solve_args(mesh, args)
+    scores (K,) f32) on the first shard's device, equal to B9's. On a
+    CUDA mesh one host call, which makes one cooperative launch a card
+    (csrc/task_group_shard.cu: a CTA a shard, every step inside it, each
+    shard's candidate pushed into every shard's gather buffer, one
+    barrier a step). On a CPU mesh the plain version."""
     if _is_cpu(mesh):
-        return solve_task_group_sharded_ref(mesh, sharded)
-    return _task_group_shard_launches(mesh, sharded)
+        return solve_task_group_sharded_ref(mesh,
+                                            shard_solve_args(mesh, args))
+    return _task_group_shard_solve(mesh, args)
 
 
-def _task_group_shard_launches(mesh: NodeMesh, sharded: tuple):
-    """B16 on a CUDA mesh: each shard's parts packed in B9's layout (with
-    node_mat's last column the rows' tie-break positions), then for t = 0
-    .. K one launch a shard, each committing step t - 1's global best and
-    scoring step t, with an all_gather of the shards' candidates between
-    steps."""
-    pos = _positions(sharded, mesh)
-    packs = [pack_solve_tensors(*(a[s] for a in sharded[:25]),
-                                node_col=pos[s])
-             for s in range(mesh.size)]
-    for pk, dev in zip(packs, mesh.devices):
-        n, d, s_sp, v, p, vd = _layout(pk[0], *pk[2:],
+def _task_group_shard_solve(mesh: NodeMesh, args: tuple):
+    """B16 on a CUDA mesh: the arguments padded to the mesh and packed
+    once in B9's layout (with node_mat's last column the rows' tie-break
+    positions) where they lie (host arrays on the host: eight copies to a
+    card, not one an argument), one copy of the pack on each card, and
+    one ``nt_task_group_shard_solve`` for the whole solve with each
+    shard's pointers into its card's copy: its rows of node_mat, its
+    columns of spread_node and dp_node."""
+    args = pad_node_axis(args, mesh.size)
+    pos = _positions(args[0].shape[0], args[25] if len(args) > 25 else None,
+                     args[0].device)
+    pack = pack_solve_tensors(*args[:25], node_col=pos)
+    packs = {dev: [t.to(dev) for t in pack] for dev in mesh.distinct}
+    pack = packs[mesh.devices[0]]
+    n_all, d, s_sp, v, p, vd = _layout(pack[0], *pack[2:],
                                        what="solve_task_group_sharded")
-        if pk[0].device != dev:
-            raise ValueError(f"solve_task_group_sharded: a part lies on "
-                             f"{pk[0].device}, its shard on {dev}")
-    k = packs[0][1].shape[0]
-    dev0 = mesh.devices[0]
-    out = torch.empty((3, k), dtype=torch.float32, device=dev0)
-    width = 3 + 2 * s_sp + 2 * p
-    scratch, carry, gbufs = [], [], []
-    for dev in mesh.devices:
-        scratch.append(torch.empty(n * (2 * d + 7 + 2 * s_sp + 2 * p),
-                                   dtype=torch.float32, device=dev))
-        carry.append(torch.empty(s_sp * v + p * vd + 1, dtype=torch.int32,
-                                 device=dev))
-        gbufs.append(torch.empty((mesh.size, width), dtype=torch.int32,
-                                 device=dev))
-    fn = _ext.entry("nt_task_group_shard")
-    for t in range(k + 1 if k else 0):
-        for s, dev in enumerate(mesh.devices):
-            _ext.launch("task_group_shard", dev, fn,
-                        *(x.data_ptr() for x in packs[s]),
-                        scratch[s].data_ptr(), carry[s].data_ptr(),
-                        gbufs[s].data_ptr(),
-                        out.data_ptr() if s == 0 else None, t, k, n, d, s,
-                        mesh.size, s_sp, v, p, vd)
-        if t < k:
-            all_gather(mesh, gbufs)
+    n = mesh.n_loc(n_all)
+    w = 2 * d + 6
+
+    def at(i, s, dev):
+        t = packs[dev][i]
+        if t.numel() == 0:
+            return t.data_ptr()                   # read by nothing
+        if i == 0:
+            return t.data_ptr() + 4 * s * n * w   # its rows
+        if i in (2, 5):
+            return t.data_ptr() + 4 * s * n       # its columns
+        return t.data_ptr()
+
+    ptrs = [(ctypes.c_void_p * mesh.size)(
+        *[at(i, s, dev) for s, dev in enumerate(mesh.devices)])
+        for i in range(8)]
+    k = pack[1].shape[0]
+    home = pack[0].device
+    out = torch.empty((3, k), dtype=torch.float32, device=home)
+    if k:
+        words = _ext.scratch_words("nt_task_group_shard_solve_scratch_words",
+                                   n, d, s_sp, v, p, vd, mesh.size)
+        scratch = [torch.empty(words, dtype=torch.int32,
+                               device=packs[dev][0].device)
+                   for dev in mesh.devices]
+        with _issue(mesh):
+            _ext.launch(
+                "task_group_shard", mesh.distinct,
+                _ext.entry("nt_task_group_shard_solve"), *ptrs,
+                _ptrs(scratch), out.data_ptr(),
+                mesh.barrier_words(home).data_ptr(), mesh.card_of,
+                mesh.card_ordinals, mesh.cards, mesh.size, k, n, d, s_sp, v,
+                p, vd, n_all)
+        del scratch, packs  # held until the launch is queued
     return out[0].to(torch.int32), out[1] > 0.5, out[2]

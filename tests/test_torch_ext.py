@@ -189,18 +189,19 @@ def test_entry_types_each_size_query_once(stub_libs):
         assert fn.argtypes == argtypes and fn.restype is ctypes.c_longlong
 
 
-def test_scratch_words_asks_once_a_shape(stub_libs):
-    """The wrapper's scratch size comes from its library's query, one
-    crossing a shape."""
+@pytest.mark.parametrize("query", sorted(_ext._QUERIES))
+def test_scratch_words_asks_once_a_shape(stub_libs, query):
+    """Each wrapper's scratch size comes from its library's query (B1's
+    and B16's among them), one crossing a shape."""
     _ext.scratch_words.cache_clear()
     try:
-        fn = _ext.entry("nt_bulk_scan_scratch_words")
+        fn = _ext.entry(query)
         fn.code = 123
+        sizes = (64,) + (4,) * (len(_ext._QUERIES[query][1]) - 1)
         for _ in range(3):
-            assert _ext.scratch_words("nt_bulk_scan_scratch_words",
-                                      64, 4, 0, 1) == 123
-        _ext.scratch_words("nt_bulk_scan_scratch_words", 128, 4, 0, 1)
-        assert fn.calls == [(64, 4, 0, 1), (128, 4, 0, 1)]
+            assert _ext.scratch_words(query, *sizes) == 123
+        _ext.scratch_words(query, 128, *sizes[1:])
+        assert fn.calls == [sizes, (128,) + sizes[1:]]
     finally:
         _ext.scratch_words.cache_clear()
 
