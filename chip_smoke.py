@@ -79,11 +79,15 @@ Phases (any failure raises and exits non-zero):
               and the pick are these means.
 13. B7/B12 -- preempt_solve and preempt_pick vs their plain versions at the
               C2M width (build_nodes capacities of 10,240 nodes padded to
-              16,384, K 512, V 8, cpu and memory used at 95-105%) on seven
+              16,384, K 512, V 8, cpu and memory used at 95-105%) on ten
               variants (main, ties, inactive, infeasible, wide: one node
-              with 512 victims, flagged, fits): B7 picks, victims, flags
-              and scores exact, B12 picks exact. Both timed on main beside
-              their plain versions and numpy mirrors.
+              with 512 victims, flagged, fits; allneg: every node NEG
+              after 200 steps, B7's early exit; ragged: N_pad 10,247, the
+              tree's part-empty segment; n32768: N_pad 32,768, B7's keys
+              in the global scratch): B7 picks, victims, flags and scores
+              exact, B12 picks exact. Both timed on main beside their
+              plain versions and numpy mirrors; B7 also on infeasible (its
+              set-up pass alone: every step after it exits early).
 14. cfg4   -- BASELINE config 4 (bench.py cfg4_system_preemption): 1,024
               nodes, a warm job deleted, a priority-20 filler, then the
               priority-80 service of 512 allocs (one preempt_solve launch
@@ -97,13 +101,18 @@ Phases (any failure raises and exits non-zero):
               dispatched.
     runs   -- that launch replayed: exact against the plain version and the
               numpy mirror; kernel, plain, mirror and the inputs' copy to
-              the card timed.
+              the card timed; the kernel's set-up pass alone (the same
+              inputs with no feasible node) and its time a placed step.
 15. cutover -- the numpy mirror against the kernel with its copies at
               (N_pad, K_pad) = (256, 64), (1,024, 128), (1,024, 512),
               (4,096, 512), V 8: the H100's side of PREEMPT_DEVICE_MIN.
 16. B11'    -- the fused bulk scan's tie-break permutation (nt_tie_perm) vs
-              permutation_ref at n 1,024 (one round) and 16,384 (two
-              rounds), eight seeds including 0 and 2^32 - 1: bitwise.
+              permutation_ref at n 1,024 (one round), 16,384, 32,768 and
+              65,536 (two rounds; the buffers in a global scratch above
+              16,384), nine seeds including 0, 2^32 - 1 and one whose
+              draws collide at 16,384: bitwise. Timed at 16,384 and
+              65,536 beside the plain version and, as a yardstick only,
+              torch.sort(stable=True) of one round's int64 keys.
 17. B11    -- the bulk scan vs its plain version at the C2M width (N_pad
               16,384, D 4, k 40,000) on seven variants: fused main, fused
               with a remainder, fused with an all-zero ask, generic with
@@ -222,12 +231,13 @@ and 23's paths, replays their launches exact against the plain
 versions and times B13, B14, B1 and solve_batch on them, through
 wrappers that its parent has too: copied into another checkout, it
 times that one's B13 and B14 in the same call.
-``python3 chip_smoke.py --kernel-times`` runs the build and times B9 at
-cfg3, B11 on its seven variants, B16 at cfg3, S 4 beside B9 on the same
-inputs, and B1 (solve_bulk_multi) beside B13 at S 4 on phase 5's inputs
-(each checked against its plain version, B16 against B9, B13 against
-B1's counts) through wrappers an older checkout has too: copied into
-another checkout, it times that one's kernels in the same call.
+``python3 chip_smoke.py --kernel-times`` runs the build and times B7 at
+cfg4's shape and at the C2M width, B11' at n 16,384, B9 at cfg3, B11 on
+its seven variants, B16 at cfg3, S 4 beside B9 on the same inputs, and
+B1 (solve_bulk_multi) beside B13 at S 4 on phase 5's inputs (each
+checked against its plain version, B16 against B9, B13 against B1's
+counts) through wrappers an older checkout has too: copied into another
+checkout, it times that one's kernels in the same call.
 ``python3 chip_smoke.py --launch-split`` runs the build and only the
 split of a launch's host time: B4, B15 (S 4 on the card) and
 index_add_, and each piece of a launch alone (_ext.entry, a device
@@ -239,8 +249,10 @@ Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound (B4's
 record adds ``device_ms`` and ``library_device_ms``, the device-only
 readings; B15's, the launch its path makes, adds ``device_ms`` and
-``without_clamp``, the adds alone beside index_add_), and the card's
-name and power limit; the last line is the device summary.
+``without_clamp``, the adds alone beside index_add_; B7's adds
+``ms_per_step`` and ``setup_ms``; the B11' record adds ``by_n``, its times at
+16,384 and 65,536 beside one round's torch.sort), and the card's name
+and power limit; the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -1687,7 +1699,12 @@ def phase_spread_parity():
 PREEMPT_K = 512
 PREEMPT_V = 8
 PREEMPT_VARIANTS = ("main", "ties", "inactive", "infeasible", "wide",
-                    "flagged", "fits")
+                    "flagged", "fits", "allneg", "ragged", "n32768")
+# N_pad of the variants that change it: not a multiple of 32 (the tree's
+# last segment part empty), and above where B7's keys fit in shared memory
+PREEMPT_N_PAD = {"ragged": N_NODES + 7, "n32768": 32768}
+# feasible nodes of "allneg", each able to take one request
+ALLNEG_NODES = 200
 # BASELINE config 4 (bench.py:698-818 cfg4_system_preemption)
 CFG4_NODES = 1024
 # (N_pad, K_pad) of the cutover sweep, V 8
@@ -1703,7 +1720,9 @@ def preempt_inputs(rng, variant: str, n_pad=N_PAD, n_real=N_NODES,
     sorted by priority. Variants: "ties" (every real node identical),
     "inactive" (no active row), "infeasible" (no feasible node), "wide"
     (one feasible node with 512 small victims), "flagged" (every first
-    victim flagged), "fits" (a tenth of the nodes have room)."""
+    victim flagged), "fits" (a tenth of the nodes have room), "allneg"
+    (ALLNEG_NODES feasible nodes, full, each with one victim of the ask's
+    size: each takes one request, then every node is NEG)."""
     d = 4
     if variant == "wide":
         v = 512
@@ -1753,6 +1772,16 @@ def preempt_inputs(rng, variant: str, n_pad=N_PAD, n_real=N_NODES,
     elif variant == "fits":
         room = rng.random(n_real) < 0.1
         used[:n_real][room] = np.floor(avail[:n_real][room] * 0.5)
+    elif variant == "allneg":
+        feasible[:] = False
+        feasible[rng.choice(n_real, ALLNEG_NODES, replace=False)] = True
+        used[:] = avail
+        v_prio[:] = 0.0
+        v_vec[:] = 0.0
+        v_elig[:] = False
+        v_prio[:n_real, 0] = 20.0
+        v_vec[:n_real, 0] = ask
+        v_elig[:n_real, 0] = True
     max_p = v_prio.max(axis=1)
     net_prio = np.where(max_p > 0,
                         max_p + v_prio.sum(axis=1) / np.maximum(max_p, 1.0),
@@ -1863,11 +1892,16 @@ def phase_preempt_kernels(torch, dev, card, rng):
     notes = []
     main = None
     for variant in PREEMPT_VARIANTS:
-        host = preempt_inputs(rng, variant)
+        host = preempt_inputs(rng, variant,
+                              n_pad=PREEMPT_N_PAD.get(variant, N_PAD))
         args = on_card(torch, host, dev)
         got = preempt_solve(*args)
         err = max(err, check_preempt(torch, got, preempt_solve_ref(*args),
                                      variant))
+        if variant == "allneg" and int((got[0] >= 0).sum()) != ALLNEG_NODES:
+            raise AssertionError(f"B7 allneg: placed "
+                                 f"{int((got[0] >= 0).sum())}, want "
+                                 f"{ALLNEG_NODES}")
         pick_args = [torch.tensor(a, device=dev) for a in _pick_from(host)]
         picked = preempt_pick(*pick_args)
         want = preempt_pick_ref(*pick_args)
@@ -1879,8 +1913,12 @@ def phase_preempt_kernels(torch, dev, card, rng):
                      f"{int(got[1].sum())} victims")
         if variant == "main":
             main = (host, args, pick_args, got, picked)
+        if variant == "infeasible":
+            empty = args
     host, args, pick_args, got, picked = main
     ms = cuda_time_ms(torch, lambda _: preempt_solve(*args), reps=5)
+    setup = cuda_time_ms(torch, lambda _: preempt_solve(*empty), reps=5)
+    placed = int((got[0] >= 0).sum())
     plain = cuda_time_ms(torch, lambda _: preempt_solve_ref(*args), reps=2,
                          warmup=1)
     f64 = as_f64(host)
@@ -1898,8 +1936,11 @@ def phase_preempt_kernels(torch, dev, card, rng):
           f"{N_PAD}, K {PREEMPT_K}, V {PREEMPT_V} (wide: 512): B7 picks, "
           f"victims, flags and scores exact (max_abs_err {err}), B12 picks "
           f"exact (max_abs_err {p_err}); {'; '.join(notes)}")
-    print(f"B7/B12      [{card}] main: B7 kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, numpy mirror {mirror:.4f} ms, bound {b_ms:.6f} "
+    print(f"B7/B12      [{card}] main: B7 kernel {ms:.4f} ms ({placed} "
+          f"placed steps: {ms / placed * 1e3:.2f} us a step; the set-up "
+          f"pass alone {setup:.4f} ms, (ms - set-up) a step "
+          f"{(ms - setup) / placed * 1e3:.2f} us), plain {plain:.4f} ms, "
+          f"numpy mirror {mirror:.4f} ms, bound {b_ms:.6f} "
           f"ms ({b_by}); B12 kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, "
           f"numpy mirror {p_mirror:.4f} ms, bound {pb_ms:.6f} ms ({pb_by})")
     return {"name": "preempt_pick", "source":
@@ -2061,8 +2102,10 @@ def phase_cfg4_replay(torch, card, captured):
     """The cfg4 path's own preempt_solve launches replayed from their
     copied inputs: the kernel exact against the plain version and, on
     picks, victims and flags, the numpy mirror; the kernel, the plain
-    version, the mirror and the inputs' host-to-device copy timed.
-    Returns B7's record (means over the launches)."""
+    version, the mirror and the inputs' host-to-device copy timed, and
+    the kernel's set-up pass alone (the same inputs with no feasible node:
+    every step exits early) and its time a placed step. Returns B7's
+    record (means over the launches)."""
     from nomad_tpu_torch.tensor.kernels import (preempt_solve,
                                                 preempt_solve_ref)
     from nomad_tpu_torch.tensor.placer import _preempt_solve_host
@@ -2086,6 +2129,8 @@ def phase_cfg4_replay(torch, card, captured):
             torch.cuda.synchronize()
             return out
 
+        empty = list(args)
+        empty[3] = torch.zeros_like(args[3])
         rows.append((
             cuda_time_ms(torch, lambda _: preempt_solve(*args), reps=5),
             cuda_time_ms(torch, lambda _: preempt_solve_ref(*args), reps=2,
@@ -2095,13 +2140,20 @@ def phase_cfg4_replay(torch, card, captured):
             preempt_bound(host, got[0].cpu().numpy(),
                           got[1].cpu().numpy()),
             tuple(args[0].shape) + (args[5].shape[0], args[7].shape[1]),
-            int(sum(a.nbytes for a in host if a is not None))))
+            int(sum(a.nbytes for a in host if a is not None)),
+            cuda_time_ms(torch, lambda _: preempt_solve(*empty), reps=5),
+            int((got[0] >= 0).sum())))
     mean = statistics.fmean
+    ms = mean(r[0] for r in rows)
+    setup = mean(r[7] for r in rows)
+    placed = mean(r[8] for r in rows)
     print(f"cfg4 runs   [{card}] the path's {len(rows)} preempt_solve "
           f"launches replayed at (N_pad, D, K_pad, V_pad) "
           f"{sorted({r[5] for r in rows})}: exact against the plain "
-          f"version and the numpy mirror; kernel "
-          f"{mean(r[0] for r in rows):.4f} ms, plain "
+          f"version and the numpy mirror; kernel {ms:.4f} ms ({placed:.0f} "
+          f"placed steps: {ms / placed * 1e3:.2f} us a step; the set-up "
+          f"pass alone {setup:.4f} ms, (ms - set-up) a step "
+          f"{(ms - setup) / placed * 1e3:.2f} us), plain "
           f"{mean(r[1] for r in rows):.4f} ms, mirror "
           f"{mean(r[2] for r in rows):.4f} ms, inputs "
           f"{mean(r[6] for r in rows) / 1e6:.2f} MB copied to the card in "
@@ -2110,10 +2162,11 @@ def phase_cfg4_replay(torch, card, captured):
     return {"name": "preempt_solve",
             "source": "nomad_tpu_torch/csrc/preempt.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:823",
-            "max_abs_err": err, "ms": mean(r[0] for r in rows),
+            "max_abs_err": err, "ms": ms,
             "plain_ms": mean(r[1] for r in rows),
             "bound_ms": mean(r[4][0] for r in rows),
-            "bound_by": rows[0][4][1], "library_ms": None}
+            "bound_by": rows[0][4][1], "library_ms": None,
+            "ms_per_step": ms / placed, "setup_ms": setup}
 
 
 def phase_cfg4_parity(card, card_run):
@@ -2284,15 +2337,29 @@ def tie_perm_bound(n: int):
     return bound(n * 4, ops)
 
 
-def phase_tie_perm(torch, dev, card, rng):
-    """B11' bitwise against permutation_ref at n 1,024 (one round) and
-    16,384 (two rounds), seeds 0, 7, 2^31, 2^32 - 1 and four random."""
-    from nomad_tpu_torch.tensor.prng import (permutation, permutation_ref,
-                                             permutation_rounds)
+# B11' sizes: one round at 1,024, two from 16,384 on; above 16,384 its
+# buffers are in a global scratch (no path runs it there: B11 refuses)
+PERM_SIZES = (1024, N_PAD, 32768, 65536)
+PERM_TIMED = (N_PAD, 65536)
+# the second round of permutation(113, 16,384) draws two pairs of equal
+# words (tests/test_torch_perm_radix.py): a sort that is not stable fails
+COLLIDING_SEED = 113
 
-    seeds = [0, 7, 2 ** 31, 2 ** 32 - 1] + [
+
+def phase_tie_perm(torch, dev, card, rng):
+    """B11' bitwise against permutation_ref at PERM_SIZES, seeds 0, 7,
+    2^31, 2^32 - 1, COLLIDING_SEED and four random; timed at PERM_TIMED
+    beside its plain version and, as a yardstick only (no one call draws
+    the words and permutes), torch.sort(stable=True) of one round's int64
+    words. Returns {n: its times}."""
+    from nomad_tpu_torch.tensor.prng import (permutation, permutation_ref,
+                                             permutation_rounds,
+                                             random_bits_keys, seed_keys,
+                                             split_ref)
+
+    seeds = [0, 7, 2 ** 31, 2 ** 32 - 1, COLLIDING_SEED] + [
         int(x) for x in rng.integers(0, 2 ** 32, 4)]
-    for n in (1024, N_PAD):
+    for n in PERM_SIZES:
         for seed in seeds:
             got = permutation(seed, n, dev)
             want = permutation_ref(seed, n, dev)
@@ -2301,9 +2368,32 @@ def phase_tie_perm(torch, dev, card, rng):
                 raise AssertionError(f"B11' permutation differs from "
                                      f"permutation_ref at n={n}, "
                                      f"seed={seed}")
-    print(f"B11' perm   [{card}] bitwise equal at n 1,024 "
-          f"({permutation_rounds(1024)} round) and 16,384 "
-          f"({permutation_rounds(N_PAD)} rounds), {len(seeds)} seeds each")
+    timed = {}
+    for n in PERM_TIMED:
+        _, sub = split_ref(seed_keys(torch.tensor([COLLIDING_SEED],
+                                                  device=dev)))
+        words = random_bits_keys(sub, n)[0]
+        timed[str(n)] = {
+            "ms": cuda_time_ms(
+                torch, lambda _: permutation(COLLIDING_SEED, n, dev),
+                reps=20),
+            "plain_ms": cuda_time_ms(
+                torch, lambda _: permutation_ref(COLLIDING_SEED, n, dev),
+                reps=5),
+            "torch_sort_ms": cuda_time_ms(
+                torch, lambda _: torch.sort(words, stable=True), reps=20),
+            "bound_ms": tie_perm_bound(n)[0]}
+    print(f"B11' perm   [{card}] bitwise equal at n "
+          + ", ".join(f"{n:,} ({permutation_rounds(n)} round"
+                      f"{'s' if permutation_rounds(n) > 1 else ''})"
+                      for n in PERM_SIZES)
+          + f", {len(seeds)} seeds each (seed {COLLIDING_SEED}'s draws "
+          f"collide at 16,384); "
+          + "; ".join(f"n {n}: kernel {t['ms']:.4f} ms, plain "
+                      f"{t['plain_ms']:.4f} ms, one round's torch.sort "
+                      f"{t['torch_sort_ms']:.4f} ms, bound "
+                      f"{t['bound_ms']:.6f} ms" for n, t in timed.items()))
+    return timed
 
 
 def phase_b11(torch, dev, card, rng):
@@ -3864,17 +3954,35 @@ def shard_times(torch, card) -> int:
 
 
 def kernel_times(torch, dev, card, rng) -> int:
-    """``--kernel-times``: B9 at cfg3, B11 on its seven variants at N_pad
-    16,384, B16 at cfg3, S 4 beside B9 on the same inputs, and B1
-    (solve_bulk_multi) beside B13 at S 4 on phase 5's inputs, each exact
-    against its plain version (B16 bit-equal to B9, B13 to B1's counts)
-    and timed, through wrappers that this tree and its parent (9b1f71f)
-    both have, so this script copied into another checkout times that
-    checkout's kernels. Prints one JSON line of ms."""
+    """``--kernel-times``: B7 at cfg4's shape (N_pad 1,024, K 512, V 512)
+    and at the C2M width ("main", N_pad 16,384, K 512, V 8), B11' at n
+    16,384, B9 at cfg3, B11 on its seven variants at N_pad 16,384, B16 at
+    cfg3, S 4 beside B9 on the same inputs, and B1 (solve_bulk_multi)
+    beside B13 at S 4 on phase 5's inputs, each exact against its plain
+    version (B16 bit-equal to B9, B13 to B1's counts) and timed, through
+    wrappers that this tree and its parent (14a7767) both have, so this
+    script copied into another checkout times that checkout's kernels.
+    Prints one JSON line of ms."""
     from nomad_tpu_torch.tensor import kernels
     from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.prng import permutation, permutation_ref
 
     times = {}
+    for name, host in (
+            ("b7_cfg4", preempt_inputs(rng, "main", n_pad=CFG4_NODES,
+                                       n_real=CFG4_NODES, v=512)),
+            ("b7_c2m", preempt_inputs(rng, "main"))):
+        args = on_card(torch, host, dev)
+        got = kernels.preempt_solve(*args)
+        check_preempt(torch, got, kernels.preempt_solve_ref(*args), name)
+        times[name] = cuda_time_ms(
+            torch, lambda _: kernels.preempt_solve(*args), reps=10)
+        times[f"{name}_placed"] = int((got[0] >= 0).sum())
+    if not torch.equal(permutation(COLLIDING_SEED, N_PAD, dev),
+                       permutation_ref(COLLIDING_SEED, N_PAD, dev)):
+        raise AssertionError("B11' 16,384: differs from the plain version")
+    times["b11p_16384"] = cuda_time_ms(
+        torch, lambda _: permutation(COLLIDING_SEED, N_PAD, dev), reps=20)
     main = [a.to(dev) for a in cfg3_packed(rng, "cfg3")]
     got = kernels.solve_task_group_fused(*main)
     want = kernels.solve_task_group_fused_ref(*main)
@@ -4005,12 +4113,13 @@ def main() -> int:
     for k in preempt:
         k["launches"] = launches[k["name"]]
     phase_cutover(torch, dev, card, rng)
-    phase_tie_perm(torch, dev, card, rng)
+    perm = phase_tie_perm(torch, dev, card, rng)
     phase_b11(torch, dev, card, rng)
     launches, _, captured, _, first = phase_large_groups(torch, card)
     large = phase_large_replay(torch, card, captured)
     for k in large:
         k["launches"] = launches[k["name"]]
+    large[1]["by_n"] = perm
     phase_large_parity(card, first)
     phase_bulk_preempt(torch, card)
     phase_parity(enums.SCHED_ALG_TPU_BINPACK)
@@ -4041,7 +4150,7 @@ def main() -> int:
     for k in kernels:
         k["route"] = "cuda"
     extra = ("device_ms", "library_device_ms", "without_clamp",
-             "ms_per_step")
+             "ms_per_step", "setup_ms", "by_n")
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))
     print(card)

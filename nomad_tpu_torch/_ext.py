@@ -55,10 +55,11 @@ _SIGNATURES = {
     "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 8 + [_P]),
     "nt_auction": ("batch_solve", [_P] * 14 + [_I] * 4 + [_P]),
     "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
-    "nt_preempt_solve": ("preempt", [_P] * 15 + [_I] * 4 + [_P]),
+    "nt_preempt_solve": ("preempt", [_P] * 14 + [_I] * 5 + [_P]),
     "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
     "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 8 + [_P]),
-    "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P]),
+    "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P, _I,
+                                  _P]),
     "nt_scatter_shards": ("sharded", [_P] * 4 + [_I] * 4 + [_P]),
     "nt_bulk_shard_solve": ("sharded", [_P] * 13 + [_I] * 5 + [_F, _P]),
     "nt_joint_shard_solve": ("sharded", [_P] * 18 + [_I] * 9 + [_P]),
@@ -72,6 +73,8 @@ _QUERIES = {
     "nt_bulk_fill_scratch_words": ("bulk_fill", [_I]),
     "nt_solve_task_group_scratch_words": ("task_group", [_I] * 6),
     "nt_bulk_scan_scratch_words": ("bulk_scan", [_I] * 4),
+    "nt_tie_perm_scratch_words": ("bulk_scan", [_I] * 2),
+    "nt_preempt_solve_scratch_words": ("preempt", [_I] * 2),
     "nt_bulk_shard_solve_scratch_words": ("sharded", [_I] * 4),
     "nt_joint_shard_solve_scratch_words": ("sharded", [_I] * 6),
     "nt_task_group_shard_solve_scratch_words": ("task_group_shard", [_I] * 7),

@@ -26,33 +26,51 @@
 // Bound on the H100: neither bytes nor operations. At BASELINE config 4
 // (N_pad 1,024, K_pad 512, V_pad 512, D 4) the function needs ~0.87 MB
 // (v_elig, v_vec at the ~2.6k eligible columns, the outputs) and, since
-// only the chosen node's carry changes in a step, about one rescore a
-// step. This kernel reads v_elig whole and rescores every node on each
-// of the K steps, which run one after another because each reads the
-// carry the previous one wrote, so the time is K block-wide argmaxes and
-// prefix scans on one SM.
+// only the chosen node's carry changes in a step, one score a node and
+// then one rescore a step. The K steps run one after another (each reads
+// the carry the previous one wrote), so the time is the set-up pass plus
+// K times one step's latency on one SM.
 //
-// Design: one CTA of 1,024 threads runs all K steps, so the chain needs only
-// __syncthreads. The carry (used, ev, the preemption score per node and the
-// taken bits) lives in global scratch that the wrapper allocates, so any
-// N_pad fits; only this CTA touches it. Each step: every thread scores its
-// nodes, a block argmax by (score desc, index asc) picks the node as
-// jnp.argmax does (the first maximum: on identical nodes the tie rule alone
-// decides), then one thread per victim column forms the exclusive prefix
-// sums of the chosen node's unclaimed eligible vectors by warp shuffles
-// (1,024 columns a pass), and the chosen node's carry row is written.
+// Design of nt_preempt_solve (B7): one CTA of 1,024 threads. The set-up
+// pass, all threads: the carry copied (used, ev = sum of the eligible
+// victim vectors), a claimed-prefix pointer a node zeroed, the victims
+// output zeroed, every node scored once, and its order key, desc_key(score)
+// << 32 | index (sort.cuh), stored; the minimum key is jnp.argmax's first
+// maximum. The keys are reduced into a two-level tree: the minimum of each
+// 32-node segment, then one warp's minimum over the segments. The keys
+// and the segment minima live in shared memory (the keys in the global
+// scratch where they do not fit). Then warp 0 alone runs the K steps, with
+// no block barrier: it reads the top of the tree; stops at the first
+// step whose best score is NEG (no carry can change again, so every later
+// step writes -1, NEG and no victims); skips an inactive step (nothing
+// changes); else forms the chosen node's deficit, scans its unclaimed
+// eligible columns 32 at a time with warp shuffles (a prefix sum a dim)
+// until the prefix covers the deficit, writes the victims, the pick, the
+// flag and the score, commits that node's carry row, rescores it and
+// refreshes its segment and the top.
+//
+// The claimed-prefix pointer: the victims of a step are a prefix of the
+// chosen node's unclaimed eligible columns (cum_before never decreases
+// for nonnegative vectors), so the claimed columns of a node are always
+// all its eligible columns below one index, ptr[node]. The (N, V) taken
+// bits of the reference are that pointer.
 //
 // Exactness: resource values are integral f32 below 2^24, so every sum over
 // victims (ev, the prefix sums, evicted) is exact in any order; the scores
 // use correctly rounded arithmetic and accurate powf / expf (fit.cuh, built
-// with --fmad=false). Picks, victims, flags and scores equal the plain torch
-// version (tensor/kernels.py preempt_solve_ref / preempt_pick_ref) exactly.
+// with --fmad=false), and a node's cached key is recomputed from its carry
+// whenever the carry changes. Picks, victims, flags and scores equal the
+// plain torch version (tensor/kernels.py preempt_solve_ref) exactly.
+//
+// nt_preempt_pick (B12, on no path) keeps its first design: one CTA that
+// rescores every node each step and takes a block argmax.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "fit.cuh"
+#include "sort.cuh"
 
 namespace {
 
@@ -61,25 +79,33 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDims = 8;
 constexpr float kNeg = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory
+constexpr uint64_t kNoKey = ~0ull;
 
 using nt_fit::fit_score;
 using nt_fit::preempt_score;
+using nt_sort::desc_key;
 
-// One node's preemption score for the next placement, and its deficit.
+// One node's preemption score for the next placement, and its deficit, over
+// d <= kDims resource columns.
+template <int kDims>
 __device__ __forceinline__ float node_score(const float* avail,
                                             const float* used,
                                             const float* ask, const float* ev,
                                             bool feasible, float pscore, int d,
                                             float* deficit, bool* needs_out) {
-  float clamped[kMaxDims];
+  float clamped[kDims];
   bool can = feasible;
   bool needs = false;
-  for (int k = 0; k < d; ++k) {
-    const float nu = __fadd_rn(used[k], ask[k]);
-    deficit[k] = fmaxf(__fsub_rn(nu, avail[k]), 0.0f);
-    can = can && deficit[k] <= ev[k];
-    needs = needs || deficit[k] > 0.0f;
-    clamped[k] = fminf(nu, avail[k]);
+#pragma unroll
+  for (int k = 0; k < kDims; ++k) {
+    if (k < d) {
+      const float nu = __fadd_rn(used[k], ask[k]);
+      deficit[k] = fmaxf(__fsub_rn(nu, avail[k]), 0.0f);
+      can = can && deficit[k] <= ev[k];
+      needs = needs || deficit[k] > 0.0f;
+      clamped[k] = fminf(nu, avail[k]);
+    }
   }
   *needs_out = needs;
   const float score = __fdiv_rn(
@@ -131,175 +157,306 @@ __device__ void block_argmax(float s, int i, float* sh_s, int* sh_i,
   *out_i = sh_i[kWarps];
 }
 
-// Block-wide exclusive prefix sums of x[0..d) (integral values: exact in any
-// order); tot gets the block totals. Ends with a barrier.
-__device__ void block_exclusive_scan(float (&x)[kMaxDims], int d, float* wsum,
-                                     float (&tot)[kMaxDims]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float own[kMaxDims];
-  for (int k = 0; k < d; ++k) {
-    own[k] = x[k];
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(kFull, x[k], off);
-      if (lane >= off) x[k] = __fadd_rn(x[k], y);
-    }
-  }
-  if (lane == 31) {
-    for (int k = 0; k < d; ++k) wsum[warp * kMaxDims + k] = x[k];
-  }
-  __syncthreads();
-  for (int k = 0; k < d; ++k) {
-    float before = 0.0f;
-    float all = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float t = wsum[w * kMaxDims + k];
-      if (w < warp) before = __fadd_rn(before, t);
-      all = __fadd_rn(all, t);
-    }
-    x[k] = __fadd_rn(before, __fsub_rn(x[k], own[k]));
-    tot[k] = all;
-  }
-  __syncthreads();
+// The order key of (score desc, index asc): the smallest key is the first
+// maximum of the scores, as jnp.argmax takes it.
+__device__ __forceinline__ uint64_t order_key(float score, int i) {
+  return ((uint64_t)desc_key(score) << 32) | (uint32_t)i;
 }
 
+// The score a key holds (desc_key inverted; -0.0 comes back as +0.0,
+// which equals it).
+__device__ __forceinline__ float key_score(uint64_t key) {
+  const uint32_t ord = ~(uint32_t)(key >> 32);
+  return __uint_as_float((ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord);
+}
+
+__device__ __forceinline__ uint64_t warp_min(uint64_t x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const uint64_t y = __shfl_xor_sync(kFull, x, off);
+    x = y < x ? y : x;
+  }
+  return x;
+}
+
+// B7's tree: one minimum key a 32-node segment
+__host__ __device__ inline int segments(int n) { return (n + 31) / 32; }
+
+// Whether the keys and the claimed-prefix pointers fit in shared memory
+// beside the segment minima (else they live in the scratch)
+inline bool solve_in_smem(int n) {
+  return (size_t)(n + segments(n)) * sizeof(uint64_t) +
+             (size_t)n * sizeof(int) <=
+         kMaxSmem;
+}
+
+// B7's scratch, in 4-byte words: used and ev (n x d f32 each), then, when
+// they are not in shared memory, the pointers (n int32) and, 8-byte
+// aligned, the keys (n uint64)
+__host__ __device__ inline long long key_offset(int n, int d) {
+  return ((long long)n * (2 * d + 1) + 1) / 2 * 2;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 preempt_solve_kernel(const float* __restrict__ avail,
                      const float* __restrict__ used0,
-                     const float* __restrict__ ask,
+                     const float* __restrict__ ask_g,
                      const uint8_t* __restrict__ feasible,
                      const float* __restrict__ net_prio,
                      const uint8_t* __restrict__ active,
                      const float* __restrict__ v_vec,
                      const uint8_t* __restrict__ v_elig,
-                     const uint8_t* __restrict__ v_flag,
-                     float* scratch, uint8_t* taken, int* __restrict__ picks,
+                     const uint8_t* __restrict__ v_flag, float* scratch,
+                     bool in_smem, int* __restrict__ picks,
                      uint8_t* __restrict__ victims,
                      uint8_t* __restrict__ flagged,
-                     float* __restrict__ scores, int n, int v, int k_steps,
-                     int d) {
-  __shared__ float sh_s[kWarps + 1];
-  __shared__ int sh_i[kWarps + 1];
-  __shared__ float wsum[kWarps * kMaxDims];
-  float* used = scratch;                     // (N, D) carry
-  float* ev = scratch + (long long)n * d;    // (N, D) evictable carry
-  float* pscore = ev + (long long)n * d;     // (N,)
+                     float* __restrict__ scores, int n, int v,
+                     int k_steps) {
+  extern __shared__ uint64_t sh[];
+  const int segs = segments(n);
+  uint64_t* seg = sh;
+  float* used = scratch;                      // (N, D) carry
+  float* ev = scratch + (long long)n * D;     // (N, D) evictable carry
+  uint64_t* keys;
+  int* ptr;
+  if (in_smem) {
+    keys = sh + segs;
+    ptr = reinterpret_cast<int*>(keys + n);
+  } else {
+    ptr = reinterpret_cast<int*>(ev + (long long)n * D);
+    keys = reinterpret_cast<uint64_t*>(scratch + key_offset(n, D));
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  float ask[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) ask[k] = ask_g[k];
 
-  for (long long j = threadIdx.x; j < (long long)n * d; j += kThreads) {
+  // ---- set-up pass, every thread ----
+  for (long long j = threadIdx.x; j < (long long)n * D; j += kThreads) {
     used[j] = used0[j];
   }
-  for (long long j = threadIdx.x; j < (long long)n * v; j += kThreads) {
-    taken[j] = 0;
+  for (int i = threadIdx.x; i < n; i += kThreads) ptr[i] = 0;
+  {
+    // the victims output, zeroed once: a step writes only its selection
+    const long long bytes = (long long)k_steps * v;
+    uint4* wide = reinterpret_cast<uint4*>(victims);
+    for (long long j = threadIdx.x; j < bytes / 16; j += kThreads) {
+      wide[j] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (long long j = bytes / 16 * 16 + threadIdx.x; j < bytes;
+         j += kThreads) {
+      victims[j] = 0;
+    }
   }
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    pscore[i] = preempt_score(net_prio[i]);
-  }
-  // ev0 = sum_v v_vec * v_elig: one warp per node, lanes over its columns
-  for (int i = warp; i < n; i += kWarps) {
-    float acc[kMaxDims];
-    for (int k = 0; k < d; ++k) acc[k] = 0.0f;
-    for (int c = lane; c < v; c += 32) {
-      if (v_elig[(long long)i * v + c]) {
-        const float* vec = v_vec + ((long long)i * v + c) * d;
-        for (int k = 0; k < d; ++k) acc[k] = __fadd_rn(acc[k], vec[k]);
+  // ev0 = sum_v v_vec * v_elig: `group` lanes a node (one a node up to 16
+  // columns, up to a warp at 512), each over runs of 16 columns whose
+  // eligibility bytes it loads together
+  int group = 1;
+  while (group < 32 && group * 16 < v) group <<= 1;
+  const int per_warp = 32 / group;
+  for (int base = warp * per_warp; base < n; base += kWarps * per_warp) {
+    const int i = base + lane / group;
+    float acc[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = 0.0f;
+    if (i < n) {
+      const uint8_t* erow = v_elig + (long long)i * v;
+      for (int c0 = lane % group * 16; c0 < v; c0 += group * 16) {
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          if (c0 + q < v && erow[c0 + q]) {
+            const float* vec = v_vec + ((long long)i * v + c0 + q) * D;
+#pragma unroll
+            for (int k = 0; k < D; ++k) acc[k] = __fadd_rn(acc[k], vec[k]);
+          }
+        }
       }
     }
-    for (int k = 0; k < d; ++k) {
-      for (int off = 16; off > 0; off >>= 1) {
-        acc[k] = __fadd_rn(acc[k], __shfl_down_sync(kFull, acc[k], off));
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      for (int off = group >> 1; off > 0; off >>= 1) {
+        acc[k] = __fadd_rn(acc[k], __shfl_xor_sync(kFull, acc[k], off));
       }
-      if (lane == 0) ev[(long long)i * d + k] = acc[k];
+      if (i < n && lane % group == 0) ev[(long long)i * D + k] = acc[k];
     }
   }
   __syncthreads();
+  // every node scored once; its key cached
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    float def[D];
+    bool needs;
+    const float s = node_score<D>(avail + (long long)i * D,
+                                  used + (long long)i * D, ask,
+                                  ev + (long long)i * D, feasible[i] != 0,
+                                  preempt_score(net_prio[i]), D, def, &needs);
+    keys[i] = order_key(s, i);
+  }
+  __syncthreads();
+  for (int s = warp; s < segs; s += kWarps) {
+    const int i = s * 32 + lane;
+    const uint64_t m = warp_min(i < n ? keys[i] : kNoKey);
+    if (lane == 0) seg[s] = m;
+  }
+  __syncthreads();
+  if (warp != 0) return;
 
-  float def[kMaxDims];
+  // ---- the K steps, warp 0 alone ----
+  uint64_t top = kNoKey;
+  for (int s = lane; s < segs; s += 32) top = seg[s] < top ? seg[s] : top;
+  top = warp_min(top);
+  bool act = k_steps > 0 && active[0];
   for (int step = 0; step < k_steps; ++step) {
-    float best_s = -INFINITY;
-    int best_i = 0x7fffffff;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      bool needs;
-      const float s = node_score(avail + (long long)i * d,
-                                 used + (long long)i * d, ask,
-                                 ev + (long long)i * d, feasible[i] != 0,
-                                 pscore[i], d, def, &needs);
-      if (better(s, i, best_s, best_i)) {
-        best_s = s;
-        best_i = i;
+    const bool act_next = step + 1 < k_steps && active[step + 1];  // ahead
+    const float best_s = key_score(top);
+    if (!(best_s > kNeg)) {
+      // no node can take a request, and no carry changes again
+      for (int t = step + lane; t < k_steps; t += 32) {
+        picks[t] = -1;
+        flagged[t] = 0;
+        scores[t] = kNeg;
       }
+      return;
     }
-    block_argmax(best_s, best_i, sh_s, sh_i, &best_s, &best_i);
-    const bool found = best_s > kNeg && active[step] != 0;
-    uint8_t* vrow = victims + (long long)step * v;
-    if (!found) {
-      for (int c = threadIdx.x; c < v; c += kThreads) vrow[c] = 0;
-      if (threadIdx.x == 0) {
+    if (!act) {  // changes nothing
+      if (lane == 0) {
         picks[step] = -1;
         flagged[step] = 0;
         scores[step] = kNeg;
       }
-      continue;  // no carry write: the next step's argmax barriers suffice
+      act = act_next;
+      continue;
     }
-    const int b = best_i;
-    bool needs;
-    node_score(avail + (long long)b * d, used + (long long)b * d, ask,
-               ev + (long long)b * d, true, 0.0f, d, def, &needs);
-    float evicted[kMaxDims];
-    for (int k = 0; k < d; ++k) evicted[k] = 0.0f;
-    bool any_flag = false;
+    act = act_next;
+    const int b = (int)(uint32_t)top;
+    const float* a = avail + (long long)b * D;
+    float* u = used + (long long)b * D;
+    float* e = ev + (long long)b * D;
+    // the chosen node's row, and its first 32 columns from its pointer
+    // (loaded beside the row, before the deficit says whether it evicts)
+    const int p0 = ptr[b];
+    int c = p0 + lane;
+    long long col = (long long)b * v + c;
+    bool in = c < v;
+    bool elig = in && v_elig[col];
+    bool fl = in && v_flag[col];
+    float xv[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) xv[k] = in ? v_vec[col * D + k] : 0.0f;
+    const float pscore = preempt_score(net_prio[b]);
+    float ub[D], eb[D], def[D], evicted[D];
+    bool needs = false;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      ub[k] = u[k];
+      eb[k] = e[k];
+      def[k] = fmaxf(__fsub_rn(__fadd_rn(ub[k], ask[k]), a[k]), 0.0f);
+      needs = needs || def[k] > 0.0f;
+      evicted[k] = 0.0f;
+    }
+    bool flag = false;
     if (needs) {
-      float carry[kMaxDims];
-      for (int k = 0; k < d; ++k) carry[k] = 0.0f;
-      for (int base = 0; base < v; base += kThreads) {
-        const int c = base + threadIdx.x;
-        const long long col = (long long)b * v + c;
-        const bool row = c < v && v_elig[col] && !taken[col];
-        float x[kMaxDims];
-        float tot[kMaxDims];
-        for (int k = 0; k < d; ++k) {
-          x[k] = row ? v_vec[col * d + k] : 0.0f;
+      // the unclaimed eligible columns from the pointer on, 32 at a time:
+      // a column is taken while its exclusive prefix is below the deficit
+      // in some dim with a deficit
+      uint8_t* vrow = victims + (long long)step * v;
+      float carry[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) carry[k] = 0.0f;
+      int last = -1;
+      for (int base = p0;;) {
+        float x[D], incl[D];
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          x[k] = elig ? xv[k] : 0.0f;
+          incl[k] = x[k];
         }
-        block_exclusive_scan(x, d, wsum, tot);
-        bool sel = false;
-        for (int k = 0; k < d; ++k) {
-          sel = sel || (def[k] > 0.0f && __fadd_rn(carry[k], x[k]) < def[k]);
-          carry[k] = __fadd_rn(carry[k], tot[k]);
-        }
-        sel = sel && row;
-        if (c < v) {
-          vrow[c] = sel;
-          if (sel) {
-            taken[col] = 1;
-            any_flag = any_flag || v_flag[col] != 0;
-            const float* vec = v_vec + col * d;
-            for (int k = 0; k < d; ++k) {
-              evicted[k] = __fadd_rn(evicted[k], vec[k]);
-            }
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            const float y = __shfl_up_sync(kFull, incl[k], off);
+            if (lane >= off) incl[k] = __fadd_rn(incl[k], y);
           }
         }
+        bool sel = false;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const float before = __fadd_rn(carry[k], __fsub_rn(incl[k], x[k]));
+          sel = sel || (def[k] > 0.0f && before < def[k]);
+        }
+        sel = sel && elig;
+        if (sel) {
+          vrow[c] = 1;
+          flag = flag || fl;
+        }
+        const unsigned took = __ballot_sync(kFull, sel);
+        if (took) {
+          // the selection is a prefix of the eligible columns (the others
+          // add 0): its sum is the prefix at its last lane
+          const int top = 31 - __clz(took);
+          last = base + top;
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            evicted[k] = __fadd_rn(carry[k], __shfl_sync(kFull, incl[k], top));
+          }
+        }
+        bool covered = true;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          carry[k] = __fadd_rn(carry[k], __shfl_sync(kFull, incl[k], 31));
+          covered = covered && !(def[k] > 0.0f && carry[k] < def[k]);
+        }
+        // nothing after an unselected column, or past a covered prefix,
+        // is taken (the prefix never decreases)
+        base += 32;
+        if (covered || base >= v || __any_sync(kFull, elig && !sel)) break;
+        c = base + lane;
+        col = (long long)b * v + c;
+        in = c < v;
+        elig = in && v_elig[col];
+        fl = in && v_flag[col];
+#pragma unroll
+        for (int k = 0; k < D; ++k) xv[k] = in ? v_vec[col * D + k] : 0.0f;
       }
-      // evicted: block sum of the selected vectors (exact, integral)
-      float tot[kMaxDims];
-      block_exclusive_scan(evicted, d, wsum, tot);
-      for (int k = 0; k < d; ++k) evicted[k] = tot[k];
-    } else {
-      for (int c = threadIdx.x; c < v; c += kThreads) vrow[c] = 0;
+      flag = __any_sync(kFull, flag);
+      if (lane == 0 && last >= 0) ptr[b] = last + 1;
     }
-    const bool flag = __syncthreads_or(any_flag);
-    if (threadIdx.x == 0) {
+    // commit the chosen node's carry row, then rescore it
+    float nu[D], ne[D], nd[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      nu[k] = fmaxf(__fsub_rn(__fadd_rn(ub[k], ask[k]), evicted[k]), 0.0f);
+      ne[k] = fmaxf(__fsub_rn(eb[k], evicted[k]), 0.0f);
+    }
+    if (lane == 0) {
       picks[step] = b;
       flagged[step] = flag;
       scores[step] = best_s;
-      float* u = used + (long long)b * d;
-      float* e = ev + (long long)b * d;
-      for (int k = 0; k < d; ++k) {
-        u[k] = fmaxf(__fsub_rn(__fadd_rn(u[k], ask[k]), evicted[k]), 0.0f);
-        e[k] = fmaxf(__fsub_rn(e[k], evicted[k]), 0.0f);
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        u[k] = nu[k];
+        e[k] = ne[k];
       }
     }
-    __syncthreads();
+    // b's segment, read while the rescore runs
+    const int sb = b >> 5;
+    const int i = (sb << 5) + lane;
+    const uint64_t old = i < n && i != b ? keys[i] : kNoKey;
+    bool nneeds;
+    const uint64_t nk = order_key(
+        node_score<D>(a, nu, ask, ne, true, pscore, D, nd, &nneeds), b);
+    const uint64_t m = warp_min(i == b ? nk : old);
+    if (i == b) keys[b] = nk;
+    top = kNoKey;
+    for (int s = lane; s < segs; s += 32) {
+      const uint64_t t = s == sb ? m : seg[s];
+      top = t < top ? t : top;
+    }
+    top = warp_min(top);
+    if (lane == 0) seg[sb] = m;
+    __syncwarp();
   }
 }
 
@@ -332,7 +489,7 @@ preempt_pick_kernel(const float* __restrict__ avail,
     int best_i = 0x7fffffff;
     for (int i = threadIdx.x; i < n; i += kThreads) {
       bool needs;
-      const float s = node_score(avail + (long long)i * d,
+      const float s = node_score<kMaxDims>(avail + (long long)i * d,
                                  used + (long long)i * d, ask,
                                  ev + (long long)i * d, feasible[i] != 0,
                                  pscore[i], d, def, &needs);
@@ -351,7 +508,7 @@ preempt_pick_kernel(const float* __restrict__ avail,
         float* u = used + (long long)b * d;
         float* e = ev + (long long)b * d;
         bool needs;
-        node_score(a, u, ask, e, true, 0.0f, d, def, &needs);
+        node_score<kMaxDims>(a, u, ask, e, true, 0.0f, d, def, &needs);
         for (int k = 0; k < d; ++k) {
           u[k] = fminf(__fadd_rn(u[k], ask[k]), a[k]);
           e[k] = fmaxf(__fsub_rn(e[k], def[k]), 0.0f);
@@ -364,25 +521,69 @@ preempt_pick_kernel(const float* __restrict__ avail,
 
 }  // namespace
 
+// f32 words of nt_preempt_solve's scratch
+extern "C" long long nt_preempt_solve_scratch_words(int n, int d) {
+  return solve_in_smem(n) ? 2LL * n * d : key_offset(n, d) + 2LL * n;
+}
+
+template <int D>
+static cudaError_t launch_solve(const void* avail, const void* used0,
+                                const void* ask, const void* feasible,
+                                const void* net_prio, const void* active,
+                                const void* v_vec, const void* v_elig,
+                                const void* v_flag, void* scratch,
+                                void* picks, void* victims, void* flagged,
+                                void* scores, int n, int v, int k,
+                                cudaStream_t stream) {
+  const bool in_smem = solve_in_smem(n);
+  const size_t smem =
+      (size_t)segments(n) * sizeof(uint64_t) +
+      (in_smem ? (size_t)n * (sizeof(uint64_t) + sizeof(int)) : 0);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      preempt_solve_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  preempt_solve_kernel<D><<<1, kThreads, smem, stream>>>(
+      (const float*)avail, (const float*)used0, (const float*)ask,
+      (const uint8_t*)feasible, (const float*)net_prio,
+      (const uint8_t*)active, (const float*)v_vec, (const uint8_t*)v_elig,
+      (const uint8_t*)v_flag, (float*)scratch, in_smem, (int*)picks,
+      (uint8_t*)victims, (uint8_t*)flagged, (float*)scores, n, v, k);
+  return cudaGetLastError();
+}
+
+// avail, used0 (n, d) f32; ask (d,) f32; feasible (n,) bool; net_prio (n,)
+// f32; active (k,) bool; v_vec (n, v, d) f32; v_elig, v_flag (n, v) bool;
+// scratch nt_preempt_solve_scratch_words(n, d) f32 words, scratch_words
+// their count (a smaller buffer is refused); picks (k,) int32, victims
+// (k, v) bool (16-byte aligned), flagged (k,) bool, scores (k,) f32.
 extern "C" int nt_preempt_solve(const void* avail, const void* used0,
                                 const void* ask, const void* feasible,
                                 const void* net_prio, const void* active,
                                 const void* v_vec, const void* v_elig,
                                 const void* v_flag, void* scratch,
-                                void* taken, void* picks, void* victims,
-                                void* flagged, void* scores, int n, int v,
-                                int k, int d, void* stream) {
+                                void* picks, void* victims, void* flagged,
+                                void* scores, int n, int v, int k, int d,
+                                int scratch_words, void* stream) {
   if (k <= 0) return 0;
-  if (n <= 0 || v <= 0 || d < 2 || d > kMaxDims) {
+  if (n <= 0 || v <= 0 || d < 2 || d > kMaxDims ||
+      nt_preempt_solve_scratch_words(n, d) > (long long)scratch_words) {
     return (int)cudaErrorInvalidValue;
   }
-  preempt_solve_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)avail, (const float*)used0, (const float*)ask,
-      (const uint8_t*)feasible, (const float*)net_prio,
-      (const uint8_t*)active, (const float*)v_vec, (const uint8_t*)v_elig,
-      (const uint8_t*)v_flag, (float*)scratch, (uint8_t*)taken, (int*)picks,
-      (uint8_t*)victims, (uint8_t*)flagged, (float*)scores, n, v, k, d);
-  return (int)cudaGetLastError();
+  auto launch = launch_solve<2>;
+  switch (d) {
+    case 3: launch = launch_solve<3>; break;
+    case 4: launch = launch_solve<4>; break;
+    case 5: launch = launch_solve<5>; break;
+    case 6: launch = launch_solve<6>; break;
+    case 7: launch = launch_solve<7>; break;
+    case 8: launch = launch_solve<8>; break;
+    default: break;
+  }
+  return (int)launch(avail, used0, ask, feasible, net_prio, active, v_vec,
+                     v_elig, v_flag, scratch, picks, victims, flagged,
+                     scores, n, v, k, (cudaStream_t)stream);
 }
 
 extern "C" int nt_preempt_pick(const void* avail, const void* used0,

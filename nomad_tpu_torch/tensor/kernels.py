@@ -1147,10 +1147,11 @@ def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
             ("v_vec", v_vec, f32, (n, v, d)),
             ("v_elig", v_elig, b8, (n, v)), ("v_flag", v_flag, b8, (n, v))):
         _check_cuda("preempt_solve", name, t, dtype, shape, dev)
-    # the carry: used and evictable (N, D) and the preemption score (N,);
-    # the claimed-victim bits (N, V)
-    scratch = torch.empty(n * (2 * d + 1), dtype=f32, device=dev)
-    taken = torch.empty((n, v), dtype=torch.uint8, device=dev)
+    # the carry (used, evictable, a claimed-prefix pointer a node) and,
+    # where they do not fit in shared memory, the cached keys; the kernel
+    # zeroes the victims (a fresh allocation: 16-byte aligned) itself
+    words = _ext.scratch_words("nt_preempt_solve_scratch_words", n, d)
+    scratch = torch.empty(words, dtype=f32, device=dev)
     picks = torch.empty(k, dtype=torch.int32, device=dev)
     victims = torch.empty((k, v), dtype=b8, device=dev)
     flagged = torch.empty(k, dtype=b8, device=dev)
@@ -1161,9 +1162,9 @@ def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
         available.data_ptr(), used0.data_ptr(), ask.data_ptr(),
         feasible.data_ptr(), net_prio.data_ptr(), active.data_ptr(),
         v_vec.data_ptr(), v_elig.data_ptr(), v_flag.data_ptr(),
-        scratch.data_ptr(), taken.data_ptr(), picks.data_ptr(),
-        victims.data_ptr(), flagged.data_ptr(), scores.data_ptr(),
-        n, v, k, d)
+        scratch.data_ptr(), picks.data_ptr(), victims.data_ptr(),
+        flagged.data_ptr(), scores.data_ptr(), n, v, k, d, words)
+    del scratch  # held until the launch is queued
     return picks, victims, flagged, scores
 
 

@@ -30,6 +30,7 @@ bit-for-bit against :func:`jitter_ref`, :func:`jitter_fold_ref` and
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -41,10 +42,13 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 MAX_FOLDS = 8        # restarts one keyed jitter launch draws (jitter.cu)
-# largest node count the one-CTA kernels (the bulk scan, its tie
-# permutation, the joint solve's pick and the mesh kernels' shards) hold in
-# shared memory; B1 has its own (kernels.MAX_BULK_FILL_NODES)
+# largest node count the one-CTA kernels (the bulk scan, the joint solve's
+# pick and the mesh kernels' shards) hold in shared memory; B1 has its own
+# (kernels.MAX_BULK_FILL_NODES)
 MAX_FILL_NODES = 16384
+# largest count the permutation kernel sorts (16-bit values; its pairs in
+# a global scratch above 16,384)
+MAX_PERM_NODES = 65536
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -152,6 +156,7 @@ def jitter_fold_ref(seeds: torch.Tensor, n: int, his: Sequence[float],
                         for t, hi in enumerate(his)])
 
 
+@functools.lru_cache(maxsize=None)
 def permutation_rounds(n: int) -> int:
     """``jax.random._shuffle``'s number of sort rounds for n elements:
     ceil(3 ln n / ln(2**32 - 1)), in float64 as JAX computes it."""
@@ -178,9 +183,9 @@ def permutation_ref(seed: int, n: int, device=None) -> torch.Tensor:
 
 def permutation(seed: int, n: int, device) -> torch.Tensor:
     """(n,) int32 ``jax.random.permutation(PRNGKey(seed), n)`` for a seed
-    in [0, 2**32): the CUDA kernel (csrc/bulk_scan.cu ``nt_tie_perm``, one
-    CTA, n <= 16,384) on a CUDA device, :func:`permutation_ref` on the
-    CPU."""
+    in [0, 2**32): the CUDA kernels (csrc/bulk_scan.cu ``nt_tie_perm``: the
+    draws on many SMs, then one CTA's stable radix sort, n <= 65,536) on
+    a CUDA device, :func:`permutation_ref` on the CPU."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return permutation_ref(seed, n, dev)
@@ -188,16 +193,21 @@ def permutation(seed: int, n: int, device) -> torch.Tensor:
         raise ValueError(f"permutation: unsupported device {dev}")
     if not 0 <= int(seed) < 2 ** 32:
         raise ValueError(f"permutation: seed {seed} outside [0, 2**32)")
-    if not 1 <= n <= MAX_FILL_NODES:
+    if not 1 <= n <= MAX_PERM_NODES:
         raise NotImplementedError(
             f"permutation: n={n}; the one-CTA kernel sorts 1 to "
-            f"{MAX_FILL_NODES} keys in shared memory (ROADMAP A11: "
-            f"multi-CTA selection)")
-    out = torch.empty(n, dtype=torch.int32, device=dev)
+            f"{MAX_PERM_NODES} positions (ROADMAP A11b)")
+    rounds = permutation_rounds(n)
+    words = _ext.scratch_words("nt_tie_perm_scratch_words", n, rounds)
+    # the scratch and the result in one allocation (one fewer on the
+    # host's path); the result is its tail
+    buf = torch.empty(words + n, dtype=torch.int32, device=dev)
+    out = buf[words:]
     fn = _ext.entry("nt_tie_perm")
     _ext.launch(
         "tie_perm", dev, fn,
-        int(seed), n, permutation_rounds(n), out.data_ptr())
+        int(seed), n, rounds, buf.data_ptr() if words else None,
+        out.data_ptr(), words)
     return out
 
 

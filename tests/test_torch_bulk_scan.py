@@ -259,15 +259,16 @@ def test_bulk_wrappers_run_the_plain_versions_on_the_cpu():
 
 
 def test_bulk_kernel_limits_raise_before_any_launch():
-    """A node count above what the one-CTA kernels sort raises, naming
-    ROADMAP A11, and so does a seed outside uint32; nothing is built or
-    launched. (The kernel's entry refuses the other shapes it cannot take;
-    chip_smoke.py checks that on the card.)"""
+    """A node count above what the one-CTA kernels take raises, naming
+    ROADMAP A11 (the scan above 16,384, the permutation above 65,536),
+    and so does a seed outside uint32; nothing is built or launched. (The
+    kernel's entry refuses the other shapes it cannot take; chip_smoke.py
+    checks that on the card.)"""
     big = torch.zeros((32768, 4))
     with pytest.raises(NotImplementedError, match="A11"):
         kernels._bulk_dims("solve_bulk_fused", big)
     with pytest.raises(NotImplementedError, match="A11"):
-        prng.permutation(0, prng.MAX_FILL_NODES + 1, "cuda")
+        prng.permutation(0, prng.MAX_PERM_NODES + 1, "cuda")
     with pytest.raises(ValueError):
         prng.permutation(2 ** 32, 8, "cuda")
     assert kernels._bulk_dims("solve_bulk", torch.zeros((16384, 4))) == (
