@@ -52,31 +52,37 @@ Phases (any failure raises and exits non-zero):
               rack-count spread.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
               version: 5 restarts x G=16 x N_pad=16,384 in one launch,
-              bitwise.
-11. B5/B6  -- the auction (5 restarts, one launch) and the pick vs their
-              plain versions, then solve_batch vs solve_batch_ref, at the
+              bitwise (the kernel is on no path: B5 draws the same jitter
+              in its launch).
+11. B5/B6  -- the auction (5 restarts, one launch, its draws inside) and
+              the pick vs their plain versions (B5's on jitter_fold_ref's
+              draws), then solve_batch vs solve_batch_ref, at the
               C2M width (build_nodes capacities of 10,240 nodes padded to
               16,384, G=16, k=800, bench asks) on six variants (main:
               contested near-full nodes; evict; overshooting corrections;
               k=0 / sparse / infeasible rows; a 3-round cap; wide: free
               capacity on every node, long auctions): take, used, rounds,
-              counts and info exact. B5 timed on main and wide, with its
+              counts and info exact; each restart's rounds and full row
+              scans printed. B5 also at G 64 (the path shape's rows four
+              times over: its lists in the global scratch, several rows
+              a scanning CTA), exact. B5 timed on main and wide, with its
               time per round.
 12. solve  -- the "tpu-solve" path at bench.py cfg_solve_ab's c2m_mini shape:
               2,560 nodes, 50 batch jobs x 800 allocs cycling its asks, in
               worker batches of 8 (one thread per member inside
               batch_member) through Harness.process("tpu-solve"). Every
               alloc placed once, no node over capacity, joint launches >= 1,
-              joint score >= greedy score, B3'/B5/B6/B1 launched once per
+              joint score >= greedy score, B5/B6/B1 launched once per
               joint launch (B4's fold before them where there are
-              corrections), B3 never, no plain version on CUDA. Each joint
-              launch's inputs are copied as it is dispatched.
+              corrections), B3 and B3' never, no plain version on CUDA.
+              Each joint launch's inputs are copied as it is dispatched.
     runs   -- those joint launches replayed at the path's shape (N_pad
-              4,096, G 16): solve_batch, B3', B5 and the pick exact against
-              their plain versions on each; B3', B5, the pick, B1 and the
-              whole launch timed on each, and the launches' device time
-              set against the path's wall. The kernel records of B3', B5
-              and the pick are these means.
+              4,096, G 16): solve_batch, B5 and the pick exact against
+              their plain versions on each (B5's rounds and full row scans
+              printed), B3' bitwise on the same seeds; B3', B5, the pick,
+              B1 and the whole launch timed on each, and the launches'
+              device time set against the path's wall. The kernel records
+              of B3', B5 and the pick are these means.
 13. B7/B12 -- preempt_solve and preempt_pick vs their plain versions at the
               C2M width (build_nodes capacities of 10,240 nodes padded to
               16,384, K 512, V 8, cpu and memory used at 95-105%) on ten
@@ -231,13 +237,20 @@ and 23's paths, replays their launches exact against the plain
 versions and times B13, B14, B1 and solve_batch on them, through
 wrappers that its parent has too: copied into another checkout, it
 times that one's B13 and B14 in the same call.
-``python3 chip_smoke.py --kernel-times`` runs the build and times B7 at
-cfg4's shape and at the C2M width, B11' at n 16,384, B9 at cfg3, B11 on
-its seven variants, B16 at cfg3, S 4 beside B9 on the same inputs, and
-B1 (solve_bulk_multi) beside B13 at S 4 on phase 5's inputs (each
-checked against its plain version, B16 against B9, B13 against B1's
-counts) through wrappers an older checkout has too: copied into another
-checkout, it times that one's kernels in the same call.
+``python3 chip_smoke.py --kernel-times`` runs the build and times B5 and
+the whole solve_batch at the tpu-solve path's shape and at "main" and
+"wide", B3' by events and device-only, B7 at cfg4's shape and at the C2M
+width, B11' at n 16,384, B9 at cfg3, B11 on its seven variants, B16 at
+cfg3, S 4 beside B9 on the same inputs, and B1 (solve_bulk_multi) beside
+B13 at S 4 on phase 5's inputs (each checked against its plain version,
+B16 against B9, B13 against B1's counts) through wrappers an older
+checkout has too: copied into another checkout, it times that one's
+kernels in the same call.
+``python3 chip_smoke.py --b5-split`` runs the build and B5's phases:
+batch_solve.cu built with -DB5_SPLIT, which adds up clock64 between its
+barriers (the first round's scans and set-up, then each phase of a
+round), swapped in for nt_auction on "path", "main" and "wide", each
+exact.
 ``python3 chip_smoke.py --launch-split`` runs the build and only the
 split of a launch's host time: B4, B15 (S 4 on the card) and
 index_add_, and each piece of a launch alone (_ext.entry, a device
@@ -297,6 +310,7 @@ SOLVE_K = 800
 MINI_NODES = 2560
 MINI_JOBS = 50
 MINI_BATCH = 8
+PATH_PAD = 4096     # the service's N_pad for 2,560 nodes
 
 
 def card_line() -> str:
@@ -805,17 +819,17 @@ def phase_jitter_fold(torch, dev, card, rng):
 _CAPACITY = {}
 
 
-def c2m_capacity() -> np.ndarray:
-    """(N_NODES, 4) capacities of build_nodes(..., N_NODES, seed 0)."""
-    if "c2m" not in _CAPACITY:
+def c2m_capacity(n_nodes: int = N_NODES) -> np.ndarray:
+    """(n_nodes, 4) capacities of build_nodes(..., n_nodes, seed 0)."""
+    if n_nodes not in _CAPACITY:
         from nomad_tpu_torch import mock
         from nomad_tpu_torch.state import StateStore
 
         store = StateStore()
-        mock.build_nodes(store, N_NODES, seed=0)
-        _CAPACITY["c2m"] = np.stack(
+        mock.build_nodes(store, n_nodes, seed=0)
+        _CAPACITY[n_nodes] = np.stack(
             [n.available_vec() for n in store.snapshot().nodes()])
-    return _CAPACITY["c2m"]
+    return _CAPACITY[n_nodes]
 
 
 def solve_inputs(torch, dev, rng, variant: str):
@@ -831,27 +845,36 @@ def solve_inputs(torch, dev, rng, variant: str):
     rows, a row with 5 feasible nodes, an all-infeasible row); "cap"
     (rounds = 3); "wide" (the same demand, but the free capacity spread
     over every node, a few allocs' worth each: no auction converges
-    within the round cap)."""
+    within the round cap); "path" (the tpu-solve path's launch shape:
+    the build_nodes capacities of 2,560 nodes padded to 4,096, a worker
+    batch of 8 evals and 8 k = 0 padding rows, every node part used)."""
     from nomad_tpu_torch import mock
 
-    avail = np.zeros((N_PAD, 4), np.float32)
-    avail[:N_NODES] = c2m_capacity()
+    n_nodes, n_pad = ((MINI_NODES, PATH_PAD) if variant == "path"
+                      else (N_NODES, N_PAD))
+    avail = np.zeros((n_pad, 4), np.float32)
+    avail[:n_nodes] = c2m_capacity(n_nodes)
     ask = np.stack([mock.service_job(1, cpu=c, mem=m).task_groups[0]
                     .combined_resources().vec()
                     for c, m in (SOLVE_ASKS[i % len(SOLVE_ASKS)]
                                  for i in range(G))]).astype(np.float32)
     k = np.full(G, SOLVE_K, np.int32)
+    if variant == "path":
+        k[MINI_BATCH:] = 0
     demand = float((k * ask[:, 0]).sum())
-    open_nodes = rng.random(N_NODES) < (1.0 if variant == "wide" else 0.05)
-    share = demand / 0.75 / float(avail[:N_NODES, 0][open_nodes].sum())
-    fill = np.where(open_nodes, 1.0 - share * rng.uniform(0.5, 1.5, N_NODES),
+    open_nodes = rng.random(n_nodes) < (0.05 if variant in (
+        "main", "evict", "correction", "sparse", "cap") else 1.0)
+    share = demand / 0.75 / float(avail[:n_nodes, 0][open_nodes].sum())
+    fill = np.where(open_nodes, 1.0 - share * rng.uniform(0.5, 1.5, n_nodes),
                     1.0)
-    used = np.zeros((N_PAD, 4), np.float32)
-    used[:N_NODES, :3] = np.floor(avail[:N_NODES, :3] * fill[:, None])
-    feas = np.zeros((G, N_PAD), bool)
-    feas[:, :N_NODES] = rng.random((G, N_NODES)) < 0.95
-    aff = np.zeros((G, N_PAD), np.float32)
-    aff[5, :N_NODES] = rng.choice([0.0, 0.0, 0.5, -0.5], N_NODES)
+    if variant == "path":
+        fill = rng.uniform(0.0, 0.5, n_nodes)
+    used = np.zeros((n_pad, 4), np.float32)
+    used[:n_nodes, :3] = np.floor(avail[:n_nodes, :3] * fill[:, None])
+    feas = np.zeros((G, n_pad), bool)
+    feas[:, :n_nodes] = rng.random((G, n_nodes)) < 0.95
+    aff = np.zeros((G, n_pad), np.float32)
+    aff[5, :n_nodes] = rng.choice([0.0, 0.0, 0.5, -0.5], n_nodes)
     seeds = rng.integers(0, 2 ** 32, G).astype(np.int64)
     cidx = np.zeros(64, np.int32)
     cdelta = np.zeros((64, 4), np.float32)
@@ -859,20 +882,20 @@ def solve_inputs(torch, dev, rng, variant: str):
     rounds = 64
     if variant == "evict":
         k[:] = 2 * SOLVE_K          # past the free capacity: evictions pay
-        evict = np.zeros((N_PAD, 4), np.float32)
-        victims = rng.random(N_NODES) < 0.4
-        evict[:N_NODES, 0] = victims * 2000.0
-        evict[:N_NODES, 1] = victims * 4096.0
-        net_prio = np.zeros(N_PAD, np.float32)
-        net_prio[:N_NODES] = rng.uniform(0.0, 4000.0, N_NODES)
+        evict = np.zeros((n_pad, 4), np.float32)
+        victims = rng.random(n_nodes) < 0.4
+        evict[:n_nodes, 0] = victims * 2000.0
+        evict[:n_nodes, 1] = victims * 4096.0
+        net_prio = np.zeros(n_pad, np.float32)
+        net_prio[:n_nodes] = rng.uniform(0.0, 4000.0, n_nodes)
     elif variant == "correction":
-        rows = rng.integers(0, N_NODES, 48)
+        rows = rng.integers(0, n_nodes, 48)
         cidx[:48] = rows
         cdelta[:48, :3] = -used[rows, :3] - 1000.0   # overshoots: clamp
     elif variant == "sparse":
         k[[11, 15]] = 0
         feas[3] = False
-        feas[3, rng.choice(N_NODES, 5, replace=False)] = True
+        feas[3, rng.choice(n_nodes, 5, replace=False)] = True
         feas[8] = False
     elif variant == "cap":
         rounds = 3
@@ -886,7 +909,7 @@ def solve_inputs(torch, dev, rng, variant: str):
                      else torch.tensor(net_prio, device=dev))
     t["rounds"] = rounds
     t["free_share"] = demand / float(np.maximum(
-        avail[:N_NODES, 0] - used[:N_NODES, 0], 0.0).sum())
+        avail[:n_nodes, 0] - used[:n_nodes, 0], 0.0).sum())
     return t
 
 
@@ -897,14 +920,15 @@ def auction_ops(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
     demand, node) ~6 for the mask and fit test, per fitting pair ~60 more
     (fitness with two powf counted 20 each, score, jitter, price, the
     top-R test), per round ~30 per surfaced entry (winner, cap, fill,
-    price). Returns (operations, rounds per restart)."""
+    price). Returns (operations, rounds per restart, the pairs that fit in
+    the first round: each one's draw is needed at least once)."""
     from nomad_tpu_torch.tensor.batch_solver import (TOP_R, auction_ref,
                                                      preempt_score_ref)
 
     n, g = avail.shape[0], feas.shape[0]
     start = torch.clamp_min(used0, 0.0)
     pscore = None if net_prio is None else preempt_score_ref(net_prio)
-    ops = 0
+    ops = drawn = 0
     run = []
     for r, eps in enumerate(price_eps):
         trace = []
@@ -913,23 +937,28 @@ def auction_ops(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
         run.append(len(trace))
         ops += sum(live * n * 6 + fit * 60 + g * TOP_R * 30
                    for live, fit in trace)
-    return ops, run
+        drawn += trace[0][1] if trace else 0
+    return ops, run, drawn
 
 
 def auction_bound(torch, used0, avail, feas, aff, ask, k, jits, price_eps,
                   rounds=64, evict=None, net_prio=None):
-    """Least time of one B5 launch on these inputs: the inputs read once
-    and the outputs written once; and :func:`auction_ops`. Returns
-    ((ms, by), rounds per restart)."""
+    """Least time of one B5 launch on these inputs: the inputs (the seeds,
+    not the draws) read once and the outputs written once; and
+    :func:`auction_ops` plus ~120 operations (a threefry2x32) for the draw
+    of each pair that fits in the first round. Returns ((ms, by), rounds
+    per restart, (ms, by) of the parent's yardstick: the (T, G, N) draws
+    read as an input, no draw made)."""
     n, g = avail.shape[0], feas.shape[0]
-    ops, run = auction_ops(torch, used0, avail, feas, aff, ask, k, jits,
-                           price_eps, rounds, evict, net_prio)
+    ops, run, drawn = auction_ops(torch, used0, avail, feas, aff, ask, k,
+                                  jits, price_eps, rounds, evict, net_prio)
     n_t = len(price_eps)
-    n_bytes = (n * 16 * 2 + g * n * 5 + g * 24 + n_t * g * n * 4
+    n_bytes = (n * 16 * 2 + g * n * 5 + g * 24
                + n_t * (n * 16 + g * n * 4 + 4))
     if evict is not None:
         n_bytes += n * 20
-    return bound(n_bytes, ops), run
+    return (bound(n_bytes + g * 8, ops + drawn * 120), run,
+            bound(n_bytes + n_t * g * n * 4, ops))
 
 
 def pick_bound(n_t: int, g: int, n: int):
@@ -941,31 +970,61 @@ def pick_bound(n_t: int, g: int, n: int):
                  + g * n * 2 + 24, (n_t + 1) * n * (g + 60))
 
 
+def auction_runner(torch, bs, used0, a_args, seeds, his, price_eps,
+                   **kw):
+    """One B5 launch as a callable, through whichever ``auction`` this
+    checkout has: the seeds and the jitter widths (the draws inside the
+    launch) or, in a checkout before that, the (T, G, N) draws of one
+    ``jitter_fold`` made here, outside the call."""
+    import inspect
+
+    if "his" in inspect.signature(bs.auction).parameters:
+        return lambda: bs.auction(used0, *a_args, seeds, his=his,
+                                  price_eps=price_eps, **kw)
+    from nomad_tpu_torch.tensor.prng import jitter_fold
+
+    jits = jitter_fold(seeds, used0.shape[0], his)
+    return lambda: bs.auction(used0, *a_args, jits, price_eps=price_eps,
+                              **kw)
+
+
+def check_auction(torch, bs, got, used0, a_args, jits, eps, what, **kw):
+    """B5's (used, take, rounds) against the plain version on the same
+    draws."""
+    want = bs.auction_restarts_ref(used0, *a_args, jits, price_eps=eps,
+                                   **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("used", "take", "rounds"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"B5 {what}: {name} differs from the plain "
+                                 f"version")
+
+
 def phase_solve(torch, dev, card, rng):
     """B5 and B6 at the C2M width on six variants, each exact against its
-    plain version on the card: the auction alone (used, take, rounds),
-    the pick alone (used, counts, info) and the whole solve_batch (the
-    fold and clamp, both arms, the pick). Times B5 on "main" and "wide"
-    and the pick on "main"."""
+    plain version on the card: the auction alone (used, take, rounds; its
+    draws against jitter_fold_ref's), the pick alone (used, counts, info)
+    and the whole solve_batch (the fold and clamp, both arms, the pick).
+    Prints each restart's rounds and full row scans. Times B5 on "main"
+    and "wide" and the pick on "main"."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor.kernels import bulk_fill
+    from nomad_tpu_torch.tensor.prng import jitter_fold_ref
 
-    eps = bs._price_eps()
+    eps, his = bs._price_eps(), bs._jitter_his()
     notes = []
     timed = {}
     for variant in ("main", "evict", "correction", "sparse", "cap", "wide"):
         t = solve_inputs(torch, dev, rng, variant)
-        jits = bs.jitter_fold(t["seeds"], N_PAD, bs._jitter_his())
-        a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"], jits)
-        a_kw = dict(price_eps=eps, rounds=t["rounds"], evict=t["evict"],
+        jits = jitter_fold_ref(t["seeds"], N_PAD, his)
+        a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"])
+        a_kw = dict(rounds=t["rounds"], evict=t["evict"],
                     net_prio=t["net_prio"])
-        got = bs.auction(t["used"], *a_args, **a_kw)
-        want = bs.auction_restarts_ref(t["used"], *a_args, **a_kw)
-        torch.cuda.synchronize()
-        for name, x, y in zip(("used", "take", "rounds"), got, want):
-            if not torch.equal(x, y):
-                raise AssertionError(f"B5 {variant}: {name} differs from the "
-                                     f"plain version")
+        scans = torch.zeros(len(eps), dtype=torch.int32, device=dev)
+        got = bs.auction(t["used"], *a_args, t["seeds"], his=his,
+                         price_eps=eps, scans=scans, **a_kw)
+        check_auction(torch, bs, got, t["used"], a_args, jits, eps, variant,
+                      **a_kw)
         used_g = torch.clamp_min(t["used"], 0.0)
         counts_g = bulk_fill(used_g, t["avail"], t["feas"], t["aff"],
                              t["ask"], t["k"], t["seeds"])
@@ -990,33 +1049,114 @@ def phase_solve(torch, dev, card, rng):
                 raise AssertionError(f"B6 solve_batch {variant}: {name} "
                                      f"differs from the plain version")
         info = s_got[2].cpu().numpy()
-        notes.append(f"{variant}: rounds {got[2].tolist()}, placed auction "
-                     f"{int(info[2])} / greedy {int(info[3])}, auction won "
-                     f"{int(info[5])}")
+        notes.append(f"{variant}: rounds {got[2].tolist()}, scans "
+                     f"{scans.tolist()}, placed auction {int(info[2])} / "
+                     f"greedy {int(info[3])}, auction won {int(info[5])}")
         if variant in ("main", "wide"):
-            timed[variant] = (t, a_args, a_kw, p_args)
+            timed[variant] = (t, a_args, a_kw, jits, p_args)
+    # G 64: the lists in the global scratch and several rows a scanning
+    # CTA; the path shape's rows four times over, each with its own seed
+    t = solve_inputs(torch, dev, rng, "path")
+    a_args = (t["avail"], t["feas"].repeat(4, 1), t["aff"].repeat(4, 1),
+              t["ask"].repeat(4, 1), t["k"].repeat(4))
+    seeds = torch.tensor(rng.integers(0, 2 ** 32, 4 * G), device=dev)
+    scans = torch.zeros(len(eps), dtype=torch.int32, device=dev)
+    got = bs.auction(t["used"], *a_args, seeds, his=his, price_eps=eps,
+                     scans=scans)
+    check_auction(torch, bs, got, t["used"], a_args,
+                  jitter_fold_ref(seeds, PATH_PAD, his), eps, "G 64")
+    notes.append(f"G 64 at N_pad {PATH_PAD} (B5 alone): rounds "
+                 f"{got[2].tolist()}, scans {scans.tolist()}")
     print(f"B5/B6 solve [{card}] 6 variants exact (take, used, rounds, "
-          f"counts, info) at N_pad {N_PAD}, G {G}; " + "; ".join(notes))
-    for variant, (t, a_args, a_kw, p_args) in timed.items():
-        ms_a = cuda_time_ms(torch, lambda _: bs.auction(t["used"], *a_args,
-                                                        **a_kw), reps=5)
+          f"counts, info) at N_pad {N_PAD}, G {G}, and B5 at G 64; "
+          + "; ".join(notes))
+    for variant, (t, a_args, a_kw, jits, p_args) in timed.items():
+        ms_a = cuda_time_ms(torch, lambda _: bs.auction(
+            t["used"], *a_args, t["seeds"], his=his, price_eps=eps, **a_kw),
+            reps=5)
         plain_a = cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
-            t["used"], *a_args, **a_kw), reps=2, warmup=1)
-        (b_a, by_a), rounds = auction_bound(
-            torch, t["used"], *a_args, eps, rounds=t["rounds"],
+            t["used"], *a_args, jits, price_eps=eps, **a_kw), reps=2,
+            warmup=1)
+        (b_a, by_a), rounds, (b_y, by_y) = auction_bound(
+            torch, t["used"], *a_args, jits, eps, rounds=t["rounds"],
             evict=t["evict"], net_prio=t["net_prio"])
         print(f"B5 auction  [{card}] {variant} (demand {t['free_share']:.2f} "
               f"of the free cpu): kernel {ms_a:.4f} ms ({len(eps)} restarts "
               f"side by side, rounds {rounds}: {ms_a / max(rounds):.4f} ms a "
               f"round of the longest restart), plain {plain_a:.4f} ms, bound "
-              f"{b_a:.6f} ms ({by_a})")
-    p_args = timed["main"][3]
+              f"{b_a:.6f} ms ({by_a}; the parent's yardstick, the draws "
+              f"read: {b_y:.6f} ms, {by_y})")
+    p_args = timed["main"][4]
     ms_p = cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args))
     plain_p = cuda_time_ms(torch, lambda _: bs.batch_pick_ref(*p_args),
                            reps=5)
     b_p, by_p = pick_bound(len(eps), G, N_PAD)
     print(f"B6 pick     [{card}] main: kernel {ms_p:.4f} ms, plain "
           f"{plain_p:.4f} ms, bound {b_p:.6f} ms ({by_p})")
+
+
+# B5's phases in the order of batch_solve.cu's B5_STAMP slots (k 0-5)
+B5_PHASES = ("loop condition", "update", "top R and rescans", "winners",
+             "fill", "updates and buckets")
+
+
+def b5_split(torch, dev, card, rng) -> int:
+    """``--b5-split``: where B5's time goes. Builds csrc/batch_solve.cu
+    with -DB5_SPLIT into build/b5_split/ (its restart CTAs add up
+    ``clock64`` between barriers: the first round's scans and set-up, then
+    each phase of the first round and of the later ones), swaps it in for
+    nt_auction, and runs "main", "wide" and the "path" shape, each exact
+    against the plain version. Prints the cycles of the slowest restart."""
+    import ctypes
+
+    from nomad_tpu_torch import _ext
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor.prng import jitter_fold_ref
+
+    out = REPO / "build" / "b5_split"
+    out.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_ext._nvcc()] + _ext.NVCC_FLAGS + [
+        "-DB5_SPLIT", "-I", str(_ext.CSRC), "-o", str(out / "lib.so"),
+        str(_ext.CSRC / "batch_solve.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    fn = lib.nt_auction
+    fn.argtypes, fn.restype = _ext._SIGNATURES["nt_auction"][1], ctypes.c_int
+    lib.b5_split_read.argtypes = [ctypes.c_void_p]
+    real = _ext.entry("nt_auction")
+    his, eps = bs._jitter_his(), bs._price_eps()
+    for variant in ("path", "main", "wide"):
+        t = solve_inputs(torch, dev, rng, variant)
+        a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"])
+        _ext._fns["nt_auction"] = fn
+        try:
+            got = bs.auction(t["used"], *a_args, t["seeds"], his=his,
+                             price_eps=eps, rounds=t["rounds"])
+            torch.cuda.synchronize()
+        finally:
+            _ext._fns["nt_auction"] = real
+        check_auction(torch, bs, got, t["used"], a_args,
+                      jitter_fold_ref(t["seeds"], t["avail"].shape[0], his),
+                      eps, variant, rounds=t["rounds"])
+        buf = (ctypes.c_longlong * 256)()
+        if lib.b5_split_read(buf):
+            raise AssertionError("--b5-split: the read failed")
+        ph = np.array(buf[:]).reshape(16, 16)[:len(eps)]
+        worst = int(ph.sum(axis=1).argmax())
+        row, rnd = ph[worst], int(got[2][worst])
+        print(f"B5 split    [{card}] {variant}: restart {worst}, {rnd} "
+              f"rounds, {int(row.sum())} cycles: first round's scans and "
+              f"set-up {row[6]}; round 1: "
+              + ", ".join(f"{name} {row[k]}"
+                          for k, name in enumerate(B5_PHASES))
+              + "; a later round: "
+              + ", ".join(f"{name} {row[8 + k] / max(rnd - 1, 1):.0f}"
+                          for k, name in enumerate(B5_PHASES)))
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.strip()
+    print(f"B5 split    SM clock {clocks}")
+    print(card)
+    return 0
 
 
 def phase_path(torch, card, device="cuda"):
@@ -1144,13 +1284,13 @@ def phase_solve_path(torch, card, device="cuda"):
     if stats["joint_score"] < stats["greedy_score"]:
         raise AssertionError(f"joint score {stats['joint_score']} below the "
                              f"greedy score {stats['greedy_score']}")
-    for name in ("jitter_fold", "auction", "batch_pick", "bulk_fill"):
+    for name in ("auction", "batch_pick", "bulk_fill"):
         if launched[name] != joint:
             raise AssertionError(f"{name} launched {launched[name]} times "
                                  f"for {joint} joint launches")
-    if launched["jitter"]:
-        raise AssertionError(f"B3 launched on the tpu-solve path (B1 draws "
-                             f"the jitter): {launched}")
+    if launched["jitter"] or launched["jitter_fold"]:
+        raise AssertionError(f"B3 or B3' launched on the tpu-solve path (B1 "
+                             f"and B5 draw their jitter): {launched}")
     if len(captured) != joint:
         raise AssertionError(f"{len(captured)} joint launches copied, "
                              f"{joint} counted")
@@ -1173,10 +1313,12 @@ def phase_solve_path(torch, card, device="cuda"):
 def phase_solve_launches(torch, card, wall, captured):
     """The tpu-solve path's own joint launches, replayed from their copied
     inputs at the shape the path gave them (N_pad 4,096, G 16): the whole
-    solve_batch and each of its new kernels (B3', B5, the pick) exact
-    against the plain versions; the kernels, B1 and the whole launch
-    timed on each. Returns the kernel records of B3', B5 and the pick:
-    times and bounds are means over the path's launches."""
+    solve_batch and B5 and the pick exact against the plain versions, B5
+    with its rounds and full row scans per restart; the kernels, B1 and
+    the whole launch timed on each. B3' (``jitter_fold``, off the path
+    since B5 draws its jitter) is held bitwise against its plain version
+    and timed on the same seeds. Returns the kernel records of B3', B5
+    and the pick: times and bounds are means over the path's launches."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor.kernels import bulk_fill, bulk_fill_ref
     from nomad_tpu_torch.tensor.prng import jitter_fold, jitter_fold_ref
@@ -1185,7 +1327,7 @@ def phase_solve_launches(torch, card, wall, captured):
     torch.cuda.synchronize()
     his, eps = bs._jitter_his(), bs._price_eps()
     rows = {name: [] for name in ("jitter_fold", "auction", "batch_pick")}
-    b1_ms, b1_plain, whole_ms, rounds = [], [], [], []
+    b1_ms, b1_plain, whole_ms, rounds, scans, yard = [], [], [], [], [], []
     for i, (args, kw) in enumerate(captured):
         used0, avail, feas, aff, ask, k, tgc, seeds, cidx, cdelta = args[:10]
         rest = args[1:]
@@ -1198,19 +1340,17 @@ def phase_solve_launches(torch, card, wall, captured):
                 raise AssertionError(f"path launch {i}: solve_batch {name} "
                                      f"differs from the plain version")
         folded = scatter_add_ref(used0.clone(), cidx, cdelta)
-        jits = jitter_fold(seeds, n, his)
-        if not torch.equal(jits.view(torch.int32),
-                           jitter_fold_ref(seeds, n, his).view(torch.int32)):
+        jits = jitter_fold_ref(seeds, n, his)
+        if not torch.equal(jitter_fold(seeds, n, his).view(torch.int32),
+                           jits.view(torch.int32)):
             raise AssertionError(f"path launch {i}: B3' differs from the "
                                  f"plain version")
-        a_args = (avail, feas, aff, ask, k, jits)
-        got = bs.auction(folded, *a_args, price_eps=eps)
-        want = bs.auction_restarts_ref(folded, *a_args, price_eps=eps)
-        torch.cuda.synchronize()
-        for name, x, y in zip(("used", "take", "rounds"), got, want):
-            if not torch.equal(x, y):
-                raise AssertionError(f"path launch {i}: B5 {name} differs "
-                                     f"from the plain version")
+        a_args = (avail, feas, aff, ask, k)
+        count = torch.zeros(len(eps), dtype=torch.int32, device=used0.device)
+        got = bs.auction(folded, *a_args, seeds, his=his, price_eps=eps,
+                         scans=count)
+        check_auction(torch, bs, got, folded, a_args, jits, eps,
+                      f"path launch {i}")
         fill_args = (avail, feas, aff, ask, k, seeds)
         used_g = folded.clone()
         counts_g = bulk_fill(used_g, *fill_args)
@@ -1227,12 +1367,13 @@ def phase_solve_launches(torch, card, wall, captured):
             cuda_time_ms(torch, lambda _: jitter_fold_ref(seeds, n, his),
                          reps=5),
             fold_bound(len(his), g, n)))
-        b_a, run = auction_bound(torch, folded, *a_args, eps)
+        b_a, run, b_y = auction_bound(torch, folded, *a_args, jits, eps)
         rows["auction"].append((
-            cuda_time_ms(torch, lambda _: bs.auction(folded, *a_args,
-                                                     price_eps=eps), reps=5),
+            cuda_time_ms(torch, lambda _: bs.auction(
+                folded, *a_args, seeds, his=his, price_eps=eps), reps=5),
             cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
-                folded, *a_args, price_eps=eps), reps=2, warmup=1),
+                folded, *a_args, jitter_fold_ref(seeds, n, his),
+                price_eps=eps), reps=2, warmup=1),
             b_a))
         rows["batch_pick"].append((
             cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args)),
@@ -1248,17 +1389,22 @@ def phase_solve_launches(torch, card, wall, captured):
             torch, lambda u: bs.solve_batch(u, *rest, **kw),
             setup=used0.clone, reps=5))
         rounds.append(run)
+        scans.append(count.tolist())
+        yard.append(b_y[0])
     n_l = len(captured)
     mean = statistics.fmean
     print(f"solve runs  [{card}] the path's {n_l} joint launches replayed at "
-          f"N_pad {n}, G {g}: solve_batch, B3', B5 and the pick exact on "
-          f"each; rounds per restart {rounds}")
+          f"N_pad {n}, G {g}: solve_batch, B5 (its draws included) and the "
+          f"pick exact on each, B3' bitwise; rounds per restart {rounds}; "
+          f"full row scans per restart {scans}")
     print(f"solve runs  [{card}] per launch (mean): solve_batch "
           f"{mean(whole_ms):.4f} ms, of it B1 {mean(b1_ms):.4f} ms (plain "
           f"{mean(b1_plain):.4f} ms), "
           + ", ".join(f"{name} {mean(r[0] for r in v):.4f} ms"
                       for name, v in rows.items())
-          + f"; {n_l} launches {sum(whole_ms):.4f} ms of device time = "
+          + f" (jitter_fold off the path); B5's bound on the parent's "
+          f"yardstick (the draws read) {mean(yard):.6f} ms; {n_l} launches "
+          f"{sum(whole_ms):.4f} ms of device time = "
           f"{100.0 * sum(whole_ms) / 1e3 / wall:.2f}% of the path's "
           f"{wall:.3f} s wall")
     out = []
@@ -3516,7 +3662,7 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint,
         folded = scatter_add_ref(full[0].clone(), cidx, cdelta).clamp_min(0.0)
         ev_kw = {key: sh.gather_rows(kw[key]) for key in ("evict", "net_prio")
                  if kw.get(key) is not None}
-        a_ops, run = auction_ops(torch, folded, full[1], full[2], full[3],
+        a_ops, run, _ = auction_ops(torch, folded, full[1], full[2], full[3],
                                  ask, k, jitter_fold(seeds, n, his), eps,
                                  kw.get("rounds", 64), **ev_kw)
         greedy_rounds = int(got[3]) - sum(run) - len(run) - 1
@@ -3958,16 +4104,56 @@ def kernel_times(torch, dev, card, rng) -> int:
     and at the C2M width ("main", N_pad 16,384, K 512, V 8), B11' at n
     16,384, B9 at cfg3, B11 on its seven variants at N_pad 16,384, B16 at
     cfg3, S 4 beside B9 on the same inputs, and B1 (solve_bulk_multi)
-    beside B13 at S 4 on phase 5's inputs, each exact against its plain
-    version (B16 bit-equal to B9, B13 to B1's counts) and timed, through
-    wrappers that this tree and its parent (14a7767) both have, so this
-    script copied into another checkout times that checkout's kernels.
-    Prints one JSON line of ms."""
+    beside B13 at S 4 on phase 5's inputs, B5 alone (``b5_*``) and the
+    whole solve_batch (``b6_*``) at the tpu-solve path's shape (N_pad
+    4,096, G 16) and at "main" and "wide" (N_pad 16,384), and B3'
+    (jitter_fold, 5 x 16 x 4,096) by events and device-only
+    (``b3p_device``), each exact against its plain version (B16 bit-equal
+    to B9, B13 to B1's counts) and timed, through wrappers that this tree
+    and its parent (e96eb8f) both have (B5 through auction_runner), so
+    this script copied into another checkout times that checkout's
+    kernels. Prints one JSON line of ms."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor import kernels
     from nomad_tpu_torch.tensor import sharding as sh
-    from nomad_tpu_torch.tensor.prng import permutation, permutation_ref
+    from nomad_tpu_torch.tensor.prng import (jitter_fold, jitter_fold_ref,
+                                             permutation, permutation_ref)
 
     times = {}
+    # B5 and solve_batch on inputs of their own seed: the same in any tree
+    srng = np.random.default_rng(13)
+    his, eps = bs._jitter_his(), bs._price_eps()
+    for variant in ("path", "main", "wide"):
+        t = solve_inputs(torch, dev, srng, variant)
+        n = t["avail"].shape[0]
+        a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"])
+        run = auction_runner(torch, bs, t["used"], a_args, t["seeds"], his,
+                             eps, rounds=t["rounds"])
+        check_auction(torch, bs, run(), t["used"], a_args,
+                      jitter_fold_ref(t["seeds"], n, his), eps, variant,
+                      rounds=t["rounds"])
+        times[f"b5_{variant}"] = cuda_time_ms(torch, lambda _: run(), reps=5)
+        s_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
+                  t["tgc"], t["seeds"], t["cidx"], t["cdelta"])
+        got = bs.solve_batch(t["used"].clone(), *s_args, g=G,
+                             rounds=t["rounds"])
+        want = bs.solve_batch_ref(t["used"].clone(), *s_args, g=G,
+                                  rounds=t["rounds"])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"solve_batch {variant}: differs from the "
+                                 f"plain version")
+        times[f"b6_{variant}"] = cuda_time_ms(
+            torch, lambda u: bs.solve_batch(u, *s_args, g=G,
+                                            rounds=t["rounds"]),
+            setup=t["used"].clone, reps=5)
+        times[f"b6_{variant}_rounds"] = int(got[2][4])
+        if variant == "path":
+            seeds = t["seeds"]
+    times["b3p_path"] = cuda_time_ms(
+        torch, lambda _: jitter_fold(seeds, PATH_PAD, his), reps=20)
+    times["b3p_device"] = device_only_ms(
+        torch, lambda: jitter_fold(seeds, PATH_PAD, his))
     for name, host in (
             ("b7_cfg4", preempt_inputs(rng, "main", n_pad=CFG4_NODES,
                                        n_real=CFG4_NODES, v=512)),
@@ -4078,6 +4264,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if sys.argv[1:] == ["--sharded"]:
         return sharded_only(torch, dev, card, rng)
+    if sys.argv[1:] == ["--b5-split"]:
+        return b5_split(torch, dev, card, rng)
     if sys.argv[1:] == ["--launch-split"]:
         phase_launch_split(torch, dev, card)
         print(card)

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "nt_bulk_fill": ("bulk_fill", [_P] * 11 + [_I] * 4 + [_F, _P]),
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
     "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 8 + [_P]),
-    "nt_auction": ("batch_solve", [_P] * 14 + [_I] * 4 + [_P]),
+    "nt_auction": ("batch_solve", [_P] * 17 + [_I] * 4 + [_P]),
     "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
     "nt_preempt_solve": ("preempt", [_P] * 14 + [_I] * 5 + [_P]),
     "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
@@ -71,6 +71,7 @@ _SIGNATURES = {
 # scratch at the sizes given, as a long long (no launch, no card)
 _QUERIES = {
     "nt_bulk_fill_scratch_words": ("bulk_fill", [_I]),
+    "nt_auction_scratch_words": ("batch_solve", [_I] * 2),
     "nt_solve_task_group_scratch_words": ("task_group", [_I] * 6),
     "nt_bulk_scan_scratch_words": ("bulk_scan", [_I] * 4),
     "nt_tie_perm_scratch_words": ("bulk_scan", [_I] * 2),

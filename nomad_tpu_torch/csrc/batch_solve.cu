@@ -2,15 +2,14 @@
 // SchedulerAlgorithm="tpu-solve".
 //
 // Replaces: _auction (nomad_tpu/tensor/batch_solver.py:137-253) with its
-// five PORTFOLIO restarts, and the packing scores, restart chain and
-// auction-vs-greedy pick of solve_batch (:256-358, with _packing_score_xp
-// :121-126 and kernels._pairwise_sum_xp kernels.py:91-110). The rest of
-// solve_batch runs as the port's other kernels on the same stream: the
-// correction fold (scatter.cu), the greedy arm (jitter.cu + bulk_fill.cu)
-// and the restarts' fold_in draws (jitter.cu, nt_jitter_fold).
+// five PORTFOLIO restarts and their fold_in jitter (:319-323, B3', drawn
+// here), and the packing scores, restart chain and auction-vs-greedy pick
+// of solve_batch (:256-358, with _packing_score_xp :121-126 and
+// kernels._pairwise_sum_xp kernels.py:91-110). The rest of solve_batch
+// runs as the port's other kernels on the same stream: the correction fold
+// (scatter.cu) and the greedy arm (bulk_fill.cu).
 //
-// nt_auction, per restart t (one CTA of 1024 threads each, so the restarts
-// run side by side on T SMs), from used = max(used0, 0), price = 0:
+// nt_auction, per restart t, from used = max(used0, 0), price = 0:
 //   while rnd < rounds && progressed && any(remaining > 0):
 //     bid[g,n] = score(g,n) + jit[t,g,n] - price[n] where feasible, fitting
 //                (within avail + evict) and remaining[g] > 0, else NEG
@@ -22,20 +21,43 @@
 //     price[n] += eps[t] on nodes that were both contested and drained
 // With evict, fitness is taken at min(used + ask, avail) and over-capacity
 // bids add the logistic preemption score of net_prio and divide by one more.
+// jit[t,g,n] is U[0, hi_t) from fold_in(PRNGKey(seed_g), t) at node n
+// (B3'), drawn where a pair is scored from the row's key, folded once.
 //
-// Bound on the H100: operations. Every round scores all G x N (eval, node)
-// pairs (two powf each) on one SM per restart; the bytes are a few MB.
+// Bound on the H100: bytes. The reference's rounds score all G x N pairs
+// (two powf each), but a pair's bid moves only when its node's usage or
+// price moves, and a round moves at most G x R nodes.
 //
-// Design. The bids never leave the CTA: two warps own a row, each lane
-// keeps the 16 best (key, node) pairs it has seen in registers (a 64-bit
-// key: an order-preserving image of the bid over the node's complement, so
-// the unique key order is exactly top_k's), the warp merges its 32 lists by
-// shuffles, and one thread per row merges the two warps' lists. The <= G x R
-// surfaced entries live in shared memory; winners, caps, the row fill and
-// the price bumps are resolved there by comparing the entries pairwise (no
-// per-node scratch, no atomics), and the only global writes of a round are
-// the winners' usage, take and price cells. The loop condition is computed
-// in shared memory, so the host never syncs between rounds.
+// Design: per-row candidate lists. A row's nodes belong to 64 home lanes
+// (node n to lane (n >> 4) & 63); each (row, lane) keeps a sorted list of
+// up to kDepth = R keys (topr.cuh's bid_key: top_k's order, unique per
+// node) and a floor. Invariant: every fitting home node outside the list
+// has a current key below the floor; every entry holds its node's current
+// key.
+//   - A scan scores every node of a row with all 1024 threads of a CTA,
+//     each keeping its keys (at most 16) in registers; the 16 threads of a
+//     lane (a half-warp) merge theirs into its list, and the floor goes
+//     just above the best key left out.
+//   - After a round, each row with demand left drops the nodes the round
+//     touched (usage moved; a price moves only where usage did) from its
+//     lists, rescores them and inserts each key at or above its lane's
+//     floor; a full list evicts its smallest key and raises the floor just
+//     above it.
+//   - A row's top R is the top R of its lists (one warp a row) whenever its
+//     R-th key is at or above every lane's floor; otherwise the row is
+//     scanned again (after a scan it always is: a list holds R keys).
+// One cooperative launch of T x C CTAs (C at most G, as many as the card
+// holds at once): every CTA initialises a slice of its restart's carry,
+// prices and takes and scans the first round of rows c, c + C, ... into a
+// global scratch; after one barrier (mesh.cuh) CTA 0 of each restart runs
+// its rounds alone, side by side with the others, its lists copied into
+// dynamic shared memory where they fit (else read in the scratch, L2).
+// The round's resolution never leaves the CTA: the <= G x R surfaced
+// entries live in shared memory; a node's best bid and bid count come from
+// a table of the surfaced nodes (shared atomics), then caps, the row fill
+// and the price bumps; the only global writes of a round are the winners'
+// usage, take and price cells. The loop condition is computed in shared
+// memory, so the host never syncs between rounds.
 //
 // nt_batch_pick: one CTA scores the T restarts and the greedy arm (placed
 // per node times the BestFit fitness of the final usage, summed by the
@@ -54,7 +76,9 @@
 #include <stdint.h>
 
 #include "fit.cuh"
+#include "mesh.cuh"
 #include "sort.cuh"
+#include "threefry.cuh"
 #include "topr.cuh"
 
 namespace {
@@ -63,178 +87,517 @@ constexpr int kDims = 4;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = kThreads / nt_topr::kTopR;  // one thread per surfaced entry
+constexpr int kMaxEnt = kMaxG * nt_topr::kTopR;
 constexpr int kMaxPad = 16384;           // pairwise tree in shared memory
-constexpr float kNeg = -1.0e30f;
+constexpr int kLanes = 64;               // home lanes of a row
+constexpr int kRowsAtOnce = kThreads / kLanes;
+constexpr int kSub = kThreads / kLanes;  // scan threads of a lane
+constexpr int kDepth = nt_topr::kTopR;   // keys a lane's list holds
+// a scan thread scores at most R nodes of a row, so its register list
+// keeps every one (the caller, solve_batch, pads to at most 16,384)
+constexpr int kMaxNodes = kThreads * nt_topr::kTopR;
+constexpr int kTouchedBytes = kMaxNodes / 8;
+// dynamic shared memory a CTA may take beside its ~31 KB of static arrays
+constexpr long long kDynSmem = 176 * 1024;
 // B2 and the preemption score: fit.cuh
 using nt_fit::fit_score;
 using nt_fit::preempt_score;
+// the barrier after the first round's scans: mesh.cuh
+using nt_mesh::group_sync;
+// the restarts' draws: threefry.cuh
+using nt_threefry::bits_to_unit;
+using nt_threefry::fold_key;
+using nt_threefry::threefry_bits;
 // top_k's order and the per-lane / per-warp top-R lists: topr.cuh
 using nt_topr::bid_key;
 using nt_topr::key_idx;
 using nt_topr::key_val;
 using nt_topr::kTopR;
 using nt_topr::topr_insert;
-using nt_topr::warp_topr;
 // the reference's fixed pairwise tree: sort.cuh
 using nt_sort::block_pairwise_sum;
 
+#ifdef B5_SPLIT
+// `chip_smoke.py --b5-split` builds this file with -DB5_SPLIT: thread 0 of
+// a restart's round CTA adds up clock64 between the round's barriers into
+// b5_split_cycles[t]: slot 6 the first round's scans and set-up, 0-5 the
+// first round's phases, 8-13 the later rounds' (B5_STAMP's k below)
+__device__ long long b5_split_cycles[16][16];
+#define B5_SPLIT_BEGIN \
+  long long ph_[16] = {}; \
+  long long t_last_ = clock64();
+#define B5_STAMP(slot)                  \
+  if (threadIdx.x == 0) {               \
+    const long long now_ = clock64();   \
+    ph_[slot] += now_ - t_last_;        \
+    t_last_ = now_;                     \
+  }
+#define B5_SPLIT_END(t) \
+  for (int q = 0; q < 16; ++q) b5_split_cycles[t][q] = ph_[q];
+#else
+#define B5_SPLIT_BEGIN
+#define B5_STAMP(slot)
+#define B5_SPLIT_END(t)
+#endif
+
+struct AuctionArgs {
+  const float* used0;  // (n, 4)
+  const float* avail;  // (n, 4)
+  const uint8_t* feas;  // (g, n)
+  const float* aff;     // (g, n)
+  const float* ask;     // (g, 4)
+  const int* kk;        // (g,)
+  const long long* seeds;  // (g,) PRNGKey seeds
+  const float* params;  // (2, T): price temperatures, then jitter widths
+  const float* evict;   // (n, 4) or null
+  const float* net_prio;  // (n,) or null
+  float* used_out;      // (T, n, 4)
+  int* take_out;        // (T, g, n)
+  int* rounds_out;      // (T,)
+  float* price_buf;     // (T, n)
+  uint64_t* lists;      // (T, list_words): the first round's scans
+  int* scans_out;       // (T,) scans run, or null
+  unsigned* barrier;    // a zeroed barrier group (mesh.cuh)
+  int n_t, g, n, rounds;
+  int scan_ctas;        // CTAs a restart scans its first round on
+  int smem_lists;       // a restart keeps its lists in shared memory
+};
+
+// a restart's lists: row r's region is (kDepth + 2) x kLanes words, entry
+// j of lane l at [j][l] (a warp's lanes on consecutive words), then the
+// lanes' floors, then their counts
+struct Lists {
+  uint64_t* p;
+  __device__ uint64_t* at(int row, int j, int l) const {
+    return p + ((long long)row * (kDepth + 2) + j) * kLanes + l;
+  }
+  __device__ uint64_t& floor(int row, int l) const {
+    return *at(row, kDepth, l);
+  }
+  __device__ uint64_t& count(int row, int l) const {
+    return *at(row, kDepth + 1, l);
+  }
+};
+
+__host__ __device__ __forceinline__ long long list_words(int g) {
+  return (long long)g * (kDepth + 2) * kLanes;
+}
+
+// the slots of the table of a round's surfaced nodes: a power of two, at
+// least twice the G x R entries
+__host__ __device__ __forceinline__ int hash_slots(int g) {
+  int s = 64;
+  while (s < 2 * g * nt_topr::kTopR) s <<= 1;
+  return s;
+}
+
+__device__ __forceinline__ int hash_slot(int idx, int slots) {
+  return (int)(((uint32_t)idx * 2654435761u) >> 7) & (slots - 1);
+}
+
+// the bid in IEEE order (-0.0 equal to +0.0) over the complement of the
+// eval: the largest is the node's best bid, ties to the lowest eval
+__device__ __forceinline__ uint64_t best_key(float v, int eval) {
+  const uint32_t u = __float_as_uint(__fadd_rn(v, 0.0f));
+  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((uint64_t)ord << 32) | (uint64_t)(~(uint32_t)eval);
+}
+
+__device__ __forceinline__ int home_lane(int i) { return (i >> 4) & 63; }
+
+__device__ __forceinline__ float4 row4(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+
+// the key of pair (row, i) against the current usage and price, or 0 where
+// the node is infeasible or does not fit. kFirst: the first round's, from
+// max(used0, 0) at price 0. The loads go out together (one L2 round trip a
+// pair: the loop is latency-bound, not bandwidth-bound).
+template <bool kFirst>
+__device__ __forceinline__ uint64_t pair_key(const AuctionArgs& a,
+                                             const float* used,
+                                             const float* price, int row,
+                                             int i, const float (&a_g)[kDims],
+                                             uint32_t k0, uint32_t k1,
+                                             float span) {
+  const bool has_evict = a.evict != nullptr;
+  const bool feasible = a.feas[(long long)row * a.n + i] != 0;
+  const float4 v4 = row4(a.avail, i);
+  const float4 u4 = row4(used, i);
+  const float4 e4 = has_evict ? row4(a.evict, i) : make_float4(0, 0, 0, 0);
+  const float af = a.aff[(long long)row * a.n + i];
+  const float pr = kFirst ? 0.0f : price[i];
+  if (!feasible) return 0;
+  const float av[kDims] = {v4.x, v4.y, v4.z, v4.w};
+  const float u[kDims] = {kFirst ? fmaxf(u4.x, 0.0f) : u4.x,
+                          kFirst ? fmaxf(u4.y, 0.0f) : u4.y,
+                          kFirst ? fmaxf(u4.z, 0.0f) : u4.z,
+                          kFirst ? fmaxf(u4.w, 0.0f) : u4.w};
+  const float ev[kDims] = {e4.x, e4.y, e4.z, e4.w};
+  float nu[kDims];
+  bool ok = true;
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) {
+    const float cap_d = has_evict ? __fadd_rn(av[d], ev[d]) : av[d];
+    nu[d] = __fadd_rn(u[d], a_g[d]);
+    ok = ok && (nu[d] <= cap_d);
+  }
+  if (!ok) return 0;
+  const bool aff_present = af != 0.0f;
+  const float aff_term = aff_present ? af : 0.0f;
+  const float divisor = aff_present ? 2.0f : 1.0f;
+  float score;
+  if (!has_evict) {
+    score = __fdiv_rn(__fadd_rn(fit_score(av, nu), aff_term), divisor);
+  } else {
+    float cl[kDims];
+    bool over = false;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) {
+      cl[d] = fminf(nu[d], av[d]);
+      over = over || (nu[d] > av[d]);
+    }
+    const float num = __fadd_rn(__fadd_rn(fit_score(av, cl), aff_term),
+                                over ? preempt_score(a.net_prio[i]) : 0.0f);
+    score = __fdiv_rn(num, __fadd_rn(divisor, over ? 1.0f : 0.0f));
+  }
+  const float jit = bits_to_unit(threefry_bits(k0, k1, 0u, (uint32_t)i), span);
+  return bid_key(__fsub_rn(__fadd_rn(score, jit), pr), i);
+}
+
+__device__ __forceinline__ uint64_t half_max(uint64_t v) {
+#pragma unroll
+  for (int off = kSub / 2; off > 0; off >>= 1) {
+    const uint64_t o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint64_t warp_max(uint64_t v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const uint64_t o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+// rebuild row's lists from a scan of every node, all threads: thread tid
+// scores nodes tid + 1024 j (all of lane tid >> 4: the 16 threads of a lane
+// are one half-warp), keeps them sorted (at most R), and the half-warp
+// merges them
+template <bool kFirst>
+__device__ __forceinline__ void scan_row(const AuctionArgs& a,
+                                         const Lists& L, const float* used,
+                                         const float* price, int row,
+                                         const float (&a_g)[kDims],
+                                         uint32_t k0, uint32_t k1,
+                                         float span) {
+  const int tid = threadIdx.x;
+  uint64_t lst[kTopR];
+#pragma unroll
+  for (int i = 0; i < kTopR; ++i) lst[i] = 0;
+  for (int i = tid; i < a.n; i += kThreads) {
+    const uint64_t key =
+        pair_key<kFirst>(a, used, price, row, i, a_g, k0, k1, span);
+    if (key != 0) topr_insert(lst, key);
+  }
+  const int l = tid / kSub;
+  uint64_t* dst = L.at(row, 0, l);
+  int c = 0;
+  for (int j = 0; j < kDepth; ++j) {
+    const uint64_t best = half_max(lst[0]);
+    if (best != 0) {
+      if ((tid & (kSub - 1)) == 0) dst[(long long)j * kLanes] = best;
+      if (lst[0] == best) {  // keys are unique: one owner pops
+#pragma unroll
+        for (int i = 0; i < kTopR - 1; ++i) lst[i] = lst[i + 1];
+        lst[kTopR - 1] = 0;
+      }
+      ++c;
+    }
+  }
+  const uint64_t rest = half_max(lst[0]);
+  if ((tid & (kSub - 1)) == 0) {
+    L.floor(row, l) = rest ? rest + 1 : 0;
+    L.count(row, l) = (uint64_t)c;
+  }
+}
+
+// insert key into lane l's sorted list (key != 0); a full list evicts its
+// smallest key and the floor goes just above the key left out
+__device__ __forceinline__ void list_insert(const Lists& L, int row, int l,
+                                            uint64_t key, int& c,
+                                            uint64_t& fl) {
+  if (key < fl) return;
+  if (c == kDepth) {
+    const uint64_t last = *L.at(row, kDepth - 1, l);
+    const uint64_t out = key < last ? key : last;
+    fl = out + 1 > fl ? out + 1 : fl;
+    if (key < last) return;
+    --c;
+  }
+  int j = c;
+  while (j > 0) {
+    const uint64_t prev = *L.at(row, j - 1, l);
+    if (prev > key) break;
+    *L.at(row, j, l) = prev;
+    --j;
+  }
+  *L.at(row, j, l) = key;
+  ++c;
+}
+
+// a row's R best keys from its lists into out[0, R), one warp a row (lane
+// x reads lanes x and x + 32); whether the R-th lies below a lane's floor
+// (then the row must be scanned again)
+__device__ __forceinline__ bool lists_topr(const Lists& L, int row,
+                                           uint64_t* out) {
+  const int x = threadIdx.x & 31;
+  const int c0 = (int)L.count(row, x), c1 = (int)L.count(row, x + 32);
+  const uint64_t* src0 = L.at(row, 0, x);
+  const uint64_t* src1 = L.at(row, 0, x + 32);
+  int h0 = 0, h1 = 0;
+  uint64_t head0 = c0 > 0 ? src0[0] : 0;
+  uint64_t head1 = c1 > 0 ? src1[0] : 0;
+  uint64_t best = 0;
+  for (int j = 0; j < kTopR; ++j) {
+    best = warp_max(head0 > head1 ? head0 : head1);
+    if (x == 0) out[j] = best;
+    if (best == 0) continue;
+    if (head0 == best) {  // keys are unique: one list pops
+      ++h0;
+      head0 = h0 < c0 ? src0[(long long)h0 * kLanes] : 0;
+    } else if (head1 == best) {
+      ++h1;
+      head1 = h1 < c1 ? src1[(long long)h1 * kLanes] : 0;
+    }
+  }
+  const uint64_t f0 = L.floor(row, x), f1 = L.floor(row, x + 32);
+  return best < warp_max(f0 > f1 ? f0 : f1);
+}
+
 __global__ void __launch_bounds__(kThreads)
-auction_kernel(const float* __restrict__ used0,
-               const float* __restrict__ avail,
-               const uint8_t* __restrict__ feas,
-               const float* __restrict__ aff, const float* __restrict__ ask,
-               const int* __restrict__ kk, const float* __restrict__ jits,
-               const float* __restrict__ price_eps,
-               const float* __restrict__ evict,
-               const float* __restrict__ net_prio, float* used_out,
-               int* take_out, int* rounds_out, float* price_buf, int g,
-               int n, int rounds) {
-  __shared__ uint64_t cand[kMaxG][2][kTopR];
-  __shared__ uint64_t ent_key[kMaxG * kTopR];
-  __shared__ float ent_cap[kMaxG * kTopR];
-  __shared__ int ent_amt[kMaxG * kTopR];
-  __shared__ int ent_bids[kMaxG * kTopR];
+auction_kernel(const AuctionArgs a) {
+  // dynamic: the restart's lists where they fit, the table of a round's
+  // surfaced nodes (best keys, nodes, bids), the touched bitmap
+  extern __shared__ __align__(16) uint64_t s_dyn[];
+  __shared__ uint64_t ent_key[kMaxEnt];
+  __shared__ float ent_cap[kMaxEnt];
+  __shared__ int ent_amt[kMaxEnt];
+  __shared__ int ent_bids[kMaxEnt];
+  __shared__ int ent_slot[kMaxEnt];
   __shared__ float s_ask[kMaxG][kDims];
   __shared__ int s_rem[kMaxG];
-  __shared__ int s_go;
-  __shared__ int s_progress;
+  __shared__ uint32_t s_key[kMaxG][2];
+  __shared__ int s_need[kMaxG];
+  __shared__ int s_tnode[kMaxEnt];
+  __shared__ int s_tcnt[kLanes];
+  __shared__ int s_toff[kLanes + 1];
+  __shared__ int s_live;      // a row has demand left
+  __shared__ int s_progress;  // the last round placed something
+  __shared__ int s_scans;
+  B5_SPLIT_BEGIN
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / a.scan_ctas;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  float* used = used_out + (long long)t * n * kDims;
-  int* take = take_out + (long long)t * g * n;
-  float* price = price_buf + (long long)t * n;
-  const float* jit = jits + (long long)t * g * n;
-  const float eps = price_eps[t];
-  const bool has_evict = evict != nullptr;
+  const int g = a.g, n = a.n;
+  const float span = a.params[a.n_t + t];
+  const long long words = list_words(g);
+  const Lists first{a.lists + t * words};
+
+  // 0. on every CTA, CTA c of restart t: a slice of the restart's carry
+  //    (max(used0, 0)), prices (0) and takes (0); the first round's scans
+  //    of rows c, c + scan_ctas, ... into the global scratch, from
+  //    max(used0, 0) at price 0; then one barrier over the grid
+  float* used = a.used_out + (long long)t * n * kDims;
+  int* take = a.take_out + (long long)t * g * n;
+  float* price = a.price_buf + (long long)t * n;
+  {
+    const long long first_i =
+        (long long)(blockIdx.x % a.scan_ctas) * kThreads + tid;
+    const long long stride = (long long)a.scan_ctas * kThreads;
+    for (long long i = first_i; i < (long long)n * kDims; i += stride) {
+      used[i] = fmaxf(a.used0[i], 0.0f);
+    }
+    for (long long i = first_i; i < n; i += stride) price[i] = 0.0f;
+    for (long long i = first_i; i < (long long)g * n; i += stride) take[i] = 0;
+  }
+  for (int row = blockIdx.x % a.scan_ctas; row < g; row += a.scan_ctas) {
+    if (a.kk[row] <= 0) continue;
+    if (tid == 0) {
+      fold_key((unsigned long long)a.seeds[row], (uint32_t)t, s_key[0][0],
+               s_key[0][1]);
+    }
+    __syncthreads();
+    const float a_g[kDims] = {a.ask[row * kDims], a.ask[row * kDims + 1],
+                              a.ask[row * kDims + 2], a.ask[row * kDims + 3]};
+    scan_row<true>(a, first, a.used0, nullptr, row, a_g, s_key[0][0],
+                   s_key[0][1], span);
+    __syncthreads();
+  }
+  group_sync(a.barrier, a.n_t * a.scan_ctas, false);
+  if (blockIdx.x % a.scan_ctas) return;
+
+  // 1. restart t's rounds, on this CTA alone
+  const float eps = a.params[t];
+  const Lists L{a.smem_lists ? s_dyn : first.p};
+  const int slots = hash_slots(g);
+  uint64_t* h_best = s_dyn + (a.smem_lists ? words : 0);
+  int* h_node = reinterpret_cast<int*>(h_best + slots);
+  int* h_bids = h_node + slots;
+  unsigned* s_touched = reinterpret_cast<unsigned*>(h_bids + slots);
   const int n_ent = g * kTopR;
 
-  for (int i = tid; i < n * kDims; i += kThreads) {
-    used[i] = fmaxf(used0[i], 0.0f);
+  if (a.smem_lists) {
+    for (long long i = tid; i < words; i += kThreads) {
+      s_dyn[i] = __ldcg(reinterpret_cast<const unsigned long long*>(
+          first.p + i));
+    }
   }
-  for (int i = tid; i < n; i += kThreads) price[i] = 0.0f;
-  for (long long i = tid; i < (long long)g * n; i += kThreads) take[i] = 0;
+  for (int i = tid; i < slots; i += kThreads) {
+    h_best[i] = 0;
+    h_node[i] = -1;
+    h_bids[i] = 0;
+  }
+  for (int i = tid; i < (n + 31) / 32; i += kThreads) s_touched[i] = 0;
   if (tid < g) {
-    s_rem[tid] = kk[tid];
+    s_rem[tid] = a.kk[tid];
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) s_ask[tid][d] = ask[tid * kDims + d];
+    for (int d = 0; d < kDims; ++d) s_ask[tid][d] = a.ask[tid * kDims + d];
+    fold_key((unsigned long long)a.seeds[tid], (uint32_t)t, s_key[tid][0],
+             s_key[tid][1]);
+  }
+  if (tid < g) s_need[tid] = 0;
+  if (tid < kLanes) s_tcnt[tid] = 0;
+  if (tid == 0) {
+    int live = 0;
+    for (int i = 0; i < g; ++i) live += a.kk[i] > 0;
+    s_scans = live;
+    s_live = live > 0;
+    s_progress = 1;
   }
   __syncthreads();
 
+  B5_STAMP(6)
   int rnd = 0;
-  int progressed = 1;
   for (;;) {
-    if (tid == 0) {
+    if (!(rnd < a.rounds && s_progress && s_live)) break;
+    B5_STAMP(rnd ? 8 : 0)  // k 0: the loop condition
+
+    // 1. after a round, each row with demand drops the nodes the round
+    //    touched from its lists and inserts their new keys
+    if (rnd > 0) {
+      for (int row = tid / kLanes; row < g; row += kRowsAtOnce) {
+        const int l = tid & (kLanes - 1);
+        // a lane's list holds its home nodes alone: none was touched
+        // where its bucket is empty
+        if (s_rem[row] <= 0 || s_toff[l] == s_toff[l + 1]) continue;
+        int c = (int)L.count(row, l);
+        uint64_t fl = L.floor(row, l);
+        int w = 0;
+        for (int j = 0; j < c; ++j) {
+          const uint64_t key = *L.at(row, j, l);
+          const int i = key_idx(key);
+          const bool touched = (s_touched[i >> 5] >> (i & 31)) & 1u;
+          if (!touched) *L.at(row, w++, l) = key;
+        }
+        c = w;
+        const float a_g[kDims] = {s_ask[row][0], s_ask[row][1],
+                                  s_ask[row][2], s_ask[row][3]};
+        for (int p = s_toff[l]; p < s_toff[l + 1]; ++p) {
+          const uint64_t key =
+              pair_key<false>(a, used, price, row, s_tnode[p], a_g,
+                              s_key[row][0], s_key[row][1], span);
+          if (key != 0) list_insert(L, row, l, key, c, fl);
+        }
+        L.count(row, l) = (uint64_t)c;
+        L.floor(row, l) = fl;
+      }
+      __syncthreads();
+      for (int p = tid; p < s_toff[kLanes]; p += kThreads) {
+        s_touched[s_tnode[p] >> 5] = 0;
+      }
+      if (tid < kLanes) s_tcnt[tid] = 0;
+    }
+
+    B5_STAMP((rnd ? 8 : 0) + 1)  // k 1: the update
+    // 2. each row's top R from its lists, one warp a row; a row whose R-th
+    //    key lies below a lane's floor is scanned again and read again
+    for (int pass = 0;; ++pass) {
+      for (int row = 0; row < g; ++row) {
+        if (!s_need[row]) continue;
+        const float a_g[kDims] = {s_ask[row][0], s_ask[row][1],
+                                  s_ask[row][2], s_ask[row][3]};
+        scan_row<false>(a, L, used, price, row, a_g, s_key[row][0],
+                        s_key[row][1], span);
+        if (tid == 0) ++s_scans;
+      }
+      __syncthreads();
+      for (int row = warp; row < g; row += kWarps) {
+        if (pass > 0 && !s_need[row]) continue;
+        bool need = false;
+        if (s_rem[row] > 0) {
+          need = lists_topr(L, row, ent_key + row * kTopR);
+        } else if (lane < kTopR) {
+          ent_key[row * kTopR + lane] = 0;
+        }
+        __syncwarp();
+        if (lane == 0) s_need[row] = need;
+      }
+      __syncthreads();
       int any = 0;
-      for (int i = 0; i < g; ++i) any |= s_rem[i] > 0;
-      s_go = rnd < rounds && progressed && any;
+      for (int row = 0; row < g; ++row) any |= s_need[row];
+      if (!any) break;
+      if (pass > 0) __trap();  // a scan leaves no row short
+    }
+
+    B5_STAMP((rnd ? 8 : 0) + 2)  // k 2: the top R and rescans
+    // 3. winners (best bid on the node, ties to the lowest eval) and bids
+    //    per node, from a table of the surfaced nodes; each won node's
+    //    capacity against usage before the round
+    if (tid == 0) {
+      s_live = 0;
       s_progress = 0;
     }
-    __syncthreads();
-    if (!s_go) break;
-
-    // 1. bids and each row's top R, two warps a row
-    for (int row = warp >> 1; row < g; row += kWarps / 2) {
-      uint64_t lst[kTopR];
-#pragma unroll
-      for (int i = 0; i < kTopR; ++i) lst[i] = 0;
-      if (s_rem[row] > 0) {
-        float a_g[kDims];
-#pragma unroll
-        for (int d = 0; d < kDims; ++d) a_g[d] = s_ask[row][d];
-        const uint8_t* feas_g = feas + (long long)row * n;
-        const float* aff_g = aff + (long long)row * n;
-        const float* jit_g = jit + (long long)row * n;
-        for (int i = (warp & 1) * 32 + lane; i < n; i += 64) {
-          if (!feas_g[i]) continue;
-          float av[kDims], nu[kDims];
-          bool ok = true;
-#pragma unroll
-          for (int d = 0; d < kDims; ++d) {
-            av[d] = avail[i * kDims + d];
-            const float cap_d =
-                has_evict ? __fadd_rn(av[d], evict[i * kDims + d]) : av[d];
-            nu[d] = __fadd_rn(used[i * kDims + d], a_g[d]);
-            ok = ok && (nu[d] <= cap_d);
-          }
-          if (!ok) continue;
-          const float af = aff_g[i];
-          const bool aff_present = af != 0.0f;
-          const float aff_term = aff_present ? af : 0.0f;
-          const float divisor = aff_present ? 2.0f : 1.0f;
-          float score;
-          if (!has_evict) {
-            score = __fdiv_rn(__fadd_rn(fit_score(av, nu), aff_term),
-                              divisor);
-          } else {
-            float cl[kDims];
-            bool over = false;
-#pragma unroll
-            for (int d = 0; d < kDims; ++d) {
-              cl[d] = fminf(nu[d], av[d]);
-              over = over || (nu[d] > av[d]);
-            }
-            const float num =
-                __fadd_rn(__fadd_rn(fit_score(av, cl), aff_term),
-                          over ? preempt_score(net_prio[i]) : 0.0f);
-            score = __fdiv_rn(num, __fadd_rn(divisor, over ? 1.0f : 0.0f));
-          }
-          const float bid = __fsub_rn(__fadd_rn(score, jit_g[i]), price[i]);
-          topr_insert(lst, bid_key(bid, i));
+    if (tid < n_ent) {
+      const uint64_t key = ent_key[tid];
+      if (key != 0) {
+        const int idx = key_idx(key);
+        int slot = hash_slot(idx, slots);
+        for (;;) {
+          const int prev = atomicCAS(&h_node[slot], -1, idx);
+          if (prev == -1 || prev == idx) break;
+          slot = (slot + 1) & (slots - 1);
         }
-      }
-      warp_topr(lst, cand[row][warp & 1]);
-    }
-    __syncthreads();
-
-    // 2. merge the two halves of each row
-    if (tid < g) {
-      const uint64_t* a = cand[tid][0];
-      const uint64_t* b = cand[tid][1];
-      int ia = 0, ib = 0;
-      for (int j = 0; j < kTopR; ++j) {
-        const uint64_t x = a[ia];
-        const uint64_t y = b[ib];
-        if (x >= y) {
-          ent_key[tid * kTopR + j] = x;
-          ++ia;
-        } else {
-          ent_key[tid * kTopR + j] = y;
-          ++ib;
-        }
+        atomicMax(reinterpret_cast<unsigned long long*>(&h_best[slot]),
+                  (unsigned long long)best_key(key_val(key), tid / kTopR));
+        atomicAdd(&h_bids[slot], 1);
+        ent_slot[tid] = slot;
       }
     }
     __syncthreads();
-
-    // 3. winners (best bid on the node, ties to the lowest eval), bids per
-    //    node and each won node's capacity, against usage before the round
     if (tid < n_ent) {
       const uint64_t key = ent_key[tid];
       int bids = 0;
       float cap = 0.0f;
       if (key != 0) {
         const int idx = key_idx(key);
-        const float v = key_val(key);
         const int ge = tid / kTopR;
-        bool won = true;
-        for (int o = 0; o < n_ent; ++o) {
-          const uint64_t ko = ent_key[o];
-          if (ko == 0 || key_idx(ko) != idx) continue;
-          ++bids;
-          const float vo = key_val(ko);
-          if (vo > v || (vo == v && o / kTopR < ge)) won = false;
-        }
-        if (won) {
+        const int slot = ent_slot[tid];
+        bids = h_bids[slot];
+        if (h_best[slot] == best_key(key_val(key), ge)) {
           float per = INFINITY;
 #pragma unroll
           for (int d = 0; d < kDims; ++d) {
             const float a_d = s_ask[ge][d];
             if (a_d > 0.0f) {
-              const float av = avail[idx * kDims + d];
+              const float av = a.avail[idx * kDims + d];
               const float cap_d =
-                  has_evict ? __fadd_rn(av, evict[idx * kDims + d]) : av;
+                  a.evict ? __fadd_rn(av, a.evict[idx * kDims + d]) : av;
               const float free_d = __fsub_rn(cap_d, used[idx * kDims + d]);
               per = fminf(per, floorf(__fdiv_rn(free_d, a_d)));
             }
@@ -247,6 +610,7 @@ auction_kernel(const float* __restrict__ used0,
     }
     __syncthreads();
 
+    B5_STAMP((rnd ? 8 : 0) + 3)  // k 3: the winners
     // 4. each row spends its demand over its won nodes in score order:
     //    amt = clip(remaining - (cumsum(cap) - cap), 0, cap), NaN -> 0
     if (tid < g) {
@@ -263,17 +627,25 @@ auction_kernel(const float* __restrict__ used0,
         total += amt;
       }
       s_rem[tid] -= total;
+      if (s_rem[tid] > 0) s_live = 1;
       if (total > 0) s_progress = 1;
     }
     __syncthreads();
 
-    // 5. the round's usage, take and price updates (one winner per node)
+    B5_STAMP((rnd ? 8 : 0) + 4)  // k 4: the fill
+    // 5. the round's usage, take and price updates (one winner per node);
+    //    the nodes it fills are the touched ones, counted by home lane;
+    //    the table's slots are emptied for the next round
     if (tid < n_ent) {
       const uint64_t key = ent_key[tid];
       const int amt = ent_amt[tid];
       if (key != 0) {
         const int idx = key_idx(key);
         const int row = tid / kTopR;
+        const int slot = ent_slot[tid];
+        h_best[slot] = 0;
+        h_node[slot] = -1;
+        h_bids[slot] = 0;
         if (amt > 0) {
           const float af = (float)amt;
 #pragma unroll
@@ -282,6 +654,8 @@ auction_kernel(const float* __restrict__ used0,
                 used[idx * kDims + d], __fmul_rn(s_ask[row][d], af));
           }
           take[(long long)row * n + idx] += amt;
+          atomicOr(&s_touched[idx >> 5], 1u << (idx & 31));
+          ent_slot[tid] = atomicAdd(&s_tcnt[home_lane(idx)], 1);
         }
         const float cap = ent_cap[tid];
         if (cap > 0.0f && (float)amt >= cap && ent_bids[tid] > 1) {
@@ -290,10 +664,33 @@ auction_kernel(const float* __restrict__ used0,
       }
     }
     __syncthreads();
+    if (warp == 0) {  // the lanes' offsets into s_tnode
+      const int c0 = s_tcnt[2 * lane], c1 = s_tcnt[2 * lane + 1];
+      int incl = c0 + c1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+      }
+      const int excl = incl - c0 - c1;
+      s_toff[2 * lane] = excl;
+      s_toff[2 * lane + 1] = excl + c0;
+      if (lane == 31) s_toff[kLanes] = incl;
+    }
+    __syncthreads();
+    if (tid < n_ent && ent_amt[tid] > 0) {
+      const int idx = key_idx(ent_key[tid]);
+      s_tnode[s_toff[home_lane(idx)] + ent_slot[tid]] = idx;
+    }
+    __syncthreads();  // the next round's update reads every bucket
+    B5_STAMP((rnd ? 8 : 0) + 5)  // k 5: the updates and buckets
     ++rnd;
-    progressed = s_progress;
   }
-  if (tid == 0) rounds_out[t] = rnd;
+  if (tid == 0) {
+    a.rounds_out[t] = rnd;
+    if (a.scans_out) a.scans_out[t] = s_scans;
+    B5_SPLIT_END(t)
+  }
 }
 
 // one arm's packing score into *score and its placed total into *placed:
@@ -394,23 +791,82 @@ batch_pick_kernel(const float* __restrict__ avail,
 
 }  // namespace
 
+// the list scratch a launch needs, in 4-byte words: every restart's lists
+// (the first round's scans write them there)
+extern "C" long long nt_auction_scratch_words(int n_restarts, int g) {
+  return (long long)n_restarts * list_words(g) * 2;
+}
+
+// used0, avail (n, 4) f32 (16-byte aligned); feas (g, n) bool; aff
+// (g, n) f32; ask (g, 4) f32; k (g,) int32; seeds (g,) int64; params (2,
+// T) f32: the price temperatures, then the jitter widths; evict (n, 4) f32
+// (16-byte aligned) and net_prio (n,) f32, or both null; outputs used (T,
+// n, 4), take (T, g, n) int32, rounds (T,) int32, price (T, n) f32
+// scratch; lists the scratch of nt_auction_scratch_words; scans (T,)
+// int32 or null; barrier a group of zeroed words (mesh.cuh), reused by
+// launches in stream order.
+// One cooperative launch: T x C CTAs scan the first round, C a restart
+// (as many as the card holds at once, at most G), then T of them run the
+// rounds.
 extern "C" int nt_auction(const void* used0, const void* avail,
                           const void* feas, const void* aff, const void* ask,
-                          const void* k, const void* jits,
-                          const void* price_eps, const void* evict,
+                          const void* k, const void* seeds,
+                          const void* params, const void* evict,
                           const void* net_prio, void* used_out,
                           void* take_out, void* rounds_out, void* price_buf,
+                          void* lists, void* scans_out, void* barrier,
                           int n_restarts, int g, int n, int rounds,
                           void* stream) {
   if (n_restarts <= 0) return 0;
-  if (g < 1 || g > kMaxG || n < 1) return (int)cudaErrorInvalidValue;
-  auction_kernel<<<n_restarts, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)used0, (const float*)avail, (const uint8_t*)feas,
-      (const float*)aff, (const float*)ask, (const int*)k,
-      (const float*)jits, (const float*)price_eps, (const float*)evict,
-      (const float*)net_prio, (float*)used_out, (int*)take_out,
-      (int*)rounds_out, (float*)price_buf, g, n, rounds);
-  return (int)cudaGetLastError();
+  if (g < 1 || g > kMaxG || n < 1 || n > kMaxNodes || lists == nullptr ||
+      barrier == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long list_bytes = list_words(g) * 8;
+  const long long rest = (long long)hash_slots(g) * 16 + kTouchedBytes;
+  const bool smem_lists = list_bytes + rest <= kDynSmem;
+  const size_t smem = (size_t)((smem_lists ? list_bytes : 0) + rest);
+  cudaError_t err = cudaFuncSetAttribute(
+      auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, auction_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int held = sms * per_sm;
+  if (held < n_restarts) return (int)cudaErrorCooperativeLaunchTooLarge;
+  AuctionArgs a;
+  a.used0 = (const float*)used0;
+  a.avail = (const float*)avail;
+  a.feas = (const uint8_t*)feas;
+  a.aff = (const float*)aff;
+  a.ask = (const float*)ask;
+  a.kk = (const int*)k;
+  a.seeds = (const long long*)seeds;
+  a.params = (const float*)params;
+  a.evict = (const float*)evict;
+  a.net_prio = (const float*)net_prio;
+  a.used_out = (float*)used_out;
+  a.take_out = (int*)take_out;
+  a.rounds_out = (int*)rounds_out;
+  a.price_buf = (float*)price_buf;
+  a.lists = (uint64_t*)lists;
+  a.scans_out = (int*)scans_out;
+  a.barrier = (unsigned*)barrier;
+  a.n_t = n_restarts;
+  a.g = g;
+  a.n = n;
+  a.rounds = rounds;
+  a.scan_ctas = held / n_restarts < g ? held / n_restarts : g;
+  a.smem_lists = smem_lists;
+  void* kargs[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)auction_kernel, dim3(n_restarts * a.scan_ctas),
+      dim3(kThreads), kargs, smem, (cudaStream_t)stream);
 }
 
 extern "C" int nt_batch_pick(const void* avail, const void* used_t,
@@ -434,3 +890,10 @@ extern "C" int nt_batch_pick(const void* avail, const void* used_t,
       p);
   return (int)cudaGetLastError();
 }
+
+#ifdef B5_SPLIT
+extern "C" int b5_split_read(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, b5_split_cycles,
+                                   sizeof(b5_split_cycles));
+}
+#endif

@@ -43,7 +43,7 @@
 namespace {
 
 using nt_threefry::bits_to_unit;
-using nt_threefry::threefry2x32;
+using nt_threefry::fold_key;
 using nt_threefry::threefry_bits;
 
 __global__ void jitter_kernel(const uint32_t* __restrict__ seeds,
@@ -71,12 +71,7 @@ __global__ void jitter_fold_kernel(const uint32_t* __restrict__ seeds,
   const int t = tg / g;
   const int row = tg - t * g;
   __shared__ uint32_t key[2];
-  if (threadIdx.x == 0) {
-    uint32_t k0 = 0u, k1 = (uint32_t)t;  // fold_in(PRNGKey(seed), t)
-    threefry2x32(0u, seeds[row], k0, k1);
-    key[0] = k0;
-    key[1] = k1;
-  }
+  if (threadIdx.x == 0) fold_key(seeds[row], (uint32_t)t, key[0], key[1]);
   __syncthreads();
   const uint32_t k0 = key[0], k1 = key[1];
   const float span = spans.v[t];

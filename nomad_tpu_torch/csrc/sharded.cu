@@ -108,7 +108,7 @@ using nt_sort::block_exclusive_scan;
 using nt_sort::block_pairwise_sum;
 using nt_sort::desc_key;
 using nt_threefry::bits_to_unit;
-using nt_threefry::threefry2x32;
+using nt_threefry::fold_key;
 using nt_threefry::threefry_bits;
 using nt_topr::bid_key;
 using nt_topr::key_idx;
@@ -887,11 +887,7 @@ __device__ void restart_loop(const ShardArgs& a, const Team& team, int t,
     s_rem[tid] = a.k[tid];
 #pragma unroll
     for (int d = 0; d < kDims; ++d) s_ask[tid][d] = a.ask[tid * kDims + d];
-    // fold_in(PRNGKey(seed), t)
-    uint32_t k0 = 0u, k1 = (uint32_t)t;
-    threefry2x32(0u, (uint32_t)a.seeds[tid], k0, k1);
-    s_key[tid][0] = k0;
-    s_key[tid][1] = k1;
+    fold_key(a.seeds[tid], (uint32_t)t, s_key[tid][0], s_key[tid][1]);
   }
   __syncthreads();
   for (int i = 0; i < team.n; ++i) {

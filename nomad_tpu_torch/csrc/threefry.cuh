@@ -1,6 +1,7 @@
 // threefry2x32, the generator of jax.random, shared by jitter.cu (B3, B3'),
-// bulk_scan.cu (B11', the tie-break permutation) and sharded.cu (B13's and
-// B14's jitter, drawn inside their loops).
+// bulk_fill.cu (B1's jitter), batch_solve.cu (B5's restart jitter, drawn
+// inside its rounds), bulk_scan.cu (B11', the tie-break permutation) and
+// sharded.cu (B13's and B14's jitter, drawn inside their loops).
 //
 // 20 rounds of 32-bit adds, rotates and xors under the key pair (k0, k1),
 // with the key schedule injected every four rounds, exactly as
@@ -35,6 +36,16 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
     x0 += ks[(i + 1) % 3];
     x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
   }
+}
+
+// fold_in(PRNGKey(seed), t): the key pair of one threefry of the counter
+// (0, t) under the seed's key (seed >> 32, seed & 0xffffffff), both output
+// words kept (no xor)
+__device__ __forceinline__ void fold_key(unsigned long long seed, uint32_t t,
+                                         uint32_t& k0, uint32_t& k1) {
+  k0 = 0u;
+  k1 = t;
+  threefry2x32((uint32_t)(seed >> 32), (uint32_t)seed, k0, k1);
 }
 
 // jax.random's 32-bit draw in partitionable mode: element (x0, x1) of the

@@ -10,8 +10,9 @@ assignment problem, in one call with the signature of
 - the greedy arm: the exact "tpu-binpack" chain (B1, which draws B3's
   jitter in its launch);
 - the auction arm (B5): one auction per ``PORTFOLIO`` entry, each with
-  its own ``fold_in(PRNGKey(seed), t)`` jitter (B3') scaled by the
-  entry's jitter scale and its own price temperature. Per round every
+  its own ``fold_in(PRNGKey(seed), t)`` jitter (B3', drawn inside B5's
+  launch on the card) scaled by the entry's jitter scale and its own
+  price temperature. Per round every
   eval with demand left bids for its ``TOP_R`` best nodes, each node
   goes to its best bid (ties to the lowest eval), each winner fills its
   won nodes in score order, and nodes that were contested and drained
@@ -28,8 +29,11 @@ rounds_run, auction_won]``.
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/batch_solve.cu`` for the auction and the pick, the port's
 earlier kernels for the rest); on a CPU tensor it runs its plain torch
-version (``*_ref``), and on nothing else. The carry passed in takes the
-correction fold in place; the returned carry is a new tensor.
+version (``*_ref``), and on nothing else. The auction kernel keeps each
+row's candidates in per-lane lists with floors and rescores only the
+nodes a round touched (``csrc/batch_solve.cu`` has the invariant). The
+carry passed in takes the correction fold in place; the returned carry
+is a new tensor.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from .. import _ext
 from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda,
                       bulk_fill, bulk_fill_ref, fit_scores, fit_scores_np,
                       pairwise_sum_ref, preempt_score_ref)
-from .prng import jitter_fold, jitter_fold_ref
+from .prng import _span, jitter_fold_ref
 from .scatter import scatter_add, scatter_add_ref
 
 MAX_ROUNDS = 64      # auction rounds per restart
@@ -63,6 +67,8 @@ PORTFOLIO = (
 RESTARTS = len(PORTFOLIO)
 # the kernel resolves a round's G x TOP_R surfaced bids with one thread each
 MAX_EVALS = 1024 // TOP_R
+# the words of one barrier group (csrc/mesh.cuh kGroupWords)
+BARRIER_WORDS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -306,41 +312,76 @@ def solve_batch_ref(used, available, feas, aff, ask, k, tg_count, seeds,
 # wrappers
 # ---------------------------------------------------------------------------
 
-_eps_lock = threading.Lock()
-_eps_cache: Dict[tuple, torch.Tensor] = {}
+_params_lock = threading.Lock()
+_params_cache: Dict[tuple, torch.Tensor] = {}
 
 
-def _eps_tensor(price_eps: Sequence[float], device) -> torch.Tensor:
-    """The restarts' price temperatures as a float32 device tensor,
-    uploaded once per (device, values)."""
-    key = (str(device), tuple(float(e) for e in price_eps))
-    t = _eps_cache.get(key)
+def _params_tensor(price_eps: Sequence[float], his: Sequence[float],
+                   device) -> torch.Tensor:
+    """The restarts' price temperatures, then their jitter widths (``hi
+    - 0`` in float32, as jax.random.uniform computes it), as one (2T,)
+    float32 device tensor, uploaded once per (device, values)."""
+    key = (str(device), tuple(float(e) for e in price_eps),
+           tuple(_span(hi) for hi in his))
+    t = _params_cache.get(key)
     if t is None:
-        with _eps_lock:
-            t = _eps_cache.get(key)
+        with _params_lock:
+            t = _params_cache.get(key)
             if t is None:
-                t = _eps_cache[key] = torch.tensor(
-                    key[1], dtype=torch.float32).to(device)
+                t = _params_cache[key] = torch.tensor(
+                    key[1] + key[2], dtype=torch.float32).to(device)
     return t
 
 
-def auction(used0, available, feas, aff, ask, k, jits, *,
-            price_eps: Sequence[float], rounds: int = MAX_ROUNDS,
-            evict=None, net_prio=None):
-    """B5 for T restarts at once: the CUDA kernel (csrc/batch_solve.cu
-    ``nt_auction``, one launch) for a CUDA tensor,
-    :func:`auction_restarts_ref` for a CPU tensor. ``jits`` (T, G, N);
-    ``price_eps`` T floats; ``evict`` (N, D) and ``net_prio`` (N,) come
-    together or not at all. Returns (used (T, N, D), take (T, G, N)
-    int32, rounds (T,) int32)."""
+_words_lock = threading.Lock()
+_words: Dict[tuple, torch.Tensor] = {}
+
+
+def _barrier_words(device) -> torch.Tensor:
+    """The barrier words (csrc/mesh.cuh) of the auction's launches from
+    the current stream of ``device``: zeroed once, when first asked for,
+    and kept. Every barrier leaves them as it found them, so launches in
+    stream order share them; launches from other streams get their own."""
+    get_device, _, raw_stream = _ext._cuda_fns or _ext._cuda()
+    index = get_device() if device.index is None else device.index
+    key = (str(device), raw_stream(index))
+    words = _words.get(key)
+    if words is None:
+        with _words_lock:
+            words = _words.get(key)
+            if words is None:
+                words = _words[key] = torch.zeros(
+                    BARRIER_WORDS, dtype=torch.int32, device=device)
+    return words
+
+
+def auction(used0, available, feas, aff, ask, k, seeds, *,
+            his: Sequence[float], price_eps: Sequence[float],
+            rounds: int = MAX_ROUNDS, evict=None, net_prio=None,
+            scans=None):
+    """B5 for T restarts at once, each drawing its own jitter: restart t
+    bids with U[0, his[t]) from ``fold_in(PRNGKey(seed), t)`` (B3') and
+    prices with ``price_eps[t]``. The CUDA kernel (csrc/batch_solve.cu
+    ``nt_auction``, one launch, the draws inside it) for a CUDA tensor;
+    :func:`auction_restarts_ref` over :func:`prng.jitter_fold_ref` for a
+    CPU tensor. ``seeds`` (G,) int64 in [0, 2**32); ``evict`` (N, D) and
+    ``net_prio`` (N,) come together or not at all. On the card
+    ``scans``, a (T,) int32 tensor where given, gets each restart's full
+    row scans (the first round's and the rescans); the launch is
+    cooperative: the first round's scans run on up to G CTAs a restart.
+    Returns (used (T, N, D), take (T, G, N) int32, rounds (T,) int32)."""
     if (evict is None) != (net_prio is None):
         raise ValueError("auction: evict and net_prio come together")
-    if used0.device.type == "cpu":
+    if len(his) != len(price_eps):
+        raise ValueError(f"auction: {len(his)} jitter widths for "
+                         f"{len(price_eps)} restarts")
+    if not used0.is_cuda:
+        if used0.device.type != "cpu":
+            raise ValueError(f"auction: unsupported device {used0.device}")
+        jits = jitter_fold_ref(seeds, used0.shape[0], his)
         return auction_restarts_ref(used0, available, feas, aff, ask, k, jits,
                                     price_eps=price_eps, rounds=rounds,
                                     evict=evict, net_prio=net_prio)
-    if not used0.is_cuda:
-        raise ValueError(f"auction: unsupported device {used0.device}")
     n, d = used0.shape
     g = feas.shape[0]
     n_t = len(price_eps)
@@ -348,32 +389,48 @@ def auction(used0, available, feas, aff, ask, k, jits, *,
     if d != 4 or not 1 <= g <= MAX_EVALS:
         raise ValueError(f"auction: the kernel takes 4 resource columns and "
                          f"1-{MAX_EVALS} evals, got {d} and {g}")
-    for name, t, dtype, shape in (
-            ("used0", used0, torch.float32, (n, d)),
-            ("available", available, torch.float32, (n, d)),
-            ("feas", feas, torch.bool, (g, n)),
-            ("aff", aff, torch.float32, (g, n)),
-            ("ask", ask, torch.float32, (g, d)),
-            ("k", k, torch.int32, (g,)),
-            ("jits", jits, torch.float32, (n_t, g, n))):
-        _check_cuda("auction", name, t, dtype, shape, dev)
+    if not 1 <= n <= MAX_FILL_NODES:
+        raise NotImplementedError(
+            f"auction: {n} nodes; a scan thread of the kernel holds at most "
+            f"{TOP_R} nodes of a row, 1 to {MAX_FILL_NODES} in all (ROADMAP "
+            f"A11b: the node ceilings)")
+    checks = [("used0", used0, torch.float32, (n, d)),
+              ("available", available, torch.float32, (n, d)),
+              ("feas", feas, torch.bool, (g, n)),
+              ("aff", aff, torch.float32, (g, n)),
+              ("ask", ask, torch.float32, (g, d)),
+              ("k", k, torch.int32, (g,)),
+              ("seeds", seeds, torch.int64, (g,))]
     if evict is not None:
-        _check_cuda("auction", "evict", evict, torch.float32, (n, d), dev)
-        _check_cuda("auction", "net_prio", net_prio, torch.float32, (n,), dev)
+        checks += [("evict", evict, torch.float32, (n, d)),
+                   ("net_prio", net_prio, torch.float32, (n,))]
+    if scans is not None:
+        checks.append(("scans", scans, torch.int32, (n_t,)))
+    for name, t, dtype, shape in checks:
+        _check_cuda("auction", name, t, dtype, shape, dev)
+    for name, t in (("used0", used0), ("available", available),
+                    ("evict", evict)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"auction: {name} must be 16-byte aligned (the "
+                             f"kernel reads its rows as float4)")
+    words = _ext.scratch_words("nt_auction_scratch_words", n_t, g)
+    lists = torch.empty(words, dtype=torch.int32, device=dev)
     used = torch.empty((n_t, n, d), dtype=torch.float32, device=dev)
     take = torch.empty((n_t, g, n), dtype=torch.int32, device=dev)
     rounds_run = torch.empty(n_t, dtype=torch.int32, device=dev)
     price = torch.empty((n_t, n), dtype=torch.float32, device=dev)
-    fn = _ext.entry("nt_auction")
     _ext.launch(
-        "auction", dev, fn,
+        "auction", dev, _ext.entry("nt_auction"),
         used0.data_ptr(), available.data_ptr(), feas.data_ptr(),
-        aff.data_ptr(), ask.data_ptr(), k.data_ptr(),
-        jits.data_ptr(), _eps_tensor(price_eps, dev).data_ptr(),
+        aff.data_ptr(), ask.data_ptr(), k.data_ptr(), seeds.data_ptr(),
+        _params_tensor(price_eps, his, dev).data_ptr(),
         None if evict is None else evict.data_ptr(),
         None if net_prio is None else net_prio.data_ptr(),
         used.data_ptr(), take.data_ptr(), rounds_run.data_ptr(),
-        price.data_ptr(), n_t, g, n, int(rounds))
+        price.data_ptr(), lists.data_ptr(),
+        None if scans is None else scans.data_ptr(),
+        _barrier_words(dev).data_ptr(), n_t, g, n, int(rounds))
+    del lists  # held until the launch is queued
     return used, take, rounds_run
 
 
@@ -433,13 +490,12 @@ def solve_batch(used, available, feas, aff, ask, k, tg_count, seeds, cidx,
         raise ValueError(f"solve_batch: g={g} but feas/ask carry "
                          f"{feas.shape[0]}/{ask.shape[0]} rows")
     scatter_add(used, cidx, cdelta)
-    n = used.shape[0]
     # each arm updates its own copy of the folded carry and clamps it at
     # 0; the greedy arm is B1 with no correction slots (the fold is done)
     used_g = used.clone()
     counts_g = bulk_fill(used_g, available, feas, aff, ask, k, seeds)
-    jits = jitter_fold(seeds, n, _jitter_his())
     used_t, take_t, rounds_t = auction(
-        used, available, feas, aff, ask, k, jits, price_eps=_price_eps(),
-        rounds=rounds, evict=evict, net_prio=net_prio)
+        used, available, feas, aff, ask, k, seeds, his=_jitter_his(),
+        price_eps=_price_eps(), rounds=rounds, evict=evict,
+        net_prio=net_prio)
     return batch_pick(available, used_t, take_t, rounds_t, used_g, counts_g)

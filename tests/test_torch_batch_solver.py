@@ -289,13 +289,20 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     avail, used0, feas, aff, ask, k, seeds = _random_problem(0, n=16, g=3)
     t = torch.from_numpy
     before = _ext.COUNTS.snapshot()
-    jits = prng.jitter_fold(t(seeds.astype(np.int64)), 16,
-                            (TIE_JITTER, TIE_JITTER))
+    his = (TIE_JITTER, 8 * TIE_JITTER)
+    eps = (bs.PRICE_EPS, bs.PRICE_EPS / 4)
+    s64 = t(seeds.astype(np.int64))
     used_t, take_t, rnd_t = bs.auction(
-        t(used0), t(avail), t(feas), t(aff), t(ask), t(k), jits,
-        price_eps=(bs.PRICE_EPS, bs.PRICE_EPS / 4))
+        t(used0), t(avail), t(feas), t(aff), t(ask), t(k), s64, his=his,
+        price_eps=eps)
     assert used_t.shape == (2, 16, 4) and take_t.dtype == torch.int32
     assert rnd_t.dtype == torch.int32 and rnd_t.shape == (2,)
+    # the seeds' fold_in draws, then the plain auction of each restart
+    want = bs.auction_restarts_ref(
+        t(used0), t(avail), t(feas), t(aff), t(ask), t(k),
+        prng.jitter_fold_ref(s64, 16, his), price_eps=eps)
+    for x, y in zip((used_t, take_t, rnd_t), want):
+        assert torch.equal(x, y)
     counts_g = torch.zeros((3, 16), dtype=torch.int16)
     used, counts, info = bs.batch_pick(t(avail), used_t, take_t, rnd_t,
                                        t(used0), counts_g)
@@ -308,9 +315,13 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
 def test_wrappers_reject_unsupported_devices():
     meta = torch.zeros((8, 4), device="meta")
     with pytest.raises(ValueError):
-        bs.auction(meta, meta, meta, meta, meta, meta, meta, price_eps=(1.0,))
+        bs.auction(meta, meta, meta, meta, meta, meta, meta, his=(1.0,),
+                   price_eps=(1.0,))
     with pytest.raises(ValueError):
         bs.batch_pick(meta, meta, meta, meta, meta, meta)
     with pytest.raises(ValueError):
         bs.auction(torch.zeros((8, 4)), None, None, None, None, None, None,
-                   price_eps=(1.0,), evict=torch.zeros((8, 4)))
+                   his=(1.0,), price_eps=(1.0,), evict=torch.zeros((8, 4)))
+    with pytest.raises(ValueError):
+        bs.auction(torch.zeros((8, 4)), None, None, None, None, None, None,
+                   his=(1.0, 2.0), price_eps=(1.0,))

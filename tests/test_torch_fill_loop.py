@@ -369,10 +369,9 @@ def test_bulk_fill_sizes_its_scratch_and_refuses_above_its_ceiling(
 def test_solve_batch_greedy_arm_is_b1_without_slots(fake_card, monkeypatch):
     """solve_batch folds with B4 (both arms share the fold), then its
     greedy arm is one nt_bulk_fill with no correction slots, drawing the
-    jitter itself: no nt_jitter call."""
+    jitter itself: no nt_jitter call; the auction draws its own (B5 takes
+    the seeds: no nt_jitter_fold call)."""
     calls = []
-    monkeypatch.setattr(bs, "jitter_fold",
-                        lambda seeds, n, his: torch.zeros(len(his), 4, n))
     monkeypatch.setattr(bs, "auction", lambda *a, **kw: calls.append("B5")
                         or (None, None, None))
     monkeypatch.setattr(bs, "batch_pick", lambda *a: calls.append("B6")
@@ -390,6 +389,8 @@ def test_solve_batch_greedy_arm_is_b1_without_slots(fake_card, monkeypatch):
     assert call[7] is None and call[8] is None and call[13] == 0
     assert call[9] == counts_g.data_ptr()
     assert calls == ["B5", "B6"]
+    assert not fake_card["jitter"].nt_jitter.calls
+    assert not fake_card["jitter"].nt_jitter_fold.calls
     after = _launch_counts()
     assert {name: after[name] - before[name] for name in after
             if after[name] != before[name]} == {"scatter_add": 1,
