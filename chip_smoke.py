@@ -65,8 +65,11 @@ Phases (any failure raises and exits non-zero):
               counts and info exact; each restart's rounds and full row
               scans printed. B5 also at G 64 (the path shape's rows four
               times over: its lists in the global scratch, several rows
-              a scanning CTA), exact. B5 timed on main and wide, with its
-              time per round.
+              a scanning CTA), exact. The pick alone at N_pad 32,768 and
+              65,536 (synthetic takes and carries from the seed, restart 3
+              an exact copy of restart 1; B5 stops at 16,384), exact. B5
+              timed on main and wide, with its time per round; the pick on
+              main, wide and the two wide pads, by events and device-only.
 12. solve  -- the "tpu-solve" path at bench.py cfg_solve_ab's c2m_mini shape:
               2,560 nodes, 50 batch jobs x 800 allocs cycling its asks, in
               worker batches of 8 (one thread per member inside
@@ -92,8 +95,9 @@ Phases (any failure raises and exits non-zero):
               tree's part-empty segment; n32768: N_pad 32,768, B7's keys
               in the global scratch): B7 picks, victims, flags and scores
               exact, B12 picks exact. Both timed on main beside their
-              plain versions and numpy mirrors; B7 also on infeasible (its
-              set-up pass alone: every step after it exits early).
+              plain versions and numpy mirrors, and on infeasible (each
+              one's set-up pass alone: every step after it exits early),
+              with the time of a placed step past it.
 14. cfg4   -- BASELINE config 4 (bench.py cfg4_system_preemption): 1,024
               nodes, a warm job deleted, a priority-20 filler, then the
               priority-80 service of 512 allocs (one preempt_solve launch
@@ -237,15 +241,16 @@ and 23's paths, replays their launches exact against the plain
 versions and times B13, B14, B1 and solve_batch on them, through
 wrappers that its parent has too: copied into another checkout, it
 times that one's B13 and B14 in the same call.
-``python3 chip_smoke.py --kernel-times`` runs the build and times B5 and
-the whole solve_batch at the tpu-solve path's shape and at "main" and
-"wide", B3' by events and device-only, B7 at cfg4's shape and at the C2M
-width, B11' at n 16,384, B9 at cfg3, B11 on its seven variants, B16 at
-cfg3, S 4 beside B9 on the same inputs, and B1 (solve_bulk_multi) beside
-B13 at S 4 on phase 5's inputs (each checked against its plain version,
-B16 against B9, B13 against B1's counts) through wrappers an older
-checkout has too: copied into another checkout, it times that one's
-kernels in the same call.
+``python3 chip_smoke.py --kernel-times`` runs the build and times B5,
+the whole solve_batch and the pick alone at the tpu-solve path's shape
+and at "main" and "wide", B3' by events and device-only, B7 at cfg4's
+shape and at the C2M width, B11' at n 16,384, B9 at cfg3, B11 on its
+seven variants, B16 at cfg3, S 4 beside B9 on the same inputs, B1
+(solve_bulk_multi) beside B13 at S 4 on phase 5's inputs, and B12 at the
+C2M width and its set-up pass alone (each checked against its plain
+version, B16 against B9, B13 against B1's counts) through wrappers an
+older checkout has too: copied into another checkout, it times that
+one's kernels in the same call.
 ``python3 chip_smoke.py --b5-split`` runs the build and B5's phases:
 batch_solve.cu built with -DB5_SPLIT, which adds up clock64 between its
 barriers (the first round's scans and set-up, then each phase of a
@@ -262,7 +267,7 @@ Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound (B4's
 record adds ``device_ms`` and ``library_device_ms``, the device-only
 readings; B15's, the launch its path makes, adds ``device_ms`` and
-``without_clamp``, the adds alone beside index_add_; B7's adds
+``without_clamp``, the adds alone beside index_add_; B7's and B12's add
 ``ms_per_step`` and ``setup_ms``; the B11' record adds ``by_n``, its times at
 16,384 and 65,536 beside one round's torch.sort), and the card's name
 and power limit; the last line is the device summary.
@@ -970,6 +975,48 @@ def pick_bound(n_t: int, g: int, n: int):
                  + g * n * 2 + 24, (n_t + 1) * n * (g + 60))
 
 
+# the pick alone above B5's 16,384 nodes
+PICK_WIDE = (32768, 65536)
+
+
+def pick_inputs(torch, dev, rng, n_pad: int, n_t: int = 5, g: int = G):
+    """The pick's inputs at ``n_pad`` nodes without an auction (B5 takes
+    at most 16,384): the build_nodes capacities of 10,240 nodes tiled over
+    all but the last 7 rows (zero rows padded), each arm's final usage at
+    30-100% of capacity, takes of 0-2 allocs on a tenth of the (row,
+    node) pairs, restart 3 an exact copy of restart 1 (an exact tie the
+    chain must give to the earlier), greedy counts from the same draw.
+    Returns the pick's argument tuple on the card."""
+    n_real = n_pad - 7
+    avail = np.zeros((n_pad, 4), np.float32)
+    avail[:n_real] = np.resize(c2m_capacity(), (n_real, 4))
+    used_t = np.floor(avail[None] * rng.uniform(0.3, 1.0, (n_t, n_pad, 1)))
+    take_t = (rng.random((n_t, g, n_pad)) < 0.1) * rng.integers(
+        1, 3, (n_t, g, n_pad))
+    take_t[:, :, n_real:] = 0
+    used_t[3], take_t[3] = used_t[1], take_t[1]
+    used_g = np.floor(avail * rng.uniform(0.3, 1.0, (n_pad, 1)))
+    counts_g = (rng.random((g, n_pad)) < 0.1) * rng.integers(1, 3, (g, n_pad))
+    counts_g[:, n_real:] = 0
+    rounds_t = rng.integers(1, 65, n_t)
+    return (torch.tensor(avail, device=dev),
+            torch.tensor(used_t.astype(np.float32), device=dev),
+            torch.tensor(take_t.astype(np.int32), device=dev),
+            torch.tensor(rounds_t.astype(np.int32), device=dev),
+            torch.tensor(used_g.astype(np.float32), device=dev),
+            torch.tensor(counts_g.astype(np.int16), device=dev))
+
+
+def check_pick(torch, bs, got, p_args, what):
+    """The pick's (used, counts, info) against the plain version."""
+    want = bs.batch_pick_ref(*p_args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("used", "counts", "info"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"B6 pick {what}: {name} differs from the "
+                                 f"plain version")
+
+
 def auction_runner(torch, bs, used0, a_args, seeds, his, price_eps,
                    **kw):
     """One B5 launch as a callable, through whichever ``auction`` this
@@ -1005,8 +1052,9 @@ def phase_solve(torch, dev, card, rng):
     plain version on the card: the auction alone (used, take, rounds; its
     draws against jitter_fold_ref's), the pick alone (used, counts, info)
     and the whole solve_batch (the fold and clamp, both arms, the pick).
+    Then the pick alone at N_pad 32,768 and 65,536, past B5's ceiling.
     Prints each restart's rounds and full row scans. Times B5 on "main"
-    and "wide" and the pick on "main"."""
+    and "wide" and the pick on those and the two wide pads."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor.kernels import bulk_fill
     from nomad_tpu_torch.tensor.prng import jitter_fold_ref
@@ -1014,6 +1062,7 @@ def phase_solve(torch, dev, card, rng):
     eps, his = bs._price_eps(), bs._jitter_his()
     notes = []
     timed = {}
+    picks = []   # (what, the pick's arguments), timed below
     for variant in ("main", "evict", "correction", "sparse", "cap", "wide"):
         t = solve_inputs(torch, dev, rng, variant)
         jits = jitter_fold_ref(t["seeds"], N_PAD, his)
@@ -1029,13 +1078,7 @@ def phase_solve(torch, dev, card, rng):
         counts_g = bulk_fill(used_g, t["avail"], t["feas"], t["aff"],
                              t["ask"], t["k"], t["seeds"])
         p_args = (t["avail"], *got, used_g, counts_g)
-        p_got = bs.batch_pick(*p_args)
-        p_want = bs.batch_pick_ref(*p_args)
-        torch.cuda.synchronize()
-        for name, x, y in zip(("used", "counts", "info"), p_got, p_want):
-            if not torch.equal(x, y):
-                raise AssertionError(f"B6 pick {variant}: {name} differs from "
-                                     f"the plain version")
+        check_pick(torch, bs, bs.batch_pick(*p_args), p_args, variant)
         s_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
                   t["tgc"], t["seeds"], t["cidx"], t["cdelta"], t["evict"],
                   t["net_prio"])
@@ -1053,7 +1096,8 @@ def phase_solve(torch, dev, card, rng):
                      f"{scans.tolist()}, placed auction {int(info[2])} / "
                      f"greedy {int(info[3])}, auction won {int(info[5])}")
         if variant in ("main", "wide"):
-            timed[variant] = (t, a_args, a_kw, jits, p_args)
+            timed[variant] = (t, a_args, a_kw, jits)
+            picks.append((variant, p_args))
     # G 64: the lists in the global scratch and several rows a scanning
     # CTA; the path shape's rows four times over, each with its own seed
     t = solve_inputs(torch, dev, rng, "path")
@@ -1067,10 +1111,20 @@ def phase_solve(torch, dev, card, rng):
                   jitter_fold_ref(seeds, PATH_PAD, his), eps, "G 64")
     notes.append(f"G 64 at N_pad {PATH_PAD} (B5 alone): rounds "
                  f"{got[2].tolist()}, scans {scans.tolist()}")
+    # the pick alone above B5's ceiling, up to its own
+    for n_pad in PICK_WIDE:
+        p_args = pick_inputs(torch, dev, rng, n_pad)
+        got = bs.batch_pick(*p_args)
+        check_pick(torch, bs, got, p_args, f"N_pad {n_pad}")
+        picks.append((f"alone at N_pad {n_pad}", p_args))
+        info = got[2].cpu().numpy()
+        notes.append(f"pick alone at N_pad {n_pad}: placed auction "
+                     f"{int(info[2])} / greedy {int(info[3])}, auction won "
+                     f"{int(info[5])}")
     print(f"B5/B6 solve [{card}] 6 variants exact (take, used, rounds, "
-          f"counts, info) at N_pad {N_PAD}, G {G}, and B5 at G 64; "
-          + "; ".join(notes))
-    for variant, (t, a_args, a_kw, jits, p_args) in timed.items():
+          f"counts, info) at N_pad {N_PAD}, G {G}, B5 at G 64 and the pick "
+          f"at N_pad {PICK_WIDE}; " + "; ".join(notes))
+    for variant, (t, a_args, a_kw, jits) in timed.items():
         ms_a = cuda_time_ms(torch, lambda _: bs.auction(
             t["used"], *a_args, t["seeds"], his=his, price_eps=eps, **a_kw),
             reps=5)
@@ -1086,13 +1140,16 @@ def phase_solve(torch, dev, card, rng):
               f"round of the longest restart), plain {plain_a:.4f} ms, bound "
               f"{b_a:.6f} ms ({by_a}; the parent's yardstick, the draws "
               f"read: {b_y:.6f} ms, {by_y})")
-    p_args = timed["main"][4]
-    ms_p = cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args))
-    plain_p = cuda_time_ms(torch, lambda _: bs.batch_pick_ref(*p_args),
-                           reps=5)
-    b_p, by_p = pick_bound(len(eps), G, N_PAD)
-    print(f"B6 pick     [{card}] main: kernel {ms_p:.4f} ms, plain "
-          f"{plain_p:.4f} ms, bound {b_p:.6f} ms ({by_p})")
+    for what, p_args in picks:
+        n_pad = p_args[0].shape[0]
+        ms_p = cuda_time_ms(torch, lambda _: bs.batch_pick(*p_args))
+        plain_p = cuda_time_ms(torch, lambda _: bs.batch_pick_ref(*p_args),
+                               reps=5)
+        b_p, by_p = pick_bound(len(eps), G, n_pad)
+        print(f"B6 pick     [{card}] {what} (N_pad {n_pad}): kernel "
+              f"{ms_p:.4f} ms, device-only "
+              f"{device_only_ms(torch, lambda: bs.batch_pick(*p_args)):.4f} "
+              f"ms, plain {plain_p:.4f} ms, bound {b_p:.6f} ms ({by_p})")
 
 
 # B5's phases in the order of batch_solve.cu's B5_STAMP slots (k 0-5)
@@ -2023,10 +2080,11 @@ def check_preempt(torch, got, want, what):
 
 
 def phase_preempt_kernels(torch, dev, card, rng):
-    """B7 and B12 at the C2M width on seven variants, exact against their
+    """B7 and B12 at the C2M width on ten variants, exact against their
     plain versions; both timed on "main" beside the plain versions and
-    the numpy mirrors. Returns the B12 record (B7's comes from the cfg4
-    path's own launch)."""
+    the numpy mirrors, and on "infeasible", where every step after the
+    set-up pass exits early. Returns the B12 record (B7's comes from the
+    cfg4 path's own launch)."""
     from nomad_tpu_torch.tensor.kernels import (preempt_pick,
                                                 preempt_pick_ref,
                                                 preempt_solve,
@@ -2060,7 +2118,7 @@ def phase_preempt_kernels(torch, dev, card, rng):
         if variant == "main":
             main = (host, args, pick_args, got, picked)
         if variant == "infeasible":
-            empty = args
+            empty, empty_pick = args, pick_args
     host, args, pick_args, got, picked = main
     ms = cuda_time_ms(torch, lambda _: preempt_solve(*args), reps=5)
     setup = cuda_time_ms(torch, lambda _: preempt_solve(*empty), reps=5)
@@ -2072,6 +2130,9 @@ def phase_preempt_kernels(torch, dev, card, rng):
     b_ms, b_by = preempt_bound(host, got[0].cpu().numpy(),
                                got[1].cpu().numpy())
     p_ms = cuda_time_ms(torch, lambda _: preempt_pick(*pick_args), reps=5)
+    p_setup = cuda_time_ms(torch, lambda _: preempt_pick(*empty_pick),
+                           reps=5)
+    p_placed = int((picked >= 0).sum())
     p_plain = cuda_time_ms(torch, lambda _: preempt_pick_ref(*pick_args),
                            reps=2, warmup=1)
     p64 = as_f64(_pick_from(host))
@@ -2087,13 +2148,17 @@ def phase_preempt_kernels(torch, dev, card, rng):
           f"pass alone {setup:.4f} ms, (ms - set-up) a step "
           f"{(ms - setup) / placed * 1e3:.2f} us), plain {plain:.4f} ms, "
           f"numpy mirror {mirror:.4f} ms, bound {b_ms:.6f} "
-          f"ms ({b_by}); B12 kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, "
-          f"numpy mirror {p_mirror:.4f} ms, bound {pb_ms:.6f} ms ({pb_by})")
+          f"ms ({b_by}); B12 kernel {p_ms:.4f} ms ({p_placed} placed "
+          f"steps; the set-up pass alone {p_setup:.4f} ms, (ms - set-up) a "
+          f"step {(p_ms - p_setup) / p_placed * 1e3:.2f} us), plain "
+          f"{p_plain:.4f} ms, numpy mirror {p_mirror:.4f} ms, bound "
+          f"{pb_ms:.6f} ms ({pb_by})")
     return {"name": "preempt_pick", "source":
             "nomad_tpu_torch/csrc/preempt.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:766",
             "max_abs_err": p_err, "ms": p_ms, "plain_ms": p_plain,
-            "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None}
+            "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
+            "ms_per_step": (p_ms - p_setup) / p_placed, "setup_ms": p_setup}
 
 
 def cfg4_run(device, captured=None):
@@ -4104,15 +4169,18 @@ def kernel_times(torch, dev, card, rng) -> int:
     and at the C2M width ("main", N_pad 16,384, K 512, V 8), B11' at n
     16,384, B9 at cfg3, B11 on its seven variants at N_pad 16,384, B16 at
     cfg3, S 4 beside B9 on the same inputs, and B1 (solve_bulk_multi)
-    beside B13 at S 4 on phase 5's inputs, B5 alone (``b5_*``) and the
-    whole solve_batch (``b6_*``) at the tpu-solve path's shape (N_pad
-    4,096, G 16) and at "main" and "wide" (N_pad 16,384), and B3'
+    beside B13 at S 4 on phase 5's inputs, B5 alone (``b5_*``), the
+    whole solve_batch (``b6_*``) and the pick alone on B5's restarts and
+    B1's greedy arm (``b6p_*``) at the tpu-solve path's shape (N_pad
+    4,096, G 16) and at "main" and "wide" (N_pad 16,384), B3'
     (jitter_fold, 5 x 16 x 4,096) by events and device-only
-    (``b3p_device``), each exact against its plain version (B16 bit-equal
-    to B9, B13 to B1's counts) and timed, through wrappers that this tree
-    and its parent (e96eb8f) both have (B5 through auction_runner), so
-    this script copied into another checkout times that checkout's
-    kernels. Prints one JSON line of ms."""
+    (``b3p_device``), and B12 at the C2M width (``b12_c2m``, K 512) and
+    its set-up pass alone (``b12_c2m_setup``: no feasible node), each
+    exact against its plain version (B16 bit-equal to B9, B13 to B1's
+    counts) and timed, through wrappers that this tree and its parent
+    (d428029) both have (B5 through auction_runner), so this script
+    copied into another checkout times that checkout's kernels. Prints
+    one JSON line of ms."""
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor import kernels
     from nomad_tpu_torch.tensor import sharding as sh
@@ -4148,6 +4216,13 @@ def kernel_times(torch, dev, card, rng) -> int:
                                             rounds=t["rounds"]),
             setup=t["used"].clone, reps=5)
         times[f"b6_{variant}_rounds"] = int(got[2][4])
+        # the pick alone, on this variant's restarts and greedy arm
+        used_g = torch.clamp_min(t["used"], 0.0)
+        counts_g = kernels.bulk_fill(used_g, *a_args, t["seeds"])
+        p_args = (t["avail"], *run(), used_g, counts_g)
+        check_pick(torch, bs, bs.batch_pick(*p_args), p_args, variant)
+        times[f"b6p_{variant}"] = cuda_time_ms(
+            torch, lambda _: bs.batch_pick(*p_args), reps=20)
         if variant == "path":
             seeds = t["seeds"]
     times["b3p_path"] = cuda_time_ms(
@@ -4222,6 +4297,19 @@ def kernel_times(torch, dev, card, rng) -> int:
     times["b13_c2m_s4"] = cuda_time_ms(
         torch, lambda p: sh.solve_bulk_multi_sharded(mesh, *p, *tail, g=G),
         setup=lambda: clone_parts(parts), reps=10)
+    # B12 at the C2M width, and its set-up pass alone (no feasible node:
+    # every step exits early)
+    for name, variant in (("b12_c2m", "main"),
+                          ("b12_c2m_setup", "infeasible")):
+        args = [torch.tensor(a, device=dev)
+                for a in _pick_from(preempt_inputs(rng, variant))]
+        got = kernels.preempt_pick(*args)
+        if not torch.equal(got, kernels.preempt_pick_ref(*args)):
+            raise AssertionError(f"B12 {variant}: differs from the plain "
+                                 f"version")
+        times[name] = cuda_time_ms(
+            torch, lambda _: kernels.preempt_pick(*args), reps=10)
+        times[f"{name}_placed"] = int((got >= 0).sum())
     print(f"kernel times [{card}] " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in times.items()))

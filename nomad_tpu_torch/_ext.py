@@ -54,9 +54,9 @@ _SIGNATURES = {
     "nt_score_nodes": ("task_group", [_P] * 8 + [_I] * 7 + [_P]),
     "nt_solve_task_group": ("task_group", [_P] * 10 + [_I] * 8 + [_P]),
     "nt_auction": ("batch_solve", [_P] * 17 + [_I] * 4 + [_P]),
-    "nt_batch_pick": ("batch_solve", [_P] * 9 + [_I] * 3 + [_P]),
+    "nt_batch_pick": ("batch_solve", [_P] * 11 + [_I] * 4 + [_P]),
     "nt_preempt_solve": ("preempt", [_P] * 14 + [_I] * 5 + [_P]),
-    "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 3 + [_P]),
+    "nt_preempt_pick": ("preempt", [_P] * 9 + [_I] * 4 + [_P]),
     "nt_bulk_scan": ("bulk_scan", [_P] * 12 + [_I] * 8 + [_P]),
     "nt_tie_perm": ("bulk_scan", [ctypes.c_uint32, _I, _I, _P, _P, _I,
                                   _P]),
@@ -72,10 +72,12 @@ _SIGNATURES = {
 _QUERIES = {
     "nt_bulk_fill_scratch_words": ("bulk_fill", [_I]),
     "nt_auction_scratch_words": ("batch_solve", [_I] * 2),
+    "nt_batch_pick_scratch_words": ("batch_solve", [_I] * 2),
     "nt_solve_task_group_scratch_words": ("task_group", [_I] * 6),
     "nt_bulk_scan_scratch_words": ("bulk_scan", [_I] * 4),
     "nt_tie_perm_scratch_words": ("bulk_scan", [_I] * 2),
     "nt_preempt_solve_scratch_words": ("preempt", [_I] * 2),
+    "nt_preempt_pick_scratch_words": ("preempt", [_I] * 2),
     "nt_bulk_shard_solve_scratch_words": ("sharded", [_I] * 4),
     "nt_joint_shard_solve_scratch_words": ("sharded", [_I] * 6),
     "nt_task_group_shard_solve_scratch_words": ("task_group_shard", [_I] * 7),

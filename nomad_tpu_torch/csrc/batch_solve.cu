@@ -59,13 +59,35 @@
 // usage, take and price cells. The loop condition is computed in shared
 // memory, so the host never syncs between rounds.
 //
-// nt_batch_pick: one CTA scores the T restarts and the greedy arm (placed
-// per node times the BestFit fitness of the final usage, summed by the
-// reference's padded pairwise tree in shared memory), keeps the best
-// restart by (placed, score) with the earliest winning exact ties, picks it
-// against the greedy arm the same way and writes the chosen carry, the int16
-// counts and the info row [auction_score, greedy_score, placed_auction,
-// placed_greedy, rounds_run, auction_won].
+// nt_batch_pick scores the T restarts and the greedy arm (placed per node
+// times the BestFit fitness of the final usage, summed by the reference's
+// padded pairwise tree), keeps the best restart by (placed, score) with the
+// earliest winning exact ties, picks it against the greedy arm the same way
+// and writes the chosen carry, the int16 counts and the info row
+// [auction_score, greedy_score, placed_auction, placed_greedy, rounds_run,
+// auction_won].
+//
+// Bound on the H100: bytes (the T takes, a read of G int32 a node each,
+// are most of them). The reference's tree pads to a power of two p and
+// halves by v[0::2] + v[1::2], so its value at level k over an aligned
+// chunk [c 2^k, (c + 1) 2^k) is the pairwise tree of that chunk alone, and
+// the whole sum is the same tree over the chunk sums in chunk order, bit
+// for bit. Placed counts are int32 adds, exact in any order.
+//
+// Design of the pick: one cooperative launch of 256-thread CTAs over the
+// (T + 1) x C items (arm, chunk) of 256-1,024 nodes, C = p / chunk, N_pad up
+// to 65,536; the chunk is the smallest that keeps the items within 384
+// (about three CTAs an SM: the fastest of the three at 4,096-65,536 nodes
+// on the H100). Each item reads its arm's G rows of take for its nodes
+// coalesced (the greedy arm's int16 counts), forms each node's placed count
+// and fitness, multiplies them and reduces the chunk by sort.cuh's
+// block_pairwise_sum in shared memory into a scratch of (sum, placed) per
+// item. After one mesh.cuh barrier every CTA combines each arm's C chunk
+// sums (one warp an arm: a lane's consecutive sums, then shuffles, the same
+// halving), runs the restart chain and the pick, and writes its share of
+// the chosen carry and counts; CTA 0 writes the info row. (A ticket in
+// place of the barrier, the last CTA to arrive combining and writing
+// alone, was 6-45x slower on the H100: PERF.md.)
 //
 // Exactness: no fast math (built with --fmad=false), __fadd_rn / __fdiv_rn
 // where the reference's order matters, accurate powf and expf, so every
@@ -88,7 +110,6 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = kThreads / nt_topr::kTopR;  // one thread per surfaced entry
 constexpr int kMaxEnt = kMaxG * nt_topr::kTopR;
-constexpr int kMaxPad = 16384;           // pairwise tree in shared memory
 constexpr int kLanes = 64;               // home lanes of a row
 constexpr int kRowsAtOnce = kThreads / kLanes;
 constexpr int kSub = kThreads / kLanes;  // scan threads of a lane
@@ -693,99 +714,175 @@ auction_kernel(const AuctionArgs a) {
   }
 }
 
-// one arm's packing score into *score and its placed total into *placed:
-// arm < n_restarts is restart arm, arm == n_restarts the greedy arm
-__device__ void packing_score(float* tree, int* s_placed,
-                              const float* __restrict__ avail,
-                              const float* __restrict__ used_t,
-                              const int* __restrict__ take_t,
-                              const float* __restrict__ used_g,
-                              const int16_t* __restrict__ counts_g, int arm,
-                              int n_restarts, int g, int n, int p,
-                              float* score, int* placed) {
+// ---- the pick (B6) ----
+
+constexpr int kPickThreads = 256;
+constexpr int kPickWarps = kPickThreads / 32;
+constexpr int kMinPickChunk = 256;
+constexpr int kMaxPickChunk = 1024;  // a chunk's tree in shared memory
+constexpr int kMaxPickPad = 65536;
+// chunk sums an arm may have, and a combining lane's share of them
+constexpr int kMaxPickChunks = kMaxPickPad / kMinPickChunk;
+constexpr int kLaneSums = kMaxPickChunks / 32;
+constexpr int kMaxPickArms = 64;  // the restarts and the greedy arm
+constexpr int kPickItems = 384;   // the items a launch aims at
+// CTAs each card holds at once (0 until its first launch)
+int g_pick_held[nt_mesh::kMaxCards];
+
+struct PickArgs {
+  const float* avail;
+  const float* used_t;
+  const int* take_t;
+  const int* rounds_t;
+  const float* used_g;
+  const int16_t* counts_g;
+  float* used_out;
+  int16_t* counts_out;
+  float* info;
+  float* sums;     // (T + 1, C) chunk tree sums
+  int* placed;     // (T + 1, C) chunk placed counts
+  unsigned* barrier;
+  int n_t, g, n, chunk, chunks;
+};
+
+// Item (arm, c): the pairwise tree of placed x fitness over the nodes
+// [c chunk, (c + 1) chunk) of the arm (arm == n_t: the greedy arm) and its
+// placed count, into the scratch
+__device__ void pick_chunk(const PickArgs& a, int arm, int c, float* tree,
+                           int* warp_placed) {
   const int tid = threadIdx.x;
-  if (tid == 0) *s_placed = 0;
-  __syncthreads();
-  const bool greedy = arm == n_restarts;
-  const float* used = greedy ? used_g : used_t + (long long)arm * n * kDims;
-  const int* take = take_t + (long long)arm * g * n;
+  const bool greedy = arm == a.n_t;
+  const long long n = a.n;
+  const float* used = greedy ? a.used_g : a.used_t + arm * n * kDims;
+  const int* take = a.take_t + arm * (long long)a.g * n;
+  const int base = c * a.chunk;
   int local = 0;
-  for (int i = tid; i < p; i += kThreads) {
+  for (int j = tid; j < a.chunk; j += kPickThreads) {
+    const int i = base + j;
     float v = 0.0f;
     if (i < n) {
-      int c = 0;
-      for (int row = 0; row < g; ++row) {
-        c += greedy ? (int)counts_g[(long long)row * n + i]
-                    : take[(long long)row * n + i];
+      int cnt = 0;
+      if (greedy) {
+        for (int row = 0; row < a.g; ++row) cnt += a.counts_g[row * n + i];
+      } else {
+#pragma unroll 4
+        for (int row = 0; row < a.g; ++row) cnt += take[row * n + i];
       }
-      v = __fmul_rn((float)c, fit_score(avail + i * kDims, used + i * kDims));
-      local += c;
+      v = __fmul_rn((float)cnt, fit_score(a.avail + i * kDims,
+                                          used + i * kDims));
+      local += cnt;
     }
-    tree[i] = v;
+    tree[j] = v;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     local += __shfl_xor_sync(0xffffffffu, local, off);
   }
-  if ((tid & 31) == 0) atomicAdd(s_placed, local);
+  if ((tid & 31) == 0) warp_placed[tid >> 5] = local;
   __syncthreads();
   // v[i] = v[2i] + v[2i+1] until one is left (kernels._pairwise_sum_xp)
   const float total =
-      block_pairwise_sum<kThreads, kMaxPad / 2 / kThreads>(tree, p);
-  *score = total;
-  *placed = *s_placed;
-  __syncthreads();  // tree and s_placed are reused by the next arm
+      block_pairwise_sum<kPickThreads, kMaxPickChunk / 2 / kPickThreads>(
+          tree, a.chunk);
+  if (tid == 0) {
+    int placed = 0;
+    for (int w = 0; w < kPickWarps; ++w) placed += warp_placed[w];
+    a.sums[arm * a.chunks + c] = total;
+    a.placed[arm * a.chunks + c] = placed;
+  }
+  __syncthreads();  // warp_placed is reused by the next item
 }
 
-__global__ void __launch_bounds__(kThreads)
-batch_pick_kernel(const float* __restrict__ avail,
-                  const float* __restrict__ used_t,
-                  const int* __restrict__ take_t,
-                  const int* __restrict__ rounds_t,
-                  const float* __restrict__ used_g,
-                  const int16_t* __restrict__ counts_g, float* used_out,
-                  int16_t* counts_out, float* info, int n_restarts, int g,
-                  int n, int p) {
-  extern __shared__ float tree[];
-  __shared__ int s_placed;
-  int best_t = 0;
-  float best_score = 0.0f;
-  int best_placed = 0;
-  for (int t = 0; t < n_restarts; ++t) {
-    float score;
-    int placed;
-    packing_score(tree, &s_placed, avail, used_t, take_t, used_g, counts_g,
-                  t, n_restarts, g, n, p, &score, &placed);
-    if (t == 0 || placed > best_placed ||
-        (placed == best_placed && score > best_score)) {
-      best_t = t;
-      best_score = score;
-      best_placed = placed;
+// One warp: the pairwise tree over the c (a power of two, at most
+// kMaxPickChunks) chunk sums v written by other CTAs; each lane first sums
+// its run of c / 32 consecutive ones, then the lanes' sums pair up by
+// shuffles. Every lane gets the total.
+__device__ float chunk_tree(const float* v, int c, int lane) {
+  const int q = c > 32 ? c / 32 : 1;
+  float r[kLaneSums];
+#pragma unroll
+  for (int j = 0; j < kLaneSums; ++j) {
+    const int idx = lane * q + j;
+    r[j] = j < q && idx < c ? __ldcg(v + idx) : 0.0f;
+  }
+#pragma unroll
+  for (int h = kLaneSums / 2; h >= 1; h >>= 1) {
+    if (2 * h <= q) {
+#pragma unroll
+      for (int j = 0; j < h; ++j) r[j] = __fadd_rn(r[2 * j], r[2 * j + 1]);
     }
   }
-  float score_g;
-  int placed_g;
-  packing_score(tree, &s_placed, avail, used_t, take_t, used_g, counts_g,
-                n_restarts, n_restarts, g, n, p, &score_g, &placed_g);
+  float s = r[0];
+  for (int off = 1; off < c / q; off <<= 1) {
+    const float y = __shfl_down_sync(0xffffffffu, s, off);
+    if ((lane & (2 * off - 1)) == 0) s = __fadd_rn(s, y);
+  }
+  return __shfl_sync(0xffffffffu, s, 0);
+}
+
+__global__ void __launch_bounds__(kPickThreads)
+batch_pick_kernel(PickArgs a) {
+  __shared__ float tree[kMaxPickChunk];
+  __shared__ int warp_placed[kPickWarps];
+  __shared__ float s_score[kMaxPickArms];
+  __shared__ int s_placed[kMaxPickArms];
+  const int arms = a.n_t + 1;
+  const int items = arms * a.chunks;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    pick_chunk(a, w / a.chunks, w % a.chunks, tree, warp_placed);
+  }
+  group_sync(a.barrier, gridDim.x, false);
+  const int lane = threadIdx.x & 31;
+  for (int arm = threadIdx.x >> 5; arm < arms; arm += kPickWarps) {
+    const float score = chunk_tree(a.sums + arm * a.chunks, a.chunks, lane);
+    int placed = 0;
+    for (int c = lane; c < a.chunks; c += 32) {
+      placed += __ldcg(a.placed + arm * a.chunks + c);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      placed += __shfl_xor_sync(0xffffffffu, placed, off);
+    }
+    if (lane == 0) {
+      s_score[arm] = score;
+      s_placed[arm] = placed;
+    }
+  }
+  __syncthreads();
+  // the restart chain (earliest on exact ties), then auction vs greedy
+  int best_t = 0;
+  float best_score = s_score[0];
+  int best_placed = s_placed[0];
+  for (int t = 1; t < a.n_t; ++t) {
+    if (s_placed[t] > best_placed ||
+        (s_placed[t] == best_placed && s_score[t] > best_score)) {
+      best_t = t;
+      best_score = s_score[t];
+      best_placed = s_placed[t];
+    }
+  }
+  const float score_g = s_score[a.n_t];
+  const int placed_g = s_placed[a.n_t];
   const bool pick_a = best_placed > placed_g ||
                       (best_placed == placed_g && best_score > score_g);
-
-  const float* used_src =
-      pick_a ? used_t + (long long)best_t * n * kDims : used_g;
-  for (int i = threadIdx.x; i < n * kDims; i += kThreads) {
-    used_out[i] = used_src[i];
+  const long long n = a.n;
+  const long long gid = (long long)blockIdx.x * kPickThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kPickThreads;
+  const float* used_src = pick_a ? a.used_t + best_t * n * kDims : a.used_g;
+  for (long long i = gid; i < n * kDims; i += stride) {
+    a.used_out[i] = used_src[i];
   }
-  const int* take = take_t + (long long)best_t * g * n;
-  for (long long i = threadIdx.x; i < (long long)g * n; i += kThreads) {
-    counts_out[i] = pick_a ? (int16_t)take[i] : counts_g[i];
+  const int* take = a.take_t + best_t * (long long)a.g * n;
+  for (long long i = gid; i < (long long)a.g * n; i += stride) {
+    a.counts_out[i] = pick_a ? (int16_t)take[i] : a.counts_g[i];
   }
-  if (threadIdx.x == 0) {
-    info[0] = best_score;
-    info[1] = score_g;
-    info[2] = (float)best_placed;
-    info[3] = (float)placed_g;
-    info[4] = (float)rounds_t[best_t];
-    info[5] = pick_a ? 1.0f : 0.0f;
+  if (gid == 0) {
+    a.info[0] = best_score;
+    a.info[1] = score_g;
+    a.info[2] = (float)best_placed;
+    a.info[3] = (float)placed_g;
+    a.info[4] = (float)a.rounds_t[best_t];
+    a.info[5] = pick_a ? 1.0f : 0.0f;
   }
 }
 
@@ -869,26 +966,78 @@ extern "C" int nt_auction(const void* used0, const void* avail,
       dim3(kThreads), kargs, smem, (cudaStream_t)stream);
 }
 
+// the pick's scratch in 4-byte words: a (sum, placed) pair an item at the
+// smallest chunk
+extern "C" long long nt_batch_pick_scratch_words(int n_restarts, int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  const long long chunks = p > kMinPickChunk ? p / kMinPickChunk : 1;
+  return 2LL * (n_restarts + 1) * chunks;
+}
+
+// avail, used_g (n, 4) f32; used_t (T, n, 4) f32; take_t (T, g, n) int32;
+// rounds_t (T,) int32; counts_g (g, n) int16; outputs used (n, 4) f32,
+// counts (g, n) int16, info (6,) f32; scratch nt_batch_pick_scratch_words
+// words, scratch_words their count (a smaller buffer is refused); barrier
+// a group of zeroed words (mesh.cuh), reused by launches in stream order.
+// One cooperative launch of at most (T + 1) x C CTAs, as many as the card
+// holds at once.
 extern "C" int nt_batch_pick(const void* avail, const void* used_t,
                              const void* take_t, const void* rounds_t,
                              const void* used_g, const void* counts_g,
                              void* used_out, void* counts_out, void* info,
-                             int n_restarts, int g, int n, void* stream) {
-  if (n_restarts < 1 || g < 1 || n < 1) return (int)cudaErrorInvalidValue;
+                             void* scratch, void* barrier, int n_restarts,
+                             int g, int n, int scratch_words, void* stream) {
+  if (n_restarts < 1 || n_restarts + 1 > kMaxPickArms || g < 1 || n < 1 ||
+      barrier == nullptr ||
+      nt_batch_pick_scratch_words(n_restarts, n) > (long long)scratch_words)
+    return (int)cudaErrorInvalidValue;
   int p = 1;
   while (p < n) p <<= 1;
-  if (p > kMaxPad) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)p * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      batch_pick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (p > kMaxPickPad) return (int)cudaErrorInvalidValue;
+  // the smallest chunk whose items stay within kPickItems
+  int chunk = kMinPickChunk;
+  while (chunk < kMaxPickChunk && (n_restarts + 1) * (p / chunk) > kPickItems)
+    chunk <<= 1;
+  if (chunk > p) chunk = p;
+  PickArgs a;
+  a.avail = (const float*)avail;
+  a.used_t = (const float*)used_t;
+  a.take_t = (const int*)take_t;
+  a.rounds_t = (const int*)rounds_t;
+  a.used_g = (const float*)used_g;
+  a.counts_g = (const int16_t*)counts_g;
+  a.used_out = (float*)used_out;
+  a.counts_out = (int16_t*)counts_out;
+  a.info = (float*)info;
+  a.chunk = chunk;
+  a.chunks = p / chunk;
+  a.sums = (float*)scratch;
+  a.placed = (int*)scratch + (n_restarts + 1) * a.chunks;
+  a.barrier = (unsigned*)barrier;
+  a.n_t = n_restarts;
+  a.g = g;
+  a.n = n;
+  const int items = (n_restarts + 1) * a.chunks;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  batch_pick_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)avail, (const float*)used_t, (const int*)take_t,
-      (const int*)rounds_t, (const float*)used_g, (const int16_t*)counts_g,
-      (float*)used_out, (int16_t*)counts_out, (float*)info, n_restarts, g, n,
-      p);
-  return (int)cudaGetLastError();
+  if (dev >= nt_mesh::kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (g_pick_held[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, batch_pick_kernel, kPickThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    g_pick_held[dev] = sms * per_sm;
+  }
+  const int grid = items < g_pick_held[dev] ? items : g_pick_held[dev];
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* kargs[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)batch_pick_kernel, dim3(grid), dim3(kPickThreads), kargs,
+      0, (cudaStream_t)stream);
 }
 
 #ifdef B5_SPLIT

@@ -62,8 +62,16 @@
 // whenever the carry changes. Picks, victims, flags and scores equal the
 // plain torch version (tensor/kernels.py preempt_solve_ref) exactly.
 //
-// nt_preempt_pick (B12, on no path) keeps its first design: one CTA that
-// rescores every node each step and takes a block argmax.
+// Design of nt_preempt_pick (B12, on no path): B7's without victims. The
+// set-up pass, all threads: the carry copied (used, evictable), every node
+// scored once and its order key cached in the same two-level tree (keys in
+// shared memory up to ~28,000 nodes, in the scratch above). Then warp 0
+// alone runs the K steps: it stops at the first step whose best score is
+// NEG (every later step writes -1), writes -1 for an inactive step, else
+// commits the chosen node's row (used = min(used + ask, avail), evictable
+// = max(evictable - deficit, 0)), rescores it once and refreshes its
+// segment and the top. The key cache and the tree are B7's helpers below
+// (cache_keys, tree_top, segment_peers, refresh_top).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,49 +122,6 @@ __device__ __forceinline__ float node_score(const float* avail,
   return can ? score : kNeg;
 }
 
-__device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
-  return s > bs || (s == bs && i < bi);
-}
-
-// Block argmax by (score desc, index asc); every thread gets the result.
-__device__ void block_argmax(float s, int i, float* sh_s, int* sh_i,
-                             float* out_s, int* out_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_down_sync(kFull, s, off);
-    const int oi = __shfl_down_sync(kFull, i, off);
-    if (better(os, oi, s, i)) {
-      s = os;
-      i = oi;
-    }
-  }
-  if (lane == 0) {
-    sh_s[warp] = s;
-    sh_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    s = sh_s[lane];
-    i = sh_i[lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_down_sync(kFull, s, off);
-      const int oi = __shfl_down_sync(kFull, i, off);
-      if (better(os, oi, s, i)) {
-        s = os;
-        i = oi;
-      }
-    }
-    if (lane == 0) {
-      sh_s[kWarps] = s;
-      sh_i[kWarps] = i;
-    }
-  }
-  __syncthreads();
-  *out_s = sh_s[kWarps];
-  *out_i = sh_i[kWarps];
-}
-
 // The order key of (score desc, index asc): the smallest key is the first
 // maximum of the scores, as jnp.argmax takes it.
 __device__ __forceinline__ uint64_t order_key(float score, int i) {
@@ -179,8 +144,76 @@ __device__ __forceinline__ uint64_t warp_min(uint64_t x) {
   return x;
 }
 
-// B7's tree: one minimum key a 32-node segment
+
+// B7's and B12's tree: one minimum key a 32-node segment
 __host__ __device__ inline int segments(int n) { return (n + 31) / 32; }
+
+// Every thread: each node's order key cached from its carry, then one warp
+// a segment's minimum. The carry must be visible to the whole block.
+template <int D>
+__device__ __forceinline__ void cache_keys(const float* __restrict__ avail,
+                           const float* used, const float* ask,
+                           const float* ev,
+                           const uint8_t* __restrict__ feasible,
+                           const float* __restrict__ net_prio,
+                           uint64_t* keys, uint64_t* seg, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    float def[D];
+    bool needs;
+    const float s = node_score<D>(avail + (long long)i * D,
+                                  used + (long long)i * D, ask,
+                                  ev + (long long)i * D, feasible[i] != 0,
+                                  preempt_score(net_prio[i]), D, def, &needs);
+    keys[i] = order_key(s, i);
+  }
+  __syncthreads();
+  for (int s = warp; s < segments(n); s += kWarps) {
+    const int i = s * 32 + lane;
+    const uint64_t m = warp_min(i < n ? keys[i] : kNoKey);
+    if (lane == 0) seg[s] = m;
+  }
+  __syncthreads();
+}
+
+// Warp 0: the tree's top, the minimum over the segments
+__device__ __forceinline__ uint64_t tree_top(const uint64_t* seg, int segs) {
+  uint64_t top = kNoKey;
+  for (int s = threadIdx.x & 31; s < segs; s += 32) {
+    top = seg[s] < top ? seg[s] : top;
+  }
+  return warp_min(top);
+}
+
+// Warp 0: the keys of node b's segment but b's own (kNoKey there and past
+// n), read ahead of b's rescore
+__device__ __forceinline__ uint64_t segment_peers(const uint64_t* keys,
+                                                  int n, int b) {
+  const int i = ((b >> 5) << 5) + (threadIdx.x & 31);
+  return i < n && i != b ? keys[i] : kNoKey;
+}
+
+// Warp 0, once node b's carry moved: its new key nk stored, its segment's
+// minimum refreshed from the peers read before; returns the new top
+__device__ __forceinline__ uint64_t refresh_top(uint64_t* keys, uint64_t* seg,
+                                                int segs, int b,
+                                                uint64_t peer, uint64_t nk) {
+  const int lane = threadIdx.x & 31;
+  const int sb = b >> 5;
+  const bool mine = (sb << 5) + lane == b;
+  const uint64_t m = warp_min(mine ? nk : peer);
+  if (mine) keys[b] = nk;
+  uint64_t top = kNoKey;
+  for (int s = lane; s < segs; s += 32) {
+    const uint64_t t = s == sb ? m : seg[s];
+    top = t < top ? t : top;
+  }
+  top = warp_min(top);
+  if (lane == 0) seg[sb] = m;
+  __syncwarp();
+  return top;
+}
 
 // Whether the keys and the claimed-prefix pointers fit in shared memory
 // beside the segment minima (else they live in the scratch)
@@ -284,28 +317,11 @@ preempt_solve_kernel(const float* __restrict__ avail,
   }
   __syncthreads();
   // every node scored once; its key cached
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float def[D];
-    bool needs;
-    const float s = node_score<D>(avail + (long long)i * D,
-                                  used + (long long)i * D, ask,
-                                  ev + (long long)i * D, feasible[i] != 0,
-                                  preempt_score(net_prio[i]), D, def, &needs);
-    keys[i] = order_key(s, i);
-  }
-  __syncthreads();
-  for (int s = warp; s < segs; s += kWarps) {
-    const int i = s * 32 + lane;
-    const uint64_t m = warp_min(i < n ? keys[i] : kNoKey);
-    if (lane == 0) seg[s] = m;
-  }
-  __syncthreads();
+  cache_keys<D>(avail, used, ask, ev, feasible, net_prio, keys, seg, n);
   if (warp != 0) return;
 
   // ---- the K steps, warp 0 alone ----
-  uint64_t top = kNoKey;
-  for (int s = lane; s < segs; s += 32) top = seg[s] < top ? seg[s] : top;
-  top = warp_min(top);
+  uint64_t top = tree_top(seg, segs);
   bool act = k_steps > 0 && active[0];
   for (int step = 0; step < k_steps; ++step) {
     const bool act_next = step + 1 < k_steps && active[step + 1];  // ahead
@@ -441,81 +457,95 @@ preempt_solve_kernel(const float* __restrict__ avail,
       }
     }
     // b's segment, read while the rescore runs
-    const int sb = b >> 5;
-    const int i = (sb << 5) + lane;
-    const uint64_t old = i < n && i != b ? keys[i] : kNoKey;
+    const uint64_t peer = segment_peers(keys, n, b);
     bool nneeds;
     const uint64_t nk = order_key(
         node_score<D>(a, nu, ask, ne, true, pscore, D, nd, &nneeds), b);
-    const uint64_t m = warp_min(i == b ? nk : old);
-    if (i == b) keys[b] = nk;
-    top = kNoKey;
-    for (int s = lane; s < segs; s += 32) {
-      const uint64_t t = s == sb ? m : seg[s];
-      top = t < top ? t : top;
-    }
-    top = warp_min(top);
-    if (lane == 0) seg[sb] = m;
-    __syncwarp();
+    top = refresh_top(keys, seg, segs, b, peer, nk);
   }
 }
 
+// Whether B12's keys fit in shared memory beside the segment minima (else
+// they live in the scratch)
+inline bool pick_in_smem(int n) {
+  return (size_t)(n + segments(n)) * sizeof(uint64_t) <= kMaxSmem;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 preempt_pick_kernel(const float* __restrict__ avail,
                     const float* __restrict__ used0,
                     const float* __restrict__ evictable0,
-                    const float* __restrict__ ask,
+                    const float* __restrict__ ask_g,
                     const uint8_t* __restrict__ feasible,
                     const float* __restrict__ net_prio,
                     const uint8_t* __restrict__ active, float* scratch,
-                    int* __restrict__ picks, int n, int k_steps, int d) {
-  __shared__ float sh_s[kWarps + 1];
-  __shared__ int sh_i[kWarps + 1];
-  float* used = scratch;                     // (N, D) carry
-  float* ev = scratch + (long long)n * d;    // (N, D) evictable carry
-  float* pscore = ev + (long long)n * d;     // (N,)
-  for (long long j = threadIdx.x; j < (long long)n * d; j += kThreads) {
+                    bool in_smem, int* __restrict__ picks, int n,
+                    int k_steps) {
+  extern __shared__ uint64_t sh[];
+  const int segs = segments(n);
+  uint64_t* seg = sh;
+  float* used = scratch;                      // (N, D) carry
+  float* ev = scratch + (long long)n * D;     // (N, D) evictable carry
+  uint64_t* keys = in_smem ? sh + segs
+                           : reinterpret_cast<uint64_t*>(
+                                 scratch + 2LL * n * D);
+  const int lane = threadIdx.x & 31;
+  float ask[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) ask[k] = ask_g[k];
+
+  // ---- set-up pass, every thread ----
+  for (long long j = threadIdx.x; j < (long long)n * D; j += kThreads) {
     used[j] = used0[j];
     ev[j] = evictable0[j];
   }
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    pscore[i] = preempt_score(net_prio[i]);
-  }
   __syncthreads();
+  cache_keys<D>(avail, used, ask, ev, feasible, net_prio, keys, seg, n);
+  if (threadIdx.x >= 32) return;
 
-  float def[kMaxDims];
+  // ---- the K steps, warp 0 alone ----
+  uint64_t top = tree_top(seg, segs);
+  bool act = k_steps > 0 && active[0];
   for (int step = 0; step < k_steps; ++step) {
-    float best_s = -INFINITY;
-    int best_i = 0x7fffffff;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      bool needs;
-      const float s = node_score<kMaxDims>(avail + (long long)i * d,
-                                 used + (long long)i * d, ask,
-                                 ev + (long long)i * d, feasible[i] != 0,
-                                 pscore[i], d, def, &needs);
-      if (better(s, i, best_s, best_i)) {
-        best_s = s;
-        best_i = i;
+    const bool act_next = step + 1 < k_steps && active[step + 1];  // ahead
+    if (!(key_score(top) > kNeg)) {
+      // no node can take a request, and no carry changes again
+      for (int t = step + lane; t < k_steps; t += 32) picks[t] = -1;
+      return;
+    }
+    if (!act) {  // changes nothing
+      if (lane == 0) picks[step] = -1;
+      act = act_next;
+      continue;
+    }
+    act = act_next;
+    const int b = (int)(uint32_t)top;
+    const uint64_t peer = segment_peers(keys, n, b);
+    const float* a = avail + (long long)b * D;
+    float* u = used + (long long)b * D;
+    float* e = ev + (long long)b * D;
+    const float pscore = preempt_score(net_prio[b]);
+    float nu[D], ne[D], nd[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float want = __fadd_rn(u[k], ask[k]);
+      const float deficit = fmaxf(__fsub_rn(want, a[k]), 0.0f);
+      nu[k] = fminf(want, a[k]);
+      ne[k] = fmaxf(__fsub_rn(e[k], deficit), 0.0f);
+    }
+    if (lane == 0) {
+      picks[step] = b;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        u[k] = nu[k];
+        e[k] = ne[k];
       }
     }
-    block_argmax(best_s, best_i, sh_s, sh_i, &best_s, &best_i);
-    const bool found = best_s > kNeg && active[step] != 0;
-    if (threadIdx.x == 0) {
-      picks[step] = found ? best_i : -1;
-      if (found) {
-        const int b = best_i;
-        const float* a = avail + (long long)b * d;
-        float* u = used + (long long)b * d;
-        float* e = ev + (long long)b * d;
-        bool needs;
-        node_score<kMaxDims>(a, u, ask, e, true, 0.0f, d, def, &needs);
-        for (int k = 0; k < d; ++k) {
-          u[k] = fminf(__fadd_rn(u[k], ask[k]), a[k]);
-          e[k] = fmaxf(__fsub_rn(e[k], def[k]), 0.0f);
-        }
-      }
-    }
-    __syncthreads();
+    bool nneeds;
+    const uint64_t nk = order_key(
+        node_score<D>(a, nu, ask, ne, true, pscore, D, nd, &nneeds), b);
+    top = refresh_top(keys, seg, segs, b, peer, nk);
   }
 }
 
@@ -586,16 +616,58 @@ extern "C" int nt_preempt_solve(const void* avail, const void* used0,
                      scores, n, v, k, (cudaStream_t)stream);
 }
 
+// f32 words of nt_preempt_pick's scratch
+extern "C" long long nt_preempt_pick_scratch_words(int n, int d) {
+  return 2LL * n * d + (pick_in_smem(n) ? 0 : 2LL * n);
+}
+
+template <int D>
+static cudaError_t launch_pick(const void* avail, const void* used0,
+                               const void* evictable0, const void* ask,
+                               const void* feasible, const void* net_prio,
+                               const void* active, void* scratch,
+                               void* picks, int n, int k,
+                               cudaStream_t stream) {
+  const bool in_smem = pick_in_smem(n);
+  const size_t smem = (size_t)(segments(n) + (in_smem ? n : 0)) *
+                      sizeof(uint64_t);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      preempt_pick_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  preempt_pick_kernel<D><<<1, kThreads, smem, stream>>>(
+      (const float*)avail, (const float*)used0, (const float*)evictable0,
+      (const float*)ask, (const uint8_t*)feasible, (const float*)net_prio,
+      (const uint8_t*)active, (float*)scratch, in_smem, (int*)picks, n, k);
+  return cudaGetLastError();
+}
+
+// avail, used0, evictable0 (n, d) f32; ask (d,) f32; feasible (n,) bool;
+// net_prio (n,) f32; active (k,) bool; scratch
+// nt_preempt_pick_scratch_words(n, d) f32 words, scratch_words their
+// count (a smaller buffer is refused); picks (k,) int32.
 extern "C" int nt_preempt_pick(const void* avail, const void* used0,
                                const void* evictable0, const void* ask,
                                const void* feasible, const void* net_prio,
                                const void* active, void* scratch, void* picks,
-                               int n, int k, int d, void* stream) {
+                               int n, int k, int d, int scratch_words,
+                               void* stream) {
   if (k <= 0) return 0;
-  if (n <= 0 || d < 2 || d > kMaxDims) return (int)cudaErrorInvalidValue;
-  preempt_pick_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)avail, (const float*)used0, (const float*)evictable0,
-      (const float*)ask, (const uint8_t*)feasible, (const float*)net_prio,
-      (const uint8_t*)active, (float*)scratch, (int*)picks, n, k, d);
-  return (int)cudaGetLastError();
+  if (n <= 0 || d < 2 || d > kMaxDims ||
+      nt_preempt_pick_scratch_words(n, d) > (long long)scratch_words) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto launch = launch_pick<2>;
+  switch (d) {
+    case 3: launch = launch_pick<3>; break;
+    case 4: launch = launch_pick<4>; break;
+    case 5: launch = launch_pick<5>; break;
+    case 6: launch = launch_pick<6>; break;
+    case 7: launch = launch_pick<7>; break;
+    case 8: launch = launch_pick<8>; break;
+    default: break;
+  }
+  return (int)launch(avail, used0, evictable0, ask, feasible, net_prio,
+                     active, scratch, picks, n, k, (cudaStream_t)stream);
 }

@@ -31,7 +31,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 earlier kernels for the rest); on a CPU tensor it runs its plain torch
 version (``*_ref``), and on nothing else. The auction kernel keeps each
 row's candidates in per-lane lists with floors and rescores only the
-nodes a round touched (``csrc/batch_solve.cu`` has the invariant). The
+nodes a round touched (``csrc/batch_solve.cu`` has the invariant); the
+pick sums (arm, chunk) items of the reference's pairwise tree on many
+SMs and combines each arm's chunk sums by the same halving. The
 carry passed in takes the correction fold in place; the returned carry
 is a new tensor.
 """
@@ -69,6 +71,10 @@ RESTARTS = len(PORTFOLIO)
 MAX_EVALS = 1024 // TOP_R
 # the words of one barrier group (csrc/mesh.cuh kGroupWords)
 BARRIER_WORDS = 32
+# the pick kernel: the padded node count it takes, and its arms (the
+# restarts and the greedy arm)
+MAX_PICK_NODES = 65536
+MAX_PICK_ARMS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -337,22 +343,37 @@ _words_lock = threading.Lock()
 _words: Dict[tuple, torch.Tensor] = {}
 
 
-def _barrier_words(device) -> torch.Tensor:
-    """The barrier words (csrc/mesh.cuh) of the auction's launches from
-    the current stream of ``device``: zeroed once, when first asked for,
-    and kept. Every barrier leaves them as it found them, so launches in
-    stream order share them; launches from other streams get their own."""
+def _stream_words(device, what: str, words) -> torch.Tensor:
+    """``what``'s zeroed int32 buffer of ``words()`` words for launches
+    from the current stream of ``device``: made once, when first asked
+    for, and kept, so launches in stream order share it; launches from
+    other streams get their own."""
     get_device, _, raw_stream = _ext._cuda_fns or _ext._cuda()
     index = get_device() if device.index is None else device.index
-    key = (str(device), raw_stream(index))
-    words = _words.get(key)
-    if words is None:
+    key = (what, str(device), raw_stream(index))
+    buf = _words.get(key)
+    if buf is None:
         with _words_lock:
-            words = _words.get(key)
-            if words is None:
-                words = _words[key] = torch.zeros(
-                    BARRIER_WORDS, dtype=torch.int32, device=device)
-    return words
+            buf = _words.get(key)
+            if buf is None:
+                buf = _words[key] = torch.zeros(
+                    words(), dtype=torch.int32, device=device)
+    return buf
+
+
+def _barrier_words(device) -> torch.Tensor:
+    """The barrier words (csrc/mesh.cuh) of the auction's and the pick's
+    launches from the current stream of ``device``. Every barrier leaves
+    them as it found them."""
+    return _stream_words(device, "barrier", lambda: BARRIER_WORDS)
+
+
+def _pick_scratch(device) -> torch.Tensor:
+    """The pick's scratch for launches from the current stream of
+    ``device``, at the size the library asks for at the most arms and
+    nodes the kernel takes: a launch writes every word it reads."""
+    return _stream_words(device, "pick", lambda: _ext.scratch_words(
+        "nt_batch_pick_scratch_words", MAX_PICK_ARMS - 1, MAX_PICK_NODES))
 
 
 def auction(used0, available, feas, aff, ask, k, seeds, *,
@@ -436,20 +457,26 @@ def auction(used0, available, feas, aff, ask, k, seeds, *,
 
 def batch_pick(available, used_t, take_t, rounds_t, used_g, counts_g):
     """The pick of B6: the CUDA kernel (csrc/batch_solve.cu
-    ``nt_batch_pick``) for a CUDA tensor, :func:`batch_pick_ref` for a
-    CPU tensor. Returns (used (N, D), counts (G, N) int16, info (6,))."""
-    if available.device.type == "cpu":
+    ``nt_batch_pick``: one cooperative launch over (arm, chunk) items of
+    256-1,024 nodes, N_pad up to ``MAX_PICK_NODES``) for a CUDA
+    tensor, :func:`batch_pick_ref` for a CPU tensor. Returns (used (N, D),
+    counts (G, N) int16, info (6,))."""
+    if not available.is_cuda:
+        if available.device.type != "cpu":
+            raise ValueError(f"batch_pick: unsupported device "
+                             f"{available.device}")
         return batch_pick_ref(available, used_t, take_t, rounds_t, used_g,
                               counts_g)
-    if not available.is_cuda:
-        raise ValueError(f"batch_pick: unsupported device {available.device}")
     n_t, g, n = take_t.shape
     d = available.shape[1]
     dev = available.device
-    if n > MAX_FILL_NODES:
+    if n > MAX_PICK_NODES:
         raise NotImplementedError(
-            f"batch_pick: {n} nodes; the one-CTA pairwise tree holds at most "
-            f"{MAX_FILL_NODES} in shared memory")
+            f"batch_pick: {n} nodes; the kernel pads to at most "
+            f"{MAX_PICK_NODES} (ROADMAP A11b: the node ceilings)")
+    if not 1 <= n_t < MAX_PICK_ARMS:
+        raise ValueError(f"batch_pick: the kernel takes 1-{MAX_PICK_ARMS - 1} "
+                         f"restarts, got {n_t}")
     for name, t, dtype, shape in (
             ("available", available, torch.float32, (n, d)),
             ("used_t", used_t, torch.float32, (n_t, n, d)),
@@ -458,16 +485,17 @@ def batch_pick(available, used_t, take_t, rounds_t, used_g, counts_g):
             ("used_g", used_g, torch.float32, (n, d)),
             ("counts_g", counts_g, torch.int16, (g, n))):
         _check_cuda("batch_pick", name, t, dtype, shape, dev)
+    scratch = _pick_scratch(dev)
     used = torch.empty((n, d), dtype=torch.float32, device=dev)
     counts = torch.empty((g, n), dtype=torch.int16, device=dev)
     info = torch.empty(6, dtype=torch.float32, device=dev)
-    fn = _ext.entry("nt_batch_pick")
     _ext.launch(
-        "batch_pick", dev, fn,
+        "batch_pick", dev, _ext.entry("nt_batch_pick"),
         available.data_ptr(), used_t.data_ptr(), take_t.data_ptr(),
         rounds_t.data_ptr(), used_g.data_ptr(), counts_g.data_ptr(),
-        used.data_ptr(), counts.data_ptr(), info.data_ptr(), n_t, g,
-        n)
+        used.data_ptr(), counts.data_ptr(), info.data_ptr(),
+        scratch.data_ptr(), _barrier_words(dev).data_ptr(), n_t, g, n,
+        scratch.shape[0])
     return used, counts, info
 
 

@@ -1174,8 +1174,9 @@ def preempt_pick(available, used0, evictable0, ask, feasible, net_prio,
     picks, as the reference's ``preempt_pick``. Inputs as
     :func:`preempt_solve`'s, with evictable0 (N, D) f32 in place of the
     victim columns. The CUDA kernel ``nt_preempt_pick``
-    (csrc/preempt.cu) for CUDA tensors, :func:`preempt_pick_ref` for CPU
-    tensors. No placement path calls it, as in the reference."""
+    (csrc/preempt.cu: B7's cached keys and one-warp step loop, without
+    victims) for CUDA tensors, :func:`preempt_pick_ref` for CPU tensors.
+    No placement path calls it, as in the reference."""
     if available.device.type == "cpu":
         return preempt_pick_ref(available, used0, evictable0, ask, feasible,
                                 net_prio, active)
@@ -1193,7 +1194,10 @@ def preempt_pick(available, used0, evictable0, ask, feasible, net_prio,
             ("feasible", feasible, b8, (n,)),
             ("net_prio", net_prio, f32, (n,)), ("active", active, b8, (k,))):
         _check_cuda("preempt_pick", name, t, dtype, shape, dev)
-    scratch = torch.empty(n * (2 * d + 1), dtype=f32, device=dev)
+    # the carry (used, evictable) and, where they do not fit in shared
+    # memory, the cached keys
+    words = _ext.scratch_words("nt_preempt_pick_scratch_words", n, d)
+    scratch = torch.empty(words, dtype=f32, device=dev)
     picks = torch.empty(k, dtype=torch.int32, device=dev)
     fn = _ext.entry("nt_preempt_pick")
     _ext.launch(
@@ -1201,5 +1205,6 @@ def preempt_pick(available, used0, evictable0, ask, feasible, net_prio,
         available.data_ptr(), used0.data_ptr(),
         evictable0.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
         net_prio.data_ptr(), active.data_ptr(), scratch.data_ptr(),
-        picks.data_ptr(), n, k, d)
+        picks.data_ptr(), n, k, d, words)
+    del scratch  # held until the launch is queued
     return picks
