@@ -43,6 +43,19 @@ Phases (any failure raises and exits non-zero):
               16 threads. Every alloc placed once, no node over capacity
               (recomputed from the store), B1 launched once a
               solve_bulk_multi and B3/B4 never, no plain version on CUDA.
+   server -- the same shape through the port's Server (bench.py
+              run_server, cfg_c2m): nodes into the store, the first job's
+              shape registered and deregistered (its 4,000 allocs stopped),
+              then 64 jobs registered at once to 24 workers, one eval a
+              dequeue, every plan re-checked by the plan applier. Every
+              alloc live once, no node over capacity (recomputed from the
+              store's live allocs), no eval left blocked, B1 launched once
+              a service launch, no plain version on CUDA; prints allocs/s
+              beside the Harness path's wall, the applier's applied /
+              nodes_rejected / partial_commits / commit_batches, the
+              rejection rate, each rejected node's usage rows against its
+              capacity (watch_rejections: a false rejection or one that
+              does not fit) and the span medians per phase (obs/trace.py).
 9. spread  -- the per-eval path at cfg3 (bench.py cfg3_spread_50k): 5,120
               nodes, 100 service jobs x 500 allocs (cpu 100, mem 64) with
               spread on ${attr.rack} weight 50, through
@@ -86,6 +99,10 @@ Phases (any failure raises and exits non-zero):
               B1 and the whole launch timed on each, and the launches'
               device time set against the path's wall. The kernel records
               of B3', B5 and the pick are these means.
+   server solve -- that shape through the Server: 8 workers in batches of
+              8 (cfg_solve_ab), the batch's members meeting in the solver
+              service's rendezvous; the gates of "server", joint launches
+              >= 1, B5 and the pick launched once a joint launch.
 13. B7/B12 -- preempt_solve and preempt_pick vs their plain versions at the
               C2M width (build_nodes capacities of 10,240 nodes padded to
               16,384, K 512, V 8, cpu and memory used at 95-105%) on ten
@@ -232,6 +249,8 @@ cfg4's two evals print the time the interpreter's garbage collector
 took inside them (gc.callbacks): their walls are host-bound, and a full
 collection can land in either.
 
+``python3 chip_smoke.py --server`` runs the build and the two Server
+phases alone, then prints their records as one JSON line.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards (B13's, B14's
@@ -263,6 +282,10 @@ switch and read, the stream handle, the bare ctypes call, ...),
 perf_counter_ns over 2,000 calls; then the three calls' device-only
 times.
 
+Before the kernel line it prints the Server phases' records as one JSON
+line (``{"server": ...}``: allocs/s, the applier's counts, each rejected
+node's rows, the service's counts, the kernel launches and the span split
+of each).
 Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound (B4's
 record adds ``device_ms`` and ``library_device_ms``, the device-only
@@ -316,6 +339,9 @@ MINI_NODES = 2560
 MINI_JOBS = 50
 MINI_BATCH = 8
 PATH_PAD = 4096     # the service's N_pad for 2,560 nodes
+# the Server path (nomad_tpu_torch/core) at bench.py run_server's shape
+SERVER_WORKERS = 24       # cfg_c2m (bench.py:428-431)
+SOLVE_WORKERS = 8         # cfg_solve_ab's c2m_mini (bench.py:693-695)
 
 
 def card_line() -> str:
@@ -1217,7 +1243,8 @@ def b5_split(torch, dev, card, rng) -> int:
 
 
 def phase_path(torch, card, device="cuda"):
-    """The C2M bulk path; returns the launch counts of its run."""
+    """The C2M bulk path; returns the launch counts of its run and its
+    wall in s."""
     from nomad_tpu_torch import _ext, mock
     from nomad_tpu_torch.structs import enums
     from nomad_tpu_torch.structs.operator import SchedulerConfiguration
@@ -1267,7 +1294,7 @@ def phase_path(torch, card, device="cuda"):
           f"evals/launch {per_launch:.2f}, resyncs {stats['resyncs']}, "
           f"corrections {stats['corrections']}; kernel launches "
           f"{counts['launches']}; plain on CUDA {counts['plain_on_cuda']}")
-    return counts["launches"]
+    return counts["launches"], wall
 
 
 def phase_solve_path(torch, card, device="cuda"):
@@ -1481,6 +1508,307 @@ def phase_solve_launches(torch, card, wall, captured):
                "library_ms": None}
         out.append(rec)
     return out
+
+
+SERVER_PHASES = ("eval.queued", "worker.snapshot", "worker.schedule",
+                 "worker.tensor_build", "worker.solve_bulk", "solver.wait",
+                 "solver.launch", "solver.apply", "plan.submit",
+                 "plan.verify", "plan.commit_round", "plan.commit",
+                 "eval.persist")
+
+
+def span_split(spans, t0: float) -> dict:
+    """Per span name of the SERVER_PHASES opened after t0: count, median
+    and total ms."""
+    from nomad_tpu_torch.obs.trace import R_NAME, R_T0, R_T1
+
+    by = {}
+    for r in spans:
+        if r[R_T0] >= t0 and r[R_NAME] in SERVER_PHASES:
+            by.setdefault(r[R_NAME], []).append(1e3 * (r[R_T1] - r[R_T0]))
+    return {name: {"n": len(v), "p50_ms": statistics.median(v),
+                   "total_ms": sum(v)}
+            for name, v in sorted(by.items())}
+
+
+def server_gates(srv, jobs, want: int, what: str) -> dict:
+    """path_gates for the Server: every alloc of the timed jobs placed
+    once and live, no node over capacity (recomputed from the store's
+    live allocs), each job's newest eval cleanly complete and none left
+    blocked or queued. Returns the eval statuses of the jobs."""
+    from nomad_tpu_torch.structs import enums
+
+    snap = srv.store.snapshot()
+    live = 0
+    for j in jobs:
+        live += sum(1 for a in snap.allocs_by_job(j.id)
+                    if not a.terminal_status())
+    nodes = list(snap.nodes())
+    row = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.stack([n.available_vec() for n in nodes])
+    usage = np.zeros_like(cap)
+    ids = set()
+    n_allocs = 0
+    for a in snap.allocs():
+        n_allocs += 1
+        ids.add(a.id)
+        if not a.terminal_status():
+            usage[row[a.node_id]] += a.allocated_vec
+    if live != want or len(ids) != n_allocs:
+        raise AssertionError(f"{what}: {live} live allocs of {want} wanted; "
+                             f"{n_allocs - len(ids)} duplicate ids")
+    over = int((usage > cap).any(axis=1).sum())
+    if over:
+        raise AssertionError(f"{what}: {over} nodes over capacity")
+    if srv.blocked.blocked_count() or srv.broker.ready_count():
+        raise AssertionError(f"{what}: evals left blocked or ready")
+    newest = {}
+    statuses = Counter()
+    job_ids = {j.id for j in jobs}
+    for e in snap.evals():
+        if e.job_id not in job_ids:
+            continue
+        statuses[e.status] += 1
+        if (e.job_id not in newest
+                or e.modify_index > newest[e.job_id].modify_index):
+            newest[e.job_id] = e
+    bad = [e for e in newest.values()
+           if e.status != enums.EVAL_STATUS_COMPLETE or e.failed_tg_allocs]
+    if len(newest) != len(jobs) or bad:
+        raise AssertionError(f"{what}: {len(bad)} jobs' newest evals not "
+                             f"cleanly complete")
+    return dict(statuses)
+
+
+def watch_rejections(applier) -> list:
+    """Wraps the applier's fit re-check for a run: for every node a plan
+    is rejected on, the usage row the store's snapshot holds and the part
+    of it placed one alloc at a time (not in an AllocBlock: B9 or the
+    host oracle, outside the solver service's carry), the row with the
+    in-flight overlay, the plan's own ask and the capacity, and the
+    overlay's AllocBlocks on the node that the snapshot already holds
+    (the overlay skips them; the reference counts them twice until their
+    commit round is answered, ROADMAP §C3). ``false`` is True where the
+    node fits once those blocks are counted once: a false rejection, not
+    an over-placement the applier caught. Returns the list the wrapper
+    appends one record a rejected node to."""
+    from nomad_tpu_torch.core.plan_apply import _OverlaySnapshot
+
+    seen = []
+    evaluate = applier._evaluate
+
+    def watched(snap, plan):
+        result, rejected = evaluate(snap, plan)
+        if not rejected:
+            return result, rejected
+        overlay = isinstance(snap, _OverlaySnapshot)
+        base = snap._snap if overlay else snap
+        for nid in rejected:
+            node = base.node_by_id(nid)
+            cap = node.available_vec()
+            store_u = base.node_usage(nid)
+            store_u = np.zeros_like(cap) if store_u is None else store_u
+            singles = np.zeros_like(cap)
+            for a in base.allocs_by_node(nid):
+                if "." not in a.id and not a.terminal_status():
+                    singles = singles + a.allocated_vec
+            ask = np.zeros_like(cap)
+            for a in plan.node_allocation.get(nid, ()):
+                ask = ask + a.allocated_vec
+            for block in plan.alloc_blocks:
+                for m in block.live_rows():
+                    if block.node_ids[m] == nid:
+                        ask = ask + block.allocated_vec * int(block.counts[m])
+            twice, twice_u = [], np.zeros_like(cap)
+            for block, m in (snap._block_rows.get(nid, ()) if overlay
+                             else ()):
+                if base.alloc_block_by_id(block.id) is not None:
+                    twice.append(block.id[:8])
+                    twice_u = twice_u + (block.allocated_vec
+                                         * int(block.counts[m]))
+            over_u = snap.node_usage(nid)
+            seen.append({
+                "eval": (plan.eval_id or "")[:8], "node": nid[:8],
+                "store": store_u.tolist(), "singles": singles.tolist(),
+                "overlay": over_u.tolist(),
+                "ask": ask.tolist(), "capacity": cap.tolist(),
+                "landed_blocks_in_overlay": twice,
+                "false": bool(twice) and bool(
+                    (over_u - twice_u + ask <= cap).all())})
+        return result, rejected
+
+    applier._evaluate = watched
+    return seen
+
+
+def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
+                    workers, batch, harness_wall=None):
+    """bench.py run_server (:186-270) on the port's Server on the card:
+    nodes straight into the store, the first job's shape registered and
+    deregistered as the warm-up, then every job registered at once and
+    the queue drained, conflict-blocked evals included. Gates as
+    server_gates, B1 launched once a service launch and no plain version
+    on CUDA. Returns (the launch counts of the timed run, its record)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.obs import RECORDER, REGISTRY, TRACER
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor.solver import get_service
+
+    srv = Server(ServerConfig(
+        num_workers=workers, eval_batch_size=batch, device="cuda",
+        sched_config=SchedulerConfiguration(scheduler_algorithm=algorithm),
+        nack_timeout=900.0, failed_eval_followup_delay=3600.0,
+        failed_eval_unblock_interval=0.5))
+    t_setup = time.perf_counter()
+    mock.build_nodes(srv.store, n_nodes, seed=0)
+    jobs = jobs_fn()
+    svc = get_service(srv.device)
+    rejections = watch_rejections(srv.plan_applier)
+    with srv:
+        warm = jobs_fn()[0]
+        srv.register_job(warm)
+        if not srv.wait_for_idle(120.0, include_delayed=False):
+            raise AssertionError(f"{what}: the warm-up did not drain")
+        srv.deregister_job(warm.id)
+        if not srv.wait_for_idle(120.0, include_delayed=False):
+            raise AssertionError(f"{what}: the warm job's stop did not drain")
+        stopped = srv.store.snapshot().allocs_by_job(warm.id)
+        if not stopped or any(not a.server_terminal() for a in stopped):
+            raise AssertionError(f"{what}: the warm job's allocs not stopped")
+        srv.plan_applier.stats.update(
+            applied=0, nodes_rejected=0, partial_commits=0, commit_batches=0,
+            batched_commits=0, batched_eval_updates=0)
+        del rejections[:]
+        print(f"{what:<11} setup and warm-up "
+              f"{time.perf_counter() - t_setup:.2f} s ({n_nodes} nodes, "
+              f"{len(jobs)} jobs x {jobs[0].task_groups[0].count} allocs, "
+              f"{workers} workers, eval_batch_size {batch})")
+        base = dict(svc.stats)
+        TRACER.clear()
+        RECORDER.clear()
+        REGISTRY.reset()
+        _ext.COUNTS.reset()
+        t_wall = time.time()
+        t0 = time.perf_counter()
+        for j in jobs:
+            srv.register_job(j)
+        deadline = time.time() + 300.0
+        while True:
+            if not srv.wait_for_idle(max(1.0, deadline - time.time()),
+                                     include_delayed=False):
+                raise AssertionError(f"{what}: the eval queue did not drain")
+            if srv.blocked.blocked_count() == 0:
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: blocked evals did not drain")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        counts = _ext.COUNTS.snapshot()
+        spans = TRACER.spans()
+        partials = [(t, fields) for t, _, _, event, fields
+                    in RECORDER.events("plan") if event == "partial_reject"]
+        stats = dict(srv.plan_applier.stats)
+        svc_stats = {k: svc.stats[k] - base[k] for k in base}
+        want = sum(j.task_groups[0].count for j in jobs)
+        statuses = server_gates(srv, jobs, want, what)
+    svc.stop()
+    launched = counts["launches"]
+    if not 0 < launched["bulk_fill"] == svc_stats["launches"]:
+        raise AssertionError(f"{what}: B1 launched {launched['bulk_fill']} "
+                             f"times for {svc_stats['launches']} service "
+                             f"launches")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"{what}: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    rejected = stats["nodes_rejected"]
+    rate = rejected / max(want + rejected, 1)
+    split = span_split(spans, t_wall)
+    rec = {"allocs": want, "wall_s": wall, "allocs_per_s": want / wall,
+           "applied": stats["applied"], "nodes_rejected": rejected,
+           "partial_commits": stats["partial_commits"],
+           "commit_batches": stats["commit_batches"],
+           "rejection_rate": rate, "rejections": rejections,
+           "false_rejections": sum(r["false"] for r in rejections),
+           "evals": statuses,
+           "service": {k: svc_stats[k] for k in
+                       ("launches", "solves", "resyncs", "corrections",
+                        "joint_launches", "joint_solves")},
+           "launches": {k: v for k, v in launched.items() if v},
+           "spans": split, "card": card}
+    if harness_wall is not None:
+        rec["harness_wall_s"] = harness_wall
+    print(f"{what:<11} [{card}] {want} allocs in {wall:.3f} s = "
+          f"{want / wall:.1f} allocs/s through the Server"
+          + (f" (the Harness path: {harness_wall:.3f} s)"
+             if harness_wall is not None else "")
+          + f"; applied {stats['applied']}, nodes_rejected {rejected}, "
+          f"partial_commits {stats['partial_commits']}, rejection rate "
+          f"{rate:.6f}; evals {statuses}; service {rec['service']}; kernel "
+          f"launches {rec['launches']}")
+    for t, fields in partials:
+        print(f"{what:<11} partial_reject at +{t - t_wall:.3f} s: {fields}")
+    for r in rejections:
+        print(f"{what:<11} rejected node {r['node']} (eval {r['eval']}): "
+              f"store {r['store']} (one at a time {r['singles']}), overlay "
+              f"{r['overlay']}, ask {r['ask']}, "
+              f"capacity {r['capacity']}; landed blocks in the overlay "
+              f"{r['landed_blocks_in_overlay']}; "
+              + ("false (fits with them counted once)" if r["false"]
+                 else "does not fit with them counted once"))
+    print(f"{what:<11} [{card}] span p50 ms (n, total ms): " + "; ".join(
+        f"{k} {v['p50_ms']:.3f} ({v['n']}, {v['total_ms']:.1f})"
+        for k, v in split.items()))
+    return launched, rec
+
+
+def phase_server(torch, card, harness_wall=None):
+    """The C2M path through the port's Server (bench.py cfg_c2m's shape,
+    its 500 jobs cut to JOBS as phase_path)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import enums
+
+    def jobs():
+        return [mock.service_job(K, cpu=50, mem=32, batch=True)
+                for _ in range(JOBS)]
+
+    return run_server_path(torch, card, "server", enums.SCHED_ALG_TPU_BINPACK,
+                           N_NODES, jobs, SERVER_WORKERS, 1, harness_wall)
+
+
+def phase_server_solve(torch, card, harness_wall=None):
+    """The "tpu-solve" c2m_mini shape through the port's Server: worker
+    batches of 8 meet in the service's rendezvous, one joint launch (B1,
+    B5, the pick) a batch."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import enums
+
+    def jobs():
+        return [mock.service_job(SOLVE_K, cpu=SOLVE_ASKS[i % len(SOLVE_ASKS)][0],
+                                 mem=SOLVE_ASKS[i % len(SOLVE_ASKS)][1],
+                                 batch=True) for i in range(MINI_JOBS)]
+
+    launched, rec = run_server_path(
+        torch, card, "server solve", enums.SCHED_ALG_TPU_SOLVE, MINI_NODES,
+        jobs, SOLVE_WORKERS, MINI_BATCH, harness_wall)
+    joint = rec["service"]["joint_launches"]
+    if joint < 1:
+        raise AssertionError("server solve: no joint launch")
+    for name in ("auction", "batch_pick"):
+        if launched.get(name, 0) != joint:
+            raise AssertionError(f"server solve: {name} launched "
+                                 f"{launched.get(name, 0)} times for {joint} "
+                                 f"joint launches")
+    return launched, rec
+
+
+def server_only(torch, card) -> int:
+    """``--server``: the two Server phases alone."""
+    records = {"server": phase_server(torch, card)[1],
+               "server_solve": phase_server_solve(torch, card)[1]}
+    print(json.dumps({"server": records}))
+    print(card)
+    return 0
 
 
 def fingerprint(h, jobs):
@@ -4362,6 +4690,8 @@ def main() -> int:
         return kernel_times(torch, dev, card, rng)
     if sys.argv[1:] == ["--shard-times"]:
         return shard_times(torch, card)
+    if sys.argv[1:] == ["--server"]:
+        return server_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -4370,9 +4700,10 @@ def main() -> int:
                 phase_scan(torch, dev, card, rng)]
     phase_jitter_fold(torch, dev, card, rng)
     phase_solve(torch, dev, card, rng)
-    launches = phase_path(torch, card)
+    launches, wall = phase_path(torch, card)
     for k in bulk:
         k["launches"] = launches[k["name"]]
+    server = {"server": phase_server(torch, card, wall)[1]}
     launches = phase_spread(torch, card)
     for k in per_eval:
         k["launches"] = launches[k["name"]]
@@ -4380,6 +4711,7 @@ def main() -> int:
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
         k["launches"] = launches[k["name"]]
+    server["server_solve"] = phase_server_solve(torch, card, wall)[1]
     # B4 is off the C2M path (B1 folds the corrections): its launches are
     # solve_batch's folds on the tpu-solve path
     bulk[1]["launches"] += launches["scatter_add"]
@@ -4427,6 +4759,7 @@ def main() -> int:
         k["route"] = "cuda"
     extra = ("device_ms", "library_device_ms", "without_clamp",
              "ms_per_step", "setup_ms", "by_n")
+    print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))
     print(card)

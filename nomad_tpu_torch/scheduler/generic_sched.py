@@ -1,4 +1,4 @@
-"""Service + batch scheduler, the fresh-placement subset (reference
+"""Service + batch scheduler: fresh placements and stops (reference
 ``nomad_tpu/scheduler/generic_sched.py:31-488``).
 
 Retry loop: reconcile -> open a deployment for a fresh job version ->
@@ -94,6 +94,9 @@ class GenericScheduler:
         results = AllocReconciler(job, ev.job_id, all_allocs, self.state,
                                   batch=self.batch).compute()
         self._open_deployment(job, results)
+        for g in results.groups.values():
+            for alloc, desc, client_status in g.stop:
+                self.plan.append_stopped_alloc(alloc, desc, client_status)
 
         requests = []
         for g in results.groups.values():

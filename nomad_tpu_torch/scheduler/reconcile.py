@@ -1,18 +1,20 @@
-"""Service/batch reconciler, fresh placements only (reference
-``nomad_tpu/scheduler/reconcile.py`` and the name index of
+"""Service/batch reconciler: fresh placements and the stop arm
+(reference ``nomad_tpu/scheduler/reconcile.py`` and the name index of
 ``scheduler/util.py``).
 
 A group missing at least ``BULK_PLACE_MIN`` allocations gets ONE
 columnar request; a smaller remainder gets one ``PlacementRequest`` per
-missing alloc. Stops, scale-down, canaries, replacements, reschedules,
-lost or migrating allocs belong to later slices and raise
+missing alloc. A stopped (or purged) job, and a task group that left the
+job, stop every live alloc (reference ``reconcile.py:176-192``), allocs
+of an AllocBlock included. Scale-down, canaries, replacements,
+reschedules, lost or migrating allocs belong to a later slice and raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -20,8 +22,9 @@ from ..structs import Allocation, Job, TaskGroup, alloc_name, enums
 
 BULK_PLACE_MIN = 256  # below this, per-request objects are cheap enough
 
-_SERVER_SLICE = ("ROADMAP queue A1: the Server/Worker/plan-applier slice "
-                 "(stops, canaries, replacements, reschedules)")
+_SERVER_SLICE = ("ROADMAP queue A1c: the reconciler and scheduler "
+                 "remainder (canaries, replacements, reschedules, "
+                 "scaling down)")
 
 
 @dataclass
@@ -64,6 +67,8 @@ class BulkPlacementRequest:
 class GroupResult:
     place: List[PlacementRequest] = field(default_factory=list)
     bulk_place: Optional[BulkPlacementRequest] = None
+    # (alloc, desired description, client status)
+    stop: List[Tuple[Allocation, str, str]] = field(default_factory=list)
     ignore: int = 0
 
 
@@ -122,18 +127,22 @@ class AllocReconciler:
 
     def compute(self) -> ReconcileResults:
         results = ReconcileResults()
-        live = [a for a in self.existing if not a.terminal_status()]
-        if self.job is None or self.job.stopped():
-            if live:
-                raise NotImplementedError(f"stopping a job: {_SERVER_SLICE}")
-            return results
+        stopped = self.job is None or self.job.stopped()
         matrix: Dict[str, List[Allocation]] = {}
         for a in self.existing:
             matrix.setdefault(a.task_group, []).append(a)
-        groups = {tg.name: tg for tg in self.job.task_groups}
-        if any(name not in groups for name in matrix):
-            raise NotImplementedError(
-                f"a task group left the job: {_SERVER_SLICE}")
+        groups = ({} if stopped
+                  else {tg.name: tg for tg in self.job.task_groups})
+        # a stopped job, or a group no longer in the job: stop them all
+        for name, allocs in matrix.items():
+            if stopped or name not in groups:
+                g = results.groups.setdefault(name, GroupResult())
+                for a in allocs:
+                    if not a.terminal_status():
+                        g.stop.append(
+                            (a, "alloc not needed due to job update", ""))
+        if stopped:
+            return results
         for name, tg in groups.items():
             results.groups[name] = self._compute_group(tg,
                                                        matrix.get(name, []))

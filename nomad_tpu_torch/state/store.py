@@ -4,6 +4,17 @@ deployments, alloc blocks (the bulk path's placements) and single
 allocations (the per-eval path's) in MVCC tables, one serialized writer
 and any number of concurrent snapshot readers.
 
+For the Server (``core/``): commit listeners called with each published
+generation and the events the Server reads (``node-upsert``,
+``node-status``, ``node-eligibility``, ``alloc-stop``, ``alloc-preempt``;
+reference ``server.py:232-237``); ``snapshot_min_index`` (the worker's
+and the applier's wait, reference ``worker.py:281``); eval rows; and
+``upsert_plan_results_batch``, many plans' results and their eval
+updates in one generation (the applier's commit round, reference
+``plan_apply.py:653-851``). The reference's plan normalization (jobs
+stripped from allocs for the raft log) has no raft log here to serve
+and is not ported.
+
 Write protocol: ``_begin()`` allocates the next generation privately,
 mutations land in version chains at that generation, ``_commit()``
 publishes it. Readers never see a half-applied generation, and taking a
@@ -15,8 +26,9 @@ from __future__ import annotations
 
 import copy
 import threading
+import time
 import weakref
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -44,7 +56,7 @@ def _block_alloc(alloc_id: str, lookup) -> Optional[Allocation]:
         p = int(alloc_id[sep + 1:])
     except ValueError:
         return None
-    if not 0 <= p < block.size:
+    if not 0 <= p < block.size or not block.visible(p):
         return None
     return block.alloc_at(p)
 
@@ -138,8 +150,14 @@ class StateSnapshot:
                   namespace: str = "default") -> Optional[Job]:
         return self._store._jobs.get((namespace, job_id), self.index)
 
+    def jobs(self) -> Iterator[Job]:
+        return (j for _, j in self._store._jobs.iterate(self.index))
+
     def eval_by_id(self, eval_id: str) -> Optional[Evaluation]:
         return self._store._evals.get(eval_id, self.index)
+
+    def evals(self) -> Iterator[Evaluation]:
+        return (e for _, e in self._store._evals.iterate(self.index))
 
     # --- deployments ---
 
@@ -168,6 +186,9 @@ class StateSnapshot:
 
     def alloc_blocks(self) -> Iterator[AllocBlock]:
         return (b for _, b in self._store._alloc_blocks.iterate(self.index))
+
+    def alloc_block_by_id(self, block_id: str) -> Optional[AllocBlock]:
+        return self._store._alloc_blocks.get(block_id, self.index)
 
     def allocs(self) -> Iterator[Allocation]:
         store = self._store
@@ -236,6 +257,9 @@ class StateStore:
 
     def __init__(self):
         self._write_lock = threading.RLock()
+        # notified on every publish: snapshot_min_index waits on it
+        self._cond = threading.Condition()
+        self._listeners: List[Callable[[int, list], None]] = []
         self._index = 0
         self._next_gen = 0
         self._tracker = SnapshotTracker()
@@ -276,33 +300,92 @@ class StateStore:
         gen = self._tracker.acquire_atomic(lambda: self._index)
         return StateSnapshot(self, gen)
 
+    def snapshot_min_index(self, index: int,
+                           timeout: float = 5.0) -> StateSnapshot:
+        """Wait until the store has published ``index``, then snapshot
+        (reference ``state/store.py:555``)."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while self._index < index:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"state store did not reach index {index} "
+                        f"(at {self._index})")
+                self._cond.wait(remaining)
+        return self.snapshot()
+
+    def add_commit_listener(self, fn: Callable[[int, list], None]) -> None:
+        """``fn(index, events)`` after each publish, on the writer's
+        thread and under its lock: a listener must only hand off."""
+        self._listeners.append(fn)
+
     def _begin(self) -> Tuple[int, int]:
         """Allocate the next (unpublished) generation and the prune
         floor. Must hold _write_lock."""
         self._next_gen += 1
         return self._next_gen, self._tracker.min_live(self._index)
 
-    def _commit(self, gen: int) -> None:
-        self._index = gen
+    def _commit(self, gen: int, events: list = ()) -> None:
+        with self._cond:
+            self._index = gen
+            self._cond.notify_all()
+        for fn in self._listeners:
+            fn(gen, events)
 
     # --- nodes ---
 
     def upsert_node(self, node: Node) -> int:
+        return self.upsert_nodes([node])
+
+    def upsert_nodes(self, nodes: List[Node]) -> int:
+        """Nodes in one generation; a re-registered node keeps its
+        create index and usage row."""
         with self._write_lock:
             gen, live = self._begin()
-            prev = self._nodes.get_latest(node.id)
-            node.create_index = prev.create_index if prev is not None else gen
-            node.modify_index = gen
-            node._avail_vec = None  # the caller may have mutated resources
-            if not node.computed_class:
-                node.compute_class()
-            self._nodes.put(node.id, node, gen, live)
-            self._usage_row(node.id)
-            self.node_set_version += 1
-            self.node_set_index = gen
-            self._ready_nodes_cache.clear()
-            self._commit(gen)
+            for node in nodes:
+                prev = self._nodes.get_latest(node.id)
+                node.create_index = (prev.create_index if prev is not None
+                                     else gen)
+                node.modify_index = gen
+                node._avail_vec = None  # the caller may have mutated it
+                if not node.computed_class:
+                    node.compute_class()
+                self._nodes.put(node.id, node, gen, live)
+                self._usage_row(node.id)
+            self._bump_node_set(gen)
+            self._commit(gen, [("node-upsert", n) for n in nodes])
             return gen
+
+    def _bump_node_set(self, gen: int) -> None:
+        self.node_set_version += 1
+        self.node_set_index = gen
+        self._ready_nodes_cache.clear()
+
+    def _update_node(self, node_id: str, event: str, mutate) -> int:
+        """A node row's next version, ``mutate`` applied to a copy."""
+        with self._write_lock:
+            prev = self._nodes.get_latest(node_id)
+            if prev is None:
+                raise KeyError(f"node {node_id} not found")
+            gen, live = self._begin()
+            node = copy.copy(prev)
+            mutate(node)
+            node.modify_index = gen
+            self._nodes.put(node_id, node, gen, live)
+            self._bump_node_set(gen)
+            self._commit(gen, [(event, node)])
+            return gen
+
+    def update_node_status(self, node_id: str, status: str) -> int:
+        def mut(n):
+            n.status = status
+        return self._update_node(node_id, "node-status", mut)
+
+    def update_node_eligibility(self, node_id: str, eligibility: str) -> int:
+        def mut(n):
+            n.scheduling_eligibility = eligibility
+        return self._update_node(node_id, "node-eligibility", mut)
 
     def upsert_node_pool(self, pool) -> int:
         with self._write_lock:
@@ -335,12 +418,23 @@ class StateStore:
             self._commit(gen)
             return gen
 
-    def delete_job(self, job_id: str, namespace: str = "default") -> int:
-        """Purge the job row; its allocations stay as they are
-        (reference ``delete_job``, store.py:766)."""
+    def delete_job(self, job_id: str, namespace: str = "default",
+                   purge: bool = True) -> int:
+        """Purge the job row, or with ``purge=False`` keep it marked
+        stopped; its allocations stay as they are until an eval stops
+        them (reference ``delete_job``, store.py:766)."""
         with self._write_lock:
             gen, live = self._begin()
-            self._jobs.delete((namespace, job_id), gen, live)
+            key = (namespace, job_id)
+            if purge:
+                self._jobs.delete(key, gen, live)
+            else:
+                job = self._jobs.get_latest(key)
+                if job is not None:
+                    job = copy.copy(job)
+                    job.stop = True
+                    job.modify_index = gen
+                    self._jobs.put(key, job, gen, live)
             self._commit(gen)
             return gen
 
@@ -356,6 +450,9 @@ class StateStore:
         prev = self._evals.get_latest(ev.id)
         ev.create_index = prev.create_index if prev is not None else gen
         ev.modify_index = gen
+        ev.modify_time = time.time()
+        if not ev.create_time:
+            ev.create_time = ev.modify_time
         self._evals.put(ev.id, ev, gen, live)
 
     # --- usage rows ---
@@ -420,29 +517,44 @@ class StateStore:
             self._commit(gen)
             return gen
 
-    def upsert_plan_results(self, allocs: List[Allocation] = (),
-                            alloc_blocks: List[AllocBlock] = (),
+    def upsert_plan_results(self, result_allocs: List[Allocation] = (),
+                            stopped_allocs: List[Allocation] = (),
+                            preempted_allocs: List[Allocation] = (),
                             deployment: Optional[Deployment] = None,
                             evals: List[Evaluation] = (),
-                            stopped_allocs: List[Allocation] = (),
-                            preempted_allocs: List[Allocation] = ()) -> int:
+                            alloc_blocks: List[AllocBlock] = ()) -> int:
         """Commit a plan in one generation, in the reference's order
         (store.py:1173-1190): its stops, its evictions, its single
         allocations, its columnar placements (per block one block row,
         one BlockRef per touched node, one vectorized usage add per
         node), the deployment it opens and its eval updates."""
+        return self.upsert_plan_results_batch([dict(
+            result_allocs=result_allocs, stopped_allocs=stopped_allocs,
+            preempted_allocs=preempted_allocs, deployment=deployment,
+            evals=evals, alloc_blocks=alloc_blocks)])
+
+    def upsert_plan_results_batch(self, payloads: List[dict]) -> int:
+        """Many plans' results in ONE generation (the applier's commit
+        round; reference store.py:1055): each payload holds the keyword
+        arguments of ``upsert_plan_results``, applied in order."""
         with self._write_lock:
             gen, live = self._begin()
-            self._put_allocs(stopped_allocs, gen, live)
-            self._put_allocs(preempted_allocs, gen, live)
-            self._put_allocs(allocs, gen, live)
-            for block in alloc_blocks:
-                self._put_alloc_block(block, gen, live)
-            if deployment is not None:
-                self._put_deployment(deployment, gen, live)
-            for ev in evals:
-                self._put_eval(ev, gen, live)
-            self._commit(gen)
+            events: list = []
+            for p in payloads:
+                stops = p.get("stopped_allocs", ())
+                evictions = p.get("preempted_allocs", ())
+                self._put_allocs(stops, gen, live)
+                events.extend(("alloc-stop", a) for a in stops)
+                self._put_allocs(evictions, gen, live)
+                events.extend(("alloc-preempt", a) for a in evictions)
+                self._put_allocs(p.get("result_allocs", ()), gen, live)
+                for block in p.get("alloc_blocks", ()):
+                    self._put_alloc_block(block, gen, live)
+                if p.get("deployment") is not None:
+                    self._put_deployment(p["deployment"], gen, live)
+                for ev in p.get("evals", ()):
+                    self._put_eval(ev, gen, live)
+            self._commit(gen, events)
             return gen
 
     def _put_allocs(self, allocs: List[Allocation], gen: int,

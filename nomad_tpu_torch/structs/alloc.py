@@ -112,7 +112,9 @@ class AllocBlock:
     ``node_ids[m]`` receives ``counts[m]`` placements; global position p
     maps to a node row through the counts' prefix sums, to alloc id
     ``"{id}.{p}"`` and to name index ``name_indices[p]``. Individual
-    ``Allocation`` rows materialize lazily (and are cached)."""
+    ``Allocation`` rows materialize lazily (and are cached). The plan
+    applier's partial commit marks whole node rows rejected
+    (``without_nodes``) without renumbering, so ids stay stable."""
 
     id: str = ""
     eval_id: str = ""
@@ -132,16 +134,23 @@ class AllocBlock:
     allocated_at: float = 0.0
     create_index: int = 0
     modify_index: int = 0
+    # node rows the plan applier rejected (never committed)
+    rejected_rows: frozenset = frozenset()
     _offsets: object = field(default=None, repr=False, compare=False)
     _mat: dict = field(default_factory=dict, repr=False, compare=False)
     _metrics: object = field(default=None, repr=False, compare=False)
 
     @property
     def size(self) -> int:
+        """Plan-time placement count (rejected rows included)."""
         return len(self.name_indices)
 
     def live_size(self) -> int:
-        return self.size
+        """Committed placements."""
+        if not self.rejected_rows:
+            return self.size
+        return self.size - int(sum(int(self.counts[m])
+                                   for m in self.rejected_rows))
 
     def offsets(self) -> np.ndarray:
         off = self._offsets
@@ -154,7 +163,14 @@ class AllocBlock:
         return int(np.searchsorted(self.offsets(), p, side="right")) - 1
 
     def live_rows(self):
-        return range(len(self.node_ids))
+        if not self.rejected_rows:
+            return range(len(self.node_ids))
+        return (m for m in range(len(self.node_ids))
+                if m not in self.rejected_rows)
+
+    def visible(self, p: int) -> bool:
+        return (not self.rejected_rows
+                or self.row_for_pos(p) not in self.rejected_rows)
 
     def positions_for_row(self, m: int) -> range:
         off = self.offsets()
@@ -193,8 +209,30 @@ class AllocBlock:
         return a
 
     def allocs_for_row(self, m: int) -> List[Allocation]:
+        if m in self.rejected_rows:
+            return []
         return [self.alloc_at(p) for p in self.positions_for_row(m)]
+
+    def allocs_for_node(self, node_id: str) -> List[Allocation]:
+        out: List[Allocation] = []
+        for m, nid in enumerate(self.node_ids):
+            if nid == node_id:
+                out.extend(self.allocs_for_row(m))
+        return out
 
     def iter_allocs(self):
         for m in self.live_rows():
             yield from self.allocs_for_row(m)
+
+    def without_nodes(self, bad_node_ids) -> "AllocBlock":
+        """A copy with the given nodes' rows marked rejected (reference
+        ``structs/alloc.py:399``, the applier's partial commit).
+        Positions and ids stay stable."""
+        bad = set(bad_node_ids)
+        rows = {m for m, nid in enumerate(self.node_ids) if nid in bad}
+        new = copy.copy(self)
+        new.rejected_rows = self.rejected_rows | rows
+        new._offsets = self._offsets
+        new._mat = {}
+        new._metrics = None
+        return new

@@ -43,6 +43,9 @@ DEPLOYMENT_STATUS_SUCCESSFUL = "successful"
 DEPLOYMENT_STATUS_CANCELLED = "cancelled"
 
 TRIGGER_JOB_REGISTER = "job-register"
+TRIGGER_JOB_DEREGISTER = "job-deregister"
+TRIGGER_NODE_UPDATE = "node-update"
+TRIGGER_FAILED_FOLLOW_UP = "failed-follow-up"
 TRIGGER_MAX_PLANS = "max-plan-attempts"
 TRIGGER_QUEUED_ALLOCS = "queued-allocs"
 

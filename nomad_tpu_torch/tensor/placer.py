@@ -43,6 +43,15 @@ mirror, the reference's shape rule.
 
 Ports, device and core asks raise (ROADMAP queue A5); nothing falls
 back to another algorithm.
+
+Spans (obs/trace.py), at the reference's points: ``worker.tensor_build``
+(the cluster tensors; the victim columns), ``worker.solve_bulk`` (a bulk
+group), ``solver.apply`` (the block's host work after the counts),
+``worker.solve`` (the per-eval launch, its lock wait included),
+``solver.preempt`` (the preemption solve), ``worker.preempt_commit`` (its
+rows revalidated and committed) and ``worker.preempt`` (the exact host
+scanner's arm alone). The preemption counters are mirrored into the
+Registry as ``nomad.preempt.*``.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from ..obs import REGISTRY, TRACER
 from ..scheduler.feasible import UNPORTED_A5
 from ..scheduler.rank import NodeScorer, RankedNode, select_best_node
 from ..scheduler.reconcile import BulkPlacementRequest
@@ -181,6 +191,9 @@ def _count_preempt(**deltas: int) -> None:
     with _PREEMPT_STATS_LOCK:
         for key, n in deltas.items():
             PREEMPT_STATS[key] += n
+    for key, n in deltas.items():
+        if n:
+            REGISTRY.incr(f"nomad.preempt.{key}", n)
 
 
 class TorchPlacer:
@@ -215,7 +228,8 @@ class TorchPlacer:
                 else:
                     commit(req, None)
             return
-        cluster = ClusterTensors.build(ctx, nodes)
+        with TRACER.span("worker.tensor_build", n=len(nodes)):
+            cluster = ClusterTensors.build(ctx, nodes)
         nodes = cluster.nodes
         # crc32, not hash(): the seed must be the same in every process
         # (a replayed eval explores the same tie-breaks)
@@ -237,10 +251,13 @@ class TorchPlacer:
                 prebuilt = build_task_group_tensors(ctx, job, tg, cluster,
                                                     algorithm=self.algorithm)
                 if self._bulk_shape_ok(ctx, tg, prebuilt):
-                    self._place_bulk_columnar(
-                        ctx, job, tg, bulk, cluster, prebuilt, commit, seed,
-                        batch=batch, preemption_enabled=preemption_enabled,
-                        attempt=attempt)
+                    with TRACER.span("worker.solve_bulk", k=bulk.count,
+                                     columnar=True):
+                        self._place_bulk_columnar(
+                            ctx, job, tg, bulk, cluster, prebuilt, commit,
+                            seed, batch=batch,
+                            preemption_enabled=preemption_enabled,
+                            attempt=attempt)
                     continue
                 # spread / distinct_* need the per-placement scan
                 reqs = bulk.expand()
@@ -254,10 +271,12 @@ class TorchPlacer:
                    else build_task_group_tensors(ctx, job, tg, cluster,
                                                  algorithm=self.algorithm))
             if self._bulk_eligible(ctx, tg, reqs, tgt):
-                self._place_bulk(ctx, job, tg, reqs, cluster, tgt, commit,
-                                 tie_perm, seed, batch=batch,
-                                 preemption_enabled=preemption_enabled,
-                                 attempt=attempt)
+                with TRACER.span("worker.solve_bulk", k=len(reqs),
+                                 columnar=False):
+                    self._place_bulk(ctx, job, tg, reqs, cluster, tgt,
+                                     commit, tie_perm, seed, batch=batch,
+                                     preemption_enabled=preemption_enabled,
+                                     attempt=attempt)
                 continue
             self._place_per_eval(ctx, job, tg, reqs, cluster, tgt, commit,
                                  tie_perm, batch=batch,
@@ -290,7 +309,9 @@ class TorchPlacer:
         for i, req in enumerate(reqs):
             if req.ignore_node:
                 penalty_idx[i] = cluster.node_index.get(req.ignore_node, -1)
-        with _PER_EVAL_SOLVE_LOCK:
+        # the span covers the lock wait: serialization behind racing
+        # workers is the stall the trace should show
+        with TRACER.span("worker.solve", k=k), _PER_EVAL_SOLVE_LOCK:
             cluster.refresh_usage(ctx)
             packed = pack_solve_args(
                 cluster.available, cluster.used, tgt.placed_tg,
@@ -449,22 +470,26 @@ class TorchPlacer:
                 cluster.n_pad).astype(np.int32)
         counts = self._solve_bulk_counts(ctx, cluster, tgt, k, seed,
                                          tie_perm)
-        mean_score = self._bulk_trajectory_mean(counts, cluster, tgt)
+        # host work on the fetched counts: under the service's double
+        # buffer it runs while the device solves the next launch
+        with TRACER.span("solver.apply", k=k):
+            mean_score = self._bulk_trajectory_mean(counts, cluster, tgt)
 
-        metrics = ctx.new_metrics()
-        metrics.nodes_in_pool = len(cluster.nodes)
-        metrics.nodes_evaluated = len(cluster.nodes)
-        metrics.scores["bulk.normalized-score"] = mean_score
+            metrics = ctx.new_metrics()
+            metrics.nodes_in_pool = len(cluster.nodes)
+            metrics.nodes_evaluated = len(cluster.nodes)
+            metrics.scores["bulk.normalized-score"] = mean_score
 
-        nz = np.nonzero(counts)[0]
-        placed_counts = counts[nz]
-        total = int(placed_counts.sum())
-        nodes = cluster.nodes
-        commit.commit_block(tg, [nodes[int(ni)].id for ni in nz],
-                     [nodes[int(ni)].name for ni in nz],
-                     placed_counts.astype(np.int64),
-                     np.asarray(bulk.name_indices[:total], dtype=np.int64),
-                     mean_score)
+            nz = np.nonzero(counts)[0]
+            placed_counts = counts[nz]
+            total = int(placed_counts.sum())
+            nodes = cluster.nodes
+            commit.commit_block(
+                tg, [nodes[int(ni)].id for ni in nz],
+                [nodes[int(ni)].name for ni in nz],
+                placed_counts.astype(np.int64),
+                np.asarray(bulk.name_indices[:total], dtype=np.int64),
+                mean_score)
 
         n_unplaced = k - total
         if not n_unplaced:
@@ -531,13 +556,26 @@ class TorchPlacer:
         flagged victim, a request carrying a node penalty, or a row that
         fails its revalidation takes the exact host scanner on the
         chosen node, else a full host scan (reference placer.py:749-884)."""
-        vt = build_victim_tensors(ctx, cluster, job.priority)
+        with TRACER.span("worker.tensor_build", kind="victim_columns"):
+            vt = build_victim_tensors(ctx, cluster, job.priority)
         k_pad = _pad_pow2(len(reqs), floor=1)
         active = np.zeros(k_pad, dtype=bool)
         active[: len(reqs)] = True
-        picks, victims, flagged, scores = self._launch_preempt_solve(
-            cluster, tgt, vt, active, k_pad)
+        with TRACER.span("solver.preempt", k=len(reqs)):
+            picks, victims, flagged, scores = self._launch_preempt_solve(
+                cluster, tgt, vt, active, k_pad)
+        with TRACER.span("worker.preempt_commit", k=len(reqs)):
+            self._commit_preempt_rows(ctx, job, tg, reqs, cluster, commit, vt,
+                                      picks, victims, flagged, scores,
+                                      batch=batch, attempt=attempt,
+                                      n_feasible=n_feasible)
 
+    def _commit_preempt_rows(self, ctx, job, tg, reqs, cluster, commit, vt,
+                             picks, victims, flagged, scores, *,
+                             batch: bool, attempt: int,
+                             n_feasible: int) -> None:
+        """The preemption solve's rows, revalidated and committed; the
+        exact host scanner takes the rows the kernel cannot settle."""
         nodes = cluster.nodes
         ask_vec = ctx.tg_vec(tg)
         scorer = NodeScorer(ctx, job, tg, algorithm=self._host_algorithm(),
@@ -577,12 +615,14 @@ class TorchPlacer:
                     n_parity += 1
                     kernel_row = option is not None
                 if option is None:
-                    host_metrics()
-                    option = scorer.rank(node)
+                    with TRACER.span("worker.preempt"):
+                        host_metrics()
+                        option = scorer.rank(node)
             if option is None and not kernel_row:
-                host_metrics()
-                option = self._host_one(ctx, job, tg, nodes, req, batch,
-                                        True, attempt)
+                with TRACER.span("worker.preempt"):
+                    host_metrics()
+                    option = self._host_one(ctx, job, tg, nodes, req, batch,
+                                            True, attempt)
             if option is not None:
                 commit(req, option)
                 prop_cache.pop(option.node.id, None)

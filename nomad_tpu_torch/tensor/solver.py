@@ -45,6 +45,14 @@ launch is two host calls (the correction fold, then one cooperative
 launch a card that runs every round on the device) and reads nothing
 back at dispatch, so the double buffer overlaps on a mesh as off one.
 Its fetch puts the shards' counts together in the one copy back.
+
+Spans and counters (reference ``solver.py:401, 864-958``): a worker's
+wait for its counts is ``solver.wait`` (on the eval's trace); each
+launch records ``solver.launch`` (dispatch to fetch, no trace: one
+launch serves many evals), on a mesh also ``solver.shard`` (dispatch)
+and ``solver.allgather`` (the fetch), and a ``solver`` / ``launch``
+flight-recorder event; the service's stats are mirrored into the
+Registry as ``nomad.solver.*``.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from ..obs import RECORDER, REGISTRY, TRACER
 from .batch_solver import solve_batch
 from .kernels import solve_bulk_multi
 from .sharding import (NodeMesh, gather_rows, shard_mesh,
@@ -349,7 +358,10 @@ class BulkSolverService:
             # settle AFTER the put: the service may launch without a
             # member whose request it has, never the reverse
             _settle_current_member()
-        result = req.future.result()
+        # on the worker's thread, inside the eval's trace bind: the
+        # queue, the rendezvous and the launch land on the eval's chain
+        with TRACER.span("solver.wait", k=int(k), joint=bool(joint)):
+            result = req.future.result()
         return result, req.token
 
     def confirm(self, token: int, rejected_node_ids) -> None:
@@ -635,9 +647,16 @@ class BulkSolverService:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
         self._state = (static, used_dev, since + g)
+        t1 = time.perf_counter()
+        if mesh is not None:
+            wall = time.time()
+            TRACER.add_span("solver.shard", wall - (t1 - t0), wall, g=g,
+                            joint=bool(joint), mesh_devices=mesh.size)
+        RECORDER.record("solver", "launch", g=g, joint=bool(joint),
+                        sharded=mesh is not None, resync=need_resync)
         return _Inflight(rs=rs, static=static, counts=counts, event=event,
                          g=g, g_pad=g_pad, sharded=mesh is not None, t0=t0,
-                         t_dispatched=time.perf_counter())
+                         t_dispatched=t1)
 
     def _fetch(self, inf: _Inflight, pipelined: bool = False) -> None:
         """The launch's ONLY host sync: wait for its event, copy the
@@ -660,6 +679,12 @@ class BulkSolverService:
             allg = int(tail.view(np.int32)[:inf.g].sum())
         t_f1 = time.perf_counter()
         born = time.time()
+        TRACER.add_span("solver.launch", born - (t_f1 - inf.t0), born,
+                        g=inf.g, joint=info_np is not None,
+                        sharded=inf.sharded, pipelined=pipelined)
+        if inf.sharded:
+            TRACER.add_span("solver.allgather", born - (t_f1 - t_f0), born,
+                            gathers=allg, per_eval=allg / max(inf.g, 1))
         with self._lock:
             self.stats["launches"] += 1
             self.stats["solves"] += inf.g
@@ -689,6 +714,21 @@ class BulkSolverService:
                 r.token = self._token
                 self._ledger[r.token] = _LedgerEntry(
                     inf.static, idx, row[idx].astype(np.int64), r.ask, born)
+            occupancy = (self.stats["overlap_s"] / self.stats["busy_s"]
+                         if self.stats["busy_s"] > 0 else 0.0)
+        # the Registry's lock is a leaf: taken after self._lock is dropped
+        REGISTRY.incr("nomad.solver.launches")
+        REGISTRY.incr("nomad.solver.solves", inf.g)
+        if allg:
+            REGISTRY.incr("nomad.solver.allgathers", allg)
+        REGISTRY.set_gauge("nomad.solver.overlap_occupancy", occupancy)
+        if info_np is not None:
+            won = info_np[5] > 0.5
+            REGISTRY.incr("nomad.solver.auction_won", int(won))
+            REGISTRY.incr("nomad.solver.auction_rounds", int(info_np[4]))
+            REGISTRY.incr("nomad.solver.joint_score",
+                          float(info_np[0] if won else info_np[1]))
+            REGISTRY.incr("nomad.solver.greedy_score", float(info_np[1]))
         for i, r in enumerate(inf.rs):
             r.future.set_result(counts_np[i].astype(np.int64))
 

@@ -51,7 +51,8 @@ class Harness:
             for allocs in plan.node_preemptions.values():
                 preemptions.extend(allocs)
             index = self.store.upsert_plan_results(
-                allocs=placements, alloc_blocks=list(plan.alloc_blocks),
+                result_allocs=placements,
+                alloc_blocks=list(plan.alloc_blocks),
                 deployment=plan.deployment, stopped_allocs=stops,
                 preempted_allocs=preemptions)
             result = PlanResult(node_allocation=plan.node_allocation,

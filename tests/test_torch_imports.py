@@ -43,6 +43,12 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.scheduler.preemption\n"
         "import nomad_tpu_torch.scheduler.system_sched\n"
         "import nomad_tpu_torch.tensor.sharding, nomad_tpu_torch.graft_entry\n"
+        "import nomad_tpu_torch.obs, nomad_tpu_torch.obs.trace\n"
+        "import nomad_tpu_torch.obs.recorder, nomad_tpu_torch.core\n"
+        "import nomad_tpu_torch.obs.metrics, nomad_tpu_torch.core.broker\n"
+        "import nomad_tpu_torch.core.blocked, nomad_tpu_torch.core.plan_apply\n"
+        "import nomad_tpu_torch.core.worker, nomad_tpu_torch.core.server\n"
+        "from nomad_tpu_torch.core import Server, ServerConfig\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -72,6 +78,8 @@ def test_no_source_imports_jax_or_the_reference():
             bad.extend(f"{path.relative_to(REPO)}: {n}" for n in names
                        if _forbidden(n))
     assert len(_sources()) > 20
+    for pkg in ("obs", "core"):
+        assert (REPO / "nomad_tpu_torch" / pkg / "__init__.py") in _sources()
     assert not bad, bad
 
 
