@@ -47,15 +47,35 @@ Phases (any failure raises and exits non-zero):
               run_server, cfg_c2m): nodes into the store, the first job's
               shape registered and deregistered (its 4,000 allocs stopped),
               then 64 jobs registered at once to 24 workers, one eval a
-              dequeue, every plan re-checked by the plan applier. Every
+              dequeue, every plan re-checked by the plan applier; on
+              cfg_c2m's two arms, a fresh Server each: the incremental feed
+              on (NOMAD_TPU_INCR=1) and off (0, the kill switch). Every
               alloc live once, no node over capacity (recomputed from the
               store's live allocs), no eval left blocked, B1 launched once
-              a service launch, no plain version on CUDA; prints allocs/s
-              beside the Harness path's wall, the applier's applied /
-              nodes_rejected / partial_commits / commit_batches, the
-              rejection rate, each rejected node's usage rows against its
-              capacity (watch_rejections: a false rejection or one that
-              does not fit) and the span medians per phase (obs/trace.py).
+              a service launch, no plain version on CUDA. The feed's arm
+              also gates fast_hits > 0 and deltas_applied > 0, every
+              service resync on the twin route, and an end-of-run check on
+              the service's stream: the twin caught up by one B4 flush, the
+              twin route's fold (one B4 launch) of the run's last 16 blocks
+              as ledger entries equal to the host route's fold, and the
+              feed's verify exact (base against a gen-bounded rebuild, the
+              twin against base.astype(f32)); each B4 launch the feed and
+              the twin route make is captured and replayed bit-exact
+              against scatter_add_ref, the largest timed. The kill switch's
+              arm gates that the feed builds, uploads and launches nothing.
+              Prints allocs/s beside the Harness path's wall, the
+              applier's applied / nodes_rejected / partial_commits /
+              commit_batches, the rejection rate, each rejected node's
+              usage rows against its capacity (watch_rejections: a false
+              rejection or one that does not fit), the span medians per
+              phase (obs/trace.py), and per arm the worker.tensor_build
+              median, its changed_allocs, the feed's stats and the
+              service's twin / host resyncs.
+   binpack -- bench.py cfg_c2m's serial sample: 2 x 512 allocs (cpu 50,
+              mem 32) on 10,240 nodes through Harness.process, under
+              "tpu-binpack" and under "binpack" (the host placer), each
+              after a warm-up job: 1,024 placed in each, no node over
+              capacity; prints both walls.
 9. spread  -- the per-eval path at cfg3 (bench.py cfg3_spread_50k): 5,120
               nodes, 100 service jobs x 500 allocs (cpu 100, mem 64) with
               spread on ${attr.rack} weight 50, through
@@ -101,8 +121,9 @@ Phases (any failure raises and exits non-zero):
               of B3', B5 and the pick are these means.
    server solve -- that shape through the Server: 8 workers in batches of
               8 (cfg_solve_ab), the batch's members meeting in the solver
-              service's rendezvous; the gates of "server", joint launches
-              >= 1, B5 and the pick launched once a joint launch.
+              service's rendezvous, on the two feed arms; the gates of
+              "server", joint launches >= 1, B5 and the pick launched once
+              a joint launch.
 13. B7/B12 -- preempt_solve and preempt_pick vs their plain versions at the
               C2M width (build_nodes capacities of 10,240 nodes padded to
               16,384, K 512, V 8, cpu and memory used at 95-105%) on ten
@@ -183,7 +204,10 @@ Phases (any failure raises and exits non-zero):
               against its plain version; its wrapper raises ValueError on
               a wrong dtype, shape or device and launches nothing for no
               rows; timed at S 4 beside
-              index_add_ (host issue); B13 (the sharded greedy
+              index_add_ (host issue); the incremental feed's twin on an
+              S 4 mesh at the C2M width, flushed by B15's adds (one launch
+              a shard), equal to its single-device twin flushed by B4 and
+              to base.astype(f32); B13 (the sharded greedy
               fill) at bench.py cfg7_sharded_5k's shape (10,240 nodes, G 16,
               k 512) and at the C2M width with the B1 hazards (N_pad 16,384,
               k 4,000) at S 2, 4, 8, and a top_r 8 many-round variant:
@@ -249,10 +273,11 @@ cfg4's two evals print the time the interpreter's garbage collector
 took inside them (gc.callbacks): their walls are host-bound, and a full
 collection can land in either.
 
-``python3 chip_smoke.py --server`` runs the build and the two Server
-phases alone, then prints their records as one JSON line.
-``python3 chip_smoke.py --sharded`` runs the build and phases 21, 25
-and 26 alone: with several visible cards, every mesh puts its
+``python3 chip_smoke.py --server`` runs the build, the Server phases
+(C2M and tpu-solve, each on both feed arms) and the binpack sample
+alone, then prints their records as one JSON line.
+``python3 chip_smoke.py --sharded`` runs the build and phases 21 (the
+feed's sharded twin included), 25 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards (B13's, B14's
 and B16's pushes and barriers through peer access).
 ``python3 chip_smoke.py --shard-times`` runs the build and phases 22
@@ -282,14 +307,16 @@ switch and read, the stream handle, the bare ctypes call, ...),
 perf_counter_ns over 2,000 calls; then the three calls' device-only
 times.
 
-Before the kernel line it prints the Server phases' records as one JSON
-line (``{"server": ...}``: allocs/s, the applier's counts, each rejected
-node's rows, the service's counts, the kernel launches and the span split
-of each).
+Before the kernel line it prints the Server phases' records and the
+binpack sample's walls as one JSON line (``{"server": ...}``: per arm
+allocs/s, the applier's counts, each rejected node's rows, the service's
+counts, the feed's stats, its B4 launches, the kernel launches and the
+span split).
 Before the last line it prints one JSON line with every kernel's launches
 on its path, error against its plain version, times and bound (B4's
 record adds ``device_ms`` and ``library_device_ms``, the device-only
-readings; B15's, the launch its path makes, adds ``device_ms`` and
+readings, ``server_launches``, its launches in the fed Server arm's
+timed window, and ``twin``, its time at the twin's shape on that arm; B15's, the launch its path makes, adds ``device_ms`` and
 ``without_clamp``, the adds alone beside index_add_; B7's and B12's add
 ``ms_per_step`` and ``setup_ms``; the B11' record adds ``by_n``, its times at
 16,384 and 65,536 beside one round's torch.sort), and the card's name
@@ -301,6 +328,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -341,6 +369,12 @@ MINI_BATCH = 8
 PATH_PAD = 4096     # the service's N_pad for 2,560 nodes
 # the Server path (nomad_tpu_torch/core) at bench.py run_server's shape
 SERVER_WORKERS = 24       # cfg_c2m (bench.py:428-431)
+# waves of jobs a Server phase times. The service resyncs at the first
+# launch that sees RESYNC_SOLVES (64) solves since the warm-up's resync;
+# two waves are 2 x 64 (C2M) or 2 x 50 (tpu-solve) solves, past 64 by more
+# than one launch's group (16 or 8), so a resync falls in the timed window
+# whatever the grouping: on the fed arm the twin route, with its B4 flush
+WAVES = 2
 SOLVE_WORKERS = 8         # cfg_solve_ab's c2m_mini (bench.py:693-695)
 
 
@@ -1641,20 +1675,127 @@ def watch_rejections(applier) -> list:
     return seen
 
 
+@contextlib.contextmanager
+def incr_arm(incr):
+    """NOMAD_TPU_INCR set to ``incr`` for the block (None: as it is)."""
+    prev = os.environ.get("NOMAD_TPU_INCR")
+    if incr is not None:
+        os.environ["NOMAD_TPU_INCR"] = incr
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("NOMAD_TPU_INCR", None)
+        else:
+            os.environ["NOMAD_TPU_INCR"] = prev
+
+
+@contextlib.contextmanager
+def capture_b4(captured):
+    """B4 wrapped where the feed's twin flush (``incremental``) and the
+    service's twin fold (``solver``) call it: for each call its site, the
+    carry before and after, its rows and deltas, copied on the call's
+    stream (a call with no rows launches nothing)."""
+    from nomad_tpu_torch.tensor import incremental, solver
+
+    real = {m: m.scatter_add for m in (incremental, solver)}
+
+    def wrap(site, fn):
+        def capture(used, idx, delta):
+            before = used.clone()
+            out = fn(used, idx, delta)
+            captured.append((site, before, idx.clone(), delta.clone(),
+                             out.clone()))
+            return out
+        return capture
+
+    incremental.scatter_add = wrap("flush", real[incremental])
+    solver.scatter_add = wrap("fold", real[solver])
+    try:
+        yield captured
+    finally:
+        for m, fn in real.items():
+            m.scatter_add = fn
+
+
+def replay_b4(torch, captured, what) -> dict:
+    """Every captured B4 launch against scatter_add_ref on its inputs:
+    bit-exact. Returns the launches, their rows and their sites."""
+    from nomad_tpu_torch.tensor.scatter import scatter_add_ref
+
+    runs = [c for c in captured if c[2].shape[0]]
+    for site, before, idx, delta, after in runs:
+        want = scatter_add_ref(before.clone(), idx, delta)
+        torch.cuda.synchronize()
+        if not torch.equal(after, want):
+            raise AssertionError(f"{what}: B4's {site} launch of "
+                                 f"{idx.shape[0]} rows differs from "
+                                 f"scatter_add_ref")
+    return {"launches": len(runs),
+            "rows": [int(c[2].shape[0]) for c in runs],
+            "sites": Counter(c[0] for c in runs)}
+
+
+def time_b4(torch, captured) -> dict:
+    """The captured B4 launch with the most rows timed beside its plain
+    version and index_add_ on the same inputs, its bound from its rows;
+    {} when none launched."""
+    from nomad_tpu_torch.tensor.scatter import scatter_add, scatter_add_ref
+
+    runs = [c for c in captured if c[2].shape[0]]
+    if not runs:
+        return {}
+    site, before, idx, delta, _ = max(runs, key=lambda c: c[2].shape[0])
+    b = idx.shape[0]
+    idx64 = idx.to(torch.int64)
+    rows = int(torch.unique(idx).numel())
+    b_ms, b_by = bound(b * 4 + b * 16 + 2 * rows * 16, b * 4)
+    return dict(
+        timed_site=site, timed_rows=b, n_pad=int(before.shape[0]),
+        ms=cuda_time_ms(torch, lambda u: scatter_add(u, idx, delta),
+                        setup=before.clone),
+        plain_ms=cuda_time_ms(torch,
+                              lambda u: scatter_add_ref(u, idx, delta),
+                              setup=before.clone),
+        library_ms=cuda_time_ms(torch,
+                                lambda u: u.index_add_(0, idx64, delta),
+                                setup=before.clone),
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
-                    workers, batch, harness_wall=None):
+                    workers, batch, harness_wall=None, incr=None):
     """bench.py run_server (:186-270) on the port's Server on the card:
     nodes straight into the store, the first job's shape registered and
-    deregistered as the warm-up, then every job registered at once and
-    the queue drained, conflict-blocked evals included. Gates as
-    server_gates, B1 launched once a service launch and no plain version
-    on CUDA. Returns (the launch counts of the timed run, its record)."""
+    deregistered as the warm-up, then WAVES waves of ``jobs_fn()``: every
+    job of a wave registered at once and the queue drained,
+    conflict-blocked evals included, before the next. The first wave's
+    wall is the record's; the second runs the service past its
+    RESYNC_SOLVES, so a resync falls in the timed window. Gates as
+    server_gates over both waves, B1 launched once a service launch and
+    no plain version on CUDA; with the feed on, every resync of the window
+    on the twin route, at least one, and a B4 flush of the twin among the
+    window's launches. ``incr`` sets NOMAD_TPU_INCR for the run (the
+    incremental feed on or off; None leaves it). Returns (the launch
+    counts of the timed run, its record)."""
+    with incr_arm(incr):
+        return _run_server_path(torch, card, what, algorithm, n_nodes,
+                                jobs_fn, workers, batch, harness_wall, incr)
+
+
+def _run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
+                     workers, batch, harness_wall, incr):
     from nomad_tpu_torch import _ext, mock
     from nomad_tpu_torch.core.server import Server, ServerConfig
     from nomad_tpu_torch.obs import RECORDER, REGISTRY, TRACER
+    from nomad_tpu_torch.obs.trace import R_ARGS, R_NAME, R_T0, R_T1
     from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import incremental
+    from nomad_tpu_torch.tensor.overlay import INFLIGHT
     from nomad_tpu_torch.tensor.solver import get_service
 
+    fed = incremental.incr_enabled()
+    what = f"{what} ({'feed on' if fed else 'feed off'})"
     srv = Server(ServerConfig(
         num_workers=workers, eval_batch_size=batch, device="cuda",
         sched_config=SchedulerConfiguration(scheduler_algorithm=algorithm),
@@ -1662,7 +1803,9 @@ def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
         failed_eval_unblock_interval=0.5))
     t_setup = time.perf_counter()
     mock.build_nodes(srv.store, n_nodes, seed=0)
-    jobs = jobs_fn()
+    waves = [jobs_fn() for _ in range(WAVES)]
+    jobs = [j for wave in waves for j in wave]
+    walls = []
     svc = get_service(srv.device)
     rejections = watch_rejections(srv.plan_applier)
     with srv:
@@ -1682,30 +1825,78 @@ def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
         del rejections[:]
         print(f"{what:<11} setup and warm-up "
               f"{time.perf_counter() - t_setup:.2f} s ({n_nodes} nodes, "
-              f"{len(jobs)} jobs x {jobs[0].task_groups[0].count} allocs, "
+              f"{WAVES} waves of {len(waves[0])} jobs x "
+              f"{jobs[0].task_groups[0].count} allocs, "
               f"{workers} workers, eval_batch_size {batch})")
         base = dict(svc.stats)
+        feed = incremental.feed_for(srv.store)
+        f0 = feed.stats()
+        captured = []
         TRACER.clear()
         RECORDER.clear()
         REGISTRY.reset()
-        _ext.COUNTS.reset()
-        t_wall = time.time()
-        t0 = time.perf_counter()
-        for j in jobs:
-            srv.register_job(j)
-        deadline = time.time() + 300.0
-        while True:
-            if not srv.wait_for_idle(max(1.0, deadline - time.time()),
-                                     include_delayed=False):
-                raise AssertionError(f"{what}: the eval queue did not drain")
-            if srv.blocked.blocked_count() == 0:
-                break
-            if time.time() > deadline:
-                raise AssertionError(f"{what}: blocked evals did not drain")
-            time.sleep(0.05)
-        wall = time.perf_counter() - t0
-        counts = _ext.COUNTS.snapshot()
-        spans = TRACER.spans()
+        with capture_b4(captured):
+            _ext.COUNTS.reset()
+            t_wall = time.time()
+            for wave in waves:
+                t0 = time.perf_counter()
+                for j in wave:
+                    srv.register_job(j)
+                deadline = time.time() + 300.0
+                while True:
+                    if not srv.wait_for_idle(
+                            max(1.0, deadline - time.time()),
+                            include_delayed=False):
+                        raise AssertionError(f"{what}: the eval queue did "
+                                             f"not drain")
+                    if srv.blocked.blocked_count() == 0:
+                        break
+                    if time.time() > deadline:
+                        raise AssertionError(f"{what}: blocked evals did "
+                                             f"not drain")
+                    time.sleep(0.05)
+                walls.append(time.perf_counter() - t0)
+            counts = _ext.COUNTS.snapshot()
+            spans = TRACER.spans()
+            f1 = feed.stats()
+            in_window = len(captured)
+            if fed:
+                # the feed's end-of-run check, on the service's stream: the
+                # twin caught up by one flush; the twin route's fold of the
+                # run's last G blocks as open ledger entries, against the
+                # host route's fold of them; then base and twin against a
+                # gen-bounded rebuild (the fold must leave the twin as it
+                # was)
+                static = feed._epoch.static_ref
+                blocks = sorted(srv.store.snapshot().alloc_blocks(),
+                                key=lambda b: b.create_index)[-G:]
+                entries = []
+                for b in blocks:
+                    live = list(b.live_rows())
+                    entries.append((
+                        np.array([static.node_index[b.node_ids[m]]
+                                  for m in live], dtype=np.int64),
+                        np.asarray(b.counts)[live].astype(np.int64),
+                        np.asarray(b.allocated_vec, dtype=np.float32)))
+                with svc._stream_ctx():
+                    twin = feed.device_used(static, svc.device)
+                    carry = svc._fold_base_scatter(twin, static, entries)
+                host = feed.base_for(static).astype(np.float32)
+                for idx, cnt, ask in entries:
+                    host[idx] += cnt[:, None].astype(np.float32) * ask[None]
+                INFLIGHT.fold(host[:len(static.nodes)], static.node_index)
+                if not torch.equal(carry.cpu(), torch.from_numpy(host)):
+                    raise AssertionError(f"{what}: the twin route's fold "
+                                         f"differs from the host route's")
+                verified = feed.force_verify()
+                caught_up = bool(feed._epoch.twins) and all(
+                    t.cursor == len(feed._epoch.devlog)
+                    for t in feed._epoch.twins.values())
+                if not (verified and caught_up):
+                    raise AssertionError(
+                        f"{what}: the feed's verify failed (verified "
+                        f"{verified}, twin caught up {caught_up}; "
+                        f"{incremental.GLOBAL.violations[-1:]})")
         partials = [(t, fields) for t, _, _, event, fields
                     in RECORDER.events("plan") if event == "partial_reject"]
         stats = dict(srv.plan_applier.stats)
@@ -1713,6 +1904,31 @@ def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
         want = sum(j.task_groups[0].count for j in jobs)
         statuses = server_gates(srv, jobs, want, what)
     svc.stop()
+    feed_stats = {k: f1[k] - f0[k] for k in f0}
+    window = replay_b4(torch, captured[:in_window], what)
+    end = replay_b4(torch, captured[in_window:], what)
+    timed = time_b4(torch, captured)
+    builds = [(1e3 * (r[R_T1] - r[R_T0]), r[R_ARGS]["changed_allocs"])
+              for r in spans if r[R_NAME] == "worker.tensor_build"
+              and r[R_T0] >= t_wall and "changed_allocs" in r[R_ARGS]]
+    if fed:
+        if not (feed_stats["fast_hits"] > 0
+                and feed_stats["deltas_applied"] > 0):
+            raise AssertionError(f"{what}: the fed base was not used: "
+                                 f"{feed_stats}")
+        if (svc_stats["twin_resyncs"] < 1 or svc_stats["host_resyncs"]
+                or svc_stats["twin_misses"]):
+            raise AssertionError(f"{what}: not every resync of the window "
+                                 f"took the twin route, or none ran: "
+                                 f"{svc_stats}")
+        if window["sites"]["flush"] < 1:
+            raise AssertionError(f"{what}: no resync of the window flushed "
+                                 f"the twin by B4: {window}, {feed_stats}")
+    elif (feed_stats["builds"] or feed_stats["twin_uploads"]
+          or feed_stats["twin_flushes"] or svc_stats["twin_resyncs"]
+          or captured):
+        raise AssertionError(f"{what}: the feed worked with the kill switch "
+                             f"on: {feed_stats}, {svc_stats}")
     launched = counts["launches"]
     if not 0 < launched["bulk_fill"] == svc_stats["launches"]:
         raise AssertionError(f"{what}: B1 launched {launched['bulk_fill']} "
@@ -1724,7 +1940,15 @@ def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
     rejected = stats["nodes_rejected"]
     rate = rejected / max(want + rejected, 1)
     split = span_split(spans, t_wall)
-    rec = {"allocs": want, "wall_s": wall, "allocs_per_s": want / wall,
+    # the first wave is the headline (the cut every earlier run timed);
+    # the second runs past the service's RESYNC_SOLVES
+    per_wave = want // WAVES
+    wall = walls[0]
+    rec = {"incr": "1" if fed else "0",
+           "allocs": per_wave, "wall_s": wall,
+           "allocs_per_s": per_wave / wall,
+           "waves": [{"allocs": per_wave, "wall_s": w,
+                      "allocs_per_s": per_wave / w} for w in walls],
            "applied": stats["applied"], "nodes_rejected": rejected,
            "partial_commits": stats["partial_commits"],
            "commit_batches": stats["commit_batches"],
@@ -1733,13 +1957,23 @@ def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
            "evals": statuses,
            "service": {k: svc_stats[k] for k in
                        ("launches", "solves", "resyncs", "corrections",
-                        "joint_launches", "joint_solves")},
+                        "joint_launches", "joint_solves", "twin_resyncs",
+                        "host_resyncs", "twin_misses")},
+           "feed": feed_stats,
+           "tensor_build_p50_ms": (statistics.median(b[0] for b in builds)
+                                   if builds else None),
+           "changed_allocs": {
+               "builds": len(builds), "sum": sum(b[1] for b in builds),
+               "p50": (statistics.median(b[1] for b in builds)
+                       if builds else None)},
+           "b4_window": window, "b4_end_flush": end, "b4_timed": timed,
            "launches": {k: v for k, v in launched.items() if v},
            "spans": split, "card": card}
     if harness_wall is not None:
         rec["harness_wall_s"] = harness_wall
-    print(f"{what:<11} [{card}] {want} allocs in {wall:.3f} s = "
-          f"{want / wall:.1f} allocs/s through the Server"
+    print(f"{what:<11} [{card}] {per_wave} allocs in {wall:.3f} s = "
+          f"{per_wave / wall:.1f} allocs/s through the Server (the second "
+          f"wave: {walls[-1]:.3f} s; {want} placed in all)"
           + (f" (the Harness path: {harness_wall:.3f} s)"
              if harness_wall is not None else "")
           + f"; applied {stats['applied']}, nodes_rejected {rejected}, "
@@ -1759,12 +1993,22 @@ def run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
     print(f"{what:<11} [{card}] span p50 ms (n, total ms): " + "; ".join(
         f"{k} {v['p50_ms']:.3f} ({v['n']}, {v['total_ms']:.1f})"
         for k, v in split.items()))
+    print(f"{what:<11} [{card}] worker.tensor_build p50 "
+          f"{rec['tensor_build_p50_ms']} ms over {len(builds)} builds; "
+          f"changed_allocs {rec['changed_allocs']}; feed {feed_stats}; "
+          f"resyncs twin {svc_stats['twin_resyncs']} / host "
+          f"{svc_stats['host_resyncs']} (misses {svc_stats['twin_misses']}); "
+          f"B4 from the feed in the window {window}, at the end flush "
+          f"{end}; timed {timed}")
     return launched, rec
 
 
 def phase_server(torch, card, harness_wall=None):
     """The C2M path through the port's Server (bench.py cfg_c2m's shape,
-    its 500 jobs cut to JOBS as phase_path)."""
+    its 500 jobs cut to JOBS as phase_path) on cfg_c2m's two arms, a
+    fresh Server each: the incremental feed on (NOMAD_TPU_INCR=1, the
+    headline arm) and off (0, the kill switch). Returns {incr: (the
+    launch counts, the record)}."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import enums
 
@@ -1772,14 +2016,81 @@ def phase_server(torch, card, harness_wall=None):
         return [mock.service_job(K, cpu=50, mem=32, batch=True)
                 for _ in range(JOBS)]
 
-    return run_server_path(torch, card, "server", enums.SCHED_ALG_TPU_BINPACK,
-                           N_NODES, jobs, SERVER_WORKERS, 1, harness_wall)
+    arms = {incr: run_server_path(
+        torch, card, "server", enums.SCHED_ALG_TPU_BINPACK, N_NODES, jobs,
+        SERVER_WORKERS, 1, harness_wall, incr=incr) for incr in ("1", "0")}
+    print(f"server      [{card}] arms (feed on / off): wall "
+          + " / ".join(f"{arms[i][1]['wall_s']:.3f} s" for i in arms)
+          + "; worker.tensor_build p50 "
+          + " / ".join(f"{arms[i][1]['tensor_build_p50_ms']} ms"
+                       for i in arms)
+          + "; resyncs (twin, host) "
+          + " / ".join(f"({arms[i][1]['service']['twin_resyncs']}, "
+                       f"{arms[i][1]['service']['host_resyncs']})"
+                       for i in arms))
+    return arms
 
 
-def phase_server_solve(torch, card, harness_wall=None):
+def phase_binpack(torch, card, device="cuda"):
+    """bench.py cfg_c2m's serial sample (:452-458, run_harness :126-155):
+    2 jobs x 512 allocs (cpu 50, mem 32) on 10,240 nodes through
+    Harness.process, "tpu-binpack" against "binpack" (the host placer),
+    each after a warm-up job of the same shape. Gates: 1,024 placed in
+    each arm, every alloc once, no node over capacity. Returns the
+    walls."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor.solver import get_service
+    from nomad_tpu_torch.testing import Harness
+
+    walls = {}
+    for alg in (enums.SCHED_ALG_TPU_BINPACK, enums.SCHED_ALG_BINPACK):
+        h = Harness(device=device)
+        mock.build_nodes(h.store, N_NODES, seed=0)
+        jobs = [mock.service_job(512, cpu=50, mem=32, batch=True)
+                for _ in range(2)]
+        for j in jobs:
+            h.store.upsert_job(j)
+        cfg = SchedulerConfiguration(scheduler_algorithm=alg)
+        warm = mock.service_job(512, cpu=50, mem=32, batch=True)
+        h.store.upsert_job(warm)
+        h.process(mock.eval_for(warm), cfg)
+        h.store.delete_job(warm.id)
+        t0 = time.perf_counter()
+        for j in jobs:
+            h.process(mock.eval_for(j), cfg)
+        walls[alg] = time.perf_counter() - t0
+        snap = h.store.snapshot()
+        placed = sum(len([a for a in snap.allocs_by_job(j.id)
+                          if not a.terminal_status()]) for j in jobs)
+        nodes = list(snap.nodes())
+        row = {n.id: i for i, n in enumerate(nodes)}
+        cap = np.stack([n.available_vec() for n in nodes])
+        usage = np.zeros_like(cap)
+        ids = [a.id for a in snap.allocs()]
+        for a in snap.allocs():
+            if not a.terminal_status():
+                usage[row[a.node_id]] += a.allocated_vec
+        over = int((usage > cap).any(axis=1).sum())
+        if placed != 1024 or len(ids) != len(set(ids)) or over:
+            raise AssertionError(f"binpack sample {alg}: placed {placed} of "
+                                 f"1024, {len(ids) - len(set(ids))} "
+                                 f"duplicate ids, {over} nodes over capacity")
+    get_service(device).stop()
+    tpu, host = (walls[enums.SCHED_ALG_TPU_BINPACK],
+                 walls[enums.SCHED_ALG_BINPACK])
+    print(f"binpack     [{card}] 2 x 512 allocs on {N_NODES} nodes: "
+          f"tpu-binpack {tpu:.3f} s, binpack (host placer) {host:.3f} s; "
+          f"per-alloc ratio {host / tpu:.2f} (bench.py's vs_baseline "
+          f"formula); 1024 placed in each")
+    return {"tpu-binpack_s": tpu, "binpack_s": host}
+
+
+def phase_server_solve(torch, card, harness_wall=None, incr=None):
     """The "tpu-solve" c2m_mini shape through the port's Server: worker
     batches of 8 meet in the service's rendezvous, one joint launch (B1,
-    B5, the pick) a batch."""
+    B5, the pick) a batch. ``incr`` as run_server_path's."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import enums
 
@@ -1790,7 +2101,7 @@ def phase_server_solve(torch, card, harness_wall=None):
 
     launched, rec = run_server_path(
         torch, card, "server solve", enums.SCHED_ALG_TPU_SOLVE, MINI_NODES,
-        jobs, SOLVE_WORKERS, MINI_BATCH, harness_wall)
+        jobs, SOLVE_WORKERS, MINI_BATCH, harness_wall, incr=incr)
     joint = rec["service"]["joint_launches"]
     if joint < 1:
         raise AssertionError("server solve: no joint launch")
@@ -1803,9 +2114,13 @@ def phase_server_solve(torch, card, harness_wall=None):
 
 
 def server_only(torch, card) -> int:
-    """``--server``: the two Server phases alone."""
-    records = {"server": phase_server(torch, card)[1],
-               "server_solve": phase_server_solve(torch, card)[1]}
+    """``--server``: the Server phases (C2M and tpu-solve, each on both
+    feed arms) and the binpack sample alone."""
+    arms = phase_server(torch, card)
+    records = {"server": arms["1"][1], "server_incr0": arms["0"][1]}
+    for incr, key in (("1", "server_solve"), ("0", "server_solve_incr0")):
+        records[key] = phase_server_solve(torch, card, incr=incr)[1]
+    records["binpack"] = phase_binpack(torch, card)
     print(json.dumps({"server": records}))
     print(card)
     return 0
@@ -3475,6 +3790,86 @@ def check_b13(torch, mesh, t, top_r, what):
     return got[2].tolist()
 
 
+def phase_sharded_twin(torch, card, device="cuda"):
+    """The incremental feed's twin on a PATH_SHARDS mesh on the card (B15's
+    adds: one host call, one launch a shard) against its single-device
+    twin (B4), at the C2M width (10,240 nodes, N_pad 16,384): both
+    uploaded, then the same deltas (an AllocBlock over 2,048 nodes, 256
+    single allocs, 64 of them stopped) flushed into each by one launch.
+    Gates: each flush one launch (B4 once, B15 once a shard), the mesh's
+    parts put together equal to the single twin, both equal to
+    base.astype(f32), and the feed's verify."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.core.events import EventBroker
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.structs.alloc import AllocBlock, Allocation
+    from nomad_tpu_torch.tensor import incremental
+    from nomad_tpu_torch.tensor.cluster import ClusterStatic
+    from nomad_tpu_torch.device import resolve
+    from nomad_tpu_torch.tensor.sharding import gather_rows, shard_mesh
+
+    store = StateStore()
+    broker = EventBroker(store)
+    tracker = incremental.StateTracker()
+    feed = tracker.attach(store, broker)
+    mock.build_nodes(store, N_NODES, seed=0)
+    nodes = list(store.snapshot().nodes())
+    static = ClusterStatic(nodes, store=store)
+    dev = resolve(device)
+    mesh = shard_mesh(PATH_SHARDS, dev)
+    feed.device_used(static, dev)
+    feed.device_used(static, dev, mesh)
+    rng = np.random.default_rng(21)
+    vec = np.zeros(4)
+    vec[:2] = (50.0, 32.0)
+    picked = rng.choice(N_NODES, 2048, replace=False)
+    block = AllocBlock(
+        id="twin-blk", eval_id="twin-ev", job_id="twin-job",
+        task_group="web", name_indices=np.arange(4096, dtype=np.int64),
+        node_ids=[nodes[i].id for i in picked],
+        node_names=[nodes[i].name for i in picked],
+        counts=np.full(2048, 2, dtype=np.int64), allocated_vec=vec)
+    singles = []
+    for i in range(256):
+        a = Allocation(id=f"twin-a{i}", name=f"twin-a{i}",
+                       node_id=nodes[int(rng.integers(0, N_NODES))].id,
+                       job_id="twin-job", eval_id="twin-ev")
+        a.allocated_vec = vec * float(rng.integers(1, 5))
+        singles.append(a)
+    store.upsert_plan_results(singles, alloc_blocks=[block])
+    stops = []
+    for a in singles[:64]:
+        stop = Allocation(**{k: getattr(a, k) for k in (
+            "id", "name", "node_id", "job_id", "eval_id", "allocated_vec")})
+        stop.desired_status = "stop"
+        stops.append(stop)
+    store.upsert_plan_results([], stopped_allocs=stops)
+    _ext.COUNTS.reset()
+    single = feed.device_used(static, dev).clone()
+    parts = feed.device_used(static, dev, mesh)
+    counts = _ext.COUNTS.snapshot()
+    launched = counts["launches"]
+    on_card = dev.type == "cuda"
+    if not (launched["scatter_add"] == on_card
+            and launched["scatter_shard"] == PATH_SHARDS * on_card
+            and not any(counts["plain_on_cuda"].values())):
+        raise AssertionError(f"sharded twin: launches {launched}, plain on "
+                             f"CUDA {counts['plain_on_cuda']}")
+    want = torch.tensor(feed.base_for(static).astype(np.float32), device=dev)
+    if not (torch.equal(gather_rows(parts), single)
+            and torch.equal(single, want)):
+        raise AssertionError("sharded twin: B15's flush differs from B4's "
+                             "or from the base")
+    if not feed.force_verify() or tracker.violations:
+        raise AssertionError(f"sharded twin: verify failed "
+                             f"{tracker.violations}")
+    rows = 2048 + 256 + 64
+    print(f"twin shards [{card}] the feed's twin at S {PATH_SHARDS} (B15's "
+          f"adds, {rows} rows, one launch a shard) equal to the single "
+          f"twin (one B4 launch) and to base.astype(f32) at N_pad "
+          f"{static.n_pad}; verify exact")
+
+
 def phase_sharded_kernels(torch, dev, card):
     """B15, B13 and B14 against their plain versions and the single-device
     kernels at S = 2, 4, 8 on one card."""
@@ -4461,6 +4856,7 @@ def sharded_only(torch, dev, card, rng) -> int:
           f"{', '.join(repr(mesh_of(s_n)) for s_n in SHARDS)}")
     phase_barrier(torch, dev, card)
     phase_sharded_kernels(torch, dev, card)
+    phase_sharded_twin(torch, card)
     b16 = phase_task_group_shard(torch, dev, card, rng)
     launches, err = phase_entry(torch, card)
     b16.update(route="cuda", launches=launches["task_group_shard"],
@@ -4703,7 +5099,9 @@ def main() -> int:
     launches, wall = phase_path(torch, card)
     for k in bulk:
         k["launches"] = launches[k["name"]]
-    server = {"server": phase_server(torch, card, wall)[1]}
+    arms = phase_server(torch, card, wall)
+    server = {"server": arms["1"][1], "server_incr0": arms["0"][1]}
+    server["binpack"] = phase_binpack(torch, card)
     launches = phase_spread(torch, card)
     for k in per_eval:
         k["launches"] = launches[k["name"]]
@@ -4711,10 +5109,15 @@ def main() -> int:
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
         k["launches"] = launches[k["name"]]
-    server["server_solve"] = phase_server_solve(torch, card, wall)[1]
-    # B4 is off the C2M path (B1 folds the corrections): its launches are
-    # solve_batch's folds on the tpu-solve path
+    for incr, key in (("1", "server_solve"), ("0", "server_solve_incr0")):
+        server[key] = phase_server_solve(torch, card, wall, incr=incr)[1]
+    # B4 is off the Harness C2M path (B1 folds the corrections): its
+    # launches are solve_batch's folds on the tpu-solve path and, on the
+    # Server's fed arm, the feed's twin flushes and the twin route's folds
     bulk[1]["launches"] += launches["scatter_add"]
+    bulk[1]["launches"] += arms["1"][0]["scatter_add"]
+    bulk[1]["server_launches"] = arms["1"][0]["scatter_add"]
+    bulk[1]["twin"] = arms["1"][1]["b4_timed"]
     pick = phase_preempt_kernels(torch, dev, card, rng)
     launches, captured, cfg4 = phase_cfg4(torch, card)
     preempt = [phase_cfg4_replay(torch, card, captured), pick]
@@ -4736,6 +5139,7 @@ def main() -> int:
     phase_cfg4_parity(card, cfg4)
     phase_barrier(torch, dev, card)
     phase_sharded_kernels(torch, dev, card)
+    phase_sharded_twin(torch, card)
     launches_b, wall_b, bulk_runs = phase_sharded_path(torch, card)
     launches_j, wall_j, joint_runs = phase_sharded_solve_path(torch, card)
     sharded = phase_sharded_replay(torch, card, bulk_runs, joint_runs,
@@ -4758,7 +5162,7 @@ def main() -> int:
     for k in kernels:
         k["route"] = "cuda"
     extra = ("device_ms", "library_device_ms", "without_clamp",
-             "ms_per_step", "setup_ms", "by_n")
+             "ms_per_step", "setup_ms", "by_n", "server_launches", "twin")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

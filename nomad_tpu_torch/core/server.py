@@ -2,10 +2,13 @@
 ``nomad_tpu/core/server.py``).
 
 Wires the MVCC state store to the eval broker, the blocked-evals
-tracker, the plan queue and applier and the scheduler workers, on one
-device: ``ServerConfig.device`` (resolved by ``device.resolve``: the card
-by default, raising without one; the CPU only when asked) is threaded
-down Server -> Worker -> scheduler -> ``TorchPlacer`` ->
+tracker, the plan queue and applier, the scheduler workers, the event
+broker (``events``) and the incremental usage feed it feeds
+(``tensor/incremental.py``; ``NOMAD_TPU_INCR=0`` turns it off at call
+time), on one device: ``ServerConfig.device`` (resolved by
+``device.resolve``: the card by default, raising without one; the CPU
+only when asked) is threaded down Server -> Worker -> scheduler ->
+``TorchPlacer`` ->
 ``tensor.solver.get_service(device)``. The calls it serves:
 ``register_job``, ``deregister_job``, ``register_node(s)``,
 ``create_eval``; ``wait_for_idle`` for tests and benchmarks. Use it as a
@@ -19,8 +22,11 @@ reference the port does not have): the heartbeat manager
 (``deployment_watcher``, ``promote_deployment``, ``fail_deployment``),
 the drainer (``drainer``, ``update_node_drain``), periodic and
 parameterized jobs (``periodic``, ``dispatch_job``), core GC
-(``core_gc``, ``force_gc``), the event broker (``events``; the bad-node
-quarantine publishes nothing), client alloc sync (``alloc_sync``,
+(``core_gc``, ``force_gc``), the event broker's direct publishes (the
+bad-node quarantine publishes nothing) and its sizing knobs
+(``event_ring_size``, ``event_shards``: the broker keeps its defaults,
+rings of 4,096 events in 8 shards), the shadow replica
+(``shadow.maybe_attach``, ROADMAP A8), client alloc sync (``alloc_sync``,
 ``client_updates``, ``update_allocs_from_client``, ``stop_alloc``),
 ACLs, identities and variables (``acl_*``, ``encrypter``,
 ``sign_workload_identity``, ``*_variable``), federation and ACL
@@ -29,10 +35,9 @@ controller (``loadctl``, the ``_tiered`` admission decorator, poison-eval
 quarantine), namespaces, node pools, volumes and service registrations
 (``_check_namespace``, ``upsert_node_pool``, ``register_volume``, ...),
 the scheduler-config replication (``set_scheduler_config``), dry-run
-plans (``plan_job``), job scaling and reverts, the incremental
-device-state feed (``incremental.maybe_attach``, ROADMAP A2), and the
-unbatched plan-commit arm (``plan_commit_batching``; the applier always
-batches, see core/plan_apply.py).
+plans (``plan_job``), job scaling and reverts, and the unbatched
+plan-commit arm (``plan_commit_batching``; the applier always batches,
+see core/plan_apply.py).
 """
 
 from __future__ import annotations
@@ -52,9 +57,11 @@ from ..structs.evaluation import Evaluation
 from ..structs.job import Job
 from ..structs.node import Node
 from ..structs.operator import SchedulerConfiguration
+from ..tensor import incremental
 from ..utils.ids import generate_uuid
 from .blocked import BlockedEvals
 from .broker import FAILED_QUEUE, EvalBroker
+from .events import EventBroker
 from .plan_apply import BadNodeTracker, PlanApplier, PlanQueue
 from .worker import Worker
 
@@ -103,6 +110,10 @@ class Server:
                 on_bad_node=self._on_bad_node))
         self.workers: List[Worker] = [
             Worker(self, i) for i in range(self.config.num_workers)]
+        self.events = EventBroker(self.store)
+        # the incremental usage feed reads this event stream (always
+        # attached; NOMAD_TPU_INCR=0 is its call-time kill switch)
+        incremental.maybe_attach(self.store, self.events)
         self._running = False
         self._reaper: Optional[threading.Thread] = None
         # commit listeners fire on the store's write path; unblocking
@@ -110,8 +121,7 @@ class Server:
         # commit pump's thread (reference :225-237)
         self._commit_q: "queue.Queue" = queue.Queue()
         self.store.add_commit_listener(
-            lambda index, events: self._commit_q.put((index, events))
-            if events else None)
+            lambda index, events: self._commit_q.put((index, events)))
         self._commit_pump: Optional[threading.Thread] = None
 
     # -- lifecycle --
@@ -181,13 +191,18 @@ class Server:
                     self.logger.exception("commit listener failed")
 
     def _on_commit(self, index: int, events: list) -> None:
+        """The reference's unblock rules (:452-475); other kinds, such as
+        ``alloc-upsert`` and ``alloc-block-upsert``, unblock nothing."""
         for kind, payload in events:
-            if kind in ("node-upsert", "node-status", "node-eligibility"):
+            if kind in ("node-upsert", "node-status", "node-eligibility",
+                        "node-drain"):
                 if payload is not None and payload.ready():
                     self.blocked.unblock(payload.computed_class)
-            elif kind in ("alloc-stop", "alloc-preempt"):
+            elif kind in ("alloc-stop", "alloc-preempt",
+                          "alloc-client-update", "alloc-transition"):
                 # capacity freed by a terminal alloc can unblock evals
-                if payload is not None and payload.terminal_status():
+                if payload is not None and (payload.terminal_status()
+                                            or payload.server_terminal()):
                     self.blocked.unblock("")
 
     def _on_bad_node(self, node_id: str) -> None:

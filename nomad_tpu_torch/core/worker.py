@@ -19,9 +19,9 @@ double buffer, ``_drain_prev``).
 
 Spans, at the reference's points: ``worker.snapshot``,
 ``worker.schedule``, ``plan.submit``, ``eval.persist``. Not ported: the
-incremental feed's per-batch counters (``incremental.GLOBAL``, ROADMAP
-A2: the port runs the reference's ``NOMAD_TPU_INCR=0`` arm), the
-scheduler event hook and the cross-eval constraint caches.
+per-batch gauges of the feed's build routes
+(``nomad.worker.batch_state_*``; the feed's own ``stats()`` count them),
+the scheduler event hook and the cross-eval constraint caches.
 """
 
 from __future__ import annotations

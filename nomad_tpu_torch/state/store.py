@@ -5,9 +5,14 @@ allocations (the per-eval path's) in MVCC tables, one serialized writer
 and any number of concurrent snapshot readers.
 
 For the Server (``core/``): commit listeners called with each published
-generation and the events the Server reads (``node-upsert``,
-``node-status``, ``node-eligibility``, ``alloc-stop``, ``alloc-preempt``;
-reference ``server.py:232-237``); ``snapshot_min_index`` (the worker's
+generation and its events, each write emitting the reference's kinds
+and payloads (``node-upsert``, ``node-status``, ``node-eligibility``,
+``node-pool-upsert``, ``job-upsert``, ``job-delete``, ``eval-upsert``,
+``deployment-upsert``, ``alloc-upsert``, ``alloc-stop``,
+``alloc-preempt``, ``alloc-block-upsert``), which the Server's unblock
+rules, the event broker and the incremental feed read; the writes the
+port does not have (client updates, GC, node delete, restore) emit
+nothing. Also ``snapshot_min_index`` (the worker's
 and the applier's wait, reference ``worker.py:281``); eval rows; and
 ``upsert_plan_results_batch``, many plans' results and their eval
 updates in one generation (the applier's commit round, reference
@@ -392,7 +397,7 @@ class StateStore:
             gen, live = self._begin()
             pool.modify_index = gen
             self._node_pools.put(pool.name, pool, gen, live)
-            self._commit(gen)
+            self._commit(gen, [("node-pool-upsert", pool)])
             return gen
 
     # --- jobs / evals ---
@@ -414,8 +419,9 @@ class StateStore:
             job.job_modify_index = gen
             # a snapshot row, so a re-upserted caller object can't
             # rewrite history in place
-            self._jobs.put(key, copy.copy(job), gen, live)
-            self._commit(gen)
+            row = copy.copy(job)
+            self._jobs.put(key, row, gen, live)
+            self._commit(gen, [("job-upsert", row)])
             return gen
 
     def delete_job(self, job_id: str, namespace: str = "default",
@@ -426,16 +432,15 @@ class StateStore:
         with self._write_lock:
             gen, live = self._begin()
             key = (namespace, job_id)
+            job = self._jobs.get_latest(key)
             if purge:
                 self._jobs.delete(key, gen, live)
-            else:
-                job = self._jobs.get_latest(key)
-                if job is not None:
-                    job = copy.copy(job)
-                    job.stop = True
-                    job.modify_index = gen
-                    self._jobs.put(key, job, gen, live)
-            self._commit(gen)
+            elif job is not None:
+                job = copy.copy(job)
+                job.stop = True
+                job.modify_index = gen
+                self._jobs.put(key, job, gen, live)
+            self._commit(gen, [("job-delete", job)])
             return gen
 
     def upsert_evals(self, evals: List[Evaluation]) -> int:
@@ -443,7 +448,7 @@ class StateStore:
             gen, live = self._begin()
             for ev in evals:
                 self._put_eval(ev, gen, live)
-            self._commit(gen)
+            self._commit(gen, [("eval-upsert", ev) for ev in evals])
             return gen
 
     def _put_eval(self, ev: Evaluation, gen: int, live: int) -> None:
@@ -504,7 +509,7 @@ class StateStore:
         with self._write_lock:
             gen, live = self._begin()
             self._put_deployment(dep, gen, live)
-            self._commit(gen)
+            self._commit(gen, [("deployment-upsert", dep)])
             return gen
 
     # --- the plan-apply mutation ---
@@ -514,7 +519,7 @@ class StateStore:
         with self._write_lock:
             gen, live = self._begin()
             self._put_allocs(allocs, gen, live)
-            self._commit(gen)
+            self._commit(gen, [("alloc-upsert", a) for a in allocs])
             return gen
 
     def upsert_plan_results(self, result_allocs: List[Allocation] = (),
@@ -547,25 +552,38 @@ class StateStore:
                 events.extend(("alloc-stop", a) for a in stops)
                 self._put_allocs(evictions, gen, live)
                 events.extend(("alloc-preempt", a) for a in evictions)
-                self._put_allocs(p.get("result_allocs", ()), gen, live)
+                results = p.get("result_allocs", ())
+                fresh = self._put_allocs(results, gen, live)
+                # the reference's order: rewrites of existing rows, then
+                # first inserts (its bulk insert path, store.py:1193-1206)
+                events.extend(("alloc-upsert", a)
+                              for a, f in zip(results, fresh) if not f)
+                events.extend(("alloc-upsert", a)
+                              for a, f in zip(results, fresh) if f)
                 for block in p.get("alloc_blocks", ()):
                     self._put_alloc_block(block, gen, live)
-                if p.get("deployment") is not None:
-                    self._put_deployment(p["deployment"], gen, live)
+                    events.append(("alloc-block-upsert", block))
+                dep = p.get("deployment")
+                if dep is not None:
+                    self._put_deployment(dep, gen, live)
+                    events.append(("deployment-upsert", dep))
                 for ev in p.get("evals", ()):
                     self._put_eval(ev, gen, live)
+                    events.append(("eval-upsert", ev))
             self._commit(gen, events)
             return gen
 
     def _put_allocs(self, allocs: List[Allocation], gen: int,
-                    live: int) -> None:
+                    live: int) -> List[bool]:
         """Single allocations: a new id gets one index entry per node and
         job key (one chunk cell per key per generation); a replaced row
         moves the node's usage by the difference. A write to a block
         position promotes it: the real row shadows the block's virtual
         row in every index (no entry of its own) and replaces its usage.
         Usage counts the allocs that are not terminal, as the
-        scheduler's proposed view does (reference ``_usage_apply``)."""
+        scheduler's proposed view does (reference ``_usage_apply``).
+        Returns, per alloc, whether it was a first insert (no row and no
+        block position before)."""
         by_node: Dict[str, list] = {}
         by_job: Dict[tuple, list] = {}
         # per (node, vec identity) counts: placements of one group share
@@ -577,6 +595,7 @@ class StateStore:
             e[1] += 1
 
         promoted: Dict[str, int] = {}
+        fresh: List[bool] = []
         for a in allocs:
             prev = self._allocs.get_latest(a.id)
             if prev is None:
@@ -589,6 +608,7 @@ class StateStore:
             a.create_index = prev.create_index if prev is not None else gen
             a.modify_index = gen
             self._allocs.put(a.id, a, gen, live)
+            fresh.append(prev is None)
             if prev is None:
                 by_node.setdefault(a.node_id, []).append(a.id)
                 by_job.setdefault((a.namespace, a.job_id), []).append(a.id)
@@ -607,6 +627,7 @@ class StateStore:
             for key, ids in groups.items():
                 table.put(key, cons(tuple(ids), table.get_latest(key)),
                           gen, live)
+        return fresh
 
     def _put_alloc_block(self, block: AllocBlock, gen: int, live: int) -> None:
         block.create_index = gen

@@ -6,7 +6,8 @@ index maps, feasibility masks, affinity vectors, interned attribute
 values, device-resident copies), cached per store node-set version and
 shared by every eval and worker. ``ClusterTensors`` adds one eval's
 usage view, with racing evals' in-flight placements folded in
-(``overlay.py``). ``build_task_group_tensors`` lowers one task group:
+(``overlay.py``); its base is the incremental feed's when the store has
+one (``incremental.py``), else one gather from the store. ``build_task_group_tensors`` lowers one task group:
 feasibility, affinity, anti-affinity counts, spread tables and
 distinct_property tables. ``build_victim_tensors`` lowers every node's
 preemptible allocs into the victim columns of the preemption solve.
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +33,7 @@ from ..scheduler.feasible import (UNPORTED_A5, check_constraint,
 from ..scheduler.spread import IMPLICIT_TARGET, SpreadInfo, combined_spreads
 from ..structs import Job, Node, TaskGroup, enums
 from ..structs.resources import RESOURCE_DIMS
+from .incremental import feed_for
 from .overlay import INFLIGHT
 
 
@@ -111,6 +113,9 @@ class ClusterTensors:
     node_index: Dict[str, int]
     static: "ClusterStatic" = None
     _store: object = None
+    # allocation deltas the feed drained since the previous build, taken
+    # by build() with the fed base (None without a fed base)
+    changed_allocs: Optional[int] = None
 
     @classmethod
     def build(cls, ctx: EvalContext, nodes: Sequence[Node]) -> "ClusterTensors":
@@ -121,38 +126,65 @@ class ClusterTensors:
                 available=static.available, used=None,
                 node_index=static.node_index, static=static,
                 _store=getattr(ctx.snapshot, "_store", None))
-        t.refresh_usage(ctx)
+        t.refresh_usage(ctx, take_count=True)
         return t
 
-    def refresh_usage(self, ctx: EvalContext) -> None:
+    def refresh_usage(self, ctx: EvalContext, take_count: bool = False
+                      ) -> None:
         """Proposed usage (state - evictions + placements). The base is
-        one gather from the store's dense LATEST usage matrix when the
-        static has its rows, else per-node snapshot rows; nodes the
-        in-progress plan touches are recomputed from ctx.proposed_allocs;
-        racing evals' in-flight placements are added last.
+        the incremental feed's (reference ``cluster.py:235-252``): handed
+        out as its shared read-only view when the plan touches no node
+        and no racing eval has an in-flight entry, else copied. Without a
+        fed base (no feed, or ``NOMAD_TPU_INCR=0``) it is one gather from
+        the store's dense LATEST usage matrix when the static has its
+        rows, else per-node snapshot rows. Nodes the in-progress plan
+        touches are recomputed from ctx.proposed_allocs; racing evals'
+        in-flight placements are added last.
 
         The in-flight entries are read BEFORE the store: an entry closes
         only after its plan is in the store, so every racing solve is
         then counted at least once. Read after the store, a plan that
         commits and closes its entry in between would be counted nowhere
         and its nodes filled twice (the harness commits without
-        re-checking fit)."""
+        re-checking fit).
+
+        ``take_count`` (the build's own read): the feed's delta count is
+        taken with the base, under the same lock, into
+        ``changed_allocs``."""
         n = len(self.nodes)
-        pending = np.zeros((n, RESOURCE_DIMS))
-        INFLIGHT.fold(pending, self.node_index, exclude_plan=ctx.plan)
-        used = self.used = np.zeros((self.n_pad, RESOURCE_DIMS))
-        rows = self.static.usage_rows if self.static is not None else None
-        if rows is not None and self._store is not None:
-            used[:n] = self._store._usage_mat[rows]
-        else:
-            for i, node in enumerate(self.nodes):
-                u = ctx.snapshot.node_usage(node.id)
-                if u is not None:
-                    used[i] = u
         plan = ctx.plan
-        if plan is not None:
+        touched = ()
+        if plan is not None and (plan.node_update or plan.node_preemptions
+                                 or plan.node_allocation):
             touched = (set(plan.node_update) | set(plan.node_preemptions)
                        | set(plan.node_allocation))
+        pending = None
+        if INFLIGHT.has_entries(exclude_plan=plan):
+            pending = np.zeros((n, RESOURCE_DIMS))
+            INFLIGHT.fold(pending, self.node_index, exclude_plan=plan)
+        feed = feed_for(self._store)
+        base = None
+        if feed is not None and take_count:
+            base, self.changed_allocs = feed.base_for_build(self.static)
+        elif feed is not None:
+            base = feed.base_for(self.static)
+        if base is not None:
+            if not touched and pending is None:
+                self.used = base
+                return
+            used = self.used = base.copy()
+        else:
+            used = self.used = np.zeros((self.n_pad, RESOURCE_DIMS))
+            rows = (self.static.usage_rows if self.static is not None
+                    else None)
+            if rows is not None and self._store is not None:
+                used[:n] = self._store._usage_mat[rows]
+            else:
+                for i, node in enumerate(self.nodes):
+                    u = ctx.snapshot.node_usage(node.id)
+                    if u is not None:
+                        used[i] = u
+        if touched:
             for node_id in touched:
                 i = self.node_index.get(node_id)
                 if i is None:
@@ -161,7 +193,8 @@ class ClusterTensors:
                 for a in ctx.proposed_allocs(node_id):
                     if a.should_count_for_usage():
                         used[i] += a.allocated_vec
-        used[:n] += pending
+        if pending is not None:
+            used[:n] += pending
 
     def latest_usage(self) -> np.ndarray:
         """Freshly gathered LATEST committed usage, (n_pad, D) float32.

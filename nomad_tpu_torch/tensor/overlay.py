@@ -46,6 +46,17 @@ class InflightOverlay:
             if self._entries.pop(token, None) is not None:
                 self.stats["confirmed"] += 1
 
+    def has_entries(self, exclude_plan=None) -> bool:
+        """Whether :meth:`fold` would add anything: a live entry not owned
+        by ``exclude_plan`` (reference ``overlay.py:68``). The fed usage
+        path hands out the feed's shared base when it is False."""
+        now = time.time()
+        exclude = id(exclude_plan) if exclude_plan is not None else None
+        with self._lock:
+            return any(now - e["born"] <= ENTRY_TTL
+                       and (exclude is None or e["plan"] != exclude)
+                       for e in self._entries.values())
+
     def fold(self, used, node_index: Dict[str, int],
              exclude_plan=None) -> None:
         """Add every open entry's deltas into a canonical-order usage

@@ -45,7 +45,8 @@ Ports, device and core asks raise (ROADMAP queue A5); nothing falls
 back to another algorithm.
 
 Spans (obs/trace.py), at the reference's points: ``worker.tensor_build``
-(the cluster tensors; the victim columns), ``worker.solve_bulk`` (a bulk
+(the cluster tensors, its ``changed_allocs`` the Allocation deltas since
+the previous build; the victim columns), ``worker.solve_bulk`` (a bulk
 group), ``solver.apply`` (the block's host work after the counts),
 ``worker.solve`` (the per-eval launch, its lock wait included),
 ``solver.preempt`` (the preemption solve), ``worker.preempt_commit`` (its
@@ -58,7 +59,7 @@ from __future__ import annotations
 
 import threading
 import zlib
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -73,10 +74,40 @@ from ..structs.alloc import Allocation
 from ..structs.funcs import allocs_fit
 from .cluster import (ClusterTensors, _pad_pow2, build_task_group_tensors,
                       build_victim_tensors)
+from .incremental import device_used_fn, feed_for, incr_enabled
 from .kernels import (fit_scores_np, pack_solve_args, preempt_solve,
                       solve_bulk, solve_bulk_fused, solve_task_group_fused)
 from .overlay import INFLIGHT
 from .solver import BulkSolverService, ensure_resident, get_service, upload
+
+# The registry reading of the last build without a feed (the fallback of
+# _changed_allocs_since_last_build)
+_DELTA_MARK_LOCK = threading.Lock()
+_DELTA_MARK = [0.0]
+
+
+def _changed_allocs_since_last_build(store=None,
+                                     taken: Optional[int] = None) -> int:
+    """Allocation deltas since the previous tensor build (reference
+    ``placer.py:199-214``): ``taken``, the count the build took with its
+    fed base (``ClusterTensors.changed_allocs``), when there is one; else
+    the store's feed's exact count when it has one and the feed is on;
+    else the growth of the process-wide ``nomad.events.alloc_deltas``
+    counter. Observed into ``nomad.worker.changed_allocs_per_build``."""
+    if taken is None:
+        feed = feed_for(store) if incr_enabled() else None
+        if feed is not None:
+            taken = feed.take_build_delta_count()
+    if taken is not None:
+        delta = float(taken)
+    else:
+        now = REGISTRY.get("nomad.events.alloc_deltas")
+        with _DELTA_MARK_LOCK:
+            prev, _DELTA_MARK[0] = _DELTA_MARK[0], now
+        delta = max(0.0, now - prev)  # a registry reset rewinds it
+    REGISTRY.observe("nomad.worker.changed_allocs_per_build", delta)
+    return int(delta)
+
 
 # One per-eval solve at a time across racing evals: the usage gather ->
 # solve -> in-flight registration is one critical section, so each solve
@@ -228,8 +259,12 @@ class TorchPlacer:
                 else:
                     commit(req, None)
             return
-        with TRACER.span("worker.tensor_build", n=len(nodes)):
+        # the feed's drain and its delta count fall inside the span: the
+        # build takes both with its fed base, under one lock
+        with TRACER.span("worker.tensor_build", n=len(nodes)) as span:
             cluster = ClusterTensors.build(ctx, nodes)
+            span.set(changed_allocs=_changed_allocs_since_last_build(
+                cluster._store, cluster.changed_allocs))
         nodes = cluster.nodes
         # crc32, not hash(): the seed must be the same in every process
         # (a replayed eval explores the same tie-breaks)
@@ -418,6 +453,7 @@ class TorchPlacer:
                 aff=tgt.affinity_boost, ask=tgt.ask, k=k,
                 tg_count=tgt.tg_count, seed=seed,
                 used_fn=cluster.latest_usage,
+                used_dev_fn=device_used_fn(cluster._store, static),
                 joint=(self.algorithm == enums.SCHED_ALG_TPU_SOLVE))
             if ctx.plan is not None:
                 ctx.plan.post_apply_hooks.append(

@@ -24,7 +24,15 @@ plus every solve since. Drift is repaired, not tolerated:
   next launch scatter-adds into the carry;
 - a resync (every ``RESYNC_SOLVES`` solves, on a node-set change, or when
   the correction queue overflows) rebuilds the carry as committed store
-  usage plus the still-open ledger entries, uploaded once.
+  usage plus the still-open ledger entries. Where the request carries a
+  ``used_dev_fn`` (the store has an incremental feed,
+  ``incremental.py``), the base is the feed's device twin, cloned and
+  folded by ONE B4 launch (on a mesh one B15 adds call): the twin
+  route. Otherwise (no feed, ``NOMAD_TPU_INCR=0``, or the feed hands out
+  no twin) committed usage is gathered and folded on the host and
+  uploaded once: the host route. Both are counted (``twin_resyncs``,
+  ``host_resyncs``; ``twin_misses`` the host resyncs of a request that
+  had a ``used_dev_fn``).
 
 On CUDA every launch runs on the service's own stream and records an
 event. Launches chain through the carry in stream order. The fetch waits
@@ -72,8 +80,11 @@ from ..device import DeviceLike, resolve
 from ..obs import RECORDER, REGISTRY, TRACER
 from .batch_solver import solve_batch
 from .kernels import solve_bulk_multi
+from .overlay import INFLIGHT
+from .scatter import scatter_add
 from .sharding import (NodeMesh, gather_rows, shard_mesh,
-                       solve_batch_sharded, solve_bulk_multi_sharded)
+                       solve_batch_sharded, solve_bulk_multi_sharded,
+                       state_scatter_sharded)
 
 _STOP = object()
 
@@ -216,10 +227,11 @@ def _settle_current_member() -> None:
 
 class _Request:
     __slots__ = ("static", "feas_base", "aff", "ask", "k", "tg_count",
-                 "seed", "used_fn", "future", "token", "joint", "batch_ctx")
+                 "seed", "used_fn", "used_dev_fn", "future", "token",
+                 "joint", "batch_ctx")
 
     def __init__(self, static, feas_base, aff, ask, k, tg_count, seed,
-                 used_fn, joint=False, batch_ctx=None):
+                 used_fn, joint=False, batch_ctx=None, used_dev_fn=None):
         self.static = static
         self.feas_base = feas_base
         self.aff = aff
@@ -230,6 +242,9 @@ class _Request:
         # called at RESYNC time for a fresh committed-usage base: a base
         # captured at enqueue time goes stale under queue depth
         self.used_fn = used_fn
+        # optional (device, mesh) -> the feed's device twin of committed
+        # usage, or None: the resync's twin route (incremental.py)
+        self.used_dev_fn = used_dev_fn
         self.future = Future()
         self.token = 0
         self.joint = joint          # solve through the joint auction tier
@@ -303,6 +318,8 @@ class BulkSolverService:
                       "auction_won": 0, "auction_rounds": 0,
                       "joint_score": 0.0, "greedy_score": 0.0,
                       "sharded": 0, "allgathers": 0,
+                      "twin_resyncs": 0, "host_resyncs": 0,
+                      "twin_misses": 0,
                       "mesh_devices": 0 if mesh is None else mesh.size}
         # the one dispatched-but-unfetched launch (service thread only)
         self._inflight: Optional[_Inflight] = None
@@ -334,21 +351,23 @@ class BulkSolverService:
     # -- caller side (scheduler worker threads) --
 
     def solve(self, *, static, feas_base, aff, ask, k, tg_count, seed,
-              used_fn, joint: bool = False):
+              used_fn, joint: bool = False, used_dev_fn=None):
         """Blocking solve of one fresh-placement bulk eval ->
         ((N_pad,) int64 per-node counts in canonical order, token). The
         caller arranges for confirm(token, rejected_node_ids) to run
         once the plan holding these placements is applied. With
         ``joint`` ("tpu-solve") the request goes through the joint
         auction with every joint request of its launch, and the calling
-        thread's BatchContext, if any, rides along."""
+        thread's BatchContext, if any, rides along. ``used_dev_fn``, where
+        given, is the resync's twin route (``incremental.device_used_fn``)."""
         if not 0 <= int(k) <= self.MAX_K:
             raise ValueError(f"k={k} outside [0, {self.MAX_K}]")
         req = _Request(static, feas_base, aff,
                        np.asarray(ask, dtype=np.float32), int(k),
                        float(tg_count), int(np.uint32(seed)), used_fn,
                        joint=joint,
-                       batch_ctx=current_batch() if joint else None)
+                       batch_ctx=current_batch() if joint else None,
+                       used_dev_fn=used_dev_fn)
         # put BEFORE ensure: the service thread clears its slot before
         # the final stop-drain, so a request racing stop() is either
         # drained (failed, answered) or starts a fresh thread
@@ -503,11 +522,29 @@ class BulkSolverService:
             self._stream = torch.cuda.Stream(device=self.device)
         return torch.cuda.stream(self._stream)
 
-    def _resync_base(self, r: _Request, ledger_entries,
+    def _resync_base(self, r: _Request, static, ledger_entries,
                      mesh: Optional[NodeMesh] = None):
-        """Fresh carry: committed usage + open ledger entries, folded on
-        the host and uploaded once (on a mesh, each shard's rows to its
-        device)."""
+        """Fresh carry: committed usage + open ledger entries. The twin
+        route (reference ``solver.py:597-625``) takes the feed's device
+        twin and folds on the device. A None from ``used_dev_fn`` is a
+        miss with a cause (the kill switch flipped after the request was
+        made) and takes the exact host route, counted; a failed launch
+        raises, as on every route. The host route folds on the host and
+        uploads once (on a mesh, each shard's rows to its device)."""
+        if r.used_dev_fn is not None:
+            dev_base = r.used_dev_fn(self.device, mesh)
+            if dev_base is not None:
+                with self._lock:
+                    self.stats["twin_resyncs"] += 1
+                REGISTRY.incr("nomad.solver.twin_resyncs")
+                return self._fold_base_scatter(dev_base, static,
+                                               ledger_entries, mesh)
+            with self._lock:
+                self.stats["twin_misses"] += 1
+            REGISTRY.incr("nomad.solver.twin_misses")
+        with self._lock:
+            self.stats["host_resyncs"] += 1
+        REGISTRY.incr("nomad.solver.host_resyncs")
         base = np.asarray(r.used_fn(), dtype=np.float32).copy()
         for idx, counts, ask in ledger_entries:
             base[idx] += counts[:, None].astype(np.float32) * ask[None, :]
@@ -516,6 +553,42 @@ class BulkSolverService:
         n_loc = mesh.n_loc(base.shape[0])
         return [upload(base[s * n_loc:(s + 1) * n_loc], dev)
                 for s, dev in enumerate(mesh.devices)]
+
+    def _fold_base_scatter(self, dev_base, static, ledger_entries,
+                           mesh: Optional[NodeMesh] = None):
+        """The twin route's carry (reference ``solver.py:627-680``): a
+        clone of the twin with the open ledger entries and the per-eval
+        in-flight overlay added by ONE B4 launch (on a mesh one B15 adds
+        call). The clone is what protects the twin: B1's fold and fill
+        and the joint solve write their carry in place, and the twin must
+        survive the solve. The rows go unpadded (the reference pads for
+        XLA's shape cache; no rows, no launch)."""
+        d = static.available.shape[1]
+        rows_list, delta_list = [], []
+        for idx, counts, ask in ledger_entries:
+            rows_list.append(np.asarray(idx, dtype=np.int32))
+            delta_list.append(counts[:, None].astype(np.float32)
+                              * np.asarray(ask, np.float32)[None, :])
+        tmp = np.zeros((static.n_pad, d), dtype=np.float32)
+        INFLIGHT.fold(tmp[: len(static.nodes)], static.node_index)
+        nz = np.nonzero(np.any(tmp != 0.0, axis=1))[0]
+        if nz.size:
+            rows_list.append(nz.astype(np.int32))
+            delta_list.append(tmp[nz])
+        idx = (np.concatenate(rows_list) if rows_list
+               else np.zeros(0, dtype=np.int32))
+        delta = (np.concatenate(delta_list) if delta_list
+                 else np.zeros((0, d), dtype=np.float32))
+        if mesh is None:
+            base = dev_base.clone()
+            scatter_add(base, upload(idx, self.device),
+                        upload(delta, self.device))
+            return base
+        base = [p.clone() for p in dev_base]
+        dev0 = mesh.devices[0]
+        state_scatter_sharded(mesh, base, upload(idx, dev0),
+                              upload(delta, dev0))
+        return base
 
     def _device_arrays(self, static, rs: List[_Request],
                        mesh: Optional[NodeMesh] = None):
@@ -605,7 +678,8 @@ class BulkSolverService:
 
         with self._stream_ctx():
             if need_resync:
-                used_dev = self._resync_base(rs[0], ledger_entries, mesh)
+                used_dev = self._resync_base(rs[0], static, ledger_entries,
+                                             mesh)
                 since = 0
                 with self._lock:
                     self.stats["resyncs"] += 1

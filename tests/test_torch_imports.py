@@ -48,6 +48,9 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.obs.metrics, nomad_tpu_torch.core.broker\n"
         "import nomad_tpu_torch.core.blocked, nomad_tpu_torch.core.plan_apply\n"
         "import nomad_tpu_torch.core.worker, nomad_tpu_torch.core.server\n"
+        "import nomad_tpu_torch.core.events, nomad_tpu_torch.state.deltas\n"
+        "import nomad_tpu_torch.tensor.incremental\n"
+        "import nomad_tpu_torch.scheduler.placer\n"
         "from nomad_tpu_torch.core import Server, ServerConfig\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
@@ -80,6 +83,9 @@ def test_no_source_imports_jax_or_the_reference():
     assert len(_sources()) > 20
     for pkg in ("obs", "core"):
         assert (REPO / "nomad_tpu_torch" / pkg / "__init__.py") in _sources()
+    for mod in ("core/events.py", "state/deltas.py", "tensor/incremental.py",
+                "scheduler/placer.py"):
+        assert (REPO / "nomad_tpu_torch" / mod) in _sources()
     assert not bad, bad
 
 

@@ -218,12 +218,12 @@ def test_unported_shapes_raise_not_implemented(port_service):
     h.store.upsert_job(versioned)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         h.process(port_mock.eval_for(versioned), sched_config=cfg)
-    # the host placer is not ported
+    # the default algorithm ("binpack") places through the host placer
     big = port_mock.service_job(300, batch=True)
     h.store.upsert_job(big)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.process(port_mock.eval_for(big),
-                  sched_config=port_operator.SchedulerConfiguration())
+    h.process(port_mock.eval_for(big),
+              sched_config=port_operator.SchedulerConfiguration())
+    assert len(h.store.snapshot().allocs_by_job(big.id)) == 300
     # a sysbatch job
     sysbatch = port_mock.system_job()
     sysbatch.type = "sysbatch"
@@ -272,7 +272,9 @@ def test_tpu_solve_matches_greedy_placement_count(port_service):
 
 def test_node_pool_override_and_injected_placer(port_service):
     """A pool override of the algorithm swaps the placer unless one was
-    injected (the reference's _placer_injected hazard, kept as is)."""
+    injected (the reference's _placer_injected hazard, kept as is): the
+    pool's "binpack" places through the host placer, with no service
+    launch; an injected TorchPlacer keeps the device path."""
     h = _port_cluster()
     h.store.upsert_node_pool(port_operator.NodePool(
         name="default",
@@ -281,11 +283,14 @@ def test_node_pool_override_and_injected_placer(port_service):
     cfg = port_operator.SchedulerConfiguration(scheduler_algorithm=ALG)
     j = port_mock.service_job(300, batch=True)
     h.store.upsert_job(j)
-    with pytest.raises(NotImplementedError, match="host placer"):
-        h.process(port_mock.eval_for(j), sched_config=cfg)
-    h.process(port_mock.eval_for(j), sched_config=cfg,
-              placer=TorchPlacer(device="cpu"))
+    h.process(port_mock.eval_for(j), sched_config=cfg)
     assert len(h.store.snapshot().allocs_by_job(j.id)) == 300
+    assert port_service.stats["launches"] == 0
+    j2 = port_mock.service_job(300, batch=True)
+    h.store.upsert_job(j2)
+    h.process(port_mock.eval_for(j2), sched_config=cfg,
+              placer=TorchPlacer(device="cpu"))
+    assert len(h.store.snapshot().allocs_by_job(j2.id)) == 300
     assert port_service.stats["launches"] == 1
 
 

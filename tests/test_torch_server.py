@@ -31,6 +31,7 @@ from nomad_tpu_torch.obs import TRACER
 from nomad_tpu_torch.scheduler import generic_sched as port_generic
 from nomad_tpu_torch.structs import Spread, enums
 from nomad_tpu_torch.structs import operator as port_operator
+from nomad_tpu_torch.tensor import incremental as port_incremental
 
 from test_torch_bulk_scan import over_capacity
 from test_torch_pipeline import (JOBS, fingerprint, node_record,  # noqa: F401
@@ -384,9 +385,18 @@ def _register_all(srv, jobs, timeout=30.0):
         return dict(srv.plan_applier.stats)
 
 
-@pytest.mark.parametrize("alg", ["tpu-binpack", "tpu-solve"])
-def test_server_fingerprint_equals_reference(alg, monkeypatch, port_service):
-    monkeypatch.setenv("NOMAD_TPU_INCR", "0")
+@pytest.mark.parametrize("alg,incr", [
+    pytest.param("tpu-binpack", "0", id="tpu-binpack"),
+    pytest.param("tpu-solve", "0", id="tpu-solve"),
+    pytest.param("tpu-binpack", "1", id="tpu-binpack-incr"),
+    pytest.param("tpu-solve", "1", id="tpu-solve-incr")])
+def test_server_fingerprint_equals_reference(alg, incr, monkeypatch,
+                                             port_service):
+    """Both packages' Servers on the same pinned workload, with the
+    incremental feed off (the kill switch) and on: the same per-job
+    fingerprint. With the feed on, every service resync of the port takes
+    the twin route, and the feed ends exact against a rebuild."""
+    monkeypatch.setenv("NOMAD_TPU_INCR", incr)
     monkeypatch.setenv("NOMAD_TPU_MESH_DEVICES", "1")
     _pin_ids(monkeypatch)
     ref_svc = ref_solver.BulkSolverService()
@@ -428,6 +438,17 @@ def test_server_fingerprint_equals_reference(alg, monkeypatch, port_service):
     joint = port_service.stats["joint_launches"]
     assert (joint == len(jobs)) if alg == "tpu-solve" else joint == 0
     assert over_capacity(srv.store) == []
+    resyncs = port_service.stats["resyncs"]
+    feed = port_incremental.feed_for(srv.store)
+    if incr == "1":
+        assert port_service.stats["twin_resyncs"] == resyncs >= 1
+        assert port_service.stats["host_resyncs"] == 0
+        assert feed.stats()["fast_hits"] > 0
+        assert feed.force_verify()
+    else:
+        assert port_service.stats["host_resyncs"] == resyncs >= 1
+        assert port_service.stats["twin_resyncs"] == 0
+        assert feed.stats()["builds"] == 0
     # the per-eval span chain of the port's Server
     names = {r[0] for r in TRACER.spans()}
     assert {"eval.queued", "worker.snapshot", "worker.schedule",
