@@ -37,7 +37,11 @@ Phases (any failure raises and exits non-zero):
               16,384, three spreads, a distinct_property, penalty steps):
               choices and founds exact, scores within 1e-6 (the max
               printed); timed at cfg3 and at 16,384, with the ms of an
-              active step beside each launch time.
+              active step beside each launch time. Two more variants carry
+              device and core count columns and a device-affinity
+              sub-score: d = 6 on the lean cache (one spread, no
+              distinct_property) and d = 8 (MAX_DIMS) with three spreads
+              and a distinct_property; both exact and timed.
 8. path    -- the C2M bulk path: 10,240 nodes, 64 batch jobs x 4,000 allocs
               (cpu 50, mem 32) through Harness.process("tpu-binpack") from
               16 threads. Every alloc placed once, no node over capacity
@@ -83,6 +87,28 @@ Phases (any failure raises and exits non-zero):
               placed once, no node over capacity, B9 launched once per job,
               no plain version on CUDA; prints allocs/s and the per-job
               rack-count spread.
+   devices -- BASELINE config 5 (bench.py cfg5_devices_numa): 2,048 GPU
+              nodes (8 nvidia/gpu/a100 instances, 16 cores in two NUMA
+              domains), a warm-up job processed and deleted, then 16 jobs
+              x 512 allocs (cpu 200, mem 256, one GPU, two cores,
+              numa_affinity "prefer") through Harness.process
+              ("tpu-binpack"): one B9 launch a job with a device and a
+              cores column (d = 6), then the host's instance and core
+              assignment per placement. Gates: 8,192 placed with one
+              instance and two cores each, no instance or core held twice
+              on a node, no node over capacity or its instance count, B9
+              once a job at d = 6 and nothing else, no plain version on
+              CUDA; each launch's inputs copied and replayed exact against
+              the plain version and the path's output, timed. Prints the
+              wall, allocs/s, the B9 calls' and the id assignment's share
+              of it; then the host "binpack" on the 2-job sample.
+   constraints -- BASELINE config 2 (bench.py cfg2_batch_constraints)
+              through the port's Server: 1,024 nodes, 10 batch jobs x
+              1,024 allocs with an instance.type and a version constraint
+              and a zone affinity, 4 workers. Gates as "server" (10,240
+              live, no node over capacity, no eval blocked), every alloc on
+              a node its constraints admit, B1 once a service launch;
+              prints the plan rejection rate.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
               version: 5 restarts x G=16 x N_pad=16,384 in one launch,
               bitwise (the kernel is on no path: B5 draws the same jitter
@@ -276,6 +302,9 @@ collection can land in either.
 ``python3 chip_smoke.py --server`` runs the build, the Server phases
 (C2M and tpu-solve, each on both feed arms) and the binpack sample
 alone, then prints their records as one JSON line.
+``python3 chip_smoke.py --devices`` runs the build, B9 on its variants
+and the config 5 ("devices") and config 2 ("constraints") phases alone,
+then prints their records as one JSON line.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21 (the
 feed's sharded twin included), 25 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards (B13's, B14's
@@ -307,8 +336,9 @@ switch and read, the stream handle, the bare ctypes call, ...),
 perf_counter_ns over 2,000 calls; then the three calls' device-only
 times.
 
-Before the kernel line it prints the Server phases' records and the
-binpack sample's walls as one JSON line (``{"server": ...}``: per arm
+Before the kernel line it prints the Server phases' records, the
+binpack sample's walls and the config 5 and config 2 records as one JSON
+line (``{"server": ...}``: per arm
 allocs/s, the applier's counts, each rejected node's rows, the service's
 counts, the feed's stats, its B4 launches, the kernel launches and the
 span split).
@@ -319,7 +349,11 @@ readings, ``server_launches``, its launches in the fed Server arm's
 timed window, and ``twin``, its time at the twin's shape on that arm; B15's, the launch its path makes, adds ``device_ms`` and
 ``without_clamp``, the adds alone beside index_add_; B7's and B12's add
 ``ms_per_step`` and ``setup_ms``; the B11' record adds ``by_n``, its times at
-16,384 and 65,536 beside one round's torch.sort), and the card's name
+16,384 and 65,536 beside one round's torch.sort; B9's adds ``by_d``, its
+times at d = 6 and d = 8 on the device variants; ``solve_task_group_d6``
+is B9 on the config 5 path, its launches there and its replayed launches'
+mean; B1's adds ``constraints_launches``, its launches on the config 2
+path), and the card's name
 and power limit; the last line is the device summary.
 """
 
@@ -329,6 +363,7 @@ import contextlib
 import gc
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -376,6 +411,18 @@ SERVER_WORKERS = 24       # cfg_c2m (bench.py:428-431)
 # whatever the grouping: on the fed arm the twin route, with its B4 flush
 WAVES = 2
 SOLVE_WORKERS = 8         # cfg_solve_ab's c2m_mini (bench.py:693-695)
+# BASELINE config 5 (bench.py cfg5_devices_numa, :820-889): GPU nodes,
+# jobs of device asks with two reserved cores, its 2-job host sample
+CFG5_NODES = 2048
+CFG5_JOBS = 16
+CFG5_K = 512
+CFG5_SAMPLE = 2
+# BASELINE config 2 (bench.py cfg2_batch_constraints, :288-337) through
+# the Server: 4 workers race the plan applier
+CFG2_NODES = 1024
+CFG2_JOBS = 10
+CFG2_K = 1024
+CFG2_WORKERS = 4
 
 
 def card_line() -> str:
@@ -1614,6 +1661,30 @@ def server_gates(srv, jobs, want: int, what: str) -> dict:
     return dict(statuses)
 
 
+def blocked_report(srv) -> str:
+    """What a Server's blocked evals say: the tracker's counts, the evals
+    by status, and each blocked eval's reason and failed groups (nodes
+    evaluated, filtered, exhausted by dimension)."""
+    snap = srv.store.snapshot()
+    statuses = Counter(e.status for e in snap.evals())
+    rows = []
+    for ev in list(srv.blocked._by_job.values())[:4]:
+        # the failures sit on the eval that created the blocked one
+        failing = [e for e in snap.evals()
+                   if e.job_id == ev.job_id and e.failed_tg_allocs]
+        failed = {name: (m.nodes_evaluated, m.nodes_filtered,
+                         dict(m.dimension_exhausted),
+                         dict(m.constraint_filtered), m.coalesced_failures)
+                  for e in failing[-1:]
+                  for name, m in e.failed_tg_allocs.items()}
+        rows.append(f"{ev.job_id} ({ev.triggered_by}, "
+                    f"{ev.status_description!r}, queued "
+                    f"{ev.queued_allocations}, failed {failed})")
+    return (f"{srv.blocked.blocked_count()} blocked "
+            f"{dict(srv.blocked.stats)}; evals {dict(statuses)}; "
+            + "; ".join(rows))
+
+
 def watch_rejections(applier) -> list:
     """Wraps the applier's fit re-check for a run: for every node a plan
     is rejected on, the usage row the store's snapshot holds and the part
@@ -1853,7 +1924,8 @@ def _run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
                         break
                     if time.time() > deadline:
                         raise AssertionError(f"{what}: blocked evals did "
-                                             f"not drain")
+                                             f"not drain: "
+                                             f"{blocked_report(srv)}")
                     time.sleep(0.05)
                 walls.append(time.perf_counter() - t0)
             counts = _ext.COUNTS.snapshot()
@@ -2113,6 +2185,18 @@ def phase_server_solve(torch, card, harness_wall=None, incr=None):
     return launched, rec
 
 
+def devices_only(torch, dev, card, rng) -> int:
+    """The build, B9 on its variants (d = 6 and d = 8 among them) and the
+    config 5 and config 2 phases alone; their records as one JSON line."""
+    b9 = phase_scan(torch, dev, card, rng)
+    _, devices, b9_devices = phase_devices(torch, card)
+    _, constraints = phase_constraints(torch, card)
+    print(json.dumps({"devices": devices, "constraints": constraints,
+                      "b9_by_d": b9["by_d"], "b9_d6_path": b9_devices}))
+    print(card)
+    return 0
+
+
 def server_only(torch, card) -> int:
     """``--server``: the Server phases (C2M and tpu-solve, each on both
     feed arms) and the binpack sample alone."""
@@ -2182,7 +2266,12 @@ def cfg3_args(rng, variant: str):
     spreads (racks, zones with targets, a missing attribute), a
     distinct_property cap and penalty steps; "many" (a spread over 600
     racks) and "many_dp" (a distinct_property over 300 values) have value
-    tables above the 256 entries warp 0 rebuilds alone."""
+    tables above the 256 entries warp 0 rebuilds alone; "devices" adds a
+    device column and a cores column (d = 6, config 5's shape: one ask,
+    the lean cache at one spread and no distinct_property) with a
+    device-affinity sub-score; "devices_wide" four such columns (d = 8,
+    MAX_DIMS) with three spreads and a distinct_property (the full
+    cache)."""
     n, real, k_pad = CFG3_PAD, CFG3_NODES, 512
     if variant == "wide":
         n, real = N_PAD, N_NODES
@@ -2274,15 +2363,52 @@ def cfg3_args(rng, variant: str):
                   dp_val_ok=(np.arange(n) < real - 5)[None, :],
                   dp_counts0=rng.integers(0, 20, (1, 9)),
                   dp_limit=np.array([70.0]))
+    ask, dev_aff = np.array([100.0, 64.0, 300.0, 0.0]), np.zeros(n)
+    if variant in ("devices", "devices_wide"):
+        extra = 2 if variant == "devices" else 4
+        cap, xused, xask, dev_aff = device_columns(rng, n, real, extra)
+        avail = np.concatenate([avail, cap], axis=1)
+        used = np.concatenate([used, xused], axis=1)
+        ask = np.concatenate([ask, xask])
+    if variant == "devices_wide":
+        s = 3
+        svid = np.stack([np.arange(n) % 20, np.arange(n) % 4,
+                         np.arange(n) % 3]).astype(float)
+        sok = np.tile(np.arange(n) < real, (s, 1))
+        scnt = rng.integers(0, 30, (s, v)) * (np.arange(v) < 20)
+        sdes = np.full((s, v), np.nan)
+        sdes[1, :4] = [300.0, 100.0, 100.0, 0.0]
+        has_t = np.array([False, True, False])
+        weight = np.array([0.5, 0.3, 0.2])
+        dp = dict(dp_val_id=(np.arange(n) % 9)[None, :].astype(float),
+                  dp_val_ok=(np.arange(n) < real - 5)[None, :],
+                  dp_counts0=rng.integers(0, 20, (1, 9)),
+                  dp_limit=np.array([80.0]))
     tie_perm = rng.permutation(n)
     dp = dp or dict(dp_val_id=np.zeros((0, n)),
                     dp_val_ok=np.zeros((0, n), bool),
                     dp_counts0=np.zeros((0, 1)), dp_limit=np.zeros(0))
-    return (avail, used, ptg, pjob, np.array([100.0, 64.0, 300.0, 0.0]),
-            feas, aff, np.zeros(n), pen, active, svid, sok, scnt, sdes,
+    return (avail, used, ptg, pjob, ask,
+            feas, aff, dev_aff, pen, active, svid, sok, scnt, sdes,
             has_t, weight, dp["dp_val_id"], dp["dp_val_ok"],
             dp["dp_counts0"], dp["dp_limit"], -1.0, float(CFG3_K), False,
             dh_tg, spread_alg, tie_perm)
+
+
+def device_columns(rng, n: int, real: int, extra: int):
+    """``extra`` count columns as tensor/cluster.py appends them for
+    device asks (8 instances a node, or 0 or 4 where a node lacks or
+    halves the group) and a last one for reserved cores (16 a node), with
+    usage, an ask of one instance an ask and two cores, and a
+    device-affinity sub-score of zeros, positives and negatives."""
+    cap = np.zeros((n, extra))
+    cap[:real] = rng.choice([0, 4, 8, 8, 8], (real, extra))
+    cap[:real, -1] = 16
+    used = np.minimum(cap, rng.integers(0, 6, (n, extra)))
+    ask = np.array([1.0] * (extra - 1) + [2.0])
+    dev_aff = np.zeros(n)
+    dev_aff[:real] = rng.choice([0.0, 0.0, 0.5, 1.0, -0.25], real)
+    return cap, used, ask, dev_aff
 
 
 def cfg3_packed(rng, variant: str):
@@ -2363,7 +2489,7 @@ def phase_score_once(torch, dev, card, rng):
 
 
 B9_VARIANTS = ("cfg3", "targets", "distinct", "worstfit", "infeasible",
-               "many", "many_dp", "wide")
+               "many", "many_dp", "wide", "devices", "devices_wide")
 
 
 def active_steps(packed) -> int:
@@ -2400,19 +2526,39 @@ def phase_scan(torch, dev, card, rng):
         warmup=1)
     b_ms, b_by = scan_bound(main)
     steps = active_steps(main)
+    by_d = {}
+    for variant, d in (("devices", 6), ("devices_wide", 8)):
+        packed = packed_of[variant]
+        by_d[f"d{d}"] = dict(zip(
+            ("ms", "plain_ms"), scan_times(torch, kernels, packed)))
+        by_d[f"d{d}"].update(zip(("bound_ms", "bound_by"),
+                                 scan_bound(packed)))
+        by_d[f"d{d}"]["variant"] = variant
     print(f"B9 scan     [{card}] choices and founds exact, scores within "
           f"{SCORE_TOL} (max {err:.3g}); found {', '.join(notes)}; kernel "
           f"{ms:.4f} ms ({ms / steps * 1e3:.2f} us an active step of "
           f"{steps}), plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
           f"N_pad {N_PAD} "
           f"(3 spreads, a distinct_property, penalty steps) {wide_ms:.4f} ms "
-          f"({wide_ms / active_steps(wide) * 1e3:.2f} us an active step)")
+          f"({wide_ms / active_steps(wide) * 1e3:.2f} us an active step); "
+          + "; ".join(f"{k} ({v['variant']}) kernel {v['ms']:.4f} ms, plain "
+                      f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
+                      f"({v['bound_by']})" for k, v in by_d.items()))
     return {"name": "solve_task_group", "source":
             "nomad_tpu_torch/csrc/task_group.cu",
             "replaces": "nomad_tpu/tensor/kernels.py:448",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ms_per_step": ms / steps}
+            "ms_per_step": ms / steps, "by_d": by_d}
+
+
+def scan_times(torch, kernels, packed):
+    """B9's and its plain version's device times on one packed solve."""
+    return (cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused(*packed), reps=10),
+        cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused_ref(*packed),
+        reps=2, warmup=1))
 
 
 def phase_spread(torch, card, device="cuda"):
@@ -2485,6 +2631,341 @@ def phase_spread(torch, card, device="cuda"):
           f"max {max(spread)}; kernel launches {counts['launches']}; plain "
           f"on CUDA {counts['plain_on_cuda']}")
     return counts["launches"]
+
+
+def cfg5_build_nodes(store, n_nodes: int, seed: int = 0) -> None:
+    """bench.py:846-860's GPU nodes: 8 instances of nvidia/gpu/a100,
+    16 cores in two NUMA domains, 16,000 or 32,000 MHz, 64 GiB."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.resources import NodeDeviceResource, NumaNode
+
+    rng = random.Random(seed)
+    for i in range(n_nodes):
+        n = mock.node()
+        n.resources.cpu = rng.choice([16000, 32000])
+        n.resources.memory_mb = 65536
+        n.resources.total_cores = 16
+        n.resources.numa = [NumaNode(id=0, cores=list(range(8))),
+                            NumaNode(id=1, cores=list(range(8, 16)))]
+        n.resources.devices = [NodeDeviceResource(
+            vendor="nvidia", type="gpu", name="a100",
+            instance_ids=[f"g{i}-{k}" for k in range(8)])]
+        n.compute_class()
+        store.upsert_node(n)
+
+
+def cfg5_jobs(n_jobs: int):
+    """bench.py:827-836's jobs: CFG5_K allocs of cpu 200, mem 256, one
+    nvidia/gpu, two reserved cores, numa_affinity "prefer"."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.resources import RequestedDevice
+
+    out = []
+    for _ in range(n_jobs):
+        j = mock.service_job(CFG5_K, cpu=200, mem=256)
+        res = j.task_groups[0].tasks[0].resources
+        res.devices = [RequestedDevice(name="nvidia/gpu", count=1)]
+        res.cores = 2
+        res.numa_affinity = "prefer"
+        out.append(j)
+    return out
+
+
+def device_gates(h, jobs, want: int, what: str) -> None:
+    """Every alloc of the jobs placed with one device instance and two
+    cores; over every live alloc of the store (the warm-up's included) no
+    instance or core held twice on a node, no node over its capacity or
+    its instance count; every eval cleanly complete."""
+    from nomad_tpu_torch.structs import enums
+
+    snap = h.store.snapshot()
+    allocs = [a for j in jobs for a in snap.allocs_by_job(j.id)
+              if not a.terminal_status()]
+    short = [a for a in allocs
+             if sum(len(v) for v in a.allocated_devices.values()) != 1
+             or len(a.allocated_cores) != 2]
+    if len(allocs) != want or short:
+        raise AssertionError(f"{what}: {len(allocs)} placed of {want}; "
+                             f"{len(short)} without one instance and two "
+                             f"cores")
+    nodes = list(snap.nodes())
+    row = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.stack([n.available_vec() for n in nodes])
+    usage = np.zeros_like(cap)
+    insts = {n.id: [] for n in nodes}
+    cores = {n.id: [] for n in nodes}
+    for a in snap.allocs():
+        if a.terminal_status():
+            continue
+        usage[row[a.node_id]] += a.allocated_vec
+        insts[a.node_id].extend(i for v in a.allocated_devices.values()
+                                for i in v)
+        cores[a.node_id].extend(a.allocated_cores)
+    twice = sum(len(v) != len(set(v)) for m in (insts, cores)
+                for v in m.values())
+    over = int((usage > cap).any(axis=1).sum()) + sum(
+        len(insts[n.id]) > sum(len(g.instance_ids) for g in n.resources.devices)
+        or len(cores[n.id]) > n.resources.total_cores for n in nodes)
+    if twice or over:
+        raise AssertionError(f"{what}: {twice} nodes with an instance or "
+                             f"core held twice, {over} nodes over capacity")
+    bad = [e for e in h.evals if e.status != enums.EVAL_STATUS_COMPLETE
+           or e.failed_tg_allocs]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} evals not cleanly "
+                             f"complete")
+
+
+def cfg5_run(torch, alg: str, n_jobs: int, device="cuda", captured=None,
+             clock=None):
+    """bench.py cfg5's run(): the GPU nodes, a warm-up job processed and
+    deleted (its allocs stay), then n_jobs through Harness.process one
+    after another. With ``captured``, every B9 launch's inputs are copied
+    (and its outputs kept); ``clock`` adds up the host's exact id
+    assignment (``_assign_ids``) and the B9 calls (launch to result).
+    Returns (the harness, the jobs, the timed wall, the launch counts)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import placer
+    from nomad_tpu_torch.testing import Harness
+
+    h = Harness(device=device)
+    cfg5_build_nodes(h.store, CFG5_NODES)
+    jobs = cfg5_jobs(n_jobs)
+    for j in jobs:
+        h.store.upsert_job(j)
+    cfg = SchedulerConfiguration(scheduler_algorithm=alg)
+    warm = cfg5_jobs(1)[0]
+    h.store.upsert_job(warm)
+    h.process(mock.eval_for(warm), cfg)
+    h.store.delete_job(warm.id)
+    real_solve = placer.solve_task_group_fused
+    real_assign = placer.TorchPlacer._assign_ids
+
+    def solve(*packed):
+        t0 = time.perf_counter()
+        if captured is not None:
+            snap = [t.clone() for t in packed]
+        out = real_solve(*packed)
+        if clock is not None:
+            torch.cuda.synchronize()
+            clock["b9_s"] += time.perf_counter() - t0
+        if captured is not None:
+            captured.append((snap, out.clone()))
+        return out
+
+    def assign(*args):
+        t0 = time.perf_counter()
+        ok = real_assign(*args)
+        clock["assign_ids_s"] += time.perf_counter() - t0
+        return ok
+
+    if clock is not None:
+        clock.update(b9_s=0.0, assign_ids_s=0.0)
+        placer.TorchPlacer._assign_ids = staticmethod(assign)
+    placer.solve_task_group_fused = solve
+    try:
+        _ext.COUNTS.reset()
+        t0 = time.perf_counter()
+        for j in jobs:
+            h.process(mock.eval_for(j), cfg)
+        wall = time.perf_counter() - t0
+        counts = _ext.COUNTS.snapshot()
+    finally:
+        placer.solve_task_group_fused = real_solve
+        placer.TorchPlacer._assign_ids = staticmethod(real_assign)
+    return h, jobs, wall, counts
+
+
+def phase_devices(torch, card, device="cuda"):
+    """BASELINE config 5 through Harness.process("tpu-binpack"): each
+    job's 512 requests are one B9 launch with a device and a cores column
+    (d = 6) and a device-affinity column, then the host's exact instance
+    and core assignment per placement. Gates as device_gates, B9 launched
+    once a job at d = 6 and nothing else, no plain version on CUDA; each
+    launch's inputs copied and replayed against the plain version
+    (choices and founds exact, scores within SCORE_TOL, and equal to the
+    path's own output), timed on the card beside the plain version. Then
+    the host "binpack" on the 2-job sample (bench.py:880-885). Returns
+    (the launch counts, the record, B9's kernel record at d = 6)."""
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.tensor import kernels
+
+    captured, clock = [], {}
+    n_jobs = CFG5_JOBS
+    h, jobs, wall, counts = cfg5_run(
+        torch, enums.SCHED_ALG_TPU_BINPACK, n_jobs, device, captured, clock)
+    want = n_jobs * CFG5_K
+    device_gates(h, jobs, want, "devices")
+    launched = counts["launches"]
+    if launched["solve_task_group"] != n_jobs or any(
+            v for k, v in launched.items() if k != "solve_task_group"):
+        raise AssertionError(f"devices: kernel launches {launched}, want "
+                             f"B9 once a job ({n_jobs}) and nothing else")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"devices: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    err, dims = 0.0, set()
+    for i, (packed, out) in enumerate(captured):
+        dims.add((packed[0].shape[1] - 6) // 2)
+        got = kernels.solve_task_group_fused(*packed)
+        want_out = kernels.solve_task_group_fused_ref(*packed)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[:2], want_out[:2])
+                and torch.equal(got, out)):
+            raise AssertionError(f"devices: B9 launch {i} differs from its "
+                                 f"plain version or from the path's output")
+        err = max(err, score_err(got[2], want_out[2], f"devices B9 {i}"))
+    if dims != {6}:
+        raise AssertionError(f"devices: B9 ran at d {sorted(dims)}, want 6")
+    first = captured[0][0]
+    ms = statistics.mean(cuda_time_ms(
+        torch, lambda _, p=packed: kernels.solve_task_group_fused(*p),
+        reps=5) for packed, _ in captured)
+    plain = cuda_time_ms(
+        torch, lambda _: kernels.solve_task_group_fused_ref(*first), reps=2,
+        warmup=1)
+    b_ms, b_by = scan_bound(first)
+    steps = active_steps(first)
+    placed = want
+    h_host, host_jobs, host_wall, _ = cfg5_run(
+        torch, enums.SCHED_ALG_BINPACK, CFG5_SAMPLE, device)
+    device_gates(h_host, host_jobs, CFG5_SAMPLE * CFG5_K, "devices binpack")
+    host_n = CFG5_SAMPLE * CFG5_K
+    rec = {"allocs": placed, "wall_s": wall, "allocs_per_s": placed / wall,
+           "b9_launches": launched["solve_task_group"],
+           "b9_device_ms_mean": ms, "b9_calls_s": clock["b9_s"],
+           "assign_ids_s": clock["assign_ids_s"],
+           "binpack_sample": {"allocs": host_n, "wall_s": host_wall,
+                              "allocs_per_s": host_n / host_wall},
+           "per_alloc_ratio": (host_wall / host_n) / (wall / placed),
+           "card": card}
+    print(f"devices     [{card}] {placed} allocs of config 5 ({CFG5_NODES} GPU "
+          f"nodes, {n_jobs} jobs x {CFG5_K}) in {wall:.3f} s = "
+          f"{placed / wall:.1f} allocs/s; B9 {launched['solve_task_group']} "
+          f"launches at d 6, {ms:.4f} ms device time a launch (mean over "
+          f"the replays; plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}); {steps} active steps), the B9 calls {clock['b9_s']:.3f}"
+          f" s and the host's instance and core assignment "
+          f"{clock['assign_ids_s']:.3f} s of the wall; replays exact, scores "
+          f"within {SCORE_TOL} (max {err:.3g}); host binpack sample "
+          f"{host_n} allocs in {host_wall:.3f} s; per-alloc ratio "
+          f"{rec['per_alloc_ratio']:.2f} (bench.py's vs_baseline formula)")
+    kernel = {"name": "solve_task_group_d6", "source":
+              "nomad_tpu_torch/csrc/task_group.cu",
+              "replaces": "nomad_tpu/tensor/kernels.py:448",
+              "launches": launched["solve_task_group"], "max_abs_err": err,
+              "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+              "bound_by": b_by, "library_ms": None,
+              "ms_per_step": ms / steps}
+    return launched, rec, kernel
+
+
+def phase_constraints(torch, card, device="cuda"):
+    """BASELINE config 2 through the port's Server (bench.py run_server):
+    1,024 nodes, a warm-up job registered and deregistered, then 10 batch
+    jobs x 1,024 allocs with an instance.type constraint, a version
+    constraint (>= 4.19 on ${attr.kernel.version}) and a zone affinity,
+    registered at once to 4 workers, every plan re-checked by the applier.
+    Gates as server_gates (every alloc live once, no node over capacity,
+    no eval left blocked), every alloc on a large node with kernel 4.19 or
+    later, B1 launched once a service launch and no plain version on
+    CUDA. Returns (the launch counts, the record)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import Affinity, Constraint
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor.solver import get_service
+
+    def jobs_fn():
+        cons = [Constraint(ltarget="${attr.instance.type}", rtarget="large",
+                           operand="="),
+                Constraint(ltarget="${attr.kernel.version}",
+                           rtarget=">= 4.19", operand="version")]
+        affs = [Affinity(ltarget="${attr.zone}", rtarget="z0", operand="=",
+                         weight=50)]
+        return [mock.service_job(CFG2_K, batch=True, constraints=cons,
+                                 affinities=affs) for _ in range(CFG2_JOBS)]
+
+    srv = Server(ServerConfig(
+        num_workers=CFG2_WORKERS, device=device,
+        sched_config=SchedulerConfiguration(scheduler_algorithm="tpu-binpack"),
+        nack_timeout=900.0, failed_eval_followup_delay=3600.0,
+        failed_eval_unblock_interval=0.5))
+    mock.build_nodes(srv.store, CFG2_NODES, seed=0)
+    jobs = jobs_fn()
+    svc = get_service(srv.device)
+    with srv:
+        warm = jobs_fn()[0]
+        srv.register_job(warm)
+        if not srv.wait_for_idle(120.0, include_delayed=False):
+            raise AssertionError("constraints: the warm-up did not drain")
+        srv.deregister_job(warm.id)
+        if not srv.wait_for_idle(120.0, include_delayed=False):
+            raise AssertionError("constraints: the warm stop did not drain")
+        srv.plan_applier.stats.update(applied=0, nodes_rejected=0,
+                                      partial_commits=0)
+        base = dict(svc.stats)
+        _ext.COUNTS.reset()
+        t0 = time.perf_counter()
+        for j in jobs:
+            srv.register_job(j)
+        deadline = time.time() + 300.0
+        while True:
+            if not srv.wait_for_idle(max(1.0, deadline - time.time()),
+                                     include_delayed=False):
+                raise AssertionError("constraints: the queue did not drain")
+            if srv.blocked.blocked_count() == 0:
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"constraints: blocked evals did not "
+                                     f"drain: {blocked_report(srv)}")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        counts = _ext.COUNTS.snapshot()
+        stats = dict(srv.plan_applier.stats)
+        svc_stats = {k: svc.stats[k] - base[k] for k in base}
+        want = CFG2_JOBS * CFG2_K
+        statuses = server_gates(srv, jobs, want, "constraints")
+        snap = srv.store.snapshot()
+        zones = Counter()
+        for j in jobs:
+            for a in snap.allocs_by_job(j.id):
+                node = snap.node_by_id(a.node_id)
+                if (node.attributes["instance.type"] != "large"
+                        or node.attributes["kernel.version"] not in
+                        ("4.19.0", "5.10.0")):
+                    raise AssertionError(f"constraints: alloc {a.id} on a "
+                                         f"node its constraints exclude")
+                zones[node.attributes["zone"]] += 1
+    svc.stop()
+    launched = counts["launches"]
+    if not 0 < launched["bulk_fill"] == svc_stats["launches"]:
+        raise AssertionError(f"constraints: B1 launched "
+                             f"{launched['bulk_fill']} times for "
+                             f"{svc_stats['launches']} service launches")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"constraints: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    rejected = stats["nodes_rejected"]
+    rate = rejected / max(want + rejected, 1)
+    rec = {"allocs": want, "wall_s": wall, "allocs_per_s": want / wall,
+           "applied": stats["applied"], "nodes_rejected": rejected,
+           "partial_commits": stats["partial_commits"],
+           "rejection_rate": rate, "evals": statuses,
+           "zones": dict(sorted(zones.items())),
+           "service_launches": svc_stats["launches"],
+           "launches": {k: v for k, v in launched.items() if v},
+           "card": card}
+    print(f"constraints [{card}] {want} allocs of config 2 ({CFG2_NODES} "
+          f"nodes, {CFG2_JOBS} batch jobs x {CFG2_K}, {CFG2_WORKERS} "
+          f"workers) in "
+          f"{wall:.3f} s = {want / wall:.1f} allocs/s through the Server; "
+          f"applied {stats['applied']}, nodes_rejected {rejected}, "
+          f"partial_commits {stats['partial_commits']}, plan rejection rate "
+          f"{rate:.6f}; allocs by zone {rec['zones']}; evals {statuses}; "
+          f"kernel launches {rec['launches']}")
+    return launched, rec
 
 
 PINNED_SPREAD = (  # (count, spread attribute, targets, constraint)
@@ -5088,6 +5569,8 @@ def main() -> int:
         return shard_times(torch, card)
     if sys.argv[1:] == ["--server"]:
         return server_only(torch, card)
+    if sys.argv[1:] == ["--devices"]:
+        return devices_only(torch, dev, card, rng)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -5105,6 +5588,10 @@ def main() -> int:
     launches = phase_spread(torch, card)
     for k in per_eval:
         k["launches"] = launches[k["name"]]
+    _, server["devices"], b9_devices = phase_devices(torch, card)
+    per_eval.append(b9_devices)
+    launches, server["constraints"] = phase_constraints(torch, card)
+    bulk[2]["constraints_launches"] = launches["bulk_fill"]
     launches, wall, captured = phase_solve_path(torch, card)
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
@@ -5162,7 +5649,8 @@ def main() -> int:
     for k in kernels:
         k["route"] = "cuda"
     extra = ("device_ms", "library_device_ms", "without_clamp",
-             "ms_per_step", "setup_ms", "by_n", "server_launches", "twin")
+             "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
+             "by_d", "constraints_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

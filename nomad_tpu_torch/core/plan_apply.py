@@ -7,8 +7,9 @@ applier thread is the only writer of placement results. Per plan:
 1. wait until the store has reached the plan's snapshot index;
 2. re-check every touched node against the latest state with the fit
    predicate the scheduler used (``_evaluate``: one numpy comparison for
-   nodes that only receive fresh placements, the per-node walk
-   ``_node_plan_valid`` for the rest). A node whose plan no longer fits
+   nodes that only receive fresh placements without ports, devices or
+   cores, the per-node walk ``_node_plan_valid`` with the port-collision,
+   core-overlap and device checks of ``allocs_fit`` for the rest). A node whose plan no longer fits
    (a concurrent plan won the race) is rejected whole; a block's rows on
    it are marked rejected (``AllocBlock.without_nodes``);
 3. commit what survived and hand the scheduler a refresh index so it
@@ -620,8 +621,9 @@ class PlanApplier:
             if nid in plan.node_update or nid in plan.node_preemptions:
                 exact.append(nid)
                 continue
-            # the port's allocs carry no ports, devices or cores (A5)
-            if all(a.create_index == 0
+            # exact ports, devices and cores need the per-alloc walk
+            if all(a.create_index == 0 and not a.allocated_ports
+                   and not a.allocated_devices and not a.allocated_cores
                    for a in plan.node_allocation.get(nid, ())):
                 fast.append(nid)
             else:
@@ -714,5 +716,6 @@ class PlanApplier:
         updated_ids = {a.id for a in all_allocation}
         proposed = [a for a in proposed if a.id not in updated_ids]
         proposed.extend(all_allocation)
-        fit, _, _ = allocs_fit(node, proposed)
+        check_devices = any(a.allocated_devices for a in proposed)
+        fit, _, _ = allocs_fit(node, proposed, check_devices=check_devices)
         return fit

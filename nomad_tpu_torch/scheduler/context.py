@@ -61,6 +61,7 @@ class EvalContext:
         self.plan = plan
         self.eval_id = eval_id
         self.regex_cache: dict = {}
+        self.version_cache: dict = {}
         self.eligibility = EvalEligibility()
         self.metrics: Optional[AllocMetric] = None
         self._tg_res: dict = {}

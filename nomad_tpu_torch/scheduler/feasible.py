@@ -1,10 +1,9 @@
-"""Feasibility, trimmed to the bulk and per-eval paths (reference
-``nomad_tpu/scheduler/feasible.py``): node-attribute constraints and
-drivers, evaluated once per unique attribute value into a boolean mask
-over the node list, and the distinct_hosts / distinct_property masks of
-the host oracle. Version and semver operators, device asks, network
-modes and host volumes are the rest of ROADMAP queue A5 and raise
-here."""
+"""Feasibility (reference ``nomad_tpu/scheduler/feasible.py``):
+node-attribute constraints (version and semver included), drivers and
+device counts, evaluated once per unique attribute value into a boolean
+mask over the node list; the reserved-ports mask; and the distinct_hosts
+/ distinct_property masks of the host oracle. Network modes other than
+"host" and volumes are ROADMAP queue A5b and raise here."""
 
 from __future__ import annotations
 
@@ -14,10 +13,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..structs import Constraint, Job, Node, TaskGroup, enums
+from ..structs.network import NetworkIndex
 
-# what the per-eval path does not model yet, named in every such raise
-UNPORTED_A5 = ("ROADMAP queue A5 (ports, devices/NUMA columns, "
-               "version/semver constraints)")
+# what the port does not model yet, named in every such raise
+UNPORTED_A5B = "ROADMAP queue A5b (network modes, host and CSI volumes)"
 
 
 def is_class_escaped(target: str) -> bool:
@@ -67,14 +66,108 @@ def _check_order(operand: str, l: str, r: str) -> bool:
             ">=": li >= ri}[operand]
 
 
+class _Version:
+    """A go-version-style version: dotted numeric segments with an
+    optional -prerelease suffix, which sorts before the release
+    (reference ``feasible.py:93-146``)."""
+
+    __slots__ = ("segments", "prerelease", "written")
+
+    def __init__(self, s: str):
+        s = s.strip().lstrip("v")
+        if "+" in s:  # build metadata is ignored
+            s = s.split("+", 1)[0]
+        if "-" in s:
+            base, self.prerelease = s.split("-", 1)
+        else:
+            base, self.prerelease = s, ""
+        segs = []
+        for part in base.split("."):
+            if not _num_int.match(part):
+                raise ValueError(f"bad version segment {part!r} in {s!r}")
+            segs.append(int(part))
+        self.written = len(segs)  # the segments written ("~>" reads it)
+        while len(segs) < 3:
+            segs.append(0)
+        self.segments = tuple(segs)
+
+    def cmp(self, o: "_Version") -> int:
+        if self.segments != o.segments:
+            return -1 if self.segments < o.segments else 1
+        # equal segments: release > prerelease; prereleases lexically
+        if self.prerelease == o.prerelease:
+            return 0
+        if self.prerelease == "":
+            return 1
+        if o.prerelease == "":
+            return -1
+        return -1 if self.prerelease < o.prerelease else 1
+
+
+_ver_con = re.compile(r"^\s*(~>|>=|<=|!=|=|>|<)?\s*(.+?)\s*$")
+
+
+def check_version_constraint(version_str: str, constraint_str: str,
+                             cache: Optional[dict] = None) -> bool:
+    """A comma-separated AND of "<op> <version>" clauses, the pessimistic
+    "~>" included (reference ``feasible.py:149-196``). Parsed clauses,
+    and parse failures, are cached per constraint string."""
+    try:
+        ver = _Version(version_str)
+    except ValueError:
+        return False
+    clauses = cache.get(constraint_str) if cache is not None else None
+    if clauses is None:
+        clauses = []
+        try:
+            for raw in constraint_str.split(","):
+                m = _ver_con.match(raw)
+                if not m or not m.group(2):
+                    return False
+                clauses.append((m.group(1) or "=", _Version(m.group(2))))
+        except ValueError:
+            clauses = False
+        if cache is not None:
+            cache[constraint_str] = clauses
+    if clauses is False:
+        return False
+    for op, target in clauses:
+        c = ver.cmp(target)
+        if op == "=" and c != 0:
+            return False
+        if op == "!=" and c == 0:
+            return False
+        if op == ">" and c != 1:
+            return False
+        if op == ">=" and c == -1:
+            return False
+        if op == "<" and c != -1:
+            return False
+        if op == "<=" and c == 1:
+            return False
+        if op == "~>":
+            # >= target and < target with the second-to-last written
+            # segment bumped: "~> 1.2" -> < 2.0.0, "~> 1.2.3" -> < 1.3.0
+            if c == -1:
+                return False
+            upper = list(target.segments)
+            bump = max(0, target.written - 2)
+            upper[bump] += 1
+            for i in range(bump + 1, len(upper)):
+                upper[i] = 0
+            if ver.cmp(_Version(".".join(map(str, upper)))) != -1:
+                return False
+    return True
+
+
 def _split_set(s: str) -> set:
     return {part.strip() for part in s.split(",")}
 
 
 def check_constraint(operand: str, lval: str, rval: str, lfound: bool,
-                     rfound: bool, regex_cache: Optional[dict] = None) -> bool:
-    """The reference's checkConstraint semantics for the operators the
-    bulk path meets."""
+                     rfound: bool, regex_cache: Optional[dict] = None,
+                     version_cache: Optional[dict] = None) -> bool:
+    """The reference's checkConstraint semantics."""
     if operand in (enums.CONSTRAINT_DISTINCT_HOSTS,
                    enums.CONSTRAINT_DISTINCT_PROPERTY):
         return True  # handled by the dedicated masks below
@@ -112,21 +205,23 @@ def check_constraint(operand: str, lval: str, rval: str, lfound: bool,
         return (lfound and rfound
                 and any(w in _split_set(lval) for w in _split_set(rval)))
     if operand in (enums.CONSTRAINT_VERSION, enums.CONSTRAINT_SEMVER):
-        raise NotImplementedError(
-            f"constraint operand {operand!r}: {UNPORTED_A5}")
+        return lfound and rfound and check_version_constraint(
+            lval, rval, version_cache)
     return False
 
 
 def node_meets_constraint(c: Constraint, node: Node,
-                          regex_cache: Optional[dict] = None) -> bool:
+                          regex_cache: Optional[dict] = None,
+                          version_cache: Optional[dict] = None) -> bool:
     lval, lfound = resolve_target(c.ltarget, node)
     rval, rfound = resolve_target(c.rtarget, node)
     return check_constraint(c.operand, lval, rval, lfound, rfound,
-                            regex_cache)
+                            regex_cache, version_cache)
 
 
 def constraint_mask(c: Constraint, nodes: Sequence[Node],
-                    regex_cache: Optional[dict] = None) -> np.ndarray:
+                    regex_cache: Optional[dict] = None,
+                    version_cache: Optional[dict] = None) -> np.ndarray:
     """One constraint over a node list, evaluated once per unique
     (lval, rval) pair."""
     out = np.empty(len(nodes), dtype=bool)
@@ -138,7 +233,8 @@ def constraint_mask(c: Constraint, nodes: Sequence[Node],
         hit = memo.get(key)
         if hit is None:
             hit = memo[key] = check_constraint(c.operand, lval, rval, lfound,
-                                               rfound, regex_cache)
+                                               rfound, regex_cache,
+                                               version_cache)
         out[i] = hit
     return out
 
@@ -157,10 +253,18 @@ def driver_mask(tg: TaskGroup, nodes: Sequence[Node]) -> np.ndarray:
     return out
 
 
-def job_constraints(job: Job, tg: TaskGroup) -> List[Constraint]:
-    out = list(job.constraints) + list(tg.constraints)
-    for t in tg.tasks:
-        out.extend(t.constraints)
+def device_mask(tg: TaskGroup, nodes: Sequence[Node]) -> np.ndarray:
+    """Enough instances of each requested device on the node, usage
+    aside (reference ``feasible.py:311``; usage is fitted in ranking)."""
+    asks = [d for t in tg.tasks for d in t.resources.devices]
+    if not asks:
+        return np.ones(len(nodes), dtype=bool)
+    out = np.empty(len(nodes), dtype=bool)
+    for i, node in enumerate(nodes):
+        out[i] = all(
+            sum(len(g.instance_ids) for g in node.resources.devices
+                if g.matches(ask.name)) >= ask.count
+            for ask in asks)
     return out
 
 
@@ -168,24 +272,61 @@ def _network_modes(tg: TaskGroup) -> set:
     modes = {net.mode or "host" for net in tg.networks}
     for t in tg.tasks:
         modes |= {net.mode or "host" for net in t.resources.networks}
-    return modes - {"host"}
+    return modes
+
+
+def network_mask(tg: TaskGroup, nodes: Sequence[Node]) -> np.ndarray:
+    """The requested network modes on the node (reference
+    ``feasible.py:336``): "host" (and "", the default) is on every node;
+    any other mode raises."""
+    other = _network_modes(tg) - {"host"}
+    if other:
+        raise NotImplementedError(
+            f"network modes {sorted(other)}: {UNPORTED_A5B}")
+    return np.ones(len(nodes), dtype=bool)
+
+
+def reserved_ports_mask(tg: TaskGroup, nodes: Sequence[Node],
+                        proposed_allocs_fn) -> np.ndarray:
+    """Every reserved port the group asks for is free on the node given
+    its proposed allocs (reference ``feasible.py:423``)."""
+    asks = tg.combined_resources().reserved_port_asks()
+    if not asks:
+        return np.ones(len(nodes), dtype=bool)
+    want = [p for _, p in asks]
+    out = np.empty(len(nodes), dtype=bool)
+    for i, node in enumerate(nodes):
+        idx = NetworkIndex(node)
+        idx.add_allocs(proposed_allocs_fn(node.id))
+        out[i] = not any(p in idx.used for p in want)
+    return out
+
+
+def job_constraints(job: Job, tg: TaskGroup) -> List[Constraint]:
+    out = list(job.constraints) + list(tg.constraints)
+    for t in tg.tasks:
+        out.extend(t.constraints)
+    return out
 
 
 def feasible_mask_static(job: Job, tg: TaskGroup, nodes: Sequence[Node],
-                         regex_cache: Optional[dict] = None) -> np.ndarray:
-    """The node-attribute-only feasibility mask: drivers + constraints.
-    Cacheable per (task-group signature, node-set version)."""
-    if any(t.resources.devices for t in tg.tasks):
-        raise NotImplementedError(f"device asks: {UNPORTED_A5}")
-    if _network_modes(tg):
-        raise NotImplementedError(f"network modes: {UNPORTED_A5}")
+                         regex_cache: Optional[dict] = None,
+                         version_cache: Optional[dict] = None
+                         ) -> np.ndarray:
+    """The node-attribute-only feasibility mask: drivers, device counts,
+    network modes, constraints. Cacheable per (task-group signature,
+    node-set version)."""
     if tg.volumes:
-        raise NotImplementedError(f"volumes: {UNPORTED_A5}")
+        raise NotImplementedError(f"volumes: {UNPORTED_A5B}")
     mask = driver_mask(tg, nodes)
+    if not mask.any():
+        return mask
+    mask &= device_mask(tg, nodes)
+    mask &= network_mask(tg, nodes)
     for c in job_constraints(job, tg):
         if not mask.any():
             break
-        mask &= constraint_mask(c, nodes, regex_cache)
+        mask &= constraint_mask(c, nodes, regex_cache, version_cache)
     return mask
 
 
@@ -193,9 +334,11 @@ def tg_mask_signature(job: Job, tg: TaskGroup) -> tuple:
     """Cache key capturing every input of feasible_mask_static other
     than the node set itself."""
     drivers = tuple(sorted({t.driver for t in tg.tasks}))
+    devs = tuple(sorted((d.name, d.count)
+                        for t in tg.tasks for d in t.resources.devices))
     cons = tuple((c.ltarget, c.operand, c.rtarget)
                  for c in job_constraints(job, tg))
-    return (drivers, cons)
+    return (drivers, devs, tuple(sorted(_network_modes(tg))), cons)
 
 
 def _truthy(rtarget: str) -> bool:

@@ -221,6 +221,9 @@ class GenericScheduler:
                 job_version=job.version,
                 task_group=tg.name,
                 allocated_vec=ctx.tg_vec(tg),
+                allocated_ports=list(option.allocated_ports),
+                allocated_devices=dict(option.allocated_devices),
+                allocated_cores=list(option.allocated_cores),
                 desired_status=enums.ALLOC_DESIRED_RUN,
                 client_status=enums.ALLOC_CLIENT_PENDING,
                 metrics=ctx.metrics,

@@ -1,5 +1,5 @@
 """Preemption victim selection on the host (reference
-``nomad_tpu/scheduler/preemption.py:36-175``, itself Nomad's
+``nomad_tpu/scheduler/preemption.py``, itself Nomad's
 scheduler/preemption.go):
 
 - only allocations at least ``PRIORITY_DELTA`` below the asking job's
@@ -7,10 +7,10 @@ scheduler/preemption.go):
 - candidates are taken in ascending priority groups, within a group by
   resource distance to what is still missing plus the migrate
   max_parallel penalty, until the ask fits; then victims that are no
-  longer needed are dropped (filterSuperset).
-
-Network and device preemption need ports and device instances, which
-the port does not model yet (ROADMAP queue A5).
+  longer needed are dropped (filterSuperset);
+- ``preempt_for_network`` frees conflicting reserved ports and
+  ``preempt_for_device`` device-group instances (reference
+  ``preemption.py:178-295``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 from ..structs.alloc import Allocation
 from ..structs.funcs import allocs_fit
 from ..structs.resources import RESOURCE_DIMS
+from .devices import matching_groups
 
 # preemption.go:26: allocs within a priority delta of 10 are skipped
 PRIORITY_DELTA = 10
@@ -49,8 +50,7 @@ def victim_holds_exact_resources(alloc: Allocation) -> bool:
     """True when evicting the alloc frees port numbers or device
     instances, which the dense victim columns cannot model; a kernel row
     that selects one is flagged for the exact host scanner."""
-    return (bool(getattr(alloc, "allocated_ports", None))
-            or bool(getattr(alloc, "allocated_devices", None)))
+    return bool(alloc.allocated_ports) or bool(alloc.allocated_devices)
 
 
 def basic_resource_distance(need: np.ndarray, have: np.ndarray) -> float:
@@ -86,10 +86,13 @@ def preempt_for_task_group(
     proposed: Sequence[Allocation],
     ask_vec: np.ndarray,
     current_priority: int,
+    check_devices: bool = False,
+    ask_devices=(),
     preempted_counts: Optional[Dict[tuple, int]] = None,
 ) -> Optional[List[Allocation]]:
     """A minimal set of lower-priority allocs whose removal lets the ask
-    fit (preemption.go:127 PreemptForTaskGroup), or None.
+    fit (preemption.go:127 PreemptForTaskGroup), or None. With
+    ``check_devices`` the candidate holds ``ask_devices``' counts too.
     ``preempted_counts`` carries the evictions already in the plan per
     (namespace, job, task group), so max_parallel penalties span the
     eval."""
@@ -100,11 +103,15 @@ def preempt_for_task_group(
     counts: Dict[tuple, int] = dict(preempted_counts or {})
     victims: List[Allocation] = []
     victim_ids = set()
-    placement = Allocation(id="_cand", allocated_vec=ask_vec)
+    placement = Allocation(
+        id="_cand", allocated_vec=ask_vec,
+        allocated_devices={d.name: ["?"] * d.count for d in ask_devices}
+        if check_devices else {})
 
     def fits_now() -> bool:
         remaining = [a for a in proposed if a.id not in victim_ids]
-        fit, _, _ = allocs_fit(node, remaining + [placement])
+        fit, _, _ = allocs_fit(node, remaining + [placement],
+                               check_devices=check_devices)
         return fit
 
     if fits_now():
@@ -141,3 +148,121 @@ def preempt_for_task_group(
                         victim_ids.add(v.id)
                 return [v for v in victims if v.id in victim_ids]
     return None
+
+
+def preempt_for_network(
+    node,
+    proposed: Sequence[Allocation],
+    ask,
+    current_priority: int,
+    preempted_counts: Optional[Dict[tuple, int]] = None,
+) -> Optional[List[Allocation]]:
+    """Free conflicting reserved ports (reference preemption.go:30
+    PreemptForNetwork). The reference also preempts on bandwidth
+    (networkResourceDistance over mbits); this model's allocations
+    record ports but not per-alloc bandwidth, so the network dimension
+    here is reserved-port conflicts — victims are taken in ascending
+    priority groups, direct holders of a needed port first, with the
+    migrate max_parallel penalty applied (scoreForNetwork)."""
+    needed_ports = {p[1] for p in ask.reserved_port_asks()}
+    if not needed_ports:
+        return None
+
+    counts: Dict[tuple, int] = dict(preempted_counts or {})
+
+    def alloc_ports(a: Allocation) -> set:
+        return {p.value for p in a.allocated_ports}
+
+    candidates = [a for a in proposed if is_preemptible(a, current_priority)
+                  and alloc_ports(a) & needed_ports]
+    if not candidates:
+        return None
+
+    victims: List[Allocation] = []
+    victim_ids = set()
+
+    def satisfied() -> bool:
+        for a in proposed:
+            if a.id in victim_ids or not a.should_count_for_usage():
+                continue
+            if alloc_ports(a) & needed_ports:
+                return False
+        return True
+
+    if satisfied():
+        return None
+
+    candidates.sort(key=lambda a: a.job.priority)
+    i = 0
+    while i < len(candidates):
+        prio = candidates[i].job.priority
+        group = []
+        while i < len(candidates) and candidates[i].job.priority == prio:
+            group.append(candidates[i])
+            i += 1
+        while group:
+            group.sort(key=lambda a: (
+                -len(alloc_ports(a) & needed_ports)
+                + _max_parallel_penalty(a, counts)))
+            pick = group.pop(0)
+            victims.append(pick)
+            victim_ids.add(pick.id)
+            ckey = (pick.namespace, pick.job_id, pick.task_group)
+            counts[ckey] = counts.get(ckey, 0) + 1
+            if satisfied():
+                return victims
+    return None
+
+
+def preempt_for_device(
+    node,
+    proposed: Sequence[Allocation],
+    ask_devices,
+    current_priority: int,
+) -> Optional[List[Allocation]]:
+    """Free device-group instances (reference preemption.go:16
+    PreemptForDevice + selectBestAllocs): per unsatisfied ask, victims
+    come from ascending priority groups, largest instance holders first,
+    until enough instances are free."""
+    victims: List[Allocation] = []
+    victim_ids = set()
+
+    for ask in ask_devices:
+        groups = matching_groups(node, ask, {}, {})
+        group_ids = {g.id for g in groups}
+        capacity = sum(len(g.instance_ids) for g in groups)
+
+        def held_instances(a: Allocation) -> int:
+            return sum(len(inst)
+                       for name, inst in (a.allocated_devices or {}).items()
+                       if name in group_ids)
+
+        def free_now() -> int:
+            used = 0
+            for a in proposed:
+                if a.id in victim_ids or not a.should_count_for_usage():
+                    continue
+                used += held_instances(a)
+            return capacity - used
+
+        needed = ask.count - free_now()
+        if needed <= 0:
+            continue
+        candidates = [a for a in proposed
+                      if is_preemptible(a, current_priority)
+                      and held_instances(a) > 0]
+        if not candidates:
+            return None
+        # ascending priority, then largest holders first within a group
+        # (reference selectBestAllocs sorts descending by instance count)
+        candidates.sort(key=lambda a: (a.job.priority, -held_instances(a)))
+        freed = 0
+        for a in candidates:
+            if freed >= needed:
+                break
+            victims.append(a)
+            victim_ids.add(a.id)
+            freed += held_instances(a)
+        if freed < needed:
+            return None
+    return victims or None

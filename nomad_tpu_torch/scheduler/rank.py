@@ -11,8 +11,15 @@ and for the preemption rows the kernel leaves to the exact scanner; the
 system scheduler ranks every node with it, and the tests hold the score
 kernel against it. A node that does not fit while preemption is enabled
 takes the preemption arm: victims from ``preemption.preempt_for_task_group``,
-then a "preemption" sub-score. Ports, device instances and cores are not
-modelled here: a group that asks for them is refused upstream.
+then a "preemption" sub-score. A group that asks for ports, device
+instances or cores gets them assigned on the chosen node here
+(reference ``rank.py:150-275``): ports through ``NetworkIndex``, device
+instances through ``DeviceIndex`` (with a "device-affinity" sub-score),
+cores through ``select_cores``; where they run out and preemption is
+enabled, ``preempt_for_network`` / ``preempt_for_device`` free them.
+The reference's port-collision event (sent when committed allocs already
+book a port twice) is not ported: the port's EvalContext has no event
+sink.
 """
 
 from __future__ import annotations
@@ -26,10 +33,15 @@ from ..structs import Job, Node, TaskGroup, enums
 from ..structs.alloc import Allocation
 from ..structs.funcs import (BINPACK_MAX_FIT_SCORE, allocs_fit,
                              score_fit_binpack, score_fit_spread)
+from ..structs.network import NetworkIndex
 from .context import EvalContext
-from .feasible import (check_constraint, distinct_hosts_mask,
-                       distinct_property_mask, driver_mask,
+from .devices import (DeviceIndex, combined_numa_affinity,
+                      device_affinity_boost, select_cores)
+from .feasible import (check_constraint, device_mask, distinct_hosts_mask,
+                       distinct_property_mask, driver_mask, network_mask,
                        node_meets_constraint, resolve_target)
+from .preemption import (preempt_for_device, preempt_for_network,
+                         preempt_for_task_group)
 from .spread import SpreadScorer
 
 SKIP_SCORE_THRESHOLD = 0.0
@@ -43,6 +55,9 @@ class RankedNode:
     score_meta: Dict[str, float] = field(default_factory=dict)
     final_score: float = 0.0
     preempted_allocs: Optional[List[Allocation]] = None
+    allocated_ports: List = field(default_factory=list)
+    allocated_devices: Dict[str, List[str]] = field(default_factory=dict)
+    allocated_cores: List[int] = field(default_factory=list)
 
     def add_score(self, name: str, value: float) -> None:
         self.scores.append(value)
@@ -88,7 +103,10 @@ class NodeScorer:
         self.preemption_enabled = preemption_enabled
         self.current_priority = current_priority or job.priority
         self._ppc_cache = None
-        self.ask_vec = tg.combined_resources().vec()
+        self.ask = tg.combined_resources()
+        self.ask_vec = self.ask.vec()
+        self.wants_ports = bool(
+            self.ask.reserved_port_asks() or self.ask.dynamic_port_count())
         self.affinities = (list(job.affinities) + list(tg.affinities)
                            + [a for t in tg.tasks for a in t.affinities])
         self.sum_affinity_weight = sum(abs(a.weight) for a in self.affinities)
@@ -125,23 +143,79 @@ class NodeScorer:
         placement = Allocation(
             id="_candidate", allocated_vec=self.ask_vec, job_id=self.job.id,
             task_group=self.tg.name, client_status=enums.ALLOC_CLIENT_PENDING)
-        fit, dim, used = allocs_fit(node, proposed + [placement])
+        check_devices = bool(self.ask.devices)
+        fit, dim, used = allocs_fit(node, proposed + [placement],
+                                    check_devices=check_devices)
         if not fit and self.preemption_enabled:
             # the preemption arm (reference rank.py:171-195)
-            from .preemption import preempt_for_task_group
-
             victims = preempt_for_task_group(
                 node, proposed, self.ask_vec, self.current_priority,
+                check_devices=check_devices, ask_devices=self.ask.devices,
                 preempted_counts=self._plan_preempted_counts())
             if victims:
                 option.preempted_allocs = victims
                 victim_ids = {v.id for v in victims}
                 remaining = [a for a in proposed if a.id not in victim_ids]
-                fit, dim, used = allocs_fit(node, remaining + [placement])
+                fit, dim, used = allocs_fit(node, remaining + [placement],
+                                            check_devices=check_devices)
         if not fit:
-            if self.ctx.metrics is not None:
-                self.ctx.metrics.exhaust_node(dim)
-            return None
+            return self._exhausted(dim)
+
+        # what the node holds once this option's victims are gone
+        counted = self._without_victims(proposed, option)
+        if self.wants_ports:
+            idx = NetworkIndex(node)
+            idx.add_allocs(counted)
+            ports, err = idx.assign_ports(self.ask)
+            if err and self.preemption_enabled:
+                # a reserved port is held: free its holders
+                net_victims = preempt_for_network(
+                    node, counted, self.ask, self.current_priority,
+                    preempted_counts=self._plan_preempted_counts())
+                if net_victims:
+                    option.preempted_allocs = (
+                        (option.preempted_allocs or []) + net_victims)
+                    counted = self._without_victims(proposed, option)
+                    idx = NetworkIndex(node)
+                    idx.add_allocs(counted)
+                    ports, err = idx.assign_ports(self.ask)
+            if err:
+                return self._exhausted("ports")
+            option.allocated_ports = ports
+
+        if self.ask.devices:
+            caches = (self.ctx.regex_cache, self.ctx.version_cache)
+            assignment = DeviceIndex(node, counted).assign(
+                self.ask.devices, *caches)
+            if assignment is None and self.preemption_enabled:
+                # device instances run out: free their holders
+                dev_victims = preempt_for_device(
+                    node, counted, self.ask.devices, self.current_priority)
+                if dev_victims:
+                    option.preempted_allocs = (
+                        (option.preempted_allocs or []) + dev_victims)
+                    counted = self._without_victims(proposed, option)
+                    assignment = DeviceIndex(node, counted).assign(
+                        self.ask.devices, *caches)
+            if assignment is None:
+                return self._exhausted("devices")
+            option.allocated_devices = assignment
+            dev_boost = device_affinity_boost(node, self.ask.devices,
+                                              *caches)
+            if dev_boost != 0.0:
+                option.add_score("device-affinity", dev_boost)
+        if self.ask.cores:
+            cores = select_cores(node, counted, int(self.ask.cores),
+                                 combined_numa_affinity(self.tg))
+            if cores is None:
+                return self._exhausted("cores")
+            option.allocated_cores = cores
+
+        if option.preempted_allocs is not None:
+            # network or device victims may have come after the first
+            # fit: score the node as all the evictions leave it
+            _, _, used = allocs_fit(node, counted + [placement],
+                                    check_devices=check_devices)
 
         available = node.available_vec()
         if self.algorithm == enums.SCHED_ALG_SPREAD:
@@ -165,7 +239,8 @@ class NodeScorer:
                 lval, lok = resolve_target(aff.ltarget, node)
                 rval, rok = resolve_target(aff.rtarget, node)
                 if check_constraint(aff.operand, lval, rval, lok, rok,
-                                    self.ctx.regex_cache):
+                                    self.ctx.regex_cache,
+                                    self.ctx.version_cache):
                     total += aff.weight
             if total != 0.0:
                 option.add_score("node-affinity",
@@ -185,18 +260,30 @@ class NodeScorer:
     def record_placement(self, node: Node) -> None:
         self.spread.record_placement(node)
 
+    def _exhausted(self, dim: str) -> None:
+        if self.ctx.metrics is not None:
+            self.ctx.metrics.exhaust_node(dim)
+        return None
+
+    @staticmethod
+    def _without_victims(proposed, option: RankedNode) -> List[Allocation]:
+        if option.preempted_allocs is None:
+            return proposed
+        victim_ids = {v.id for v in option.preempted_allocs}
+        return [a for a in proposed if a.id not in victim_ids]
+
 
 def _class_feasible(ctx: EvalContext, job: Job, tg: TaskGroup,
                     node: Node) -> bool:
     """Class-memoized job and group feasibility for one node: job
-    constraints, then drivers and group/task constraints. Device, network
-    mode and volume checks are not modelled (such groups are refused
-    before placement)."""
+    constraints, then drivers, device counts, network modes and
+    group/task constraints."""
     klass = node.computed_class
     elig = ctx.eligibility
     ok = elig.job_status(klass)
     if ok is None:
-        ok = all(node_meets_constraint(c, node, ctx.regex_cache)
+        ok = all(node_meets_constraint(c, node, ctx.regex_cache,
+                                       ctx.version_cache)
                  for c in job.constraints)
         elig.set_job_status(klass, ok)
     if not ok:
@@ -208,7 +295,10 @@ def _class_feasible(ctx: EvalContext, job: Job, tg: TaskGroup,
         tg_cons = (list(tg.constraints)
                    + [c for t in tg.tasks for c in t.constraints])
         ok = (bool(driver_mask(tg, [node])[0])
-              and all(node_meets_constraint(c, node, ctx.regex_cache)
+              and bool(device_mask(tg, [node])[0])
+              and bool(network_mask(tg, [node])[0])
+              and all(node_meets_constraint(c, node, ctx.regex_cache,
+                                            ctx.version_cache)
                       for c in tg_cons))
         elig.set_tg_status(tg.name, klass, ok)
     if not ok:

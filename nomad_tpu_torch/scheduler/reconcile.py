@@ -156,7 +156,7 @@ class AllocReconciler:
                 f"group {tg.name!r} asks for canaries: {_SERVER_SLICE}")
         if tg.volumes:
             raise NotImplementedError(
-                f"group {tg.name!r} claims volumes: ROADMAP queue A5")
+                f"group {tg.name!r} claims volumes: ROADMAP queue A5b")
         live: List[Allocation] = []
         batch_done = 0
         for a in allocs:

@@ -1,7 +1,8 @@
 """System scheduler for a fresh system job (reference
 ``nomad_tpu/scheduler/system_sched.py:20-194``, itself Nomad's
 scheduler_system.go): one alloc of each task group on every feasible
-ready node, each node ranked by the host ``NodeScorer``, which takes the
+ready node, each node ranked by the host ``NodeScorer``, which assigns
+the group's ports, device instances and cores on the node and takes the
 preemption arm where the node is full and preemption is enabled; the
 victims ride the plan as evictions.
 
@@ -22,7 +23,6 @@ from ..structs.alloc import Allocation, alloc_name
 from ..structs.evaluation import Evaluation
 from ..utils.ids import generate_uuid
 from .context import EvalContext
-from .feasible import UNPORTED_A5
 from .rank import NodeScorer, _class_feasible
 
 UNPORTED_A1 = "ROADMAP queue A1 (the Server/Worker slice)"
@@ -76,12 +76,6 @@ class SystemScheduler:
                 if self.sched_config is not None else True)
             now = time.time()
             for tg in job.task_groups:
-                res = ctx.tg_resources(tg)
-                if (res.reserved_port_asks() or res.dynamic_port_count()
-                        or res.devices or res.cores):
-                    raise NotImplementedError(
-                        f"task group {tg.name!r} asks for ports, devices or "
-                        f"cores: {UNPORTED_A5}")
                 scorer = NodeScorer(ctx, job, tg,
                                     preemption_enabled=preemption_enabled,
                                     current_priority=job.priority)
@@ -109,6 +103,9 @@ class SystemScheduler:
                         job_version=job.version,
                         task_group=tg.name,
                         allocated_vec=ctx.tg_vec(tg),
+                        allocated_ports=list(option.allocated_ports),
+                        allocated_devices=dict(option.allocated_devices),
+                        allocated_cores=list(option.allocated_cores),
                         desired_status=enums.ALLOC_DESIRED_RUN,
                         client_status=enums.ALLOC_CLIENT_PENDING,
                         metrics=metrics,

@@ -149,6 +149,11 @@ class StateSnapshot:
         None."""
         return self._store._node_usage.get(node_id, self.index)
 
+    def node_dev_usage(self, node_id: str) -> Optional[dict]:
+        """{device group id: instances used, "cores": n} or None
+        (reference ``store.py:330``)."""
+        return self._store._node_dev_usage.get(node_id, self.index)
+
     # --- jobs / evals ---
 
     def job_by_id(self, job_id: str,
@@ -284,6 +289,10 @@ class StateStore:
         self._allocs_by_job = VersionedTable("allocs_by_job")
         # per-node summed allocated_vec of non-terminal allocs
         self._node_usage = VersionedTable("node_usage")
+        # per-node device-instance and reserved-core counts of the
+        # non-terminal allocs that hold any ({group id: n, "cores": n}),
+        # the usage of the device and core columns the tensor layer adds
+        self._node_dev_usage = VersionedTable("node_dev_usage")
 
         # bumped on every node-table write; the tensor layer's canonical
         # node-set caches key on it
@@ -495,6 +504,19 @@ class StateStore:
 
     # --- deployments ---
 
+    def _dev_usage_add(self, alloc: Allocation, sign: int, gen: int,
+                       live: int) -> None:
+        """Fold one alloc's device instances and cores into its node's
+        row (reference ``store.py:932-940``)."""
+        if not alloc.allocated_devices and not alloc.allocated_cores:
+            return
+        from ..scheduler.devices import accumulate_dev_usage
+
+        cur = self._node_dev_usage.get_latest(alloc.node_id)
+        row = dict(cur) if cur else {}
+        accumulate_dev_usage(row, alloc, sign)
+        self._node_dev_usage.put(alloc.node_id, row, gen, live)
+
     def _put_deployment(self, dep: Deployment, gen: int, live: int) -> None:
         prev = self._deployments.get_latest(dep.id)
         dep.create_index = prev.create_index if prev is not None else gen
@@ -580,8 +602,9 @@ class StateStore:
         moves the node's usage by the difference. A write to a block
         position promotes it: the real row shadows the block's virtual
         row in every index (no entry of its own) and replaces its usage.
-        Usage counts the allocs that are not terminal, as the
-        scheduler's proposed view does (reference ``_usage_apply``).
+        Usage, and the device and core rows, count the allocs that are
+        not terminal, as the scheduler's proposed view does (reference
+        ``_usage_apply``).
         Returns, per alloc, whether it was a first insert (no row and no
         block position before)."""
         by_node: Dict[str, list] = {}
@@ -614,8 +637,10 @@ class StateStore:
                 by_job.setdefault((a.namespace, a.job_id), []).append(a.id)
             elif not prev.terminal_status():
                 count(prev.node_id, prev.allocated_vec, -1.0)
+                self._dev_usage_add(prev, -1, gen, live)
             if not a.terminal_status():
                 count(a.node_id, a.allocated_vec, 1.0)
+                self._dev_usage_add(a, +1, gen, live)
         for (node_id, _, sign), (vec, n) in usage.items():
             self._usage_add(node_id, vec * (sign * n) if n != 1 or sign < 0
                             else vec, gen, live)

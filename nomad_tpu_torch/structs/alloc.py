@@ -41,6 +41,14 @@ class AllocMetric:
 
 
 @dataclass(slots=True)
+class AllocatedPort:
+    label: str = ""
+    value: int = 0
+    to: int = 0
+    host_ip: str = ""
+
+
+@dataclass(slots=True)
 class Allocation:
     """A placement of a task group on a node. ``allocated_vec`` is the
     dense comparable resource total of the alloc."""
@@ -57,6 +65,10 @@ class Allocation:
     job_version: int = 0
     task_group: str = ""
     allocated_vec: np.ndarray = field(default_factory=lambda: comparable())
+    # exact ports, device instances (group id -> instance ids) and cores
+    allocated_ports: List[AllocatedPort] = field(default_factory=list)
+    allocated_devices: Dict[str, List[str]] = field(default_factory=dict)
+    allocated_cores: List[int] = field(default_factory=list)
     desired_status: str = enums.ALLOC_DESIRED_RUN
     desired_description: str = ""
     client_status: str = enums.ALLOC_CLIENT_PENDING

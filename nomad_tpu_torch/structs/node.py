@@ -87,5 +87,13 @@ class Node:
         put(str(self.resources.total_cores),
             str(self.resources.min_dynamic_port),
             str(self.resources.max_dynamic_port))
+        # fingerprinted network modes, NUMA domains and device groups are
+        # class-relevant: the masks memoized per class read them
+        for mode in sorted({n.mode for n in self.resources.networks}):
+            put("net", mode)
+        for numa in self.resources.numa:
+            put(str(numa.id), repr(numa.cores))
+        for d in self.resources.devices:
+            put(d.id, str(len(d.instance_ids)))
         self.computed_class = h.hexdigest()
         return self.computed_class

@@ -1,10 +1,12 @@
-"""Resource model, trimmed to the dense comparable vector the bulk path
-reads (reference ``nomad_tpu/structs/resources.py``)."""
+"""Resource model (reference ``nomad_tpu/structs/resources.py``): the
+dense comparable vector the kernels read, with the networks, device
+groups and NUMA domains beside it that exact port, instance and core
+assignment reads."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -33,16 +35,46 @@ class NetworkResource:
     """A requested or fingerprinted network (reference NetworkResource)."""
 
     mode: str = "host"
+    device: str = ""
+    ip: str = ""
+    mbits: int = 0
     reserved_ports: List[Tuple[str, int]] = field(default_factory=list)
     dynamic_ports: List[str] = field(default_factory=list)
 
 
 @dataclass(slots=True)
 class RequestedDevice:
-    """A device ask (reference RequestedDevice)."""
+    """A device ask, e.g. "nvidia/gpu" count 2 (reference RequestedDevice)."""
 
-    name: str = ""
+    name: str = ""          # vendor/type[/name] selector
     count: int = 1
+    constraints: list = field(default_factory=list)
+    affinities: list = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class NodeDeviceResource:
+    """A homogeneous device group on a node (reference NodeDeviceResource)."""
+
+    vendor: str = ""
+    type: str = ""
+    name: str = ""
+    instance_ids: List[str] = field(default_factory=list)
+    attributes: Dict[str, object] = field(default_factory=dict)
+
+    @property
+    def id(self) -> str:
+        return f"{self.vendor}/{self.type}/{self.name}"
+
+    def matches(self, selector: str) -> bool:
+        """Selector match: "type", "vendor/type" or "vendor/type/name"."""
+        parts = selector.split("/")
+        if len(parts) == 1:
+            return parts[0] == self.type
+        if len(parts) == 2:
+            return parts[0] == self.vendor and parts[1] == self.type
+        return (parts[0] == self.vendor and parts[1] == self.type
+                and "/".join(parts[2:]) == self.name)
 
 
 @dataclass(slots=True)
@@ -55,6 +87,7 @@ class Resources:
     cores: int = 0
     networks: List[NetworkResource] = field(default_factory=list)
     devices: List[RequestedDevice] = field(default_factory=list)
+    numa_affinity: str = "none"   # none | prefer | require
 
     def dynamic_port_count(self) -> int:
         return sum(len(n.dynamic_ports) for n in self.networks)
@@ -84,6 +117,14 @@ class NodeReservedResources:
 
 
 @dataclass(slots=True)
+class NumaNode:
+    """One NUMA domain: the cores that belong to it."""
+
+    id: int = 0
+    cores: List[int] = field(default_factory=list)
+
+
+@dataclass(slots=True)
 class NodeResources:
     """Total fingerprinted capacity of a node (reference NodeResources)."""
 
@@ -91,6 +132,9 @@ class NodeResources:
     memory_mb: float = 8192.0
     disk_mb: float = 100 * 1024.0
     total_cores: int = 4
+    networks: List[NetworkResource] = field(default_factory=list)
+    devices: List[NodeDeviceResource] = field(default_factory=list)
+    numa: List[NumaNode] = field(default_factory=list)
     min_dynamic_port: int = 20000
     max_dynamic_port: int = 32000
 

@@ -8,11 +8,11 @@ shared by every eval and worker. ``ClusterTensors`` adds one eval's
 usage view, with racing evals' in-flight placements folded in
 (``overlay.py``); its base is the incremental feed's when the store has
 one (``incremental.py``), else one gather from the store. ``build_task_group_tensors`` lowers one task group:
-feasibility, affinity, anti-affinity counts, spread tables and
-distinct_property tables. ``build_victim_tensors`` lowers every node's
+feasibility (the reserved-ports mask included), affinity, anti-affinity
+counts, spread tables, distinct_property tables, and the device and
+core count columns with the device-affinity sub-score
+(``_device_core_tensors``). ``build_victim_tensors`` lowers every node's
 preemptible allocs into the victim columns of the preemption solve.
-Device and core columns and port asks are the rest of ROADMAP queue A5
-and raise.
 """
 
 from __future__ import annotations
@@ -24,12 +24,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..scheduler.context import EvalContext
-from ..scheduler.feasible import (UNPORTED_A5, check_constraint,
-                                  distinct_hosts_flags,
+from ..scheduler.feasible import (check_constraint, distinct_hosts_flags,
                                   distinct_property_constraints,
                                   distinct_property_limit,
-                                  feasible_mask_static, resolve_target,
-                                  tg_mask_signature)
+                                  feasible_mask_static, reserved_ports_mask,
+                                  resolve_target, tg_mask_signature)
 from ..scheduler.spread import IMPLICIT_TARGET, SpreadInfo, combined_spreads
 from ..structs import Job, Node, TaskGroup, enums
 from ..structs.resources import RESOURCE_DIMS
@@ -47,12 +46,13 @@ def _pad_pow2(n: int, floor: int = 8) -> int:
 class ClusterStatic:
     """Canonical per-(node-set version, node list) arrays shared across
     evals and workers: capacity, the node index map, feasibility masks,
-    affinity vectors, interned attribute values, and ``device_arrays``,
-    the per-device copies the solver service uploads once."""
+    affinity vectors, interned attribute values, the device asks' capacity
+    columns (``dev_cache``), and ``device_arrays``, the per-device copies
+    the solver service uploads once."""
 
     __slots__ = ("nodes", "n_pad", "available", "node_index", "usage_rows",
                  "version", "mask_cache", "aff_cache", "intern_cache",
-                 "device_arrays")
+                 "dev_cache", "device_arrays")
 
     def __init__(self, nodes: Sequence[Node], store=None, version=None):
         n = len(nodes)
@@ -69,6 +69,7 @@ class ClusterStatic:
         self.mask_cache: Dict[tuple, np.ndarray] = {}
         self.aff_cache: Dict[tuple, np.ndarray] = {}
         self.intern_cache: Dict[tuple, tuple] = {}
+        self.dev_cache: Dict[tuple, tuple] = {}
         self.device_arrays: Dict = {}
 
 
@@ -335,8 +336,12 @@ class TaskGroupTensors:
     dh_job: bool
     dh_tg: bool
     spread_alg: bool
-    extra_ask: np.ndarray           # (0,): device/core columns raise
-    dev_affinity: np.ndarray        # (Np,) zeros: no device asks
+    # device/core count columns appended to the dense resource columns:
+    # E = one per device ask, plus one if the group reserves cores
+    extra_cap: np.ndarray           # (Np, E)
+    extra_used: np.ndarray          # (Np, E)
+    extra_ask: np.ndarray           # (E,)
+    dev_affinity: np.ndarray        # (Np,) device-affinity sub-score
     dp_val_id: np.ndarray           # (P, Np) int32
     dp_val_ok: np.ndarray           # (P, Np) bool
     dp_counts: np.ndarray           # (P, Vd) int32
@@ -369,7 +374,7 @@ def _affinity_vector(ctx: EvalContext, job: Job, tg: TaskGroup,
                 lval, lok = resolve_target(aff.ltarget, node)
                 rval, rok = resolve_target(aff.rtarget, node)
                 if check_constraint(aff.operand, lval, rval, lok, rok,
-                                    ctx.regex_cache):
+                                    ctx.regex_cache, ctx.version_cache):
                     total += aff.weight
             out[i] = total / total_weight
     static.aff_cache[sig] = out
@@ -469,6 +474,83 @@ def _spread_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
     return val_ids, val_ok, spread_counts, spread_desired, has_targets, weights
 
 
+def _device_core_tensors(ctx: EvalContext, tg: TaskGroup,
+                         cluster: ClusterTensors):
+    """Per device ask a capacity and a usage column, a reserved-cores
+    column, and the device-affinity sub-score (reference
+    ``tensor/cluster.py:612-693``). Capacity counts the instances of the
+    groups that match the ask and its constraints, cached on the static by
+    ask signature; usage is the store's ``node_dev_usage`` row, or for a
+    node the plan touches the proposed allocs' sum.
+
+    The count fit is slightly optimistic where asks share one group's
+    instances or "require" pins cores to one domain: the placer's exact
+    assignment after the solve catches those and places that request
+    alone on the host, as it does for port numbers."""
+    from ..scheduler.devices import (accumulate_dev_usage,
+                                     device_affinity_boost, groups_capacity,
+                                     matching_groups)
+
+    ask_res = ctx.tg_resources(tg)
+    asks = ask_res.devices
+    cores = int(ask_res.cores)
+    e = len(asks) + (1 if cores else 0)
+    nodes, n_pad = cluster.nodes, cluster.n_pad
+    if e == 0:
+        z = np.zeros((n_pad, 0))
+        return z, z, np.zeros(0), np.zeros(n_pad)
+    caches = (ctx.regex_cache, ctx.version_cache)
+    static = cluster.static
+    sig = (tuple((a.name, a.count,
+                  tuple((c.ltarget, c.operand, c.rtarget)
+                        for c in a.constraints),
+                  tuple((f.ltarget, f.operand, f.rtarget, f.weight)
+                        for f in a.affinities))
+                 for a in asks), bool(cores))
+    cached = static.dev_cache.get(sig)
+    if cached is None:
+        cap = np.zeros((n_pad, e))
+        dev_aff = np.zeros(n_pad)
+        any_affinities = any(a.affinities for a in asks)
+        # per (node, ask) the matched group ids, read by the usage fill
+        match_lists = [[()] * len(asks) for _ in range(len(nodes))]
+        for i, node in enumerate(nodes):
+            for ei, ask in enumerate(asks):
+                groups = matching_groups(node, ask, *caches)
+                cap[i, ei] = groups_capacity(groups)
+                match_lists[i][ei] = tuple(g.id for g in groups)
+            if cores:
+                cap[i, -1] = node.resources.total_cores
+            if any_affinities:
+                dev_aff[i] = device_affinity_boost(node, asks, *caches)
+        cached = static.dev_cache[sig] = (cap, dev_aff, match_lists)
+    cap, dev_aff, match_lists = cached
+
+    used = np.zeros((n_pad, e))
+    plan = ctx.plan
+    touched = set()
+    if plan is not None:
+        touched = (set(plan.node_update) | set(plan.node_preemptions)
+                   | set(plan.node_allocation))
+    snap = ctx.snapshot
+    for i, node in enumerate(nodes):
+        if node.id in touched:
+            row = {}
+            for a in ctx.proposed_allocs(node.id):
+                accumulate_dev_usage(row, a)
+        else:
+            row = snap.node_dev_usage(node.id)
+        if not row:
+            continue
+        for ei in range(len(asks)):
+            used[i, ei] = sum(row.get(gid, 0) for gid in match_lists[i][ei])
+        if cores:
+            used[i, -1] = row.get("cores", 0)
+    extra_ask = np.array([float(a.count) for a in asks]
+                         + ([float(cores)] if cores else []))
+    return cap, used, extra_ask, dev_aff
+
+
 def _distinct_property_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
                                cluster: ClusterTensors):
     """Interned distinct_property values, proposed counts per value (the
@@ -518,29 +600,37 @@ def build_task_group_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
                              algorithm: str = enums.SCHED_ALG_BINPACK
                              ) -> TaskGroupTensors:
     nodes, n_pad = cluster.nodes, cluster.n_pad
-    res = ctx.tg_resources(tg)
-    if res.devices or res.cores:
-        raise NotImplementedError(f"device/core columns: {UNPORTED_A5}")
-    if res.reserved_port_asks() or res.dynamic_port_count():
-        raise NotImplementedError(f"port asks: {UNPORTED_A5}")
     static = cluster.static
     sig = tg_mask_signature(job, tg)
     base = static.mask_cache.get(sig)
     if base is None:
         base = np.zeros(n_pad, dtype=bool)
-        base[: len(nodes)] = feasible_mask_static(job, tg, nodes,
-                                                  ctx.regex_cache)
+        base[: len(nodes)] = feasible_mask_static(
+            job, tg, nodes, ctx.regex_cache, ctx.version_cache)
         base.setflags(write=False)
         static.mask_cache[sig] = base
+    feas, feas_base = base, base
     placed_tg, placed_job = cluster.placement_counts(job, tg, ctx)
     (val_id, val_ok, counts, desired,
      has_targets, weights) = _spread_tensors(ctx, job, tg, cluster)
     dh_job, dh_tg = distinct_hosts_flags(job, tg)
+    # reserved ports: the nodes where they are free, and at most one
+    # alloc of the group a node (a second would collide with the first),
+    # which is the kernel's dh_tg. Dynamic ports are the R_PORTS column;
+    # the placer assigns their numbers after the solve.
+    if ctx.tg_resources(tg).reserved_port_asks():
+        feas = base.copy()   # the cached mask is shared and read-only
+        feas_base = None
+        feas[: len(nodes)] &= reserved_ports_mask(tg, nodes,
+                                                  ctx.proposed_allocs)
+        dh_tg = True
+    extra_cap, extra_used, extra_ask, dev_aff = _device_core_tensors(
+        ctx, tg, cluster)
     dp_val_id, dp_val_ok, dp_counts, dp_limit = _distinct_property_tensors(
         ctx, job, tg, cluster)
     return TaskGroupTensors(
         ask=ctx.tg_vec(tg),
-        feasible=base,
+        feasible=feas,
         affinity_boost=_affinity_vector(ctx, job, tg, cluster),
         placed_tg=placed_tg,
         placed_job=placed_job,
@@ -554,11 +644,13 @@ def build_task_group_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
         dh_job=dh_job,
         dh_tg=dh_tg,
         spread_alg=(algorithm == enums.SCHED_ALG_SPREAD),
-        extra_ask=np.zeros(0),
-        dev_affinity=np.zeros(n_pad),
+        extra_cap=extra_cap,
+        extra_used=extra_used,
+        extra_ask=extra_ask,
+        dev_affinity=dev_aff,
         dp_val_id=dp_val_id,
         dp_val_ok=dp_val_ok,
         dp_counts=dp_counts,
         dp_limit=dp_limit,
-        feas_base=base,
+        feas_base=feas_base,
     )

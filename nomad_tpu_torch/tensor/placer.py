@@ -4,7 +4,8 @@ SchedulerAlgorithm="tpu-binpack" and "tpu-solve" (reference
 ``_bulk_eligible`` / ``_bulk_shape_ok`` / ``_solve_bulk_counts`` :517-635,
 ``_place_bulk_columnar`` :637-689, ``_place_bulk`` :692-747, the
 preemption machinery :49-185 and :749-948, ``_bulk_trajectory_mean``
-:950-975, ``_host_algorithm`` / ``_host_one`` :1040-1056).
+:950-975, ``_assign_ids`` / ``_invalidate_node`` :998-1037,
+``_host_algorithm`` / ``_host_one`` :1040-1056).
 
 Per eval: one ClusterTensors build and one tie-break permutation; then
 per task group, one of four routes:
@@ -17,9 +18,15 @@ per task group, one of four routes:
 - host: at most ``HOST_CUTOVER`` requests go to the host oracle
   (``scheduler/rank.select_best_node``), one commit each;
 - per-eval kernel: everything else (spread, distinct_hosts,
-  distinct_property, smaller groups, expanded bulk requests) packs
-  into one ``solve_task_group_fused`` launch (B9) placing all of the
-  group's requests, then commits per request.
+  distinct_property, port, device and core asks, smaller groups,
+  expanded bulk requests) packs into one ``solve_task_group_fused``
+  launch (B9) placing all of the group's requests, then commits per
+  request. Device asks and reserved cores add one count column each to
+  the kernel's resource columns (``tensor/cluster.py``); after the solve
+  the host assigns each placement its port numbers (``NetworkIndex``),
+  device instances and cores (``_assign_ids``) on the chosen node, and a
+  request whose exact assignment fails where the count fit admitted the
+  node is placed alone by the host oracle.
 
 A bulk solve (``_solve_bulk_counts``) takes one of three backends, as in
 the reference: the solver service (B1, under "tpu-solve" the joint
@@ -40,9 +47,6 @@ a request with a node penalty, a revalidation miss) take the exact host
 scanner (``rank.NodeScorer`` -> ``preemption.py``). Below
 ``PREEMPT_DEVICE_MIN`` (n_pad * k_pad) the solve runs as its numpy
 mirror, the reference's shape rule.
-
-Ports, device and core asks raise (ROADMAP queue A5); nothing falls
-back to another algorithm.
 
 Spans (obs/trace.py), at the reference's points: ``worker.tensor_build``
 (the cluster tensors, its ``changed_allocs`` the Allocation deltas since
@@ -66,12 +70,14 @@ import torch
 
 from ..device import DeviceLike, resolve
 from ..obs import REGISTRY, TRACER
-from ..scheduler.feasible import UNPORTED_A5
+from ..scheduler.devices import (DeviceIndex, combined_numa_affinity,
+                                 select_cores, used_cores)
 from ..scheduler.rank import NodeScorer, RankedNode, select_best_node
 from ..scheduler.reconcile import BulkPlacementRequest
 from ..structs import enums
 from ..structs.alloc import Allocation
 from ..structs.funcs import allocs_fit
+from ..structs.network import NetworkIndex
 from .cluster import (ClusterTensors, _pad_pow2, build_task_group_tensors,
                       build_victim_tensors)
 from .incremental import device_used_fn, feed_for, incr_enabled
@@ -279,7 +285,6 @@ class TorchPlacer:
             tg = reqs[0].task_group
             if gi > 0:  # build() already computed usage for the first group
                 cluster.refresh_usage(ctx)
-            self._refuse_unported(ctx, tg)
             prebuilt = None
             if len(reqs) == 1 and isinstance(reqs[0], BulkPlacementRequest):
                 bulk = reqs[0]
@@ -318,17 +323,6 @@ class TorchPlacer:
                                  preemption_enabled=preemption_enabled,
                                  attempt=attempt)
 
-    @staticmethod
-    def _refuse_unported(ctx, tg) -> None:
-        res = ctx.tg_resources(tg)
-        if res.reserved_port_asks() or res.dynamic_port_count():
-            raise NotImplementedError(
-                f"task group {tg.name!r} asks for ports: {UNPORTED_A5}")
-        if res.devices or res.cores:
-            raise NotImplementedError(
-                f"task group {tg.name!r} asks for devices or cores: "
-                f"{UNPORTED_A5}")
-
     def _place_per_eval(self, ctx, job, tg, reqs, cluster, tgt, commit,
                         tie_perm, *, batch: bool, preemption_enabled: bool,
                         attempt: int) -> None:
@@ -348,9 +342,15 @@ class TorchPlacer:
         # workers is the stall the trace should show
         with TRACER.span("worker.solve", k=k), _PER_EVAL_SOLVE_LOCK:
             cluster.refresh_usage(ctx)
+            # the device/core count columns extend the resource columns
+            avail, used, ask = cluster.available, cluster.used, tgt.ask
+            if len(tgt.extra_ask):
+                avail = np.concatenate([avail, tgt.extra_cap], axis=1)
+                used = np.concatenate([used, tgt.extra_used], axis=1)
+                ask = np.concatenate([ask, tgt.extra_ask])
             packed = pack_solve_args(
-                cluster.available, cluster.used, tgt.placed_tg,
-                tgt.placed_job, tgt.ask, tgt.feasible, tgt.affinity_boost,
+                avail, used, tgt.placed_tg,
+                tgt.placed_job, ask, tgt.feasible, tgt.affinity_boost,
                 penalty_idx, active, tgt.spread_val_id, tgt.spread_val_ok,
                 tgt.spread_counts, tgt.spread_desired,
                 tgt.spread_has_targets, tgt.spread_weight, -1.0,
@@ -374,6 +374,18 @@ class TorchPlacer:
                 INFLIGHT.register({nodes[ni].id: vec * c
                                    for ni, c in per_node.items()}, ctx.plan)
 
+        # exact port numbers, device instances and cores, per chosen node
+        # after the solve (the kernel fitted their counts); the per-node
+        # indexes carry this group's earlier placements
+        ask_res = ctx.tg_resources(tg)
+        wants_ports = bool(ask_res.reserved_port_asks()
+                           or ask_res.dynamic_port_count())
+        wants_ids = bool(ask_res.devices or ask_res.cores)
+        numa_pol = combined_numa_affinity(tg) if ask_res.cores else "none"
+        net_idx: Dict[int, NetworkIndex] = {}
+        dev_idx: Dict[int, DeviceIndex] = {}
+        core_used: Dict[int, set] = {}
+
         n_feasible = int(tgt.feasible[: len(nodes)].sum())
         preempt_queue = []
         for i, req in enumerate(reqs):
@@ -381,12 +393,37 @@ class TorchPlacer:
             metrics.nodes_in_pool = len(nodes)
             metrics.nodes_evaluated = len(nodes)
             if founds[i]:
-                node = nodes[int(choices[i])]
+                ni = int(choices[i])
+                node = nodes[ni]
                 option = RankedNode(node=node)
                 option.final_score = float(scores[i])
                 option.score_meta["normalized-score"] = option.final_score
                 metrics.scores[f"{node.id}.normalized-score"] = (
                     option.final_score)
+                if wants_ports:
+                    idx = net_idx.get(ni)
+                    if idx is None:
+                        idx = net_idx[ni] = NetworkIndex(node)
+                        idx.add_allocs(ctx.proposed_allocs(node.id))
+                    ports, err = idx.assign_ports(ask_res)
+                    if err:
+                        metrics.exhaust_node("ports")
+                        commit(req, None)
+                        continue
+                    option.allocated_ports = ports
+                if wants_ids and not self._assign_ids(
+                        ctx, ask_res, numa_pol, ni, node, option, dev_idx,
+                        core_used):
+                    # the count fit admitted a node the exact ids cannot
+                    # serve: the host oracle places this request alone
+                    option = self._host_one(ctx, job, tg, nodes, req, batch,
+                                            preemption_enabled, attempt)
+                    commit(req, option)
+                    if option is not None:
+                        # rebuild that node's indexes from the plan
+                        self._invalidate_node(cluster, option.node.id,
+                                              net_idx, dev_idx, core_used)
+                    continue
                 commit(req, option)
                 continue
             if preemption_enabled:
@@ -395,9 +432,52 @@ class TorchPlacer:
             self._attribute_failure(metrics, len(nodes), n_feasible)
             commit(req, None)
         if preempt_queue:
-            self._preempt_batch(ctx, job, tg, preempt_queue, cluster, tgt,
-                                commit, batch=batch, attempt=attempt,
-                                n_feasible=n_feasible)
+            self._preempt_batch(
+                ctx, job, tg, preempt_queue, cluster, tgt, commit,
+                batch=batch, attempt=attempt, n_feasible=n_feasible,
+                invalidate=lambda nid: self._invalidate_node(
+                    cluster, nid, net_idx, dev_idx, core_used))
+
+    @staticmethod
+    def _assign_ids(ctx, ask_res, numa_pol: str, ni: int, node,
+                    option: RankedNode, dev_idx: Dict[int, DeviceIndex],
+                    core_used: Dict[int, set]) -> bool:
+        """Device instances and cores for one placement on the chosen
+        node (reference placer.py:998-1031). The per-node indexes live
+        for the group's pass, so its placements never book an id twice.
+        Where the devices assign and the cores then fail, the instances
+        stay reserved in the node's index, which errs on the safe side."""
+        proposed = None
+        if ask_res.devices:
+            idx = dev_idx.get(ni)
+            if idx is None:
+                proposed = ctx.proposed_allocs(node.id)
+                idx = dev_idx[ni] = DeviceIndex(node, proposed)
+            assignment = idx.assign(ask_res.devices, ctx.regex_cache,
+                                    ctx.version_cache)
+            if assignment is None:
+                return False
+            option.allocated_devices = assignment
+        if ask_res.cores:
+            taken = core_used.get(ni)
+            if taken is None:
+                if proposed is None:
+                    proposed = ctx.proposed_allocs(node.id)
+                taken = core_used[ni] = used_cores(proposed)
+            cores = select_cores(node, (), int(ask_res.cores), numa_pol,
+                                 taken=taken)
+            if cores is None:
+                return False
+            taken.update(cores)
+            option.allocated_cores = cores
+        return True
+
+    @staticmethod
+    def _invalidate_node(cluster, node_id: str, *caches: Dict) -> None:
+        ni = cluster.node_index.get(node_id)
+        if ni is not None:
+            for cache in caches:
+                cache.pop(ni, None)
 
     def _host_algorithm(self) -> str:
         """The host oracle scores the device tiers as "binpack"."""
@@ -585,7 +665,8 @@ class TorchPlacer:
     # -- batched preemption: kernel node and victim choice, host commit --
 
     def _preempt_batch(self, ctx, job, tg, reqs, cluster, tgt, commit, *,
-                       batch: bool, attempt: int, n_feasible: int) -> None:
+                       batch: bool, attempt: int, n_feasible: int,
+                       invalidate=None) -> None:
         """Preemption for the K unplaced requests as ONE solve: the
         victim columns, one ``preempt_solve`` (or its mirror), then each
         (node, victims) row revalidated and committed. A row with a
@@ -604,16 +685,25 @@ class TorchPlacer:
             self._commit_preempt_rows(ctx, job, tg, reqs, cluster, commit, vt,
                                       picks, victims, flagged, scores,
                                       batch=batch, attempt=attempt,
-                                      n_feasible=n_feasible)
+                                      n_feasible=n_feasible,
+                                      invalidate=invalidate)
 
     def _commit_preempt_rows(self, ctx, job, tg, reqs, cluster, commit, vt,
                              picks, victims, flagged, scores, *,
                              batch: bool, attempt: int,
-                             n_feasible: int) -> None:
+                             n_feasible: int, invalidate=None) -> None:
         """The preemption solve's rows, revalidated and committed; the
-        exact host scanner takes the rows the kernel cannot settle."""
+        exact host scanner takes the rows the kernel cannot settle, and
+        every row of a group that needs exact port numbers, device
+        instances or cores (the dense victim columns hold none of them).
+        ``invalidate(node_id)`` drops the placer's per-node id indexes
+        of a node a row committed to."""
         nodes = cluster.nodes
         ask_vec = ctx.tg_vec(tg)
+        ask_res = ctx.tg_resources(tg)
+        exact_needed = bool(ask_res.reserved_port_asks()
+                            or ask_res.dynamic_port_count()
+                            or ask_res.devices or ask_res.cores)
         scorer = NodeScorer(ctx, job, tg, algorithm=self._host_algorithm(),
                             preemption_enabled=True)
         # one metrics object for the kernel rows; host rows get their own
@@ -643,7 +733,7 @@ class TorchPlacer:
             ni = -1 if req.ignore_node else int(picks[i])
             if 0 <= ni < len(nodes):
                 node = nodes[ni]
-                if not flagged[i]:
+                if not exact_needed and not flagged[i]:
                     ctx.metrics = kernel_metrics
                     option = self._commit_kernel_victims(
                         node, vt, ni, victims[i], float(scores[i]), ask_vec,
@@ -663,6 +753,8 @@ class TorchPlacer:
                 commit(req, option)
                 prop_cache.pop(option.node.id, None)
                 scorer.record_placement(option.node)
+                if invalidate is not None:
+                    invalidate(option.node.id)
                 if kernel_row:
                     n_kernel += 1
                 else:

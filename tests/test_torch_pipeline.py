@@ -6,6 +6,7 @@ Harness(device="cpu") must give the same per-job fingerprint. The port's
 nodes and jobs are carried across from the reference's as plain records
 (nomad_tpu_torch.convert)."""
 
+import dataclasses
 import random
 
 import numpy as np
@@ -29,6 +30,21 @@ ALG = "tpu-binpack"
 JOBS = ((700, 50, 32), (900, 60, 48), (500, 80, 64))
 
 
+def _rows(cs, weighted=False):
+    return [(c.ltarget, c.rtarget, c.operand) + ((c.weight,) if weighted
+                                                  else ()) for c in cs]
+
+
+def network_records(nets) -> list:
+    return [dataclasses.asdict(n) for n in nets]
+
+
+def device_ask_records(asks) -> list:
+    return [dict(name=d.name, count=d.count, constraints=_rows(d.constraints),
+                 affinities=_rows(d.affinities, weighted=True))
+            for d in asks]
+
+
 def node_record(n) -> dict:
     """A reference Node as plain data."""
     r, rs = n.resources, n.reserved
@@ -43,8 +59,9 @@ def node_record(n) -> dict:
                        total_cores=r.total_cores,
                        min_dynamic_port=r.min_dynamic_port,
                        max_dynamic_port=r.max_dynamic_port,
-                       devices=list(r.devices), networks=list(r.networks),
-                       numa=list(r.numa)),
+                       devices=[dataclasses.asdict(d) for d in r.devices],
+                       networks=network_records(r.networks),
+                       numa=[dataclasses.asdict(d) for d in r.numa]),
         reserved=dict(cpu=rs.cpu, memory_mb=rs.memory_mb, disk_mb=rs.disk_mb,
                       reserved_ports=list(rs.reserved_ports)))
 
@@ -65,7 +82,7 @@ def job_record(j) -> dict:
         task_groups=[dict(
             name=tg.name, count=tg.count, constraints=cons(tg.constraints),
             affinities=affs(tg.affinities), spreads=list(tg.spreads),
-            networks=list(tg.networks), volumes=dict(tg.volumes),
+            networks=network_records(tg.networks), volumes=dict(tg.volumes),
             ephemeral_disk_mb=tg.ephemeral_disk.size_mb,
             update=(None if tg.update is None else dict(
                 max_parallel=tg.update.max_parallel,
@@ -78,8 +95,10 @@ def job_record(j) -> dict:
                                memory_mb=t.resources.memory_mb,
                                disk_mb=t.resources.disk_mb,
                                cores=t.resources.cores,
-                               networks=list(t.resources.networks),
-                               devices=list(t.resources.devices)))
+                               numa_affinity=t.resources.numa_affinity,
+                               networks=network_records(t.resources.networks),
+                               devices=device_ask_records(
+                                   t.resources.devices)))
                 for t in tg.tasks]) for tg in j.task_groups])
 
 
@@ -197,27 +216,45 @@ def _port_cluster(n=256):
 def test_unported_shapes_raise_not_implemented(port_service):
     h = _port_cluster()
     cfg = port_operator.SchedulerConfiguration(scheduler_algorithm=ALG)
-    # dynamic ports (bulk-sized and host-oracle-sized groups)
+    # a network mode other than "host" (bulk-sized and host-oracle-sized
+    # groups) and a group volume: ROADMAP queue A5b
+    for count in (300, 10):
+        bridged = port_mock.service_job(count)
+        bridged.task_groups[0].networks = [
+            NetworkResource(mode="bridge", dynamic_ports=["http"])]
+        h.store.upsert_job(bridged)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A5b"):
+            h.process(port_mock.eval_for(bridged), sched_config=cfg)
+    volume = port_mock.service_job(40)
+    volume.task_groups[0].volumes = {"data": object()}
+    h.store.upsert_job(volume)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A5b"):
+        h.process(port_mock.eval_for(volume), sched_config=cfg)
+    # ports, device asks and version constraints place (A5)
     for count in (300, 10):
         ports = port_mock.service_job(count)
         ports.task_groups[0].tasks[0].resources.networks = [
             NetworkResource(dynamic_ports=["http"])]
         h.store.upsert_job(ports)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            h.process(port_mock.eval_for(ports), sched_config=cfg)
-    # a device ask
+        h.process(port_mock.eval_for(ports), sched_config=cfg)
+        placed = h.store.snapshot().allocs_by_job(ports.id)
+        assert len(placed) == count
+        assert all(len(a.allocated_ports) == 1 for a in placed)
     gpu = port_mock.service_job(40)
     gpu.task_groups[0].tasks[0].resources.devices = [
         RequestedDevice(name="nvidia/gpu")]
     h.store.upsert_job(gpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.process(port_mock.eval_for(gpu), sched_config=cfg)
-    # a version constraint
+    h.process(port_mock.eval_for(gpu), sched_config=cfg)
+    assert h.store.snapshot().allocs_by_job(gpu.id) == []  # no GPU nodes
     versioned = port_mock.service_job(40, constraints=[Constraint(
         "${attr.kernel.version}", ">= 4.19", "version")])
     h.store.upsert_job(versioned)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.process(port_mock.eval_for(versioned), sched_config=cfg)
+    h.process(port_mock.eval_for(versioned), sched_config=cfg)
+    snap = h.store.snapshot()
+    placed = snap.allocs_by_job(versioned.id)
+    assert len(placed) == 40
+    assert {snap.node_by_id(a.node_id).attributes["kernel.version"]
+            for a in placed} <= {"4.19.0", "5.10.0"}
     # the default algorithm ("binpack") places through the host placer
     big = port_mock.service_job(300, batch=True)
     h.store.upsert_job(big)

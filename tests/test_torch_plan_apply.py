@@ -22,9 +22,12 @@ from nomad_tpu.structs import Spread as RefSpread
 from nomad_tpu.structs import allocs_fit as ref_allocs_fit
 from nomad_tpu.structs import enums as ref_enums
 from nomad_tpu.structs import operator as ref_operator
+from nomad_tpu.structs.alloc import AllocatedPort as RefAllocatedPort
 from nomad_tpu.structs.alloc import AllocBlock as RefAllocBlock
 from nomad_tpu.structs.plan import Plan as RefPlan
 from nomad_tpu.structs.plan import PlanResult as RefPlanResult
+from nomad_tpu.structs.resources import NetworkResource as RefNetwork
+from nomad_tpu.structs.resources import NodeDeviceResource as RefDeviceGroup
 from nomad_tpu.testing import Harness as RefHarness
 from nomad_tpu_torch import convert
 from nomad_tpu_torch import mock as port_mock
@@ -34,10 +37,13 @@ from nomad_tpu_torch.core.server import ServerConfig as PortServerConfig
 from nomad_tpu_torch.state import StateStore as PortStateStore
 from nomad_tpu_torch.structs import enums as port_enums
 from nomad_tpu_torch.structs import operator as port_operator
+from nomad_tpu_torch.structs.alloc import AllocatedPort
 from nomad_tpu_torch.structs.alloc import AllocBlock as PortAllocBlock
 from nomad_tpu_torch.structs.funcs import allocs_fit as port_allocs_fit
 from nomad_tpu_torch.structs.plan import Plan as PortPlan
 from nomad_tpu_torch.structs.plan import PlanResult as PortPlanResult
+from nomad_tpu_torch.structs.resources import (NetworkResource,
+                                               NodeDeviceResource)
 from nomad_tpu_torch.testing import Harness as PortHarness
 
 from test_torch_bulk_scan import (SCAN_SCORE_ATOL, SCORE_ATOL,  # noqa: F401
@@ -51,7 +57,8 @@ REF = types.SimpleNamespace(
     name="ref", mock=ref_mock, pa=ref_plan_apply, StateStore=RefStateStore,
     Plan=RefPlan, PlanResult=RefPlanResult, enums=ref_enums,
     allocs_fit=ref_allocs_fit, AllocBlock=RefAllocBlock,
-    Harness=RefHarness, operator=ref_operator,
+    Harness=RefHarness, operator=ref_operator, Port=RefAllocatedPort,
+    Network=RefNetwork, DeviceGroup=RefDeviceGroup,
     server=lambda **kw: RefServer(RefServerConfig(
         heartbeat_ttl=3600, gc_interval=3600, **kw)))
 PORT = types.SimpleNamespace(
@@ -59,6 +66,8 @@ PORT = types.SimpleNamespace(
     StateStore=PortStateStore, Plan=PortPlan, PlanResult=PortPlanResult,
     enums=port_enums, allocs_fit=port_allocs_fit, AllocBlock=PortAllocBlock,
     Harness=lambda: PortHarness(device="cpu"), operator=port_operator,
+    Port=AllocatedPort, Network=NetworkResource,
+    DeviceGroup=NodeDeviceResource,
     server=lambda **kw: PortServer(PortServerConfig(device="cpu", **kw)))
 
 
@@ -687,3 +696,128 @@ def _over(h):
     snap = h.store.snapshot()
     nodes = list(snap.nodes())
     return [nodes[i] for i in over_capacity(h.store)]
+
+
+# --------------------------------------------------------------------------
+# ports, devices and cores: tests/test_plan_apply_scale.py
+# ::TestReservedPortRace, tests/test_network.py::TestPlanApplierCollisions
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("algorithm", ["binpack", "tpu-binpack"])
+def test_two_workers_race_one_reserved_port(pkg, algorithm, services):
+    """Two jobs that want the same static port on a one-node cluster,
+    racing through two workers and the applier: exactly one holds the
+    port, the other is blocked, and the committed state fits."""
+    srv = pkg.server(num_workers=2, nack_timeout=900.0,
+                     sched_config=pkg.operator.SchedulerConfiguration(
+                         scheduler_algorithm=algorithm))
+    node = pkg.mock.node()
+    srv.store.upsert_node(node)
+    jobs = []
+    for _ in range(2):
+        j = pkg.mock.job()
+        tg = j.task_groups[0]
+        tg.count = 1
+        tg.networks = [pkg.Network(mode="host",
+                                   reserved_ports=[("http", 8080)])]
+        jobs.append(j)
+    with srv:
+        for j in jobs:
+            srv.register_job(j)
+        assert srv.wait_for_idle(timeout=60.0, include_delayed=False)
+        snap = srv.store.snapshot()
+        holders = [a for j in jobs for a in snap.allocs_by_job(j.id)
+                   if not a.terminal_status()
+                   and 8080 in [p.value for p in a.allocated_ports]]
+        assert len(holders) == 1
+        live = [a for a in snap.allocs_by_node(node.id)
+                if not a.terminal_status()]
+        fit, dim, _ = pkg.allocs_fit(node, live)
+        assert fit, dim
+
+
+def _id_plans(pkg, nodes, job, rows):
+    """One plan a row; a row is (node index, ports, devices, cores) of
+    one alloc, or several such tuples."""
+    plans = []
+    for i, row in enumerate(rows):
+        p = pkg.Plan(eval_id=f"ids-{i}", snapshot_index=0)
+        for k, (ni, ports, devices, cores) in enumerate(row):
+            a = pkg.mock.alloc(job, nodes[ni], index=10 * i + k,
+                               id=f"ids-{i}-{k}")
+            a.allocated_ports = [pkg.Port(label="p", value=v) for v in ports]
+            a.allocated_devices = devices
+            a.allocated_cores = cores
+            p.append_alloc(a)
+        plans.append(p)
+    return plans
+
+
+# (node index, ports, devices, cores) per alloc, each list a plan; and
+# the nodes each plan gets rejected
+A100 = "nvidia/gpu/a100"
+ID_RACES = {
+    "reserved_port": ([[(0, [8080], {}, []), (1, [8080], {}, [])],
+                       [(0, [8080], {}, [])],
+                       [(1, [9090], {}, [])]],
+                      [[], ["ids-node-0"], []]),
+    "device_count": ([[(0, [], {A100: ["g-0"]}, [])],
+                      [(0, [], {A100: ["g-0", "g-1"]}, [])],
+                      [(0, [], {A100: ["g-1"]}, []),
+                       (1, [], {A100: ["h-0", "h-1"]}, [])],
+                      [(1, [], {A100: ["h-0"]}, [])]],
+                     [[], ["ids-node-0"], [], ["ids-node-1"]]),
+    # the device check counts instances a group holds, not their ids
+    # (as the reference's does): one id twice within the count commits
+    "device_same_id": ([[(0, [], {A100: ["g-0"]}, [])],
+                        [(0, [], {A100: ["g-0"]}, [])]],
+                       [[], []]),
+    "core": ([[(0, [], {}, [0, 1]), (1, [], {}, [0, 1])],
+              [(0, [], {}, [1, 2])],
+              [(1, [], {}, [2, 3])]],
+             [[], ["ids-node-0"], []]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ID_RACES))
+@pytest.mark.parametrize("queued", [False, True])
+def test_appliers_reject_the_same_double_bookings(case, queued):
+    """The same plans, one after another, through both packages'
+    appliers (directly, or queued so that each verifies against the
+    in-flight results of the ones before it): the same nodes rejected,
+    the same allocs committed."""
+    ref_nodes = []
+    for i, tag in enumerate("gh"):
+        n = REF.mock.node(id=f"ids-node-{i}", name=f"ids-node-{i}")
+        n.resources.devices = [RefDeviceGroup(
+            vendor="nvidia", type="gpu", name="a100",
+            instance_ids=[f"{tag}-0", f"{tag}-1"])]
+        n.compute_class()
+        ref_nodes.append(n)
+    port_nodes = convert.nodes_from_records([node_record(n)
+                                             for n in ref_nodes])
+    out = []
+    for pkg, nodes in ((REF, ref_nodes), (PORT, port_nodes)):
+        store = pkg.StateStore()
+        for n in nodes:
+            store.upsert_node(n)
+        job = pkg.mock.job()
+        job.id = "ids-job"
+        store.upsert_job(job)
+        plans = _id_plans(pkg, nodes, job, ID_RACES[case][0])
+        ap, q = applier(pkg, store)
+        if queued:
+            ap.start()
+            try:
+                pending = [q.enqueue(p) for p in plans]
+                results = [pp.wait(timeout=10.0) for pp in pending]
+            finally:
+                ap.stop()
+        else:
+            results = [ap.apply(p) for p in plans]
+        live = sorted(a.id for a in store.snapshot().allocs()
+                      if not a.terminal_status())
+        out.append(([sorted(r.rejected_nodes) for r in results], live))
+    assert out[0] == out[1]
+    assert out[1][0] == ID_RACES[case][1]

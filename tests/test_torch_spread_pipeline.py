@@ -24,7 +24,8 @@ from nomad_tpu_torch import mock as port_mock
 from nomad_tpu_torch.structs import operator as port_operator
 from nomad_tpu_torch.tensor import solver as port_solver
 from nomad_tpu_torch.testing import Harness as PortHarness
-from test_torch_pipeline import fingerprint, node_record
+from test_torch_pipeline import (device_ask_records, fingerprint,
+                                 network_records, node_record)
 
 ALG = "tpu-binpack"
 SCORE_ATOL = 1e-6
@@ -64,6 +65,7 @@ def job_record(j) -> dict:
             name=tg.name, count=tg.count, constraints=cons(tg.constraints),
             affinities=affs(tg.affinities), spreads=spreads(tg.spreads),
             ephemeral_disk_mb=tg.ephemeral_disk.size_mb,
+            networks=network_records(tg.networks),
             update=(None if tg.update is None else dict(
                 max_parallel=tg.update.max_parallel,
                 progress_deadline_s=tg.update.progress_deadline_s,
@@ -77,7 +79,11 @@ def job_record(j) -> dict:
                 resources=dict(cpu=t.resources.cpu,
                                memory_mb=t.resources.memory_mb,
                                disk_mb=t.resources.disk_mb,
-                               cores=t.resources.cores))
+                               cores=t.resources.cores,
+                               numa_affinity=t.resources.numa_affinity,
+                               networks=network_records(t.resources.networks),
+                               devices=device_ask_records(
+                                   t.resources.devices)))
                 for t in tg.tasks]) for tg in j.task_groups])
 
 

@@ -351,9 +351,23 @@ def test_score_once_penalty_node():
 # ---------------------------------------------------------------------------
 
 
+def _device_columns(rng, n, n_real, extra):
+    """``extra`` count columns as tensor/cluster.py appends them for
+    device asks and reserved cores (capacity, usage, ask), and a
+    device-affinity sub-score with zeros, positives and a negative."""
+    cap = np.zeros((n, extra))
+    cap[:n_real] = rng.choice([0, 4, 8], (n_real, extra))
+    cap[:n_real, -1] = 16                       # the cores column
+    used = np.minimum(cap, rng.integers(0, 6, (n, extra)))
+    ask = np.array([1.0] * (extra - 1) + [2.0])
+    dev = np.zeros(n)
+    dev[:n_real] = rng.choice([0.0, 0.0, 0.5, 1.0, -0.25], n_real)
+    return cap, used, ask, dev
+
+
 def _scan_fixture(seed, *, n=512, n_real=480, k=64, k_active=59, s=2, v=8,
                   p=1, vd=4, targets=True, perm=True, dh_tg=False,
-                  spread_alg=False):
+                  spread_alg=False, extra=0):
     rng = np.random.default_rng(seed)
     avail = np.zeros((n, 4))
     avail[:n_real, 0] = rng.choice([8000, 16000, 32000], n_real)
@@ -390,11 +404,18 @@ def _scan_fixture(seed, *, n=512, n_real=480, k=64, k_active=59, s=2, v=8,
     dcnt = rng.integers(0, 2, (p, vd))
     dlim = np.full(p, 30.0)
     tie_perm = rng.permutation(n) if perm else None
+    ask = np.array([100.0, 64.0, 300.0, 0.0])
+    dev = None
+    if extra:
+        cap, xused, xask, dev = _device_columns(rng, n, n_real, extra)
+        avail = np.concatenate([avail, cap], axis=1)
+        used = np.concatenate([used, xused], axis=1)
+        ask = np.concatenate([ask, xask])
     return kernels.pack_solve_args(
-        avail, used, ptg, pjob, np.array([100.0, 64.0, 300.0, 0.0]), feas,
+        avail, used, ptg, pjob, ask, feas,
         aff, pen, active, svid, sok, scnt, sdes, has_t, w, -1.0, 50.0,
-        False, dh_tg, spread_alg, dp_val_id=dvid, dp_val_ok=dok,
-        dp_counts0=dcnt, dp_limit=dlim, tie_perm=tie_perm)
+        False, dh_tg, spread_alg, dev_affinity=dev, dp_val_id=dvid,
+        dp_val_ok=dok, dp_counts0=dcnt, dp_limit=dlim, tie_perm=tie_perm)
 
 
 def _scan_both(packed):
@@ -414,9 +435,19 @@ def _scan_both(packed):
     dict(seed=5, spread_alg=True),
     # more steps than feasible nodes: distinct_hosts runs the group dry
     dict(seed=6, n=64, n_real=40, k=64, k_active=60, dh_tg=True),
+    # device and core columns with a device-affinity sub-score: d = 6 on
+    # the lean shape (one spread, no distinct_property: config 5's) and
+    # on the full one, d = 8 (MAX_DIMS) on the full one
+    dict(seed=7, extra=2, s=1, p=0), dict(seed=8, extra=2, s=0, p=0),
+    dict(seed=9, extra=2), dict(seed=10, extra=4, s=3, v=16, p=1),
 ])
 def test_scan_plain_matches_jax(case):
-    got = _scan_both(_scan_fixture(**case))
+    packed = _scan_fixture(**case)
+    if case.get("extra"):
+        d = 4 + case["extra"]
+        assert packed[0].shape[1] == 2 * d + 6        # the node matrix
+        assert np.any(packed[0][:, 2 * d + 4] != 0)   # dev_affinity
+    got = _scan_both(packed)
     k_active = case.get("k_active", 59)
     assert not got[1][k_active:].any()         # padded steps find nothing
     if case.get("dh_tg"):
@@ -498,7 +529,10 @@ def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
     affinities, placed allocs and penalty steps; "worstfit" three spreads
     (the padded tree) under WorstFit on near-full nodes; "distinct"
     distinct_hosts with a distinct_property cap, more steps than nodes
-    left; "penalty" the even spread with a penalty node at most steps."""
+    left; "penalty" the even spread with a penalty node at most steps;
+    "devices" the even spread with two device/core count columns (d = 6)
+    and a device-affinity sub-score, config 5's lean shape; "devices_wide"
+    four such columns (d = 8), three spreads and a distinct_property."""
     rng = np.random.default_rng(seed)
     avail = np.zeros((n, 4))
     avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
@@ -520,6 +554,25 @@ def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
     dh_tg = spread_alg = False
     dp = dict(dp_val_id=np.zeros((0, n)), dp_val_ok=np.zeros((0, n), bool),
               dp_counts0=np.zeros((0, 1)), dp_limit=np.zeros(0))
+    ask, dev = np.array([100.0, 64.0, 300.0, 0.0]), None
+    if variant in ("devices", "devices_wide"):
+        extra = 2 if variant == "devices" else 4
+        cap, xused, xask, dev = _device_columns(rng, n, real, extra)
+        avail = np.concatenate([avail, cap], axis=1)
+        used = np.concatenate([used, xused], axis=1)
+        ask = np.concatenate([ask, xask])
+    if variant == "devices_wide":   # the full cache: spreads and a property
+        s = 3
+        svid = np.stack([np.arange(n) % 20, np.arange(n) % 4,
+                         np.arange(n) % 3]).astype(float)
+        sok = np.tile(feas, (s, 1))
+        scnt = rng.integers(0, 6, (s, v)) * (np.arange(v) < 20)
+        sdes = np.full((s, v), np.nan)
+        has_t, weight = np.zeros(s, bool), np.full(s, 1.0 / s)
+        dp = dict(dp_val_id=(np.arange(n) % 7)[None, :].astype(float),
+                  dp_val_ok=(np.arange(n) < real - 3)[None, :],
+                  dp_counts0=rng.integers(0, 3, (1, 8)),
+                  dp_limit=np.array([9.0]))
     if variant == "targets":
         has_t[0] = True
         sdes[0, :18] = 4.0
@@ -552,11 +605,12 @@ def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
         pen[::2] = rng.integers(0, real, k // 2)
         pjob[:real] = rng.random(real) < 0.1
     return kernels.pack_solve_args(
-        avail, used, ptg, pjob, np.array([100.0, 64.0, 300.0, 0.0]), feas,
+        avail, used, ptg, pjob, ask, feas,
         aff, pen, active, svid, sok, scnt, sdes, has_t, weight, -1.0,
-        float(k), False, dh_tg, spread_alg, dp_val_id=dp["dp_val_id"],
-        dp_val_ok=dp["dp_val_ok"], dp_counts0=dp["dp_counts0"],
-        dp_limit=dp["dp_limit"], tie_perm=rng.permutation(n))
+        float(k), False, dh_tg, spread_alg, dev_affinity=dev,
+        dp_val_id=dp["dp_val_id"], dp_val_ok=dp["dp_val_ok"],
+        dp_counts0=dp["dp_counts0"], dp_limit=dp["dp_limit"],
+        tie_perm=rng.permutation(n))
 
 
 # the cached identity of csrc/score.cuh in plain torch: the twins of the
@@ -695,13 +749,14 @@ def identity_hook(monkeypatch):
 
 
 @pytest.mark.parametrize("variant", ["even", "targets", "worstfit",
-                                     "distinct", "penalty"])
+                                     "distinct", "penalty", "devices",
+                                     "devices_wide"])
 def test_cached_identity_equals_the_full_score_at_every_step(variant,
                                                              monkeypatch):
     """B9's and B11's cached terms + value-table lookups + tree + division
     give score_nodes_ref's scores bit for bit at every step of the plain
-    scan's carry (csrc/score.cuh states why), on five cfg3-like
-    fixtures at 256 nodes and K 32."""
+    scan's carry (csrc/score.cuh states why), on seven cfg3-like
+    fixtures at 256 nodes and K 32, two of them with device columns."""
     packed = [torch.from_numpy(a) for a in _identity_fixture(variant)]
     seen = identity_hook(monkeypatch)
     got = kernels.solve_task_group_fused(*packed)
