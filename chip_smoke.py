@@ -109,6 +109,44 @@ Phases (any failure raises and exits non-zero):
               live, no node over capacity, no eval blocked), every alloc on
               a node its constraints admit, B1 once a service launch;
               prints the plan rejection rate.
+   lifecycle -- the allocation lifecycle through the port's Server
+              under "tpu-binpack" (24 workers, the incremental feed on):
+              C2M's 10,240 nodes and 64 service jobs x 4,000 allocs (cpu
+              50, mem 32) placed by B1 into AllocBlocks, the last job
+              tolerating disconnects for 300 s; then seven steps, each
+              ending on a bounded wait_for_idle: 32 loaded nodes marked
+              down (their allocs lost and replaced), 32 others drained and
+              every alloc on them migrated (the caller plays the
+              drainer), 2,000 allocs of 8 jobs reported failed an hour ago
+              and rescheduled at once with their old nodes in B9's penalty
+              column, 4 jobs moved to cpu 64 with max_parallel 1,000 and
+              rolled by deployment-watcher evals until a no-op, one job's
+              new version holding 16 canaries until they are reported
+              healthy and promoted, then rolled, one job scaled to 2,000
+              and one to 8,000 (B1 on the carry after B9's replacements),
+              and 16 loaded nodes of the tolerant job disconnected (its
+              allocs unknown with replacements and one
+              max-disconnect-timeout follow-up each), 8 of them back (the
+              originals kept, their replacements stopped). Then a system
+              and a sysbatch job on cfg4's 1,024 nodes through a second
+              Server: 8 nodes drained and 8 marked ineligible keep their
+              allocs, a completed sysbatch run is not rerun, a destructive
+              update of the system job replaces the alloc of every ready
+              node. Gates after every step: the store walked against
+              capacity (0 nodes over), every group at its desired live
+              count, no live alloc on a down, drained or still
+              disconnected node, no eval left blocked; each lost,
+              migrated, failed or disconnected alloc replaced once (a
+              failure's predecessor linked by next_allocation), every live
+              alloc on the current version after the update and the
+              canaries, exactly 16 canaries before promotion, the
+              follow-up evals' kinds and count; at the end the feed's
+              verify exact and no plain version on CUDA. Every B9 and B1
+              launch of the steps is copied and replayed against its plain
+              version (B9 in steps 1-3 and with a nonzero penalty column
+              required), every B4 launch of the feed too. Prints each
+              step's wall, B9 and B1 launches with their times by CUDA
+              events, the applier's nodes_rejected and the span medians.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
               version: 5 restarts x G=16 x N_pad=16,384 in one launch,
               bitwise (the kernel is on no path: B5 draws the same jitter
@@ -305,6 +343,9 @@ alone, then prints their records as one JSON line.
 ``python3 chip_smoke.py --devices`` runs the build, B9 on its variants
 and the config 5 ("devices") and config 2 ("constraints") phases alone,
 then prints their records as one JSON line.
+``python3 chip_smoke.py --lifecycle`` runs the build and the "lifecycle"
+phase alone, then prints its record and its B9 kernel record as JSON
+lines.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21 (the
 feed's sharded twin included), 25 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards (B13's, B14's
@@ -352,14 +393,18 @@ timed window, and ``twin``, its time at the twin's shape on that arm; B15's, the
 16,384 and 65,536 beside one round's torch.sort; B9's adds ``by_d``, its
 times at d = 6 and d = 8 on the device variants; ``solve_task_group_d6``
 is B9 on the config 5 path, its launches there and its replayed launches'
-mean; B1's adds ``constraints_launches``, its launches on the config 2
-path), and the card's name
+mean; ``solve_task_group_lifecycle`` is B9 on the lifecycle path, its
+launches there, the replayed means of its launches with a node penalty
+and ``penalty_launches``; B1's adds ``constraints_launches``, its
+launches on the config 2 path, and B1's and B4's ``lifecycle_launches``,
+theirs on the lifecycle path), and the card's name
 and power limit; the last line is the device summary.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -2183,6 +2228,719 @@ def phase_server_solve(torch, card, harness_wall=None, incr=None):
                                  f"{launched.get(name, 0)} times for {joint} "
                                  f"joint launches")
     return launched, rec
+
+
+# --------------------------------------------------------------------------
+# the lifecycle phase: C2M through the Server, then each step of an
+# allocation's lifecycle (ROADMAP A1c); system and sysbatch on cfg4's nodes
+# --------------------------------------------------------------------------
+
+LC_DOWN = 32            # nodes marked down (their allocs lost)
+LC_DRAIN = 32           # nodes drained, every alloc on them migrated
+LC_FAILED = 2000        # allocs reported failed an hour ago ...
+LC_FAILED_JOBS = 8      # ... spread over this many jobs
+LC_UPDATE_JOBS = 4      # jobs moved to cpu LC_UPDATE_CPU ...
+LC_UPDATE_CPU = 64
+LC_MAX_PARALLEL = 1000  # ... max_parallel destructive updates an eval
+LC_CANARY = 16          # canaries of the canary job's new version
+LC_DISCONNECT = 16      # nodes of the disconnect job disconnected ...
+LC_RECONNECT = 8        # ... and this many of them back
+LC_WINDOW = 300.0       # that job's max_client_disconnect (s)
+LC_SYS_DRAIN = 8        # cfg4 nodes drained and ...
+LC_SYS_INELIGIBLE = 8   # ... marked ineligible under the system jobs
+
+
+class Lifecycle:
+    """The port's Server under "tpu-binpack" with the incremental feed
+    on, and the records of the lifecycle phase's steps: each step's wall,
+    its kernel launches (``_ext.COUNTS``), the B9 and B1 launches it made
+    (their inputs and outputs copied as they are dispatched), the
+    applier's rejections and the span split."""
+
+    def __init__(self, card, device, workers):
+        from nomad_tpu_torch.core.server import Server, ServerConfig
+        from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+
+        self.card = card
+        self.srv = Server(ServerConfig(
+            num_workers=workers, eval_batch_size=1, device=device,
+            sched_config=SchedulerConfiguration(
+                scheduler_algorithm="tpu-binpack"),
+            nack_timeout=900.0, failed_eval_followup_delay=3600.0,
+            failed_eval_unblock_interval=0.5))
+        self.steps = []
+        self.b9, self.b1 = [], []
+        self.b4 = []
+        self.desired = {}
+        self.gone = set()        # nodes no live alloc may sit on
+        self._step = "fill"
+
+    # -- capture --
+
+    @contextlib.contextmanager
+    def capture(self):
+        """B9 swapped where the placer calls it, B1 where the solver
+        service calls it, B4 where the feed and the twin route call it:
+        each launch's inputs and outputs copied (on its stream)."""
+        from nomad_tpu_torch.tensor import placer, solver
+
+        real_b9 = placer.solve_task_group_fused
+        real_b1 = solver.solve_bulk_multi
+
+        def b9(*packed):
+            snap = [t.clone() for t in packed]
+            out = real_b9(*packed)
+            self.b9.append((snap, out.clone(), self._step))
+            return out
+
+        def b1(used, *args, g):
+            before = used.clone()
+            keep = [a.clone() for a in args]
+            out = real_b1(used, *args, g=g)
+            self.b1.append((before, keep, g, out[0].clone(), out[1].clone(),
+                            self._step))
+            return out
+
+        placer.solve_task_group_fused = b9
+        solver.solve_bulk_multi = b1
+        try:
+            with capture_b4(self.b4):
+                yield
+        finally:
+            placer.solve_task_group_fused = real_b9
+            solver.solve_bulk_multi = real_b1
+
+    # -- driving --
+
+    def idle(self, what):
+        """Drain the queue, blocked evals included (a plan the applier
+        rejected in part re-places its remainder), within a bound."""
+        deadline = time.time() + 600.0
+        while True:
+            if not self.srv.wait_for_idle(max(1.0, deadline - time.time()),
+                                          include_delayed=False):
+                raise AssertionError(f"lifecycle {what}: the eval queue did "
+                                     f"not drain: {blocked_report(self.srv)}")
+            if self.srv.blocked.blocked_count() == 0:
+                return
+            if time.time() > deadline:
+                raise AssertionError(f"lifecycle {what}: blocked evals did "
+                                     f"not drain: {blocked_report(self.srv)}")
+            time.sleep(0.05)
+
+    def watch_until_noop(self, jobs, what, max_rounds=12):
+        """The caller plays the deployment watcher: a deployment-watcher
+        eval for each job, until a round submits no plan."""
+        from nomad_tpu_torch import mock
+        from nomad_tpu_torch.structs import enums
+
+        for _ in range(max_rounds):
+            before = self.srv.plan_applier.stats["applied"]
+            for j in jobs:
+                self.srv.create_eval(mock.eval_for(
+                    j, triggered_by=enums.TRIGGER_DEPLOYMENT_WATCHER))
+            self.idle(what)
+            if self.srv.plan_applier.stats["applied"] == before:
+                return
+        raise AssertionError(f"lifecycle {what}: no no-op watcher round in "
+                             f"{max_rounds}")
+
+    def step(self, name, fn):
+        """Run one step: its wall, its launches, its B9/B1 captures, the
+        applier's rejections in it, and the walk of every gate."""
+        from nomad_tpu_torch import _ext
+        from nomad_tpu_torch.obs import TRACER
+
+        self._step = name
+        before = _ext.COUNTS.snapshot()["launches"]
+        rej0 = self.srv.plan_applier.stats["nodes_rejected"]
+        applied0 = self.srv.plan_applier.stats["applied"]
+        TRACER.clear()
+        t_span = time.time()
+        t0 = time.perf_counter()
+        extra = fn() or {}
+        wall = time.perf_counter() - t0
+        after = _ext.COUNTS.snapshot()["launches"]
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] - before[k]}
+        rec = {"step": name, "wall_s": wall, "launches": launched,
+               "applied": self.srv.plan_applier.stats["applied"] - applied0,
+               "nodes_rejected": (self.srv.plan_applier.stats[
+                   "nodes_rejected"] - rej0),
+               "spans": span_split(TRACER.spans(), t_span)}
+        rec.update(extra)
+        rec.update(self.walk(name))
+        self.steps.append(rec)
+        print(f"lifecycle   [{self.card}] {name}: {wall:.3f} s; launches "
+              f"{launched}; applied {rec['applied']}, nodes_rejected "
+              f"{rec['nodes_rejected']}; {extra}")
+        return rec
+
+    # -- gates --
+
+    def walk(self, what) -> dict:
+        """The store walked against capacity: no node over it, no id
+        twice, every job at its desired live count (unknown allocs are
+        not live), and no live alloc on a node in ``gone``."""
+        snap = self.srv.store.snapshot()
+        nodes = list(snap.nodes())
+        row = {n.id: i for i, n in enumerate(nodes)}
+        cap = np.stack([n.available_vec() for n in nodes])
+        usage = np.zeros_like(cap)
+        ids = set()
+        n = 0
+        live = Counter()
+        on_gone = 0
+        for a in snap.allocs():
+            n += 1
+            ids.add(a.id)
+            if a.terminal_status():
+                continue
+            usage[row[a.node_id]] += a.allocated_vec
+            if a.client_status == "unknown":
+                continue
+            live[a.job_id] += 1
+            on_gone += a.node_id in self.gone
+        over = int((usage > cap).any(axis=1).sum())
+        if over or len(ids) != n:
+            raise AssertionError(f"lifecycle {what}: {over} nodes over "
+                                 f"capacity, {n - len(ids)} ids twice")
+        bad = {j: (live[j], w) for j, w in self.desired.items()
+               if live[j] != w}
+        if bad:
+            raise AssertionError(f"lifecycle {what}: live counts off "
+                                 f"(live, desired): "
+                                 f"{dict(list(bad.items())[:4])}")
+        if on_gone:
+            raise AssertionError(f"lifecycle {what}: {on_gone} live allocs "
+                                 f"on down, drained or disconnected nodes")
+        if self.srv.blocked.blocked_count():
+            raise AssertionError(f"lifecycle {what}: evals left blocked: "
+                                 f"{blocked_report(self.srv)}")
+        return {"over_capacity": over, "allocs": n}
+
+    def chain(self, preds, what, linked=False):
+        """Each predecessor replaced once: one alloc names it as
+        previous_allocation; with ``linked`` the predecessor names that
+        alloc as next_allocation (a rescheduled failure). Returns the
+        replacements."""
+        snap = self.srv.store.snapshot()
+        by_prev = {}
+        for a in snap.allocs():
+            if a.previous_allocation:
+                by_prev.setdefault(a.previous_allocation, []).append(a)
+        repl = []
+        for p in preds:
+            got = by_prev.get(p.id, [])
+            if len(got) != 1:
+                raise AssertionError(f"lifecycle {what}: alloc {p.id} has "
+                                     f"{len(got)} replacements")
+            if linked and snap.alloc_by_id(p.id).next_allocation != got[0].id:
+                raise AssertionError(f"lifecycle {what}: alloc {p.id}'s "
+                                     f"next_allocation is not its "
+                                     f"replacement")
+            repl.append(got[0])
+        return repl
+
+
+def lc_loaded(srv, n, exclude=(), job_ids=None):
+    """The ``n`` nodes holding most live allocs (of ``job_ids``, or of
+    any job), ties by node id, none of ``exclude``."""
+    counts = Counter()
+    for a in srv.store.snapshot().allocs():
+        if (not a.terminal_status() and a.node_id not in exclude
+                and (job_ids is None or a.job_id in job_ids)):
+            counts[a.node_id] += 1
+    return sorted(counts, key=lambda nid: (-counts[nid], nid))[:n]
+
+
+def lc_live_on(srv, node_ids):
+    snap = srv.store.snapshot()
+    return [a for nid in node_ids for a in snap.allocs_by_node(nid)
+            if not a.terminal_status()]
+
+
+def lc_client(srv, allocs, status, **fields):
+    upds = []
+    for a in allocs:
+        u = a.copy_for_update()
+        u.client_status = status
+        for k, v in fields.items():
+            setattr(u, k, v)
+        upds.append(u)
+    srv.update_allocs_from_client(upds)
+
+
+def phase_lifecycle(torch, card, device="cuda", n_nodes=N_NODES,
+                    n_jobs=JOBS, k=K, scale=1.0, sys_nodes=None):
+    """The lifecycle phase (ROADMAP A1c) through the port's Server under
+    "tpu-binpack", 24 workers, the incremental feed on: C2M's nodes and
+    jobs (``n_jobs`` x ``k`` allocs of cpu 50, mem 32 placed by B1 into
+    AllocBlocks; the last job tolerates client disconnects for
+    LC_WINDOW s), then seven steps, each ending on a bounded
+    wait_for_idle: nodes marked down, nodes drained and their allocs
+    migrated, failures of an hour ago rescheduled (B9 with the node
+    penalty column), a destructive update with max_parallel, canaries
+    held, promoted and rolled, a scale down and up, and nodes
+    disconnected and half of them reconnected. Then system and sysbatch
+    jobs on cfg4's nodes through a second Server. ``scale`` shrinks the
+    step sizes (a CPU rehearsal). Returns (the launch counts of the
+    steps, the record, the B9 kernel record)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import DrainStrategy, enums
+    from nomad_tpu_torch.structs.alloc import DesiredTransition
+    from nomad_tpu_torch.structs.job import UpdateStrategy
+    from nomad_tpu_torch.tensor import incremental, kernels
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+    from nomad_tpu_torch.tensor.solver import get_service
+
+    def sized(n):
+        return max(1, int(round(n * scale)))
+
+    lc = Lifecycle(card, device, SERVER_WORKERS)
+    srv = lc.srv
+    t_setup = time.perf_counter()
+    mock.build_nodes(srv.store, n_nodes, seed=0)
+    jobs = [mock.service_job(k, cpu=50, mem=32) for _ in range(n_jobs)]
+    discon = jobs[-1]
+    discon.task_groups[0].max_client_disconnect_s = LC_WINDOW
+    with incr_arm("1"), srv:
+        for j in jobs:
+            srv.register_job(j)
+            lc.desired[j.id] = k
+        lc.idle("fill")
+        lc.walk("fill")
+        fill_s = time.perf_counter() - t_setup
+        print(f"lifecycle   setup and fill {fill_s:.2f} s ({n_nodes} nodes, "
+              f"{n_jobs} jobs x {k} allocs, {SERVER_WORKERS} workers)")
+        _ext.COUNTS.reset()
+        with lc.capture():
+            # 1. nodes marked down: their allocs lost and replaced
+            down = lc_loaded(srv, sized(LC_DOWN), job_ids=None,
+                             exclude={a.node_id for a in srv.store.snapshot(
+                             ).allocs_by_job(discon.id)})
+            lost = lc_live_on(srv, down)
+
+            def step_down():
+                srv.mark_nodes_down(down)
+                lc.gone.update(down)
+                lc.idle("down")
+                lc.chain(lost, "down")
+                snap = srv.store.snapshot()
+                if any(snap.alloc_by_id(a.id).client_status != "lost"
+                       for a in lost):
+                    raise AssertionError("lifecycle down: an alloc of a "
+                                         "down node is not lost")
+                return {"nodes": len(down), "lost": len(lost)}
+            lc.step("down", step_down)
+
+            # 2. nodes drained, their allocs migrated (the caller plays
+            # the drainer)
+            drained = lc_loaded(srv, sized(LC_DRAIN), exclude=set(down))
+            moved = lc_live_on(srv, drained)
+
+            def step_drain():
+                for nid in drained:
+                    srv.update_node_drain(nid, DrainStrategy(deadline_s=600))
+                lc.idle("drain")
+                touched = {a.job_id for a in moved}
+                evals = [mock.eval_for(
+                    j, triggered_by=enums.TRIGGER_NODE_DRAIN)
+                    for j in jobs if j.id in touched]
+                srv.update_alloc_desired_transitions(
+                    {a.id: DesiredTransition(migrate=True) for a in moved},
+                    evals)
+                lc.gone.update(drained)
+                lc.idle("drain")
+                lc.chain(moved, "drain")
+                return {"nodes": len(drained), "migrated": len(moved)}
+            lc.step("drain", step_drain)
+
+            # 3. failures of an hour ago, rescheduled now away from their
+            # nodes (the penalty column of B9)
+            fjobs = jobs[8:8 + LC_FAILED_JOBS]
+            per_job = sized(LC_FAILED) // LC_FAILED_JOBS
+            failed = []
+            snap = srv.store.snapshot()
+            for j in fjobs:
+                live = sorted((a for a in snap.allocs_by_job(j.id)
+                               if not a.terminal_status()),
+                              key=lambda a: a.name)
+                stride = max(1, len(live) // per_job)
+                failed.extend(live[::stride][:per_job])
+
+            def step_failed():
+                lc_client(srv, failed, enums.ALLOC_CLIENT_FAILED,
+                          task_finished_at=time.time() - 3600.0)
+                lc.idle("failures")
+                repl = lc.chain(failed, "failures", linked=True)
+                on_old = sum(r.node_id == p.node_id
+                             for r, p in zip(repl, failed))
+                tracked = sum(bool(r.reschedule_tracker
+                                   and r.reschedule_tracker.events)
+                              for r in repl)
+                if tracked != len(repl):
+                    raise AssertionError("lifecycle failures: a replacement "
+                                         "without its reschedule tracker")
+                return {"failed": len(failed), "jobs": len(fjobs),
+                        "on_their_old_node": on_old}
+            lc.step("failures", step_failed)
+
+            # 4. a destructive update with max_parallel, rolled by the
+            # caller's deployment-watcher evals
+            ujobs = jobs[16:16 + LC_UPDATE_JOBS]
+
+            def step_update():
+                new = []
+                for j in ujobs:
+                    j2 = copy.deepcopy(srv.store.snapshot().job_by_id(j.id))
+                    j2.task_groups[0].tasks[0].resources.cpu = LC_UPDATE_CPU
+                    j2.task_groups[0].update = UpdateStrategy(
+                        max_parallel=sized(LC_MAX_PARALLEL))
+                    srv.register_job(j2)
+                    new.append(j2)
+                lc.idle("update")
+                lc.watch_until_noop(new, "update")
+                return lc_versions(srv, ujobs, "update")
+            lc.step("update", step_update)
+
+            # 5. canaries held until promotion, then rolled
+            cjob = jobs[20]
+
+            def step_canary():
+                j2 = copy.deepcopy(srv.store.snapshot().job_by_id(cjob.id))
+                j2.task_groups[0].tasks[0].config = {"command": "/bin/new"}
+                j2.task_groups[0].update = UpdateStrategy(
+                    canary=LC_CANARY, max_parallel=sized(LC_MAX_PARALLEL))
+                srv.register_job(j2)
+                lc.idle("canary")
+                lc.watch_until_noop([j2], "canary hold")
+                snap = srv.store.snapshot()
+                job = snap.job_by_id(cjob.id)
+                live = [a for a in snap.allocs_by_job(cjob.id)
+                        if not a.terminal_status()]
+                canaries = [a for a in live if a.canary]
+                old = [a for a in live if a.job_version != job.version]
+                if len(canaries) != LC_CANARY or len(old) != k:
+                    raise AssertionError(
+                        f"lifecycle canary: {len(canaries)} canaries and "
+                        f"{len(old)} old allocs before promotion, want "
+                        f"{LC_CANARY} and {k}")
+                lc_client(srv, canaries, enums.ALLOC_CLIENT_RUNNING,
+                          deployment_status={"healthy": True})
+                dep = snap.latest_deployment_by_job(cjob.id)
+                srv.promote_deployment(dep.id)
+                lc.idle("canary")
+                lc.watch_until_noop([job], "canary roll")
+                out = lc_versions(srv, [cjob], "canary")
+                out["canaries"] = len(canaries)
+                return out
+            lc.step("canary", step_canary)
+
+            # 6. one job scaled down to k / 2, another up to 2 k (B1 on
+            # the carry after B9's replacements)
+            sjobs = jobs[21:23]
+
+            def step_scale():
+                for j, count in zip(sjobs, (k // 2, 2 * k)):
+                    srv.scale_job(j.id, j.task_groups[0].name, count)
+                    lc.desired[j.id] = count
+                lc.idle("scale")
+                return {"counts": [lc.desired[j.id] for j in sjobs]}
+            lc.step("scale", step_scale)
+
+            # 7. nodes of the disconnect-tolerant job disconnected, then
+            # half of them back
+            cut = lc_loaded(srv, sized(LC_DISCONNECT), exclude=lc.gone,
+                            job_ids={discon.id})
+            back = cut[:max(1, sized(LC_RECONNECT))]
+            gone_for_good = [n for n in cut if n not in back]
+
+            def step_disconnect():
+                tolerant = [a for a in lc_live_on(srv, cut)
+                            if a.job_id == discon.id]
+                others = [a for a in lc_live_on(srv, cut)
+                          if a.job_id != discon.id]
+                srv.mark_nodes_down(cut)
+                lc.gone.update(cut)
+                lc.idle("disconnect")
+                snap = srv.store.snapshot()
+                if any(snap.node_by_id(n).status != "disconnected"
+                       for n in cut):
+                    raise AssertionError("lifecycle disconnect: a node of "
+                                         "the tolerant job is not "
+                                         "disconnected")
+                if any(snap.alloc_by_id(a.id).client_status != "unknown"
+                       for a in tolerant):
+                    raise AssertionError("lifecycle disconnect: a tolerant "
+                                         "alloc is not unknown")
+                repl = lc.chain(tolerant + others, "disconnect")
+                fups = [e for e in snap.evals() if e.wait_until > 0]
+                kinds = Counter(e.triggered_by for e in fups)
+                want_t = {snap.node_by_id(n).status_updated_at + LC_WINDOW
+                          for n in cut}
+                if (kinds != Counter({enums.TRIGGER_MAX_DISCONNECT_TIMEOUT:
+                                      len(tolerant)})
+                        or not {e.wait_until for e in fups} <= want_t):
+                    raise AssertionError(f"lifecycle disconnect: follow-up "
+                                         f"evals {dict(kinds)}, want "
+                                         f"{len(tolerant)} max-disconnect-"
+                                         f"timeout at the window's end")
+                for nid in back:
+                    srv.update_node_status(nid, enums.NODE_STATUS_READY)
+                lc.gone.difference_update(back)
+                lc.idle("reconnect")
+                snap = srv.store.snapshot()
+                kept = [a for a in tolerant if a.node_id in back]
+                stale = [r for r, p in zip(repl, tolerant + others)
+                         if p.node_id in back and p.job_id == discon.id]
+                if any(snap.alloc_by_id(a.id).desired_status != "run"
+                       for a in kept) or any(
+                        snap.alloc_by_id(r.id).desired_status != "stop"
+                        for r in stale):
+                    raise AssertionError("lifecycle reconnect: an original "
+                                         "stopped or its replacement kept")
+                lc_client(srv, [snap.alloc_by_id(a.id) for a in kept],
+                          enums.ALLOC_CLIENT_RUNNING)
+                lc.idle("reconnect")
+                return {"nodes": len(cut), "reconnected": len(back),
+                        "unknown": len(tolerant), "lost": len(others),
+                        "kept": len(kept), "replacements_stopped": len(stale),
+                        "followups": len(fups)}
+            lc.step("disconnect", step_disconnect)
+            counts = _ext.COUNTS.snapshot()
+            feed = incremental.feed_for(srv.store)
+            verified = feed.force_verify()
+            feed_stats = feed.stats()
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"lifecycle: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    if not verified:
+        raise AssertionError(f"lifecycle: the feed's verify failed: "
+                             f"{incremental.GLOBAL.violations[-1:]}")
+    launched = counts["launches"]
+    lc.gone = set()
+
+    # the system and sysbatch jobs on cfg4's nodes
+    sys_rec = run_lifecycle_system(torch, card, device,
+                                   sys_nodes or CFG4_NODES, scale)
+
+    # replays: every B9 and B1 launch of the steps against its plain
+    # version (B9 choices and founds exact, scores within SCORE_TOL, and
+    # equal to the path's output; B1 exact), and B4's
+    b9_steps = Counter(c[2] for c in lc.b9)
+    pen = [c for c in lc.b9 if (c[0][1][:, 0] >= 0).any()]
+    if sum(b9_steps[s] for s in ("down", "drain", "failures")) < 1:
+        raise AssertionError(f"lifecycle: B9 did not launch in steps 1-3: "
+                             f"{dict(b9_steps)}")
+    if not pen:
+        raise AssertionError("lifecycle: no B9 launch carried a node "
+                             "penalty")
+    err = 0.0
+    for i, (packed, out, _) in enumerate(lc.b9):
+        got = kernels.solve_task_group_fused(*packed)
+        want = kernels.solve_task_group_fused_ref(*packed)
+        if not (torch.equal(got[:2], want[:2]) and torch.equal(got, out)):
+            raise AssertionError(f"lifecycle: B9 launch {i} differs from "
+                                 f"its plain version or the path's output")
+        err = max(err, score_err(got[2], want[2], f"lifecycle B9 {i}"))
+    for i, (before, args, g, used, cnt, _) in enumerate(lc.b1):
+        u1, c1 = solve_bulk_multi(before.clone(), *args, g=g)
+        u2, c2 = solve_bulk_multi_ref(before.clone(), *args, g=g)
+        if not (torch.equal(u1, u2) and torch.equal(c1, c2)
+                and torch.equal(u1, used) and torch.equal(c1, cnt)):
+            raise AssertionError(f"lifecycle: B1 launch {i} differs from "
+                                 f"its plain version or the path's output")
+    b4 = replay_b4(torch, lc.b4, "lifecycle")
+    timed = {}
+    if device != "cpu":
+        for s in lc.steps:
+            b9s = [c for c in lc.b9 if c[2] == s["step"]]
+            b1s = [c for c in lc.b1 if c[5] == s["step"]]
+            s["b9_ms"] = [cuda_time_ms(
+                torch, lambda _, p=c[0]: kernels.solve_task_group_fused(*p),
+                reps=3, warmup=1) for c in b9s]
+            s["b1_ms"] = [cuda_time_ms(
+                torch, lambda u, c=c: solve_bulk_multi(u, *c[1], g=c[2]),
+                setup=c[0].clone, reps=3, warmup=1) for c in b1s]
+        first = pen[0][0]
+        timed = {
+            "ms": statistics.mean(cuda_time_ms(
+                torch, lambda _, p=c[0]: kernels.solve_task_group_fused(*p),
+                reps=5) for c in pen),
+            "plain_ms": cuda_time_ms(
+                torch, lambda _: kernels.solve_task_group_fused_ref(*first),
+                reps=2, warmup=1)}
+        timed["bound_ms"], timed["bound_by"] = scan_bound(first)
+        timed["ms_per_step"] = timed["ms"] / active_steps(first)
+    rec = {"nodes": n_nodes, "jobs": n_jobs, "allocs": n_jobs * k,
+           "fill_s": fill_s, "steps": lc.steps, "system": sys_rec,
+           "b9_launches_by_step": dict(b9_steps),
+           "b9_penalty_launches": len(pen),
+           "b9_penalty_rows": [int((c[0][1][:, 0] >= 0).sum()) for c in pen],
+           "b9_k": [int(c[0][1].shape[0]) for c in lc.b9],
+           "b1_launches": len(lc.b1), "b4": b4, "feed": feed_stats,
+           "launches": {k: v for k, v in launched.items() if v},
+           "card": card}
+    for s in lc.steps:
+        print(f"lifecycle   [{card}] {s['step']}: wall {s['wall_s']:.3f} s; "
+              f"B9 {s['launches'].get('solve_task_group', 0)} launches "
+              f"(event ms {[round(x, 4) for x in s.get('b9_ms', [])]}), "
+              f"B1 {s['launches'].get('bulk_fill', 0)} "
+              f"(event ms {[round(x, 4) for x in s.get('b1_ms', [])]}); "
+              f"nodes_rejected {s['nodes_rejected']}; span p50 ms "
+              + "; ".join(f"{n} {v['p50_ms']:.3f} ({v['n']})"
+                          for n, v in s["spans"].items()))
+    print(f"lifecycle   [{card}] B9 {len(lc.b9)} launches by step "
+          f"{dict(b9_steps)}, {len(pen)} with a node penalty (rows "
+          f"{rec['b9_penalty_rows']}), replays exact (scores within "
+          f"{SCORE_TOL}, max {err:.3g}); B1 {len(lc.b1)} launches, replays "
+          f"exact; B4 {b4}; the penalty launches {timed}; feed {feed_stats}")
+    kernel = {"name": "solve_task_group_lifecycle", "source":
+              "nomad_tpu_torch/csrc/task_group.cu",
+              "replaces": "nomad_tpu/tensor/kernels.py:448",
+              "launches": launched["solve_task_group"], "max_abs_err": err,
+              "library_ms": None, "penalty_launches": len(pen)}
+    kernel.update(timed)
+    get_service(device).stop()
+    return launched, rec, kernel
+
+
+def lc_versions(srv, jobs, what) -> dict:
+    """Every live alloc of the jobs on its job's current version."""
+    snap = srv.store.snapshot()
+    old = 0
+    for j in jobs:
+        version = snap.job_by_id(j.id).version
+        old += sum(1 for a in snap.allocs_by_job(j.id)
+                   if not a.terminal_status() and a.job_version != version)
+    if old:
+        raise AssertionError(f"lifecycle {what}: {old} live allocs on an "
+                             f"old job version")
+    return {"old_version_live": old}
+
+
+def run_lifecycle_system(torch, card, device, n_nodes, scale):
+    """A system job and a sysbatch job on every one of cfg4's nodes
+    through a second Server; then nodes drained and nodes marked
+    ineligible (their system allocs keep running, as the reference's
+    system_sched.py:80-100 keeps them); a sysbatch run completed is not
+    rerun; then a destructive update of the system job, which replaces
+    the alloc of every ready node and leaves the not-ready ones'."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import DrainStrategy, enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+
+    srv = Server(ServerConfig(
+        num_workers=4, eval_batch_size=1, device=device,
+        sched_config=SchedulerConfiguration(
+            scheduler_algorithm="tpu-binpack"), nack_timeout=900.0))
+    nodes = []
+    for i in range(n_nodes):
+        n = mock.node(id=f"lc-sys-node-{i:04d}", name=f"lc-sys-node-{i:04d}")
+        n.attributes["rack"] = f"r{i % 20}"
+        n.resources.cpu = 16000
+        n.resources.memory_mb = 32768
+        n.compute_class()
+        nodes.append(n)
+    sysj = mock.system_job(id="lc-sys", name="lc-sys")
+    sysj.task_groups[0].tasks[0].resources.cpu = 400
+    sysj.task_groups[0].tasks[0].resources.memory_mb = 128
+    batch = mock.sysbatch_job(id="lc-sysbatch", name="lc-sysbatch")
+    walls = {}
+
+    def idle(what):
+        if not srv.wait_for_idle(300.0, include_delayed=False):
+            raise AssertionError(f"lifecycle system {what}: the eval queue "
+                                 f"did not drain")
+
+    def per_node(job_id):
+        out = Counter()
+        snap = srv.store.snapshot()
+        for a in snap.allocs_by_job(job_id):
+            if not a.terminal_status():
+                out[a.node_id] += 1
+        return out, snap
+
+    with srv:
+        srv.register_nodes(nodes)
+        t0 = time.perf_counter()
+        srv.register_job(sysj)
+        srv.register_job(batch)
+        idle("place")
+        walls["place_s"] = time.perf_counter() - t0
+        for jid in (sysj.id, batch.id):
+            got, _ = per_node(jid)
+            if len(got) != n_nodes or set(got.values()) != {1}:
+                raise AssertionError(f"lifecycle system: {jid} on "
+                                     f"{len(got)} nodes, want one alloc on "
+                                     f"each of {n_nodes}")
+        n_drain = max(1, int(LC_SYS_DRAIN * scale))
+        n_inel = max(1, int(LC_SYS_INELIGIBLE * scale))
+        drained = [n.id for n in nodes[:n_drain]]
+        inel = [n.id for n in nodes[n_drain:n_drain + n_inel]]
+        t0 = time.perf_counter()
+        for nid in drained:
+            srv.update_node_drain(nid, DrainStrategy(deadline_s=600))
+        for nid in inel:
+            srv.update_node_eligibility(nid, enums.NODE_SCHED_INELIGIBLE)
+        idle("drain")
+        _, snap = per_node(batch.id)
+        lc_client(srv, [a for a in snap.allocs_by_job(batch.id)],
+                  enums.ALLOC_CLIENT_COMPLETE)
+        srv.create_eval(mock.eval_for(srv.store.snapshot().job_by_id(
+            batch.id), triggered_by=enums.TRIGGER_NODE_UPDATE))
+        idle("sysbatch rerun")
+        walls["drain_s"] = time.perf_counter() - t0
+        allb = srv.store.snapshot().allocs_by_job(batch.id)
+        if len(allb) != n_nodes:
+            raise AssertionError(f"lifecycle system: sysbatch has "
+                                 f"{len(allb)} allocs after its run "
+                                 f"completed, want {n_nodes} (no rerun)")
+        t0 = time.perf_counter()
+        j2 = copy.deepcopy(srv.store.snapshot().job_by_id(sysj.id))
+        j2.task_groups[0].tasks[0].resources.cpu = 450
+        srv.register_job(j2)
+        idle("update")
+        walls["update_s"] = time.perf_counter() - t0
+        got, snap = per_node(sysj.id)
+        version = snap.job_by_id(sysj.id).version
+        not_ready = set(drained) | set(inel)
+        bad = 0
+        for a in snap.allocs_by_job(sysj.id):
+            if a.terminal_status():
+                continue
+            if a.node_id in not_ready:
+                bad += a.job_version == version
+            else:
+                bad += (a.job_version != version
+                        or not a.previous_allocation)
+        if len(got) != n_nodes or set(got.values()) != {1} or bad:
+            raise AssertionError(f"lifecycle system update: {bad} allocs on "
+                                 f"the wrong version, {len(got)} nodes "
+                                 f"covered")
+        stats = dict(srv.plan_applier.stats)
+    rec = dict(walls, nodes=n_nodes, drained=len(drained),
+               ineligible=len(inel), nodes_rejected=stats["nodes_rejected"],
+               applied=stats["applied"])
+    print(f"lifecycle   [{card}] system and sysbatch on {n_nodes} nodes: "
+          f"placed in {walls['place_s']:.3f} s, {len(drained)} drained and "
+          f"{len(inel)} ineligible kept, sysbatch not rerun "
+          f"({walls['drain_s']:.3f} s), the update {walls['update_s']:.3f} "
+          f"s; nodes_rejected {stats['nodes_rejected']}")
+    return rec
+
+
+def lifecycle_only(torch, card) -> int:
+    """``--lifecycle``: the build and the lifecycle phase alone; its
+    record and its B9 kernel record as JSON lines."""
+    _, rec, kernel = phase_lifecycle(torch, card)
+    print(json.dumps({"lifecycle": rec}))
+    print(json.dumps({"kernels": [kernel]}))
+    print(card)
+    return 0
 
 
 def devices_only(torch, dev, card, rng) -> int:
@@ -5571,6 +6329,8 @@ def main() -> int:
         return server_only(torch, card)
     if sys.argv[1:] == ["--devices"]:
         return devices_only(torch, dev, card, rng)
+    if sys.argv[1:] == ["--lifecycle"]:
+        return lifecycle_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -5592,6 +6352,10 @@ def main() -> int:
     per_eval.append(b9_devices)
     launches, server["constraints"] = phase_constraints(torch, card)
     bulk[2]["constraints_launches"] = launches["bulk_fill"]
+    launches, server["lifecycle"], b9_lifecycle = phase_lifecycle(torch, card)
+    per_eval.append(b9_lifecycle)
+    bulk[2]["lifecycle_launches"] = launches["bulk_fill"]
+    bulk[1]["lifecycle_launches"] = launches["scatter_add"]
     launches, wall, captured = phase_solve_path(torch, card)
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
@@ -5650,7 +6414,8 @@ def main() -> int:
         k["route"] = "cuda"
     extra = ("device_ms", "library_device_ms", "without_clamp",
              "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
-             "by_d", "constraints_launches")
+             "by_d", "constraints_launches", "lifecycle_launches",
+             "penalty_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

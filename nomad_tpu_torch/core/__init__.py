@@ -1,5 +1,6 @@
 """The Server's scheduling core (reference ``nomad_tpu/core``), trimmed
-to the path that places jobs:
+to the paths that place jobs and carry allocations through their
+lifecycle:
 
 - broker.py      -- EvalBroker: priority queues, per-job serialization,
                     ack/nack redelivery, delayed evals
@@ -7,7 +8,9 @@ to the path that places jobs:
 - plan_apply.py  -- PlanQueue + the serialized plan applier (the fit
                     re-check, partial commits)
 - worker.py      -- scheduler workers: dequeue -> snapshot -> process
+- deployments.py -- the canary health rule of the promotion endpoint
 - server.py      -- Server: the wiring and the job / node / eval calls
+                    and the allocation lifecycle's
 
 The reference's ``core/metrics.py`` (``REGISTRY``) lives in ``obs/``.
 """

@@ -8,26 +8,38 @@ broker (``events``) and the incremental usage feed it feeds
 time), on one device: ``ServerConfig.device`` (resolved by
 ``device.resolve``: the card by default, raising without one; the CPU
 only when asked) is threaded down Server -> Worker -> scheduler ->
-``TorchPlacer`` ->
-``tensor.solver.get_service(device)``. The calls it serves:
-``register_job``, ``deregister_job``, ``register_node(s)``,
-``create_eval``; ``wait_for_idle`` for tests and benchmarks. Use it as a
-context manager (``with Server(...) as srv:``): ``stop`` leaves no worker,
-applier, broker or reaper thread running.
+``TorchPlacer`` -> ``tensor.solver.get_service(device)``. The calls it
+serves:
+``register_job``, ``deregister_job``, ``scale_job``,
+``register_node(s)``, ``create_eval``, and the allocation lifecycle's
+calls (reference ``server.py:819-1114``): ``mark_nodes_down`` (down, or
+disconnected where an alloc of the node tolerates it, with a node-update
+eval for every job with live allocs there), ``update_node_status``,
+``update_node_drain``, ``update_node_eligibility``, ``stop_alloc``,
+``update_allocs_from_client`` (a retry-failed-alloc eval a job with a
+failed alloc), ``update_alloc_desired_transitions`` (the drainer's
+write with its evals) and ``promote_deployment``; ``wait_for_idle`` for
+tests and benchmarks. The caller plays the drainer, the deployment
+watcher and the heartbeats. Use it as a context manager (``with
+Server(...) as srv:``): ``stop`` leaves no worker, applier, broker or
+reaper thread running.
 
-Trimmed, and left to ROADMAP A10 (each is an attribute or method of the
-reference the port does not have): the heartbeat manager
-(``heartbeats``, ``heartbeat``, ``heartbeat_batch``, ``mark_node(s)_down``,
-``_restore_heartbeats``), the deployment watcher
-(``deployment_watcher``, ``promote_deployment``, ``fail_deployment``),
-the drainer (``drainer``, ``update_node_drain``), periodic and
-parameterized jobs (``periodic``, ``dispatch_job``), core GC
-(``core_gc``, ``force_gc``), the event broker's direct publishes (the
-bad-node quarantine publishes nothing) and its sizing knobs
+Trimmed (each is an attribute or method of the reference the port does
+not have), and left to ROADMAP A27: the heartbeat manager
+(``heartbeats``, ``heartbeat``, ``heartbeat_batch``,
+``_restore_heartbeats``: ``mark_nodes_down`` skips the reference's
+re-armed-timer check), the deployment watcher
+(``deployment_watcher``, ``fail_deployment``; ``promote_deployment``
+takes a canary's health from its client's ``deployment_status``
+verdict or its task states), the drainer (``drainer``) and core GC
+(``core_gc``, ``force_gc``); and to ROADMAP A10: periodic and
+parameterized jobs (``periodic``, ``dispatch_job``), the event broker's
+direct publishes (the bad-node quarantine publishes nothing) and its
+sizing knobs
 (``event_ring_size``, ``event_shards``: the broker keeps its defaults,
 rings of 4,096 events in 8 shards), the shadow replica
 (``shadow.maybe_attach``, ROADMAP A8), client alloc sync (``alloc_sync``,
-``client_updates``, ``update_allocs_from_client``, ``stop_alloc``),
+``client_updates``: client updates write straight to the store),
 ACLs, identities and variables (``acl_*``, ``encrypter``,
 ``sign_workload_identity``, ``*_variable``), federation and ACL
 replication (``region*``, ``_run_acl_replication``), the overload
@@ -35,7 +47,8 @@ controller (``loadctl``, the ``_tiered`` admission decorator, poison-eval
 quarantine), namespaces, node pools, volumes and service registrations
 (``_check_namespace``, ``upsert_node_pool``, ``register_volume``, ...),
 the scheduler-config replication (``set_scheduler_config``), dry-run
-plans (``plan_job``), job scaling and reverts, and the unbatched
+plans (``plan_job``), job reverts and the scaling bounds and events
+(``scaling`` stanzas, ``append_scaling_event``), and the unbatched
 plan-commit arm (``plan_commit_batching``; the applier always batches,
 see core/plan_apply.py).
 """
@@ -53,6 +66,7 @@ from typing import Dict, List, Optional
 from ..device import DeviceLike, resolve
 from ..state import StateStore
 from ..structs import enums
+from ..structs.alloc import DesiredTransition
 from ..structs.evaluation import Evaluation
 from ..structs.job import Job
 from ..structs.node import Node
@@ -61,6 +75,7 @@ from ..tensor import incremental
 from ..utils.ids import generate_uuid
 from .blocked import BlockedEvals
 from .broker import FAILED_QUEUE, EvalBroker
+from .deployments import alloc_healthy
 from .events import EventBroker
 from .plan_apply import BadNodeTracker, PlanApplier, PlanQueue
 from .worker import Worker
@@ -307,6 +322,135 @@ class Server:
             self.broker.enqueue(ev)
         return ev.id
 
+    def scale_job(self, job_id: str, task_group: str, count: int,
+                  namespace: str = "default") -> str:
+        """Job.Scale: register a new version with the group's count
+        changed, so the scheduler applies it through the count math
+        (reference ``server.py:1096-1114``; its eval is the register's)."""
+        job = self.store.snapshot().job_by_id(job_id, namespace)
+        if job is None or job.stopped():
+            raise KeyError(f"job {job_id} not found")
+        tg = job.lookup_task_group(task_group)
+        if tg is None:
+            raise ValueError(f"task group {task_group!r} not found")
+        if count < 0:
+            raise ValueError("count must be >= 0")
+        updated = _copy.deepcopy(job)
+        updated.lookup_task_group(task_group).count = count
+        return self.register_job(updated)
+
+    # -- deployments --
+
+    def promote_deployment(self, dep_id: str,
+                           groups: Optional[List[str]] = None) -> str:
+        """Deployment.Promote: every selected canary group must have its
+        desired count of healthy canaries; flips ``promoted`` and
+        enqueues a deployment-watcher eval that rolls the old allocs
+        (reference ``server.py:1024-1073``)."""
+        snap = self.store.snapshot()
+        dep = snap.deployment_by_id(dep_id)
+        if dep is None:
+            raise KeyError(f"deployment {dep_id} not found")
+        if not dep.active():
+            raise ValueError(
+                f"deployment {dep_id} is {dep.status}, not promotable")
+        if not dep.requires_promotion():
+            raise ValueError(
+                f"deployment {dep_id} has no canaries awaiting promotion")
+        job = snap.job_by_id(dep.job_id, dep.namespace)
+        if job is None:
+            raise ValueError(f"job {dep.job_id} not found")
+        allocs = [a for a in snap.allocs_by_job(dep.job_id, dep.namespace)
+                  if a.deployment_id == dep.id]
+        now = time.time()
+        upd = _copy.deepcopy(dep)
+        for name, state in upd.task_groups.items():
+            if state.desired_canaries <= 0 or state.promoted:
+                continue
+            if groups is not None and name not in groups:
+                continue
+            healthy = sum(1 for a in allocs
+                          if a.task_group == name and a.canary
+                          and alloc_healthy(a, job, now))
+            if healthy < state.desired_canaries:
+                raise ValueError(
+                    f"group {name!r} has {healthy}/"
+                    f"{state.desired_canaries} healthy canaries; "
+                    "promotion refused")
+            state.promoted = True
+        upd.status_description = "Deployment is promoted"
+        self.store.upsert_deployment(upd)
+        return self.create_eval(Evaluation(
+            id=generate_uuid(), namespace=job.namespace,
+            priority=dep.eval_priority, type=job.type,
+            triggered_by=enums.TRIGGER_DEPLOYMENT_WATCHER, job_id=job.id,
+            deployment_id=dep.id, status=enums.EVAL_STATUS_PENDING,
+            create_time=time.time()))
+
+    # -- allocation calls --
+
+    def stop_alloc(self, alloc_id: str) -> str:
+        """Alloc.Stop: mark the alloc for reschedule and evaluate; it
+        stops where it is and a replacement lands elsewhere. Returns the
+        eval id (reference ``server.py:955-982``)."""
+        snap = self.store.snapshot()
+        alloc = snap.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise KeyError(f"alloc {alloc_id} not found")
+        if alloc.terminal_status():
+            raise ValueError(f"alloc {alloc_id} is already terminal")
+        job = snap.job_by_id(alloc.job_id, alloc.namespace)
+        ev = Evaluation(
+            id=generate_uuid(), namespace=alloc.namespace,
+            priority=job.priority if job else 50,
+            type=job.type if job else enums.JOB_TYPE_SERVICE,
+            triggered_by=enums.TRIGGER_ALLOC_STOP, job_id=alloc.job_id,
+            status=enums.EVAL_STATUS_PENDING)
+        self.update_alloc_desired_transitions(
+            {alloc_id: DesiredTransition(reschedule=True)}, [ev])
+        return ev.id
+
+    def update_alloc_desired_transitions(self, transitions: Dict,
+                                         evals: List[Evaluation] = ()
+                                         ) -> int:
+        """Write desired transitions with their evals in one generation
+        and enqueue the evals: the drainer's mark (reference
+        ``drainer.py:120-145``) and an alloc stop's."""
+        index = self.store.update_alloc_desired_transitions(
+            transitions, list(evals))
+        self.broker.enqueue_all(list(evals))
+        return index
+
+    def update_allocs_from_client(self, updates: List) -> None:
+        """Node.UpdateAlloc: client alloc status sync; a job with a
+        failed alloc gets a retry-failed-alloc eval (reference
+        ``server.py:984-1021``)."""
+        if not updates:
+            return
+        self.store.update_allocs_from_client(updates)
+        snap = self.store.snapshot()
+        seen = set()
+        evals = []
+        for upd in updates:
+            if upd.client_status != enums.ALLOC_CLIENT_FAILED:
+                continue
+            key = (upd.namespace, upd.job_id)
+            if key in seen:
+                continue
+            seen.add(key)
+            job = snap.job_by_id(upd.job_id, upd.namespace)
+            if job is None:
+                continue
+            evals.append(Evaluation(
+                id=generate_uuid(), namespace=job.namespace,
+                priority=job.priority, type=job.type,
+                triggered_by=enums.TRIGGER_RETRY_FAILED_ALLOC,
+                job_id=job.id, status=enums.EVAL_STATUS_PENDING,
+                create_time=time.time()))
+        if evals:
+            self.store.upsert_evals(evals)
+            self.broker.enqueue_all(evals)
+
     # -- node calls --
 
     def register_node(self, node: Node) -> None:
@@ -333,6 +477,56 @@ class Server:
         ready = [n.id for n in nodes if n.ready()]
         if ready:
             self._create_node_evals_batch(ready)
+
+    def update_node_status(self, node_id: str, status: str) -> None:
+        """A node's status flip, with the evals of its jobs (reference
+        ``server.py:819-826``)."""
+        self.store.update_node_status(node_id, status, ts=time.time())
+        if status in (enums.NODE_STATUS_DOWN, enums.NODE_STATUS_DISCONNECTED,
+                      enums.NODE_STATUS_READY):
+            self._create_node_evals_batch([node_id])
+
+    def mark_nodes_down(self, node_ids: List[str]) -> None:
+        """Missed-TTL handler for a batch of nodes (reference
+        ``server.py:835-889``): a node goes ``disconnected`` when a live
+        alloc on it belongs to a group with ``max_client_disconnect``
+        (its allocs turn unknown), else ``down`` (its allocs are lost);
+        one status write a class and one eval pass for the batch."""
+        snap = self.store.snapshot()
+        down: List[str] = []
+        disconnected: List[str] = []
+        for node_id in node_ids:
+            if snap.node_by_id(node_id) is None:
+                continue
+            status = enums.NODE_STATUS_DOWN
+            for alloc in snap.allocs_by_node(node_id):
+                if alloc.terminal_status():
+                    continue
+                job = snap.job_by_id(alloc.job_id, alloc.namespace)
+                tg = job.lookup_task_group(alloc.task_group) if job else None
+                if tg is not None and tg.max_client_disconnect_s is not None:
+                    status = enums.NODE_STATUS_DISCONNECTED
+                    break
+            (down if status == enums.NODE_STATUS_DOWN
+             else disconnected).append(node_id)
+        ts = time.time()
+        for group, status in ((down, enums.NODE_STATUS_DOWN),
+                              (disconnected, enums.NODE_STATUS_DISCONNECTED)):
+            if group:
+                self.store.update_nodes_status(group, status, ts=ts)
+        if down or disconnected:
+            self._create_node_evals_batch(down + disconnected)
+
+    def update_node_drain(self, node_id: str, drain_strategy,
+                          mark_eligible: bool = False) -> None:
+        """Start (or end) a node's drain, with the evals of its jobs
+        (reference ``server.py:896-899``); the caller plays the drainer
+        through ``update_alloc_desired_transitions``."""
+        self.store.update_node_drain(node_id, drain_strategy, mark_eligible)
+        self._create_node_evals_batch([node_id])
+
+    def update_node_eligibility(self, node_id: str, eligibility: str) -> None:
+        self.store.update_node_eligibility(node_id, eligibility)
 
     def _create_node_evals_batch(self, node_ids: List[str]) -> List[str]:
         """One eval a (job, node) pair off one snapshot: the jobs with

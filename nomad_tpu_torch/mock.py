@@ -101,6 +101,14 @@ def system_job(**overrides) -> Job:
     return j
 
 
+def sysbatch_job(**overrides) -> Job:
+    """A system job run once a node (reference ``mock.py:109-113``)."""
+    j = system_job(**overrides)
+    j.type = enums.JOB_TYPE_SYSBATCH
+    j.priority = 50
+    return j
+
+
 def eval_for(j: Job, **overrides) -> Evaluation:
     ev = Evaluation(
         id=generate_uuid(),

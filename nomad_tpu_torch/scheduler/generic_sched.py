@@ -1,30 +1,38 @@
-"""Service + batch scheduler: fresh placements and stops (reference
+"""Service + batch scheduler (reference
 ``nomad_tpu/scheduler/generic_sched.py:31-488``).
 
-Retry loop: reconcile -> open a deployment for a fresh job version ->
-place -> submit plan -> on a partial commit retry against the fresher
-snapshot (zero-progress attempts are capped at 5 for service jobs, 2 for
-batch). Unplaced allocations produce a blocked evaluation. Placements
-commit per request (``commit(req, option)``, with the victims the
-option evicts), on the per-request bulk path per node
-(``commit.commit_many``) or, on the columnar bulk path, as one
-AllocBlock per group (``commit.commit_block``).
+Retry loop: mark the live allocs of down nodes lost -> reconcile -> open
+a deployment for a new job version -> plan the reconciler's stops,
+destructive updates, in-place updates, follow-up annotations and
+disconnect updates -> place -> submit plan -> on a partial commit retry
+against the fresher snapshot (zero-progress attempts are capped at 5
+for service jobs, 2 for batch). Follow-up evals are created once the
+plan lands; unplaced allocations produce a blocked evaluation.
+Placements commit per request (``commit(req, option)``: a replacement
+carries its predecessor, a rescheduled one extends the reschedule
+tracker and links its predecessor's ``next_allocation``, a canary joins
+the deployment's placed canaries; with the victims the option evicts),
+on the per-request bulk path per node (``commit.commit_many``) or, on
+the columnar bulk path, as one AllocBlock per group
+(``commit.commit_block``).
 """
 
 from __future__ import annotations
 
 import copy as _copy
 import time
-from typing import Optional
+from typing import List, Optional
 
 from ..structs import enums
-from ..structs.alloc import AllocBlock, Allocation
+from ..structs.alloc import (AllocBlock, Allocation, RescheduleEvent,
+                             RescheduleTracker)
 from ..structs.deployment import Deployment, DeploymentState
 from ..structs.evaluation import Evaluation
 from ..utils.ids import generate_uuid
 from .context import EvalContext
 from .placer import placer_for_algorithm
-from .reconcile import AllocReconciler
+from .reconcile import AllocReconciler, PlacementRequest
+from .util import tainted_nodes, update_non_terminal_allocs_to_lost
 
 MAX_SERVICE_ATTEMPTS = 5
 MAX_BATCH_ATTEMPTS = 2
@@ -57,6 +65,10 @@ class GenericScheduler:
         self.failed_tg_allocs = {}
         self.queued_allocs = {}
         self.blocked: Optional[Evaluation] = None
+        self.followups: List[Evaluation] = []
+        # per group, the reconciler's desired changes (the dry-run
+        # plan's annotations)
+        self.annotations = {}
 
     def process(self, evaluation: Evaluation) -> None:
         self.eval = evaluation
@@ -84,6 +96,7 @@ class GenericScheduler:
         ev = self.eval
         self.failed_tg_allocs = {}
         self.queued_allocs = {}
+        self.followups = []
         job = self.state.job_by_id(ev.job_id, ev.namespace)
         self.plan = ev.make_plan(job)
         ctx = EvalContext(self.state, self.plan, eval_id=ev.id)
@@ -91,15 +104,26 @@ class GenericScheduler:
             ctx.eligibility.set_job(job)
 
         all_allocs = self.state.allocs_by_job(ev.job_id, ev.namespace)
-        results = AllocReconciler(job, ev.job_id, all_allocs, self.state,
-                                  batch=self.batch).compute()
+        tainted = tainted_nodes(self.state, all_allocs)
+        update_non_terminal_allocs_to_lost(self.plan, tainted, all_allocs)
+        live_job = job if job is not None and not job.stopped() else None
+        latest_dep = (self.state.latest_deployment_by_job(ev.job_id,
+                                                          ev.namespace)
+                      if not self.batch else None)
+        results = AllocReconciler(
+            live_job, ev.job_id, all_allocs, tainted, batch=self.batch,
+            deployment=latest_dep).compute()
+        self.annotations = dict(results.desired_tg_updates)
         self._open_deployment(job, results)
-        for g in results.groups.values():
-            for alloc, desc, client_status in g.stop:
-                self.plan.append_stopped_alloc(alloc, desc, client_status)
+        self._plan_updates(job, results, all_allocs)
 
+        # destructive updates re-place first, then the reconciler's asks
         requests = []
-        for g in results.groups.values():
+        for tg_name, g in results.groups.items():
+            tg = job.lookup_task_group(tg_name) if job is not None else None
+            for alloc in g.destructive_update:
+                requests.append(PlacementRequest(
+                    name=alloc.name, task_group=tg, previous_alloc=alloc))
             requests.extend(g.place)
             if g.bulk_place is not None:
                 requests.append(g.bulk_place)
@@ -126,6 +150,49 @@ class GenericScheduler:
         self._finish_success()
         return True
 
+    def _plan_updates(self, job, results, all_allocs) -> None:
+        """The reconciler's stops and destructive updates as plan stops;
+        in-place updates (the alloc on its node under the new job
+        version, joining the active deployment), follow-up annotations of
+        failed allocs rescheduled later, and disconnecting allocs marked
+        client=unknown as plan allocations (reference
+        ``generic_sched.py:176-232``)."""
+        by_id = None
+        for tg_name, g in results.groups.items():
+            for alloc, desc, client_status in g.stop:
+                self.plan.append_stopped_alloc(alloc, desc, client_status)
+            for alloc in g.destructive_update:
+                self.plan.append_stopped_alloc(
+                    alloc, "alloc is being updated due to job update")
+            tg = job.lookup_task_group(tg_name) if job is not None else None
+            for alloc in g.inplace_update:
+                upd = alloc.copy_for_update()
+                upd.job = job
+                upd.job_version = job.version
+                if (self.deployment is not None and tg is not None
+                        and tg.update is not None
+                        and tg_name in self.deployment.task_groups):
+                    upd.deployment_id = self.deployment.id
+                self.plan.node_allocation.setdefault(
+                    upd.node_id, []).append(upd)
+            self.followups.extend(g.followup_evals)
+            if g.delayed_reschedule and by_id is None:
+                by_id = {a.id: a for a in all_allocs}
+            for alloc_id, feval_id in g.delayed_reschedule.items():
+                orig = by_id.get(alloc_id)
+                if orig is not None:
+                    upd = orig.copy_for_update()
+                    upd.follow_up_eval_id = feval_id
+                    self.plan.node_allocation.setdefault(
+                        upd.node_id, []).append(upd)
+            for alloc in g.disconnecting:
+                upd = alloc.copy_for_update()
+                upd.client_status = enums.ALLOC_CLIENT_UNKNOWN
+                upd.client_description = "client disconnected"
+                upd.follow_up_eval_id = g.disconnect_updates.get(alloc.id, "")
+                self.plan.node_allocation.setdefault(
+                    upd.node_id, []).append(upd)
+
     def _open_deployment(self, job, results) -> None:
         """A new job version with an update stanza and placements opens a
         deployment (reference generic_sched.go:120-175). As there, only a
@@ -149,7 +216,7 @@ class GenericScheduler:
                 if tg.update is None:
                     continue
                 tgr = results.groups.get(tg.name)
-                if tgr is None or not tgr.place:
+                if tgr is None or not (tgr.place or tgr.destructive_update):
                     continue
                 wants_canaries = any(p.canary for p in tgr.place)
                 dep.task_groups[tg.name] = DeploymentState(
@@ -193,7 +260,7 @@ class GenericScheduler:
         def commit(req, option):
             """Per-request commit: a failure coalesces per task group, a
             success appends one Allocation to the plan, after the
-            evictions it needs (reference generic_sched.py:340-342)."""
+            evictions it needs (reference generic_sched.py:288-345)."""
             tg = req.task_group
             if option is None:
                 m = ctx.metrics
@@ -205,9 +272,6 @@ class GenericScheduler:
                 self.queued_allocs[tg.name] = self.queued_allocs.get(
                     tg.name, 0)
                 return
-            if req.canary or req.reschedule or req.previous_alloc is not None:
-                raise NotImplementedError(
-                    "canary and replacement placements: ROADMAP queue A1")
             alloc = Allocation(
                 id=generate_uuid(),
                 eval_id=ev.id,
@@ -229,6 +293,33 @@ class GenericScheduler:
                 metrics=ctx.metrics,
                 allocated_at=now,
             )
+            if req.canary:
+                alloc.canary = True
+                if self.deployment is not None:
+                    # the placement goes on a plan-local copy of the
+                    # deployment (the store's row is shared MVCC state)
+                    if self.plan.deployment is not self.deployment:
+                        self.deployment = _copy.deepcopy(self.deployment)
+                        self.plan.deployment = self.deployment
+                    ds = self.deployment.task_groups.get(tg.name)
+                    if ds is not None:
+                        ds.placed_canaries = (list(ds.placed_canaries)
+                                              + [alloc.id])
+            if req.previous_alloc is not None:
+                prev = req.previous_alloc
+                alloc.previous_allocation = prev.id
+                if req.reschedule:
+                    tracker = RescheduleTracker(
+                        events=list(prev.reschedule_tracker.events)
+                        if prev.reschedule_tracker else [])
+                    tracker.events.append(RescheduleEvent(
+                        reschedule_time=now, prev_alloc_id=prev.id,
+                        prev_node_id=prev.node_id))
+                    alloc.reschedule_tracker = tracker
+                    upd = prev.copy_for_update()
+                    upd.next_allocation = alloc.id
+                    self.plan.node_allocation.setdefault(
+                        upd.node_id, []).append(upd)
             for victim in option.preempted_allocs or ():
                 self.plan.append_preempted_alloc(victim, alloc.id)
             self.plan.append_alloc(alloc)
@@ -319,6 +410,8 @@ class GenericScheduler:
                      preemption_enabled=preemption_enabled, attempt=attempt)
 
     def _finish_success(self) -> None:
+        for f in self.followups:
+            self.planner.create_eval(f)
         if self.failed_tg_allocs:
             self._create_blocked_eval(max_plan=False)
             self._set_status(enums.EVAL_STATUS_COMPLETE,

@@ -1,6 +1,6 @@
 """Scheduler factory (reference ``nomad_tpu/scheduler/scheduler.py``):
-the service and batch schedulers and the system scheduler for fresh
-system jobs; sysbatch is a later slice."""
+the generic scheduler for service and batch jobs, the system scheduler
+for system and sysbatch jobs."""
 
 from __future__ import annotations
 
@@ -13,14 +13,14 @@ def NewScheduler(sched_type: str, state, planner, *, sched_config=None,
     ``planner``; ``device`` is threaded to the placer the scheduler
     builds from its configuration. The system scheduler ranks nodes on
     the host and takes no placer."""
-    if sched_type == enums.JOB_TYPE_SYSTEM:
+    if sched_type in (enums.JOB_TYPE_SYSTEM, enums.JOB_TYPE_SYSBATCH):
         from .system_sched import SystemScheduler
 
-        return SystemScheduler(state, planner, sched_config=sched_config)
+        return SystemScheduler(
+            state, planner, sysbatch=sched_type == enums.JOB_TYPE_SYSBATCH,
+            sched_config=sched_config)
     if sched_type not in (enums.JOB_TYPE_SERVICE, enums.JOB_TYPE_BATCH):
-        raise NotImplementedError(
-            f"scheduler type {sched_type!r}: ROADMAP queue A1 "
-            f"(the Server/Worker slice)")
+        raise ValueError(f"unknown scheduler type {sched_type!r}")
     from .generic_sched import GenericScheduler
 
     return GenericScheduler(state, planner,

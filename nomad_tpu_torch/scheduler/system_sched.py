@@ -1,4 +1,4 @@
-"""System scheduler for a fresh system job (reference
+"""System and sysbatch scheduler (reference
 ``nomad_tpu/scheduler/system_sched.py:20-194``, itself Nomad's
 scheduler_system.go): one alloc of each task group on every feasible
 ready node, each node ranked by the host ``NodeScorer``, which assigns
@@ -6,10 +6,14 @@ the group's ports, device instances and cores on the node and takes the
 preemption arm where the node is full and preemption is enabled; the
 victims ride the plan as evictions.
 
-A job that already has live allocs to stop, migrate or update (tainted
-or lost nodes, a new job version, a removed group, a stopped job) is
-ROADMAP queue A1, and so is sysbatch; both raise. System jobs create no
-blocked evals: failures are recorded on the eval.
+Diff-based, no reconciler: the live allocs of down nodes are marked
+lost; an alloc of a stopped job, of a removed group, or on a node that
+left the job's datacenters or pool stops, while one on a node of the
+pool that is merely not ready (ineligible, draining) keeps running; an
+alloc of an older job version is stopped and replaced on its node. A
+sysbatch job does not rerun a group that completed on a node at the
+current version. System jobs create no blocked evals: failures are
+recorded on the eval.
 """
 
 from __future__ import annotations
@@ -24,14 +28,15 @@ from ..structs.evaluation import Evaluation
 from ..utils.ids import generate_uuid
 from .context import EvalContext
 from .rank import NodeScorer, _class_feasible
-
-UNPORTED_A1 = "ROADMAP queue A1 (the Server/Worker slice)"
+from .util import tainted_nodes, update_non_terminal_allocs_to_lost
 
 
 class SystemScheduler:
-    def __init__(self, state, planner, *, sched_config=None):
+    def __init__(self, state, planner, *, sysbatch: bool = False,
+                 sched_config=None):
         self.state = state
         self.planner = planner
+        self.sysbatch = sysbatch
         self.sched_config = sched_config
         self.eval: Optional[Evaluation] = None
         self.plan = None
@@ -52,22 +57,35 @@ class SystemScheduler:
         self.plan = ev.make_plan(job)
         ctx = EvalContext(self.state, self.plan, eval_id=ev.id)
 
+        all_allocs = self.state.allocs_by_job(ev.job_id, ev.namespace)
+        tainted = tainted_nodes(self.state, all_allocs)
+        update_non_terminal_allocs_to_lost(self.plan, tainted, all_allocs)
+
         stopped = job is None or job.stopped()
         nodes = ([] if stopped else
                  self.state.ready_nodes_in_pool(job.datacenters,
                                                 job.node_pool))
         node_ids = {n.id for n in nodes}
-        groups = {} if stopped else {tg.name: tg for tg in job.task_groups}
-        live = set()
-        for a in self.state.allocs_by_job(ev.job_id, ev.namespace):
-            if a.terminal_status():
+        # the live alloc of each (node, task group)
+        live = {}
+        for a in all_allocs:
+            if not a.terminal_status():
+                live[(a.node_id, a.task_group)] = a
+        groups = set() if job is None else {tg.name for tg in job.task_groups}
+        for (node_id, tg_name), a in live.items():
+            if node_id in tainted:
+                continue  # the lost marking above, or a drain's turn
+            if stopped or tg_name not in groups:
+                self.plan.append_stopped_alloc(a, "alloc not needed")
                 continue
-            if (a.task_group not in groups or a.node_id not in node_ids
-                    or a.job_version != job.version):
-                raise NotImplementedError(
-                    f"system job {ev.job_id!r} has allocs to stop, migrate "
-                    f"or update: {UNPORTED_A1}")
-            live.add((a.node_id, a.task_group))
+            if node_id in node_ids:
+                continue
+            node = self.state.node_by_id(node_id)
+            if (node is not None
+                    and node.in_pool(job.datacenters, job.node_pool)):
+                # not ready (ineligible) but in the pool: it keeps running
+                continue
+            self.plan.append_stopped_alloc(a, "alloc not needed")
 
         if not stopped:
             ctx.eligibility.set_job(job)
@@ -75,13 +93,25 @@ class SystemScheduler:
                 self.sched_config.preemption_enabled_for(job.type)
                 if self.sched_config is not None else True)
             now = time.time()
+            # sysbatch: (node, group) pairs that completed this version
+            done = ({(a.node_id, a.task_group) for a in all_allocs
+                     if a.client_status == enums.ALLOC_CLIENT_COMPLETE
+                     and a.job_version == job.version}
+                    if self.sysbatch else set())
             for tg in job.task_groups:
                 scorer = NodeScorer(ctx, job, tg,
                                     preemption_enabled=preemption_enabled,
                                     current_priority=job.priority)
                 for node in nodes:
-                    if (node.id, tg.name) in live:
-                        continue  # in place and current
+                    existing = live.get((node.id, tg.name))
+                    if existing is not None:
+                        if existing.job_version == job.version:
+                            continue  # in place and current
+                        self.plan.append_stopped_alloc(
+                            existing,
+                            "alloc is being updated due to job update")
+                    if (node.id, tg.name) in done:
+                        continue  # sysbatch work done on this node
                     metrics = ctx.new_metrics()
                     metrics.nodes_evaluated += 1
                     if not _class_feasible(ctx, job, tg, node):
@@ -111,6 +141,8 @@ class SystemScheduler:
                         metrics=metrics,
                         allocated_at=now,
                     )
+                    if existing is not None:
+                        alloc.previous_allocation = existing.id
                     for victim in option.preempted_allocs or ():
                         self.plan.append_preempted_alloc(victim, alloc.id)
                     self.plan.append_alloc(alloc)

@@ -1,24 +1,29 @@
-"""The state store, trimmed to the placement paths (reference
-``nomad_tpu/state/store.py``): nodes, node pools, jobs, evals,
-deployments, alloc blocks (the bulk path's placements) and single
-allocations (the per-eval path's) in MVCC tables, one serialized writer
-and any number of concurrent snapshot readers.
+"""The state store, trimmed to the placement paths and the allocation
+lifecycle (reference ``nomad_tpu/state/store.py``): nodes, node pools,
+jobs, evals, deployments, alloc blocks (the bulk path's placements) and
+single allocations (the per-eval path's) in MVCC tables, one serialized
+writer and any number of concurrent snapshot readers.
 
 For the Server (``core/``): commit listeners called with each published
 generation and its events, each write emitting the reference's kinds
 and payloads (``node-upsert``, ``node-status``, ``node-eligibility``,
-``node-pool-upsert``, ``job-upsert``, ``job-delete``, ``eval-upsert``,
-``deployment-upsert``, ``alloc-upsert``, ``alloc-stop``,
-``alloc-preempt``, ``alloc-block-upsert``), which the Server's unblock
-rules, the event broker and the incremental feed read; the writes the
-port does not have (client updates, GC, node delete, restore) emit
-nothing. Also ``snapshot_min_index`` (the worker's
-and the applier's wait, reference ``worker.py:281``); eval rows; and
-``upsert_plan_results_batch``, many plans' results and their eval
-updates in one generation (the applier's commit round, reference
-``plan_apply.py:653-851``). The reference's plan normalization (jobs
-stripped from allocs for the raft log) has no raft log here to serve
-and is not ported.
+``node-drain``, ``node-pool-upsert``, ``job-upsert``, ``job-delete``,
+``eval-upsert``, ``deployment-upsert``, ``alloc-upsert``,
+``alloc-stop``, ``alloc-preempt``, ``alloc-client-update``,
+``alloc-transition``, ``alloc-block-upsert``), which the Server's
+unblock rules, the event broker and the incremental feed read; the
+writes the port does not have (GC, node delete, restore) are ROADMAP
+A27 and A10. A client update, a transition or a plan's rewrite of an
+AllocBlock position (id ``"<block>.<p>"``) promotes it: the written row
+shadows the block's virtual row in every read, once. Also
+``snapshot_min_index`` (the worker's and the applier's wait, reference
+``worker.py:281``); eval rows; and ``upsert_plan_results_batch``, many
+plans' results and their eval updates in one generation (the applier's
+commit round, reference ``plan_apply.py:653-851``). The reference's plan
+normalization (jobs stripped from allocs for the raft log) and its
+commit-time supersede of a second live alloc in one slot
+(``_supersede_slot_duplicates``, a guard for plans replayed across a
+raft failover) have no raft log here to serve and are not ported.
 
 Write protocol: ``_begin()`` allocates the next generation privately,
 mutations land in version chains at that generation, ``_commit()``
@@ -294,6 +299,8 @@ class StateStore:
         # the usage of the device and core columns the tensor layer adds
         self._node_dev_usage = VersionedTable("node_dev_usage")
 
+        # the time source of the mutators' ``ts`` fallbacks
+        self._clock = time.time
         # bumped on every node-table write; the tensor layer's canonical
         # node-set caches key on it
         self.node_set_version = 0
@@ -354,13 +361,18 @@ class StateStore:
 
     def upsert_nodes(self, nodes: List[Node]) -> int:
         """Nodes in one generation; a re-registered node keeps its
-        create index and usage row."""
+        create index, usage row and drain."""
         with self._write_lock:
             gen, live = self._begin()
             for node in nodes:
                 prev = self._nodes.get_latest(node.id)
                 node.create_index = (prev.create_index if prev is not None
                                      else gen)
+                if (prev is not None and node.drain_strategy is None
+                        and prev.drain_strategy is not None):
+                    # a re-registration does not own the drain
+                    node.drain_strategy = prev.drain_strategy
+                    node.scheduling_eligibility = prev.scheduling_eligibility
                 node.modify_index = gen
                 node._avail_vec = None  # the caller may have mutated it
                 if not node.computed_class:
@@ -391,10 +403,48 @@ class StateStore:
             self._commit(gen, [(event, node)])
             return gen
 
-    def update_node_status(self, node_id: str, status: str) -> int:
+    def update_node_status(self, node_id: str, status: str,
+                           ts: float = None) -> int:
+        ts = ts if ts is not None else self._clock()
+
         def mut(n):
             n.status = status
+            n.status_updated_at = ts
         return self._update_node(node_id, "node-status", mut)
+
+    def update_nodes_status(self, node_ids: List[str], status: str,
+                            ts: float = None) -> int:
+        """Many status flips in one generation (an expiry batch);
+        unknown ids are skipped (reference ``store.py:666``)."""
+        ts = ts if ts is not None else self._clock()
+        with self._write_lock:
+            gen, live = self._begin()
+            events = []
+            for node_id in node_ids:
+                node = self._nodes.get_latest(node_id)
+                if node is None:
+                    continue
+                node = copy.copy(node)
+                node.status = status
+                node.status_updated_at = ts
+                node.modify_index = gen
+                self._nodes.put(node_id, node, gen, live)
+                events.append(("node-status", node))
+            self._bump_node_set(gen)
+            self._commit(gen, events)
+            return gen
+
+    def update_node_drain(self, node_id: str, drain_strategy,
+                          mark_eligible: bool = False) -> int:
+        """Set or clear a node's drain; a drained node turns ineligible
+        (reference ``store.py:717``)."""
+        def mut(n):
+            n.drain_strategy = drain_strategy
+            if drain_strategy is not None:
+                n.scheduling_eligibility = enums.NODE_SCHED_INELIGIBLE
+            elif mark_eligible:
+                n.scheduling_eligibility = enums.NODE_SCHED_ELIGIBLE
+        return self._update_node(node_id, "node-drain", mut)
 
     def update_node_eligibility(self, node_id: str, eligibility: str) -> int:
         def mut(n):
@@ -452,19 +502,20 @@ class StateStore:
             self._commit(gen, [("job-delete", job)])
             return gen
 
-    def upsert_evals(self, evals: List[Evaluation]) -> int:
+    def upsert_evals(self, evals: List[Evaluation], ts: float = None) -> int:
         with self._write_lock:
             gen, live = self._begin()
             for ev in evals:
-                self._put_eval(ev, gen, live)
+                self._put_eval(ev, gen, live, ts)
             self._commit(gen, [("eval-upsert", ev) for ev in evals])
             return gen
 
-    def _put_eval(self, ev: Evaluation, gen: int, live: int) -> None:
+    def _put_eval(self, ev: Evaluation, gen: int, live: int,
+                  ts: float = None) -> None:
         prev = self._evals.get_latest(ev.id)
         ev.create_index = prev.create_index if prev is not None else gen
         ev.modify_index = gen
-        ev.modify_time = time.time()
+        ev.modify_time = ts if ts is not None else self._clock()
         if not ev.create_time:
             ev.create_time = ev.modify_time
         self._evals.put(ev.id, ev, gen, live)
@@ -502,6 +553,106 @@ class StateStore:
                              gen, live)
         self._usage_mat[self._usage_row(node_id)] += delta
 
+    def _usage_apply(self, prev: Optional[Allocation], new: Allocation,
+                     gen: int, live: int) -> None:
+        """Fold one alloc's rewrite into its node's usage rows: only a
+        non-terminal alloc counts, and a rewrite that keeps it counting
+        on the same node with the same vector moves nothing (reference
+        ``store.py:909-930``)."""
+        pc = prev is not None and not prev.terminal_status()
+        nc = not new.terminal_status()
+        if (pc and nc and prev.node_id == new.node_id
+                and np.array_equal(prev.allocated_vec, new.allocated_vec)):
+            return
+        if pc:
+            self._usage_add(prev.node_id, -prev.allocated_vec, gen, live)
+            self._dev_usage_add(prev, -1, gen, live)
+        if nc:
+            self._usage_add(new.node_id, new.allocated_vec, gen, live)
+            self._dev_usage_add(new, +1, gen, live)
+
+    def _latest_alloc(self, alloc_id: str) -> Tuple[Optional[Allocation],
+                                                    bool]:
+        """The latest row of an alloc id and whether it is a block
+        position's virtual row (reference ``store.py:944-951``)."""
+        a = self._allocs.get_latest(alloc_id)
+        if a is not None:
+            return a, False
+        a = _block_alloc(alloc_id, self._alloc_blocks.get_latest)
+        return a, a is not None
+
+    def _count_promoted(self, promoted: Dict[str, int], gen: int,
+                        live: int) -> None:
+        for bid, c in promoted.items():
+            self._promoted.put(bid, (self._promoted.get_latest(bid) or 0) + c,
+                               gen, live)
+
+    def update_allocs_from_client(self, updates: List[Allocation],
+                                  ts: float = None) -> int:
+        """Client status sync (reference ``store.py:978-1004``): each
+        update's client status, description, task states, finish time and
+        deployment health merge into a copy of the latest row; an alloc
+        that turns client-terminal leaves its node's usage. A block
+        position is promoted to a row of its own. Unknown ids are
+        skipped."""
+        with self._write_lock:
+            gen, live = self._begin()
+            ts = ts if ts is not None else self._clock()
+            events = []
+            promoted: Dict[str, int] = {}
+            for upd in updates:
+                existing, virtual = self._latest_alloc(upd.id)
+                if existing is None:
+                    continue
+                merged = copy.copy(existing)
+                merged.client_status = upd.client_status
+                merged.client_description = upd.client_description
+                merged.task_states = upd.task_states or merged.task_states
+                merged.task_finished_at = (upd.task_finished_at
+                                           or merged.task_finished_at)
+                merged.deployment_status = (upd.deployment_status
+                                            or merged.deployment_status)
+                merged.modify_index = gen
+                merged.modify_time = ts
+                self._allocs.put(merged.id, merged, gen, live)
+                if virtual:
+                    bid = merged.id[:merged.id.rfind(BLOCK_SEP)]
+                    promoted[bid] = promoted.get(bid, 0) + 1
+                self._usage_apply(existing, merged, gen, live)
+                events.append(("alloc-client-update", merged))
+            self._count_promoted(promoted, gen, live)
+            self._commit(gen, events)
+            return gen
+
+    def update_alloc_desired_transitions(
+            self, transitions: Dict[str, object],
+            evals: List[Evaluation] = (), ts: float = None) -> int:
+        """Set desired transitions (the drainer's migrate marks, an alloc
+        stop's reschedule) and upsert ``evals`` in the same generation
+        (reference ``store.py:1006-1029``). A transition moves no usage."""
+        with self._write_lock:
+            gen, live = self._begin()
+            events = []
+            promoted: Dict[str, int] = {}
+            for alloc_id, transition in transitions.items():
+                existing, virtual = self._latest_alloc(alloc_id)
+                if existing is None:
+                    continue
+                merged = copy.copy(existing)
+                merged.desired_transition = transition
+                merged.modify_index = gen
+                self._allocs.put(alloc_id, merged, gen, live)
+                if virtual:
+                    bid = alloc_id[:alloc_id.rfind(BLOCK_SEP)]
+                    promoted[bid] = promoted.get(bid, 0) + 1
+                events.append(("alloc-transition", merged))
+            self._count_promoted(promoted, gen, live)
+            for ev in evals:
+                self._put_eval(ev, gen, live, ts)
+                events.append(("eval-upsert", ev))
+            self._commit(gen, events)
+            return gen
+
     # --- deployments ---
 
     def _dev_usage_add(self, alloc: Allocation, sign: int, gen: int,
@@ -536,11 +687,13 @@ class StateStore:
 
     # --- the plan-apply mutation ---
 
-    def upsert_allocs(self, allocs: List[Allocation]) -> int:
+    def upsert_allocs(self, allocs: List[Allocation],
+                      ts: float = None) -> int:
         """Insert or replace single allocations in one generation."""
         with self._write_lock:
             gen, live = self._begin()
-            self._put_allocs(allocs, gen, live)
+            self._put_allocs(allocs, gen, live,
+                             ts if ts is not None else self._clock())
             self._commit(gen, [("alloc-upsert", a) for a in allocs])
             return gen
 
@@ -566,16 +719,17 @@ class StateStore:
         arguments of ``upsert_plan_results``, applied in order."""
         with self._write_lock:
             gen, live = self._begin()
+            ts = self._clock()
             events: list = []
             for p in payloads:
                 stops = p.get("stopped_allocs", ())
                 evictions = p.get("preempted_allocs", ())
-                self._put_allocs(stops, gen, live)
+                self._put_allocs(stops, gen, live, ts)
                 events.extend(("alloc-stop", a) for a in stops)
-                self._put_allocs(evictions, gen, live)
+                self._put_allocs(evictions, gen, live, ts)
                 events.extend(("alloc-preempt", a) for a in evictions)
                 results = p.get("result_allocs", ())
-                fresh = self._put_allocs(results, gen, live)
+                fresh = self._put_allocs(results, gen, live, ts)
                 # the reference's order: rewrites of existing rows, then
                 # first inserts (its bulk insert path, store.py:1193-1206)
                 events.extend(("alloc-upsert", a)
@@ -583,6 +737,7 @@ class StateStore:
                 events.extend(("alloc-upsert", a)
                               for a, f in zip(results, fresh) if f)
                 for block in p.get("alloc_blocks", ()):
+                    block.modify_time = ts
                     self._put_alloc_block(block, gen, live)
                     events.append(("alloc-block-upsert", block))
                 dep = p.get("deployment")
@@ -590,13 +745,13 @@ class StateStore:
                     self._put_deployment(dep, gen, live)
                     events.append(("deployment-upsert", dep))
                 for ev in p.get("evals", ()):
-                    self._put_eval(ev, gen, live)
+                    self._put_eval(ev, gen, live, ts)
                     events.append(("eval-upsert", ev))
             self._commit(gen, events)
             return gen
 
-    def _put_allocs(self, allocs: List[Allocation], gen: int,
-                    live: int) -> List[bool]:
+    def _put_allocs(self, allocs: List[Allocation], gen: int, live: int,
+                    ts: float) -> List[bool]:
         """Single allocations: a new id gets one index entry per node and
         job key (one chunk cell per key per generation); a replaced row
         moves the node's usage by the difference. A write to a block
@@ -604,7 +759,8 @@ class StateStore:
         row in every index (no entry of its own) and replaces its usage.
         Usage, and the device and core rows, count the allocs that are
         not terminal, as the scheduler's proposed view does (reference
-        ``_usage_apply``).
+        ``_usage_apply``). A server-side rewrite keeps the client's status
+        unless it sets one (reference ``_put_alloc``, store.py:953-976).
         Returns, per alloc, whether it was a first insert (no row and no
         block position before)."""
         by_node: Dict[str, list] = {}
@@ -620,14 +776,14 @@ class StateStore:
         promoted: Dict[str, int] = {}
         fresh: List[bool] = []
         for a in allocs:
-            prev = self._allocs.get_latest(a.id)
-            if prev is None:
-                # the block position's virtual row (reference
-                # ``_latest_alloc``, store.py:944-951)
-                prev = _block_alloc(a.id, self._alloc_blocks.get_latest)
-                if prev is not None:
-                    bid = a.id[:a.id.rfind(BLOCK_SEP)]
-                    promoted[bid] = promoted.get(bid, 0) + 1
+            prev, virtual = self._latest_alloc(a.id)
+            if virtual:
+                bid = a.id[:a.id.rfind(BLOCK_SEP)]
+                promoted[bid] = promoted.get(bid, 0) + 1
+            a.modify_time = ts
+            if (prev is not None and prev.client_status
+                    and a.client_status == enums.ALLOC_CLIENT_PENDING):
+                a.client_status = prev.client_status
             a.create_index = prev.create_index if prev is not None else gen
             a.modify_index = gen
             self._allocs.put(a.id, a, gen, live)
@@ -644,9 +800,7 @@ class StateStore:
         for (node_id, _, sign), (vec, n) in usage.items():
             self._usage_add(node_id, vec * (sign * n) if n != 1 or sign < 0
                             else vec, gen, live)
-        for bid, c in promoted.items():
-            self._promoted.put(bid, (self._promoted.get_latest(bid) or 0) + c,
-                               gen, live)
+        self._count_promoted(promoted, gen, live)
         for table, groups in ((self._allocs_by_node, by_node),
                               (self._allocs_by_job, by_job)):
             for key, ids in groups.items():

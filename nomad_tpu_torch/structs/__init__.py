@@ -1,16 +1,20 @@
 """Trimmed copies of the reference's domain structs
-(``nomad_tpu/structs``): only what the bulk and per-eval placement paths read."""
+(``nomad_tpu/structs``): only what the placement paths and the
+allocation lifecycle read."""
 
 from . import enums
-from .alloc import AllocBlock, AllocMetric, Allocation, alloc_name
+from .alloc import (AllocBlock, AllocMetric, Allocation, DesiredTransition,
+                    RescheduleEvent, RescheduleTracker, alloc_name)
 from .constraint import Affinity, Constraint, Spread, SpreadTarget
 from .evaluation import Evaluation
 from .job import Job, Task, TaskGroup
-from .node import Node
+from .node import DrainStrategy, Node
 from .plan import Plan, PlanResult
 from .resources import NodeResources, Resources, comparable
 
 __all__ = ["enums", "AllocBlock", "AllocMetric", "Allocation", "alloc_name",
+           "DesiredTransition", "RescheduleEvent", "RescheduleTracker",
+           "DrainStrategy",
            "Affinity", "Constraint", "Spread", "SpreadTarget", "Evaluation",
            "Job", "Task", "TaskGroup", "Node", "Plan", "PlanResult",
            "NodeResources", "Resources", "comparable"]

@@ -14,6 +14,31 @@ from .resources import comparable
 
 
 @dataclass(slots=True)
+class RescheduleEvent:
+    reschedule_time: float = 0.0
+    prev_alloc_id: str = ""
+    prev_node_id: str = ""
+
+
+@dataclass(slots=True)
+class RescheduleTracker:
+    """History of reschedule attempts, carried and extended through the
+    chain of replacements (reference ``structs/alloc.py:23-28``)."""
+
+    events: List[RescheduleEvent] = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class DesiredTransition:
+    """Server-requested transitions: the drainer's ``migrate`` and an
+    alloc stop's ``reschedule`` (reference ``structs/alloc.py:31-40``)."""
+
+    migrate: bool = False
+    reschedule: bool = False
+    force_reschedule: bool = False
+
+
+@dataclass(slots=True)
 class AllocMetric:
     """Why/how a placement was made."""
 
@@ -71,17 +96,37 @@ class Allocation:
     allocated_cores: List[int] = field(default_factory=list)
     desired_status: str = enums.ALLOC_DESIRED_RUN
     desired_description: str = ""
+    desired_transition: DesiredTransition = field(
+        default_factory=DesiredTransition)
     client_status: str = enums.ALLOC_CLIENT_PENDING
+    client_description: str = ""
+    # client-reported task states and deployment health verdict
+    # ({"healthy": bool}), merged by the store's client updates
+    task_states: Dict[str, object] = field(default_factory=dict)
+    deployment_status: Optional[dict] = None
+    canary: bool = False
+    # the replacement chain: the alloc this one replaces, and the one
+    # that replaced it
+    previous_allocation: str = ""
+    next_allocation: str = ""
+    reschedule_tracker: Optional[RescheduleTracker] = None
+    follow_up_eval_id: str = ""
     metrics: Optional[AllocMetric] = None
     allocated_at: float = 0.0
     preempted_by_allocation: str = ""
+    # when the last task finished: a failure's reschedule clock starts
+    # here, else at modify_time
+    task_finished_at: float = 0.0
+    modify_time: float = 0.0
     create_index: int = 0
     modify_index: int = 0
 
     def copy_for_update(self) -> "Allocation":
         """A shallow copy to rewrite as the alloc's next row (store rows
-        are immutable by convention)."""
-        return copy.copy(self)
+        are immutable by convention); the transition is copied too."""
+        new = copy.copy(self)
+        new.desired_transition = copy.copy(self.desired_transition)
+        return new
 
     def server_terminal(self) -> bool:
         return self.desired_status in (enums.ALLOC_DESIRED_STOP,
@@ -144,6 +189,7 @@ class AllocBlock:
     allocated_vec: np.ndarray = field(default_factory=lambda: comparable())
     mean_score: float = 0.0
     allocated_at: float = 0.0
+    modify_time: float = 0.0
     create_index: int = 0
     modify_index: int = 0
     # node rows the plan applier rejected (never committed)
@@ -215,6 +261,7 @@ class AllocBlock:
                 allocated_vec=self.allocated_vec,
                 metrics=self._shared_metrics(),
                 allocated_at=self.allocated_at,
+                modify_time=self.modify_time,
                 create_index=self.create_index,
                 modify_index=self.modify_index,
             )

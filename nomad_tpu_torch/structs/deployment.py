@@ -1,6 +1,7 @@
 """Deployment and DeploymentState (reference
-``nomad_tpu/structs/deployment.py``): the rollout record a fresh service
-job version with an ``update`` stanza opens."""
+``nomad_tpu/structs/deployment.py``): the rollout record a service job
+version with an ``update`` stanza opens, its canaries held until the
+group is promoted."""
 
 from __future__ import annotations
 
@@ -45,3 +46,8 @@ class Deployment:
     def active(self) -> bool:
         return self.status in (enums.DEPLOYMENT_STATUS_RUNNING,
                                enums.DEPLOYMENT_STATUS_PAUSED)
+
+    def requires_promotion(self) -> bool:
+        """A group still holds unpromoted canaries."""
+        return any(s.desired_canaries > 0 and not s.promoted
+                   for s in self.task_groups.values())

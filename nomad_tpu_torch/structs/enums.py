@@ -1,4 +1,4 @@
-"""String enums of the domain model, the subset the bulk path reads
+"""String enums of the domain model, the subset the port reads
 (reference ``nomad_tpu/structs/enums.py``). Values match the reference's
 wire values."""
 
@@ -29,6 +29,7 @@ ALLOC_CLIENT_RUNNING = "running"
 ALLOC_CLIENT_COMPLETE = "complete"
 ALLOC_CLIENT_FAILED = "failed"
 ALLOC_CLIENT_LOST = "lost"
+ALLOC_CLIENT_UNKNOWN = "unknown"
 
 EVAL_STATUS_BLOCKED = "blocked"
 EVAL_STATUS_PENDING = "pending"
@@ -44,10 +45,16 @@ DEPLOYMENT_STATUS_CANCELLED = "cancelled"
 
 TRIGGER_JOB_REGISTER = "job-register"
 TRIGGER_JOB_DEREGISTER = "job-deregister"
+TRIGGER_NODE_DRAIN = "node-drain"
 TRIGGER_NODE_UPDATE = "node-update"
+TRIGGER_ALLOC_STOP = "alloc-stop"
+TRIGGER_DEPLOYMENT_WATCHER = "deployment-watcher"
 TRIGGER_FAILED_FOLLOW_UP = "failed-follow-up"
 TRIGGER_MAX_PLANS = "max-plan-attempts"
+TRIGGER_RETRY_FAILED_ALLOC = "alloc-failure"
 TRIGGER_QUEUED_ALLOCS = "queued-allocs"
+TRIGGER_SCALING = "job-scaling"
+TRIGGER_MAX_DISCONNECT_TIMEOUT = "max-disconnect-timeout"
 
 CONSTRAINT_DISTINCT_PROPERTY = "distinct_property"
 CONSTRAINT_DISTINCT_HOSTS = "distinct_hosts"

@@ -19,6 +19,7 @@ class Evaluation:
     triggered_by: str = enums.TRIGGER_JOB_REGISTER
     job_id: str = ""
     node_id: str = ""
+    deployment_id: str = ""
     status: str = enums.EVAL_STATUS_PENDING
     status_description: str = ""
     wait_until: float = 0.0              # delayed evals (the broker's heap)

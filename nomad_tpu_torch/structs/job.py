@@ -1,5 +1,5 @@
-"""Job / TaskGroup / Task, trimmed to what the bulk path reads
-(reference ``nomad_tpu/structs/job.py``)."""
+"""Job / TaskGroup / Task, trimmed to what the placement paths and the
+reconciler read (reference ``nomad_tpu/structs/job.py``)."""
 
 from __future__ import annotations
 
@@ -23,11 +23,12 @@ class ReschedulePolicy:
 
 @dataclass(slots=True)
 class UpdateStrategy:
-    """Rolling-update / deployment strategy. A fresh job version whose
-    groups carry one opens a Deployment; canaries are not modelled yet
-    and raise in the reconciler."""
+    """Rolling-update / deployment strategy: a job version whose groups
+    carry one opens a Deployment, ``max_parallel`` paces destructive
+    updates an eval, ``canary`` holds the old allocs until promotion."""
 
     max_parallel: int = 1
+    min_healthy_time_s: float = 10.0
     progress_deadline_s: float = 600.0
     auto_revert: bool = False
     auto_promote: bool = False
@@ -47,6 +48,7 @@ class MigrateStrategy:
 @dataclass(slots=True)
 class EphemeralDisk:
     size_mb: int = 300
+    migrate: bool = False
 
 
 @dataclass(slots=True)
@@ -54,6 +56,8 @@ class Task:
     name: str = "task"
     driver: str = "mock"
     config: Dict[str, object] = field(default_factory=dict)
+    env: Dict[str, str] = field(default_factory=dict)
+    user: str = ""
     resources: Resources = field(default_factory=Resources)
     constraints: List[Constraint] = field(default_factory=list)
     affinities: List[Affinity] = field(default_factory=list)
@@ -75,6 +79,9 @@ class TaskGroup:
     ephemeral_disk: EphemeralDisk = field(default_factory=EphemeralDisk)
     networks: List[NetworkResource] = field(default_factory=list)
     volumes: Dict[str, object] = field(default_factory=dict)
+    # an alloc on a node that stops heartbeating goes "unknown" for this
+    # long (with a replacement) before it is lost; None: lost at once
+    max_client_disconnect_s: Optional[float] = None
 
     def combined_resources(self) -> Resources:
         """Sum of task asks plus the group ephemeral disk: what one

@@ -13,6 +13,13 @@ from .resources import R_PORTS, NodeReservedResources, NodeResources
 
 
 @dataclass(slots=True)
+class DrainStrategy:
+    """Node drain spec (reference ``structs/node.py:15``)."""
+
+    deadline_s: float = 0.0
+
+
+@dataclass(slots=True)
 class Node:
     """A machine in the cluster. ``attributes`` and ``meta`` are flat
     string maps addressed from constraints as "${attr.x}" / "${meta.x}"."""
@@ -29,7 +36,10 @@ class Node:
     drivers: Dict[str, bool] = field(default_factory=dict)
     status: str = enums.NODE_STATUS_READY
     scheduling_eligibility: str = enums.NODE_SCHED_ELIGIBLE
-    drain_strategy: Optional[object] = None
+    drain_strategy: Optional[DrainStrategy] = None
+    # when the status last changed: a disconnected node's allocs stay
+    # unknown for their window from here
+    status_updated_at: float = 0.0
     create_index: int = 0
     modify_index: int = 0
     computed_class: str = ""

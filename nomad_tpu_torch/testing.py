@@ -1,8 +1,11 @@
 """In-process scheduler harness (reference ``nomad_tpu/testing.py:20-130``,
 itself the port of Nomad's scheduler/testing.go): a real state store and
 a planner that applies plans straight to it (stops, evictions,
-allocations, alloc blocks and the deployment a plan opens), driving the same scheduler -> placer
--> kernels -> plan -> store path the Server's workers drive."""
+allocations, alloc blocks and the deployment a plan opens), driving the
+same scheduler -> placer -> kernels -> plan -> store path the Server's
+workers drive. It keeps the evals a scheduler creates (blocked evals,
+follow-ups with their ``wait_until``) in ``created_evals``; the caller
+plays the deployment watcher and the drainer."""
 
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ class Harness:
                 result_allocs=placements,
                 alloc_blocks=list(plan.alloc_blocks),
                 deployment=plan.deployment, stopped_allocs=stops,
-                preempted_allocs=preemptions)
+                preempted_allocs=preemptions,
+                evals=list(plan.eval_updates))
             result = PlanResult(node_allocation=plan.node_allocation,
                                 node_update=plan.node_update,
                                 node_preemptions=plan.node_preemptions,

@@ -51,6 +51,9 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.core.events, nomad_tpu_torch.state.deltas\n"
         "import nomad_tpu_torch.tensor.incremental\n"
         "import nomad_tpu_torch.scheduler.placer\n"
+        "import nomad_tpu_torch.scheduler.util\n"
+        "import nomad_tpu_torch.scheduler.reconcile\n"
+        "import nomad_tpu_torch.core.deployments\n"
         "from nomad_tpu_torch.core import Server, ServerConfig\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
@@ -84,7 +87,8 @@ def test_no_source_imports_jax_or_the_reference():
     for pkg in ("obs", "core"):
         assert (REPO / "nomad_tpu_torch" / pkg / "__init__.py") in _sources()
     for mod in ("core/events.py", "state/deltas.py", "tensor/incremental.py",
-                "scheduler/placer.py"):
+                "scheduler/placer.py", "scheduler/util.py",
+                "core/deployments.py"):
         assert (REPO / "nomad_tpu_torch" / mod) in _sources()
     assert not bad, bad
 

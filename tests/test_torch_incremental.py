@@ -7,9 +7,10 @@ allow.
 
 - a randomized delta stream (places, stops, evictions, rewrites) folded
   incrementally is bit-exact against a gen-bounded rebuild, and equal to
-  the reference feed's base;
-- an AllocBlock's expansion and a promoted position (its stop) fold as
-  the store counts them;
+  the reference feed's base; so is the stream with client updates
+  (terminal and not) and desired transitions in place of stops;
+- an AllocBlock's expansion and a promoted position (its stop, or a
+  client update of it) fold as the store counts them;
 - a lapped ring forces a resync; a new static of the same layout keeps
   the epoch and a membership change resyncs;
 - the NOMAD_TPU_INCR=0 kill switch restores the exact legacy build;
@@ -23,8 +24,8 @@ allow.
 - a seeded divergence trips the parity check, and the feed repairs by
   resync.
 
-Left out until the port's store has the writes (ROADMAP A10): GC
-(``gc_terminal_allocs``), client updates, node delete, and the restore
+Left out until the port's store has the writes (ROADMAP A10, A27): GC
+(``gc_terminal_allocs``), node delete, and the restore
 sentinel of test_truncation_forces_resync (restore needs
 ``state/persist.py``); and test_node_slot_registry_stability_and_reuse,
 whose ``NodeSlotRegistry`` serves restores and node deletes too.
@@ -223,6 +224,109 @@ def test_block_expansion_and_promotion():
         assert s.feed.force_verify()
         assert s.tracker.violations == []
     assert sides[1].base()[0, 0] == 100.0 and sides[1].base()[1, 0] == 200.0
+
+
+def _client_update(side, aid, status):
+    return side.pkg.Alloc(id=aid, client_status=status)
+
+
+def test_randomized_client_and_transition_stream_is_bit_exact():
+    """The randomized stream of tests/test_incremental_state.py:84-118
+    without its GC op, through both feeds: placements, client-terminal
+    updates (they leave the usage), non-terminal client updates and
+    desired transitions (they move none) and same-usage rewrites."""
+    from nomad_tpu.structs.alloc import DesiredTransition as RefTransition
+
+    from nomad_tpu_torch.structs.alloc import DesiredTransition
+
+    sides = _pair(6)
+    rng = np.random.default_rng(7)
+    live, serial = [], 0
+    for _ in range(80):
+        op = int(rng.integers(0, 5))
+        if op == 0 or not live:                     # place a new alloc
+            serial += 1
+            aid, node_i = f"ia{serial}", int(rng.integers(0, 6))
+            cpu, mem = (int(rng.integers(1, 9)) * 100,
+                        int(rng.integers(1, 9)) * 64)
+            for s in sides:
+                s.store.upsert_allocs([s.alloc(aid, node_i, cpu, mem)])
+            live.append(aid)
+        elif op == 1:                               # client-terminal
+            aid = live.pop(int(rng.integers(0, len(live))))
+            status = ("complete", "failed")[int(rng.integers(0, 2))]
+            for s in sides:
+                s.store.update_allocs_from_client(
+                    [_client_update(s, aid, status)])
+        elif op == 2:                               # client running
+            aid = live[int(rng.integers(0, len(live)))]
+            for s in sides:
+                s.store.update_allocs_from_client(
+                    [_client_update(s, aid, "running")])
+        elif op == 3:                               # a desired transition
+            aid = live[int(rng.integers(0, len(live)))]
+            for s, tr in zip(sides, (RefTransition, DesiredTransition)):
+                s.store.update_alloc_desired_transitions(
+                    {aid: tr(migrate=True)})
+        else:                                       # a rewrite, same usage
+            aid = live[int(rng.integers(0, len(live)))]
+            for s in sides:
+                again = copy.copy(s.store.snapshot().alloc_by_id(aid))
+                again.allocated_vec = again.allocated_vec.copy()
+                s.store.upsert_allocs([again])
+        _check(sides)
+    for s in sides:
+        assert s.feed.force_verify()
+        assert s.tracker.violations == []
+        assert s.feed.stats()["fast_hits"] == 80
+    assert (sides[0].feed.stats()["deltas_applied"]
+            == sides[1].feed.stats()["deltas_applied"])
+
+
+def test_client_update_of_a_block_row():
+    """A client update promotes a block position to a row of its own: it
+    leaves the usage once, shows once in the node and job reads (the
+    block position no more), and a second update or a transition of it
+    moves nothing."""
+    from nomad_tpu.structs.alloc import DesiredTransition as RefTransition
+
+    from nomad_tpu_torch.structs.alloc import DesiredTransition
+
+    sides = _pair(4)
+    for s in sides:
+        assert s.base() is not None
+        vec = np.zeros_like(s.pkg.Alloc().allocated_vec)
+        vec[0], vec[1] = 50.0, 32.0
+        s.store.upsert_plan_results([], alloc_blocks=[s.pkg.Block(
+            id="blk-cu", eval_id="ev-cu", job_id="ij", task_group="web",
+            name_indices=np.arange(8, dtype=np.int64),
+            node_ids=[s.nodes[0].id, s.nodes[1].id],
+            node_names=[s.nodes[0].name, s.nodes[1].name],
+            counts=np.array([3, 5], dtype=np.int64), allocated_vec=vec)])
+    _check(sides)
+    for step in ("failed", "failed", "transition", "running"):
+        for s, tr in zip(sides, (RefTransition, DesiredTransition)):
+            if step == "transition":
+                s.store.update_alloc_desired_transitions(
+                    {"blk-cu.4": tr(migrate=True)})
+            else:
+                s.store.update_allocs_from_client(
+                    [_client_update(s, "blk-cu.1", step)])
+        _check(sides)
+    for s in sides:
+        snap = s.store.snapshot()
+        by_job = [a.id for a in snap.allocs_by_job("ij")]
+        by_node = [a.id for a in snap.allocs_by_node(s.nodes[0].id)]
+        assert sorted(by_job) == [f"blk-cu.{p}" for p in range(8)]
+        assert sorted(by_node) == ["blk-cu.0", "blk-cu.1", "blk-cu.2"]
+        row = snap.alloc_by_id("blk-cu.1")
+        assert row.client_status == "running"
+        assert snap.alloc_by_id("blk-cu.4").desired_transition.migrate
+        assert sum(a.id == "blk-cu.1" for a in snap.allocs()) == 1
+        assert s.feed.force_verify()
+    # failed once: the row left its node's usage; running again is a
+    # client update of a non-terminal row, which re-enters it
+    assert sides[1].base()[0, 0] == 150.0 and sides[1].base()[1, 0] == 250.0
 
 
 def test_truncation_forces_resync():

@@ -261,20 +261,22 @@ def test_unported_shapes_raise_not_implemented(port_service):
     h.process(port_mock.eval_for(big),
               sched_config=port_operator.SchedulerConfiguration())
     assert len(h.store.snapshot().allocs_by_job(big.id)) == 300
-    # a sysbatch job
-    sysbatch = port_mock.system_job()
-    sysbatch.type = "sysbatch"
+    # a sysbatch job places (A1c), on a fresh cluster
+    h = _port_cluster()
+    sysbatch = port_mock.sysbatch_job()
     h.store.upsert_job(sysbatch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A1"):
-        h.process(port_mock.eval_for(sysbatch), sched_config=cfg)
-    # a system job update: its allocs of the old version must be replaced
+    h.process(port_mock.eval_for(sysbatch), sched_config=cfg)
+    assert len(h.store.snapshot().allocs_by_job(sysbatch.id)) == 256
+    # a system job update replaces its allocs of the old version (A1c)
     system = port_mock.system_job()
     h.store.upsert_job(system)
     h.process(port_mock.eval_for(system), sched_config=cfg)
     assert len(h.store.snapshot().allocs_by_job(system.id)) == 256
     h.store.upsert_job(system)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A1"):
-        h.process(port_mock.eval_for(system), sched_config=cfg)
+    h.process(port_mock.eval_for(system), sched_config=cfg)
+    allocs = h.store.snapshot().allocs_by_job(system.id)
+    assert len(allocs) == 512
+    assert sum(not a.terminal_status() for a in allocs) == 256
     assert port_service.stats["launches"] == 0
 
 

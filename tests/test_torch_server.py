@@ -3,9 +3,14 @@ test_core_server.py::TestBroker and test_e2e_pipeline.py::TestDequeueBatch
 through both packages' brokers; the Server end to end on the CPU
 (register, deregister, a blocked eval that a new node unblocks); the
 reference Server's per-job fingerprint (one worker, one eval a dequeue,
-pinned ids) under "tpu-binpack" and "tpu-solve"; and racing workers
-whose plans the applier re-checks."""
+pinned ids) under "tpu-binpack" and "tpu-solve"; racing workers whose
+plans the applier re-checks; and the allocation lifecycle's endpoints
+(nodes down, a drain, failed client updates, an alloc stop, a promoted
+canary deployment, scaling, a disconnect and reconnect) through both
+packages' Servers with equal rows, then down, drain and failures on four
+workers with the incremental feed on."""
 
+import copy
 import itertools
 import threading
 import time
@@ -19,6 +24,11 @@ from nomad_tpu import mock as ref_mock
 from nomad_tpu.core import broker as ref_broker
 from nomad_tpu.core import server as ref_server
 from nomad_tpu.scheduler import generic_sched as ref_generic
+from nomad_tpu.scheduler import reconcile as ref_reconcile
+from nomad_tpu.structs import DrainStrategy as RefDrain
+from nomad_tpu.structs.alloc import DesiredTransition as RefTransition
+from nomad_tpu.structs.evaluation import Evaluation as RefEvaluation
+from nomad_tpu.structs.job import UpdateStrategy as RefUpdate
 from nomad_tpu.structs import enums as ref_enums
 from nomad_tpu.structs import operator as ref_operator
 from nomad_tpu.tensor import solver as ref_solver
@@ -29,7 +39,11 @@ from nomad_tpu_torch.core import server as port_server
 from nomad_tpu_torch.obs.metrics import REGISTRY
 from nomad_tpu_torch.obs import TRACER
 from nomad_tpu_torch.scheduler import generic_sched as port_generic
-from nomad_tpu_torch.structs import Spread, enums
+from nomad_tpu_torch.scheduler import reconcile as port_reconcile
+from nomad_tpu_torch.structs import (DesiredTransition, DrainStrategy, Spread,
+                                     enums)
+from nomad_tpu_torch.structs.evaluation import Evaluation
+from nomad_tpu_torch.structs.job import UpdateStrategy
 from nomad_tpu_torch.structs import operator as port_operator
 from nomad_tpu_torch.tensor import incremental as port_incremental
 
@@ -500,3 +514,255 @@ def test_racing_workers_never_oversubscribe(port_service):
     assert 0.0 <= rejected / (placed + rejected) < 1.0
     assert port_service.stats["solves"] >= 8
     assert not any(_ext.COUNTS.snapshot()["plain_on_cuda"].values())
+
+
+# --------------------------------------------------------------------------
+# the allocation lifecycle's endpoints through both packages' Servers
+# --------------------------------------------------------------------------
+
+LC_REF = types.SimpleNamespace(
+    mock=ref_mock, enums=ref_enums, Drain=RefDrain, Transition=RefTransition,
+    Evaluation=RefEvaluation, Update=RefUpdate)
+LC_PORT = types.SimpleNamespace(
+    mock=port_mock, enums=enums, Drain=DrainStrategy,
+    Transition=DesiredTransition, Evaluation=Evaluation, Update=UpdateStrategy)
+ENDPOINTS = ("mark_nodes_down", "drain", "client_failed", "stop_alloc",
+             "promote", "scale", "disconnect_reconnect")
+
+
+def _lc_jobs(pk):
+    """A bulk group (one AllocBlock), a per-request group with a rolling
+    update, and a group that tolerates disconnects."""
+    jobs = []
+    for i, (count, cpu, mem, extra) in enumerate((
+            (300, 100, 64, {}),
+            (40, 200, 128, {"update": pk.Update(max_parallel=8)}),
+            (24, 150, 96, {"max_client_disconnect_s": 300.0}))):
+        j = pk.mock.job(id=f"lc-{i}")
+        tg = j.task_groups[0]
+        tg.count = count
+        tg.tasks[0].resources.cpu = cpu
+        tg.tasks[0].resources.memory_mb = mem
+        for k, v in extra.items():
+            setattr(tg, k, v)
+        jobs.append(j)
+    return jobs
+
+
+def _loaded_nodes(srv, job_id, n):
+    """The ``n`` nodes holding most live allocs of the job (ties by id)."""
+    counts = {}
+    for a in srv.store.snapshot().allocs_by_job(job_id):
+        if not a.terminal_status():
+            counts[a.node_id] = counts.get(a.node_id, 0) + 1
+    return sorted(counts, key=lambda nid: (-counts[nid], nid))[:n]
+
+
+def _by_name(srv, job_id, n=None):
+    allocs = sorted((a for a in srv.store.snapshot().allocs_by_job(job_id)
+                     if not a.terminal_status()), key=lambda a: a.name)
+    return allocs if n is None else allocs[:n]
+
+
+def _client(srv, allocs, status, **fields):
+    upds = []
+    for a in allocs:
+        u = a.copy_for_update()
+        u.client_status = status
+        for k, v in fields.items():
+            setattr(u, k, v)
+        upds.append(u)
+    srv.update_allocs_from_client(upds)
+
+
+def _lc_drive(srv, pk, endpoint):
+    """Drive one lifecycle endpoint on a Server of either package, as its
+    caller (the client, the drainer, the operator, the watcher) would."""
+    e = pk.enums
+
+    def idle():
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+
+    if endpoint == "mark_nodes_down":
+        nodes = _loaded_nodes(srv, "lc-0", 2)
+        if hasattr(srv, "heartbeats"):
+            # the reference's TTL timers fired: an armed node is skipped
+            for nid in nodes:
+                srv.heartbeats.remove(nid)
+        srv.mark_nodes_down(nodes)
+    elif endpoint == "drain":
+        node = _loaded_nodes(srv, "lc-1", 1)[0]
+        srv.update_node_drain(node, pk.Drain(deadline_s=600))
+        idle()
+        on = [a for a in srv.store.snapshot().allocs_by_node(node)
+              if not a.terminal_status()]
+        evals = [pk.Evaluation(
+            id=f"drain-{jid}", namespace="default", priority=50,
+            type=e.JOB_TYPE_SERVICE, triggered_by=e.TRIGGER_NODE_DRAIN,
+            job_id=jid, status=e.EVAL_STATUS_PENDING)
+            for jid in sorted({a.job_id for a in on})]
+        transitions = {a.id: pk.Transition(migrate=True) for a in on}
+        if hasattr(srv, "update_alloc_desired_transitions"):
+            srv.update_alloc_desired_transitions(transitions, evals)
+        else:   # the reference's drainer writes and enqueues
+            srv.store.update_alloc_desired_transitions(transitions, evals)
+            srv.broker.enqueue_all(evals)
+    elif endpoint == "client_failed":
+        _client(srv, _by_name(srv, "lc-1", 20), e.ALLOC_CLIENT_FAILED,
+                task_finished_at=time.time() - 3600)
+    elif endpoint == "stop_alloc":
+        srv.stop_alloc(_by_name(srv, "lc-1", 1)[0].id)
+    elif endpoint == "promote":
+        job = copy.deepcopy(srv.store.snapshot().job_by_id("lc-1"))
+        job.task_groups[0].tasks[0].config = {"command": "/bin/new"}
+        job.task_groups[0].update = pk.Update(canary=2, max_parallel=8)
+        srv.register_job(job)
+        idle()
+        canaries = [a for a in _by_name(srv, "lc-1") if a.canary]
+        assert len(canaries) == 2
+        _client(srv, canaries, e.ALLOC_CLIENT_RUNNING,
+                deployment_status={"healthy": True})
+        idle()
+        dep = srv.store.snapshot().latest_deployment_by_job("lc-1")
+        srv.promote_deployment(dep.id)
+        for i in range(8):
+            idle()
+            srv.create_eval(pk.Evaluation(
+                id=f"watch-{i}", namespace="default", priority=50,
+                type=e.JOB_TYPE_SERVICE,
+                triggered_by=e.TRIGGER_DEPLOYMENT_WATCHER, job_id="lc-1",
+                status=e.EVAL_STATUS_PENDING))
+    elif endpoint == "scale":
+        srv.scale_job("lc-0", "web", 200)
+        idle()
+        srv.scale_job("lc-1", "web", 60)
+    elif endpoint == "disconnect_reconnect":
+        node = _loaded_nodes(srv, "lc-2", 1)[0]
+        srv.update_node_status(node, e.NODE_STATUS_DISCONNECTED)
+        idle()
+        srv.update_node_status(node, e.NODE_STATUS_READY)
+        idle()
+        _client(srv, [a for a in srv.store.snapshot().allocs_by_node(node)
+                      if a.client_status == e.ALLOC_CLIENT_UNKNOWN],
+                e.ALLOC_CLIENT_RUNNING)
+    idle()
+
+
+def _lc_rows(srv, job_ids):
+    snap = srv.store.snapshot()
+    allocs = []
+    for jid in job_ids:
+        for a in snap.allocs_by_job(jid):
+            prev = (snap.alloc_by_id(a.previous_allocation).name
+                    if a.previous_allocation else "")
+            allocs.append((a.name, a.node_name, a.job_version,
+                           a.desired_status, a.client_status, prev,
+                           bool(a.next_allocation), a.canary))
+    evals = sorted((ev.job_id, ev.triggered_by, ev.status,
+                    ev.wait_until > 0) for ev in snap.evals())
+    deps = [(jid, d.job_version, sorted(
+        (g, s.desired_canaries, len(s.placed_canaries), s.promoted)
+        for g, s in d.task_groups.items()))
+        for jid in job_ids
+        for d in [snap.latest_deployment_by_job(jid)] if d is not None]
+    return sorted(allocs), evals, deps
+
+
+@pytest.mark.parametrize("endpoint", ENDPOINTS)
+def test_lifecycle_endpoint_equals_reference(endpoint, monkeypatch,
+                                             port_service):
+    """Each lifecycle endpoint on both packages' Servers (one worker, one
+    eval a dequeue, pinned ids, "tpu-binpack"): the same rows, eval
+    kinds and deployment states. The reference's own drainer and
+    deployment watcher are held off: the caller plays them, as the port
+    asks."""
+    monkeypatch.setenv("NOMAD_TPU_MESH_DEVICES", "1")
+    _pin_ids(monkeypatch)
+    for mod in (ref_reconcile, port_reconcile):
+        counter = itertools.count()
+        monkeypatch.setattr(mod, "generate_uuid", lambda c=counter:
+                            f"{next(c):08x}-fup0-0000-0000-000000000000")
+    ref_svc = ref_solver.BulkSolverService()
+    monkeypatch.setattr(ref_solver, "_service", ref_svc)
+    got = {}
+    try:
+        ref = ref_server.Server(ref_server.ServerConfig(
+            num_workers=1, eval_batch_size=1, heartbeat_ttl=3600,
+            gc_interval=3600, nack_timeout=900.0,
+            sched_config=ref_operator.SchedulerConfiguration(
+                scheduler_algorithm="tpu-binpack")))
+        ref.deployment_watcher.start = lambda: None
+        ref.drainer.start = lambda: None
+        bench.build_nodes(ref.store, 64)
+        records = [node_record(n) for n in ref.store.snapshot().nodes()]
+        with ref:
+            for j in _lc_jobs(LC_REF):
+                ref.register_job(j)
+            assert ref.wait_for_idle(60.0)
+            _lc_drive(ref, LC_REF, endpoint)
+            got["ref"] = (_lc_rows(ref, ["lc-0", "lc-1", "lc-2"]),
+                          {k: ref.plan_applier.stats[k] for k in
+                           ("applied", "nodes_rejected")})
+    finally:
+        ref_svc.stop()
+    srv = _server("tpu-binpack", num_workers=1, eval_batch_size=1,
+                  nack_timeout=900.0)
+    for n in convert.nodes_from_records(records):
+        srv.store.upsert_node(n)
+    with srv:
+        for j in _lc_jobs(LC_PORT):
+            srv.register_job(j)
+        assert srv.wait_for_idle(60.0)
+        _lc_drive(srv, LC_PORT, endpoint)
+        got["port"] = (_lc_rows(srv, ["lc-0", "lc-1", "lc-2"]),
+                       {k: srv.plan_applier.stats[k] for k in
+                        ("applied", "nodes_rejected")})
+    assert over_capacity(srv.store) == []
+    assert got["port"][0][0] == got["ref"][0][0]
+    assert got["port"] == got["ref"]
+
+
+def test_lifecycle_four_workers_with_the_feed(monkeypatch, port_service):
+    """Down, drain and failures on 4 workers with the incremental feed on:
+    every group back at its count, no live alloc on a down or drained
+    node, 0 nodes over capacity and the feed exact against a rebuild."""
+    monkeypatch.setenv("NOMAD_TPU_INCR", "1")
+    with _server(num_workers=4, eval_batch_size=8) as srv:
+        port_mock.build_nodes(srv.store, 128)
+        jobs = [port_mock.service_job(400, cpu=50, mem=32) for _ in range(4)]
+        for j in jobs:
+            srv.register_job(j)
+        assert srv.wait_for_idle(60.0)
+        down = _loaded_nodes(srv, jobs[0].id, 4)
+        srv.mark_nodes_down(down)
+        assert srv.wait_for_idle(60.0)
+        drained = [n for n in _loaded_nodes(srv, jobs[1].id, 8)
+                   if n not in down][:4]
+        for node in drained:
+            srv.update_node_drain(node, DrainStrategy(deadline_s=600))
+        assert srv.wait_for_idle(60.0)
+        on = [a for n in drained
+              for a in srv.store.snapshot().allocs_by_node(n)
+              if not a.terminal_status()]
+        srv.update_alloc_desired_transitions(
+            {a.id: DesiredTransition(migrate=True) for a in on},
+            [port_mock.eval_for(j, triggered_by=enums.TRIGGER_NODE_DRAIN)
+             for j in jobs])
+        assert srv.wait_for_idle(60.0)
+        failed = [a for j in jobs[2:] for a in _by_name(srv, j.id, 60)]
+        _client(srv, failed, enums.ALLOC_CLIENT_FAILED,
+                task_finished_at=time.time() - 3600)
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        snap = srv.store.snapshot()
+        gone = set(down) | set(drained)
+        for j in jobs:
+            live = [a for a in snap.allocs_by_job(j.id)
+                    if not a.terminal_status()]
+            assert len(live) == 400
+            assert not any(a.node_id in gone for a in live)
+        repl = [a for a in snap.allocs() if a.previous_allocation]
+        assert len(repl) >= len(on) + len(failed)
+        assert all(snap.alloc_by_id(a.id).next_allocation
+                   for a in failed)
+        assert over_capacity(srv.store) == []
+        assert port_incremental.feed_for(srv.store).force_verify()
