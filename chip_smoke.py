@@ -111,7 +111,7 @@ Phases (any failure raises and exits non-zero):
               prints the plan rejection rate.
    lifecycle -- the allocation lifecycle through the port's Server
               under "tpu-binpack" (24 workers, the incremental feed on):
-              C2M's 10,240 nodes and 64 service jobs x 4,000 allocs (cpu
+              C2M's 10,240 nodes and 32 service jobs x 4,000 allocs (cpu
               50, mem 32) placed by B1 into AllocBlocks, the last job
               tolerating disconnects for 300 s; then seven steps, each
               ending on a bounded wait_for_idle: 32 loaded nodes marked
@@ -147,6 +147,43 @@ Phases (any failure raises and exits non-zero):
               required), every B4 launch of the feed too. Prints each
               step's wall, B9 and B1 launches with their times by CUDA
               events, the applier's nodes_rejected and the span medians.
+   autopilot -- the lifecycle on its own through the port's Server
+              under "tpu-binpack" (24 workers, the feed on) with every
+              actor running: heartbeats (heartbeat_ttl 10 s, the expiry
+              rate at its default; a thread of the phase heartbeats every live
+              node through heartbeat_batch once a second), the deployment
+              watcher, the drainer and core GC (gc_interval 3,600 s: GC
+              runs when the phase calls force_gc). C2M's 10,240 nodes,
+              half with the bridge, a quarter with the calico CNI plugin,
+              host volume "data" read-write on half and read-only on an
+              eighth, four zones; 32 batch jobs x 4,000 (B1), 8 service
+              jobs x 500 writing "data", 4 x 500 in bridge mode, 2 x 500
+              in cni/calico, 16 single-writer CSI jobs of count 1 (a
+              volume a zone) and one reader job x 256 on a
+              multi-node-reader volume. The phase plays the clients
+              (running and healthy, failed, complete). Steps: silence (32
+              nodes, one holding a CSI writer, stop heartbeating: exactly
+              they are marked down, their allocs replaced, the volume's
+              one live writer in its zone), drain (32 nodes, 30 s
+              deadline, migrate.max_parallel 2 on the service groups,
+              paced by the drainer), auto-promote (4 jobs, 2 canaries
+              each), auto-revert (2 jobs' bad canaries fail, the watcher
+              reverts), progress deadline (3 s, no health report), GC (16
+              batch jobs deregistered and completed, force_gc drops their
+              allocs and blocks, the jobs and evals, the down nodes and
+              stale claims; the feed's verify exact; then 8 batch jobs x
+              4,000 through B1). Gates: the lifecycle's walk after every
+              step, no node that kept heartbeating marked down (its
+              status and the expiry log), no single-writer volume with
+              two live writers, no drain group past its max_parallel at
+              any sample (taken before each round of the clients' acks)
+              and a paced group at max_parallel 2 at some sample, every
+              drain completed and cleared, the deployments and versions
+              the steps name (every live alloc of a reverted job on the
+              reverted version at its count), no eval blocked; every B9 and B1 launch of the
+              phase replayed against its plain version. Prints each
+              step's wall, launches, spans and the feed's resyncs, twin
+              uploads and flushes beside the node writes.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
               version: 5 restarts x G=16 x N_pad=16,384 in one launch,
               bitwise (the kernel is on no path: B5 draws the same jitter
@@ -346,6 +383,8 @@ then prints their records as one JSON line.
 ``python3 chip_smoke.py --lifecycle`` runs the build and the "lifecycle"
 phase alone, then prints its record and its B9 kernel record as JSON
 lines.
+``python3 chip_smoke.py --autopilot`` runs the build and the "autopilot"
+phase alone, then prints its record as one JSON line.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21 (the
 feed's sharded twin included), 25 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards (B13's, B14's
@@ -396,8 +435,9 @@ is B9 on the config 5 path, its launches there and its replayed launches'
 mean; ``solve_task_group_lifecycle`` is B9 on the lifecycle path, its
 launches there, the replayed means of its launches with a node penalty
 and ``penalty_launches``; B1's adds ``constraints_launches``, its
-launches on the config 2 path, and B1's and B4's ``lifecycle_launches``,
-theirs on the lifecycle path), and the card's name
+launches on the config 2 path, B1's and B4's ``lifecycle_launches``,
+theirs on the lifecycle path, and B1's, B4's and B9's
+``autopilot_launches``, theirs on the autopilot path), and the card's name
 and power limit; the last line is the device summary.
 """
 
@@ -449,6 +489,10 @@ MINI_BATCH = 8
 PATH_PAD = 4096     # the service's N_pad for 2,560 nodes
 # the Server path (nomad_tpu_torch/core) at bench.py run_server's shape
 SERVER_WORKERS = 24       # cfg_c2m (bench.py:428-431)
+# the reference bench's guard (bench.py:200, 1181, 1690) for a caller
+# that never heartbeats: a node's TTL outlasts the run, and core GC runs
+# only when asked
+BENCH_SAFE = {"heartbeat_ttl": 3600.0, "gc_interval": 3600.0}
 # waves of jobs a Server phase times. The service resyncs at the first
 # launch that sees RESYNC_SOLVES (64) solves since the warm-up's resync;
 # two waves are 2 x 64 (C2M) or 2 x 50 (tpu-solve) solves, past 64 by more
@@ -1640,7 +1684,7 @@ SERVER_PHASES = ("eval.queued", "worker.snapshot", "worker.schedule",
                  "worker.tensor_build", "worker.solve_bulk", "solver.wait",
                  "solver.launch", "solver.apply", "plan.submit",
                  "plan.verify", "plan.commit_round", "plan.commit",
-                 "eval.persist")
+                 "eval.persist", "heartbeat.expire")
 
 
 def span_split(spans, t0: float) -> dict:
@@ -1916,7 +1960,7 @@ def _run_server_path(torch, card, what, algorithm, n_nodes, jobs_fn,
         num_workers=workers, eval_batch_size=batch, device="cuda",
         sched_config=SchedulerConfiguration(scheduler_algorithm=algorithm),
         nack_timeout=900.0, failed_eval_followup_delay=3600.0,
-        failed_eval_unblock_interval=0.5))
+        failed_eval_unblock_interval=0.5, **BENCH_SAFE))
     t_setup = time.perf_counter()
     mock.build_nodes(srv.store, n_nodes, seed=0)
     waves = [jobs_fn() for _ in range(WAVES)]
@@ -2235,6 +2279,8 @@ def phase_server_solve(torch, card, harness_wall=None, incr=None):
 # allocation's lifecycle (ROADMAP A1c); system and sysbatch on cfg4's nodes
 # --------------------------------------------------------------------------
 
+LC_JOBS = 32            # C2M's jobs cut from 64 to 32 (the autopilot
+                        # phase takes the time the other half took)
 LC_DOWN = 32            # nodes marked down (their allocs lost)
 LC_DRAIN = 32           # nodes drained, every alloc on them migrated
 LC_FAILED = 2000        # allocs reported failed an hour ago ...
@@ -2250,6 +2296,12 @@ LC_SYS_DRAIN = 8        # cfg4 nodes drained and ...
 LC_SYS_INELIGIBLE = 8   # ... marked ineligible under the system jobs
 
 
+def hold_off_actors(srv):
+    """The caller plays the drainer and the deployment watcher."""
+    srv.deployment_watcher.start = lambda: None
+    srv.drainer.start = lambda: None
+
+
 class Lifecycle:
     """The port's Server under "tpu-binpack" with the incremental feed
     on, and the records of the lifecycle phase's steps: each step's wall,
@@ -2257,19 +2309,27 @@ class Lifecycle:
     (their inputs and outputs copied as they are dispatched), the
     applier's rejections and the span split."""
 
-    def __init__(self, card, device, workers):
+    def __init__(self, card, device, workers, actors=False,
+                 name="lifecycle", **config):
+        """``actors``: the Server's drainer and deployment watcher run;
+        else the caller plays them (held off). ``config`` overrides the
+        bench-safe TTL and GC interval; ``name`` heads the printed
+        lines."""
         from nomad_tpu_torch.core.server import Server, ServerConfig
         from nomad_tpu_torch.structs.operator import SchedulerConfiguration
 
         self.card = card
+        self.name = name
         self.srv = Server(ServerConfig(
             num_workers=workers, eval_batch_size=1, device=device,
             sched_config=SchedulerConfiguration(
                 scheduler_algorithm="tpu-binpack"),
             nack_timeout=900.0, failed_eval_followup_delay=3600.0,
-            failed_eval_unblock_interval=0.5))
+            failed_eval_unblock_interval=0.5, **dict(BENCH_SAFE, **config)))
+        if not actors:
+            hold_off_actors(self.srv)
         self.steps = []
-        self.b9, self.b1 = [], []
+        self.b9, self.b1, self.b11 = [], [], []
         self.b4 = []
         self.desired = {}
         self.gone = set()        # nodes no live alloc may sit on
@@ -2280,12 +2340,15 @@ class Lifecycle:
     @contextlib.contextmanager
     def capture(self):
         """B9 swapped where the placer calls it, B1 where the solver
-        service calls it, B4 where the feed and the twin route call it:
-        each launch's inputs and outputs copied (on its stream)."""
+        service calls it, B11 (the generic bulk scan of a group whose
+        mask is per eval) where the placer calls it, B4 where the feed and
+        the twin route call it: each launch's inputs and outputs copied
+        (on its stream)."""
         from nomad_tpu_torch.tensor import placer, solver
 
         real_b9 = placer.solve_task_group_fused
         real_b1 = solver.solve_bulk_multi
+        real_b11 = placer.solve_bulk
 
         def b9(*packed):
             snap = [t.clone() for t in packed]
@@ -2301,14 +2364,22 @@ class Lifecycle:
                             self._step))
             return out
 
+        def b11(*args, **kw):
+            keep = [a.clone() if hasattr(a, "clone") else a for a in args]
+            out = real_b11(*args, **kw)
+            self.b11.append((keep, dict(kw), out.clone(), self._step))
+            return out
+
         placer.solve_task_group_fused = b9
         solver.solve_bulk_multi = b1
+        placer.solve_bulk = b11
         try:
             with capture_b4(self.b4):
                 yield
         finally:
             placer.solve_task_group_fused = real_b9
             solver.solve_bulk_multi = real_b1
+            placer.solve_bulk = real_b11
 
     # -- driving --
 
@@ -2371,7 +2442,7 @@ class Lifecycle:
         rec.update(extra)
         rec.update(self.walk(name))
         self.steps.append(rec)
-        print(f"lifecycle   [{self.card}] {name}: {wall:.3f} s; launches "
+        print(f"{self.name:<11} [{self.card}] {name}: {wall:.3f} s; launches "
               f"{launched}; applied {rec['applied']}, nodes_rejected "
               f"{rec['nodes_rejected']}; {extra}")
         return rec
@@ -2472,7 +2543,7 @@ def lc_client(srv, allocs, status, **fields):
 
 
 def phase_lifecycle(torch, card, device="cuda", n_nodes=N_NODES,
-                    n_jobs=JOBS, k=K, scale=1.0, sys_nodes=None):
+                    n_jobs=LC_JOBS, k=K, scale=1.0, sys_nodes=None):
     """The lifecycle phase (ROADMAP A1c) through the port's Server under
     "tpu-binpack", 24 workers, the incremental feed on: C2M's nodes and
     jobs (``n_jobs`` x ``k`` allocs of cpu 50, mem 32 placed by B1 into
@@ -2523,6 +2594,8 @@ def phase_lifecycle(torch, card, device="cuda", n_nodes=N_NODES,
             lost = lc_live_on(srv, down)
 
             def step_down():
+                for nid in down:
+                    srv.heartbeats.remove(nid)   # their TTLs fired
                 srv.mark_nodes_down(down)
                 lc.gone.update(down)
                 lc.idle("down")
@@ -2662,6 +2735,8 @@ def phase_lifecycle(torch, card, device="cuda", n_nodes=N_NODES,
                             if a.job_id == discon.id]
                 others = [a for a in lc_live_on(srv, cut)
                           if a.job_id != discon.id]
+                for nid in cut:
+                    srv.heartbeats.remove(nid)   # their TTLs fired
                 srv.mark_nodes_down(cut)
                 lc.gone.update(cut)
                 lc.idle("disconnect")
@@ -2836,7 +2911,9 @@ def run_lifecycle_system(torch, card, device, n_nodes, scale):
     srv = Server(ServerConfig(
         num_workers=4, eval_batch_size=1, device=device,
         sched_config=SchedulerConfiguration(
-            scheduler_algorithm="tpu-binpack"), nack_timeout=900.0))
+            scheduler_algorithm="tpu-binpack"), nack_timeout=900.0,
+        **BENCH_SAFE))
+    hold_off_actors(srv)
     nodes = []
     for i in range(n_nodes):
         n = mock.node(id=f"lc-sys-node-{i:04d}", name=f"lc-sys-node-{i:04d}")
@@ -2931,6 +3008,834 @@ def run_lifecycle_system(torch, card, device, n_nodes, scale):
           f"({walls['drain_s']:.3f} s), the update {walls['update_s']:.3f} "
           f"s; nodes_rejected {stats['nodes_rejected']}")
     return rec
+
+
+# the "autopilot" phase: the Server's lifecycle on its own, at C2M width
+AP_TTL = 10.0             # heartbeat_ttl (s): the largest gap between two
+                          # heartbeat_batch calls was 2.05 s at 5 s (one
+                          # call took 1.04 s on a loaded host)
+AP_BEAT = 1.0             # the phase's heartbeat cadence (s)
+AP_BATCH_JOBS = 32        # batch jobs x AP_BATCH_K (cpu 50, mem 32)
+AP_BATCH_K = 4000
+AP_VOL_JOBS = 8           # service jobs x AP_SVC_K writing host volume data
+AP_BRIDGE_JOBS = 4        # ... in bridge mode
+AP_CNI_JOBS = 2           # ... in cni/calico
+AP_SVC_K = 500
+AP_CSI_JOBS = 16          # single-writer CSI jobs of count 1, a zone each
+AP_READER_K = 256         # the reader job on a multi-node-reader volume
+AP_SILENT = 32            # nodes that stop heartbeating
+AP_DRAIN = 32             # nodes drained ...
+AP_DRAIN_DEADLINE = 30.0  # ... with this deadline (s)
+AP_MIGRATE = 2            # the service groups' migrate.max_parallel
+AP_DRAIN_ROUNDS = 16      # the most drain rounds a drained node needs: a
+                          # group's allocs there over its max_parallel
+                          # (BestFit packs hundreds of one group on a node)
+AP_DRAIN_PACED = 4        # of the drained nodes, those picked for a paced
+                          # group of three or more allocs (where
+                          # max_parallel 2 binds) ...
+AP_DRAIN_PACED_ROUNDS = 48  # ... needing at most this many rounds
+AP_PROMOTE_JOBS = 4       # service jobs updated with canaries ...
+AP_CANARY = 2             # ... this many each, auto_promote
+AP_ROLL = 250             # max_parallel of the updates
+AP_REVERT_JOBS = 2        # bad updates with auto_revert
+AP_DEADLINE = 3.0         # the progress deadline of one job's update (s)
+AP_GC_JOBS = 16           # batch jobs deregistered before force_gc
+AP_NEW_JOBS = 8           # batch jobs x AP_BATCH_K placed after it
+
+
+def ap_nodes(n_nodes: int):
+    """mock.build_nodes' nodes with the autopilot's fingerprints: the
+    bridge on half, the calico CNI plugin on a quarter, host volume
+    "data" read-write on half and read-only on an eighth; ``zone`` (four)
+    is the CSI volumes' topology."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import ClientHostVolumeConfig
+
+    rng = random.Random(0)
+    out = []
+    for i in range(n_nodes):
+        n = mock.node(id=f"ap-node-{i:05d}", name=f"ap-node-{i:05d}")
+        n.attributes["rack"] = f"r{i % 20}"
+        n.attributes["zone"] = f"z{i % 4}"
+        n.resources.cpu = rng.choice([8000, 16000, 32000])
+        n.resources.memory_mb = rng.choice([16384, 32768, 65536])
+        if i % 2 == 0:
+            n.attributes["network.bridge"] = "true"
+            n.host_volumes["data"] = ClientHostVolumeConfig(
+                name="data", path="/srv/data")
+        elif i % 8 == 1:
+            n.host_volumes["data"] = ClientHostVolumeConfig(
+                name="data", path="/srv/data", read_only=True)
+        if i % 4 == 3:
+            n.attributes["plugins.cni.version.calico"] = "3.26"
+        n.compute_class()
+        out.append(n)
+    return out
+
+
+class Beats:
+    """The phase's heartbeat thread: ``heartbeat_batch`` of every node not
+    silenced, about once every AP_BEAT s, on a thread of its own; each
+    call's start and length are kept."""
+
+    def __init__(self, srv, node_ids):
+        import threading
+
+        self.srv = srv
+        self.alive = list(node_ids)
+        self.silent = set()
+        self.calls = []
+        self.errors = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ap-heartbeats")
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def silence(self, node_ids):
+        with self._lock:
+            self.silent.update(node_ids)
+            self.alive = [n for n in self.alive if n not in self.silent]
+
+    def _run(self):
+        while True:
+            with self._lock:
+                ids = list(self.alive)
+            t0 = time.monotonic()
+            try:
+                self.srv.heartbeat_batch(ids)
+            except Exception as e:  # noqa: BLE001 - a gate reads it
+                self.errors.append(repr(e))
+            self.calls.append((t0, time.monotonic() - t0))
+            if self._stop.wait(AP_BEAT):
+                return
+
+    def report(self) -> dict:
+        starts = [t for t, _ in self.calls]
+        gaps = [b - a for a, b in zip(starts, starts[1:])]
+        return {"calls": len(self.calls),
+                "max_gap_s": max(gaps, default=0.0),
+                "max_call_s": max((d for _, d in self.calls), default=0.0),
+                "p50_call_s": (statistics.median(d for _, d in self.calls)
+                               if self.calls else 0.0)}
+
+
+class Clients:
+    """The clients of the autopilot's nodes: every pending alloc of a
+    service job reported running and healthy (a job in ``quiet`` gets no
+    report; its canaries in ``failing`` are reported failed), and every
+    alloc the server stopped on a node that still heartbeats reported
+    complete. A silenced node's client reports nothing."""
+
+    def __init__(self, srv, beats, service_ids):
+        self.srv = srv
+        self.beats = beats
+        self.service = list(service_ids)
+        self.quiet = set()
+        self.failing = set()
+        self.reports = Counter()
+
+    def sync(self, nodes=(), jobs=()):
+        from nomad_tpu_torch.structs import enums
+
+        snap = self.srv.store.snapshot()
+        seen, run, fail, done = set(), [], [], []
+        pool = [a for j in list(self.service) + list(jobs)
+                for a in snap.allocs_by_job(j)]
+        pool += [a for n in nodes for a in snap.allocs_by_node(n)]
+        for a in pool:
+            if a.id in seen or a.node_id in self.beats.silent:
+                continue
+            seen.add(a.id)
+            if a.client_terminal():
+                continue
+            if a.server_terminal():
+                done.append(a)
+            elif a.client_status == enums.ALLOC_CLIENT_PENDING:
+                if a.job_id in self.failing and a.canary:
+                    fail.append(a)
+                elif a.job_id not in self.quiet and a.job_id in self.service:
+                    run.append(a)
+        if run:
+            lc_client(self.srv, run, enums.ALLOC_CLIENT_RUNNING,
+                      deployment_status={"healthy": True})
+        if fail:
+            lc_client(self.srv, fail, enums.ALLOC_CLIENT_FAILED,
+                      task_finished_at=time.time())
+        if done:
+            lc_client(self.srv, done, enums.ALLOC_CLIENT_COMPLETE,
+                      task_finished_at=time.time())
+        self.reports.update(running=len(run), failed=len(fail),
+                            complete=len(done))
+        return len(run) + len(fail) + len(done)
+
+
+def ap_until(clients, pred, what, timeout, sample=None, **sync):
+    """Play the clients until ``pred()`` holds, within ``timeout`` s; on
+    a timeout, the service jobs' deployments that did not succeed.
+    ``sample()``, when given, reads the store before each round of the
+    clients' reports."""
+    deadline = time.time() + timeout
+    while True:
+        if sample is not None:
+            sample()
+        clients.sync(**sync)
+        if pred():
+            return
+        if time.time() > deadline:
+            raise AssertionError(f"autopilot {what}: not reached in "
+                                 f"{timeout:.0f} s; deployments: "
+                                 f"{ap_dep_report(clients)}")
+        clients.srv.wait_for_idle(0.25, include_delayed=False)
+
+
+def ap_gates(srv, beats, what) -> dict:
+    """No node that kept heartbeating marked down (its status now, and
+    every expiry the manager logged), and no single-writer volume with
+    more than one live writer claim."""
+    snap = srv.store.snapshot()
+    down = {n.id for n in snap.nodes() if n.status in ("down",
+                                                       "disconnected")}
+    expired = {nid for nid, _, _ in srv.heartbeats.expiry_snapshot()}
+    false = (down | expired) - beats.silent
+    if false:
+        raise AssertionError(f"autopilot {what}: {len(false)} nodes that "
+                             f"kept heartbeating marked down: "
+                             f"{sorted(false)[:4]}")
+    for vol in snap.volumes():
+        if vol.access_mode != "single-node-writer":
+            continue
+        live = [c for c in vol.writers()
+                if (a := snap.alloc_by_id(c.alloc_id)) is not None
+                and not a.terminal_status()]
+        if len(live) > 1:
+            raise AssertionError(f"autopilot {what}: volume {vol.id} has "
+                                 f"{len(live)} live writers")
+    return {"false_mark_downs": len(false), "down": len(down)}
+
+
+def ap_drain_nodes(srv, n, n_paced, exclude, paced):
+    """``n`` loaded nodes to drain. First ``n_paced`` nodes that hold a
+    group of three or more allocs of the ``paced`` jobs (which migrate
+    AP_MIGRATE at a time, the others one), where max_parallel binds: the
+    fewest rounds first, at most AP_DRAIN_PACED_ROUNDS. Then, of the
+    nodes that no group needs more than AP_DRAIN_ROUNDS rounds to leave,
+    those with the most allocs of the paced jobs in such groups, then
+    the fewest rounds, then the most allocs. Ties by node id. Raises
+    when too few nodes qualify."""
+    per = {}
+    for a in srv.store.snapshot().allocs():
+        if not a.terminal_status() and a.node_id not in exclude:
+            per.setdefault(a.node_id, Counter())[a.job_id] += 1
+
+    def rounds(nid):
+        return max(-(-v // (AP_MIGRATE if j in paced else 1))
+                   for j, v in per[nid].items())
+
+    def rank(nid):
+        c = per[nid]
+        bound = sum(v for j, v in c.items() if j in paced and v > 2)
+        return (-bound, rounds(nid), -sum(c.values()), nid)
+    bound = sorted((nid for nid in per if rank(nid)[0] < 0
+                    and rounds(nid) <= AP_DRAIN_PACED_ROUNDS),
+                   key=lambda nid: (rounds(nid), -sum(per[nid].values()),
+                                    nid))[:n_paced]
+    fits = [nid for nid in per if rounds(nid) <= AP_DRAIN_ROUNDS
+            and nid not in bound]
+    rest = sorted(fits, key=rank)[:n - len(bound)]
+    if len(bound) < n_paced or len(bound) + len(rest) < n:
+        raise AssertionError(f"autopilot drain: {len(bound)} nodes with a "
+                             f"paced group of three or more within "
+                             f"{AP_DRAIN_PACED_ROUNDS} rounds (want "
+                             f"{n_paced}), {len(rest)} others within "
+                             f"{AP_DRAIN_ROUNDS}")
+    return bound + rest
+
+
+def ap_dep_report(clients) -> list:
+    """Each service job whose latest deployment is not successful: its
+    version, its deployments (version, status, description) and its
+    allocs by version, client and desired status, canary flag and
+    whether the latest deployment holds them; its last five evals."""
+    snap = clients.srv.store.snapshot()
+    out = []
+    for j in clients.service:
+        d = snap.latest_deployment_by_job(j)
+        if (d is None and snap.job_by_id(j).task_groups[0].update is None
+                or d is not None and d.status == "successful"):
+            continue
+        allocs = snap.allocs_by_job(j)
+        seen = Counter((a.job_version, a.client_status, a.desired_status,
+                        a.canary, d is not None and a.deployment_id == d.id)
+                       for a in allocs)
+        evals = [(e.triggered_by, e.status, e.wait_until > 0)
+                 for e in snap.evals_by_job(j)][-5:]
+        deps = [(x.job_version, x.status, x.status_description)
+                for x in sorted(snap.deployments_by_job(j),
+                                key=lambda x: x.create_index)]
+        out.append((j, snap.job_by_id(j).version, deps, dict(seen), evals))
+    return out[:4]
+
+
+def ap_unlinked(srv, preds) -> int:
+    """The predecessors no alloc names as previous_allocation. A
+    replacement that lands on a node another shard's expiry (or a drain)
+    takes down at the same moment is rejected by the applier after the
+    predecessor's stop committed; the retry's count math places it with
+    no link, in the reference as in the port. The walk's live counts
+    hold either way."""
+    snap = srv.store.snapshot()
+    named = {a.previous_allocation for a in snap.allocs()
+             if a.previous_allocation}
+    return sum(1 for p in preds if p.id not in named)
+
+
+def ap_deps(srv, job_ids):
+    """The latest deployment of each job."""
+    snap = srv.store.snapshot()
+    return {j: snap.latest_deployment_by_job(j) for j in job_ids}
+
+
+def ap_inflight(srv, node_ids, max_par) -> dict:
+    """Per (node, job, group) on the draining nodes: allocs marked to
+    migrate or stopped whose client has not reported them terminal; a
+    gate that none is past its group's max_parallel. Returns the peak a
+    group's max_parallel."""
+    snap = srv.store.snapshot()
+    peak = Counter()
+    for nid in node_ids:
+        flight = Counter()
+        for a in snap.allocs_by_node(nid):
+            if a.client_terminal():
+                continue
+            if a.desired_transition.migrate or a.server_terminal():
+                flight[(a.job_id, a.task_group)] += 1
+        for key, n in flight.items():
+            cap = max_par.get(key[0], 1)
+            if n > cap:
+                raise AssertionError(f"autopilot drain: {n} allocs of "
+                                     f"{key} in flight on {nid}, "
+                                     f"max_parallel {cap}")
+            peak[cap] = max(peak[cap], n)
+    return dict(peak)
+
+
+def phase_autopilot(torch, card, device="cuda", n_nodes=N_NODES,
+                    scale=1.0):
+    """The lifecycle on its own (ROADMAP A27, A5b) through the port's
+    Server under "tpu-binpack", 24 workers, the feed on, every actor
+    running: heartbeats with an AP_TTL TTL (a thread of the phase heartbeats
+    every live node through heartbeat_batch), the deployment watcher,
+    the drainer and core GC (gc_interval 3,600 s: it runs when the phase
+    calls force_gc). C2M's nodes with network modes, host volumes and
+    four CSI zones; the phase plays the clients. Six steps: silence,
+    drain, auto-promote, auto-revert, progress deadline, GC with node
+    delete and a B1 refill. ``scale`` shrinks the job sizes (a CPU
+    rehearsal). Returns (the launch counts of the steps, the record)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import DrainStrategy, Volume, VolumeRequest
+    from nomad_tpu_torch.structs.job import MigrateStrategy, UpdateStrategy
+    from nomad_tpu_torch.structs.resources import NetworkResource
+    from nomad_tpu_torch.tensor import incremental, kernels
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+    from nomad_tpu_torch.tensor.solver import get_service
+
+    def sized(n):
+        return max(1, int(round(n * scale)))
+
+    lc = Lifecycle(card, device, SERVER_WORKERS, actors=True,
+                   name="autopilot", heartbeat_ttl=AP_TTL)
+    srv = lc.srv
+    nodes = ap_nodes(n_nodes)
+    srv.store.upsert_nodes(nodes)
+    zones = [[n.id for n in nodes[z::4]] for z in range(4)]
+    k_batch, k_svc = sized(AP_BATCH_K), sized(AP_SVC_K)
+
+    def svc(tag, count, **kw):
+        j = mock.service_job(count, cpu=100, mem=64)
+        j.id = j.name = tag
+        tg = j.task_groups[0]
+        tg.update = UpdateStrategy(max_parallel=sized(AP_ROLL),
+                                   min_healthy_time_s=0.0)
+        tg.migrate = MigrateStrategy(max_parallel=AP_MIGRATE)
+        for key, v in kw.items():
+            setattr(tg, key, v)
+        return j
+
+    batch = []
+    for i in range(AP_BATCH_JOBS):
+        j = mock.service_job(k_batch, cpu=50, mem=32, batch=True)
+        j.id = j.name = f"ap-batch-{i:02d}"
+        batch.append(j)
+    vol = [svc(f"ap-vol-{i}", k_svc, volumes={"data": VolumeRequest(
+        name="data", type="host", source="data")})
+        for i in range(AP_VOL_JOBS)]
+    # no update stanza: a group the bulk path places opens no deployment
+    # (as the reference's generic_sched.py:152), and one whose plan the
+    # applier rejects in part would open one for the remainder alone
+    bridge = [svc(f"ap-bridge-{i}", k_svc, update=None,
+                  networks=[NetworkResource(mode="bridge")])
+              for i in range(AP_BRIDGE_JOBS)]
+    cni = [svc(f"ap-cni-{i}", k_svc, update=None,
+               networks=[NetworkResource(mode="cni/calico")])
+           for i in range(AP_CNI_JOBS)]
+    csi = [svc(f"ap-csi-{i}", 1, volumes={"db": VolumeRequest(
+        name="db", type="csi", source=f"ap-db-{i}")})
+        for i in range(AP_CSI_JOBS)]
+    reader = svc("ap-reader", sized(AP_READER_K), volumes={
+        "shared": VolumeRequest(name="shared", type="csi",
+                                source="ap-shared", read_only=True,
+                                access_mode="multi-node-reader-only")})
+    service = vol + bridge + cni + csi + [reader]
+    rolled = [j.id for j in service if j.task_groups[0].update is not None]
+    beats = Beats(srv, [n.id for n in nodes])
+    clients = Clients(srv, beats, [j.id for j in service])
+    max_par = {j.id: AP_MIGRATE for j in service}
+    t_setup = time.perf_counter()
+    _ext.COUNTS.reset()
+    with incr_arm("1"), srv, lc.capture(), beats:
+        for i in range(AP_CSI_JOBS):
+            srv.register_volume(Volume(id=f"ap-db-{i}", name=f"ap-db-{i}",
+                                       topology_node_ids=zones[i % 4]))
+        srv.register_volume(Volume(id="ap-shared", name="ap-shared",
+                                   access_mode="multi-node-reader-only"))
+        for j in batch + service:
+            srv.register_job(j)
+            lc.desired[j.id] = j.task_groups[0].count
+        lc.idle("fill")
+        ap_until(clients, lambda: all(
+            d is not None and d.status == "successful"
+            for d in ap_deps(srv, rolled).values()),
+            "fill deployments", 120.0)
+        lc.walk("fill")
+        ap_gates(srv, beats, "fill")
+        fill_s = time.perf_counter() - t_setup
+        snap = srv.store.snapshot()
+        on = {a.node_id for a in snap.allocs() if not a.terminal_status()}
+        modes_ok = all(
+            ("network.bridge" in snap.node_by_id(a.node_id).attributes)
+            for j in bridge for a in snap.allocs_by_job(j.id)) and all(
+            ("plugins.cni.version.calico" in snap.node_by_id(
+                a.node_id).attributes)
+            for j in cni for a in snap.allocs_by_job(j.id)) and all(
+            not getattr(snap.node_by_id(a.node_id).host_volumes.get(
+                "data"), "read_only", True)
+            for j in vol for a in snap.allocs_by_job(j.id))
+        if not modes_ok:
+            raise AssertionError("autopilot fill: a bridge, CNI or host-"
+                                 "volume alloc on a node without it")
+        for i, j in enumerate(csi):
+            (a,) = [a for a in snap.allocs_by_job(j.id)
+                    if not a.terminal_status()]
+            if a.node_id not in zones[i % 4]:
+                raise AssertionError(f"autopilot fill: {j.id} outside its "
+                                     f"volume's zone")
+        snap.close()  # a snapshot held open pins the compaction
+        print(f"autopilot   setup and fill {fill_s:.2f} s ({n_nodes} nodes, "
+              f"{len(batch) + len(service)} jobs, "
+              f"{sum(lc.desired.values())} allocs on {len(on)} nodes, "
+              f"{SERVER_WORKERS} workers, heartbeat_ttl {AP_TTL} s)")
+        feed = incremental.feed_for(srv.store)
+        # 1. silence: nodes stop heartbeating, one with a CSI writer
+        csi0 = [a for a in srv.store.snapshot().allocs_by_job(csi[0].id)
+                if not a.terminal_status()][0]
+        held = {a.node_id for j in csi[1:] for a in
+                srv.store.snapshot().allocs_by_job(j.id)}
+        silent = [csi0.node_id] + lc_loaded(
+            srv, sized(AP_SILENT) - 1, exclude=held | {csi0.node_id})
+        lost = lc_live_on(srv, silent)
+
+        def step_silence():
+            f0 = dict(feed.stats(), node_set=srv.store.node_set_version)
+            t0 = time.monotonic()
+            beats.silence(silent)
+
+            def all_lost():
+                # the mark's evals are enqueued after its status write:
+                # wait for their plans too (no live alloc left there)
+                snap = srv.store.snapshot()
+                return (all(snap.node_by_id(n).status == "down"
+                            for n in silent)
+                        and not lc_live_on(srv, silent))
+            ap_until(clients, all_lost, "silence", 4 * AP_TTL + 30.0)
+            marked_s = time.monotonic() - t0
+            lc.gone.update(silent)
+            lc.idle("silence")
+            clients.sync()
+            unlinked = ap_unlinked(srv, lost)
+            snap = srv.store.snapshot()
+            down = {n.id for n in snap.nodes() if n.status == "down"}
+            if down != set(silent):
+                raise AssertionError(f"autopilot silence: {len(down)} "
+                                     f"nodes down, want exactly the "
+                                     f"{len(silent)} silenced")
+            vol0 = snap.volume_by_id("ap-db-0")
+            writers = [c for c in vol0.writers()
+                       if not snap.alloc_by_id(c.alloc_id)
+                       .terminal_status()]
+            if (len(writers) != 1
+                    or writers[0].node_id not in zones[0]
+                    or writers[0].node_id == csi0.node_id):
+                raise AssertionError(f"autopilot silence: volume "
+                                     f"ap-db-0's live writers "
+                                     f"{writers}")
+            out = ap_gates(srv, beats, "silence")
+            out.update(nodes=len(silent), lost=len(lost),
+                       unlinked=unlinked, marked_after_s=marked_s,
+                       feed=feed_delta(srv.store, f0, feed.stats()))
+            return out
+        lc.step("silence", step_silence)
+
+        # 2. drain: nodes drained with a deadline, the drainer pacing
+        # by migrate.max_parallel, the clients acking
+        drained = ap_drain_nodes(srv, sized(AP_DRAIN), sized(AP_DRAIN_PACED),
+                                 lc.gone, {j.id for j in service})
+        moved = lc_live_on(srv, drained)
+
+        def step_drain():
+            f0 = dict(feed.stats(), node_set=srv.store.node_set_version)
+            done0 = srv.drainer.stats["drains_completed"]
+            for nid in drained:
+                srv.update_node_drain(nid, DrainStrategy(
+                    deadline_s=AP_DRAIN_DEADLINE))
+            t0 = time.time()
+            peak, samples = Counter(), 0
+
+            def in_flight():
+                # before the clients ack: what the drainer marked and the
+                # scheduler stopped since the last round is still there
+                nonlocal samples
+                samples += 1
+                for cap, n in ap_inflight(srv, drained,
+                                          max_par).items():
+                    peak[cap] = max(peak[cap], n)
+
+            def drains_done():
+                snap = srv.store.snapshot()
+                return not any(snap.node_by_id(n).drain
+                               for n in drained)
+            ap_until(clients, drains_done, "drain",
+                     AP_DRAIN_DEADLINE - 2.0, sample=in_flight,
+                     nodes=drained)
+            drain_s = time.time() - t0
+            lc.gone.update(drained)
+            lc.idle("drain")
+            clients.sync(nodes=drained)
+            unlinked = ap_unlinked(srv, moved)
+            snap = srv.store.snapshot()
+            if any(snap.node_by_id(n).scheduling_eligibility
+                   != "ineligible" for n in drained):
+                raise AssertionError("autopilot drain: a drained node "
+                                     "is eligible again")
+            done = srv.drainer.stats["drains_completed"] - done0
+            if done != len(drained):
+                raise AssertionError(f"autopilot drain: {done} drains "
+                                     f"completed, want {len(drained)}")
+            if peak.get(AP_MIGRATE) != AP_MIGRATE:
+                raise AssertionError(f"autopilot drain: the paced groups' "
+                                     f"peak in flight {dict(peak)} in "
+                                     f"{samples} samples, want "
+                                     f"{AP_MIGRATE} (max_parallel)")
+            out = ap_gates(srv, beats, "drain")
+            out.update(nodes=len(drained), migrated=len(moved),
+                       unlinked=unlinked, drain_s=drain_s, samples=samples,
+                       peak_inflight=dict(peak), completed=done,
+                       marked=srv.drainer.stats["migrations_marked"],
+                       feed=feed_delta(srv.store, f0, feed.stats()))
+            return out
+        lc.step("drain", step_drain)
+
+        def update(jobs, tag, **strategy):
+            new = []
+            for j in jobs:
+                j2 = copy.deepcopy(srv.store.snapshot().job_by_id(j.id))
+                j2.task_groups[0].tasks[0].config = {"command": tag}
+                j2.task_groups[0].update = UpdateStrategy(
+                    max_parallel=sized(AP_ROLL), min_healthy_time_s=0.0,
+                    **strategy)
+                srv.register_job(j2)
+                new.append(srv.store.snapshot().job_by_id(j.id).version)
+            return new
+
+        # 3. auto-promote: canaries reported healthy, the watcher
+        # promotes them and the rollout succeeds
+        pjobs = vol[:AP_PROMOTE_JOBS]
+
+        def step_promote():
+            f0 = dict(feed.stats(), node_set=srv.store.node_set_version)
+            versions = update(pjobs, "/bin/v2", canary=AP_CANARY,
+                              auto_promote=True)
+            ids = [j.id for j in pjobs]
+
+            def succeeded():
+                deps = ap_deps(srv, ids)
+                return all(d.job_version == v and d.status ==
+                           "successful" for d, v in
+                           zip(deps.values(), versions))
+            ap_until(clients, succeeded, "auto-promote", 120.0)
+            lc.idle("auto-promote")
+            deps = ap_deps(srv, ids)
+            if not all(s.promoted for d in deps.values()
+                       for s in d.task_groups.values()):
+                raise AssertionError("autopilot auto-promote: a group "
+                                     "not promoted")
+            out = lc_versions(srv, pjobs, "auto-promote")
+            out.update(ap_gates(srv, beats, "auto-promote"))
+            out.update(versions=versions, auto_promoted=srv.
+                       deployment_watcher.stats["auto_promoted"],
+                       feed=feed_delta(srv.store, f0, feed.stats()))
+            return out
+        lc.step("auto-promote", step_promote)
+
+        # 4. auto-revert: the canaries of a bad update fail, the
+        # watcher fails the deployment and registers the prior version
+        rjobs = vol[AP_PROMOTE_JOBS:AP_PROMOTE_JOBS + AP_REVERT_JOBS]
+
+        def step_revert():
+            before = {j.id: srv.store.snapshot().job_by_id(j.id)
+                      for j in rjobs}
+            clients.failing.update(j.id for j in rjobs)
+            reverts0 = srv.deployment_watcher.stats["reverted"]
+            bad = update(rjobs, "/bin/bad", canary=1, auto_revert=True)
+            ids = [j.id for j in rjobs]
+
+            def bad_deps(snap):
+                return [d for j, v in zip(ids, bad)
+                        for d in snap.deployments_by_job(j)
+                        if d.job_version == v]
+
+            def reverted():
+                # the watcher failed each bad deployment and registered
+                # the prior version; a canary plan scheduled before the
+                # failure may write the deployment back as running, and
+                # the watcher then cancels it as superseded (the
+                # reference's race, ROADMAP §C5). The revert's eval may
+                # be cancelled by a newer eval of the job: wait for the
+                # live allocs instead
+                snap = srv.store.snapshot()
+                if (srv.deployment_watcher.stats["reverted"] - reverts0
+                        < len(ids)
+                        or any(d.active() for d in bad_deps(snap))):
+                    return False
+                for j, v in zip(ids, bad):
+                    if snap.job_by_id(j).version != v + 1:
+                        return False
+                    live = Counter(a.job_version
+                                   for a in snap.allocs_by_job(j)
+                                   if not a.terminal_status())
+                    if live != {v + 1: lc.desired[j]}:
+                        return False
+                return True
+            ap_until(clients, reverted, "auto-revert", 60.0)
+            clients.failing.clear()
+            lc.idle("auto-revert")
+            clients.sync()
+            snap = srv.store.snapshot()
+            live = {j: dict(Counter(
+                a.job_version for a in snap.allocs_by_job(j)
+                if not a.terminal_status())) for j in ids}
+            for j, v in zip(ids, bad):
+                cur = snap.job_by_id(j)
+                if (cur.task_groups[0].tasks[0].config
+                        != before[j].task_groups[0].tasks[0].config):
+                    raise AssertionError(f"autopilot auto-revert: {j} "
+                                         f"not back on its prior spec")
+                if live[j] != {v + 1: lc.desired[j]}:
+                    raise AssertionError(f"autopilot auto-revert: {j}'s "
+                                         f"live allocs by version "
+                                         f"{live[j]}, want {lc.desired[j]} "
+                                         f"on version {v + 1}")
+            statuses = [d.status for d in bad_deps(snap)]
+            if len(statuses) != len(ids) or not set(statuses) <= {
+                    "failed", "cancelled"}:
+                raise AssertionError(f"autopilot auto-revert: the bad "
+                                     f"deployments' statuses {statuses}")
+            out = ap_gates(srv, beats, "auto-revert")
+            out.update(bad_versions=bad, reverted=srv.
+                       deployment_watcher.stats["reverted"] - reverts0,
+                       bad_deployments=dict(Counter(statuses)),
+                       live_by_version=live)
+            return out
+        lc.step("auto-revert", step_revert)
+
+        # 5. progress deadline: no health report, the watcher fails it
+        djob = vol[AP_PROMOTE_JOBS + AP_REVERT_JOBS]
+
+        def step_deadline():
+            clients.quiet.add(djob.id)
+            (v,) = update([djob], "/bin/slow",
+                          progress_deadline_s=AP_DEADLINE)
+            t0 = time.time()
+
+            def failed():
+                d = ap_deps(srv, [djob.id])[djob.id]
+                return (d.job_version == v and d.status == "failed"
+                        and "deadline" in d.status_description)
+            ap_until(clients, failed, "progress deadline",
+                     AP_DEADLINE + 30.0)
+            lc.idle("progress deadline")
+            out = ap_gates(srv, beats, "progress deadline")
+            out.update(failed_after_s=time.time() - t0, version=v)
+            return out
+        lc.step("deadline", step_deadline)
+
+        # 6. GC: deregistered batch jobs completed, force_gc drops
+        # their allocs (block positions too), the dead jobs and evals,
+        # the down nodes and stale claims; then a B1 refill
+        gjobs = batch[:AP_GC_JOBS]
+        fresh = []
+        for i in range(AP_NEW_JOBS):
+            j = mock.service_job(k_batch, cpu=50, mem=32, batch=True)
+            j.id = j.name = f"ap-refill-{i}"
+            fresh.append(j)
+
+        def step_gc():
+            f0 = dict(feed.stats(), node_set=srv.store.node_set_version)
+            for j in gjobs:
+                srv.deregister_job(j.id)
+                lc.desired.pop(j.id)
+            lc.idle("gc deregister")
+            clients.sync(jobs=[j.id for j in gjobs])
+            blocks = {b.id for b in srv.store.snapshot().alloc_blocks()
+                      if b.job_id in {j.id for j in gjobs}}
+            t0 = time.perf_counter()
+            stats = srv.force_gc()
+            gc_s = time.perf_counter() - t0
+            snap = srv.store.snapshot()
+            left = [j.id for j in gjobs
+                    if snap.job_by_id(j.id) is not None
+                    or snap.allocs_by_job(j.id)
+                    or snap.evals_by_job(j.id)]
+            if left or any(snap.alloc_block_by_id(b) for b in blocks):
+                raise AssertionError(f"autopilot gc: jobs, allocs, evals "
+                                     f"or blocks left: {left[:4]}")
+            if any(snap.node_by_id(n) is not None for n in silent):
+                raise AssertionError("autopilot gc: a down node not "
+                                     "deleted")
+            stale = [c for v in snap.volumes() for c in v.claims.values()
+                     if (a := snap.alloc_by_id(c.alloc_id)) is None
+                     or a.terminal_status()]
+            if stale or stats["volume_claims"] < 1:
+                raise AssertionError(f"autopilot gc: {len(stale)} stale "
+                                     f"claims, {stats['volume_claims']} "
+                                     f"released")
+            if not feed.force_verify():
+                raise AssertionError(
+                    f"autopilot gc: the feed's verify failed: "
+                    f"{incremental.GLOBAL.violations[-1:]}")
+            lc.gone.difference_update(silent)
+            for j in fresh:
+                srv.register_job(j)
+                lc.desired[j.id] = k_batch
+            lc.idle("gc refill")
+            out = ap_gates(srv, beats, "gc")
+            out.update(gc_s=gc_s, blocks_dropped=len(blocks),
+                       gc={k: stats[k] for k in (
+                           "evals", "allocs", "jobs", "deployments",
+                           "nodes", "volume_claims", "rows_compacted")},
+                       feed=feed_delta(srv.store, f0, feed.stats()))
+            return out
+        lc.step("gc", step_gc)
+        counts = _ext.COUNTS.snapshot()
+        verified = feed.force_verify()
+        feed_stats = feed.stats()
+        blocked = srv.blocked.blocked_count()
+    hb = beats.report()
+    gates = ap_gates(srv, beats, "end")
+    expiries = srv.heartbeats.expiry_snapshot()
+    hb_stats = dict(srv.heartbeats.stats)
+    watcher = dict(srv.deployment_watcher.stats)
+    drainer = dict(srv.drainer.stats)
+    if beats.errors:
+        raise AssertionError(f"autopilot: heartbeats refused: "
+                             f"{beats.errors[:2]}")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"autopilot: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    if not verified or blocked:
+        raise AssertionError(f"autopilot: the feed's verify "
+                             f"{'passed' if verified else 'failed'}, "
+                             f"{blocked} evals blocked")
+    launched = counts["launches"]
+    if not lc.b1 or not lc.b9:
+        raise AssertionError(f"autopilot: B1 {len(lc.b1)} and B9 "
+                             f"{len(lc.b9)} launches captured")
+    err = 0.0
+    for i, (packed, out, _) in enumerate(lc.b9):
+        got = kernels.solve_task_group_fused(*packed)
+        want = kernels.solve_task_group_fused_ref(*packed)
+        if not (torch.equal(got[:2], want[:2]) and torch.equal(got, out)):
+            raise AssertionError(f"autopilot: B9 launch {i} differs from "
+                                 f"its plain version or the path's output")
+        err = max(err, score_err(got[2], want[2], f"autopilot B9 {i}"))
+    for i, (before, args, g, used, cnt, _) in enumerate(lc.b1):
+        u1, c1 = solve_bulk_multi(before.clone(), *args, g=g)
+        u2, c2 = solve_bulk_multi_ref(before.clone(), *args, g=g)
+        if not (torch.equal(u1, u2) and torch.equal(c1, c2)
+                and torch.equal(u1, used) and torch.equal(c1, cnt)):
+            raise AssertionError(f"autopilot: B1 launch {i} differs from "
+                                 f"its plain version or the path's output")
+    for i, (args, kw, out, _) in enumerate(lc.b11):
+        got = kernels.solve_bulk(*args, **kw)
+        want = kernels.solve_bulk_ref(*args, **kw)
+        if not (torch.equal(got, want) and torch.equal(got, out)):
+            raise AssertionError(f"autopilot: B11 launch {i} differs from "
+                                 f"its plain version or the path's output")
+    b9_steps = Counter(c[2] for c in lc.b9)
+    b1_steps = Counter(c[5] for c in lc.b1)
+    rec = {"nodes": n_nodes, "heartbeat_ttl": AP_TTL, "fill_s": fill_s,
+           "steps": lc.steps, "b9_launches_by_step": dict(b9_steps),
+           "b1_launches_by_step": dict(b1_steps), "b9_max_score_err": err,
+           "b11_launches_by_step": dict(Counter(c[3] for c in lc.b11)),
+           "heartbeats": hb, "expiries": len(expiries),
+           "heartbeat_stats": hb_stats, "watcher": watcher,
+           "drainer": drainer, "clients": dict(clients.reports),
+           "feed": feed_stats, "gates": gates,
+           "launches": {k: v for k, v in launched.items() if v},
+           "card": card}
+    for s in lc.steps:
+        print(f"autopilot   [{card}] {s['step']}: wall {s['wall_s']:.3f} s; "
+              f"B9 {s['launches'].get('solve_task_group', 0)}, B1 "
+              f"{s['launches'].get('bulk_fill', 0)}, B4 "
+              f"{s['launches'].get('scatter_add', 0)} launches; "
+              f"nodes_rejected {s['nodes_rejected']}; span p50 ms "
+              + "; ".join(f"{n} {v['p50_ms']:.3f} ({v['n']})"
+                          for n, v in s["spans"].items()))
+    print(f"autopilot   [{card}] B9 {len(lc.b9)} launches by step "
+          f"{dict(b9_steps)}, B1 {len(lc.b1)} by step {dict(b1_steps)}, "
+          f"B11 {len(lc.b11)} (the reader's CSI group: its mask per eval): "
+          f"replays exact (B9 scores within {SCORE_TOL}, max {err:.3g}); "
+          f"heartbeats {hb}; expiries {len(expiries)} (all silenced); "
+          f"watcher {watcher}; drainer {drainer}; feed {feed_stats}")
+    get_service(device).stop()
+    return launched, rec
+
+
+def feed_delta(store, before, after) -> dict:
+    """The feed's resyncs, twin uploads and flushes between two stats,
+    beside the node writes that bumped the store's node set (each
+    makes a new static)."""
+    out = {k: after[k] - before[k] for k in ("resyncs", "twin_uploads",
+                                             "twin_flushes", "builds")}
+    out["node_writes"] = store.node_set_version - before["node_set"]
+    return out
+
+
+def autopilot_only(torch, card) -> int:
+    """``--autopilot``: the build and the autopilot phase alone; its
+    record as a JSON line."""
+    launched, rec = phase_autopilot(torch, card)
+    print(json.dumps({"autopilot": rec}))
+    print(card)
+    return 0
 
 
 def lifecycle_only(torch, card) -> int:
@@ -3649,7 +4554,7 @@ def phase_constraints(torch, card, device="cuda"):
         num_workers=CFG2_WORKERS, device=device,
         sched_config=SchedulerConfiguration(scheduler_algorithm="tpu-binpack"),
         nack_timeout=900.0, failed_eval_followup_delay=3600.0,
-        failed_eval_unblock_interval=0.5))
+        failed_eval_unblock_interval=0.5, **BENCH_SAFE))
     mock.build_nodes(srv.store, CFG2_NODES, seed=0)
     jobs = jobs_fn()
     svc = get_service(srv.device)
@@ -6331,6 +7236,8 @@ def main() -> int:
         return devices_only(torch, dev, card, rng)
     if sys.argv[1:] == ["--lifecycle"]:
         return lifecycle_only(torch, card)
+    if sys.argv[1:] == ["--autopilot"]:
+        return autopilot_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -6356,6 +7263,10 @@ def main() -> int:
     per_eval.append(b9_lifecycle)
     bulk[2]["lifecycle_launches"] = launches["bulk_fill"]
     bulk[1]["lifecycle_launches"] = launches["scatter_add"]
+    ap_launches, server["autopilot"] = phase_autopilot(torch, card)
+    bulk[2]["autopilot_launches"] = ap_launches["bulk_fill"]
+    bulk[1]["autopilot_launches"] = ap_launches["scatter_add"]
+    per_eval[1]["autopilot_launches"] = ap_launches["solve_task_group"]
     launches, wall, captured = phase_solve_path(torch, card)
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
@@ -6381,6 +7292,7 @@ def main() -> int:
     large = phase_large_replay(torch, card, captured)
     for k in large:
         k["launches"] = launches[k["name"]]
+    large[0]["autopilot_launches"] = ap_launches["bulk_scan"]
     large[1]["by_n"] = perm
     phase_large_parity(card, first)
     phase_bulk_preempt(torch, card)
@@ -6415,7 +7327,7 @@ def main() -> int:
     extra = ("device_ms", "library_device_ms", "without_clamp",
              "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
              "by_d", "constraints_launches", "lifecycle_launches",
-             "penalty_launches")
+             "autopilot_launches", "penalty_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

@@ -6,9 +6,12 @@ same cluster in the same registration order. Only plain data is read:
 networks as ``{mode, device, ip, mbits, reserved_ports: [(label, port)],
 dynamic_ports: [label]}``, device groups as ``{vendor, type, name,
 instance_ids, attributes}``, NUMA domains as ``{id, cores}`` and device
-asks as ``{name, count, constraints, affinities}`` (rows as for jobs).
-Fields the port does not model (host volumes, drain strategies, group
-volumes) must be empty, or the conversion raises rather than drop them."""
+asks as ``{name, count, constraints, affinities}`` (rows as for jobs),
+a node's host volumes as ``{name: {name, path, read_only}}``, a group's
+volumes as ``{name: {name, type, source, read_only, access_mode,
+per_alloc}}`` and a task's mounts as ``[{volume, destination,
+read_only}]``. A drain strategy, which the port does not carry across,
+must be empty, or the conversion raises rather than drop it."""
 
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from .structs.job import EphemeralDisk, UpdateStrategy
 from .structs.resources import (NetworkResource, NodeDeviceResource,
                                 NodeReservedResources, NumaNode,
                                 RequestedDevice)
+from .structs.volumes import (ClientHostVolumeConfig, VolumeMount,
+                              VolumeRequest)
 
 
 def _require_empty(record: Mapping, keys, what: str) -> None:
@@ -52,6 +57,30 @@ def _numa(rows) -> List[NumaNode]:
             for r in rows or ()]
 
 
+def _host_volumes(rows) -> dict:
+    return {str(k): ClientHostVolumeConfig(
+        name=str(r.get("name", k)), path=str(r.get("path", "")),
+        read_only=bool(r.get("read_only", False)))
+        for k, r in (rows or {}).items()}
+
+
+def _volume_requests(rows) -> dict:
+    return {str(k): VolumeRequest(
+        name=str(r.get("name", k)), type=str(r.get("type", "host")),
+        source=str(r.get("source", "")),
+        read_only=bool(r.get("read_only", False)),
+        access_mode=str(r.get("access_mode", "single-node-writer")),
+        per_alloc=bool(r.get("per_alloc", False)))
+        for k, r in (rows or {}).items()}
+
+
+def _volume_mounts(rows) -> list:
+    return [VolumeMount(volume=str(r["volume"]),
+                        destination=str(r.get("destination", "")),
+                        read_only=bool(r.get("read_only", False)))
+            for r in rows or ()]
+
+
 def _device_asks(rows) -> List[RequestedDevice]:
     return [RequestedDevice(name=str(r["name"]), count=int(r.get("count", 1)),
                             constraints=_constraints(r.get("constraints")),
@@ -61,7 +90,7 @@ def _device_asks(rows) -> List[RequestedDevice]:
 
 def node_from_record(rec: Mapping) -> Node:
     res = rec["resources"]
-    _require_empty(rec, ("host_volumes", "drain_strategy"), "node")
+    _require_empty(rec, ("drain_strategy",), "node")
     reserved = rec.get("reserved") or {}
     node = Node(
         id=str(rec["id"]),
@@ -89,6 +118,7 @@ def node_from_record(rec: Mapping) -> Node:
                             reserved.get("reserved_ports", ())]),
         drivers={str(k): bool(v) for k, v in
                  (rec.get("drivers") or {}).items()},
+        host_volumes=_host_volumes(rec.get("host_volumes")),
         status=str(rec.get("status", "ready")),
         scheduling_eligibility=str(rec.get("scheduling_eligibility",
                                            "eligible")),
@@ -124,11 +154,10 @@ def job_from_record(rec: Mapping) -> Job:
     operand) rows (distinct_hosts and distinct_property among them),
     affinities (ltarget, rtarget, operand, weight) and spreads
     (attribute, weight, ((value, percent), ...)); task resources may carry
-    ``cores``, ``numa_affinity``, ``devices`` and ``networks``, groups
-    ``networks``."""
+    ``cores``, ``numa_affinity``, ``devices`` and ``networks``, tasks
+    ``volume_mounts``, groups ``networks`` and ``volumes``."""
     groups = []
     for g in rec["task_groups"]:
-        _require_empty(g, ("volumes",), "task group")
         tasks = []
         for t in g["tasks"]:
             r = t["resources"]
@@ -144,7 +173,8 @@ def job_from_record(rec: Mapping) -> Job:
                                     numa_affinity=str(
                                         r.get("numa_affinity", "none"))),
                 constraints=_constraints(t.get("constraints")),
-                affinities=_affinities(t.get("affinities"))))
+                affinities=_affinities(t.get("affinities")),
+                volume_mounts=_volume_mounts(t.get("volume_mounts"))))
         update = g.get("update")
         groups.append(TaskGroup(
             name=str(g["name"]), count=int(g["count"]), tasks=tasks,
@@ -160,7 +190,8 @@ def job_from_record(rec: Mapping) -> Job:
                 canary=int(update.get("canary", 0)))),
             ephemeral_disk=EphemeralDisk(
                 size_mb=int(g.get("ephemeral_disk_mb", 300))),
-            networks=_networks(g.get("networks"))))
+            networks=_networks(g.get("networks")),
+            volumes=_volume_requests(g.get("volumes"))))
     return Job(
         id=str(rec["id"]), name=str(rec.get("name", rec["id"])),
         namespace=str(rec.get("namespace", "default")),

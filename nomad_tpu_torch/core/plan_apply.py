@@ -11,7 +11,10 @@ applier thread is the only writer of placement results. Per plan:
    cores, the per-node walk ``_node_plan_valid`` with the port-collision,
    core-overlap and device checks of ``allocs_fit`` for the rest). A node whose plan no longer fits
    (a concurrent plan won the race) is rejected whole; a block's rows on
-   it are marked rejected (``AllocBlock.without_nodes``);
+   it are marked rejected (``AllocBlock.without_nodes``). Writer
+   exclusivity of a single-writer CSI volume is a per-volume invariant,
+   checked across the plan's nodes (``_volume_rejections``): the nodes
+   of the writers that would overcommit a volume are rejected too;
 3. commit what survived and hand the scheduler a refresh index so it
    places the remainder against fresher state. The plan's post-apply
    hooks run with the commit: the solver service's ``confirm`` gets the
@@ -28,8 +31,7 @@ pool, ``_commit_task``) and its verify pool (``pool_workers``,
 ``PARALLEL_THRESHOLD``, which its own default keeps off), both kept
 there for A/B runs; the overlapping commit rounds of a raft store
 (``_run_commit_pipelined``, ``_begin_round``, ``_finish_round``: the
-port's store commits synchronously), the CSI volume claim re-check
-(``_volume_rejections``: the port places no volumes), plan deadlines
+port's store commits synchronously), plan deadlines
 (``loadctl``) and the plan normalization that strips jobs for the raft
 log.
 """
@@ -237,6 +239,23 @@ class _OverlaySnapshot:
             if alloc_id in by_id:
                 return by_id[alloc_id]
         return self._snap.alloc_by_id(alloc_id)
+
+    def volume_by_id(self, vol_id, namespace="default"):
+        return self._snap.volume_by_id(vol_id, namespace)
+
+    def overlay_writer_volumes(self) -> set:
+        """(namespace, source) of the csi volumes the in-flight results
+        will claim for write at commit: the claims land in the store's
+        transaction, so back-to-back plans must see them here or each
+        could take a single-writer volume as free (reference
+        ``:241-250``). Updates that already hold the claim count too."""
+        from ..structs.volumes import csi_writer_sources
+
+        out = set()
+        for by_id in self._replaced.values():
+            for a in by_id.values():
+                out.update(csi_writer_sources(a))
+        return out
 
 
 class _CommitEntry:
@@ -637,8 +656,9 @@ class PlanApplier:
                                                  block_delta))
         for nid in exact:
             verdict[nid] = self._node_plan_valid(snap, plan, nid)
+        vol_bad = self._volume_rejections(snap, plan)
         for node_id in nodes:
-            if verdict[node_id]:
+            if verdict[node_id] and node_id not in vol_bad:
                 for attr in ("node_allocation", "node_update",
                              "node_preemptions"):
                     bucket = getattr(plan, attr)
@@ -646,7 +666,10 @@ class PlanApplier:
                         getattr(result, attr)[node_id] = bucket[node_id]
             else:
                 rejected.append(node_id)
-                self.bad_nodes.add(node_id)
+                # a lost single-writer race says nothing of the node's
+                # health: only its own invalid plan feeds the tracker
+                if not verdict[node_id]:
+                    self.bad_nodes.add(node_id)
         if rejected and plan.all_at_once:
             result.node_allocation.clear()
             result.node_update.clear()
@@ -660,6 +683,46 @@ class PlanApplier:
                     result.alloc_blocks.append(sliced)
         result.deployment = plan.deployment
         return result, rejected
+
+    def _volume_rejections(self, snap, plan: Plan) -> set:
+        """The nodes whose new csi writers would overcommit a volume
+        (reference ``:1073-1110``): each volume's live blocking writers
+        and the in-flight results' claims, plus the plan's new write
+        placements; the first by sorted (node, job) wins a free
+        single-writer volume."""
+        from ..structs.volumes import (MULTI_WRITER_MODES,
+                                       csi_writer_sources,
+                                       live_blocking_writers)
+
+        writers_wanted: Dict[tuple, List[tuple]] = {}
+        for node_id, allocs in plan.node_allocation.items():
+            for a in allocs:
+                if snap.alloc_by_id(a.id) is not None:
+                    continue  # an update keeps its claim
+                for key in csi_writer_sources(a):
+                    writers_wanted.setdefault(key, []).append(
+                        (node_id, a.job_id))
+        if not writers_wanted:
+            return set()
+        bad: set = set()
+        pending = (snap.overlay_writer_volumes()
+                   if hasattr(snap, "overlay_writer_volumes") else set())
+        for (ns, source), wants in writers_wanted.items():
+            vol = snap.volume_by_id(source, ns)
+            if vol is None:
+                bad.update(n for n, _ in wants)  # the volume went
+                continue
+            if vol.access_mode in MULTI_WRITER_MODES:
+                continue
+            taken = (bool(live_blocking_writers(vol, snap, plan))
+                     or (ns, source) in pending)
+            free = 0 if taken else 1
+            for node_id, _ in sorted(wants):
+                if free > 0:
+                    free -= 1
+                else:
+                    bad.add(node_id)
+        return bad
 
     def _vector_verdicts(self, snap, plan: Plan, node_ids: List[str],
                          block_delta: Optional[Dict[str, object]] = None,

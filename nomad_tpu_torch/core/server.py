@@ -8,49 +8,66 @@ broker (``events``) and the incremental usage feed it feeds
 time), on one device: ``ServerConfig.device`` (resolved by
 ``device.resolve``: the card by default, raising without one; the CPU
 only when asked) is threaded down Server -> Worker -> scheduler ->
-``TorchPlacer`` -> ``tensor.solver.get_service(device)``. The calls it
-serves:
-``register_job``, ``deregister_job``, ``scale_job``,
-``register_node(s)``, ``create_eval``, and the allocation lifecycle's
-calls (reference ``server.py:819-1114``): ``mark_nodes_down`` (down, or
+``TorchPlacer`` -> ``tensor.solver.get_service(device)``.
+
+The lifecycle runs on its own: ``start`` starts four background actors
+beside the workers, and ``stop`` joins them.
+
+- ``heartbeats`` (core/heartbeat.py): a TTL a registered node, armed by
+  ``register_node(s)``, ``heartbeat`` and ``heartbeat_batch`` and, for
+  the nodes of the store the server starts on, by
+  ``_restore_heartbeats``; a node that misses it goes through
+  ``mark_nodes_down``, which skips a node whose TTL a heartbeat re-armed
+  meanwhile;
+- ``deployment_watcher`` (core/deployments.py): progress deadlines,
+  failure with auto-revert, auto-promotion, superseded deployments,
+  follow-up evals;
+- ``drainer`` (core/drainer.py): paced migrate marks off draining
+  nodes;
+- ``core_gc`` (core/core_sched.py): every ``gc_interval`` seconds, and
+  at once through ``force_gc``.
+
+The calls it serves: ``register_job``, ``deregister_job``,
+``scale_job``, ``register_node(s)``, ``deregister_node``, ``heartbeat``,
+``heartbeat_batch``, ``create_eval``, ``register_volume``,
+``deregister_volume``, ``force_gc``, and the allocation lifecycle's
+(reference ``server.py:819-1114``): ``mark_nodes_down`` (down, or
 disconnected where an alloc of the node tolerates it, with a node-update
 eval for every job with live allocs there), ``update_node_status``,
 ``update_node_drain``, ``update_node_eligibility``, ``stop_alloc``,
 ``update_allocs_from_client`` (a retry-failed-alloc eval a job with a
 failed alloc), ``update_alloc_desired_transitions`` (the drainer's
-write with its evals) and ``promote_deployment``; ``wait_for_idle`` for
-tests and benchmarks. The caller plays the drainer, the deployment
-watcher and the heartbeats. Use it as a context manager (``with
-Server(...) as srv:``): ``stop`` leaves no worker, applier, broker or
-reaper thread running.
+write with its evals), ``promote_deployment`` and ``fail_deployment``;
+``wait_for_idle`` for tests and benchmarks. A caller that plays the
+watcher or the drainer itself holds the actor off before ``start``
+(``srv.drainer.start = lambda: None``). Use it as a context manager
+(``with Server(...) as srv:``): ``stop`` leaves no worker, applier,
+broker, reaper, heartbeat, watcher, drainer or GC thread running.
 
 Trimmed (each is an attribute or method of the reference the port does
-not have), and left to ROADMAP A27: the heartbeat manager
-(``heartbeats``, ``heartbeat``, ``heartbeat_batch``,
-``_restore_heartbeats``: ``mark_nodes_down`` skips the reference's
-re-armed-timer check), the deployment watcher
-(``deployment_watcher``, ``fail_deployment``; ``promote_deployment``
-takes a canary's health from its client's ``deployment_status``
-verdict or its task states), the drainer (``drainer``) and core GC
-(``core_gc``, ``force_gc``); and to ROADMAP A10: periodic and
-parameterized jobs (``periodic``, ``dispatch_job``), the event broker's
-direct publishes (the bad-node quarantine publishes nothing) and its
-sizing knobs
+not have), and left to ROADMAP A10: periodic and parameterized jobs
+(``periodic``, ``dispatch_job``), the event broker's direct publishes
+(the bad-node quarantine publishes nothing) and its sizing knobs
 (``event_ring_size``, ``event_shards``: the broker keeps its defaults,
-rings of 4,096 events in 8 shards), the shadow replica
+rings of 4,096 events in 8 shards), the heartbeat manager's
+(``heartbeat_shards``, ``heartbeat_expiry_rate``: 8 timer-wheel shards,
+512 mark-downs a second, core/heartbeat.py), the shadow replica
 (``shadow.maybe_attach``, ROADMAP A8), client alloc sync (``alloc_sync``,
-``client_updates``: client updates write straight to the store),
-ACLs, identities and variables (``acl_*``, ``encrypter``,
-``sign_workload_identity``, ``*_variable``), federation and ACL
-replication (``region*``, ``_run_acl_replication``), the overload
-controller (``loadctl``, the ``_tiered`` admission decorator, poison-eval
-quarantine), namespaces, node pools, volumes and service registrations
-(``_check_namespace``, ``upsert_node_pool``, ``register_volume``, ...),
-the scheduler-config replication (``set_scheduler_config``), dry-run
-plans (``plan_job``), job reverts and the scaling bounds and events
-(``scaling`` stanzas, ``append_scaling_event``), and the unbatched
-plan-commit arm (``plan_commit_batching``; the applier always batches,
-see core/plan_apply.py).
+``client_updates``, ``client_update_batching``: client updates write
+straight to the store), ACLs, identities and variables (``acl_*``,
+``encrypter``, ``sign_workload_identity``, ``*_variable``, and core
+GC's token passes), federation and ACL replication (``region*``,
+``_run_acl_replication``), the overload controller (``loadctl``, the
+``_tiered`` admission decorator, poison-eval quarantine; the heartbeat
+calls are not tiered), namespaces (``_check_namespace``: a volume
+registers into any namespace), node pools and service registrations
+(``upsert_node_pool``, ...), raft leadership (``_is_raft_leader``: the
+heartbeat plane is live while the server runs), the scheduler-config
+replication (``set_scheduler_config``), dry-run plans (``plan_job``),
+operator job reverts and the scaling bounds and events (``scaling``
+stanzas, ``append_scaling_event``), and the unbatched plan-commit arm
+(``plan_commit_batching``; the applier always batches, see
+core/plan_apply.py).
 """
 
 from __future__ import annotations
@@ -75,8 +92,12 @@ from ..tensor import incremental
 from ..utils.ids import generate_uuid
 from .blocked import BlockedEvals
 from .broker import FAILED_QUEUE, EvalBroker
-from .deployments import alloc_healthy
+from .core_sched import CoreScheduler
+from .deployments import DeploymentWatcher, alloc_healthy
+from .drainer import NodeDrainer
 from .events import EventBroker
+from .heartbeat import (EXPIRY_RATE, HeartbeatManager,
+                        HeartbeatPlaneInactive)
 from .plan_apply import BadNodeTracker, PlanApplier, PlanQueue
 from .worker import Worker
 
@@ -84,6 +105,10 @@ from .worker import Worker
 @dataclass
 class ServerConfig:
     num_workers: int = 2
+    # a node that does not heartbeat within this many seconds is marked
+    # down; a caller that never heartbeats (a benchmark, a test that
+    # outlasts the TTL) passes 3600
+    heartbeat_ttl: float = 10.0
     nack_timeout: float = 60.0
     eval_delivery_limit: int = 3
     # evals a worker drains a dequeue and runs on one snapshot
@@ -97,6 +122,8 @@ class ServerConfig:
     plan_rejection_tracker_enabled: bool = False
     plan_rejection_threshold: int = 100
     plan_rejection_window: float = 300.0
+    # seconds between core GC passes (force_gc runs one at once)
+    gc_interval: float = 60.0
     sched_config: SchedulerConfiguration = field(
         default_factory=SchedulerConfiguration)
     # where the placer's tensors and kernels run: None is the card
@@ -125,6 +152,11 @@ class Server:
                 on_bad_node=self._on_bad_node))
         self.workers: List[Worker] = [
             Worker(self, i) for i in range(self.config.num_workers)]
+        self.heartbeats = HeartbeatManager(
+            self, ttl=self.config.heartbeat_ttl, expiry_rate=EXPIRY_RATE)
+        self.deployment_watcher = DeploymentWatcher(self)
+        self.drainer = NodeDrainer(self)
+        self.core_gc = CoreScheduler(self, interval=self.config.gc_interval)
         self.events = EventBroker(self.store)
         # the incremental usage feed reads this event stream (always
         # attached; NOMAD_TPU_INCR=0 is its call-time kill switch)
@@ -152,9 +184,14 @@ class Server:
         self.plan_applier.start()
         self.broker.set_enabled(True)
         self.blocked.set_enabled(True)
+        self.heartbeats.set_enabled(True)
+        self._restore_heartbeats()
         self._restore_evals()
         for w in self.workers:
             w.start()
+        self.deployment_watcher.start()
+        self.drainer.start()
+        self.core_gc.start()
         self._reaper = threading.Thread(target=self._run_reaper,
                                         daemon=True, name="eval-reaper")
         self._reaper.start()
@@ -167,6 +204,10 @@ class Server:
             w.stop()
         for w in self.workers:
             w.join()
+        self.core_gc.stop()
+        self.drainer.stop()
+        self.deployment_watcher.stop()
+        self.heartbeats.set_enabled(False)
         self.blocked.set_enabled(False)
         self.broker.set_enabled(False)
         self.plan_applier.stop()
@@ -182,6 +223,14 @@ class Server:
 
     def __exit__(self, *exc):
         self.stop()
+
+    def _restore_heartbeats(self) -> None:
+        """Arm the TTL of every ready node of the store the server starts
+        on (reference ``:416-424``): a node that went silent while no
+        server watched it is still timed out."""
+        ready = [n.id for n in self.store.snapshot().nodes()
+                 if n.status == enums.NODE_STATUS_READY]
+        self.heartbeats.restore(ready)
 
     def _restore_evals(self) -> None:
         """Re-enqueue pending evals and re-block blocked ones of a store
@@ -387,6 +436,33 @@ class Server:
             deployment_id=dep.id, status=enums.EVAL_STATUS_PENDING,
             create_time=time.time()))
 
+    def fail_deployment(self, dep_id: str) -> None:
+        """Deployment.Fail: an operator's forced failure; the watcher's
+        failure handling (auto-revert) does not run for it (reference
+        ``:1077-1091``)."""
+        dep = self.store.snapshot().deployment_by_id(dep_id)
+        if dep is None:
+            raise KeyError(f"deployment {dep_id} not found")
+        if not dep.active():
+            raise ValueError(f"deployment {dep_id} is already {dep.status}")
+        upd = _copy.copy(dep)
+        upd.status = enums.DEPLOYMENT_STATUS_FAILED
+        upd.status_description = "Deployment marked as failed by operator"
+        self.store.upsert_deployment(upd)
+
+    # -- volumes and GC --
+
+    def register_volume(self, vol) -> None:
+        self.store.upsert_volume(vol)
+
+    def deregister_volume(self, vol_id: str, namespace: str = "default",
+                          force: bool = False) -> None:
+        self.store.delete_volume(vol_id, namespace, force=force)
+
+    def force_gc(self) -> Dict:
+        """``nomad system gc``: every collector, whatever the age."""
+        return self.core_gc.force_gc(threshold_override=0)
+
     # -- allocation calls --
 
     def stop_alloc(self, alloc_id: str) -> str:
@@ -453,9 +529,9 @@ class Server:
 
     # -- node calls --
 
-    def register_node(self, node: Node) -> None:
-        """Node.Register; a ready node gets the evals of the system jobs
-        and of the jobs with allocs on it."""
+    def register_node(self, node: Node) -> float:
+        """Node.Register -> the heartbeat TTL; a ready node gets the evals
+        of the system jobs and of the jobs with allocs on it."""
         if not node.id:
             raise ValueError("node registration requires node.id")
         if not node.computed_class:
@@ -463,40 +539,119 @@ class Server:
         self.store.upsert_node(node)
         if node.ready():
             self._create_node_evals_batch([node.id])
+        return self.heartbeats.reset(node.id)
 
-    def register_nodes(self, nodes: List[Node]) -> None:
-        """Many nodes in one store write and one eval pass."""
+    def register_nodes(self, nodes: List[Node]) -> float:
+        """Many nodes in one store write and one eval pass; each TTL is
+        armed. Returns the TTL."""
         for node in nodes:
             if not node.id:
                 raise ValueError("node registration requires node.id")
             if not node.computed_class:
                 node.compute_class()
         if not nodes:
-            return
+            return self.config.heartbeat_ttl
         self.store.upsert_nodes(list(nodes))
         ready = [n.id for n in nodes if n.ready()]
         if ready:
             self._create_node_evals_batch(ready)
+        for node in nodes:
+            self.heartbeats.reset(node.id)
+        return self.config.heartbeat_ttl
+
+    def heartbeat(self, node_id: str) -> float:
+        """Node.UpdateStatus(ready) from a live client (reference
+        ``:750-778``): a node marked down comes back to ready; an unknown
+        node raises KeyError rather than arm a TTL for no row."""
+        if not self.heartbeats.enabled:
+            raise HeartbeatPlaneInactive(
+                "heartbeat plane is not active on this server")
+        node = self.store.snapshot().node_by_id(node_id)
+        if node is None:
+            raise KeyError(f"node {node_id} is not registered")
+        if node.status != enums.NODE_STATUS_READY:
+            self.update_node_status(node_id, enums.NODE_STATUS_READY)
+            return self.config.heartbeat_ttl
+        ttl = self.heartbeats.reset(node_id)
+        # re-read AFTER arming: a mark-down that committed while this
+        # call was in flight must not survive an acked heartbeat
+        node = self.store.snapshot().node_by_id(node_id)
+        if node is not None and node.status != enums.NODE_STATUS_READY:
+            self.update_node_status(node_id, enums.NODE_STATUS_READY)
+        return ttl
+
+    def heartbeat_batch(self, node_ids: List[str]) -> float:
+        """Heartbeats of many nodes (reference ``:780-817``): a ready
+        node's is a timer re-arm with no store write; nodes coming back
+        from down or disconnected flip to ready in one write; unknown ids
+        are dropped. Refused whole while the server is stopped."""
+        if not self.heartbeats.enabled:
+            raise HeartbeatPlaneInactive(
+                "heartbeat plane is not active on this server")
+        snap = self.store.snapshot()
+        known: List[str] = []
+        stale: List[str] = []
+        for node_id in node_ids:
+            node = snap.node_by_id(node_id)
+            if node is None:
+                continue
+            known.append(node_id)
+            if node.status != enums.NODE_STATUS_READY:
+                stale.append(node_id)
+            else:
+                self.heartbeats.reset(node_id)
+        if known:
+            # re-read AFTER arming: a mark-down that committed meanwhile
+            # saw none of these timers armed; revive those nodes too
+            snap2 = self.store.snapshot()
+            seen = set(stale)
+            for node_id in known:
+                node = snap2.node_by_id(node_id)
+                if (node is not None and node_id not in seen
+                        and node.status != enums.NODE_STATUS_READY):
+                    stale.append(node_id)
+        if stale:
+            self.store.update_nodes_status(stale, enums.NODE_STATUS_READY,
+                                           ts=time.time())
+            for node_id in stale:
+                self.heartbeats.reset(node_id)
+            self._create_node_evals_batch(stale)
+        return self.config.heartbeat_ttl
 
     def update_node_status(self, node_id: str, status: str) -> None:
         """A node's status flip, with the evals of its jobs (reference
-        ``server.py:819-826``)."""
+        ``server.py:819-826``); down or disconnected drops its TTL, ready
+        re-arms it."""
         self.store.update_node_status(node_id, status, ts=time.time())
-        if status in (enums.NODE_STATUS_DOWN, enums.NODE_STATUS_DISCONNECTED,
-                      enums.NODE_STATUS_READY):
+        if status in (enums.NODE_STATUS_DOWN, enums.NODE_STATUS_DISCONNECTED):
+            self.heartbeats.remove(node_id)
+            self._create_node_evals_batch([node_id])
+        elif status == enums.NODE_STATUS_READY:
+            self.heartbeats.reset(node_id)
             self._create_node_evals_batch([node_id])
 
-    def mark_nodes_down(self, node_ids: List[str]) -> None:
+    def mark_node_down(self, node_id: str, reason: str = "") -> None:
+        self.mark_nodes_down([node_id], reason=reason)
+
+    def mark_nodes_down(self, node_ids: List[str], reason: str = "") -> None:
         """Missed-TTL handler for a batch of nodes (reference
         ``server.py:835-889``): a node goes ``disconnected`` when a live
         alloc on it belongs to a group with ``max_client_disconnect``
         (its allocs turn unknown), else ``down`` (its allocs are lost);
-        one status write a class and one eval pass for the batch."""
+        one status write a class and one eval pass for the batch. A node
+        whose TTL is armed again (it heartbeated after its expiry was
+        collected) is skipped, and one whose heartbeat re-armed it while
+        the mark committed flips straight back to ready: marking a node
+        that checked in would be a false mark-down."""
         snap = self.store.snapshot()
         down: List[str] = []
         disconnected: List[str] = []
         for node_id in node_ids:
+            if self.heartbeats.armed(node_id):
+                continue
             if snap.node_by_id(node_id) is None:
+                # deleted while its TTL was in flight
+                self.heartbeats.remove(node_id)
                 continue
             status = enums.NODE_STATUS_DOWN
             for alloc in snap.allocs_by_node(node_id):
@@ -510,18 +665,34 @@ class Server:
             (down if status == enums.NODE_STATUS_DOWN
              else disconnected).append(node_id)
         ts = time.time()
+        revived: List[str] = []
         for group, status in ((down, enums.NODE_STATUS_DOWN),
                               (disconnected, enums.NODE_STATUS_DISCONNECTED)):
-            if group:
-                self.store.update_nodes_status(group, status, ts=ts)
+            if not group:
+                continue
+            self.store.update_nodes_status(group, status, ts=ts)
+            for node_id in group:
+                if self.heartbeats.armed(node_id):
+                    revived.append(node_id)
+                else:
+                    self.heartbeats.remove(node_id)
+        if revived:
+            self.store.update_nodes_status(
+                revived, enums.NODE_STATUS_READY, ts=time.time())
         if down or disconnected:
             self._create_node_evals_batch(down + disconnected)
+
+    def deregister_node(self, node_id: str) -> None:
+        """Node.Deregister: drop the node and reschedule its work."""
+        self.heartbeats.remove(node_id)
+        self.store.delete_node(node_id)
+        self._create_node_evals_batch([node_id])
 
     def update_node_drain(self, node_id: str, drain_strategy,
                           mark_eligible: bool = False) -> None:
         """Start (or end) a node's drain, with the evals of its jobs
-        (reference ``server.py:896-899``); the caller plays the drainer
-        through ``update_alloc_desired_transitions``."""
+        (reference ``server.py:896-899``); the drainer then paces the
+        migrate marks."""
         self.store.update_node_drain(node_id, drain_strategy, mark_eligible)
         self._create_node_evals_batch([node_id])
 

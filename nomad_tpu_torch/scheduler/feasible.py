@@ -2,8 +2,10 @@
 node-attribute constraints (version and semver included), drivers and
 device counts, evaluated once per unique attribute value into a boolean
 mask over the node list; the reserved-ports mask; and the distinct_hosts
-/ distinct_property masks of the host oracle. Network modes other than
-"host" and volumes are ROADMAP queue A5b and raise here."""
+/ distinct_property masks of the host oracle; network modes (bridge by
+the ``network.bridge`` fingerprint, ``cni/*`` by the plugin's), host
+volumes (memoized with the node's class) and CSI volumes (per eval,
+never memoized: claims change apart from node classes)."""
 
 from __future__ import annotations
 
@@ -14,9 +16,7 @@ import numpy as np
 
 from ..structs import Constraint, Job, Node, TaskGroup, enums
 from ..structs.network import NetworkIndex
-
-# what the port does not model yet, named in every such raise
-UNPORTED_A5B = "ROADMAP queue A5b (network modes, host and CSI volumes)"
+from ..structs.volumes import MULTI_WRITER_MODES, live_blocking_writers
 
 
 def is_class_escaped(target: str) -> bool:
@@ -277,13 +277,77 @@ def _network_modes(tg: TaskGroup) -> set:
 
 def network_mask(tg: TaskGroup, nodes: Sequence[Node]) -> np.ndarray:
     """The requested network modes on the node (reference
-    ``feasible.py:336``): "host" (and "", the default) is on every node;
-    any other mode raises."""
-    other = _network_modes(tg) - {"host"}
-    if other:
-        raise NotImplementedError(
-            f"network modes {sorted(other)}: {UNPORTED_A5B}")
-    return np.ones(len(nodes), dtype=bool)
+    ``feasible.py:336-366``): "host" (and "", the default) is on every
+    node; "bridge" needs the bridge fingerprint; a "cni/*" mode its
+    plugin's version fingerprint; any mode the node fingerprints as a
+    network of its own is on it."""
+    modes = _network_modes(tg) - {"host"}
+    if not modes:
+        return np.ones(len(nodes), dtype=bool)
+    out = np.empty(len(nodes), dtype=bool)
+    for i, node in enumerate(nodes):
+        have = {n.mode for n in node.resources.networks}
+        ok = True
+        for m in modes:
+            if m in have:
+                continue
+            if m == "bridge" and str(node.attributes.get(
+                    "network.bridge", "")).lower() in ("1", "true"):
+                continue
+            if m.startswith("cni/") and str(node.attributes.get(
+                    f"plugins.cni.version.{m[4:]}", "")):
+                continue
+            ok = False
+            break
+        out[i] = ok
+    return out
+
+
+def host_volume_mask(tg: TaskGroup, nodes: Sequence[Node]) -> np.ndarray:
+    """Every host-type volume request names a volume the node exposes,
+    and a read-write request a volume that is not read-only (reference
+    ``feasible.py:369-387``)."""
+    asks = [v for v in tg.volumes.values() if v.type == "host"]
+    if not asks:
+        return np.ones(len(nodes), dtype=bool)
+    out = np.empty(len(nodes), dtype=bool)
+    for i, node in enumerate(nodes):
+        ok = True
+        for req in asks:
+            hv = node.host_volumes.get(req.source)
+            if hv is None or (getattr(hv, "read_only", False)
+                              and not req.read_only):
+                ok = False
+                break
+        out[i] = ok
+    return out
+
+
+def csi_volume_mask(tg: TaskGroup, nodes: Sequence[Node], snapshot,
+                    namespace: str = "default", plan=None) -> np.ndarray:
+    """Every csi-type request names a registered volume whose topology
+    admits the node and whose access mode has room for the claim
+    (reference ``feasible.py:390-420``). A writer is blocked only by live
+    claims that the plan in progress does not stop
+    (``live_blocking_writers``)."""
+    asks = [v for v in tg.volumes.values() if v.type == "csi"]
+    if not asks:
+        return np.ones(len(nodes), dtype=bool)
+    if snapshot is None:
+        return np.zeros(len(nodes), dtype=bool)
+    vols = []
+    for req in asks:
+        vol = snapshot.volume_by_id(req.source, namespace)
+        if vol is None:
+            return np.zeros(len(nodes), dtype=bool)
+        if (not req.read_only and vol.access_mode not in MULTI_WRITER_MODES
+                and live_blocking_writers(vol, snapshot, plan)):
+            return np.zeros(len(nodes), dtype=bool)
+        vols.append(vol)
+    out = np.empty(len(nodes), dtype=bool)
+    for i, node in enumerate(nodes):
+        out[i] = all(v.schedulable_on(node.id) for v in vols)
+    return out
 
 
 def reserved_ports_mask(tg: TaskGroup, nodes: Sequence[Node],
@@ -314,15 +378,14 @@ def feasible_mask_static(job: Job, tg: TaskGroup, nodes: Sequence[Node],
                          version_cache: Optional[dict] = None
                          ) -> np.ndarray:
     """The node-attribute-only feasibility mask: drivers, device counts,
-    network modes, constraints. Cacheable per (task-group signature,
-    node-set version)."""
-    if tg.volumes:
-        raise NotImplementedError(f"volumes: {UNPORTED_A5B}")
+    network modes, host volumes, constraints. Cacheable per (task-group
+    signature, node-set version)."""
     mask = driver_mask(tg, nodes)
     if not mask.any():
         return mask
     mask &= device_mask(tg, nodes)
     mask &= network_mask(tg, nodes)
+    mask &= host_volume_mask(tg, nodes)
     for c in job_constraints(job, tg):
         if not mask.any():
             break
@@ -336,9 +399,25 @@ def tg_mask_signature(job: Job, tg: TaskGroup) -> tuple:
     drivers = tuple(sorted({t.driver for t in tg.tasks}))
     devs = tuple(sorted((d.name, d.count)
                         for t in tg.tasks for d in t.resources.devices))
+    hvols = tuple(sorted((v.source, v.read_only)
+                         for v in tg.volumes.values() if v.type == "host"))
     cons = tuple((c.ltarget, c.operand, c.rtarget)
                  for c in job_constraints(job, tg))
-    return (drivers, devs, tuple(sorted(_network_modes(tg))), cons)
+    return (drivers, devs, tuple(sorted(_network_modes(tg))), hvols, cons)
+
+
+def feasible_mask(job: Job, tg: TaskGroup, nodes: Sequence[Node],
+                  regex_cache: Optional[dict] = None,
+                  version_cache: Optional[dict] = None,
+                  snapshot=None, plan=None) -> np.ndarray:
+    """The full mask: the static one, with the CSI claim check folded in
+    for a group that claims csi volumes (reference ``feasible.py:491``);
+    without a snapshot such a group masks every node out."""
+    mask = feasible_mask_static(job, tg, nodes, regex_cache, version_cache)
+    if any(v.type == "csi" for v in tg.volumes.values()):
+        mask = mask & csi_volume_mask(tg, nodes, snapshot, job.namespace,
+                                      plan)
+    return mask
 
 
 def _truthy(rtarget: str) -> bool:

@@ -37,8 +37,9 @@ from ..structs.network import NetworkIndex
 from .context import EvalContext
 from .devices import (DeviceIndex, combined_numa_affinity,
                       device_affinity_boost, select_cores)
-from .feasible import (check_constraint, device_mask, distinct_hosts_mask,
-                       distinct_property_mask, driver_mask, network_mask,
+from .feasible import (check_constraint, csi_volume_mask, device_mask,
+                       distinct_hosts_mask, distinct_property_mask,
+                       driver_mask, host_volume_mask, network_mask,
                        node_meets_constraint, resolve_target)
 from .preemption import (preempt_for_device, preempt_for_network,
                          preempt_for_task_group)
@@ -276,8 +277,9 @@ class NodeScorer:
 def _class_feasible(ctx: EvalContext, job: Job, tg: TaskGroup,
                     node: Node) -> bool:
     """Class-memoized job and group feasibility for one node: job
-    constraints, then drivers, device counts, network modes and
-    group/task constraints."""
+    constraints, then drivers, device counts, network modes, host volumes
+    and group/task constraints; then the CSI claims, checked per node and
+    never memoized (reference ``rank.py:336-385``)."""
     klass = node.computed_class
     elig = ctx.eligibility
     ok = elig.job_status(klass)
@@ -297,6 +299,7 @@ def _class_feasible(ctx: EvalContext, job: Job, tg: TaskGroup,
         ok = (bool(driver_mask(tg, [node])[0])
               and bool(device_mask(tg, [node])[0])
               and bool(network_mask(tg, [node])[0])
+              and bool(host_volume_mask(tg, [node])[0])
               and all(node_meets_constraint(c, node, ctx.regex_cache,
                                             ctx.version_cache)
                       for c in tg_cons))
@@ -305,6 +308,12 @@ def _class_feasible(ctx: EvalContext, job: Job, tg: TaskGroup,
         if ctx.metrics is not None:
             ctx.metrics.filter_node("task group constraints")
         return False
+    if any(v.type == "csi" for v in tg.volumes.values()):
+        if not bool(csi_volume_mask(tg, [node], ctx.snapshot,
+                                    job.namespace, ctx.plan)[0]):
+            if ctx.metrics is not None:
+                ctx.metrics.filter_node("csi volumes")
+            return False
     return True
 
 

@@ -7,8 +7,9 @@ or later, mark unknown on a disconnected node or take back on a
 reconnected one; canaries hold the old version until the group's
 deployment is promoted. The nodes are chosen downstream by the placer;
 the reconciler only decides what must change. A group missing at least
-``BULK_PLACE_MIN`` allocations with nothing else pending gets ONE
-columnar request. A group with volumes raises (ROADMAP queue A5b).
+``BULK_PLACE_MIN`` allocations with nothing else pending and no volumes
+gets ONE columnar request (a volume claim is written for each alloc, so a group
+with volumes places alloc by alloc).
 """
 
 from __future__ import annotations
@@ -215,9 +216,6 @@ class AllocReconciler:
                        allocs: List[Allocation]) -> GroupResult:
         g = GroupResult()
         desired = tg.count
-        if tg.volumes:
-            raise NotImplementedError(
-                f"group {tg.name!r} claims volumes: ROADMAP queue A5b")
 
         # partition current allocs (reference reconcile_util.go
         # filterByTainted)
@@ -427,7 +425,7 @@ class AllocReconciler:
                 + g.failed_no_reschedule + len(g.disconnecting))
         missing = max(0, desired - have - self._pending_reschedules(g))
         if (missing >= BULK_PLACE_MIN and not g.place
-                and not g.destructive_update):
+                and not g.destructive_update and not tg.volumes):
             # columnar fast path: K identical fresh placements ride as
             # ONE request; names/ids materialize lazily downstream. Only
             # when nothing else is pending for the group (replacements

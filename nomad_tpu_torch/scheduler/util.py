@@ -149,6 +149,8 @@ def tasks_updated(old_tg, new_tg) -> bool:
             return True
         if _device_sig(orr.devices) != _device_sig(nrr.devices):
             return True
+        if _rows(o.volume_mounts) != _rows(n.volume_mounts):
+            return True
     return False
 
 

@@ -24,6 +24,13 @@ def cons(head: Any, tail: Optional[ConsList]) -> ConsList:
     return ConsList(head, tail)
 
 
+def cons_from_iter(items) -> Optional[ConsList]:
+    cell = None
+    for it in items:
+        cell = ConsList(it, cell)
+    return cell
+
+
 def cons_iter(cell: Optional[ConsList]) -> Iterator[Any]:
     while cell is not None:
         yield cell.head
@@ -73,11 +80,39 @@ class VersionedTable:
                 chain.gens.append(gen)
                 chain.vals.append(value)
         if len(chain.gens) > 1 and chain.gens[0] < min_live_gen:
-            # keep the newest version at or below min_live_gen onward
-            i = bisect.bisect_right(chain.gens, min_live_gen) - 1
-            if i > 0:
-                del chain.gens[:i]
-                del chain.vals[:i]
+            self._prune(chain, min_live_gen)
+
+    @staticmethod
+    def _prune(chain: _Chain, min_live_gen: int) -> None:
+        # keep the newest version at or below min_live_gen onward
+        i = bisect.bisect_right(chain.gens, min_live_gen) - 1
+        if i > 0:
+            del chain.gens[:i]
+            del chain.vals[:i]
+
+    def compact_key(self, key: Any, min_live_gen: int) -> bool:
+        """Prune one key's chain and drop the key when its only surviving
+        version is a tombstone no live snapshot can see (reference
+        ``mvcc.py:205``). Returns whether the key went."""
+        row = self._rows.get(key)
+        if row is None:
+            return False
+        if type(row) is not tuple:
+            if len(row.gens) > 1:
+                self._prune(row, min_live_gen)
+            if len(row.gens) != 1:
+                return False
+            row = (row.gens[0], row.vals[0])
+        if row[1] is None and row[0] <= min_live_gen:
+            del self._rows[key]
+            return True
+        return False
+
+    def sweep(self, min_live_gen: int) -> int:
+        """``compact_key`` over every key (the GC pass, never the write
+        path). Returns the keys dropped."""
+        return sum(self.compact_key(key, min_live_gen)
+                   for key in list(self._rows))
 
     def delete(self, key: Any, gen: int, min_live_gen: int) -> None:
         """From ``gen`` on the key reads as absent: its value is None."""

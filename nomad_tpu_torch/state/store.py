@@ -1,8 +1,9 @@
 """The state store, trimmed to the placement paths and the allocation
 lifecycle (reference ``nomad_tpu/state/store.py``): nodes, node pools,
-jobs, evals, deployments, alloc blocks (the bulk path's placements) and
-single allocations (the per-eval path's) in MVCC tables, one serialized
-writer and any number of concurrent snapshot readers.
+jobs with their versions, evals, deployments, registered volumes with
+their claims, alloc blocks (the bulk path's placements) and single
+allocations (the per-eval path's) in MVCC tables, one serialized writer
+and any number of concurrent snapshot readers.
 
 For the Server (``core/``): commit listeners called with each published
 generation and its events, each write emitting the reference's kinds
@@ -10,10 +11,16 @@ and payloads (``node-upsert``, ``node-status``, ``node-eligibility``,
 ``node-drain``, ``node-pool-upsert``, ``job-upsert``, ``job-delete``,
 ``eval-upsert``, ``deployment-upsert``, ``alloc-upsert``,
 ``alloc-stop``, ``alloc-preempt``, ``alloc-client-update``,
-``alloc-transition``, ``alloc-block-upsert``), which the Server's
-unblock rules, the event broker and the incremental feed read; the
-writes the port does not have (GC, node delete, restore) are ROADMAP
-A27 and A10. A client update, a transition or a plan's rewrite of an
+``alloc-transition``, ``alloc-block-upsert``, ``node-delete``,
+``job-status``, ``eval-delete``, ``deployment-delete``, ``alloc-gc``,
+``volume-upsert``, ``volume-delete``, ``volume-claim``,
+``volume-claim-release``), which the Server's unblock rules, the event
+broker and the incremental feed read. Core GC's writes:
+``delete_node``, ``delete_evals``, ``delete_job``, ``update_job_status``,
+``delete_deployment``, ``reap_volume_claims``, ``gc_terminal_allocs``
+(a GC'd block position is marked dropped in a new block version, with
+no event of its own) and ``compact``. The restore of a dumped store is
+ROADMAP A10. A client update, a transition or a plan's rewrite of an
 AllocBlock position (id ``"<block>.<p>"``) promotes it: the written row
 shadows the block's virtual row in every read, once. Also
 ``snapshot_min_index`` (the worker's and the applier's wait, reference
@@ -49,7 +56,8 @@ from ..structs.evaluation import Evaluation
 from ..structs.job import Job
 from ..structs.node import Node
 from ..structs.resources import RESOURCE_DIMS
-from .mvcc import SnapshotTracker, VersionedTable, cons, cons_iter
+from .mvcc import (SnapshotTracker, VersionedTable, cons, cons_from_iter,
+                   cons_iter)
 
 
 def _block_alloc(alloc_id: str, lookup) -> Optional[Allocation]:
@@ -168,13 +176,41 @@ class StateSnapshot:
     def jobs(self) -> Iterator[Job]:
         return (j for _, j in self._store._jobs.iterate(self.index))
 
+    def job_version(self, job_id: str, version: int,
+                    namespace: str = "default") -> Optional[Job]:
+        return self._store._job_versions.get((namespace, job_id, version),
+                                             self.index)
+
     def eval_by_id(self, eval_id: str) -> Optional[Evaluation]:
         return self._store._evals.get(eval_id, self.index)
+
+    def evals_by_job(self, job_id: str,
+                     namespace: str = "default") -> List[Evaluation]:
+        out = []
+        for eid in cons_iter(self._store._evals_by_job.get(
+                (namespace, job_id), self.index)):
+            ev = self.eval_by_id(eid)
+            if ev is not None:
+                out.append(ev)
+        return out
 
     def evals(self) -> Iterator[Evaluation]:
         return (e for _, e in self._store._evals.iterate(self.index))
 
+    # --- volumes ---
+
+    def volume_by_id(self, vol_id: str, namespace: str = "default"):
+        return self._store._volumes.get((namespace, vol_id), self.index)
+
+    def volumes(self, namespace: Optional[str] = None):
+        for (ns, _vid), v in self._store._volumes.iterate(self.index):
+            if namespace is None or ns == namespace:
+                yield v
+
     # --- deployments ---
+
+    def deployments(self) -> Iterator[Deployment]:
+        return (d for _, d in self._store._deployments.iterate(self.index))
 
     def deployment_by_id(self, dep_id: str) -> Optional[Deployment]:
         return self._store._deployments.get(dep_id, self.index)
@@ -264,6 +300,9 @@ class StateSnapshot:
         return self._allocs_from_index(self._store._allocs_by_job,
                                        (namespace, job_id))
 
+    def allocs_by_eval(self, eval_id: str) -> List[Allocation]:
+        return self._allocs_from_index(self._store._allocs_by_eval, eval_id)
+
 
 class StateStore:
     """MVCC tables + a serialized write path. Safe for concurrent
@@ -282,7 +321,11 @@ class StateStore:
         self._nodes = VersionedTable("nodes")
         self._node_pools = VersionedTable("node_pools")
         self._jobs = VersionedTable("jobs")
+        # key (ns, job id, version): auto-revert reads the prior version
+        self._job_versions = VersionedTable("job_versions")
         self._evals = VersionedTable("evals")
+        self._evals_by_job = VersionedTable("evals_by_job")
+        self._volumes = VersionedTable("volumes")       # key (ns, id)
         self._alloc_blocks = VersionedTable("alloc_blocks")
         self._allocs = VersionedTable("allocs")
         # per block id, how many of its positions a real row shadows; a
@@ -292,6 +335,7 @@ class StateStore:
         self._deployments_by_job = VersionedTable("deployments_by_job")
         self._allocs_by_node = VersionedTable("allocs_by_node")
         self._allocs_by_job = VersionedTable("allocs_by_job")
+        self._allocs_by_eval = VersionedTable("allocs_by_eval")
         # per-node summed allocated_vec of non-terminal allocs
         self._node_usage = VersionedTable("node_usage")
         # per-node device-instance and reserved-core counts of the
@@ -310,6 +354,13 @@ class StateStore:
         # lockstep with _node_usage: the placer reads it with one gather
         self._usage_rows: Dict[str, int] = {}
         self._usage_mat = np.zeros((256, RESOURCE_DIMS))
+        self._all_tables = [
+            self._nodes, self._node_pools, self._jobs, self._job_versions,
+            self._evals, self._evals_by_job, self._volumes,
+            self._alloc_blocks, self._allocs, self._promoted,
+            self._deployments, self._deployments_by_job,
+            self._allocs_by_node, self._allocs_by_job, self._allocs_by_eval,
+            self._node_usage, self._node_dev_usage]
 
     # --- infrastructure ---
 
@@ -353,6 +404,14 @@ class StateStore:
             self._cond.notify_all()
         for fn in self._listeners:
             fn(gen, events)
+
+    def compact(self) -> int:
+        """Prune version chains and drop the tombstones no live snapshot
+        can see, across every table (core GC's last pass, reference
+        ``store.py:594``). Returns the rows dropped."""
+        with self._write_lock:
+            floor = self._tracker.min_live(self._index)
+            return sum(t.sweep(floor) for t in self._all_tables)
 
     # --- nodes ---
 
@@ -451,6 +510,23 @@ class StateStore:
             n.scheduling_eligibility = eligibility
         return self._update_node(node_id, "node-eligibility", mut)
 
+    def delete_node(self, node_id: str) -> int:
+        """Node GC and deregistration (reference ``store.py:726-737``):
+        the row goes, its usage rows are zeroed, and ``node-delete``
+        tells the feed that the node set changed."""
+        with self._write_lock:
+            gen, live = self._begin()
+            node = self._nodes.get_latest(node_id)
+            self._nodes.delete(node_id, gen, live)
+            self._node_usage.delete(node_id, gen, live)
+            self._node_dev_usage.delete(node_id, gen, live)
+            row = self._usage_rows.get(node_id)
+            if row is not None:
+                self._usage_mat[row] = 0.0
+            self._bump_node_set(gen)
+            self._commit(gen, [("node-delete", node)])
+            return gen
+
     def upsert_node_pool(self, pool) -> int:
         with self._write_lock:
             gen, live = self._begin()
@@ -480,6 +556,8 @@ class StateStore:
             # rewrite history in place
             row = copy.copy(job)
             self._jobs.put(key, row, gen, live)
+            self._job_versions.put((job.namespace, job.id, job.version), row,
+                                   gen, live)
             self._commit(gen, [("job-upsert", row)])
             return gen
 
@@ -502,6 +580,21 @@ class StateStore:
             self._commit(gen, [("job-delete", job)])
             return gen
 
+    def update_job_status(self, job_id: str, status: str,
+                          namespace: str = "default") -> int:
+        with self._write_lock:
+            key = (namespace, job_id)
+            job = self._jobs.get_latest(key)
+            if job is None:
+                raise KeyError(f"job {job_id} not found")
+            gen, live = self._begin()
+            job = copy.copy(job)
+            job.status = status
+            job.modify_index = gen
+            self._jobs.put(key, job, gen, live)
+            self._commit(gen, [("job-status", job)])
+            return gen
+
     def upsert_evals(self, evals: List[Evaluation], ts: float = None) -> int:
         with self._write_lock:
             gen, live = self._begin()
@@ -519,6 +612,31 @@ class StateStore:
         if not ev.create_time:
             ev.create_time = ev.modify_time
         self._evals.put(ev.id, ev, gen, live)
+        if prev is None:
+            key = (ev.namespace, ev.job_id)
+            cell = self._evals_by_job.get_latest(key)
+            self._evals_by_job.put(key, cons(ev.id, cell), gen, live)
+
+    def delete_evals(self, eval_ids: List[str]) -> int:
+        """Drop evals and their ids from the job index (reference
+        ``store.py:827``)."""
+        with self._write_lock:
+            gen, live = self._begin()
+            dead = set(eval_ids)
+            jobs_touched = set()
+            for eid in eval_ids:
+                ev = self._evals.get_latest(eid)
+                if ev is not None:
+                    jobs_touched.add((ev.namespace, ev.job_id))
+                self._evals.delete(eid, gen, live)
+            for key in sorted(jobs_touched):
+                cell = self._evals_by_job.get_latest(key)
+                ids = [i for i in cons_iter(cell) if i not in dead]
+                if cell is not None and len(ids) != cell.length:
+                    self._evals_by_job.put(
+                        key, cons_from_iter(reversed(ids)), gen, live)
+            self._commit(gen, [("eval-delete", list(eval_ids))])
+            return gen
 
     # --- usage rows ---
 
@@ -685,6 +803,101 @@ class StateStore:
             self._commit(gen, [("deployment-upsert", dep)])
             return gen
 
+    def delete_deployment(self, dep_id: str) -> int:
+        """GC of a terminal deployment (reference ``store.py:1327``)."""
+        with self._write_lock:
+            gen, live = self._begin()
+            dep = self._deployments.get_latest(dep_id)
+            self._deployments.delete(dep_id, gen, live)
+            self._commit(gen, [("deployment-delete", dep)])
+            return gen
+
+    # --- volumes (reference ``store.py:1351-1383, 1457-1510``) ---
+
+    def upsert_volume(self, vol) -> int:
+        with self._write_lock:
+            gen, live = self._begin()
+            key = (vol.namespace, vol.id)
+            prev = self._volumes.get_latest(key)
+            if prev is not None:
+                vol.create_index = prev.create_index
+                # claims are the store's: a re-register keeps live ones
+                if not vol.claims and prev.claims:
+                    vol.claims = dict(prev.claims)
+            else:
+                vol.create_index = gen
+            vol.modify_index = gen
+            self._volumes.put(key, vol, gen, live)
+            self._commit(gen, [("volume-upsert", vol)])
+            return gen
+
+    def delete_volume(self, vol_id: str, namespace: str = "default",
+                      force: bool = False) -> int:
+        with self._write_lock:
+            key = (namespace, vol_id)
+            vol = self._volumes.get_latest(key)
+            if vol is not None and vol.claims and not force:
+                raise ValueError(
+                    f"volume {vol_id} has {len(vol.claims)} live claims")
+            gen, live = self._begin()
+            self._volumes.delete(key, gen, live)
+            self._commit(gen, [("volume-delete", vol)])
+            return gen
+
+    def _claim_volumes_for(self, alloc: Allocation, gen: int, live: int,
+                           events: list) -> None:
+        """Record a first-inserted placement's csi claims inside the
+        plan's commit (the applier re-checked them). Readers claim too."""
+        from ..structs.volumes import VolumeClaim
+
+        job = alloc.job
+        tg = job.lookup_task_group(alloc.task_group) if job else None
+        if tg is None or not tg.volumes:
+            return
+        for req in tg.volumes.values():
+            if req.type != "csi":
+                continue
+            key = (alloc.namespace, req.source)
+            vol = self._volumes.get_latest(key)
+            if vol is None:
+                continue
+            vol = copy.copy(vol)
+            vol.claims = dict(vol.claims)
+            vol.claims[alloc.id] = VolumeClaim(
+                alloc_id=alloc.id, node_id=alloc.node_id,
+                read_only=req.read_only)
+            vol.modify_index = gen
+            self._volumes.put(key, vol, gen, live)
+            events.append(("volume-claim", vol))
+
+    def reap_volume_claims(self) -> int:
+        """Release the claims whose allocs are terminal or gone (the
+        volume watcher's pass). Returns the claims released; an idle pass
+        writes no generation."""
+        with self._write_lock:
+            changes = []
+            for key, vol in list(self._volumes.iterate(self._index)):
+                dead = [aid for aid in vol.claims
+                        if (a := self._latest_alloc(aid)[0]) is None
+                        or a.terminal_status()]
+                if dead:
+                    changes.append((key, vol, dead))
+            if not changes:
+                return 0
+            gen, live = self._begin()
+            events = []
+            released = 0
+            for key, vol, dead in changes:
+                vol = copy.copy(vol)
+                vol.claims = {k: v for k, v in vol.claims.items()
+                              if k not in dead}
+                vol.modify_index = gen
+                self._volumes.put(key, vol, gen, live)
+                events.append(("volume-claim-release", vol))
+                released += len(dead)
+            self._commit(gen, events)
+            return released
+
     # --- the plan-apply mutation ---
 
     def upsert_allocs(self, allocs: List[Allocation],
@@ -730,6 +943,9 @@ class StateStore:
                 events.extend(("alloc-preempt", a) for a in evictions)
                 results = p.get("result_allocs", ())
                 fresh = self._put_allocs(results, gen, live, ts)
+                for a, f in zip(results, fresh):
+                    if f and a.job is not None:
+                        self._claim_volumes_for(a, gen, live, events)
                 # the reference's order: rewrites of existing rows, then
                 # first inserts (its bulk insert path, store.py:1193-1206)
                 events.extend(("alloc-upsert", a)
@@ -765,6 +981,7 @@ class StateStore:
         block position before)."""
         by_node: Dict[str, list] = {}
         by_job: Dict[tuple, list] = {}
+        by_eval: Dict[str, list] = {}
         # per (node, vec identity) counts: placements of one group share
         # one allocated_vec, so the adds collapse to one multiply a node
         usage: Dict[tuple, list] = {}
@@ -791,6 +1008,7 @@ class StateStore:
             if prev is None:
                 by_node.setdefault(a.node_id, []).append(a.id)
                 by_job.setdefault((a.namespace, a.job_id), []).append(a.id)
+                by_eval.setdefault(a.eval_id, []).append(a.id)
             elif not prev.terminal_status():
                 count(prev.node_id, prev.allocated_vec, -1.0)
                 self._dev_usage_add(prev, -1, gen, live)
@@ -802,7 +1020,8 @@ class StateStore:
                             else vec, gen, live)
         self._count_promoted(promoted, gen, live)
         for table, groups in ((self._allocs_by_node, by_node),
-                              (self._allocs_by_job, by_job)):
+                              (self._allocs_by_job, by_job),
+                              (self._allocs_by_eval, by_eval)):
             for key, ids in groups.items():
                 table.put(key, cons(tuple(ids), table.get_latest(key)),
                           gen, live)
@@ -824,3 +1043,84 @@ class StateStore:
         self._allocs_by_job.put(
             jkey, cons(BlockRef(block.id), self._allocs_by_job.get_latest(jkey)),
             gen, live)
+        self._allocs_by_eval.put(
+            block.eval_id, cons(BlockRef(block.id),
+                                self._allocs_by_eval.get_latest(block.eval_id)),
+            gen, live)
+
+    # --- GC (reference ``store.py:1829-1880``) ---
+
+    def gc_terminal_allocs(self, before_index: int,
+                           before_time: float = float("inf")) -> int:
+        """Drop the allocs with no purpose left: those of purged jobs once
+        terminal, and those both server- and client-terminal. A failed
+        alloc the server still wants running is kept (its reschedule
+        lineage), and so is a completed batch alloc of a live job. A GC'd
+        block position is marked dropped in a new block version (no
+        event: the feed's ``gc_dropped`` mirrors it); a block with no
+        position left goes. Returns the allocs dropped."""
+        with self._write_lock:
+            gen, live = self._begin()
+
+            def gcable(a) -> bool:
+                if a.modify_index >= before_index:
+                    return False
+                if (a.modify_time or 0) > before_time:
+                    return False
+                if self._jobs.get_latest((a.namespace, a.job_id)) is None:
+                    return a.terminal_status() or a.server_terminal()
+                return a.server_terminal() and a.client_terminal()
+
+            dead_allocs = [a for _, a in self._allocs.iterate(gen)
+                           if gcable(a)]
+            dead = [a.id for a in dead_allocs]
+            dead_set = set(dead)
+            # every gcable alloc is terminal: no usage row moves
+            block_drops: Dict[str, list] = {}
+            for a in dead_allocs:
+                self._allocs.delete(a.id, gen, live)
+                sep = a.id.rfind(BLOCK_SEP)
+                if sep > 0 and self._alloc_blocks.get_latest(a.id[:sep]):
+                    block_drops.setdefault(a.id[:sep], []).append(
+                        int(a.id[sep + 1:]))
+            dead_blocks = set()
+            for bid, positions in block_drops.items():
+                block = self._alloc_blocks.get_latest(bid).with_dropped(
+                    positions)
+                # a dropped position's row is gone: it shadows no more
+                left = (self._promoted.get_latest(bid) or 0) - len(positions)
+                self._promoted.put(bid, max(0, left), gen, live)
+                if block.live_size() <= 0:
+                    self._alloc_blocks.delete(bid, gen, live)
+                    dead_blocks.add(bid)
+                else:
+                    self._alloc_blocks.put(bid, block, gen, live)
+            if dead_set or dead_blocks:
+                for table in (self._allocs_by_node, self._allocs_by_job,
+                              self._allocs_by_eval):
+                    for key, cell in list(table.iterate(gen)):
+                        self._drop_index_ids(table, key, cell, dead_set,
+                                             dead_blocks, gen, live)
+            self._commit(gen, [("alloc-gc", dead)])
+            return len(dead)
+
+    @staticmethod
+    def _drop_index_ids(table: VersionedTable, key, cell, dead_ids: set,
+                        dead_blocks: set, gen: int, live: int) -> None:
+        """Rewrite one alloc-index chain without the dead ids and blocks,
+        keeping its chunks (a tuple of ids a write, or a BlockRef)."""
+        heads = []
+        changed = False
+        for head in cons_iter(cell):
+            if isinstance(head, tuple):
+                kept = tuple(i for i in head if i not in dead_ids)
+                if len(kept) != len(head):
+                    changed = True
+                if kept:
+                    heads.append(kept)
+            elif head.block_id in dead_blocks:
+                changed = True
+            else:
+                heads.append(head)
+        if changed:
+            table.put(key, cons_from_iter(reversed(heads)), gen, live)

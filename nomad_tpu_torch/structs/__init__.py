@@ -11,10 +11,14 @@ from .job import Job, Task, TaskGroup
 from .node import DrainStrategy, Node
 from .plan import Plan, PlanResult
 from .resources import NodeResources, Resources, comparable
+from .volumes import (ClientHostVolumeConfig, Volume, VolumeClaim,
+                      VolumeMount, VolumeRequest)
 
 __all__ = ["enums", "AllocBlock", "AllocMetric", "Allocation", "alloc_name",
            "DesiredTransition", "RescheduleEvent", "RescheduleTracker",
            "DrainStrategy",
            "Affinity", "Constraint", "Spread", "SpreadTarget", "Evaluation",
            "Job", "Task", "TaskGroup", "Node", "Plan", "PlanResult",
-           "NodeResources", "Resources", "comparable"]
+           "NodeResources", "Resources", "comparable",
+           "ClientHostVolumeConfig", "Volume", "VolumeClaim", "VolumeMount",
+           "VolumeRequest"]

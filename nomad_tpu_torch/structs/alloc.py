@@ -171,7 +171,9 @@ class AllocBlock:
     ``"{id}.{p}"`` and to name index ``name_indices[p]``. Individual
     ``Allocation`` rows materialize lazily (and are cached). The plan
     applier's partial commit marks whole node rows rejected
-    (``without_nodes``) without renumbering, so ids stay stable."""
+    (``without_nodes``) and GC drops single positions (``with_dropped``,
+    reference ``structs/alloc.py:252-420``), neither renumbering, so ids
+    stay stable."""
 
     id: str = ""
     eval_id: str = ""
@@ -194,21 +196,26 @@ class AllocBlock:
     modify_index: int = 0
     # node rows the plan applier rejected (never committed)
     rejected_rows: frozenset = frozenset()
+    # positions GC'd after their promoted rows went away
+    dropped: frozenset = frozenset()
     _offsets: object = field(default=None, repr=False, compare=False)
     _mat: dict = field(default_factory=dict, repr=False, compare=False)
     _metrics: object = field(default=None, repr=False, compare=False)
 
     @property
     def size(self) -> int:
-        """Plan-time placement count (rejected rows included)."""
+        """Plan-time placement count (rejected and dropped included)."""
         return len(self.name_indices)
 
     def live_size(self) -> int:
-        """Committed placements."""
-        if not self.rejected_rows:
-            return self.size
-        return self.size - int(sum(int(self.counts[m])
-                                   for m in self.rejected_rows))
+        """Committed, un-GC'd placements."""
+        n = self.size - len(self.dropped)
+        if self.rejected_rows:
+            off = self.offsets()
+            for m in self.rejected_rows:
+                lo, hi = int(off[m]), int(off[m + 1])
+                n -= (hi - lo) - sum(1 for p in self.dropped if lo <= p < hi)
+        return n
 
     def offsets(self) -> np.ndarray:
         off = self._offsets
@@ -227,6 +234,8 @@ class AllocBlock:
                 if m not in self.rejected_rows)
 
     def visible(self, p: int) -> bool:
+        if p in self.dropped:
+            return False
         return (not self.rejected_rows
                 or self.row_for_pos(p) not in self.rejected_rows)
 
@@ -270,7 +279,10 @@ class AllocBlock:
     def allocs_for_row(self, m: int) -> List[Allocation]:
         if m in self.rejected_rows:
             return []
-        return [self.alloc_at(p) for p in self.positions_for_row(m)]
+        if not self.dropped:
+            return [self.alloc_at(p) for p in self.positions_for_row(m)]
+        return [self.alloc_at(p) for p in self.positions_for_row(m)
+                if p not in self.dropped]
 
     def allocs_for_node(self, node_id: str) -> List[Allocation]:
         out: List[Allocation] = []
@@ -291,6 +303,16 @@ class AllocBlock:
         rows = {m for m, nid in enumerate(self.node_ids) if nid in bad}
         new = copy.copy(self)
         new.rejected_rows = self.rejected_rows | rows
+        new._offsets = self._offsets
+        new._mat = {}
+        new._metrics = None
+        return new
+
+    def with_dropped(self, positions) -> "AllocBlock":
+        """A copy with the given positions dropped (GC of their promoted
+        rows). Positions and ids stay stable."""
+        new = copy.copy(self)
+        new.dropped = self.dropped | set(positions)
         new._offsets = self._offsets
         new._mat = {}
         new._metrics = None

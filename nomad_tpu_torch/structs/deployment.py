@@ -51,3 +51,11 @@ class Deployment:
         """A group still holds unpromoted canaries."""
         return any(s.desired_canaries > 0 and not s.promoted
                    for s in self.task_groups.values())
+
+    def has_auto_promote(self) -> bool:
+        """Every group holding canaries promotes itself, and one still
+        waits for it."""
+        if not self.active():
+            return False
+        return all(s.auto_promote for s in self.task_groups.values()
+                   if s.desired_canaries > 0) and self.requires_promotion()

@@ -48,6 +48,11 @@ class Evaluation:
     def should_block(self) -> bool:
         return self.status == enums.EVAL_STATUS_BLOCKED
 
+    def terminal_status(self) -> bool:
+        return self.status in (enums.EVAL_STATUS_COMPLETE,
+                               enums.EVAL_STATUS_FAILED,
+                               enums.EVAL_STATUS_CANCELLED)
+
     def make_plan(self, job):
         from .plan import Plan
 

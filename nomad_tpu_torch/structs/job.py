@@ -9,6 +9,7 @@ from typing import Dict, List, Optional
 from . import enums
 from .constraint import Affinity, Constraint, Spread
 from .resources import NetworkResource, Resources
+from .volumes import VolumeMount, VolumeRequest
 
 
 @dataclass(slots=True)
@@ -61,6 +62,7 @@ class Task:
     resources: Resources = field(default_factory=Resources)
     constraints: List[Constraint] = field(default_factory=list)
     affinities: List[Affinity] = field(default_factory=list)
+    volume_mounts: List[VolumeMount] = field(default_factory=list)
 
 
 @dataclass(slots=True)
@@ -78,7 +80,8 @@ class TaskGroup:
     migrate: Optional[MigrateStrategy] = None
     ephemeral_disk: EphemeralDisk = field(default_factory=EphemeralDisk)
     networks: List[NetworkResource] = field(default_factory=list)
-    volumes: Dict[str, object] = field(default_factory=dict)
+    # group volume stanzas by name
+    volumes: Dict[str, VolumeRequest] = field(default_factory=dict)
     # an alloc on a node that stops heartbeating goes "unknown" for this
     # long (with a replacement) before it is lost; None: lost at once
     max_client_disconnect_s: Optional[float] = None

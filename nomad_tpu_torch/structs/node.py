@@ -17,6 +17,7 @@ class DrainStrategy:
     """Node drain spec (reference ``structs/node.py:15``)."""
 
     deadline_s: float = 0.0
+    ignore_system_jobs: bool = False
 
 
 @dataclass(slots=True)
@@ -37,6 +38,9 @@ class Node:
     status: str = enums.NODE_STATUS_READY
     scheduling_eligibility: str = enums.NODE_SCHED_ELIGIBLE
     drain_strategy: Optional[DrainStrategy] = None
+    # volumes this node exposes, by name (ClientHostVolumeConfig);
+    # class-relevant: the host-volume mask is memoized per class
+    host_volumes: Dict[str, object] = field(default_factory=dict)
     # when the status last changed: a disconnected node's allocs stay
     # unknown for their window from here
     status_updated_at: float = 0.0
@@ -97,10 +101,13 @@ class Node:
         put(str(self.resources.total_cores),
             str(self.resources.min_dynamic_port),
             str(self.resources.max_dynamic_port))
-        # fingerprinted network modes, NUMA domains and device groups are
-        # class-relevant: the masks memoized per class read them
+        # fingerprinted network modes, host volumes, NUMA domains and device
+        # groups are class-relevant: the masks memoized per class read them
         for mode in sorted({n.mode for n in self.resources.networks}):
             put("net", mode)
+        for name in sorted(self.host_volumes):
+            hv = self.host_volumes[name]
+            put("vol", name, "ro" if getattr(hv, "read_only", False) else "rw")
         for numa in self.resources.numa:
             put(str(numa.id), repr(numa.cores))
         for d in self.resources.devices:

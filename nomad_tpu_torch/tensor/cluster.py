@@ -17,6 +17,7 @@ preemptible allocs into the victim columns of the preemption solve.
 
 from __future__ import annotations
 
+import heapq
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -24,7 +25,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..scheduler.context import EvalContext
-from ..scheduler.feasible import (check_constraint, distinct_hosts_flags,
+from ..scheduler.feasible import (check_constraint, csi_volume_mask,
+                                  distinct_hosts_flags,
                                   distinct_property_constraints,
                                   distinct_property_limit,
                                   feasible_mask_static, reserved_ports_mask,
@@ -41,6 +43,48 @@ def _pad_pow2(n: int, floor: int = 8) -> int:
     while out < n:
         out *= 2
     return out
+
+
+class NodeSlotRegistry:
+    """Stable node-to-slot assignment with a free list, one a store
+    (reference ``cluster.py:47-95``): a node keeps its slot while it
+    exists, and a deleted node's slot goes to the next joiner, lowest
+    free slot first, so the slot space stays dense under churn. No build
+    reads it yet: the feed keys its epochs on row layout (a node delete
+    resyncs), and a layout keyed by these slots is ROADMAP A10's."""
+
+    def __init__(self):
+        self._slots: Dict[str, int] = {}
+        self._free: List[int] = []
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def assign(self, node_ids: Sequence[str], store=None) -> Dict[str, int]:
+        """A slot a node id, allocating for new ids. With ``store``,
+        slots of nodes deleted from it are released first (a drained node
+        that is still there keeps its slot)."""
+        with self._lock:
+            if store is not None:
+                for nid in [n for n in self._slots
+                            if store._nodes.get_latest(n) is None]:
+                    heapq.heappush(self._free, self._slots.pop(nid))
+            out: Dict[str, int] = {}
+            for nid in node_ids:
+                s = self._slots.get(nid)
+                if s is None:
+                    if self._free:
+                        s = heapq.heappop(self._free)
+                    else:
+                        s = self._next
+                        self._next += 1
+                    self._slots[nid] = s
+                out[nid] = s
+            return out
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"assigned": len(self._slots), "free": len(self._free),
+                    "high_water": self._next}
 
 
 class ClusterStatic:
@@ -609,7 +653,16 @@ def build_task_group_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
             job, tg, nodes, ctx.regex_cache, ctx.version_cache)
         base.setflags(write=False)
         static.mask_cache[sig] = base
-    feas, feas_base = base, base
+    if any(v.type == "csi" for v in tg.volumes.values()):
+        # claims change apart from the node set: a per-eval copy with the
+        # CSI check folded in (reference ``cluster.py:768-772``)
+        feas = base.copy()
+        feas[: len(nodes)] &= csi_volume_mask(tg, nodes, ctx.snapshot,
+                                              job.namespace, ctx.plan)
+        feas_base = None
+    else:
+        # the cached mask itself: its identity keys the device copy
+        feas, feas_base = base, base
     placed_tg, placed_job = cluster.placement_counts(job, tg, ctx)
     (val_id, val_ok, counts, desired,
      has_targets, weights) = _spread_tensors(ctx, job, tg, cluster)
@@ -619,7 +672,8 @@ def build_task_group_tensors(ctx: EvalContext, job: Job, tg: TaskGroup,
     # which is the kernel's dh_tg. Dynamic ports are the R_PORTS column;
     # the placer assigns their numbers after the solve.
     if ctx.tg_resources(tg).reserved_port_asks():
-        feas = base.copy()   # the cached mask is shared and read-only
+        if feas is base:
+            feas = base.copy()   # the cached mask is shared and read-only
         feas_base = None
         feas[: len(nodes)] &= reserved_ports_mask(tg, nodes,
                                                   ctx.proposed_allocs)

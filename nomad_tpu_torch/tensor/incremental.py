@@ -29,17 +29,23 @@ compares the base with a gen-bounded rebuild, and each flushed twin with
 ``NOMAD_TPU_INCR=0`` turns the feed off at every call site (read at call
 time): builds and resyncs take the exact legacy routes.
 
+Core GC's writes fold too (reference ``incremental.py:364-435``): an
+``alloc-gc`` pops the dead rows (every GC'd alloc is terminal, so no
+usage row moves) and records the block positions the store quietly
+re-puts as dropped (``gc_dropped``: no event carries that re-put), and a
+``node-delete`` of a node in the layout marks the epoch stale, so the
+next build resyncs onto the new layout instead of folding onto the old
+one.
+
 Trimmed: the sanitizer's periodic parity digests (``PARITY_EVERY``,
-``StateTracker.install``), the folds of the writes the port's store does
-not have (GC, node delete, the restore sentinel; ROADMAP A10) and the
-node-slot registry.
+``StateTracker.install``) and the restore sentinel (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -121,8 +127,8 @@ class _Epoch:
     static with the same membership and order keeps the epoch."""
 
     __slots__ = ("layout", "node_index", "n_pad", "base", "base_view",
-                 "position", "rows", "blocks", "devlog", "twins",
-                 "static_ref")
+                 "position", "rows", "blocks", "gc_dropped", "stale",
+                 "devlog", "twins", "static_ref")
 
     def __init__(self, layout: tuple, node_index: Dict[str, int],
                  n_pad: int, position: int):
@@ -137,6 +143,10 @@ class _Epoch:
         # positions stay columnar (their implied row computed on demand)
         self.rows: Dict[str, tuple] = {}
         self.blocks: Dict[str, object] = {}
+        # block id -> positions GC dropped after this epoch took the block
+        self.gc_dropped: Dict[str, Set[int]] = {}
+        # a node of the layout was deleted: resync before serving
+        self.stale = False
         # append-only (row, f64 delta) log the twins consume
         self.devlog: List[tuple] = []
         self.twins: Dict[object, _Twin] = {}
@@ -207,8 +217,9 @@ class IncrementalFeed:
         number of ``nomad.worker.changed_allocs_per_build``). Drains
         first, so queued deltas land in this build's count."""
         with self._lock:
-            if self._epoch is not None:
-                self._drain_locked(self._epoch)
+            ep = self._epoch
+            if ep is not None and not ep.stale:
+                self._drain_locked(ep)
             out, self._alloc_uncounted = self._alloc_uncounted, 0
             return out
 
@@ -221,7 +232,7 @@ class IncrementalFeed:
         if not incr_enabled():
             return True
         with self._lock:
-            if self._epoch is None:
+            if self._epoch is None or self._epoch.stale:
                 snap = self.store.snapshot()
                 try:
                     ids = sorted(n.id for n in snap.nodes())
@@ -245,6 +256,8 @@ class IncrementalFeed:
 
     def _epoch_for_locked(self, static) -> _Epoch:
         ep = self._epoch
+        if ep is not None and ep.stale:
+            ep = None
         if ep is not None:
             if ep.static_ref is not static:
                 if ep.layout != tuple(static.node_index):
@@ -257,7 +270,7 @@ class IncrementalFeed:
             if ep is not None:
                 self._drain_locked(ep)
                 ep = self._epoch          # the drain may have resynced
-        if ep is None:
+        if ep is None or ep.stale:
             self._resync_locked(tuple(static.node_index), static.node_index,
                                 static.n_pad)
             ep = self._epoch
@@ -315,11 +328,19 @@ class IncrementalFeed:
         # delivers each event past it once
 
     def _fold(self, ep: _Epoch, e) -> None:
-        if e.type in ALLOC_ROW_KINDS:
-            self._fold_alloc_row(ep, e.payload)
-        elif e.type == "alloc-block-upsert":
-            self._fold_block(ep, e.payload)
-        # Node kinds move no usage row
+        kind, p = e.type, e.payload
+        if kind in ALLOC_ROW_KINDS:
+            self._fold_alloc_row(ep, p)
+        elif kind == "alloc-block-upsert":
+            self._fold_block(ep, p)
+        elif kind == "alloc-gc":
+            self._fold_gc(ep, p)
+        elif kind == "node-delete":
+            if p is not None and p.id in ep.node_index:
+                # the node set changed mid-epoch: the next build's static
+                # carries the new layout; serve nothing until then
+                ep.stale = True
+        # other Node kinds move no usage row
 
     def _fold_alloc_row(self, ep: _Epoch, a) -> None:
         new = (a.node_id, not a.terminal_status(), a.allocated_vec)
@@ -347,9 +368,24 @@ class IncrementalFeed:
             c = int(block.counts[m])
             self._add(ep, block.node_ids[m], vec * c if c != 1 else vec, 1.0)
 
+    def _fold_gc(self, ep: _Epoch, ids) -> None:
+        from ..structs.alloc import BLOCK_SEP
+
+        for aid in ids:
+            # a GC'd alloc is terminal: it pops bookkeeping, moves nothing
+            ep.rows.pop(aid, None)
+            sep = aid.rfind(BLOCK_SEP)
+            if sep > 0:
+                try:
+                    pos = int(aid[sep + 1:])
+                except ValueError:
+                    continue
+                ep.gc_dropped.setdefault(aid[:sep], set()).add(pos)
+
     def _virtual_row(self, ep: _Epoch, aid: str) -> Optional[tuple]:
         """A block position's implied row, over the block the epoch holds
-        (the feed's side of the store's ``_block_alloc``)."""
+        (the feed's side of the store's ``_block_alloc``), with
+        ``gc_dropped`` standing in for the store's quiet re-puts."""
         from ..structs.alloc import BLOCK_SEP
 
         sep = aid.rfind(BLOCK_SEP)
@@ -363,6 +399,8 @@ class IncrementalFeed:
         except ValueError:
             return None
         if not 0 <= pos < block.size or not block.visible(pos):
+            return None
+        if pos in ep.gc_dropped.get(aid[:sep], ()):
             return None
         return (block.node_ids[block.row_for_pos(pos)], True,
                 block.allocated_vec)
@@ -439,7 +477,7 @@ class IncrementalFeed:
         which the subscription is complete, so the compare is exact. A
         mismatch records a violation and forces a resync."""
         ep = self._epoch
-        if ep is None:
+        if ep is None or ep.stale:
             return True
         store = self.store
         with store._write_lock:

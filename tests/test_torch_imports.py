@@ -54,9 +54,30 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.scheduler.util\n"
         "import nomad_tpu_torch.scheduler.reconcile\n"
         "import nomad_tpu_torch.core.deployments\n"
+        "import nomad_tpu_torch.structs.volumes\n"
+        "import nomad_tpu_torch.core.heartbeat, nomad_tpu_torch.core.drainer\n"
+        "import nomad_tpu_torch.core.core_sched\n"
         "from nomad_tpu_torch.core import Server, ServerConfig\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", [
+    "nomad_tpu_torch.structs.volumes", "nomad_tpu_torch.core.heartbeat",
+    "nomad_tpu_torch.core.drainer", "nomad_tpu_torch.core.core_sched",
+    "nomad_tpu_torch.core.deployments"])
+def test_lifecycle_modules_import_alone(module):
+    """Each module of the lifecycle's actors and of volumes, imported on
+    its own in a fresh interpreter, pulls in neither jax nor the
+    reference."""
+    code = (f"import json, sys, {module}\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)

@@ -22,13 +22,17 @@ allow.
 - the same writes put the same (topic, type, key) stream through both
   brokers;
 - a seeded divergence trips the parity check, and the feed repairs by
-  resync.
+  resync;
+- core GC's writes fold: a GC'd promoted block position (the store's
+  quiet ``with_dropped`` re-put compensated by ``gc_dropped``), and a
+  node delete, which makes the next build resync onto the new layout,
+  also inside a randomized stream with GC and node deletes;
+- the ``NodeSlotRegistry`` keeps slots stable and recycles a deleted
+  node's slot to the next joiner, lowest first.
 
-Left out until the port's store has the writes (ROADMAP A10, A27): GC
-(``gc_terminal_allocs``), node delete, and the restore
+Left out until the port's store has the write (ROADMAP A10): the restore
 sentinel of test_truncation_forces_resync (restore needs
-``state/persist.py``); and test_node_slot_registry_stability_and_reuse,
-whose ``NodeSlotRegistry`` serves restores and node deletes too.
+``state/persist.py``).
 """
 
 import copy
@@ -46,6 +50,7 @@ from nomad_tpu.structs.alloc import Allocation as RefAlloc
 from nomad_tpu.structs.operator import NodePool as RefNodePool
 from nomad_tpu.tensor import incremental as ref_inc
 from nomad_tpu.tensor.cluster import ClusterStatic as RefStatic
+from nomad_tpu.tensor.cluster import NodeSlotRegistry as RefSlotRegistry
 from nomad_tpu_torch import convert
 from nomad_tpu_torch import mock as port_mock
 from nomad_tpu_torch.core.events import EventBroker
@@ -58,7 +63,8 @@ from nomad_tpu_torch.structs.plan import Plan
 from nomad_tpu_torch.structs.resources import RESOURCE_DIMS
 from nomad_tpu_torch.tensor import incremental as inc
 from nomad_tpu_torch.tensor import solver as port_solver
-from nomad_tpu_torch.tensor.cluster import ClusterStatic, ClusterTensors
+from nomad_tpu_torch.tensor.cluster import (ClusterStatic, ClusterTensors,
+                                            NodeSlotRegistry)
 from nomad_tpu_torch.tensor.overlay import INFLIGHT
 from nomad_tpu_torch.tensor.placer import _changed_allocs_since_last_build
 from nomad_tpu_torch.tensor.sharding import shard_mesh
@@ -68,10 +74,12 @@ from test_torch_pipeline import node_record
 CPU = torch.device("cpu")
 REF = types.SimpleNamespace(Store=RefStore, Broker=RefBroker,
                             Tracker=ref_inc.StateTracker, Alloc=RefAlloc,
-                            Block=RefBlock, Static=RefStatic)
+                            Block=RefBlock, Static=RefStatic,
+                            Slots=RefSlotRegistry, mock=ref_mock)
 PORT = types.SimpleNamespace(Store=StateStore, Broker=EventBroker,
                              Tracker=inc.StateTracker, Alloc=Allocation,
-                             Block=AllocBlock, Static=ClusterStatic)
+                             Block=AllocBlock, Static=ClusterStatic,
+                             Slots=NodeSlotRegistry, mock=port_mock)
 
 
 class Side:
@@ -106,6 +114,12 @@ class Side:
 
     def base(self, static=None):
         return self.feed.base_for(self.static if static is None else static)
+
+    def restatic(self, nodes):
+        """A new static over ``nodes`` (a node set that changed)."""
+        self.nodes = nodes
+        self.static = (self.pkg.Static(nodes, store=self.store)
+                       if self.pkg is PORT else self.pkg.Static(nodes))
 
 
 def _nodes(n):
@@ -647,3 +661,142 @@ def test_parity_check_catches_seeded_divergence():
     assert np.array_equal(port.base(), _truth(port.store, port.static))
     with pytest.raises(AssertionError, match="violations"):
         port.tracker.check()
+
+
+def test_block_expansion_promotion_and_gc():
+    """tests/test_incremental_state.py::test_block_expansion_promotion_and_gc
+    through both feeds: a block, one position promoted by a client
+    update (complete), then GC'd: the store drops the position in a
+    quiet block re-put, and the feed's gc_dropped stands in for it."""
+    sides = _pair(4)
+    for s in sides:
+        assert s.base() is not None
+        vec = np.zeros_like(s.pkg.Alloc().allocated_vec)
+        vec[0], vec[1] = 50.0, 32.0
+        s.store.upsert_plan_results([], alloc_blocks=[s.pkg.Block(
+            id="blk-gc", eval_id="ev-gc", job_id="ij", task_group="web",
+            name_indices=np.arange(8, dtype=np.int64),
+            node_ids=[s.nodes[0].id, s.nodes[1].id],
+            node_names=[s.nodes[0].name, s.nodes[1].name],
+            counts=np.array([4, 4], dtype=np.int64), allocated_vec=vec)])
+    _check(sides)
+    for s in sides:
+        s.store.update_allocs_from_client(
+            [_client_update(s, "blk-gc.2", "complete")])
+    _check(sides)
+    for s in sides:
+        assert s.store.gc_terminal_allocs(before_index=s.store._index + 1) == 1
+        snap = s.store.snapshot()
+        assert snap.alloc_by_id("blk-gc.2") is None
+        assert len(snap.allocs_by_node(s.nodes[0].id)) == 3
+        assert s.store._alloc_blocks.get_latest("blk-gc").dropped == {2}
+    _check(sides)
+    for s in sides:
+        # the feed's held block still has the position: gc_dropped hides it
+        assert 2 not in s.feed._epoch.blocks["blk-gc"].dropped
+        assert s.feed._virtual_row(s.feed._epoch, "blk-gc.2") is None
+    for s in sides:
+        assert s.feed.force_verify()
+        assert s.tracker.violations == []
+    assert sides[1].base()[0, 0] == 150.0 and sides[1].base()[1, 0] == 200.0
+
+
+def test_node_slot_registry_stability_and_reuse():
+    def run(pkg):
+        store = pkg.Store()
+        nodes = [pkg.mock.node(id=f"slot-{i}") for i in range(4)]
+        for n in nodes:
+            store.upsert_node(n)
+        reg = pkg.Slots()
+        ids = [n.id for n in nodes]
+        first = reg.assign(ids, store=store)
+        assert sorted(first.values()) == [0, 1, 2, 3]
+        # stable across re-assignment and reordering
+        assert reg.assign(list(reversed(ids)), store=store) == first
+        # a deleted node's slot goes to the next joiner, lowest first
+        store.delete_node(ids[1])
+        joiner = pkg.mock.node(id="slot-joiner")
+        store.upsert_node(joiner)
+        after = reg.assign([ids[0], ids[2], ids[3], joiner.id], store=store)
+        assert after[joiner.id] == first[ids[1]]
+        return first, after, reg.stats()
+
+    want, got = run(REF), run(PORT)
+    assert got == want and got[2]["high_water"] == 4
+
+
+def test_node_delete_makes_the_next_build_resync():
+    sides = _pair(5)
+    for s in sides:
+        assert s.base() is not None
+        s.store.upsert_allocs([s.alloc("nd0", 0, 100, 64),
+                               s.alloc("nd1", 3, 200, 64)])
+        resyncs = s.feed.stats()["resyncs"]
+        s.store.delete_node(s.nodes[3].id)
+        assert s.store.snapshot().node_by_id(s.nodes[3].id) is None
+        # the old layout is stale: serving it would fold onto dead rows
+        assert s.feed.take_build_delta_count() >= 0
+        assert s.feed._epoch.stale
+        s.restatic([n for i, n in enumerate(s.nodes) if i != 3])
+        base = s.base()
+        assert s.feed.stats()["resyncs"] == resyncs + 1
+        assert np.array_equal(base, _truth(s.store, s.static))
+        assert s.feed.force_verify()
+    _check(sides)
+
+
+def test_randomized_stream_with_gc_and_node_delete_is_bit_exact():
+    """The randomized stream of tests/test_incremental_state.py:84-118
+    with its GC op, and node deletes, through both feeds: placements,
+    client-terminal updates, stops, GC passes, and the delete of a node
+    whose allocs are all terminal (the next build resyncs onto the new
+    layout)."""
+    sides = _pair(8)
+    rng = np.random.default_rng(13)
+    live, serial, deletes, gcs = {}, 0, 0, 0
+    for _ in range(90):
+        op = int(rng.integers(0, 6))
+        alive = list(range(len(sides[0].nodes)))
+        if op in (0, 1) or not live:                # place a new alloc
+            serial += 1
+            aid, node_i = f"ig{serial}", int(rng.choice(alive))
+            cpu, mem = (int(rng.integers(1, 9)) * 100,
+                        int(rng.integers(1, 9)) * 64)
+            for s in sides:
+                s.store.upsert_allocs([s.alloc(aid, node_i, cpu, mem)])
+            live[aid] = sides[0].nodes[node_i].id
+        elif op == 2:                               # client-terminal
+            aid = sorted(live)[int(rng.integers(0, len(live)))]
+            live.pop(aid)
+            status = ("complete", "failed")[int(rng.integers(0, 2))]
+            for s in sides:
+                s.store.update_allocs_from_client(
+                    [_client_update(s, aid, status)])
+        elif op == 3:                               # a stop
+            aid = sorted(live)[int(rng.integers(0, len(live)))]
+            live.pop(aid)
+            for s in sides:
+                s.store.upsert_plan_results([], stopped_allocs=[
+                    s.with_status(aid, enums.ALLOC_DESIRED_STOP)])
+        elif op == 4:                               # a GC pass
+            gcs += 1
+            got = [s.store.gc_terminal_allocs(
+                before_index=s.store._index + 1) for s in sides]
+            assert got[0] == got[1]
+        else:                                       # a node delete
+            held = set(live.values())
+            idle = [i for i in alive if sides[0].nodes[i].id not in held]
+            if len(alive) <= 3 or not idle:
+                continue
+            gone = int(rng.choice(idle))
+            deletes += 1
+            for s in sides:
+                s.store.delete_node(s.nodes[gone].id)
+                s.restatic([n for i, n in enumerate(s.nodes) if i != gone])
+        _check(sides)
+    assert deletes and gcs
+    for s in sides:
+        assert s.feed.force_verify()
+        assert s.tracker.violations == []
+    assert (sides[0].feed.stats()["resyncs"]
+            == sides[1].feed.stats()["resyncs"])

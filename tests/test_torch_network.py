@@ -143,9 +143,16 @@ def test_network_modes_other_than_host_raise():
     assert port_feasible.network_mask(tg, nodes).tolist() == [True, True]
     tg.networks[0].mode = ""
     assert port_feasible.network_mask(tg, nodes).tolist() == [True, True]
+    # other modes place where the node fingerprints them (A5b): bridge by
+    # network.bridge, cni/* by the plugin's version
+    nodes[1].attributes["network.bridge"] = "true"
+    nodes[1].attributes["plugins.cni.version.calico"] = "3.26"
     tg.networks[0].mode = "bridge"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5b"):
-        port_feasible.network_mask(tg, nodes)
+    assert port_feasible.network_mask(tg, nodes).tolist() == [False, True]
+    tg.networks[0].mode = "cni/calico"
+    assert port_feasible.network_mask(tg, nodes).tolist() == [False, True]
+    tg.networks[0].mode = "cni/flannel"
+    assert port_feasible.network_mask(tg, nodes).tolist() == [False, False]
 
 
 # --------------------------------------------------------------------------

@@ -6,6 +6,7 @@ Harness(device="cpu") must give the same per-job fingerprint. The port's
 nodes and jobs are carried across from the reference's as plain records
 (nomad_tpu_torch.convert)."""
 
+import copy
 import dataclasses
 import random
 
@@ -19,7 +20,8 @@ from nomad_tpu.tensor import solver as ref_solver
 from nomad_tpu.testing import Harness
 from nomad_tpu_torch import convert
 from nomad_tpu_torch import mock as port_mock
-from nomad_tpu_torch.structs import Constraint
+from nomad_tpu_torch.structs import (ClientHostVolumeConfig, Constraint,
+                                     Volume, VolumeRequest)
 from nomad_tpu_torch.structs import operator as port_operator
 from nomad_tpu_torch.structs.resources import NetworkResource, RequestedDevice
 from nomad_tpu_torch.tensor import solver as port_solver
@@ -54,7 +56,9 @@ def node_record(n) -> dict:
         attributes=dict(n.attributes), meta=dict(n.meta),
         drivers=dict(n.drivers), status=n.status,
         scheduling_eligibility=n.scheduling_eligibility,
-        host_volumes=dict(n.host_volumes), drain_strategy=n.drain_strategy,
+        host_volumes={k: dataclasses.asdict(v)
+                      for k, v in n.host_volumes.items()},
+        drain_strategy=n.drain_strategy,
         resources=dict(cpu=r.cpu, memory_mb=r.memory_mb, disk_mb=r.disk_mb,
                        total_cores=r.total_cores,
                        min_dynamic_port=r.min_dynamic_port,
@@ -82,7 +86,8 @@ def job_record(j) -> dict:
         task_groups=[dict(
             name=tg.name, count=tg.count, constraints=cons(tg.constraints),
             affinities=affs(tg.affinities), spreads=list(tg.spreads),
-            networks=network_records(tg.networks), volumes=dict(tg.volumes),
+            networks=network_records(tg.networks),
+            volumes={k: dataclasses.asdict(v) for k, v in tg.volumes.items()},
             ephemeral_disk_mb=tg.ephemeral_disk.size_mb,
             update=(None if tg.update is None else dict(
                 max_parallel=tg.update.max_parallel,
@@ -91,6 +96,8 @@ def job_record(j) -> dict:
                 name=t.name, driver=t.driver, config=dict(t.config),
                 constraints=cons(t.constraints),
                 affinities=affs(t.affinities),
+                volume_mounts=[dataclasses.asdict(m)
+                               for m in t.volume_mounts],
                 resources=dict(cpu=t.resources.cpu,
                                memory_mb=t.resources.memory_mb,
                                disk_mb=t.resources.disk_mb,
@@ -216,20 +223,47 @@ def _port_cluster(n=256):
 def test_unported_shapes_raise_not_implemented(port_service):
     h = _port_cluster()
     cfg = port_operator.SchedulerConfiguration(scheduler_algorithm=ALG)
-    # a network mode other than "host" (bulk-sized and host-oracle-sized
-    # groups) and a group volume: ROADMAP queue A5b
+    # network modes other than "host" and host and CSI volumes place (A5b):
+    # half the nodes fingerprint the bridge and expose host volume "data"
+    nodes = []
+    for i, n in enumerate(h.store.snapshot().nodes()):
+        n = copy.deepcopy(n)
+        if i % 2 == 0:
+            n.attributes["network.bridge"] = "true"
+            n.host_volumes["data"] = ClientHostVolumeConfig(
+                name="data", path="/srv/data")
+        n.compute_class()
+        nodes.append(n)
+    h.store.upsert_nodes(nodes)
+    bridge = {n.id for n in nodes if "network.bridge" in n.attributes}
+    # bulk-sized and host-oracle-sized groups
     for count in (300, 10):
         bridged = port_mock.service_job(count)
         bridged.task_groups[0].networks = [
             NetworkResource(mode="bridge", dynamic_ports=["http"])]
         h.store.upsert_job(bridged)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A5b"):
-            h.process(port_mock.eval_for(bridged), sched_config=cfg)
+        h.process(port_mock.eval_for(bridged), sched_config=cfg)
+        placed = h.store.snapshot().allocs_by_job(bridged.id)
+        assert len(placed) == count
+        assert {a.node_id for a in placed} <= bridge
     volume = port_mock.service_job(40)
-    volume.task_groups[0].volumes = {"data": object()}
+    volume.task_groups[0].volumes = {"data": VolumeRequest(
+        name="data", type="host", source="data")}
     h.store.upsert_job(volume)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5b"):
-        h.process(port_mock.eval_for(volume), sched_config=cfg)
+    h.process(port_mock.eval_for(volume), sched_config=cfg)
+    placed = h.store.snapshot().allocs_by_job(volume.id)
+    assert len(placed) == 40 and {a.node_id for a in placed} <= bridge
+    topology = [n.id for n in nodes[1:4]]
+    h.store.upsert_volume(Volume(id="db", topology_node_ids=topology))
+    csi = port_mock.service_job(1)
+    csi.task_groups[0].volumes = {"db": VolumeRequest(
+        name="db", type="csi", source="db")}
+    h.store.upsert_job(csi)
+    h.process(port_mock.eval_for(csi), sched_config=cfg)
+    snap = h.store.snapshot()
+    (alloc,) = snap.allocs_by_job(csi.id)
+    assert alloc.node_id in topology
+    assert list(snap.volume_by_id("db").claims) == [alloc.id]
     # ports, device asks and version constraints place (A5)
     for count in (300, 10):
         ports = port_mock.service_job(count)

@@ -19,6 +19,8 @@ from nomad_tpu.core.server import Server as RefServer
 from nomad_tpu.core.server import ServerConfig as RefServerConfig
 from nomad_tpu.state import StateStore as RefStateStore
 from nomad_tpu.structs import Spread as RefSpread
+from nomad_tpu.structs import Volume as RefVolume
+from nomad_tpu.structs import VolumeRequest as RefVolumeRequest
 from nomad_tpu.structs import allocs_fit as ref_allocs_fit
 from nomad_tpu.structs import enums as ref_enums
 from nomad_tpu.structs import operator as ref_operator
@@ -35,6 +37,8 @@ from nomad_tpu_torch.core import plan_apply as port_plan_apply
 from nomad_tpu_torch.core.server import Server as PortServer
 from nomad_tpu_torch.core.server import ServerConfig as PortServerConfig
 from nomad_tpu_torch.state import StateStore as PortStateStore
+from nomad_tpu_torch.structs import Volume as PortVolume
+from nomad_tpu_torch.structs import VolumeRequest as PortVolumeRequest
 from nomad_tpu_torch.structs import enums as port_enums
 from nomad_tpu_torch.structs import operator as port_operator
 from nomad_tpu_torch.structs.alloc import AllocatedPort
@@ -58,7 +62,8 @@ REF = types.SimpleNamespace(
     Plan=RefPlan, PlanResult=RefPlanResult, enums=ref_enums,
     allocs_fit=ref_allocs_fit, AllocBlock=RefAllocBlock,
     Harness=RefHarness, operator=ref_operator, Port=RefAllocatedPort,
-    Network=RefNetwork, DeviceGroup=RefDeviceGroup,
+    Network=RefNetwork, DeviceGroup=RefDeviceGroup, Volume=RefVolume,
+    VolumeRequest=RefVolumeRequest,
     server=lambda **kw: RefServer(RefServerConfig(
         heartbeat_ttl=3600, gc_interval=3600, **kw)))
 PORT = types.SimpleNamespace(
@@ -67,8 +72,10 @@ PORT = types.SimpleNamespace(
     enums=port_enums, allocs_fit=port_allocs_fit, AllocBlock=PortAllocBlock,
     Harness=lambda: PortHarness(device="cpu"), operator=port_operator,
     Port=AllocatedPort, Network=NetworkResource,
-    DeviceGroup=NodeDeviceResource,
-    server=lambda **kw: PortServer(PortServerConfig(device="cpu", **kw)))
+    DeviceGroup=NodeDeviceResource, Volume=PortVolume,
+    VolumeRequest=PortVolumeRequest,
+    server=lambda **kw: PortServer(PortServerConfig(
+        device="cpu", heartbeat_ttl=3600, gc_interval=3600, **kw)))
 
 
 @pytest.fixture(params=[REF, PORT], ids=lambda p: p.name)
@@ -303,6 +310,66 @@ def test_landed_round_counts_twice_until_answered(pkg):
     live = [a for a in store.snapshot().allocs_by_node(node.id)
             if not a.terminal_status()]
     assert len(live) == (4 if twice else 8) and pkg.allocs_fit(node, live)[0]
+
+
+def _csi_job(pkg, tag, store):
+    job = pkg.mock.job(id=tag, name=tag)
+    job.task_groups[0].count = 1
+    job.task_groups[0].volumes = {"db": pkg.VolumeRequest(
+        name="db", type="csi", source="pgdata")}
+    store.upsert_job(job)
+    return job
+
+
+def test_csi_race_rejects_the_losing_writer_and_commits_the_rest(pkg):
+    """One plan with two new writers of a single-writer volume on two
+    nodes and a plain placement on a third: the writer on the later
+    node (sorted) loses and is rejected, the rest commits, the winner's
+    claim is recorded in the commit, and a lost volume race feeds no
+    bad-node count (reference ``plan_apply.py:1038-1110``)."""
+    store = pkg.StateStore()
+    nodes = [pkg.mock.node(id=f"cr-{i}", name=f"cr-{i}") for i in range(3)]
+    for n in nodes:
+        store.upsert_node(n)
+    store.upsert_volume(pkg.Volume(id="pgdata", name="pgdata"))
+    w1, w2 = _csi_job(pkg, "cr-w1", store), _csi_job(pkg, "cr-w2", store)
+    plain = pkg.mock.job(id="cr-plain", name="cr-plain")
+    store.upsert_job(plain)
+    plan = pkg.Plan(eval_id="e1", snapshot_index=store.latest_index)
+    plan.append_alloc(pkg.mock.alloc(w2, nodes[1], index=0, id="cr-a2"))
+    plan.append_alloc(pkg.mock.alloc(w1, nodes[0], index=0, id="cr-a1"))
+    plan.append_alloc(pkg.mock.alloc(plain, nodes[2], index=0, id="cr-a3"))
+    hits = []
+    ap, _ = applier(pkg, store, bad_node_tracker=pkg.pa.BadNodeTracker(
+        threshold=1, window=300.0, on_bad_node=hits.append))
+    result = ap.apply(plan)
+    snap = store.snapshot()
+    vol = snap.volume_by_id("pgdata")
+    assert result.rejected_nodes == ["cr-1"]
+    assert sorted(vol.claims) == ["cr-a1"]
+    assert snap.alloc_by_id("cr-a3") is not None
+    assert snap.alloc_by_id("cr-a2") is None
+    assert ap.stats["partial_commits"] == 1
+    assert hits == []
+    # a reader of the same volume is never rejected
+    reader = pkg.mock.job(id="cr-r", name="cr-r")
+    reader.task_groups[0].volumes = {"db": pkg.VolumeRequest(
+        name="db", type="csi", source="pgdata", read_only=True)}
+    store.upsert_job(reader)
+    plan = pkg.Plan(eval_id="e2", snapshot_index=store.latest_index)
+    plan.append_alloc(pkg.mock.alloc(reader, nodes[1], index=0, id="cr-a4"))
+    assert not ap.apply(plan).rejected_nodes
+
+
+def test_csi_writer_of_a_vanished_volume_is_rejected(pkg):
+    store = pkg.StateStore()
+    node = pkg.mock.node(id="cv-0", name="cv-0")
+    store.upsert_node(node)
+    job = _csi_job(pkg, "cv-w", store)
+    plan = pkg.Plan(eval_id="e1", snapshot_index=store.latest_index)
+    plan.append_alloc(pkg.mock.alloc(job, node, index=0, id="cv-a"))
+    ap, _ = applier(pkg, store)
+    assert ap.apply(plan).rejected_nodes == ["cv-0"]
 
 
 def test_bad_node_tracker_threshold_and_window(pkg):

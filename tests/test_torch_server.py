@@ -8,7 +8,9 @@ plans the applier re-checks; and the allocation lifecycle's endpoints
 (nodes down, a drain, failed client updates, an alloc stop, a promoted
 canary deployment, scaling, a disconnect and reconnect) through both
 packages' Servers with equal rows, then down, drain and failures on four
-workers with the incremental feed on."""
+workers with the incremental feed on; and the lifecycle's own endpoints
+(heartbeats, node deregistration, core GC with node delete, CSI volume
+registration and claims) through both Servers."""
 
 import copy
 import itertools
@@ -30,6 +32,7 @@ from nomad_tpu.structs.alloc import DesiredTransition as RefTransition
 from nomad_tpu.structs.evaluation import Evaluation as RefEvaluation
 from nomad_tpu.structs.job import UpdateStrategy as RefUpdate
 from nomad_tpu.structs import enums as ref_enums
+from nomad_tpu.structs import volumes as ref_volumes
 from nomad_tpu.structs import operator as ref_operator
 from nomad_tpu.tensor import solver as ref_solver
 from nomad_tpu_torch import _ext, convert
@@ -45,6 +48,7 @@ from nomad_tpu_torch.structs import (DesiredTransition, DrainStrategy, Spread,
 from nomad_tpu_torch.structs.evaluation import Evaluation
 from nomad_tpu_torch.structs.job import UpdateStrategy
 from nomad_tpu_torch.structs import operator as port_operator
+from nomad_tpu_torch.structs import volumes as port_volumes
 from nomad_tpu_torch.tensor import incremental as port_incremental
 
 from test_torch_bulk_scan import over_capacity
@@ -288,6 +292,9 @@ def test_batch_timeout_and_disable_return_empty(pkg):
 
 def _server(algorithm="tpu-binpack", **kw):
     kw.setdefault("failed_eval_unblock_interval", 0.3)
+    # the bench-safe TTL and GC interval: these tests never heartbeat
+    kw.setdefault("heartbeat_ttl", 3600)
+    kw.setdefault("gc_interval", 3600)
     return port_server.Server(port_server.ServerConfig(
         device="cpu", sched_config=port_operator.SchedulerConfiguration(
             scheduler_algorithm=algorithm), **kw))
@@ -673,9 +680,8 @@ def test_lifecycle_endpoint_equals_reference(endpoint, monkeypatch,
                                              port_service):
     """Each lifecycle endpoint on both packages' Servers (one worker, one
     eval a dequeue, pinned ids, "tpu-binpack"): the same rows, eval
-    kinds and deployment states. The reference's own drainer and
-    deployment watcher are held off: the caller plays them, as the port
-    asks."""
+    kinds and deployment states. Both packages' drainers and deployment
+    watchers are held off: the caller plays them."""
     monkeypatch.setenv("NOMAD_TPU_MESH_DEVICES", "1")
     _pin_ids(monkeypatch)
     for mod in (ref_reconcile, port_reconcile):
@@ -707,6 +713,8 @@ def test_lifecycle_endpoint_equals_reference(endpoint, monkeypatch,
         ref_svc.stop()
     srv = _server("tpu-binpack", num_workers=1, eval_batch_size=1,
                   nack_timeout=900.0)
+    srv.deployment_watcher.start = lambda: None
+    srv.drainer.start = lambda: None
     for n in convert.nodes_from_records(records):
         srv.store.upsert_node(n)
     with srv:
@@ -727,7 +735,11 @@ def test_lifecycle_four_workers_with_the_feed(monkeypatch, port_service):
     every group back at its count, no live alloc on a down or drained
     node, 0 nodes over capacity and the feed exact against a rebuild."""
     monkeypatch.setenv("NOMAD_TPU_INCR", "1")
-    with _server(num_workers=4, eval_batch_size=8) as srv:
+    srv = _server(num_workers=4, eval_batch_size=8)
+    # the test plays the drainer and the deployment watcher
+    srv.deployment_watcher.start = lambda: None
+    srv.drainer.start = lambda: None
+    with srv:
         port_mock.build_nodes(srv.store, 128)
         jobs = [port_mock.service_job(400, cpu=50, mem=32) for _ in range(4)]
         for j in jobs:
@@ -766,3 +778,112 @@ def test_lifecycle_four_workers_with_the_feed(monkeypatch, port_service):
                    for a in failed)
         assert over_capacity(srv.store) == []
         assert port_incremental.feed_for(srv.store).force_verify()
+
+
+# --------------------------------------------------------------------------
+# the lifecycle on its own: the Server's heartbeat, node delete, volume and
+# GC endpoints through both packages' Servers
+# --------------------------------------------------------------------------
+
+AP_REF = types.SimpleNamespace(
+    mock=ref_mock, server=ref_server, enums=ref_enums, extra={})
+AP_PORT = types.SimpleNamespace(
+    mock=port_mock, server=port_server, enums=enums, extra={"device": "cpu"})
+AP_ENDPOINTS = ("heartbeat_batch", "deregister_node", "force_gc",
+                "register_volume")
+
+
+def _ap_server(pk):
+    """One worker, one eval a dequeue, the bench-safe TTL, the drainer
+    and the watcher held off, 6 nodes with pinned ids."""
+    srv = pk.server.Server(pk.server.ServerConfig(
+        num_workers=1, eval_batch_size=1, heartbeat_ttl=3600,
+        gc_interval=3600, nack_timeout=900.0, **pk.extra))
+    srv.deployment_watcher.start = lambda: None
+    srv.drainer.start = lambda: None
+    for i in range(6):
+        srv.store.upsert_node(pk.mock.node(id=f"sv-{i}", name=f"sv-{i}"))
+    return srv
+
+
+def _ap_drive(pk, srv, endpoint):
+    """One endpoint's scenario; returns what the caller can see."""
+    e = pk.enums
+    j = pk.mock.job(id="ap-0", name="ap-0")
+    j.task_groups[0].count = 12
+    j.task_groups[0].update = None
+    srv.register_job(j)
+    assert srv.wait_for_idle(60.0, include_delayed=False)
+    node = _loaded_nodes(srv, "ap-0", 1)[0]
+    if endpoint == "heartbeat_batch":
+        srv.heartbeats.remove(node)
+        srv.mark_nodes_down([node])
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        down = srv.store.snapshot().node_by_id(node).status
+        ttl = srv.heartbeat_batch([f"sv-{i}" for i in range(6)] + ["ghost"])
+        with pytest.raises(KeyError):
+            srv.heartbeat("ghost")
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        return (down, ttl, srv.store.snapshot().node_by_id(node).status,
+                srv.heartbeats.armed(node))
+    if endpoint == "deregister_node":
+        srv.deregister_node(node)
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        snap = srv.store.snapshot()
+        return (snap.node_by_id(node), srv.heartbeats.armed(node),
+                sum(1 for a in snap.allocs_by_job("ap-0")
+                    if not a.terminal_status()),
+                sorted(a.node_id for a in snap.allocs_by_job("ap-0")
+                       if not a.terminal_status() and a.node_id == node))
+    if endpoint == "force_gc":
+        srv.heartbeats.remove(node)
+        srv.mark_nodes_down([node])
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        srv.deregister_job("ap-0")
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        _client(srv, [a for a in srv.store.snapshot().allocs_by_job("ap-0")
+                      if not a.client_terminal()], e.ALLOC_CLIENT_COMPLETE)
+        stats = srv.force_gc()
+        snap = srv.store.snapshot()
+        return ({k: stats[k] for k in ("evals", "allocs", "jobs", "nodes",
+                                       "deployments", "volume_claims")},
+                snap.job_by_id("ap-0"), snap.node_by_id(node),
+                sorted(n.id for n in snap.nodes()))
+    # register_volume: a CSI writer claims it, a second writer waits, the
+    # claim goes with the first writer's stop and GC
+    vol_cls = (ref_volumes if pk is AP_REF else port_volumes)
+    srv.register_volume(vol_cls.Volume(id="vol", name="vol"))
+    w = []
+    for i in range(2):
+        job = pk.mock.job(id=f"ap-w{i}", name=f"ap-w{i}")
+        job.task_groups[0].count = 1
+        job.task_groups[0].update = None
+        job.task_groups[0].volumes = {"v": vol_cls.VolumeRequest(
+            name="v", type="csi", source="vol")}
+        srv.register_job(job)
+        assert srv.wait_for_idle(60.0, include_delayed=False)
+        w.append(sum(1 for a in srv.store.snapshot().allocs_by_job(job.id)
+                     if not a.terminal_status()))
+    with pytest.raises(ValueError):
+        srv.deregister_volume("vol")
+    srv.deregister_job("ap-w0")
+    assert srv.wait_for_idle(60.0, include_delayed=False)
+    _client(srv, srv.store.snapshot().allocs_by_job("ap-w0"),
+            e.ALLOC_CLIENT_COMPLETE)
+    stats = srv.force_gc()
+    claims = sorted(srv.store.snapshot().volume_by_id("vol").claims)
+    return w, stats["volume_claims"], claims, srv.blocked.blocked_count()
+
+
+@pytest.mark.parametrize("endpoint", AP_ENDPOINTS)
+def test_autopilot_endpoint_equals_reference(endpoint, monkeypatch):
+    """Heartbeats that revive a down node, a node deregistered, core GC
+    with node delete, and a CSI volume's claims through both packages'
+    Servers (pinned ids, "binpack"): the same answers."""
+    _pin_ids(monkeypatch)
+    got = {}
+    for name, pk in (("ref", AP_REF), ("port", AP_PORT)):
+        srv = _ap_server(pk)
+        with srv:
+            got[name] = _ap_drive(pk, srv, endpoint)
+    assert got["port"] == got["ref"]
