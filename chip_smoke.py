@@ -184,6 +184,39 @@ Phases (any failure raises and exits non-zero):
               phase replayed against its plain version. Prints each
               step's wall, launches, spans and the feed's resyncs, twin
               uploads and flushes beside the node writes.
+   replicated -- the C2M path through the replicated control plane
+              (nomad_tpu_torch/raft): RaftCluster(3) with a data
+              directory under build/ (each append fsync'd, a snapshot
+              every REPL_SNAPSHOT applied entries), each server
+              ServerConfig(device="cuda", 24 workers, "tpu-binpack",
+              the bench-safe timers). The leader's Server schedules on
+              the card (B1); every placement commits through the raft
+              log and applies on all three replicas. The 10,240 nodes
+              as one replicated upsert_nodes, the scheduler config set
+              through the log, a warm job; wave 1: 32 batch jobs x
+              4,000 (cpu 50, mem 32); wave 2: 32 more, the leader
+              crashed once 8 of the 16 registered first are committed
+              (the old leader has solved them all by then), the other
+              16 registered after: a new leader is elected, its Server
+              starts on the same card, re-runs the evals the crash
+              left and finishes the wave; then the crashed server
+              restarts from its data
+              directory and catches up. Gates: every job exactly 4,000
+              live allocs, every eval complete, 0 nodes over capacity on
+              every replica, every replica's fingerprint (per-node
+              usage, per-job live counts, eval statuses, the index) the
+              leader's, each server snapshotted before the crash, the
+              restarted server loaded its snapshot and its feed saw the
+              restore sentinel and resynced, the new leader's scheduler
+              config "tpu-binpack" from the replicated table, the crash
+              in the middle of the wave, B1 launched under both leaders
+              and every launch replayed exact against its plain version
+              (B4's too), no plain version on CUDA, no follower feed
+              twin on the card. Prints each wave's wall and allocs/s
+              beside the "server" phase's, enqueue-to-commit p50 and
+              p99, commit rounds, raft.fsync and raft.apply, the time to
+              elect and to catch up, the snapshot's size, dump and
+              restore times, and leader changes beside the injected one.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
               version: 5 restarts x G=16 x N_pad=16,384 in one launch,
               bitwise (the kernel is on no path: B5 draws the same jitter
@@ -385,6 +418,9 @@ phase alone, then prints its record and its B9 kernel record as JSON
 lines.
 ``python3 chip_smoke.py --autopilot`` runs the build and the "autopilot"
 phase alone, then prints its record as one JSON line.
+``python3 chip_smoke.py --replicated`` runs the build and the
+"replicated" phase alone, then prints its record and B1's and B4's
+launches on it as JSON lines.
 ``python3 chip_smoke.py --sharded`` runs the build and phases 21 (the
 feed's sharded twin included), 25 and 26 alone: with several visible cards, every mesh puts its
 shards on the cards in turn, so the gathers cross cards (B13's, B14's
@@ -436,8 +472,9 @@ mean; ``solve_task_group_lifecycle`` is B9 on the lifecycle path, its
 launches there, the replayed means of its launches with a node penalty
 and ``penalty_launches``; B1's adds ``constraints_launches``, its
 launches on the config 2 path, B1's and B4's ``lifecycle_launches``,
-theirs on the lifecycle path, and B1's, B4's and B9's
-``autopilot_launches``, theirs on the autopilot path), and the card's name
+theirs on the lifecycle path, B1's, B4's and B9's
+``autopilot_launches``, theirs on the autopilot path, and B1's and B4's
+``replicated_launches``, theirs on the replicated path), and the card's name
 and power limit; the last line is the device summary.
 """
 
@@ -499,6 +536,21 @@ BENCH_SAFE = {"heartbeat_ttl": 3600.0, "gc_interval": 3600.0}
 # than one launch's group (16 or 8), so a resync falls in the timed window
 # whatever the grouping: on the fed arm the twin route, with its B4 flush
 WAVES = 2
+# the replicated phase: jobs a wave, jobs of wave 2 committed before the
+# leader is crashed, applied entries between snapshots (low enough that
+# every server snapshots during wave 1)
+REPL_JOBS = 32
+REPL_CRASH_AT = 8
+REPL_SNAPSHOT = 48
+# bench-safe raft timers, as the reference's bench sets for its
+# in-process clusters (bench.py:1710-1715): the three servers share one
+# interpreter, whose full garbage collections over three replicas of
+# C2M state and whose copies and encodes of one 10,240-node command
+# starve the heartbeat threads past the default 0.3 s election timeout
+# (on the H100's host, five elections in a row while that command
+# committed). Leader changes other than the injected crash are counted.
+REPL_ELECTION_TIMEOUT = 2.0
+REPL_HEARTBEAT = 0.1
 SOLVE_WORKERS = 8         # cfg_solve_ab's c2m_mini (bench.py:693-695)
 # BASELINE config 5 (bench.py cfg5_devices_numa, :820-889): GPU nodes,
 # jobs of device asks with two reserved cores, its 2-job host sample
@@ -2444,7 +2496,9 @@ class Lifecycle:
         self.steps.append(rec)
         print(f"{self.name:<11} [{self.card}] {name}: {wall:.3f} s; launches "
               f"{launched}; applied {rec['applied']}, nodes_rejected "
-              f"{rec['nodes_rejected']}; {extra}")
+              f"{rec['nodes_rejected']}, superseded {rec['superseded']} "
+              f"(stops dropped {rec['stops_dropped']}, both since the "
+              f"start); {extra}")
         return rec
 
     # -- gates --
@@ -2452,7 +2506,17 @@ class Lifecycle:
     def walk(self, what) -> dict:
         """The store walked against capacity: no node over it, no id
         twice, every job at its desired live count (unknown allocs are
-        not live), and no live alloc on a node in ``gone``."""
+        not live), no live alloc on a node in ``gone``, and no alloc
+        superseded but for a stop the applier dropped: on one Server a
+        fresh placement finds its slot still live only when a rejected
+        node took with it the stop of the alloc it replaces (ROADMAP
+        §C8, both packages alike)."""
+        superseded = self.srv.store.superseded
+        dropped = self.srv.plan_applier.stops_dropped
+        if superseded > dropped:
+            raise AssertionError(f"lifecycle {what}: {superseded} allocs "
+                                 f"superseded, {dropped} stops dropped "
+                                 f"with a rejected node")
         snap = self.srv.store.snapshot()
         nodes = list(snap.nodes())
         row = {n.id: i for i, n in enumerate(nodes)}
@@ -2488,7 +2552,8 @@ class Lifecycle:
         if self.srv.blocked.blocked_count():
             raise AssertionError(f"lifecycle {what}: evals left blocked: "
                                  f"{blocked_report(self.srv)}")
-        return {"over_capacity": over, "allocs": n}
+        return {"over_capacity": over, "allocs": n,
+                "superseded": superseded, "stops_dropped": dropped}
 
     def chain(self, preds, what, linked=False):
         """Each predecessor replaced once: one alloc names it as
@@ -3228,8 +3293,11 @@ def ap_drain_nodes(srv, n, n_paced, exclude, paced):
     fewest rounds first, at most AP_DRAIN_PACED_ROUNDS. Then, of the
     nodes that no group needs more than AP_DRAIN_ROUNDS rounds to leave,
     those with the most allocs of the paced jobs in such groups, then
-    the fewest rounds, then the most allocs. Ties by node id. Raises
-    when too few nodes qualify."""
+    the fewest rounds, then the most allocs; when too few nodes are that
+    quick to leave (the layout varies by call), the rest by the fewest
+    rounds up to AP_DRAIN_PACED_ROUNDS, the paced nodes' bound, so the
+    slowest node's drain stays within it. Ties by node id. Raises when
+    too few nodes qualify."""
     per = {}
     for a in srv.store.snapshot().allocs():
         if not a.terminal_status() and a.node_id not in exclude:
@@ -3250,12 +3318,19 @@ def ap_drain_nodes(srv, n, n_paced, exclude, paced):
     fits = [nid for nid in per if rounds(nid) <= AP_DRAIN_ROUNDS
             and nid not in bound]
     rest = sorted(fits, key=rank)[:n - len(bound)]
+    if len(bound) + len(rest) < n:
+        slow = sorted((nid for nid in per if nid not in bound
+                       and AP_DRAIN_ROUNDS < rounds(nid)
+                       <= AP_DRAIN_PACED_ROUNDS),
+                      key=lambda nid: (rounds(nid), -sum(per[nid].values()),
+                                       nid))
+        rest += slow[:n - len(bound) - len(rest)]
     if len(bound) < n_paced or len(bound) + len(rest) < n:
         raise AssertionError(f"autopilot drain: {len(bound)} nodes with a "
                              f"paced group of three or more within "
                              f"{AP_DRAIN_PACED_ROUNDS} rounds (want "
                              f"{n_paced}), {len(rest)} others within "
-                             f"{AP_DRAIN_ROUNDS}")
+                             f"{AP_DRAIN_PACED_ROUNDS}")
     return bound + rest
 
 
@@ -3312,17 +3387,22 @@ def ap_inflight(srv, node_ids, max_par) -> dict:
     peak = Counter()
     for nid in node_ids:
         flight = Counter()
+        why = {}
         for a in snap.allocs_by_node(nid):
             if a.client_terminal():
                 continue
             if a.desired_transition.migrate or a.server_terminal():
-                flight[(a.job_id, a.task_group)] += 1
+                key = (a.job_id, a.task_group)
+                flight[key] += 1
+                why.setdefault(key, Counter())[
+                    a.desired_description or a.desired_status] += 1
         for key, n in flight.items():
             cap = max_par.get(key[0], 1)
             if n > cap:
                 raise AssertionError(f"autopilot drain: {n} allocs of "
                                      f"{key} in flight on {nid}, "
-                                     f"max_parallel {cap}")
+                                     f"max_parallel {cap}: "
+                                     f"{dict(why[key])}")
             peak[cap] = max(peak[cap], n)
     return dict(peak)
 
@@ -3827,6 +3907,463 @@ def feed_delta(store, before, after) -> dict:
                                              "twin_flushes", "builds")}
     out["node_writes"] = store.node_set_version - before["node_set"]
     return out
+
+
+def _drain(srv, what, limit=600.0):
+    """Drain a Server's queue, conflict-blocked evals included."""
+    deadline = time.time() + limit
+    while True:
+        if not srv.wait_for_idle(max(1.0, deadline - time.time()),
+                                 include_delayed=False):
+            raise AssertionError(f"{what}: the eval queue did not drain: "
+                                 f"{blocked_report(srv)}")
+        if srv.blocked.blocked_count() == 0:
+            return
+        if time.time() > deadline:
+            raise AssertionError(f"{what}: blocked evals did not drain: "
+                                 f"{blocked_report(srv)}")
+        time.sleep(0.05)
+
+
+def _gc_watch(pauses):
+    """A gc callback appending each collection's generation and seconds
+    to ``pauses``."""
+    start = [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"],
+                           time.perf_counter() - start[0]))
+    return cb
+
+
+def _on_leader(cluster, fn, retries, what):
+    """``fn(leader)`` on the cluster's leader, again on the next leader
+    when leadership moves under the call (a client's retry); each retry
+    is counted in ``retries``."""
+    from nomad_tpu_torch.raft import NotLeaderError
+
+    for _ in range(5):
+        leader = cluster.wait_for_leader(60.0)
+        if leader is None:
+            raise AssertionError(f"{what}: no leader")
+        try:
+            return fn(leader)
+        except (NotLeaderError, TimeoutError):
+            retries[what] = retries.get(what, 0) + 1
+    raise AssertionError(f"{what}: leadership moved five times")
+
+
+def _drain_cluster(cluster, what, limit=600.0):
+    """Drain the leader's queue; again on a new leader if leadership
+    moved meanwhile. Returns the leader."""
+    deadline = time.time() + limit
+    while True:
+        leader = cluster.wait_for_leader(max(1.0, deadline - time.time()))
+        if leader is None:
+            raise AssertionError(f"{what}: no leader")
+        _drain(leader.server, what, max(1.0, deadline - time.time()))
+        if cluster.leader() is leader:
+            return leader
+
+
+def _committed_jobs(store, jobs, k) -> int:
+    """Jobs whose k allocs the store holds live."""
+    snap = store.snapshot()
+    try:
+        return sum(1 for j in jobs
+                   if sum(1 for a in snap.allocs_by_job(j.id)
+                          if not a.terminal_status()) == k)
+    finally:
+        snap.close()
+
+
+def _over_capacity(store) -> int:
+    """Nodes whose usage rows exceed their capacity."""
+    snap = store.snapshot()
+    try:
+        over = 0
+        for n in snap.nodes():
+            u = snap.node_usage(n.id)
+            if u is not None and (np.asarray(u) > n.available_vec()).any():
+                over += 1
+        return over
+    finally:
+        snap.close()
+
+
+def phase_replicated(torch, card, device="cuda", n_nodes=N_NODES,
+                     n_jobs=REPL_JOBS, k=K, workers=SERVER_WORKERS,
+                     crash_at=REPL_CRASH_AT, snapshot_threshold=REPL_SNAPSHOT,
+                     server_rec=None):
+    """The replicated control plane (see the module docstring): returns
+    the launch counts of its run and its record. ``server_rec`` is the
+    "server" phase's record, printed beside the waves."""
+    import shutil
+
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.core.server import ServerConfig
+    from nomad_tpu_torch.obs import RECORDER, REGISTRY, TRACER
+    from nomad_tpu_torch.obs.trace import R_ARGS, R_NAME, R_T0
+    from nomad_tpu_torch.raft import RaftCluster
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.state.persist import dump_store, restore_store
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import incremental, solver
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+    from nomad_tpu_torch.testing import replica_fingerprint
+
+    what = "replicated"
+    tpu = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+
+    def cfg(i):
+        return ServerConfig(
+            num_workers=workers, eval_batch_size=1, device=device,
+            sched_config=tpu, nack_timeout=900.0,
+            failed_eval_followup_delay=3600.0,
+            failed_eval_unblock_interval=0.5, **BENCH_SAFE)
+
+    class _Nodes(list):
+        upsert_node = list.append
+
+    data = REPO / "build" / f"replicated-{os.getpid()}"
+    shutil.rmtree(data, ignore_errors=True)
+    data.mkdir(parents=True)
+    RECORDER.clear()
+    t_setup = time.perf_counter()
+    cluster = RaftCluster(3, config_fn=cfg, data_dir=str(data),
+                          snapshot_threshold=snapshot_threshold,
+                          election_timeout=REPL_ELECTION_TIMEOUT,
+                          heartbeat_interval=REPL_HEARTBEAT)
+    pauses = []
+    watch = _gc_watch(pauses)
+    gc.callbacks.append(watch)
+    b1, b4 = [], []
+    try:
+        cluster.start()
+        leader = cluster.wait_for_leader(30.0)
+        if leader is None:
+            raise AssertionError(f"{what}: no leader elected")
+        retries = {}
+        nodes = _Nodes()
+        mock.build_nodes(nodes, n_nodes, seed=0)
+        t0 = time.perf_counter()
+        _on_leader(cluster, lambda ld: ld.register_nodes(list(nodes)),
+                   retries, "register_nodes")
+        nodes_s = time.perf_counter() - t0
+        _on_leader(cluster, lambda ld: ld.set_scheduler_config(tpu),
+                   retries, "set_scheduler_config")
+        warm = mock.service_job(k, cpu=50, mem=32, batch=True)
+        _on_leader(cluster, lambda ld: ld.register_job(warm), retries,
+                   "register_job")
+        _drain_cluster(cluster, f"{what} warm-up")
+        _on_leader(cluster, lambda ld: ld.deregister_job(warm.id), retries,
+                   "deregister_job")
+        leader = _drain_cluster(cluster, f"{what} warm-up stop")
+        waves = [[mock.service_job(k, cpu=50, mem=32, batch=True)
+                  for _ in range(n_jobs)] for _ in range(2)]
+        print(f"{what:<11} setup and warm-up "
+              f"{time.perf_counter() - t_setup:.2f} s (3 servers, "
+              f"{n_nodes} nodes as one upsert_nodes in {nodes_s:.2f} s, "
+              f"2 waves of {n_jobs} jobs x {k} allocs, {workers} workers "
+              f"on the leader, a snapshot every {snapshot_threshold} "
+              f"applied entries)")
+
+        # every B1 launch's inputs and outputs, tagged with the leader
+        # whose Server was serving (the crashed one's until the new one
+        # serves: the start gate orders them)
+        real_b1 = solver.solve_bulk_multi
+        last = [leader.id]
+
+        def captured_b1(used, *args, g):
+            serving = [sv.id for sv in cluster.servers.values()
+                       if sv._serving]
+            if serving:
+                last[0] = serving[0]
+            before = used.clone()
+            keep = [a.clone() for a in args]
+            out = real_b1(used, *args, g=g)
+            b1.append((before, keep, g, out[0].clone(), out[1].clone(),
+                       last[0]))
+            return out
+
+        TRACER.clear()
+        REGISTRY.reset()
+        solver.solve_bulk_multi = captured_b1
+        first_id = leader.id
+        terms0 = {sid: sv.raft.current_term
+                  for sid, sv in cluster.servers.items()}
+        try:
+            with capture_b4(b4):
+                _ext.COUNTS.reset()
+                t_wall = time.time()
+                # wave 1
+                t0 = time.perf_counter()
+                for j in waves[0]:
+                    _on_leader(cluster, lambda ld, j=j: ld.register_job(j),
+                               retries, "register_job")
+                leader = _drain_cluster(cluster, f"{what} wave 1")
+                walls = [time.perf_counter() - t0]
+                stats1 = dict(leader.server.plan_applier.stats)
+                # every server snapshotted before the crash
+                deadline = time.time() + 120.0
+                while not all(sv.raft.log.base_index > 0
+                              for sv in cluster.servers.values()):
+                    if time.time() > deadline:
+                        raise AssertionError(
+                            f"{what}: not every server snapshotted before "
+                            f"the crash: " + str({
+                                sid: sv.raft.log.base_index
+                                for sid, sv in cluster.servers.items()}))
+                    time.sleep(0.05)
+                snaps_before = {sid: sv.raft.log.base_index
+                                for sid, sv in cluster.servers.items()}
+                # wave 2, the leader crashed in its middle: half its jobs
+                # registered before the crash (the old leader solves them
+                # all before the first commits land), half after it
+                half = n_jobs // 2
+                t0 = time.perf_counter()
+                for j in waves[1][:half]:
+                    _on_leader(cluster, lambda ld, j=j: ld.register_job(j),
+                               retries, "register_job")
+                leader = cluster.wait_for_leader(60.0)
+                deadline = time.time() + 300.0
+                while True:
+                    done = _committed_jobs(leader.local_store,
+                                           waves[1][:half], k)
+                    if done >= crash_at:
+                        break
+                    if time.time() > deadline:
+                        raise AssertionError(f"{what}: {done} of wave 2's "
+                                             f"jobs committed in 300 s")
+                    time.sleep(0.002)
+                t_crash = time.perf_counter()
+                crashed_id = leader.id
+                cluster.crash(crashed_id)
+                crash_s = time.perf_counter() - t_crash
+                new = cluster.wait_for_leader(60.0)
+                if new is None:
+                    raise AssertionError(f"{what}: no new leader")
+                elect_s = time.perf_counter() - t_crash
+                for j in waves[1][half:]:
+                    _on_leader(cluster, lambda ld, j=j: ld.register_job(j),
+                               retries, "register_job")
+                new = _drain_cluster(cluster, f"{what} wave 2 (new leader)")
+                walls.append(time.perf_counter() - t0)
+                counts = _ext.COUNTS.snapshot()
+                spans = TRACER.spans()
+                leader_events = [(t, f) for t, _, _, ev, f
+                                 in RECORDER.events("raft")
+                                 if ev == "leader" and t >= t_wall]
+        finally:
+            solver.solve_bulk_multi = real_b1
+        stats2 = dict(new.server.plan_applier.stats)
+
+        # the restart from the data directory
+        t0 = time.perf_counter()
+        back = cluster.restart(crashed_id)
+        restart_s = time.perf_counter() - t0
+        loaded = back.raft.log.base_index
+        feed_back = incremental.feed_for(back.server.store)
+        feed_back.sub.next_events()
+        sentinel = feed_back.sub.truncated
+        deadline = time.time() + 120.0
+        while back.raft.last_applied < new.raft.commit_index:
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: the restarted server did not "
+                                     f"catch up ({back.raft.last_applied} "
+                                     f"of {new.raft.commit_index})")
+            time.sleep(0.01)
+        catchup_s = time.perf_counter() - t0
+        r0 = feed_back.stats()["resyncs"]
+        verified = feed_back.force_verify()
+        resynced = feed_back.stats()["resyncs"] - r0
+        if not (loaded > 0 and sentinel and verified and resynced == 1):
+            raise AssertionError(
+                f"{what}: the restart: snapshot base {loaded}, restore "
+                f"sentinel seen {sentinel}, feed verified {verified}, "
+                f"resyncs {resynced}")
+        # every replica the leader's
+        deadline = time.time() + 120.0
+        while True:
+            fps = {sid: replica_fingerprint(sv.local_store)
+                   for sid, sv in cluster.servers.items()}
+            if len(set(fps.values())) == 1:
+                break
+            if time.time() > deadline:
+                raise AssertionError(
+                    f"{what}: replica fingerprints differ: indexes "
+                    + str({sid: fp[0] for sid, fp in fps.items()}))
+            time.sleep(0.05)
+
+        # gates
+        jobs = waves[0] + waves[1]
+        statuses = server_gates(new.server, jobs, 2 * n_jobs * k, what)
+        snap = new.local_store.snapshot()
+        per_job = {j.id: sum(1 for a in snap.allocs_by_job(j.id)
+                             if not a.terminal_status()) for j in jobs}
+        all_evals = Counter(e.status for e in snap.evals())
+        cfg_row = snap.scheduler_configuration()
+        snap.close()
+        if set(per_job.values()) != {k}:
+            raise AssertionError(f"{what}: live allocs a job "
+                                 f"{sorted(Counter(per_job.values()).items())}"
+                                 f", every job wants exactly {k}")
+        if set(all_evals) != {enums.EVAL_STATUS_COMPLETE}:
+            raise AssertionError(f"{what}: evals not all complete: "
+                                 f"{dict(all_evals)}")
+        over = {sid: _over_capacity(sv.local_store)
+                for sid, sv in cluster.servers.items()}
+        if any(over.values()):
+            raise AssertionError(f"{what}: nodes over capacity {over}")
+        if (new.server.sched_config.scheduler_algorithm
+                != enums.SCHED_ALG_TPU_BINPACK or cfg_row is None
+                or cfg_row.scheduler_algorithm
+                != enums.SCHED_ALG_TPU_BINPACK):
+            raise AssertionError(f"{what}: the new leader's scheduler "
+                                 f"config is not tpu-binpack")
+        led = {first_id, new.id} | {f.get("node") for _, f in leader_events}
+        never_led = [sv for sid, sv in cluster.servers.items()
+                     if sid not in led]
+        for sv in never_led:
+            fs = incremental.feed_for(sv.server.store).stats()
+            if fs["twin_uploads"] or fs["builds"]:
+                raise AssertionError(f"{what}: follower {sv.id}'s feed "
+                                     f"worked: {fs}")
+
+        # the leader's store: dump, restore and the snapshot on disk
+        t0 = time.perf_counter()
+        dumped = dump_store(new.local_store)
+        dump_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_store(StateStore(), dumped)
+        restore_s = time.perf_counter() - t0
+        snap_bytes = os.path.getsize(
+            Path(new.data_dir) / "raft" / "snapshot.json")
+        fsync = [r[R_ARGS].get("n", 0) for r in spans
+                 if r[R_NAME] == "raft.fsync" and r[R_T0] >= t_wall]
+        applied = [r[R_ARGS].get("n", 0) for r in spans
+                   if r[R_NAME] == "raft.apply" and r[R_T0] >= t_wall]
+        terms1 = {sid: sv.raft.current_term
+                  for sid, sv in cluster.servers.items()
+                  if sid != crashed_id}
+    finally:
+        cluster.stop()
+        solver.get_service(device).stop()
+        shutil.rmtree(data, ignore_errors=True)
+        gc.callbacks.remove(watch)
+
+    # replays: every B1 launch under both leaders exact against its plain
+    # version and the path's output; B4's
+    by_leader = Counter(c[5] for c in b1)
+    launched = counts["launches"]
+    counted = device == "cpu" or len(b1) == launched["bulk_fill"]
+    if not (counted and by_leader[crashed_id] > 0
+            and by_leader[new.id] > 0):
+        raise AssertionError(f"{what}: B1 launched {launched['bulk_fill']} "
+                             f"times, captured {len(b1)}, by leader "
+                             f"{dict(by_leader)}")
+    for i, (before, args, g, used, cnt, _) in enumerate(b1):
+        u1, c1 = solve_bulk_multi(before.clone(), *args, g=g)
+        u2, c2 = solve_bulk_multi_ref(before.clone(), *args, g=g)
+        if not (torch.equal(u1, u2) and torch.equal(c1, c2)
+                and torch.equal(u1, used) and torch.equal(c1, cnt)):
+            raise AssertionError(f"{what}: B1 launch {i} differs from its "
+                                 f"plain version or the path's output")
+    b4_rec = replay_b4(torch, b4, what)
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"{what}: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    placed = n_jobs * k
+    rejected = stats1["nodes_rejected"] + stats2["nodes_rejected"]
+    e2c = {"p50_ms": 1e3 * REGISTRY.percentile(
+        "nomad.eval.enqueue_to_commit", 0.5),
+        "p99_ms": 1e3 * REGISTRY.percentile(
+        "nomad.eval.enqueue_to_commit", 0.99)}
+    spurious = len(leader_events) - 1
+    rec = {
+        "nodes": n_nodes, "jobs": 2 * n_jobs, "allocs": 2 * placed,
+        "waves": [{"allocs": placed, "wall_s": w,
+                   "allocs_per_s": placed / w} for w in walls],
+        "server_phase": ({"wall_s": server_rec["wall_s"],
+                          "allocs_per_s": server_rec["allocs_per_s"],
+                          "allocs": server_rec["allocs"]}
+                         if server_rec else None),
+        "enqueue_to_commit": e2c,
+        "commit_rounds": stats1["commit_batches"] + stats2["commit_batches"],
+        "batched_commits": (stats1["batched_commits"]
+                            + stats2["batched_commits"]),
+        "applier": {"first_leader": stats1, "new_leader": stats2},
+        "raft_fsync": {"n": len(fsync),
+                       "median_batch": (statistics.median(fsync)
+                                        if fsync else None)},
+        "raft_apply_entries": sum(applied),
+        "rejection_rate": rejected / max(2 * placed + rejected, 1),
+        "crash": {"committed_jobs_at_crash": done,
+                  "registered_before_crash": n_jobs // 2, "crash_s": crash_s,
+                  "elect_s": elect_s},
+        "restart": {"restart_s": restart_s, "catchup_s": catchup_s,
+                    "snapshot_base": loaded, "sentinel": sentinel},
+        "snapshots_before_crash": snaps_before,
+        "snapshot_bytes": snap_bytes, "dump_s": dump_s,
+        "restore_s": restore_s,
+        "leader_changes": len(leader_events), "spurious_elections": spurious,
+        "client_retries": retries,
+        "raft_timers": {"election_timeout_s": REPL_ELECTION_TIMEOUT,
+                        "heartbeat_interval_s": REPL_HEARTBEAT},
+        "gc": {"collections": len(pauses),
+               "full": sum(1 for g, _ in pauses if g == 2),
+               "longest_s": max((d for _, d in pauses), default=0.0),
+               "total_s": sum(d for _, d in pauses)},
+        "terms": {"before": terms0, "after": terms1},
+        "evals": statuses, "b1_by_leader": dict(by_leader),
+        "b4": b4_rec, "launches": {k: v for k, v in launched.items() if v},
+        "card": card}
+    base = (f" (the server phase: {server_rec['wall_s']:.3f} s, "
+            f"{server_rec['allocs_per_s']:.1f} allocs/s for "
+            f"{server_rec['allocs']})" if server_rec else "")
+    print(f"{what:<11} [{card}] wave 1 {placed} allocs in {walls[0]:.3f} s"
+          f" = {placed / walls[0]:.1f} allocs/s; wave 2 with the crash "
+          f"{walls[1]:.3f} s = {placed / walls[1]:.1f} allocs/s{base}")
+    print(f"{what:<11} [{card}] enqueue_to_commit p50 {e2c['p50_ms']:.3f} ms"
+          f" p99 {e2c['p99_ms']:.3f} ms; commit rounds "
+          f"{rec['commit_rounds']} ({rec['batched_commits']} plans); "
+          f"raft.fsync {len(fsync)} (median batch "
+          f"{rec['raft_fsync']['median_batch']}); raft.apply "
+          f"{rec['raft_apply_entries']} entries on 3 replicas; rejection "
+          f"rate {rec['rejection_rate']:.6f}")
+    print(f"{what:<11} [{card}] crash at {done} of the {n_jobs // 2} jobs "
+          f"registered before it committed "
+          f"(crash() {crash_s:.3f} s); a new leader serving "
+          f"{elect_s:.3f} s after the crash; the restart {restart_s:.3f} s "
+          f"(snapshot base {loaded}), caught up {catchup_s:.3f} s after "
+          f"it; leader changes {len(leader_events)} (spurious "
+          f"{spurious}; the client's retries {retries}; election timeout "
+          f"{REPL_ELECTION_TIMEOUT} s); snapshots before the crash "
+          f"{snaps_before}; gc {rec['gc']}")
+    print(f"{what:<11} [{card}] snapshot {snap_bytes} bytes; dump_store "
+          f"{dump_s:.3f} s, restore_store {restore_s:.3f} s of the leader's "
+          f"store; B1 launches by leader {dict(by_leader)}, every one "
+          f"replayed exact; B4 {b4_rec}; evals {statuses}")
+    return launched, rec
+
+
+def replicated_only(torch, card) -> int:
+    """``--replicated``: the build and the replicated phase alone; its
+    record and B1's and B4's launches on it as JSON lines."""
+    launched, rec = phase_replicated(torch, card)
+    print(json.dumps({"replicated": rec}))
+    print(json.dumps({"kernels": [
+        {"name": "bulk_fill", "replicated_launches": launched["bulk_fill"]},
+        {"name": "scatter_add",
+         "replicated_launches": launched["scatter_add"]}]}))
+    print(card)
+    return 0
 
 
 def autopilot_only(torch, card) -> int:
@@ -7238,6 +7775,8 @@ def main() -> int:
         return lifecycle_only(torch, card)
     if sys.argv[1:] == ["--autopilot"]:
         return autopilot_only(torch, card)
+    if sys.argv[1:] == ["--replicated"]:
+        return replicated_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -7267,6 +7806,10 @@ def main() -> int:
     bulk[2]["autopilot_launches"] = ap_launches["bulk_fill"]
     bulk[1]["autopilot_launches"] = ap_launches["scatter_add"]
     per_eval[1]["autopilot_launches"] = ap_launches["solve_task_group"]
+    repl_launches, server["replicated"] = phase_replicated(
+        torch, card, server_rec=arms["1"][1])
+    bulk[2]["replicated_launches"] = repl_launches["bulk_fill"]
+    bulk[1]["replicated_launches"] = repl_launches["scatter_add"]
     launches, wall, captured = phase_solve_path(torch, card)
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
@@ -7327,7 +7870,8 @@ def main() -> int:
     extra = ("device_ms", "library_device_ms", "without_clamp",
              "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
              "by_d", "constraints_launches", "lifecycle_launches",
-             "autopilot_launches", "penalty_launches")
+             "autopilot_launches", "replicated_launches",
+             "penalty_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

@@ -11,12 +11,21 @@ a node's host volumes as ``{name: {name, path, read_only}}``, a group's
 volumes as ``{name: {name, type, source, read_only, access_mode,
 per_alloc}}`` and a task's mounts as ``[{volume, destination,
 read_only}]``. A drain strategy, which the port does not carry across,
-must be empty, or the conversion raises rather than drop it."""
+must be empty, or the conversion raises rather than drop it.
+
+A whole store carries across as a dump (``state/persist.py``, the
+reference's layout): ``store_from_dump`` restores a dump the reference's
+``dump_store`` wrote (plain dicts, lists and numpy arrays, format 2 or
+1) into a fresh port store, and the port's ``dump_store`` writes one the
+reference's ``restore_store`` reads. For a scheduler this is the
+counterpart of carrying weights across."""
 
 from __future__ import annotations
 
 from typing import Iterable, List, Mapping
 
+from .state import StateStore
+from .state.persist import restore_store
 from .structs import (Affinity, Constraint, Job, Node, NodeResources,
                       Resources, Spread, SpreadTarget, Task, TaskGroup)
 from .structs.job import EphemeralDisk, UpdateStrategy
@@ -202,3 +211,10 @@ def job_from_record(rec: Mapping) -> Job:
         affinities=_affinities(rec.get("affinities")),
         spreads=_spreads(rec.get("spreads")),
         task_groups=groups)
+
+
+def store_from_dump(dump: Mapping) -> StateStore:
+    """A fresh store holding a dump's state, at the dump's index."""
+    store = StateStore()
+    restore_store(store, dict(dump))
+    return store

@@ -11,10 +11,22 @@ lifecycle:
 - deployments.py -- the canary health rule of the promotion endpoint
 - server.py      -- Server: the wiring and the job / node / eval calls
                     and the allocation lifecycle's
+- events.py      -- the sharded event broker (the restore sentinel)
+
+The replicated Server and its cluster (``raft/cluster.py``) are exported
+here too, loaded on first use: ``raft`` imports ``core``.
 
 The reference's ``core/metrics.py`` (``REGISTRY``) lives in ``obs/``.
 """
 
 from .server import Server, ServerConfig
 
-__all__ = ["Server", "ServerConfig"]
+__all__ = ["Server", "ServerConfig", "RaftCluster", "ReplicatedServer"]
+
+
+def __getattr__(name: str):
+    if name in ("RaftCluster", "ReplicatedServer"):
+        from .. import raft
+
+        return getattr(raft, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,11 +12,14 @@ a full resync).
 Kept: what the incremental feed and its tests read (``subscribe``,
 ``Subscription.next_events`` / ``truncated`` / ``close``, the commit
 listener, ``TOPIC_FOR_KIND``) and the ``nomad.events.alloc_deltas``
-counter. Left out: direct publishes (``publish``), the broker-wide
-cursors (``last_seq``, ``events_after``), the restore truncation (the
-port's store has no restore), the blocking read (``next_events``'
-``timeout``, the parked waiters a publish wakes: every reader in the
-port polls), the ownership hooks and the read-path wakeup metrics.
+counter, and the restore sentinel: a commit of a ``RESYNC_KINDS`` kind
+(the store's ``restore``, which replaced every table) truncates every
+ring (``_truncate_all``), so every subscription, caught up or not, sees
+``truncated`` and resyncs. Left out: direct publishes (``publish``),
+the broker-wide cursors (``last_seq``, ``events_after``), the blocking
+read (``next_events``' ``timeout``, the parked waiters a publish wakes:
+every reader in the port polls), the ownership hooks and the read-path
+wakeup metrics.
 """
 
 from __future__ import annotations
@@ -41,6 +44,10 @@ TOPIC_FOR_KIND = {
     "deployment-upsert": "Deployment", "deployment-update": "Deployment",
     "deployment-delete": "Deployment",
 }
+
+# commit kinds that invalidate every topic at once (a restore replaced
+# the whole store): the answer is a full ring truncation
+RESYNC_KINDS = ("restore",)
 
 DEFAULT_SHARDS = 8
 
@@ -152,6 +159,9 @@ class EventBroker:
     def _on_commit(self, index: int, events: list) -> None:
         """The store's commit listener: on the writer's thread and under
         its lock, so it only appends to rings."""
+        if any(kind in RESYNC_KINDS for kind, _ in events):
+            self._truncate_all()
+            return
         by_shard: Dict[int, list] = {}
         alloc_deltas = 0
         for kind, payload in events:
@@ -178,3 +188,13 @@ class EventBroker:
                 if len(ring) == cap:
                     sh.evicted = ring[0].seq
                 ring.append(Event(sh.seq, index, topic, kind, key, payload))
+
+    def _truncate_all(self) -> None:
+        """A restore replaced the whole store: every ring is stale. Each
+        shard's seq moves past every cursor and counts as evicted, so all
+        subscriptions observe the truncation."""
+        for sh in self._shards:
+            with sh.lock:
+                sh.ring.clear()
+                sh.seq += 1
+                sh.evicted = sh.seq

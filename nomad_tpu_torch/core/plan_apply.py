@@ -25,19 +25,29 @@ update waiting for it in one ``upsert_plan_results_batch``, while the
 next plan verifies against an overlay of the results still in flight.
 The fit re-check is host numpy, as in the reference: no device program.
 
+On a raft store (``store.can_propose_async``, raft/fsm.py) the commit
+rounds pipeline (reference ``:537-543, 568, 751-808``): one thread
+verifies and proposes round K+1 while round K replicates
+(``_begin_round``, up to ``COMMIT_PIPELINE_DEPTH`` rounds in flight),
+and a reap thread waits on the rounds oldest first and answers their
+submitters (``_finish_round``). Raft log order is propose order, so the
+rounds apply in the order they were built. The payload of a plan is
+normalized (``_payload_for``, reference ``:852``): its allocs and blocks
+ride without their job, the plan's job rides once, and the store
+re-attaches it at apply; without that, every 4,000-alloc block would
+carry its job into every log entry and every replica's deep copy.
+
 Not ported: the reference's unbatched arm (``batch=False``,
 ``ServerConfig.plan_commit_batching``: one commit a plan on a one-thread
 pool, ``_commit_task``) and its verify pool (``pool_workers``,
 ``PARALLEL_THRESHOLD``, which its own default keeps off), both kept
-there for A/B runs; the overlapping commit rounds of a raft store
-(``_run_commit_pipelined``, ``_begin_round``, ``_finish_round``: the
-port's store commits synchronously), plan deadlines
-(``loadctl``) and the plan normalization that strips jobs for the raft
-log.
+there for A/B runs, and plan deadlines (the reference's ``loadctl``,
+which waits for the HTTP API).
 """
 
 from __future__ import annotations
 
+import copy
 import heapq
 import itertools
 import threading
@@ -286,6 +296,9 @@ class PlanApplier:
 
     # verified plans a commit round lands at most
     COMMIT_BATCH_MAX = 64
+    # commit rounds in flight at once on a raft store: the next round is
+    # verified and proposed while the previous one replicates
+    COMMIT_PIPELINE_DEPTH = 4
     # nodes that only receive fresh resource-only placements verify in
     # one numpy pass at or above this many (below it the loop wins)
     VECTOR_THRESHOLD = 16
@@ -303,6 +316,13 @@ class PlanApplier:
         self.stats = {"applied": 0, "nodes_rejected": 0, "partial_commits": 0,
                       "commit_batches": 0, "batched_commits": 0,
                       "batched_eval_updates": 0}
+        # stops a rejected node took with it (the reference's stats have
+        # no such key, and the tests compare the two dicts)
+        self.stops_dropped = 0
+        # a payload's allocs and blocks drop their job only where every
+        # command is copied and encoded: on a raft store (the local
+        # store keeps the scheduler's objects as they are)
+        self._normalize = bool(getattr(store, "can_propose_async", False))
         self._stats_lock = threading.Lock()
         self.bad_nodes = bad_node_tracker or BadNodeTracker()
         # poison generation of the pipelined overlay: bumped when a
@@ -417,7 +437,9 @@ class PlanApplier:
     def _run_commit(self) -> None:
         """Group commit: drain every verified-and-waiting entry and land
         the lot as one ``upsert_plan_results_batch``, in submission
-        order."""
+        order; on a raft store the rounds pipeline."""
+        if getattr(self.store, "can_propose_async", False):
+            return self._run_commit_pipelined()
         while True:
             with self._commit_cond:
                 while not self._commit_q and not self._stop.is_set():
@@ -437,6 +459,146 @@ class PlanApplier:
                 for entry in entries:
                     if not entry.future.done():
                         entry.future.set_exception(e)
+
+    def _run_commit_pipelined(self) -> None:
+        """The overlapping rounds, on two threads: this one (the
+        proposer) drains the commit queue and verifies and proposes
+        rounds back to back, since a submitter produces its next write
+        only once its round lands; the reap thread waits on the rounds
+        oldest first and answers their submitters in order. The reap
+        deque is also the in-flight window the proposer overlays (a round
+        leaves it only after it landed) and the backpressure (the
+        proposer stalls at COMMIT_PIPELINE_DEPTH unreaped rounds). On
+        stop the proposer drains the queue, then the reaper every round
+        in flight: every submitter is answered."""
+        reap_q: deque = deque()
+        reap_cond = threading.Condition()
+        reap_done = threading.Event()
+
+        def reaper() -> None:
+            while True:
+                with reap_cond:
+                    while not reap_q and not reap_done.is_set():
+                        reap_cond.wait(0.2)
+                    if not reap_q:
+                        return
+                    # peek: the proposer overlays the round until it
+                    # has landed
+                    round_ = reap_q[0]
+                try:
+                    self._finish_round(round_)
+                except Exception as e:  # noqa: BLE001 - answer the rest
+                    if self.logger:
+                        self.logger.exception("plan commit reap failed")
+                    for entry in round_["entries"]:
+                        if not entry.future.done():
+                            entry.future.set_exception(e)
+                with reap_cond:
+                    reap_q.popleft()
+                    reap_cond.notify_all()  # release the backpressure
+
+        reap_thread = threading.Thread(target=reaper, daemon=True,
+                                       name="plan-commit-reap")
+        reap_thread.start()
+        try:
+            while True:
+                entries: List[_CommitEntry] = []
+                with self._commit_cond:
+                    while not self._commit_q and not self._stop.is_set():
+                        self._commit_cond.wait(0.2)
+                    while (self._commit_q
+                           and len(entries) < self.COMMIT_BATCH_MAX):
+                        entries.append(self._commit_q.popleft())
+                if not entries:
+                    return  # stopped with a drained queue
+                with reap_cond:
+                    while len(reap_q) >= self.COMMIT_PIPELINE_DEPTH:
+                        reap_cond.wait(0.2)
+                    inflight = list(reap_q)
+                try:
+                    round_ = self._begin_round(entries, inflight)
+                except Exception as e:  # noqa: BLE001 - answer the round
+                    if self.logger:
+                        self.logger.exception("plan commit round failed")
+                    for entry in entries:
+                        if not entry.future.done():
+                            entry.future.set_exception(e)
+                    continue
+                with reap_cond:
+                    reap_q.append(round_)
+                    reap_cond.notify_all()
+        finally:
+            reap_done.set()
+            with reap_cond:
+                reap_cond.notify_all()
+            reap_thread.join(timeout=5.0)
+
+    def _begin_round(self, entries: List[_CommitEntry],
+                     inflight: "deque") -> dict:
+        """Verify and PROPOSE one round without waiting for its commit.
+        The stale entries' re-verify overlays the plans of every round
+        still in flight (they precede this one in the log but have not
+        applied). A propose failure (lost leadership, a stopped node) is
+        recorded on the round and handled at reap time like a failed
+        transaction."""
+        plans = self._round_prologue(entries)
+        prior = [e for r in inflight for e in r["plans"]]
+        self._reverify_stale(plans, prior)
+        writers = self._writers_for(entries)
+        round_ = {"entries": entries, "plans": plans, "writers": writers,
+                  "prop": None, "error": None}
+        if writers:
+            with TRACER.span("plan.propose", n=len(writers),
+                             traces=[e.trace for e in entries if e.trace]):
+                try:
+                    round_["prop"] = self.store.propose_async(
+                        "upsert_plan_results_batch",
+                        [p for _, p in writers])
+                except Exception as err:  # noqa: BLE001 - reaped below
+                    round_["error"] = err
+        if round_["error"] is not None:
+            # the outcome stays ambiguous until the reaper's fallback,
+            # and a successor may be proposed before then: keep the
+            # placements in the overlay (they may still land) and drop
+            # the stops and evictions (they may never land)
+            for e in plans:
+                conservative = PlanResult()
+                conservative.node_allocation = dict(
+                    e.result.node_allocation)
+                conservative.alloc_blocks = list(e.result.alloc_blocks)
+                self._poison(e.cell, conservative)
+        return round_
+
+    def _finish_round(self, round_: dict) -> None:
+        """Reap one round: wait for its raft apply, then respond. A
+        failed wait falls back to per-plan commits, and the round may
+        still land after them: its allocs and evals are upserts keyed by
+        id, and the store skips a block whose id it holds (ROADMAP §C7),
+        so landing twice adds no usage."""
+        writers = round_["writers"]
+        prop = round_["prop"]
+        if prop is not None:
+            with TRACER.span("plan.commit_wait", n=len(writers),
+                             traces=[e.trace for e in round_["entries"]
+                                     if e.trace]):
+                try:
+                    index = self.store.wait_applied(prop, timeout=30.0)
+                    for e, _ in writers:
+                        if e.result is not None:
+                            e.result.alloc_index = index
+                except Exception:  # noqa: BLE001 - retried per plan
+                    if self.logger:
+                        self.logger.exception(
+                            "pipelined plan commit failed; "
+                            "retrying per plan")
+                    self._commit_fallback(writers)
+        elif round_["error"] is not None and writers:
+            if self.logger:
+                self.logger.error(
+                    "plan commit propose failed; retrying per plan: %s",
+                    round_["error"])
+            self._commit_fallback(writers)
+        self._respond(round_["entries"])
 
     def _commit_entries(self, entries: List[_CommitEntry]) -> None:
         plans = self._round_prologue(entries)
@@ -495,7 +657,8 @@ class PlanApplier:
     def _writers_for(self, entries: List[_CommitEntry]
                      ) -> List[Tuple[_CommitEntry, dict]]:
         payloads = [e.payload if e.plan is None
-                    else self._payload_for(e.plan, e.result)
+                    else self._payload_for(e.plan, e.result,
+                                           self._normalize)
                     for e in entries]
         return [(e, p) for e, p in zip(entries, payloads) if p is not None]
 
@@ -528,7 +691,8 @@ class PlanApplier:
                                               new_result, new_rejected):
                         self._poison(e.cell, new_result)
                     e.result, e.rejected = new_result, new_rejected
-                    payload = self._payload_for(e.plan, e.result)
+                    payload = self._payload_for(e.plan, e.result,
+                                                self._normalize)
                 if payload is not None:
                     index = self.store.upsert_plan_results(**payload)
                     if e.result is not None:
@@ -538,9 +702,27 @@ class PlanApplier:
                 dirty = True
 
     @staticmethod
-    def _payload_for(plan: Plan, result: PlanResult) -> Optional[dict]:
+    def _payload_for(plan: Plan, result: PlanResult,
+                     normalize: bool = True) -> Optional[dict]:
         """The store-write keywords of one verified plan, or None when
-        nothing is left to write."""
+        nothing is left to write. Normalized (reference ``:852``): the
+        allocs and blocks go as shallow copies without their job, the
+        plan's job rides once, and the store re-attaches it at apply
+        (``StateStore._rehydrate_jobs``); the scheduler's objects and
+        the overlay cells keep theirs. The reference normalizes for its
+        local store too; the port does not (``normalize`` False): there
+        the copies are the round's largest cost and buy nothing."""
+        def stripped(rows: list) -> list:
+            if not normalize:
+                return list(rows)
+            out = []
+            for a in rows:
+                if a.job is not None:
+                    a = copy.copy(a)
+                    a.job = None
+                out.append(a)
+            return out
+
         placements, stops, preemptions = [], [], []
         for allocs in result.node_allocation.values():
             placements.extend(allocs)
@@ -551,15 +733,28 @@ class PlanApplier:
         if not (placements or stops or preemptions or result.alloc_blocks
                 or result.deployment is not None or plan.eval_updates):
             return None
-        return {"result_allocs": placements, "stopped_allocs": stops,
-                "preempted_allocs": preemptions,
+        blocks = []
+        for b in result.alloc_blocks:
+            if not normalize:
+                blocks.append(b)
+                continue
+            b = copy.copy(b)
+            b.job = None
+            # a fresh materialization cache: the copy must not share the
+            # scheduler's rows (they hold the job)
+            b._mat = {}
+            blocks.append(b)
+        return {"result_allocs": stripped(placements),
+                "stopped_allocs": stripped(stops),
+                "preempted_allocs": stripped(preemptions),
                 "deployment": result.deployment,
                 "evals": list(plan.eval_updates),
-                "alloc_blocks": list(result.alloc_blocks)}
+                "alloc_blocks": blocks,
+                "job": plan.job}
 
     def _commit(self, plan: Plan, result: PlanResult,
                 rejected: List[str]) -> PlanResult:
-        payload = self._payload_for(plan, result)
+        payload = self._payload_for(plan, result, self._normalize)
         if payload is not None:
             result.alloc_index = self.store.upsert_plan_results(**payload)
         return self._finalize(plan, result, rejected)
@@ -571,6 +766,11 @@ class PlanApplier:
             if rejected:
                 self.stats["nodes_rejected"] += len(rejected)
                 self.stats["partial_commits"] += 1
+                # a rejected node's stops go with its placements, while
+                # their replacements on other nodes may commit (the
+                # store then supersedes the old allocs: ROADMAP §C8)
+                self.stops_dropped += sum(
+                    len(plan.node_update.get(n, ())) for n in rejected)
         REGISTRY.incr("nomad.plan.submit")
         if rejected:
             REGISTRY.incr("nomad.plan.node_rejected", len(rejected))

@@ -11,7 +11,12 @@ only when asked) is threaded down Server -> Worker -> scheduler ->
 ``TorchPlacer`` -> ``tensor.solver.get_service(device)``.
 
 The lifecycle runs on its own: ``start`` starts four background actors
-beside the workers, and ``stop`` joins them.
+beside the workers, and ``stop`` joins them. A stopped Server starts
+again (leadership can come back to a replica): ``start`` restores the
+evals, the heartbeat timers and the replicated scheduler config
+(``_restore_scheduler_config``) from the store it runs on. Under raft
+(``raft/cluster.py``) the store is a ``RaftStore`` facade, every write
+goes through the replicated log, and only the leader's Server runs.
 
 - ``heartbeats`` (core/heartbeat.py): a TTL a registered node, armed by
   ``register_node(s)``, ``heartbeat`` and ``heartbeat_batch`` and, for
@@ -38,7 +43,10 @@ eval for every job with live allocs there), ``update_node_status``,
 ``update_allocs_from_client`` (a retry-failed-alloc eval a job with a
 failed alloc), ``update_alloc_desired_transitions`` (the drainer's
 write with its evals), ``promote_deployment`` and ``fail_deployment``;
-``wait_for_idle`` for tests and benchmarks. A caller that plays the
+``set_scheduler_config`` (the operator's config as replicated state: a
+replica applies it from its commit listener, and a restore's config
+governs the running server too); ``wait_for_idle`` for tests and
+benchmarks. A caller that plays the
 watcher or the drainer itself holds the actor off before ``start``
 (``srv.drainer.start = lambda: None``). Use it as a context manager
 (``with Server(...) as srv:``): ``stop`` leaves no worker, applier,
@@ -61,9 +69,7 @@ GC's token passes), federation and ACL replication (``region*``,
 ``_tiered`` admission decorator, poison-eval quarantine; the heartbeat
 calls are not tiered), namespaces (``_check_namespace``: a volume
 registers into any namespace), node pools and service registrations
-(``upsert_node_pool``, ...), raft leadership (``_is_raft_leader``: the
-heartbeat plane is live while the server runs), the scheduler-config
-replication (``set_scheduler_config``), dry-run plans (``plan_job``),
+(``upsert_node_pool``, ...), dry-run plans (``plan_job``),
 operator job reverts and the scaling bounds and events (``scaling``
 stanzas, ``append_scaling_event``), and the unbatched plan-commit arm
 (``plan_commit_batching``; the applier always batches, see
@@ -167,8 +173,7 @@ class Server:
         # writes through the store, so events go through a queue to the
         # commit pump's thread (reference :225-237)
         self._commit_q: "queue.Queue" = queue.Queue()
-        self.store.add_commit_listener(
-            lambda index, events: self._commit_q.put((index, events)))
+        self.store.add_commit_listener(self._on_store_commit)
         self._commit_pump: Optional[threading.Thread] = None
 
     # -- lifecycle --
@@ -186,6 +191,7 @@ class Server:
         self.blocked.set_enabled(True)
         self.heartbeats.set_enabled(True)
         self._restore_heartbeats()
+        self._restore_scheduler_config()
         self._restore_evals()
         for w in self.workers:
             w.start()
@@ -224,6 +230,25 @@ class Server:
     def __exit__(self, *exc):
         self.stop()
 
+    def _restore_scheduler_config(self) -> None:
+        """Apply the replicated scheduler config, when an operator set
+        one (reference ``:411-415``); else the boot-time one stays."""
+        cfg = self.store.snapshot().scheduler_configuration()
+        if cfg is not None:
+            self._apply_scheduler_config(cfg)
+
+    def set_scheduler_config(self, cfg: SchedulerConfiguration) -> None:
+        """The operator's scheduler config, stored as replicated state:
+        every replica applies it from its commit listener, so a failover
+        keeps it (reference ``:663-670``)."""
+        self.store.set_scheduler_configuration(cfg)
+        self._apply_scheduler_config(cfg)
+
+    def _apply_scheduler_config(self, cfg: SchedulerConfiguration) -> None:
+        # one reference swap: a worker mid-eval reads either config
+        self.sched_config = cfg
+        self.config.sched_config = cfg
+
     def _restore_heartbeats(self) -> None:
         """Arm the TTL of every ready node of the store the server starts
         on (reference ``:416-424``): a node that went silent while no
@@ -243,6 +268,12 @@ class Server:
 
     # -- commit listener: unblock blocked evals on cluster changes --
 
+    def _on_store_commit(self, index: int, events: list) -> None:
+        # a stopped server (a follower replica) unblocks nothing: drop
+        # its commits rather than queue them
+        if self._running:
+            self._commit_q.put((index, events))
+
     def _run_commit_pump(self) -> None:
         while True:
             item = self._commit_q.get()
@@ -258,8 +289,14 @@ class Server:
         """The reference's unblock rules (:452-475); other kinds, such as
         ``alloc-upsert`` and ``alloc-block-upsert``, unblock nothing."""
         for kind, payload in events:
-            if kind in ("node-upsert", "node-status", "node-eligibility",
-                        "node-drain"):
+            if kind == "scheduler-config" and payload is not None:
+                # idempotent: the writer applied its own already
+                self._apply_scheduler_config(payload)
+            elif kind == "restore":
+                # the whole store was replaced: its config governs
+                self._restore_scheduler_config()
+            elif kind in ("node-upsert", "node-status", "node-eligibility",
+                          "node-drain"):
                 if payload is not None and payload.ready():
                     self.blocked.unblock(payload.computed_class)
             elif kind in ("alloc-stop", "alloc-preempt",

@@ -14,23 +14,31 @@ and payloads (``node-upsert``, ``node-status``, ``node-eligibility``,
 ``alloc-transition``, ``alloc-block-upsert``, ``node-delete``,
 ``job-status``, ``eval-delete``, ``deployment-delete``, ``alloc-gc``,
 ``volume-upsert``, ``volume-delete``, ``volume-claim``,
-``volume-claim-release``), which the Server's unblock rules, the event
-broker and the incremental feed read. Core GC's writes:
-``delete_node``, ``delete_evals``, ``delete_job``, ``update_job_status``,
-``delete_deployment``, ``reap_volume_claims``, ``gc_terminal_allocs``
-(a GC'd block position is marked dropped in a new block version, with
-no event of its own) and ``compact``. The restore of a dumped store is
-ROADMAP A10. A client update, a transition or a plan's rewrite of an
-AllocBlock position (id ``"<block>.<p>"``) promotes it: the written row
-shadows the block's virtual row in every read, once. Also
-``snapshot_min_index`` (the worker's and the applier's wait, reference
-``worker.py:281``); eval rows; and ``upsert_plan_results_batch``, many
-plans' results and their eval updates in one generation (the applier's
-commit round, reference ``plan_apply.py:653-851``). The reference's plan
-normalization (jobs stripped from allocs for the raft log) and its
-commit-time supersede of a second live alloc in one slot
-(``_supersede_slot_duplicates``, a guard for plans replayed across a
-raft failover) have no raft log here to serve and are not ported.
+``volume-claim-release``, ``scheduler-config``, ``restore``), which the
+Server's unblock rules, the event broker and the incremental feed read.
+Core GC's writes: ``delete_node``, ``delete_evals``, ``delete_job``,
+``update_job_status``, ``delete_deployment``, ``reap_volume_claims``,
+``gc_terminal_allocs`` (a GC'd block position is marked dropped in a new
+block version, with no event of its own) and ``compact``. A client
+update, a transition or a plan's rewrite of an AllocBlock position (id
+``"<block>.<p>"``) promotes it: the written row shadows the block's
+virtual row in every read, once. Also ``snapshot_min_index`` (the
+worker's and the applier's wait, reference ``worker.py:281``); eval
+rows; and ``upsert_plan_results_batch``, many plans' results and their
+eval updates in one generation (the applier's commit round, reference
+``plan_apply.py:653-851``).
+
+For the replicated control plane (``raft/``): every mutator the FSM
+replays takes the proposer's ``ts`` (``raft/fsm.py`` ``TIMESTAMPED``)
+and reads ``_clock`` only without one, which the FSM replaces by a
+guard; ``restore_dump`` replaces the contents from a dump
+(``state/persist.py``) and emits ``restore``; the ``scheduler_config``
+table (``set_scheduler_configuration``) carries the operator's algorithm
+across a failover; a plan payload may arrive normalized (its allocs'
+and blocks' jobs stripped, the plan's job once: ``_rehydrate_jobs``);
+and a fresh placement superseding a live alloc of the same slot stops
+it (``_supersede_slot_duplicates``: two plans of one eval can both
+commit across a failover).
 
 Write protocol: ``_begin()`` allocates the next generation privately,
 mutations land in version chains at that generation, ``_commit()``
@@ -60,6 +68,11 @@ from .mvcc import (SnapshotTracker, VersionedTable, cons, cons_from_iter,
                    cons_iter)
 
 
+# the desired description of an alloc stopped by a fresh placement of
+# its slot (``_supersede_slot_duplicates``)
+SUPERSEDED = "alloc superseded by a newer placement for the same slot"
+
+
 def _block_alloc(alloc_id: str, lookup) -> Optional[Allocation]:
     """The virtual row of a block position id ``"<block id>.<p>"`` through
     ``lookup(block_id)``, or None (reference ``_block_alloc_fallback``,
@@ -77,6 +90,27 @@ def _block_alloc(alloc_id: str, lookup) -> Optional[Allocation]:
     if not 0 <= p < block.size or not block.visible(p):
         return None
     return block.alloc_at(p)
+
+
+def _block_slot_ids(block: AllocBlock, names: set) -> List[str]:
+    """The alloc ids of the visible positions of ``block`` whose name is
+    one of ``names`` ((namespace, job, name) triples), in position
+    order: the supersede walk's lookup, one numpy pass over the name
+    indices, no row built."""
+    prefix = f"{block.job_id}.{block.task_group}["
+    wanted = []
+    for ns, job, name in names:
+        if (ns != block.namespace or job != block.job_id
+                or not name.startswith(prefix) or not name.endswith("]")):
+            continue
+        digits = name[len(prefix):-1]
+        if digits.isdigit() and str(int(digits)) == digits:
+            wanted.append(int(digits))
+    if not wanted:
+        return []
+    hits = np.flatnonzero(np.isin(block.name_indices, wanted))
+    return [f"{block.id}{BLOCK_SEP}{p}" for p in hits.tolist()
+            if block.visible(p)]
 
 
 class BlockRef:
@@ -166,6 +200,11 @@ class StateSnapshot:
         """{device group id: instances used, "cores": n} or None
         (reference ``store.py:330``)."""
         return self._store._node_dev_usage.get(node_id, self.index)
+
+    def scheduler_configuration(self):
+        """The replicated scheduler config, or None when no operator set
+        one (the Server's boot-time config applies)."""
+        return self._store._scheduler_config.get("config", self.index)
 
     # --- jobs / evals ---
 
@@ -342,6 +381,8 @@ class StateStore:
         # non-terminal allocs that hold any ({group id: n, "cores": n}),
         # the usage of the device and core columns the tensor layer adds
         self._node_dev_usage = VersionedTable("node_dev_usage")
+        # the replicated singleton "config" -> SchedulerConfiguration
+        self._scheduler_config = VersionedTable("scheduler_config")
 
         # the time source of the mutators' ``ts`` fallbacks
         self._clock = time.time
@@ -349,6 +390,9 @@ class StateStore:
         # node-set caches key on it
         self.node_set_version = 0
         self.node_set_index = 0
+        # allocs stopped by a fresh placement of their slot
+        # (``_supersede_slot_duplicates``), since the store was made
+        self.superseded = 0
         self._ready_nodes_cache: Dict[tuple, tuple] = {}
         # dense LATEST-state usage matrix, one row per node, kept in
         # lockstep with _node_usage: the placer reads it with one gather
@@ -360,7 +404,7 @@ class StateStore:
             self._alloc_blocks, self._allocs, self._promoted,
             self._deployments, self._deployments_by_job,
             self._allocs_by_node, self._allocs_by_job, self._allocs_by_eval,
-            self._node_usage, self._node_dev_usage]
+            self._node_usage, self._node_dev_usage, self._scheduler_config]
 
     # --- infrastructure ---
 
@@ -412,6 +456,30 @@ class StateStore:
         with self._write_lock:
             floor = self._tracker.min_live(self._index)
             return sum(t.sweep(floor) for t in self._all_tables)
+
+    def dump(self) -> dict:
+        """The whole state as a dump (``state/persist.py``)."""
+        from .persist import dump_store
+
+        return dump_store(self)
+
+    def restore_dump(self, data: dict) -> int:
+        """Replace the contents from a dump (``state/persist.py``; a
+        snapshot install, or an operator's restore replicated as a
+        command); emits ``restore``. Returns the index."""
+        from .persist import restore_store
+
+        restore_store(self, data)
+        return self._index
+
+    def set_scheduler_configuration(self, cfg) -> int:
+        """The operator's scheduler config as replicated state
+        (reference ``store.py:1724``): a failover keeps it."""
+        with self._write_lock:
+            gen, live = self._begin()
+            self._scheduler_config.put("config", cfg, gen, live)
+            self._commit(gen, [("scheduler-config", cfg)])
+            return gen
 
     # --- nodes ---
 
@@ -665,6 +733,17 @@ class StateStore:
                 return np.fromiter((self._usage_row(n) for n in node_ids),
                                    dtype=np.int64, count=len(node_ids))
 
+    def _rebuild_usage_matrix(self) -> None:
+        """Re-derive the dense matrix from the latest usage rows (the
+        restore path). Must hold _write_lock. Existing row numbers stay:
+        the tensor layer may hold them."""
+        self._usage_mat[:] = 0.0
+        for node_id, _ in self._nodes.iterate(self._next_gen):
+            self._usage_row(node_id)
+        for node_id, vec in self._node_usage.iterate(self._next_gen):
+            if vec is not None:
+                self._usage_mat[self._usage_row(node_id)] = vec
+
     def _usage_add(self, node_id: str, delta, gen: int, live: int) -> None:
         cur = self._node_usage.get_latest(node_id)
         self._node_usage.put(node_id, delta if cur is None else cur + delta,
@@ -915,7 +994,9 @@ class StateStore:
                             preempted_allocs: List[Allocation] = (),
                             deployment: Optional[Deployment] = None,
                             evals: List[Evaluation] = (),
-                            alloc_blocks: List[AllocBlock] = ()) -> int:
+                            alloc_blocks: List[AllocBlock] = (),
+                            job: Optional[Job] = None,
+                            ts: float = None) -> int:
         """Commit a plan in one generation, in the reference's order
         (store.py:1173-1190): its stops, its evictions, its single
         allocations, its columnar placements (per block one block row,
@@ -924,38 +1005,53 @@ class StateStore:
         return self.upsert_plan_results_batch([dict(
             result_allocs=result_allocs, stopped_allocs=stopped_allocs,
             preempted_allocs=preempted_allocs, deployment=deployment,
-            evals=evals, alloc_blocks=alloc_blocks)])
+            evals=evals, alloc_blocks=alloc_blocks, job=job)], ts=ts)
 
-    def upsert_plan_results_batch(self, payloads: List[dict]) -> int:
+    def upsert_plan_results_batch(self, payloads: List[dict],
+                                  ts: float = None) -> int:
         """Many plans' results in ONE generation (the applier's commit
         round; reference store.py:1055): each payload holds the keyword
-        arguments of ``upsert_plan_results``, applied in order."""
+        arguments of ``upsert_plan_results`` (without ``ts``), applied in
+        order."""
         with self._write_lock:
             gen, live = self._begin()
-            ts = self._clock()
+            ts = ts if ts is not None else self._clock()
             events: list = []
             for p in payloads:
+                job = p.get("job")
                 stops = p.get("stopped_allocs", ())
                 evictions = p.get("preempted_allocs", ())
+                results = p.get("result_allocs", ())
+                blocks = p.get("alloc_blocks", ())
+                self._rehydrate_jobs(stops, job)
+                self._rehydrate_jobs(evictions, job)
+                self._rehydrate_jobs(results, job)
+                self._rehydrate_jobs(blocks, job)
                 self._put_allocs(stops, gen, live, ts)
                 events.extend(("alloc-stop", a) for a in stops)
                 self._put_allocs(evictions, gen, live, ts)
                 events.extend(("alloc-preempt", a) for a in evictions)
-                results = p.get("result_allocs", ())
-                fresh = self._put_allocs(results, gen, live, ts)
-                for a, f in zip(results, fresh):
-                    if f and a.job is not None:
-                        self._claim_volumes_for(a, gen, live, events)
-                # the reference's order: rewrites of existing rows, then
-                # first inserts (its bulk insert path, store.py:1193-1206)
-                events.extend(("alloc-upsert", a)
-                              for a, f in zip(results, fresh) if not f)
-                events.extend(("alloc-upsert", a)
-                              for a, f in zip(results, fresh) if f)
-                for block in p.get("alloc_blocks", ()):
-                    block.modify_time = ts
-                    self._put_alloc_block(block, gen, live)
-                    events.append(("alloc-block-upsert", block))
+                # the reference's order (store.py:1193-1206): rewrites of
+                # existing rows, then the fresh placements' supersede
+                # (it sees the rewrites: an alloc the plan marks unknown
+                # or stops is not superseded), then the first inserts
+                first = [self._latest_alloc(a.id)[0] is None
+                         for a in results]
+                rewrites = [a for a, f in zip(results, first) if not f]
+                new = [a for a, f in zip(results, first) if f]
+                self._put_allocs(rewrites, gen, live, ts)
+                events.extend(("alloc-upsert", a) for a in rewrites)
+                if new:
+                    self._supersede_slot_duplicates(new, gen, live, ts,
+                                                    events)
+                    self._put_allocs(new, gen, live, ts)
+                    for a in new:
+                        if a.job is not None:
+                            self._claim_volumes_for(a, gen, live, events)
+                    events.extend(("alloc-upsert", a) for a in new)
+                for block in blocks:
+                    if self._put_alloc_block(block, gen, live, ts):
+                        events.append(("alloc-block-upsert", block))
                 dep = p.get("deployment")
                 if dep is not None:
                     self._put_deployment(dep, gen, live)
@@ -965,6 +1061,87 @@ class StateStore:
                     events.append(("eval-upsert", ev))
             self._commit(gen, events)
             return gen
+
+    def _rehydrate_jobs(self, rows, job) -> None:
+        """The reverse of the plan applier's normalization (reference
+        ``_rehydrate_alloc_jobs``, store.py:1048-1065): allocs and blocks
+        ride the raft log without their job, the plan's job rides once
+        a payload. Re-attach from the existing row (its exact version:
+        a stop may carry an older job than the plan's), else the
+        payload's job, else the job table. Every input is replicated
+        state or the payload, so every replica attaches the same job."""
+        for a in rows:
+            if a.job is not None:
+                continue
+            prev = (self._latest_alloc(a.id)[0]
+                    if isinstance(a, Allocation) else None)
+            if prev is not None and prev.job is not None:
+                a.job = prev.job
+            elif job is not None and job.id == a.job_id:
+                a.job = job
+            else:
+                a.job = self._jobs.get_latest((a.namespace, a.job_id))
+
+    def _supersede_slot_duplicates(self, new_allocs: List[Allocation],
+                                   gen: int, live: int, ts: float,
+                                   events: list) -> None:
+        """A fresh placement whose slot (namespace, job, name; and node
+        for system and sysbatch jobs) already holds a live alloc under
+        another id stops the older one in the same transaction
+        (reference ``store.py:1101-1166``): across a failover a dying
+        leader's round can land unanswered while the eval re-runs through
+        the new leader. Canaries are exempt (a canary runs beside the
+        stable alloc of its name), and so is an alloc whose client status
+        is unknown (a disconnect replacement runs beside its original);
+        anything terminal is skipped."""
+        def slot(a: Allocation) -> tuple:
+            jtype = a.job.type if a.job is not None else ""
+            node = (a.node_id if jtype in (enums.JOB_TYPE_SYSTEM,
+                                           enums.JOB_TYPE_SYSBATCH)
+                    else "")
+            return (a.namespace, a.job_id, a.name, node)
+
+        slots = {slot(a) for a in new_allocs if not a.canary}
+        if not slots:
+            return
+        fresh_ids = {a.id for a in new_allocs}
+        names = {(ns, job, name) for ns, job, name, _ in slots}
+        seen = set()
+        stops = []
+        # sorted: every replica walks the jobs in one order
+        for jkey in sorted({(a.namespace, a.job_id)
+                            for a in new_allocs if not a.canary}):
+            wanted = {name for ns, job, name in names if (ns, job) == jkey}
+            for ref in cons_iter(self._allocs_by_job.get_latest(jkey)):
+                if isinstance(ref, tuple):
+                    # rows of their own (a promoted block position has
+                    # no entry here): the name first, one lookup each
+                    ids = [a.id for a in map(self._allocs.get_latest, ref)
+                           if a is not None and a.name in wanted]
+                else:
+                    block = self._alloc_blocks.get_latest(ref.block_id)
+                    if block is None:
+                        continue
+                    ids = _block_slot_ids(block, names)
+                for aid in ids:
+                    if aid in fresh_ids or aid in seen:
+                        continue
+                    seen.add(aid)
+                    # a block position may be shadowed by a promoted row
+                    cur = self._latest_alloc(aid)[0]
+                    if (cur is None or cur.canary or cur.terminal_status()
+                            or cur.client_status
+                            == enums.ALLOC_CLIENT_UNKNOWN
+                            or slot(cur) not in slots):
+                        continue
+                    stopped = cur.copy_for_update()
+                    stopped.desired_status = enums.ALLOC_DESIRED_STOP
+                    stopped.desired_description = SUPERSEDED
+                    stops.append(stopped)
+        if stops:
+            self._put_allocs(stops, gen, live, ts)
+            events.extend(("alloc-stop", a) for a in stops)
+            self.superseded += len(stops)
 
     def _put_allocs(self, allocs: List[Allocation], gen: int, live: int,
                     ts: float) -> List[bool]:
@@ -1027,7 +1204,17 @@ class StateStore:
                           gen, live)
         return fresh
 
-    def _put_alloc_block(self, block: AllocBlock, gen: int, live: int) -> None:
+    def _put_alloc_block(self, block: AllocBlock, gen: int, live: int,
+                         ts: float) -> bool:
+        """Insert one block: its row, a BlockRef per node row and on
+        its job and eval, one usage add per node. A block id already
+        present is skipped and False returned (a port-only guard, ROADMAP
+        §C7): a commit round the applier re-applied after its raft wait
+        timed out may still land, and the reference's insert would add
+        the block's usage and references a second time."""
+        if self._alloc_blocks.get_latest(block.id) is not None:
+            return False
+        block.modify_time = ts
         block.create_index = gen
         block.modify_index = gen
         self._alloc_blocks.put(block.id, block, gen, live)
@@ -1047,6 +1234,7 @@ class StateStore:
             block.eval_id, cons(BlockRef(block.id),
                                 self._allocs_by_eval.get_latest(block.eval_id)),
             gen, live)
+        return True
 
     # --- GC (reference ``store.py:1829-1880``) ---
 

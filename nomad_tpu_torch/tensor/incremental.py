@@ -37,8 +37,15 @@ re-puts as dropped (``gc_dropped``: no event carries that re-put), and a
 next build resyncs onto the new layout instead of folding onto the old
 one.
 
+A restore (a raft snapshot install, a restart from a data directory)
+replaces the whole store; the event broker answers its ``restore``
+commit by truncating every ring, and the next drain sees ``truncated``
+and resyncs (reference ``incremental.py:335-338``): a replica that
+installs a snapshot rebuilds its base and its twin, never folds deltas
+onto the stale ones.
+
 Trimmed: the sanitizer's periodic parity digests (``PARITY_EVERY``,
-``StateTracker.install``) and the restore sentinel (ROADMAP A10).
+``StateTracker.install``).
 """
 
 from __future__ import annotations
@@ -313,7 +320,8 @@ class IncrementalFeed:
     def _drain_locked(self, ep: _Epoch) -> None:
         evs = self.sub.next_events()
         if self.sub.truncated:
-            # a lapped ring: the answer is a full resync
+            # a lapped ring or the restore sentinel: the answer is a
+            # full resync, never incremental patching
             self._resync_locked(ep.layout, ep.node_index, ep.n_pad)
             self._epoch.static_ref = ep.static_ref
             return

@@ -5,12 +5,18 @@ allocations, alloc blocks and the deployment a plan opens), driving the
 same scheduler -> placer -> kernels -> plan -> store path the Server's
 workers drive. It keeps the evals a scheduler creates (blocked evals,
 follow-ups with their ``wait_until``) in ``created_evals``; the caller
-plays the deployment watcher and the drainer."""
+plays the deployment watcher and the drainer.
+
+``replica_fingerprint`` reduces a store to what every replica of a raft
+cluster must agree on; the replicated tests and ``chip_smoke.py``
+compare replicas with it."""
 
 from __future__ import annotations
 
 import threading
 from typing import List, Optional
+
+import numpy as np
 
 from .device import DeviceLike, resolve
 from .scheduler.scheduler import NewScheduler
@@ -101,3 +107,27 @@ class Harness:
                              sched_config=sched_config, placer=placer,
                              device=self.device)
         sched.process(evaluation)
+
+
+def replica_fingerprint(store) -> tuple:
+    """What every replica must agree on: the store index, per node its
+    summed usage (the four resource columns, exact: integral values),
+    per job its live (non-terminal) alloc count, and per eval its
+    status."""
+    snap = store.snapshot()
+    try:
+        usage = []
+        for n in snap.nodes():
+            u = snap.node_usage(n.id)
+            row = (tuple(float(v) for v in np.asarray(u)[:4])
+                   if u is not None else (0.0,) * 4)
+            usage.append((n.id, row))
+        live = {}
+        for a in snap.allocs():
+            if not a.terminal_status():
+                live[a.job_id] = live.get(a.job_id, 0) + 1
+        evals = sorted((e.id, e.status) for e in snap.evals())
+        return (snap.index, tuple(sorted(usage)),
+                tuple(sorted(live.items())), tuple(evals))
+    finally:
+        snap.close()

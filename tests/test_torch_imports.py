@@ -57,7 +57,15 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.structs.volumes\n"
         "import nomad_tpu_torch.core.heartbeat, nomad_tpu_torch.core.drainer\n"
         "import nomad_tpu_torch.core.core_sched\n"
+        "import nomad_tpu_torch.raft, nomad_tpu_torch.raft.cluster\n"
+        "import nomad_tpu_torch.raft.node, nomad_tpu_torch.raft.durable\n"
+        "import nomad_tpu_torch.raft.fsm, nomad_tpu_torch.raft.log\n"
+        "import nomad_tpu_torch.raft.transport\n"
+        "import nomad_tpu_torch.state.persist, nomad_tpu_torch.structs.wire\n"
+        "import nomad_tpu_torch.utils.backoff\n"
+        "import nomad_tpu_torch.utils.files\n"
         "from nomad_tpu_torch.core import Server, ServerConfig\n"
+        "from nomad_tpu_torch.core import RaftCluster, ReplicatedServer\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -75,6 +83,26 @@ def test_lifecycle_modules_import_alone(module):
     """Each module of the lifecycle's actors and of volumes, imported on
     its own in a fresh interpreter, pulls in neither jax nor the
     reference."""
+    code = (f"import json, sys, {module}\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", [
+    "nomad_tpu_torch.raft", "nomad_tpu_torch.raft.cluster",
+    "nomad_tpu_torch.raft.node", "nomad_tpu_torch.raft.durable",
+    "nomad_tpu_torch.raft.fsm", "nomad_tpu_torch.raft.log",
+    "nomad_tpu_torch.raft.transport", "nomad_tpu_torch.state.persist",
+    "nomad_tpu_torch.structs.wire", "nomad_tpu_torch.utils.backoff",
+    "nomad_tpu_torch.utils.files"])
+def test_replicated_modules_import_alone(module):
+    """Each module of the replicated control plane, imported on its own
+    in a fresh interpreter, pulls in neither jax nor the reference."""
     code = (f"import json, sys, {module}\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
@@ -109,7 +137,11 @@ def test_no_source_imports_jax_or_the_reference():
         assert (REPO / "nomad_tpu_torch" / pkg / "__init__.py") in _sources()
     for mod in ("core/events.py", "state/deltas.py", "tensor/incremental.py",
                 "scheduler/placer.py", "scheduler/util.py",
-                "core/deployments.py"):
+                "core/deployments.py", "raft/__init__.py",
+                "raft/cluster.py", "raft/node.py", "raft/durable.py",
+                "raft/fsm.py", "raft/log.py", "raft/transport.py",
+                "state/persist.py", "structs/wire.py",
+                "utils/backoff.py", "utils/files.py"):
         assert (REPO / "nomad_tpu_torch" / mod) in _sources()
     assert not bad, bad
 
@@ -141,5 +173,11 @@ def test_default_device_is_the_card_and_never_the_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device found"):
             resolve()
     assert resolve("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        from nomad_tpu_torch.raft import RaftCluster
+
+        # a replicated server with no device given is on the card too
+        with pytest.raises(RuntimeError, match="no CUDA device found"):
+            RaftCluster(3)
     with pytest.raises(ValueError):
         resolve("meta")

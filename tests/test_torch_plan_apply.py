@@ -498,6 +498,47 @@ def test_placement_on_down_node_is_rejected(pkg):
     assert list(r.node_allocation) == [up.id]
 
 
+def test_rejected_node_drops_the_stop_and_the_store_supersedes(pkg):
+    """ROADMAP §C8, both packages alike: a destructive update stops the
+    old alloc on its node and places the new one, named alike, on
+    another. When the old node is rejected for an overflowing placement
+    of its own, its stop goes with it while the replacement commits; the
+    store then stops the old alloc as superseded in the same commit, so
+    the slot holds one live alloc."""
+    store = pkg.StateStore()
+    x, y = small_node(pkg, 1000, 1024), pkg.mock.node()
+    for n in (x, y):
+        store.upsert_node(n)
+    job = pkg.mock.job()
+    store.upsert_job(job)
+    old = pkg.mock.alloc(job, x, index=0)
+    old.allocated_vec = old.allocated_vec * 0 + [100, 64, 0, 0]
+    store.upsert_allocs([old])
+    ap, _ = applier(pkg, store)
+    p = pkg.Plan(eval_id="e1", snapshot_index=store.latest_index)
+    p.append_stopped_alloc(store.snapshot().alloc_by_id(old.id),
+                           "alloc is being updated")
+    new = pkg.mock.alloc(job, y, index=0)
+    new.previous_allocation = old.id
+    p.append_alloc(new)
+    filler = pkg.mock.alloc(job, x, index=1)
+    filler.allocated_vec = filler.allocated_vec * 0 + [2000, 64, 0, 0]
+    p.append_alloc(filler)
+    r = ap.apply(p)
+    assert r.rejected_nodes == [x.id]
+    snap = store.snapshot()
+    got = snap.alloc_by_id(old.id)
+    assert got.desired_status == pkg.enums.ALLOC_DESIRED_STOP
+    assert got.desired_description == (
+        "alloc superseded by a newer placement for the same slot")
+    assert snap.alloc_by_id(filler.id) is None
+    live = [a.id for a in snap.allocs_by_job(job.id)
+            if not a.terminal_status()]
+    assert live == [new.id]
+    if pkg is PORT:
+        assert ap.stops_dropped == 1 and store.superseded == 1
+
+
 # --------------------------------------------------------------------------
 # AllocBlock.without_nodes (tests/test_alloc_block.py)
 # --------------------------------------------------------------------------
