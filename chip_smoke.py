@@ -217,6 +217,40 @@ Phases (any failure raises and exits non-zero):
               p99, commit rounds, raft.fsync and raft.apply, the time to
               elect and to catch up, the snapshot's size, dump and
               restore times, and leader changes beside the injected one.
+   http    -- the HTTP API (nomad_tpu_torch/api) on the card: the port's
+              Server on C2M's 10,240 nodes (registered through the Server,
+              as the reference has no HTTP node route) behind
+              HTTPAgent(srv, port=0), driven by ApiClient. The scheduler
+              configuration read and set to "tpu-binpack" over
+              /v1/operator/scheduler/configuration; 32 batch jobs x 4,000
+              (cpu 50, mem 32) through POST /v1/jobs, one of them sent as
+              HCL-like text through /v1/jobs/parse; the evals waited on
+              with blocking queries (/v1/evaluations?index=&wait=). A dry
+              run (POST /v1/job/<id>/plan) of one more 4,000-alloc job,
+              then that job registered; a service job of count 64 (B9);
+              "tpu-solve" set over the operator endpoint and 8 more batch
+              jobs (B5, the pick). Reads: /v1/metrics?format=prometheus
+              parsed, /v1/traces holding every committed eval's span
+              chain, /v1/event/stream?topic=Job seeing every
+              registration, /v1/node/<id>/allocations against the store.
+              Gates: 128,000 placed by the store and by the sum of
+              /v1/job/<id>/allocations, 0 nodes over capacity, every
+              X-Nomad-Index at most the store's index, every blocking
+              query back within its wait, the dry run committing nothing
+              and saying 4,000 to place, the launch after it solving
+              against the usage built from the store exactly (its
+              corrections folded), B1, B4, B9, B5 and the pick launched
+              and each launch replayed exact against its plain version,
+              no plain version on CUDA. Then three servers at 1,024 nodes
+              (built as "replicated" builds them), an agent on each with
+              its ReplicatedServer as writer: a job registered through a
+              follower's agent (forwarded), read there with
+              X-Nomad-KnownLeader and X-Nomad-LastContact, the leader
+              crashed, the follower's /v1/status/leader naming the new
+              one, a second job through it placed. Prints p50 and p99 per
+              route (register, allocations read, plan), the blocking
+              queries' wake latency (from the waking commit to the reply),
+              the phase's wall and each kernel's launches.
 10. B3'     -- the joint solve's fold_in jitter (jitter_fold) vs its plain
               version: 5 restarts x G=16 x N_pad=16,384 in one launch,
               bitwise (the kernel is on no path: B5 draws the same jitter
@@ -3994,6 +4028,13 @@ def _over_capacity(store) -> int:
         snap.close()
 
 
+class _Nodes(list):
+    """A node sink for mock.build_nodes: the phase registers them through
+    the Server or the cluster."""
+
+    upsert_node = list.append
+
+
 def phase_replicated(torch, card, device="cuda", n_nodes=N_NODES,
                      n_jobs=REPL_JOBS, k=K, workers=SERVER_WORKERS,
                      crash_at=REPL_CRASH_AT, snapshot_threshold=REPL_SNAPSHOT,
@@ -4027,9 +4068,6 @@ def phase_replicated(torch, card, device="cuda", n_nodes=N_NODES,
             sched_config=tpu, nack_timeout=900.0,
             failed_eval_followup_delay=3600.0,
             failed_eval_unblock_interval=0.5, **BENCH_SAFE)
-
-    class _Nodes(list):
-        upsert_node = list.append
 
     data = REPO / "build" / f"replicated-{os.getpid()}"
     shutil.rmtree(data, ignore_errors=True)
@@ -4351,6 +4389,574 @@ def phase_replicated(torch, card, device="cuda", n_nodes=N_NODES,
           f"store; B1 launches by leader {dict(by_leader)}, every one "
           f"replayed exact; B4 {b4_rec}; evals {statuses}")
     return launched, rec
+
+
+# --------------------------------------------------------------------------
+# the http phase: the /v1 agent and its client over the Server and the
+# raft cluster (ROADMAP A10.1, A28)
+# --------------------------------------------------------------------------
+
+HTTP_JOBS = 32          # C2M's batch jobs over POST /v1/jobs
+HTTP_SERVICE_K = 64     # a service group B9 places (16 < count < 256)
+HTTP_SOLVE_JOBS = 8     # batch jobs placed under "tpu-solve"
+HTTP_REPL_NODES = 1024  # the replicated step's depth
+HTTP_WAIT = 10.0        # the blocking queries' wait (s)
+
+HTTP_HCL = """
+job "%s" {
+  datacenters = ["dc1"]
+  type = "batch"
+  group "web" {
+    count = %d
+    task "web" {
+      driver = "mock"
+      resources { cpu = 50 memory = 32 }
+    }
+  }
+}
+"""
+
+
+class _Routes:
+    """Per-route client-side latencies and the X-Nomad-Index check: every
+    reply's index at most the store's index right after it."""
+
+    def __init__(self, client, store):
+        self.client = client
+        self.store = store
+        self.ms = {}
+        self.index_ahead = 0
+
+    def call(self, route, method, path, body=None, params=None):
+        t0 = time.perf_counter()
+        out, index, headers = self.client.request(method, path, body,
+                                                  params)
+        self.ms.setdefault(route, []).append(
+            1e3 * (time.perf_counter() - t0))
+        if index > self.store.latest_index:
+            self.index_ahead += 1
+        return out, index, headers
+
+    def summary(self) -> dict:
+        return {r: {"n": len(v), "p50_ms": float(np.percentile(v, 50)),
+                    "p99_ms": float(np.percentile(v, 99))}
+                for r, v in self.ms.items()}
+
+
+def _http_wait_evals(routes, job_ids, stamps, wakes, what, limit=300.0):
+    """Blocking queries on /v1/evaluations until each job's newest eval
+    is complete (an eval that ran out of plan attempts is failed and its
+    blocked successor carries the job on): each parks at the last index
+    seen; a reply with a newer index woke on a commit, its latency taken
+    from that commit's stamp. Gates that every reply came back within
+    its wait."""
+    from nomad_tpu_torch.structs import enums
+
+    deadline = time.time() + limit
+    index = 0
+    while True:
+        t0 = time.perf_counter()
+        evals, new, _ = routes.call("evals (blocking)", "GET",
+                                    "/v1/evaluations",
+                                    params={"index": index,
+                                            "wait": f"{HTTP_WAIT:g}s"})
+        t1 = time.perf_counter()
+        if t1 - t0 > HTTP_WAIT + 1.0:
+            raise AssertionError(f"{what}: a blocking query took "
+                                 f"{t1 - t0:.3f} s, its wait {HTTP_WAIT} s")
+        if index and new > index:
+            woke = [t for i, t in list(stamps) if i > index]
+            if woke:
+                wakes.append(1e3 * (t1 - woke[0]))
+        index = max(index, new)
+        mine = [e for e in evals if e["job_id"] in job_ids]
+        newest = {}
+        for e in mine:
+            if (e["job_id"] not in newest or e["modify_index"]
+                    > newest[e["job_id"]]["modify_index"]):
+                newest[e["job_id"]] = e
+        if (len(newest) == len(job_ids)
+                and all(e["status"] == enums.EVAL_STATUS_COMPLETE
+                        for e in newest.values())):
+            return
+        if time.time() > deadline:
+            raise AssertionError(
+                f"{what}: evals not complete in {limit} s: "
+                f"{Counter(e['status'] for e in mine)}; "
+                f"{Counter(e['status_description'] for e in mine)}")
+
+
+def phase_http(torch, card, device="cuda", n_nodes=N_NODES, n_jobs=HTTP_JOBS,
+               k=K, workers=SERVER_WORKERS, repl_nodes=HTTP_REPL_NODES):
+    """The HTTP API on the card (see the module docstring): returns the
+    kernels' launch counts of the single-server run and the phase's
+    record."""
+    import threading
+
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.api import ApiClient, HTTPAgent
+    from nomad_tpu_torch.api.codec import from_dict, to_dict
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.obs import TRACER
+    from nomad_tpu_torch.obs.export import EVAL_CHAIN
+    from nomad_tpu_torch.structs.job import Job
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor import kernels, placer, solver
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+    from nomad_tpu_torch.tensor.scatter import scatter_add_ref
+
+    what = "http"
+    t_phase = time.perf_counter()
+    srv = Server(ServerConfig(
+        num_workers=workers, eval_batch_size=1, device=device,
+        nack_timeout=900.0, failed_eval_followup_delay=3600.0,
+        failed_eval_unblock_interval=0.5, **BENCH_SAFE))
+    svc = solver.get_service(srv.device)
+    nodes = _Nodes()
+    mock.build_nodes(nodes, n_nodes, seed=0)
+    stamps = []   # (index, perf_counter) of every commit
+    srv.store.add_commit_listener(
+        lambda index, _ev: stamps.append((index, time.perf_counter())))
+    b1, b4, b9, b56 = [], [], [], []
+    plan_check = {}
+    real_b1 = solver.solve_bulk_multi
+    real_b9 = placer.solve_task_group_fused
+    real_b56 = solver.solve_batch
+
+    def cap_b1(used, *args, g):
+        before = used.clone()
+        keep = [a.clone() for a in args]
+        if plan_check.get("armed"):
+            # the first launch after the dry run: the usage it solves
+            # against (the carry with its corrections folded) beside the
+            # usage built from the store, before this solve commits
+            plan_check["armed"] = False
+            static = svc._state[0]
+            n = len(static.nodes)
+            # the plain fold on host copies: a plain version on CUDA
+            # would count against the path
+            folded = scatter_add_ref(before.to("cpu", copy=True),
+                                     args[7].cpu(), args[8].cpu())
+            snap = srv.store.snapshot()
+            try:
+                store_rows = np.zeros((n, before.shape[1]), np.float32)
+                for i, nd in enumerate(static.nodes):
+                    u = snap.node_usage(nd.id)
+                    if u is not None:
+                        store_rows[i] = u
+            finally:
+                snap.close()
+            plan_check["folded"] = folded[:n].numpy()
+            plan_check["store"] = store_rows
+            plan_check["corrections"] = int((args[7] != 0).sum())
+            plan_check["resyncs"] = svc.stats["resyncs"]
+        out = real_b1(used, *args, g=g)
+        b1.append((before, keep, g, out[0].clone(), out[1].clone()))
+        return out
+
+    def cap_b9(*packed):
+        snap = [t.clone() for t in packed]
+        out = real_b9(*packed)
+        b9.append((snap, out.clone()))
+        return out
+
+    def cap_b56(*args, **kw):
+        b56.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                    dict(kw)))
+        return real_b56(*args, **kw)
+
+    agent = None
+    stream = {}
+    wakes = []
+    try:
+        srv.start()
+        t0 = time.perf_counter()
+        srv.register_nodes(nodes)
+        nodes_s = time.perf_counter() - t0
+        agent = HTTPAgent(srv, port=0).start()
+        client = ApiClient(agent.address, timeout=120.0)
+        routes = _Routes(client, srv.store)
+        # 2. the scheduler configuration
+        cfg0, _, _ = routes.call("operator", "GET",
+                                 "/v1/operator/scheduler/configuration")
+        routes.call("operator", "PUT", "/v1/operator/scheduler/configuration",
+                    {**cfg0, "scheduler_algorithm":
+                     enums.SCHED_ALG_TPU_BINPACK})
+        if srv.sched_config.scheduler_algorithm != enums.SCHED_ALG_TPU_BINPACK:
+            raise AssertionError(f"{what}: the operator endpoint did not set "
+                                 f"tpu-binpack")
+        # a warm job, so the timed jobs find the kernels warm; it stays:
+        # the service's carry counts freed capacity until its next
+        # resync, and the dry run's check below compares it with the
+        # store exactly
+        warm = mock.service_job(k, cpu=50, mem=32, batch=True)
+        routes.call("warm", "POST", "/v1/jobs", {"job": to_dict(warm)})
+        _drain(srv, f"{what} warm-up")
+        print(f"{what:<11} setup {time.perf_counter() - t_phase:.2f} s "
+              f"({n_nodes} nodes through register_nodes in {nodes_s:.2f} s, "
+              f"agent at {agent.address}, {workers} workers)")
+
+        jobs = [mock.service_job(k, cpu=50, mem=32, batch=True)
+                for _ in range(n_jobs - 1)]
+        parsed_id = f"http-parsed-{os.getpid()}"
+        TRACER.clear()
+        solver.solve_bulk_multi = cap_b1
+        placer.solve_task_group_fused = cap_b9
+        solver.solve_batch = cap_b56
+        with capture_b4(b4):
+            _ext.COUNTS.reset()
+            t_wall = time.perf_counter()
+            t_epoch = time.time()
+
+            def events():
+                stream["events"] = list(client.stream_events(
+                    ["Job"], wait_s=5.0))
+            reader = threading.Thread(target=events)
+            waiters0 = srv.events.waiter_count()
+            reader.start()
+            deadline = time.time() + 10.0
+            while srv.events.waiter_count() <= waiters0:
+                if time.time() > deadline:
+                    raise AssertionError(f"{what}: the event stream did "
+                                         f"not subscribe")
+                time.sleep(0.005)
+            # 3. the batch jobs: one parsed from HCL-like text
+            spec, _, _ = routes.call("parse", "POST", "/v1/jobs/parse",
+                                     {"job_hcl": HTTP_HCL % (parsed_id, k)})
+            parsed = from_dict(Job, spec)
+            t0 = time.perf_counter()
+            for body in [spec] + [to_dict(j) for j in jobs]:
+                routes.call("register", "POST", "/v1/jobs", {"job": body})
+            job_ids = {parsed_id} | {j.id for j in jobs}
+            _http_wait_evals(routes, job_ids, stamps, wakes, what)
+            _drain(srv, f"{what} batch jobs")
+            batch_s = time.perf_counter() - t0
+            reader.join(30.0)
+            via_api = 0
+            for jid in sorted(job_ids):
+                allocs, _, _ = routes.call("allocations", "GET",
+                                           f"/v1/job/{jid}/allocations")
+                via_api += sum(1 for a in allocs
+                               if a["client_status"] not in _CLIENT_DONE
+                               and a["desired_status"] == "run")
+            by_store = _committed_jobs(srv.store, [parsed] + jobs, k)
+            if via_api != n_jobs * k or by_store != n_jobs:
+                raise AssertionError(f"{what}: {via_api} live allocs by the "
+                                     f"API, {by_store} jobs complete in the "
+                                     f"store, want {n_jobs * k}")
+            over = _over_capacity(srv.store)
+            if over:
+                raise AssertionError(f"{what}: {over} nodes over capacity")
+            seen = {e["Key"] for e in stream.get("events", [])
+                    if e["Topic"] == "Job"}
+            if not job_ids <= seen:
+                raise AssertionError(f"{what}: the event stream missed "
+                                     f"{len(job_ids - seen)} registrations")
+
+            # 4. the dry run, then the job registered
+            planned = mock.service_job(k, cpu=50, mem=32, batch=True)
+            index0 = srv.store.latest_index
+            launches0 = len(b1)
+            plan, _, _ = routes.call("plan", "POST",
+                                     f"/v1/job/{planned.id}/plan",
+                                     {"job": to_dict(planned)})
+            place = plan["annotations"]["web"]["place"]
+            if srv.store.latest_index != index0 or place != k:
+                raise AssertionError(f"{what}: the dry run moved the index "
+                                     f"{index0} -> {srv.store.latest_index} "
+                                     f"or placed {place}, want {k}")
+            if len(b1) != launches0 + 1:
+                raise AssertionError(f"{what}: the dry run launched B1 "
+                                     f"{len(b1) - launches0} times")
+            plan_check["armed"] = True
+            routes.call("register", "POST", "/v1/jobs",
+                        {"job": to_dict(planned)})
+            _drain(srv, f"{what} planned job")
+            if "folded" not in plan_check:
+                raise AssertionError(f"{what}: no launch after the dry run")
+            if not np.array_equal(plan_check["folded"], plan_check["store"]):
+                diff = np.abs(plan_check["folded"]
+                              - plan_check["store"]).max()
+                raise AssertionError(f"{what}: the launch after the dry run "
+                                     f"solves against usage {diff} off the "
+                                     f"store's")
+            if _committed_jobs(srv.store, [planned], k) != 1:
+                raise AssertionError(f"{what}: the planned job did not place")
+
+            # 5. a service group through B9, then tpu-solve
+            svc_job = mock.service_job(HTTP_SERVICE_K, cpu=50, mem=32)
+            routes.call("register", "POST", "/v1/jobs",
+                        {"job": to_dict(svc_job)})
+            _drain(srv, f"{what} service job")
+            routes.call("operator", "PUT",
+                        "/v1/operator/scheduler/configuration",
+                        {**cfg0, "scheduler_algorithm":
+                         enums.SCHED_ALG_TPU_SOLVE})
+            solve_jobs = [mock.service_job(k, cpu=50, mem=32, batch=True)
+                          for _ in range(HTTP_SOLVE_JOBS)]
+            for j in solve_jobs:
+                routes.call("register", "POST", "/v1/jobs",
+                            {"job": to_dict(j)})
+            _http_wait_evals(routes, {j.id for j in solve_jobs}, stamps,
+                             wakes, f"{what} tpu-solve")
+            _drain(srv, f"{what} tpu-solve jobs")
+            wall = time.perf_counter() - t_wall
+            counts = _ext.COUNTS.snapshot()
+        solver.solve_bulk_multi = real_b1
+        placer.solve_task_group_fused = real_b9
+        solver.solve_batch = real_b56
+        everything = [warm, parsed] + jobs + [planned, svc_job] \
+            + solve_jobs
+        want = (n_jobs + 2 + HTTP_SOLVE_JOBS) * k + HTTP_SERVICE_K
+        statuses = server_gates(srv, everything, want, what)
+
+        # 6. reads
+        text = client.metrics_prometheus()
+        samples = [ln for ln in text.splitlines()
+                   if ln and not ln.startswith("#")]
+        for ln in samples:
+            name, value = ln.split(" ")
+            float(value)
+        traces, _, _ = routes.call("traces", "GET", "/v1/traces",
+                                   params={"limit": 0})
+        names = {}
+        for ev in traces["trace"]["traceEvents"]:
+            args = ev["args"]
+            for tid in [args.get("trace")] + list(args.get("traces") or ()):
+                if tid:
+                    names.setdefault(tid, set()).add(ev["name"])
+        snap = srv.store.snapshot()
+        try:
+            # the warm job's spans went with the clear before the run
+            committed = [e for j in everything[1:]
+                         for e in snap.evals_by_job(j.id)
+                         if e.status == enums.EVAL_STATUS_COMPLETE]
+            loaded = max(snap.nodes(), key=lambda nd: len(
+                snap.allocs_by_node(nd.id)))
+            on_node = len(snap.allocs_by_node(loaded.id))
+        finally:
+            snap.close()
+        broken = [e.id for e in committed
+                  if not set(EVAL_CHAIN) <= names.get(e.trace(), set())]
+        if broken:
+            raise AssertionError(f"{what}: {len(broken)} of "
+                                 f"{len(committed)} committed evals lack a "
+                                 f"complete span chain in /v1/traces")
+        node_allocs, _, _ = routes.call("node allocations", "GET",
+                                        f"/v1/node/{loaded.id}/allocations")
+        if len(node_allocs) != on_node:
+            raise AssertionError(f"{what}: /v1/node/<id>/allocations gave "
+                                 f"{len(node_allocs)}, the store {on_node}")
+        if routes.index_ahead:
+            raise AssertionError(f"{what}: {routes.index_ahead} replies "
+                                 f"carried an X-Nomad-Index ahead of the "
+                                 f"store")
+        route_ms = routes.summary()
+        applier = dict(srv.plan_applier.stats)
+        spans = span_split(TRACER.spans(), t_epoch)
+    finally:
+        solver.solve_bulk_multi = real_b1
+        placer.solve_task_group_fused = real_b9
+        solver.solve_batch = real_b56
+        if agent is not None:
+            agent.stop()
+        srv.stop()
+        svc.stop()
+
+    # replays: every captured launch against its plain version
+    launched = counts["launches"]
+    need = ("bulk_fill", "scatter_add", "solve_task_group", "auction",
+            "batch_pick")
+    if device != "cpu":
+        missing = [n for n in need if not launched.get(n)]
+        if missing:
+            raise AssertionError(f"{what}: {missing} never launched: "
+                                 f"{launched}")
+        if (len(b1) != launched["bulk_fill"] - launched["auction"]
+                or len(b56) != launched["auction"]
+                or len(b9) != launched["solve_task_group"]):
+            raise AssertionError(f"{what}: captured B1 {len(b1)}, joint "
+                                 f"{len(b56)}, B9 {len(b9)} of {launched}")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"{what}: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    for i, (before, args, g, used, cnt) in enumerate(b1):
+        u1, c1 = solve_bulk_multi(before.clone(), *args, g=g)
+        u2, c2 = solve_bulk_multi_ref(before.clone(), *args, g=g)
+        if not (torch.equal(u1, u2) and torch.equal(c1, c2)
+                and torch.equal(u1, used) and torch.equal(c1, cnt)):
+            raise AssertionError(f"{what}: B1 launch {i} differs from its "
+                                 f"plain version or the path's output")
+    err = 0.0
+    for i, (packed, out) in enumerate(b9):
+        got = kernels.solve_task_group_fused(*packed)
+        want9 = kernels.solve_task_group_fused_ref(*packed)
+        if not (torch.equal(got[:2], want9[:2]) and torch.equal(got, out)):
+            raise AssertionError(f"{what}: B9 launch {i} differs from its "
+                                 f"plain version or the path's output")
+        err = max(err, score_err(got[2], want9[2], f"{what} B9 {i}"))
+    for i, (args, kw) in enumerate(b56):
+        used0, rest = args[0], args[1:]
+        s_got = bs.solve_batch(used0.clone(), *rest, **kw)
+        s_want = bs.solve_batch_ref(used0.clone(), *rest, **kw)
+        for name, x, y in zip(("used", "counts", "info"), s_got, s_want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: joint launch {i}: "
+                                     f"solve_batch {name} differs from the "
+                                     f"plain version")
+    b4_rec = replay_b4(torch, b4, what)
+
+    repl = http_replicated(torch, card, device, repl_nodes, k)
+    wall_phase = time.perf_counter() - t_phase
+    wake = ({"n": len(wakes), "p50_ms": float(np.percentile(wakes, 50)),
+             "p99_ms": float(np.percentile(wakes, 99))} if wakes else None)
+    rec = {"nodes": n_nodes, "jobs": n_jobs + 1 + HTTP_SOLVE_JOBS,
+           "allocs": want, "batch_jobs_s": batch_s, "wall_s": wall,
+           "phase_wall_s": wall_phase, "routes": route_ms,
+           "blocking_wake": wake, "evals": statuses,
+           "spans": spans, "nodes_rejected": applier["nodes_rejected"],
+           "partial_commits": applier["partial_commits"],
+           "plan_launch": {"corrections": plan_check["corrections"],
+                           "resyncs": plan_check["resyncs"]},
+           "prometheus_samples": len(samples),
+           "trace_events": len(traces["trace"]["traceEvents"]),
+           "committed_evals_traced": len(committed),
+           "replays": {"bulk_fill": len(b1), "solve_task_group": len(b9),
+                       "solve_batch": len(b56), "b9_max_score_err": err,
+                       "scatter_add": b4_rec},
+           "launches": {n: v for n, v in launched.items() if v},
+           "replicated": repl, "card": card}
+    print(f"{what:<11} [{card}] {n_jobs} batch jobs x {k} over HTTP in "
+          f"{batch_s:.3f} s; the timed run {wall:.3f} s, the phase "
+          f"{wall_phase:.3f} s; per route "
+          + "; ".join(f"{r} p50 {v['p50_ms']:.3f} ms p99 "
+                      f"{v['p99_ms']:.3f} ms ({v['n']})"
+                      for r, v in route_ms.items()))
+    print(f"{what:<11} [{card}] evals {statuses}; the applier rejected "
+          f"{applier['nodes_rejected']} nodes ({applier['partial_commits']} "
+          f"partial commits); span p50 ms "
+          + "; ".join(f"{n} {v['p50_ms']:.3f} ({v['n']})"
+                      for n, v in spans.items()))
+    print(f"{what:<11} [{card}] blocking-query wake (commit to reply) "
+          f"{wake}; the dry run's next launch folded "
+          f"{plan_check['corrections']} corrections and equals the store; "
+          f"launches {rec['launches']}; replays exact: B1 {len(b1)}, B9 "
+          f"{len(b9)} (scores within {SCORE_TOL}, max {err:.3g}), "
+          f"solve_batch (B5, the pick and B4's fold inside it) "
+          f"{len(b56)}, B4 outside solve_batch {b4_rec}")
+    print(f"{what:<11} [{card}] replicated: {repl}")
+    return launched, rec
+
+
+_CLIENT_DONE = ("complete", "failed", "lost")
+
+
+def http_replicated(torch, card, device, n_nodes, k):
+    """Three servers at ``n_nodes``, an agent on each with its
+    ReplicatedServer as writer: a job registered through a follower's
+    agent, read there with the follower-read headers; the leader crashed;
+    the follower names the new leader and a second job through it
+    places."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.api import ApiClient, HTTPAgent
+    from nomad_tpu_torch.api.codec import to_dict
+    from nomad_tpu_torch.core.server import ServerConfig
+    from nomad_tpu_torch.raft import RaftCluster
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import solver
+
+    what = "http repl"
+    tpu = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+
+    def cfg(i):
+        return ServerConfig(
+            num_workers=4, eval_batch_size=1, device=device,
+            sched_config=tpu, nack_timeout=900.0,
+            failed_eval_followup_delay=3600.0,
+            failed_eval_unblock_interval=0.5, **BENCH_SAFE)
+
+    t0 = time.perf_counter()
+    cluster = RaftCluster(3, config_fn=cfg,
+                          election_timeout=REPL_ELECTION_TIMEOUT,
+                          heartbeat_interval=REPL_HEARTBEAT)
+    agents = {}
+    retries = {}
+    try:
+        cluster.start()
+        leader = cluster.wait_for_leader(30.0)
+        if leader is None:
+            raise AssertionError(f"{what}: no leader elected")
+        nodes = _Nodes()
+        mock.build_nodes(nodes, n_nodes, seed=0)
+        _on_leader(cluster, lambda ld: ld.register_nodes(list(nodes)),
+                   retries, "register_nodes")
+        for sid, sv in cluster.servers.items():
+            agents[sid] = HTTPAgent(sv.server, port=0, writer=sv).start()
+        leader = cluster.wait_for_leader(30.0)
+        follower = next(sv for sv in cluster.servers.values()
+                        if sv is not leader)
+        api = ApiClient(agents[follower.id].address, timeout=120.0)
+        first = mock.service_job(k, cpu=50, mem=32, batch=True)
+        api.register_job(to_dict(first))
+        leader = _drain_cluster(cluster, f"{what} first job")
+        _, index, headers = api.request("GET", f"/v1/job/{first.id}/"
+                                        "allocations")
+        live = sum(1 for a in api.job_allocations(first.id)
+                   if a["desired_status"] == "run")
+        known = headers.get("X-Nomad-KnownLeader")
+        contact = headers.get("X-Nomad-LastContact")
+        if (live != k or known != "true" or contact is None
+                or index > follower.local_store.latest_index):
+            raise AssertionError(f"{what}: the follower read {live} allocs, "
+                                 f"KnownLeader {known}, LastContact "
+                                 f"{contact}, index {index}")
+        agents.pop(leader.id).stop()
+        t_crash = time.perf_counter()
+        cluster.crash(leader.id)
+        new = cluster.wait_for_leader(60.0)
+        if new is None:
+            raise AssertionError(f"{what}: no new leader")
+        elect_s = time.perf_counter() - t_crash
+        deadline = time.time() + 30.0
+        while api.leader().get("leader") != new.id:
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: the follower does not name "
+                                     f"the new leader")
+            time.sleep(0.02)
+        second = mock.service_job(k, cpu=50, mem=32, batch=True)
+        api.register_job(to_dict(second))
+        new = _drain_cluster(cluster, f"{what} second job")
+        placed = _committed_jobs(new.local_store, [first, second], k)
+        if placed != 2 or _over_capacity(new.local_store):
+            raise AssertionError(f"{what}: {placed} of 2 jobs placed after "
+                                 f"the crash")
+        return {"nodes": n_nodes, "allocs": 2 * k, "elect_s": elect_s,
+                "last_contact_ms": int(contact),
+                "wall_s": time.perf_counter() - t0,
+                "client_retries": retries}
+    finally:
+        for a in agents.values():
+            a.stop()
+        cluster.stop()
+        solver.get_service(device).stop()
+
+
+def http_only(torch, card) -> int:
+    """``--http``: the build and the http phase alone; its record and the
+    kernels' launches on it as JSON lines."""
+    launched, rec = phase_http(torch, card)
+    print(json.dumps({"http": rec}))
+    print(json.dumps({"kernels": [
+        {"name": n, "http_launches": launched[n]}
+        for n in ("bulk_fill", "scatter_add", "solve_task_group", "auction",
+                  "batch_pick")]}))
+    print(card)
+    return 0
 
 
 def replicated_only(torch, card) -> int:
@@ -7777,6 +8383,8 @@ def main() -> int:
         return autopilot_only(torch, card)
     if sys.argv[1:] == ["--replicated"]:
         return replicated_only(torch, card)
+    if sys.argv[1:] == ["--http"]:
+        return http_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -7810,10 +8418,15 @@ def main() -> int:
         torch, card, server_rec=arms["1"][1])
     bulk[2]["replicated_launches"] = repl_launches["bulk_fill"]
     bulk[1]["replicated_launches"] = repl_launches["scatter_add"]
+    http_launches, server["http"] = phase_http(torch, card)
     launches, wall, captured = phase_solve_path(torch, card)
     joint = phase_solve_launches(torch, card, wall, captured)
     for k in joint:
         k["launches"] = launches[k["name"]]
+        k["http_launches"] = http_launches[k["name"]]
+    bulk[2]["http_launches"] = http_launches["bulk_fill"]
+    bulk[1]["http_launches"] = http_launches["scatter_add"]
+    per_eval[1]["http_launches"] = http_launches["solve_task_group"]
     for incr, key in (("1", "server_solve"), ("0", "server_solve_incr0")):
         server[key] = phase_server_solve(torch, card, wall, incr=incr)[1]
     # B4 is off the Harness C2M path (B1 folds the corrections): its
@@ -7871,7 +8484,7 @@ def main() -> int:
              "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
              "by_d", "constraints_launches", "lifecycle_launches",
              "autopilot_launches", "replicated_launches",
-             "penalty_launches")
+             "penalty_launches", "http_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

@@ -9,22 +9,24 @@ does not block the writer: the ring drops its oldest events, and every
 cursor it passed sees ``truncated`` (the incremental feed answers with
 a full resync).
 
-Kept: what the incremental feed and its tests read (``subscribe``,
+Kept: what the incremental feed and the HTTP API read (``subscribe``,
 ``Subscription.next_events`` / ``truncated`` / ``close``, the commit
-listener, ``TOPIC_FOR_KIND``) and the ``nomad.events.alloc_deltas``
-counter, and the restore sentinel: a commit of a ``RESYNC_KINDS`` kind
-(the store's ``restore``, which replaced every table) truncates every
-ring (``_truncate_all``), so every subscription, caught up or not, sees
-``truncated`` and resyncs. Left out: direct publishes (``publish``),
-the broker-wide cursors (``last_seq``, ``events_after``), the blocking
-read (``next_events``' ``timeout``, the parked waiters a publish wakes:
-every reader in the port polls), the ownership hooks and the read-path
-wakeup metrics.
+listener, ``TOPIC_FOR_KIND``), the ``nomad.events.alloc_deltas``
+counter, the blocking read (``next_events(timeout)``: a subscription
+parks one wake event on each of its shards and a publish wakes a shard's
+parked readers in one walk; ``waiter_count`` is the parked gauge
+``/v1/metrics`` reads), and the restore sentinel: a commit of a
+``RESYNC_KINDS`` kind (the store's ``restore``, which replaced every
+table) truncates every ring (``_truncate_all``), so every subscription,
+caught up or not, sees ``truncated`` and resyncs. Left out: direct
+publishes (``publish``), the broker-wide cursors (``last_seq``,
+``events_after``) and the ownership hooks.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional
 from zlib import crc32
@@ -66,13 +68,16 @@ class Event:
 
 
 class _Shard:
-    __slots__ = ("lock", "ring", "seq", "evicted")
+    __slots__ = ("lock", "ring", "seq", "evicted", "waiters")
 
     def __init__(self, ring_size: int):
         self.lock = threading.Lock()
         self.ring: deque = deque(maxlen=ring_size)
         self.seq = 0       # dense per-shard event counter
         self.evicted = 0   # highest seq dropped off this ring
+        # parked subscriptions, id(sub) -> wake event; a publish drains
+        # the whole table and a woken reader registers again to park
+        self.waiters: Dict[int, threading.Event] = {}
 
 
 class Subscription:
@@ -91,6 +96,7 @@ class Subscription:
             sh = broker._shards[sid]
             with sh.lock:
                 self._cursors[sid] = sh.seq
+        self._wake = threading.Event()
         self.truncated = False
         self.closed = False
 
@@ -130,16 +136,55 @@ class Subscription:
             out.sort(key=lambda e: e.index)
         return out
 
-    def next_events(self) -> List[Event]:
+    def _park(self, remaining: Optional[float]) -> None:
+        """Register one wake event on every shard of the subscription,
+        re-check for a publish that raced the registration, then wait."""
+        self._wake.clear()
+        shards = self._broker._shards
+        me = id(self)
+        for sid in self._shard_ids:
+            sh = shards[sid]
+            with sh.lock:
+                sh.waiters[me] = self._wake
+        try:
+            for sid in self._shard_ids:
+                if shards[sid].seq > self._cursors[sid]:
+                    return
+            self._wake.wait(remaining)
+        finally:
+            for sid in self._shard_ids:
+                sh = shards[sid]
+                with sh.lock:
+                    sh.waiters.pop(me, None)
+
+    def next_events(self, timeout: Optional[float] = 0.0) -> List[Event]:
         """Events past the cursors, filtered by the subscription's topics
-        and keys; [] when none (non-blocking: every reader in the port
-        polls, the incremental feed when a build or a resync asks)."""
-        if self.closed:
-            return []
-        return [e for e in self._collect() if self._wants(e)]
+        and keys. With ``timeout`` 0 (the incremental feed's read) it
+        never blocks; otherwise it parks until any event passes the
+        cursors (possibly [] after filtering), the timeout expires or
+        ``close``."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        while not self.closed:
+            evs = self._collect()
+            if evs:
+                return [e for e in evs if self._wants(e)]
+            remaining = (None if deadline is None
+                         else deadline - time.monotonic())
+            if remaining is not None and remaining <= 0:
+                return []
+            self._park(remaining)
+        return []
 
     def close(self) -> None:
+        """Unpark, and drop the waiter registrations."""
         self.closed = True
+        me = id(self)
+        for sid in self._shard_ids:
+            sh = self._broker._shards[sid]
+            with sh.lock:
+                sh.waiters.pop(me, None)
+        self._wake.set()
 
 
 class EventBroker:
@@ -155,6 +200,15 @@ class EventBroker:
     def subscribe(self, topics: Optional[Dict[str, List[str]]] = None
                   ) -> Subscription:
         return Subscription(self, topics)
+
+    def waiter_count(self) -> int:
+        """Parked subscriptions across the shards (the
+        ``nomad.reads.event_waiters`` gauge)."""
+        n = 0
+        for sh in self._shards:
+            with sh.lock:
+                n += len(sh.waiters)
+        return n
 
     def _on_commit(self, index: int, events: list) -> None:
         """The store's commit listener: on the writer's thread and under
@@ -188,6 +242,10 @@ class EventBroker:
                 if len(ring) == cap:
                     sh.evicted = ring[0].seq
                 ring.append(Event(sh.seq, index, topic, kind, key, payload))
+            waiters = list(sh.waiters.values())
+            sh.waiters.clear()
+        for ev in waiters:
+            ev.set()
 
     def _truncate_all(self) -> None:
         """A restore replaced the whole store: every ring is stale. Each
@@ -198,3 +256,7 @@ class EventBroker:
                 sh.ring.clear()
                 sh.seq += 1
                 sh.evicted = sh.seq
+                waiters = list(sh.waiters.values())
+                sh.waiters.clear()
+            for ev in waiters:
+                ev.set()

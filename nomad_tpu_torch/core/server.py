@@ -32,8 +32,16 @@ goes through the replicated log, and only the leader's Server runs.
 - ``core_gc`` (core/core_sched.py): every ``gc_interval`` seconds, and
   at once through ``force_gc``.
 
-The calls it serves: ``register_job``, ``deregister_job``,
-``scale_job``, ``register_node(s)``, ``deregister_node``, ``heartbeat``,
+The calls it serves: ``register_job`` (into a registered namespace; a
+parameterized job is a template and gets no eval), ``deregister_job``,
+``create_job_eval`` (a forced evaluation), ``scale_job`` (held to the
+group's scaling bounds, with a scaling event), ``scaling_policies``,
+``revert_job``, ``plan_job`` (the dry run: the real scheduler on a
+snapshot with the planned job overlaid, through a planner that commits
+nothing and marks every planned node rejected, so a bulk solve's
+correction leaves the solver service's carry), ``upsert_namespace`` /
+``delete_namespace``, ``upsert_node_pool`` / ``delete_node_pool``,
+``register_node(s)``, ``deregister_node``, ``heartbeat``,
 ``heartbeat_batch``, ``create_eval``, ``register_volume``,
 ``deregister_volume``, ``force_gc``, and the allocation lifecycle's
 (reference ``server.py:819-1114``): ``mark_nodes_down`` (down, or
@@ -53,7 +61,7 @@ watcher or the drainer itself holds the actor off before ``start``
 broker, reaper, heartbeat, watcher, drainer or GC thread running.
 
 Trimmed (each is an attribute or method of the reference the port does
-not have), and left to ROADMAP A10: periodic and parameterized jobs
+not have), and left to ROADMAP A10: periodic jobs and dispatch
 (``periodic``, ``dispatch_job``), the event broker's direct publishes
 (the bad-node quarantine publishes nothing) and its sizing knobs
 (``event_ring_size``, ``event_shards``: the broker keeps its defaults,
@@ -67,11 +75,10 @@ straight to the store), ACLs, identities and variables (``acl_*``,
 GC's token passes), federation and ACL replication (``region*``,
 ``_run_acl_replication``), the overload controller (``loadctl``, the
 ``_tiered`` admission decorator, poison-eval quarantine; the heartbeat
-calls are not tiered), namespaces (``_check_namespace``: a volume
-registers into any namespace), node pools and service registrations
-(``upsert_node_pool``, ...), dry-run plans (``plan_job``),
-operator job reverts and the scaling bounds and events (``scaling``
-stanzas, ``append_scaling_event``), and the unbatched plan-commit arm
+calls are not tiered), service registrations
+(``upsert_service_registrations``, ...), the operator's
+``reject_job_registration`` and ``pause_eval_broker`` switches, and the
+unbatched plan-commit arm
 (``plan_commit_batching``; the applier always batches, see
 core/plan_apply.py).
 """
@@ -217,6 +224,8 @@ class Server:
         self.blocked.set_enabled(False)
         self.broker.set_enabled(False)
         self.plan_applier.stop()
+        # parked blocking queries return: no handler outlives the server
+        self.store.watches.teardown()
         if self._reaper is not None:
             self._reaper.join(timeout=5.0)
         self._commit_q.put(None)
@@ -374,9 +383,22 @@ class Server:
 
     def register_job(self, job: Job) -> str:
         """Job.Register: upsert the job and create its eval; returns the
-        eval id."""
+        eval id ("" for a parameterized template, which never
+        schedules)."""
+        self._check_namespace(job.namespace)
         self.store.upsert_job(job)
+        if job.is_parameterized:
+            return ""
         return self._create_job_eval(job, enums.TRIGGER_JOB_REGISTER)
+
+    def create_job_eval(self, job: Job,
+                        trigger: str = enums.TRIGGER_JOB_REGISTER) -> str:
+        """Job.Evaluate: a forced evaluation of a registered job."""
+        return self._create_job_eval(job, trigger)
+
+    def _check_namespace(self, namespace: str) -> None:
+        if self.store.snapshot().namespace(namespace) is None:
+            raise ValueError(f"namespace {namespace!r} does not exist")
 
     def deregister_job(self, job_id: str, namespace: str = "default",
                        purge: bool = False) -> str:
@@ -416,14 +438,180 @@ class Server:
         job = self.store.snapshot().job_by_id(job_id, namespace)
         if job is None or job.stopped():
             raise KeyError(f"job {job_id} not found")
+        if job.is_parameterized:
+            raise ValueError("cannot scale periodic or parameterized jobs")
         tg = job.lookup_task_group(task_group)
         if tg is None:
             raise ValueError(f"task group {task_group!r} not found")
         if count < 0:
             raise ValueError("count must be >= 0")
+        if tg.scaling is not None and tg.scaling.enabled:
+            if count < tg.scaling.min or (tg.scaling.max
+                                          and count > tg.scaling.max):
+                raise ValueError(
+                    f"count {count} outside scaling bounds "
+                    f"[{tg.scaling.min}, "
+                    f"{tg.scaling.max or 'unbounded'}]")
         updated = _copy.deepcopy(job)
         updated.lookup_task_group(task_group).count = count
-        return self.register_job(updated)
+        eval_id = self.register_job(updated)
+        self.store.append_scaling_event(job_id, namespace, {
+            "task_group": task_group, "count": count,
+            "previous_count": tg.count, "eval_id": eval_id,
+            "time": time.time()})
+        return eval_id
+
+    def scaling_policies(self, namespace: Optional[str] = None) -> List[dict]:
+        """Every scaling stanza of a live job as a policy row (the
+        policies live on the job spec)."""
+        out = []
+        for job in self.store.snapshot().jobs():
+            if namespace is not None and job.namespace != namespace:
+                continue
+            if job.stopped():
+                continue
+            for tg in job.task_groups:
+                if tg.scaling is None:
+                    continue
+                out.append({
+                    "id": f"{job.namespace}/{job.id}/{tg.name}",
+                    "namespace": job.namespace,
+                    "target": {"job": job.id, "group": tg.name},
+                    "min": tg.scaling.min, "max": tg.scaling.max,
+                    "enabled": tg.scaling.enabled,
+                    "policy": tg.scaling.policy,
+                })
+        return out
+
+    def revert_job(self, job_id: str, job_version: int,
+                   namespace: str = "default") -> str:
+        """Job.Revert: re-register a prior version's spec as the newest
+        version."""
+        snap = self.store.snapshot()
+        current = snap.job_by_id(job_id, namespace)
+        if current is None:
+            raise KeyError(f"job {job_id} not found")
+        if current.is_parameterized:
+            raise ValueError("cannot revert periodic or parameterized jobs")
+        if job_version == current.version:
+            raise ValueError("cannot revert to the current version")
+        old = snap.job_version(job_id, job_version, namespace)
+        if old is None:
+            raise KeyError(f"job {job_id} has no version {job_version}")
+        revived = _copy.deepcopy(old)
+        revived.stop = False
+        return self.register_job(revived)
+
+    def plan_job(self, job: Job) -> Dict:
+        """Job.Plan, the dry run: the real scheduler against the current
+        snapshot with the planned job overlaid, through a planner that
+        commits nothing. Every planned node is reported rejected to the
+        plan's post-apply hooks, so a bulk solve's ledger entry is
+        corrected out of the solver service's usage carry. Returns the
+        groups' desired updates, the spec diff against the running
+        version and the failed placements."""
+        from ..scheduler.scheduler import NewScheduler
+        from ..structs.job import spec_diff
+        from ..structs.plan import PlanResult
+
+        snap = self.store.snapshot()
+        prev = snap.job_by_id(job.id, job.namespace)
+        planned = _copy.copy(job)
+        planned.version = (prev.version + 1) if prev is not None else 0
+        planned.create_index = prev.create_index if prev is not None else 0
+
+        class _PlanSnapshot:
+            """The snapshot with the planned job overlaid."""
+
+            def __init__(self, base):
+                self._base = base
+
+            def job_by_id(self, job_id, namespace="default"):
+                if job_id == planned.id and namespace == planned.namespace:
+                    return planned
+                return self._base.job_by_id(job_id, namespace)
+
+            def __getattr__(self, name):
+                return getattr(self._base, name)
+
+        logger = self.logger
+
+        class _DryRunPlanner:
+            def __init__(self):
+                self.plans = []
+                self.evals = []
+
+            def submit_plan(self, plan):
+                self.plans.append(plan)
+                result = PlanResult(
+                    node_allocation=plan.node_allocation,
+                    node_update=plan.node_update,
+                    node_preemptions=plan.node_preemptions,
+                    alloc_index=snap.index)
+                rejected = set(plan.node_allocation)
+                for b in plan.alloc_blocks:
+                    rejected.update(b.node_ids)
+                result.rejected_nodes = sorted(rejected)
+                for hook in plan.post_apply_hooks:
+                    try:
+                        hook(result)
+                    except Exception:  # noqa: BLE001 - as the applier's
+                        if logger:
+                            logger.exception("dry-run hook failed")
+                return result, None
+
+            def update_eval(self, ev):
+                self.evals.append(ev)
+
+            def create_eval(self, ev):
+                self.evals.append(ev)
+
+            def reblock_eval(self, ev):
+                self.evals.append(ev)
+
+        planner = _DryRunPlanner()
+        sched = NewScheduler(planned.type, _PlanSnapshot(snap), planner,
+                             sched_config=self.sched_config,
+                             device=self.device)
+        ev = Evaluation(
+            id=generate_uuid(), namespace=planned.namespace,
+            priority=planned.priority, type=planned.type,
+            triggered_by=enums.TRIGGER_JOB_REGISTER, job_id=planned.id,
+            status=enums.EVAL_STATUS_PENDING)
+        sched.process(ev)
+        return {
+            "job_id": planned.id,
+            "job_version": planned.version,
+            "annotations": getattr(sched, "annotations", {}),
+            "diff": spec_diff(prev, planned),
+            "failed_tg_allocs": {
+                name: {"nodes_filtered": m.nodes_filtered,
+                       "nodes_exhausted": m.nodes_exhausted,
+                       "coalesced_failures": m.coalesced_failures}
+                for name, m in sched.failed_tg_allocs.items()},
+        }
+
+    # -- namespaces and node pools --
+
+    def upsert_namespace(self, ns) -> None:
+        if not ns.name:
+            raise ValueError("namespace name is required")
+        self.store.upsert_namespace(ns)
+
+    def delete_namespace(self, name: str) -> None:
+        self.store.delete_namespace(name)
+
+    def upsert_node_pool(self, pool) -> None:
+        from ..structs.operator import BUILTIN_NODE_POOLS
+
+        if pool.name in BUILTIN_NODE_POOLS:
+            raise ValueError(f"cannot modify built-in node pool {pool.name!r}")
+        if not pool.name:
+            raise ValueError("node pool name is required")
+        self.store.upsert_node_pool(pool)
+
+    def delete_node_pool(self, name: str) -> None:
+        self.store.delete_node_pool(name)
 
     # -- deployments --
 
@@ -490,6 +678,7 @@ class Server:
     # -- volumes and GC --
 
     def register_volume(self, vol) -> None:
+        self._check_namespace(vol.namespace)
         self.store.upsert_volume(vol)
 
     def deregister_volume(self, vol_id: str, namespace: str = "default",

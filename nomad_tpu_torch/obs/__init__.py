@@ -10,11 +10,12 @@ the tensor layer and the core import them and nothing else of ``obs``.
 - ``REGISTRY``: counters, gauges, timings, histograms (obs/metrics.py;
   the reference keeps it in ``core/metrics.py``).
 
-The reference's ``NOMAD_TPU_TRACE=0`` kill switch and its ring-size
-variables are not ported: the port's rings are fixed (``RING_CAP``,
-``RING_EVENTS``), and a tracer or recorder made with ``enabled=False``
-records nothing. The reference's exporters (``obs/export.py``,
-``python -m nomad_tpu.obs``) are not ported.
+The exporters are ``obs/export.py`` (Chrome trace, phase breakdown,
+span-chain reports; ``/v1/traces`` serves them) and ``python -m
+nomad_tpu_torch.obs`` (``--export``, ``--trace-smoke``). The reference's
+``NOMAD_TPU_TRACE=0`` kill switch and its ring-size variables are not
+ported: the port's rings are fixed (``RING_CAP``, ``RING_EVENTS``), and
+a tracer or recorder whose ``enabled`` is false records nothing.
 """
 
 from .metrics import REGISTRY, Registry

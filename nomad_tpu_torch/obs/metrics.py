@@ -3,11 +3,11 @@ process-wide counters, timing samples, gauges and bounded-reservoir
 histograms under the reference's names (``nomad.plan.evaluate``,
 ``nomad.plan.submit``, ``nomad.plan.node_rejected``,
 ``nomad.worker.invoke_scheduler_<type>``, ``nomad.preempt.*``,
-``nomad.solver.*``, ``nomad.eval.phase.<span>``). The reference's
-prometheus text exposition (``prometheus_text``) serves its HTTP layer,
-which the port does not have, and is not ported. It sits in ``obs/``
-beside the tracer, a leaf the tensor layer reports to without importing
-the core."""
+``nomad.solver.*``, ``nomad.eval.phase.<span>``, ``nomad.reads.*``),
+and ``prometheus_text``, the text exposition ``/v1/metrics?format=
+prometheus`` serves (reference ``core/metrics.py:205-235``). It sits in
+``obs/`` beside the tracer, a leaf the tensor layer reports to without
+importing the core."""
 
 from __future__ import annotations
 
@@ -169,6 +169,38 @@ class Registry:
                          "p99_ms": 1000.0 * _pct(ring, 0.99),
                          "max_ms": 1000.0 * max_s}
         return out
+
+
+def prometheus_text(metrics: dict, prefix: str = "") -> str:
+    """Flatten a metrics dict into the prometheus text exposition: dots
+    and dashes become underscores, a timing sample expands to
+    ``_count`` / ``_mean_ms`` / ``_max_ms``."""
+    lines = []
+
+    def name_of(*parts) -> str:
+        raw = "_".join(p for p in parts if p)
+        return "".join(c if c.isalnum() or c == "_" else "_" for c in raw)
+
+    def walk(prefix_parts, value):
+        if isinstance(value, dict):
+            if set(value) == {"count", "mean_ms", "max_ms"}:
+                for k, v in value.items():
+                    n = name_of(*prefix_parts, k)
+                    lines.append(f"# TYPE {n} gauge")
+                    lines.append(f"{n} {float(v)}")
+                return
+            for k, v in value.items():
+                walk(prefix_parts + [str(k)], v)
+            return
+        if isinstance(value, bool):
+            value = int(value)
+        if isinstance(value, (int, float)):
+            n = name_of(*prefix_parts)
+            lines.append(f"# TYPE {n} gauge")
+            lines.append(f"{n} {float(value)}")
+
+    walk([prefix] if prefix else [], metrics)
+    return "\n".join(lines) + "\n"
 
 
 REGISTRY = Registry()

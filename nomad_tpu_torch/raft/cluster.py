@@ -27,10 +27,15 @@ Two guards keep a failover from placing twice or racing the card:
   solver service a card (``tensor.solver.get_service``), so the crashed
   Server's workers are gone before the new leader's first launch.
 
-Not ported: gossip and join by address, the socket transport's call
-forwarding and the HTTP read headers (they wait for the CLI), and the
-admission controller with the request deadlines and tiers it binds
-(they wait for the HTTP API).
+The HTTP agent (``api/http.py``) takes a ``ReplicatedServer`` as its
+``writer``: writes forward to the leader, reads stay on the local
+replica behind the read-index round, and the follower-read headers
+come from ``known_leader`` and ``last_contact``; ``remove_peer`` is
+``DELETE /v1/operator/raft/peer``.
+
+Not ported: gossip and join by address and the socket transport's call
+forwarding (they wait for the CLI, ROADMAP A10.2), and the admission
+controller with the request tiers it binds (ROADMAP A10.7).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ log = logging.getLogger("nomad_tpu_torch.raft")
 
 # the Server calls a follower forwards to the leader
 FORWARD = ("register_job", "deregister_job", "scale_job",
+           "create_job_eval", "revert_job", "upsert_namespace",
+           "delete_namespace", "upsert_node_pool", "delete_node_pool",
            "register_node", "register_nodes", "heartbeat", "heartbeat_batch",
            "update_node_status", "update_node_drain",
            "update_node_eligibility", "deregister_node", "mark_nodes_down",
@@ -211,6 +218,31 @@ class ReplicatedServer:
     def is_leader(self) -> bool:
         """This node leads and its Server runs, evals restored."""
         return self.raft.is_leader() and self._serving
+
+    def known_leader(self) -> bool:
+        """``X-Nomad-KnownLeader``: does this server know a leader now? A
+        crashed or stopped node's last belief is frozen, not current."""
+        if self.crashed or self.raft._stop.is_set():
+            return False
+        return bool(self.raft.leader_id)
+
+    def last_contact(self) -> float:
+        """``X-Nomad-LastContact``: seconds since the leader was last
+        heard (0.0 on the leader, inf when none ever was)."""
+        return self.raft.last_contact_age()
+
+    def remove_peer(self, server_id: str) -> dict:
+        """The operator's removal of a server from the raft configuration,
+        run on the leader (``operator raft remove-peer``)."""
+        for _ in Retryer(deadline_s=10.0, base=0.05, cap=0.5, jitter=0.25):
+            if self.raft.is_leader():
+                self.raft.remove_server(server_id)
+                return {"ok": True}
+            peer = self._leader_peer()
+            if peer is not None and peer.raft.is_leader():
+                peer.raft.remove_server(server_id)
+                return {"ok": True}
+        raise NotLeaderError(self.raft.leader_id)
 
     def read_index(self, consistent: bool = False,
                    timeout: float = 2.0) -> int:

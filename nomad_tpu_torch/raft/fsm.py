@@ -23,7 +23,8 @@ MUTATIONS = {
     "upsert_node", "upsert_nodes", "update_node_status",
     "update_nodes_status", "update_node_eligibility",
     "update_node_drain", "delete_node", "upsert_node_pool",
-    "upsert_job", "delete_job", "update_job_status",
+    "delete_node_pool", "upsert_namespace", "delete_namespace",
+    "upsert_job", "delete_job", "update_job_status", "append_scaling_event",
     "upsert_evals", "delete_evals",
     "upsert_allocs", "update_allocs_from_client",
     "update_alloc_desired_transitions",

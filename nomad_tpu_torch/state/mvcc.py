@@ -179,3 +179,9 @@ class SnapshotTracker:
     def min_live(self, current_gen: int) -> int:
         with self._lock:
             return min(self._live) if self._live else current_gen
+
+    def live_count(self) -> int:
+        """Snapshots pinned now (the ``nomad.state.live_snapshots``
+        gauge)."""
+        with self._lock:
+            return sum(self._live.values())

@@ -16,9 +16,8 @@ its own row, blocks de-columnarized into per-position rows.
 
 The layout is the reference's: a reference dump restores into the
 port's store and a port dump into the reference's. The tables the port
-does not model (ACLs, variables, namespaces, services, regions,
-one-time tokens, scaling events) are not written and are ignored on
-read; the ``alloc_modify_index`` column, a field the port's allocations
+does not model (ACLs, variables, services, regions, one-time tokens)
+are not written and are ignored on read; the ``alloc_modify_index`` column, a field the port's allocations
 lack, is written as 0.
 
 Snapshotting is split into capture (pin an MVCC generation: O(1), safe
@@ -90,7 +89,12 @@ def serialize_capture(store, snap, fmt: int = FORMAT) -> dict:
                     for _, v in store._volumes.iterate(snap.index)],
         "node_pools": [wire_encode(p)
                        for _, p in store._node_pools.iterate(snap.index)],
+        "namespaces": [wire_encode(x)
+                       for _, x in store._namespaces.iterate(snap.index)],
         "scheduler_config": wire_encode(cfg) if cfg is not None else None,
+        "scaling_events": [
+            {"key": list(k), "events": list(v)}
+            for k, v in store._scaling_events.iterate(snap.index)],
     }
     if fmt == 1:
         # legacy writer: blocks de-columnarized into per-position rows
@@ -292,6 +296,8 @@ def restore_store(store, data: dict) -> None:
     deployments = [wire_decode(x) for x in data.get("deployments", [])]
     volumes = [wire_decode(x) for x in data.get("volumes", [])]
     node_pools = [wire_decode(x) for x in data.get("node_pools", [])]
+    namespaces = [wire_decode(x) for x in data.get("namespaces", [])]
+    scaling_events = data.get("scaling_events", [])
     sched_cfg = (wire_decode(data["scheduler_config"])
                  if data.get("scheduler_config") is not None else None)
 
@@ -318,6 +324,9 @@ def restore_store(store, data: dict) -> None:
             id(store._deployments): {d.id for d in deployments},
             id(store._volumes): {(v.namespace, v.id) for v in volumes},
             id(store._node_pools): {p.name for p in node_pools},
+            id(store._namespaces): {x.name for x in namespaces},
+            id(store._scaling_events): {tuple(e["key"])
+                                        for e in scaling_events},
             id(store._scheduler_config): ({"config"} if sched_cfg is not None
                                           else set()),
         }
@@ -386,6 +395,11 @@ def restore_store(store, data: dict) -> None:
             store._volumes.put((v.namespace, v.id), v, gen, live)
         for p in node_pools:
             store._node_pools.put(p.name, p, gen, live)
+        for x in namespaces:
+            store._namespaces.put(x.name, x, gen, live)
+        for e in scaling_events:
+            store._scaling_events.put(tuple(e["key"]), tuple(e["events"]),
+                                      gen, live)
         if sched_cfg is not None:
             store._scheduler_config.put("config", sched_cfg, gen, live)
         store._next_gen = gen

@@ -1,14 +1,18 @@
 """The state store, trimmed to the placement paths and the allocation
 lifecycle (reference ``nomad_tpu/state/store.py``): nodes, node pools,
-jobs with their versions, evals, deployments, registered volumes with
-their claims, alloc blocks (the bulk path's placements) and single
+namespaces, jobs with their versions and scaling events, evals,
+deployments, registered volumes with their claims, alloc blocks (the bulk path's placements) and single
 allocations (the per-eval path's) in MVCC tables, one serialized writer
-and any number of concurrent snapshot readers.
+and any number of concurrent snapshot readers. ``watches`` (state/watch.py)
+parks the blocking queries of the HTTP API until a commit passes their
+index.
 
 For the Server (``core/``): commit listeners called with each published
 generation and its events, each write emitting the reference's kinds
 and payloads (``node-upsert``, ``node-status``, ``node-eligibility``,
-``node-drain``, ``node-pool-upsert``, ``job-upsert``, ``job-delete``,
+``node-drain``, ``node-pool-upsert``, ``node-pool-delete``,
+``namespace-upsert``, ``namespace-delete``, ``scaling-event``,
+``job-upsert``, ``job-delete``,
 ``eval-upsert``, ``deployment-upsert``, ``alloc-upsert``,
 ``alloc-stop``, ``alloc-preempt``, ``alloc-client-update``,
 ``alloc-transition``, ``alloc-block-upsert``, ``node-delete``,
@@ -191,6 +195,40 @@ class StateSnapshot:
             return NodePool(name=name, description="built-in")
         return None
 
+    def node_pools(self):
+        """The registered pools, then the built-in ones not overridden."""
+        from ..structs.operator import BUILTIN_NODE_POOLS, NodePool
+
+        seen = set()
+        for name, p in self._store._node_pools.iterate(self.index):
+            seen.add(name)
+            yield p
+        for name in BUILTIN_NODE_POOLS:
+            if name not in seen:
+                yield NodePool(name=name, description="built-in")
+
+    # --- namespaces ---
+
+    def namespace(self, name: str):
+        ns = self._store._namespaces.get(name, self.index)
+        if ns is not None:
+            return ns
+        from ..structs.operator import DEFAULT_NAMESPACE, Namespace
+
+        if name == DEFAULT_NAMESPACE:
+            return Namespace(name=name, description="built-in")
+        return None
+
+    def namespaces(self):
+        from ..structs.operator import DEFAULT_NAMESPACE, Namespace
+
+        seen = set()
+        for name, ns in self._store._namespaces.iterate(self.index):
+            seen.add(name)
+            yield ns
+        if DEFAULT_NAMESPACE not in seen:
+            yield Namespace(name=DEFAULT_NAMESPACE, description="built-in")
+
     def node_usage(self, node_id: str):
         """Summed allocated_vec of the node's non-terminal allocs, or
         None."""
@@ -219,6 +257,24 @@ class StateSnapshot:
                     namespace: str = "default") -> Optional[Job]:
         return self._store._job_versions.get((namespace, job_id, version),
                                              self.index)
+
+    def job_versions(self, job_id: str,
+                     namespace: str = "default") -> List[Job]:
+        """Every retained version, newest first (keyed lookups from the
+        current version down)."""
+        current = self.job_by_id(job_id, namespace)
+        if current is None:
+            return []
+        out = []
+        for v in range(current.version, -1, -1):
+            row = self.job_version(job_id, v, namespace)
+            if row is not None:
+                out.append(row)
+        return out
+
+    def scaling_events(self, job_id: str, namespace: str = "default"):
+        return list(self._store._scaling_events.get(
+            (namespace, job_id), self.index) or ())
 
     def eval_by_id(self, eval_id: str) -> Optional[Evaluation]:
         return self._store._evals.get(eval_id, self.index)
@@ -359,7 +415,10 @@ class StateStore:
 
         self._nodes = VersionedTable("nodes")
         self._node_pools = VersionedTable("node_pools")
+        self._namespaces = VersionedTable("namespaces")
         self._jobs = VersionedTable("jobs")
+        # key (ns, job id): the job's last scaling events
+        self._scaling_events = VersionedTable("scaling_events")
         # key (ns, job id, version): auto-revert reads the prior version
         self._job_versions = VersionedTable("job_versions")
         self._evals = VersionedTable("evals")
@@ -404,7 +463,13 @@ class StateStore:
             self._alloc_blocks, self._allocs, self._promoted,
             self._deployments, self._deployments_by_job,
             self._allocs_by_node, self._allocs_by_job, self._allocs_by_eval,
-            self._node_usage, self._node_dev_usage, self._scheduler_config]
+            self._node_usage, self._node_dev_usage, self._scheduler_config,
+            self._namespaces, self._scaling_events]
+        # parked blocking queries, woken by this store's commits (every
+        # replica wakes its own as replication applies)
+        from .watch import WatchTable
+
+        self.watches = WatchTable(self)
 
     # --- infrastructure ---
 
@@ -596,17 +661,85 @@ class StateStore:
             return gen
 
     def upsert_node_pool(self, pool) -> int:
+        """A pool's row; the built-in pools are refused at the Server's
+        endpoint (the reference refuses them here too), so a caller of
+        the store may override one."""
         with self._write_lock:
             gen, live = self._begin()
+            prev = self._node_pools.get_latest(pool.name)
+            pool.create_index = prev.create_index if prev is not None else gen
             pool.modify_index = gen
             self._node_pools.put(pool.name, pool, gen, live)
             self._commit(gen, [("node-pool-upsert", pool)])
+            return gen
+
+    def delete_node_pool(self, name: str) -> int:
+        from ..structs.operator import BUILTIN_NODE_POOLS
+
+        if name in BUILTIN_NODE_POOLS:
+            raise ValueError(f"cannot delete built-in node pool {name!r}")
+        with self._write_lock:
+            # a pool with member nodes or live jobs must not vanish
+            for _, n in self._nodes.iterate(self._index):
+                if n.node_pool == name:
+                    raise ValueError(f"node pool {name!r} has nodes")
+            for _, j in self._jobs.iterate(self._index):
+                if j.node_pool == name and not j.stopped():
+                    raise ValueError(f"node pool {name!r} has jobs")
+            gen, live = self._begin()
+            pool = self._node_pools.get_latest(name)
+            self._node_pools.delete(name, gen, live)
+            self._commit(gen, [("node-pool-delete", pool)])
+            return gen
+
+    # --- namespaces ---
+
+    def _require_namespace(self, name: str) -> None:
+        """A registration into an unregistered namespace is refused
+        (under the write lock: no race with ``delete_namespace``)."""
+        from ..structs.operator import DEFAULT_NAMESPACE
+
+        if name == DEFAULT_NAMESPACE:
+            return
+        if self._namespaces.get_latest(name) is None:
+            raise ValueError(f"namespace {name!r} does not exist")
+
+    def upsert_namespace(self, ns) -> int:
+        with self._write_lock:
+            gen, live = self._begin()
+            prev = self._namespaces.get_latest(ns.name)
+            ns.create_index = prev.create_index if prev is not None else gen
+            ns.modify_index = gen
+            self._namespaces.put(ns.name, ns, gen, live)
+            self._commit(gen, [("namespace-upsert", ns)])
+            return gen
+
+    def delete_namespace(self, name: str) -> int:
+        from ..structs.operator import DEFAULT_NAMESPACE
+
+        if name == DEFAULT_NAMESPACE:
+            raise ValueError("cannot delete the default namespace")
+        with self._write_lock:
+            if self._namespaces.get_latest(name) is None:
+                raise KeyError(f"namespace {name!r} does not exist")
+            # a namespace must not vanish under its live jobs or volumes
+            for (jns, _), j in self._jobs.iterate(self._index):
+                if jns == name and not j.stopped():
+                    raise ValueError(f"namespace {name!r} has jobs")
+            for (vns, _), _v in self._volumes.iterate(self._index):
+                if vns == name:
+                    raise ValueError(f"namespace {name!r} has volumes")
+            gen, live = self._begin()
+            ns = self._namespaces.get_latest(name)
+            self._namespaces.delete(name, gen, live)
+            self._commit(gen, [("namespace-delete", ns)])
             return gen
 
     # --- jobs / evals ---
 
     def upsert_job(self, job: Job) -> int:
         with self._write_lock:
+            self._require_namespace(job.namespace)
             gen, live = self._begin()
             key = (job.namespace, job.id)
             prev = self._jobs.get_latest(key)
@@ -640,12 +773,28 @@ class StateStore:
             job = self._jobs.get_latest(key)
             if purge:
                 self._jobs.delete(key, gen, live)
+                # a later job of the same id starts a scaling history of
+                # its own
+                self._scaling_events.delete(key, gen, live)
             elif job is not None:
                 job = copy.copy(job)
                 job.stop = True
                 job.modify_index = gen
                 self._jobs.put(key, job, gen, live)
             self._commit(gen, [("job-delete", job)])
+            return gen
+
+    def append_scaling_event(self, job_id: str, namespace: str,
+                             event: dict, keep: int = 20) -> int:
+        """A scale's event on the job's ring of its last ``keep``
+        (``/v1/job/<id>/scale`` serves them)."""
+        with self._write_lock:
+            gen, live = self._begin()
+            key = (namespace, job_id)
+            events = list(self._scaling_events.get_latest(key) or ())
+            events.append(dict(event))
+            self._scaling_events.put(key, tuple(events[-keep:]), gen, live)
+            self._commit(gen, [("scaling-event", event)])
             return gen
 
     def update_job_status(self, job_id: str, status: str,
@@ -895,6 +1044,7 @@ class StateStore:
 
     def upsert_volume(self, vol) -> int:
         with self._write_lock:
+            self._require_namespace(vol.namespace)
             gen, live = self._begin()
             key = (vol.namespace, vol.id)
             prev = self._volumes.get_latest(key)
@@ -1066,12 +1216,20 @@ class StateStore:
         """The reverse of the plan applier's normalization (reference
         ``_rehydrate_alloc_jobs``, store.py:1048-1065): allocs and blocks
         ride the raft log without their job, the plan's job rides once
-        a payload. Re-attach from the existing row (its exact version:
-        a stop may carry an older job than the plan's), else the
-        payload's job, else the job table. Every input is replicated
-        state or the payload, so every replica attaches the same job."""
+        a payload. Re-attach the payload's job to a row of its version
+        (a placement, or an in-place update moving an alloc to it), else
+        the existing row's (its exact version: a stop may carry an older
+        job than the plan's), else the payload's, else the job table.
+        Every input is replicated state or the payload, so every replica
+        attaches the same job. The reference re-attaches the existing
+        row's job first, so an in-place update keeps its old job there
+        (ROADMAP §C11)."""
         for a in rows:
             if a.job is not None:
+                continue
+            if (job is not None and job.id == a.job_id
+                    and job.version == a.job_version):
+                a.job = job
                 continue
             prev = (self._latest_alloc(a.id)[0]
                     if isinstance(a, Allocation) else None)

@@ -1,9 +1,10 @@
-"""Scheduler configuration and node pools (reference
+"""Scheduler configuration, node pools and namespaces (reference
 ``nomad_tpu/structs/operator.py``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Dict
 
 from . import enums
 
@@ -58,3 +59,18 @@ class NodePool:
 
 
 BUILTIN_NODE_POOLS = (enums.NODE_POOL_DEFAULT, enums.NODE_POOL_ALL)
+
+
+@dataclass(slots=True)
+class Namespace:
+    """A tenancy boundary for jobs and volumes; "default" always exists
+    and a registration into an unregistered namespace is refused."""
+
+    name: str = ""
+    description: str = ""
+    meta: Dict[str, str] = field(default_factory=dict)
+    create_index: int = 0
+    modify_index: int = 0
+
+
+DEFAULT_NAMESPACE = "default"

@@ -64,6 +64,10 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.state.persist, nomad_tpu_torch.structs.wire\n"
         "import nomad_tpu_torch.utils.backoff\n"
         "import nomad_tpu_torch.utils.files\n"
+        "import nomad_tpu_torch.api, nomad_tpu_torch.api.http\n"
+        "import nomad_tpu_torch.api.client, nomad_tpu_torch.api.codec\n"
+        "import nomad_tpu_torch.api.jobspec, nomad_tpu_torch.state.watch\n"
+        "import nomad_tpu_torch.obs.export, nomad_tpu_torch.obs.__main__\n"
         "from nomad_tpu_torch.core import Server, ServerConfig\n"
         "from nomad_tpu_torch.core import RaftCluster, ReplicatedServer\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
@@ -141,7 +145,10 @@ def test_no_source_imports_jax_or_the_reference():
                 "raft/cluster.py", "raft/node.py", "raft/durable.py",
                 "raft/fsm.py", "raft/log.py", "raft/transport.py",
                 "state/persist.py", "structs/wire.py",
-                "utils/backoff.py", "utils/files.py"):
+                "utils/backoff.py", "utils/files.py", "api/__init__.py",
+                "api/http.py", "api/client.py", "api/codec.py",
+                "api/jobspec.py", "state/watch.py", "obs/export.py",
+                "obs/__main__.py"):
         assert (REPO / "nomad_tpu_torch" / mod) in _sources()
     assert not bad, bad
 
@@ -179,5 +186,14 @@ def test_default_device_is_the_card_and_never_the_cpu():
         # a replicated server with no device given is on the card too
         with pytest.raises(RuntimeError, match="no CUDA device found"):
             RaftCluster(3)
+        from nomad_tpu_torch.core import Server
+        from nomad_tpu_torch.obs.__main__ import main as obs_main
+
+        # so is the Server an HTTP agent serves, and the trace CLI's
+        # demo cluster
+        with pytest.raises(RuntimeError, match="no CUDA device found"):
+            Server()
+        with pytest.raises(RuntimeError, match="no CUDA device found"):
+            obs_main(["--trace-smoke"])
     with pytest.raises(ValueError):
         resolve("meta")

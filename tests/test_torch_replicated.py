@@ -184,14 +184,22 @@ def test_follower_read_index_and_raft_leadership(pkg):
 
 
 def run_cluster(pkg, nodes, jobs, alg):
+    """The replicas' stores, and the leader and terms before and after
+    the run (an election in the middle shows in the terms)."""
     with cluster(pkg, alg=alg, server_kw=dict(
             eval_batch_size=1, nack_timeout=900.0)) as c:
         leader = leader_of(c)
+        before = (leader.id, {sid: s.raft.current_term
+                              for sid, s in c.servers.items()})
         leader.register_nodes(nodes)
         for j in jobs:
             leader.register_job(j)
         wait_placed(c, {j.id: j.task_groups[0].count for j in jobs}, 60.0)
-        return [s.local_store for s in c.servers.values()]
+        after = (leader_of(c).id, {sid: s.raft.current_term
+                                   for sid, s in c.servers.items()})
+        return ([s.local_store for s in c.servers.values()],
+                {"leader and terms before": before,
+                 "leader and terms after": after})
 
 
 def test_cluster_fingerprint_equals_reference(monkeypatch, services):
@@ -229,23 +237,42 @@ def test_cluster_fingerprint_equals_reference(monkeypatch, services):
 
     _pin_ids(monkeypatch)
     rjobs = ref_jobs()
-    ref_stores = run_cluster(
+    ref_stores, ref_terms = run_cluster(
         REF, [REF.wire.wire_decode(REF.wire.wire_encode(n))
               for n in ref_nodes], rjobs, alg)
     _pin_ids(monkeypatch)
     port_jobs = [convert.job_from_record(r) for r in records]
     port_nodes = convert.nodes_from_records([node_record(n)
                                              for n in ref_nodes])
-    port_stores = run_cluster(PORT, port_nodes, port_jobs, alg)
-    for stores, js in ((ref_stores, rjobs), (port_stores, port_jobs)):
-        for store in stores:
+    port_stores, port_terms = run_cluster(PORT, port_nodes, port_jobs, alg)
+    for name, stores, js, terms in (
+            ("reference", ref_stores, rjobs, ref_terms),
+            ("port", port_stores, port_jobs, port_terms)):
+        for replica, store in enumerate(stores):
             got = fingerprint(store, js)
-            assert set(got) == set(want)
+            where = f"{name} cluster, replica {replica} ({terms})"
+            assert set(got) == set(want), (where, sorted(got), sorted(want))
             for jid in want:
-                assert got[jid][:2] == want[jid][:2], jid
+                assert got[jid][:2] == want[jid][:2], (
+                    f"{where}: job {jid} placed {got[jid][0]} allocs, "
+                    f"want {want[jid][0]}; per-node counts "
+                    f"{_first_node_diff(got[jid][1], want[jid][1])}")
                 assert np.allclose(got[jid][2], want[jid][2], rtol=0,
-                                   atol=1e-12), jid
+                                   atol=1e-12), (f"{where}: job {jid} "
+                                                 "scores differ")
         assert over_capacity(stores[0]) == []
+
+
+def _first_node_diff(got, want):
+    """The first node ordinal whose count differs, as ``ordinal: got vs
+    want``, and the count of differing ordinals."""
+    g, w = dict(got), dict(want)
+    diff = sorted(k for k in set(g) | set(w) if g.get(k) != w.get(k))
+    if not diff:
+        return "equal"
+    k = diff[0]
+    return (f"first at node {k}: {g.get(k, 0)} vs {w.get(k, 0)} "
+            f"({len(diff)} nodes differ)")
 
 
 def test_port_leader_crash_mid_wave_places_each_job_once(services,

@@ -41,9 +41,11 @@ def _ask(cpu, mem):
     return ask
 
 
-def _race(svc, static, feas, aff, ask, k, solves, sleep_s, seed_base):
+def _race(svc, static, feas, aff, ask, k, solves, sleep_s, seed_base,
+          gate=None):
     """4 committer threads x `solves` solves each, a slow apply between
-    fetch and the (deferred) confirm."""
+    fetch and the (deferred) confirm. With ``gate`` (an Event), threads
+    1-3 start once it is set."""
     zeros = np.zeros((static.n_pad, RESOURCE_DIMS), dtype=np.float32)
     placed_lock = threading.Lock()
     placed = np.zeros(static.n_pad, dtype=np.int64)
@@ -51,6 +53,8 @@ def _race(svc, static, feas, aff, ask, k, solves, sleep_s, seed_base):
 
     def committer(t):
         try:
+            if gate is not None and t:
+                assert gate.wait(10.0), "the gate never opened"
             for i in range(solves):
                 counts, token = svc.solve(
                     static=static, feas_base=feas, aff=aff, ask=ask, k=k,
@@ -85,8 +89,26 @@ def test_double_buffer_exact_fill_under_slow_apply(shards):
     mesh = NodeMesh(["cpu"] * shards) if shards else None
     svc = BulkSolverService(device="cpu", mesh=mesh)
     svc.RESYNC_SOLVES = 3
+    # the double buffer engages when a request is queued while a launch
+    # is in flight: thread 0's first launch holds its dispatch until
+    # another thread's request is queued, which the gate lets the other
+    # threads send only then (so the overlap does not hang on the
+    # threads' scheduling)
+    first = threading.Event()
+    dispatch = svc._dispatch_group
+
+    def first_dispatch_waits(rs):
+        out = dispatch(rs)
+        if not first.is_set():
+            first.set()
+            deadline = time.monotonic() + 10.0
+            while svc._q.qsize() == 0 and time.monotonic() < deadline:
+                time.sleep(0.001)
+        return out
+
+    svc._dispatch_group = first_dispatch_waits
     placed, tokens = _race(svc, static, feas, aff, _ask(100.0, 64.0), 4, 5,
-                           0.02, 100)
+                           0.02, 100, gate=first)
     assert int(placed.sum()) == 80, placed
     assert int(placed.max()) == 10, placed
     for token in tokens:
