@@ -436,6 +436,25 @@ Phases (any failure raises and exits non-zero):
               (32, 32, 64 nodes at S 2, 4, 8, K 8): against its plain version
               choices and founds exact, scores within 1e-6 (into the
               record's max_abs_err), score bits equal to B9.
+27. wide   -- B11, B5 (with the pick and solve_batch), B13 and B14 above
+              the one-CTA kernels' old ceiling of 16,384 nodes, at N_pad
+              32,768 and 65,536 (phase_wide_kernels): each exact against
+              its plain version (B13 also against B1, B14 against
+              solve_batch), "main" timed beside the plain version and
+              its bound.
+28. big_cluster -- a 20,000-node cluster (N_pad 32,768) through the
+              port's Server with 24 workers (phase_big_cluster): 16 x
+              4,000 batch allocs (B1), 2 groups of 40,000 (B11' then
+              B11), a 4,000-alloc CSI reader group (the generic B11), a
+              512-alloc service group with a rack spread (B9), 16 x
+              4,000 under "tpu-solve" (B5 and the pick); then the
+              node-sharded service on one card at S = 1 and 2 (B13, B14,
+              B15), 8 C2M and 8 tpu-solve jobs each. Gates: placed ==
+              asked for every job, 0 nodes over capacity, every kernel
+              of the path launched, every launch replayed against its
+              plain version (exact; B9's scores within 1e-6), no plain
+              version on CUDA, card == CPU on a 40,000 group and a
+              tpu-solve wave at 20,000 nodes.
 
 cfg4's two evals print the time the interpreter's garbage collector
 took inside them (gc.callbacks): their walls are host-bound, and a full
@@ -452,6 +471,8 @@ phase alone, then prints its record and its B9 kernel record as JSON
 lines.
 ``python3 chip_smoke.py --autopilot`` runs the build and the "autopilot"
 phase alone, then prints its record as one JSON line.
+``python3 chip_smoke.py --wide`` and ``--big-cluster`` run the build and
+phase 27 or 28 alone, then print its record as one JSON line.
 ``python3 chip_smoke.py --replicated`` runs the build and the
 "replicated" phase alone, then prints its record and B1's and B4's
 launches on it as JSON lines.
@@ -508,7 +529,10 @@ and ``penalty_launches``; B1's adds ``constraints_launches``, its
 launches on the config 2 path, B1's and B4's ``lifecycle_launches``,
 theirs on the lifecycle path, B1's, B4's and B9's
 ``autopilot_launches``, theirs on the autopilot path, and B1's and B4's
-``replicated_launches``, theirs on the replicated path), and the card's name
+``replicated_launches``, theirs on the replicated path; B11's, B5's,
+B13's and B14's ``wide``, phase 27's times at N_pad 32,768 and 65,536,
+and every kernel's ``big_cluster_launches``, its launches on phase 28's
+path), and the card's name
 and power limit; the last line is the device summary.
 """
 
@@ -1119,8 +1143,9 @@ def c2m_capacity(n_nodes: int = N_NODES) -> np.ndarray:
     return _CAPACITY[n_nodes]
 
 
-def solve_inputs(torch, dev, rng, variant: str):
-    """B5/B6 inputs at the C2M width: N_pad 16,384 with the build_nodes
+def solve_inputs(torch, dev, rng, variant: str, n_pad: int = None):
+    """B5/B6 inputs at the C2M width (or at ``n_pad`` with
+    wide_capacity's rows): N_pad 16,384 with the build_nodes
     capacities of 10,240 nodes and zero padded rows, G = 16 evals of
     SOLVE_K allocs cycling the bench asks, and usage pre-filled so that
     ~5% of the nodes hold all the free capacity (a few dozen allocs each)
@@ -1137,10 +1162,14 @@ def solve_inputs(torch, dev, rng, variant: str):
     batch of 8 evals and 8 k = 0 padding rows, every node part used)."""
     from nomad_tpu_torch import mock
 
-    n_nodes, n_pad = ((MINI_NODES, PATH_PAD) if variant == "path"
-                      else (N_NODES, N_PAD))
+    if n_pad is not None:
+        n_nodes, cap = wide_capacity(n_pad)
+    else:
+        n_nodes, n_pad = ((MINI_NODES, PATH_PAD) if variant == "path"
+                          else (N_NODES, N_PAD))
+        cap = c2m_capacity(n_nodes)
     avail = np.zeros((n_pad, 4), np.float32)
-    avail[:n_nodes] = c2m_capacity(n_nodes)
+    avail[:n_nodes] = cap
     ask = np.stack([mock.service_job(1, cpu=c, mem=m).task_groups[0]
                     .combined_resources().vec()
                     for c, m in (SOLVE_ASKS[i % len(SOLVE_ASKS)]
@@ -6362,9 +6391,20 @@ B11_VARIANTS = ("main", "over", "zero_ask", "spread_alg", "dh_tg",
                 "spreads", "identical")
 
 
-def b11_inputs(rng, variant: str):
+def wide_capacity(n_pad: int) -> tuple:
+    """(real nodes, (real, 4) capacities) at N_pad ``n_pad``: C2M's
+    10,240 build_nodes capacities at 16,384, else 5/8 of the rows (C2M's
+    ratio) with those capacities tiled."""
+    if n_pad == N_PAD:
+        return N_NODES, c2m_capacity()
+    real = n_pad * 5 // 8
+    return real, np.resize(c2m_capacity(), (real, 4))
+
+
+def b11_inputs(rng, variant: str, n_pad: int = N_PAD):
     """One bulk scan at the C2M width (10,240 build_nodes capacities
-    padded to 16,384, D 4, usage at 0-99 allocs of (50, 32, 300) a node)
+    padded to 16,384, D 4, usage at 0-99 allocs of (50, 32, 300) a node;
+    at another ``n_pad``, wide_capacity's rows)
     as (form, args, kwargs): "main" fused with k 40,000; "over" fused with
     an ask that leaves a remainder; "zero_ask" fused with an all-zero ask
     (infinite caps clamped to the budget); "spread_alg", "dh_tg" and
@@ -6373,25 +6413,26 @@ def b11_inputs(rng, variant: str):
     "identical" fused on identical empty nodes, where the permutation
     decides every step."""
     f = np.float32
-    avail = np.zeros((N_PAD, 4), f)
-    avail[:N_NODES] = c2m_capacity()
-    used = np.zeros((N_PAD, 4), f)
-    fill = rng.integers(0, 100, N_NODES).astype(f)
-    used[:N_NODES, :3] = fill[:, None] * np.array([50, 32, 300], f)
-    feas = np.zeros(N_PAD, bool)
-    feas[:N_NODES] = rng.random(N_NODES) < 0.95
-    aff = np.zeros(N_PAD, f)
-    aff[:N_NODES] = rng.choice([0.0, 0.0, 0.0, 0.5, -0.5], N_NODES)
-    ptg = np.zeros(N_PAD, np.int32)
-    ptg[:N_NODES] = rng.integers(0, 3, N_NODES)
+    n_nodes, cap = wide_capacity(n_pad)
+    avail = np.zeros((n_pad, 4), f)
+    avail[:n_nodes] = cap
+    used = np.zeros((n_pad, 4), f)
+    fill = rng.integers(0, 100, n_nodes).astype(f)
+    used[:n_nodes, :3] = fill[:, None] * np.array([50, 32, 300], f)
+    feas = np.zeros(n_pad, bool)
+    feas[:n_nodes] = rng.random(n_nodes) < 0.95
+    aff = np.zeros(n_pad, f)
+    aff[:n_nodes] = rng.choice([0.0, 0.0, 0.0, 0.5, -0.5], n_nodes)
+    ptg = np.zeros(n_pad, np.int32)
+    ptg[:n_nodes] = rng.integers(0, 3, n_nodes)
     ask = np.array([50, 32, 300, 0], f)
     k = LARGE_K
     if variant == "identical":
-        avail[:N_NODES] = avail[0]
+        avail[:n_nodes] = avail[0]
         used[:] = 0.0
         aff[:] = 0.0
         ptg[:] = 0
-        feas[:N_NODES] = True
+        feas[:n_nodes] = True
     if variant == "over":
         ask = np.array([4000, 8192, 300, 0], f)
     if variant == "zero_ask":
@@ -6402,8 +6443,8 @@ def b11_inputs(rng, variant: str):
                              axis=1).astype(f)
         return "fused", [avail, feas, aff, dyn, ask], (k, float(k), seed)
     s, v = (2, 32) if variant == "spreads" else (0, 1)
-    svid = rng.integers(0, v, (s, N_PAD)).astype(np.int32)
-    sok = rng.random((s, N_PAD)) < 0.9
+    svid = rng.integers(0, v, (s, n_pad)).astype(np.int32)
+    sok = rng.random((s, n_pad)) < 0.9
     scnt = rng.integers(0, 50, (s, v)).astype(np.int32)
     desired = np.full((s, v), np.nan, f)
     if s:
@@ -6411,8 +6452,8 @@ def b11_inputs(rng, variant: str):
         desired[0, 3] = 0.0
     has_targets = np.arange(s) == 0
     weight = np.full(s, 0.5, f)
-    perm = rng.permutation(N_PAD).astype(np.int32)
-    args = [avail, used, ask, feas, ptg, ptg.copy(), aff, np.zeros(N_PAD, f),
+    perm = rng.permutation(n_pad).astype(np.int32)
+    args = [avail, used, ask, feas, ptg, ptg.copy(), aff, np.zeros(n_pad, f),
             svid, sok, scnt, desired, has_targets, weight, perm]
     return "generic", args, (k, float(k), variant == "dh_job",
                              variant == "dh_tg", variant == "spread_alg")
@@ -6479,9 +6520,9 @@ def tie_perm_bound(n: int):
 
 
 # B11' sizes: one round at 1,024, two from 16,384 on; above 16,384 its
-# buffers are in a global scratch (no path runs it there: B11 refuses)
+# buffers are in a global scratch (the big_cluster path's N_pad 32,768)
 PERM_SIZES = (1024, N_PAD, 32768, 65536)
-PERM_TIMED = (N_PAD, 65536)
+PERM_TIMED = (N_PAD, 32768, 65536)
 # the second round of permutation(113, 16,384) draws two pairs of equal
 # words (tests/test_torch_perm_radix.py): a sort that is not stable fails
 COLLIDING_SEED = 113
@@ -7654,8 +7695,6 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint,
     from nomad_tpu_torch.tensor import batch_solver as bs
     from nomad_tpu_torch.tensor import sharding as sh
     from nomad_tpu_torch.tensor.kernels import solve_bulk_multi
-    from nomad_tpu_torch.tensor.prng import jitter_fold
-    from nomad_tpu_torch.tensor.scatter import scatter_add_ref
 
     torch.cuda.synchronize()
     mean = statistics.fmean
@@ -7697,7 +7736,6 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint,
         rec["bulk"].append((ms, plain, bound(*b13_work(
             n, g, cidx.shape[0], mesh.size, rounds,
             min(kw.get("top_r", 64), n // mesh.size))), b1, rounds))
-    his, eps = bs._jitter_his(), bs._price_eps()
     for i, (mesh, args, kw, _) in enumerate(joint):
         g = kw["g"]
         got = sh.solve_batch_sharded(mesh, *clone_parts(args), **kw)
@@ -7730,27 +7768,9 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint,
         one_ms = cuda_time_ms(torch, lambda u: bs.solve_batch(
             u, *full[1:], ask, k, tgc, seeds, cidx, cdelta, g=g),
             setup=full[0].clone, reps=5)
-        # the whole launch's work, each input read and each output written
-        # once: the greedy arm's (B13's work, its pools among it), the
-        # restarts' rounds and gathered pools, their fold_in draws, the
-        # arm scores and the pick, the info row and the gather count
-        folded = scatter_add_ref(full[0].clone(), cidx, cdelta).clamp_min(0.0)
-        ev_kw = {key: sh.gather_rows(kw[key]) for key in ("evict", "net_prio")
-                 if kw.get(key) is not None}
-        a_ops, run, _ = auction_ops(torch, folded, full[1], full[2], full[3],
-                                 ask, k, jitter_fold(seeds, n, his), eps,
-                                 kw.get("rounds", 64), **ev_kw)
-        greedy_rounds = int(got[3]) - sum(run) - len(run) - 1
-        n_bytes, ops = b13_work(n, g, cidx.shape[0], mesh.size,
-                                greedy_rounds,
-                                min(kw.get("top_r", 64), n // mesh.size))
-        n_bytes += (pool_bytes(mesh.size, sum(run),
-                               g * min(16, n // mesh.size)) + 28
-                    + (n * 20 if ev_kw else 0))
-        ops += (a_ops + len(his) * g * (n + 1) * 120
-                + (len(eps) + 1) * n * (g + 60))
-        rec["joint"].append((ms, plain, bound(n_bytes, ops), one_ms,
-                             int(got[3])))
+        rec["joint"].append((ms, plain, joint_bound(
+            torch, mesh, full, args[4:], kw, int(got[3])), one_ms,
+            int(got[3])))
     n_b, n_j = len(bulk), len(joint)
 
     def plain_mean(key):
@@ -7791,6 +7811,37 @@ def phase_sharded_replay(torch, card, bulk, joint, wall_bulk, wall_joint,
                     "library_ms": None,
                     "single_ms": mean(r[3] for r in v)})
     return out
+
+
+def joint_bound(torch, mesh, full, rep, kw, gathers):
+    """Least time of one B14 launch on these inputs (``full`` the gathered
+    used, avail, feas and aff; ``rep`` the replicated ask, k, seeds, cidx
+    and cdelta): the whole launch's work, each input read and each output
+    written once: the greedy arm's (B13's work, its pools among it), the
+    restarts' rounds and gathered pools, their fold_in draws, the arm
+    scores and the pick, the info row and the gather count."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.prng import jitter_fold
+    from nomad_tpu_torch.tensor.scatter import scatter_add_ref
+
+    his, eps = bs._jitter_his(), bs._price_eps()
+    ask, k, seeds, cidx, cdelta = rep
+    n, g = full[0].shape[0], ask.shape[0]
+    folded = scatter_add_ref(full[0].clone(), cidx, cdelta).clamp_min(0.0)
+    ev_kw = {key: sh.gather_rows(kw[key]) for key in ("evict", "net_prio")
+             if kw.get(key) is not None}
+    a_ops, run, _ = auction_ops(torch, folded, full[1], full[2], full[3],
+                                ask, k, jitter_fold(seeds, n, his), eps,
+                                kw.get("rounds", 64), **ev_kw)
+    greedy_rounds = gathers - sum(run) - len(run) - 1
+    n_bytes, ops = b13_work(n, g, cidx.shape[0], mesh.size, greedy_rounds,
+                            min(kw.get("top_r", 64), n // mesh.size))
+    n_bytes += (pool_bytes(mesh.size, sum(run), g * min(16, n // mesh.size))
+                + 28 + (n * 20 if ev_kw else 0))
+    ops += (a_ops + len(his) * g * (n + 1) * 120
+            + (len(eps) + 1) * n * (g + 60))
+    return bound(n_bytes, ops)
 
 
 def phase_b15_replay(torch, card, bulk):
@@ -8135,6 +8186,635 @@ def phase_entry(torch, card):
     return counts["launches"], err
 
 
+# the kernel-alone widths above the one-CTA kernels' old ceilings: a
+# 20,000-node cluster's N_pad, and the one-card ceiling (ROADMAP A11d)
+WIDE_PADS = (32768, 65536)
+
+
+def stride_inputs(torch, dev, rng, n_pad: int):
+    """solve_inputs' "main" at ``n_pad`` with every node full but those of
+    two B5 scan threads (node i mod 1,024 in {5, 600}: each thread scores
+    n_pad / 1,024 nodes of a row, all of which fit, so it turns keys away
+    that beat the rest of its lane and set the lane's floor) and one in a
+    thousand others; the demand takes rounds and rescans of them."""
+    t = solve_inputs(torch, dev, rng, "main", n_pad=n_pad)
+    n_nodes, _ = wide_capacity(n_pad)
+    node = np.arange(n_pad)
+    open_nodes = ((np.isin(node % 1024, (5, 600)) | (rng.random(n_pad)
+                                                      < 0.001))
+                  & (node < n_nodes))
+    avail = t["avail"].cpu().numpy()
+    used = avail.copy()
+    used[:, 3] = 0.0
+    used[open_nodes, :3] = np.floor(avail[open_nodes, :3] * 0.6)
+    t["used"] = torch.tensor(used, device=dev)
+    t["k"] = torch.full_like(t["k"], 300)
+    t["tgc"] = t["k"].float()
+    return t
+
+
+def phase_wide_kernels(torch, dev, card, rng):
+    """B11, B5 (with the pick and solve_batch), B13 and B14 above 16,384
+    nodes, each exact against its plain version at WIDE_PADS (``--wide``
+    runs this phase alone): B11 on "main" (fused, k 40,000), "spreads"
+    and "spread_alg" (generic), its keys and caps in the global scratch,
+    each step's level by threshold_radix; B5 on "main" and "stride", a
+    scan thread over 32 or 64 nodes of a row; B13 at S = 1 (n_loc up to
+    65,536) and S = 2 on B1's hazards and at top_r 8 on one alloc a node,
+    each round's pool selected from the scratch, against single-device B1
+    too; B14 at S = 1 and S = 2 (the pick over 65,536 nodes in chunks),
+    against single-device solve_batch too. Each timed beside its plain
+    version on "main". Returns {kernel name: {n_pad: record}}."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.kernels import bulk_fill
+    from nomad_tpu_torch.tensor.prng import jitter_fold_ref
+
+    eps, his = bs._price_eps(), bs._jitter_his()
+    out = {"bulk_scan": {}, "auction": {}, "bulk_shard": {},
+           "joint_shard": {}}
+    notes = []
+    for n_pad in WIDE_PADS:
+        # B11
+        for variant in ("main", "spreads", "spread_alg"):
+            form, host, scalars = b11_inputs(rng, variant, n_pad)
+            got = b11_call(torch, dev, form, host, scalars)
+            want = b11_call(torch, dev, form, host, scalars, plain=True)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"B11 {variant} at N_pad {n_pad}: counts differ from "
+                    f"the plain version on {int((got != want).sum())} nodes")
+            placed = int(got.sum())
+            if variant != "spread_alg" and placed != scalars[0]:
+                raise AssertionError(f"B11 {variant} at N_pad {n_pad}: "
+                                     f"placed {placed} of {scalars[0]}")
+            notes.append(f"B11 {variant} N_pad {n_pad}: {placed} on "
+                         f"{int((got > 0).sum())} nodes")
+            if variant == "main":
+                run = b11_runner(torch, dev, form, host, scalars)
+                plain = b11_runner(torch, dev, form, host, scalars, True)
+                ms = cuda_time_ms(torch, lambda _: run(), reps=5)
+                steps = -(-placed // 256)
+                b_ms, b_by = b11_bound(n_pad, 4, int(host[1].sum()),
+                                       got.cpu().numpy())
+                out["bulk_scan"][str(n_pad)] = {
+                    "ms": ms, "ms_per_step": ms / steps,
+                    "plain_ms": cuda_time_ms(torch, lambda _: plain(),
+                                             reps=2, warmup=1),
+                    "bound_ms": b_ms, "bound_by": b_by}
+        # B5, the pick and solve_batch
+        for variant in ("main", "stride"):
+            t = (solve_inputs(torch, dev, rng, "main", n_pad=n_pad)
+                 if variant == "main" else stride_inputs(torch, dev, rng,
+                                                         n_pad))
+            jits = jitter_fold_ref(t["seeds"], n_pad, his)
+            a_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"])
+            scans = torch.zeros(len(eps), dtype=torch.int32, device=dev)
+            got = bs.auction(t["used"], *a_args, t["seeds"], his=his,
+                             price_eps=eps, scans=scans)
+            check_auction(torch, bs, got, t["used"], a_args, jits, eps,
+                          f"{variant} at N_pad {n_pad}")
+            used_g = torch.clamp_min(t["used"], 0.0)
+            counts_g = bulk_fill(used_g, *a_args, t["seeds"])
+            p_args = (t["avail"], *got, used_g, counts_g)
+            check_pick(torch, bs, bs.batch_pick(*p_args), p_args,
+                       f"{variant} at N_pad {n_pad}")
+            s_args = (t["avail"], t["feas"], t["aff"], t["ask"], t["k"],
+                      t["tgc"], t["seeds"], t["cidx"], t["cdelta"])
+            s_got = bs.solve_batch(t["used"].clone(), *s_args, g=G)
+            s_want = bs.solve_batch_ref(t["used"].clone(), *s_args, g=G)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("used", "counts", "info"), s_got,
+                                  s_want):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"B6 solve_batch {variant} at N_pad "
+                                         f"{n_pad}: {name} differs")
+            notes.append(f"B5 {variant} N_pad {n_pad}: rounds "
+                         f"{got[2].tolist()}, scans {scans.tolist()}, "
+                         f"placed {int(got[1][0].sum())}")
+            if variant == "main":
+                ms = cuda_time_ms(torch, lambda _: bs.auction(
+                    t["used"], *a_args, t["seeds"], his=his, price_eps=eps),
+                    reps=5)
+                plain = cuda_time_ms(torch, lambda _: bs.auction_restarts_ref(
+                    t["used"], *a_args, jits, price_eps=eps), reps=1,
+                    warmup=1)
+                (b_ms, b_by), rounds, _ = auction_bound(
+                    torch, t["used"], *a_args, jits, eps)
+                out["auction"][str(n_pad)] = {
+                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "rounds": rounds}
+                joint_t = t
+        # B13 at S = 1 and 2; the first checked timed at S = 1
+        t1 = wide_fill_inputs(torch, dev, rng, n_pad)
+        tight = cfg7_inputs(torch, dev, tight=True)
+        tight = padded(torch, tight, n_pad)
+        for s_n in (1, 2):
+            mesh = mesh_of(s_n)
+            rounds = check_b13(torch, mesh, t1, 64, f"N_pad {n_pad} S={s_n}")
+            rt = check_b13(torch, mesh, tight, 8,
+                           f"top_r 8 N_pad {n_pad} S={s_n}")
+            notes.append(f"B13 N_pad {n_pad} S {s_n}: rounds {sum(rounds)}, "
+                         f"top_r 8 {max(rt)} the most an eval")
+            if s_n == 1:
+                rep = (t1["ask"], t1["k"], t1["seeds"], t1["cidx"],
+                       t1["cdelta"])
+                ms = cuda_time_ms(
+                    torch, lambda a: sh.solve_bulk_multi_sharded(
+                        mesh, *a, *rep, g=G),
+                    setup=lambda: shard_args(mesh, t1)[0], reps=5)
+                plain = cuda_time_ms(
+                    torch, lambda a: sh.solve_bulk_multi_sharded_ref(
+                        mesh, *a, *rep, g=G),
+                    setup=lambda: shard_args(mesh, t1)[0], reps=2, warmup=1)
+                b_ms, b_by = bound(*b13_work(n_pad, G, 64, 1, sum(rounds),
+                                             64))
+                out["bulk_shard"][str(n_pad)] = {
+                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "rounds": sum(rounds), "shards": 1}
+        # B14 on B5's "main" inputs at S = 1 (n_loc up to 65,536) and 2
+        t = joint_t
+        rep = (t["ask"], t["k"], t["seeds"], t["cidx"], t["cdelta"])
+        one = bs.solve_batch(t["used"].clone(), t["avail"], t["feas"],
+                             t["aff"], t["ask"], t["k"], t["tgc"], t["seeds"],
+                             t["cidx"], t["cdelta"], g=G)
+        for s_n in (1, 2):
+            mesh = mesh_of(s_n)
+            args, _ = shard_args(mesh, t)
+            got = one_launch_a_card(
+                mesh, "joint_shard", f"B14 N_pad {n_pad} S={s_n}",
+                lambda: sh.solve_batch_sharded(mesh, *args, *rep, g=G))
+            args, _ = shard_args(mesh, t)
+            want = sh.solve_batch_sharded_ref(mesh, *args, *rep, g=G)
+            torch.cuda.synchronize()
+            gu, gc = sh.gather_rows(got[0]), sh.gather_rows(got[1], dim=1)
+            for name, x, y in (
+                    ("used", gu, sh.gather_rows(want[0])),
+                    ("counts", gc, sh.gather_rows(want[1], dim=1)),
+                    ("info", got[2], want[2]), ("gathers", got[3], want[3])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"B14 N_pad {n_pad} S={s_n}: {name} "
+                                         f"differs from the plain version")
+            if not (torch.equal(gc, one[1]) and torch.equal(gu, one[0])
+                    and torch.equal(got[2][2:], one[2][2:])):
+                raise AssertionError(f"B14 N_pad {n_pad} S={s_n}: differs "
+                                     f"from single-device solve_batch")
+            notes.append(f"B14 N_pad {n_pad} S {s_n}: gathers "
+                         f"{int(got[3])}")
+            if s_n == 2:
+                ms = cuda_time_ms(torch, lambda a: sh.solve_batch_sharded(
+                    mesh, *a, *rep, g=G),
+                    setup=lambda: shard_args(mesh, t)[0], reps=3)
+                plain = cuda_time_ms(
+                    torch, lambda a: sh.solve_batch_sharded_ref(
+                        mesh, *a, *rep, g=G),
+                    setup=lambda: shard_args(mesh, t)[0], reps=1, warmup=1)
+                full = [t["used"], t["avail"], t["feas"], t["aff"]]
+                b_ms, b_by = joint_bound(torch, mesh, full, rep, {},
+                                         int(got[3]))
+                out["joint_shard"][str(n_pad)] = {
+                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "shards": 2}
+    print(f"wide        [{card}] exact against the plain versions at N_pad "
+          f"{WIDE_PADS}: " + "; ".join(notes))
+    for name, by_n in out.items():
+        print(f"wide        [{card}] {name}: " + "; ".join(
+            f"N_pad {n}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+            for n, r in by_n.items()))
+    return out
+
+
+# the big_cluster phase: a 20,000-node cluster (N_pad 32,768) through the
+# port's Server on every device path of the wide kernels (ROADMAP A11b)
+BIG_NODES = 20000
+BIG_JOBS = 16            # steps 1 and 5: batch jobs x K
+BIG_LARGE_JOBS = 2       # step 2: groups of LARGE_K (B11' then B11)
+# step 3: the reader group. Each CSI claim a plan commits copies the
+# volume's claim map (the reference's store does the same), so a group's
+# claims cost O(k^2) on the host: 40,000 readers took 156 s to commit on
+# the CPU (the plan apply timed out at the default nack timeout)
+BIG_READER_K = 4000
+BIG_SVC_K = 512          # step 4: a service group with a spread (B9)
+BIG_SHARDS = (1, 2)      # step 6: the node-sharded service on one card
+BIG_MESH_JOBS = 8        # step 6: jobs a mesh path
+BIG_PARITY_SOLVE = 2     # the tpu-solve wave held card == CPU
+
+
+def big_jobs(mock, n, k, tag, asks=((50, 32),)):
+    """n batch jobs of k allocs, the asks in turn, ids pinned by tag."""
+    jobs = []
+    for i in range(n):
+        cpu, mem = asks[i % len(asks)]
+        j = mock.service_job(k, cpu=cpu, mem=mem, batch=True)
+        j.id = j.name = f"{tag}-{i}"
+        jobs.append(j)
+    return jobs
+
+
+def big_mesh_path(torch, shards, n_nodes, n_jobs, k, device="cuda"):
+    """Step 6: the C2M and tpu-solve jobs through Harness("cuda") with a
+    fresh service on an explicit mesh of ``shards`` shards of one card (a
+    one-shard mesh too: the sharded kernels at n_loc = N_pad), each
+    launch's inputs copied (capture_into). Returns (the launch counts,
+    the copied B13 and B14 launches, the service's stats)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import solver
+    from nomad_tpu_torch.tensor.solver import batch_member, open_batch
+    from nomad_tpu_torch.testing import Harness
+
+    from nomad_tpu_torch.tensor.sharding import NodeMesh
+
+    if device == "cpu":
+        dev, mesh = torch.device("cpu"), NodeMesh(["cpu"] * shards)
+    else:
+        dev, mesh = (torch.device("cuda", torch.cuda.current_device()),
+                     mesh_of(shards))
+    svc = solver.BulkSolverService(dev, mesh=mesh)
+    key = str(dev)
+    old = solver._services.get(key)
+    solver._services[key] = svc
+    bulk, joint = [], []
+    real_b, real_j = (solver.solve_bulk_multi_sharded,
+                      solver.solve_batch_sharded)
+    h = Harness(device=device)
+    mock.build_nodes(h.store, n_nodes, seed=0)
+    c2m = big_jobs(mock, n_jobs, k, f"mesh{shards}-c2m")
+    solve = big_jobs(mock, n_jobs, k, f"mesh{shards}-solve", SOLVE_ASKS)
+    for j in c2m + solve:
+        h.store.upsert_job(j)
+    tpu_b = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+    tpu_s = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_SOLVE)
+
+    def member(ctx, ev):
+        with batch_member(ctx):
+            h.process(ev, tpu_s)
+
+    try:
+        solver.solve_bulk_multi_sharded = capture_into(torch, bulk, real_b)
+        solver.solve_batch_sharded = capture_into(torch, joint, real_j)
+        _ext.COUNTS.reset()
+        with ThreadPoolExecutor(THREADS) as pool:
+            for f in [pool.submit(h.process, mock.eval_for(j), tpu_b)
+                      for j in c2m]:
+                f.result()
+        with ThreadPoolExecutor(MINI_BATCH) as pool:
+            evals = [mock.eval_for(j) for j in solve]
+            for b in range(0, len(evals), MINI_BATCH):
+                batch = evals[b:b + MINI_BATCH]
+                ctx = open_batch(len(batch))
+                for f in [pool.submit(member, ctx, ev) for ev in batch]:
+                    f.result()
+        counts = _ext.COUNTS.snapshot()
+    finally:
+        solver.solve_bulk_multi_sharded = real_b
+        solver.solve_batch_sharded = real_j
+        svc.stop()
+        if old is None:
+            solver._services.pop(key, None)
+        else:
+            solver._services[key] = old
+    path_gates(h, c2m + solve, 2 * n_jobs * k,
+               f"big_cluster mesh S={shards}")
+    return counts, bulk, joint, dict(svc.stats)
+
+
+def big_replay(torch, what, b1, b11f, b11g, b9, b56, bulk, joint):
+    """Every captured launch of the big cluster's paths against its plain
+    version on the card: B1 (counts and carry), the fused scan (B11' and
+    B11) and the generic scan (B11), B9 (choices exact, scores within
+    SCORE_TOL), solve_batch (B5, the pick, B1 and B4's fold inside it),
+    B13 and B14 (with B15's fold). Each must also equal the path's own
+    output. Returns the replay counts and the largest B9 score error."""
+    from nomad_tpu_torch.tensor import batch_solver as bs
+    from nomad_tpu_torch.tensor import kernels
+    from nomad_tpu_torch.tensor import sharding as sh
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+
+    for i, (before, args, g, used, cnt) in enumerate(b1):
+        u1, c1 = solve_bulk_multi(before.clone(), *args, g=g)
+        u2, c2 = solve_bulk_multi_ref(before.clone(), *args, g=g)
+        if not (torch.equal(u1, u2) and torch.equal(c1, c2)
+                and torch.equal(u1, used) and torch.equal(c1, cnt)):
+            raise AssertionError(f"{what}: B1 launch {i} differs from its "
+                                 f"plain version or the path's output")
+    for form, calls, fn, ref in (
+            ("fused", b11f, kernels.solve_bulk_fused,
+             kernels.solve_bulk_fused_ref),
+            ("generic", b11g, kernels.solve_bulk, kernels.solve_bulk_ref)):
+        for i, (args, kw, out) in enumerate(calls):
+            got, want = fn(*args, **kw), ref(*args, **kw)
+            if not (torch.equal(got, want) and torch.equal(got, out)):
+                raise AssertionError(f"{what}: {form} bulk scan {i} differs "
+                                     f"from its plain version or the path")
+    err = 0.0
+    for i, (packed, out) in enumerate(b9):
+        got = kernels.solve_task_group_fused(*packed)
+        want = kernels.solve_task_group_fused_ref(*packed)
+        if not (torch.equal(got[:2], want[:2]) and torch.equal(got, out)):
+            raise AssertionError(f"{what}: B9 launch {i} differs from its "
+                                 f"plain version or the path's output")
+        err = max(err, score_err(got[2], want[2], f"{what} B9 {i}"))
+    for i, (args, kw) in enumerate(b56):
+        got = bs.solve_batch(args[0].clone(), *args[1:], **kw)
+        want = bs.solve_batch_ref(args[0].clone(), *args[1:], **kw)
+        for name, x, y in zip(("used", "counts", "info"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: joint launch {i}: "
+                                     f"solve_batch {name} differs from the "
+                                     f"plain version")
+    for kind, calls, fn, ref in (
+            ("B13", bulk, sh.solve_bulk_multi_sharded,
+             sh.solve_bulk_multi_sharded_ref),
+            ("B14", joint, sh.solve_batch_sharded,
+             sh.solve_batch_sharded_ref)):
+        for i, (mesh, args, kw, out) in enumerate(calls):
+            got = fn(mesh, *clone_parts(args), **kw)
+            want = ref(mesh, *clone_parts(args), **kw)
+            pairs = [(sh.gather_rows(got[0]), sh.gather_rows(want[0])),
+                     (sh.gather_rows(got[1], dim=1),
+                      sh.gather_rows(want[1], dim=1)),
+                     (got[2], want[2]),
+                     (sh.gather_rows(out[1], dim=1),
+                      sh.gather_rows(got[1], dim=1))]
+            if kind == "B14":
+                pairs.append((got[3], want[3]))
+            if max_diff(pairs):
+                raise AssertionError(f"{what}: {kind} launch {i} (S "
+                                     f"{mesh.size}) differs from its plain "
+                                     f"version or the path's output")
+    torch.cuda.synchronize()
+    return {"bulk_fill": len(b1), "bulk_scan_fused": len(b11f),
+            "bulk_scan_generic": len(b11g), "solve_task_group": len(b9),
+            "solve_batch": len(b56), "bulk_shard": len(bulk),
+            "joint_shard": len(joint)}, err
+
+
+def big_parity(card, n_nodes, large_k, k):
+    """Job 0 of step 2 (one group of ``large_k``) and a tpu-solve wave of
+    BIG_PARITY_SOLVE jobs x ``k`` through Harness on the card and on the
+    CPU, each on a fresh store of the same nodes with pinned ids: the
+    same per-node counts (fingerprint)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor.solver import get_service
+    from nomad_tpu_torch.testing import Harness
+
+    prints, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        for alg, jobs in (
+                (enums.SCHED_ALG_TPU_BINPACK,
+                 big_jobs(mock, 1, large_k, "parity-large")),
+                (enums.SCHED_ALG_TPU_SOLVE,
+                 big_jobs(mock, BIG_PARITY_SOLVE, k, "parity-solve",
+                          SOLVE_ASKS))):
+            h = Harness(device=device)
+            mock.build_nodes(h.store, n_nodes, seed=0)
+            cfg = SchedulerConfiguration(scheduler_algorithm=alg)
+            t0 = time.perf_counter()
+            for i, j in enumerate(jobs):
+                h.store.upsert_job(j)
+                h.process(mock.eval_for(j, id=f"{j.id}-ev-{i}"), cfg)
+            walls[(device, alg)] = time.perf_counter() - t0
+            prints[(device, alg)] = fingerprint(h, jobs)
+            get_service(device).stop()
+    for alg in (enums.SCHED_ALG_TPU_BINPACK, enums.SCHED_ALG_TPU_SOLVE):
+        if prints[("cuda", alg)] != prints[("cpu", alg)]:
+            raise AssertionError(f"big_cluster: card and CPU placements "
+                                 f"differ under {alg}")
+    print(f"parity      card == CPU at {n_nodes} nodes on one {large_k}-alloc "
+          f"group (fused scan) and {BIG_PARITY_SOLVE} tpu-solve jobs x {k} "
+          f"(the CPU's plain versions {walls[('cpu', 'tpu-binpack')]:.2f} / "
+          f"{walls[('cpu', 'tpu-solve')]:.2f} s)")
+
+
+def phase_big_cluster(torch, card, device="cuda", n_nodes=BIG_NODES,
+                      n_jobs=BIG_JOBS, k=K, large_k=LARGE_K,
+                      n_large=BIG_LARGE_JOBS, reader_k=BIG_READER_K,
+                      svc_k=BIG_SVC_K,
+                      workers=SERVER_WORKERS, mesh_jobs=BIG_MESH_JOBS,
+                      shards=BIG_SHARDS, parity=True):
+    """A 20,000-node cluster (N_pad 32,768) through the port's Server
+    (``--big-cluster`` runs it alone): 1. ``n_jobs`` batch jobs x ``k``
+    under "tpu-binpack" (B1); 2. ``n_large`` groups of ``large_k`` (one
+    solve_bulk_fused each: B11' then B11); 3. one group of ``reader_k``
+    reading a multi-node-reader CSI volume, its mask per eval (the
+    generic solve_bulk: B11 with the eval's permutation); 4. a service
+    group of ``svc_k`` with a rack spread (B9); 5. ``n_jobs`` batch jobs
+    x ``k`` under "tpu-solve" (B5 and the pick, B1 and B4 inside
+    solve_batch); then 6. the node-sharded service with an explicit mesh
+    of each of ``shards`` on one card, C2M and tpu-solve jobs (B13, B14,
+    B15). Gates: placed equals asked for every job, no node over
+    capacity, every captured launch of B1, B11, B11', B9, B5 and the pick
+    (in solve_batch), B13, B14 and B15 exact against its plain version,
+    no plain version on CUDA, every kernel of the path launched; then
+    card == CPU on job 0 of step 2 and a tpu-solve wave (big_parity).
+    Returns (the launch counts of the run, its record)."""
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import Spread, Volume, VolumeRequest
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import placer, solver
+
+    what = "big_cluster"
+    t_phase = time.perf_counter()
+    tpu_b = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK)
+    tpu_s = SchedulerConfiguration(
+        scheduler_algorithm=enums.SCHED_ALG_TPU_SOLVE)
+    srv = Server(ServerConfig(
+        num_workers=workers, eval_batch_size=1, device=device,
+        sched_config=tpu_b, nack_timeout=900.0,
+        failed_eval_followup_delay=3600.0, failed_eval_unblock_interval=0.5,
+        **BENCH_SAFE))
+    svc = solver.get_service(srv.device)
+    nodes = _Nodes()
+    mock.build_nodes(nodes, n_nodes, seed=0)
+    b1, b11f, b11g, b9, b56 = [], [], [], [], []
+    real = (solver.solve_bulk_multi, placer.solve_bulk_fused,
+            placer.solve_bulk, placer.solve_task_group_fused,
+            solver.solve_batch)
+
+    def cap_b1(used, *args, g):
+        before, keep = used.clone(), [a.clone() for a in args]
+        out = real[0](used, *args, g=g)
+        b1.append((before, keep, g, out[0].clone(), out[1].clone()))
+        return out
+
+    def cap_scan(into, fn):
+        def run(*args, **kw):
+            keep = [a.clone() if torch.is_tensor(a) else a for a in args]
+            out = fn(*args, **kw)
+            into.append((keep, dict(kw), out.clone()))
+            return out
+        return run
+
+    def cap_b9(*packed):
+        keep = [t.clone() for t in packed]
+        out = real[3](*packed)
+        b9.append((keep, out.clone()))
+        return out
+
+    def cap_b56(*args, **kw):
+        b56.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                    dict(kw)))
+        return real[4](*args, **kw)
+
+    steps = {}
+    large = big_jobs(mock, n_large, large_k, "big-large")
+    reader = big_jobs(mock, 1, reader_k, "big-reader")[0]
+    reader.task_groups[0].volumes = {"shared": VolumeRequest(
+        name="shared", type="csi", source="big-shared", read_only=True,
+        access_mode="multi-node-reader-only")}
+    spread = mock.service_job(svc_k, cpu=100, mem=64, spreads=[
+        Spread(attribute="${attr.rack}", weight=50)])
+    spread.id = spread.name = "big-spread"
+    plan = (("1 tpu-binpack", tpu_b, big_jobs(mock, n_jobs, k, "big-c2m")),
+            ("2 large groups", tpu_b, large),
+            ("3 reader group", tpu_b, [reader]),
+            ("4 spread group", tpu_b, [spread]),
+            ("5 tpu-solve", tpu_s, big_jobs(mock, n_jobs, k, "big-solve",
+                                           SOLVE_ASKS)))
+    try:
+        srv.start()
+        t0 = time.perf_counter()
+        srv.register_nodes(nodes)
+        nodes_s = time.perf_counter() - t0
+        srv.register_volume(Volume(id="big-shared", name="big-shared",
+                                   access_mode="multi-node-reader-only"))
+        solver.solve_bulk_multi = cap_b1
+        placer.solve_bulk_fused = cap_scan(b11f, real[1])
+        placer.solve_bulk = cap_scan(b11g, real[2])
+        placer.solve_task_group_fused = cap_b9
+        solver.solve_batch = cap_b56
+        _ext.COUNTS.reset()
+        for name, cfg, jobs in plan:
+            srv.set_scheduler_config(cfg)
+            t0 = time.perf_counter()
+            for j in jobs:
+                srv.register_job(j)
+            _drain(srv, f"{what} step {name}")
+            steps[name] = {"jobs": len(jobs), "wall_s":
+                           time.perf_counter() - t0}
+        counts = _ext.COUNTS.snapshot()
+        applier = dict(srv.plan_applier.stats)
+    finally:
+        (solver.solve_bulk_multi, placer.solve_bulk_fused, placer.solve_bulk,
+         placer.solve_task_group_fused, solver.solve_batch) = real
+        srv.stop()
+        svc.stop()
+    fails = []
+    snap = srv.store.snapshot()
+    try:
+        for _, _, jobs in plan:
+            for j in jobs:
+                live = sum(1 for a in snap.allocs_by_job(j.id)
+                           if not a.terminal_status())
+                if live != j.task_groups[0].count:
+                    fails.append(f"{j.id} placed {live} of "
+                                 f"{j.task_groups[0].count}")
+        statuses = Counter(e.status for e in snap.evals())
+    finally:
+        snap.close()
+    over = _over_capacity(srv.store)
+    if over:
+        fails.append(f"{over} nodes over capacity")
+    launched = dict(counts["launches"])
+    if any(counts["plain_on_cuda"].values()):
+        fails.append(f"plain versions ran on CUDA: {counts['plain_on_cuda']}")
+    need = ("bulk_fill", "bulk_scan", "tie_perm", "solve_task_group",
+            "auction", "batch_pick", "scatter_add")
+    if device != "cpu":
+        fails += [f"{n} never launched" for n in need if not launched.get(n)]
+        # an eval whose plan the applier rejects in part runs again
+        if (len(b11f) < n_large or len(b11g) < 1
+                or launched.get("tie_perm") != len(b11f)
+                or launched.get("bulk_scan") != len(b11f) + len(b11g)):
+            fails.append(f"bulk scans: fused {len(b11f)}, generic "
+                         f"{len(b11g)}, launched B11 "
+                         f"{launched.get('bulk_scan')}, B11' "
+                         f"{launched.get('tie_perm')}")
+        if (len(b56) != launched["auction"]
+                or len(b1) != launched["bulk_fill"] - launched["auction"]
+                or len(b9) != launched["solve_task_group"]):
+            fails.append(f"captured B1 {len(b1)}, joint {len(b56)}, B9 "
+                         f"{len(b9)} of {launched}")
+    if fails:
+        raise AssertionError(f"{what}: " + "; ".join(fails))
+    print(f"{what:<11} [{card}] {n_nodes} nodes (N_pad "
+          f"{1 << (n_nodes - 1).bit_length()}) through register_nodes in "
+          f"{nodes_s:.2f} s, {workers} workers; steps "
+          + "; ".join(f"{n} {v['jobs']} job(s) {v['wall_s']:.3f} s"
+                      for n, v in steps.items())
+          + f"; every job placed, 0 nodes over capacity; evals "
+          f"{dict(statuses)}; the applier rejected "
+          f"{applier['nodes_rejected']} nodes ({applier['partial_commits']} "
+          f"partial commits); launches {launched}")
+    # 6. the node-sharded service on one card
+    mesh = {}
+    bulk, joint = [], []
+    for s_n in shards:
+        m_counts, m_bulk, m_joint, stats = big_mesh_path(
+            torch, s_n, n_nodes, mesh_jobs, k, device)
+        m_l = m_counts["launches"]
+        if any(m_counts["plain_on_cuda"].values()):
+            raise AssertionError(f"{what} mesh S={s_n}: plain versions ran "
+                                 f"on CUDA: {m_counts['plain_on_cuda']}")
+        if device != "cpu" and not (m_l["bulk_shard"] == len(m_bulk) >= 1
+                                    and m_l["joint_shard"] == len(m_joint)
+                                    >= 1 and m_l["scatter_shard"] >= 1):
+            raise AssertionError(f"{what} mesh S={s_n}: launches {m_l}, "
+                                 f"copied B13 {len(m_bulk)}, B14 "
+                                 f"{len(m_joint)}")
+        for name, v in m_l.items():
+            launched[name] = launched.get(name, 0) + v
+        mesh[str(s_n)] = {"launches": {n: v for n, v in m_l.items() if v},
+                          "allgathers": stats["allgathers"]}
+        bulk += m_bulk
+        joint += m_joint
+    replays, err = big_replay(torch, what, b1, b11f, b11g, b9, b56, bulk,
+                              joint)
+    print(f"{what:<11} [{card}] mesh on one card at S {shards} "
+          f"({mesh_jobs} C2M and {mesh_jobs} tpu-solve jobs x {k} each): "
+          f"{mesh}; replays exact: {replays} (B9 scores within {SCORE_TOL}, "
+          f"max {err:.3g})")
+    if parity:
+        big_parity(card, n_nodes, large_k, k)
+    rec = {"nodes": n_nodes, "n_pad": 1 << (n_nodes - 1).bit_length(),
+           "steps": steps, "register_nodes_s": nodes_s,
+           "nodes_rejected": applier["nodes_rejected"],
+           "partial_commits": applier["partial_commits"],
+           "evals": dict(statuses), "mesh": mesh, "replays": replays,
+           "b9_max_score_err": err,
+           "launches": {n: v for n, v in launched.items() if v},
+           "phase_wall_s": time.perf_counter() - t_phase, "card": card}
+    return launched, rec
+
+
+def big_only(torch, card) -> int:
+    """``--big-cluster``: the build, then phase_big_cluster alone."""
+    _, rec = phase_big_cluster(torch, card)
+    print(json.dumps({"big_cluster": rec}))
+    print(card)
+    return 0
+
+
+def wide_only(torch, dev, card, rng) -> int:
+    """``--wide``: the build, then phase_wide_kernels alone."""
+    out = phase_wide_kernels(torch, dev, card, rng)
+    print(json.dumps({"wide": out}))
+    print(card)
+    return 0
+
+
 def sharded_only(torch, dev, card, rng) -> int:
     """``--sharded``: phases 21 (the sharded kernels), 25 and 26 alone, on
     meshes over every visible card; prints B16's record and the
@@ -8385,6 +9065,10 @@ def main() -> int:
         return replicated_only(torch, card)
     if sys.argv[1:] == ["--http"]:
         return http_only(torch, card)
+    if sys.argv[1:] == ["--wide"]:
+        return wide_only(torch, dev, card, rng)
+    if sys.argv[1:] == ["--big-cluster"]:
+        return big_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -8473,6 +9157,8 @@ def main() -> int:
     b16["launches"] = launches["task_group_shard"]
     b16["max_abs_err"] = max(b16["max_abs_err"], err)
     sharded.append(b16)
+    wide = phase_wide_kernels(torch, dev, card, rng)
+    big_launches, server["big_cluster"] = phase_big_cluster(torch, card)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -8480,11 +9166,16 @@ def main() -> int:
     kernels = bulk + per_eval + joint + preempt + large + sharded
     for k in kernels:
         k["route"] = "cuda"
+        if k["name"] in wide:
+            k["wide"] = wide[k["name"]]
+        if k["name"] in big_launches:
+            k["big_cluster_launches"] = big_launches[k["name"]]
     extra = ("device_ms", "library_device_ms", "without_clamp",
              "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
              "by_d", "constraints_launches", "lifecycle_launches",
              "autopilot_launches", "replicated_launches",
-             "penalty_launches", "http_launches")
+             "penalty_launches", "http_launches", "wide",
+             "big_cluster_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

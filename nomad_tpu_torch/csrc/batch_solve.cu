@@ -35,9 +35,12 @@
 // has a current key below the floor; every entry holds its node's current
 // key.
 //   - A scan scores every node of a row with all 1024 threads of a CTA,
-//     each keeping its keys (at most 16) in registers; the 16 threads of a
-//     lane (a half-warp) merge theirs into its list, and the floor goes
-//     just above the best key left out.
+//     each keeping its 16 best keys in registers and the best one it
+//     turned away (above 16,384 nodes a thread sees more than 16 of a
+//     row); the 16 threads of a lane (a half-warp) merge theirs into its
+//     list, and the floor goes just above the best key left out, by the
+//     merge or by a thread. N_pad up to 65,536 (the round's touched
+//     bitmap, a bit a node, in shared memory).
 //   - After a round, each row with demand left drops the nodes the round
 //     touched (usage moved; a price moves only where usage did) from its
 //     lists, rescores them and inserts each key at or above its lane's
@@ -114,10 +117,9 @@ constexpr int kLanes = 64;               // home lanes of a row
 constexpr int kRowsAtOnce = kThreads / kLanes;
 constexpr int kSub = kThreads / kLanes;  // scan threads of a lane
 constexpr int kDepth = nt_topr::kTopR;   // keys a lane's list holds
-// a scan thread scores at most R nodes of a row, so its register list
-// keeps every one (the caller, solve_batch, pads to at most 16,384)
-constexpr int kMaxNodes = kThreads * nt_topr::kTopR;
-constexpr int kTouchedBytes = kMaxNodes / 8;
+// the node ceiling (ROADMAP A11d): a scan thread scores up to 64 nodes of
+// a row and keeps its R best (every one up to 16,384 nodes)
+constexpr int kMaxNodes = 65536;
 // dynamic shared memory a CTA may take beside its ~31 KB of static arrays
 constexpr long long kDynSmem = 176 * 1024;
 // B2 and the preemption score: fit.cuh
@@ -226,6 +228,11 @@ __device__ __forceinline__ uint64_t best_key(float v, int eval) {
 
 __device__ __forceinline__ int home_lane(int i) { return (i >> 4) & 63; }
 
+// the bytes of a round's touched bitmap: a bit a node
+__host__ __device__ __forceinline__ long long touched_bytes(int n) {
+  return 4LL * ((n + 31) / 32);
+}
+
 __device__ __forceinline__ float4 row4(const float* p, int i) {
   return reinterpret_cast<const float4*>(p)[i];
 }
@@ -306,8 +313,10 @@ __device__ __forceinline__ uint64_t warp_max(uint64_t v) {
 
 // rebuild row's lists from a scan of every node, all threads: thread tid
 // scores nodes tid + 1024 j (all of lane tid >> 4: the 16 threads of a lane
-// are one half-warp), keeps them sorted (at most R), and the half-warp
-// merges them
+// are one half-warp), keeps its R best sorted and the best key it turned
+// away (above 16,384 nodes a thread scores more than R), and the half-warp
+// merges them; the floor goes just above the best key left out, by the
+// lane's merge or by a thread
 template <bool kFirst>
 __device__ __forceinline__ void scan_row(const AuctionArgs& a,
                                          const Lists& L, const float* used,
@@ -317,12 +326,19 @@ __device__ __forceinline__ void scan_row(const AuctionArgs& a,
                                          float span) {
   const int tid = threadIdx.x;
   uint64_t lst[kTopR];
+  uint64_t drop = 0;  // the best key this thread turned away
 #pragma unroll
   for (int i = 0; i < kTopR; ++i) lst[i] = 0;
   for (int i = tid; i < a.n; i += kThreads) {
     const uint64_t key =
         pair_key<kFirst>(a, used, price, row, i, a_g, k0, k1, span);
-    if (key != 0) topr_insert(lst, key);
+    if (key != 0) {
+      // a full list lets its smallest go, or the key itself (keys are
+      // unique; a list with room lets nothing go: its last slot is 0)
+      const uint64_t out = key < lst[kTopR - 1] ? key : lst[kTopR - 1];
+      drop = out > drop ? out : drop;
+      topr_insert(lst, key);
+    }
   }
   const int l = tid / kSub;
   uint64_t* dst = L.at(row, 0, l);
@@ -339,7 +355,7 @@ __device__ __forceinline__ void scan_row(const AuctionArgs& a,
       ++c;
     }
   }
-  const uint64_t rest = half_max(lst[0]);
+  const uint64_t rest = half_max(lst[0] > drop ? lst[0] : drop);
   if ((tid & (kSub - 1)) == 0) {
     L.floor(row, l) = rest ? rest + 1 : 0;
     L.count(row, l) = (uint64_t)c;
@@ -919,7 +935,7 @@ extern "C" int nt_auction(const void* used0, const void* avail,
       barrier == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long list_bytes = list_words(g) * 8;
-  const long long rest = (long long)hash_slots(g) * 16 + kTouchedBytes;
+  const long long rest = (long long)hash_slots(g) * 16 + touched_bytes(n);
   const bool smem_lists = list_bytes + rest <= kDynSmem;
   const size_t smem = (size_t)((smem_lists ? list_bytes : 0) + rest);
   cudaError_t err = cudaFuncSetAttribute(

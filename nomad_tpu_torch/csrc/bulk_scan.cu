@@ -53,18 +53,22 @@
 // placement-count carry and the taken counts; the spread value tables live
 // in shared memory and take their updates by integer atomics. Thread t owns
 // the positions t x chunk .. t x chunk + chunk - 1 (chunk = N / 1024 rounded
-// up, at most 16) and keeps each one's order key, desc_key(score)
-// (sort.cuh), and its cap uncapped by the budget (16 bits, two to a word) in
-// registers from step to step. A step clips the caps to the budget, finds
-// the fill's level with select.cuh (threshold_select: a few block-wide
-// reductions, no sort), takes the fill there (threshold_base and take_at:
-// one block scan), and the owner of each position that took updates its
-// node's carry and rescores it (score.cuh's node_terms). With no spread (S
-// == 0, the fused form) nothing else's score moves. With spreads every score
-// moves through the value counts: the owner keeps the node's cached terms
-// (in shared memory, or in the scratch where they do not fit, kShared false)
-// and each step rebuilds the value tables and recomputes every key with
-// cached_score.
+// up) and keeps each one's order key, desc_key(score) (sort.cuh), and its
+// cap uncapped by the budget (16 bits, two to a word) from step to step:
+// in shared memory up to 16,384 positions (chunk <= 16), in the global
+// scratch above (chunk 32 or 64, one kernel instance each, up to 65,536).
+// A step clips the caps to the budget, finds the fill's level with
+// select.cuh (threshold_select up to 16,384: a few block-wide reductions,
+// no sort; threshold_radix above, B1's radix search, whose passes read a
+// thread's positions once each where the bisection would read them once a
+// bit), takes the fill there (threshold_base and take_at: one block scan),
+// and the owner of each position that took updates its node's carry and
+// rescores it (score.cuh's node_terms). With no spread (S == 0, the fused
+// form) nothing else's score moves. With spreads every score moves through
+// the value counts: the owner keeps the node's cached terms (in shared
+// memory, or in the scratch where they do not fit, kShared false; always
+// in the scratch above 16,384) and each step rebuilds the value tables and
+// recomputes every key with cached_score.
 //
 // Design (B11'): two launches. Every round's words are drawn first, one
 // thread a word on many SMs (they depend on the key chain alone, not on
@@ -109,21 +113,25 @@
 namespace {
 
 using namespace nt_score;
+using nt_select::kRadixWords;
 using nt_select::may_take;
 using nt_select::Positions;
+using nt_select::PositionsOf;
 using nt_select::single_taker;
 using nt_select::Summary;
 using nt_select::summarize;
 using nt_select::take_at;
 using nt_select::Threshold;
 using nt_select::threshold_base;
+using nt_select::threshold_radix;
 using nt_select::threshold_select;
 using nt_sort::desc_key;
 using nt_threefry::threefry2x32;
 using nt_threefry::threefry_bits;
 
 constexpr int kThreads = 1024;
-constexpr int kMaxNodes = 16384;     // B11's ceiling (ROADMAP A11b)
+constexpr int kMaxNodes = 65536;     // B11's ceiling (ROADMAP A11d)
+constexpr int kSharedNodes = 16384;  // keys and caps in shared memory
 constexpr int kMaxPermNodes = 65536; // B11' (its values are 16-bit)
 constexpr int kMaxBatch = 65535;     // cap field
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory
@@ -147,11 +155,30 @@ __host__ __device__ inline size_t scan_work_bytes(int n) {
          4 * (((size_t)scan_slots(n) + 1) / 2);
 }
 
+// Above kSharedNodes positions ("wide") a thread holds 17-64 of them:
+// their keys and caps, like the cached terms, live in the global scratch,
+// and shared memory holds the reductions' words and threshold_radix's
+// histogram
+__host__ __device__ inline bool scan_wide(int n) { return n > kSharedNodes; }
+__host__ __device__ inline size_t wide_work_bytes(int n) {
+  return 4 * (size_t)(11 * (scan_threads(n) / 32) + kRadixWords);
+}
+
 // Bytes of the cached terms of every slot and the boost table (S > 0):
 // boost[S x V] f32 | head[slots] f32 | meta[slots], sv[S x slots] u16
 __host__ __device__ inline size_t scan_cache_bytes(const Dims& dm, int n) {
   const size_t slots = scan_slots(n);
   return 4 * (size_t)dm.s * dm.v + 4 * slots + 2 * slots * (1 + dm.s);
+}
+
+// Their room in the global scratch, whole words (none without spreads)
+__host__ __device__ inline size_t scan_cache_room(const Dims& dm, int n) {
+  return dm.s > 0 ? (scan_cache_bytes(dm, n) + 3) / 4 * 4 : 0;
+}
+
+// Bytes of the keys (u32) and caps (u16) of every slot in the scratch
+__host__ __device__ inline size_t scan_pos_bytes(int n) {
+  return 4 * (size_t)scan_slots(n) + 4 * (((size_t)scan_slots(n) + 1) / 2);
 }
 
 // A position's cap, uncapped by the budget (clipped at the 16-bit field:
@@ -177,9 +204,9 @@ __device__ __forceinline__ uint32_t node_cap(const Nodes& nd, int j,
 
 // Rescore a node from its columns into slot `slot`: its cap, and its key
 // (S == 0) or its cached terms (S > 0: keyed each step by cached_score).
-template <class Nodes>
+template <class Nodes, class Ps>
 __device__ __forceinline__ void rescore(const Nodes& nd, int j,
-                                        const Positions& ps, int slot,
+                                        const Ps& ps, int slot,
                                         const Dims& dm, const Scalars& sc,
                                         bool single, const NodeCache& cache) {
   const NodeTerms t = node_terms(nd, j, dm, sc);
@@ -195,8 +222,9 @@ __device__ __forceinline__ void rescore(const Nodes& nd, int j,
 
 // Place `take` at position j: usage, placement counts, taken, spread
 // value counts, from one read of its columns; then rescore it.
+template <class Ps>
 __device__ inline void commit(const ScratchNodes& nd, int j,
-                              const Positions& ps, int slot, int take,
+                              const Ps& ps, int slot, int take,
                               const Dims& dm, const Scalars& sc, bool single,
                               const Tables& tb, int* taken,
                               const NodeCache& cache) {
@@ -221,7 +249,10 @@ __device__ inline void commit(const ScratchNodes& nd, int j,
   rescore(row, 0, ps, slot, dm, sc, single, cache);
 }
 
-template <bool kShared>
+// kQ: the positions a thread holds at most (16: keys and caps in shared
+// memory, the fill's level by threshold_select; 32 or 64: in the scratch,
+// by threshold_radix); kShared: the cached terms in shared memory
+template <int kQ, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 bulk_scan_kernel(const float* __restrict__ avail,
                  const float* __restrict__ dyn,
@@ -236,23 +267,30 @@ bulk_scan_kernel(const float* __restrict__ avail,
                  float* __restrict__ scratch, int* __restrict__ out, Dims dm,
                  int k_total, int batch, int n_steps) {
   extern __shared__ __align__(16) char smem[];
+  constexpr bool kWide = kQ > Positions::kMaxQ;
 
   const int n = dm.n, d = dm.d, s = dm.s;
   const int nw = blockDim.x >> 5;
   const Tables tb = carve_tables(smem, dm);
   uint32_t* red = reinterpret_cast<uint32_t*>(smem + table_bytes(dm));
   int* warp_tot = reinterpret_cast<int*>(red + 10 * nw);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(warp_tot + nw);  // kWide
   const int slots = scan_slots(n);
-  const Positions ps{reinterpret_cast<uint32_t*>(warp_tot + nw),
-                     reinterpret_cast<uint16_t*>(
-                         reinterpret_cast<uint32_t*>(warp_tot + nw) + slots),
-                     n <= kThreads ? 1 : slots / kThreads, n};
   load_tables(tb, dm, spread_tab, spread_meta, nullptr);
   const Scalars sc = load_scalars(scalars, d);
   const ScratchNodes nd{scratch, reinterpret_cast<int*>(scratch), n, d, s, 0};
   int* taken = nd.i32 + (long long)(2 * d + 6 + 2 * s) * n;
   char* base = kShared ? smem + table_bytes(dm) + scan_work_bytes(n)
                        : reinterpret_cast<char*>(taken + n);
+  uint32_t* keys =
+      kWide ? reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(taken + n) +
+                                          scan_cache_room(dm, n))
+            : reinterpret_cast<uint32_t*>(warp_tot + nw);
+  const PositionsOf<kQ> ps{keys, reinterpret_cast<uint16_t*>(keys + slots),
+                           n <= kThreads ? 1 : slots / kThreads, n};
+  if (kWide) {
+    for (int i = threadIdx.x; i < kRadixWords; i += blockDim.x) hist[i] = 0u;
+  }
   float* boost = reinterpret_cast<float*>(base);
   float* head = boost + s * dm.v;
   uint16_t* meta = reinterpret_cast<uint16_t*>(head + slots);
@@ -316,8 +354,12 @@ bulk_scan_kernel(const float* __restrict__ avail,
       sm = summarize(ps, (uint32_t)budget);
       summed_for = budget;
     }
-    const Threshold th =
-        threshold_select(ps, sm, (uint32_t)budget, red, parity);
+    Threshold th;
+    if constexpr (kWide) {
+      th = threshold_radix(ps, sm, (uint32_t)budget, hist, red, parity);
+    } else {
+      th = threshold_select(ps, sm, (uint32_t)budget, red, parity);
+    }
     long long excl =
         threshold_base(ps, sm, th, (uint32_t)budget, warp_tot);
     const int one = single_taker(sm, th);
@@ -662,14 +704,33 @@ tie_perm_kernel(int n, int r0, int r1, bool runs,
   }
 }
 
+using ScanKernel = void (*)(const float*, const float*, const uint8_t*,
+                            const float*, const float*, const int*,
+                            const float*, const float*, const float*,
+                            const float*, float*, int*, Dims, int, int, int);
+
+// the instance for n positions: 16 a thread at most with the keys in
+// shared memory (the cached terms there too where they fit), else 32 or
+// 64 a thread with everything in the scratch
+ScanKernel scan_kernel_for(int n, bool cache_in_smem) {
+  if (!scan_wide(n)) {
+    return cache_in_smem ? bulk_scan_kernel<16, true>
+                         : bulk_scan_kernel<16, false>;
+  }
+  return scan_slots(n) <= 32 * kThreads ? bulk_scan_kernel<32, false>
+                                        : bulk_scan_kernel<64, false>;
+}
+
 }  // namespace
 
 // f32 words of nt_bulk_scan's scratch: n * (2d + 7 + 2s), then, with
-// spreads, the cached terms' room
+// spreads, the cached terms' room, then above kSharedNodes the keys and
+// caps of every slot
 extern "C" long long nt_bulk_scan_scratch_words(int n, int d, int s, int v) {
   const Dims dm{n, d, s, v, 0, 1};
-  const size_t cache = s > 0 ? scan_cache_bytes(dm, n) : 0;
-  return (long long)n * (2 * d + 7 + 2 * s) + (long long)(cache / 4);
+  return (long long)n * (2 * d + 7 + 2 * s) +
+         (long long)(scan_cache_room(dm, n) / 4) +
+         (scan_wide(n) ? (long long)(scan_pos_bytes(n) / 4) : 0);
 }
 
 // avail (n, d) f32; dyn (n, d + 2) f32: used | placed_tg | placed_job;
@@ -693,12 +754,14 @@ extern "C" int nt_bulk_scan(const void* avail, const void* dyn,
     return (int)cudaErrorInvalidValue;
   if (nt_bulk_scan_scratch_words(n, d, s, v) > (long long)scratch_words)
     return (int)cudaErrorInvalidValue;
+  const bool wide = scan_wide(n);
   const size_t cache = s > 0 ? scan_cache_bytes(dm, n) : 0;
-  const size_t work = table_bytes(dm) + scan_work_bytes(n);
-  const bool in_smem = work + cache <= kMaxSmem;
+  const size_t work =
+      table_bytes(dm) + (wide ? wide_work_bytes(n) : scan_work_bytes(n));
+  const bool in_smem = !wide && work + cache <= kMaxSmem;
   const size_t smem = work + (in_smem ? cache : 0);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = in_smem ? bulk_scan_kernel<true> : bulk_scan_kernel<false>;
+  const ScanKernel kernel = scan_kernel_for(n, in_smem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

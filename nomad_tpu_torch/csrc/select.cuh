@@ -52,10 +52,12 @@ struct Threshold {
 };
 
 // A thread's positions: position t x chunk + q (q < chunk, below n) in slot
-// q x blockDim + t of key and cap, in shared memory, so a warp's reads are
-// conflict-free.
-struct Positions {
-  static constexpr int kMaxQ = 16;  // positions a thread holds at most
+// q x blockDim + t of key and cap, in shared memory (or a global scratch),
+// so a warp's reads are conflict-free (coalesced). kQ: the positions a
+// thread holds at most.
+template <int kQ>
+struct PositionsOf {
+  static constexpr int kMaxQ = kQ;
   uint32_t* key;  // desc_key of the score
   uint16_t* cap;  // the cap, uncapped by the budget
   int chunk, n;
@@ -65,6 +67,7 @@ struct Positions {
   }
   __device__ int slot(int q) const { return q * (int)blockDim.x + threadIdx.x; }
 };
+using Positions = PositionsOf<16>;
 
 // What a thread's live (cap > 0) positions hold: the lowest and highest
 // key, the weight (caps clipped to the budget), and at the lowest key its

@@ -52,13 +52,26 @@
 // cursor past the dead prefix. Slots past the live entries hold (NEG, 0, a
 // negative id): the reference puts other dead nodes' ids there, but an
 // entry of value NEG is never eligible and takes nothing, so no output
-// reads those ids (tests/test_torch_mesh_loop.py holds this).
+// reads those ids (tests/test_torch_mesh_loop.py holds this). Above 16,384
+// nodes a shard (kSortNodes) the live keys do not fit one CTA's shared
+// memory: the eval's start only scores and caps, and each round selects
+// its pool afresh (pool_select): select.cuh's threshold_radix over the
+// shard's nodes in node order, keyed by topk_desc of the eval's key and
+// weighing 1 while the cap is > 0, read in place in the scratch, so a fill
+// of R takes the R best live nodes in top_k's order; the chosen are sorted
+// in shared memory. A shard holds up to 65,536 nodes.
+//
+// B14's pick sums up to 65,536 nodes in all: the pairwise tree over chunks
+// of 16,384 in shared memory (kTreeChunk), then over the chunks' sums by
+// the same halving, which is the padded tree's order of adds.
 //
 // Bound on the H100: neither bytes nor operations, as for B1 and B5. B13's
 // first round sorts a shard's live keys in shared memory (one CTA a
-// shard); B14's bids rescan every (eval, node) pair of the shard each
-// round. The merges are small: S x R <= 2,048 entries (B13), G x S x 16
-// (B14). Each round costs one barrier (a few microseconds on one card).
+// shard; above 16,384 nodes a shard each round's selection reads its
+// keys and caps from L2 instead); B14's bids rescan every (eval, node)
+// pair of the shard each round. The merges are small: S x R <= 2,048
+// entries (B13), G x S x 16 (B14). Each round costs one barrier (a few
+// microseconds on one card).
 //
 // Exactness. The per-node arithmetic is B1's and B5's (fit.cuh, correctly
 // rounded division, no contraction: --fmad=false), the jitter B3's and
@@ -79,6 +92,7 @@
 
 #include "fit.cuh"
 #include "mesh.cuh"
+#include "select.cuh"
 #include "sort.cuh"
 #include "threefry.cuh"
 #include "topr.cuh"
@@ -92,8 +106,10 @@ constexpr float kNeg = -1.0e30f;
 constexpr int kMaxMerge = 2048;    // B13: S x R entries a merge sorts
 constexpr int kMaxJoint = 1024;    // B14: G x 16 surfaced entries a round
 constexpr int kMaxG = 64;
-constexpr int kMaxTree = 32768;    // B14: nodes the pick's tree sums
-constexpr int kMaxFillNodes = 16384;  // B13: keys one CTA sorts
+constexpr int kMaxTree = 65536;    // B14: nodes the pick's tree sums
+constexpr int kTreeChunk = 16384;  // B14: the tree's nodes in shared memory
+constexpr int kMaxFillNodes = 65536;  // B13: a shard's nodes (ROADMAP A11d)
+constexpr int kSortNodes = 16384;  // B13: keys one CTA sorts in shared memory
 constexpr int kMaxShards = 64;
 constexpr int kMaxCards = 64;
 constexpr int kMaxRestarts = 8;
@@ -103,6 +119,14 @@ using nt_fit::preempt_score;
 using nt_mesh::group_sync;
 using nt_mesh::kGroupWords;
 using nt_mesh::load_cg;
+using nt_select::kRadixWords;
+using nt_select::may_take;
+using nt_select::Summary;
+using nt_select::summarize;
+using nt_select::take_at;
+using nt_select::Threshold;
+using nt_select::threshold_base;
+using nt_select::threshold_radix;
 using nt_sort::bitonic_sort;
 using nt_sort::block_exclusive_scan;
 using nt_sort::block_pairwise_sum;
@@ -292,12 +316,14 @@ __device__ __forceinline__ int16_t* fill_counts(const ShardArgs& a, int s) {
 }
 
 // the eval's start on shard s (sharding.py:223-249): score, cap, key and
-// jitter of every node, then the live nodes (cap > 0) sorted once in
-// top_k's order into the shard's order array. Returns the live count.
+// jitter of every node, then, up to kSortNodes a shard, the live nodes
+// (cap > 0) sorted once in top_k's order into the shard's order array (above
+// it each round selects its pool: pool_select). Returns the live count.
 __device__ int fill_start(const ShardArgs& a, int s, int e, uint64_t* keys,
                           int* warp_tot) {
   __shared__ int s_total;
   const int n_loc = a.n_loc;
+  const bool sorted = n_loc <= kSortNodes;
   const int lo = s * n_loc;
   int* sc = a.scratch[s];
   float* key_loc = reinterpret_cast<float*>(sc + a.lay.bulk.key);
@@ -356,12 +382,12 @@ __device__ int fill_start(const ShardArgs& a, int s, int e, uint64_t* keys,
     const int excl = block_exclusive_scan(live, warp_tot);
     if (threadIdx.x == kThreads - 1) s_total = excl + live;
     __syncthreads();
-    if (live) {
+    if (live && sorted) {
       keys[base + excl] = ((uint64_t)topk_desc(key) << 32) | (uint64_t)i;
     }
     base += s_total;
   }
-  if (base > 0) {
+  if (sorted && base > 0) {
     const int p = pow2_at_least(base);
     for (int j = base + threadIdx.x; j < p; j += kThreads) keys[j] = ~0ull;
     __syncthreads();
@@ -374,11 +400,86 @@ __device__ int fill_start(const ShardArgs& a, int s, int e, uint64_t* keys,
   return base;
 }
 
+// Above kSortNodes a shard, select.cuh's positions over the shard's nodes
+// in node order: thread t holds nodes t x chunk .. t x chunk + chunk - 1,
+// each keyed by topk_desc of the eval's key and weighing 1 while its cap is
+// > 0, read in place in the scratch. The keys (key asc, position asc) are
+// top_k's order, so a fill of R takes the R best live nodes.
+struct DescKeys {
+  const float* k;
+  __device__ uint32_t operator[](int i) const { return topk_desc(k[i]); }
+};
+struct LiveCaps {
+  const int* c;
+  __device__ uint32_t operator[](int i) const { return c[i] > 0 ? 1u : 0u; }
+};
+template <int kQ>
+struct PoolPositions {
+  static constexpr int kMaxQ = kQ;
+  DescKeys key;
+  LiveCaps cap;
+  int chunk, n;
+  __device__ int count() const {
+    const int first = (int)threadIdx.x * chunk;
+    return max(0, min(chunk, n - first));
+  }
+  __device__ int slot(int q) const { return (int)threadIdx.x * chunk + q; }
+};
+
+// shard s's R best live nodes (sharding.py:251-256's top_k over the live
+// keys) without a sorted order: threshold_radix's level of a fill of R,
+// the chosen packed as (topk_desc(key), node) into sel and sorted there.
+// Returns how many (R, or the live count where it is smaller).
+template <int kQ>
+__device__ int pool_select(const ShardArgs& a, int s, uint64_t* sel,
+                           int* warp_tot) {
+  __shared__ uint32_t hist[kRadixWords];
+  __shared__ uint32_t red[10 * kWarps];
+  const int r = a.r, n_loc = a.n_loc;
+  const int* sc = a.scratch[s];
+  const PoolPositions<kQ> ps{
+      {reinterpret_cast<const float*>(sc + a.lay.bulk.key)},
+      {sc + a.lay.bulk.cap}, (n_loc + kThreads - 1) / kThreads, n_loc};
+  for (int i = threadIdx.x; i < kRadixWords; i += kThreads) hist[i] = 0u;
+  int parity = 0;
+  const Summary sm = summarize(ps, (uint32_t)r);
+  const Threshold th =
+      threshold_radix(ps, sm, (uint32_t)r, hist, red, parity);
+  const long long base = threshold_base(ps, sm, th, (uint32_t)r, warp_tot);
+  const bool may = may_take(sm, th);
+  const int m = ps.count();
+  int mine = 0;
+  long long excl = base;
+  for (int q = 0; q < m && may; ++q) {
+    const int i = ps.slot(q);
+    mine += take_at(ps.key[i], ps.cap[i], th, (uint32_t)r, excl) != 0u;
+  }
+  int at = block_exclusive_scan(mine, warp_tot);
+  excl = base;
+  for (int q = 0; q < m && may; ++q) {
+    const int i = ps.slot(q);
+    const uint32_t key = ps.key[i];
+    if (take_at(key, ps.cap[i], th, (uint32_t)r, excl)) {
+      sel[at++] = ((uint64_t)key << 32) | (uint64_t)i;
+    }
+  }
+  const int found = th.all ? (int)th.total : r;
+  if (found > 0) {
+    const int p = pow2_at_least(found);
+    for (int j = found + threadIdx.x; j < p; j += kThreads) sel[j] = ~0ull;
+    __syncthreads();
+    bitonic_sort(sel, p);
+  }
+  __syncthreads();
+  return found;
+}
+
 // one round's pool of shard s: the next R entries of its order whose cap is
-// still > 0 (from the cursor past the dead prefix), then (NEG, 0, -1 - (s R
-// + j)) slots; pushed into every shard's pool buffer at parity par
+// still > 0 (from the cursor past the dead prefix; above kSortNodes a
+// shard, pool_select's), then (NEG, 0, -1 - (s R + j)) slots; pushed into
+// every shard's pool buffer at parity par
 __device__ void fill_pool(const ShardArgs& a, int s, int n_live, int* cursor,
-                          int par, float* stage, int* warp_tot) {
+                          int par, uint64_t* smem, int* warp_tot) {
   __shared__ int s_total, s_first;
   const int r = a.r;
   const int lo = s * a.n_loc;
@@ -386,9 +487,22 @@ __device__ void fill_pool(const ShardArgs& a, int s, int n_live, int* cursor,
   const float* key_loc = reinterpret_cast<const float*>(sc + a.lay.bulk.key);
   const int* cap_loc = sc + a.lay.bulk.cap;
   const int* order = sc + a.lay.bulk.order;
+  const bool sorted = a.n_loc <= kSortNodes;
+  float* stage = reinterpret_cast<float*>(
+      sorted ? smem : smem + pow2_at_least(r));
   int found = 0, first = -1;
   __syncthreads();  // the stage of the team's previous shard is pushed
-  for (int c = *cursor; c < n_live && found < r; c += kThreads) {
+  if (!sorted) {
+    found = a.n_loc <= 32 * kThreads ? pool_select<32>(a, s, smem, warp_tot)
+                                     : pool_select<64>(a, s, smem, warp_tot);
+    for (int q = threadIdx.x; q < found; q += kThreads) {
+      const int li = (int)(smem[q] & 0xFFFFFFFFu);
+      stage[q] = key_loc[li];
+      stage[r + q] = (float)cap_loc[li];
+      stage[2 * r + q] = (float)(li + lo);
+    }
+  }
+  for (int c = *cursor; sorted && c < n_live && found < r; c += kThreads) {
     const int j = c + threadIdx.x;
     int li = 0, live = 0;
     if (j < n_live) {
@@ -417,7 +531,7 @@ __device__ void fill_pool(const ShardArgs& a, int s, int n_live, int* cursor,
     stage[r + q] = 0.0f;
     stage[2 * r + q] = (float)(-1 - (s * r + q));
   }
-  if (threadIdx.x == 0) *cursor = first < 0 ? n_live : first;
+  if (threadIdx.x == 0 && sorted) *cursor = first < 0 ? n_live : first;
   __syncthreads();
   const long long at = a.lay.bulk.pools + ((long long)par * a.shards + s) * 3 * r;
   for (int d = 0; d < a.shards; ++d) {
@@ -581,8 +695,8 @@ __device__ void fill_loop(const ShardArgs& a, const Team& team,
     }
     while (go) {
       for (int i = 0; i < team.n; ++i) {
-        fill_pool(a, team.my[i], s_live[i], &s_cursor[i], parity,
-                  reinterpret_cast<float*>(smem), warp_tot);
+        fill_pool(a, team.my[i], s_live[i], &s_cursor[i], parity, smem,
+                  warp_tot);
       }
       group_sync(words, a.group_ctas, a.cross);
       budget = fill_merge(a, team, parity, budget, &go, smem, warp_tot);
@@ -998,17 +1112,38 @@ __device__ void joint_pick(const ShardArgs& a, const Team& team,
   const int* sc0 = a.scratch[team.my[0]];
   const float* contrib = reinterpret_cast<const float*>(sc0 + a.lay.contrib);
   const int* placed = sc0 + a.lay.placed;
+  // the tree over chunks of at most kTreeChunk nodes in shared memory,
+  // then over the chunks' sums by the same halving (an aligned chunk's
+  // share of the padded tree is the chunk's own tree)
+  __shared__ float chunk_sum[kMaxTree / kTreeChunk];
+  const int chunk = p < kTreeChunk ? p : kTreeChunk;
   int best_t = 0, best_placed = 0, placed_g = 0;
   float best_score = 0.0f, score_g = 0.0f;
   for (int arm = 0; arm <= n_t; ++arm) {
-    for (int j = threadIdx.x; j < p; j += kThreads) {
-      tree[j] = j < n ? load_cg(contrib + ((long long)(j / n_loc) * (n_t + 1) +
-                                           arm) * n_loc + j % n_loc)
-                      : 0.0f;
+    for (int c = 0; c < p / chunk; ++c) {
+      for (int q = threadIdx.x; q < chunk; q += kThreads) {
+        const int j = c * chunk + q;
+        tree[q] = j < n ? load_cg(contrib +
+                                  ((long long)(j / n_loc) * (n_t + 1) + arm) *
+                                      n_loc + j % n_loc)
+                        : 0.0f;
+      }
+      __syncthreads();
+      const float part =
+          block_pairwise_sum<kThreads, kTreeChunk / 2 / kThreads>(tree,
+                                                                  chunk);
+      if (threadIdx.x == 0) chunk_sum[c] = part;
+    }
+    if (threadIdx.x == 0) {
+      for (int m = p / chunk; m > 1; m >>= 1) {
+        for (int i = 0; i < m / 2; ++i) {
+          chunk_sum[i] = __fadd_rn(chunk_sum[2 * i], chunk_sum[2 * i + 1]);
+        }
+      }
     }
     __syncthreads();
-    const float score =
-        block_pairwise_sum<kThreads, kMaxTree / 2 / kThreads>(tree, p);
+    const float score = chunk_sum[0];
+    __syncthreads();  // chunk_sum is the next arm's
     int pl = 0;
     for (int q = 0; q < S; ++q) pl += load_cg(placed + q * (n_t + 1) + arm);
     if (arm == n_t) {
@@ -1255,9 +1390,15 @@ cudaError_t launch_mesh(Kernel kernel, ShardArgs& args, int arms,
   return err;
 }
 
+// B13's dynamic shared memory: the eval's sort of a shard's live keys up
+// to kSortNodes (above, a round's chosen pool and its stage), the merge,
+// the stage
 size_t bulk_smem(int n_loc, int shards, int r) {
   const int pm = pow2_at_least(shards * r);
-  size_t bytes = (size_t)pow2_at_least(n_loc) * sizeof(uint64_t);  // sort
+  size_t bytes = n_loc <= kSortNodes
+                     ? (size_t)pow2_at_least(n_loc) * sizeof(uint64_t)
+                     : (size_t)pow2_at_least(r) * sizeof(uint64_t) +
+                           (size_t)3 * r * sizeof(float);
   const size_t merge = (size_t)pm * (sizeof(uint64_t) + 3 * sizeof(int));
   if (merge > bytes) bytes = merge;
   if ((size_t)3 * r * sizeof(float) > bytes) bytes = 3 * r * sizeof(float);
@@ -1419,7 +1560,9 @@ extern "C" int nt_joint_shard_solve(
                       (size_t)3 * g * rl * sizeof(float);
   const size_t merge = (size_t)g * shards * rl * sizeof(uint64_t) +
                        (size_t)5 * g * rg * sizeof(int);
-  const size_t tree = (size_t)pow2_at_least(shards * n_loc) * sizeof(float);
+  const int pad = pow2_at_least(shards * n_loc);
+  const size_t tree = (size_t)(pad < kTreeChunk ? pad : kTreeChunk) *
+                      sizeof(float);
   if (bids > smem) smem = bids;
   if (merge > smem) smem = merge;
   if (tree > smem) smem = tree;

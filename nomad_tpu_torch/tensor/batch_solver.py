@@ -73,7 +73,7 @@ MAX_EVALS = 1024 // TOP_R
 BARRIER_WORDS = 32
 # the pick kernel: the padded node count it takes, and its arms (the
 # restarts and the greedy arm)
-MAX_PICK_NODES = 65536
+MAX_PICK_NODES = MAX_FILL_NODES
 MAX_PICK_ARMS = 64
 
 
@@ -412,9 +412,9 @@ def auction(used0, available, feas, aff, ask, k, seeds, *,
                          f"1-{MAX_EVALS} evals, got {d} and {g}")
     if not 1 <= n <= MAX_FILL_NODES:
         raise NotImplementedError(
-            f"auction: {n} nodes; a scan thread of the kernel holds at most "
-            f"{TOP_R} nodes of a row, 1 to {MAX_FILL_NODES} in all (ROADMAP "
-            f"A11b: the node ceilings)")
+            f"auction: {n} nodes; a scan thread of the kernel scores at most "
+            f"64 nodes of a row, 1 to {MAX_FILL_NODES} in all (ROADMAP A11d: "
+            f"the node ceilings)")
     checks = [("used0", used0, torch.float32, (n, d)),
               ("available", available, torch.float32, (n, d)),
               ("feas", feas, torch.bool, (g, n)),
@@ -473,7 +473,7 @@ def batch_pick(available, used_t, take_t, rounds_t, used_g, counts_g):
     if n > MAX_PICK_NODES:
         raise NotImplementedError(
             f"batch_pick: {n} nodes; the kernel pads to at most "
-            f"{MAX_PICK_NODES} (ROADMAP A11b: the node ceilings)")
+            f"{MAX_PICK_NODES} (ROADMAP A11d: the node ceilings)")
     if not 1 <= n_t < MAX_PICK_ARMS:
         raise ValueError(f"batch_pick: the kernel takes 1-{MAX_PICK_ARMS - 1} "
                          f"restarts, got {n_t}")

@@ -61,7 +61,7 @@ TIE_JITTER = 3.0e-5
 BINPACK_MAX_FIT_SCORE = 18.0  # reference scheduler/rank.go:18
 # B1's node ceiling: one CTA holds the fill's keys and caps, in shared
 # memory up to 32,768 nodes and in a global scratch above
-MAX_BULK_FILL_NODES = 65536
+MAX_BULK_FILL_NODES = MAX_FILL_NODES
 
 
 def _free_fractions(available: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
@@ -199,7 +199,7 @@ def bulk_fill(used, available, feas, aff, ask, k, seeds, cidx=None,
     if not 1 <= n <= MAX_BULK_FILL_NODES:
         raise NotImplementedError(
             f"bulk_fill: {n} padded nodes; the one-CTA fill holds 1 to "
-            f"{MAX_BULK_FILL_NODES} (ROADMAP A11b: the node ceilings)")
+            f"{MAX_BULK_FILL_NODES} (ROADMAP A11d: the node ceilings)")
     dev = used.device
     c = 0 if cidx is None else cidx.shape[0]
     checks = [("used", used, torch.float32, (n, 4)),
@@ -859,14 +859,13 @@ def solve_bulk_fused_ref(available, feasible, aff, dyn, ask, k_total,
 
 def _bulk_dims(what: str, available) -> tuple:
     """(n, d) of a bulk scan's node matrix; a node count above what the
-    one-CTA kernels sort raises here. The kernel's entry refuses the
+    one-CTA kernels take raises here. The kernel's entry refuses the
     other shapes it cannot take (columns, spreads, shared memory, batch)."""
     n, d = available.shape
     if n > MAX_FILL_NODES:
         raise NotImplementedError(
-            f"{what}: {n} padded nodes; the one-CTA scan sorts at most "
-            f"{MAX_FILL_NODES} in shared memory (ROADMAP A11: multi-CTA "
-            f"selection)")
+            f"{what}: {n} padded nodes; the one-CTA scan holds at most "
+            f"{MAX_FILL_NODES} (ROADMAP A11d: the node ceilings)")
     return n, d
 
 
@@ -918,7 +917,7 @@ def solve_bulk(available, used0, ask, feasible, placed_tg0, placed_job0,
     target); spread_has_targets (S,) bool; spread_weight (S,) f32;
     tie_perm (N,) int32; k_total, tg_count, dh_job, dh_tg, spread_alg
     Python values. The CUDA kernel ``nt_bulk_scan`` (csrc/bulk_scan.cu,
-    N <= 16,384) for CUDA tensors, :func:`solve_bulk_ref` for CPU
+    N <= 65,536) for CUDA tensors, :func:`solve_bulk_ref` for CPU
     tensors."""
     args = (available, used0, ask, feasible, placed_tg0, placed_job0,
             affinity_boost, dev_affinity, spread_val_id, spread_val_ok,
@@ -976,7 +975,7 @@ def solve_bulk_fused(available, feasible, aff, dyn, ask, k_total, tg_count,
     No spread tables, distinct_hosts or WorstFit (the placer's bulk
     shape). Returns (N,) int32 per-node counts in canonical order: the
     kernels ``nt_tie_perm`` and ``nt_bulk_scan`` (csrc/bulk_scan.cu, N <=
-    16,384) for CUDA tensors, :func:`solve_bulk_fused_ref` for CPU
+    65,536) for CUDA tensors, :func:`solve_bulk_fused_ref` for CPU
     tensors."""
     if available.device.type == "cpu":
         return solve_bulk_fused_ref(available, feasible, aff, dyn, ask,

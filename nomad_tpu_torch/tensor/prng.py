@@ -42,13 +42,14 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 MAX_FOLDS = 8        # restarts one keyed jitter launch draws (jitter.cu)
-# largest node count the one-CTA kernels (the bulk scan, the joint solve's
-# pick and the mesh kernels' shards) hold in shared memory; B1 has its own
-# (kernels.MAX_BULK_FILL_NODES)
-MAX_FILL_NODES = 16384
-# largest count the permutation kernel sorts (16-bit values; its pairs in
-# a global scratch above 16,384)
-MAX_PERM_NODES = 65536
+# the padded node count every one-card kernel takes at most (ROADMAP
+# A11d): B1, B5, B6's pick, B11 (with B11'), a B13 shard and B14's pick
+# over all shards. The one-CTA kernels keep their keys in shared memory up
+# to 16,384 nodes (B1: 32,768) and in a global scratch above.
+MAX_FILL_NODES = 65536
+# the count the permutation kernel (B11') sorts: the same (16-bit values;
+# its pairs in a global scratch above 16,384)
+MAX_PERM_NODES = MAX_FILL_NODES
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -196,7 +197,8 @@ def permutation(seed: int, n: int, device) -> torch.Tensor:
     if not 1 <= n <= MAX_PERM_NODES:
         raise NotImplementedError(
             f"permutation: n={n}; the one-CTA kernel sorts 1 to "
-            f"{MAX_PERM_NODES} positions (ROADMAP A11b)")
+            f"{MAX_PERM_NODES} positions (ROADMAP A11d: the node "
+            f"ceilings)")
     rounds = permutation_rounds(n)
     words = _ext.scratch_words("nt_tie_perm_scratch_words", n, rounds)
     # the scratch and the result in one allocation (one fewer on the

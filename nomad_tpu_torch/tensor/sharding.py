@@ -76,7 +76,7 @@ MAX_SHARDS = 64
 GROUP_WORDS = 32
 MESH_GROUPS = 2 + len(PORTFOLIO)
 MAX_MERGE = 2048     # gathered B13 pool entries one merge CTA sorts
-MAX_PICK_NODES = 32768  # nodes the B14 pick's pairwise tree holds
+MAX_PICK_NODES = MAX_FILL_NODES  # nodes the B14 pick's pairwise tree sums
 # one host thread at a time issues the cooperative launches of a mesh
 # that spans cards (B13, B14, B16): two solves whose launches reached two
 # cards in opposite orders would each wait on the other's barrier
@@ -612,12 +612,12 @@ def _bulk_checks(what, mesh, used, avail, feas, aff, g, top_r):
     n_loc = mesh.n_loc(n)
     if not 1 <= n_loc <= MAX_FILL_NODES:
         raise NotImplementedError(
-            f"{what}: {n_loc} nodes a shard; the one-CTA shard pool sorts "
-            f"1 to {MAX_FILL_NODES} keys in shared memory")
+            f"{what}: {n_loc} nodes a shard; a shard's CTA takes 1 to "
+            f"{MAX_FILL_NODES} (ROADMAP A11d: the node ceilings)")
     if mesh.size * min(top_r, n_loc) > MAX_MERGE:
         raise NotImplementedError(
             f"{what}: {mesh.size} shards x top_r {top_r}; the one-CTA merge "
-            f"sorts at most {MAX_MERGE} gathered entries")
+            f"sorts at most {MAX_MERGE} gathered entries (ROADMAP A11d)")
     _check_parts(what, mesh, "used", used, torch.float32, (n_loc, 4))
     _check_parts(what, mesh, "avail", avail, torch.float32, (n_loc, 4))
     _check_parts(what, mesh, "feas", feas, torch.bool, (g, n_loc))
@@ -717,7 +717,7 @@ def solve_batch_sharded(mesh: NodeMesh, used, avail, feas, aff, ask, k,
     if n_loc * mesh.size > MAX_PICK_NODES:
         raise NotImplementedError(
             f"solve_batch_sharded: {n_loc * mesh.size} nodes; the pick sums "
-            f"at most {MAX_PICK_NODES} in one CTA's shared memory")
+            f"at most {MAX_PICK_NODES} (ROADMAP A11d: the node ceilings)")
     if evict is not None:
         _check_parts("solve_batch_sharded", mesh, "evict", evict,
                      torch.float32, (n_loc, 4))

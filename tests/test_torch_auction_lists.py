@@ -14,8 +14,10 @@ float total order, then the lower index).
 - A scan of a row is the kernel's: scan thread (lane, i & 15) keeps the 16
   best of its nodes, the lane keeps the ``depth`` best of its threads'
   lists, and the floor goes just above the best key left out (by a thread
-  or by the lane). A kernel thread sees at most 16 nodes of a row (it takes
-  at most 16,384), so only the model's narrower lanes let a thread's go.
+  or by the lane). A kernel thread sees at most 16 nodes of a row up to
+  16,384 nodes, 32 at N_pad 32,768 and 64 at 65,536 (the kernel's
+  ceiling): there, and at the model's narrower lanes, a thread lets keys
+  go, and its best one may set its lane's floor.
 - After a round, each row with demand drops the nodes the round touched
   (their usage, and so their price, moved) and takes back each one's new
   key if it is at or above its lane's floor; a list past ``depth`` keeps
@@ -107,6 +109,7 @@ class Lists:
         self.inlist = torch.zeros((g, n), dtype=torch.bool)
         self.floor = torch.full((g, lanes), NONE, dtype=torch.int64)
         self.scans = 0
+        self.thread_floors = 0   # lanes whose floor a thread's key set
 
     def scan(self, row, keys):
         """The kernel's scan of ``row``: its threads' 16 best, then the
@@ -115,9 +118,11 @@ class Lists:
         kept, rest = keep_best(torch.where(kept1, keys, NONE), self.home,
                                self.lanes, self.depth)
         self.inlist[row] = kept
+        lost_lane = lost.view(self.lanes, SUB).amax(dim=1)
         self.floor[row] = raise_floor(
             torch.full((self.lanes,), NONE, dtype=torch.int64),
-            torch.maximum(rest, lost.view(self.lanes, SUB).amax(dim=1)))
+            torch.maximum(rest, lost_lane))
+        self.thread_floors += int((lost_lane > rest).sum())
         self.scans += 1
 
     def update(self, row, keys, touched):
@@ -143,11 +148,13 @@ class Lists:
 
 def auction_lists(used0, available, feas, aff, ask, k, jits, *,
                   price_eps: float, lanes: int, depth: int,
-                  rounds: int = bs.MAX_ROUNDS, evict=None, pscore=None):
+                  rounds: int = bs.MAX_ROUNDS, evict=None, pscore=None,
+                  audit: bool = False):
     """One restart of B5 through the lists: the plain auction's rounds
     with each row's top R taken from its lists. Holds the surfaced (vals,
     idxs) against ``topr_ref`` of the full bid matrix every round.
-    Returns (used, take, rounds, full row scans)."""
+    Returns (used, take, rounds, full row scans), and with ``audit`` the
+    Lists last."""
     n, d = available.shape
     g = feas.shape[0]
     f = available.dtype
@@ -204,6 +211,8 @@ def auction_lists(used0, available, feas, aff, ask, k, jits, *,
         touched = idxs[amt > 0]
         rnd += 1
         progressed = bool((amt > 0).any())
+    if audit:
+        return used, take, rnd, lists.scans, lists
     return used, take, rnd, lists.scans
 
 
@@ -345,6 +354,72 @@ def test_lists_equal_jax(variant):
             assert got[2] == int(want[2])
             np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
             np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def wide_problem(n: int, g: int = 4, seed: int = 0):
+    """problem()'s shape at N_pad 32,768 or 65,536, where a kernel scan
+    thread scores 32 or 64 nodes of a row: every node full but those of
+    two scan threads (i mod 1,024 in {5, 600}: all their nodes fit, so
+    each turns keys away that beat the rest of its lane) and a few random
+    ones; the demand takes several rounds of them."""
+    rng = np.random.default_rng(seed)
+    avail = np.zeros((n, 4), np.float32)
+    avail[:, 0] = rng.choice([4000, 8000, 16000], n)
+    avail[:, 1] = rng.choice([8192, 16384, 32768], n)
+    avail[:, 2] = 100_000
+    avail[:, 3] = 1000
+    node = np.arange(n)
+    open_nodes = (np.isin(node % 1024, (5, 600))
+                  | (rng.random(n) < 0.001))
+    used0 = avail.copy()
+    used0[:, 3] = 0.0
+    free = rng.integers(2, 6, n) * 200
+    used0[open_nodes, 0] = avail[open_nodes, 0] - free[open_nodes]
+    used0[open_nodes, 1] = np.floor(avail[open_nodes, 1] * 0.5)
+    ask = np.zeros((g, 4), np.float32)
+    ask[:, 0] = rng.choice([100, 200], g)
+    ask[:, 1] = rng.choice([48, 96], g)
+    k = np.full(g, 40, np.int32)
+    feas = rng.random((g, n)) < 0.95
+    aff = np.zeros((g, n), np.float32)
+    seeds = rng.integers(0, 2 ** 32, g).astype(np.int64)
+    return (used0, avail, feas, aff, ask, k, seeds, None, None, 24,
+            bs._jitter_his()[:2])
+
+
+@pytest.mark.parametrize("n", [32768, 65536])
+def test_wide_rows_lists_equal_the_plain_auction_and_jax(n):
+    """At the kernel's lanes and depth with a scan thread over 32 and 64
+    nodes of a row: the surfaced bids equal topr_ref's every round,
+    (used, take, rounds) equal auction_ref's and the JAX reference's
+    _auction; some lane's floor is set by a thread's turned-away key, and
+    rows are scanned again when their lists run dry."""
+    p = wide_problem(n)
+    used0, avail, feas, aff, ask, k, seeds, _, _, rounds, his = p
+    args = _torch_args(p)
+    g = ask.shape[0]
+    jits = prng.jitter_fold_ref(args[6], n, his)
+    eps = bs._price_eps()[:len(his)]
+    lanes, depth = KERNEL
+    for t in range(len(his)):
+        lists_out = auction_lists(*args[:6], jits[t], price_eps=eps[t],
+                                  lanes=lanes, depth=depth, rounds=rounds,
+                                  audit=True)
+        got, audit = lists_out[:4], lists_out[4]
+        want = bs.auction_ref(*args[:6], jits[t], rounds=rounds,
+                              price_eps=eps[t])
+        assert got[2] == want[2] > 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert audit.thread_floors > 0 and got[3] > g
+        if t == 0:
+            jw = ref._auction(
+                jnp.asarray(used0), jnp.asarray(avail), jnp.asarray(feas),
+                jnp.asarray(aff), jnp.asarray(ask), jnp.asarray(k),
+                jnp.asarray(jits[t].numpy()), g, rounds,
+                price_eps=ref.PRICE_EPS * bs.PORTFOLIO[t][1])
+            assert got[2] == int(jw[2])
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(jw[1]))
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(jw[0]))
 
 
 SPECIAL = np.array([-0.0, 0.0, 0.25, -0.25, 1e-30, -1e-30], np.float32)
@@ -523,6 +598,20 @@ def test_auction_refuses_what_the_kernel_does_not_take(fake_card):
            torch.ones((1, n), dtype=torch.bool), torch.zeros((1, n)),
            torch.ones((1, 4)), torch.ones(1, dtype=torch.int32),
            torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11d"):
         bs.auction(*big, **kw)
     assert not fake_card["batch_solve"].fns.get("nt_auction")
+
+
+def test_auction_takes_up_to_65536_nodes(fake_card):
+    """N_pad 32,768 and 65,536 (the ceiling, ROADMAP A11d) are one
+    nt_auction each; 65,537 raises before any launch."""
+    kw = dict(his=(TIE_JITTER,), price_eps=(bs.PRICE_EPS,))
+    assert MAX_FILL_NODES == 65536
+    for n in (32768, MAX_FILL_NODES):
+        bs.auction(*_stub_args(n=n, g=1), **kw)
+    calls = fake_card["batch_solve"].fns["nt_auction"].calls
+    assert [c[19] for c in calls] == [32768, MAX_FILL_NODES]
+    with pytest.raises(NotImplementedError, match="A11d"):
+        bs.auction(*_stub_args(n=MAX_FILL_NODES + 1, g=1), **kw)
+    assert len(calls) == 2

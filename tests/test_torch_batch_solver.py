@@ -325,3 +325,13 @@ def test_wrappers_reject_unsupported_devices():
     with pytest.raises(ValueError):
         bs.auction(torch.zeros((8, 4)), None, None, None, None, None, None,
                    his=(1.0, 2.0), price_eps=(1.0,))
+
+
+def test_solve_batch_equals_reference_at_n_pad_32768():
+    """The plain solve_batch against JAX's at N_pad 32,768 (a 20,000-node
+    cluster's padding; above 16,384 a scan thread of B5 scores 32 nodes
+    of a row): counts, carry, info[2:] exact, the packing scores within
+    SCORE_RTOL."""
+    want, got = _both(*_random_problem(3, n=32768, g=4))
+    _assert_equal_to_reference(want, got)
+    assert got[1].sum() > 0

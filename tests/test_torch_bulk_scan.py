@@ -260,19 +260,21 @@ def test_bulk_wrappers_run_the_plain_versions_on_the_cpu():
 
 def test_bulk_kernel_limits_raise_before_any_launch():
     """A node count above what the one-CTA kernels take raises, naming
-    ROADMAP A11 (the scan above 16,384, the permutation above 65,536),
-    and so does a seed outside uint32; nothing is built or launched. (The
-    kernel's entry refuses the other shapes it cannot take; chip_smoke.py
-    checks that on the card.)"""
-    big = torch.zeros((32768, 4))
-    with pytest.raises(NotImplementedError, match="A11"):
-        kernels._bulk_dims("solve_bulk_fused", big)
-    with pytest.raises(NotImplementedError, match="A11"):
+    ROADMAP A11d (the scan and the permutation above 65,536), and so does
+    a seed outside uint32; nothing is built or launched. 65,536 nodes pass
+    the check. (The kernel's entry refuses the other shapes it cannot
+    take; chip_smoke.py checks that on the card.)"""
+    assert prng.MAX_FILL_NODES == prng.MAX_PERM_NODES == 65536
+    big = torch.zeros((65537, 4))
+    for what in ("solve_bulk", "solve_bulk_fused"):
+        with pytest.raises(NotImplementedError, match="A11d"):
+            kernels._bulk_dims(what, big)
+    with pytest.raises(NotImplementedError, match="A11d"):
         prng.permutation(0, prng.MAX_PERM_NODES + 1, "cuda")
     with pytest.raises(ValueError):
         prng.permutation(2 ** 32, 8, "cuda")
-    assert kernels._bulk_dims("solve_bulk", torch.zeros((16384, 4))) == (
-        16384, 4)
+    for n in (16384, 32768, 65536):
+        assert kernels._bulk_dims("solve_bulk", big[:n]) == (n, 4)
 
 
 def test_every_cuda_source_is_a_library():
@@ -752,3 +754,98 @@ def test_fused_selection_equals_the_full_sort(n, k, seed, full,
         *(torch.from_numpy(a) for a in (avail, feas, aff, dyn, ask)), k,
         tgc, seed, batch=STEP, n_steps=n_steps_for(k))
     assert steps
+
+
+# --------------------------------------------------------------------------
+# above 16,384 nodes: N_pad 32,768 against JAX, and the wide scan's
+# selection (threshold_radix over keys in the scratch)
+# --------------------------------------------------------------------------
+
+WIDE = 32768
+
+
+def test_solve_bulk_ref_equals_jax_at_n_pad_32768():
+    """The generic plain scan against JAX's solve_bulk at N_pad 32,768
+    (the wide kernel's node count), with spread targets: exact counts."""
+    args = bulk_fixture("spread_targets", seed=2, n=WIDE)
+    want = _jax_bulk(args)
+    got = _port_bulk(args)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == args[14]
+
+
+def test_solve_bulk_fused_ref_equals_jax_at_n_pad_32768():
+    """The fused plain scan (the permutation drawn from the seed, two
+    rounds of it) against JAX's solve_bulk_fused at N_pad 32,768: exact
+    counts."""
+    avail, feas, aff, dyn, ask, k, tgc, seed = fused_fixture(WIDE, 5000,
+                                                              2 ** 31)
+    want = np.asarray(ref_kernels.solve_bulk_fused(
+        avail, feas, aff, dyn, ask, np.int32(k), F32(tgc), np.uint32(seed),
+        batch=STEP, n_steps=n_steps_for(k)))
+    got = kernels.solve_bulk_fused_ref(
+        *(torch.from_numpy(a) for a in (avail, feas, aff, dyn, ask)), k,
+        tgc, seed, batch=STEP, n_steps=n_steps_for(k)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == k
+
+
+def wide_chunk(n: int) -> int:
+    """The positions a scan thread holds (bulk_scan.cu: N / 1,024 rounded
+    up, its kernel instance 16, 32 or 64 of them)."""
+    return -(-n // 1024)
+
+
+def radix_hook(monkeypatch):
+    """Wrap kernels._fill_takes so that every step of a plain scan also
+    runs the wide kernel's selection: test_torch_fill_loop's model of
+    select.cuh's threshold_radix, threshold_base and take_at on
+    desc_key_ref and the caps clipped to the budget, over the positions
+    in scan order (thread t's chunk after thread t - 1's), asserting the
+    same takes. Returns the routes taken ("all", "first", "radix")."""
+    from test_torch_fill_loop import radix_takes_ref
+
+    real = kernels._fill_takes
+    routes = []
+
+    def hook(score, cap, budget):
+        want = real(score, cap, budget)
+        got, route, _ = radix_takes_ref(desc_key_ref(score), cap, budget)
+        assert torch.equal(got.to(torch.int32), want)
+        routes.append(route)
+        return want
+
+    monkeypatch.setattr(kernels, "_fill_takes", hook)
+    return routes
+
+
+@pytest.mark.parametrize("n,k", [(WIDE, 6000), (65536, 1200)])
+def test_wide_fused_selection_equals_the_full_sort(n, k, monkeypatch):
+    """Above 16,384 nodes a thread holds 32 (N_pad 32,768) or 64 (65,536)
+    positions, their keys and caps in the global scratch, and each step's
+    level comes from threshold_radix: at every step of the fused plain
+    scan its takes equal the full stable sort's, through a deep fill (the
+    radix search) as well as the best level alone."""
+    assert wide_chunk(n) == n // 1024 and wide_chunk(n) in (32, 64)
+    avail, feas, aff, dyn, ask, k, tgc, seed = fused_fixture(n, k, 5)
+    routes = radix_hook(monkeypatch)
+    got = kernels.solve_bulk_fused_ref(
+        *(torch.from_numpy(a) for a in (avail, feas, aff, dyn, ask)), k,
+        tgc, seed, batch=STEP, n_steps=n_steps_for(k))
+    assert int(got.sum()) == k and len(routes) == -(-k // STEP)
+    assert "radix" in routes
+
+
+@pytest.mark.parametrize("name", ["spread_alg", "spread_targets", "dh_tg"])
+def test_wide_generic_selection_equals_jax(name, monkeypatch):
+    """The generic scan at N_pad 32,768 with the wide selection at every
+    step (cap <= 1 prefixes of many positions, spread tables): its counts
+    equal the full sort's and JAX's."""
+    args = bulk_fixture(name, seed=3, n=WIDE)
+    args[14] = 900
+    routes = radix_hook(monkeypatch)
+    got = _port_bulk(args)
+    np.testing.assert_array_equal(got, _jax_bulk(args))
+    assert routes and got.sum() == 900
+    if name != "spread_targets":
+        assert "radix" in routes

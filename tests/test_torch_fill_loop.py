@@ -344,7 +344,7 @@ def test_bulk_fill_sizes_its_scratch_and_refuses_above_its_ceiling(
         fake_card):
     """Above 32,768 nodes the keys and caps go to a global scratch sized
     by the library's query; above 65,536 the wrapper raises (ROADMAP
-    A11b) and launches nothing."""
+    A11d) and launches nothing."""
     query = _ext.entry("nt_bulk_fill_scratch_words")
     query.code = 98304
     n = 40000
@@ -361,7 +361,7 @@ def test_bulk_fill_sizes_its_scratch_and_refuses_above_its_ceiling(
            torch.ones((1, n), dtype=torch.bool), torch.zeros((1, n)),
            torch.ones((1, 4)), torch.ones(1, dtype=torch.int32),
            torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11d"):
         kernels.bulk_fill(*big)
     assert len(fake_card["bulk_fill"].fns["nt_bulk_fill"].calls) == 1
 

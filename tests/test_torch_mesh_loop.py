@@ -9,6 +9,10 @@ a plain-torch model of what they do, step for step:
   sorts its live nodes (cap > 0) once, in top_k's order; a round's pool
   is the next R entries of that order whose cap is still > 0, found from
   a cursor past the dead prefix, then (NEG, 0, -1 - (s R + j)) slots.
+  Above 16,384 nodes a shard the kernel sorts nothing: each round's pool
+  is select.cuh's threshold_radix fill of R over the shard's nodes in
+  node order (key topk_desc of the eval's key, weight 1 while the cap is
+  > 0; test_torch_fill_loop's model), the chosen sorted by (key, node).
   Each shard stores its row into every shard's pool buffer, double-
   buffered by round parity; after the barrier every shard merges its own
   buffer, and the replicated results must agree.
@@ -84,30 +88,57 @@ def _merge_fill(buf, budget):
     return take, elig, gids, left, go
 
 
+def topk_desc_ref(v: torch.Tensor) -> torch.Tensor:
+    """sharded.cu ``topk_desc`` as int64 values in [0, 2^32): ascending is
+    top_k's descending order of f32 values (-0.0 below +0.0)."""
+    u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ordered = torch.where((u & 0x80000000) != 0, ~u & 0xFFFFFFFF,
+                          u | 0x80000000)
+    return ~ordered & 0xFFFFFFFF
+
+
+def select_pool(key, cap, r, audit):
+    """The wide kernel's pool (pool_select): the threshold_radix fill of
+    R over the nodes in node order, each weighing 1 while its cap is > 0,
+    the chosen sorted by (topk_desc key, node). Returns their nodes."""
+    from test_torch_fill_loop import radix_takes_ref
+
+    k32 = topk_desc_ref(key)
+    takes, route, _ = radix_takes_ref(k32, (cap > 0).to(torch.int64), r)
+    audit["routes"].append(route)
+    chosen = torch.nonzero(takes).reshape(-1)
+    return chosen[torch.argsort(k32[chosen] * (1 << 32) + chosen)]
+
+
 class _Shard:
     """One shard's state of a B13 eval: keys, caps, takes, the sorted
-    live order and the cursor."""
+    live order and the cursor (``wide``: no order, a selection a round)."""
 
-    def __init__(self, key, cap):
-        self.key, self.cap = key, cap
+    def __init__(self, key, cap, wide=False):
+        self.key, self.cap, self.wide = key, cap, wide
         self.take = torch.zeros_like(cap)
+        self.cursor = 0
+        if wide:
+            return
         vals, idx = topr_ref(torch.where(cap > 0, key, NEG), key.shape[0])
         self.order = idx[cap[idx] > 0]        # the live nodes, sorted once
         assert bool((vals[:self.order.shape[0]] > NEG).all())
-        self.cursor = 0
 
     def pool(self, s, r, n_loc, neg_ids, audit):
         """The round's pool row (3, R): the next R live entries of the
         order, then the NEG slots (``neg_ids`` "kernel": -1 - (s R + j);
         "reference": top_k's dead ids, index ascending)."""
-        tail = self.order[self.cursor:]
-        alive = self.cap[tail] > 0
-        live = tail[alive]
-        if live.shape[0]:
-            self.cursor += int(torch.nonzero(alive)[0])
+        if self.wide:
+            li = select_pool(self.key, self.cap, r, audit)
         else:
-            self.cursor = self.order.shape[0]
-        li = live[:r]
+            tail = self.order[self.cursor:]
+            alive = self.cap[tail] > 0
+            live = tail[alive]
+            if live.shape[0]:
+                self.cursor += int(torch.nonzero(alive)[0])
+            else:
+                self.cursor = self.order.shape[0]
+            li = live[:r]
         found = li.shape[0]
         vals = torch.full((r,), NEG, dtype=F32)
         caps = torch.zeros(r, dtype=F32)
@@ -133,10 +164,13 @@ class _Shard:
 
 
 def model_fill(used, avail, feas, aff, ask, k, seeds, *, g, top_r,
-               neg_ids="kernel", audit=None):
+               neg_ids="kernel", audit=None, wide_above=16384):
     """B13's schedule on S CPU shard parts after the fold (``used``
-    updated in place). Returns (counts parts, rounds)."""
-    audit = {"neg_slots": 0, "ids_differ": False} if audit is None else audit
+    updated in place); a shard of more than ``wide_above`` nodes selects
+    its pools (the kernel's 16,384). Returns (counts parts, rounds)."""
+    audit = ({"neg_slots": 0, "ids_differ": False, "routes": []}
+             if audit is None else audit)
+    audit.setdefault("routes", [])
     s_n = len(used)
     n_loc = used[0].shape[0]
     r = min(top_r, n_loc)
@@ -155,7 +189,8 @@ def model_fill(used, avail, feas, aff, ask, k, seeds, *, g, top_r,
         for s in range(s_n):
             score, cap = fill_score_cap(used[s], avail[s], feas[s][e],
                                         aff[s][e], ask[e], k[e])
-            shards.append(_Shard(score + jits[s][e], cap.to(torch.int32)))
+            shards.append(_Shard(score + jits[s][e], cap.to(torch.int32),
+                                 wide=n_loc > wide_above))
         go, rnd = True, 0
         while go:
             for s, st in enumerate(shards):
@@ -354,6 +389,56 @@ def test_fill_schedule_equals_plain_version(case, s):
                        sh.gather_rows(want[1], dim=1))
     assert torch.equal(sh.gather_rows(used), sh.gather_rows(want[0]))
     assert torch.equal(rounds, want[2])
+
+
+def _wide_inputs(n, k, seed):
+    """n nodes of ~1 alloc each (the multi-round case's shape) and three
+    evals, so R = 8 pools take many rounds; equal keys among them (no
+    affinity, two capacities)."""
+    rng = np.random.RandomState(seed)
+    g, f = 3, np.float32
+    avail = np.zeros((n, 4), f)
+    avail[:, 0] = rng.choice([600, 700], n)
+    avail[:, 1] = 4096
+    used0 = np.zeros((n, 4), f)
+    used0[rng.rand(n) < 0.3, 0] = 100.0
+    feas = rng.rand(g, n) > 0.1
+    aff = np.zeros((g, n), f)
+    ask = np.tile(np.array([500.0, 16.0, 0.0, 0.0], f), (g, 1))
+    seeds = np.arange(g).astype(np.uint32)
+    return (avail, used0, feas, aff, ask, np.array(k, np.int32), seeds,
+            np.zeros(8, np.int32), np.zeros((8, 4), f))
+
+
+@pytest.mark.parametrize("form", ["select", "sorted"])
+@pytest.mark.parametrize("n,k", [(32768, (120, 24, 64)),
+                                 (65536, (96, 16, 40))])
+def test_wide_fill_schedule_equals_plain_version(n, k, form):
+    """B13 at S = 1 with n_loc 32,768 and 65,536, each round's pool
+    selected from the scratch (threshold_radix: the kernel above 16,384
+    nodes a shard): the pools equal top_k's every round, and counts,
+    carry and rounds equal solve_bulk_multi_sharded_ref's. The "sorted"
+    form runs the narrow shards' schedule at the same width, for the same
+    result."""
+    inputs = _wide_inputs(n, k, seed=n // 1024)
+    mesh = _mesh(1)
+    g = len(k)
+    want = sh.solve_bulk_multi_sharded_ref(mesh, *_bulk_parts(mesh, inputs),
+                                           g=g, top_r=8)
+    used, av, feas, aff, ask, kk, seeds, cidx, cdelta = _bulk_parts(mesh,
+                                                                    inputs)
+    audit = {"neg_slots": 0, "ids_differ": False, "routes": []}
+    counts, rounds = model_fill(
+        used, av, feas, aff, ask, kk, seeds, g=g, top_r=8, audit=audit,
+        wide_above=16384 if form == "select" else n)
+    assert torch.equal(counts[0], want[1][0])
+    assert torch.equal(used[0], want[0][0])
+    assert torch.equal(rounds, want[2]) and int(rounds.max()) > 10
+    if form == "sorted":
+        assert not audit["routes"]
+    else:
+        assert len(audit["routes"]) == int(rounds.sum())
+        assert "radix" in audit["routes"]
 
 
 @pytest.mark.parametrize("s", [2, 4, 8])
@@ -578,6 +663,30 @@ def test_joint_solve_is_one_host_call(stub_libs, stub_mesh, no_host_read,
     assert call[18:27] == (mesh.cards, mesh.size, 4, n_loc, n_loc,
                            min(TOP_R, n_loc), TOP_R, n_t, MAX_ROUNDS)
     assert _launches("joint_shard") == before + mesh.cards
+
+
+def test_mesh_wrappers_take_up_to_65536_nodes(stub_libs, stub_mesh):
+    """B13 takes up to 65,536 nodes a shard and B14's pick 65,536 in all
+    (ROADMAP A11d): each is one host call there; one node more raises
+    before any launch."""
+    fns = stub_libs["sharded"].fns
+    mesh, _ = stub_mesh((0,))
+    args, _ = _stub_inputs(mesh, g=1, n=65536)
+    sh.solve_bulk_multi_sharded(mesh, *args, g=1)
+    sh.solve_batch_sharded(mesh, *args, g=1)
+    assert fns["nt_bulk_shard_solve"].calls[-1][16] == 65536
+    assert fns["nt_joint_shard_solve"].calls[-1][21] == 65536
+    big, _ = _stub_inputs(mesh, g=1, n=65537)
+    for solve in (sh.solve_bulk_multi_sharded, sh.solve_batch_sharded):
+        with pytest.raises(NotImplementedError, match="A11d"):
+            solve(mesh, *big, g=1)
+    two, _ = stub_mesh((0, 0))
+    wide, _ = _stub_inputs(two, g=1, n=2 * 32769)
+    sh.solve_bulk_multi_sharded(two, *wide, g=1)   # 32,769 a shard
+    with pytest.raises(NotImplementedError, match="A11d"):
+        sh.solve_batch_sharded(two, *wide, g=1)     # 65,538 in all
+    assert len(fns["nt_bulk_shard_solve"].calls) == 2
+    assert len(fns["nt_joint_shard_solve"].calls) == 1
 
 
 def test_scratch_queries_size_each_shards_buffer(stub_libs):

@@ -191,9 +191,9 @@ def stub_card(monkeypatch, stub_libs, cards):  # noqa: F811
 def test_permutation_launches_up_to_its_ceiling(stub_card, n, words):
     """1 to 65,536 positions are one host call; the scratch (the draws,
     and the pairs where they do not fit in shared memory) comes from the
-    library's query, and the ceiling is MAX_PERM_NODES, above
-    MAX_FILL_NODES."""
-    assert prng.MAX_FILL_NODES == 16384 < prng.MAX_PERM_NODES == 65536
+    library's query, and the ceiling is MAX_PERM_NODES, the one-card
+    kernels' MAX_FILL_NODES."""
+    assert prng.MAX_FILL_NODES == prng.MAX_PERM_NODES == 65536
     query = _ext.entry("nt_tie_perm_scratch_words")
     query.code = words
     before = _ext.COUNTS.snapshot()["launches"]["tie_perm"]

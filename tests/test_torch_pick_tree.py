@@ -156,6 +156,39 @@ def test_chunked_tree_equals_pairwise_sum(n, chunk):
     assert torch.equal(got, bs.pairwise_sum_ref(torch.from_numpy(v)))
 
 
+# B14's pick (csrc/sharded.cu joint_pick): one CTA's tree over chunks of
+# at most this many nodes in shared memory
+B14_TREE_CHUNK = 16384
+
+
+def b14_tree(v: torch.Tensor) -> torch.Tensor:
+    """joint_pick's sum: each aligned chunk of B14_TREE_CHUNK (the padded
+    count where smaller) halved by block_pairwise_sum, then thread 0
+    halving the chunk sums in place (sum[i] = sum[2i] + sum[2i + 1], i
+    ascending, one level at a time)."""
+    sums = chunk_sums(v, B14_TREE_CHUNK).clone()
+    m = sums.shape[0]
+    while m > 1:
+        for i in range(m // 2):
+            sums[i] = sums[2 * i] + sums[2 * i + 1]
+        m //= 2
+    return sums[0]
+
+
+@pytest.mark.parametrize("n", [1, 1000, 16384, 16385, 20000, 32768, 40000,
+                               65536])
+def test_b14_pick_tree_chunks_equal_pairwise_sum(n):
+    """B14's pick sums up to 65,536 nodes (32,768 before, one tree in
+    shared memory); its chunked tree equals the reference's
+    _pairwise_sum_xp and pairwise_sum_ref bit for bit, at one chunk and at
+    two, three (padded to four) and four."""
+    v = _values(n, n + 7)
+    got = b14_tree(torch.from_numpy(v))
+    want = np.float32(_pairwise_sum_xp(jnp, jnp.asarray(v)))
+    assert got.numpy().view(np.uint32) == want.view(np.uint32)
+    assert torch.equal(got, bs.pairwise_sum_ref(torch.from_numpy(v)))
+
+
 def test_the_values_tell_add_orders_apart():
     """The values above do tell orders apart: a left-to-right float32 sum
     of them differs from the tree's in the last bits."""
@@ -381,14 +414,14 @@ def test_batch_pick_is_one_launch_with_its_library_sized_scratch(fake_card):
 
 
 def test_batch_pick_refuses_what_the_kernel_does_not_take(fake_card):
-    """Above N_pad 65,536 (A11b) and at 64 restarts or more the wrapper
+    """Above N_pad 65,536 (A11d) and at 64 restarts or more the wrapper
     raises and launches nothing; 65,536 nodes go to the kernel."""
     n = bs.MAX_PICK_NODES + 1
     big = [torch.zeros((n, 4)), torch.zeros((1, n, 4)),
            torch.zeros((1, 1, n), dtype=torch.int32),
            torch.zeros(1, dtype=torch.int32), torch.zeros((n, 4)),
            torch.zeros((1, n), dtype=torch.int16)]
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11d"):
         bs.batch_pick(*big)
     many = _synthetic(64, n_t=bs.MAX_PICK_ARMS, g=1)
     with pytest.raises(ValueError, match="restarts"):

@@ -478,6 +478,81 @@ def test_server_fingerprint_equals_reference(alg, incr, monkeypatch,
             "plan.commit_round", "plan.commit", "eval.persist"} <= names
 
 
+def _c12_jobs():
+    """ROADMAP C12's scenario: a "tpu-solve" warm job (the solver service
+    syncs its carry), a 64-alloc service job (B9: a per-eval placement the
+    carry does not see), then four "tpu-solve" jobs on the same nodes."""
+    jobs = [bench.service_job(900, cpu=500, mem=256, batch=True),
+            bench.service_job(64, cpu=2000, mem=1024)]
+    jobs += [bench.service_job(300, cpu=500, mem=256, batch=True)
+             for _ in range(4)]
+    for j, name in zip(jobs, ["warm", "b9"] + [f"solve-{i}"
+                                              for i in range(4)]):
+        j.id = j.name = f"c12-{name}"
+    return jobs
+
+
+def _c12_outcome(srv, jobs):
+    """Each job's register-and-drain, then the applier's rejected nodes
+    and partial commits, the evals failed at "maximum attempts", and the
+    live allocs a job."""
+    with srv:
+        for j in jobs:
+            srv.register_job(j)
+            assert srv.wait_for_idle(60.0)
+        stats = dict(srv.plan_applier.stats)
+    snap = srv.store.snapshot()
+    failed = sorted((e.job_id, e.status_description) for e in snap.evals()
+                    if e.status == "failed")
+    live = {j.id: sum(1 for a in snap.allocs_by_job(j.id)
+                      if not a.terminal_status()) for j in jobs}
+    return (stats["nodes_rejected"], stats["partial_commits"],
+            stats["applied"], failed, live)
+
+
+@pytest.mark.parametrize("incr", ["0", "1"])
+def test_carry_blind_to_per_eval_placements_as_the_reference(
+        incr, monkeypatch, port_service):
+    """ROADMAP C12 on both packages' Servers (one worker, pinned ids, 64
+    nodes, "tpu-solve", the feed off and on): after the B9 job the joint
+    solves fill its nodes again from the service's stale carry, the
+    applier rejects them and evals run out of plan attempts -- the same
+    rejected nodes, partial commits, failed evals and live allocs in
+    both. A reference fault the port keeps."""
+    monkeypatch.setenv("NOMAD_TPU_INCR", incr)
+    monkeypatch.setenv("NOMAD_TPU_MESH_DEVICES", "1")
+    _pin_ids(monkeypatch)
+    ref_svc = ref_solver.BulkSolverService()
+    monkeypatch.setattr(ref_solver, "_service", ref_svc)
+    try:
+        ref = ref_server.Server(ref_server.ServerConfig(
+            num_workers=1, eval_batch_size=1, heartbeat_ttl=3600,
+            gc_interval=3600, nack_timeout=900.0,
+            sched_config=ref_operator.SchedulerConfiguration(
+                scheduler_algorithm="tpu-solve")))
+        bench.build_nodes(ref.store, 64)
+        jobs = _c12_jobs()
+        records = [job_record(j) for j in jobs]
+        want = _c12_outcome(ref, jobs)
+    finally:
+        ref_svc.stop()
+    srv = port_server.Server(port_server.ServerConfig(
+        device="cpu", num_workers=1, eval_batch_size=1, heartbeat_ttl=3600,
+        gc_interval=3600, nack_timeout=900.0,
+        sched_config=port_operator.SchedulerConfiguration(
+            scheduler_algorithm="tpu-solve")))
+    for n in convert.nodes_from_records(
+            [node_record(n) for n in ref.store.snapshot().nodes()]):
+        srv.store.upsert_node(n)
+    got = _c12_outcome(srv, [convert.job_from_record(r) for r in records])
+    assert got == want
+    rejected, partial, _, failed, live = got
+    assert rejected > 0 and partial > 0 and failed
+    assert all(desc == "maximum attempts reached" for _, desc in failed)
+    assert live["c12-b9"] == 64
+    assert over_capacity(srv.store) == []
+
+
 def test_racing_workers_never_oversubscribe(port_service):
     """4 workers in batches of 8 race bulk groups (the service's carry)
     against rack-spread groups (the per-eval scan on the store's usage):

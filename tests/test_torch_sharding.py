@@ -301,6 +301,79 @@ def test_joint_sharded_equals_reference(evict, s):
     np.testing.assert_array_equal(c, single[1].numpy())
 
 
+def test_bulk_sharded_equals_reference_at_32768_nodes_a_shard():
+    """B13's plain version at S = 1 with n_loc 32,768 (above 16,384 a
+    shard the kernel selects each round's pool from its scratch) against
+    make_solve_bulk_multi_sharded: counts, carry and rounds exact."""
+    inputs = _bulk_inputs(n=32768, g=3, seed=3)
+    inputs[5][:] = [64, 900, 3000]
+    u_w, c_w, r_w = _jax_bulk(1, inputs)
+    u_g, c_g, r_g = _port_bulk(1, inputs)
+    np.testing.assert_array_equal(c_g, c_w)
+    np.testing.assert_array_equal(u_g, u_w)
+    np.testing.assert_array_equal(r_g, r_w)
+    assert c_g.sum(axis=1).tolist() == [64, 900, 3000]
+    assert int(r_g.max()) > 1
+
+
+def _wide_joint_problem(n, g=4, seed=21):
+    """_joint_problem's shape at n nodes: a few allocs free on most nodes,
+    so each restart runs several rounds."""
+    rng_p = np.random.default_rng(seed)
+    d = 4
+    avail = np.zeros((n, d), np.float32)
+    avail[:, 0] = rng_p.choice([4000, 8000, 16000], n)
+    avail[:, 1] = rng_p.choice([8192, 16384, 32768], n)
+    avail[:, 2] = 100_000
+    avail[:, 3] = 1000
+    used0 = np.zeros((n, d), np.float32)
+    used0[:, 0] = avail[:, 0] - rng_p.integers(0, 8, n) * 100
+    used0[:, 1] = rng_p.integers(0, 4000, n)
+    feas = rng_p.random((g, n)) > 0.25
+    aff = np.where(rng_p.random((g, n)) > 0.7, 0.3, 0.0).astype(np.float32)
+    ask = np.zeros((g, d), np.float32)
+    ask[:, 0] = rng_p.choice([100, 200, 300], g)
+    ask[:, 1] = rng_p.integers(32, 512, g)
+    k = rng_p.integers(100, 400, g).astype(np.int32)
+    seeds = rng_p.integers(0, 2**31, g).astype(np.uint32)
+    cidx = np.array([0, n - 1], np.int32)
+    cdelta = np.zeros((2, d), np.float32)
+    cdelta[0, 0] = 300.0
+    return avail, used0, feas, aff, ask, k, seeds, cidx, cdelta
+
+
+def test_joint_sharded_equals_reference_at_65536_nodes():
+    """B14's plain version at S = 2 over 65,536 nodes (n_loc 32,768; the
+    pick's tree over 65,536) against make_solve_batch_sharded: counts,
+    carry, info[2:] and gathers exact, the packing scores to 1e-6."""
+    avail, used0, feas, aff, ask, k, seeds, cidx, cdelta = (
+        _wide_joint_problem(65536))
+    g, s = len(k), 2
+    mesh_j = ref.node_mesh(jax.devices()[:s])
+    rows = NamedSharding(mesh_j, P("nodes", None))
+    solve = ref.make_solve_batch_sharded(mesh_j)
+    want = [np.asarray(x) for x in solve(
+        jax.device_put(used0, rows), jax.device_put(avail, rows),
+        jnp.asarray(feas), jnp.asarray(aff), jnp.asarray(ask),
+        jnp.asarray(k), jnp.asarray(seeds), jnp.asarray(cidx),
+        jnp.asarray(cdelta), g=g)]
+    mesh = _mesh(s)
+    t = torch.from_numpy
+    used, av = sh.shard_bulk_state(mesh, used0.copy(), avail)
+    u, c, info, gathers = sh.solve_batch_sharded(
+        mesh, used, av, sh.shard_cols(mesh, t(feas)),
+        sh.shard_cols(mesh, t(aff)), t(ask), t(k),
+        t(seeds.astype(np.int64)), t(cidx), t(cdelta), g=g)
+    c = sh.gather_rows(c, dim=1).numpy()
+    np.testing.assert_array_equal(c, want[1])
+    np.testing.assert_array_equal(sh.gather_rows(u).numpy(), want[0])
+    info = info.numpy()
+    np.testing.assert_array_equal(info[2:], want[2][2:])
+    np.testing.assert_allclose(info[:2], want[2][:2], rtol=SCORE_RTOL, atol=0)
+    assert int(gathers) == int(want[3]) > 0
+    assert c.sum() > 0
+
+
 @pytest.mark.parametrize("fold", [False, True])
 def test_jitter_slice_equals_full_draw(fold):
     """A shard's jitter slice is the full draw's columns, bit for bit."""
