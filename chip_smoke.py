@@ -40,8 +40,9 @@ Phases (any failure raises and exits non-zero):
               active step beside each launch time. Two more variants carry
               device and core count columns and a device-affinity
               sub-score: d = 6 on the lean cache (one spread, no
-              distinct_property) and d = 8 (MAX_DIMS) with three spreads
-              and a distinct_property; both exact and timed.
+              distinct_property) and d = 8 (the narrow instance's widest)
+              with three spreads and a distinct_property; both exact and
+              timed.
 8. path    -- the C2M bulk path: 10,240 nodes, 64 batch jobs x 4,000 allocs
               (cpu 50, mem 32) through Harness.process("tpu-binpack") from
               16 threads. Every alloc placed once, no node over capacity
@@ -455,6 +456,37 @@ Phases (any failure raises and exits non-zero):
               plain version (exact; B9's scores within 1e-6), no plain
               version on CUDA, card == CPU on a 40,000 group and a
               tpu-solve wave at 20,000 nodes.
+29. columns -- groups past the kernels' narrow caps of 8 resource
+              columns, spreads and distinct_property constraints, which
+              take the kernels' wide instances (phase_columns): a fresh
+              port Server (24 workers, "tpu-binpack", BENCH_SAFE) on
+              10,240 nodes (N_pad 16,384), each with six device groups of
+              1-4 instances, 8 or 16 cores, meta attributes for 12
+              spreads and 9 distinct_property targets of 4-32 values;
+              then three groups, each drained: 512 allocs with six device
+              asks, a core and a spread (B9 at d = 11); 512 with 12
+              spreads (4 with explicit targets) and 9 distinct_property
+              constraints, two binding (d = 4, s = 12, p = 9); 256 with
+              five device asks, a core, 9 spreads and 2 properties (d =
+              10, s = 9, p = 2). Gates after each step: every alloc live
+              exactly once, no node over capacity in any column (usage,
+              device instances and cores recomputed from the store's live
+              allocs, each instance its node's and held once), every
+              distinct_property count within its limit, each targeted
+              spread's counts covering the group (a spread is a score:
+              the excess over its targets is reported), B9 at the step's
+              (d, s, p); every B9 launch replayed exact against
+              solve_task_group_fused_ref (scores within 1e-6, the max
+              printed), no plain version on CUDA. Then B9, B10, B16 (S 4
+              on one card, bit-equal to B9), B11 (the "spreads" shape),
+              B7 and B12 (cfg4's N_pad 1,024, K 512, V 512) against their
+              plain versions at d 9, 12, 16 and 33 (B9, B10, B16 and B11
+              also at s 9, 16, 33; B9, B10 and B16 at p 9, 16, 33; B11
+              also at N_pad 64 with 4 spreads, more than its block's 2
+              warps), each
+              timed by CUDA events beside its bound; and each wrapper's
+              refusal of tables past a CTA's shared memory, raised before
+              any launch.
 
 cfg4's two evals print the time the interpreter's garbage collector
 took inside them (gc.callbacks): their walls are host-bound, and a full
@@ -473,6 +505,9 @@ lines.
 phase alone, then prints its record as one JSON line.
 ``python3 chip_smoke.py --wide`` and ``--big-cluster`` run the build and
 phase 27 or 28 alone, then print its record as one JSON line.
+``python3 chip_smoke.py --columns`` runs the build and phase 29 alone,
+then prints its record and the six kernels' records by width as JSON
+lines, the card and the device summary.
 ``python3 chip_smoke.py --replicated`` runs the build and the
 "replicated" phase alone, then prints its record and B1's and B4's
 launches on it as JSON lines.
@@ -531,8 +566,10 @@ theirs on the lifecycle path, B1's, B4's and B9's
 ``autopilot_launches``, theirs on the autopilot path, and B1's and B4's
 ``replicated_launches``, theirs on the replicated path; B11's, B5's,
 B13's and B14's ``wide``, phase 27's times at N_pad 32,768 and 65,536,
-and every kernel's ``big_cluster_launches``, its launches on phase 28's
-path), and the card's name
+every kernel's ``big_cluster_launches``, its launches on phase 28's
+path, B9's ``columns_launches``, its launches on phase 29's path, and
+the ``by_columns`` of B9, B10, B16, B11, B7 and B12: phase 29's records
+at each width past the narrow caps), and the card's name
 and power limit; the last line is the device summary.
 """
 
@@ -5105,8 +5142,8 @@ def cfg3_args(rng, variant: str):
     device column and a cores column (d = 6, config 5's shape: one ask,
     the lean cache at one spread and no distinct_property) with a
     device-affinity sub-score; "devices_wide" four such columns (d = 8,
-    MAX_DIMS) with three spreads and a distinct_property (the full
-    cache)."""
+    the narrow instance's widest) with three spreads and a
+    distinct_property (the full cache)."""
     n, real, k_pad = CFG3_PAD, CFG3_NODES, 512
     if variant == "wide":
         n, real = N_PAD, N_NODES
@@ -6611,15 +6648,15 @@ def phase_b11(torch, dev, card, rng):
     refused = b11_refusals(torch, dev)
     print(f"B11 scan    [{card}] {len(B11_VARIANTS)} variants at N_pad "
           f"{N_PAD}, k {LARGE_K}, exact: {'; '.join(notes)}; kernel "
-          f"{'; '.join(timed)}; the kernel's entry refuses {refused}")
+          f"{'; '.join(timed)}; refused before running: {refused}")
 
 
 def b11_refusals(torch, dev):
-    """The shapes the scan kernel's own entry refuses, which the wrappers
-    leave to it: a batch above the 16-bit cap field, more than MAX_DIMS
-    resource columns, and spread count tables that do not fit in shared
-    memory (the cached terms move to the scratch first). Each must raise
-    before anything runs."""
+    """The shapes the scan refuses: a batch above the 16-bit cap field
+    (the kernel's entry, which the wrapper leaves to it: a launch error)
+    and spread count tables that do not fit in shared memory (the cached
+    terms move to the scratch first; the wrapper raises ValueError). Each
+    must raise before anything runs."""
     from nomad_tpu_torch.tensor import kernels
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -6627,10 +6664,11 @@ def b11_refusals(torch, dev):
     def z(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    cases = {"batch 65,536": (4, 0, 1, 65536),
-             f"D {kernels.MAX_DIMS + 1}": (kernels.MAX_DIMS + 1, 0, 1, 256),
-             "8 spreads of 4,096 values": (4, 8, 4096, 256)}
-    for name, (d, s, v, batch) in cases.items():
+    cases = {"batch 65,536": (4, 0, 1, 65536, RuntimeError,
+                              "bulk_scan launch"),
+             "8 spreads of 4,096 values": (4, 8, 4096, 256, ValueError,
+                                           "bytes of shared memory")}
+    for name, (d, s, v, batch, error, says) in cases.items():
         args = (z(N_PAD, d), z(N_PAD, d), z(d), z(N_PAD, dtype=b8),
                 z(N_PAD, dtype=i32), z(N_PAD, dtype=i32), z(N_PAD), z(N_PAD),
                 z(s, N_PAD, dtype=i32), z(s, N_PAD, dtype=b8),
@@ -6639,11 +6677,11 @@ def b11_refusals(torch, dev):
                 torch.arange(N_PAD, dtype=i32, device=dev))
         try:
             kernels.solve_bulk(*args, batch=batch, n_steps=1)
-        except RuntimeError as e:
-            if "bulk_scan launch" in str(e):
+        except error as e:
+            if says in str(e):
                 continue
             raise
-        raise AssertionError(f"B11: the kernel's entry took {name}")
+        raise AssertionError(f"B11: the scan took {name}")
     return ", ".join(cases)
 
 
@@ -8799,6 +8837,685 @@ def phase_big_cluster(torch, card, device="cuda", n_nodes=BIG_NODES,
     return launched, rec
 
 
+# ---------------------------------------------------------------------------
+# "columns": groups past the kernels' narrow caps (8 resource columns, 8
+# spreads, 8 distinct_property constraints), which take their wide
+# instances
+# ---------------------------------------------------------------------------
+
+# six device groups a node, (vendor, type, name), 1 to 4 instances each
+COL_GROUPS = (("nvidia", "gpu", "a100"), ("nvidia", "gpu", "t4"),
+              ("amd", "gpu", "mi100"), ("intel", "fpga", "arria10"),
+              ("xilinx", "fpga", "u250"), ("mellanox", "nic", "cx6"))
+# the value counts of the node meta keys s0..s11 (spread attributes) and
+# p0..p8 (distinct_property attributes)
+COL_SPREAD_VALUES = (20, 4, 6, 8, 10, 12, 16, 24, 28, 32, 5, 7)
+COL_PROP_VALUES = (32, 8, 16, 24, 12, 20, 28, 6, 10)
+# the spreads with explicit targets (an equal share of each value)
+COL_TARGETED = (1, 4, 7, 10)
+COL_K = (512, 512, 256)
+# the widths each wide kernel is held at beside its plain version
+COL_DIMS = (9, 12, 16, 33)
+COL_SPREADS = (9, 16, 33)
+COL_PROPS = (9, 16, 33)
+
+
+def columns_nodes(pkg, n_nodes: int, seed: int = 0):
+    """The "columns" nodes, built from ``pkg`` (its ``mock`` and its
+    ``Group`` and ``Numa`` classes: NodeDeviceResource and NumaNode):
+    16,000 or 32,000 MHz and 64 GiB, 8 or 16 cores in two NUMA domains,
+    the six COL_GROUPS with 1 to 4 instances each by node (so the device
+    counts and the cores bind before cpu), and meta s0..s11 (a value
+    drawn of COL_SPREAD_VALUES) and p0..p8 (value i mod
+    COL_PROP_VALUES, so every value of p0 holds a value of p1)."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n_nodes):
+        n = pkg.mock.node()
+        n.name = f"col-{i}"
+        n.resources.cpu = rng.choice([16000, 32000])
+        n.resources.memory_mb = 65536
+        cores = rng.choice([8, 16])
+        n.resources.total_cores = cores
+        n.resources.numa = [pkg.Numa(id=0, cores=list(range(cores // 2))),
+                            pkg.Numa(id=1,
+                                     cores=list(range(cores // 2, cores)))]
+        n.resources.devices = [
+            pkg.Group(vendor=v, type=t, name=m,
+                      instance_ids=[f"{n.name}-{m}-{k}"
+                                    for k in range(rng.randint(1, 4))])
+            for v, t, m in COL_GROUPS]
+        n.meta.update({f"s{k}": f"v{rng.randrange(c)}"
+                       for k, c in enumerate(COL_SPREAD_VALUES)})
+        n.meta.update({f"p{k}": f"v{i % c}"
+                       for k, c in enumerate(COL_PROP_VALUES)})
+        n.compute_class()
+        out.append(n)
+    return out
+
+
+def columns_limits(step: int, count: int) -> dict:
+    """{p key: limit} of a step's distinct_property constraints: p0 (and
+    in step 2 p1) at the count over its values, rounded up, so every
+    value fills to its limit; the others at the count."""
+    keys = range(9) if step == 2 else (0, 2)
+    return {k: (-(-count // COL_PROP_VALUES[k])
+                if k == 0 or (step == 2 and k == 1) else count)
+            for k in keys}
+
+
+def columns_jobs(pkg, counts=COL_K, tag="col"):
+    """The phase's three groups, built from ``pkg`` (its ``mock`` and its
+    ``Ask``, ``Spread``, ``SpreadTarget`` and ``Constraint`` classes),
+    cpu 200 and mem 256 an alloc:
+    1. counts[0] allocs asking one instance of each COL_GROUPS group and
+       one reserved core, spread over s0: d = 11 (4 + 6 + 1);
+    2. counts[1] allocs spread over s0..s11 (COL_TARGETED with explicit
+       targets, an equal share of each value; the rest even) with
+       distinct_property on p0..p8 (columns_limits: p0 and p1 bind):
+       d = 4, s = 12, p = 9;
+    3. counts[2] allocs asking the first five groups and a core, spread
+       over s0..s8, distinct_property on p0 (binding) and p2: d = 10,
+       s = 9, p = 2."""
+    out = []
+    for step, count in enumerate(counts, start=1):
+        j = pkg.mock.job()
+        j.id = j.name = f"{tag}-{step}"
+        tg = j.task_groups[0]
+        tg.count = count
+        res = tg.tasks[0].resources
+        res.cpu, res.memory_mb = 200, 256
+        if step != 2:
+            groups = COL_GROUPS if step == 1 else COL_GROUPS[:5]
+            res.devices = [pkg.Ask(name=f"{v}/{t}/{m}", count=1)
+                           for v, t, m in groups]
+            res.cores = 1
+        spreads = []
+        for k in range({1: 1, 2: 12, 3: 9}[step]):
+            c = COL_SPREAD_VALUES[k]
+            targets = []
+            if step > 1 and k in COL_TARGETED:
+                share = [100 // c + (1 if t < 100 % c else 0)
+                         for t in range(c)]
+                targets = [pkg.SpreadTarget(value=f"v{t}", percent=share[t])
+                           for t in range(c)]
+            spreads.append(pkg.Spread(attribute=f"${{meta.s{k}}}",
+                                      weight=25 + 5 * k, targets=targets))
+        tg.spreads = spreads
+        if step > 1:
+            tg.constraints = list(tg.constraints) + [
+                pkg.Constraint(f"${{meta.p{k}}}", str(lim),
+                               "distinct_property")
+                for k, lim in columns_limits(step, count).items()]
+        out.append(j)
+    return out
+
+
+def columns_gates(snap, nodes, jobs, what: str) -> dict:
+    """Over a store snapshot: every alloc of the jobs live exactly once
+    (its count of live allocs, each id once); no node over capacity in
+    any column: usage rows recomputed from the live allocs against
+    capacity, device instances and cores recomputed from them, each
+    instance one of its node's and held once, cores within the node's;
+    every distinct_property count within its limit. A spread is a score,
+    not a limit (its targets bias the choice; the reference guarantees
+    no count), so for each spread with explicit targets the gate holds
+    that its counts, recomputed from the store, cover the group and the
+    record reports each value's excess over its desired count (rounded
+    up). Returns the per-job property maxima and spread excesses."""
+    from collections import defaultdict
+
+    by_id = {n.id: n for n in nodes}
+    row = {n.id: i for i, n in enumerate(nodes)}
+    cap = np.stack([n.available_vec() for n in nodes])
+    usage = np.zeros_like(cap)
+    insts = defaultdict(list)
+    cores = defaultdict(list)
+    for a in snap.allocs():
+        if a.terminal_status():
+            continue
+        usage[row[a.node_id]] += a.allocated_vec
+        insts[a.node_id].extend(i for v in a.allocated_devices.values()
+                                for i in v)
+        cores[a.node_id].extend(a.allocated_cores)
+    fails = []
+    over = int((usage > cap).any(axis=1).sum())
+    for nid, held in insts.items():
+        owned = {i for g in by_id[nid].resources.devices
+                 for i in g.instance_ids}
+        if len(held) != len(set(held)) or not set(held) <= owned:
+            over += 1
+    for nid, held in cores.items():
+        if (len(held) != len(set(held))
+                or len(held) > by_id[nid].resources.total_cores):
+            over += 1
+    if over:
+        fails.append(f"{over} nodes over capacity (columns, instances or "
+                     f"cores)")
+    stats = {}
+    for j in jobs:
+        tg = j.task_groups[0]
+        live = [a for a in snap.allocs_by_job(j.id)
+                if not a.terminal_status()]
+        if len(live) != tg.count or len({a.id for a in live}) != len(live):
+            fails.append(f"{j.id}: {len(live)} live of {tg.count}")
+        asks = len(tg.tasks[0].resources.devices)
+        short = sum(1 for a in live
+                    if sum(len(v) for v in a.allocated_devices.values())
+                    != asks
+                    or len(a.allocated_cores) != tg.tasks[0].resources.cores)
+        if short:
+            fails.append(f"{j.id}: {short} allocs without their instances "
+                         f"and cores")
+        worst = {}
+        for c in tg.constraints:
+            if c.operand != "distinct_property":
+                continue
+            key = c.ltarget[len("${meta."):-1]
+            seen = Counter(by_id[a.node_id].meta[key] for a in live)
+            most = max(seen.values()) if seen else 0
+            worst[key] = f"{most}/{c.rtarget}"
+            if most > int(c.rtarget):
+                fails.append(f"{j.id}: {key} value held {most} times, "
+                             f"limit {c.rtarget}")
+        for sp in tg.spreads:
+            if not sp.targets:
+                continue
+            key = sp.attribute[len("${meta."):-1]
+            seen = Counter(by_id[a.node_id].meta[key] for a in live)
+            want = {t.value: -(-tg.count * t.percent // 100)
+                    for t in sp.targets}
+            if sum(seen.values()) != len(live):
+                fails.append(f"{j.id}: spread {key} counts {dict(seen)} do "
+                             f"not cover the group")
+            worst[key] = max((seen[v] - want.get(v, 0) for v in seen),
+                             default=0)
+        stats[j.id] = worst
+    if fails:
+        raise AssertionError(f"{what}: " + "; ".join(fails))
+    return stats
+
+
+# (d, s, p) of each "columns" step's B9 launch
+COL_SHAPES = {1: (11, 1, 0), 2: (4, 12, 9), 3: (10, 9, 2)}
+
+
+def columns_pkg():
+    """The port's classes for columns_nodes and columns_jobs."""
+    import types
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import Constraint, Spread, SpreadTarget
+    from nomad_tpu_torch.structs.resources import (NodeDeviceResource,
+                                                   NumaNode, RequestedDevice)
+
+    return types.SimpleNamespace(
+        mock=mock, Group=NodeDeviceResource, Numa=NumaNode,
+        Ask=RequestedDevice, Spread=Spread, SpreadTarget=SpreadTarget,
+        Constraint=Constraint)
+
+
+def wide_solve_args(rng, d: int, s: int, p: int, n: int = CFG3_PAD,
+                    real: int = CFG3_NODES):
+    """One task group's solve at the cfg3 width past the narrow caps, as
+    solve_task_group's 26 positional arguments: cfg3's four columns and
+    d - 4 device and core count columns with a device-affinity sub-score;
+    s spreads over 4 to 31 of 32 values (every fourth
+    with explicit targets, one a zero; every third missing on every 13th
+    node); p distinct_property constraints over 3 to 22 of 24 values
+    (the first at its fair share of the group, so it binds; the others
+    at twice that); 500 of 512 steps active, 40 penalty steps,
+    affinities and a tie_perm."""
+    k_pad, v, vd = 512, 32, 24
+    avail = np.zeros((n, 4))
+    avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
+    avail[:real, 1] = rng.choice([16384, 32768, 65536], real)
+    avail[:real, 2:] = (102400, 12001)
+    used = np.zeros((n, 4))
+    fill = rng.integers(0, 30, real)
+    used[:real, :3] = fill[:, None] * np.array([100, 64, 300])
+    ask, dev_aff = np.array([100.0, 64.0, 300.0, 0.0]), np.zeros(n)
+    if d > 4:
+        # device_columns' shape with one node in 50 lacking a group (at d
+        # 33 its one in five would leave no node that fits)
+        e = d - 4
+        cap = np.zeros((n, e))
+        cap[:real] = rng.choice([4, 8, 8, 16], (real, e)) * (
+            rng.random((real, e)) > 0.02)
+        cap[:real, -1] = 16
+        xused = np.minimum(cap, rng.integers(0, 4, (n, e)))
+        avail = np.concatenate([avail, cap], axis=1)
+        used = np.concatenate([used, xused], axis=1)
+        ask = np.concatenate([ask, [1.0] * (e - 1) + [2.0]])
+        dev_aff[:real] = rng.choice([0.0, 0.0, 0.5, 1.0, -0.25], real)
+    feas = np.arange(n) < real
+    aff = np.zeros(n)
+    aff[:real] = rng.choice([0.0, 0.0, 0.25, -0.25], real)
+    ptg = np.zeros(n)
+    ptg[:real] = rng.integers(0, 3, real) * (rng.random(real) < 0.1)
+    pen = np.full(k_pad, -1)
+    pen[rng.integers(0, CFG3_K, 40)] = rng.integers(0, real, 40)
+    active = np.arange(k_pad) < CFG3_K
+    vals = 4 + (np.arange(s) * 5) % 28
+    svid = np.array([(np.arange(n) + k) % vals[k] for k in range(s)],
+                    dtype=float).reshape(s, n)
+    sok = np.tile(feas, (s, 1))
+    sok[2::3, ::13] = False
+    scnt = rng.integers(0, 4, (s, v)) * (np.arange(v)[None, :] < vals[:, None])
+    sdes = np.full((s, v), np.nan)
+    has_t = np.arange(s) % 4 == 0
+    for k in np.flatnonzero(has_t):
+        sdes[k, :vals[k]] = rng.integers(5, 40, vals[k])
+        sdes[k, 0] = 0.0
+    weight = rng.integers(10, 60, s) / 100.0
+    dvals = 3 + (np.arange(p) * 7) % 20
+    dvid = np.array([(np.arange(n) + 3 * k) % dvals[k] for k in range(p)],
+                    dtype=float).reshape(p, n)
+    dok = np.tile(np.arange(n) < real - 5, (p, 1))
+    dcnt = rng.integers(0, 2, (p, vd)) * (np.arange(vd)[None, :]
+                                          < dvals[:, None])
+    dlim = np.ceil(2.0 * CFG3_K / dvals)
+    if p:
+        dlim[0] = np.ceil(CFG3_K / dvals[0]) + 1
+    return (avail, used, ptg, ptg.copy(), ask, feas, aff, dev_aff, pen,
+            active, svid, sok, scnt, sdes, has_t, weight, dvid, dok, dcnt,
+            dlim, -1.0, float(CFG3_K), False, False, False,
+            rng.permutation(n))
+
+
+def wide_b11_inputs(rng, d: int, s: int, n_pad: int = N_PAD):
+    """b11_inputs' "spreads" case (the generic scan, k 40,000; at N_pad
+    ``n_pad``) past the narrow caps: d - 4 count columns (8 to 64 a node,
+    0 to 7 used, an ask of 1: they bind the caps) and s spread tables
+    over 32 values, every fourth with explicit targets and a zero."""
+    f = np.float32
+    form, args, scalars = b11_inputs(rng, "spreads", n_pad)
+    n = args[0].shape[0]
+    real = int((args[0][:, 0] > 0).sum())
+    if d > 4:
+        xcap = np.zeros((n, d - 4), f)
+        xcap[:real] = rng.integers(8, 65, (real, d - 4))
+        xused = np.zeros((n, d - 4), f)
+        xused[:real] = rng.integers(0, 8, (real, d - 4))
+        args[0] = np.concatenate([args[0], xcap], axis=1)
+        args[1] = np.concatenate([args[1], xused], axis=1)
+        args[2] = np.concatenate([args[2], np.ones(d - 4, f)])
+    if s != 2:
+        v = 32
+        args[8] = rng.integers(0, v, (s, n)).astype(np.int32)
+        args[9] = rng.random((s, n)) < 0.9
+        args[10] = rng.integers(0, 50, (s, v)).astype(np.int32)
+        args[11] = np.full((s, v), np.nan, f)
+        args[12] = np.arange(s) % 4 == 0
+        for k in np.flatnonzero(args[12]):
+            args[11][k] = rng.integers(0, 400, v)
+            args[11][k, 3] = 0.0
+        args[13] = np.full(s, 1.0 / s, f)
+    return form, args, scalars
+
+
+def widen_preempt(rng, host, d: int):
+    """B7's inputs at cfg4's shape with d - 4 more count columns: 4 to 16
+    a node, all but 0 to 2 used (so requests evict there too), an ask of
+    one, and 0 to 2 a victim."""
+    avail, used, ask, feas, net_prio, active, v_prio, v_vec, v_elig, \
+        v_flag = host
+    n, v = v_elig.shape
+    e = d - 4
+    xcap = rng.integers(4, 17, (n, e)).astype(np.float32)
+    xused = np.maximum(xcap - rng.integers(0, 3, (n, e)), 0).astype(
+        np.float32)
+    xvec = (rng.integers(0, 3, (n, v, e)) * v_elig[:, :, None]).astype(
+        np.float32)
+    return (np.concatenate([avail, xcap], axis=1),
+            np.concatenate([used, xused], axis=1),
+            np.concatenate([ask, np.ones(e, np.float32)]), feas, net_prio,
+            active, v_prio, np.concatenate([v_vec, xvec], axis=2), v_elig,
+            v_flag)
+
+
+def _events_ms(torch, fn):
+    """(fn(), its device time in ms by CUDA events, one run)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _width_rec(ms, plain_ms, b, err) -> dict:
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None, "max_abs_err": err}
+
+
+def _refuses(torch, what, fn) -> None:
+    """fn raises ValueError naming the shared-memory bytes, and nothing
+    is launched."""
+    from nomad_tpu_torch import _ext
+
+    before = _ext.COUNTS.snapshot()["launches"]
+    try:
+        fn()
+    except ValueError as e:
+        if "bytes of shared memory" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{what}: took a shape past shared memory")
+    if _ext.COUNTS.snapshot()["launches"] != before:
+        raise AssertionError(f"{what}: launched past shared memory")
+
+
+def phase_columns_kernels(torch, dev, card, rng) -> dict:
+    """B9, B10, B16, B11, B7 and B12 past the narrow caps, each against
+    its plain version on the card (the module docstring's widths; B16
+    also bit-equal to B9), timed by CUDA events (the kernel a median of
+    runs, the plain version once) beside its bound; then each wrapper's
+    refusal at the shared-memory limit, before any launch. Returns
+    {kernel name: {width: record}}."""
+    from nomad_tpu_torch.tensor import kernels
+    from nomad_tpu_torch.tensor import sharding as sh
+
+    out = {name: {} for name in ("solve_task_group", "score_nodes",
+                                 "solve_task_group_sharded", "bulk_scan",
+                                 "preempt_solve", "preempt_pick")}
+    widths = ([(f"d{d}", d, 1, 0) for d in COL_DIMS]
+              + [(f"s{s}", 4, s, 0) for s in COL_SPREADS]
+              + [(f"p{p}", 4, 1, p) for p in COL_PROPS])
+    mesh, mesh_plain = mesh_of(PATH_SHARDS), mesh_of(1)
+    for key, d, s, p in widths:
+        args = tuple(torch.as_tensor(a).to(dev)
+                     for a in wide_solve_args(rng, d, s, p))
+        packed = kernels.pack_solve_tensors(*args[:25], node_col=args[25])
+        b = scan_bound(packed)
+        got = kernels.solve_task_group_fused(*packed)
+        want, plain_ms = _events_ms(
+            torch, lambda: kernels.solve_task_group_fused_ref(*packed))
+        if not torch.equal(got[:2], want[:2]):
+            raise AssertionError(f"columns B9 {key}: choices or founds "
+                                 f"differ from the plain version")
+        err = score_err(got[2], want[2], f"columns B9 {key}")
+        ms = cuda_time_ms(torch,
+                          lambda _: kernels.solve_task_group_fused(*packed),
+                          reps=3, warmup=1)
+        out["solve_task_group"][key] = _width_rec(ms, plain_ms, b, err)
+        out["solve_task_group"][key]["found"] = int(want[1].sum())
+        # B10: one placement's scores, the penalty at node 17
+        flat = [packed[0]] + list(packed[2:])
+        got10 = kernels.score_nodes_packed(*flat, 17)
+        want10, plain10 = _events_ms(
+            torch, lambda: kernels.score_nodes_packed_ref(*flat, 17))
+        err10 = score_err(got10, want10, f"columns B10 {key}")
+        ms10 = cuda_time_ms(torch,
+                            lambda _: kernels.score_nodes_packed(*flat, 17))
+        n = packed[0].shape[0]
+        b10 = bound(4 * (sum(t.numel() for t in flat) + n),
+                    int((packed[0][:, 2 * d + 2] > 0.5).sum())
+                    * (100 + 12 * (s + p)))
+        out["score_nodes"][key] = _width_rec(ms10, plain10, b10, err10)
+        # B16 at S 4 on one card: bit-equal to B9, and against its plain
+        # version (at S 1, the cheapest: the same function)
+        got16 = b16_solve(sh, mesh, args)
+        if not same_bits(torch, got16, got):
+            raise AssertionError(f"columns B16 {key}: differs from B9")
+        want16, plain16 = _events_ms(
+            torch, lambda: sh.solve_task_group_sharded_ref(
+                mesh_plain, sh.shard_solve_args(mesh_plain, args)))
+        if not (torch.equal(got16[0], want16[0])
+                and torch.equal(got16[1], want16[1])):
+            raise AssertionError(f"columns B16 {key}: choices or founds "
+                                 f"differ from the plain version")
+        err16 = score_err(got16[2], want16[2], f"columns B16 {key}")
+        ms16 = cuda_time_ms(
+            torch, lambda _: sh.solve_task_group_sharded(mesh, args), reps=3,
+            warmup=1)
+        out["solve_task_group_sharded"][key] = _width_rec(ms16, plain16, b,
+                                                          err16)
+    # B11: the generic scan at the "spreads" shape, d and s widths; and
+    # at N_pad 64 with 4 spreads, more than its block's 2 warps (the
+    # wide instance's value tables)
+    for key, d, s, n_pad in ([(f"d{d}", d, 2, N_PAD) for d in COL_DIMS]
+                             + [(f"s{s}", 4, s, N_PAD) for s in COL_SPREADS]
+                             + [("n64_s4", 4, 4, 64)]):
+        form, host, scalars = wide_b11_inputs(rng, d, s, n_pad)
+        run = b11_runner(torch, dev, form, host, scalars)
+        got = run()
+        want, plain_ms = _events_ms(
+            torch, b11_runner(torch, dev, form, host, scalars, plain=True))
+        if not torch.equal(got, want):
+            raise AssertionError(f"columns B11 {key}: counts differ from "
+                                 f"the plain version")
+        ms = cuda_time_ms(torch, lambda _: run(), reps=3, warmup=1)
+        counts = got.cpu().numpy()
+        b = b11_bound(host[0].shape[0], d, int(host[3].sum()), counts, s)
+        out["bulk_scan"][key] = _width_rec(ms, plain_ms, b, 0.0)
+        out["bulk_scan"][key]["placed"] = int(counts.sum())
+    # B7 and B12 at cfg4's shape (N_pad 1,024, K 512, V 512)
+    for d in COL_DIMS:
+        host = widen_preempt(rng, preempt_inputs(
+            rng, "main", n_pad=CFG4_NODES, n_real=CFG4_NODES, v=512), d)
+        args = on_card(torch, host, dev)
+        got = kernels.preempt_solve(*args)
+        want, plain_ms = _events_ms(torch,
+                                    lambda: kernels.preempt_solve_ref(*args))
+        err = check_preempt(torch, got, want, f"columns d{d}")
+        ms = cuda_time_ms(torch, lambda _: kernels.preempt_solve(*args),
+                          reps=5)
+        picks, victims = got[0].cpu().numpy(), got[1].cpu().numpy()
+        out["preempt_solve"][f"d{d}"] = dict(
+            _width_rec(ms, plain_ms, preempt_bound(host, picks, victims),
+                       err), placed=int((picks >= 0).sum()),
+            victims=int(victims.sum()))
+        pargs = [torch.tensor(a, device=dev) for a in _pick_from(host)]
+        got12 = kernels.preempt_pick(*pargs)
+        want12, plain12 = _events_ms(
+            torch, lambda: kernels.preempt_pick_ref(*pargs))
+        if not torch.equal(got12, want12):
+            raise AssertionError(f"columns B12 d{d}: picks differ from the "
+                                 f"plain version")
+        ms12 = cuda_time_ms(torch, lambda _: kernels.preempt_pick(*pargs),
+                            reps=5)
+        p12 = got12.cpu().numpy()
+        out["preempt_pick"][f"d{d}"] = dict(
+            _width_rec(ms12, plain12, pick_preempt_bound(host, p12), 0.0),
+            placed=int((p12 >= 0).sum()))
+    # the one refusal left: tables past a CTA's shared memory
+    f32 = torch.float32
+    big = [t.to(dev) for t in kernels.pack_solve_tensors(
+        *[torch.as_tensor(a) for a in wide_solve_args(
+            rng, 4, 4, 0, n=1024, real=1000)[:25]])]
+    big[3] = torch.zeros((8, 8192), dtype=f32, device=dev)   # V 8,192
+    _refuses(torch, "B9", lambda: kernels.solve_task_group_fused(*big))
+    _refuses(torch, "B10", lambda: kernels.score_nodes_packed(
+        big[0], *big[2:], -1))
+    form, host, scalars = b11_inputs(rng, "spreads")
+    host[8] = np.zeros((8, host[0].shape[0]), np.int32)
+    host[9] = np.ones((8, host[0].shape[0]), bool)
+    host[10] = np.zeros((8, 4096), np.int32)
+    host[11] = np.full((8, 4096), np.nan, np.float32)
+    host[12], host[13] = np.zeros(8, bool), np.full(8, 0.125, np.float32)
+    _refuses(torch, "B11", b11_runner(torch, dev, form, host, scalars))
+    sargs = list(wide_solve_args(rng, 4, 4, 0, n=1024, real=1000))
+    sargs[12] = np.zeros((4, 8192))
+    sargs[13] = np.full((4, 8192), np.nan)
+    _refuses(torch, "B16", lambda: sh.solve_task_group_sharded(
+        mesh, tuple(torch.as_tensor(a).to(dev) for a in sargs)))
+    wide_d = 20000
+    _refuses(torch, "B7", lambda: kernels.preempt_solve(
+        torch.ones((1, wide_d), device=dev),
+        torch.zeros((1, wide_d), device=dev),
+        torch.ones(wide_d, device=dev),
+        torch.ones(1, dtype=torch.bool, device=dev),
+        torch.zeros(1, device=dev), torch.ones(2, dtype=torch.bool,
+                                               device=dev), None,
+        torch.zeros((1, 1, wide_d), device=dev),
+        torch.ones((1, 1), dtype=torch.bool, device=dev),
+        torch.zeros((1, 1), dtype=torch.bool, device=dev)))
+    many = 929_793
+    _refuses(torch, "B12", lambda: kernels.preempt_pick(
+        torch.ones((many, 2), device=dev), torch.zeros((many, 2), device=dev),
+        torch.zeros((many, 2), device=dev), torch.ones(2, device=dev),
+        torch.ones(many, dtype=torch.bool, device=dev),
+        torch.zeros(many, device=dev),
+        torch.ones(2, dtype=torch.bool, device=dev)))
+    for name, recs in out.items():
+        print(f"columns    [{card}] {name}: exact against the plain version "
+              f"at " + "; ".join(
+                  f"{k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} "
+                  f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), err "
+                  f"{r['max_abs_err']:.3g}" for k, r in recs.items()))
+    print(f"columns    [{card}] B9, B10, B11, B16, B7 and B12 refuse tables "
+          f"past a CTA's shared memory before any launch")
+    return out
+
+
+def phase_columns(torch, card, device="cuda", n_nodes=N_NODES, counts=COL_K,
+                  workers=SERVER_WORKERS, rng=None):
+    """The "columns" phase (``--columns`` runs it alone): a fresh port
+    Server (``workers`` workers, "tpu-binpack", BENCH_SAFE) on
+    columns_nodes' ``n_nodes`` nodes, then columns_jobs' three groups one
+    after another, each drained, with every B9 launch's inputs copied and
+    timed by CUDA events; the gates of columns_gates after each step, B9
+    launched once a capture at COL_SHAPES' (d, s, p), every launch
+    replayed exact against solve_task_group_fused_ref (choices and founds
+    exact, scores within SCORE_TOL), no plain version on CUDA. Then (with
+    ``rng``) phase_columns_kernels. Returns (the launch counts of the
+    Server run, the record, the kernels' width records)."""
+    from nomad_tpu_torch import _ext
+    from nomad_tpu_torch.core.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import enums
+    from nomad_tpu_torch.structs.operator import SchedulerConfiguration
+    from nomad_tpu_torch.tensor import placer, solver
+    from nomad_tpu_torch.tensor.kernels import (solve_task_group_fused,
+                                                solve_task_group_fused_ref)
+
+    what = "columns"
+    t_phase = time.perf_counter()
+    pkg = columns_pkg()
+    srv = Server(ServerConfig(
+        num_workers=workers, eval_batch_size=1, device=device,
+        sched_config=SchedulerConfiguration(
+            scheduler_algorithm=enums.SCHED_ALG_TPU_BINPACK),
+        nack_timeout=900.0, failed_eval_followup_delay=3600.0,
+        failed_eval_unblock_interval=0.5, **BENCH_SAFE))
+    svc = solver.get_service(srv.device)
+    nodes = columns_nodes(pkg, n_nodes)
+    jobs = columns_jobs(pkg, counts)
+    b9 = []
+    real = placer.solve_task_group_fused
+
+    def cap_b9(*packed):
+        keep = [t.clone() for t in packed]
+        if device == "cpu":
+            out = real(*packed)
+            ms = 0.0
+        else:
+            out, ms = _events_ms(torch, lambda: real(*packed))
+        b9.append((keep, out.clone(), ms))
+        return out
+
+    steps = {}
+    try:
+        srv.start()
+        t0 = time.perf_counter()
+        srv.register_nodes(nodes)
+        nodes_s = time.perf_counter() - t0
+        placer.solve_task_group_fused = cap_b9
+        _ext.COUNTS.reset()
+        for step, j in enumerate(jobs, start=1):
+            first = len(b9)
+            t0 = time.perf_counter()
+            srv.register_job(j)
+            _drain(srv, f"{what} step {step}")
+            wall = time.perf_counter() - t0
+            snap = srv.store.snapshot()
+            try:
+                stats = columns_gates(snap, list(snap.nodes()), jobs[:step],
+                                      f"{what} step {step}")
+            finally:
+                snap.close()
+            shapes = sorted({((t[0].shape[1] - 6) // 2, t[4].shape[0],
+                              t[5].shape[0] // 2) for t, _, _ in b9[first:]})
+            if shapes != [COL_SHAPES[step]]:
+                raise AssertionError(f"{what} step {step}: B9 at (d, s, p) "
+                                     f"{shapes}, not {COL_SHAPES[step]}")
+            steps[str(step)] = {
+                "allocs": j.task_groups[0].count, "wall_s": wall,
+                "b9_launches": len(b9) - first,
+                "b9_ms": [r[2] for r in b9[first:]],
+                "dpk": dict(zip(("d", "s", "p"), COL_SHAPES[step])),
+                "gates": stats[j.id]}
+        counts_run = _ext.COUNTS.snapshot()
+    finally:
+        placer.solve_task_group_fused = real
+        srv.stop()
+        svc.stop()
+    launched = counts_run["launches"]
+    if any(counts_run["plain_on_cuda"].values()):
+        raise AssertionError(f"{what}: plain versions ran on CUDA: "
+                             f"{counts_run['plain_on_cuda']}")
+    if device != "cpu" and launched["solve_task_group"] != len(b9):
+        raise AssertionError(f"{what}: B9 launched "
+                             f"{launched['solve_task_group']}, captured "
+                             f"{len(b9)}")
+    err, plain_ms, replay_ms = 0.0, [], []
+    bounds = [scan_bound(packed) for packed, _, _ in b9]
+    for i, (packed, out, _) in enumerate(b9):
+        want, pms = ((solve_task_group_fused_ref(*packed), 0.0)
+                     if device == "cpu" else
+                     _events_ms(torch,
+                                lambda: solve_task_group_fused_ref(*packed)))
+        if not torch.equal(out[:2], want[:2]):
+            raise AssertionError(f"{what} B9 launch {i}: choices or founds "
+                                 f"differ from the plain version")
+        err = max(err, score_err(out[2], want[2], f"{what} B9 launch {i}"))
+        plain_ms.append(pms)
+        if device != "cpu":     # the launch again, warm
+            replay_ms.append(cuda_time_ms(
+                torch, lambda _: solve_task_group_fused(*packed), reps=3,
+                warmup=1))
+    print(f"{what:<11} [{card}] {n_nodes} nodes (six device groups, cores, "
+          f"21 meta attributes) through register_nodes in {nodes_s:.2f} s, "
+          f"{workers} workers; "
+          + "; ".join(f"step {k} {v['allocs']} allocs at (d, s, p) "
+                      f"{tuple(v['dpk'].values())} {v['wall_s']:.3f} s, "
+                      f"B9 {v['b9_launches']} launch(es) "
+                      f"{[round(x, 4) for x in v['b9_ms']]} ms, "
+                      f"gates {v['gates']}" for k, v in steps.items())
+          + f"; every alloc live once, no node over capacity in any "
+          f"column, every instance and core booked once, the "
+          f"distinct_property limits held; B9 replays exact (scores "
+          f"within {SCORE_TOL}, max {err:.3g}), warm "
+          f"{[round(x, 4) for x in replay_ms]} ms, plain "
+          f"{[round(x, 1) for x in plain_ms]} ms, bound "
+          f"{[f'{b:.6f} ({by})' for b, by in bounds]} ms; launches "
+          f"{ {k: v for k, v in launched.items() if v} }")
+    rec = {"nodes": n_nodes, "register_nodes_s": nodes_s, "steps": steps,
+           "b9_replay_max_err": err, "b9_plain_ms": plain_ms,
+           "b9_warm_ms": replay_ms, "b9_bound_ms": [b for b, _ in bounds],
+           "b9_bound_by": [by for _, by in bounds],
+           "launches": {k: v for k, v in launched.items() if v},
+           "card": card}
+    widths = (phase_columns_kernels(torch, torch.device(device), card, rng)
+              if rng is not None else {})
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    return launched, rec, widths
+
+
+def columns_only(torch, card, rng) -> int:
+    """``--columns``: the build, then phase_columns alone; prints its
+    record and the six kernels' width records as JSON lines."""
+    _, rec, widths = phase_columns(torch, card, rng=rng)
+    print(json.dumps({"columns": rec}))
+    print(json.dumps({"by_columns": widths}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def big_only(torch, card) -> int:
     """``--big-cluster``: the build, then phase_big_cluster alone."""
     _, rec = phase_big_cluster(torch, card)
@@ -9069,6 +9786,8 @@ def main() -> int:
         return wide_only(torch, dev, card, rng)
     if sys.argv[1:] == ["--big-cluster"]:
         return big_only(torch, card)
+    if sys.argv[1:] == ["--columns"]:
+        return columns_only(torch, card, rng)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -9159,6 +9878,9 @@ def main() -> int:
     sharded.append(b16)
     wide = phase_wide_kernels(torch, dev, card, rng)
     big_launches, server["big_cluster"] = phase_big_cluster(torch, card)
+    col_launches, server["columns"], by_columns = phase_columns(torch, card,
+                                                                rng=rng)
+    per_eval[1]["columns_launches"] = col_launches["solve_task_group"]
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -9170,12 +9892,14 @@ def main() -> int:
             k["wide"] = wide[k["name"]]
         if k["name"] in big_launches:
             k["big_cluster_launches"] = big_launches[k["name"]]
+        if k["name"] in by_columns:
+            k["by_columns"] = by_columns[k["name"]]
     extra = ("device_ms", "library_device_ms", "without_clamp",
              "ms_per_step", "setup_ms", "by_n", "server_launches", "twin",
              "by_d", "constraints_launches", "lifecycle_launches",
              "autopilot_launches", "replicated_launches",
              "penalty_launches", "http_launches", "wide",
-             "big_cluster_launches")
+             "big_cluster_launches", "columns_launches", "by_columns")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Each ``csrc/*.cu`` file is compiled on first use by its own ``nvcc``
-process (all started together) into a shared library with a plain C
-interface under ``build/nomad_tpu_torch/`` at the repository root, and
-loaded with ``ctypes``. A library's file name carries a hash of its
-source, the shared headers and the flags, so an edited source is rebuilt
-and an unchanged one is reused. Every C entry point returns
+Each ``csrc/*.cu`` file is a shared library with a plain C interface,
+built on first use under ``build/nomad_tpu_torch/`` at the repository
+root and loaded with ``ctypes``. Its sources are that file and, where
+there is one, the file of the same name in ``csrc/wide/`` (the kernels'
+wide instances, past 8 resource columns, spreads or distinct_property
+constraints): each source is compiled to an object by its own ``nvcc``
+process, all started together, and a library's objects are linked once
+they are done. A library's file name carries a hash of its sources, the
+shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`launch` turns a non-zero
 code into an exception.
 
@@ -36,6 +40,7 @@ from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
+WIDE = CSRC / "wide"
 BUILD_DIR = PKG_DIR.parent / "build" / "nomad_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler",
@@ -136,20 +141,34 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list:
+    """A library's sources: ``csrc/<name>.cu`` and, where there is one,
+    its wide instances' ``csrc/wide/<name>.cu``."""
+    return [CSRC / f"{name}.cu"] + [p for p in (WIDE / f"{name}.cu",)
+                                    if p.exists()]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for p in sources(name) + sorted(CSRC.glob("*.cuh")):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libnt_{name}_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every missing library, one ``nvcc`` per source, all in
-    parallel. Returns {name: {"path", "seconds", "cached", "ptxas"}}."""
+    """Compile every missing library: one ``nvcc`` a source, all in
+    parallel, each to an object, then a link a library. Returns {name:
+    {"path", "seconds", "cached", "ptxas"}}."""
     names = tuple(names or LIBRARIES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
+    jobs = {}
     out: Dict[str, dict] = {}
     t0 = time.perf_counter()
     for name in names:
@@ -158,22 +177,32 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             out[name] = {"path": str(target), "seconds": 0.0, "cached": True,
                          "ptxas": ""}
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp),
-                                        str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
+        objs = [target.with_suffix(f".{i}.{os.getpid()}.o")
+                for i in range(len(sources(name)))]
+        jobs[name] = (target, objs, [
+            _run([_nvcc()] + compile_flags + ["-o", str(o), str(src)])
+            for o, src in zip(objs, sources(name))])
     failed = []
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+    for name, (target, objs, procs) in jobs.items():
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            failed.append(f"{name}:\n" + "\n".join(logs))
+            for o in objs:
+                o.unlink(missing_ok=True)
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        link = _run([_nvcc()] + ARCH_FLAGS + ["-shared", "-o", str(tmp)]
+                    + [str(o) for o in objs])
+        log = link.communicate()[0]
+        for o in objs:
+            o.unlink()
+        if link.returncode != 0:
+            failed.append(f"{name} (link):\n{log}")
             continue
         os.replace(tmp, target)
         out[name] = {"path": str(target),
                      "seconds": time.perf_counter() - t0, "cached": False,
-                     "ptxas": log}
+                     "ptxas": "\n".join(logs)}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return out

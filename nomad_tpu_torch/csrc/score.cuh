@@ -45,6 +45,18 @@
 // an integer below 8, exact in any order. The only node whose reschedule
 // term is present, the step's penalty node, is scored with score_node.
 //
+// The wide instance (kWide, chosen by the entry points where D >
+// kMaxDims, S > kMaxSpreads or P > kMaxProps; compiled in csrc/wide/)
+// holds no array sized by D, S or P: the
+// fit test is a conjunction whose order does not matter and the fit score
+// reads the cpu and memory columns alone, so it loops over the columns
+// from the node's accessor with the ask from the scalars in global memory;
+// the distinct_property checks are a conjunction too; and the spread tree
+// is summed by carry_tree, which merges equal-sized partial sums as each
+// leaf arrives: the halving tree's additions on the same operands, in
+// O(log S) partial sums. Shapes within the caps keep the narrow instance,
+// whose code is unchanged.
+//
 // Arithmetic: __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn and accurate powf,
 // built with --fmad=false and no fast math, so a score equals the plain
 // torch version's (tensor/kernels.py score_nodes_ref) bit for bit.
@@ -60,9 +72,13 @@
 
 namespace nt_score {
 
+// the narrow instance's caps: its register arrays are sized by them
 constexpr int kMaxDims = 8;
 constexpr int kMaxSpreads = 8;
 constexpr int kMaxProps = 8;
+// carry_tree's partial sums: 2^15 leaves; the value tables bound S far
+// below (28 bytes of shared memory a spread at the least)
+constexpr int kTreeLevels = 16;
 constexpr float kNeg = -1.0e30f;
 
 // Problem sizes and the per-launch scalars.
@@ -70,11 +86,38 @@ struct Dims {
   int n, d, s, v, p, vd;
 };
 
+// Whether a shape takes the wide instance
+__host__ __device__ inline bool dims_wide(const Dims& dm) {
+  return dm.d > kMaxDims || dm.s > kMaxSpreads || dm.p > kMaxProps;
+}
+
 struct Scalars {
   float tg_count;
   bool dh_job, dh_tg, spread_alg;
   float ask[kMaxDims];
+  const float* askp;  // ask[D] in global memory (the wide instance's)
 };
+
+// score_node's pairwise tree over S leaves (leaf(k), k < S), zero-padded
+// to the next power of two, by a carry stack: leaf i closes the subtrees
+// its trailing one bits name, each sum (left + right) the halving tree's
+// on the same operands; the total is the partial sum of the top level.
+template <class Leaf>
+__device__ __forceinline__ float carry_tree(int s, const Leaf& leaf) {
+  float part[kTreeLevels];
+  int width = 1, levels = 0;
+  while (width < s) {
+    width <<= 1;
+    ++levels;
+  }
+  for (int i = 0; i < width; ++i) {
+    float x = i < s ? leaf(i) : 0.0f;
+    int lv = 0;
+    for (; (i >> lv) & 1; ++lv) x = __fadd_rn(part[lv], x);
+    part[lv] = x;
+  }
+  return part[levels];
+}
 
 // The value tables in shared memory, and the per-spread min/max/any of
 // the current counts (recomputed before each step).
@@ -149,7 +192,7 @@ __device__ __forceinline__ float spread_boost(const Nodes& nd, int j, int k,
 }
 
 // B8 at one node (reference kernels.py:113-249).
-template <class Nodes>
+template <bool kWide = false, class Nodes>
 __device__ float score_node(const Nodes& nd, int j, const Dims& dm,
                             const Scalars& sc, const Tables& tb, int pen,
                             float lowest) {
@@ -157,7 +200,7 @@ __device__ float score_node(const Nodes& nd, int j, const Dims& dm,
   float nu0 = 0.0f, nu1 = 0.0f, a0 = 0.0f, a1 = 0.0f;
   for (int k = 0; k < dm.d; ++k) {
     const float a = nd.avail(j, k);
-    const float nu = __fadd_rn(nd.used(j, k), sc.ask[k]);
+    const float nu = __fadd_rn(nd.used(j, k), kWide ? sc.askp[k] : sc.ask[k]);
     ok = ok && (nu <= a);
     if (k == 0) { nu0 = nu; a0 = a; }
     if (k == 1) { nu1 = nu; a1 = a; }
@@ -183,17 +226,24 @@ __device__ float score_node(const Nodes& nd, int j, const Dims& dm,
   const bool dev_present = dev != 0.0f;
 
   // fixed pairwise tree over S, zero-padded to a power of two
-  float b[kMaxSpreads];
-  int width = 1;
-  while (width < dm.s) width <<= 1;
-  for (int k = 0; k < width; ++k) {
-    b[k] = k < dm.s ? spread_boost(nd, j, k, tb, dm.v, lowest) : 0.0f;
+  float spread_total;
+  if constexpr (kWide) {
+    spread_total = carry_tree(dm.s, [&](int k) {
+      return spread_boost(nd, j, k, tb, dm.v, lowest);
+    });
+  } else {
+    float b[kMaxSpreads];
+    int width = 1;
+    while (width < dm.s) width <<= 1;
+    for (int k = 0; k < width; ++k) {
+      b[k] = k < dm.s ? spread_boost(nd, j, k, tb, dm.v, lowest) : 0.0f;
+    }
+    while (width > 1) {
+      width >>= 1;
+      for (int k = 0; k < width; ++k) b[k] = __fadd_rn(b[2 * k], b[2 * k + 1]);
+    }
+    spread_total = b[0];
   }
-  while (width > 1) {
-    width >>= 1;
-    for (int k = 0; k < width; ++k) b[k] = __fadd_rn(b[2 * k], b[2 * k + 1]);
-  }
-  const float spread_total = b[0];
   const bool spread_present = spread_total != 0.0f;
 
   float divisor = 1.0f;
@@ -285,6 +335,7 @@ __device__ inline Scalars load_scalars(const float* scalars, int d) {
   sc.dh_tg = scalars[3] > 0.5f;
   sc.spread_alg = scalars[4] > 0.5f;
   for (int k = 0; k < kMaxDims; ++k) sc.ask[k] = k < d ? scalars[5 + k] : 0.0f;
+  sc.askp = scalars + 5;
   return sc;
 }
 
@@ -353,12 +404,47 @@ __device__ __forceinline__ NodeRow load_row(const Nodes& nd, int j, int d) {
   return r;
 }
 
-// The node's terms, operation for operation score_node's up to the
-// spread term, with no reschedule term.
+// The node's terms at any D (the wide instance): node_terms' operations
+// with the columns read from the accessor in a loop (columns 0 and 1 once
+// more for the fit score).
 template <class Nodes>
+__device__ __forceinline__ NodeTerms node_terms_wide(const Nodes& nd, int j,
+                                                     const Dims& dm,
+                                                     const Scalars& sc) {
+  bool ok = nd.feas(j);
+  for (int k = 0; k < dm.d; ++k) {
+    ok = ok && (__fadd_rn(nd.used(j, k), sc.askp[k]) <= nd.avail(j, k));
+  }
+  const int ptg = nd.ptg(j);
+  if (sc.dh_job && nd.pjob(j) != 0) ok = false;
+  if (sc.dh_tg && ptg != 0) ok = false;
+  const float fitness = nt_fit::fit_score_alg(
+      nd.avail(j, 0), nd.avail(j, 1), __fadd_rn(nd.used(j, 0), sc.askp[0]),
+      __fadd_rn(nd.used(j, 1), sc.askp[1]), sc.spread_alg);
+  const bool anti_present = ptg > 0;
+  const float anti =
+      __fdiv_rn(-__fadd_rn((float)ptg, 1.0f), fmaxf(sc.tg_count, 1.0f));
+  const float aff = nd.aff(j);
+  const bool aff_present = aff != 0.0f;
+  const float dev = nd.dev(j);
+  const bool dev_present = dev != 0.0f;
+  float head = fitness;
+  head = __fadd_rn(head, anti_present ? anti : 0.0f);
+  head = __fadd_rn(head, 0.0f);  // the reschedule term, absent
+  head = __fadd_rn(head, aff_present ? aff : 0.0f);
+  head = __fadd_rn(head, dev_present ? dev : 0.0f);
+  const unsigned div = 1u + (anti_present ? 1u : 0u) +
+                       (aff_present ? 1u : 0u) + (dev_present ? 1u : 0u);
+  return {head, (uint16_t)(div | (ok ? kOkLocal : 0u))};
+}
+
+// The node's terms, operation for operation score_node's up to the
+// spread term, with no reschedule term (node_terms_wide where kWide).
+template <bool kWide = false, class Nodes>
 __device__ __forceinline__ NodeTerms node_terms(const Nodes& nd, int j,
                                                 const Dims& dm,
                                                 const Scalars& sc) {
+  if constexpr (kWide) return node_terms_wide(nd, j, dm, sc);
   const NodeRow r = load_row(nd, j, dm.d);
   bool ok = r.feas_;
 #pragma unroll
@@ -414,6 +500,7 @@ __device__ __forceinline__ float lean_score(const float* head,
 }
 
 // One position's score from its cache and the step's value tables.
+template <bool kWide = false>
 __device__ __forceinline__ float cached_score(const NodeCache& c, int i,
                                               const Dims& dm,
                                               const float* boost,
@@ -423,6 +510,12 @@ __device__ __forceinline__ float cached_score(const NodeCache& c, int i,
   for (int k = 0; k < dm.p; ++k) {
     const unsigned vid = c.dv[k * c.stride + i];
     if (vid == kNoValue || !dpok[k * dm.vd + vid]) return kNeg;
+  }
+  if constexpr (kWide) {
+    return finish_score(c.head[i], meta, carry_tree(dm.s, [&](int k) {
+      const unsigned vid = c.sv[k * c.stride + i];
+      return vid == kNoValue ? -1.0f : boost[k * dm.v + vid];
+    }));
   }
   int width = 1;
   while (width < dm.s) width <<= 1;
@@ -499,11 +592,22 @@ __device__ inline void dp_entries(const Tables& tb, const Dims& dm,
 // warp k < S fills row k of boost (spread_row), the other threads dpok.
 // boost and dpok may be null where S or P is 0. `add`, where not null,
 // holds the last step's winner's value ids (S spread, then P property;
-// kNoValue where it lacks one), whose counts go up by one first.
+// kNoValue where it lacks one), whose counts go up by one first. The wide
+// instance takes more spreads than the block has warps: warp w fills rows
+// w, w + warps, ..., then every thread takes dpok entries.
+template <bool kWide = false>
 __device__ inline void value_tables(const Tables& tb, const Dims& dm,
                                     float lowest, float* boost,
                                     uint8_t* dpok, const uint16_t* add) {
   const int warp = threadIdx.x >> 5;
+  if constexpr (kWide) {
+    const int warps = (int)blockDim.x >> 5;
+    for (int k = warp; k < dm.s; k += warps) {
+      spread_row(tb, dm, k, lowest, boost, add);
+    }
+    dp_entries(tb, dm, dpok, add, (int)threadIdx.x, (int)blockDim.x);
+    return;
+  }
   if (warp < dm.s) {
     spread_row(tb, dm, warp, lowest, boost, add);
     return;

@@ -39,6 +39,14 @@ prefix of the node's victim columns, in one launch; ``preempt_pick``
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/``); on a CPU tensor it runs its plain torch version (``*_ref``),
 and on nothing else.
+
+The kernels take any count of resource columns (D), spreads (S) and
+distinct_property constraints (P), as the reference does: up to 8 of
+each a narrow instance (a node's columns and the spread tree in
+registers), above a wide one (loops over the columns, the tree by a
+carry stack), chosen by the library from the shape. The one shape a
+wrapper refuses is one whose tables exceed a CTA's shared memory: it
+raises ValueError, naming the bytes, before anything is launched.
 """
 
 from __future__ import annotations
@@ -264,12 +272,53 @@ def solve_bulk_multi(used, available, feas, aff, ask, k, tg_count, seeds,
 # the per-eval program: B8 score_nodes, B9 solve_task_group, B10
 # ---------------------------------------------------------------------------
 
-# the one-CTA scan keeps these per-node arrays in its step loop's
-# registers; wider groups raise rather than run another algorithm
-MAX_DIMS = 8
-MAX_SPREADS = 8
-MAX_PROPS = 8
 _INT32_MAX = 2147483647
+
+# a CTA's shared memory on the H100, and what the per-eval scans (B9,
+# B10, B16) leave of it beside their static arrays
+SMEM_BYTES = 232448
+SCAN_SMEM_BYTES = SMEM_BYTES - 1024
+# the kernels' narrow instance takes up to 8 columns, 8 spreads and 8
+# distinct_property constraints (csrc/score.cuh kMaxDims, kMaxSpreads,
+# kMaxProps); a wider shape takes the wide instance
+NARROW = 8
+
+
+def _r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def is_wide(d: int, s: int = 0, p: int = 0) -> bool:
+    """Whether a shape takes the kernels' wide instance (score.cuh
+    ``dims_wide``; B7 and B12 by D alone)."""
+    return max(d, s, p) > NARROW
+
+
+def table_bytes(s: int, v: int, p: int, vd: int) -> int:
+    """The count tables a CTA of B9, B10, B11 and B16 holds (score.cuh
+    ``table_bytes``): counts and desired values (S x V), the count of each
+    distinct_property value (P x Vd), five floats a spread and the P
+    limits."""
+    return 4 * (s * v + p * vd) + 4 * (s * v + 5 * s + p)
+
+
+def scan_smem_bytes(d: int, s: int, v: int, p: int, vd: int) -> int:
+    """B9's least shared memory (csrc/task_group.cu ``scan_smem`` with
+    the caches in the scratch): the count tables, then the wide
+    instance's winner ids (S + P u16)."""
+    if is_wide(d, s, p):
+        return _r16(table_bytes(s, v, p, vd)) + _r16(2 * (s + p))
+    return table_bytes(s, v, p, vd)
+
+
+def check_smem(what: str, need: int, limit: int = SCAN_SMEM_BYTES) -> None:
+    """Raise ValueError where a launch's shared memory would exceed a
+    CTA's: the one shape the kernels refuse."""
+    if need > limit:
+        raise ValueError(
+            f"{what}: the shape needs {need:,} bytes of shared memory in "
+            f"one CTA (its count tables), above the {limit:,} the kernel "
+            f"has")
 
 
 def pairwise_sum_ref(v: torch.Tensor) -> torch.Tensor:
@@ -551,11 +600,6 @@ def _layout(node_mat, spread_node, spread_tab, spread_meta, dp_node, dp_tab,
             raise ValueError(f"{what}: {name} must be a contiguous f32 "
                              f"{shape} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if d > MAX_DIMS or s > MAX_SPREADS or p > MAX_PROPS:
-        raise NotImplementedError(
-            f"{what}: {d} resource columns, {s} spreads, {p} "
-            f"distinct_property constraints; the kernel holds at most "
-            f"{MAX_DIMS}, {MAX_SPREADS} and {MAX_PROPS}")
     return n, d, s, v, p, vd
 
 
@@ -575,6 +619,7 @@ def score_nodes_packed(node_mat, spread_node, spread_tab, spread_meta,
     packed = (node_mat, spread_node, spread_tab, spread_meta, dp_node,
               dp_tab, scalars)
     n, d, s, v, p, vd = _layout(*packed, what="score_nodes_packed")
+    check_smem("score_nodes_packed", table_bytes(s, v, p, vd))
     out = torch.empty(n, dtype=torch.float32, device=node_mat.device)
     fn = _ext.entry("nt_score_nodes")
     _ext.launch(
@@ -633,6 +678,7 @@ def solve_task_group_fused(node_mat, step_mat, spread_node, spread_tab,
             or not step_mat.is_contiguous()):
         raise ValueError("solve_task_group_fused: step_mat must be a "
                          "contiguous f32 (K, 2) tensor on the card")
+    check_smem("solve_task_group_fused", scan_smem_bytes(d, s, v, p, vd))
     # the permuted columns and carry, the cached terms where they do not
     # fit in shared memory
     words = _ext.scratch_words("nt_solve_task_group_scratch_words",
@@ -857,15 +903,32 @@ def solve_bulk_fused_ref(available, feasible, aff, dyn, ask, k_total,
         batch=batch, n_steps=n_steps)
 
 
-def _bulk_dims(what: str, available) -> tuple:
+def bulk_scan_smem_bytes(n: int, s: int, v: int) -> int:
+    """B11's least shared memory (csrc/bulk_scan.cu ``nt_bulk_scan`` with
+    the cached terms in the scratch): the count tables, then the
+    reductions' words (11 a warp) and, up to 16,384 positions, each
+    slot's key and 16-bit cap, above it threshold_radix's histogram."""
+    threads = 1024 if n >= 1024 else (n + 31) // 32 * 32
+    nw = threads // 32
+    if n > 16384:
+        work = 4 * (11 * nw + 2 * 256 + 4)
+    else:
+        slots = n if n <= 1024 else -(-n // 1024) * 1024
+        work = 4 * 11 * nw + 4 * slots + 4 * ((slots + 1) // 2)
+    return table_bytes(s, v, 0, 1) + work
+
+
+def _bulk_dims(what: str, available, s: int = 0, v: int = 1) -> tuple:
     """(n, d) of a bulk scan's node matrix; a node count above what the
-    one-CTA kernels take raises here. The kernel's entry refuses the
-    other shapes it cannot take (columns, spreads, shared memory, batch)."""
+    one-CTA kernels take, or spread tables above a CTA's shared memory,
+    raise here. The kernel's entry refuses a batch above its 16-bit cap
+    field."""
     n, d = available.shape
     if n > MAX_FILL_NODES:
         raise NotImplementedError(
             f"{what}: {n} padded nodes; the one-CTA scan holds at most "
             f"{MAX_FILL_NODES} (ROADMAP A11d: the node ceilings)")
+    check_smem(what, bulk_scan_smem_bytes(n, s, v), SMEM_BYTES)
     return n, d
 
 
@@ -930,7 +993,7 @@ def solve_bulk(available, used0, ask, feasible, placed_tg0, placed_job0,
         raise ValueError(f"solve_bulk: unsupported device "
                          f"{available.device}")
     s, v = spread_counts0.shape
-    n, d = _bulk_dims("solve_bulk", available)
+    n, d = _bulk_dims("solve_bulk", available, s, v)
     dev = available.device
     f32, b8, i32 = torch.float32, torch.bool, torch.int32
     for name, t, dtype, shape in (
@@ -1004,11 +1067,6 @@ def solve_bulk_fused(available, feasible, aff, dyn, ask, k_total, tg_count,
 # ---------------------------------------------------------------------------
 # preemption: B7 preempt_solve, B12 preempt_pick
 # ---------------------------------------------------------------------------
-
-# the one-CTA preemption kernels keep a node's resource columns in
-# registers
-MAX_PREEMPT_DIMS = 8
-
 
 def preempt_score_ref(net_prio: torch.Tensor) -> torch.Tensor:
     """``1 / (1 + exp(0.0048 * (net_prio - 2048)))`` in float32, each
@@ -1106,12 +1164,21 @@ def preempt_pick_ref(available, used0, evictable0, ask, feasible, net_prio,
     return torch.stack(picks).to(torch.int32)
 
 
-def _preempt_dims(what: str, available) -> tuple:
+def preempt_smem_bytes(n: int, d: int, victims: bool) -> int:
+    """B7's (``victims``) or B12's least shared memory (csrc/preempt.cu,
+    the keys in the scratch): the segment minima of 32 nodes each, and
+    B7's wide instance's rows of the chosen node (12 bytes a column; the
+    narrow instance, up to 8 columns, keeps them in registers)."""
+    rows = 12 * d if victims and is_wide(d) else 0
+    return 8 * -(-n // 32) + rows
+
+
+def _preempt_dims(what: str, available, victims: bool) -> tuple:
     n, d = available.shape
-    if not 2 <= d <= MAX_PREEMPT_DIMS:
-        raise NotImplementedError(
-            f"{what}: {d} resource columns; the kernel takes 2 to "
-            f"{MAX_PREEMPT_DIMS}")
+    if d < 2:
+        raise ValueError(f"{what}: {d} resource columns; the fit score "
+                         f"reads the cpu and memory columns")
+    check_smem(what, preempt_smem_bytes(n, d, victims), SMEM_BYTES)
     return n, d
 
 
@@ -1133,7 +1200,7 @@ def preempt_solve(available, used0, ask, feasible, net_prio, active, v_prio,
     if not available.is_cuda:
         raise ValueError(f"preempt_solve: unsupported device "
                          f"{available.device}")
-    n, d = _preempt_dims("preempt_solve", available)
+    n, d = _preempt_dims("preempt_solve", available, True)
     v = v_elig.shape[1]
     k = active.shape[0]
     dev = available.device
@@ -1182,7 +1249,7 @@ def preempt_pick(available, used0, evictable0, ask, feasible, net_prio,
     if not available.is_cuda:
         raise ValueError(f"preempt_pick: unsupported device "
                          f"{available.device}")
-    n, d = _preempt_dims("preempt_pick", available)
+    n, d = _preempt_dims("preempt_pick", available, False)
     k = active.shape[0]
     dev = available.device
     f32, b8 = torch.float32, torch.bool

@@ -65,8 +65,9 @@ from ..device import DeviceLike, resolve
 from .batch_solver import (MAX_ROUNDS, PORTFOLIO, TOP_R, _jitter_his,
                            _price_eps, bid_scores, resolve_round, topr_ref)
 from .kernels import (MAX_FILL_NODES, NEG, TIE_JITTER, _check_cuda, _layout,
-                      fill_score_cap, fit_scores, pack_solve_tensors,
-                      pairwise_sum_ref, preempt_score_ref, score_nodes_ref)
+                      _r16, check_smem, fill_score_cap, fit_scores, is_wide,
+                      pack_solve_tensors, pairwise_sum_ref,
+                      preempt_score_ref, score_nodes_ref, table_bytes)
 from .prng import _span, jitter_fold_ref, jitter_ref
 
 MAX_SHARDS = 64
@@ -940,6 +941,20 @@ def solve_task_group_sharded(mesh: NodeMesh, args: tuple):
     return _task_group_shard_solve(mesh, args)
 
 
+def task_group_shard_smem_bytes(d: int, s: int, v: int, p: int,
+                                vd: int) -> int:
+    """B16's least shared memory a CTA (csrc/task_group_shard.cu
+    ``base_bytes`` + ``wide_bytes``, the region in the scratch): the
+    count tables, the boost and below-limit tables, the step tile of 512
+    steps, and the wide instance's commit row (D f32) and winner ids
+    (S + P u16)."""
+    base = _r16(_r16(table_bytes(s, v, p, vd)) + 4 * s * v
+                + 4 * -(-(p * vd) // 4) + 2 * 4 * 2 * 256 + 2 * 256)
+    if is_wide(d, s, p):
+        base += _r16(4 * d + 2 * (s + p))
+    return base
+
+
 def _task_group_shard_solve(mesh: NodeMesh, args: tuple):
     """B16 on a CUDA mesh: the arguments padded to the mesh and packed
     once in B9's layout (with node_mat's last column the rows' tie-break
@@ -956,6 +971,8 @@ def _task_group_shard_solve(mesh: NodeMesh, args: tuple):
     pack = packs[mesh.devices[0]]
     n_all, d, s_sp, v, p, vd = _layout(pack[0], *pack[2:],
                                        what="solve_task_group_sharded")
+    check_smem("solve_task_group_sharded",
+               task_group_shard_smem_bytes(d, s_sp, v, p, vd))
     n = mesh.n_loc(n_all)
     w = 2 * d + 6
 

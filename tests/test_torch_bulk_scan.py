@@ -48,7 +48,9 @@ from nomad_tpu_torch.tensor import prng
 from nomad_tpu_torch.tensor import solver as port_solver
 from nomad_tpu_torch.testing import Harness as PortHarness
 
+from test_torch_ext import cards, stub_libs  # noqa: F401  (fixtures)
 from test_torch_pipeline import fingerprint, job_record, node_record
+from test_torch_preempt_loop import fake_card  # noqa: F401  (a fixture)
 
 F32 = np.float32
 STEP = 256
@@ -107,23 +109,32 @@ def test_permutation_wrapper_runs_the_plain_version_on_the_cpu():
 # B11: the generic scan and the fused scan
 # --------------------------------------------------------------------------
 
-def bulk_fixture(name, seed=0, n=64):
+def bulk_fixture(name, seed=0, n=64, d=4, s=None, v=4):
     """One generic bulk solve's arguments, as the reference's positional
-    list (f32 floats, int32 ids and counts, bool masks), with a hazard."""
+    list (f32 floats, int32 ids and counts, bool masks), with a hazard.
+    ``d`` above 4 adds count columns (device instances, cores: 4-16 a
+    node, 0-2 used, an ask of 1 or 2); ``s`` sets the spread count of the
+    spread fixtures (2 by default) over ``v`` values."""
     rng = np.random.default_rng(seed)
-    s, v = (2, 4) if name in ("spread_even", "spread_targets") else (0, 1)
+    spreads = name in ("spread_even", "spread_targets")
+    s, v = ((2 if s is None else s), v) if spreads else (0, 1)
     real = n - n // 8
-    avail = np.zeros((n, 4), F32)
-    used = np.zeros((n, 4), F32)
+    avail = np.zeros((n, d), F32)
+    used = np.zeros((n, d), F32)
     if name == "identical":
-        avail[:real] = [4000, 8192, 100_000, 1000]
+        avail[:real, :4] = [4000, 8192, 100_000, 1000]
     else:
         avail[:real, 0] = rng.choice([2000, 4000, 8000], real)
         avail[:real, 1] = rng.choice([4096, 8192], real)
-        avail[:real, 2:] = [100_000, 1000]
+        avail[:real, 2:4] = [100_000, 1000]
         used[:real, 0] = rng.integers(0, 10, real) * 100
         used[:real, 1] = rng.integers(0, 10, real) * 64
-    ask = np.array([100, 64, 10, 0], F32)
+    ask = np.zeros(d, F32)
+    ask[:4] = [100, 64, 10, 0]
+    if d > 4:
+        avail[:real, 4:] = rng.choice([4, 8, 16], (real, d - 4))
+        used[:real, 4:] = rng.integers(0, 3, (real, d - 4))
+        ask[4:] = rng.choice([1.0, 2.0], d - 4)
     if name == "zero_ask":
         ask[:] = 0.0
     feas = np.zeros(n, bool)
@@ -191,6 +202,28 @@ def test_solve_bulk_ref_equals_jax(name, seed):
         # one per node per step, at most one per node under distinct_hosts
         assert got.max() <= (1 if name != "spread_alg" else
                              n_steps_for(args[14]))
+
+
+# past the narrow instance's caps (the wide one on the card): d 9 and 12,
+# 9 and 16 spreads, and d 10 with 9 spreads of explicit targets
+WIDE_BULK = {"d9": ("binpack_fill", dict(d=9)), "d12": ("dh_tg", dict(d=12)),
+             "s9": ("spread_even", dict(s=9)),
+             "s16": ("spread_targets", dict(s=16, v=6)),
+             "d10_s9": ("spread_targets", dict(d=10, s=9))}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_BULK))
+def test_solve_bulk_ref_equals_jax_past_eight(case):
+    name, kw = WIDE_BULK[case]
+    args = bulk_fixture(name, 2, **kw)
+    want = _jax_bulk(args)
+    got = _port_bulk(args)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() <= args[14]
+    if "d" in kw:      # the count columns bind: fewer than asked, or capped
+        cap = np.floor((args[0][:, 4:] - args[1][:, 4:])
+                       / args[2][4:]).min(axis=1)
+        assert (got <= np.maximum(cap, 0)).all()
 
 
 def fused_fixture(n, k, seed, full=False):
@@ -275,6 +308,57 @@ def test_bulk_kernel_limits_raise_before_any_launch():
         prng.permutation(2 ** 32, 8, "cuda")
     for n in (16384, 32768, 65536):
         assert kernels._bulk_dims("solve_bulk", big[:n]) == (n, 4)
+
+
+@pytest.fixture
+def bulk_card(fake_card, monkeypatch):
+    """fake_card with a copy to the card the identity (the wrapper moves
+    its scalars' head to the ask's device)."""
+    to = torch.Tensor.to
+
+    def to_card(x, *a, **kw):
+        dev = a[0] if a else kw.get("device")
+        if isinstance(dev, torch.device) and dev.type == "cuda":
+            return x
+        return to(x, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "to", to_card)
+    yield fake_card
+
+
+@pytest.mark.parametrize("case", ["d9", "s9"])
+def test_solve_bulk_launches_past_eight(bulk_card, case):
+    """d 9 and s 9: one nt_bulk_scan (the library takes the wide
+    instance) with the sizes, the budget and a scratch of the library's
+    size; nothing is refused."""
+    name, kw = WIDE_BULK[case]
+    args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in bulk_fixture(name, 0, **kw)]
+    query = _ext.entry("nt_bulk_scan_scratch_words")
+    query.code = 71
+    before = _ext.COUNTS.snapshot()["launches"]["bulk_scan"]
+    out = kernels.solve_bulk(*args, batch=STEP, n_steps=3)
+    (call,) = bulk_card["bulk_scan"].fns["nt_bulk_scan"].calls
+    n, d = args[0].shape
+    s, v = args[10].shape
+    assert (d, s) == ((9, 0) if case == "d9" else (4, 9))
+    assert call[0] == args[0].data_ptr() and call[11] == out.data_ptr()
+    assert call[12:20] == (n, d, s, v, args[14], STEP, 3, 71)
+    assert query.calls == [(n, d, s, v)]
+    assert _ext.COUNTS.snapshot()["launches"]["bulk_scan"] == before + 1
+
+
+def test_solve_bulk_refuses_tables_past_shared_memory(bulk_card):
+    """8 spread tables of 4,096 values exceed a CTA's shared memory:
+    ValueError naming the bytes, before anything launches; 8 of 3,000
+    pass the check."""
+    args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in bulk_fixture("spread_even", 0, n=1024, s=8, v=4096)]
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        kernels.solve_bulk(*args, batch=STEP, n_steps=3)
+    assert not bulk_card["bulk_scan"].fns.get("nt_bulk_scan")
+    assert kernels.bulk_scan_smem_bytes(1024, 8, 3000) <= kernels.SMEM_BYTES
+    assert kernels.bulk_scan_smem_bytes(1024, 8, 4096) > kernels.SMEM_BYTES
 
 
 def test_every_cuda_source_is_a_library():

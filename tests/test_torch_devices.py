@@ -23,6 +23,8 @@ from nomad_tpu.scheduler import devices as ref_devices
 from nomad_tpu.scheduler.context import EvalContext as RefEvalContext
 from nomad_tpu.structs import Affinity as RefAffinity
 from nomad_tpu.structs import Constraint as RefConstraint
+from nomad_tpu.structs import Spread as RefSpread
+from nomad_tpu.structs import SpreadTarget as RefSpreadTarget
 from nomad_tpu.structs.alloc import Allocation as RefAllocation
 from nomad_tpu.structs.operator import SchedulerConfiguration
 from nomad_tpu.structs.resources import NodeDeviceResource as RefDeviceGroup
@@ -41,9 +43,11 @@ from nomad_tpu_torch.structs.alloc import Allocation
 from nomad_tpu_torch.structs.resources import (NodeDeviceResource, NumaNode,
                                                RequestedDevice)
 from nomad_tpu_torch.tensor import cluster as port_cluster
+from nomad_tpu_torch.tensor import placer as port_placer
 from nomad_tpu_torch.tensor import solver as port_solver
 from nomad_tpu_torch.testing import Harness as PortHarness
 
+import chip_smoke
 from test_torch_bulk_scan import SCAN_SCORE_ATOL, SCORE_ATOL, over_capacity
 from test_torch_pipeline import fingerprint, node_record
 from test_torch_spread_pipeline import job_record
@@ -514,3 +518,41 @@ def _stopped(a):
     out = a.copy_for_update()
     out.desired_status = "stop"
     return out
+
+
+# --------------------------------------------------------------------------
+# past the kernels' narrow caps: chip_smoke.py's "columns" groups
+# --------------------------------------------------------------------------
+
+REF_COLUMNS = types.SimpleNamespace(
+    mock=ref_mock, Group=RefDeviceGroup, Numa=RefNumaNode,
+    Ask=RefRequestedDevice, Spread=RefSpread, SpreadTarget=RefSpreadTarget,
+    Constraint=RefConstraint)
+
+
+@pytest.mark.parametrize("step", sorted(chip_smoke.COL_SHAPES))
+def test_columns_shapes_fingerprint_equals_reference(step, services,
+                                                     monkeypatch):
+    """chip_smoke.py's "columns" groups on 128 nodes under "tpu-binpack",
+    each past the narrow instance's caps (step 1 d 11 with six device
+    asks; step 2 12 spreads and 9 distinct_property constraints, two
+    binding; step 3 d 10, 9 spreads, 2 properties): the reference's
+    Harness and the port's give the same allocs, nodes, device instances
+    and cores (run_both), through one B9 (plain) call a job at that
+    shape, and the phase's gates hold on the port's store."""
+    shapes = []
+    real = port_placer.solve_task_group_fused
+
+    def spy(*packed):
+        d = (packed[0].shape[1] - 6) // 2
+        shapes.append((d, packed[4].shape[0], packed[5].shape[0] // 2))
+        return real(*packed)
+
+    monkeypatch.setattr(port_placer, "solve_task_group_fused", spy)
+    nodes = chip_smoke.columns_nodes(REF_COLUMNS, 128)
+    job = chip_smoke.columns_jobs(REF_COLUMNS, counts=(40, 40, 24),
+                                  tag=f"cols{step}")[step - 1]
+    _, h, jobs = run_both(nodes, [job], "tpu-binpack", f"cols{step}")
+    assert shapes == [chip_smoke.COL_SHAPES[step]]
+    snap = h.store.snapshot()
+    chip_smoke.columns_gates(snap, list(snap.nodes()), jobs, f"step {step}")

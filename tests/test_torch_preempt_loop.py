@@ -236,12 +236,18 @@ def all_neg_problem(n=40, k=96, v=8, d=3):
             v_prio, v_vec, v_elig, v_flag)
 
 
+# past the narrow instance's 8 columns (the wide one on the card): d 9,
+# 12 and 33, with more victim columns than a warp's 32 at d 12
+WIDE = {"d9": dict(d=9), "d12": dict(d=12, v=40), "d33": dict(d=33)}
+
 FIXTURES = ([(f"seed{s}", lambda s=s: random_victim_problem(s))
              for s in SEEDS]
             + [(e, lambda e=e: edge_problem(e)) for e in EDGES]
             + [(f"n{n}", lambda n=n: ragged_problem(n))
                for n in (1, 33, 1000)]
-            + [("allneg", all_neg_problem)])
+            + [("allneg", all_neg_problem)]
+            + [(name, lambda kw=kw: random_victim_problem(7, **kw))
+               for name, kw in WIDE.items()])
 
 
 @pytest.mark.parametrize("name,make", FIXTURES, ids=[f for f, _ in FIXTURES])
@@ -338,3 +344,44 @@ def test_preempt_solve_is_one_launch_with_its_library_sized_scratch(
     assert query.calls == [(8, 3)]
     assert _ext.COUNTS.snapshot()["launches"]["preempt_solve"] == before + 1
     assert victims.shape == (4, 512) and victims.dtype == torch.bool
+
+
+def test_preempt_solve_launches_past_eight_columns(fake_card):
+    """d 9: one nt_preempt_solve (the library takes the wide instance)
+    with the sizes and a scratch of the library's size; nothing is
+    refused."""
+    args = [torch.from_numpy(np.asarray(a))
+            for a in random_victim_problem(0, d=9)]
+    query = _ext.entry("nt_preempt_solve_scratch_words")
+    query.code = 91
+    before = _ext.COUNTS.snapshot()["launches"]["preempt_solve"]
+    picks, victims, flagged, scores = kernels.preempt_solve(*args)
+    (call,) = fake_card["preempt"].fns["nt_preempt_solve"].calls
+    inputs = [a for i, a in enumerate(args) if i != 6]
+    assert call[:9] == tuple(a.data_ptr() for a in inputs)
+    assert call[10:14] == (picks.data_ptr(), victims.data_ptr(),
+                           flagged.data_ptr(), scores.data_ptr())
+    assert call[14:] == (24, 8, 12, 9, 91, 1000)   # then the stream
+    assert query.calls == [(24, 9)]
+    assert _ext.COUNTS.snapshot()["launches"]["preempt_solve"] == before + 1
+
+
+def test_preempt_solve_refuses_only_past_shared_memory(fake_card):
+    """The wide instance keeps 12 bytes a column of the chosen node in
+    shared memory beside the segment minima: 20,000 columns exceed a
+    CTA's and raise ValueError naming the bytes, as does a single column
+    (the fit score reads two); neither launches."""
+    for d in (20000, 1):
+        n, v, k = 1, 1, 2
+        args = [torch.ones((n, d)), torch.zeros((n, d)), torch.ones(d),
+                torch.ones(n, dtype=torch.bool), torch.zeros(n),
+                torch.ones(k, dtype=torch.bool), None,
+                torch.zeros((n, v, d)), torch.ones((n, v), dtype=torch.bool),
+                torch.zeros((n, v), dtype=torch.bool)]
+        with pytest.raises(ValueError, match=("bytes of shared memory"
+                                              if d > 1 else "columns")):
+            kernels.preempt_solve(*args)
+    assert not fake_card["preempt"].fns.get("nt_preempt_solve")
+    assert kernels.preempt_smem_bytes(1, 20000, True) > kernels.SMEM_BYTES
+    assert kernels.preempt_smem_bytes(1024, 9, True) == 8 * 32 + 12 * 9
+    assert kernels.preempt_smem_bytes(1024, 8, True) == 8 * 32

@@ -34,7 +34,7 @@ from test_torch_ext import cards, stub_libs  # noqa: F401  (fixtures)
 from test_torch_preempt import (EDGES, SEEDS, _pick_args, edge_problem,
                                 random_victim_problem)
 from test_torch_preempt_loop import fake_card  # noqa: F401  (a fixture)
-from test_torch_preempt_loop import (LANES, MASK32, all_neg_problem,
+from test_torch_preempt_loop import (LANES, MASK32, WIDE, all_neg_problem,
                                      key_score, order_keys, ragged_problem,
                                      tree)
 
@@ -146,7 +146,10 @@ FIXTURES = ([(f"seed{s}", lambda s=s: _pick_args(random_victim_problem(s)))
             + [(f"n{n}", lambda n=n: _pick_args(ragged_problem(n)))
                for n in (1, 33, 1000)]
             + [("parity", parity_problem), ("inactive", inactive_problem),
-               ("allneg", lambda: _pick_args(all_neg_problem()))])
+               ("allneg", lambda: _pick_args(all_neg_problem()))]
+            + [(name, lambda kw=kw: _pick_args(random_victim_problem(7,
+                                                                     **kw)))
+               for name, kw in WIDE.items()])
 
 
 @pytest.mark.parametrize("name,make", FIXTURES, ids=[f for f, _ in FIXTURES])
@@ -221,9 +224,36 @@ def test_preempt_pick_is_one_launch_with_its_library_sized_scratch(
     assert _ext.COUNTS.snapshot()["launches"]["preempt_pick"] == before + 1
 
 
-def test_preempt_pick_refuses_a_ninth_resource_column(fake_card):
+def test_preempt_pick_launches_at_a_ninth_resource_column(fake_card):
+    """d 9: one nt_preempt_pick (the library takes the wide instance),
+    with the sizes and a scratch of the library's size."""
     args = [torch.from_numpy(np.asarray(a))
             for a in _pick_args(random_victim_problem(0, d=9))]
-    with pytest.raises(NotImplementedError, match="2 to 8"):
-        kernels.preempt_pick(*args)
+    query = _ext.entry("nt_preempt_pick_scratch_words")
+    query.code = 97
+    before = _ext.COUNTS.snapshot()["launches"]["preempt_pick"]
+    picks = kernels.preempt_pick(*args)
+    (call,) = fake_card["preempt"].fns["nt_preempt_pick"].calls
+    assert call[:7] == tuple(a.data_ptr() for a in args)
+    assert call[8] == picks.data_ptr()
+    assert call[9:13] == (24, 12, 9, 97)        # then the stream
+    assert query.calls == [(24, 9)]
+    assert _ext.COUNTS.snapshot()["launches"]["preempt_pick"] == before + 1
+
+
+def test_preempt_pick_refuses_only_past_shared_memory(fake_card):
+    """The segment minima (8 bytes a 32 nodes) of 929,793 nodes exceed a
+    CTA's shared memory: ValueError naming the bytes; a single column
+    (the fit score reads two) raises too; neither launches. 929,792
+    nodes pass the check."""
+    k = 2
+    for n, d in ((929_793, 2), (8, 1)):
+        args = [torch.ones((n, d)), torch.zeros((n, d)), torch.zeros((n, d)),
+                torch.ones(d), torch.ones(n, dtype=torch.bool),
+                torch.zeros(n), torch.ones(k, dtype=torch.bool)]
+        with pytest.raises(ValueError, match=("bytes of shared memory"
+                                              if d > 1 else "columns")):
+            kernels.preempt_pick(*args)
     assert not fake_card["preempt"].fns.get("nt_preempt_pick")
+    assert kernels.preempt_smem_bytes(929_792, 40, False) == (
+        kernels.SMEM_BYTES)

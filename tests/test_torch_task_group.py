@@ -38,7 +38,9 @@ from nomad_tpu_torch.scheduler.context import EvalContext as PortEvalContext
 from nomad_tpu_torch.state import StateStore as PortStateStore
 from nomad_tpu_torch.tensor import cluster as port_cluster
 from nomad_tpu_torch.tensor import kernels
+from test_torch_ext import cards, stub_libs  # noqa: F401  (fixtures)
 from test_torch_pipeline import node_record
+from test_torch_preempt_loop import fake_card  # noqa: F401  (a fixture)
 from test_torch_spread_pipeline import job_record
 
 F32 = np.float32
@@ -437,9 +439,15 @@ def _scan_both(packed):
     dict(seed=6, n=64, n_real=40, k=64, k_active=60, dh_tg=True),
     # device and core columns with a device-affinity sub-score: d = 6 on
     # the lean shape (one spread, no distinct_property: config 5's) and
-    # on the full one, d = 8 (MAX_DIMS) on the full one
+    # on the full one, d = 8 (the narrow instance's widest) on the full one
     dict(seed=7, extra=2, s=1, p=0), dict(seed=8, extra=2, s=0, p=0),
     dict(seed=9, extra=2), dict(seed=10, extra=4, s=3, v=16, p=1),
+    # past the narrow instance (the wide one on the card): d 9 and 12 from
+    # device and core columns, 9 and 16 spreads, 9 distinct_property
+    # constraints, and all three at once
+    dict(seed=11, extra=5), dict(seed=12, extra=8, s=1, p=0),
+    dict(seed=13, s=9, v=16), dict(seed=14, s=16, v=8),
+    dict(seed=15, p=9, vd=6), dict(seed=16, extra=6, s=9, v=12, p=9, vd=5),
 ])
 def test_scan_plain_matches_jax(case):
     packed = _scan_fixture(**case)
@@ -495,6 +503,50 @@ def test_pack_and_pairwise_match_the_reference():
         np.testing.assert_array_equal(got, want)
 
 
+def carry_tree_ref(v: torch.Tensor) -> torch.Tensor:
+    """csrc/score.cuh ``carry_tree`` (the wide instance's spread tree) in
+    plain torch: leaves in order, zero-padded to the next power of two;
+    leaf i merges the partial sums its trailing one bits name, each sum
+    left + right; the total is the top level's partial sum."""
+    s = v.shape[0]
+    width, levels = 1, 0
+    while width < s:
+        width, levels = width * 2, levels + 1
+    part = [None] * (levels + 1)
+    for i in range(width):
+        x = v[i] if i < s else v.new_zeros(v.shape[1:])
+        lv = 0
+        while (i >> lv) & 1:
+            x = part[lv] + x
+            lv += 1
+        part[lv] = x
+    return part[levels]
+
+
+def _bits(x):
+    return np.asarray(x, F32).view(np.int32)
+
+
+def test_carry_tree_equals_the_pairwise_tree():
+    """The wide instance's carry stack gives the reference's halving tree
+    bit for bit (``_pairwise_sum_xp``, kernels.py:91-110) at every S from
+    0 to 70, on values with -0.0, exact zeros, -1.0 (a node lacking a
+    value) and magnitudes far apart (so the add order shows)."""
+    rng = np.random.default_rng(5)
+    for s in range(71):
+        v = rng.standard_normal((s, 9)).astype(F32)
+        v *= F32(10.0) ** rng.integers(-6, 7, (s, 9)).astype(F32)
+        v[rng.random((s, 9)) < 0.2] = F32(-0.0)
+        v[rng.random((s, 9)) < 0.1] = F32(0.0)
+        v[rng.random((s, 9)) < 0.1] = F32(-1.0)
+        want = np.asarray(ref_kernels._pairwise_sum_xp(jnp, jnp.asarray(v)))
+        got = carry_tree_ref(torch.from_numpy(v)).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want), f"S {s}")
+        np.testing.assert_array_equal(
+            _bits(got), _bits(kernels.pairwise_sum_ref(torch.from_numpy(v))),
+            f"S {s}")
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     packed = [torch.from_numpy(a) for a in _scan_fixture(0, n=64, n_real=60,
                                                          k=16, k_active=16)]
@@ -532,7 +584,10 @@ def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
     left; "penalty" the even spread with a penalty node at most steps;
     "devices" the even spread with two device/core count columns (d = 6)
     and a device-affinity sub-score, config 5's lean shape; "devices_wide"
-    four such columns (d = 8), three spreads and a distinct_property."""
+    four such columns (d = 8), three spreads and a distinct_property;
+    "wide" the wide instance's shape: eight such columns (d = 12), nine
+    spreads (one with targets, one missing on some nodes) and nine
+    distinct_property constraints."""
     rng = np.random.default_rng(seed)
     avail = np.zeros((n, 4))
     avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
@@ -555,8 +610,8 @@ def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
     dp = dict(dp_val_id=np.zeros((0, n)), dp_val_ok=np.zeros((0, n), bool),
               dp_counts0=np.zeros((0, 1)), dp_limit=np.zeros(0))
     ask, dev = np.array([100.0, 64.0, 300.0, 0.0]), None
-    if variant in ("devices", "devices_wide"):
-        extra = 2 if variant == "devices" else 4
+    if variant in ("devices", "devices_wide", "wide"):
+        extra = {"devices": 2, "devices_wide": 4, "wide": 8}[variant]
         cap, xused, xask, dev = _device_columns(rng, n, real, extra)
         avail = np.concatenate([avail, cap], axis=1)
         used = np.concatenate([used, xused], axis=1)
@@ -573,6 +628,24 @@ def _identity_fixture(variant, seed=0, n=256, real=240, k=32):
                   dp_val_ok=(np.arange(n) < real - 3)[None, :],
                   dp_counts0=rng.integers(0, 3, (1, 8)),
                   dp_limit=np.array([9.0]))
+    if variant == "wide":
+        mods = (20, 4, 3, 5, 7, 2, 11, 6, 9)
+        s = len(mods)
+        svid = np.stack([np.arange(n) % m for m in mods]).astype(float)
+        sok = np.tile(feas, (s, 1))
+        sok[4, ::13] = False                  # a missing attribute
+        scnt = rng.integers(0, 4, (s, v)) * (np.arange(v) < 20)
+        sdes = np.full((s, v), np.nan)
+        sdes[1, :4] = [20.0, 15.0, 10.0, 0.0]
+        has_t = np.zeros(s, bool)
+        has_t[1] = True
+        weight = np.full(s, 1.0 / s)
+        dmods = (7, 5, 3, 4, 6, 8, 2, 7, 5)
+        dp = dict(dp_val_id=np.stack([np.arange(n) % m
+                                      for m in dmods]).astype(float),
+                  dp_val_ok=np.tile(np.arange(n) < real - 3, (len(dmods), 1)),
+                  dp_counts0=rng.integers(0, 3, (len(dmods), 8)),
+                  dp_limit=np.full(len(dmods), 12.0))
     if variant == "targets":
         has_t[0] = True
         sdes[0, :18] = 4.0
@@ -741,6 +814,10 @@ def identity_hook(monkeypatch):
                                -1.0)
         assert torch.equal(per_node.view(torch.int32),
                            boost.view(torch.int32))
+        # the wide instance's tree over the same entries
+        assert torch.equal(
+            carry_tree_ref(per_node).view(torch.int32),
+            kernels.pairwise_sum_ref(per_node).view(torch.int32))
         seen.append(pen)
         return score, fitness, boost
 
@@ -750,13 +827,15 @@ def identity_hook(monkeypatch):
 
 @pytest.mark.parametrize("variant", ["even", "targets", "worstfit",
                                      "distinct", "penalty", "devices",
-                                     "devices_wide"])
+                                     "devices_wide", "wide"])
 def test_cached_identity_equals_the_full_score_at_every_step(variant,
                                                              monkeypatch):
     """B9's and B11's cached terms + value-table lookups + tree + division
     give score_nodes_ref's scores bit for bit at every step of the plain
-    scan's carry (csrc/score.cuh states why), on seven cfg3-like
-    fixtures at 256 nodes and K 32, two of them with device columns."""
+    scan's carry (csrc/score.cuh states why), on eight cfg3-like
+    fixtures at 256 nodes and K 32, three of them with device columns
+    (one at the wide instance's shape); the wide instance's carry tree
+    gives the same spread totals."""
     packed = [torch.from_numpy(a) for a in _identity_fixture(variant)]
     seen = identity_hook(monkeypatch)
     got = kernels.solve_task_group_fused(*packed)
@@ -767,3 +846,71 @@ def test_cached_identity_equals_the_full_score_at_every_step(variant,
         assert any(p >= 0 for p in seen)
     if variant == "distinct":
         assert 0 < got[1].sum() < k - 2   # the group ran out of nodes
+
+
+# ---------------------------------------------------------------------------
+# B9 and B10 on stub cards past the narrow instance's caps
+# ---------------------------------------------------------------------------
+
+# d 9 (five device/core columns on the lean shape), s 9, p 9
+STUB_WIDE = {"d9": dict(extra=5, s=1, p=0), "s9": dict(s=9, v=16),
+             "p9": dict(p=9, vd=6)}
+
+
+@pytest.mark.parametrize("shape", sorted(STUB_WIDE))
+def test_b9_and_b10_launch_past_eight(fake_card, shape):
+    """A shape past 8 columns, spreads or distinct_property constraints
+    launches B9 and B10 once each on a stub card (the library takes the
+    wide instance), with the packed layout's pointers and sizes and B9's
+    scratch of its library's size; nothing is refused."""
+    packed = [torch.from_numpy(a) for a in _scan_fixture(
+        0, n=64, n_real=60, k=16, k_active=16, **STUB_WIDE[shape])]
+    query = _ext.entry("nt_solve_task_group_scratch_words")
+    query.code = 55
+    before = _ext.COUNTS.snapshot()["launches"]
+    out = kernels.solve_task_group_fused(*packed)
+    score = kernels.score_nodes_packed(packed[0], *packed[2:], 3)
+    after = _ext.COUNTS.snapshot()["launches"]
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"solve_task_group": 1,
+                                          "score_nodes": 1}
+    n, w = packed[0].shape
+    d, s, v = (w - 6) // 2, packed[4].shape[0], packed[3].shape[1]
+    p, vd = packed[5].shape[0] // 2, packed[6].shape[1] - 1
+    assert max(d, s, p) == 9 and kernels.is_wide(d, s, p)
+    lib = fake_card["task_group"].fns
+    (call,) = lib["nt_solve_task_group"].calls
+    assert call[:8] == tuple(t.data_ptr() for t in packed)
+    assert call[9] == out.data_ptr()
+    assert call[10:18] == (n, d, 16, s, v, p, vd, 55)   # then the stream
+    assert query.calls == [(n, d, s, v, p, vd)]
+    (call,) = lib["nt_score_nodes"].calls
+    assert call[:7] == tuple(t.data_ptr() for t in packed[:1] + packed[2:])
+    assert call[7] == score.data_ptr()
+    assert call[8:15] == (3, n, d, s, v, p, vd)
+
+
+@pytest.mark.parametrize("what", ["spreads", "properties"])
+def test_b9_and_b10_refuse_tables_past_shared_memory(fake_card, what):
+    """Count tables past a CTA's shared memory (4 spreads of 8,192 values;
+    16 distinct_property constraints of 4,096 values) raise ValueError
+    naming the bytes before anything is launched; one value fewer a
+    table's row than the limit allows passes the check."""
+    cfg = (dict(s=4, v=8192) if what == "spreads"
+           else dict(p=16, vd=4096))
+    packed = [torch.from_numpy(a) for a in _scan_fixture(
+        0, n=64, n_real=60, k=16, k_active=16, **cfg)]
+    for fn in (lambda: kernels.solve_task_group_fused(*packed),
+               lambda: kernels.score_nodes_packed(packed[0], *packed[2:],
+                                                  -1)):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            fn()
+    assert not fake_card["task_group"].fns.get("nt_solve_task_group")
+    assert not fake_card["task_group"].fns.get("nt_score_nodes")
+    # the limit is the tables' bytes: 4 x 7,000 values fit, 4 x 8,192 not
+    limit = kernels.SCAN_SMEM_BYTES
+    assert kernels.scan_smem_bytes(4, 4, 7000, 0, 1) <= limit
+    assert kernels.scan_smem_bytes(4, 4, 8192, 0, 1) > limit
+    # the wide instance adds the winner's ids (S + P u16), whole 16 bytes
+    assert kernels.scan_smem_bytes(12, 4, 7000, 0, 1) == (
+        kernels._r16(kernels.table_bytes(4, 7000, 0, 1)) + 16)

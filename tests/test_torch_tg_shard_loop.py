@@ -56,7 +56,10 @@ def small_cfg3(variant: str, seed: int = 0, n: int = 256, real: int = 240,
     and penalty steps; "distinct" distinct_hosts and a binding
     distinct_property cap, more steps than fitting nodes; "worstfit"
     three spreads (the padded pairwise tree), WorstFit, near-full nodes;
-    "infeasible" no node fits."""
+    "infeasible" no node fits; past the narrow instance's caps (the wide
+    one on the card): "cols" five device/core count columns (d 9) on the
+    lean shape, "wide" eight (d 12) with nine spreads (one with targets)
+    and nine distinct_property constraints, one of them binding."""
     rng = np.random.default_rng(seed)
     avail = np.zeros((n, 4), F32)
     avail[:real, 0] = rng.choice([8000, 16000, 32000], real)
@@ -111,6 +114,35 @@ def small_cfg3(variant: str, seed: int = 0, n: int = 256, real: int = 240,
         used[:real, 0] = avail[:real, 0] - 100 * rng.integers(0, 5, real)
     elif variant == "infeasible":
         ask = np.array([64000.0, 64.0, 300.0, 0.0], F32)
+    elif variant in ("cols", "wide"):
+        extra = 5 if variant == "cols" else 8
+        cap = np.zeros((n, extra), F32)
+        cap[:real] = rng.choice([0, 4, 8], (real, extra))
+        cap[:real, -1] = 16                     # the cores column
+        avail = np.concatenate([avail, cap], axis=1)
+        used = np.concatenate([used, np.minimum(
+            cap, rng.integers(0, 6, (n, extra))).astype(F32)], axis=1)
+        ask = np.concatenate([ask, [1.0] * (extra - 1) + [2.0]]).astype(F32)
+        dev_aff[:real] = rng.choice([0.0, 0.0, 0.5, -0.25], real)
+    if variant == "wide":
+        mods = (20, 4, 3, 5, 7, 2, 11, 6, 9)
+        s = len(mods)
+        svid = np.stack([np.arange(n) % m for m in mods]).astype(np.int32)
+        sok = np.tile(feas, (s, 1))
+        sok[4, ::13] = False
+        scnt = (rng.integers(0, 4, (s, v)) * (np.arange(v) < 20)).astype(
+            np.int32)
+        sdes = np.full((s, v), np.nan, F32)
+        sdes[1, :4] = [20.0, 15.0, 10.0, 0.0]
+        has_t = np.zeros(s, bool)
+        has_t[1] = True
+        weight = np.full(s, 1.0 / s, F32)
+        dmods = (7, 5, 3, 4, 6, 8, 2, 7, 5)
+        dvid = np.stack([np.arange(n) % m for m in dmods]).astype(np.int32)
+        dok = np.tile(np.arange(n) < real - 3, (len(dmods), 1))
+        dcnt = rng.integers(0, 3, (len(dmods), 8)).astype(np.int32)
+        dlim = np.full(len(dmods), 12.0, F32)
+        dlim[6] = 9.0                           # 2 values: 18 of 32 steps
     return (avail, used, ptg, pjob, ask, feas, aff, dev_aff, pen, active,
             svid, sok, scnt, sdes, has_t, weight, dvid, dok, dcnt, dlim,
             F32(-1.0), F32(k), False, dh_tg, spread_alg,
@@ -119,7 +151,7 @@ def small_cfg3(variant: str, seed: int = 0, n: int = 256, real: int = 240,
 
 FIXTURES = {f"cfg3_{v}": (lambda v=v: small_cfg3(v))
             for v in ("cfg3", "targets", "distinct", "worstfit",
-                      "infeasible")}
+                      "infeasible", "cols", "wide")}
 FIXTURES.update({f"graft_{name}": make
                  for name, make in GRAFT_FIXTURES.items()})
 
@@ -411,6 +443,44 @@ def test_solve_is_one_host_call(stub_libs, stub_mesh, layout,  # noqa: F811
     vd = 8 if p else 1
     assert call[13:23] == (mesh.cards, s_n, 8, n, 4, 1, 32, p, vd, n_all)
     assert list(call[23]) == [1000 + d.index for d in mesh.distinct]
+
+
+@pytest.mark.parametrize("variant", ["cols", "wide"])
+def test_solve_launches_past_eight(stub_libs, stub_mesh,  # noqa: F811
+                                   variant):
+    """d 9 (lean) and d 12 with 9 spreads and 9 distinct_property
+    constraints: one nt_task_group_shard_solve a solve (the library takes
+    the wide instance) with the sizes; nothing is refused."""
+    mesh = stub_mesh((0, 0))
+    args = small_cfg3(variant, n=64, real=60, k=8)
+    sh.solve_task_group_sharded(mesh, args)
+    fn = stub_libs["task_group_shard"].fns["nt_task_group_shard_solve"]
+    (call,) = fn.calls
+    d, s_sp, p = args[0].shape[1], args[10].shape[0], args[16].shape[0]
+    assert (d, s_sp, p) == ((9, 1, 0) if variant == "cols" else (12, 9, 9))
+    vd = 8 if p else 1
+    assert call[13:23] == (1, 2, 8, 32, d, s_sp, 32, p, vd, 64)
+
+
+def test_solve_refuses_tables_past_shared_memory(stub_libs,  # noqa: F811
+                                                 stub_mesh):
+    """4 spreads of 8,192 values exceed a CTA's shared memory (the count,
+    boost and step tables): ValueError naming the bytes, no host call."""
+    mesh = stub_mesh((0, 0))
+    args = list(small_cfg3("cfg3", n=64, real=60, k=8))
+    v = 8192
+    args[10] = np.tile(args[10], (4, 1))
+    args[11] = np.tile(args[11], (4, 1))
+    args[12] = np.zeros((4, v), np.int32)
+    args[13] = np.full((4, v), np.nan, F32)
+    args[14] = np.zeros(4, bool)
+    args[15] = np.full(4, 0.25, F32)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        sh.solve_task_group_sharded(mesh, tuple(args))
+    fn = stub_libs["task_group_shard"].fns["nt_task_group_shard_solve"]
+    assert not fn.calls
+    assert sh.task_group_shard_smem_bytes(4, 4, 4096, 0, 1) <= (
+        kernels.SCAN_SMEM_BYTES)
 
 
 def test_empty_solve_launches_nothing(stub_libs, stub_mesh):  # noqa: F811
