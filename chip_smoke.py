@@ -487,6 +487,46 @@ Phases (any failure raises and exits non-zero):
               timed by CUDA events beside its bound; and each wrapper's
               refusal of tables past a CTA's shared memory, raised before
               any launch.
+30. clients -- the client agent on the card's Server (phase_clients), in
+              two steps. (a) The real entry point as a subprocess:
+              `python -m nomad_tpu_torch agent --clients 4 --workers 4
+              --algorithm tpu-binpack --data-dir <tmp> --port <free>`,
+              driven through the port's CLI (`job run <hcl>`, `job
+              status`, `alloc logs`) and ApiClient: a batch job of mock
+              tasks (cpu 50, mem 32, a 10 MB ephemeral disk, run_for
+              0.5 s) whose count is 80% of what the four fingerprinted
+              nodes hold, within 256-1,024 (B1); a job of 4 asking
+              `device "nvidia/gpu" { count = 1 }`; a raw_exec `echo`
+              and a raw_exec `sleep`. Gates: every node carries the
+              card's `nvidia/gpu/<name>` group, every batch alloc
+              complete, the GPU allocs running on four nodes each
+              holding gpu-0, the log line read back equal, the agent's
+              /v1/metrics with solver launches > 0 and B1's launches
+              > 0, and SIGTERM ending the agent with exit 0 and none of
+              its executors or their tasks left. (b) Full width,
+              in-process through cli.build_agent on the card: 256
+              clients, each `Client(..., node=...)` with C2M's node
+              shapes (mock.build_nodes), 24 workers, heartbeat TTL
+              CL_FLEET_TTL; a 64-alloc service job with a rack spread
+              (B9), then, once it is placed, C2M's job shape as one
+              batch job of 4,000 mock tasks (run_for 0.2 s; B1): placed
+              together, the B9 group is outside the solver service's
+              carry and B1 overfills its nodes (ROADMAP §C12). While
+              the completes land the phase calls the twin route
+              (feed.device_used on the service's stream, the call a
+              resync makes) every 0.25 s, so the device twin catches up
+              with the freed capacity by B4 flushes (a re-upload past
+              n_pad pending rows); then the service job is stopped and
+              its 64 allocs' freed capacity reaches the twin in one B4
+              flush. Gates: the batch complete and 64 running, every
+              status reported by the clients through the
+              ClientUpdateBatcher, 0 nodes over capacity, the stop's
+              flush, the feed's verify exact, no client
+              thread left after the stop, and every B1, B9 and B4
+              launch of the step replayed exact against its plain
+              version. Prints the wall from submit to the last complete,
+              client.sync p50/p99, the hub's pushed deltas against its
+              full resyncs and the peak thread count.
 
 cfg4's two evals print the time the interpreter's garbage collector
 took inside them (gc.callbacks): their walls are host-bound, and a full
@@ -508,6 +548,9 @@ phase 27 or 28 alone, then print its record as one JSON line.
 ``python3 chip_smoke.py --columns`` runs the build and phase 29 alone,
 then prints its record and the six kernels' records by width as JSON
 lines, the card and the device summary.
+``python3 chip_smoke.py --clients`` runs the build and phase 30 alone,
+then prints its record and B1's, B9's and B4's launches on step (b) as
+JSON lines.
 ``python3 chip_smoke.py --replicated`` runs the build and the
 "replicated" phase alone, then prints its record and B1's and B4's
 launches on it as JSON lines.
@@ -567,7 +610,8 @@ theirs on the lifecycle path, B1's, B4's and B9's
 ``replicated_launches``, theirs on the replicated path; B11's, B5's,
 B13's and B14's ``wide``, phase 27's times at N_pad 32,768 and 65,536,
 every kernel's ``big_cluster_launches``, its launches on phase 28's
-path, B9's ``columns_launches``, its launches on phase 29's path, and
+path, B9's ``columns_launches``, its launches on phase 29's path, B1's,
+B9's and B4's ``clients_launches``, theirs on phase 30's step (b), and
 the ``by_columns`` of B9, B10, B16, B11, B7 and B12: phase 29's records
 at each width past the narrow caps), and the card's name
 and power limit; the last line is the device summary.
@@ -581,6 +625,7 @@ import gc
 import json
 import os
 import random
+import signal
 import statistics
 import subprocess
 import sys
@@ -9503,6 +9548,661 @@ def phase_columns(torch, card, device="cuda", n_nodes=N_NODES, counts=COL_K,
     return launched, rec, widths
 
 
+CL_CLIENTS = 4           # step (a): the agent's --clients
+CL_WORKERS = 4           # ... and --workers
+CL_BATCH_MAX = 1024      # the batch job's count: 80% of what the four
+CL_BATCH_MIN = 256       # nodes hold, within these bounds (B1 from 256)
+CL_RUN_FOR = 0.5         # its mock tasks' run time (s)
+CL_GPU_K = 4             # a job of 4 asking one nvidia/gpu each
+CL_LOG = "hello from a port client"
+CL_DISK = 10             # the batch group's ephemeral disk (MB)
+CL_FLEET = 256           # step (b): client agents with C2M's node shapes
+CL_FLEET_K = 4000        # C2M's job shape: one batch job of 4,000 (the
+                         # card's machine kills a process of a few
+                         # thousand threads: the client keeps one thread
+                         # a live mock alloc, and none a mock task)
+CL_FLEET_RUN_FOR = 0.2
+CL_FLEET_SVC_K = 64      # a service group with a rack spread (B9)
+CL_FLEET_TTL = 3600.0    # the fleet's heartbeat TTL (s), see clients_fleet
+
+CL_BATCH_HCL = """
+job "%s" {
+  datacenters = ["dc1"]
+  type = "batch"
+  group "work" {
+    count = %d
+    ephemeral_disk { size = %d }
+    task "work" {
+      driver = "mock"
+      config { run_for = %s }
+      resources { cpu = 50 memory = 32 }
+    }
+  }
+}
+"""
+
+CL_EXEC_HCL = """
+job "%s" {
+  datacenters = ["dc1"]
+  type = "%s"
+  group "sh" {
+    count = 1
+    task "sh" {
+      driver = "raw_exec"
+      config {
+        command = "/bin/sh"
+        args = ["-c", "%s"]
+      }
+      resources { cpu = 50 memory = 32 }
+    }
+  }
+}
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gpu_group(torch, device) -> str:
+    """The device group the client fingerprints the card as; "" on the
+    CPU rehearsal."""
+    if device == "cpu":
+        return ""
+    name = torch.cuda.get_device_name(0).lower().replace(" ", "-")
+    return f"nvidia/gpu/{name}"
+
+
+def _executors(data_dir: str) -> list:
+    """The live processes of the executors the agent under ``data_dir``
+    started and of their tasks, read from its clients' state files and
+    the executors' status files."""
+    import glob
+
+    pids = []
+    for path in glob.glob(os.path.join(data_dir, "client*",
+                                       "client_state.json")):
+        with open(path) as f:
+            state = json.load(f)
+        for rec in state.get("allocs", {}).values():
+            for h in (rec.get("handles") or {}).values():
+                if not h or not h.get("executor_pid"):
+                    continue
+                pids.append(int(h["executor_pid"]))
+                try:
+                    with open(h["status_file"]) as f:
+                        pids.append(int(json.load(f).get("task_pid", 0)))
+                except (OSError, ValueError):
+                    pass
+    live = []
+    for pid in pids:
+        if pid <= 0:
+            continue
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        except PermissionError:
+            pass
+        live.append(pid)
+    return live
+
+
+def _cli(addr: str, *argv, check=True) -> str:
+    """One command of the port's CLI against the agent at ``addr``."""
+    out = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch", "--address", addr,
+         *argv], cwd=REPO, capture_output=True, text=True, timeout=120)
+    if check and out.returncode != 0:
+        raise AssertionError(f"clients: `{' '.join(argv)}` exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def clients_agent(torch, card, device="cuda", n_clients=CL_CLIENTS,
+                  workers=CL_WORKERS) -> dict:
+    """Step (a): the real entry point as a subprocess, driven through
+    the port's CLI and ApiClient (see the module docstring)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.api.codec import to_dict
+    from nomad_tpu_torch.structs.job import Job, Task, TaskGroup
+    from nomad_tpu_torch.structs.resources import RequestedDevice, Resources
+
+    what = "clients"
+    t_step = time.perf_counter()
+    data = tempfile.mkdtemp(prefix="chip_smoke_agent_")
+    port = _free_port()
+    cmd = [sys.executable, "-m", "nomad_tpu_torch", "agent",
+           "--clients", str(n_clients), "--workers", str(workers),
+           "--algorithm", "tpu-binpack", "--data-dir", data,
+           "--port", str(port)]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(
+        target=lambda: lines.extend(iter(proc.stdout.readline, "")),
+        daemon=True)
+    reader.start()
+    addr = f"http://127.0.0.1:{port}"
+    rc = None
+    try:
+        deadline = time.time() + 180.0
+        while not any(ln.startswith("agent started") for ln in lines):
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"{what}: the agent did not start: "
+                                     f"{''.join(lines)[-3000:]}")
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t_step
+        api = ApiClient(addr, timeout=60.0)
+        deadline = time.time() + 60.0
+        while len(api.list_nodes()) < n_clients:
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: {len(api.list_nodes())} of "
+                                     f"{n_clients} clients registered")
+            time.sleep(0.1)
+        nodes = [api.node(n["id"]) for n in api.list_nodes()]
+        group = _gpu_group(torch, device)
+        for nd in nodes:
+            ids = {f"{d['vendor']}/{d['type']}/{d['name']}"
+                   for d in nd["resources"]["devices"]}
+            if group and group not in ids:
+                raise AssertionError(f"{what}: node {nd['id']} carries "
+                                     f"{sorted(ids)}, not {group}")
+        # what the four fingerprinted nodes hold of the batch job's ask
+        # (cpu 50, memory 32, the group's CL_DISK MB of ephemeral disk)
+        hold = [int(min((nd["resources"]["cpu"]
+                         - nd["reserved"]["cpu"]) // 50,
+                        (nd["resources"]["memory_mb"]
+                         - nd["reserved"]["memory_mb"]) // 32,
+                        (nd["resources"]["disk_mb"]
+                         - nd["reserved"]["disk_mb"]) // CL_DISK))
+                for nd in nodes]
+        count = min(CL_BATCH_MAX, int(0.8 * sum(hold)))
+        if count < CL_BATCH_MIN:
+            raise AssertionError(f"{what}: the nodes hold {sum(hold)} "
+                                 f"allocs, too few for a group of "
+                                 f"{CL_BATCH_MIN}")
+        print(f"{what:<11} [{card}] agent up in {start_s:.3f} s at {addr}: "
+              f"{n_clients} clients fingerprinted as "
+              f"{group or 'no card (CPU rehearsal)'}; the nodes hold "
+              f"{hold} allocs of cpu 50 / mem 32 / disk {CL_DISK}, the batch "
+              f"job asks {count}")
+
+        specs = {"batch": CL_BATCH_HCL % ("cl-batch", count, CL_DISK,
+                                          CL_RUN_FOR),
+                 "echo": CL_EXEC_HCL % ("cl-echo", "batch",
+                                        f"echo {CL_LOG}"),
+                 "sleep": CL_EXEC_HCL % ("cl-sleep", "service",
+                                         "sleep 600")}
+        t0 = time.perf_counter()
+        for name, text in specs.items():
+            path = os.path.join(data, f"{name}.hcl")
+            with open(path, "w") as f:
+                f.write(text)
+            _cli(addr, "job", "run", path)
+        if group:
+            gpu = Job(id="cl-gpu", name="cl-gpu", type="service",
+                      datacenters=["dc1"], task_groups=[TaskGroup(
+                          name="gpu", count=CL_GPU_K, tasks=[Task(
+                              name="gpu", driver="mock",
+                              config={"run_for": 3600.0},
+                              resources=Resources(
+                                  cpu=50, memory_mb=32,
+                                  devices=[RequestedDevice(
+                                      name="nvidia/gpu", count=1)]))])])
+            api.register_job(to_dict(gpu))
+
+        def states(job_id):
+            return [(a["id"], a["client_status"], a["node_id"])
+                    for a in api.job_allocations(job_id)]
+
+        deadline = time.time() + 120.0
+        while True:
+            batch = states("cl-batch")
+            done = sum(1 for _, s, _ in batch if s == "complete")
+            echo = states("cl-echo")
+            sleep = states("cl-sleep")
+            gpus = states("cl-gpu") if group else []
+            ok = (len(batch) == count and done == count
+                  and [s for _, s, _ in echo] == ["complete"]
+                  and [s for _, s, _ in sleep] == ["running"]
+                  and (not group or (len(gpus) == CL_GPU_K and all(
+                      s == "running" for _, s, _ in gpus))))
+            if ok:
+                break
+            if time.time() > deadline:
+                raise AssertionError(
+                    f"{what}: batch {done} of {count} complete "
+                    f"({Counter(s for _, s, _ in batch)}), echo {echo}, "
+                    f"sleep {sleep}, gpu {Counter(s for _, s, _ in gpus)}")
+            time.sleep(0.2)
+        run_s = time.perf_counter() - t0
+        if group:
+            held = [api.allocation(a)["allocated_devices"]
+                    for a, _, _ in gpus]
+            if any(h != {group: ["gpu-0"]} for h in held) or len(
+                    {n for _, _, n in gpus}) != CL_GPU_K:
+                raise AssertionError(f"{what}: the GPU allocs hold {held} "
+                                     f"on {len({n for _, _, n in gpus})} "
+                                     f"nodes")
+        log = _cli(addr, "alloc", "logs", echo[0][0])
+        if log != CL_LOG + "\n":
+            raise AssertionError(f"{what}: the log reads back {log!r}")
+        status = _cli(addr, "job", "status", "cl-batch")
+        if status.count("complete") != count:
+            raise AssertionError(f"{what}: `job status` shows "
+                                 f"{status.count('complete')} complete")
+        metrics = api.metrics()
+        launches = {k.rsplit(".", 1)[1]: v for k, v in metrics.items()
+                    if k.startswith("nomad.kernel.launches.") and v}
+        solver_launches = metrics.get("nomad.solver.launches", 0)
+        if not solver_launches or (device != "cpu"
+                                   and not launches.get("bulk_fill")):
+            raise AssertionError(f"{what}: the agent's metrics show "
+                                 f"{solver_launches} solver launches, "
+                                 f"kernels {launches}")
+        running = _executors(data)
+        if not running:
+            raise AssertionError(f"{what}: the sleep task's executor is "
+                                 f"not running before the stop")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+        reader.join(10)
+        left = _executors(data)
+        if rc != 0 or left or not any(ln.startswith("agent stopped")
+                                      for ln in lines):
+            raise AssertionError(f"{what}: SIGTERM: exit {rc}, processes "
+                                 f"left {left}: {''.join(lines)[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        shutil.rmtree(data, ignore_errors=True)
+    rec = {"clients": n_clients, "start_s": start_s, "hold": hold,
+           "batch": count, "run_s": run_s,
+           "gpu_group": group, "gpu_allocs": len(gpus),
+           "solver_launches": solver_launches, "kernel_launches": launches,
+           "executors_before_stop": len(running), "exit": rc}
+    print(f"{what:<11} [{card}] step (a): {count} batch allocs complete, "
+          f"{len(gpus)} GPU allocs running on {group or '-'} each holding "
+          f"gpu-0, the raw_exec log read back, in {run_s:.3f} s from "
+          f"`job run`; the agent's solver launches {solver_launches}, "
+          f"kernels {launches}; SIGTERM: exit {rc}, "
+          f"{len(running)} executor processes before it, none after")
+    return rec
+
+
+class _FleetProgress:
+    """The fleet's state in one line: each job's allocs by client status,
+    the broker's queue, blocked evals, the batcher, the threads."""
+
+    def __init__(self, srv, job_ids, errors=None):
+        self.srv = srv
+        self.job_ids = job_ids
+        self.errors = errors if errors is not None else []
+        self.last = time.time()
+
+    def __str__(self):
+        import threading
+
+        snap = self.srv.store.snapshot()
+        try:
+            jobs = {jid: dict(Counter(a.client_status
+                                      for a in snap.allocs_by_job(jid)))
+                    for jid in self.job_ids}
+        finally:
+            snap.close()
+        return (f"allocs {jobs}; broker {self.srv.broker.stats}; blocked "
+                f"{self.srv.blocked.blocked_count()}; batcher "
+                f"{self.srv.client_updates.stats}; threads "
+                f"{threading.active_count()}; thread errors "
+                f"{len(self.errors)} {self.errors[:3]}")
+
+    def show(self, head: str) -> None:
+        print(f"{head}: {self}", flush=True)
+        self.last = time.time()
+
+    def every(self, seconds: float, head: str) -> None:
+        # a line each 10 s at most: it reads every row of both jobs
+        if time.time() - self.last >= seconds:
+            self.show(head)
+
+
+def clients_fleet(torch, card, device="cuda", n_clients=CL_FLEET,
+                  k=CL_FLEET_K, svc_k=CL_FLEET_SVC_K,
+                  workers=SERVER_WORKERS):
+    """Step (b): the fleet in-process, through ``cli.build_agent`` (see
+    the module docstring): returns the kernels' launch counts of the
+    step and its record."""
+    import shutil
+    import tempfile
+    import threading
+
+    from nomad_tpu_torch import _ext, mock
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.api.codec import to_dict
+    from nomad_tpu_torch.cli import build_agent
+    from nomad_tpu_torch.client import ClientConfig
+    from nomad_tpu_torch.obs import TRACER
+    from nomad_tpu_torch.obs.trace import R_NAME, R_T0, R_T1
+    from nomad_tpu_torch.structs import Spread
+    from nomad_tpu_torch.tensor import incremental, kernels, placer, solver
+    from nomad_tpu_torch.tensor.kernels import (solve_bulk_multi,
+                                                solve_bulk_multi_ref)
+
+    what = "clients"
+    nodes = _Nodes()
+    mock.build_nodes(nodes, n_clients, seed=0)
+    for nd in nodes:
+        nd.drivers = {"mock": True}
+        nd.attributes["driver.mock"] = "1"
+    data = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    b1, b9, b4 = [], [], []
+    real_b1 = solver.solve_bulk_multi
+    real_b9 = placer.solve_task_group_fused
+
+    def cap_b1(used, *args, g):
+        before = used.clone()
+        keep = [a.clone() for a in args]
+        out = real_b1(used, *args, g=g)
+        b1.append((before, keep, g, out[0].clone(), out[1].clone()))
+        return out
+
+    def cap_b9(*packed):
+        snap = [t.clone() for t in packed]
+        out = real_b9(*packed)
+        b9.append((snap, out.clone()))
+        return out
+
+    # an exception that ends a thread (a client's, a runner's) is kept
+    # for the failure message: the machine's thread limit shows here
+    errors = []
+    hook = threading.excepthook
+    threading.excepthook = lambda a: errors.append(
+        f"{a.thread.name if a.thread else '?'}: {a.exc_type.__name__}: "
+        f"{a.exc_value}")
+    peak = [threading.active_count()]
+    sampling = threading.Event()
+
+    def sample():
+        while not sampling.wait(0.05):
+            peak[0] = max(peak[0], threading.active_count())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    agent = None
+    # what the earlier phases left alive is frozen out of the collector:
+    # its passes hold the interpreter lock the fleet's threads wait on
+    gc.collect()
+    gc.freeze()
+    t0 = time.perf_counter()
+    try:
+        # bench-safe TTL and nack timeout (as the other Server phases):
+        # one interpreter runs 256 clients and every runner's threads
+        # beside the Server, and under the burst a heartbeat thread or a
+        # worker can wait out a long GIL convoy (a 30 s TTL marked nodes
+        # down, a 60 s nack timeout redelivered the batch eval); the
+        # clients still heartbeat every 3 s
+        agent = build_agent(
+            workers=workers, algorithm="tpu-binpack", clients=n_clients,
+            port=0, data_dir=data, device=device, nodes=nodes,
+            client_config=lambda i: ClientConfig(fingerprint_interval=3600.0),
+            heartbeat_ttl=CL_FLEET_TTL, gc_interval=3600.0,
+            nack_timeout=900.0)
+        srv = agent.server
+        svc = solver.get_service(srv.device)
+        fleet_s = time.perf_counter() - t0
+        import resource
+
+        try:
+            with open("/proc/sys/kernel/threads-max") as f:
+                threads_max = f.read().strip()
+        except OSError:
+            threads_max = "?"
+        print(f"{what:<11} [{card}] step (b): {n_clients} clients up in "
+              f"{fleet_s:.3f} s, {threading.active_count()} threads "
+              f"(RLIMIT_NPROC {resource.getrlimit(resource.RLIMIT_NPROC)}, "
+              f"threads-max {threads_max})", flush=True)
+        api = ApiClient(agent.http.address, timeout=120.0)
+        if len(api.list_nodes()) != n_clients:
+            raise AssertionError(f"{what}: {len(api.list_nodes())} of "
+                                 f"{n_clients} clients registered")
+        batch = mock.service_job(k, cpu=50, mem=32, batch=True)
+        batch.task_groups[0].tasks[0].config = {"run_for": CL_FLEET_RUN_FOR}
+        svc_job = mock.service_job(
+            svc_k, cpu=50, mem=32,
+            spreads=[Spread(attribute="${attr.rack}", weight=50)])
+        svc_job.task_groups[0].tasks[0].driver = "mock"
+        svc_job.task_groups[0].tasks[0].config = {"run_for": 3600.0}
+        batch.task_groups[0].tasks[0].driver = "mock"
+        TRACER.clear()
+        solver.solve_bulk_multi = cap_b1
+        placer.solve_task_group_fused = cap_b9
+        with capture_b4(b4):
+            _ext.COUNTS.reset()
+            sync0 = dict(srv.client_updates.stats)
+            hub0 = dict(srv.alloc_sync.stats)
+            progress = _FleetProgress(srv, (batch.id, svc_job.id), errors)
+            feed = incremental.feed_for(srv.store)
+
+            def catch_up():
+                """The twin route's call, as the solver service's resync
+                makes it: the device twin caught up with the feed's
+                pending rows by one B4 launch (a re-upload past n_pad)."""
+                with svc._stream_ctx():
+                    feed.device_used(feed._epoch.static_ref, svc.device)
+
+            def rows(jid, status):
+                snap = srv.store.snapshot()
+                try:
+                    return [a for a in snap.allocs_by_job(jid)
+                            if a.client_status == status]
+                finally:
+                    snap.close()
+
+            # the waits count the clients' status writes off the store's
+            # commits: reading 4,000 rows a tick from a snapshot would
+            # take the interpreter from the clients it waits on
+            seen = {}
+
+            def on_commit(_index, events):
+                for kind, a in events:
+                    if kind == "alloc-client-update":
+                        seen[(a.job_id, a.id)] = a.client_status
+
+            def count(jid, status):
+                return sum(1 for (j, _), st in list(seen.items())
+                           if j == jid and st == status)
+
+            srv.store.add_commit_listener(on_commit)
+
+            def until(pred, what_for, limit=150.0, catch=True):
+                deadline = time.time() + limit
+                while not pred():
+                    if time.time() > deadline:
+                        raise AssertionError(f"{what}: {what_for}: "
+                                             f"{progress}")
+                    progress.every(10.0, f"{what:<11} [{card}] {what_for}")
+                    if catch:
+                        catch_up()
+                    time.sleep(0.25)
+
+            # one job at a time, the B9 group first: a B9 group placed
+            # while the bulk group solves is outside the solver service's
+            # carry, whose B1 then overfills its nodes until every plan
+            # attempt is spent (ROADMAP §C12, the reference's too); the
+            # bulk group's first solve resyncs the carry from the store
+            api.register_job(to_dict(svc_job))
+            _drain(srv, f"{what} service job {progress}", limit=120.0)
+            if feed is None or feed._epoch is None:
+                raise AssertionError(f"{what}: the feed has no epoch")
+            twin0 = feed.stats()
+            t_submit = time.time()
+            api.register_job(to_dict(batch))
+            _drain(srv, f"{what} batch job {progress}", limit=120.0)
+            placed_s = time.time() - t_submit
+            progress.show(f"{what:<11} [{card}] placed in {placed_s:.3f} s")
+            until(lambda: count(batch.id, "complete") == k
+                  and count(svc_job.id, "running") == svc_k,
+                  "waiting for the completes", limit=300.0)
+            done = rows(batch.id, "complete")
+            svc_run = rows(svc_job.id, "running")
+            if len(done) != k or len(svc_run) != svc_k:
+                raise AssertionError(f"{what}: the store holds {len(done)} "
+                                     f"complete, {len(svc_run)} running")
+            wall = max(a.modify_time for a in done) - t_submit
+            # the service job stopped: its 64 allocs' freed capacity, a
+            # few rows, reaches the twin in one B4 flush
+            catch_up()
+            api.deregister_job(svc_job.id)
+            until(lambda: count(svc_job.id, "complete") == svc_k,
+                  "waiting for the stopped service allocs", catch=False)
+            _drain(srv, f"{what} service stop {progress}", limit=60.0)
+            flushes = feed.stats()["twin_flushes"]
+            catch_up()
+            stop_flushed = feed.stats()["twin_flushes"] - flushes
+            verified = feed.force_verify()
+            counts = _ext.COUNTS.snapshot()
+            twin = {key: feed.stats()[key] - twin0[key]
+                    for key in ("twin_flushes", "twin_uploads")}
+            twin["stop_flush"] = stop_flushed
+        solver.solve_bulk_multi = real_b1
+        placer.solve_task_group_fused = real_b9
+        if not verified or not stop_flushed:
+            raise AssertionError(f"{what}: the feed's verify {verified}, "
+                                 f"twin {twin}: "
+                                 f"{incremental.GLOBAL.violations[-1:]}")
+        over = _over_capacity(srv.store)
+        if over:
+            raise AssertionError(f"{what}: {over} nodes over capacity")
+        synced = {key: srv.client_updates.stats[key] - sync0[key]
+                  for key in sync0}
+        hub = {key: srv.alloc_sync.stats[key] - hub0[key] for key in hub0}
+        # every status came from a client: through the batcher, with the
+        # task states only a client's task runners write
+        if synced["batched_updates"] < k + svc_k or any(
+                not a.task_states for a in done + svc_run):
+            raise AssertionError(f"{what}: the batcher took {synced}")
+        syncs = sorted(1e3 * (r[R_T1] - r[R_T0]) for r in TRACER.spans()
+                       if r[R_NAME] == "client.sync")
+        feed_stats = feed.stats()
+    finally:
+        solver.solve_bulk_multi = real_b1
+        placer.solve_task_group_fused = real_b9
+        if agent is not None:
+            t_stop = time.perf_counter()
+            agent.stop()
+            stop_s = time.perf_counter() - t_stop
+        sampling.set()
+        sampler.join(5)
+        threading.excepthook = hook
+        gc.unfreeze()
+        shutil.rmtree(data, ignore_errors=True)
+    if errors:
+        raise AssertionError(f"{what}: {len(errors)} threads died: "
+                             f"{errors[:5]}")
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("client-", "alloc-", "task-", "health-",
+                                  "checks-", "hoststats"))]
+    if left:
+        raise AssertionError(f"{what}: {len(left)} client threads outlived "
+                             f"the stop: {left[:8]}")
+
+    launched = counts["launches"]
+    if device != "cpu":
+        missing = [n for n in ("bulk_fill", "solve_task_group",
+                               "scatter_add") if not launched.get(n)]
+        if missing:
+            raise AssertionError(f"{what}: {missing} never launched: "
+                                 f"{launched}")
+        if (len(b1) != launched["bulk_fill"]
+                or len(b9) != launched["solve_task_group"]):
+            raise AssertionError(f"{what}: captured B1 {len(b1)}, B9 "
+                                 f"{len(b9)} of {launched}")
+    if any(counts["plain_on_cuda"].values()):
+        raise AssertionError(f"{what}: plain versions ran on CUDA: "
+                             f"{counts['plain_on_cuda']}")
+    for i, (before, args, g, used, cnt) in enumerate(b1):
+        u1, c1 = solve_bulk_multi(before.clone(), *args, g=g)
+        u2, c2 = solve_bulk_multi_ref(before.clone(), *args, g=g)
+        if not (torch.equal(u1, u2) and torch.equal(c1, c2)
+                and torch.equal(u1, used) and torch.equal(c1, cnt)):
+            raise AssertionError(f"{what}: B1 launch {i} differs from its "
+                                 f"plain version or the path's output")
+    err = 0.0
+    for i, (packed, out) in enumerate(b9):
+        got = kernels.solve_task_group_fused(*packed)
+        want9 = kernels.solve_task_group_fused_ref(*packed)
+        if not (torch.equal(got[:2], want9[:2]) and torch.equal(got, out)):
+            raise AssertionError(f"{what}: B9 launch {i} differs from its "
+                                 f"plain version or the path's output")
+        err = max(err, score_err(got[2], want9[2], f"{what} B9 {i}"))
+    b4_rec = replay_b4(torch, b4, what)
+    pct = (lambda q: float(np.percentile(syncs, q))) if syncs else (
+        lambda q: None)
+    rec = {"clients": n_clients, "batch": k, "service": svc_k,
+           "fleet_start_s": fleet_s, "placed_s": placed_s, "wall_s": wall,
+           "client_sync": {"n": len(syncs), "p50_ms": pct(50),
+                           "p99_ms": pct(99)},
+           "hub": hub, "batcher": synced, "peak_threads": peak[0],
+           "stop_s": stop_s, "feed": feed_stats, "twin": twin,
+           "replays": {"bulk_fill": len(b1), "solve_task_group": len(b9),
+                       "b9_max_score_err": err, "scatter_add": b4_rec},
+           "launches": {n: v for n, v in launched.items() if v},
+           "card": card}
+    print(f"{what:<11} [{card}] step (b): {n_clients} clients up in "
+          f"{fleet_s:.3f} s; {k} batch allocs complete and {svc_k} "
+          f"service allocs running, every status from the clients "
+          f"through the batcher ({synced}); submit to placed "
+          f"{placed_s:.3f} s, to the last complete {wall:.3f} s; client.sync p50 {pct(50)} ms p99 {pct(99)} ms "
+          f"({len(syncs)}); the hub pushed {hub['deltas']} deltas in "
+          f"{hub['events']} events against {hub['resyncs']} full "
+          f"resyncs; peak threads {peak[0]}; stop {stop_s:.3f} s")
+    print(f"{what:<11} [{card}] step (b): launches {rec['launches']}; "
+          f"replays exact: B1 {len(b1)}, B9 {len(b9)} (scores within "
+          f"{SCORE_TOL}, max {err:.3g}), B4 {b4_rec}; the twin's "
+          f"catch-ups {twin}; feed {feed_stats}")
+    return launched, rec
+
+
+def phase_clients(torch, card, device="cuda", agent_clients=CL_CLIENTS,
+                  n_clients=CL_FLEET, k=CL_FLEET_K, svc_k=CL_FLEET_SVC_K,
+                  workers=SERVER_WORKERS):
+    """The client agent on the card (see the module docstring): step (a)
+    through the CLI, step (b) in-process at full width. Returns step
+    (b)'s launch counts and the phase's record."""
+    t0 = time.perf_counter()
+    agent_rec = clients_agent(torch, card, device, n_clients=agent_clients)
+    launched, fleet = clients_fleet(torch, card, device, n_clients, k,
+                                    svc_k, workers)
+    rec = {"agent": agent_rec, "fleet": fleet,
+           "phase_s": time.perf_counter() - t0}
+    print(f"clients     [{card}] the phase in {rec['phase_s']:.3f} s")
+    return launched, rec
+
+
+def clients_only(torch, card) -> int:
+    """``--clients``: the build and the clients phase alone; its record
+    and the kernels' launches on step (b) as JSON lines."""
+    launched, rec = phase_clients(torch, card)
+    print(json.dumps({"clients": rec}))
+    print(json.dumps({"kernels": [
+        {"name": n, "clients_launches": launched.get(n, 0)}
+        for n in ("bulk_fill", "solve_task_group", "scatter_add")]}))
+    print(card)
+    return 0
+
+
 def columns_only(torch, card, rng) -> int:
     """``--columns``: the build, then phase_columns alone; prints its
     record and the six kernels' width records as JSON lines."""
@@ -9788,6 +10488,8 @@ def main() -> int:
         return big_only(torch, card)
     if sys.argv[1:] == ["--columns"]:
         return columns_only(torch, card, rng)
+    if sys.argv[1:] == ["--clients"]:
+        return clients_only(torch, card)
     bulk = [phase_jitter(torch, dev, card, rng),
             phase_scatter(torch, dev, card, rng),
             phase_fill(torch, dev, card, rng)]
@@ -9881,6 +10583,10 @@ def main() -> int:
     col_launches, server["columns"], by_columns = phase_columns(torch, card,
                                                                 rng=rng)
     per_eval[1]["columns_launches"] = col_launches["solve_task_group"]
+    cl_launches, server["clients"] = phase_clients(torch, card)
+    bulk[2]["clients_launches"] = cl_launches["bulk_fill"]
+    bulk[1]["clients_launches"] = cl_launches["scatter_add"]
+    per_eval[1]["clients_launches"] = cl_launches["solve_task_group"]
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -9899,7 +10605,8 @@ def main() -> int:
              "by_d", "constraints_launches", "lifecycle_launches",
              "autopilot_launches", "replicated_launches",
              "penalty_launches", "http_launches", "wide",
-             "big_cluster_launches", "columns_launches", "by_columns")
+             "big_cluster_launches", "columns_launches", "by_columns",
+             "clients_launches")
     print(json.dumps({"server": server}))
     print(json.dumps({"kernels": [{key: k[key] for key in order + extra
                                    if key in k} for k in kernels]}))

@@ -6,12 +6,13 @@ do, and every request carries an ``X-Nomad-Deadline`` header (now plus
 the client's timeout) that the agent answers with 504 once passed. The
 reference's 429 retry budget is not ported: the port's agent has no
 admission layer and never answers 429 (ROADMAP A10.7). The routes of
-ACLs, variables, dispatch, the client's fs/exec/logs, services and
-agent join are left with the agent's (ROADMAP A10).
+ACLs, variables, dispatch, the client's exec sessions and agent join
+are left with the agent's (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import time
 import urllib.error
@@ -210,6 +211,40 @@ class ApiClient:
         """Stop and reschedule one allocation; returns the eval id."""
         out, _ = self._request("POST", f"/v1/allocation/{alloc_id}/stop", {})
         return out["eval_id"]
+
+    def alloc_logs(self, alloc_id: str, task: str = "",
+                   log_type: str = "stdout", offset: int = 0,
+                   limit: int = 65536) -> dict:
+        """A task's captured log (reference api/fs.go Logs)."""
+        out, _ = self.get(f"/v1/client/fs/logs/{alloc_id}", task=task,
+                          type=log_type, offset=offset, limit=limit)
+        out["data"] = base64.b64decode(out.get("data", "") or "")
+        return out
+
+    def alloc_fs_ls(self, alloc_id: str, path: str = "/") -> list:
+        out, _ = self._request("GET", f"/v1/client/fs/ls/{alloc_id}",
+                               params={"path": path})
+        return out
+
+    def alloc_fs_stat(self, alloc_id: str, path: str) -> dict:
+        out, _ = self._request("GET", f"/v1/client/fs/stat/{alloc_id}",
+                               params={"path": path})
+        return out
+
+    def alloc_fs_cat(self, alloc_id: str, path: str, offset: int = 0,
+                     limit: int = 65536) -> bytes:
+        out, _ = self._request("GET", f"/v1/client/fs/cat/{alloc_id}",
+                               params={"path": path, "offset": offset,
+                                       "limit": limit})
+        return base64.b64decode(out.get("data", "") or "")
+
+    def list_services(self) -> list:
+        out, _ = self.get("/v1/services")
+        return out
+
+    def service(self, name: str) -> list:
+        out, _ = self.get(f"/v1/service/{name}")
+        return out
 
     def list_evaluations(self) -> List[dict]:
         out, _ = self.get("/v1/evaluations")

@@ -28,16 +28,21 @@ deployments, register, parse, plan, evaluate, scale, revert,
 deregister), nodes (list, read, allocations, drain, eligibility),
 allocations (list, read, stop), evaluations, deployments (list, read,
 promote, fail), ``/v1/search``, namespaces, node pools, scaling
-policies, ``/v1/volumes`` and ``/v1/volume/csi/<id>``, ``/v1/system/gc``,
+policies, ``/v1/volumes`` and ``/v1/volume/csi/<id>``, the service
+catalog (``/v1/services``, ``/v1/service/<name>``), the routes of the
+agent's own clients (``clients``: ``/v1/client/stats``,
+``/v1/client/fs/(ls|cat|stat)/<alloc>``, ``/v1/client/fs/logs/<alloc>``),
+``/v1/system/gc``,
 ``/v1/operator/scheduler/configuration``, ``/v1/operator/snapshot``,
 ``/v1/operator/raft/configuration`` and ``/v1/operator/raft/peer``,
 ``/v1/status/leader``, ``/v1/agent/self``, ``/v1/agent/monitor``,
-``/v1/agent/pprof/*``, ``/v1/metrics`` (JSON and ``?format=prometheus``),
+``/v1/agent/pprof/*``, ``/v1/metrics`` (JSON and ``?format=prometheus``;
+with each kernel's launch count as ``nomad.kernel.launches.<name>``),
 ``/v1/traces`` and ``/v1/event/stream``.
 
 Left for later (ROADMAP A10), and answered 404 as an unknown route is:
-ACLs and variables (A10.4), the client's fs, exec, logs and stats routes
-and the service catalog (A10.3), dispatch (A10.5), regions, ``?region=``
+ACLs and variables (A10.4), the client's exec sessions (A10.3b),
+dispatch (A10.5), regions, ``?region=``
 forwarding, agent join and members (A10.2), the dashboard (``ui.py``,
 A10.1) and the admission layer's 429 (A10.7).
 
@@ -48,6 +53,7 @@ and joins every handler thread.
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import os
@@ -61,6 +67,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
+from .. import _ext
 from ..obs import REGISTRY, TRACER
 from ..obs.metrics import prometheus_text
 from ..structs import enums
@@ -156,6 +163,9 @@ class HTTPAgent:
         # mutating verbs go through the writer (a ReplicatedServer
         # forwards them to the leader); reads stay on the local store
         self.writer = writer if writer is not None else server
+        # the agent's local clients (client/client.py): /v1/client/*
+        # serves their allocs' files, logs and host stats
+        self.clients: list = []
         self._closing = threading.Event()
         self._conn_lock = threading.Lock()
         self._conns: set = set()
@@ -438,6 +448,31 @@ class HTTPAgent:
                                 if tg.scaling else None)}
                     for tg in job.task_groups},
                 "events": snap.scaling_events(job.id, ns)})
+        if path == "/v1/services":
+            # the catalog's summary (reference ``http.py:673-690``)
+            by_name = {}
+            for reg in snap.service_registrations(ns):
+                e = by_name.setdefault(reg.service_name,
+                                       {"service_name": reg.service_name,
+                                        "namespace": reg.namespace,
+                                        "tags": set(), "instances": 0})
+                e["instances"] += 1
+                e["tags"].update(reg.tags)
+            return h._reply(200, [
+                {**e, "tags": sorted(e["tags"])}
+                for e in sorted(by_name.values(),
+                                key=lambda x: x["service_name"])])
+        if m := re.fullmatch(r"/v1/service/([^/]+)", path):
+            regs = snap.service_by_name(m.group(1), ns)
+            if not regs:
+                return h._error(404, "service not found")
+            return h._reply(200, regs)
+        if path == "/v1/client/stats":
+            return h._reply(200, [c.hoststats.latest() for c in self.clients])
+        if m := re.fullmatch(r"/v1/client/fs/(ls|cat|stat)/([^/]+)", path):
+            return self._route_fs(h, m.group(1), m.group(2), q)
+        if m := re.fullmatch(r"/v1/client/fs/logs/([^/]+)", path):
+            return self._route_logs(h, m.group(1), q, snap)
         if path == "/v1/volumes":
             return h._reply(200, [
                 {"id": v.id, "namespace": v.namespace, "name": v.name,
@@ -563,6 +598,72 @@ class HTTPAgent:
             })
         h._error(404, f"no such route {path}")
 
+    def _find_runner(self, alloc_id: str):
+        for client in self.clients:
+            runner = client.runners.get(alloc_id)
+            if runner is not None:
+                return runner
+        return None
+
+    def _route_fs(self, h, op: str, alloc_id: str, q: dict) -> None:
+        """An alloc's files on this agent's clients (reference
+        ``http.py:1092-1129``)."""
+        from ..client import allocdir
+
+        runner = self._find_runner(alloc_id)
+        if runner is None:
+            return h._error(404, "alloc not on this agent")
+        root = runner.allocdir.root
+        rel = q.get("path", ["/"])[0]
+        try:
+            if op == "ls":
+                return h._reply(200, allocdir.fs_list(root, rel))
+            if op == "stat":
+                return h._reply(200, allocdir.fs_stat(root, rel))
+            offset = max(int(q.get("offset", ["0"])[0] or 0), 0)
+            limit = max(min(int(q.get("limit", ["65536"])[0] or 65536),
+                            1 << 20), 0)
+            data = allocdir.fs_read(root, rel, offset, limit)
+            return h._reply(200, {
+                "data": base64.b64encode(data).decode("ascii"),
+                "offset": offset + len(data)})
+        except PermissionError as e:
+            return h._error(403, str(e))
+        except FileNotFoundError:
+            return h._error(404, f"no such path {rel!r}")
+        except (IsADirectoryError, NotADirectoryError, OSError) as e:
+            return h._error(400, str(e))
+
+    def _route_logs(self, h, alloc_id: str, q: dict, snap) -> None:
+        """A task's log across its rotated files (reference
+        ``http.py:1131-1160``)."""
+        from ..client.allocdir import AllocDir
+        from ..client.logmon import read_log
+
+        alloc = snap.alloc_by_id(alloc_id)
+        if alloc is None:
+            return h._error(404, "alloc not found")
+        task = q.get("task", [""])[0]
+        if not task and alloc.job is not None:
+            tg = alloc.job.lookup_task_group(alloc.task_group)
+            if tg is not None and tg.tasks:
+                task = tg.tasks[0].name
+        kind = q.get("type", ["stdout"])[0]
+        offset = int(q.get("offset", ["0"])[0] or 0)
+        limit = min(int(q.get("limit", ["65536"])[0] or 65536), 1 << 20)
+        for client in self.clients:
+            runner = client.runners.get(alloc_id)
+            log_dir = (runner.allocdir.logs if runner is not None
+                       else AllocDir(client.config.data_dir, alloc_id).logs)
+            if runner is None and not os.path.isdir(log_dir):
+                continue
+            out = read_log(log_dir, task, kind, offset=offset, limit=limit)
+            return h._reply(200, {
+                "task": task, "type": kind, "offset": out["offset"],
+                "size": out["size"],
+                "data": base64.b64encode(out["data"]).decode("ascii")})
+        return h._error(404, "alloc logs not on this agent")
+
     def _search(self, h, snap, q: dict, ns: str, prefix: str) -> None:
         """Prefix search across object types in the request's namespace
         (reference nomad/search_endpoint.go), truncated at 20 a
@@ -667,6 +768,9 @@ class HTTPAgent:
             "nomad.state.live_snapshots": srv.store._tracker.live_count(),
             **REGISTRY.dump(),
         }
+        # each hand-written kernel's launches in this process (_ext.COUNTS)
+        for name, n in _ext.COUNTS.snapshot()["launches"].items():
+            metrics[f"nomad.kernel.launches.{name}"] = n
         if q.get("format", [""])[0] == "prometheus":
             body = prometheus_text(metrics).encode()
             h.send_response(200)

@@ -349,6 +349,15 @@ def _group_dict(block: dict) -> dict:
             "delay_s": float(rp.get("delay", 15)),
             "mode": rp.get("mode", "fail"),
         }
+    if block.get("ephemeral_disk"):
+        # the group's scratch disk (a stanza the reference's parser
+        # skips; Nomad's jobspec has it)
+        ed = block["ephemeral_disk"][0]
+        out["ephemeral_disk"] = {
+            "size_mb": int(ed.get("size", 300)),
+            "sticky": bool(ed.get("sticky", False)),
+            "migrate": bool(ed.get("migrate", False)),
+        }
     volumes = {}
     for vb in block.get("volume", []):
         name = vb.get("__label__", vb.get("name", ""))

@@ -22,20 +22,29 @@ from typing import Dict
 
 from ..structs import enums
 from ..structs.evaluation import Evaluation
+from ..structs.services import collect_services
 from ..utils.ids import generate_uuid
+
+
+def _group_has_checks(tg) -> bool:
+    return any(svc.checks for _, svc in collect_services(tg))
 
 
 def alloc_healthy(alloc, job, now: float) -> bool:
     """Server-side health of one alloc (reference ``deployments.py:35-61``):
-    the client's explicit ``deployment_status`` verdict wins; else every
-    task has been running for the group's ``min_healthy_time``. The port
-    models no service checks, so no group gates health on them."""
+    the client's explicit ``deployment_status`` verdict wins; a group
+    with service checks waits for it; else every task has been running
+    for the group's ``min_healthy_time``."""
     ds = alloc.deployment_status
     if isinstance(ds, dict) and ds.get("healthy") is not None:
         return bool(ds.get("healthy"))
     if alloc.client_status != enums.ALLOC_CLIENT_RUNNING:
         return False
     tg = job.lookup_task_group(alloc.task_group)
+    if tg is not None and _group_has_checks(tg):
+        # only the client's verdict counts: the liveness fallback would
+        # declare success before the check results arrive
+        return False
     min_healthy = (tg.update.min_healthy_time_s
                    if tg is not None and tg.update is not None else 10.0)
     if not alloc.task_states:

@@ -54,7 +54,13 @@ write with its evals), ``promote_deployment`` and ``fail_deployment``;
 ``set_scheduler_config`` (the operator's config as replicated state: a
 replica applies it from its commit listener, and a restore's config
 governs the running server too); ``wait_for_idle`` for tests and
-benchmarks. A caller that plays the
+benchmarks; the client plane's (reference ``:221-226``, ``:984-994``,
+``:1284-1294``): ``alloc_sync`` (core/allocsync.py ``AllocSyncHub``,
+the per-node alloc deltas a client watches), ``client_updates``
+(``ClientUpdateBatcher``, which ``update_allocs_from_client`` submits
+through while it runs; ``ServerConfig.client_update_batching``), and
+``upsert_service_registrations``, ``delete_service_registrations`` and
+``delete_services_by_alloc``. A caller that plays the
 watcher or the drainer itself holds the actor off before ``start``
 (``srv.drainer.start = lambda: None``). Use it as a context manager
 (``with Server(...) as srv:``): ``stop`` leaves no worker, applier,
@@ -68,15 +74,12 @@ not have), and left to ROADMAP A10: periodic jobs and dispatch
 rings of 4,096 events in 8 shards), the heartbeat manager's
 (``heartbeat_shards``, ``heartbeat_expiry_rate``: 8 timer-wheel shards,
 512 mark-downs a second, core/heartbeat.py), the shadow replica
-(``shadow.maybe_attach``, ROADMAP A8), client alloc sync (``alloc_sync``,
-``client_updates``, ``client_update_batching``: client updates write
-straight to the store), ACLs, identities and variables (``acl_*``,
-``encrypter``, ``sign_workload_identity``, ``*_variable``, and core
-GC's token passes), federation and ACL replication (``region*``,
+(``shadow.maybe_attach``, ROADMAP A8), ACLs, identities and variables
+(``acl_*``, ``encrypter``, ``sign_workload_identity``, ``*_variable``,
+and core GC's token passes), federation and ACL replication (``region*``,
 ``_run_acl_replication``), the overload controller (``loadctl``, the
 ``_tiered`` admission decorator, poison-eval quarantine; the heartbeat
-calls are not tiered), service registrations
-(``upsert_service_registrations``, ...), the operator's
+calls are not tiered), the operator's
 ``reject_job_registration`` and ``pause_eval_broker`` switches, and the
 unbatched plan-commit arm
 (``plan_commit_batching``; the applier always batches, see
@@ -103,6 +106,7 @@ from ..structs.node import Node
 from ..structs.operator import SchedulerConfiguration
 from ..tensor import incremental
 from ..utils.ids import generate_uuid
+from .allocsync import AllocSyncHub, ClientUpdateBatcher
 from .blocked import BlockedEvals
 from .broker import FAILED_QUEUE, EvalBroker
 from .core_sched import CoreScheduler
@@ -141,6 +145,9 @@ class ServerConfig:
         default_factory=SchedulerConfiguration)
     # where the placer's tensors and kernels run: None is the card
     device: DeviceLike = None
+    # coalesce concurrent clients' status writes into one store write a
+    # round (core/allocsync.py ClientUpdateBatcher)
+    client_update_batching: bool = True
 
 
 class Server:
@@ -174,6 +181,10 @@ class Server:
         # the incremental usage feed reads this event stream (always
         # attached; NOMAD_TPU_INCR=0 is its call-time kill switch)
         incremental.maybe_attach(self.store, self.events)
+        # delta alloc push to clients and batched client status writes
+        self.alloc_sync = AllocSyncHub(self)
+        self.client_updates = ClientUpdateBatcher(
+            self.store, batch=self.config.client_update_batching)
         self._running = False
         self._reaper: Optional[threading.Thread] = None
         # commit listeners fire on the store's write path; unblocking
@@ -196,6 +207,8 @@ class Server:
         self.plan_applier.start()
         self.broker.set_enabled(True)
         self.blocked.set_enabled(True)
+        self.alloc_sync.start()
+        self.client_updates.start()
         self.heartbeats.set_enabled(True)
         self._restore_heartbeats()
         self._restore_scheduler_config()
@@ -221,6 +234,8 @@ class Server:
         self.drainer.stop()
         self.deployment_watcher.stop()
         self.heartbeats.set_enabled(False)
+        self.client_updates.stop()
+        self.alloc_sync.stop()
         self.blocked.set_enabled(False)
         self.broker.set_enabled(False)
         self.plan_applier.stop()
@@ -601,6 +616,20 @@ class Server:
     def delete_namespace(self, name: str) -> None:
         self.store.delete_namespace(name)
 
+    # -- service registrations (reference ``:1284-1294``) --
+
+    def upsert_service_registrations(self, regs) -> None:
+        for reg in regs:
+            if not reg.service_name or not reg.id:
+                raise ValueError("service registrations require id and name")
+        self.store.upsert_service_registrations(regs)
+
+    def delete_service_registrations(self, ids) -> None:
+        self.store.delete_service_registrations(list(ids))
+
+    def delete_services_by_alloc(self, alloc_id: str) -> None:
+        self.store.delete_services_by_alloc(alloc_id)
+
     def upsert_node_pool(self, pool) -> None:
         from ..structs.operator import BUILTIN_NODE_POOLS
 
@@ -724,12 +753,16 @@ class Server:
         return index
 
     def update_allocs_from_client(self, updates: List) -> None:
-        """Node.UpdateAlloc: client alloc status sync; a job with a
-        failed alloc gets a retry-failed-alloc eval (reference
+        """Node.UpdateAlloc: client alloc status sync, coalesced with the
+        other clients' in-flight rounds while the batcher runs; a job
+        with a failed alloc gets a retry-failed-alloc eval (reference
         ``server.py:984-1021``)."""
         if not updates:
             return
-        self.store.update_allocs_from_client(updates)
+        if self.client_updates.running:
+            self.client_updates.submit(updates)
+        else:
+            self.store.update_allocs_from_client(updates)
         snap = self.store.snapshot()
         seen = set()
         evals = []

@@ -65,7 +65,9 @@ FORWARD = ("register_job", "deregister_job", "scale_job",
            "update_allocs_from_client", "update_alloc_desired_transitions",
            "stop_alloc", "create_eval", "set_scheduler_config",
            "promote_deployment", "fail_deployment",
-           "register_volume", "deregister_volume", "force_gc")
+           "register_volume", "deregister_volume", "force_gc",
+           "upsert_service_registrations", "delete_service_registrations",
+           "delete_services_by_alloc")
 
 
 class ReplicatedServer:

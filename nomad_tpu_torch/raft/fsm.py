@@ -31,7 +31,8 @@ MUTATIONS = {
     "upsert_plan_results", "upsert_plan_results_batch",
     "upsert_deployment", "delete_deployment",
     "upsert_volume", "delete_volume", "reap_volume_claims",
-    "set_scheduler_configuration",
+    "set_scheduler_configuration", "upsert_service_registrations",
+    "delete_service_registrations", "delete_services_by_alloc",
     "gc_terminal_allocs", "compact", "restore_dump",
 }
 

@@ -16,9 +16,9 @@ its own row, blocks de-columnarized into per-position rows.
 
 The layout is the reference's: a reference dump restores into the
 port's store and a port dump into the reference's. The tables the port
-does not model (ACLs, variables, services, regions, one-time tokens)
-are not written and are ignored on read; the ``alloc_modify_index`` column, a field the port's allocations
-lack, is written as 0.
+does not model (ACLs, variables, regions, one-time tokens) are not
+written and are ignored on read; the ``alloc_modify_index`` column, a
+field the port's allocations lack, is written as 0.
 
 Snapshotting is split into capture (pin an MVCC generation: O(1), safe
 under the raft node lock) and serialize (walk the pinned generation,
@@ -91,6 +91,8 @@ def serialize_capture(store, snap, fmt: int = FORMAT) -> dict:
                        for _, p in store._node_pools.iterate(snap.index)],
         "namespaces": [wire_encode(x)
                        for _, x in store._namespaces.iterate(snap.index)],
+        "services": [wire_encode(r)
+                     for _, r in store._services.iterate(snap.index)],
         "scheduler_config": wire_encode(cfg) if cfg is not None else None,
         "scaling_events": [
             {"key": list(k), "events": list(v)}
@@ -297,6 +299,7 @@ def restore_store(store, data: dict) -> None:
     volumes = [wire_decode(x) for x in data.get("volumes", [])]
     node_pools = [wire_decode(x) for x in data.get("node_pools", [])]
     namespaces = [wire_decode(x) for x in data.get("namespaces", [])]
+    services = [wire_decode(x) for x in data.get("services", [])]
     scaling_events = data.get("scaling_events", [])
     sched_cfg = (wire_decode(data["scheduler_config"])
                  if data.get("scheduler_config") is not None else None)
@@ -325,6 +328,7 @@ def restore_store(store, data: dict) -> None:
             id(store._volumes): {(v.namespace, v.id) for v in volumes},
             id(store._node_pools): {p.name for p in node_pools},
             id(store._namespaces): {x.name for x in namespaces},
+            id(store._services): {r.id for r in services},
             id(store._scaling_events): {tuple(e["key"])
                                         for e in scaling_events},
             id(store._scheduler_config): ({"config"} if sched_cfg is not None
@@ -397,6 +401,11 @@ def restore_store(store, data: dict) -> None:
             store._node_pools.put(p.name, p, gen, live)
         for x in namespaces:
             store._namespaces.put(x.name, x, gen, live)
+        for r in services:
+            store._services.put(r.id, r, gen, live)
+            _prepend(store._services_by_name, (r.namespace, r.service_name),
+                     r.id, gen, live)
+            _prepend(store._services_by_alloc, r.alloc_id, r.id, gen, live)
         for e in scaling_events:
             store._scaling_events.put(tuple(e["key"]), tuple(e["events"]),
                                       gen, live)

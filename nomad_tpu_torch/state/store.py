@@ -1,7 +1,8 @@
 """The state store, trimmed to the placement paths and the allocation
 lifecycle (reference ``nomad_tpu/state/store.py``): nodes, node pools,
 namespaces, jobs with their versions and scaling events, evals,
-deployments, registered volumes with their claims, alloc blocks (the bulk path's placements) and single
+deployments, registered volumes with their claims, service
+registrations, alloc blocks (the bulk path's placements) and single
 allocations (the per-eval path's) in MVCC tables, one serialized writer
 and any number of concurrent snapshot readers. ``watches`` (state/watch.py)
 parks the blocking queries of the HTTP API until a commit passes their
@@ -18,7 +19,8 @@ and payloads (``node-upsert``, ``node-status``, ``node-eligibility``,
 ``alloc-transition``, ``alloc-block-upsert``, ``node-delete``,
 ``job-status``, ``eval-delete``, ``deployment-delete``, ``alloc-gc``,
 ``volume-upsert``, ``volume-delete``, ``volume-claim``,
-``volume-claim-release``, ``scheduler-config``, ``restore``), which the
+``volume-claim-release``, ``service-register``,
+``service-deregister``, ``scheduler-config``, ``restore``), which the
 Server's unblock rules, the event broker and the incremental feed read.
 Core GC's writes: ``delete_node``, ``delete_evals``, ``delete_job``,
 ``update_job_status``, ``delete_deployment``, ``reap_volume_claims``,
@@ -302,6 +304,23 @@ class StateSnapshot:
             if namespace is None or ns == namespace:
                 yield v
 
+    # --- service registrations ---
+
+    def service_registrations(self, namespace: Optional[str] = None):
+        """Every live registration (reference ``store.py:391-395``)."""
+        for _, reg in self._store._services.iterate(self.index):
+            if namespace is None or reg.namespace == namespace:
+                yield reg
+
+    def service_by_name(self, name: str, namespace: str = "default"):
+        out = []
+        for rid in dict.fromkeys(cons_iter(self._store._services_by_name.get(
+                (namespace, name), self.index))):
+            reg = self._store._services.get(rid, self.index)
+            if reg is not None:
+                out.append(reg)
+        return out
+
     # --- deployments ---
 
     def deployments(self) -> Iterator[Deployment]:
@@ -442,6 +461,11 @@ class StateStore:
         self._node_dev_usage = VersionedTable("node_dev_usage")
         # the replicated singleton "config" -> SchedulerConfiguration
         self._scheduler_config = VersionedTable("scheduler_config")
+        # the builtin service catalog: registrations by id, with
+        # (namespace, service name) and alloc id indexes
+        self._services = VersionedTable("services")
+        self._services_by_name = VersionedTable("services_by_name")
+        self._services_by_alloc = VersionedTable("services_by_alloc")
 
         # the time source of the mutators' ``ts`` fallbacks
         self._clock = time.time
@@ -464,7 +488,8 @@ class StateStore:
             self._deployments, self._deployments_by_job,
             self._allocs_by_node, self._allocs_by_job, self._allocs_by_eval,
             self._node_usage, self._node_dev_usage, self._scheduler_config,
-            self._namespaces, self._scaling_events]
+            self._namespaces, self._scaling_events, self._services,
+            self._services_by_name, self._services_by_alloc]
         # parked blocking queries, woken by this store's commits (every
         # replica wakes its own as replication applies)
         from .watch import WatchTable
@@ -966,6 +991,9 @@ class StateStore:
                     promoted[bid] = promoted.get(bid, 0) + 1
                 self._usage_apply(existing, merged, gen, live)
                 events.append(("alloc-client-update", merged))
+                if merged.client_terminal():
+                    self._reap_services_for_terminal(merged, gen, live,
+                                                     events)
             self._count_promoted(promoted, gen, live)
             self._commit(gen, events)
             return gen
@@ -1073,6 +1101,79 @@ class StateStore:
             self._commit(gen, [("volume-delete", vol)])
             return gen
 
+    # --- service registrations (reference ``store.py:1385-1455``) ---
+
+    def upsert_service_registrations(self, regs) -> int:
+        with self._write_lock:
+            gen, live = self._begin()
+            events = []
+            for reg in regs:
+                prev = self._services.get_latest(reg.id)
+                reg.create_index = (prev.create_index if prev is not None
+                                    else gen)
+                reg.modify_index = gen
+                self._services.put(reg.id, reg, gen, live)
+                if prev is None:
+                    key = (reg.namespace, reg.service_name)
+                    self._services_by_name.put(key, cons(
+                        reg.id, self._services_by_name.get_latest(key)),
+                        gen, live)
+                    self._services_by_alloc.put(reg.alloc_id, cons(
+                        reg.id,
+                        self._services_by_alloc.get_latest(reg.alloc_id)),
+                        gen, live)
+                events.append(("service-register", reg))
+            self._commit(gen, events)
+            return gen
+
+    def _delete_service_regs(self, ids, gen: int, live: int,
+                             events: list) -> None:
+        for rid in ids:
+            reg = self._services.get_latest(rid)
+            if reg is None:
+                continue
+            self._services.delete(rid, gen, live)
+            key = (reg.namespace, reg.service_name)
+            left = [i for i in cons_iter(self._services_by_name.get_latest(
+                key)) if i != rid]
+            self._services_by_name.put(
+                key, cons_from_iter(reversed(left)), gen, live)
+            aleft = [i for i in cons_iter(self._services_by_alloc.get_latest(
+                reg.alloc_id)) if i != rid]
+            self._services_by_alloc.put(
+                reg.alloc_id,
+                cons_from_iter(reversed(aleft)) if aleft else None,
+                gen, live)
+            events.append(("service-deregister", reg))
+
+    def _reap_services_for_terminal(self, alloc, gen: int, live: int,
+                                    events: list) -> None:
+        """A terminal alloc's registrations go with it: a crashed or lost
+        node's client never deregisters them."""
+        cell = self._services_by_alloc.get_latest(alloc.id)
+        if cell is not None:
+            self._delete_service_regs(list(cons_iter(cell)), gen, live,
+                                      events)
+
+    def delete_service_registrations(self, ids) -> int:
+        with self._write_lock:
+            gen, live = self._begin()
+            events = []
+            self._delete_service_regs(list(ids), gen, live, events)
+            self._commit(gen, events)
+            return gen
+
+    def delete_services_by_alloc(self, alloc_id: str) -> int:
+        with self._write_lock:
+            gen, live = self._begin()
+            cell = self._services_by_alloc.get_latest(alloc_id)
+            events = []
+            if cell is not None:
+                self._delete_service_regs(list(cons_iter(cell)), gen, live,
+                                          events)
+            self._commit(gen, events)
+            return gen
+
     def _claim_volumes_for(self, alloc: Allocation, gen: int, live: int,
                            events: list) -> None:
         """Record a first-inserted placement's csi claims inside the
@@ -1177,6 +1278,8 @@ class StateStore:
                 self._rehydrate_jobs(evictions, job)
                 self._rehydrate_jobs(results, job)
                 self._rehydrate_jobs(blocks, job)
+                for a in stops:
+                    self._reap_services_for_terminal(a, gen, live, events)
                 self._put_allocs(stops, gen, live, ts)
                 events.extend(("alloc-stop", a) for a in stops)
                 self._put_allocs(evictions, gen, live, ts)
@@ -1297,6 +1400,8 @@ class StateStore:
                     stopped.desired_description = SUPERSEDED
                     stops.append(stopped)
         if stops:
+            for a in stops:
+                self._reap_services_for_terminal(a, gen, live, events)
             self._put_allocs(stops, gen, live, ts)
             events.extend(("alloc-stop", a) for a in stops)
             self.superseded += len(stops)

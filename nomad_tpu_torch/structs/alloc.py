@@ -14,6 +14,44 @@ from .resources import comparable
 
 
 @dataclass(slots=True)
+class TaskEvent:
+    """One event of a task's lifecycle (reference
+    ``structs/alloc.py:71-81``)."""
+
+    type: str = ""
+    time: float = 0.0
+    message: str = ""
+    details: Dict[str, str] = field(default_factory=dict)
+    exit_code: Optional[int] = None
+    restart_reason: str = ""
+
+
+@dataclass(slots=True)
+class TaskState:
+    """Client-observed state of one task: pending, running or dead
+    (reference ``structs/alloc.py:84-105``)."""
+
+    state: str = "pending"
+    failed: bool = False
+    restarts: int = 0
+    last_restart: float = 0.0
+    started_at: float = 0.0
+    finished_at: float = 0.0
+    events: List[TaskEvent] = field(default_factory=list)
+
+    def successful(self) -> bool:
+        return self.state == "dead" and not self.failed
+
+    def copy(self) -> "TaskState":
+        """A detached copy: the runner's thread keeps writing the live
+        object, the store must hold one that does not move."""
+        return TaskState(
+            state=self.state, failed=self.failed, restarts=self.restarts,
+            last_restart=self.last_restart, started_at=self.started_at,
+            finished_at=self.finished_at, events=list(self.events))
+
+
+@dataclass(slots=True)
 class RescheduleEvent:
     reschedule_time: float = 0.0
     prev_alloc_id: str = ""

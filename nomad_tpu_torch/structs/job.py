@@ -17,7 +17,7 @@ from .volumes import VolumeMount, VolumeRequest
 
 @dataclass(slots=True)
 class RestartPolicy:
-    """Client-side restart policy (data: the client is not ported)."""
+    """Client-side restart policy (the client's task runner reads it)."""
 
     attempts: int = 2
     interval_s: float = 30 * 60.0
@@ -43,6 +43,8 @@ class UpdateStrategy:
 
     max_parallel: int = 1
     min_healthy_time_s: float = 10.0
+    # the client's health watch gives up on an alloc after this long
+    healthy_deadline_s: float = 300.0
     progress_deadline_s: float = 600.0
     auto_revert: bool = False
     auto_promote: bool = False
@@ -62,6 +64,7 @@ class MigrateStrategy:
 @dataclass(slots=True)
 class EphemeralDisk:
     size_mb: int = 300
+    sticky: bool = False
     migrate: bool = False
 
 
@@ -78,13 +81,20 @@ class ScalingPolicy:
 
 @dataclass(slots=True)
 class Service:
-    """A group's service stanza (data: registrations are the client's)."""
+    """A group's or a task's service stanza: the client registers an
+    instance of it while the alloc runs (``structs/services.py``)."""
 
     name: str = ""
     port_label: str = ""
     provider: str = "builtin"
     tags: List[str] = field(default_factory=list)
     checks: List[dict] = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class LogConfig:
+    max_files: int = 10
+    max_file_size_mb: int = 10
 
 
 @dataclass(slots=True)
@@ -103,6 +113,10 @@ class Task:
     meta: Dict[str, str] = field(default_factory=dict)
     # {"type": "volume" | "device", "id": ...}; None: no stanza
     plugin: Optional[Dict[str, str]] = None
+    services: List[Service] = field(default_factory=list)
+    lifecycle_hook: str = ""      # "" (main) | prestart | poststart | poststop
+    lifecycle_sidecar: bool = False
+    log_config: LogConfig = field(default_factory=LogConfig)
 
 
 @dataclass(slots=True)
@@ -126,6 +140,8 @@ class TaskGroup:
     # an alloc on a node that stops heartbeating goes "unknown" for this
     # long (with a replacement) before it is lost; None: lost at once
     max_client_disconnect_s: Optional[float] = None
+    # a client cut off from the servers this long stops the alloc itself
+    stop_after_client_disconnect_s: Optional[float] = None
     services: List[Service] = field(default_factory=list)
     scaling: Optional[ScalingPolicy] = None
     meta: Dict[str, str] = field(default_factory=dict)

@@ -29,10 +29,10 @@ def _build_registry() -> None:
     if _REGISTRY:
         return
     from . import (alloc, constraint, deployment, evaluation, job, network,
-                   node, operator, plan, resources, volumes)
+                   node, operator, plan, resources, services, volumes)
 
     for mod in (alloc, constraint, deployment, evaluation, job, network,
-                node, operator, plan, resources, volumes):
+                node, operator, plan, resources, services, volumes):
         for name in dir(mod):
             obj = getattr(mod, name)
             if isinstance(obj, type) and dataclasses.is_dataclass(obj):

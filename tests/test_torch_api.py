@@ -379,11 +379,9 @@ def stack(request, cluster_nodes, ref_nodes):
 
 LEFT_FOR_LATER = [
     ("GET", "/v1/acl/tokens"), ("GET", "/v1/acl/policies"),
-    ("GET", "/v1/vars"), ("GET", "/v1/var/a/b"), ("GET", "/v1/services"),
-    ("GET", "/v1/service/web"), ("GET", "/v1/regions"),
+    ("GET", "/v1/vars"), ("GET", "/v1/var/a/b"), ("GET", "/v1/regions"),
     ("GET", "/v1/operator/regions"), ("GET", "/v1/agent/members"),
-    ("GET", "/v1/client/stats"), ("GET", "/v1/client/fs/ls/x"),
-    ("GET", "/v1/client/fs/logs/x"), ("GET", "/"), ("GET", "/ui"),
+    ("GET", "/"), ("GET", "/ui"),
     ("POST", "/v1/acl/bootstrap"), ("POST", "/v1/acl/token"),
     ("POST", "/v1/var/a"), ("POST", "/v1/job/x/dispatch"),
     ("POST", "/v1/agent/join"), ("POST", "/v1/operator/region/r2"),

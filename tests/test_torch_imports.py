@@ -68,6 +68,9 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import nomad_tpu_torch.api.client, nomad_tpu_torch.api.codec\n"
         "import nomad_tpu_torch.api.jobspec, nomad_tpu_torch.state.watch\n"
         "import nomad_tpu_torch.obs.export, nomad_tpu_torch.obs.__main__\n"
+        "import nomad_tpu_torch.client, nomad_tpu_torch.core.allocsync\n"
+        "import nomad_tpu_torch.structs.services, nomad_tpu_torch.cli\n"
+        "import nomad_tpu_torch.agent_config, nomad_tpu_torch.__main__\n"
         "from nomad_tpu_torch.core import Server, ServerConfig\n"
         "from nomad_tpu_torch.core import RaftCluster, ReplicatedServer\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
@@ -95,6 +98,50 @@ def test_lifecycle_modules_import_alone(module):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", [
+    "nomad_tpu_torch.client", "nomad_tpu_torch.client.client",
+    "nomad_tpu_torch.client.alloc_runner",
+    "nomad_tpu_torch.client.task_runner", "nomad_tpu_torch.client.drivers",
+    "nomad_tpu_torch.client.executor", "nomad_tpu_torch.client.logmon",
+    "nomad_tpu_torch.client.fingerprint", "nomad_tpu_torch.client.hoststats",
+    "nomad_tpu_torch.client.checks", "nomad_tpu_torch.client.state_db",
+    "nomad_tpu_torch.client.allocdir", "nomad_tpu_torch.client.taskenv",
+    "nomad_tpu_torch.core.allocsync", "nomad_tpu_torch.structs.services",
+    "nomad_tpu_torch.cli", "nomad_tpu_torch.agent_config",
+    "nomad_tpu_torch.__main__"])
+def test_client_modules_import_alone(module):
+    """Each module of the client, the alloc sync and the command line,
+    imported on its own in a fresh interpreter, pulls in neither jax nor
+    the reference."""
+    code = (f"import json, sys, {module}\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'nomad_tpu.')) or m == 'nomad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_executor_and_logmon_are_standard_library_only():
+    """The executor and the log capture it imports as a plain script
+    import nothing outside the standard library (a task launch pays no
+    torch import and never touches the card)."""
+    allowed = set(sys.stdlib_module_names) | {"logmon", "__future__"}
+    for name in ("executor.py", "logmon.py"):
+        path = REPO / "nomad_tpu_torch" / "client" / name
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert all(n.split(".")[0] in allowed for n in names), (
+                name, names)
 
 
 @pytest.mark.parametrize("module", [
@@ -148,7 +195,15 @@ def test_no_source_imports_jax_or_the_reference():
                 "utils/backoff.py", "utils/files.py", "api/__init__.py",
                 "api/http.py", "api/client.py", "api/codec.py",
                 "api/jobspec.py", "state/watch.py", "obs/export.py",
-                "obs/__main__.py"):
+                "obs/__main__.py", "client/__init__.py", "client/client.py",
+                "client/alloc_runner.py", "client/task_runner.py",
+                "client/drivers.py", "client/executor.py",
+                "client/logmon.py", "client/fingerprint.py",
+                "client/hoststats.py", "client/checks.py",
+                "client/state_db.py", "client/allocdir.py",
+                "client/taskenv.py", "core/allocsync.py",
+                "structs/services.py", "cli.py", "agent_config.py",
+                "__main__.py"):
         assert (REPO / "nomad_tpu_torch" / mod) in _sources()
     assert not bad, bad
 
